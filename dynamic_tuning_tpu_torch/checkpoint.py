@@ -9,7 +9,9 @@ dynamic_tuning_tpu/train/checkpoint.py).
   the rules of ``import_pretrained``: ``pre_logits.*`` dropped, a head of
   another width dropped (head surgery), unknown keys reported and ignored,
   keys the checkpoint lacks (adapters and routers of an IN21K backbone)
-  left at their init and returned as missing.
+  left at their init and returned as missing;
+* ``make_vit_state_dict``: a seeded synthetic timm+DyT state dict, for runs
+  on random weights (``chip_smoke.py``) and the tests.
 """
 
 from __future__ import annotations
@@ -87,6 +89,58 @@ def from_flax_params(params: Mapping) -> Dict[str, np.ndarray]:
     """JAX-package param tree -> timm-named numpy state dict."""
     return {flax_path_to_timm(p): _to_torch_layout(p, np.array(w))
             for p, w in _flatten(params)}
+
+
+def make_vit_state_dict(rs: np.random.RandomState, *, depth: int, dim: int,
+                        ffn: int, classes: int, img: int, patch: int,
+                        router_scale: float = 25.0,
+                        in_chans: int = 3) -> Dict[str, np.ndarray]:
+    """Random timm+DyT state dict at IN21K-like weight scales (trunc-normal
+    .02-class weights, LN scales near 1, small biases), drawn from ``rs`` in
+    a fixed order so one seed always gives the same values.  The router head
+    is scaled by ``router_scale`` so hard sigmoid > 0.5 gates have margin
+    against float noise."""
+    grid = img // patch
+    T = grid * grid + 1
+
+    def w(*shape, s=0.03):
+        return np.clip(rs.randn(*shape) * s, -2 * s, 2 * s).astype(np.float32)
+
+    sd = {
+        "cls_token": w(1, 1, dim, s=0.02),
+        "pos_embed": w(1, T, dim, s=0.02),
+        "patch_embed.proj.weight": w(dim, in_chans, patch, patch, s=0.06),
+        "patch_embed.proj.bias": w(dim, s=0.02),
+        "norm.weight": 1.0 + w(dim, s=0.05),
+        "norm.bias": w(dim, s=0.02),
+        "head.weight": w(classes, dim, s=0.02),
+        "head.bias": w(classes, s=0.01),
+    }
+    for i in range(depth):
+        p = f"blocks.{i}."
+        sd.update({
+            p + "norm1.weight": 1.0 + w(dim, s=0.05),
+            p + "norm1.bias": w(dim, s=0.02),
+            p + "attn.qkv.weight": w(3 * dim, dim),
+            p + "attn.qkv.bias": w(3 * dim, s=0.02),
+            p + "attn.proj.weight": w(dim, dim),
+            p + "attn.proj.bias": w(dim, s=0.02),
+            p + "norm2.weight": 1.0 + w(dim, s=0.05),
+            p + "norm2.bias": w(dim, s=0.02),
+            p + "mlp.fc1.weight": w(4 * dim, dim),
+            p + "mlp.fc1.bias": w(4 * dim, s=0.02),
+            p + "mlp.fc2.weight": w(dim, 4 * dim),
+            p + "mlp.fc2.bias": w(dim, s=0.02),
+            p + "adaptmlp.down_proj.weight": w(ffn, dim),
+            p + "adaptmlp.down_proj.bias": w(ffn, s=0.02),
+            p + "adaptmlp.up_proj.weight": w(dim, ffn, s=0.02),
+            p + "adaptmlp.up_proj.bias": w(dim, s=0.01),
+            p + "mlp_token_select.mlp_head.weight":
+                (rs.randn(1, dim) * router_scale / np.sqrt(dim)
+                 ).astype(np.float32),
+            p + "mlp_token_select.mlp_head.bias": w(1, s=0.1),
+        })
+    return sd
 
 
 def load_timm_state_dict(model: torch.nn.Module, state_dict: Mapping,

@@ -76,21 +76,6 @@ struct AttnLayout {
   }
 };
 
-__device__ __forceinline__ void ldmatrix_x4_trans(unsigned (&r)[4],
-                                                  const void* p) {
-  unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(a));
-}
-
-__device__ __forceinline__ unsigned pack_bf16x2(float lo, float hi) {
-  __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<unsigned*>(&h);
-}
-
 // One block per (sample, head).  Each warp owns 16 query rows at a time and
 // walks the keys in chunks of 16: S = Q K^T lands in mma accumulators, the
 // clamped exp turns it in registers into the bf16 A operand of P V, and l
@@ -224,6 +209,13 @@ static cudaError_t launch_attn_core(const bf16* qkv, bf16* out, int B, int N,
   return cudaGetLastError();
 }
 
+static cudaError_t attn_core(const bf16* qkv, bf16* out, int B, int N, int C,
+                             int H, float scale, cudaStream_t s) {
+  if (C == 64 * H) return launch_attn_core<64>(qkv, out, B, N, H, scale, s);
+  if (C == 128 * H) return launch_attn_core<128>(qkv, out, B, N, H, scale, s);
+  return cudaErrorInvalidValue;
+}
+
 template <typename TX>
 static cudaError_t sublayer(const TX* x, const float* gamma, const float* beta,
                             const bf16* wqkv, const float* bqkv,
@@ -231,7 +223,7 @@ static cudaError_t sublayer(const TX* x, const float* gamma, const float* beta,
                             float* xm32, bf16* ln_buf, bf16* qkv_buf,
                             bf16* attn_buf, int B, int N, int C, int H,
                             float scale, cudaStream_t s) {
-  const int M = B * N, hd = C / H;
+  const int M = B * N;
   layernorm_bf16_kernel<TX><<<(M + 7) / 8, 256, 0, s>>>(x, gamma, beta,
                                                         ln_buf, M, C);
   cudaError_t err = cudaGetLastError();
@@ -242,12 +234,7 @@ static cudaError_t sublayer(const TX* x, const float* gamma, const float* beta,
                                           nullptr, s);
   if (err != cudaSuccess) return err;
 
-  if (hd == 64)
-    err = launch_attn_core<64>(qkv_buf, attn_buf, B, N, H, scale, s);
-  else if (hd == 128)
-    err = launch_attn_core<128>(qkv_buf, attn_buf, B, N, H, scale, s);
-  else
-    err = cudaErrorInvalidValue;
+  err = attn_core(qkv_buf, attn_buf, B, N, C, H, scale, s);
   if (err != cudaSuccess) return err;
 
   return launch_gemm_nt<EPI_RESIDUAL, TX>(attn_buf, wproj, bproj, M, C, C,
@@ -264,6 +251,15 @@ int dyt_attn_core_smem_bytes(int N, int hd) {
   if (hd == 64) return dyt::AttnLayout<64>::smem_bytes(N);
   if (hd == 128) return dyt::AttnLayout<128>::smem_bytes(N);
   return 0;
+}
+
+// The bf16 attention core alone: qkv [B, N, 3C] -> out [B, N, C], both bf16
+// (the int8 sublayer chain of quant.cu runs it between its int8 GEMMs).
+int dyt_attn_core(const void* qkv, void* out, int B, int N, int C, int H,
+                  float scale, void* stream) {
+  return dyt::attn_core(static_cast<const dyt::bf16*>(qkv),
+                        static_cast<dyt::bf16*>(out), B, N, C, H, scale,
+                        static_cast<cudaStream_t>(stream));
 }
 
 // x, out: [B, N, C] in the residual dtype (x_f32 selects fp32 over bf16);

@@ -1,6 +1,7 @@
 // Shared helpers of the serving kernels: bf16 conversions, cp.async, warp
-// reductions and the NT tensor-core GEMM that the attention sublayer chain
-// (attention_sublayer.cu) runs twice per block.
+// reductions, the bf16 and int8 mma.sync primitives, and the NT tensor-core
+// GEMM that the attention sublayer chain (attention_sublayer.cu) runs twice
+// per block (quant.cu's int8 GEMM keeps its ring and tiling).
 //
 // The GEMM is the plain Ampere-style form: 128x128x32 block tiles fed by a
 // four-stage cp.async ring, eight warps of 64x32 tiles of mma.sync bf16
@@ -62,6 +63,21 @@ __device__ __forceinline__ void ldmatrix_x4(unsigned (&r)[4], const void* p) {
       : "r"(a));
 }
 
+__device__ __forceinline__ void ldmatrix_x4_trans(unsigned (&r)[4],
+                                                  const void* p) {
+  unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(a));
+}
+
+__device__ __forceinline__ unsigned pack_bf16x2(float lo, float hi) {
+  __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<unsigned*>(&h);
+}
+
 // c += a (16x16, row) * b (16x8, col)
 __device__ __forceinline__ void mma_bf16_16816(float (&c)[4],
                                                const unsigned (&a)[4],
@@ -70,6 +86,19 @@ __device__ __forceinline__ void mma_bf16_16816(float (&c)[4],
       "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// c += a (16x32, row) * b (32x8, col) in int8 with int32 accumulators.  Its
+// fragments hold the same bytes per thread as the bf16 m16n8k16 ones, so
+// the bf16 ldmatrix addressing serves with k counted in bytes.
+__device__ __forceinline__ void mma_s8_16832(int (&c)[4],
+                                             const unsigned (&a)[4],
+                                             unsigned b0, unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
@@ -123,6 +152,16 @@ __device__ __forceinline__ void load8(const float* p, float* v) {
   const float4 b = *reinterpret_cast<const float4*>(p + 4);
   v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
   v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
+}
+__device__ __forceinline__ void load8(const bf16* p, float* v) {
+  const uint4 u = *reinterpret_cast<const uint4*>(p);
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    const float2 f = __bfloat1622float2(h[e]);
+    v[2 * e] = f.x;
+    v[2 * e + 1] = f.y;
+  }
 }
 __device__ __forceinline__ void store8(float* p, const float* v) {
   *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);

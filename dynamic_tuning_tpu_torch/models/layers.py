@@ -12,9 +12,12 @@ not on every call as the JAX package casts them.
 ``Block`` takes the fused serving kernels of ``ops/mha_serving.py`` under the
 same applicability predicate as the JAX Block (``_attention_fusable`` plus
 N <= 512); otherwise it runs the module path (Attention, TokenSelect,
-Adapter).  Training, MoE adapters, adapter in/out LayerNorm, LayerScale,
-BEiT q/v biases, windowed attention and int8 belong to later slices and
-raise NotImplementedError.
+Adapter).  With ``quant="int8"`` or ``"int8_attn"`` it takes the int8
+kernels of ``ops/quant.py`` instead (K6/K5 for the sublayer, K4 for the MLP
+on every path), with int8 weights quantized once per load from the fp32
+parameters.  Training, MoE adapters, adapter in/out LayerNorm, LayerScale,
+BEiT q/v biases and windowed attention belong to later slices and raise
+NotImplementedError.
 """
 
 from __future__ import annotations
@@ -26,9 +29,10 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from dynamic_tuning_tpu.config import SelectConfig, TuningConfig
+from dynamic_tuning_tpu_torch.config import SelectConfig, TuningConfig
 from dynamic_tuning_tpu_torch.ops import dispatch as D
 from dynamic_tuning_tpu_torch.ops import mha_serving as ms
+from dynamic_tuning_tpu_torch.ops import quant as qt
 from dynamic_tuning_tpu_torch.ops.gumbel import gumbel_sigmoid
 
 LN_EPS = 1e-6
@@ -60,24 +64,32 @@ def _linear(n_in: int, n_out: int, generator: torch.Generator, *,
 # --- compute-dtype weight copies ---------------------------------------------
 
 class _WeightCache:
-    """Compute-dtype contiguous copies of fp32 parameters, keyed on the
-    parameter's storage and version so a load_state_dict or .to() refreshes
-    them."""
+    """Compute-dtype contiguous copies and int8 quantizations of fp32
+    parameters, keyed on the parameter's storage and version so a
+    load_state_dict or .to() refreshes them."""
 
     def __init__(self):
         self._entries = {}
 
-    def get(self, p: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-        if p.dtype == dtype:
-            return p.detach()
-        key = (id(p), dtype)
+    def _cached(self, p: torch.Tensor, tag, make):
+        key = (id(p), tag)
         stamp = (p.data_ptr(), p._version, p.device)
         hit = self._entries.get(key)
         if hit is None or hit[0] != stamp:
             with torch.inference_mode(False), torch.no_grad():
-                hit = (stamp, p.detach().to(dtype).contiguous())
+                hit = (stamp, make(p.detach()))
             self._entries[key] = hit
         return hit[1]
+
+    def get(self, p: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+        if p.dtype == dtype:
+            return p.detach()
+        return self._cached(p, dtype, lambda t: t.to(dtype).contiguous())
+
+    def int8(self, p: torch.Tensor, quantize=qt.quantize_weight):
+        """(int8 codes, fp32 per-channel scales) of the fp32 master weight
+        ``p`` -- never of a rounded copy, whose codes differ."""
+        return self._cached(p, ("int8", quantize), quantize)
 
 
 def _layer_norm(x: torch.Tensor, norm: nn.LayerNorm) -> torch.Tensor:
@@ -114,6 +126,11 @@ class Mlp(nn.Module):
         self.dtype = dtype
         self._w = _WeightCache()
 
+    def q8_weights(self):
+        """(w1q, s1, b1, w2q, s2, b2) for the int8 MLP kernel (K4)."""
+        return (*self._w.int8(self.fc1.weight), self.fc1.bias.detach(),
+                *self._w.int8(self.fc2.weight), self.fc2.bias.detach())
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         w = self._w.get
         h = F.linear(x.to(self.dtype), w(self.fc1.weight, self.dtype),
@@ -139,14 +156,23 @@ class Attention(nn.Module):
         self.dtype = dtype
         self._w = _WeightCache()
 
+    def _bqkv(self) -> torch.Tensor:
+        if self.qkv.bias is not None:
+            return self.qkv.bias.detach()
+        return torch.zeros(3 * self.proj.in_features,
+                           device=self.qkv.weight.device)
+
     def kernel_weights(self):
         """(wqkv [3C, C], bqkv fp32 [3C], wproj [C, C], bproj fp32 [C])."""
-        C = self.proj.in_features
         w = self._w.get
-        bqkv = (self.qkv.bias if self.qkv.bias is not None
-                else torch.zeros(3 * C, device=self.qkv.weight.device))
-        return (w(self.qkv.weight, self.dtype), bqkv.detach(),
+        return (w(self.qkv.weight, self.dtype), self._bqkv(),
                 w(self.proj.weight, self.dtype), self.proj.bias.detach())
+
+    def q8_weights(self):
+        """(wqkv_q, sqkv, bqkv, wproj_q, sproj, bproj) for the int8 kernels
+        (K5, K6)."""
+        return (*self._w.int8(self.qkv.weight), self._bqkv(),
+                *self._w.int8(self.proj.weight), self.proj.bias.detach())
 
     def _dense(self, x, lin):
         w = self._w.get
@@ -280,8 +306,9 @@ class Block(nn.Module):
         if qv_bias_only:
             raise NotImplementedError("BEiT q/v biases come with the "
                                       "segmentation slice")
-        if quant != "none":
-            raise NotImplementedError("int8 serving comes with its own slice")
+        if quant not in ("none", "int8", "int8_attn"):
+            raise ValueError(f"quant={quant!r}: none, int8 or int8_attn")
+        self.quant = quant
         self.num_heads = num_heads
         self.attn_drop = attn_drop
         self.select = select
@@ -301,6 +328,11 @@ class Block(nn.Module):
             self.adaptmlp = Adapter(tuning, dim, generator, dtype=dtype)
 
     def _mlp_rows(self, rows: torch.Tensor) -> torch.Tensor:
+        if self.quant != "none":
+            return qt.q8_ln_mlp(rows, self.norm2.weight.detach(),
+                                self.norm2.bias.detach(),
+                                *self.mlp.q8_weights(),
+                                gelu_approx=self.mlp.gelu == "tanh")
         return self.mlp(_layer_norm(rows, self.norm2).to(self.dtype))
 
     def forward(self, x: torch.Tensor, complete_model: bool = False,
@@ -313,18 +345,28 @@ class Block(nn.Module):
         with_select = self.select and not complete_model
         thr = self.select_cfg.threshold
         gate = logits = adapt_x = None
+        # int8: K6/K5 for the sublayer where the kernels apply, K4 for the
+        # MLP always -- on CUDA tensors the kernels run or raise, never bf16
+        q8 = self.quant != "none"
+        attn_q8 = self.quant == "int8_attn"
 
         if fuse:
-            wqkv, bqkv, wproj, bproj = self.attn.kernel_weights()
+            attn_w = (self.attn.q8_weights() if q8
+                      else self.attn.kernel_weights())
             g1, b1 = self.norm1.weight.detach(), self.norm1.bias.detach()
         if fuse and self.tuning.ffn_adapt:
             head = self.mlp_token_select.mlp_head if with_select else None
-            outs = ms.dyt_prologue_serving(
-                x, g1, b1, wqkv, bqkv, wproj, bproj,
-                *self.adaptmlp.kernel_weights(),
-                head.weight.detach() if head is not None else None,
-                head.bias.detach() if head is not None else None,
-                heads=self.num_heads, with_select=with_select)
+            sel_w = ((head.weight.detach(), head.bias.detach())
+                     if head is not None else (None, None))
+            if q8:
+                outs = qt.dyt_prologue_serving_q8(
+                    x, g1, b1, *attn_w, *self.adaptmlp.kernel_weights(),
+                    *sel_w, heads=self.num_heads, with_select=with_select,
+                    attn_q8=attn_q8)
+            else:
+                outs = ms.dyt_prologue_serving(
+                    x, g1, b1, *attn_w, *self.adaptmlp.kernel_weights(),
+                    *sel_w, heads=self.num_heads, with_select=with_select)
             if with_select:
                 x, adapt_x, sel = outs
                 logits = sel[:, 1:, :]                  # strip the CLS row
@@ -332,9 +374,12 @@ class Block(nn.Module):
             else:
                 x, adapt_x = outs
         else:
-            if fuse:
-                x = ms.attention_sublayer_serving(x, g1, b1, wqkv, bqkv,
-                                                  wproj, bproj,
+            if fuse and q8:
+                x = qt.attention_sublayer_serving_q8(
+                    x, g1, b1, *attn_w, heads=self.num_heads,
+                    attn_q8=attn_q8)
+            elif fuse:
+                x = ms.attention_sublayer_serving(x, g1, b1, *attn_w,
                                                   heads=self.num_heads)
             else:
                 h = self.attn(_layer_norm(x, self.norm1).to(self.dtype))

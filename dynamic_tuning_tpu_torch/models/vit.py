@@ -3,7 +3,8 @@ dynamic_tuning_tpu/models/vit.py), serving forward.
 
 Images go in as NHWC ``[B, H, W, 3]`` floats, as in the JAX package.  Patch
 embedding is a stride-p convolution in the compute dtype (left to cuDNN, as
-the JAX package left it to XLA); the residual stream is kept in
+the JAX package left it to XLA), or under ``cfg.quant`` int8 the int8 stem
+on the hand int8 GEMM; the residual stream is kept in
 ``cfg.residual_dtype``; the final LayerNorm and the head are fp32.
 ``forward`` returns ``(logits, {"token_select": [B, L, T, 1] or None,
 "token_logits": [B, L, T, 1] or None})`` with CLS stripped from both.
@@ -17,18 +18,26 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from dynamic_tuning_tpu.config import ModelConfig, SelectConfig, TuningConfig
+from dynamic_tuning_tpu_torch.config import (ModelConfig, SelectConfig,
+                                             TuningConfig)
 from dynamic_tuning_tpu_torch.models.layers import (LN_EPS, Block,
+                                                     _WeightCache,
                                                      trunc_normal_02)
+from dynamic_tuning_tpu_torch.ops import quant as qt
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
 class PatchEmbed(nn.Module):
-    """p x p non-overlapping patches -> [B, T, C] in the compute dtype."""
+    """p x p non-overlapping patches -> [B, T, C] in the compute dtype.
+
+    With ``quant`` int8 the stem is the JAX package's ``q8_conv``: int8
+    weights per output channel times int8 activations per image, as a patch
+    matmul on the int8 GEMM (``ops/quant.py::q8_patch_embed``)."""
 
     def __init__(self, patch_size: int, in_chans: int, embed_dim: int,
-                 generator: torch.Generator, *, dtype=torch.bfloat16):
+                 generator: torch.Generator, *, dtype=torch.bfloat16,
+                 quant: str = "none"):
         super().__init__()
         self.proj = nn.Conv2d(in_chans, embed_dim, patch_size,
                               stride=patch_size)
@@ -36,8 +45,16 @@ class PatchEmbed(nn.Module):
             trunc_normal_02(self.proj.weight, generator)
             self.proj.bias.zero_()
         self.dtype = dtype
+        self.quant = quant
+        self._w = _WeightCache()
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.quant != "none":
+            return qt.q8_patch_embed(
+                x.to(self.dtype),
+                *self._w.int8(self.proj.weight, qt.quantize_conv_weight),
+                self.proj.bias.detach(), patch=self.proj.stride[0],
+                dtype=self.dtype)
         x = x.permute(0, 3, 1, 2).to(self.dtype)            # NHWC -> NCHW
         y = F.conv2d(x, self.proj.weight.to(self.dtype),
                      stride=self.proj.stride)
@@ -69,7 +86,8 @@ class VisionTransformer(nn.Module):
         self.residual_dtype = _DTYPES[cfg.residual_dtype]
         C = cfg.embed_dim
         self.patch_embed = PatchEmbed(cfg.patch_size, cfg.in_chans, C,
-                                      generator, dtype=dtype)
+                                      generator, dtype=dtype,
+                                      quant=cfg.quant)
         if cfg.class_token:
             self.cls_token = nn.Parameter(
                 torch.randn(1, 1, C, generator=generator) * 1e-6)

@@ -1,7 +1,8 @@
 """Build and bind the package's hand-written CUDA kernels.
 
-``csrc/*.cu`` is compiled by ``nvcc`` for ``sm_90a`` into one shared library
-with a plain C interface, and loaded with ``ctypes``.  The library lands in
+Each ``csrc/*.cu`` is compiled by its own ``nvcc`` for ``sm_90a``, all of
+them at once, and the objects are linked into one shared library with a
+plain C interface, loaded with ``ctypes``.  The library lands in
 ``build/dyt_torch_kernels/`` at the checkout root (git-ignored), named by a
 hash of the sources and flags, so a change to any source rebuilds and an
 unchanged tree reuses the last build.  Nothing here runs at import time: the
@@ -22,7 +23,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "dyt_torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
@@ -37,6 +38,12 @@ _SIGNATURES = {
                            _I, _P],
     "dyt_attn_core_smem_bytes": [_I, _I],
     "dyt_adapter_width_supported": [_I],
+    "dyt_attention_sublayer_q8": [_P, _I] + [_P] * 15 + [_I, _I, _I, _I, _F,
+                                                         _I, _P],
+    "dyt_q8_ln_mlp": [_P, _I] + [_P] * 13 + [_I, _I, _I, _I, _P],
+    "dyt_attn_core_q8": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
+    "dyt_attn_core_q8_smem_bytes": [_I, _I],
+    "dyt_q8_stem_gemm": [_P, _P, _P, _P, _P, _I, _I, _I, _P, _P],
 }
 
 
@@ -69,18 +76,39 @@ def build() -> Path:
     """Compile the kernels if this source tree has no library yet; return
     its path."""
     global build_seconds, build_log
-    lib_path = BUILD_DIR / f"libdyt_kernels_{_digest()}.so"
+    digest = _digest()
+    lib_path = BUILD_DIR / f"libdyt_kernels_{digest}.so"
     if lib_path.exists():
         return lib_path
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib_path.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, _sources())]
+    obj_dir = BUILD_DIR / f"obj_{digest}_{os.getpid()}"
+    obj_dir.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    jobs = []
+    for src in _sources():
+        obj = obj_dir / (src.stem + ".o")
+        jobs.append((src, obj, subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    logs, failed = [], []
+    for src, _, proc in jobs:
+        out, _ = proc.communicate()
+        logs.append(f"--- {src.name}\n{out}")
+        if proc.returncode != 0:
+            failed.append(src.name)
+    tmp = lib_path.with_suffix(f".{os.getpid()}.tmp")
+    if not failed:
+        link = subprocess.run([nvcc, "-shared", "-o", str(tmp),
+                               *(str(obj) for _, obj, _ in jobs)],
+                              capture_output=True, text=True)
+        logs.append(link.stdout + link.stderr)
+        if link.returncode != 0:
+            failed.append("link")
     build_seconds = time.perf_counter() - t0
-    build_log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{build_log}")
+    build_log = "\n".join(logs)
+    shutil.rmtree(obj_dir, ignore_errors=True)
+    if failed:
+        raise RuntimeError(f"nvcc failed ({', '.join(failed)}):\n{build_log}")
     os.replace(tmp, lib_path)
     return lib_path
 

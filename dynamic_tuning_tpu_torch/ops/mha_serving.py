@@ -43,10 +43,17 @@ SMEM_PER_BLOCK = 232448          # H100: 227 KB of dynamic shared memory
 
 def layernorm_f32(xf: torch.Tensor, gamma: torch.Tensor,
                   beta: torch.Tensor) -> torch.Tensor:
-    """fp32 LayerNorm over the last axis, as the TPU kernels compute it."""
-    mu = xf.mean(dim=-1, keepdim=True)
+    """fp32 LayerNorm over the last axis, as the TPU kernels compute it.
+
+    The two means (of x, then of the fp32 squares of x - mean) are summed
+    in float64 and divided by C before one rounding to fp32: the result
+    does not depend on the order of the sum, so the int8 LN kernel, which
+    sums the same way, gives the same LN bit for bit -- and the same int8
+    codes downstream."""
+    C = xf.shape[-1]
+    mu = (xf.double().sum(dim=-1, keepdim=True) / C).float()
     xc = xf - mu
-    var = (xc * xc).mean(dim=-1, keepdim=True)
+    var = ((xc * xc).double().sum(dim=-1, keepdim=True) / C).float()
     return xc * torch.rsqrt(var + LN_EPS) * gamma + beta
 
 
@@ -95,13 +102,22 @@ def dyt_prologue_plain(x, gamma, beta, wqkv, bqkv, wproj, bproj, wdown,
     """Plain version of K3: (x_mid, adapt, logits [B, N, 1] fp32), or
     (x_mid, adapt) without the router."""
     xm = _sublayer_f32(x, gamma, beta, wqkv, bqkv, wproj, bproj, heads)
+    return adapter_router_plain(xm, x.dtype, wdown, bdown, wup, bup,
+                                adapter_scale, wsel, bsel,
+                                with_select=with_select)
+
+
+def adapter_router_plain(xm, out_dtype, wdown, bdown, wup, bup, adapter_scale,
+                         wsel, bsel, *, with_select: bool):
+    """The prologue's tail on the fp32 x_mid ``xm``: (x_mid, adapt[,
+    logits]) with x_mid and adapt in ``out_dtype``."""
     dtype = wdown.dtype
     down = torch.clamp_min(_mm(xm.to(dtype), wdown) + bdown, 0.0).to(dtype)
-    adapt = ((_mm(down, wup) + bup) * adapter_scale).to(x.dtype)
+    adapt = ((_mm(down, wup) + bup) * adapter_scale).to(out_dtype)
     if not with_select:
-        return xm.to(x.dtype), adapt
+        return xm.to(out_dtype), adapt
     logits = torch.matmul(xm, wsel.float().reshape(-1, 1)) + bsel
-    return xm.to(x.dtype), adapt, logits
+    return xm.to(out_dtype), adapt, logits
 
 
 # --- CUDA wrappers -----------------------------------------------------------
@@ -201,7 +217,25 @@ def dyt_prologue_serving(x, gamma, beta, wqkv, bqkv, wproj, bproj, wdown,
                                   wdown, bdown, wup, bup, adapter_scale, wsel,
                                   bsel, heads=heads, with_select=with_select)
     lib = _check_sublayer(x, gamma, beta, wqkv, bqkv, wproj, bproj, heads)
-    B, N, C = x.shape
+    check_adapter_router(lib, x, wdown, bdown, wup, bup, adapter_scale, wsel,
+                         bsel, with_select)
+    with torch.cuda.device(x.device):
+        xm32 = torch.empty(x.shape, dtype=torch.float32, device=x.device)
+        x_mid = _launch_sublayer(lib, x, gamma, beta, wqkv, bqkv, wproj,
+                                 bproj, heads, xm32)
+        outs = launch_adapter_router(lib, x_mid, xm32, wdown, bdown, wup, bup,
+                                     adapter_scale, wsel, bsel, with_select)
+    dyt_prologue_serving.launches += 1
+    return outs
+
+
+dyt_prologue_serving.launches = 0
+
+
+def check_adapter_router(lib, x, wdown, bdown, wup, bup, adapter_scale, wsel,
+                         bsel, with_select: bool) -> None:
+    """Raise on adapter/router arguments the CUDA kernel does not take."""
+    C = x.shape[-1]
     F = wdown.shape[0]
     dev, f32 = x.device, (torch.float32,)
     _require(wdown, "wdown", (F, C), (torch.bfloat16,), dev)
@@ -217,26 +251,26 @@ def dyt_prologue_serving(x, gamma, beta, wqkv, bqkv, wproj, bproj, wdown,
                          "(16, 32, 48, 64, 96 or 128)")
     if C % 64:
         raise ValueError(f"C={C} must be a multiple of 64")
-    with torch.cuda.device(dev):
-        xm32 = torch.empty((B, N, C), dtype=torch.float32, device=dev)
-        x_mid = _launch_sublayer(lib, x, gamma, beta, wqkv, bqkv, wproj,
-                                 bproj, heads, xm32)
-        adapt = torch.empty_like(x)
-        logits = (torch.empty((B, N, 1), dtype=torch.float32, device=dev)
-                  if with_select else None)
-        err = lib.dyt_adapter_router(
-            _ptr(xm32), B * N, C, _ptr(wdown), _ptr(bdown), _ptr(wup),
-            _ptr(bup), _ptr(adapter_scale),
-            _ptr(wsel) if with_select else None,
-            _ptr(bsel) if with_select else None, _ptr(adapt),
-            int(x.dtype == torch.float32), _ptr(logits), F,
-            torch.cuda.current_stream(dev).cuda_stream)
-        _build.check(lib, err, "adapter/router kernel")
-    dyt_prologue_serving.launches += 1
+
+
+def launch_adapter_router(lib, x_mid, xm32, wdown, bdown, wup, bup,
+                          adapter_scale, wsel, bsel, with_select: bool):
+    """The adapter/router kernel on the fp32 copy ``xm32`` of ``x_mid``:
+    (x_mid, adapt[, logits])."""
+    B, N, C = x_mid.shape
+    dev = x_mid.device
+    adapt = torch.empty_like(x_mid)
+    logits = (torch.empty((B, N, 1), dtype=torch.float32, device=dev)
+              if with_select else None)
+    err = lib.dyt_adapter_router(
+        _ptr(xm32), B * N, C, _ptr(wdown), _ptr(bdown), _ptr(wup),
+        _ptr(bup), _ptr(adapter_scale),
+        _ptr(wsel) if with_select else None,
+        _ptr(bsel) if with_select else None, _ptr(adapt),
+        int(x_mid.dtype == torch.float32), _ptr(logits), wdown.shape[0],
+        torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(lib, err, "adapter/router kernel")
     return (x_mid, adapt, logits) if with_select else (x_mid, adapt)
-
-
-dyt_prologue_serving.launches = 0
 
 
 def reset_launch_counts() -> None:

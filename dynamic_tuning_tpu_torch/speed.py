@@ -1,13 +1,16 @@
 """Serving throughput on the GPU (counterpart of the repository's speed.py).
 
     python -m dynamic_tuning_tpu_torch.speed --mode dispatch
+    python -m dynamic_tuning_tpu_torch.speed --quant int8 --mode dispatch
 
 Same flags and defaults as ``speed.py``: ViT-B/16 at 224^2, batch 128, bf16
 compute and residual stream, tanh GELU, ``--mode dispatch|mask|dense|plain``
 (capacity dispatch; eval mask; the DyT model in complete_model mode; the
-plain ViT without adapter or router).  Weights are random from ``--seed``
-unless ``--ckpt``/``--finetune`` names a ``.pth``.  Prints the same JSON line
-as ``speed.py``; the card it ran on goes to stderr.  Needs a CUDA device.
+plain ViT without adapter or router), ``--quant none|int8|int8_attn`` (W8A8
+serving in every mode, the plain ViT included).  Weights are random from
+``--seed`` unless ``--ckpt``/``--finetune`` names a ``.pth``.  Prints the
+same JSON line as ``speed.py``; the card it ran on goes to stderr.  Needs a
+CUDA device.
 """
 
 from __future__ import annotations
@@ -19,8 +22,11 @@ import sys
 
 import torch
 
-from dynamic_tuning_tpu.config import ModelConfig, SelectConfig, TuningConfig
+from dynamic_tuning_tpu_torch import paths
+from dynamic_tuning_tpu_torch.cli import add_reference_compat_args
 from dynamic_tuning_tpu_torch.checkpoint import load_timm_state_dict
+from dynamic_tuning_tpu_torch.config import (ModelConfig, SelectConfig,
+                                             TuningConfig)
 from dynamic_tuning_tpu_torch.models.vit import VisionTransformer
 from dynamic_tuning_tpu_torch.utils.profiling import (forwards_run,
                                                       scan_throughput)
@@ -49,8 +55,8 @@ def get_args_parser():
     p.add_argument("--gelu_exact", dest="gelu_approx", action="store_false")
     p.add_argument("--quant", default="none",
                    choices=["none", "int8", "int8_attn"],
-                   help="int8 serving (not ported yet: other than none "
-                        "raises)")
+                   help="int8 = W8A8 serving matmuls and stem; int8_attn "
+                        "also an int8 QK^T (every mode, plain included)")
     # the reference's speed.py reuses main_image's training parser, so its
     # measure_speed.sh passes training flags; accept them as no-ops
     p.add_argument("--eval_ckpt", dest="ckpt", default=argparse.SUPPRESS,
@@ -58,7 +64,6 @@ def get_args_parser():
     p.add_argument("--finetune", default="",
                    help="pretrained ckpt (path or DYT_CLUSTER registry key); "
                         "used when --ckpt/--eval_ckpt not given")
-    from dynamic_tuning_tpu.cli import add_reference_compat_args
     add_reference_compat_args(p)
     noop = "accepted for reference-script compatibility; no-op here"
     p.add_argument("--epochs", default=100, type=int, help=noop)
@@ -88,8 +93,6 @@ def get_args_parser():
 
 def build_model(args, device, state_dict=None) -> VisionTransformer:
     """The model ``--mode`` measures, on ``device``, eval mode."""
-    if args.quant != "none":
-        raise NotImplementedError("--quant int8 is not ported yet")
     if args.moe_experts > 1:
         raise NotImplementedError("--moe_experts > 1 is not ported yet")
     if args.compute_dtype != "bfloat16":
@@ -121,7 +124,6 @@ def _checkpoint(args):
     if not ckpt:
         return None
     if not os.path.exists(ckpt):
-        from dynamic_tuning_tpu import paths
         resolved = paths.checkpoint_path(ckpt, fallback="")
         if not resolved:
             print(f"WARNING: checkpoint {ckpt!r} not found (no file, no "

@@ -1,0 +1,95 @@
+"""Where a serving forward's device time goes, by kernel (torch.profiler).
+
+    python -m dynamic_tuning_tpu_torch.utils.profile_forward --quant int8 \
+        --mode dispatch --warmup 5 --iters 3
+
+Takes ``speed.py``'s flags and model.  After ``--warmup`` forwards it traces
+``--iters`` forwards on the card and prints, per kernel name, the device
+time per forward and the calls per forward, then the device window, the
+kernel-busy time and the idle share of the window, and the host's time to
+enqueue one forward (timed apart from an idle card, without the profiler).
+Needs a CUDA device.
+"""
+
+from __future__ import annotations
+
+import time
+from collections import defaultdict
+
+import torch
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile
+
+from dynamic_tuning_tpu_torch import speed
+
+
+def _busy_us(intervals) -> float:
+    """Length of the union of (start, end) intervals."""
+    busy, end = 0.0, float("-inf")
+    for s, e in sorted(intervals):
+        if s > end:
+            busy += e - s
+            end = e
+        elif e > end:
+            busy += e - end
+            end = e
+    return busy
+
+
+def main(args) -> dict:
+    if not torch.cuda.is_available():
+        raise RuntimeError("profile_forward traces the GPU and found no "
+                           "CUDA device")
+    device = torch.device("cuda")
+    model = speed.build_model(args, device)
+    g = torch.Generator(device=device).manual_seed(args.seed)
+    x = torch.randn((args.batch_size, 224, 224, 3), generator=g,
+                    device=device)
+    kwargs = dict(complete_model=args.mode == "dense",
+                  dispatch=args.mode == "dispatch")
+    with torch.inference_mode():
+        for _ in range(args.warmup):
+            model(x, **kwargs)
+        torch.cuda.synchronize()
+        # host time to enqueue one forward, from an idle card (so a full
+        # launch queue cannot stall the host)
+        host_s = 0.0
+        for _ in range(args.iters):
+            t0 = time.perf_counter()
+            model(x, **kwargs)
+            host_s += time.perf_counter() - t0
+            torch.cuda.synchronize()
+        host_ms = host_s * 1e3 / args.iters
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(args.iters):
+                model(x, **kwargs)
+            torch.cuda.synchronize()
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not kernels:
+        raise RuntimeError("the trace holds no device activity")
+    per_name = defaultdict(lambda: [0.0, 0])
+    for e in kernels:
+        per_name[e.name][0] += e.time_range.elapsed_us()
+        per_name[e.name][1] += 1
+    window = (max(e.time_range.end for e in kernels)
+              - min(e.time_range.start for e in kernels))
+    busy = _busy_us((e.time_range.start, e.time_range.end) for e in kernels)
+    n = args.iters
+    print(f"quant={args.quant} mode={args.mode} batch={args.batch_size}: "
+          f"{n} forwards traced on {torch.cuda.get_device_name(0)}")
+    print(f"{'us/forward':>12} {'calls/fwd':>9}  kernel")
+    for name, (us, calls) in sorted(per_name.items(),
+                                    key=lambda kv: -kv[1][0]):
+        print(f"{us / n:12.1f} {calls / n:9.1f}  {name[:110]}")
+    idle = 1.0 - busy / window
+    print(f"device window {window / n / 1e3:.3f} ms/forward, kernel-busy "
+          f"{busy / n / 1e3:.3f} ms/forward, idle share {idle:.4f}; host "
+          f"enqueue {host_ms:.3f} ms/forward")
+    return {"window_us": window, "busy_us": busy, "idle_share": idle,
+            "host_ms": host_ms,
+            "per_kernel_us": {k: v[0] / n for k, v in per_name.items()}}
+
+
+if __name__ == "__main__":
+    main(speed.get_args_parser().parse_args())

@@ -6,6 +6,7 @@
 * importing the port loads no JAX.
 """
 
+import dataclasses
 import os
 import subprocess
 import sys
@@ -19,6 +20,7 @@ import torch
 from dynamic_tuning_tpu.config import ModelConfig, SelectConfig, TuningConfig
 from dynamic_tuning_tpu.models.vit import VisionTransformer as JaxViT
 from dynamic_tuning_tpu.train.checkpoint import export_torch_state_dict
+from dynamic_tuning_tpu_torch import config as tcfg
 from dynamic_tuning_tpu_torch.checkpoint import (flax_path_to_timm,
                                                  from_flax_params,
                                                  load_timm_state_dict)
@@ -34,6 +36,16 @@ CONFIGS = {
     "keep_layers": (TuningConfig(ffn_num=8, d_model=128),
                     SelectConfig(keep_layers=1)),
 }
+
+
+def _port(cfg):
+    """The port's own config object with the fields of a JAX-package one."""
+    return getattr(tcfg, type(cfg).__name__)(**dataclasses.asdict(cfg))
+
+
+def _port_vit(tuning, select):
+    return VisionTransformer(_port(MC), tuning=_port(tuning),
+                             select=_port(select), dtype=torch.float32)
 
 
 def _jax_params(tuning, select):
@@ -58,8 +70,7 @@ def test_from_flax_params_equals_export(tmp_path, name):
 def test_port_loads_bridged_params_strict(name):
     tuning, select = CONFIGS[name]
     params = _jax_params(tuning, select)
-    model = VisionTransformer(MC, tuning=tuning, select=select,
-                              dtype=torch.float32)
+    model = _port_vit(tuning, select)
     sd = {k: torch.from_numpy(v) for k, v in from_flax_params(params).items()}
     model.load_state_dict(sd, strict=True)
     own = model.state_dict()
@@ -73,8 +84,7 @@ def test_learnable_adapter_scale_crosses_the_bridge():
     params = _jax_params(tuning, SelectConfig())
     sd = from_flax_params(params)
     assert sd["blocks.1.adaptmlp.scale"].shape == (1,)
-    model = VisionTransformer(MC, tuning=tuning, select=SelectConfig(),
-                              dtype=torch.float32)
+    model = _port_vit(tuning, SelectConfig())
     model.load_state_dict({k: torch.from_numpy(v) for k, v in sd.items()},
                           strict=True)
 
@@ -90,8 +100,7 @@ def _timm_sd(classes=10, seed=0):
 
 
 def test_load_timm_full_dyt_state_dict():
-    model = VisionTransformer(MC, tuning=CONFIGS["dyt"][0],
-                              select=SelectConfig(), dtype=torch.float32)
+    model = _port_vit(CONFIGS["dyt"][0], SelectConfig())
     sd = _timm_sd()
     sd["pre_logits.fc.weight"] = np.zeros((128, 128), np.float32)
     missing, unexpected = load_timm_state_dict(model, sd, log=lambda *a: None)
@@ -104,8 +113,7 @@ def test_load_timm_head_surgery_and_backbone_only():
     """An IN21K-style backbone with a 1000-class head: the head is dropped
     (stays at init), adapters and routers are missing; DyT keys into a plain
     model are reported as unexpected and ignored."""
-    dyt = VisionTransformer(MC, tuning=CONFIGS["dyt"][0],
-                            select=SelectConfig(), dtype=torch.float32)
+    dyt = _port_vit(CONFIGS["dyt"][0], SelectConfig())
     head0 = dyt.head.weight.clone()
     sd = {k: v for k, v in _timm_sd(classes=1000).items()
           if "adaptmlp" not in k and "mlp_token_select" not in k}
@@ -116,9 +124,7 @@ def test_load_timm_head_surgery_and_backbone_only():
     assert "blocks.1.mlp_token_select.mlp_head.bias" in missing
     assert torch.equal(dyt.head.weight, head0)
 
-    plain = VisionTransformer(MC, tuning=CONFIGS["plain"][0],
-                              select=SelectConfig(open=False),
-                              dtype=torch.float32)
+    plain = _port_vit(CONFIGS["plain"][0], SelectConfig(open=False))
     missing, unexpected = load_timm_state_dict(plain, _timm_sd(),
                                                log=lambda *a: None)
     assert missing == []
@@ -126,8 +132,7 @@ def test_load_timm_head_surgery_and_backbone_only():
 
 
 def test_load_timm_rejects_other_grids_and_shapes():
-    model = VisionTransformer(MC, tuning=CONFIGS["dyt"][0],
-                              select=SelectConfig(), dtype=torch.float32)
+    model = _port_vit(CONFIGS["dyt"][0], SelectConfig())
     sd = _timm_sd()
     sd["pos_embed"] = np.zeros((1, 17, 128), np.float32)
     with pytest.raises(NotImplementedError, match="interpolation"):

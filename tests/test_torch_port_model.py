@@ -14,6 +14,7 @@ Size: the golden-fixture configuration (embed 128, 2 heads of 64, depth 2,
 64x64 images of 16x16 patches -> 17 tokens, adapter width 8).
 """
 
+import dataclasses
 import os
 
 import jax
@@ -25,6 +26,7 @@ import torch
 from dynamic_tuning_tpu.config import ModelConfig, SelectConfig, TuningConfig
 from dynamic_tuning_tpu.models.vit import VisionTransformer as JaxViT
 from dynamic_tuning_tpu.train.checkpoint import import_pretrained
+from dynamic_tuning_tpu_torch import config as tcfg
 from dynamic_tuning_tpu_torch.checkpoint import (from_flax_params,
                                                  load_timm_state_dict)
 from dynamic_tuning_tpu_torch.models.vit import VisionTransformer
@@ -48,6 +50,11 @@ def _cfg(dtype: str, plain: bool, **model):
     return mc, tuning, sel
 
 
+def port_cfg(cfg):
+    """The port's own config object with the fields of a JAX-package one."""
+    return getattr(tcfg, type(cfg).__name__)(**dataclasses.asdict(cfg))
+
+
 def _pair(monkeypatch, dtype="float32", plain=False, seed=0, **model):
     """(jax model, jax params, port model, input) with identical weights."""
     monkeypatch.setenv("DYT_FUSED_ATTN", "interpret")
@@ -59,7 +66,8 @@ def _pair(monkeypatch, dtype="float32", plain=False, seed=0, **model):
     jm = JaxViT(mc, tuning=tuning, select=sel, dtype=JDT[dtype])
     params = jm.init(jax.random.PRNGKey(0), jnp.asarray(x[:1]))["params"]
     params, _ = import_pretrained(params, sd, logger=_Quiet())
-    tm = VisionTransformer(mc, tuning=tuning, select=sel, dtype=TDT[dtype])
+    tm = VisionTransformer(port_cfg(mc), tuning=port_cfg(tuning),
+                           select=port_cfg(sel), dtype=TDT[dtype])
     tm.load_state_dict({k: torch.from_numpy(v) for k, v in
                         from_flax_params(params).items()}, strict=True)
     return jm, params, tm, x
@@ -147,6 +155,48 @@ def test_model_matches_jax_bf16(monkeypatch, mode):
         assert (same | near).all()
 
 
+INT8_MODES = {"dispatch": {"dispatch": True}, "mask": {},
+              "dense": {"complete_model": True}, "plain": {}}
+
+
+@pytest.mark.parametrize("mode", list(INT8_MODES))
+@pytest.mark.parametrize("quant", ["int8", "int8_attn"])
+def test_int8_model_matches_jax_fp32(monkeypatch, quant, mode):
+    """W8A8 serving: the int8 stem, K6 (K5 in the plain ViT), K4 on every
+    MLP row, K10 under int8_attn.  The JAX model runs its int8 Pallas
+    kernels in interpret mode (without DYT_FUSED_ATTN=interpret JAX on the
+    CPU would turn int8 off and run bf16).  Same quantization on both
+    sides; what differs is the last bit of fp32 sums (the port sums LN's
+    means in float64, XLA in fp32), which may move one activation across
+    an int8 rounding boundary -- or a row's amax, and with it the row's
+    codes.  Where none moves, logits agree to ~3e-7 of their largest
+    magnitude; one such move shifts them by up to ~0.5% at this size (seen
+    in int8 dense).  Tolerance: 1e-2 of the largest magnitude, and every
+    gate identical."""
+    jm, params, tm, x = _pair(monkeypatch, plain=mode == "plain",
+                              quant=quant)
+    assert all(blk.quant == quant for blk in tm.blocks)
+    jl, jaux, tl, taux = _run_both(jm, params, tm, x, INT8_MODES[mode])
+    want = np.asarray(jl)
+    np.testing.assert_allclose(tl.numpy(), want, rtol=0,
+                               atol=1e-2 * np.abs(want).max())
+    if mode in ("dispatch", "mask"):
+        np.testing.assert_array_equal(taux["token_select"].numpy(),
+                                      np.asarray(jaux["token_select"]))
+    else:
+        assert taux["token_select"] is None and jaux["token_select"] is None
+
+
+def test_int8_model_is_not_the_bf16_model(monkeypatch):
+    """The int8 path really quantizes: its logits move away from the fp32
+    model's by more than the int8 tolerance above."""
+    _, _, t8, x = _pair(monkeypatch, quant="int8")
+    _, _, t32, _ = _pair(monkeypatch)
+    a = t8(torch.from_numpy(x))[0]
+    b = t32(torch.from_numpy(x))[0]
+    assert (a - b).abs().max() > 1e-2 * b.abs().max()
+
+
 @pytest.mark.parametrize("complete_model,key",
                          [(False, "logits_eval"), (True, "logits_teacher")])
 def test_golden_fixture(complete_model, key):
@@ -154,10 +204,11 @@ def test_golden_fixture(complete_model, key):
     dict (pre_logits dropped), reproduces at 2e-4 as the JAX model does."""
     data = np.load(FIX)
     sd = {k[3:]: data[k] for k in data.files if k.startswith("sd/")}
-    mc = ModelConfig(img_size=64, patch_size=16, embed_dim=128, depth=2,
-                     num_heads=2, num_classes=10)
-    tm = VisionTransformer(mc, tuning=TuningConfig(ffn_num=8, d_model=128),
-                           select=SelectConfig(), dtype=torch.float32)
+    mc = tcfg.ModelConfig(img_size=64, patch_size=16, embed_dim=128,
+                          depth=2, num_heads=2, num_classes=10)
+    tm = VisionTransformer(mc, tuning=tcfg.TuningConfig(ffn_num=8,
+                                                        d_model=128),
+                           select=tcfg.SelectConfig(), dtype=torch.float32)
     missing, unexpected = load_timm_state_dict(tm, sd, log=lambda *a: None)
     assert missing == [] and unexpected == []
     logits, aux = tm(torch.from_numpy(data["x"]),
