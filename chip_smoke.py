@@ -11,15 +11,19 @@ Phases; any failure exits non-zero:
      K2 attention_sublayer_serving, K3 dyt_prologue_serving (with and
      without the router), K4 q8_ln_mlp (dense and dispatch rows), K5
      attention_sublayer_serving_q8, K6 dyt_prologue_serving_q8 (with and
-     without the router), K10 attn_core_pairs_q8; then the hand int8 GEMM
-     beside torch._int_mm and cuBLAS bf16 at the int8 path's GEMM shapes
-     (reference times, not used by the port);
+     without the router), K10 attn_core_pairs_q8, K7
+     dyt_prologue_serving_moe (4 experts of 64; with and without the
+     router), K8 dyt_prologue_serving_q8_moe (with and without the router,
+     and with the K10 core); then the hand int8 GEMM beside torch._int_mm
+     and cuBLAS bf16 at the int8 path's GEMM shapes (reference times, not
+     used by the port);
   3. the serving main path through dynamic_tuning_tpu_torch.speed.main:
      ViT-B/16 at 224^2, 12 blocks, batch 128, seeded synthetic weights;
-     bf16 dispatch, dense and plain, int8 dispatch, dense and plain, and
-     int8_attn dispatch.  Per run, with every launch count set to 0 just
-     before it: finite logits, 12 launches per forward of each of the
-     mode's kernels and none of the others, img/s; for the dispatch runs,
+     bf16 dispatch, dense and plain, int8 dispatch, dense and plain,
+     int8_attn dispatch, and with the MoE adapter (4 experts) bf16, int8
+     and int8_attn dispatch.  Per run, with every launch count set to 0
+     just before it: finite logits, 12 launches per forward of each of the
+     run's kernels and none of the others, img/s; for the dispatch runs,
      logits and gates against the same forward on the plain versions and
      the mean keep ratio;
   4. the wall time, the card's name and power limit (nvidia-smi), a JSON
@@ -39,6 +43,8 @@ from unittest import mock
 REPO = os.path.dirname(os.path.abspath(__file__))
 B, N, C, H, FFN = 128, 197, 768, 12, 64
 HID = 4 * C
+MOE = 4                         # MoE adapter: 4 experts of width FFN
+TAU = 1.0                       # the expert router's temperature (default)
 DEPTH = 12
 K_DISPATCH = 99                 # capacity_for(196, 0.5): rows kept per image
 SRC = "dynamic_tuning_tpu_torch/csrc"
@@ -63,17 +69,27 @@ KERNELS = {
     "attn_core_pairs_q8": ("qt", dict(
         route="cuda", source=f"{SRC}/quant.cu",
         replaces=f"{JAX_OPS}/quant.py:309")),
+    "dyt_prologue_serving_moe": ("ms", dict(
+        route="cuda", source=f"{SRC}/moe_adapter.cu",
+        replaces=f"{JAX_OPS}/mha_serving.py:763")),
+    "dyt_prologue_serving_q8_moe": ("qt", dict(
+        route="cuda", source=f"{SRC}/moe_adapter.cu",
+        replaces=f"{JAX_OPS}/quant.py:674")),
 }
-# (quant, mode, kernels launched once per block of each forward)
+# (quant, mode, MoE experts, kernels launched once per block of each forward)
 RUNS = [
-    ("none", "dispatch", ("dyt_prologue_serving",)),
-    ("none", "dense", ("dyt_prologue_serving",)),
-    ("none", "plain", ("attention_sublayer_serving",)),
-    ("int8", "dispatch", ("dyt_prologue_serving_q8", "q8_ln_mlp")),
-    ("int8", "dense", ("dyt_prologue_serving_q8", "q8_ln_mlp")),
-    ("int8", "plain", ("attention_sublayer_serving_q8", "q8_ln_mlp")),
-    ("int8_attn", "dispatch", ("dyt_prologue_serving_q8", "q8_ln_mlp",
-                               "attn_core_pairs_q8")),
+    ("none", "dispatch", 0, ("dyt_prologue_serving",)),
+    ("none", "dense", 0, ("dyt_prologue_serving",)),
+    ("none", "plain", 0, ("attention_sublayer_serving",)),
+    ("int8", "dispatch", 0, ("dyt_prologue_serving_q8", "q8_ln_mlp")),
+    ("int8", "dense", 0, ("dyt_prologue_serving_q8", "q8_ln_mlp")),
+    ("int8", "plain", 0, ("attention_sublayer_serving_q8", "q8_ln_mlp")),
+    ("int8_attn", "dispatch", 0, ("dyt_prologue_serving_q8", "q8_ln_mlp",
+                                  "attn_core_pairs_q8")),
+    ("none", "dispatch", MOE, ("dyt_prologue_serving_moe",)),
+    ("int8", "dispatch", MOE, ("dyt_prologue_serving_q8_moe", "q8_ln_mlp")),
+    ("int8_attn", "dispatch", MOE, ("dyt_prologue_serving_q8_moe",
+                                    "q8_ln_mlp", "attn_core_pairs_q8")),
 ]
 # NVIDIA's H100 SXM data sheet: HBM bytes/s and dense peak ops/s per type
 HBM = 3.35e12
@@ -132,7 +148,7 @@ def attn_ops(batch=B):
     return 2 * batch * H * N * N * (C // H)
 
 
-def kernel_inputs(torch):
+def kernel_inputs(torch, ms):
     g = torch.Generator(device="cuda").manual_seed(0)
     bf = torch.bfloat16
 
@@ -150,7 +166,13 @@ def kernel_inputs(torch):
            r(HID, s=0.02), r(C, HID, s=0.03), r(C, s=0.02))
     qkv = r(B, N, 3 * C)
     qkv[..., C:2 * C] += 1.0                       # keys with a lane offset
-    return x, sub, ad, mlp, qkv.to(bf)
+    # MoE experts in the tail's layout; router logits of a few units, so
+    # the gates differ per token
+    moe = (r(MOE, C, s=2.0 / C ** 0.5),
+           *ms.moe_kernel_weights(r(MOE, C, FFN, s=0.03), r(MOE, FFN, s=0.02),
+                                  r(MOE, FFN, C, s=0.02), bf),
+           r(MOE, C, s=0.01), ad[4])
+    return x, sub, ad, mlp, qkv.to(bf), moe
 
 
 def rel_err(got, want) -> tuple[float, float]:
@@ -202,7 +224,7 @@ def measure(name, call, plain, outputs, inputs, ops) -> dict:
 
 def phase_kernels(torch, ms, qt) -> dict:
     """Each wrapper against its plain version at the main path's shapes."""
-    x, sub, ad, mlp, qkv = kernel_inputs(torch)
+    x, sub, ad, mlp, qkv, moe = kernel_inputs(torch, ms)
     qsub = (*sub[:2], *qt.quantize_weight(sub[2].float()), sub[3],
             *qt.quantize_weight(sub[4].float()), sub[5])
     qmlp = (*mlp[:2], *qt.quantize_weight(mlp[2]), mlp[3],
@@ -272,6 +294,39 @@ def phase_kernels(torch, ms, qt) -> dict:
                                                    attn_q8=True),
             ("x_mid",), (x, *qsub), {"int8": gemm + attn_ops(),
                                      "bf16": attn_ops()})
+
+    # the MoE prologues: the router dots (E experts + the token router) are
+    # fp32 work, the two expert products bf16 tensor work
+    experts = 4 * M * C * MOE * FFN
+    for s in (True, False):
+        res = measure(
+            f"K7 dyt_prologue_serving_moe(with_select={s})",
+            lambda s=s: ms.dyt_prologue_serving_moe(
+                x, *sub, *moe, *ad[5:], heads=H, tau=TAU, with_select=s),
+            lambda s=s: ms.dyt_prologue_moe_plain(
+                x, *sub, *moe, *ad[5:], heads=H, tau=TAU, with_select=s),
+            ("x_mid", "adapt", "logits"),
+            (x, *sub, *moe, *(ad[5:] if s else ())),
+            {"bf16": gemm + 2 * attn_ops() + experts,
+             "fp32": 2 * M * C * (MOE + s)})
+        if s:
+            out["dyt_prologue_serving_moe"] = res
+    for s, aq in ((True, False), (False, False), (True, True)):
+        res = measure(
+            f"K8 dyt_prologue_serving_q8_moe(with_select={s}, attn_q8={aq})",
+            lambda s=s, aq=aq: qt.dyt_prologue_serving_q8_moe(
+                x, *qsub, *moe, *ad[5:], heads=H, tau=TAU, with_select=s,
+                attn_q8=aq),
+            lambda s=s, aq=aq: qt.dyt_prologue_q8_moe_plain(
+                x, *qsub, *moe, *ad[5:], heads=H, tau=TAU, with_select=s,
+                attn_q8=aq),
+            ("x_mid", "adapt", "logits"),
+            (x, *qsub, *moe, *(ad[5:] if s else ())),
+            {"int8": gemm + aq * attn_ops(),
+             "bf16": (2 - aq) * attn_ops() + experts,
+             "fp32": 2 * M * C * (MOE + s)})
+        if s and not aq:
+            out["dyt_prologue_serving_q8_moe"] = res
     return out
 
 
@@ -332,39 +387,40 @@ def phase_model(torch, ms, qt, speed, make_vit_state_dict) -> dict:
     import numpy as np
 
     t0 = time.perf_counter()
-    sd = make_vit_state_dict(np.random.RandomState(0), depth=DEPTH, dim=C,
-                             ffn=FFN, classes=100, img=224, patch=16,
-                             router_scale=25.0)
+    sds = {moe: make_vit_state_dict(np.random.RandomState(0), depth=DEPTH,
+                                    dim=C, ffn=FFN, classes=100, img=224,
+                                    patch=16, router_scale=25.0,
+                                    moe_experts=moe)
+           for moe in (0, MOE)}
     print(f"synthetic ViT-B/16 weights: {time.perf_counter() - t0:.1f} s")
     launches = {name: 0 for name in KERNELS}
-    for quant, mode, kernels in RUNS:
+    for quant, mode, moe, kernels in RUNS:
         args = speed.get_args_parser().parse_args(
-            ["--mode", mode, "--quant", quant, "--warmup", "3",
-             "--iters", "10"])
+            ["--mode", mode, "--quant", quant, "--moe_experts", str(moe),
+             "--moe_router_tau", str(TAU), "--warmup", "3", "--iters", "10"])
         reset_counts(ms, qt)
-        res = speed.main(args, state_dict=sd)
+        res = speed.main(args, state_dict=sds[moe])
         counts = read_counts(ms, qt)
         stem = qt.q8_patch_embed.launches
         fwd = res["forwards"]
+        run = f"quant={quant} {mode}" + (f" moe{moe}" if moe else "")
         want = {k: DEPTH * fwd if k in kernels else 0 for k in KERNELS}
         if counts != want:
-            fail(f"{quant} {mode}: kernel launches {counts}, want {want}")
+            fail(f"{run}: kernel launches {counts}, want {want}")
         if stem != (fwd if quant != "none" else 0):
-            fail(f"{quant} {mode}: {stem} int8 stem launches for {fwd} "
-                 "forwards")
+            fail(f"{run}: {stem} int8 stem launches for {fwd} forwards")
         for k in KERNELS:
             launches[k] += counts[k]
         logits = res["logits"]
         if logits.shape != (B, 100) or not torch.isfinite(logits).all():
-            fail(f"{quant} {mode}: logits {tuple(logits.shape)} not "
-                 "finite/shaped")
-        line = (f"model quant={quant} {mode}: {res['throughput_img_s']} "
+            fail(f"{run}: logits {tuple(logits.shape)} not finite/shaped")
+        line = (f"model {run}: {res['throughput_img_s']} "
                 f"img/s at batch {B}; launches per forward: "
                 + ", ".join(f"{k} {counts[k] // fwd}" for k in kernels))
         if mode == "dispatch":
             keep = res["aux"]["token_select"].float().mean().item()
             line += f"; mean keep ratio {keep:.4f}"
-            compare_with_plain(torch, ms, qt, res, quant)
+            compare_with_plain(torch, ms, qt, res, run)
         print(line)
         del res
         torch.cuda.empty_cache()
@@ -373,15 +429,18 @@ def phase_model(torch, ms, qt, speed, make_vit_state_dict) -> dict:
     return launches
 
 
-def compare_with_plain(torch, ms, qt, res, quant) -> None:
+def compare_with_plain(torch, ms, qt, res, run) -> None:
     """The dispatch forward again with every wrapper swapped for its plain
     version (not counted: the wrappers are not called)."""
     model, x = res["model"], res["x"]
     plain = {(ms, "dyt_prologue_serving"): ms.dyt_prologue_plain,
              (ms, "attention_sublayer_serving"): ms.attention_sublayer_plain,
+             (ms, "dyt_prologue_serving_moe"): ms.dyt_prologue_moe_plain,
              (qt, "dyt_prologue_serving_q8"): qt.dyt_prologue_q8_plain,
              (qt, "attention_sublayer_serving_q8"):
                  qt.attention_sublayer_q8_plain,
+             (qt, "dyt_prologue_serving_q8_moe"):
+                 qt.dyt_prologue_q8_moe_plain,
              (qt, "q8_ln_mlp"): qt.q8_ln_mlp_plain,
              (qt, "q8_patch_embed"): qt.q8_patch_embed_plain}
     patches = [mock.patch.object(m, name, fn)
@@ -397,12 +456,10 @@ def compare_with_plain(torch, ms, qt, res, quant) -> None:
     err, mag = rel_err(res["logits"], ref)
     agree = (res["aux"]["token_select"] == ref_aux["token_select"]
              ).float().mean().item()
-    print(f"quant={quant} dispatch logits vs plain versions: max|err| "
-          f"{err:.6g} (tol {MODEL_REL * mag:.6g}), gate agreement "
-          f"{agree:.6f}")
+    print(f"{run} logits vs plain versions: max|err| {err:.6g} (tol "
+          f"{MODEL_REL * mag:.6g}), gate agreement {agree:.6f}")
     if err > MODEL_REL * mag or agree < GATE_AGREE:
-        fail(f"quant={quant} dispatch forward disagrees with the "
-             "plain-version forward")
+        fail(f"{run} forward disagrees with the plain-version forward")
 
 
 def card_line() -> str:

@@ -4,7 +4,13 @@ dynamic_tuning_tpu/train/checkpoint.py).
 * ``from_flax_params``: a JAX-package param tree (nested dicts of arrays) ->
   a timm-named state dict of numpy arrays, with the conversions of
   ``export_torch_state_dict``: Dense kernels ``[in, out]`` -> Linear
-  ``[out, in]``, conv kernels HWIO -> OIHW.  Numpy only.
+  ``[out, in]``, conv kernels HWIO -> OIHW.  Numpy only.  The MoE adapter
+  (a paper feature with no reference ``.pth`` names, whose params the JAX
+  package's ``export_torch_state_dict`` leaves out) gets the port's own
+  names, mirroring the flax tree: ``adaptmlp.router.weight`` [E, C] (the
+  router Dense kernel, transposed), ``adaptmlp.down_kernel`` [E, C, b],
+  ``adaptmlp.down_bias`` [E, b], ``adaptmlp.up_kernel`` [E, b, C] and
+  ``adaptmlp.up_bias`` [E, C] (the stacks in the flax layout).
 * ``load_timm_state_dict``: a timm/DyT state dict into a port model with
   the rules of ``import_pretrained``: ``pre_logits.*`` dropped, a head of
   another width dropped (head surgery), unknown keys reported and ignored,
@@ -49,6 +55,12 @@ _FLAX_TO_TIMM = {
     ("adaptmlp", "up_proj", "kernel"): "adaptmlp.up_proj.weight",
     ("adaptmlp", "up_proj", "bias"): "adaptmlp.up_proj.bias",
     ("adaptmlp", "scale"): "adaptmlp.scale",
+    # the MoE adapter: the port's own names, mirroring the flax tree
+    ("adaptmlp", "router", "kernel"): "adaptmlp.router.weight",
+    ("adaptmlp", "down_kernel"): "adaptmlp.down_kernel",
+    ("adaptmlp", "down_bias"): "adaptmlp.down_bias",
+    ("adaptmlp", "up_kernel"): "adaptmlp.up_kernel",
+    ("adaptmlp", "up_bias"): "adaptmlp.up_bias",
     ("mlp_token_select", "mlp_head", "kernel"):
         "mlp_token_select.mlp_head.weight",
     ("mlp_token_select", "mlp_head", "bias"):
@@ -93,13 +105,18 @@ def from_flax_params(params: Mapping) -> Dict[str, np.ndarray]:
 
 def make_vit_state_dict(rs: np.random.RandomState, *, depth: int, dim: int,
                         ffn: int, classes: int, img: int, patch: int,
-                        router_scale: float = 25.0,
-                        in_chans: int = 3) -> Dict[str, np.ndarray]:
+                        router_scale: float = 25.0, in_chans: int = 3,
+                        moe_experts: int = 0) -> Dict[str, np.ndarray]:
     """Random timm+DyT state dict at IN21K-like weight scales (trunc-normal
     .02-class weights, LN scales near 1, small biases), drawn from ``rs`` in
     a fixed order so one seed always gives the same values.  The router head
     is scaled by ``router_scale`` so hard sigmoid > 0.5 gates have margin
-    against float noise."""
+    against float noise.
+
+    With ``moe_experts`` E > 1 the adapters are MoE adapters of E experts of
+    width ``ffn``, drawn after every other tensor (so the rest is the same
+    as without): expert router and up kernels nonzero, so the gates differ
+    per token and the mixture is not zero."""
     grid = img // patch
     T = grid * grid + 1
 
@@ -140,6 +157,21 @@ def make_vit_state_dict(rs: np.random.RandomState, *, depth: int, dim: int,
                  ).astype(np.float32),
             p + "mlp_token_select.mlp_head.bias": w(1, s=0.1),
         })
+    if moe_experts > 1:
+        E = moe_experts
+        for i in range(depth):
+            p = f"blocks.{i}.adaptmlp."
+            for name in ("down_proj.weight", "down_proj.bias",
+                         "up_proj.weight", "up_proj.bias"):
+                del sd[p + name]
+            sd.update({
+                # router logits of a few units: gates far from uniform
+                p + "router.weight": w(E, dim, s=2.0 / np.sqrt(dim)),
+                p + "down_kernel": w(E, dim, ffn),
+                p + "down_bias": w(E, ffn, s=0.02),
+                p + "up_kernel": w(E, ffn, dim, s=0.02),
+                p + "up_bias": w(E, dim, s=0.01),
+            })
     return sd
 
 

@@ -89,6 +89,20 @@ __device__ __forceinline__ void mma_bf16_16816(float (&c)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
+// c = c + a * b as an IEEE round-to-nearest add of the tensor core's product
+// of this k16 step.  Chained mma accumulation rounds inside the tensor core
+// at every step; over the 48 steps of a K = 768 product that drifts further
+// from the exact sum (which the plain versions form in float64) than one
+// round-to-nearest add per step does.
+__device__ __forceinline__ void mma_bf16_16816_rn(float (&c)[4],
+                                                  const unsigned (&a)[4],
+                                                  unsigned b0, unsigned b1) {
+  float p[4] = {0.f, 0.f, 0.f, 0.f};
+  mma_bf16_16816(p, a, b0, b1);
+#pragma unroll
+  for (int e = 0; e < 4; ++e) c[e] = __fadd_rn(c[e], p[e]);
+}
+
 // c += a (16x32, row) * b (32x8, col) in int8 with int32 accumulators.  Its
 // fragments hold the same bytes per thread as the bf16 m16n8k16 ones, so
 // the bf16 ldmatrix addressing serves with k counted in bytes.

@@ -1,5 +1,6 @@
 """DyT layers in PyTorch (counterpart of dynamic_tuning_tpu/models/layers.py):
-Mlp, Attention, Adapter, TokenSelect, DropPath and Block, serving forms.
+Mlp, Attention, Adapter, MoEAdapter, TokenSelect, DropPath and Block, serving
+forms.
 
 Parameters are fp32 and carry timm's names (``attn.qkv.weight``,
 ``mlp.fc1.bias``, ``adaptmlp.down_proj.weight``,
@@ -15,9 +16,10 @@ N <= 512); otherwise it runs the module path (Attention, TokenSelect,
 Adapter).  With ``quant="int8"`` or ``"int8_attn"`` it takes the int8
 kernels of ``ops/quant.py`` instead (K6/K5 for the sublayer, K4 for the MLP
 on every path), with int8 weights quantized once per load from the fp32
-parameters.  Training, MoE adapters, adapter in/out LayerNorm, LayerScale,
-BEiT q/v biases and windowed attention belong to later slices and raise
-NotImplementedError.
+parameters.  A block with ``moe_experts > 1`` takes the MoE prologues
+instead of K3/K6: K7 (bf16) or K8 (int8).  Training, adapter in/out
+LayerNorm, LayerScale, BEiT q/v biases and windowed attention belong to
+later slices and raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -71,25 +73,28 @@ class _WeightCache:
     def __init__(self):
         self._entries = {}
 
-    def _cached(self, p: torch.Tensor, tag, make):
-        key = (id(p), tag)
-        stamp = (p.data_ptr(), p._version, p.device)
+    def cached(self, params, tag, make):
+        """``make(*params)`` (detached), made again when any of ``params``
+        (a tensor or a tuple of them) has changed."""
+        params = params if isinstance(params, tuple) else (params,)
+        key = (tuple(map(id, params)), tag)
+        stamp = tuple((p.data_ptr(), p._version, p.device) for p in params)
         hit = self._entries.get(key)
         if hit is None or hit[0] != stamp:
             with torch.inference_mode(False), torch.no_grad():
-                hit = (stamp, make(p.detach()))
+                hit = (stamp, make(*(p.detach() for p in params)))
             self._entries[key] = hit
         return hit[1]
 
     def get(self, p: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
         if p.dtype == dtype:
             return p.detach()
-        return self._cached(p, dtype, lambda t: t.to(dtype).contiguous())
+        return self.cached(p, dtype, lambda t: t.to(dtype).contiguous())
 
     def int8(self, p: torch.Tensor, quantize=qt.quantize_weight):
         """(int8 codes, fp32 per-channel scales) of the fp32 master weight
         ``p`` -- never of a rounded copy, whose codes differ."""
-        return self._cached(p, ("int8", quantize), quantize)
+        return self.cached(p, ("int8", quantize), quantize)
 
 
 def _layer_norm(x: torch.Tensor, norm: nn.LayerNorm) -> torch.Tensor:
@@ -200,18 +205,23 @@ class Attention(nn.Module):
         return self._dense(out, self.proj)
 
 
+def _adapter_scale(module: nn.Module, cfg: TuningConfig) -> None:
+    """The adapter's scale: a learnable fp32 [1] parameter ``scale`` or a
+    fixed buffer."""
+    if cfg.ffn_adapter_scalar == "learnable_scalar":
+        module.scale = nn.Parameter(torch.ones(1))
+    else:
+        module.register_buffer(
+            "_scale", torch.full((1,), float(cfg.ffn_adapter_scalar)),
+            persistent=False)
+
+
 class Adapter(nn.Module):
     """AdaptFormer parallel bottleneck: down -> ReLU -> up -> * scale."""
 
     def __init__(self, cfg: TuningConfig, dim: int,
                  generator: torch.Generator, *, dtype=torch.bfloat16):
         super().__init__()
-        if cfg.moe_experts and cfg.moe_experts > 1:
-            raise NotImplementedError("the MoE adapter comes with the MoE "
-                                      "slice")
-        if cfg.ffn_adapter_layernorm_option != "none":
-            raise NotImplementedError("adapter in/out LayerNorm comes with a "
-                                      "later slice")
         lora = cfg.ffn_adapter_init_option == "lora"
         self.down_proj = _linear(dim, cfg.ffn_num, generator,
                                  init=kaiming_uniform_lora if lora
@@ -220,12 +230,7 @@ class Adapter(nn.Module):
         if lora:
             with torch.no_grad():
                 self.up_proj.weight.zero_()
-        if cfg.ffn_adapter_scalar == "learnable_scalar":
-            self.scale = nn.Parameter(torch.ones(1))
-        else:
-            self.register_buffer(
-                "_scale", torch.full((1,), float(cfg.ffn_adapter_scalar)),
-                persistent=False)
+        _adapter_scale(self, cfg)
         self.dtype = dtype
         self._w = _WeightCache()
 
@@ -248,6 +253,78 @@ class Adapter(nn.Module):
         up = F.linear(torch.relu(down), w(self.up_proj.weight, dt),
                       w(self.up_proj.bias, dt))
         return up * self.scale_tensor().to(up.dtype)
+
+
+class MoEAdapter(nn.Module):
+    """MoE-enhanced adapter: E parallel bottleneck experts blended per token
+    by a softmax router (the JAX package's MoEAdapter, a paper feature).
+
+    Parameters mirror the flax tree: ``router.weight`` [E, C] (no bias),
+    ``down_kernel`` [E, C, b], ``down_bias`` [E, b], ``up_kernel`` [E, b, C],
+    ``up_bias`` [E, C] and, when learnable, ``scale``.  Init as the JAX
+    module: router zeros, each expert's down kernel kaiming-uniform (bound
+    1/sqrt(C)), up kernel and biases zeros.
+
+    ``forward`` is the module path (blocks the fused kernels do not take),
+    with the JAX module's own rounding: an fp32 router on fp32 x, bf16
+    expert products with bf16 biases, a bf16 blend with bf16 gates.  The
+    fused path (K7/K8) takes ``kernel_weights`` instead."""
+
+    def __init__(self, cfg: TuningConfig, dim: int,
+                 generator: torch.Generator, *, dtype=torch.bfloat16):
+        super().__init__()
+        E, b = cfg.moe_experts, cfg.ffn_num
+        self.experts, self.bneck, self.tau = E, b, cfg.moe_router_tau
+        self.router = _linear(dim, E, generator, bias=False,
+                              init=lambda t, g: t.zero_())
+        self.down_kernel = nn.Parameter(torch.empty(E, dim, b))
+        with torch.no_grad():
+            bound = 1.0 / math.sqrt(dim)
+            for e in range(E):
+                self.down_kernel[e].uniform_(-bound, bound,
+                                             generator=generator)
+        self.down_bias = nn.Parameter(torch.zeros(E, b))
+        self.up_kernel = nn.Parameter(torch.zeros(E, b, dim))
+        self.up_bias = nn.Parameter(torch.zeros(E, dim))
+        _adapter_scale(self, cfg)
+        self.dtype = dtype
+        self._w = _WeightCache()
+
+    scale_tensor = Adapter.scale_tensor
+
+    def kernel_weights(self):
+        """(wrouter fp32 [E, C], wdown2d [E*b, C], bdown2d fp32 [E*b],
+        wup2d [C, E*b], bup fp32 [E, C], scale fp32 [1]) for K7/K8, the
+        expert stacks laid out once per load (``ms.moe_kernel_weights``)."""
+        down, bdown, up = self._w.cached(
+            (self.down_kernel, self.down_bias, self.up_kernel),
+            ("moe", self.dtype),
+            lambda d, bd, u: ms.moe_kernel_weights(d, bd, u, self.dtype))
+        return (self.router.weight.detach(), down, bdown, up,
+                self.up_bias.detach(), self.scale_tensor())
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        w, dt = self._w.get, self.dtype
+        gates = torch.softmax(F.linear(x.float(), self.router.weight)
+                              / self.tau, dim=-1)               # [..., E]
+        h = torch.einsum("...d,edb->...eb", x.to(dt),
+                         w(self.down_kernel, dt)) + w(self.down_bias, dt)
+        up = torch.einsum("...eb,ebd->...ed", torch.relu(h),
+                          w(self.up_kernel, dt)) + w(self.up_bias, dt)
+        out = torch.einsum("...ed,...e->...d", up, gates.to(dt))
+        return out * self.scale_tensor().to(out.dtype)
+
+
+def make_adapter(cfg: TuningConfig, dim: int, generator: torch.Generator, *,
+                 dtype=torch.bfloat16) -> nn.Module:
+    """The block's adapter: ``MoEAdapter`` when ``moe_experts > 1``, else
+    ``Adapter``."""
+    if cfg.ffn_adapter_layernorm_option != "none":
+        raise NotImplementedError("adapter in/out LayerNorm comes with a "
+                                  "later slice")
+    if cfg.moe_experts and cfg.moe_experts > 1:
+        return MoEAdapter(cfg, dim, generator, dtype=dtype)
+    return Adapter(cfg, dim, generator, dtype=dtype)
 
 
 class TokenSelect(nn.Module):
@@ -325,7 +402,7 @@ class Block(nn.Module):
             self.mlp_token_select = TokenSelect(
                 dim, generator, threshold=select_cfg.threshold)
         if tuning.ffn_adapt:
-            self.adaptmlp = Adapter(tuning, dim, generator, dtype=dtype)
+            self.adaptmlp = make_adapter(tuning, dim, generator, dtype=dtype)
 
     def _mlp_rows(self, rows: torch.Tensor) -> torch.Tensor:
         if self.quant != "none":
@@ -358,15 +435,28 @@ class Block(nn.Module):
             head = self.mlp_token_select.mlp_head if with_select else None
             sel_w = ((head.weight.detach(), head.bias.detach())
                      if head is not None else (None, None))
-            if q8:
+            # K3/K6 for the adapter, K7/K8 for the MoE adapter
+            adapter_w = self.adaptmlp.kernel_weights()
+            moe = isinstance(self.adaptmlp, MoEAdapter)
+            if moe and q8:
+                outs = qt.dyt_prologue_serving_q8_moe(
+                    x, g1, b1, *attn_w, *adapter_w, *sel_w,
+                    heads=self.num_heads, tau=self.adaptmlp.tau,
+                    with_select=with_select, attn_q8=attn_q8)
+            elif moe:
+                outs = ms.dyt_prologue_serving_moe(
+                    x, g1, b1, *attn_w, *adapter_w, *sel_w,
+                    heads=self.num_heads, tau=self.adaptmlp.tau,
+                    with_select=with_select)
+            elif q8:
                 outs = qt.dyt_prologue_serving_q8(
-                    x, g1, b1, *attn_w, *self.adaptmlp.kernel_weights(),
-                    *sel_w, heads=self.num_heads, with_select=with_select,
+                    x, g1, b1, *attn_w, *adapter_w, *sel_w,
+                    heads=self.num_heads, with_select=with_select,
                     attn_q8=attn_q8)
             else:
                 outs = ms.dyt_prologue_serving(
-                    x, g1, b1, *attn_w, *self.adaptmlp.kernel_weights(),
-                    *sel_w, heads=self.num_heads, with_select=with_select)
+                    x, g1, b1, *attn_w, *adapter_w, *sel_w,
+                    heads=self.num_heads, with_select=with_select)
             if with_select:
                 x, adapt_x, sel = outs
                 logits = sel[:, 1:, :]                  # strip the CLS row

@@ -44,6 +44,10 @@ _SIGNATURES = {
     "dyt_attn_core_q8": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
     "dyt_attn_core_q8_smem_bytes": [_I, _I],
     "dyt_q8_stem_gemm": [_P, _P, _P, _P, _P, _I, _I, _I, _P, _P],
+    "dyt_moe_adapter_router": [_P, _I, _I] + [_P] * 9 + [_I, _P, _I, _I, _F,
+                                                         _P],
+    "dyt_moe_width_supported": [_I, _I],
+    "dyt_moe_smem_bytes": [_I, _I],
 }
 
 

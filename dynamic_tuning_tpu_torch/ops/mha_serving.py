@@ -1,13 +1,16 @@
 """Serving-path attention sublayer and DyT prologue (counterpart of the main-
 path part of dynamic_tuning_tpu/ops/mha_serving.py).
 
-Two kernels, each a wrapper with its plain PyTorch version beside it:
+Three kernels, each a wrapper with its plain PyTorch version beside it:
 
 * ``attention_sublayer_serving`` (TPU kernel K2):
   ``x + proj(core(qkv(LN(x))))`` -- the sublayer of the plain dense ViT;
 * ``dyt_prologue_serving`` (TPU kernel K3): K2's ``x_mid`` plus the parallel
   adapter ``up(relu(down(x_mid))) * scale`` and the fp32 router logits
-  ``x_mid @ wsel + bsel`` -- every DyT block.
+  ``x_mid @ wsel + bsel`` -- every DyT block;
+* ``dyt_prologue_serving_moe`` (TPU kernel K7): K2's ``x_mid`` plus the
+  MoE-enhanced adapter (E experts blended per token by a softmax router) and
+  the router logits -- every DyT block with ``moe_experts > 1``.
 
 A wrapper given CPU tensors computes the plain version.  Given CUDA tensors it
 launches the hand-written kernels of ``csrc/`` (built by ``_build`` on first
@@ -26,7 +29,19 @@ kernels, not the unfused XLA branch of the JAX Attention module:
   of the fp32 ``e``; AV uses the rounded ``e`` with fp32 accumulation, times
   ``1 / l``, then one rounding;
 * the adapter reads the rounded fp32 ``x_mid``, the router the fp32 ``x_mid``
-  with fp32 ``wsel``; logits come for all N rows (the caller strips CLS).
+  with fp32 ``wsel``; logits come for all N rows (the caller strips CLS);
+* the MoE mixture (``moe_adapter_rows`` of the TPU kernels): expert gates
+  ``softmax((x_mid @ wr) * fp32(1/tau))`` with the row max subtracted; the
+  experts' bottleneck ``relu(bf16(x_mid) @ down + bd)`` stays fp32 through
+  the gate multiply and is rounded once; the up bias enters as the fp32
+  ``gates @ up_bias``, added before ``* scale``.
+
+Where a sum decides a rounding that later steps amplify (the attention
+core's scores, ``l`` and AV; every product of the MoE tail; its router and
+token-router dots), the plain versions sum in float64 and round once.  The
+MoE tail kernel adds each tensor-core step's product with a round-to-nearest
+add and sums its dots in float64, so it lands near those exact sums and the
+bf16 roundings downstream mostly agree.
 """
 
 from __future__ import annotations
@@ -63,19 +78,27 @@ def _mm(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return torch.matmul(a.float(), w.float().t())
 
 
+def _mm64(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """a @ w.T (batched over leading axes) with the operands' values,
+    summed in float64 and rounded once to fp32: the exact sum, whatever
+    order a kernel sums in."""
+    return torch.matmul(a.double(), w.double().transpose(-1, -2)).float()
+
+
 def attn_core_pairs(qkv: torch.Tensor, *, heads: int) -> torch.Tensor:
     """Serving attention core on raw qkv ``[B, N, 3C]`` (columns
-    ``[q|k|v] x head x hd``) -> ``[B, N, C]`` in qkv's dtype."""
+    ``[q|k|v] x head x hd``) -> ``[B, N, C]`` in qkv's dtype.  Scores, l and
+    the AV products are summed in float64 and rounded once to fp32."""
     B, N, C3 = qkv.shape
     C = C3 // 3
     hd = C // heads
     dtype = qkv.dtype
     q, k, v = qkv.reshape(B, N, 3, heads, hd).permute(2, 0, 3, 1, 4)
     q = (q.float() * hd ** -0.5).to(dtype)
-    s = torch.matmul(q.float(), k.float().transpose(-1, -2))
+    s = _mm64(q, k)
     e = torch.exp(s.clamp(-60.0, 80.0) - 20.0)
-    l = e.sum(dim=-1, keepdim=True)
-    o = torch.matmul(e.to(dtype).float(), v.float()) * (1.0 / l)
+    l = e.double().sum(dim=-1, keepdim=True).float()
+    o = _mm64(e.to(dtype), v.transpose(-1, -2)) * (1.0 / l)
     return o.to(dtype).transpose(1, 2).reshape(B, N, C)
 
 
@@ -118,6 +141,64 @@ def adapter_router_plain(xm, out_dtype, wdown, bdown, wup, bup, adapter_scale,
         return xm.to(out_dtype), adapt
     logits = torch.matmul(xm, wsel.float().reshape(-1, 1)) + bsel
     return xm.to(out_dtype), adapt, logits
+
+
+def moe_kernel_weights(down_kernel, down_bias, up_kernel, dtype):
+    """The expert stacks in the layout of the MoE tail: (wdown2d [E*b, C]
+    in ``dtype``, row e*b+j = down_kernel[e, :, j]; bdown2d fp32 [E*b];
+    wup2d [C, E*b] in ``dtype``) from down_kernel [E, C, b], down_bias
+    [E, b] and up_kernel [E, b, C]."""
+    E, C, b = down_kernel.shape
+    wdown2d = down_kernel.transpose(1, 2).reshape(E * b, C)
+    wup2d = up_kernel.reshape(E * b, C).t()
+    return (wdown2d.to(dtype).contiguous(),
+            down_bias.reshape(E * b).float().contiguous(),
+            wup2d.to(dtype).contiguous())
+
+
+def moe_adapter_router_plain(xm, out_dtype, wrouter, wdown2d, bdown2d, wup2d,
+                             bup, adapter_scale, wsel, bsel, *, experts: int,
+                             bneck: int, tau: float, with_select: bool):
+    """The MoE prologue's tail on the fp32 x_mid ``xm``: (x_mid, adapt[,
+    logits]) with x_mid and adapt in ``out_dtype``.  wrouter [E, C] fp32,
+    wdown2d [E*b, C] and wup2d [C, E*b] in the compute dtype, bdown2d [E*b]
+    and bup [E, C] fp32 (``moe_kernel_weights``)."""
+    if tuple(wrouter.shape[:1]) + tuple(wdown2d.shape[:1]) != (
+            experts, experts * bneck):
+        raise ValueError(f"wrouter {tuple(wrouter.shape)} and wdown2d "
+                         f"{tuple(wdown2d.shape)} do not hold {experts} "
+                         f"experts of width {bneck}")
+    # the router dots summed in float64 and rounded once, as the kernel
+    # does; 1/tau as an fp32 multiplier, as the TPU kernel scales them
+    r = _mm64(xm, wrouter) * torch.tensor(1.0 / tau, dtype=torch.float32)
+    eg = torch.exp(r - r.amax(dim=-1, keepdim=True))
+    gates = eg / eg.sum(dim=-1, keepdim=True)                   # [.., E]
+    h = torch.clamp_min(_mm64(xm.to(wdown2d.dtype), wdown2d) + bdown2d, 0.0)
+    hg = (h * gates.repeat_interleave(bneck, dim=-1)).to(wup2d.dtype)
+    up = _mm64(hg, wup2d)
+    upb = _mm64(gates, bup.t())                                 # gates . Bu
+    adapt = ((up + upb) * adapter_scale).to(out_dtype)
+    if not with_select:
+        return xm.to(out_dtype), adapt
+    return xm.to(out_dtype), adapt, _mm64(xm, wsel) + bsel
+
+
+def _moe_dims(wrouter, wdown2d):
+    E = wrouter.shape[0]
+    return E, wdown2d.shape[0] // E
+
+
+def dyt_prologue_moe_plain(x, gamma, beta, wqkv, bqkv, wproj, bproj, wrouter,
+                           wdown2d, bdown2d, wup2d, bup, adapter_scale, wsel,
+                           bsel, *, heads: int, tau: float,
+                           with_select: bool = True):
+    """Plain version of K7: (x_mid, adapt, logits [B, N, 1] fp32), or
+    (x_mid, adapt) without the router."""
+    xm = _sublayer_f32(x, gamma, beta, wqkv, bqkv, wproj, bproj, heads)
+    E, b = _moe_dims(wrouter, wdown2d)
+    return moe_adapter_router_plain(
+        xm, x.dtype, wrouter, wdown2d, bdown2d, wup2d, bup, adapter_scale,
+        wsel, bsel, experts=E, bneck=b, tau=tau, with_select=with_select)
 
 
 # --- CUDA wrappers -----------------------------------------------------------
@@ -273,6 +354,92 @@ def launch_adapter_router(lib, x_mid, xm32, wdown, bdown, wup, bup,
     return (x_mid, adapt, logits) if with_select else (x_mid, adapt)
 
 
+def dyt_prologue_serving_moe(x, gamma, beta, wqkv, bqkv, wproj, bproj,
+                             wrouter, wdown2d, bdown2d, wup2d, bup,
+                             adapter_scale, wsel, bsel, *, heads: int,
+                             tau: float, with_select: bool = True):
+    """K7: (x_mid, adapt, logits [B, N, 1] fp32), or (x_mid, adapt) when
+    ``with_select`` is False (wsel and bsel unused).
+
+    Sublayer weights as for ``dyt_prologue_serving``; the experts as
+    ``moe_kernel_weights`` lays them out (wdown2d [E*b, C], wup2d [C, E*b]
+    in the compute dtype), wrouter [E, C], bdown2d [E*b], bup [E, C],
+    adapter_scale [1], wsel [1, C] and bsel [1] fp32."""
+    if x.device.type == "cpu":
+        return dyt_prologue_moe_plain(
+            x, gamma, beta, wqkv, bqkv, wproj, bproj, wrouter, wdown2d,
+            bdown2d, wup2d, bup, adapter_scale, wsel, bsel, heads=heads,
+            tau=tau, with_select=with_select)
+    lib = _check_sublayer(x, gamma, beta, wqkv, bqkv, wproj, bproj, heads)
+    check_moe_adapter_router(lib, x, wrouter, wdown2d, bdown2d, wup2d, bup,
+                             adapter_scale, wsel, bsel, with_select)
+    with torch.cuda.device(x.device):
+        xm32 = torch.empty(x.shape, dtype=torch.float32, device=x.device)
+        x_mid = _launch_sublayer(lib, x, gamma, beta, wqkv, bqkv, wproj,
+                                 bproj, heads, xm32)
+        outs = launch_moe_adapter_router(
+            lib, x_mid, xm32, wrouter, wdown2d, bdown2d, wup2d, bup,
+            adapter_scale, wsel, bsel, tau, with_select)
+    dyt_prologue_serving_moe.launches += 1
+    return outs
+
+
+dyt_prologue_serving_moe.launches = 0
+
+
+def check_moe_adapter_router(lib, x, wrouter, wdown2d, bdown2d, wup2d, bup,
+                             adapter_scale, wsel, bsel,
+                             with_select: bool) -> None:
+    """Raise on MoE adapter/router arguments the CUDA kernel does not take."""
+    C = x.shape[-1]
+    if wrouter.dim() != 2 or wdown2d.dim() != 2:
+        raise ValueError("wrouter and wdown2d must be 2-D")
+    E, W = wrouter.shape[0], wdown2d.shape[0]
+    if E < 2 or W % E or not lib.dyt_moe_width_supported(E, W // E):
+        raise ValueError(f"MoE width {E} experts x {W / E:g} not supported "
+                         "(E >= 2, E*b a multiple of 16 and at most 512)")
+    dev, f32 = x.device, (torch.float32,)
+    _require(wrouter, "wrouter", (E, C), f32, dev)
+    _require(wdown2d, "wdown2d", (W, C), (torch.bfloat16,), dev)
+    _require(wup2d, "wup2d", (C, W), (torch.bfloat16,), dev)
+    _require(bdown2d, "bdown2d", (W,), f32, dev)
+    _require(bup, "bup", (E, C), f32, dev)
+    _require(adapter_scale, "adapter_scale", (1,), f32, dev)
+    if with_select:
+        _require(wsel, "wsel", (1, C), f32, dev)
+        _require(bsel, "bsel", (1,), f32, dev)
+    if C % 64:
+        raise ValueError(f"C={C} must be a multiple of 64")
+    smem = lib.dyt_moe_smem_bytes(E, W // E)
+    if smem > SMEM_PER_BLOCK:
+        raise ValueError(f"MoE kernel at {E} experts x {W // E} needs {smem} "
+                         f"B of shared memory per block (limit "
+                         f"{SMEM_PER_BLOCK})")
+
+
+def launch_moe_adapter_router(lib, x_mid, xm32, wrouter, wdown2d, bdown2d,
+                              wup2d, bup, adapter_scale, wsel, bsel,
+                              tau: float, with_select: bool):
+    """The MoE adapter/router kernel on the fp32 copy ``xm32`` of
+    ``x_mid``: (x_mid, adapt[, logits])."""
+    B, N, C = x_mid.shape
+    dev = x_mid.device
+    E, b = _moe_dims(wrouter, wdown2d)
+    adapt = torch.empty_like(x_mid)
+    logits = (torch.empty((B, N, 1), dtype=torch.float32, device=dev)
+              if with_select else None)
+    err = lib.dyt_moe_adapter_router(
+        _ptr(xm32), B * N, C, _ptr(wrouter), _ptr(wdown2d), _ptr(bdown2d),
+        _ptr(wup2d), _ptr(bup), _ptr(adapter_scale),
+        _ptr(wsel) if with_select else None,
+        _ptr(bsel) if with_select else None, _ptr(adapt),
+        int(x_mid.dtype == torch.float32), _ptr(logits), E, b, 1.0 / tau,
+        torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(lib, err, "MoE adapter/router kernel")
+    return (x_mid, adapt, logits) if with_select else (x_mid, adapt)
+
+
 def reset_launch_counts() -> None:
     attention_sublayer_serving.launches = 0
     dyt_prologue_serving.launches = 0
+    dyt_prologue_serving_moe.launches = 0

@@ -5,12 +5,14 @@ activations:
 
     out[m, n] = (sum_k qa[m, k] * qw[n, k]) * row_scale[m] * col_scale[n]
 
-Four kernels, each a wrapper with its plain PyTorch version beside it:
+Five kernels, each a wrapper with its plain PyTorch version beside it:
 
 * ``q8_ln_mlp`` (TPU kernel K4): LN -> int8 fc1 -> GELU -> int8 fc2 on rows;
 * ``attention_sublayer_serving_q8`` (K5): K2 with int8 qkv and proj;
 * ``dyt_prologue_serving_q8`` (K6): K3 with int8 qkv and proj, the adapter
   and the router unchanged;
+* ``dyt_prologue_serving_q8_moe`` (K8): K7 with int8 qkv and proj, the MoE
+  mixture and the router unchanged (bf16/fp32);
 * ``attn_core_pairs_q8`` (K10, ``--quant int8_attn``): the attention core
   with an int8 QK^T, reached alone or inside K5/K6 with ``attn_q8=True``.
 
@@ -31,7 +33,7 @@ are those of the TPU kernels:
 * int32 sums exact (the plain versions form them in float64, exact past
   2**24), then ``(acc * row_scale) * col_scale``, then the bias;
 * K5's qkv and core output are rounded to bf16 whatever x's dtype; K6's
-  follow the adapter dtype; ``x_mid = (x + proj) + b``;
+  and K8's follow the adapter dtype; ``x_mid = (x + proj) + b``;
 * K10: q scaled in fp32 and quantized per head row; k centred by its lane
   mean over the N tokens and quantized per row of a HEAD PAIR (the TPU's
   128-lane row), so one k scale covers heads 2p and 2p+1.
@@ -172,6 +174,20 @@ def dyt_prologue_q8_plain(x, gamma, beta, wqkv_q, sqkv, bqkv, wproj_q, sproj,
     return ms.adapter_router_plain(xm, x.dtype, wdown, bdown, wup, bup,
                                    adapter_scale, wsel, bsel,
                                    with_select=with_select)
+
+
+def dyt_prologue_q8_moe_plain(x, gamma, beta, wqkv_q, sqkv, bqkv, wproj_q,
+                              sproj, bproj, wrouter, wdown2d, bdown2d, wup2d,
+                              bup, adapter_scale, wsel, bsel, *, heads: int,
+                              tau: float, with_select: bool = True,
+                              attn_q8: bool = False):
+    """Plain version of K8: (x_mid, adapt[, logits]) as K7's."""
+    xm = _sublayer_q8_f32(x, gamma, beta, wqkv_q, sqkv, bqkv, wproj_q, sproj,
+                          bproj, heads, attn_q8, wdown2d.dtype)
+    E, b = ms._moe_dims(wrouter, wdown2d)
+    return ms.moe_adapter_router_plain(
+        xm, x.dtype, wrouter, wdown2d, bdown2d, wup2d, bup, adapter_scale,
+        wsel, bsel, experts=E, bneck=b, tau=tau, with_select=with_select)
 
 
 def quantize_conv_weight(w: torch.Tensor):
@@ -416,6 +432,39 @@ def dyt_prologue_serving_q8(x, gamma, beta, wqkv_q, sqkv, bqkv, wproj_q,
 dyt_prologue_serving_q8.launches = 0
 
 
+def dyt_prologue_serving_q8_moe(x, gamma, beta, wqkv_q, sqkv, bqkv, wproj_q,
+                                sproj, bproj, wrouter, wdown2d, bdown2d,
+                                wup2d, bup, adapter_scale, wsel, bsel, *,
+                                heads: int, tau: float,
+                                with_select: bool = True,
+                                attn_q8: bool = False):
+    """K8: K5's x_mid, then K7's MoE adapter/router kernel on its fp32 copy:
+    (x_mid, adapt, logits [B, N, 1] fp32), or (x_mid, adapt) without the
+    router.  Expert weights as for ``dyt_prologue_serving_moe``."""
+    if x.device.type == "cpu":
+        return dyt_prologue_q8_moe_plain(
+            x, gamma, beta, wqkv_q, sqkv, bqkv, wproj_q, sproj, bproj,
+            wrouter, wdown2d, bdown2d, wup2d, bup, adapter_scale, wsel, bsel,
+            heads=heads, tau=tau, with_select=with_select, attn_q8=attn_q8)
+    lib = _check_sublayer_q8(x, gamma, beta, wqkv_q, sqkv, bqkv, wproj_q,
+                             sproj, bproj, heads, attn_q8)
+    ms.check_moe_adapter_router(lib, x, wrouter, wdown2d, bdown2d, wup2d,
+                                bup, adapter_scale, wsel, bsel, with_select)
+    with torch.cuda.device(x.device):
+        xm32 = torch.empty(x.shape, dtype=F32, device=x.device)
+        x_mid = _launch_sublayer_q8(lib, x, gamma, beta, wqkv_q, sqkv, bqkv,
+                                    wproj_q, sproj, bproj, heads, attn_q8,
+                                    xm32)
+        outs = ms.launch_moe_adapter_router(
+            lib, x_mid, xm32, wrouter, wdown2d, bdown2d, wup2d, bup,
+            adapter_scale, wsel, bsel, tau, with_select)
+    dyt_prologue_serving_q8_moe.launches += 1
+    return outs
+
+
+dyt_prologue_serving_q8_moe.launches = 0
+
+
 def q8_patch_embed(x, wq, ws, bias, *, patch: int,
                    dtype: torch.dtype = BF) -> torch.Tensor:
     """The int8 stem: NHWC images [B, H, W, c] -> [B, T, O] in ``dtype``
@@ -452,5 +501,6 @@ q8_patch_embed.launches = 0
 
 def reset_launch_counts() -> None:
     for fn in (q8_ln_mlp, attn_core_pairs_q8, attention_sublayer_serving_q8,
-               dyt_prologue_serving_q8, q8_patch_embed):
+               dyt_prologue_serving_q8, dyt_prologue_serving_q8_moe,
+               q8_patch_embed):
         fn.launches = 0

@@ -2,12 +2,15 @@
 
     python -m dynamic_tuning_tpu_torch.speed --mode dispatch
     python -m dynamic_tuning_tpu_torch.speed --quant int8 --mode dispatch
+    python -m dynamic_tuning_tpu_torch.speed --moe_experts 4 --mode dispatch
 
 Same flags and defaults as ``speed.py``: ViT-B/16 at 224^2, batch 128, bf16
 compute and residual stream, tanh GELU, ``--mode dispatch|mask|dense|plain``
 (capacity dispatch; eval mask; the DyT model in complete_model mode; the
 plain ViT without adapter or router), ``--quant none|int8|int8_attn`` (W8A8
-serving in every mode, the plain ViT included).  Weights are random from
+serving in every mode, the plain ViT included), ``--moe_experts N`` (the
+MoE-enhanced adapter of N experts of width ``--ffn_num``, router
+temperature ``--moe_router_tau``; no effect in plain mode).  Weights are random from
 ``--seed`` unless ``--ckpt``/``--finetune`` names a ``.pth``.  Prints the
 same JSON line as ``speed.py``; the card it ran on goes to stderr.  Needs a
 CUDA device.
@@ -39,7 +42,8 @@ def get_args_parser():
     p.add_argument("--nb_classes", default=100, type=int)
     p.add_argument("--ffn_num", default=64, type=int)
     p.add_argument("--moe_experts", default=0, type=int,
-                   help="MoE adapter (not ported yet: > 1 raises)")
+                   help="MoE adapter of N experts when N > 1 (ignored in "
+                        "plain mode)")
     p.add_argument("--moe_router_tau", default=1.0, type=float)
     p.add_argument("--token_target_ratio", type=float, default=0.5)
     p.add_argument("--capacity_ratio", type=float, default=None)
@@ -93,8 +97,6 @@ def get_args_parser():
 
 def build_model(args, device, state_dict=None) -> VisionTransformer:
     """The model ``--mode`` measures, on ``device``, eval mode."""
-    if args.moe_experts > 1:
-        raise NotImplementedError("--moe_experts > 1 is not ported yet")
     if args.compute_dtype != "bfloat16":
         raise NotImplementedError("--compute_dtype other than bfloat16 is not "
                                   "ported yet: the kernels take bf16 weights")
@@ -106,7 +108,9 @@ def build_model(args, device, state_dict=None) -> VisionTransformer:
         sel = SelectConfig(open=False)
         tuning = TuningConfig(ffn_adapt=False)
     else:
-        tuning = TuningConfig(ffn_num=args.ffn_num)
+        tuning = TuningConfig(ffn_num=args.ffn_num,
+                              moe_experts=args.moe_experts,
+                              moe_router_tau=args.moe_router_tau)
     model = VisionTransformer(
         ModelConfig(num_classes=args.nb_classes, gelu_approx=args.gelu_approx,
                     residual_dtype=args.residual_dtype, quant=args.quant),

@@ -260,6 +260,121 @@ def test_q8_wrappers_raise_on_unsupported_input():
                                          attn_q8=True)
 
 
+# --- MoE adapter (K7, K8) ----------------------------------------------------
+#
+# Tolerance as for K3/K6: the MoE tail rounds at the plain version's points
+# (bf16 x_mid for the down product, one rounding of the gated bottleneck);
+# the fp32 sums (router dots, expert products) run in another order.
+
+MOE_WIDTHS = [(4, 64), (4, 8), (2, 16)]       # (experts, bottleneck)
+
+
+def moe_inputs(C, E, b, seed=0):
+    """(wrouter, wdown2d, bdown2d, wup2d, bup, adapter_scale) on the card:
+    router logits of a few units, so the gates differ per token."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    r = lambda *s, sc=1.0: torch.randn(s, generator=g, device="cuda") * sc
+    wrouter = r(E, C, sc=2.0 / C ** 0.5)
+    stacks = ms.moe_kernel_weights(r(E, C, b, sc=0.03), r(E, b, sc=0.02),
+                                   r(E, b, C, sc=0.02), BF)
+    return (wrouter, *stacks, r(E, C, sc=0.01),
+            torch.full((1,), 0.1, device="cuda"))
+
+
+@pytest.mark.parametrize("xdtype", [BF, torch.float32])
+@pytest.mark.parametrize("with_select", [True, False])
+@pytest.mark.parametrize("E,b", MOE_WIDTHS)
+@pytest.mark.parametrize("B,N,C,H,F", SHAPES)
+def test_dyt_prologue_moe_kernel(B, N, C, H, F, E, b, with_select, xdtype):
+    x, sub, ad = make_inputs(B, N, C, F, xdtype=xdtype, seed=7)
+    moe = moe_inputs(C, E, b, seed=8)
+    before = ms.dyt_prologue_serving_moe.launches
+    got = ms.dyt_prologue_serving_moe(x, *sub, *moe, *ad[5:], heads=H,
+                                      tau=0.7, with_select=with_select)
+    torch.cuda.synchronize()
+    assert ms.dyt_prologue_serving_moe.launches == before + 1
+    want = ms.dyt_prologue_moe_plain(x, *sub, *moe, *ad[5:], heads=H,
+                                     tau=0.7, with_select=with_select)
+    assert len(got) == (3 if with_select else 2)
+    assert got[1].dtype == xdtype and got[1].shape == x.shape
+    bf16_close(got[0], want[0], "x_mid")
+    bf16_close(got[1], want[1], "adapt")
+    if with_select:
+        logits_close(got[2], want[2])
+
+
+@pytest.mark.parametrize("attn_q8", [False, True], ids=["core", "int8_attn"])
+@pytest.mark.parametrize("with_select", [True, False])
+@pytest.mark.parametrize("E,b", MOE_WIDTHS)
+@pytest.mark.parametrize("B,N,C,H,F", SHAPES)
+def test_dyt_prologue_q8_moe_kernel(B, N, C, H, F, E, b, with_select,
+                                    attn_q8):
+    x, sub, ad = make_inputs(B, N, C, F, seed=9)
+    moe = moe_inputs(C, E, b, seed=10)
+    before = (qt.dyt_prologue_serving_q8_moe.launches,
+              qt.attn_core_pairs_q8.launches)
+    got = qt.dyt_prologue_serving_q8_moe(x, *q8_sub(sub), *moe, *ad[5:],
+                                         heads=H, tau=0.7,
+                                         with_select=with_select,
+                                         attn_q8=attn_q8)
+    torch.cuda.synchronize()
+    assert (qt.dyt_prologue_serving_q8_moe.launches,
+            qt.attn_core_pairs_q8.launches) == (before[0] + 1,
+                                                before[1] + attn_q8)
+    want = qt.dyt_prologue_q8_moe_plain(x, *q8_sub(sub), *moe, *ad[5:],
+                                        heads=H, tau=0.7,
+                                        with_select=with_select,
+                                        attn_q8=attn_q8)
+    assert len(got) == (3 if with_select else 2)
+    bf16_close(got[0], want[0], "x_mid")
+    bf16_close(got[1], want[1], "adapt")
+    if with_select:
+        logits_close(got[2], want[2])
+
+
+@pytest.mark.parametrize("quant", ["none", "int8", "int8_attn"])
+def test_moe_model_launches_only_moe_prologue(quant):
+    """A CUDA MoE model runs the MoE prologue in every block (and the int8
+    MLP under int8), never the dense-adapter prologues."""
+    from dynamic_tuning_tpu_torch.config import ModelConfig, TuningConfig
+    from dynamic_tuning_tpu_torch.models.vit import VisionTransformer
+
+    mc = ModelConfig(img_size=64, patch_size=16, embed_dim=128, depth=2,
+                     num_heads=2, num_classes=10, quant=quant)
+    model = VisionTransformer(mc, tuning=TuningConfig(ffn_num=16,
+                                                      moe_experts=4),
+                              device="cuda")
+    x = torch.randn((3, 64, 64, 3), device="cuda")
+    ms.reset_launch_counts()
+    qt.reset_launch_counts()
+    with torch.inference_mode():
+        logits, _ = model(x, dispatch=True)
+    torch.cuda.synchronize()
+    assert torch.isfinite(logits).all()
+    q8 = quant != "none"
+    assert (ms.attention_sublayer_serving.launches,
+            ms.dyt_prologue_serving.launches,
+            qt.attention_sublayer_serving_q8.launches,
+            qt.dyt_prologue_serving_q8.launches) == (0, 0, 0, 0)
+    assert ms.dyt_prologue_serving_moe.launches == (0 if q8 else 2)
+    assert qt.dyt_prologue_serving_q8_moe.launches == (2 if q8 else 0)
+    assert qt.q8_ln_mlp.launches == (2 if q8 else 0)
+    assert qt.attn_core_pairs_q8.launches == (2 if quant == "int8_attn"
+                                              else 0)
+    assert qt.q8_patch_embed.launches == (1 if q8 else 0)
+
+
+@pytest.mark.parametrize("E,b", [(3, 8), (1, 64), (4, 132)])
+def test_moe_wrappers_raise_on_unsupported_width(E, b):
+    x, sub, ad = make_inputs(2, 19, 128, 16)
+    moe = moe_inputs(128, E, b)
+    with pytest.raises(ValueError, match="MoE width"):
+        ms.dyt_prologue_serving_moe(x, *sub, *moe, *ad[5:], heads=2, tau=1.0)
+    with pytest.raises(ValueError, match="MoE width"):
+        qt.dyt_prologue_serving_q8_moe(x, *q8_sub(sub), *moe, *ad[5:],
+                                       heads=2, tau=1.0)
+
+
 def test_wrappers_raise_on_unsupported_input():
     x, sub, ad = make_inputs(2, 19, 128, 16)
     with pytest.raises(TypeError):                  # fp32 weights
