@@ -16,7 +16,11 @@ Phases; any failure exits non-zero:
      router), K8 dyt_prologue_serving_q8_moe (with and without the router,
      and with the K10 core); then the hand int8 GEMM beside torch._int_mm
      and cuBLAS bf16 at the int8 path's GEMM shapes (reference times, not
-     used by the port);
+     used by the port); then K9 mha_windowed_fused at the segmentation
+     path's shape (N = 1025 tokens of a 512^2 crop, 12 heads of 64, a bf16
+     bias in the layer's padded layout) at batch 1 and 2, beside
+     F.scaled_dot_product_attention with the bias as its mask (a reference
+     time only), and the time of the bias build that feeds it;
   3. the serving main path through dynamic_tuning_tpu_torch.speed.main:
      ViT-B/16 at 224^2, 12 blocks, batch 128, seeded synthetic weights;
      bf16 dispatch, dense and plain, int8 dispatch, dense and plain,
@@ -26,13 +30,29 @@ Phases; any failure exits non-zero:
      run's kernels and none of the others, img/s; for the dispatch runs,
      logits and gates against the same forward on the plain versions and
      the mean keep ratio;
-  4. the wall time, the card's name and power limit (nvidia-smi), a JSON
+  4. segmentation serving through dynamic_tuning_tpu_torch.bench.seg_family:
+     the DyT segmentor (ViT-B/16 backbone at 512^2, UPerHead 768, 150
+     classes, seeded synthetic weights) in dispatch and the dense
+     comparator, batch-1 crops; with the counts set to 0 just before: 12 K9
+     launches per forward and none of the image kernels, finite logits,
+     crops/s; each first forward against the same forward on the plain
+     versions -- for dispatch, its gates against the free-running
+     plain-version forward's, and its logits against the plain-version
+     forward given the kernel forward's dispatch decisions (per-pixel
+     logits: a gate that flips near 0 rewrites its own patch's logits,
+     whatever the kernels' error);
+  5. slide inference (dispatch) over one 512x683 image (two windows at
+     stride 341), the strip only the first window covers held against that
+     window's own forward; then SegRunner.evaluate (seg_train.py --eval)
+     on 2 synthetic 512^2 images, with K9's launches counted;
+  6. the wall time, the card's name and power limit (nvidia-smi), a JSON
      line of the kernels, and last the JSON result line.
 Needs no network and imports nothing of JAX or of the JAX package.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import subprocess
@@ -75,7 +95,14 @@ KERNELS = {
     "dyt_prologue_serving_q8_moe": ("qt", dict(
         route="cuda", source=f"{SRC}/moe_adapter.cu",
         replaces=f"{JAX_OPS}/quant.py:674")),
+    "mha_windowed_fused": ("ms", dict(
+        route="cuda", source=f"{SRC}/windowed_attention.cu",
+        replaces=f"{JAX_OPS}/mha_serving.py:321")),
 }
+# the segmentation path: 512^2 crops of 16^2 patches -> 32x32 + CLS tokens
+SEG_GRID = 32
+SEG_N = SEG_GRID * SEG_GRID + 1
+SEG_CLASSES = 150
 # (quant, mode, MoE experts, kernels launched once per block of each forward)
 RUNS = [
     ("none", "dispatch", 0, ("dyt_prologue_serving",)),
@@ -143,9 +170,9 @@ def bound(bytes_moved: int, ops: dict) -> tuple[float, str]:
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
-def attn_ops(batch=B):
+def attn_ops(batch=B, tokens=N):
     """QK^T and PV of the attention core: each 2 * B * H * N * N * hd."""
-    return 2 * batch * H * N * N * (C // H)
+    return 2 * batch * H * tokens * tokens * (C // H)
 
 
 def kernel_inputs(torch, ms):
@@ -372,6 +399,44 @@ def phase_gemm_reference(torch, _build) -> None:
               f"({ops / t_bf / 1e9:.1f} TFLOP/s)")
 
 
+def phase_windowed(torch, ms, layers) -> dict:
+    """K9 against its plain version at the segmentation path's shape, with
+    SDPA (the bias as its additive mask) as the library's time for the same
+    function (max-subtracted softmax: the same up to the clamp)."""
+    import torch.nn.functional as F
+    g = torch.Generator(device="cuda").manual_seed(1)
+    ld = ms.bias_row_stride(SEG_N)
+    # the bias in the layout the layer builds: rows padded to 16 bytes
+    bias = (torch.randn((H, SEG_N, ld), generator=g, device="cuda")
+            .to(torch.bfloat16)[:, :, :SEG_N])
+    out = {}
+    for batch in (1, 2):
+        qkv = torch.randn((batch, SEG_N, 3 * C), generator=g,
+                          device="cuda").to(torch.bfloat16)
+        res = measure(
+            f"K9 mha_windowed_fused(B={batch}, N={SEG_N})",
+            lambda: ms.mha_windowed_fused(qkv, bias, heads=H),
+            lambda: ms.mha_windowed_plain(qkv, bias, heads=H),
+            ("core",), (qkv, bias.contiguous()),
+            {"bf16": 2 * attn_ops(batch, SEG_N)})
+        q, k, v = (t.contiguous() for t in qkv.reshape(
+            batch, SEG_N, 3, H, C // H).permute(2, 0, 3, 1, 4))
+        mask = bias.contiguous()[None]
+        res["library_ms"] = time_ms(
+            lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask))
+        print(f"  SDPA with the bias as mask (reference only): "
+              f"{res['library_ms']:.4f} ms")
+        if batch == 1:
+            out["mha_windowed_fused"] = res
+    table = torch.randn(((2 * SEG_GRID - 1) ** 2 + 3, H), generator=g,
+                        device="cuda").to(torch.bfloat16)
+    t_bias = time_ms(lambda: layers._rel_pos_bias_from_table(
+        table, SEG_GRID, SEG_GRID, row_stride=ld))
+    print(f"rel-pos bias build [{H}, {SEG_N}, {SEG_N}] bf16 (one gather, "
+          f"per block per forward): {t_bias:.4f} ms")
+    return out
+
+
 def reset_counts(ms, qt) -> None:
     ms.reset_launch_counts()
     qt.reset_launch_counts()
@@ -424,18 +489,17 @@ def phase_model(torch, ms, qt, speed, make_vit_state_dict) -> dict:
         print(line)
         del res
         torch.cuda.empty_cache()
-    if not all(launches.values()):
-        fail(f"a kernel never ran on the main path: {launches}")
     return launches
 
 
-def compare_with_plain(torch, ms, qt, res, run) -> None:
-    """The dispatch forward again with every wrapper swapped for its plain
-    version (not counted: the wrappers are not called)."""
-    model, x = res["model"], res["x"]
+@contextlib.contextmanager
+def plain_versions(ms, qt):
+    """Every wrapper swapped for its plain version (calls made inside are
+    not counted: the wrappers are not called)."""
     plain = {(ms, "dyt_prologue_serving"): ms.dyt_prologue_plain,
              (ms, "attention_sublayer_serving"): ms.attention_sublayer_plain,
              (ms, "dyt_prologue_serving_moe"): ms.dyt_prologue_moe_plain,
+             (ms, "mha_windowed_fused"): ms.mha_windowed_plain,
              (qt, "dyt_prologue_serving_q8"): qt.dyt_prologue_q8_plain,
              (qt, "attention_sublayer_serving_q8"):
                  qt.attention_sublayer_q8_plain,
@@ -443,16 +507,33 @@ def compare_with_plain(torch, ms, qt, res, run) -> None:
                  qt.dyt_prologue_q8_moe_plain,
              (qt, "q8_ln_mlp"): qt.q8_ln_mlp_plain,
              (qt, "q8_patch_embed"): qt.q8_patch_embed_plain}
-    patches = [mock.patch.object(m, name, fn)
-               for (m, name), fn in plain.items()]
-    for p in patches:
-        p.start()
-    try:
-        with torch.inference_mode():
-            ref, ref_aux = model(x, dispatch=True)
-    finally:
-        for p in patches:
-            p.stop()
+    with contextlib.ExitStack() as stack:
+        for (m, name), fn in plain.items():
+            stack.enter_context(mock.patch.object(m, name, fn))
+        yield
+
+
+@contextlib.contextmanager
+def routing(D, *, record=None, replay=None):
+    """Record the token scores each dispatch gets, in call order, or feed
+    recorded ones back in their place."""
+    real = D.dispatch_mlp
+    calls = iter(replay or ())
+
+    def dispatch_mlp(x, scores, *args, **kwargs):
+        if record is not None:
+            record.append(scores.clone())
+        return real(x, next(calls) if replay else scores, *args, **kwargs)
+
+    with mock.patch.object(D, "dispatch_mlp", dispatch_mlp):
+        yield
+
+
+def compare_with_plain(torch, ms, qt, res, run) -> None:
+    """The dispatch forward again on the plain versions."""
+    model, x = res["model"], res["x"]
+    with plain_versions(ms, qt), torch.inference_mode():
+        ref, ref_aux = model(x, dispatch=True)
     err, mag = rel_err(res["logits"], ref)
     agree = (res["aux"]["token_select"] == ref_aux["token_select"]
              ).float().mean().item()
@@ -460,6 +541,109 @@ def compare_with_plain(torch, ms, qt, res, run) -> None:
           f"{MODEL_REL * mag:.6g}), gate agreement {agree:.6f}")
     if err > MODEL_REL * mag or agree < GATE_AGREE:
         fail(f"{run} forward disagrees with the plain-version forward")
+
+
+def check_counts(ms, qt, what, want_k9) -> None:
+    counts = read_counts(ms, qt)
+    want = {k: want_k9 if k == "mha_windowed_fused" else 0 for k in KERNELS}
+    if counts != want:
+        fail(f"{what}: kernel launches {counts}, want {want}")
+
+
+def phase_seg(torch, ms, qt, D, bench, sd):
+    """Segmentation serving through bench.seg_family: dispatch and dense.
+    Returns K9's launches and the dispatch model."""
+    reset_counts(ms, qt)
+    fields, runs = bench.seg_family("cuda", state_dict=sd)
+    fwd = sum(r["forwards"] for r in runs.values())
+    check_counts(ms, qt, "seg family", DEPTH * fwd)
+    for mode, r in runs.items():
+        logits = r["logits"]
+        if (logits.shape != (1, 512, 512, SEG_CLASSES)
+                or not torch.isfinite(logits).all()):
+            fail(f"seg {mode}: logits {tuple(logits.shape)} not "
+                 "finite/shaped")
+        model, x, kw = r["model"], r["x"], bench.seg_kwargs(mode)
+        crops = fields["seg_crops_s" if mode == "dispatch"
+                       else "seg_dense_crops_s"]
+        line = f"seg {mode}: {crops} crops/s over {r['forwards']} forwards"
+        with plain_versions(ms, qt), torch.inference_mode():
+            free, _, free_aux = model(x, **kw)
+        if mode == "dispatch":
+            # the kernel forward's dispatch decisions, replayed in the
+            # plain-version forward: what is left is the kernels' numerics
+            # (a gate that flips near 0 changes its own 16x16-pixel patch's
+            # logits outright, beside any kernel error)
+            scores = []
+            with routing(D, record=scores), torch.inference_mode():
+                model(x, **kw)
+            with (routing(D, replay=scores), plain_versions(ms, qt),
+                  torch.inference_mode()):
+                ref, _, _ = model(x, **kw)
+            agree = (r["aux"]["token_select"] == free_aux["token_select"]
+                     ).float().mean().item()
+            keep = r["aux"]["token_select"].float().mean().item()
+            ferr, fmag = rel_err(logits, free)
+            past = ((logits - free).abs() > MODEL_REL * fmag).float().mean()
+            line += (f"; gate agreement with the plain-version forward "
+                     f"{agree:.6f} (its logits: max|err| {ferr:.6g} of "
+                     f"{fmag:.6g}, a share {past.item():.6f} past "
+                     f"{MODEL_REL:g} of it), mean keep ratio {keep:.4f}")
+        else:
+            ref, agree = free, 1.0
+        err, mag = rel_err(logits, ref)
+        line += (f"; logits vs plain versions"
+                 f"{' on the same dispatch' if mode == 'dispatch' else ''}: "
+                 f"max|err| {err:.6g} (tol {MODEL_REL * mag:.6g})")
+        print(line)
+        if err > MODEL_REL * mag or agree < GATE_AGREE:
+            fail(f"seg {mode} forward disagrees with the plain-version "
+                 "forward")
+    print("seg family: " + json.dumps(fields))
+    model = runs["dispatch"]["model"]
+    del runs
+    torch.cuda.empty_cache()
+    return DEPTH * fwd, model
+
+
+def phase_slide(torch, ms, qt, bench, seg_train, upernet, model, sd) -> int:
+    """Slide inference over one ADE20K-shaped image, then the evaluation
+    entry point on 2 synthetic images."""
+    g = torch.Generator(device="cuda").manual_seed(2)
+    img = torch.randn((512, 683, 3), generator=g, device="cuda")
+    kw = bench.seg_kwargs("dispatch")
+    apply = lambda tiles: model(tiles, **kw)[0]
+    reset_counts(ms, qt)
+    with torch.inference_mode():
+        out = upernet.slide_inference(apply, img, num_classes=SEG_CLASSES,
+                                      crop=512, stride=341)
+        torch.cuda.synchronize()
+        check_counts(ms, qt, "slide inference", 2 * DEPTH)
+        # columns [0, 171) lie in the first window only
+        first = apply(img[None, :, :512])[0]
+    if out.shape != (512, 683, SEG_CLASSES) or not torch.isfinite(out).all():
+        fail(f"slide inference: {tuple(out.shape)} not finite/shaped")
+    err, mag = rel_err(out[:, :171], first[:, :171])
+    print(f"slide inference 512x683: 2 windows, {2 * DEPTH} K9 launches; "
+          f"first-window strip vs its own forward: max|err| {err:.6g} "
+          f"(of {mag:.6g})")
+    if err > 1e-3 * mag:
+        fail("slide inference does not reproduce its window's logits")
+
+    args = seg_train.get_args_parser().parse_args(
+        ["--eval", "--dataset", "synthetic", "--crop_size", "512",
+         "--residual_dtype", "bfloat16", "--gelu_approx"])
+    runner = seg_train.build_runner(args, log=lambda m: print("  " + m))
+    runner.model.load_state_dict({k: torch.from_numpy(v)
+                                  for k, v in sd.items()}, strict=True)
+    reset_counts(ms, qt)
+    stats = runner.evaluate(max_images=2)
+    torch.cuda.synchronize()
+    check_counts(ms, qt, "SegRunner.evaluate", 2 * DEPTH)
+    if not (0.0 <= stats["aAcc"] <= 100.0 and stats["miou"] == stats["miou"]
+            and stats["images"] == 2):
+        fail(f"SegRunner.evaluate: {stats}")
+    return 4 * DEPTH
 
 
 def card_line() -> str:
@@ -477,9 +661,11 @@ def main() -> None:
         fail("no CUDA device")
     sys.path.insert(0, REPO)
     try:
-        from dynamic_tuning_tpu_torch import speed
+        from dynamic_tuning_tpu_torch import bench, seg_train, speed
         from dynamic_tuning_tpu_torch.checkpoint import make_vit_state_dict
+        from dynamic_tuning_tpu_torch.models import layers, upernet
         from dynamic_tuning_tpu_torch.ops import _build
+        from dynamic_tuning_tpu_torch.ops import dispatch as D
         from dynamic_tuning_tpu_torch.ops import mha_serving as ms
         from dynamic_tuning_tpu_torch.ops import quant as qt
     except ImportError as e:
@@ -497,7 +683,18 @@ def main() -> None:
 
     measured = phase_kernels(torch, ms, qt)
     phase_gemm_reference(torch, _build)
+    measured.update(phase_windowed(torch, ms, layers))
     launches = phase_model(torch, ms, qt, speed, make_vit_state_dict)
+
+    t0 = time.perf_counter()
+    seg_sd = bench.seg_state_dict(0)
+    print(f"synthetic seg weights: {time.perf_counter() - t0:.1f} s")
+    k9, seg_model = phase_seg(torch, ms, qt, D, bench, seg_sd)
+    k9 += phase_slide(torch, ms, qt, bench, seg_train, upernet, seg_model,
+                      seg_sd)
+    launches["mha_windowed_fused"] = k9
+    if not all(launches.values()):
+        fail(f"a kernel never ran on the main path: {launches}")
 
     print(f"wall time: {time.perf_counter() - t_start:.1f} s")
     print(card_line())

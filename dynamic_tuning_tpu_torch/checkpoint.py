@@ -10,14 +10,25 @@ dynamic_tuning_tpu/train/checkpoint.py).
   names, mirroring the flax tree: ``adaptmlp.router.weight`` [E, C] (the
   router Dense kernel, transposed), ``adaptmlp.down_kernel`` [E, C, b],
   ``adaptmlp.down_bias`` [E, b], ``adaptmlp.up_kernel`` [E, b, C] and
-  ``adaptmlp.up_bias`` [E, C] (the stacks in the flax layout).
+  ``adaptmlp.up_bias`` [E, C] (the stacks in the flax layout).  A
+  ``DyTSegmentor`` tree (``backbone/...``, ``decode_head/...``,
+  ``auxiliary_head/...``) maps to the port segmentor's names: the backbone
+  as the image model under ``backbone.`` plus
+  ``attn.relative_position_bias_table`` (unchanged) and the FPN transposed
+  convs, whose flax kernels [kh, kw, in, out] are flipped in both spatial
+  axes and laid out [in, out, kh, kw] (flax's ConvTranspose does not flip
+  its kernel, torch's does); the heads mirror the flax tree (``kernel`` ->
+  ``weight``, GroupNorm/BatchNorm ``scale`` -> ``weight``, batch_stats
+  ``mean``/``var`` -> ``running_mean``/``running_var``).
 * ``load_timm_state_dict``: a timm/DyT state dict into a port model with
   the rules of ``import_pretrained``: ``pre_logits.*`` dropped, a head of
-  another width dropped (head surgery), unknown keys reported and ignored,
-  keys the checkpoint lacks (adapters and routers of an IN21K backbone)
-  left at their init and returned as missing;
-* ``make_vit_state_dict``: a seeded synthetic timm+DyT state dict, for runs
-  on random weights (``chip_smoke.py``) and the tests.
+  another width dropped (head surgery), a pos-embed of another patch grid
+  interpolated bicubically, unknown keys reported and ignored, keys the
+  checkpoint lacks (adapters and routers of an IN21K backbone) left at
+  their init and returned as missing;
+* ``make_vit_state_dict`` / ``make_seg_state_dict``: seeded synthetic
+  state dicts of the image model and of the segmentor, for runs on random
+  weights (``chip_smoke.py``, the bench) and the tests.
 """
 
 from __future__ import annotations
@@ -27,6 +38,8 @@ from typing import Dict, List, Mapping, Tuple
 
 import numpy as np
 import torch
+
+from dynamic_tuning_tpu_torch.utils.pos_embed import interpolate_pos_embed
 
 # flax path (inside a block, or at the top) -> timm key
 _FLAX_TO_TIMM = {
@@ -46,6 +59,8 @@ _FLAX_TO_TIMM = {
     ("attn", "qkv", "bias"): "attn.qkv.bias",
     ("attn", "proj", "kernel"): "attn.proj.weight",
     ("attn", "proj", "bias"): "attn.proj.bias",
+    ("attn", "relative_position_bias_table"):
+        "attn.relative_position_bias_table",
     ("mlp", "fc1", "kernel"): "mlp.fc1.weight",
     ("mlp", "fc1", "bias"): "mlp.fc1.bias",
     ("mlp", "fc2", "kernel"): "mlp.fc2.weight",
@@ -88,19 +103,48 @@ def flax_path_to_timm(path: Tuple[str, ...]) -> str:
     return prefix + key
 
 
+_SEG_TOPS = ("backbone", "decode_head", "auxiliary_head")
+_HEAD_LEAF = {"kernel": "weight", "scale": "weight", "bias": "bias",
+              "mean": "running_mean", "var": "running_var"}
+
+
+def _is_deconv(path: Tuple[str, ...]) -> bool:
+    return len(path) >= 2 and re.fullmatch(r"fpn\d_deconv\d?", path[-2]) is not None
+
+
+def flax_path_to_port(path: Tuple[str, ...]) -> str:
+    """A flax param path -> the port's state-dict key: timm names for the
+    image model (``flax_path_to_timm``), the segmentor's names for a
+    ``DyTSegmentor`` tree."""
+    if path[0] not in _SEG_TOPS:
+        return flax_path_to_timm(path)
+    top, rest = path[0], path[1:]
+    if top == "backbone" and not _is_deconv(path):
+        return "backbone." + flax_path_to_timm(rest)
+    if rest[-1] not in _HEAD_LEAF:
+        raise ValueError(f"no port name for flax param {'/'.join(path)}")
+    return ".".join((top,) + rest[:-1] + (_HEAD_LEAF[rest[-1]],))
+
+
 def _to_torch_layout(path: Tuple[str, ...], w: np.ndarray) -> np.ndarray:
     if path[-1] == "kernel":
         if w.ndim == 2:
             return np.ascontiguousarray(w.T)             # [in,out] -> [out,in]
+        if w.ndim == 4 and _is_deconv(path):
+            # flip, then [kh, kw, in, out] -> [in, out, kh, kw]
+            return np.ascontiguousarray(w[::-1, ::-1].transpose(2, 3, 0, 1))
         if w.ndim == 4:
             return np.ascontiguousarray(w.transpose(3, 2, 0, 1))  # -> OIHW
     return w
 
 
-def from_flax_params(params: Mapping) -> Dict[str, np.ndarray]:
-    """JAX-package param tree -> timm-named numpy state dict."""
-    return {flax_path_to_timm(p): _to_torch_layout(p, np.array(w))
-            for p, w in _flatten(params)}
+def from_flax_params(params: Mapping, batch_stats: Mapping | None = None
+                     ) -> Dict[str, np.ndarray]:
+    """JAX-package param tree (and, for a BatchNorm segmentor, its
+    ``batch_stats`` tree) -> the port's numpy state dict."""
+    trees = [params] + ([batch_stats] if batch_stats else [])
+    return {flax_path_to_port(p): _to_torch_layout(p, np.array(w))
+            for tree in trees for p, w in _flatten(tree)}
 
 
 def make_vit_state_dict(rs: np.random.RandomState, *, depth: int, dim: int,
@@ -175,13 +219,85 @@ def make_vit_state_dict(rs: np.random.RandomState, *, depth: int, dim: int,
     return sd
 
 
+def make_seg_state_dict(rs: np.random.RandomState, *, depth: int, dim: int,
+                        ffn: int, img: int, patch: int, num_classes: int,
+                        head_channels: int | None = None, norm: str = "gn"
+                        ) -> Dict[str, np.ndarray]:
+    """Random state dict of the port's ``DyTSegmentor`` (ViT backbone of
+    heads of 64 with windowed attention over an ``img`` / ``patch`` grid,
+    simpleFPN, UPerHead of ``head_channels`` (default ``dim``), FCN of
+    256), drawn from ``rs`` in a fixed order.  The backbone is
+    ``make_vit_state_dict``'s (router head scaled x25) under ``backbone.``;
+    the relative-position tables are nonzero (~1, the size of the scores)
+    so the bias matters; conv kernels have variance 1/fan_in, norm scales
+    near 1.  With ``norm="bn"`` the heads carry running statistics instead
+    of GroupNorm affines."""
+    def w(*shape, s=0.03):
+        return np.clip(rs.randn(*shape) * s, -2 * s, 2 * s).astype(np.float32)
+
+    vit = make_vit_state_dict(rs, depth=depth, dim=dim, ffn=ffn, classes=1,
+                              img=img, patch=patch)
+    sd = {"backbone." + k: v for k, v in vit.items()
+          if not k.startswith(("norm.", "head."))}
+    grid = img // patch
+    table = (2 * grid - 1) ** 2 + 3
+    heads = dim // 64
+    for i in range(depth):
+        sd[f"backbone.blocks.{i}.attn.relative_position_bias_table"] = w(
+            table, heads, s=1.0)
+    for name in ("fpn1_deconv1", "fpn1_deconv2", "fpn2_deconv"):
+        sd[f"backbone.{name}.weight"] = w(dim, dim, 2, 2, s=0.03)
+        sd[f"backbone.{name}.bias"] = w(dim, s=0.02)
+
+    def conv_module(prefix, cin, cout, k):
+        sd[prefix + ".conv.weight"] = w(cout, cin, k, k,
+                                        s=(cin * k * k) ** -0.5)
+        if norm == "bn":
+            sd[prefix + ".bn.weight"] = 1.0 + w(cout, s=0.05)
+            sd[prefix + ".bn.bias"] = w(cout, s=0.02)
+            sd[prefix + ".bn.running_mean"] = w(cout, s=0.1)
+            sd[prefix + ".bn.running_var"] = 1.0 + np.abs(w(cout, s=0.2))
+        else:
+            sd[prefix + ".gn.weight"] = 1.0 + w(cout, s=0.05)
+            sd[prefix + ".gn.bias"] = w(cout, s=0.02)
+
+    ch = head_channels or dim
+    for i in range(4):
+        conv_module(f"decode_head.psp.pool_{i}", dim, ch, 1)
+    conv_module("decode_head.psp.bottleneck", dim + 4 * ch, ch, 3)
+    for i in range(3):
+        conv_module(f"decode_head.lateral_{i}", dim, ch, 1)
+    for i in range(3):
+        conv_module(f"decode_head.fpn_{i}", ch, ch, 3)
+    conv_module("decode_head.fpn_bottleneck", 4 * ch, ch, 3)
+    sd["decode_head.conv_seg.weight"] = w(num_classes, ch, 1, 1,
+                                          s=ch ** -0.5)
+    sd["decode_head.conv_seg.bias"] = w(num_classes, s=0.02)
+    conv_module("auxiliary_head.conv0", dim, 256, 3)
+    sd["auxiliary_head.conv_seg.weight"] = w(num_classes, 256, 1, 1,
+                                             s=256 ** -0.5)
+    sd["auxiliary_head.conv_seg.bias"] = w(num_classes, s=0.02)
+    return sd
+
+
+def load_torch_state_dict(path: str) -> Dict[str, torch.Tensor]:
+    """A ``.pth``/``.pt`` checkpoint's state dict (its ``model`` entry when
+    it has one), on the CPU."""
+    if not path.endswith((".pth", ".pt")):
+        raise NotImplementedError(f"{path}: only .pth checkpoints load here")
+    blob = torch.load(path, map_location="cpu", weights_only=False)
+    return blob.get("model", blob) if isinstance(blob, dict) else blob
+
+
 def load_timm_state_dict(model: torch.nn.Module, state_dict: Mapping,
                          log=print) -> Tuple[List[str], List[str]]:
-    """Load a timm/DyT state dict (numpy arrays or tensors) into ``model``.
+    """Load a timm/DyT state dict (numpy arrays or tensors) into ``model``
+    (an image model, or a segmentor's ``backbone``).
 
-    Returns (missing, unexpected) key lists.  Raises on a shape mismatch
-    other than the head's; a pos-embed of another grid raises
-    NotImplementedError (interpolation comes with a later slice)."""
+    Returns (missing, unexpected) key lists.  A pos-embed of another patch
+    grid is interpolated to the model's (``interpolate_pos_embed``, as
+    ``import_pretrained`` does); raises on any other shape mismatch than
+    the head's."""
     own = model.state_dict()
     to_load, unexpected = {}, []
     for key, value in state_dict.items():
@@ -194,15 +310,14 @@ def load_timm_state_dict(model: torch.nn.Module, state_dict: Mapping,
         t = (value.detach().cpu() if isinstance(value, torch.Tensor)
              else torch.from_numpy(np.ascontiguousarray(value)))
         want = tuple(own[key].shape)
+        if key == "pos_embed" and tuple(t.shape) != want:
+            log(f"Interpolating pos_embed {tuple(t.shape)} -> {want}")
+            t = torch.from_numpy(interpolate_pos_embed(t, want[1] - 1, 1))
         if tuple(t.shape) != want:
             if key.startswith("head."):
                 log(f"Removing key {key} from pretrained checkpoint "
                     f"(shape {tuple(t.shape)} != {want})")
                 continue
-            if key == "pos_embed":
-                raise NotImplementedError(
-                    f"pos_embed {tuple(t.shape)} -> {want} needs grid "
-                    "interpolation, which is not ported yet")
             raise ValueError(f"shape mismatch for {key}: checkpoint "
                              f"{tuple(t.shape)} vs model {want}")
         to_load[key] = t.to(own[key].dtype)

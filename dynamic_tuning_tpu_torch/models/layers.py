@@ -1,5 +1,6 @@
 """DyT layers in PyTorch (counterpart of dynamic_tuning_tpu/models/layers.py):
-Mlp, Attention, Adapter, MoEAdapter, TokenSelect, DropPath and Block, serving
+Mlp, Attention (with the windowed relative-position bias of the segmentation
+backbone), Adapter, MoEAdapter, TokenSelect, DropPath and Block, serving
 forms.
 
 Parameters are fp32 and carry timm's names (``attn.qkv.weight``,
@@ -17,9 +18,11 @@ Adapter).  With ``quant="int8"`` or ``"int8_attn"`` it takes the int8
 kernels of ``ops/quant.py`` instead (K6/K5 for the sublayer, K4 for the MLP
 on every path), with int8 weights quantized once per load from the fp32
 parameters.  A block with ``moe_experts > 1`` takes the MoE prologues
-instead of K3/K6: K7 (bf16) or K8 (int8).  Training, adapter in/out
-LayerNorm, LayerScale, BEiT q/v biases and windowed attention belong to
-later slices and raise NotImplementedError.
+instead of K3/K6: K7 (bf16) or K8 (int8).  A block with ``window_size``
+(the segmentation backbone) runs the module path, as the JAX Block does,
+and its Attention takes K9 (``ms.mha_windowed_fused``) where the JAX
+Attention would.  Training, adapter in/out LayerNorm, LayerScale and BEiT
+q/v biases belong to later slices and raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -145,19 +148,96 @@ class Mlp(nn.Module):
                         w(self.fc2.bias, self.dtype))
 
 
+# --- relative-position bias (the segmentation backbone) ----------------------
+
+def _relative_position_index(wh: int, ww: int):
+    """BEiT-style relative-position index over a (wh, ww) grid + CLS: an
+    int32 [n+1, n+1] index (n = wh * ww) into a bias table of size
+    (2wh-1)(2ww-1)+3, whose last 3 slots are cls->cls, cls->token and
+    token->cls.  Returns (index, table size)."""
+    n = wh * ww
+    coords = torch.stack(torch.meshgrid(torch.arange(wh), torch.arange(ww),
+                                        indexing="ij")).reshape(2, -1)
+    rel = (coords[:, :, None] - coords[:, None, :]).permute(1, 2, 0)
+    num_rel = (2 * wh - 1) * (2 * ww - 1)
+    idx = torch.zeros((n + 1, n + 1), dtype=torch.int64)
+    idx[1:, 1:] = (rel[..., 0] + wh - 1) * (2 * ww - 1) + rel[..., 1] + ww - 1
+    idx[0, 0:] = num_rel + 1          # cls -> token
+    idx[0:, 0] = num_rel + 2          # token -> cls
+    idx[0, 0] = num_rel               # cls -> cls
+    return idx.to(torch.int32), num_rel + 3
+
+
+def _rel_pos_table_size(wh: int, ww: int) -> int:
+    """Bias-table length for ``_relative_position_index``: (2wh-1)(2ww-1)
+    relative offsets + 3 CLS slots."""
+    return (2 * wh - 1) * (2 * ww - 1) + 3
+
+
+_REL_POS_INDEX = {}
+
+
+def _rel_pos_gather_index(wh: int, ww: int, row_stride: int,
+                          device) -> torch.Tensor:
+    """Flat int32 gather index [N * row_stride] (N = wh*ww + 1): row i
+    holds ``_relative_position_index`` row i, then ``row_stride - N`` pad
+    entries pointing at slot 0.  Cached per (grid, stride, device)."""
+    key = (wh, ww, row_stride, str(device))
+    idx = _REL_POS_INDEX.get(key)
+    if idx is None:
+        rel, _ = _relative_position_index(wh, ww)
+        N = rel.shape[0]
+        padded = torch.zeros((N, row_stride), dtype=torch.int32)
+        padded[:, :N] = rel
+        idx = padded.reshape(-1).to(device)
+        _REL_POS_INDEX[key] = idx
+    return idx
+
+
+def _rel_pos_bias_from_table(table: torch.Tensor, wh: int, ww: int, *,
+                             row_stride: Optional[int] = None
+                             ) -> torch.Tensor:
+    """[table_size, H] -> [H, N, N] bias with ``bias[h, i, j] =
+    table[index[i, j], h]``: one gather through a cached index (the JAX
+    package's Kronecker form exists because XLA gathers are slow; the
+    values are the same).  With ``row_stride`` the bias is a view of an
+    [H, N, row_stride] buffer whose rows are padded (K9 reads 16-byte
+    rows)."""
+    N = wh * ww + 1
+    ld = N if row_stride is None else row_stride
+    idx = _rel_pos_gather_index(wh, ww, ld, table.device)
+    flat = torch.index_select(table.t(), 1, idx)          # [H, N * ld]
+    return flat.view(table.shape[1], N, ld)[:, :, :N]
+
+
 class Attention(nn.Module):
-    """Multi-head self-attention, module path (the JAX Attention's unfused
-    branches): the serving clamp form when deterministic with no attention
-    dropout, else the max-subtracted softmax."""
+    """Multi-head self-attention.  Without ``window_size``: the module path
+    (the JAX Attention's unfused branches), the serving clamp form when
+    deterministic with no attention dropout, else the max-subtracted
+    softmax.
+
+    ``window_size=(wh, ww)`` adds the learnable BEiT-style relative-position
+    bias over the patch grid + CLS (the fp32 parameter
+    ``relative_position_bias_table`` [(2wh-1)(2ww-1)+3, H]).  Where the JAX
+    Attention takes its windowed kernel (the fused-kernel predicate and
+    N = wh*ww + 1) this one takes K9, with the table rounded to bf16 before
+    the bias is built; otherwise the unfused branch adds the fp32 bias."""
 
     def __init__(self, dim: int, num_heads: int, generator: torch.Generator,
                  *, qkv_bias: bool = True, attn_drop: float = 0.0,
+                 window_size: Optional[Tuple[int, int]] = None,
                  dtype=torch.bfloat16):
         super().__init__()
         self.num_heads = num_heads
         self.attn_drop = attn_drop
         self.qkv = _linear(dim, 3 * dim, generator, bias=qkv_bias)
         self.proj = _linear(dim, dim, generator)
+        self.window_size = (None if window_size is None
+                            else tuple(window_size))
+        if window_size is not None:
+            # zeros, as the JAX module initialises it
+            self.relative_position_bias_table = nn.Parameter(torch.zeros(
+                _rel_pos_table_size(*window_size), num_heads))
         self.dtype = dtype
         self._w = _WeightCache()
 
@@ -184,14 +264,29 @@ class Attention(nn.Module):
         b = None if lin.bias is None else w(lin.bias, self.dtype)
         return F.linear(x.to(self.dtype), w(lin.weight, self.dtype), b)
 
+    def _bias(self, dtype, row_stride=None) -> torch.Tensor:
+        return _rel_pos_bias_from_table(
+            self._w.get(self.relative_position_bias_table, dtype),
+            *self.window_size, row_stride=row_stride)
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         B, N, C = x.shape
         hd = C // self.num_heads
         dt = self.dtype
         qkv = self._dense(x, self.qkv)
+        win = self.window_size
+        if (win is not None and win[0] * win[1] + 1 == N
+                and _attention_fusable(self.attn_drop, self.num_heads, hd)):
+            # K9; the bias is built from the bf16-rounded table, with rows
+            # padded for the kernel's 16-byte reads
+            bias = self._bias(torch.bfloat16, ms.bias_row_stride(N))
+            out = ms.mha_windowed_fused(qkv, bias, heads=self.num_heads)
+            return self._dense(out, self.proj)
         q, k, v = qkv.reshape(B, N, 3, self.num_heads, hd).permute(
             2, 0, 3, 1, 4)
         s = torch.matmul((q * hd ** -0.5).float(), k.float().transpose(-1, -2))
+        if win is not None:
+            s = s + self._bias(torch.float32)
         if self.attn_drop == 0.0:
             # serving form: no row max, normalisation after AV; l sums the
             # rounded p as the XLA branch does (layers.py:309-314)
@@ -375,14 +470,13 @@ class Block(nn.Module):
                  select_cfg: SelectConfig = SelectConfig(),
                  dtype=torch.bfloat16):
         super().__init__()
-        if window_size is not None:
-            raise NotImplementedError("windowed attention comes with the "
-                                      "segmentation slice")
         if init_values is not None:
-            raise NotImplementedError("LayerScale comes with a later slice")
+            raise NotImplementedError("LayerScale (the BEiT backbone) is not "
+                                      "ported yet: ROADMAP.md, queue 1 item 8")
         if qv_bias_only:
-            raise NotImplementedError("BEiT q/v biases come with the "
-                                      "segmentation slice")
+            raise NotImplementedError("BEiT q/v biases (the BEiT backbone) "
+                                      "are not ported yet: ROADMAP.md, queue "
+                                      "1 item 8")
         if quant not in ("none", "int8", "int8_attn"):
             raise ValueError(f"quant={quant!r}: none, int8 or int8_attn")
         self.quant = quant
@@ -392,8 +486,10 @@ class Block(nn.Module):
         self.tuning, self.select_cfg = tuning, select_cfg
         self.dtype = dtype
         self.norm1 = nn.LayerNorm(dim, eps=LN_EPS)
+        self.window_size = window_size
         self.attn = Attention(dim, num_heads, generator, qkv_bias=qkv_bias,
-                              attn_drop=attn_drop, dtype=dtype)
+                              attn_drop=attn_drop, window_size=window_size,
+                              dtype=dtype)
         self.drop_path = DropPath(drop_path)
         self.norm2 = nn.LayerNorm(dim, eps=LN_EPS)
         self.mlp = Mlp(dim, int(dim * mlp_ratio), generator,
@@ -417,8 +513,10 @@ class Block(nn.Module):
                 ) -> Tuple[torch.Tensor, Optional[torch.Tensor],
                            Optional[torch.Tensor]]:
         B, N, C = x.shape
+        # a windowed block never fuses its sublayer: its Attention takes K9
         fuse = (_attention_fusable(self.attn_drop, self.num_heads,
-                                   C // self.num_heads) and N <= 512)
+                                   C // self.num_heads) and N <= 512
+                and self.window_size is None)
         with_select = self.select and not complete_model
         thr = self.select_cfg.threshold
         gate = logits = adapt_x = None

@@ -48,6 +48,8 @@ _SIGNATURES = {
                                                          _P],
     "dyt_moe_width_supported": [_I, _I],
     "dyt_moe_smem_bytes": [_I, _I],
+    "dyt_mha_windowed": [_P, _P, _P, _I, _I, _I, _I, ctypes.c_longlong, _I,
+                         _F, _P],
 }
 
 

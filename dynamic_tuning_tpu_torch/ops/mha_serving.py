@@ -10,7 +10,10 @@ Three kernels, each a wrapper with its plain PyTorch version beside it:
   ``x_mid @ wsel + bsel`` -- every DyT block;
 * ``dyt_prologue_serving_moe`` (TPU kernel K7): K2's ``x_mid`` plus the
   MoE-enhanced adapter (E experts blended per token by a softmax router) and
-  the router logits -- every DyT block with ``moe_experts > 1``.
+  the router logits -- every DyT block with ``moe_experts > 1``;
+* ``mha_windowed_fused`` (TPU kernel K9): the attention core on raw qkv
+  with an additive ``[H, N, N]`` relative-position bias, rounded to bf16 --
+  the windowed attention of every segmentation-backbone block.
 
 A wrapper given CPU tensors computes the plain version.  Given CUDA tensors it
 launches the hand-written kernels of ``csrc/`` (built by ``_build`` on first
@@ -85,10 +88,12 @@ def _mm64(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return torch.matmul(a.double(), w.double().transpose(-1, -2)).float()
 
 
-def attn_core_pairs(qkv: torch.Tensor, *, heads: int) -> torch.Tensor:
+def attn_core_pairs(qkv: torch.Tensor, *, heads: int,
+                    bias: torch.Tensor | None = None) -> torch.Tensor:
     """Serving attention core on raw qkv ``[B, N, 3C]`` (columns
     ``[q|k|v] x head x hd``) -> ``[B, N, C]`` in qkv's dtype.  Scores, l and
-    the AV products are summed in float64 and rounded once to fp32."""
+    the AV products are summed in float64 and rounded once to fp32; an
+    fp32 ``bias`` ``[H, N, N]`` is added to the fp32 scores."""
     B, N, C3 = qkv.shape
     C = C3 // 3
     hd = C // heads
@@ -96,10 +101,22 @@ def attn_core_pairs(qkv: torch.Tensor, *, heads: int) -> torch.Tensor:
     q, k, v = qkv.reshape(B, N, 3, heads, hd).permute(2, 0, 3, 1, 4)
     q = (q.float() * hd ** -0.5).to(dtype)
     s = _mm64(q, k)
+    if bias is not None:
+        s = s + bias
     e = torch.exp(s.clamp(-60.0, 80.0) - 20.0)
     l = e.double().sum(dim=-1, keepdim=True).float()
     o = _mm64(e.to(dtype), v.transpose(-1, -2)) * (1.0 / l)
     return o.to(dtype).transpose(1, 2).reshape(B, N, C)
+
+
+def mha_windowed_plain(qkv: torch.Tensor, bias: torch.Tensor, *,
+                       heads: int) -> torch.Tensor:
+    """Plain version of K9: qkv ``[B, N, 3C]`` and bias ``[H, N, N]`` ->
+    ``[B, N, C]`` in qkv's dtype.  The bias is rounded to bf16 whatever its
+    dtype (the TPU kernel takes it in bf16, even in an fp32 model), then
+    added to the fp32 scores."""
+    return attn_core_pairs(qkv, heads=heads,
+                           bias=bias.to(torch.bfloat16).float())
 
 
 def _sublayer_f32(x, gamma, beta, wqkv, bqkv, wproj, bproj, heads):
@@ -439,7 +456,76 @@ def launch_moe_adapter_router(lib, x_mid, xm32, wrouter, wdown2d, bdown2d,
     return (x_mid, adapt, logits) if with_select else (x_mid, adapt)
 
 
+def bias_row_stride(N: int) -> int:
+    """The row stride (elements) K9 takes its bias with: N rounded up to 8,
+    so every bias row starts on 16 bytes."""
+    return -(-N // 8) * 8
+
+
+def _windowed_bias(bias: torch.Tensor, H: int, N: int) -> torch.Tensor:
+    """``bias`` [H, N, N] as the kernel reads it: bf16, unit column stride,
+    row and head strides multiples of 8 with rows covering
+    ``bias_row_stride(N)`` columns of their storage.  Returned as it is when
+    it already is so (the layer builds it that way), else as a padded bf16
+    copy -- the rounding to bf16 is K9's contract either way."""
+    ld = bias_row_stride(N)
+    st = bias.stride()
+    room = (bias.untyped_storage().nbytes() // 2 - bias.storage_offset()
+            - (H - 1) * st[0] - (N - 1) * st[1])
+    if (bias.dtype == torch.bfloat16 and st[2] == 1 and st[1] % 8 == 0
+            and st[0] % 8 == 0 and st[1] >= ld and room >= ld
+            and bias.data_ptr() % 16 == 0):
+        return bias
+    padded = torch.zeros((H, N, ld), dtype=torch.bfloat16,
+                         device=bias.device)
+    padded[:, :, :N] = bias
+    return padded[:, :, :N]
+
+
+def mha_windowed_fused(qkv: torch.Tensor, bias: torch.Tensor, *,
+                       heads: int) -> torch.Tensor:
+    """K9: qkv [B, N, 3C] + bias [H, N, N] -> [B, N, C] in qkv's dtype.
+
+    The bias may be fp32 or bf16 (it is rounded to bf16 either way); on
+    CUDA qkv must be bf16 and contiguous, head_dim 64 or 128."""
+    if qkv.device.type == "cpu":
+        return mha_windowed_plain(qkv, bias, heads=heads)
+    if qkv.device.type != "cuda":
+        raise ValueError(f"qkv is on {qkv.device}: the kernels take CPU "
+                         "tensors (plain version) or CUDA tensors")
+    if qkv.dim() != 3 or qkv.shape[-1] % 3:
+        raise ValueError(f"qkv must be [B, N, 3C], got {tuple(qkv.shape)}")
+    B, N, C3 = qkv.shape
+    C = C3 // 3
+    if C % heads:
+        raise ValueError(f"C={C} is not a multiple of heads={heads}")
+    if C // heads not in (64, 128):
+        raise ValueError(f"head_dim {C // heads} not supported (64 or 128)")
+    _require(qkv, "qkv", (B, N, C3), (torch.bfloat16,), qkv.device)
+    if qkv.data_ptr() % 16:
+        raise ValueError("qkv must start on 16 bytes")
+    if tuple(bias.shape) != (heads, N, N) or bias.device != qkv.device:
+        raise ValueError(f"bias has shape {tuple(bias.shape)} on "
+                         f"{bias.device}, want {(heads, N, N)} on "
+                         f"{qkv.device}")
+    lib = _build.library()
+    with torch.cuda.device(qkv.device):
+        bias = _windowed_bias(bias, heads, N)
+        out = torch.empty((B, N, C), dtype=torch.bfloat16, device=qkv.device)
+        err = lib.dyt_mha_windowed(
+            _ptr(qkv), _ptr(bias), _ptr(out), B, N, C, heads,
+            bias.stride(0), bias.stride(1), (C // heads) ** -0.5,
+            torch.cuda.current_stream(qkv.device).cuda_stream)
+        _build.check(lib, err, "windowed attention kernel")
+    mha_windowed_fused.launches += 1
+    return out
+
+
+mha_windowed_fused.launches = 0
+
+
 def reset_launch_counts() -> None:
     attention_sublayer_serving.launches = 0
     dyt_prologue_serving.launches = 0
     dyt_prologue_serving_moe.launches = 0
+    mha_windowed_fused.launches = 0

@@ -27,7 +27,8 @@ import torch
 
 from dynamic_tuning_tpu_torch import paths
 from dynamic_tuning_tpu_torch.cli import add_reference_compat_args
-from dynamic_tuning_tpu_torch.checkpoint import load_timm_state_dict
+from dynamic_tuning_tpu_torch.checkpoint import (load_timm_state_dict,
+                                                 load_torch_state_dict)
 from dynamic_tuning_tpu_torch.config import (ModelConfig, SelectConfig,
                                              TuningConfig)
 from dynamic_tuning_tpu_torch.models.vit import VisionTransformer
@@ -135,10 +136,7 @@ def _checkpoint(args):
                   file=sys.stderr)
             return None
         ckpt = resolved
-    if not ckpt.endswith((".pth", ".pt")):
-        raise NotImplementedError(f"{ckpt}: only .pth checkpoints load here")
-    blob = torch.load(ckpt, map_location="cpu", weights_only=False)
-    return blob.get("model", blob) if isinstance(blob, dict) else blob
+    return load_torch_state_dict(ckpt)
 
 
 def main(args, state_dict=None) -> dict:

@@ -2,8 +2,13 @@
 
     python -m dynamic_tuning_tpu_torch.utils.profile_forward --quant int8 \
         --mode dispatch --warmup 5 --iters 3
+    python -m dynamic_tuning_tpu_torch.utils.profile_forward --task seg \
+        --mode dispatch --warmup 5 --iters 3
 
-Takes ``speed.py``'s flags and model.  After ``--warmup`` forwards it traces
+Takes ``speed.py``'s flags and model; ``--task seg`` takes the seg bench's
+segmentor instead (``bench.build_segmentor``: one 512^2 crop, ``--mode
+dispatch``, ``mask`` or ``dense``, the auxiliary head left out).  After
+``--warmup`` forwards it traces
 ``--iters`` forwards on the card and prints, per kernel name, the device
 time per forward and the calls per forward, then the device window, the
 kernel-busy time and the idle share of the window, and the host's time to
@@ -20,7 +25,7 @@ import torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
-from dynamic_tuning_tpu_torch import speed
+from dynamic_tuning_tpu_torch import bench, speed
 
 
 def _busy_us(intervals) -> float:
@@ -41,12 +46,19 @@ def main(args) -> dict:
         raise RuntimeError("profile_forward traces the GPU and found no "
                            "CUDA device")
     device = torch.device("cuda")
-    model = speed.build_model(args, device)
     g = torch.Generator(device=device).manual_seed(args.seed)
-    x = torch.randn((args.batch_size, 224, 224, 3), generator=g,
-                    device=device)
-    kwargs = dict(complete_model=args.mode == "dense",
-                  dispatch=args.mode == "dispatch")
+    task = getattr(args, "task", "image")
+    if task == "seg":
+        mode = "dense" if args.mode == "plain" else args.mode
+        model = bench.build_segmentor(mode, device, seed=args.seed)
+        batch, img = 1, bench.SEG_CROP
+        kwargs = bench.seg_kwargs(mode)
+    else:
+        model = speed.build_model(args, device)
+        batch, img = args.batch_size, 224
+        kwargs = dict(complete_model=args.mode == "dense",
+                      dispatch=args.mode == "dispatch")
+    x = torch.randn((batch, img, img, 3), generator=g, device=device)
     with torch.inference_mode():
         for _ in range(args.warmup):
             model(x, **kwargs)
@@ -76,8 +88,9 @@ def main(args) -> dict:
               - min(e.time_range.start for e in kernels))
     busy = _busy_us((e.time_range.start, e.time_range.end) for e in kernels)
     n = args.iters
-    print(f"quant={args.quant} mode={args.mode} batch={args.batch_size}: "
-          f"{n} forwards traced on {torch.cuda.get_device_name(0)}")
+    print(f"task={task} quant={args.quant} mode={args.mode} "
+          f"batch={batch}: {n} forwards traced on "
+          f"{torch.cuda.get_device_name(0)}")
     print(f"{'us/forward':>12} {'calls/fwd':>9}  kernel")
     for name, (us, calls) in sorted(per_name.items(),
                                     key=lambda kv: -kv[1][0]):
@@ -91,5 +104,11 @@ def main(args) -> dict:
             "per_kernel_us": {k: v[0] / n for k, v in per_name.items()}}
 
 
+def get_args_parser():
+    p = speed.get_args_parser()
+    p.add_argument("--task", default="image", choices=["image", "seg"])
+    return p
+
+
 if __name__ == "__main__":
-    main(speed.get_args_parser().parse_args())
+    main(get_args_parser().parse_args())

@@ -132,11 +132,17 @@ def test_load_timm_head_surgery_and_backbone_only():
 
 
 def test_load_timm_rejects_other_grids_and_shapes():
+    """A pos-embed of another patch grid is interpolated (here a 4x4 grid
+    onto the model's 2x2: CLS passed through, the grid resized); any other
+    shape mismatch raises."""
     model = _port_vit(CONFIGS["dyt"][0], SelectConfig())
     sd = _timm_sd()
-    sd["pos_embed"] = np.zeros((1, 17, 128), np.float32)
-    with pytest.raises(NotImplementedError, match="interpolation"):
-        load_timm_state_dict(model, sd, log=lambda *a: None)
+    sd["pos_embed"] = np.random.RandomState(1).randn(1, 17, 128).astype(
+        np.float32)
+    load_timm_state_dict(model, sd, log=lambda *a: None)
+    assert model.pos_embed.shape == (1, 5, 128)
+    np.testing.assert_array_equal(model.pos_embed[0, 0].detach().numpy(),
+                                  sd["pos_embed"][0, 0])
     sd = _timm_sd()
     sd["blocks.0.mlp.fc1.weight"] = np.zeros((256, 128), np.float32)
     with pytest.raises(ValueError, match="shape mismatch"):

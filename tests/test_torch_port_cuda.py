@@ -388,3 +388,89 @@ def test_wrappers_raise_on_unsupported_input():
     with pytest.raises(ValueError, match="adapter width"):
         x2, sub2, ad2 = make_inputs(2, 19, 128, 8)
         ms.dyt_prologue_serving(x2, *sub2, *ad2, heads=2)
+
+
+# --- windowed attention (K9) -------------------------------------------------
+#
+# Tolerance as for the attention core: the kernel rounds at the plain
+# version's points (bf16 q', bf16 bias, bf16 e, one rounding of the output);
+# only the order of the fp32 score, l and AV sums differs.
+
+def windowed_inputs(B, N, H, hd=64, *, seed=11, bias_dtype=BF):
+    """qkv [B, N, 3C] bf16 at serving scales and a bias [H, N, N] of the
+    size of the scores (~1), contiguous."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    qkv = torch.randn((B, N, 3 * H * hd), generator=g, device="cuda")
+    bias = torch.randn((H, N, N), generator=g, device="cuda")
+    return qkv.to(BF), bias.to(bias_dtype)
+
+
+@pytest.mark.parametrize("bias_dtype", [BF, torch.float32],
+                         ids=["bf16_bias", "fp32_bias"])
+@pytest.mark.parametrize("B", [1, 2])
+@pytest.mark.parametrize("N", [17, 197, 1025])
+def test_mha_windowed_kernel(N, B, bias_dtype):
+    qkv, bias = windowed_inputs(B, N, 12, bias_dtype=bias_dtype)
+    before = ms.mha_windowed_fused.launches
+    got = ms.mha_windowed_fused(qkv, bias, heads=12)
+    torch.cuda.synchronize()
+    assert ms.mha_windowed_fused.launches == before + 1
+    want = ms.mha_windowed_plain(qkv, bias, heads=12)
+    assert got.dtype == BF and got.shape == (B, N, 12 * 64)
+    bf16_close(got, want, "core")
+
+
+def test_mha_windowed_kernel_padded_bias_and_head_dim_128():
+    """The layer's padded bias (a view with row stride N rounded up to 8)
+    goes to the kernel as it is; head_dim 128."""
+    from dynamic_tuning_tpu_torch.models.layers import \
+        _rel_pos_bias_from_table
+    qkv, _ = windowed_inputs(2, 50, 2, hd=128, seed=12)
+    table = torch.randn((15 * 15 + 3, 2), device="cuda")
+    bias = _rel_pos_bias_from_table(table.to(BF), 7, 7,
+                                    row_stride=ms.bias_row_stride(50))
+    assert bias.stride(1) == 56
+    got = ms.mha_windowed_fused(qkv, bias, heads=2)
+    torch.cuda.synchronize()
+    bf16_close(got, ms.mha_windowed_plain(qkv, bias, heads=2), "core")
+
+
+def test_mha_windowed_bias_matters():
+    qkv, bias = windowed_inputs(1, 197, 12, seed=13)
+    a = ms.mha_windowed_fused(qkv, bias, heads=12)
+    b = ms.mha_windowed_fused(qkv, torch.zeros_like(bias), heads=12)
+    assert (a.float() - b.float()).abs().max() > 0.05
+
+
+def test_mha_windowed_raises_on_unsupported_input():
+    qkv, bias = windowed_inputs(1, 17, 4, hd=32)
+    with pytest.raises(ValueError, match="head_dim"):
+        ms.mha_windowed_fused(qkv, bias, heads=4)
+    qkv, bias = windowed_inputs(1, 17, 2)
+    with pytest.raises(TypeError):
+        ms.mha_windowed_fused(qkv.float(), bias, heads=2)
+    with pytest.raises(ValueError, match="bias"):
+        ms.mha_windowed_fused(qkv, bias[:, :16, :16], heads=2)
+
+
+def test_seg_model_launches_only_k9():
+    """A CUDA segmentor runs K9 in every block (the module path), never the
+    image model's fused sublayers."""
+    from dynamic_tuning_tpu_torch.config import ModelConfig, TuningConfig
+    from dynamic_tuning_tpu_torch.models.upernet import DyTSegmentor
+
+    mc = ModelConfig(img_size=64, patch_size=16, embed_dim=128, depth=4,
+                     num_heads=2)
+    model = DyTSegmentor(mc, num_classes=7, tuning=TuningConfig(ffn_num=16),
+                         head_channels=64, device="cuda")
+    x = torch.randn((1, 64, 64, 3), device="cuda")
+    ms.reset_launch_counts()
+    qt.reset_launch_counts()
+    with torch.inference_mode():
+        logits, _, aux = model(x, dispatch=True, aux_logits=False)
+    torch.cuda.synchronize()
+    assert logits.shape == (1, 64, 64, 7) and torch.isfinite(logits).all()
+    assert ms.mha_windowed_fused.launches == 4
+    assert (ms.attention_sublayer_serving.launches,
+            ms.dyt_prologue_serving.launches,
+            ms.dyt_prologue_serving_moe.launches) == (0, 0, 0)
