@@ -20,7 +20,11 @@ Phases; any failure exits non-zero:
      path's shape (N = 1025 tokens of a 512^2 crop, 12 heads of 64, a bf16
      bias in the layer's padded layout) at batch 1 and 2, beside
      F.scaled_dot_product_attention with the bias as its mask (a reference
-     time only), and the time of the bias build that feeds it;
+     time only), and the time of the bias build that feeds it; then K11
+     fused_ln_mlp at the speed-test path's rows (dispatch 128*99 without a
+     gate, mask 128*197 with one, tanh GELU; a small ragged erf shape),
+     beside the cuBLAS chain of fast_vit_forward(use_kernel=False)'s MLP (a
+     reference time only);
   3. the serving main path through dynamic_tuning_tpu_torch.speed.main:
      ViT-B/16 at 224^2, 12 blocks, batch 128, seeded synthetic weights;
      bf16 dispatch, dense and plain, int8 dispatch, dense and plain,
@@ -45,7 +49,17 @@ Phases; any failure exits non-zero:
      stride 341), the strip only the first window covers held against that
      window's own forward; then SegRunner.evaluate (seg_train.py --eval)
      on 2 synthetic 512^2 images, with K9's launches counted;
-  6. the wall time, the card's name and power limit (nvidia-smi), a JSON
+  6. the speed-test path: models/fast_inference.fast_vit_forward on
+     ViT-B/16 at 224^2, batch 128, phase 3's weights, in dispatch, mask and
+     dense with use_kernel=True; per mode, with the counts set to 0 just
+     before it: 12 K11 launches per forward and none of the others, finite
+     logits, gates and logits against the same forward on the plain
+     versions, img/s, and img/s with use_kernel=False beside it; then
+     predict.serve (the port's predict.py without decoding) on 130
+     synthetic uint8 canvases, one chunk of 128 and a tail of 2, in
+     dispatch, auto and int8 dispatch: well-formed results, keep ratios in
+     [0, 1], and the int8 kernels' launches;
+  7. the wall time, the card's name and power limit (nvidia-smi), a JSON
      line of the kernels, and last the JSON result line.
 Needs no network and imports nothing of JAX or of the JAX package.
 """
@@ -53,6 +67,7 @@ Needs no network and imports nothing of JAX or of the JAX package.
 from __future__ import annotations
 
 import contextlib
+import io
 import json
 import os
 import subprocess
@@ -98,6 +113,9 @@ KERNELS = {
     "mha_windowed_fused": ("ms", dict(
         route="cuda", source=f"{SRC}/windowed_attention.cu",
         replaces=f"{JAX_OPS}/mha_serving.py:321")),
+    "fused_ln_mlp": ("fm", dict(
+        route="cuda", source=f"{SRC}/fused_mlp.cu",
+        replaces=f"{JAX_OPS}/fused_mlp.py:53")),
 }
 # the segmentation path: 512^2 crops of 16^2 patches -> 32x32 + CLS tokens
 SEG_GRID = 32
@@ -135,6 +153,8 @@ LOGIT_REL = 2e-3
 # router logit sits within noise of 0 (about 1 in 1000 tokens).
 MODEL_REL = 0.05
 GATE_AGREE = 0.995
+FAST_ITERS = 5                  # timed forwards per run of the fast path
+SERVE_N = 130                   # predict.serve canvases: a chunk of 128 + 2
 
 
 def fail(msg: str) -> None:
@@ -437,35 +457,167 @@ def phase_windowed(torch, ms, layers) -> dict:
     return out
 
 
-def reset_counts(ms, qt) -> None:
+def phase_k11(torch, fm, fast) -> dict:
+    """K11 against its plain version at the speed-test path's rows, with
+    the cuBLAS chain of fast_vit_forward(use_kernel=False)'s MLP (folded
+    LN -> fc1 -> GELU -> fc2 -> gate) beside it: a reference time, since no
+    single PyTorch call computes the function."""
+    g = torch.Generator(device="cuda").manual_seed(3)
+    bf = torch.bfloat16
+
+    def r(*shape, s=1.0):
+        return torch.randn(shape, generator=g, device="cuda") * s
+
+    out = {}
+    for tag, rows, gated, approx, c, hid in (
+            ("dispatch", B * K_DISPATCH, False, True, C, HID),
+            ("mask", B * N, True, True, C, HID),
+            ("ragged, erf", 77, True, False, 128, 512)):
+        ln = (r(c, s=0.05) + 1.0, r(c, s=0.02))
+        w1, b1 = r(hid, c, s=0.03), r(hid, s=0.02)
+        w2, b2 = r(c, hid, s=0.03), r(c, s=0.02)
+        mlp = (*ln, w1.to(bf), b1, w2.to(bf), b2)
+        x = r(rows, c).to(bf)
+        gate = ((torch.rand((rows, 1), generator=g, device="cuda") > 0.5)
+                .to(bf) if gated else None)
+        res = measure(
+            f"K11 fused_ln_mlp({tag}, {rows} rows{', gate' if gated else ''})",
+            lambda: fm.fused_ln_mlp(x, *mlp, gate, gelu_approx=approx),
+            lambda: fm.ln_mlp_plain(x, *mlp, gate, gelu_approx=approx),
+            ("mlp",), (x, *mlp, gate), {"bf16": 4 * rows * c * hid})
+        if gated:
+            got = fm.fused_ln_mlp(x, *mlp, gate, gelu_approx=approx)
+            if not bool((got[gate[:, 0] == 0] == 0).all()):
+                fail(f"K11 ({tag}): a gated-off row is not 0")
+        folded = fast._folded(*ln, w1, b1)
+        t_chain = time_ms(lambda: fast._mlp_cublas(
+            x, gate, *folded, mlp[4], b2, approx))
+        print(f"  cuBLAS chain of use_kernel=False (reference only): "
+              f"{t_chain:.4f} ms")
+        if tag == "dispatch":
+            out["fused_ln_mlp"] = res
+    return out
+
+
+def phase_fast(torch, ms, qt, fm, fast, predict, scan_throughput,
+               forwards_run, sd) -> int:
+    """The speed-test path: fast_vit_forward per mode with use_kernel=True
+    (and its img/s with use_kernel=False), then predict.serve.  Returns
+    K11's launches."""
+    cuda = torch.device("cuda")
+    args = predict.get_args_parser().parse_args(
+        ["--ckpt", "synthetic.pth", "--images", "-"])
+    cfg, tuning, sel = predict.configs(args)
+    params = predict.load_params(args, cuda, state_dict=sd)
+    g = torch.Generator(device="cuda").manual_seed(4)
+    x = torch.randn((B, 224, 224, 3), generator=g, device="cuda")
+    launches = 0
+    for mode in ("dispatch", "mask", "dense"):
+        def fwd(use_kernel, mode=mode):
+            return fast.fast_vit_forward(params, x, cfg=cfg, tuning=tuning,
+                                         select=sel, mode=mode,
+                                         use_kernel=use_kernel)
+        reset_counts(ms, qt, fm)
+        with torch.inference_mode():
+            logits, gates = fwd(True)
+            ips = scan_throughput(lambda: fwd(True), batch=B,
+                                  iters=FAST_ITERS, warmup_iters=2)
+        torch.cuda.synchronize()
+        n_fwd = 1 + forwards_run(FAST_ITERS, warmup_iters=2)
+        counts = read_counts(ms, qt, fm)
+        want = {k: DEPTH * n_fwd if k == "fused_ln_mlp" else 0
+                for k in KERNELS}
+        if counts != want:
+            fail(f"fast {mode}: kernel launches {counts}, want {want}")
+        launches += counts["fused_ln_mlp"]
+        if logits.shape != (B, 100) or not torch.isfinite(logits).all():
+            fail(f"fast {mode}: logits {tuple(logits.shape)} not "
+                 "finite/shaped")
+        if (gates is None) != (mode == "dense") or (
+                gates is not None and gates.shape != (B, DEPTH, N)):
+            fail(f"fast {mode}: gates "
+                 f"{None if gates is None else tuple(gates.shape)}")
+        with plain_versions(ms, qt, fm), torch.inference_mode():
+            ref, ref_gates = fwd(True)
+        err, mag = rel_err(logits, ref)
+        agree = (1.0 if gates is None
+                 else (gates == ref_gates).float().mean().item())
+        with torch.inference_mode():
+            ips_cublas = scan_throughput(lambda: fwd(False), batch=B,
+                                         iters=FAST_ITERS, warmup_iters=2)
+        keep = "" if gates is None else (
+            f", mean keep ratio {gates[:, :, 1:].mean().item():.4f}")
+        print(f"fast {mode}: {ips:.2f} img/s with K11, {ips_cublas:.2f} "
+              f"img/s with the cuBLAS chain, at batch {B}; {DEPTH} K11 "
+              f"launches per forward; vs plain versions: logits max|err| "
+              f"{err:.6g} (tol {MODEL_REL * mag:.6g}), gate agreement "
+              f"{agree:.6f}{keep}")
+        if err > MODEL_REL * mag or agree < GATE_AGREE:
+            fail(f"fast {mode} forward disagrees with the plain-version "
+                 "forward")
+        torch.cuda.empty_cache()
+
+    canvases = torch.randint(0, 256, (SERVE_N, 256, 256, 3), generator=g,
+                             device="cuda", dtype=torch.uint8)
+    chunks = -(-SERVE_N // 128)
+    for mode, quant in (("dispatch", "none"), ("auto", "none"),
+                        ("dispatch", "int8")):
+        a = predict.get_args_parser().parse_args(
+            ["--ckpt", "synthetic.pth", "--images", "-", "--mode", mode,
+             "--quant", quant, "--batch_size", str(SERVE_N)])
+        p = params if quant == "none" else predict.load_params(
+            a, cuda, state_dict=sd)
+        reset_counts(ms, qt, fm)
+        printed = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(printed):
+            results = predict.serve(a, canvases, p)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        counts = read_counts(ms, qt, fm)
+        want = {k: DEPTH * chunks if quant != "none" and k in (
+            "dyt_prologue_serving_q8", "q8_ln_mlp") else 0 for k in KERNELS}
+        run = f"predict.serve {mode} quant={quant}"
+        if counts != want:
+            fail(f"{run}: kernel launches {counts}, want {want}")
+        ok = (len(results) == SERVE_N
+              and len(printed.getvalue().splitlines()) == SERVE_N
+              and all(0 <= r["label"] < 100 and 0.0 <= r["prob"] <= 1.0
+                      and 0.0 <= r["keep_ratio"] <= 1.0 for r in results))
+        if not ok:
+            fail(f"{run}: malformed results {results[:2]}")
+        # every run here dispatches (auto too: 130 >= its minimum batch)
+        keep = sum(r["keep_ratio"] for r in results) / SERVE_N
+        if not keep < 1.0:
+            fail(f"{run}: mean keep ratio {keep}")
+        print(f"{run}: {SERVE_N} canvases in {chunks} chunks, "
+              f"{secs:.2f} s (first call), mean keep ratio {keep:.4f}")
+        del p
+        torch.cuda.empty_cache()
+    return launches
+
+
+def reset_counts(ms, qt, fm) -> None:
     ms.reset_launch_counts()
     qt.reset_launch_counts()
+    fm.reset_launch_counts()
 
 
-def read_counts(ms, qt) -> dict:
-    mods = {"ms": ms, "qt": qt}
+def read_counts(ms, qt, fm) -> dict:
+    mods = {"ms": ms, "qt": qt, "fm": fm}
     return {k: getattr(mods[m], k).launches for k, (m, _) in KERNELS.items()}
 
 
-def phase_model(torch, ms, qt, speed, make_vit_state_dict) -> dict:
+def phase_model(torch, ms, qt, fm, speed, sds) -> dict:
     """The serving main path, through speed.main, per mode and quant."""
-    import numpy as np
-
-    t0 = time.perf_counter()
-    sds = {moe: make_vit_state_dict(np.random.RandomState(0), depth=DEPTH,
-                                    dim=C, ffn=FFN, classes=100, img=224,
-                                    patch=16, router_scale=25.0,
-                                    moe_experts=moe)
-           for moe in (0, MOE)}
-    print(f"synthetic ViT-B/16 weights: {time.perf_counter() - t0:.1f} s")
     launches = {name: 0 for name in KERNELS}
     for quant, mode, moe, kernels in RUNS:
         args = speed.get_args_parser().parse_args(
             ["--mode", mode, "--quant", quant, "--moe_experts", str(moe),
              "--moe_router_tau", str(TAU), "--warmup", "3", "--iters", "10"])
-        reset_counts(ms, qt)
+        reset_counts(ms, qt, fm)
         res = speed.main(args, state_dict=sds[moe])
-        counts = read_counts(ms, qt)
+        counts = read_counts(ms, qt, fm)
         stem = qt.q8_patch_embed.launches
         fwd = res["forwards"]
         run = f"quant={quant} {mode}" + (f" moe{moe}" if moe else "")
@@ -485,7 +637,7 @@ def phase_model(torch, ms, qt, speed, make_vit_state_dict) -> dict:
         if mode == "dispatch":
             keep = res["aux"]["token_select"].float().mean().item()
             line += f"; mean keep ratio {keep:.4f}"
-            compare_with_plain(torch, ms, qt, res, run)
+            compare_with_plain(torch, ms, qt, fm, res, run)
         print(line)
         del res
         torch.cuda.empty_cache()
@@ -493,10 +645,11 @@ def phase_model(torch, ms, qt, speed, make_vit_state_dict) -> dict:
 
 
 @contextlib.contextmanager
-def plain_versions(ms, qt):
+def plain_versions(ms, qt, fm):
     """Every wrapper swapped for its plain version (calls made inside are
     not counted: the wrappers are not called)."""
-    plain = {(ms, "dyt_prologue_serving"): ms.dyt_prologue_plain,
+    plain = {(fm, "fused_ln_mlp"): fm.ln_mlp_plain,
+             (ms, "dyt_prologue_serving"): ms.dyt_prologue_plain,
              (ms, "attention_sublayer_serving"): ms.attention_sublayer_plain,
              (ms, "dyt_prologue_serving_moe"): ms.dyt_prologue_moe_plain,
              (ms, "mha_windowed_fused"): ms.mha_windowed_plain,
@@ -529,10 +682,10 @@ def routing(D, *, record=None, replay=None):
         yield
 
 
-def compare_with_plain(torch, ms, qt, res, run) -> None:
+def compare_with_plain(torch, ms, qt, fm, res, run) -> None:
     """The dispatch forward again on the plain versions."""
     model, x = res["model"], res["x"]
-    with plain_versions(ms, qt), torch.inference_mode():
+    with plain_versions(ms, qt, fm), torch.inference_mode():
         ref, ref_aux = model(x, dispatch=True)
     err, mag = rel_err(res["logits"], ref)
     agree = (res["aux"]["token_select"] == ref_aux["token_select"]
@@ -543,20 +696,20 @@ def compare_with_plain(torch, ms, qt, res, run) -> None:
         fail(f"{run} forward disagrees with the plain-version forward")
 
 
-def check_counts(ms, qt, what, want_k9) -> None:
-    counts = read_counts(ms, qt)
+def check_counts(ms, qt, fm, what, want_k9) -> None:
+    counts = read_counts(ms, qt, fm)
     want = {k: want_k9 if k == "mha_windowed_fused" else 0 for k in KERNELS}
     if counts != want:
         fail(f"{what}: kernel launches {counts}, want {want}")
 
 
-def phase_seg(torch, ms, qt, D, bench, sd):
+def phase_seg(torch, ms, qt, fm, D, bench, sd):
     """Segmentation serving through bench.seg_family: dispatch and dense.
     Returns K9's launches and the dispatch model."""
-    reset_counts(ms, qt)
+    reset_counts(ms, qt, fm)
     fields, runs = bench.seg_family("cuda", state_dict=sd)
     fwd = sum(r["forwards"] for r in runs.values())
-    check_counts(ms, qt, "seg family", DEPTH * fwd)
+    check_counts(ms, qt, fm, "seg family", DEPTH * fwd)
     for mode, r in runs.items():
         logits = r["logits"]
         if (logits.shape != (1, 512, 512, SEG_CLASSES)
@@ -567,7 +720,7 @@ def phase_seg(torch, ms, qt, D, bench, sd):
         crops = fields["seg_crops_s" if mode == "dispatch"
                        else "seg_dense_crops_s"]
         line = f"seg {mode}: {crops} crops/s over {r['forwards']} forwards"
-        with plain_versions(ms, qt), torch.inference_mode():
+        with plain_versions(ms, qt, fm), torch.inference_mode():
             free, _, free_aux = model(x, **kw)
         if mode == "dispatch":
             # the kernel forward's dispatch decisions, replayed in the
@@ -577,7 +730,7 @@ def phase_seg(torch, ms, qt, D, bench, sd):
             scores = []
             with routing(D, record=scores), torch.inference_mode():
                 model(x, **kw)
-            with (routing(D, replay=scores), plain_versions(ms, qt),
+            with (routing(D, replay=scores), plain_versions(ms, qt, fm),
                   torch.inference_mode()):
                 ref, _, _ = model(x, **kw)
             agree = (r["aux"]["token_select"] == free_aux["token_select"]
@@ -606,19 +759,20 @@ def phase_seg(torch, ms, qt, D, bench, sd):
     return DEPTH * fwd, model
 
 
-def phase_slide(torch, ms, qt, bench, seg_train, upernet, model, sd) -> int:
+def phase_slide(torch, ms, qt, fm, bench, seg_train, upernet, model,
+                sd) -> int:
     """Slide inference over one ADE20K-shaped image, then the evaluation
     entry point on 2 synthetic images."""
     g = torch.Generator(device="cuda").manual_seed(2)
     img = torch.randn((512, 683, 3), generator=g, device="cuda")
     kw = bench.seg_kwargs("dispatch")
     apply = lambda tiles: model(tiles, **kw)[0]
-    reset_counts(ms, qt)
+    reset_counts(ms, qt, fm)
     with torch.inference_mode():
         out = upernet.slide_inference(apply, img, num_classes=SEG_CLASSES,
                                       crop=512, stride=341)
         torch.cuda.synchronize()
-        check_counts(ms, qt, "slide inference", 2 * DEPTH)
+        check_counts(ms, qt, fm, "slide inference", 2 * DEPTH)
         # columns [0, 171) lie in the first window only
         first = apply(img[None, :, :512])[0]
     if out.shape != (512, 683, SEG_CLASSES) or not torch.isfinite(out).all():
@@ -636,10 +790,10 @@ def phase_slide(torch, ms, qt, bench, seg_train, upernet, model, sd) -> int:
     runner = seg_train.build_runner(args, log=lambda m: print("  " + m))
     runner.model.load_state_dict({k: torch.from_numpy(v)
                                   for k, v in sd.items()}, strict=True)
-    reset_counts(ms, qt)
+    reset_counts(ms, qt, fm)
     stats = runner.evaluate(max_images=2)
     torch.cuda.synchronize()
-    check_counts(ms, qt, "SegRunner.evaluate", 2 * DEPTH)
+    check_counts(ms, qt, fm, "SegRunner.evaluate", 2 * DEPTH)
     if not (0.0 <= stats["aAcc"] <= 100.0 and stats["miou"] == stats["miou"]
             and stats["images"] == 2):
         fail(f"SegRunner.evaluate: {stats}")
@@ -661,13 +815,19 @@ def main() -> None:
         fail("no CUDA device")
     sys.path.insert(0, REPO)
     try:
-        from dynamic_tuning_tpu_torch import bench, seg_train, speed
+        import numpy as np
+
+        from dynamic_tuning_tpu_torch import bench, predict, seg_train, speed
         from dynamic_tuning_tpu_torch.checkpoint import make_vit_state_dict
+        from dynamic_tuning_tpu_torch.models import fast_inference as fast
         from dynamic_tuning_tpu_torch.models import layers, upernet
         from dynamic_tuning_tpu_torch.ops import _build
         from dynamic_tuning_tpu_torch.ops import dispatch as D
+        from dynamic_tuning_tpu_torch.ops import fused_mlp as fm
         from dynamic_tuning_tpu_torch.ops import mha_serving as ms
         from dynamic_tuning_tpu_torch.ops import quant as qt
+        from dynamic_tuning_tpu_torch.utils.profiling import (forwards_run,
+                                                              scan_throughput)
     except ImportError as e:
         fail(f"the port is not here: {e}")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -684,15 +844,29 @@ def main() -> None:
     measured = phase_kernels(torch, ms, qt)
     phase_gemm_reference(torch, _build)
     measured.update(phase_windowed(torch, ms, layers))
-    launches = phase_model(torch, ms, qt, speed, make_vit_state_dict)
+    measured.update(phase_k11(torch, fm, fast))
+
+    t0 = time.perf_counter()
+    sds = {moe: make_vit_state_dict(np.random.RandomState(0), depth=DEPTH,
+                                    dim=C, ffn=FFN, classes=100, img=224,
+                                    patch=16, router_scale=25.0,
+                                    moe_experts=moe)
+           for moe in (0, MOE)}
+    print(f"synthetic ViT-B/16 weights: {time.perf_counter() - t0:.1f} s")
+    launches = phase_model(torch, ms, qt, fm, speed, sds)
 
     t0 = time.perf_counter()
     seg_sd = bench.seg_state_dict(0)
     print(f"synthetic seg weights: {time.perf_counter() - t0:.1f} s")
-    k9, seg_model = phase_seg(torch, ms, qt, D, bench, seg_sd)
-    k9 += phase_slide(torch, ms, qt, bench, seg_train, upernet, seg_model,
-                      seg_sd)
+    k9, seg_model = phase_seg(torch, ms, qt, fm, D, bench, seg_sd)
+    k9 += phase_slide(torch, ms, qt, fm, bench, seg_train, upernet,
+                      seg_model, seg_sd)
     launches["mha_windowed_fused"] = k9
+    del seg_model
+    torch.cuda.empty_cache()
+    launches["fused_ln_mlp"] = phase_fast(torch, ms, qt, fm, fast, predict,
+                                          scan_throughput, forwards_run,
+                                          sds[0])
     if not all(launches.values()):
         fail(f"a kernel never ran on the main path: {launches}")
 

@@ -15,6 +15,8 @@ from __future__ import annotations
 
 import argparse
 
+import torch
+
 
 def add_common_args(parser: argparse.ArgumentParser):
     """The flags every training entry point shares (the JAX package's
@@ -92,7 +94,8 @@ def add_reference_compat_args(parser: argparse.ArgumentParser):
     g.add_argument("--no_pin_mem", action="store_false", dest="pin_mem")
     g.add_argument("--device", default=None,
                    help="cuda (the default) or cpu, for the entry points "
-                        "that can run on the CPU (seg_train.py); speed.py "
+                        "that can run on the CPU (seg_train.py, "
+                        "predict.py); speed.py "
                         "runs on the current CUDA device")
     g.add_argument("--world_size", default=None, type=int,
                    help="ignored (no launcher)")
@@ -107,3 +110,15 @@ def add_reference_compat_args(parser: argparse.ArgumentParser):
                    help="declared but never read by the reference; accepted")
     g.add_argument("--vpt_num", default=1, type=int, help="see --vpt")
     return parser
+
+
+def resolve_device(name, entry: str) -> torch.device:
+    """``--device``: CUDA unless the caller asks for the CPU; raises when
+    CUDA is asked for and there is no card."""
+    dev = torch.device(name or "cuda")
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"{entry} runs on the GPU and found no CUDA "
+                           "device (pass --device cpu to run on the CPU)")
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"--device {name}: cuda or cpu")
+    return dev

@@ -17,8 +17,9 @@
 // no wgmma yet) bound it together.
 //
 // What the design does about it.  Four kernels on the caller's stream:
-//   1. layernorm_bf16_kernel -- one warp per row, fp32 two-pass LN (mean,
-//      then mean of centred squares, eps 1e-6), rounded once to bf16;
+//   1. layernorm_bf16_kernel (common.cuh) -- one warp per row, fp32
+//      two-pass LN (mean, then mean of centred squares, eps 1e-6), rounded
+//      once to bf16;
 //   2. gemm_nt_kernel<EPI_BIAS_BF16> -- LN rows x Wqkv^T on tensor cores,
 //      fp32 accumulation, + bqkv in fp32, one rounding to bf16;
 //   3. attn_core_kernel -- one block per (sample, head): K and V of the head
@@ -35,29 +36,6 @@
 #include "common.cuh"
 
 namespace dyt {
-
-template <typename TX>
-__global__ void __launch_bounds__(256)
-layernorm_bf16_kernel(const TX* __restrict__ x, const float* __restrict__ g,
-                      const float* __restrict__ b, bf16* __restrict__ out,
-                      int M, int C) {
-  const int row = blockIdx.x * 8 + (threadIdx.x >> 5);
-  const int lane = threadIdx.x & 31;
-  if (row >= M) return;
-  const TX* xr = x + (size_t)row * C;
-  float s = 0.f;
-  for (int c = lane; c < C; c += 32) s += to_f32(xr[c]);
-  const float mu = warp_sum(s) / C;
-  float v = 0.f;
-  for (int c = lane; c < C; c += 32) {
-    const float d = to_f32(xr[c]) - mu;
-    v += d * d;
-  }
-  const float rs = rsqrtf(warp_sum(v) / C + 1e-6f);
-  bf16* orow = out + (size_t)row * C;
-  for (int c = lane; c < C; c += 32)
-    orow[c] = from_f32<bf16>((to_f32(xr[c]) - mu) * rs * g[c] + b[c]);
-}
 
 // ---------------------------------------------------------------------------
 // attention core on the raw [B, N, 3C] qkv buffer ([q|k|v] x head x hd
@@ -224,9 +202,7 @@ static cudaError_t sublayer(const TX* x, const float* gamma, const float* beta,
                             bf16* attn_buf, int B, int N, int C, int H,
                             float scale, cudaStream_t s) {
   const int M = B * N;
-  layernorm_bf16_kernel<TX><<<(M + 7) / 8, 256, 0, s>>>(x, gamma, beta,
-                                                        ln_buf, M, C);
-  cudaError_t err = cudaGetLastError();
+  cudaError_t err = launch_layernorm_bf16<TX>(x, gamma, beta, ln_buf, M, C, s);
   if (err != cudaSuccess) return err;
 
   err = launch_gemm_nt<EPI_BIAS_BF16, TX>(ln_buf, wqkv, bqkv, M, 3 * C, C,

@@ -1,13 +1,16 @@
-// Shared helpers of the serving kernels: bf16 conversions, cp.async, warp
-// reductions, the bf16 and int8 mma.sync primitives, and the NT tensor-core
-// GEMM that the attention sublayer chain (attention_sublayer.cu) runs twice
-// per block (quant.cu's int8 GEMM keeps its ring and tiling).
+// Shared helpers of the serving kernels: bf16 conversions, round-to-nearest
+// fp32 arithmetic, the fp32 GELUs, cp.async, warp reductions, the bf16 and
+// int8 mma.sync primitives, the bf16 LayerNorm rows, and the NT tensor-core
+// GEMM that the attention sublayer chain (attention_sublayer.cu) and the
+// fused LN+MLP chain (fused_mlp.cu) run twice each (quant.cu's int8 GEMM
+// keeps its ring and tiling).
 //
 // The GEMM is the plain Ampere-style form: 128x128x32 block tiles fed by a
 // four-stage cp.async ring, eight warps of 64x32 tiles of mma.sync bf16
 // m16n8k16 products with fp32 accumulators (operands through ldmatrix), and
-// an epilogue that applies the sublayer's bias / residual arithmetic in fp32
-// before the one rounding to the output type.  wgmma and TMA are later work.
+// an epilogue that applies the caller's bias / GELU / gate / residual
+// arithmetic in fp32 before the one rounding to the output type.  wgmma and
+// TMA are later work.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -28,6 +31,42 @@ template <> __device__ __forceinline__ float from_f32<float>(float v) { return v
 // round to nearest even, as XLA's astype(bfloat16)
 template <> __device__ __forceinline__ bf16 from_f32<bf16>(float v) {
   return __float2bfloat16_rn(v);
+}
+
+// fp32 constants as the TPU kernels and the plain versions see them: a
+// Python float (double) rounded to fp32
+#define F32C(x) (static_cast<float>(x))
+
+// Each op rounded on its own: nvcc would otherwise contract a * b + c into
+// one FMA, which rounds once where the TPU kernels round twice.
+__device__ __forceinline__ float mul(float a, float b) { return __fmul_rn(a, b); }
+__device__ __forceinline__ float add(float a, float b) { return __fadd_rn(a, b); }
+__device__ __forceinline__ float sub(float a, float b) { return __fsub_rn(a, b); }
+
+// GELU on fp32, as the TPU kernels (ops/quant.py::_gelu_f32,
+// ops/fused_mlp.py::_kernel).  Abramowitz & Stegun 7.1.26 erf
+// (mha_serving.py::erf_f32).
+__device__ __forceinline__ float erf_as(float x) {
+  const float a = fabsf(x);
+  const float t = __fdiv_rn(1.f, add(1.f, mul(F32C(0.3275911), a)));
+  float p = add(F32C(-1.453152027), mul(t, F32C(1.061405429)));
+  p = add(F32C(1.421413741), mul(t, p));
+  p = add(F32C(-0.284496736), mul(t, p));
+  p = mul(t, add(F32C(0.254829592), mul(t, p)));
+  const float sign = x > 0.f ? 1.f : (x < 0.f ? -1.f : 0.f);
+  return mul(sign, sub(1.f, mul(p, expf(mul(-a, a)))));
+}
+
+__device__ __forceinline__ float gelu_erf(float x) {
+  return mul(mul(0.5f, x), add(1.f, erf_as(mul(x, F32C(0.7071067811865476)))));
+}
+
+// jax.nn.gelu(approximate=True): x * (0.5 * (1 + tanh(c * (x + k x^3))))
+__device__ __forceinline__ float gelu_tanh(float x) {
+  const float x3 = mul(mul(x, x), x);
+  const float inner = mul(F32C(0.7978845608028654),
+                          add(x, mul(F32C(0.044715), x3)));
+  return mul(x, mul(0.5f, add(1.f, tanhf(inner))));
 }
 
 __device__ __forceinline__ float warp_sum(float v) {
@@ -142,6 +181,10 @@ enum GemmEpilogue {
   EPI_BIAS_BF16 = 0,   // out_bf16 = bf16(acc + bias[n])
   EPI_RESIDUAL = 1,    // xm = (resid + acc) + bias[n]; out_x = TX(xm);
                        // out_f32 = xm when given
+  EPI_GELU_ERF = 2,    // out_bf16 = bf16(gelu_erf(acc + bias[n]))
+  EPI_GELU_TANH = 3,   // out_bf16 = bf16(gelu_tanh(acc + bias[n]))
+  EPI_GATE = 4,        // out_x = TX((acc + bias[n]) * gate[m]), or
+                       // TX(acc + bias[n]) when gate is null
 };
 
 __device__ __forceinline__ float2 load2(const float* p) {
@@ -193,7 +236,8 @@ __global__ void __launch_bounds__(G::THREADS)
 gemm_nt_kernel(const bf16* __restrict__ A, const bf16* __restrict__ W,
                const float* __restrict__ bias, int M, int N, int K,
                bf16* __restrict__ out_bf16, const TX* __restrict__ resid,
-               TX* __restrict__ out_x, float* __restrict__ out_f32) {
+               TX* __restrict__ out_x, float* __restrict__ out_f32,
+               const float* __restrict__ gate) {
   constexpr int BM = G::BM, BN = G::BN, BK = G::BK, LD = G::LD;
   constexpr int MT = G::MT, NT = G::NT;
   extern __shared__ __align__(128) unsigned char gsmem_raw[];
@@ -284,6 +328,20 @@ gemm_nt_kernel(const bf16* __restrict__ A, const bf16* __restrict__ W,
         float v0 = acc[i][j][2 * h], v1 = acc[i][j][2 * h + 1];
         if constexpr (EPI == EPI_BIAS_BF16) {
           store2(out_bf16 + o, v0 + b.x, v1 + b.y);
+        } else if constexpr (EPI == EPI_GELU_ERF) {
+          store2(out_bf16 + o, gelu_erf(add(v0, b.x)), gelu_erf(add(v1, b.y)));
+        } else if constexpr (EPI == EPI_GELU_TANH) {
+          store2(out_bf16 + o, gelu_tanh(add(v0, b.x)),
+                 gelu_tanh(add(v1, b.y)));
+        } else if constexpr (EPI == EPI_GATE) {
+          v0 = add(v0, b.x);
+          v1 = add(v1, b.y);
+          if (gate != nullptr) {
+            const float gm = gate[row];
+            v0 = mul(v0, gm);
+            v1 = mul(v1, gm);
+          }
+          store2(out_x + o, v0, v1);
         } else {
           const float2 x = load2(resid + o);
           v0 = (x.x + v0) + b.x;
@@ -300,14 +358,48 @@ template <int EPI, typename TX, class G = GemmDefault>
 cudaError_t launch_gemm_nt(const bf16* A, const bf16* W, const float* bias,
                            int M, int N, int K, bf16* out_bf16,
                            const TX* resid, TX* out_x, float* out_f32,
-                           cudaStream_t s) {
+                           cudaStream_t s, const float* gate = nullptr) {
   cudaError_t err = cudaFuncSetAttribute(
       gemm_nt_kernel<G, EPI, TX>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       G::SMEM);
   if (err != cudaSuccess) return err;
   dim3 grid((N + G::BN - 1) / G::BN, (M + G::BM - 1) / G::BM);
   gemm_nt_kernel<G, EPI, TX><<<grid, G::THREADS, G::SMEM, s>>>(
-      A, W, bias, M, N, K, out_bf16, resid, out_x, out_f32);
+      A, W, bias, M, N, K, out_bf16, resid, out_x, out_f32, gate);
+  return cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// LayerNorm rows to bf16: one warp per row, fp32 two-pass LN (mean, then the
+// mean of the centred squares, eps 1e-6) and the fp32 affine, rounded once.
+
+template <typename TX>
+__global__ void __launch_bounds__(256)
+layernorm_bf16_kernel(const TX* __restrict__ x, const float* __restrict__ g,
+                      const float* __restrict__ b, bf16* __restrict__ out,
+                      int M, int C) {
+  const int row = blockIdx.x * 8 + (threadIdx.x >> 5);
+  const int lane = threadIdx.x & 31;
+  if (row >= M) return;
+  const TX* xr = x + (size_t)row * C;
+  float s = 0.f;
+  for (int c = lane; c < C; c += 32) s += to_f32(xr[c]);
+  const float mu = warp_sum(s) / C;
+  float v = 0.f;
+  for (int c = lane; c < C; c += 32) {
+    const float d = to_f32(xr[c]) - mu;
+    v += d * d;
+  }
+  const float rs = rsqrtf(warp_sum(v) / C + 1e-6f);
+  bf16* orow = out + (size_t)row * C;
+  for (int c = lane; c < C; c += 32)
+    orow[c] = from_f32<bf16>((to_f32(xr[c]) - mu) * rs * g[c] + b[c]);
+}
+
+template <typename TX>
+cudaError_t launch_layernorm_bf16(const TX* x, const float* g, const float* b,
+                                  bf16* out, int M, int C, cudaStream_t s) {
+  layernorm_bf16_kernel<TX><<<(M + 7) / 8, 256, 0, s>>>(x, g, b, out, M, C);
   return cudaGetLastError();
 }
 

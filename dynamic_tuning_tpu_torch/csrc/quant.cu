@@ -41,22 +41,15 @@
 //                     head row in registers, s32 QK^T on mma.sync against
 //                     the head's k codes in shared memory, then the clamped
 //                     exp and the bf16 AV of the bf16 core.
-// Every rounding step uses the _rn intrinsics: nvcc would otherwise contract
-// a * b + c into one FMA, which rounds once where the TPU kernel rounds twice.
+// Every rounding step uses the _rn intrinsics (mul/add/sub of common.cuh):
+// nvcc would otherwise contract a * b + c into one FMA, which rounds once
+// where the TPU kernel rounds twice.
 #include "common.cuh"
 
 extern "C" int dyt_attn_core(const void* qkv, void* out, int B, int N, int C,
                              int H, float scale, void* stream);
 
 namespace dyt {
-
-// fp32 constants as the TPU kernels and the plain versions see them: a
-// Python float (double) rounded to fp32
-#define F32C(x) (static_cast<float>(x))
-
-__device__ __forceinline__ float mul(float a, float b) { return __fmul_rn(a, b); }
-__device__ __forceinline__ float add(float a, float b) { return __fadd_rn(a, b); }
-__device__ __forceinline__ float sub(float a, float b) { return __fsub_rn(a, b); }
 
 __device__ __forceinline__ double warp_sum_f64(double v) {
 #pragma unroll
@@ -215,33 +208,6 @@ static cudaError_t launch_row_quant(const TI* x, int8_t* q, float* rs, int M,
                                     cudaStream_t s) {
   row_quant_kernel<TI><<<(M + 7) / 8, 256, 0, s>>>(x, q, rs, M, K, amax_in);
   return cudaGetLastError();
-}
-
-// ---------------------------------------------------------------------------
-// GELU on fp32, as the TPU kernel (ops/quant.py::_gelu_f32)
-
-// Abramowitz & Stegun 7.1.26 (mha_serving.py::erf_f32)
-__device__ __forceinline__ float erf_as(float x) {
-  const float a = fabsf(x);
-  const float t = __fdiv_rn(1.f, add(1.f, mul(F32C(0.3275911), a)));
-  float p = add(F32C(-1.453152027), mul(t, F32C(1.061405429)));
-  p = add(F32C(1.421413741), mul(t, p));
-  p = add(F32C(-0.284496736), mul(t, p));
-  p = mul(t, add(F32C(0.254829592), mul(t, p)));
-  const float sign = x > 0.f ? 1.f : (x < 0.f ? -1.f : 0.f);
-  return mul(sign, sub(1.f, mul(p, expf(mul(-a, a)))));
-}
-
-__device__ __forceinline__ float gelu_erf(float x) {
-  return mul(mul(0.5f, x), add(1.f, erf_as(mul(x, F32C(0.7071067811865476)))));
-}
-
-// jax.nn.gelu(approximate=True): x * (0.5 * (1 + tanh(c * (x + k x^3))))
-__device__ __forceinline__ float gelu_tanh(float x) {
-  const float x3 = mul(mul(x, x), x);
-  const float inner = mul(F32C(0.7978845608028654),
-                          add(x, mul(F32C(0.044715), x3)));
-  return mul(x, mul(0.5f, add(1.f, tanhf(inner))));
 }
 
 // ---------------------------------------------------------------------------

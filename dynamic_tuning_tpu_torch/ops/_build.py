@@ -50,6 +50,7 @@ _SIGNATURES = {
     "dyt_moe_smem_bytes": [_I, _I],
     "dyt_mha_windowed": [_P, _P, _P, _I, _I, _I, _I, ctypes.c_longlong, _I,
                          _F, _P],
+    "dyt_fused_ln_mlp": [_P, _I] + [_P] * 10 + [_I, _I, _I, _I, _P],
 }
 
 

@@ -24,7 +24,7 @@ import logging
 
 import torch
 
-from dynamic_tuning_tpu_torch.cli import add_common_args
+from dynamic_tuning_tpu_torch.cli import add_common_args, resolve_device
 from dynamic_tuning_tpu_torch.config import (ModelConfig, SelectConfig,
                                              TuningConfig)
 from dynamic_tuning_tpu_torch.train.seg_runner import SegRunner
@@ -60,20 +60,8 @@ def get_args_parser():
     return p
 
 
-def resolve_device(name) -> torch.device:
-    """``--device``: CUDA unless the caller asks for the CPU; raises when
-    CUDA is asked for and there is no card."""
-    dev = torch.device(name or "cuda")
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("seg_train.py runs on the GPU and found no CUDA "
-                           "device (pass --device cpu to run on the CPU)")
-    if dev.type not in ("cuda", "cpu"):
-        raise ValueError(f"--device {name}: cuda or cpu")
-    return dev
-
-
 def build_runner(args, log=print) -> SegRunner:
-    device = resolve_device(args.device)
+    device = resolve_device(args.device, "seg_train.py")
     dtype = _DTYPES[args.compute_dtype]
     if device.type == "cuda" and dtype != torch.bfloat16:
         raise NotImplementedError("--compute_dtype float32 runs on the CPU "

@@ -4,12 +4,17 @@
         --mode dispatch --warmup 5 --iters 3
     python -m dynamic_tuning_tpu_torch.utils.profile_forward --task seg \
         --mode dispatch --warmup 5 --iters 3
+    python -m dynamic_tuning_tpu_torch.utils.profile_forward --task fast \
+        --mode dispatch [--use_kernel] --warmup 5 --iters 3
 
 Takes ``speed.py``'s flags and model; ``--task seg`` takes the seg bench's
 segmentor instead (``bench.build_segmentor``: one 512^2 crop, ``--mode
-dispatch``, ``mask`` or ``dense``, the auxiliary head left out).  After
-``--warmup`` forwards it traces
-``--iters`` forwards on the card and prints, per kernel name, the device
+dispatch``, ``mask`` or ``dense``, the auxiliary head left out); ``--task
+fast`` serves ``speed.py``'s model through the speed-test forward
+(``models/fast_inference.fast_vit_forward``, K11 with ``--use_kernel``,
+else the cuBLAS MLP chain; ``--mode dispatch``, ``mask`` or ``dense``).
+After ``--warmup`` forwards it traces ``--iters`` forwards on the card and
+prints, per kernel name, the device
 time per forward and the calls per forward, then the device window, the
 kernel-busy time and the idle share of the window, and the host's time to
 enqueue one forward (timed apart from an idle card, without the profiler).
@@ -26,6 +31,7 @@ from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
 from dynamic_tuning_tpu_torch import bench, speed
+from dynamic_tuning_tpu_torch.models import fast_inference as fast
 
 
 def _busy_us(intervals) -> float:
@@ -53,6 +59,16 @@ def main(args) -> dict:
         model = bench.build_segmentor(mode, device, seed=args.seed)
         batch, img = 1, bench.SEG_CROP
         kwargs = bench.seg_kwargs(mode)
+    elif task == "fast":
+        vit = speed.build_model(args, device)
+        params = fast.serving_params(vit)
+        batch, img, kwargs = args.batch_size, 224, {}
+
+        def model(x):
+            return fast.fast_vit_forward(
+                params, x, cfg=vit.cfg, tuning=vit.tuning,
+                select=vit.select_cfg, mode=args.mode,
+                use_kernel=args.use_kernel)
     else:
         model = speed.build_model(args, device)
         batch, img = args.batch_size, 224
@@ -106,7 +122,10 @@ def main(args) -> dict:
 
 def get_args_parser():
     p = speed.get_args_parser()
-    p.add_argument("--task", default="image", choices=["image", "seg"])
+    p.add_argument("--task", default="image",
+                   choices=["image", "seg", "fast"])
+    p.add_argument("--use_kernel", action="store_true",
+                   help="--task fast: the MLP as K11")
     return p
 
 

@@ -474,3 +474,86 @@ def test_seg_model_launches_only_k9():
     assert (ms.attention_sublayer_serving.launches,
             ms.dyt_prologue_serving.launches,
             ms.dyt_prologue_serving_moe.launches) == (0, 0, 0)
+
+
+# --- fused LN + MLP (K11) ----------------------------------------------------
+#
+# Tolerance as for K2: the kernel rounds at the plain version's points (bf16
+# xn, bf16 h, one rounding of the output); only the order of the fp32 LN and
+# GEMM sums differs.  A gated-off row is exactly 0.
+
+def k11_inputs(M, C, H, *, xdtype=BF, gated=False, seed=14):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    r = lambda *s, sc=1.0: torch.randn(s, generator=g, device="cuda") * sc
+    mlp = (r(C, sc=0.05) + 1.0, r(C, sc=0.02), r(H, C, sc=0.03).to(BF),
+           r(H, sc=0.02), r(C, H, sc=0.03).to(BF), r(C, sc=0.02))
+    gate = ((torch.rand((M, 1), generator=g, device="cuda") > 0.5).to(xdtype)
+            if gated else None)
+    return r(M, C).to(xdtype), mlp, gate
+
+
+@pytest.mark.parametrize("gelu_approx", [True, False], ids=["tanh", "erf"])
+@pytest.mark.parametrize("gated", [False, True], ids=["no_gate", "gate"])
+@pytest.mark.parametrize("xdtype", [BF, torch.float32])
+@pytest.mark.parametrize("M,C,H", [(128 * 99, 768, 3072),
+                                   (128 * 197, 768, 3072), (77, 128, 512)])
+def test_fused_ln_mlp_kernel(M, C, H, xdtype, gated, gelu_approx):
+    from dynamic_tuning_tpu_torch.ops import fused_mlp as fm
+
+    x, mlp, gate = k11_inputs(M, C, H, xdtype=xdtype, gated=gated)
+    before = fm.fused_ln_mlp.launches
+    got = fm.fused_ln_mlp(x, *mlp, gate, gelu_approx=gelu_approx)
+    torch.cuda.synchronize()
+    assert fm.fused_ln_mlp.launches == before + 1
+    want = fm.ln_mlp_plain(x, *mlp, gate, gelu_approx=gelu_approx)
+    assert got.dtype == xdtype and got.shape == x.shape
+    bf16_close(got, want, "mlp")
+    if gated:
+        off = gate[:, 0] == 0
+        assert off.any() and bool((got[off] == 0).all())
+
+
+def test_fused_ln_mlp_raises_on_unsupported_input():
+    from dynamic_tuning_tpu_torch.ops import fused_mlp as fm
+
+    x, mlp, _ = k11_inputs(19, 128, 512)
+    with pytest.raises(TypeError):                  # fp32 weights
+        fm.fused_ln_mlp(x, *mlp[:2], mlp[2].float(), *mlp[3:])
+    with pytest.raises(ValueError, match="gate"):
+        fm.fused_ln_mlp(x, *mlp, torch.ones((18, 1), device="cuda"))
+    with pytest.raises(ValueError, match="multiples of 8"):
+        x2, mlp2, _ = k11_inputs(19, 132, 512)
+        fm.fused_ln_mlp(x2, *mlp2)
+
+
+def test_fast_forward_launches_only_k11():
+    """The speed-test forward on the card runs K11 once per block with
+    use_kernel=True, and no kernel without it."""
+    from dynamic_tuning_tpu_torch.config import (ModelConfig, SelectConfig,
+                                                 TuningConfig)
+    from dynamic_tuning_tpu_torch.models import fast_inference as fast
+    from dynamic_tuning_tpu_torch.models.vit import VisionTransformer
+    from dynamic_tuning_tpu_torch.ops import fused_mlp as fm
+
+    mc = ModelConfig(img_size=64, patch_size=16, embed_dim=128, depth=2,
+                     num_heads=2, num_classes=10, gelu_approx=True)
+    tuning, sel = TuningConfig(ffn_num=16), SelectConfig()
+    model = VisionTransformer(mc, tuning=tuning, select=sel, device="cuda")
+    params = fast.serving_params(model)
+    x = torch.randn((3, 64, 64, 3), device="cuda")
+    for mode in ("dispatch", "mask", "dense"):
+        fm.reset_launch_counts()
+        ms.reset_launch_counts()
+        qt.reset_launch_counts()
+        logits, gates = fast.fast_vit_forward(params, x, cfg=mc,
+                                              tuning=tuning, select=sel,
+                                              mode=mode, use_kernel=True)
+        torch.cuda.synchronize()
+        assert fm.fused_ln_mlp.launches == 2
+        assert (ms.dyt_prologue_serving.launches,
+                qt.q8_ln_mlp.launches) == (0, 0)
+        assert torch.isfinite(logits).all()
+        assert (gates is None) == (mode == "dense")
+        fast.fast_vit_forward(params, x, cfg=mc, tuning=tuning, select=sel,
+                              mode=mode, use_kernel=False)
+        assert fm.fused_ln_mlp.launches == 2
