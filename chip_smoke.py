@@ -24,7 +24,13 @@ Phases; any failure exits non-zero:
      fused_ln_mlp at the speed-test path's rows (dispatch 128*99 without a
      gate, mask 128*197 with one, tanh GELU; a small ragged erf shape),
      beside the cuBLAS chain of fast_vit_forward(use_kernel=False)'s MLP (a
-     reference time only);
+     reference time only); then the attention kernels at B=128, N=197,
+     12 heads of 64, each beside F.scaled_dot_product_attention on the same
+     q, k, v (a reference time only): K1 mha_serving_fused on raw qkv, K15
+     mha_serving on contiguous q, k, v and on views of the raw qkv, K13
+     flash_attention (and at B=1, N=1025 with an fp32 bias), K14
+     packed_attention; K13 and K14, which only tests call, are first run
+     once each as their own path with the counts set to 0;
   3. the serving main path through dynamic_tuning_tpu_torch.speed.main:
      ViT-B/16 at 224^2, 12 blocks, batch 128, seeded synthetic weights;
      bf16 dispatch, dense and plain, int8 dispatch, dense and plain,
@@ -49,17 +55,26 @@ Phases; any failure exits non-zero:
      stride 341), the strip only the first window covers held against that
      window's own forward; then SegRunner.evaluate (seg_train.py --eval)
      on 2 synthetic 512^2 images, with K9's launches counted;
-  6. the speed-test path: models/fast_inference.fast_vit_forward on
+  6. the segmentation backbone without windows, with LayerScale and BEiT
+     q/v biases (SegVisionTransformer(use_rel_pos_bias=False,
+     init_values=0.1, qv_bias_only=True), ViT-B/16 width and depth, seeded
+     weights) at 256^2 (257 tokens), batch 8, in dispatch and dense
+     (complete_model): 12 K1 launches per forward and none of the others,
+     finite features, gate agreement with the plain-version forward and
+     the features against it given the same dispatch decisions, img/s;
+     then beit_backbone on one 512^2 crop in dispatch, K9 in every block,
+     held the same way;
+  7. the speed-test path: models/fast_inference.fast_vit_forward on
      ViT-B/16 at 224^2, batch 128, phase 3's weights, in dispatch, mask and
      dense with use_kernel=True; per mode, with the counts set to 0 just
-     before it: 12 K11 launches per forward and none of the others, finite
-     logits, gates and logits against the same forward on the plain
+     before it: 12 K11 and 12 K15 launches per forward and none of the
+     others, finite logits, gates and logits against the same forward on the plain
      versions, img/s, and img/s with use_kernel=False beside it; then
      predict.serve (the port's predict.py without decoding) on 130
      synthetic uint8 canvases, one chunk of 128 and a tail of 2, in
      dispatch, auto and int8 dispatch: well-formed results, keep ratios in
-     [0, 1], and the int8 kernels' launches;
-  7. the wall time, the card's name and power limit (nvidia-smi), a JSON
+     [0, 1], and the launches of K15 (bf16) or of the int8 kernels;
+  8. the wall time, the card's name and power limit (nvidia-smi), a JSON
      line of the kernels, and last the JSON result line.
 Needs no network and imports nothing of JAX or of the JAX package.
 """
@@ -116,11 +131,26 @@ KERNELS = {
     "fused_ln_mlp": ("fm", dict(
         route="cuda", source=f"{SRC}/fused_mlp.cu",
         replaces=f"{JAX_OPS}/fused_mlp.py:53")),
+    "mha_serving_fused": ("ms", dict(
+        route="cuda", source=f"{SRC}/attention_sublayer.cu",
+        replaces=f"{JAX_OPS}/mha_serving.py:219")),
+    "flash_attention": ("fa", dict(
+        route="cuda", source=f"{SRC}/windowed_attention.cu",
+        replaces=f"{JAX_OPS}/flash_attention.py:73")),
+    "packed_attention": ("pa", dict(
+        route="cuda", source=f"{SRC}/windowed_attention.cu",
+        replaces=f"{JAX_OPS}/packed_attention.py:86")),
+    "mha_serving": ("ms", dict(
+        route="cuda", source=f"{SRC}/attention_sublayer.cu",
+        replaces=f"{JAX_OPS}/mha_serving.py:49")),
 }
 # the segmentation path: 512^2 crops of 16^2 patches -> 32x32 + CLS tokens
 SEG_GRID = 32
 SEG_N = SEG_GRID * SEG_GRID + 1
 SEG_CLASSES = 150
+# the LayerScale / q-v-bias backbone without windows: 256^2 crops of 16^2
+# patches -> 16x16 + CLS = 257 tokens, so every block's Attention takes K1
+LS_IMG, LS_BATCH = 256, 8
 # (quant, mode, MoE experts, kernels launched once per block of each forward)
 RUNS = [
     ("none", "dispatch", 0, ("dyt_prologue_serving",)),
@@ -499,11 +529,155 @@ def phase_k11(torch, fm, fast) -> dict:
     return out
 
 
+def phase_attention(torch, ms, qt, fm) -> dict:
+    """K1, K15, K13 and K14 against their plain versions, each beside SDPA
+    on the same q, k, v (the max-subtracted softmax: the same function up
+    to the serving clamp and the rounding points; a library's time only).
+    K13 and K14 have no caller beyond tests in either package: their path
+    is one call of each entry point at the shapes below, with every count
+    set to 0 just before; the launches of the comparisons are not counted.
+    """
+    import torch.nn.functional as F
+    from dynamic_tuning_tpu_torch.ops import flash_attention as fa
+    from dynamic_tuning_tpu_torch.ops import packed_attention as pa
+
+    g = torch.Generator(device="cuda").manual_seed(5)
+    hd = C // H
+    qkv = torch.randn((B, N, 3 * C), generator=g, device="cuda").to(
+        torch.bfloat16)
+    views = qkv.view(B, N, 3, H, hd).permute(2, 0, 3, 1, 4)
+    q, k, v = (t.contiguous() for t in views)
+    bias = torch.randn((H, SEG_N, SEG_N), generator=g, device="cuda")
+    sq, sk, sv = (torch.randn((1, H, SEG_N, hd), generator=g, device="cuda")
+                  .to(torch.bfloat16) for _ in range(3))
+    ops = {"bf16": 2 * attn_ops()}
+
+    reset_counts(ms, qt, fm)
+    fa.flash_attention(q, k, v)
+    fa.flash_attention(sq, sk, sv, bias)
+    pa.packed_attention(qkv, num_heads=H)
+    torch.cuda.synchronize()
+    path = read_counts(ms, qt, fm)
+
+    def sdpa(what, *args, **kw):
+        t = time_ms(lambda: F.scaled_dot_product_attention(*args, **kw))
+        print(f"  SDPA {what} (reference only): {t:.4f} ms")
+        return t
+
+    out = {}
+    out["mha_serving_fused"] = measure(
+        "K1 mha_serving_fused", lambda: ms.mha_serving_fused(qkv, heads=H),
+        lambda: ms.attn_core_pairs(qkv, heads=H), ("core",), (qkv,), ops)
+    out["mha_serving_fused"]["library_ms"] = sdpa("on q, k, v", q, k, v)
+    measure("K15 mha_serving (contiguous q, k, v)",
+            lambda: ms.mha_serving(q, k, v),
+            lambda: ms.mha_serving_plain(q, k, v), ("core",), (q, k, v),
+            ops)
+    out["mha_serving"] = measure(
+        "K15 mha_serving (views of the raw qkv)",
+        lambda: ms.mha_serving(*views),
+        lambda: ms.mha_serving_plain(*views), ("core",), (qkv,), ops)
+    out["mha_serving"]["library_ms"] = out["mha_serving_fused"]["library_ms"]
+    out["flash_attention"] = measure(
+        "K13 flash_attention", lambda: fa.flash_attention(q, k, v),
+        lambda: fa.flash_attention_plain(q, k, v), ("attention",),
+        (q, k, v), ops)
+    out["flash_attention"]["library_ms"] = sdpa("on q, k, v", q, k, v)
+    measure(f"K13 flash_attention(B=1, N={SEG_N}, fp32 bias)",
+            lambda: fa.flash_attention(sq, sk, sv, bias),
+            lambda: fa.flash_attention_plain(sq, sk, sv, bias),
+            ("attention",), (sq, sk, sv, bias),
+            {"bf16": 2 * attn_ops(1, SEG_N)})
+    sdpa("with the bias as mask", sq, sk, sv,
+         attn_mask=bias.to(torch.bfloat16)[None])
+    out["packed_attention"] = measure(
+        "K14 packed_attention", lambda: pa.packed_attention(qkv, num_heads=H),
+        lambda: pa.packed_attention_plain(qkv, H), ("attention",), (qkv,),
+        ops)
+    out["packed_attention"]["library_ms"] = out["flash_attention"][
+        "library_ms"]
+    torch.cuda.empty_cache()
+    return out, {k: path[k] for k in ("flash_attention", "packed_attention")}
+
+
+def phase_layerscale(torch, ms, qt, fm, D, seg_vit, make_seg_state_dict,
+                     config, np) -> dict:
+    """The LayerScale / q-v-bias backbone without windows at ViT-B width
+    (K1 in every block), batch 8 at 256^2, in dispatch and dense
+    (complete_model); then the BEiT backbone (K9 in every block) on one
+    512^2 crop.  Returns the launches of K1 and K9."""
+    launches = {"mha_serving_fused": 0, "mha_windowed_fused": 0}
+    g = torch.Generator(device="cuda").manual_seed(6)
+    beit = dict(use_abs_pos_embed=False, init_values=0.1, qv_bias_only=True)
+    for name, img, batch, knobs, kernel in (
+            ("no-window LayerScale backbone", LS_IMG, LS_BATCH,
+             dict(use_rel_pos_bias=False, init_values=0.1,
+                  qv_bias_only=True), "mha_serving_fused"),
+            ("beit_backbone", 512, 1, beit, "mha_windowed_fused")):
+        cfg = config.ModelConfig(img_size=img, gelu_approx=True,
+                                 residual_dtype="bfloat16")
+        build = (seg_vit.beit_backbone if knobs is beit else
+                 lambda *a, **kw: seg_vit.SegVisionTransformer(
+                     *a, **knobs, **kw))
+        model = build(cfg, config.TuningConfig(),
+                      config.SelectConfig(token_target_ratio=0.5),
+                      dtype=torch.bfloat16)
+        sd = make_seg_state_dict(np.random.RandomState(0), depth=DEPTH,
+                                 dim=C, ffn=FFN, img=img, patch=16,
+                                 num_classes=SEG_CLASSES, head_channels=64,
+                                 **knobs)
+        model.load_state_dict({k[len("backbone."):]: torch.from_numpy(v)
+                               for k, v in sd.items()
+                               if k.startswith("backbone.")}, strict=True)
+        model = model.to("cuda")
+        x = torch.randn((batch, img, img, 3), generator=g, device="cuda")
+        modes = (("dispatch", {"dispatch": True}),
+                 ("dense", {"complete_model": True}))
+        for mode, kw in modes[:2 if kernel == "mha_serving_fused" else 1]:
+            reset_counts(ms, qt, fm)
+            scores = []
+            with routing(D, record=scores), torch.inference_mode():
+                feats, aux = model(x, **kw)
+            torch.cuda.synchronize()
+            counts = read_counts(ms, qt, fm)
+            want = {k: DEPTH if k == kernel else 0 for k in KERNELS}
+            if counts != want:
+                fail(f"{name} {mode}: kernel launches {counts}, want {want}")
+            launches[kernel] += counts[kernel]
+            if not all(torch.isfinite(f).all() for f in feats):
+                fail(f"{name} {mode}: features not finite")
+            with plain_versions(ms, qt, fm), torch.inference_mode():
+                _, free_aux = model(x, **kw)
+            with (routing(D, replay=scores), plain_versions(ms, qt, fm),
+                  torch.inference_mode()):
+                ref, _ = model(x, **kw)
+            agree = (1.0 if aux["token_select"] is None else
+                     (aux["token_select"] == free_aux["token_select"])
+                     .float().mean().item())
+            worst = 0.0
+            for f, r in zip(feats, ref):
+                err, mag = rel_err(f, r)
+                worst = max(worst, err / mag)
+            t = time_ms(lambda: model(x, **kw), iters=5, warmup=1)
+            print(f"{name} {mode} ({img}^2, batch {batch}): {DEPTH} "
+                  f"{kernel} launches per forward; {batch / t * 1e3:.2f} "
+                  f"img/s; gate agreement with the plain-version forward "
+                  f"{agree:.6f}; features vs plain versions on the same "
+                  f"dispatch: max|err| {worst:.6g} of the largest (tol "
+                  f"{MODEL_REL:g})")
+            if worst > MODEL_REL or agree < GATE_AGREE:
+                fail(f"{name} {mode} disagrees with the plain-version "
+                     "forward")
+        del model
+        torch.cuda.empty_cache()
+    return launches
+
+
 def phase_fast(torch, ms, qt, fm, fast, predict, scan_throughput,
                forwards_run, sd) -> int:
     """The speed-test path: fast_vit_forward per mode with use_kernel=True
     (and its img/s with use_kernel=False), then predict.serve.  Returns
-    K11's launches."""
+    K11's and K15's launches."""
     cuda = torch.device("cuda")
     args = predict.get_args_parser().parse_args(
         ["--ckpt", "synthetic.pth", "--images", "-"])
@@ -511,7 +685,7 @@ def phase_fast(torch, ms, qt, fm, fast, predict, scan_throughput,
     params = predict.load_params(args, cuda, state_dict=sd)
     g = torch.Generator(device="cuda").manual_seed(4)
     x = torch.randn((B, 224, 224, 3), generator=g, device="cuda")
-    launches = 0
+    launches = {"fused_ln_mlp": 0, "mha_serving": 0}
     for mode in ("dispatch", "mask", "dense"):
         def fwd(use_kernel, mode=mode):
             return fast.fast_vit_forward(params, x, cfg=cfg, tuning=tuning,
@@ -525,11 +699,12 @@ def phase_fast(torch, ms, qt, fm, fast, predict, scan_throughput,
         torch.cuda.synchronize()
         n_fwd = 1 + forwards_run(FAST_ITERS, warmup_iters=2)
         counts = read_counts(ms, qt, fm)
-        want = {k: DEPTH * n_fwd if k == "fused_ln_mlp" else 0
-                for k in KERNELS}
+        want = {k: DEPTH * n_fwd if k in ("fused_ln_mlp", "mha_serving")
+                else 0 for k in KERNELS}
         if counts != want:
             fail(f"fast {mode}: kernel launches {counts}, want {want}")
-        launches += counts["fused_ln_mlp"]
+        for k in launches:
+            launches[k] += counts[k]
         if logits.shape != (B, 100) or not torch.isfinite(logits).all():
             fail(f"fast {mode}: logits {tuple(logits.shape)} not "
                  "finite/shaped")
@@ -548,8 +723,9 @@ def phase_fast(torch, ms, qt, fm, fast, predict, scan_throughput,
         keep = "" if gates is None else (
             f", mean keep ratio {gates[:, :, 1:].mean().item():.4f}")
         print(f"fast {mode}: {ips:.2f} img/s with K11, {ips_cublas:.2f} "
-              f"img/s with the cuBLAS chain, at batch {B}; {DEPTH} K11 "
-              f"launches per forward; vs plain versions: logits max|err| "
+              f"img/s with the cuBLAS chain, at batch {B}; {DEPTH} K11 and "
+              f"{DEPTH} K15 launches per forward; vs plain versions: logits "
+              f"max|err| "
               f"{err:.6g} (tol {MODEL_REL * mag:.6g}), gate agreement "
               f"{agree:.6f}{keep}")
         if err > MODEL_REL * mag or agree < GATE_AGREE:
@@ -575,8 +751,9 @@ def phase_fast(torch, ms, qt, fm, fast, predict, scan_throughput,
         torch.cuda.synchronize()
         secs = time.perf_counter() - t0
         counts = read_counts(ms, qt, fm)
-        want = {k: DEPTH * chunks if quant != "none" and k in (
-            "dyt_prologue_serving_q8", "q8_ln_mlp") else 0 for k in KERNELS}
+        served = (("dyt_prologue_serving_q8", "q8_ln_mlp") if quant != "none"
+                  else ("mha_serving",))
+        want = {k: DEPTH * chunks if k in served else 0 for k in KERNELS}
         run = f"predict.serve {mode} quant={quant}"
         if counts != want:
             fail(f"{run}: kernel launches {counts}, want {want}")
@@ -592,19 +769,26 @@ def phase_fast(torch, ms, qt, fm, fast, predict, scan_throughput,
             fail(f"{run}: mean keep ratio {keep}")
         print(f"{run}: {SERVE_N} canvases in {chunks} chunks, "
               f"{secs:.2f} s (first call), mean keep ratio {keep:.4f}")
+        launches["mha_serving"] += counts["mha_serving"]
         del p
         torch.cuda.empty_cache()
     return launches
 
 
+def count_modules(ms, qt, fm) -> dict:
+    """The wrappers' modules by their KERNELS tag."""
+    from dynamic_tuning_tpu_torch.ops import flash_attention as fa
+    from dynamic_tuning_tpu_torch.ops import packed_attention as pa
+    return {"ms": ms, "qt": qt, "fm": fm, "fa": fa, "pa": pa}
+
+
 def reset_counts(ms, qt, fm) -> None:
-    ms.reset_launch_counts()
-    qt.reset_launch_counts()
-    fm.reset_launch_counts()
+    for mod in count_modules(ms, qt, fm).values():
+        mod.reset_launch_counts()
 
 
 def read_counts(ms, qt, fm) -> dict:
-    mods = {"ms": ms, "qt": qt, "fm": fm}
+    mods = count_modules(ms, qt, fm)
     return {k: getattr(mods[m], k).launches for k, (m, _) in KERNELS.items()}
 
 
@@ -653,6 +837,8 @@ def plain_versions(ms, qt, fm):
              (ms, "attention_sublayer_serving"): ms.attention_sublayer_plain,
              (ms, "dyt_prologue_serving_moe"): ms.dyt_prologue_moe_plain,
              (ms, "mha_windowed_fused"): ms.mha_windowed_plain,
+             (ms, "mha_serving_fused"): ms.attn_core_pairs,
+             (ms, "mha_serving"): ms.mha_serving_plain,
              (qt, "dyt_prologue_serving_q8"): qt.dyt_prologue_q8_plain,
              (qt, "attention_sublayer_serving_q8"):
                  qt.attention_sublayer_q8_plain,
@@ -817,10 +1003,12 @@ def main() -> None:
     try:
         import numpy as np
 
-        from dynamic_tuning_tpu_torch import bench, predict, seg_train, speed
-        from dynamic_tuning_tpu_torch.checkpoint import make_vit_state_dict
+        from dynamic_tuning_tpu_torch import (bench, config, predict,
+                                              seg_train, speed)
+        from dynamic_tuning_tpu_torch.checkpoint import (make_seg_state_dict,
+                                                         make_vit_state_dict)
         from dynamic_tuning_tpu_torch.models import fast_inference as fast
-        from dynamic_tuning_tpu_torch.models import layers, upernet
+        from dynamic_tuning_tpu_torch.models import layers, seg_vit, upernet
         from dynamic_tuning_tpu_torch.ops import _build
         from dynamic_tuning_tpu_torch.ops import dispatch as D
         from dynamic_tuning_tpu_torch.ops import fused_mlp as fm
@@ -845,6 +1033,8 @@ def main() -> None:
     phase_gemm_reference(torch, _build)
     measured.update(phase_windowed(torch, ms, layers))
     measured.update(phase_k11(torch, fm, fast))
+    attention, attention_path = phase_attention(torch, ms, qt, fm)
+    measured.update(attention)
 
     t0 = time.perf_counter()
     sds = {moe: make_vit_state_dict(np.random.RandomState(0), depth=DEPTH,
@@ -864,9 +1054,12 @@ def main() -> None:
     launches["mha_windowed_fused"] = k9
     del seg_model
     torch.cuda.empty_cache()
-    launches["fused_ln_mlp"] = phase_fast(torch, ms, qt, fm, fast, predict,
-                                          scan_throughput, forwards_run,
-                                          sds[0])
+    for k, n in phase_layerscale(torch, ms, qt, fm, D, seg_vit,
+                                 make_seg_state_dict, config, np).items():
+        launches[k] += n
+    launches.update(phase_fast(torch, ms, qt, fm, fast, predict,
+                               scan_throughput, forwards_run, sds[0]))
+    launches.update(attention_path)
     if not all(launches.values()):
         fail(f"a kernel never ran on the main path: {launches}")
 

@@ -14,7 +14,10 @@ dynamic_tuning_tpu/train/checkpoint.py).
   ``DyTSegmentor`` tree (``backbone/...``, ``decode_head/...``,
   ``auxiliary_head/...``) maps to the port segmentor's names: the backbone
   as the image model under ``backbone.`` plus
-  ``attn.relative_position_bias_table`` (unchanged) and the FPN transposed
+  ``attn.relative_position_bias_table`` (unchanged), BEiT's
+  ``attn/q_bias``, ``attn/v_bias``, ``ls1_gamma`` and ``ls2_gamma``
+  (``attn.q_bias``, ``attn.v_bias``, ``gamma_1``, ``gamma_2``, the
+  reference BEiT backbone's names) and the FPN transposed
   convs, whose flax kernels [kh, kw, in, out] are flipped in both spatial
   axes and laid out [in, out, kh, kw] (flax's ConvTranspose does not flip
   its kernel, torch's does); the heads mirror the flax tree (``kernel`` ->
@@ -61,6 +64,12 @@ _FLAX_TO_TIMM = {
     ("attn", "proj", "bias"): "attn.proj.bias",
     ("attn", "relative_position_bias_table"):
         "attn.relative_position_bias_table",
+    # BEiT: q/v-only attention biases and LayerScale, under the reference
+    # BEiT backbone's names
+    ("attn", "q_bias"): "attn.q_bias",
+    ("attn", "v_bias"): "attn.v_bias",
+    ("ls1_gamma",): "gamma_1",
+    ("ls2_gamma",): "gamma_2",
     ("mlp", "fc1", "kernel"): "mlp.fc1.weight",
     ("mlp", "fc1", "bias"): "mlp.fc1.bias",
     ("mlp", "fc2", "kernel"): "mlp.fc2.weight",
@@ -221,7 +230,11 @@ def make_vit_state_dict(rs: np.random.RandomState, *, depth: int, dim: int,
 
 def make_seg_state_dict(rs: np.random.RandomState, *, depth: int, dim: int,
                         ffn: int, img: int, patch: int, num_classes: int,
-                        head_channels: int | None = None, norm: str = "gn"
+                        head_channels: int | None = None, norm: str = "gn",
+                        use_rel_pos_bias: bool = True,
+                        use_abs_pos_embed: bool = True,
+                        init_values: float | None = None,
+                        qv_bias_only: bool = False
                         ) -> Dict[str, np.ndarray]:
     """Random state dict of the port's ``DyTSegmentor`` (ViT backbone of
     heads of 64 with windowed attention over an ``img`` / ``patch`` grid,
@@ -231,7 +244,14 @@ def make_seg_state_dict(rs: np.random.RandomState, *, depth: int, dim: int,
     the relative-position tables are nonzero (~1, the size of the scores)
     so the bias matters; conv kernels have variance 1/fan_in, norm scales
     near 1.  With ``norm="bn"`` the heads carry running statistics instead
-    of GroupNorm affines."""
+    of GroupNorm affines.
+
+    The backbone knobs of ``SegVisionTransformer`` shape the backbone's
+    entries: no tables without ``use_rel_pos_bias``, no ``pos_embed``
+    without ``use_abs_pos_embed``; with ``qv_bias_only`` the qkv bias
+    gives way to ``attn.q_bias`` and ``attn.v_bias`` (~0.3, a few tenths
+    of q and v), and ``init_values`` adds ``gamma_1`` and ``gamma_2``
+    near it, all drawn after everything else."""
     def w(*shape, s=0.03):
         return np.clip(rs.randn(*shape) * s, -2 * s, 2 * s).astype(np.float32)
 
@@ -277,6 +297,19 @@ def make_seg_state_dict(rs: np.random.RandomState, *, depth: int, dim: int,
     sd["auxiliary_head.conv_seg.weight"] = w(num_classes, 256, 1, 1,
                                              s=256 ** -0.5)
     sd["auxiliary_head.conv_seg.bias"] = w(num_classes, s=0.02)
+    for i in range(depth):
+        p = f"backbone.blocks.{i}."
+        if not use_rel_pos_bias:
+            del sd[p + "attn.relative_position_bias_table"]
+        if qv_bias_only:
+            del sd[p + "attn.qkv.bias"]
+            sd[p + "attn.q_bias"] = w(dim, s=0.3)
+            sd[p + "attn.v_bias"] = w(dim, s=0.3)
+        if init_values is not None:
+            sd[p + "gamma_1"] = init_values * (1.0 + w(dim, s=0.1))
+            sd[p + "gamma_2"] = init_values * (1.0 + w(dim, s=0.1))
+    if not use_abs_pos_embed:
+        del sd["backbone.pos_embed"]
     return sd
 
 

@@ -4,7 +4,16 @@
 // Replaces the TPU kernel dynamic_tuning_tpu/ops/mha_serving.py::
 // attention_sublayer_serving (_attn_sublayer_kernel, with its shared core
 // attn_core_pairs) and forms the first four steps of dyt_prologue_serving
-// (see dyt_prologue.cu).
+// (see dyt_prologue.cu).  Its core kernel, entered alone through
+// dyt_mha_core, also replaces two more TPU kernels of that file:
+// mha_serving_fused (K1, _mha_fused_kernel: raw qkv in, [B, N, C] out) and
+// mha_serving (K15, _mha_kernel: pre-split [B, H, N, hd] q, k, v, with the
+// unfused branch's rounding).  Alone, at B=128, N=197, 12 heads of 64, the
+// core moves 155 MB (0.046 ms at 3.35 TB/s) for 15.3 GFLOP (0.015 ms at
+// the bf16 peak): bytes bound it on paper, mma.sync and one expf per score
+// in practice.  The core reads q, k and v through element strides, so K1
+// and K15 need no transposes around them, and K15 writes [B, N, H, hd]
+// memory that the output projection reads as [B, N, C].
 //
 // What bounds it on an H100.  At ViT-B/16 serving shapes (B=128, N=197,
 // C=768, 12 heads of 64) the sublayer does ~0.12 TFLOP of qkv/proj GEMM and
@@ -38,10 +47,18 @@
 namespace dyt {
 
 // ---------------------------------------------------------------------------
-// attention core on the raw [B, N, 3C] qkv buffer ([q|k|v] x head x hd
-// columns), writing [B, N, C].  Per query row:
+// The attention core, one (sample, head) per block, on q, k and v given by
+// element strides in (batch, head, row) with unit stride along hd: the raw
+// [B, N, 3C] qkv buffer ([q|k|v] x head x hd columns), pre-split
+// [B, H, N, hd] tensors or views of either.  The output has strides of its
+// own: [B, N, C] for the sublayer chain and K1, [B, N, H, hd] memory for
+// K15.  Per query row, in the K1 mode (the TPU kernels' core, K15 = false):
 //   q' = bf16(q * scale);  s = q' . k (fp32);  e = exp(clip(s,-60,80) - 20)
 //   l = sum(e) in fp32;    o = (bf16(e) @ v in fp32) * (1 / l) -> bf16
+// and in the K15 mode (ops/mha_serving.py::mha_serving, the rounding of the
+// unfused XLA branch and of the speed-test forward):
+//   q' = bf16(q * bf16(scale));  p = bf16(e);  l = sum(p) in fp32;
+//   o = (p @ v in fp32) / l (an IEEE division) -> bf16
 
 constexpr int ATT_WARPS = 8;
 
@@ -54,35 +71,50 @@ struct AttnLayout {
   }
 };
 
-// One block per (sample, head).  Each warp owns 16 query rows at a time and
-// walks the keys in chunks of 16: S = Q K^T lands in mma accumulators, the
-// clamped exp turns it in registers into the bf16 A operand of P V, and l
-// accumulates from the fp32 e.  Thread (g = lane/4, t = lane%4) holds rows g
-// and g + 8 of every tile.
-template <int HD>
+// Element strides (batch, head, row) of q, k, v and out.
+struct CoreArgs {
+  const bf16* q;
+  const bf16* k;
+  const bf16* v;
+  bf16* o;
+  long long sq[3], sk[3], sv[3], so[3];
+  int N, H;
+  float scale;
+};
+
+// Each warp owns 16 query rows at a time and walks the keys in chunks of
+// 16: S = Q K^T lands in mma accumulators, the clamped exp turns it in
+// registers into the bf16 A operand of P V, and l accumulates beside it.
+// Thread (g = lane/4, t = lane%4) holds rows g and g + 8 of every tile.
+template <int HD, bool K15>
 __global__ void __launch_bounds__(ATT_WARPS * 32)
-attn_core_kernel(const bf16* __restrict__ qkv, bf16* __restrict__ out, int N,
-                 int H, float scale) {
+attn_core_kernel(const CoreArgs a) {
   constexpr int LDK = AttnLayout<HD>::LDK;
   constexpr int CPR = HD / 8;    // 16-byte chunks per head row
   constexpr int DK = HD / 16;    // k16 steps of Q K^T
   constexpr int OT = HD / 8;     // n8 tiles of the output
   extern __shared__ __align__(128) unsigned char smem_raw[];
+  const int N = a.N;
   const int np = (N + 15) / 16 * 16;
   bf16* Ks = reinterpret_cast<bf16*>(smem_raw);
   bf16* Vs = Ks + np * LDK;
 
-  const int C = H * HD, C3 = 3 * C;
-  const int b = blockIdx.x / H, h = blockIdx.x % H;
-  const bf16* base = qkv + (size_t)b * N * C3;
+  const int b = blockIdx.x / a.H, h = blockIdx.x % a.H;
+  const bf16* qb = a.q + b * a.sq[0] + h * a.sq[1];
+  const bf16* kb = a.k + b * a.sk[0] + h * a.sk[1];
+  const bf16* vb = a.v + b * a.sv[0] + h * a.sv[1];
+  bf16* ob = a.o + b * a.so[0] + h * a.so[1];
+  // K15 takes the scale as XLA does a weak-typed Python float times a bf16
+  // array: rounded to bf16 first
+  const float scale =
+      K15 ? __bfloat162float(__float2bfloat16_rn(a.scale)) : a.scale;
 
   for (int i = threadIdx.x; i < np * CPR; i += blockDim.x) {
     const int r = i / CPR, c = (i % CPR) * 8;
     uint4 kv = make_uint4(0, 0, 0, 0), vv = make_uint4(0, 0, 0, 0);
     if (r < N) {
-      const bf16* row = base + (size_t)r * C3 + h * HD + c;
-      kv = *reinterpret_cast<const uint4*>(row + C);
-      vv = *reinterpret_cast<const uint4*>(row + 2 * C);
+      kv = *reinterpret_cast<const uint4*>(kb + r * a.sk[2] + c);
+      vv = *reinterpret_cast<const uint4*>(vb + r * a.sv[2] + c);
     }
     *reinterpret_cast<uint4*>(Ks + r * LDK + c) = kv;
     *reinterpret_cast<uint4*>(Vs + r * LDK + c) = vv;
@@ -110,7 +142,7 @@ attn_core_kernel(const bf16* __restrict__ qkv, bf16* __restrict__ out, int N,
         const int n = (e & 1) ? n_hi : n_lo;
         const int col = d * 16 + t2 + (e >> 1) * 8;
         float2 q = make_float2(0.f, 0.f);
-        if (n < N) q = load2(base + (size_t)n * C3 + h * HD + col);
+        if (n < N) q = load2(qb + n * a.sq[2] + col);
         qf[d][e] = pack_bf16x2(q.x * scale, q.y * scale);
       }
     }
@@ -136,10 +168,14 @@ attn_core_kernel(const bf16* __restrict__ qkv, bf16* __restrict__ out, int N,
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           const int col = kc * 16 + j * 8 + t2 + (e & 1);
-          s[j][e] = col < N
+          float p = col < N
               ? expf(fminf(fmaxf(s[j][e], -60.f), 80.f) - 20.f) : 0.f;
+          // K15's l sums the bf16 p that the AV product reads; K1's the
+          // fp32 e
+          if constexpr (K15) p = __bfloat162float(__float2bfloat16_rn(p));
+          s[j][e] = p;
         }
-        l_lo += s[j][0] + s[j][1];     // l sums the fp32 e, not bf16(e)
+        l_lo += s[j][0] + s[j][1];
         l_hi += s[j][2] + s[j][3];
       }
       const unsigned pf[4] = {pack_bf16x2(s[0][0], s[0][1]),
@@ -164,34 +200,58 @@ attn_core_kernel(const bf16* __restrict__ qkv, bf16* __restrict__ out, int N,
     const float inv_lo = 1.0f / l_lo, inv_hi = 1.0f / l_hi;
 #pragma unroll
     for (int j = 0; j < OT; ++j) {
-      const int col = h * HD + j * 8 + t2;
-      if (n_lo < N)
-        store2(out + ((size_t)b * N + n_lo) * C + col, o[j][0] * inv_lo,
-               o[j][1] * inv_lo);
-      if (n_hi < N)
-        store2(out + ((size_t)b * N + n_hi) * C + col, o[j][2] * inv_hi,
-               o[j][3] * inv_hi);
+      const int col = j * 8 + t2;
+      if (n_lo < N) {
+        if constexpr (K15)
+          store2(ob + n_lo * a.so[2] + col, __fdiv_rn(o[j][0], l_lo),
+                 __fdiv_rn(o[j][1], l_lo));
+        else
+          store2(ob + n_lo * a.so[2] + col, o[j][0] * inv_lo,
+                 o[j][1] * inv_lo);
+      }
+      if (n_hi < N) {
+        if constexpr (K15)
+          store2(ob + n_hi * a.so[2] + col, __fdiv_rn(o[j][2], l_hi),
+                 __fdiv_rn(o[j][3], l_hi));
+        else
+          store2(ob + n_hi * a.so[2] + col, o[j][2] * inv_hi,
+                 o[j][3] * inv_hi);
+      }
     }
   }
 }
 
-template <int HD>
-static cudaError_t launch_attn_core(const bf16* qkv, bf16* out, int B, int N,
-                                    int H, float scale, cudaStream_t s) {
-  const int smem = AttnLayout<HD>::smem_bytes(N);
+template <int HD, bool K15>
+static cudaError_t launch_attn_core(const CoreArgs& a, int B, cudaStream_t s) {
+  const int smem = AttnLayout<HD>::smem_bytes(a.N);
   cudaError_t err = cudaFuncSetAttribute(
-      attn_core_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      attn_core_kernel<HD, K15>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
   if (err != cudaSuccess) return err;
-  attn_core_kernel<HD><<<B * H, ATT_WARPS * 32, smem, s>>>(qkv, out, N, H,
-                                                           scale);
+  attn_core_kernel<HD, K15><<<B * a.H, ATT_WARPS * 32, smem, s>>>(a);
   return cudaGetLastError();
 }
 
+static cudaError_t attn_core_strided(const CoreArgs& a, int B, int hd,
+                                     bool k15, cudaStream_t s) {
+  if (hd == 64)
+    return k15 ? launch_attn_core<64, true>(a, B, s)
+               : launch_attn_core<64, false>(a, B, s);
+  if (hd == 128)
+    return k15 ? launch_attn_core<128, true>(a, B, s)
+               : launch_attn_core<128, false>(a, B, s);
+  return cudaErrorInvalidValue;
+}
+
+// The K1 mode on the raw qkv buffer [B, N, 3C] -> out [B, N, C].
 static cudaError_t attn_core(const bf16* qkv, bf16* out, int B, int N, int C,
                              int H, float scale, cudaStream_t s) {
-  if (C == 64 * H) return launch_attn_core<64>(qkv, out, B, N, H, scale, s);
-  if (C == 128 * H) return launch_attn_core<128>(qkv, out, B, N, H, scale, s);
-  return cudaErrorInvalidValue;
+  if (H <= 0 || C % H) return cudaErrorInvalidValue;
+  const long long hd = C / H, C3 = 3LL * C, rows = (long long)N * C3;
+  const CoreArgs a{qkv, qkv + C, qkv + 2 * C, out,
+                   {rows, hd, C3}, {rows, hd, C3}, {rows, hd, C3},
+                   {(long long)N * C, hd, C}, N, H, scale};
+  return attn_core_strided(a, B, (int)hd, false, s);
 }
 
 template <typename TX>
@@ -236,6 +296,27 @@ int dyt_attn_core(const void* qkv, void* out, int B, int N, int C, int H,
   return dyt::attn_core(static_cast<const dyt::bf16*>(qkv),
                         static_cast<dyt::bf16*>(out), B, N, C, H, scale,
                         static_cast<cudaStream_t>(stream));
+}
+
+// The attention core on strided bf16 q, k, v [B, H, N, hd] -> out (K1 with
+// k15 = 0, K15 with k15 = 1).  ``strides`` holds 12 element strides: batch,
+// head and row of q, k, v and out, in that order; hd has unit stride, and
+// every row starts on 16 bytes.  hd 64 or 128.  Returns a cudaError_t value.
+int dyt_mha_core(const void* q, const void* k, const void* v, void* out,
+                 const long long* strides, int B, int N, int H, int hd,
+                 float scale, int k15, void* stream) {
+  using dyt::bf16;
+  dyt::CoreArgs a{static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+                  static_cast<const bf16*>(v), static_cast<bf16*>(out),
+                  {}, {}, {}, {}, N, H, scale};
+  for (int i = 0; i < 3; ++i) {
+    a.sq[i] = strides[i];
+    a.sk[i] = strides[3 + i];
+    a.sv[i] = strides[6 + i];
+    a.so[i] = strides[9 + i];
+  }
+  return dyt::attn_core_strided(a, B, hd, k15 != 0,
+                                static_cast<cudaStream_t>(stream));
 }
 
 // x, out: [B, N, C] in the residual dtype (x_f32 selects fp32 over bf16);

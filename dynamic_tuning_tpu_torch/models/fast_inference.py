@@ -11,8 +11,9 @@ affines folded into the qkv and fc1 weights, bf16 weight copies, fp32 biases.
 
 * the patch embedding as one matmul of (ph, pw, c)-ordered patch rows;
 * a bf16 residual stream;
-* attention with the LN folded into the qkv matmul and the clamped no-max
-  softmax in plain tensor code (cuBLAS on the card), ``l`` summed over the
+* attention with the LN folded into the qkv matmul, then K15
+  (``ops/mha_serving.mha_serving``) on views of the qkv buffer: q times
+  the bf16-rounded scale, the clamped no-max softmax, ``l`` summed over the
   bf16-rounded exponentials;
 * the router on bf16 weights, the MLP on every row (``mask``, ``dense``) or
   on the top-K rows per image (``dispatch``, ``ops/dispatch.py``);
@@ -37,18 +38,11 @@ from dynamic_tuning_tpu_torch.config import (ModelConfig, SelectConfig,
                                              TuningConfig)
 from dynamic_tuning_tpu_torch.ops import dispatch as D
 from dynamic_tuning_tpu_torch.ops import fused_mlp as fm
+from dynamic_tuning_tpu_torch.ops import mha_serving as ms
 from dynamic_tuning_tpu_torch.ops.quant import patchify
 
 BF, F32 = torch.bfloat16, torch.float32
 LN_EPS = 1e-6
-
-
-def _bmm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """Batched a [L, M, K] @ b [L, K, N] on bf16 values -> fp32, summed in
-    fp32."""
-    if a.device.type == "cuda":
-        return torch.bmm(a, b, out_dtype=F32)
-    return torch.matmul(a.float(), b.float())
 
 
 def _normalized_bf16(x: torch.Tensor) -> torch.Tensor:
@@ -133,19 +127,13 @@ def serving_params(model) -> Dict:
 
 def _attention(x: torch.Tensor, p: Dict, heads: int) -> torch.Tensor:
     B, N, C = x.shape
-    hd = C // heads
     qkv = _dense(_normalized_bf16(x), *p["qkv"]).to(BF)
-    q, k, v = (t.reshape(B * heads, N, hd) for t in
-               qkv.reshape(B, N, 3, heads, hd).permute(2, 0, 3, 1, 4))
-    q = q * hd ** -0.5              # computed in fp32, rounded to bf16
-    s = _bmm_f32(q, k.transpose(1, 2))                   # [B * H, N, N]
-    # the clamped no-max softmax with deferred normalization; l sums the
-    # bf16-rounded exponentials that the AV product reads
-    expw = torch.exp(s.clamp_(-60.0, 80.0) - 20.0).to(BF)
-    out = _bmm_f32(expw, v)
-    l = expw.sum(-1, keepdim=True, dtype=F32)
-    out = (out / l).to(BF).reshape(B, heads, N, hd).transpose(1, 2)
-    out = out.reshape(B, N, C)
+    # K15 on [B, H, N, hd] views of the qkv buffer (no copies): q times the
+    # bf16-rounded scale, the clamped no-max softmax with l over the
+    # bf16-rounded exponentials, one division by l; its [B, N, H, hd]
+    # output is the projection's [B, N, C] input as it lies
+    q, k, v = qkv.view(B, N, 3, heads, C // heads).permute(2, 0, 3, 1, 4)
+    out = ms.mha_serving(q, k, v).transpose(1, 2).reshape(B, N, C)
     return _dense(out, *p["proj"]).to(BF)
 
 

@@ -21,8 +21,12 @@ parameters.  A block with ``moe_experts > 1`` takes the MoE prologues
 instead of K3/K6: K7 (bf16) or K8 (int8).  A block with ``window_size``
 (the segmentation backbone) runs the module path, as the JAX Block does,
 and its Attention takes K9 (``ms.mha_windowed_fused``) where the JAX
-Attention would.  Training, adapter in/out LayerNorm, LayerScale and BEiT
-q/v biases belong to later slices and raise NotImplementedError.
+Attention would.  So does a block with LayerScale (``init_values``, the
+parameters ``gamma_1``/``gamma_2``) or BEiT q/v biases (``qv_bias_only``,
+the parameters ``attn.q_bias``/``attn.v_bias``), whose Attention takes K1
+(``ms.mha_serving_fused``) with no window at N <= 512.  Training and the
+adapter's in/out LayerNorm belong to later slices and raise
+NotImplementedError.
 """
 
 from __future__ import annotations
@@ -211,26 +215,34 @@ def _rel_pos_bias_from_table(table: torch.Tensor, wh: int, ww: int, *,
 
 
 class Attention(nn.Module):
-    """Multi-head self-attention.  Without ``window_size``: the module path
-    (the JAX Attention's unfused branches), the serving clamp form when
-    deterministic with no attention dropout, else the max-subtracted
-    softmax.
+    """Multi-head self-attention, on the JAX Attention's branches: with no
+    window, K1 (``ms.mha_serving_fused``) where the fused-kernel predicate
+    holds and N <= 512; otherwise the unfused branch, the serving clamp form
+    when there is no attention dropout, else the max-subtracted softmax.
 
     ``window_size=(wh, ww)`` adds the learnable BEiT-style relative-position
     bias over the patch grid + CLS (the fp32 parameter
     ``relative_position_bias_table`` [(2wh-1)(2ww-1)+3, H]).  Where the JAX
     Attention takes its windowed kernel (the fused-kernel predicate and
     N = wh*ww + 1) this one takes K9, with the table rounded to bf16 before
-    the bias is built; otherwise the unfused branch adds the fp32 bias."""
+    the bias is built; otherwise the unfused branch adds the fp32 bias.
+
+    ``qv_bias_only`` (BEiT): the qkv projection has no bias; fp32 ``q_bias``
+    and ``v_bias`` [C] (zeros at init), with k's fixed at zero, are rounded
+    to the compute dtype and added to the rounded qkv."""
 
     def __init__(self, dim: int, num_heads: int, generator: torch.Generator,
                  *, qkv_bias: bool = True, attn_drop: float = 0.0,
                  window_size: Optional[Tuple[int, int]] = None,
-                 dtype=torch.bfloat16):
+                 qv_bias_only: bool = False, dtype=torch.bfloat16):
         super().__init__()
         self.num_heads = num_heads
         self.attn_drop = attn_drop
-        self.qkv = _linear(dim, 3 * dim, generator, bias=qkv_bias)
+        self.qkv = _linear(dim, 3 * dim, generator,
+                           bias=qkv_bias and not qv_bias_only)
+        if qkv_bias and qv_bias_only:
+            self.q_bias = nn.Parameter(torch.zeros(dim))
+            self.v_bias = nn.Parameter(torch.zeros(dim))
         self.proj = _linear(dim, dim, generator)
         self.window_size = (None if window_size is None
                             else tuple(window_size))
@@ -274,9 +286,17 @@ class Attention(nn.Module):
         hd = C // self.num_heads
         dt = self.dtype
         qkv = self._dense(x, self.qkv)
+        if hasattr(self, "q_bias"):
+            # two roundings, as the JAX module: the Dense output, then the
+            # add of the bias rounded to the compute dtype
+            qkv = qkv + torch.cat([self.q_bias, torch.zeros_like(self.q_bias),
+                                   self.v_bias]).to(dt)
         win = self.window_size
-        if (win is not None and win[0] * win[1] + 1 == N
-                and _attention_fusable(self.attn_drop, self.num_heads, hd)):
+        fusable = _attention_fusable(self.attn_drop, self.num_heads, hd)
+        if fusable and win is None and N <= 512:
+            out = ms.mha_serving_fused(qkv, heads=self.num_heads)      # K1
+            return self._dense(out, self.proj)
+        if fusable and win is not None and win[0] * win[1] + 1 == N:
             # K9; the bias is built from the bf16-rounded table, with rows
             # padded for the kernel's 16-byte reads
             bias = self._bias(torch.bfloat16, ms.bias_row_stride(N))
@@ -284,7 +304,10 @@ class Attention(nn.Module):
             return self._dense(out, self.proj)
         q, k, v = qkv.reshape(B, N, 3, self.num_heads, hd).permute(
             2, 0, 3, 1, 4)
-        s = torch.matmul((q * hd ** -0.5).float(), k.float().transpose(-1, -2))
+        # q times the scale rounded to q's dtype, as XLA applies the JAX
+        # module's Python-float scale
+        s = torch.matmul((q * ms.weak_scale(q, hd)).float(),
+                         k.float().transpose(-1, -2))
         if win is not None:
             s = s + self._bias(torch.float32)
         if self.attn_drop == 0.0:
@@ -470,13 +493,6 @@ class Block(nn.Module):
                  select_cfg: SelectConfig = SelectConfig(),
                  dtype=torch.bfloat16):
         super().__init__()
-        if init_values is not None:
-            raise NotImplementedError("LayerScale (the BEiT backbone) is not "
-                                      "ported yet: ROADMAP.md, queue 1 item 8")
-        if qv_bias_only:
-            raise NotImplementedError("BEiT q/v biases (the BEiT backbone) "
-                                      "are not ported yet: ROADMAP.md, queue "
-                                      "1 item 8")
         if quant not in ("none", "int8", "int8_attn"):
             raise ValueError(f"quant={quant!r}: none, int8 or int8_attn")
         self.quant = quant
@@ -489,7 +505,12 @@ class Block(nn.Module):
         self.window_size = window_size
         self.attn = Attention(dim, num_heads, generator, qkv_bias=qkv_bias,
                               attn_drop=attn_drop, window_size=window_size,
-                              dtype=dtype)
+                              qv_bias_only=qv_bias_only, dtype=dtype)
+        # LayerScale (BEiT): fp32 [C], constant init_values at init
+        self.init_values, self.qv_bias_only = init_values, qv_bias_only
+        if init_values is not None:
+            self.gamma_1 = nn.Parameter(torch.full((dim,), init_values))
+            self.gamma_2 = nn.Parameter(torch.full((dim,), init_values))
         self.drop_path = DropPath(drop_path)
         self.norm2 = nn.LayerNorm(dim, eps=LN_EPS)
         self.mlp = Mlp(dim, int(dim * mlp_ratio), generator,
@@ -500,23 +521,37 @@ class Block(nn.Module):
         if tuning.ffn_adapt:
             self.adaptmlp = make_adapter(tuning, dim, generator, dtype=dtype)
 
+    def _layer_scale(self, gamma: str, x: torch.Tensor) -> torch.Tensor:
+        """``x * gamma`` with gamma rounded to x's dtype first; x without
+        LayerScale."""
+        if self.init_values is None:
+            return x
+        return x * getattr(self, gamma).to(x.dtype)
+
     def _mlp_rows(self, rows: torch.Tensor) -> torch.Tensor:
+        """LN + MLP of ``rows`` (K4 with int8), LayerScale'd: the JAX
+        Block's ``mlp_rows``, before any gate."""
         if self.quant != "none":
-            return qt.q8_ln_mlp(rows, self.norm2.weight.detach(),
-                                self.norm2.bias.detach(),
-                                *self.mlp.q8_weights(),
-                                gelu_approx=self.mlp.gelu == "tanh")
-        return self.mlp(_layer_norm(rows, self.norm2).to(self.dtype))
+            out = qt.q8_ln_mlp(rows, self.norm2.weight.detach(),
+                               self.norm2.bias.detach(),
+                               *self.mlp.q8_weights(),
+                               gelu_approx=self.mlp.gelu == "tanh")
+        else:
+            out = self.mlp(_layer_norm(rows, self.norm2).to(self.dtype))
+        return self._layer_scale("gamma_2", out)
 
     def forward(self, x: torch.Tensor, complete_model: bool = False,
                 dispatch: bool = False
                 ) -> Tuple[torch.Tensor, Optional[torch.Tensor],
                            Optional[torch.Tensor]]:
         B, N, C = x.shape
-        # a windowed block never fuses its sublayer: its Attention takes K9
+        # a windowed block never fuses its sublayer (its Attention takes
+        # K9), nor does one with LayerScale or q/v biases (its Attention
+        # takes K1)
         fuse = (_attention_fusable(self.attn_drop, self.num_heads,
                                    C // self.num_heads) and N <= 512
-                and self.window_size is None)
+                and self.window_size is None and self.init_values is None
+                and not self.qv_bias_only)
         with_select = self.select and not complete_model
         thr = self.select_cfg.threshold
         gate = logits = adapt_x = None
@@ -571,7 +606,7 @@ class Block(nn.Module):
                                                   heads=self.num_heads)
             else:
                 h = self.attn(_layer_norm(x, self.norm1).to(self.dtype))
-                x = x + self.drop_path(h)
+                x = x + self.drop_path(self._layer_scale("gamma_1", h))
             if with_select:
                 gate, logits = self.mlp_token_select(x)
             if self.tuning.ffn_adapt:

@@ -15,8 +15,13 @@ simpleFPN pyramid.
 Images go in as NHWC ``[B, H, W, 3]`` and features come out NHWC in fp32,
 as in the JAX package.  The patch grid, and with it the position embedding
 and the windows, is fixed at construction from ``cfg.img_size`` (the crop).
-The BEiT variant of the JAX package (q/v-only biases, LayerScale, no absolute
-pos-embed) is not ported yet.
+
+The JAX package's knobs are here too: ``use_rel_pos_bias=False`` drops the
+windows (the blocks' Attention then takes K1, ``mha_serving_fused``, at
+N <= 512), ``use_abs_pos_embed=False`` the absolute position embedding,
+``init_values`` adds LayerScale and ``qv_bias_only`` BEiT's q/v-only
+attention biases; ``beit_backbone`` sets all four as the reference's BEiT
+backbone does.
 """
 
 from __future__ import annotations
@@ -63,12 +68,15 @@ class SegVisionTransformer(nn.Module):
 
     def __init__(self, cfg: ModelConfig, tuning: TuningConfig = TuningConfig(),
                  select: SelectConfig = SelectConfig(), *,
-                 dtype=torch.bfloat16,
+                 use_rel_pos_bias: bool = True,
+                 use_abs_pos_embed: bool = True,
+                 init_values: Optional[float] = None,
+                 qv_bias_only: bool = False, dtype=torch.bfloat16,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         if cfg.quant != "none":
             raise NotImplementedError("int8 segmentation is not ported yet "
-                                      "(ROADMAP.md, queue 1 item 8)")
+                                      "(ROADMAP.md, queue 1 item 5)")
         if generator is None:
             generator = torch.Generator().manual_seed(0)
         self.cfg, self.select_cfg = cfg, select
@@ -82,15 +90,18 @@ class SegVisionTransformer(nn.Module):
                                       generator, dtype=dtype)
         self.cls_token = nn.Parameter(
             torch.randn(1, 1, C, generator=generator) * 1e-6)
-        self.pos_embed = nn.Parameter(
-            torch.randn(1, hp * wp + 1, C, generator=generator) * 0.02)
+        if use_abs_pos_embed:
+            self.pos_embed = nn.Parameter(
+                torch.randn(1, hp * wp + 1, C, generator=generator) * 0.02)
         self.blocks = nn.ModuleList([
             Block(C, cfg.num_heads, generator, mlp_ratio=cfg.mlp_ratio,
                   qkv_bias=cfg.qkv_bias, attn_drop=cfg.attn_drop_rate,
                   drop_path=cfg.drop_path_rate * i / max(cfg.depth - 1, 1),
                   select=select.open and i >= select.keep_layers,
-                  window_size=(hp, wp), gelu_approx=cfg.gelu_approx,
-                  tuning=tuning, select_cfg=select, dtype=dtype)
+                  window_size=(hp, wp) if use_rel_pos_bias else None,
+                  gelu_approx=cfg.gelu_approx, init_values=init_values,
+                  qv_bias_only=qv_bias_only, tuning=tuning,
+                  select_cfg=select, dtype=dtype)
             for i in range(cfg.depth)])
         self.fpn1_deconv1 = _deconv(C, generator)
         self.fpn1_deconv2 = _deconv(C, generator)
@@ -111,7 +122,7 @@ class SegVisionTransformer(nn.Module):
                            Dict[str, Optional[torch.Tensor]]]:
         if training:
             raise NotImplementedError("segmentation training is not ported "
-                                      "yet (ROADMAP.md, queue 1 item 8)")
+                                      "yet (ROADMAP.md, queue 1 item 5)")
         cfg = self.cfg
         B, H, W, _ = x.shape
         hp, wp = H // cfg.patch_size, W // cfg.patch_size
@@ -120,7 +131,9 @@ class SegVisionTransformer(nn.Module):
                              f"this backbone was built for {self.grid}")
         x = self.patch_embed(x).float()
         x = torch.cat([self.cls_token.expand(B, -1, -1), x], dim=1)
-        x = (x + self.pos_embed).to(self.residual_dtype)
+        if hasattr(self, "pos_embed"):
+            x = x + self.pos_embed
+        x = x.to(self.residual_dtype)
 
         feats: List[torch.Tensor] = []
         gates, logits_all = [], []
@@ -152,3 +165,17 @@ class SegVisionTransformer(nn.Module):
                    loss=loss)
         return tuple(f.float().permute(0, 2, 3, 1)
                      for f in (f1, f2, f3, f4)), aux
+
+
+def beit_backbone(cfg: ModelConfig, tuning: TuningConfig = TuningConfig(),
+                  select: SelectConfig = SelectConfig(), *,
+                  dtype=torch.bfloat16,
+                  generator: Optional[torch.Generator] = None
+                  ) -> SegVisionTransformer:
+    """The BEiT-style segmentation backbone (reference
+    dense_tasks/Segmentation/backbone/beit.py): rel-pos-bias attention with
+    q/v-only biases, LayerScale (init 0.1), no absolute pos-embed."""
+    return SegVisionTransformer(cfg, tuning, select, use_rel_pos_bias=True,
+                                use_abs_pos_embed=False, init_values=0.1,
+                                qv_bias_only=True, dtype=dtype,
+                                generator=generator)

@@ -217,7 +217,7 @@ class DyTSegmentor(nn.Module):
         if cfg.quant != "none":
             raise NotImplementedError(
                 "int8 segmentation (the UPerHead int8 convs) is not ported "
-                "yet: ROADMAP.md, queue 1 item 8")
+                "yet: ROADMAP.md, queue 1 item 5")
         if generator is None:
             generator = torch.Generator().manual_seed(0)
         C = cfg.embed_dim

@@ -51,7 +51,17 @@ _SIGNATURES = {
     "dyt_mha_windowed": [_P, _P, _P, _I, _I, _I, _I, ctypes.c_longlong, _I,
                          _F, _P],
     "dyt_fused_ln_mlp": [_P, _I] + [_P] * 10 + [_I, _I, _I, _I, _P],
+    "dyt_mha_core": [_P] * 5 + [_I, _I, _I, _I, _F, _I, _P],
+    "dyt_mha_softmax": [_P] * 6 + [ctypes.c_longlong] * 2
+                       + [_I, _I, _I, _I, _F, _I, _P],
 }
+
+
+def strides_arg(*tensors) -> ctypes.Array:
+    """The (batch, head, row) element strides of each [B, H, N, hd] tensor,
+    in order, as the C array the strided attention entry points take."""
+    vals = [st for t in tensors for st in t.stride()[:3]]
+    return (ctypes.c_longlong * len(vals))(*vals)
 
 
 def _nvcc() -> str:

@@ -13,7 +13,14 @@ Three kernels, each a wrapper with its plain PyTorch version beside it:
   the router logits -- every DyT block with ``moe_experts > 1``;
 * ``mha_windowed_fused`` (TPU kernel K9): the attention core on raw qkv
   with an additive ``[H, N, N]`` relative-position bias, rounded to bf16 --
-  the windowed attention of every segmentation-backbone block.
+  the windowed attention of every segmentation-backbone block;
+* ``mha_serving_fused`` (TPU kernel K1): the core alone on raw qkv -- the
+  ``Attention`` of a block that does not fuse its sublayer (LayerScale or
+  BEiT q/v biases) at N <= 512 with no window;
+* ``mha_serving`` (TPU kernel K15): the core on pre-split ``[B, H, N, hd]``
+  q, k, v with the rounding of the unfused XLA branch (the scale rounded to
+  q's dtype before ``q * scale``, ``l`` summed over the rounded ``p``, a
+  true division by ``l``) -- the attention of the speed-test forward.
 
 A wrapper given CPU tensors computes the plain version.  Given CUDA tensors it
 launches the hand-written kernels of ``csrc/`` (built by ``_build`` on first
@@ -524,8 +531,147 @@ def mha_windowed_fused(qkv: torch.Tensor, bias: torch.Tensor, *,
 mha_windowed_fused.launches = 0
 
 
+# --- K1 and K15: the core alone ------------------------------------------------
+
+def weak_scale(t: torch.Tensor, hd: int) -> torch.Tensor:
+    """``hd ** -0.5`` as XLA applies a weak-typed Python float to an array:
+    rounded to the array's dtype first (bf16 at hd = 128 rounds it; 0.125
+    at hd = 64 is exact in any dtype)."""
+    return torch.tensor(hd ** -0.5, dtype=t.dtype, device=t.device)
+
+
+def mha_serving_plain(q: torch.Tensor, k: torch.Tensor,
+                      v: torch.Tensor) -> torch.Tensor:
+    """Plain version of K15: q, k, v ``[B, H, N, hd]`` -> ``[B, H, N, hd]``
+    in q's dtype.  ``q * scale`` in q's dtype, fp32 scores, ``p =
+    exp(clip(s, -60, 80) - 20)`` rounded to q's dtype, ``l`` the sum of the
+    rounded ``p``, ``o = (p @ v) / l``; scores, ``l`` and the AV products
+    summed in float64 and rounded once to fp32."""
+    dtype = q.dtype
+    s = _mm64(q * weak_scale(q, q.shape[-1]), k)
+    p = torch.exp(s.clamp(-60.0, 80.0) - 20.0).to(dtype)
+    l = p.double().sum(dim=-1, keepdim=True).float()
+    return (_mm64(p, v.transpose(-1, -2)) / l).to(dtype)
+
+
+def mha_fused_reference(qkv: torch.Tensor, *, heads: int) -> torch.Tensor:
+    """The plain path K1 replaces in the JAX package: raw qkv ``[B, N, 3C]``
+    transposed to q, k, v, K15's plain core, transposed back to
+    ``[B, N, C]``."""
+    B, N, C3 = qkv.shape
+    q, k, v = qkv.reshape(B, N, 3, heads, C3 // 3 // heads).permute(
+        2, 0, 3, 1, 4)
+    return mha_serving_plain(q, k, v).transpose(1, 2).reshape(B, N, C3 // 3)
+
+
+def _check_core_operand(t: torch.Tensor, name: str, device) -> None:
+    """Raise unless ``t`` is a bf16 ``[B, H, N, hd]`` tensor on ``device``
+    that the strided core reads: unit stride along hd, every other stride a
+    multiple of 8 elements, data on 16 bytes."""
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, q on {device}")
+    if t.dtype != torch.bfloat16:
+        raise TypeError(f"{name} is {t.dtype}, want torch.bfloat16")
+    if (t.stride(-1) != 1 or any(st % 8 for st in t.stride()[:3])
+            or t.data_ptr() % 16):
+        raise ValueError(f"{name} (strides {t.stride()}) must have unit "
+                         "stride along hd and rows on 16 bytes")
+
+
+def _launch_core(q, k, v, out, *, k15: bool) -> None:
+    """The strided core kernel on q, k, v [B, H, N, hd] into ``out``."""
+    B, H, N, hd = q.shape
+    if hd not in (64, 128):
+        raise ValueError(f"head_dim {hd} not supported (64 or 128)")
+    lib = _build.library()
+    smem = lib.dyt_attn_core_smem_bytes(N, hd)
+    if smem > SMEM_PER_BLOCK:
+        raise ValueError(f"N={N}, head_dim={hd} needs {smem} B of shared "
+                         f"memory per block (limit {SMEM_PER_BLOCK})")
+    with torch.cuda.device(q.device):
+        err = lib.dyt_mha_core(
+            _ptr(q), _ptr(k), _ptr(v), _ptr(out),
+            _build.strides_arg(q, k, v, out), B, N, H, hd, hd ** -0.5,
+            int(k15), torch.cuda.current_stream(q.device).cuda_stream)
+        _build.check(lib, err, "attention core kernel")
+
+
+def _cuda_only(t: torch.Tensor, name: str) -> None:
+    if t.device.type != "cuda":
+        raise ValueError(f"{name} is on {t.device}: the kernels take CPU "
+                         "tensors (plain version) or CUDA tensors")
+
+
+def mha_serving(q: torch.Tensor, k: torch.Tensor,
+                v: torch.Tensor) -> torch.Tensor:
+    """K15: q, k, v ``[B, H, N, hd]`` -> ``[B, H, N, hd]`` in q's dtype.
+
+    On CUDA: bf16, head_dim 64 or 128, any views with unit stride along hd
+    and rows on 16 bytes (such as the q, k, v views of a raw ``[B, N, 3C]``
+    qkv buffer).  The output is allocated ``[B, N, H, hd]`` and returned as
+    its ``[B, H, N, hd]`` view, so ``.transpose(1, 2).reshape(B, N, C)``
+    copies nothing."""
+    if q.device.type == "cpu":
+        return mha_serving_plain(q, k, v)
+    _cuda_only(q, "q")
+    if q.dim() != 4:
+        raise ValueError(f"q must be [B, H, N, hd], got {tuple(q.shape)}")
+    for name, t in (("k", k), ("v", v)):
+        if t.shape != q.shape:
+            raise ValueError(f"{name} has shape {tuple(t.shape)}, q "
+                             f"{tuple(q.shape)}")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        _check_core_operand(t, name, q.device)
+    B, H, N, hd = q.shape
+    out = torch.empty((B, N, H, hd), dtype=torch.bfloat16,
+                      device=q.device).transpose(1, 2)
+    _launch_core(q, k, v, out, k15=True)
+    mha_serving.launches += 1
+    return out
+
+
+mha_serving.launches = 0
+
+
+def mha_serving_fused(qkv: torch.Tensor, *, heads: int,
+                      group: int = 2) -> torch.Tensor:
+    """K1: raw qkv ``[B, N, 3C]`` -> ``[B, N, C]`` in qkv's dtype.
+
+    ``group`` is the TPU kernel's number of heads per matmul pair; its
+    contract (``group`` divides ``heads``, ``group * hd`` a multiple of 128)
+    raises ValueError here too, and one kernel runs whatever the group.  On
+    CUDA qkv must be bf16 and contiguous, head_dim 64 or 128."""
+    if qkv.dim() != 3 or qkv.shape[-1] % 3:
+        raise ValueError(f"qkv must be [B, N, 3C], got {tuple(qkv.shape)}")
+    B, N, C3 = qkv.shape
+    C = C3 // 3
+    hd = C // heads
+    if heads % group or hd * heads != C:
+        raise ValueError(f"heads={heads}, group={group}, C={C}: group must "
+                         "divide heads and heads divide C")
+    if (group * hd) % 128:
+        raise ValueError(f"group * head_dim = {group * hd} must be a "
+                         "multiple of 128")
+    if qkv.device.type == "cpu":
+        return attn_core_pairs(qkv, heads=heads)
+    _cuda_only(qkv, "qkv")
+    _require(qkv, "qkv", (B, N, C3), (torch.bfloat16,), qkv.device)
+    q, k, v = qkv.view(B, N, 3, heads, hd).permute(2, 0, 3, 1, 4)
+    out = torch.empty((B, N, C), dtype=torch.bfloat16, device=qkv.device)
+    _check_core_operand(q, "qkv", qkv.device)
+    _launch_core(q, k, v, out.view(B, N, heads, hd).transpose(1, 2),
+                 k15=False)
+    mha_serving_fused.launches += 1
+    return out
+
+
+mha_serving_fused.launches = 0
+
+
 def reset_launch_counts() -> None:
     attention_sublayer_serving.launches = 0
     dyt_prologue_serving.launches = 0
     dyt_prologue_serving_moe.launches = 0
     mha_windowed_fused.launches = 0
+    mha_serving_fused.launches = 0
+    mha_serving.launches = 0

@@ -90,7 +90,7 @@ def build_runner(args, log=print) -> SegRunner:
 def main(args):
     if not args.eval:
         raise NotImplementedError("segmentation training is not ported yet "
-                                  "(ROADMAP.md, queue 1 item 8); pass --eval")
+                                  "(ROADMAP.md, queue 1 item 5); pass --eval")
     if args.config and not args.config.endswith("our_vit.py"):
         logging.getLogger("dynamic_tuning_tpu_torch").warning(
             "config file %r is NOT read: the built-in defaults are "

@@ -104,4 +104,4 @@ class SegRunner:
 
     def run(self):
         raise NotImplementedError("segmentation training is not ported yet "
-                                  "(ROADMAP.md, queue 1 item 8); use --eval")
+                                  "(ROADMAP.md, queue 1 item 5); use --eval")

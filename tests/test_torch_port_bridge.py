@@ -90,8 +90,9 @@ def test_learnable_adapter_scale_crosses_the_bridge():
 
 
 def test_unknown_flax_param_raises():
+    # the video model's attentive pooling is not ported
     with pytest.raises(ValueError, match="no timm name"):
-        flax_path_to_timm(("blocks_0", "attn", "q_bias"))
+        flax_path_to_timm(("attentive_blocks", "cross_attn", "q_bias"))
 
 
 def _timm_sd(classes=10, seed=0):

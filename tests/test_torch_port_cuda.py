@@ -549,7 +549,9 @@ def test_fast_forward_launches_only_k11():
                                               tuning=tuning, select=sel,
                                               mode=mode, use_kernel=True)
         torch.cuda.synchronize()
+        # K11 for the MLP, K15 for the attention, once per block
         assert fm.fused_ln_mlp.launches == 2
+        assert ms.mha_serving.launches == 2
         assert (ms.dyt_prologue_serving.launches,
                 qt.q8_ln_mlp.launches) == (0, 0)
         assert torch.isfinite(logits).all()
@@ -557,3 +559,174 @@ def test_fast_forward_launches_only_k11():
         fast.fast_vit_forward(params, x, cfg=mc, tuning=tuning, select=sel,
                               mode=mode, use_kernel=False)
         assert fm.fused_ln_mlp.launches == 2
+        assert ms.mha_serving.launches == 4
+
+
+# --- the attention cores K1 and K15, the softmax kernel of K13 and K14 -------
+#
+# Tolerance as for the attention core: kernel and plain version round at
+# the same points (K1: bf16 q', bf16 e, one rounding of the output; K15:
+# bf16 q' with the bf16 scale, bf16 p, one rounding; K13/K14: bf16 q, k, v
+# and p, the input dtype out); only the order of the fp32 score, max, l and
+# AV sums differs.  K13/K14 normalise p before rounding it, so an fp32 p on
+# a bf16 boundary may round the other way in either; fp32 outputs are held
+# to the same two bf16 ulps.
+
+def core_qkv(B, N, H, hd=64, *, seed=15):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    return torch.randn((B, N, 3 * H * hd), generator=g, device="cuda").to(BF)
+
+
+CORE_SHAPES = [(128, 197, 12, 64),       # ViT-B/16 serving
+               (3, 19, 2, 64),           # ragged tokens
+               (2, 50, 2, 128)]          # head_dim 128
+
+
+@pytest.mark.parametrize("B,N,H,hd", CORE_SHAPES)
+def test_mha_serving_fused_kernel(B, N, H, hd):
+    qkv = core_qkv(B, N, H, hd)
+    before = ms.mha_serving_fused.launches
+    got = ms.mha_serving_fused(qkv, heads=H)
+    torch.cuda.synchronize()
+    assert ms.mha_serving_fused.launches == before + 1
+    assert got.dtype == BF and got.shape == (B, N, H * hd)
+    bf16_close(got, ms.attn_core_pairs(qkv, heads=H), "K1")
+
+
+@pytest.mark.parametrize("layout", ["contiguous", "views"])
+@pytest.mark.parametrize("B,N,H,hd", CORE_SHAPES)
+def test_mha_serving_kernel(B, N, H, hd, layout):
+    """K15 on pre-split tensors and on views of the raw qkv buffer; its
+    output is [B, N, H, hd] memory."""
+    q, k, v = core_qkv(B, N, H, hd, seed=16).view(B, N, 3, H, hd).permute(
+        2, 0, 3, 1, 4)
+    if layout == "contiguous":
+        q, k, v = (t.contiguous() for t in (q, k, v))
+    before = ms.mha_serving.launches
+    got = ms.mha_serving(q, k, v)
+    torch.cuda.synchronize()
+    assert ms.mha_serving.launches == before + 1
+    assert got.shape == (B, H, N, hd) and got.transpose(1, 2).is_contiguous()
+    bf16_close(got, ms.mha_serving_plain(q, k, v), "K15")
+
+
+def test_k15_and_k1_round_differently():
+    """At head dim 128 the two modes differ: K15's scale is rounded to bf16
+    and its l sums the rounded p."""
+    qkv = core_qkv(2, 50, 2, 128, seed=17)
+    q, k, v = qkv.view(2, 50, 3, 2, 128).permute(2, 0, 3, 1, 4)
+    a = ms.mha_serving(q, k, v).transpose(1, 2).reshape(2, 50, 256)
+    b = ms.mha_serving_fused(qkv, heads=2)
+    assert not torch.equal(a, b)
+
+
+@pytest.mark.parametrize("xdtype", [BF, torch.float32])
+@pytest.mark.parametrize("B,H,N,hd,with_bias", [
+    (128, 12, 197, 64, False),            # the speed-test shape
+    (1, 12, 1025, 64, True),              # the seg shape, fp32 rel-pos bias
+    (2, 3, 37, 128, True),                # odd N: bias rows on 4 bytes
+    (2, 2, 5, 64, False)])                # fewer keys than a 16-key chunk
+def test_flash_attention_kernel(B, H, N, hd, with_bias, xdtype):
+    from dynamic_tuning_tpu_torch.ops import flash_attention as fa
+
+    g = torch.Generator(device="cuda").manual_seed(18)
+    q, k, v = (torch.randn((B, H, N, hd), generator=g, device="cuda")
+               .to(xdtype) for _ in range(3))
+    bias = (torch.randn((H, N, N), generator=g, device="cuda")
+            if with_bias else None)
+    before = fa.flash_attention.launches
+    got = fa.flash_attention(q, k, v, bias)
+    torch.cuda.synchronize()
+    assert fa.flash_attention.launches == before + 1
+    assert got.dtype == xdtype and got.shape == q.shape
+    bf16_close(got, fa.flash_attention_plain(q, k, v, bias), "K13")
+
+
+@pytest.mark.parametrize("xdtype", [BF, torch.float32])
+@pytest.mark.parametrize("B,N,C,H", [(128, 197, 768, 12), (2, 64, 512, 4)])
+def test_packed_attention_kernel(B, N, C, H, xdtype):
+    from dynamic_tuning_tpu_torch.ops import packed_attention as pa
+
+    qkv = core_qkv(B, N, H, C // H, seed=19).to(xdtype)
+    before = pa.packed_attention.launches
+    got = pa.packed_attention(qkv, num_heads=H)
+    torch.cuda.synchronize()
+    assert pa.packed_attention.launches == before + 1
+    assert got.dtype == xdtype and got.shape == (B, N, C)
+    bf16_close(got, pa.packed_attention_plain(qkv, H), "K14")
+
+
+def test_attention_wrappers_raise_on_unsupported_input():
+    from dynamic_tuning_tpu_torch.ops import flash_attention as fa
+    from dynamic_tuning_tpu_torch.ops import packed_attention as pa
+
+    qkv = core_qkv(1, 17, 2)
+    q, k, v = qkv.view(1, 17, 3, 2, 64).permute(2, 0, 3, 1, 4)
+    # K1: the group contract, dtype, layout, head dim
+    with pytest.raises(ValueError, match="divide"):
+        ms.mha_serving_fused(qkv, heads=2, group=4)
+    with pytest.raises(TypeError):
+        ms.mha_serving_fused(qkv.float(), heads=2)
+    with pytest.raises(ValueError, match="contiguous"):
+        ms.mha_serving_fused(core_qkv(17, 2, 2).transpose(0, 1), heads=2)
+    with pytest.raises(ValueError, match="head_dim"):
+        ms.mha_serving_fused(core_qkv(1, 17, 2, hd=192), heads=2, group=2)
+    # K15: dtype, shapes, alignment, shared memory
+    with pytest.raises(TypeError):
+        ms.mha_serving(q.float(), k, v)
+    with pytest.raises(ValueError, match="shape"):
+        ms.mha_serving(q, k[:, :, :16], v)
+    with pytest.raises(ValueError, match="16 bytes"):
+        wide = core_qkv(1, 17, 1, hd=72).view(1, 17, 3, 1, 72)
+        ms.mha_serving(*(t[..., 1:65] for t in
+                         wide.permute(2, 0, 3, 1, 4)))
+    with pytest.raises(ValueError, match="shared memory"):
+        big = core_qkv(1, 2048, 1).view(1, 2048, 3, 1, 64)
+        ms.mha_serving(*big.permute(2, 0, 3, 1, 4))
+    # K13: the bias, mixed dtypes, head dim
+    qc, kc, vc = (t.contiguous() for t in (q, k, v))
+    with pytest.raises(TypeError):
+        fa.flash_attention(qc, kc, vc, torch.zeros((2, 17, 17), device="cuda",
+                                                   dtype=BF))
+    with pytest.raises(ValueError, match="bias"):
+        fa.flash_attention(qc, kc, vc, torch.zeros((2, 16, 16),
+                                                   device="cuda"))
+    with pytest.raises(TypeError):
+        fa.flash_attention(qc.float(), kc, vc)
+    with pytest.raises(ValueError, match="head_dim"):
+        fa.flash_attention(*(t[..., :32].contiguous() for t in (qc, kc, vc)))
+    # K14: its contract and layout
+    with pytest.raises(ValueError, match="divisible by 4"):
+        pa.packed_attention(core_qkv(1, 17, 6), num_heads=6)
+    with pytest.raises(ValueError, match="N <= 256"):
+        pa.packed_attention(core_qkv(1, 257, 4), num_heads=4)
+    with pytest.raises(ValueError, match="contiguous"):
+        pa.packed_attention(core_qkv(17, 2, 4).transpose(0, 1), num_heads=4)
+
+
+def test_layerscale_seg_model_launches_only_k1():
+    """A CUDA backbone without windows, with LayerScale and q/v biases, runs
+    K1 in every block and no fused sublayer; the BEiT backbone runs K9."""
+    from dynamic_tuning_tpu_torch.config import ModelConfig, TuningConfig
+    from dynamic_tuning_tpu_torch.models.seg_vit import (SegVisionTransformer,
+                                                         beit_backbone)
+
+    mc = ModelConfig(img_size=64, patch_size=16, embed_dim=128, depth=4,
+                     num_heads=2)
+    x = torch.randn((2, 64, 64, 3), device="cuda")
+    for build, kernel in (
+            (lambda: SegVisionTransformer(
+                mc, TuningConfig(ffn_num=16), use_rel_pos_bias=False,
+                init_values=0.1, qv_bias_only=True), "mha_serving_fused"),
+            (lambda: beit_backbone(mc, TuningConfig(ffn_num=16)),
+             "mha_windowed_fused")):
+        model = build().to("cuda")
+        ms.reset_launch_counts()
+        with torch.inference_mode():
+            feats, _ = model(x, dispatch=True)
+        torch.cuda.synchronize()
+        assert all(torch.isfinite(f).all() for f in feats)
+        counts = {n: getattr(ms, n).launches for n in (
+            "mha_serving_fused", "mha_windowed_fused",
+            "attention_sublayer_serving", "dyt_prologue_serving")}
+        assert counts == {n: 4 if n == kernel else 0 for n in counts}

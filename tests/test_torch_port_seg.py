@@ -282,13 +282,21 @@ def test_windowed_block_matches_jax(monkeypatch, mode):
 
 
 def test_block_beit_options_raise():
+    """The BEiT options build (LayerScale gammas, q/v biases in place of the
+    qkv bias); what the segmentation path still lacks raises and points at
+    ROADMAP.md's queue 1 item 5."""
     g = torch.Generator()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tlayers.Block(DIM, HEADS, g, window_size=(GRID, GRID),
-                      init_values=0.1)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tlayers.Block(DIM, HEADS, g, window_size=(GRID, GRID),
-                      qv_bias_only=True)
+    blk = tlayers.Block(DIM, HEADS, g, window_size=(GRID, GRID),
+                        init_values=0.1, qv_bias_only=True)
+    assert torch.equal(blk.gamma_1, torch.full((DIM,), 0.1))
+    assert blk.attn.qkv.bias is None and blk.attn.q_bias.shape == (DIM,)
+    mc = port_cfg(dataclasses.replace(model_cfg(), quant="int8"))
+    with pytest.raises(NotImplementedError, match="queue 1 item 5"):
+        SegVisionTransformer(mc, init_values=0.1, qv_bias_only=True)
+    tb = SegVisionTransformer(port_cfg(model_cfg()), init_values=0.1,
+                              qv_bias_only=True, dtype=torch.float32)
+    with pytest.raises(NotImplementedError, match="queue 1 item 5"):
+        tb(torch.zeros((1, IMG, IMG, 3)), training=True)
 
 
 # --- backbone and heads --------------------------------------------------------
