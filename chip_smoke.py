@@ -30,7 +30,18 @@ Phases; any failure exits non-zero:
      mha_serving on contiguous q, k, v and on views of the raw qkv, K13
      flash_attention (and at B=1, N=1025 with an fp32 bias), K14
      packed_attention; K13 and K14, which only tests call, are first run
-     once each as their own path with the counts set to 0;
+     once each as their own path with the counts set to 0; then K12
+     q8_dispatch_mlp at the int8 dispatch path's shape (B=128, N=197,
+     C=768, MLP 3072, K=99, tanh GELU) with seeded router scores of which
+     about a tenth of the top K fall under the threshold, beside the
+     Block's unfused chain (dispatch_mlp around q8_ln_mlp, a reference
+     time) and whether the two agree bit for bit; then K16, the matmul
+     probe utils/profile_int8.make_mm, at the probe's five shapes in int8
+     (exact) and bf16 (within 2**-16 of the largest |output| of the
+     float64 product: fp32 sums), each beside one library call (torch._int_mm,
+     torch.mm(out_dtype=float32); reference times only); K12 and K16,
+     which no serving path calls, each run once first as their own path
+     with the counts set to 0;
   3. the serving main path through dynamic_tuning_tpu_torch.speed.main:
      ViT-B/16 at 224^2, 12 blocks, batch 128, seeded synthetic weights;
      bf16 dispatch, dense and plain, int8 dispatch, dense and plain,
@@ -85,7 +96,6 @@ import contextlib
 import io
 import json
 import os
-import subprocess
 import sys
 import time
 from unittest import mock
@@ -143,6 +153,12 @@ KERNELS = {
     "mha_serving": ("ms", dict(
         route="cuda", source=f"{SRC}/attention_sublayer.cu",
         replaces=f"{JAX_OPS}/mha_serving.py:49")),
+    "q8_dispatch_mlp": ("qt", dict(
+        route="cuda", source=f"{SRC}/quant.cu",
+        replaces=f"{JAX_OPS}/quant.py:272")),
+    "make_mm": ("pi", dict(
+        route="cuda", source=f"{SRC}/quant.cu",
+        replaces="scripts/profile_int8.py:24")),
 }
 # the segmentation path: 512^2 crops of 16^2 patches -> 32x32 + CLS tokens
 SEG_GRID = 32
@@ -166,9 +182,6 @@ RUNS = [
     ("int8_attn", "dispatch", MOE, ("dyt_prologue_serving_q8_moe",
                                     "q8_ln_mlp", "attn_core_pairs_q8")),
 ]
-# NVIDIA's H100 SXM data sheet: HBM bytes/s and dense peak ops/s per type
-HBM = 3.35e12
-PEAK = {"bf16": 989e12, "int8": 1979e12, "fp32": 67e12}
 # Kernel vs plain version on the card: the same rounding points, sums in
 # another order, so a bf16 output may move by one ulp on a boundary, and an
 # int8 activation on a rounding boundary may take the neighbouring code (one
@@ -177,6 +190,11 @@ PEAK = {"bf16": 989e12, "int8": 1979e12, "fp32": 67e12}
 # (fp32): 2e-3 of the largest |logit|; a gate may differ only within that
 # distance of 0.
 BF16_REL = 2 * 2.0 ** -8
+# K16's bf16 product is summed in fp32 and stored as fp32: against the
+# float64 product within 2**-16 of its largest |output| (sums in another
+# order); a kernel that rounded its sums or its output to bf16 (2**-9 of an
+# output) fails.
+FP32_SUM_REL = 2.0 ** -16
 LOGIT_REL = 2e-3
 # Whole-model dispatch logits, kernels vs plain versions: the per-kernel
 # differences above, carried through 12 blocks, and a gate may flip where a
@@ -192,32 +210,9 @@ def fail(msg: str) -> None:
     sys.exit(1)
 
 
-def time_ms(fn, iters=20, warmup=3) -> float:
-    import torch
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / iters
-
-
 def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors
                if t is not None)
-
-
-def bound(bytes_moved: int, ops: dict) -> tuple[float, str]:
-    """The least time (ms) the card needs: the larger of the bytes over the
-    memory rate and the operations over their type's peak rate."""
-    t_bytes = bytes_moved / HBM * 1e3
-    t_ops = sum(n / PEAK[kind] for kind, n in ops.items()) * 1e3
-    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
 def attn_ops(batch=B, tokens=N):
@@ -600,6 +595,90 @@ def phase_attention(torch, ms, qt, fm) -> dict:
     return out, {k: path[k] for k in ("flash_attention", "packed_attention")}
 
 
+def phase_k12(torch, ms, qt, fm, D) -> tuple:
+    """K12 against its plain version at the int8 dispatch path's shape,
+    beside the Block's unfused chain for the same function (dispatch_mlp
+    around K4; a reference time, no single PyTorch call computes it).  Its
+    path is one call with every count set to 0 just before."""
+    g = torch.Generator(device="cuda").manual_seed(7)
+
+    def r(*shape, s=1.0):
+        return torch.randn(shape, generator=g, device="cuda") * s
+
+    x = r(B, N, C).to(torch.bfloat16)
+    qmlp = (r(C, s=0.05) + 1.0, r(C, s=0.02),
+            *qt.quantize_weight(r(HID, C, s=0.03)), r(HID, s=0.02),
+            *qt.quantize_weight(r(C, HID, s=0.03)), r(C, s=0.02))
+    # uniform in [0, 0.917): about a tenth of the top K at or under 0.5
+    scores = torch.rand((B, N), generator=g, device="cuda") * 0.917
+    scores[:, 0] = float("inf")
+    call = lambda: qt.q8_dispatch_mlp(x, scores, *qmlp, capacity=K_DISPATCH,
+                                      gelu_approx=True)
+    reset_counts(ms, qt, fm)
+    out, gate = call()
+    torch.cuda.synchronize()
+    path = read_counts(ms, qt, fm)
+    if path != {k: int(k == "q8_dispatch_mlp") for k in KERNELS}:
+        fail(f"K12 path: kernel launches {path}")
+    masked = 1.0 - gate.float().sum().item() / (B * K_DISPATCH)
+    res = measure(
+        f"K12 q8_dispatch_mlp(B={B}, N={N}, K={K_DISPATCH}; "
+        f"{masked:.4f} of the slots masked)", call,
+        lambda: qt.q8_dispatch_mlp_plain(x, scores, *qmlp,
+                                         capacity=K_DISPATCH,
+                                         gelu_approx=True),
+        ("out", "gate"), (x, scores, *qmlp),
+        {"int8": 4 * B * K_DISPATCH * C * HID})
+    chain = lambda: D.dispatch_mlp(
+        x, scores, K_DISPATCH,
+        lambda rows: qt.q8_ln_mlp(rows, *qmlp, gelu_approx=True))
+    c_out, c_gate = chain()
+    torch.cuda.synchronize()
+    same_bits = torch.equal(out.view(torch.int16), c_out.view(torch.int16))
+    same = torch.equal(out, c_out) and torch.equal(gate, c_gate)
+    why = ("bit-identical" if same_bits and same else
+           "equal in value, the bits differ only in the sign of zeros (the "
+           "chain multiplies a dropped row by 0, K12 never writes it)"
+           if same else "NOT equal: max|diff| "
+           f"{(out.float() - c_out.float()).abs().max().item():.6g}")
+    print(f"  the Block's unfused chain (dispatch_mlp around q8_ln_mlp; "
+          f"reference only): {time_ms(chain):.4f} ms; K12 against it: {why}")
+    return {"q8_dispatch_mlp": res}, {"q8_dispatch_mlp": path[
+        "q8_dispatch_mlp"]}
+
+
+def phase_k16(torch, ms, qt, fm, pi) -> tuple:
+    """K16, the matmul probe, at its five shapes in bf16 and int8 (each
+    beside one library call, a reference time).  Its path is one call of
+    make_mm's product at the dispatch MLP's shape, with every count set to
+    0 just before; the row of the kernels line is that shape in int8."""
+    Mx, Kx, Nx = pi.SHAPES[-1]
+    a = torch.randint(-127, 127, (Mx, Kx), dtype=torch.int8, device="cuda")
+    b = torch.randint(-127, 127, (Kx, Nx), dtype=torch.int8, device="cuda")
+    reset_counts(ms, qt, fm)
+    pi.make_mm(Mx, Kx, Nx, torch.int8, torch.int32)(a, b)
+    torch.cuda.synchronize()
+    path = read_counts(ms, qt, fm)
+    if path != {k: int(k == "make_mm") for k in KERNELS}:
+        fail(f"K16 path: kernel launches {path}")
+    del a, b
+    out = {}
+    for M, K, Nn in pi.SHAPES:
+        for dtype, kind in ((torch.bfloat16, "bf16"), (torch.int8, "int8")):
+            res = pi.bench(M, K, Nn, dtype, pi.OUT[dtype],
+                           f"K16 make_mm {kind} {(M, K, Nn)}")
+            tol = 0.0 if kind == "int8" else FP32_SUM_REL * res["ref_max"]
+            if not res["max_abs_err"] <= tol:
+                fail(f"K16 {kind} {(M, K, Nn)}: max |err| "
+                     f"{res['max_abs_err']} > {tol}")
+            if kind == "int8" and (M, K, Nn) == (Mx, Kx, Nx):
+                out["make_mm"] = {k: res[k] for k in (
+                    "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                    "library_ms")}
+    torch.cuda.empty_cache()
+    return out, {"make_mm": path["make_mm"]}
+
+
 def phase_layerscale(torch, ms, qt, fm, D, seg_vit, make_seg_state_dict,
                      config, np) -> dict:
     """The LayerScale / q-v-bias backbone without windows at ViT-B width
@@ -779,7 +858,8 @@ def count_modules(ms, qt, fm) -> dict:
     """The wrappers' modules by their KERNELS tag."""
     from dynamic_tuning_tpu_torch.ops import flash_attention as fa
     from dynamic_tuning_tpu_torch.ops import packed_attention as pa
-    return {"ms": ms, "qt": qt, "fm": fm, "fa": fa, "pa": pa}
+    from dynamic_tuning_tpu_torch.utils import profile_int8 as pi
+    return {"ms": ms, "qt": qt, "fm": fm, "fa": fa, "pa": pa, "pi": pi}
 
 
 def reset_counts(ms, qt, fm) -> None:
@@ -986,14 +1066,9 @@ def phase_slide(torch, ms, qt, fm, bench, seg_train, upernet, model,
     return 4 * DEPTH
 
 
-def card_line() -> str:
-    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, check=True, timeout=60)
-    return out.stdout.strip().splitlines()[0]
-
-
 def main() -> None:
+    # the port's timing, bound and card helpers serve every phase
+    global bound, card_line, time_ms
     import torch
 
     t_start = time.perf_counter()
@@ -1014,8 +1089,10 @@ def main() -> None:
         from dynamic_tuning_tpu_torch.ops import fused_mlp as fm
         from dynamic_tuning_tpu_torch.ops import mha_serving as ms
         from dynamic_tuning_tpu_torch.ops import quant as qt
-        from dynamic_tuning_tpu_torch.utils.profiling import (forwards_run,
-                                                              scan_throughput)
+        from dynamic_tuning_tpu_torch.utils import profile_int8 as pi
+        from dynamic_tuning_tpu_torch.utils.profiling import (
+            bound_ms as bound, card_line, forwards_run, scan_throughput,
+            time_ms)
     except ImportError as e:
         fail(f"the port is not here: {e}")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1035,6 +1112,10 @@ def main() -> None:
     measured.update(phase_k11(torch, fm, fast))
     attention, attention_path = phase_attention(torch, ms, qt, fm)
     measured.update(attention)
+    k12, k12_path = phase_k12(torch, ms, qt, fm, D)
+    measured.update(k12)
+    k16, k16_path = phase_k16(torch, ms, qt, fm, pi)
+    measured.update(k16)
 
     t0 = time.perf_counter()
     sds = {moe: make_vit_state_dict(np.random.RandomState(0), depth=DEPTH,
@@ -1060,6 +1141,8 @@ def main() -> None:
     launches.update(phase_fast(torch, ms, qt, fm, fast, predict,
                                scan_throughput, forwards_run, sds[0]))
     launches.update(attention_path)
+    launches.update(k12_path)
+    launches.update(k16_path)
     if not all(launches.values()):
         fail(f"a kernel never ran on the main path: {launches}")
 

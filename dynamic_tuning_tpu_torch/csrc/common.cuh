@@ -185,6 +185,7 @@ enum GemmEpilogue {
   EPI_GELU_TANH = 3,   // out_bf16 = bf16(gelu_tanh(acc + bias[n]))
   EPI_GATE = 4,        // out_x = TX((acc + bias[n]) * gate[m]), or
                        // TX(acc + bias[n]) when gate is null
+  EPI_F32 = 5,         // out_f32 = acc, no bias (the matmul probe, K16)
 };
 
 __device__ __forceinline__ float2 load2(const float* p) {
@@ -319,14 +320,17 @@ gemm_nt_kernel(const bf16* __restrict__ A, const bf16* __restrict__ W,
     for (int j = 0; j < NT; ++j) {
       const int col = n0 + wn0 + j * 8 + t2;
       if (col >= N) continue;
-      const float2 b = load2(bias + col);
+      float2 b = make_float2(0.f, 0.f);
+      if constexpr (EPI != EPI_F32) b = load2(bias + col);
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         const int row = m0 + wm0 + i * 16 + g + h * 8;
         if (row >= M) continue;
         const size_t o = (size_t)row * N + col;
         float v0 = acc[i][j][2 * h], v1 = acc[i][j][2 * h + 1];
-        if constexpr (EPI == EPI_BIAS_BF16) {
+        if constexpr (EPI == EPI_F32) {
+          store2(out_f32 + o, v0, v1);
+        } else if constexpr (EPI == EPI_BIAS_BF16) {
           store2(out_bf16 + o, v0 + b.x, v1 + b.y);
         } else if constexpr (EPI == EPI_GELU_ERF) {
           store2(out_bf16 + o, gelu_erf(add(v0, b.x)), gelu_erf(add(v1, b.y)));

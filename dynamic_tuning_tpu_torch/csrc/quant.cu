@@ -7,7 +7,12 @@
 //   K6  dyt_prologue_serving_q8 (_dyt_prologue_q8_kernel): K5's x_mid, then
 //       the adapter/router kernel of dyt_prologue.cu unchanged
 //   K10 attn_core_pairs_q8:                    the core with an int8 QK^T
-// and computes the int8 patch-embed stem (XLA's q8_conv there).
+//   K12 q8_dispatch_mlp (_q8_dispatch_mlp_kernel): the top-K rows of each
+//       sample gathered through an index into K4's chain, the MLP rows
+//       scattered back to their tokens (zeros elsewhere), and the gate
+// and computes the int8 patch-embed stem (XLA's q8_conv there), and the
+// GEMMs of scripts/profile_int8.py::make_mm (K16, the int8 / bf16 matmul
+// probe): int8 x int8 -> int32 and bf16 x bf16 -> fp32, stored raw.
 //
 // Scheme: per-output-channel int8 weights (quantized once at load by the
 // caller) times dynamic per-row int8 activations,
@@ -29,11 +34,15 @@
 //   ln_quant_kernel   one warp per row: fp32 LN (eps 1e-6), row amax,
 //                     codes rint(v * 127/amax) clipped to +-127, scale
 //                     amax * (1/127); the LN output never leaves registers;
+//                     K12 reads its rows through the selection's index and
+//                     writes the gate and the rows' scatter targets;
 //   row_quant_kernel  the same quantization of a bf16 or fp32 row;
 //   gemm_s8_kernel    128x128x64 block tiles fed by a 4-stage cp.async ring,
 //                     8 warps of 64x32 tiles of mma.sync m16n8k32 s8 x s8 ->
 //                     s32, and an epilogue that dequantizes and applies the
-//                     caller's bias / GELU / residual arithmetic in fp32;
+//                     caller's bias / GELU / residual arithmetic in fp32
+//                     (K12's fc2 stores each row at its token), or stores
+//                     the int32 sums as they are (K16);
 //   k_quant_kernel    (K10) one block per (sample, head pair): k's lane
 //                     means, the centred k rows quantized over the pair's
 //                     2*hd lanes (the TPU's one 128-lane row);
@@ -106,15 +115,38 @@ __device__ __forceinline__ void store_codes8(int8_t* p, const float* v,
 
 constexpr int MAX_CHUNKS = 4;   // LN rows of up to 32 * 8 * 4 = 1024 columns
 
+// K12's selection, read by ln_quant_kernel: row m = b * cap + k of the LN
+// rows is token idx[m] of sample b.  With idx null, row m is x's row m.
+template <typename TX>
+struct RowGather {
+  const int64_t* idx = nullptr;   // [B * cap] token of each row
+  const uint8_t* keep = nullptr;  // [B * cap] 1 where the row's MLP output
+                                  // is kept (score above the threshold)
+  int cap = 0, tokens = 0;        // rows and tokens per sample
+  int* dst = nullptr;             // out [B * cap]: the x row a kept row's
+                                  // output goes to, -1 for a dropped one
+  TX* gate = nullptr;             // out [B, tokens]: keep at each selected
+                                  // token (the caller zeroes the rest)
+};
+
 template <typename TX>
 __global__ void __launch_bounds__(256)
 ln_quant_kernel(const TX* __restrict__ x, const float* __restrict__ g,
                 const float* __restrict__ b, int8_t* __restrict__ q,
-                float* __restrict__ rs, int M, int C) {
+                float* __restrict__ rs, int M, int C, RowGather<TX> sel) {
   const int row = blockIdx.x * 8 + (threadIdx.x >> 5);
   const int lane = threadIdx.x & 31;
   if (row >= M) return;
-  const TX* xr = x + (size_t)row * C;
+  size_t src = row;
+  if (sel.idx != nullptr) {
+    src = (size_t)(row / sel.cap) * sel.tokens + sel.idx[row];
+    if (lane == 0) {
+      const bool kept = sel.keep[row] != 0;
+      sel.dst[row] = kept ? static_cast<int>(src) : -1;
+      sel.gate[src] = from_f32<TX>(kept ? 1.f : 0.f);
+    }
+  }
+  const TX* xr = x + src * C;
   const int nch = C / 8;
   float v[MAX_CHUNKS][8];
   // both means summed in float64, one rounding to fp32 after the division:
@@ -238,6 +270,9 @@ enum Q8Epilogue {
   Q8_RESID = 3,      // xm = (resid + (acc * rs) * cs) + bias; out = TO(xm);
                      // out_f32 = xm when given
   Q8_STEM = 4,       // out = TO(acc * (rs[m] * cs[n]) + bias)  (q8_conv)
+  Q8_SCATTER = 5,    // Q8_OUT's value into row row_map[m] of out, none
+                     // where row_map[m] < 0  (K12's fc2)
+  Q8_RAW = 6,        // out (int32) = acc  (K16)
 };
 
 template <int EPI>
@@ -246,7 +281,7 @@ __device__ __forceinline__ float q8_epilogue(int acc, float r, float c,
   const float a = __int2float_rn(acc);
   if constexpr (EPI == Q8_STEM) return add(mul(a, mul(r, c)), b);
   const float v = mul(mul(a, r), c);
-  if constexpr (EPI == Q8_OUT) return add(v, b);
+  if constexpr (EPI == Q8_OUT || EPI == Q8_SCATTER) return add(v, b);
   if constexpr (EPI == Q8_GELU_ERF) return gelu_erf(add(v, b));
   if constexpr (EPI == Q8_GELU_TANH) return gelu_tanh(add(v, b));
   return add(add(resid, v), b);                  // Q8_RESID
@@ -258,7 +293,8 @@ gemm_s8_kernel(const int8_t* __restrict__ A, const int8_t* __restrict__ W,
                const float* __restrict__ rs, const float* __restrict__ cs,
                const float* __restrict__ bias, int M, int N, int K,
                TO* __restrict__ out, const TO* __restrict__ resid,
-               float* __restrict__ out_f32, float* __restrict__ row_amax) {
+               float* __restrict__ out_f32, float* __restrict__ row_amax,
+               const int* __restrict__ row_map) {
   constexpr bool GELU = EPI == Q8_GELU_ERF || EPI == Q8_GELU_TANH;
   constexpr int BM = G::BM, BN = G::BN, BK = G::BK, LD = G::LD;
   constexpr int MT = G::MT, NT = G::NT;
@@ -342,25 +378,41 @@ gemm_s8_kernel(const int8_t* __restrict__ A, const int8_t* __restrict__ W,
     for (int j = 0; j < NT; ++j) {
       const int col = n0 + wn0 + j * 8 + t2;
       if (col >= N) continue;
-      const float2 c = load2(cs + col);
-      const float2 b = load2(bias + col);
+      if constexpr (EPI == Q8_RAW) {
 #pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int row = m0 + wm0 + i * 16 + g + h * 8;
-        if (row >= M) continue;
-        const size_t o = (size_t)row * N + col;
-        const float r = rs[row];
-        float2 x = make_float2(0.f, 0.f);
-        if constexpr (EPI == Q8_RESID) x = load2(resid + o);
-        const float v0 = q8_epilogue<EPI>(acc[i][j][2 * h], r, c.x, b.x, x.x);
-        const float v1 = q8_epilogue<EPI>(acc[i][j][2 * h + 1], r, c.y, b.y,
-                                          x.y);
-        store2(out + o, v0, v1);
-        if constexpr (EPI == Q8_RESID) {
-          if (out_f32 != nullptr) store2(out_f32 + o, v0, v1);
+        for (int h = 0; h < 2; ++h) {
+          const int row = m0 + wm0 + i * 16 + g + h * 8;
+          if (row < M)
+            *reinterpret_cast<int2*>(out + (size_t)row * N + col) =
+                make_int2(acc[i][j][2 * h], acc[i][j][2 * h + 1]);
         }
-        if constexpr (GELU)
-          rmax[i][h] = fmaxf(rmax[i][h], fmaxf(fabsf(v0), fabsf(v1)));
+      } else {
+        const float2 c = load2(cs + col);
+        const float2 b = load2(bias + col);
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int row = m0 + wm0 + i * 16 + g + h * 8;
+          if (row >= M) continue;
+          size_t o = (size_t)row * N + col;
+          if constexpr (EPI == Q8_SCATTER) {
+            const int dst = row_map[row];
+            if (dst < 0) continue;
+            o = (size_t)dst * N + col;
+          }
+          const float r = rs[row];
+          float2 x = make_float2(0.f, 0.f);
+          if constexpr (EPI == Q8_RESID) x = load2(resid + o);
+          const float v0 =
+              q8_epilogue<EPI>(acc[i][j][2 * h], r, c.x, b.x, x.x);
+          const float v1 =
+              q8_epilogue<EPI>(acc[i][j][2 * h + 1], r, c.y, b.y, x.y);
+          store2(out + o, v0, v1);
+          if constexpr (EPI == Q8_RESID) {
+            if (out_f32 != nullptr) store2(out_f32 + o, v0, v1);
+          }
+          if constexpr (GELU)
+            rmax[i][h] = fmaxf(rmax[i][h], fmaxf(fabsf(v0), fabsf(v1)));
+        }
       }
     }
   }
@@ -391,14 +443,15 @@ static cudaError_t launch_gemm_s8(const int8_t* A, const int8_t* W,
                                   const float* rs, const float* cs,
                                   const float* bias, int M, int N, int K,
                                   TO* out, const TO* resid, float* out_f32,
-                                  float* row_amax, cudaStream_t s) {
+                                  float* row_amax, cudaStream_t s,
+                                  const int* row_map = nullptr) {
   cudaError_t err = cudaFuncSetAttribute(
       gemm_s8_kernel<G, EPI, TO>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       G::SMEM);
   if (err != cudaSuccess) return err;
   dim3 grid((N + G::BN - 1) / G::BN, (M + G::BM - 1) / G::BM);
   gemm_s8_kernel<G, EPI, TO><<<grid, G::THREADS, G::SMEM, s>>>(
-      A, W, rs, cs, bias, M, N, K, out, resid, out_f32, row_amax);
+      A, W, rs, cs, bias, M, N, K, out, resid, out_f32, row_amax, row_map);
   return cudaGetLastError();
 }
 
@@ -696,7 +749,7 @@ static cudaError_t sublayer_q8(const TX* x, const float* gamma,
   const int M = B * N;
   if (C % 8 || C > 32 * 8 * MAX_CHUNKS) return cudaErrorInvalidValue;
   ln_quant_kernel<TX><<<(M + 7) / 8, 256, 0, s>>>(x, gamma, beta, a8, rs, M,
-                                                  C);
+                                                  C, RowGather<TX>{});
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   err = launch_gemm_s8<Q8_OUT, bf16>(a8, wqkv, rs, sqkv, bqkv, M, 3 * C, C,
@@ -715,6 +768,8 @@ static cudaError_t sublayer_q8(const TX* x, const float* gamma,
                                       out, x, xm32, nullptr, s);
 }
 
+// K4 on M rows of x; with sel.idx (K12) on the M = B * cap selected rows,
+// fc2 storing each kept row at its token of out (which the caller zeroed)
 template <typename TX>
 static cudaError_t ln_mlp_q8(const TX* x, const float* gamma,
                              const float* beta, const int8_t* w1,
@@ -722,11 +777,12 @@ static cudaError_t ln_mlp_q8(const TX* x, const float* gamma,
                              const int8_t* w2, const float* s2,
                              const float* b2, TX* out, int8_t* a8, float* rs,
                              float* h, float* hmax, int M, int C, int Hd,
-                             int approx, cudaStream_t s) {
+                             int approx, cudaStream_t s,
+                             RowGather<TX> sel = {}) {
   if (M == 0) return cudaSuccess;
   if (C % 8 || C > 32 * 8 * MAX_CHUNKS) return cudaErrorInvalidValue;
   ln_quant_kernel<TX><<<(M + 7) / 8, 256, 0, s>>>(x, gamma, beta, a8, rs, M,
-                                                  C);
+                                                  C, sel);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   // fc1's epilogue takes the GELU rows' amax, so their quantization reads
@@ -742,8 +798,34 @@ static cudaError_t ln_mlp_q8(const TX* x, const float* gamma,
   if (err != cudaSuccess) return err;
   err = launch_row_quant<float>(h, a8, rs, M, Hd, hmax, s);
   if (err != cudaSuccess) return err;
+  if (sel.idx != nullptr)
+    return launch_gemm_s8<Q8_SCATTER, TX>(a8, w2, rs, s2, b2, M, C, Hd, out,
+                                          nullptr, nullptr, nullptr, s,
+                                          sel.dst);
   return launch_gemm_s8<Q8_OUT, TX>(a8, w2, rs, s2, b2, M, C, Hd, out,
                                     nullptr, nullptr, nullptr, s);
+}
+
+// K12: zero out and gate, then K4's chain on the selected rows
+template <typename TX>
+static cudaError_t dispatch_mlp_q8(const TX* x, const int64_t* idx,
+                                   const uint8_t* keep, const float* gamma,
+                                   const float* beta, const int8_t* w1,
+                                   const float* s1, const float* b1,
+                                   const int8_t* w2, const float* s2,
+                                   const float* b2, TX* out, TX* gate,
+                                   int8_t* a8, float* rs, float* h,
+                                   float* hmax, int* row_map, int B, int N,
+                                   int cap, int C, int Hd, int approx,
+                                   cudaStream_t s) {
+  cudaError_t err =
+      cudaMemsetAsync(out, 0, sizeof(TX) * (size_t)B * N * C, s);
+  if (err != cudaSuccess) return err;
+  err = cudaMemsetAsync(gate, 0, sizeof(TX) * (size_t)B * N, s);
+  if (err != cudaSuccess) return err;
+  return ln_mlp_q8<TX>(x, gamma, beta, w1, s1, b1, w2, s2, b2, out, a8, rs, h,
+                       hmax, B * cap, C, Hd, approx, s,
+                       RowGather<TX>{idx, keep, cap, N, row_map, gate});
 }
 
 }  // namespace dyt
@@ -833,6 +915,57 @@ int dyt_q8_stem_gemm(const void* a, const void* w, const float* rs,
   return dyt::launch_gemm_s8<dyt::Q8_STEM, dyt::bf16>(
       static_cast<const int8_t*>(a), static_cast<const int8_t*>(w), rs, cs,
       bias, M, N, K, static_cast<dyt::bf16*>(out), nullptr, nullptr, nullptr,
+      static_cast<cudaStream_t>(stream));
+}
+
+// K12: x [B, N, C] (x_f32 selects fp32 over bf16); idx [B, cap] int64 and
+// keep [B, cap] uint8, the top-cap selection per sample; weights as for
+// dyt_q8_ln_mlp; out [B, N, C] and gate [B, N] in x's dtype; a8 [B*cap,
+// max(C, Hd)] int8, rs and hmax [B*cap] fp32, h [B*cap, Hd] fp32 and
+// row_map [B*cap] int32 scratch.
+int dyt_q8_dispatch_mlp(const void* x, int x_f32, const void* idx,
+                        const void* keep, const float* gamma,
+                        const float* beta, const void* w1, const float* s1,
+                        const float* b1, const void* w2, const float* s2,
+                        const float* b2, void* out, void* gate, void* a8,
+                        float* rs, float* h, float* hmax, void* row_map,
+                        int B, int N, int cap, int C, int Hd, int approx,
+                        void* stream) {
+  auto* ix = static_cast<const int64_t*>(idx);
+  auto* kp = static_cast<const uint8_t*>(keep);
+  auto* q1 = static_cast<const int8_t*>(w1);
+  auto* q2 = static_cast<const int8_t*>(w2);
+  auto* a = static_cast<int8_t*>(a8);
+  auto* rm = static_cast<int*>(row_map);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (x_f32)
+    return dyt::dispatch_mlp_q8<float>(
+        static_cast<const float*>(x), ix, kp, gamma, beta, q1, s1, b1, q2, s2,
+        b2, static_cast<float*>(out), static_cast<float*>(gate), a, rs, h,
+        hmax, rm, B, N, cap, C, Hd, approx, s);
+  return dyt::dispatch_mlp_q8<dyt::bf16>(
+      static_cast<const dyt::bf16*>(x), ix, kp, gamma, beta, q1, s1, b1, q2,
+      s2, b2, static_cast<dyt::bf16*>(out), static_cast<dyt::bf16*>(gate), a,
+      rs, h, hmax, rm, B, N, cap, C, Hd, approx, s);
+}
+
+// K16, int8: out [M, N] int32 = a [M, K] int8 . w [N, K]^T int8, the exact
+// int32 sums (K % 16 == 0, N % 8 == 0).
+int dyt_gemm_s8_s32(const void* a, const void* w, int M, int N, int K,
+                    void* out, void* stream) {
+  return dyt::launch_gemm_s8<dyt::Q8_RAW, int>(
+      static_cast<const int8_t*>(a), static_cast<const int8_t*>(w), nullptr,
+      nullptr, nullptr, M, N, K, static_cast<int*>(out), nullptr, nullptr,
+      nullptr, static_cast<cudaStream_t>(stream));
+}
+
+// K16, bf16: out [M, N] fp32 = a [M, K] bf16 . w [N, K]^T bf16, fp32 sums
+// (K % 8 == 0, N % 8 == 0).
+int dyt_gemm_bf16_f32(const void* a, const void* w, int M, int N, int K,
+                      float* out, void* stream) {
+  return dyt::launch_gemm_nt<dyt::EPI_F32, float>(
+      static_cast<const dyt::bf16*>(a), static_cast<const dyt::bf16*>(w),
+      nullptr, M, N, K, nullptr, nullptr, nullptr, out,
       static_cast<cudaStream_t>(stream));
 }
 

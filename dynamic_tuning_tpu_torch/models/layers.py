@@ -104,6 +104,15 @@ class _WeightCache:
         return self.cached(p, ("int8", quantize), quantize)
 
 
+def _dense(x: torch.Tensor, lin: nn.Linear, cache: _WeightCache,
+           dtype: torch.dtype) -> torch.Tensor:
+    """flax ``Dense(dtype=dtype)``: the product rounded to ``dtype``, then
+    the bias rounded to ``dtype`` added -- two roundings, where
+    ``F.linear`` with a bias rounds once (the same arithmetic in fp32)."""
+    y = F.linear(x.to(dtype), cache.get(lin.weight, dtype))
+    return y if lin.bias is None else y + cache.get(lin.bias, dtype)
+
+
 def _layer_norm(x: torch.Tensor, norm: nn.LayerNorm) -> torch.Tensor:
     """fp32 LayerNorm of any-dtype input (flax LayerNorm(dtype=float32))."""
     return F.layer_norm(x.float(), norm.normalized_shape, norm.weight,
@@ -144,12 +153,9 @@ class Mlp(nn.Module):
                 *self._w.int8(self.fc2.weight), self.fc2.bias.detach())
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        w = self._w.get
-        h = F.linear(x.to(self.dtype), w(self.fc1.weight, self.dtype),
-                     w(self.fc1.bias, self.dtype))
+        h = _dense(x, self.fc1, self._w, self.dtype)
         h = F.gelu(h, approximate=self.gelu)
-        return F.linear(h, w(self.fc2.weight, self.dtype),
-                        w(self.fc2.bias, self.dtype))
+        return _dense(h, self.fc2, self._w, self.dtype)
 
 
 # --- relative-position bias (the segmentation backbone) ----------------------
@@ -272,9 +278,7 @@ class Attention(nn.Module):
                 *self._w.int8(self.proj.weight), self.proj.bias.detach())
 
     def _dense(self, x, lin):
-        w = self._w.get
-        b = None if lin.bias is None else w(lin.bias, self.dtype)
-        return F.linear(x.to(self.dtype), w(lin.weight, self.dtype), b)
+        return _dense(x, lin, self._w, self.dtype)
 
     def _bias(self, dtype, row_stride=None) -> torch.Tensor:
         return _rel_pos_bias_from_table(
@@ -365,11 +369,8 @@ class Adapter(nn.Module):
                 self.up_proj.bias.detach(), self.scale_tensor())
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        w, dt = self._w.get, self.dtype
-        down = F.linear(x.to(dt), w(self.down_proj.weight, dt),
-                        w(self.down_proj.bias, dt))
-        up = F.linear(torch.relu(down), w(self.up_proj.weight, dt),
-                      w(self.up_proj.bias, dt))
+        down = _dense(x, self.down_proj, self._w, self.dtype)
+        up = _dense(torch.relu(down), self.up_proj, self._w, self.dtype)
         return up * self.scale_tensor().to(up.dtype)
 
 

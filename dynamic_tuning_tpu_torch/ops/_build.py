@@ -44,6 +44,9 @@ _SIGNATURES = {
     "dyt_attn_core_q8": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
     "dyt_attn_core_q8_smem_bytes": [_I, _I],
     "dyt_q8_stem_gemm": [_P, _P, _P, _P, _P, _I, _I, _I, _P, _P],
+    "dyt_q8_dispatch_mlp": [_P, _I] + [_P] * 17 + [_I] * 6 + [_P],
+    "dyt_gemm_s8_s32": [_P, _P, _I, _I, _I, _P, _P],
+    "dyt_gemm_bf16_f32": [_P, _P, _I, _I, _I, _P, _P],
     "dyt_moe_adapter_router": [_P, _I, _I] + [_P] * 9 + [_I, _P, _I, _I, _F,
                                                          _P],
     "dyt_moe_width_supported": [_I, _I],

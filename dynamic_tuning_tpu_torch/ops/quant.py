@@ -5,7 +5,7 @@ activations:
 
     out[m, n] = (sum_k qa[m, k] * qw[n, k]) * row_scale[m] * col_scale[n]
 
-Five kernels, each a wrapper with its plain PyTorch version beside it:
+Six kernels, each a wrapper with its plain PyTorch version beside it:
 
 * ``q8_ln_mlp`` (TPU kernel K4): LN -> int8 fc1 -> GELU -> int8 fc2 on rows;
 * ``attention_sublayer_serving_q8`` (K5): K2 with int8 qkv and proj;
@@ -14,7 +14,12 @@ Five kernels, each a wrapper with its plain PyTorch version beside it:
 * ``dyt_prologue_serving_q8_moe`` (K8): K7 with int8 qkv and proj, the MoE
   mixture and the router unchanged (bf16/fp32);
 * ``attn_core_pairs_q8`` (K10, ``--quant int8_attn``): the attention core
-  with an int8 QK^T, reached alone or inside K5/K6 with ``attn_q8=True``.
+  with an int8 QK^T, reached alone or inside K5/K6 with ``attn_q8=True``;
+* ``q8_dispatch_mlp`` (K12): capacity dispatch around K4 -- the top-K rows
+  of each sample gathered, LN and the int8 MLP on them, the kept rows
+  scattered back to their tokens -- with the effective gate.  No serving
+  path calls it, in either package: the Block keeps ``D.dispatch_mlp``
+  around ``q8_ln_mlp``, as the JAX Block does.
 
 Besides them, ``q8_patch_embed`` is the int8 stem (the JAX package's XLA
 ``q8_conv`` at stride = kernel, a patch matmul) on the same int8 GEMM.
@@ -46,6 +51,7 @@ import math
 import torch
 
 from dynamic_tuning_tpu_torch.ops import _build
+from dynamic_tuning_tpu_torch.ops import dispatch as D
 from dynamic_tuning_tpu_torch.ops import mha_serving as ms
 from dynamic_tuning_tpu_torch.ops.mha_serving import _ptr, _require
 
@@ -117,6 +123,23 @@ def q8_ln_mlp_plain(x, gamma, beta, w1q, s1, b1, w2q, s2, b2, *,
     h = q8_matmul(ms.layernorm_f32(x.float(), gamma, beta), w1q, s1) + b1
     h = gelu_f32(h, gelu_approx)
     return (q8_matmul(h, w2q, s2) + b2).to(x.dtype)
+
+
+def q8_dispatch_mlp_plain(x, scores, gamma, beta, w1q, s1, b1, w2q, s2, b2,
+                          *, capacity: int, gelu_approx: bool = False,
+                          threshold: float = 0.5):
+    """Plain version of K12: x [B, N, C], scores [B, N] (CLS already +inf)
+    -> (out [B, N, C], gate [B, N]), both in x's dtype.  The JAX kernel's
+    steps: the top-``capacity`` selection, the rows gathered (zero rows at
+    slots at or under the threshold, as its one-hot gives), K4's plain
+    version on them, the kept rows scattered to their tokens."""
+    idx, keep = D.select_topk(scores, capacity, threshold)
+    rows = D.gather_tokens(x, idx) * keep[..., None].to(x.dtype)
+    y = q8_ln_mlp_plain(rows, gamma, beta, w1q, s1, b1, w2q, s2, b2,
+                        gelu_approx=gelu_approx)
+    gate = torch.zeros(scores.shape, dtype=x.dtype, device=x.device)
+    return (D.scatter_tokens(x, idx, y, keep),
+            gate.scatter_(1, idx, keep.to(x.dtype)))
 
 
 def attn_core_pairs_q8_plain(qkv: torch.Tensor, *, heads: int
@@ -294,6 +317,60 @@ def q8_ln_mlp(x, gamma, beta, w1q, s1, b1, w2q, s2, b2, *,
 
 
 q8_ln_mlp.launches = 0
+
+
+def q8_dispatch_mlp(x, scores, gamma, beta, w1q, s1, b1, w2q, s2, b2, *,
+                    capacity: int, gelu_approx: bool = False,
+                    threshold: float = 0.5):
+    """K12: x [B, N, C] (bf16 or fp32), scores [B, N] keep probabilities
+    (CLS already +inf) -> (out [B, N, C], gate [B, N]) in x's dtype: LN and
+    the int8 MLP of K4 on the top-``capacity`` tokens of each sample, each
+    kept row at its token, zeros elsewhere; the gate 1 where a row was
+    kept.  Weights as for ``q8_ln_mlp``.  The selection is the port's
+    stable sort (``D.select_topk``), outside the kernels as in the JAX
+    package; the gather, the gate and the scatter are in them."""
+    if x.device.type == "cpu":
+        return q8_dispatch_mlp_plain(x, scores, gamma, beta, w1q, s1, b1, w2q,
+                                     s2, b2, capacity=capacity,
+                                     gelu_approx=gelu_approx,
+                                     threshold=threshold)
+    lib = _cuda_lib(x)
+    if x.dim() != 3:
+        raise ValueError(f"x must be [B, N, C], got {tuple(x.shape)}")
+    B, N, C = x.shape
+    Hd = w1q.shape[0]
+    dev = x.device
+    _require(x, "x", (B, N, C), (F32, BF), dev)
+    _require(scores, "scores", (B, N), (F32, BF), dev)
+    _require(gamma, "gamma", (C,), (F32,), dev)
+    _require(beta, "beta", (C,), (F32,), dev)
+    _require_q8(w1q, s1, b1, "fc1", Hd, C, dev)
+    _require_q8(w2q, s2, b2, "fc2", C, Hd, dev)
+    if not 0 < capacity <= N:
+        raise ValueError(f"capacity {capacity} out of (0, {N}]")
+    M = B * capacity
+    with torch.cuda.device(dev):
+        idx, keep = D.select_topk(scores, capacity, threshold)
+        idx, keep = idx.contiguous(), keep.contiguous()
+        out = torch.empty_like(x)
+        gate = torch.empty((B, N), dtype=x.dtype, device=dev)
+        a8 = torch.empty((M, max(C, Hd)), dtype=I8, device=dev)
+        rs = torch.empty((M,), dtype=F32, device=dev)
+        h = torch.empty((M, Hd), dtype=F32, device=dev)
+        hmax = torch.empty((M,), dtype=F32, device=dev)
+        row_map = torch.empty((M,), dtype=torch.int32, device=dev)
+        err = lib.dyt_q8_dispatch_mlp(
+            _ptr(x), int(x.dtype == F32), _ptr(idx), _ptr(keep), _ptr(gamma),
+            _ptr(beta), _ptr(w1q), _ptr(s1), _ptr(b1), _ptr(w2q), _ptr(s2),
+            _ptr(b2), _ptr(out), _ptr(gate), _ptr(a8), _ptr(rs), _ptr(h),
+            _ptr(hmax), _ptr(row_map), B, N, capacity, C, Hd,
+            int(gelu_approx), _stream(dev))
+        _build.check(lib, err, "int8 dispatch MLP kernels")
+    q8_dispatch_mlp.launches += 1
+    return out, gate
+
+
+q8_dispatch_mlp.launches = 0
 
 
 def _check_core_q8(lib, N, C, heads) -> None:
@@ -502,5 +579,5 @@ q8_patch_embed.launches = 0
 def reset_launch_counts() -> None:
     for fn in (q8_ln_mlp, attn_core_pairs_q8, attention_sublayer_serving_q8,
                dyt_prologue_serving_q8, dyt_prologue_serving_q8_moe,
-               q8_patch_embed):
+               q8_patch_embed, q8_dispatch_mlp):
         fn.launches = 0

@@ -18,7 +18,6 @@ from __future__ import annotations
 
 import argparse
 import json
-import subprocess
 
 import numpy as np
 import torch
@@ -26,7 +25,8 @@ import torch
 from dynamic_tuning_tpu_torch import predict
 from dynamic_tuning_tpu_torch.checkpoint import make_vit_state_dict
 from dynamic_tuning_tpu_torch.models.fast_inference import fast_vit_forward
-from dynamic_tuning_tpu_torch.utils.profiling import scan_throughput
+from dynamic_tuning_tpu_torch.utils.profiling import (card_line,
+                                                      scan_throughput)
 
 
 def main(argv=None) -> list:
@@ -49,9 +49,7 @@ def main(argv=None) -> list:
                              patch=cfg.patch_size, router_scale=25.0)
     params = predict.load_params(args, torch.device("cuda"), state_dict=sd)
     g = torch.Generator(device="cuda").manual_seed(a.seed)
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                           "--format=csv,noheader"], capture_output=True,
-                          text=True, timeout=60).stdout.strip()
+    card = card_line()
     rows = []
     for batch in a.batches:
         x = torch.randn((batch, cfg.img_size, cfg.img_size, 3), generator=g,

@@ -22,39 +22,22 @@ Prints the card's name and power limit first.  Needs a CUDA device.
 from __future__ import annotations
 
 import argparse
-import subprocess
 
 import torch
 import torch.nn.functional as F
 
 from dynamic_tuning_tpu_torch.ops import mha_serving as ms
+from dynamic_tuning_tpu_torch.utils.profiling import card_line, time_ms
 
 B, N, H, HD = 128, 197, 12, 64
 C = H * HD
-
-
-def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / iters
 
 
 def main(args) -> dict:
     if not torch.cuda.is_available():
         raise RuntimeError("profile_attention times the GPU and found no "
                            "CUDA device")
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                           "--format=csv,noheader"], capture_output=True,
-                          text=True, timeout=60).stdout.strip()
-    print(f"card: {card}")
+    print(f"card: {card_line()}")
     g = torch.Generator(device="cuda").manual_seed(args.seed)
     qkv = torch.randn((B, N, 3 * C), generator=g, device="cuda").to(
         torch.bfloat16)

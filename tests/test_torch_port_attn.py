@@ -359,21 +359,19 @@ def test_fast_vit_forward_head_dim_128_matches_jax(mode):
                                atol=2e-2 * np.abs(jl).max())
 
 
-def test_unfused_attention_head_dim_128_matches_jax(monkeypatch):
-    """The port's Attention on its unfused branch (3 heads of 128, no
-    window: the fused-kernel predicate wants an even head count) against
-    the JAX module's unfused branch, bf16: q times the bf16-rounded scale.
-    All outputs within one bf16 ulp of the largest |output|, at most a
-    tenth further than 1e-5 from it (0-4% over seeds; scaling q by the fp32
-    scale moves 18-27%).  The Dense biases stay at their zero init: flax's
-    Dense adds its bias after rounding the product to bf16, torch's linear
-    rounds once, which alone moves ~70% of the outputs by an ulp."""
+def _unfused_attention_128(monkeypatch, dense_bias: float):
+    """(port output, JAX output) of Attention on its unfused branch, bf16,
+    3 heads of 128 (the fused-kernel predicate wants an even head count),
+    with the qkv and proj Dense biases drawn at ``dense_bias`` * N(0, 1)."""
     C, H, N = 384, 3, 19
-    x = np.random.RandomState(100 * N).randn(2, N, C).astype(np.float32)
+    rs = np.random.RandomState(100 * N)
+    x = rs.randn(2, N, C).astype(np.float32)
     ja = jlayers.Attention(H, dtype=jnp.bfloat16)
     monkeypatch.setenv("DYT_FUSED_ATTN", "0")
     params = ja.init(jax.random.PRNGKey(0), _j(x, "bfloat16"))["params"]
-    assert not np.abs(params["qkv"]["bias"]).any()
+    params = jax.tree_util.tree_map_with_path(
+        lambda p, a: a + (dense_bias * rs.randn(*a.shape)).astype(np.float32)
+        if "bias" in jax.tree_util.keystr(p) else a, params)
     want = _np(ja.apply({"params": params}, _j(x, "bfloat16")))
     ta = tlayers.Attention(C, H, torch.Generator(), dtype=torch.bfloat16)
     sd = from_flax_params({"attn": params})
@@ -383,10 +381,32 @@ def test_unfused_attention_head_dim_128_matches_jax(monkeypatch):
                            wraps=tms.mha_serving_fused) as k1:
         got = ta(_t(x, "bfloat16"))
     assert k1.call_count == 0
-    err = np.abs(got.float().numpy() - want)
+    return got.float().numpy(), want
+
+
+def _within_one_ulp_mostly_exact(got, want):
+    """All outputs within one bf16 ulp of the largest |output|, at most a
+    tenth further than 1e-5 of it from the JAX module's."""
+    err = np.abs(got - want)
     scale = np.abs(want).max()
     assert err.max() <= BF16_ULP * scale
     assert (err > 1e-5 * scale).mean() <= 0.1, (err > 1e-5 * scale).mean()
+
+
+def test_unfused_attention_head_dim_128_matches_jax(monkeypatch):
+    """The port's unfused Attention against the JAX module's, zero Dense
+    biases: q times the bf16-rounded scale.  0-4% of outputs past 1e-5 of
+    the largest over seeds; scaling q by the fp32 scale moves 18-27%."""
+    _within_one_ulp_mostly_exact(*_unfused_attention_128(monkeypatch, 0.0))
+
+
+def test_unfused_attention_head_dim_128_with_dense_biases_matches_jax(
+        monkeypatch):
+    """As above with qkv and proj biases of ~0.1: flax's Dense rounds the
+    product to bf16, then adds the bias rounded to bf16, and so does the
+    port's module path.  0-0.7% of outputs past 1e-5 of the largest over 4
+    seeds; one rounding (``F.linear`` with its bias) moves 37-41%."""
+    _within_one_ulp_mostly_exact(*_unfused_attention_128(monkeypatch, 0.1))
 
 
 # --- LayerScale / q-v-bias blocks and models ------------------------------------

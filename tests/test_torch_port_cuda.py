@@ -730,3 +730,90 @@ def test_layerscale_seg_model_launches_only_k1():
             "mha_serving_fused", "mha_windowed_fused",
             "attention_sublayer_serving", "dyt_prologue_serving")}
         assert counts == {n: 4 if n == kernel else 0 for n in counts}
+
+
+# --- K12 (the fused int8 dispatch MLP) and K16 (the matmul probe) ------------
+#
+# K12 runs K4's chain on the selected rows: against its plain version as K4
+# (two bf16 ulps, the gate identical), and against the Block's unfused
+# chain (dispatch_mlp around q8_ln_mlp, the same kernels on gathered rows)
+# equal value for value.  K16's int8 product is exact; its bf16 product
+# sums in fp32 and is held to two bf16 ulps of a float64 product.
+
+def dispatch_scores(B, N, cap, seed=0):
+    """Keep probabilities, CLS +inf: uniform in [0, u) with u such that
+    about a tenth of the top ``cap`` fall at or under 0.5 (u = 0.917 at
+    N = 197, cap = 99)."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    above = min(0.9 * cap / (N - 1), 0.9)
+    s = torch.rand((B, N), generator=g, device="cuda") * (0.5 / (1 - above))
+    s[:, 0] = float("inf")
+    return s
+
+
+@pytest.mark.parametrize("gelu_approx", [True, False], ids=["tanh", "erf"])
+@pytest.mark.parametrize("xdtype", [BF, torch.float32])
+@pytest.mark.parametrize("B,N,C,cap", [(128, 197, 768, 99), (3, 19, 128, 7),
+                                       (2, 33, 256, 33)])
+def test_q8_dispatch_mlp_kernel(B, N, C, cap, xdtype, gelu_approx):
+    from dynamic_tuning_tpu_torch.ops import dispatch as D
+    x = torch.randn((B, N, C), device="cuda").to(xdtype)
+    w = mlp_q8_inputs(C)
+    s = dispatch_scores(B, N, cap)
+    before = qt.q8_dispatch_mlp.launches
+    out, gate = qt.q8_dispatch_mlp(x, s, *w, capacity=cap,
+                                   gelu_approx=gelu_approx)
+    torch.cuda.synchronize()
+    assert qt.q8_dispatch_mlp.launches == before + 1
+    assert out.dtype == xdtype and out.shape == x.shape
+    assert gate.dtype == xdtype and gate.shape == (B, N)
+    want, want_gate = qt.q8_dispatch_mlp_plain(x, s, *w, capacity=cap,
+                                               gelu_approx=gelu_approx)
+    assert torch.equal(gate, want_gate)
+    assert (gate.sum(dim=1) < cap).any()           # the mask runs
+    bf16_close(out, want, "out")
+    chain, chain_gate = D.dispatch_mlp(
+        x, s, cap, lambda r: qt.q8_ln_mlp(r, *w, gelu_approx=gelu_approx))
+    assert torch.equal(gate, chain_gate)
+    assert torch.equal(out, chain)
+
+
+def test_q8_dispatch_mlp_raises_on_unsupported_input():
+    x = torch.randn((2, 19, 128), device="cuda").to(BF)
+    w = mlp_q8_inputs(128)
+    s = dispatch_scores(2, 19, 7)
+    with pytest.raises(ValueError, match="capacity"):
+        qt.q8_dispatch_mlp(x, s, *w, capacity=20)
+    with pytest.raises(ValueError, match="scores"):
+        qt.q8_dispatch_mlp(x, s[:, :18].contiguous(), *w, capacity=7)
+    with pytest.raises(ValueError, match="contiguous"):
+        qt.q8_dispatch_mlp(x.transpose(0, 1), s, *w, capacity=7)
+
+
+@pytest.mark.parametrize("M,K,N", [(197, 768, 2304), (37, 64, 40),
+                                   (512, 512, 512)])
+def test_make_mm_int8_kernel_is_exact(M, K, N):
+    from dynamic_tuning_tpu_torch.utils import profile_int8 as pi
+    a = torch.randint(-127, 128, (M, K), dtype=torch.int8, device="cuda")
+    b = torch.randint(-127, 128, (K, N), dtype=torch.int8, device="cuda")
+    before = pi.make_mm.launches
+    got = pi.make_mm(M, K, N, torch.int8, torch.int32)(a, b)
+    torch.cuda.synchronize()
+    assert pi.make_mm.launches == before + 1
+    assert got.dtype == torch.int32 and got.shape == (M, N)
+    assert torch.equal(got, pi.mm_plain(a, b, torch.int32))
+
+
+@pytest.mark.parametrize("M,K,N", [(197, 768, 2304), (37, 64, 40)])
+def test_make_mm_bf16_kernel(M, K, N):
+    from dynamic_tuning_tpu_torch.utils import profile_int8 as pi
+    a = torch.randn((M, K), device="cuda").to(BF)
+    b = torch.randn((K, N), device="cuda").to(BF)
+    got = pi.make_mm(M, K, N, BF, torch.float32)(a, b)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.float32 and got.shape == (M, N)
+    # fp32 sums in another order: within 2**-16 of the largest |output| of
+    # the float64 product, where sums or outputs rounded to bf16 fail
+    want = pi.mm_plain(a, b, torch.float64)
+    err = (got.double() - want).abs().max().item()
+    assert err <= 2.0 ** -16 * want.abs().max().item(), err

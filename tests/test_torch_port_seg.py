@@ -397,9 +397,10 @@ def test_segmentor_matches_jax_fp32(monkeypatch, mode, norm):
 def test_segmentor_matches_jax_bf16(monkeypatch, mode):
     """bf16 compute and residual stream: both sides round at the same
     points, but the layers outside the kernels (convs, GELU, GroupNorm
-    inputs) round their fp32 sums through different library code, a bf16
-    ulp (2**-8) per rounding; as for the image model, the logits agree to
-    2% of their largest magnitude.
+    inputs, jax.nn.gelu on bf16) round through different library code, a
+    bf16 ulp (2**-8) here and there; over 8 seeds the logits differ by
+    0.39-0.70% of their largest magnitude (with one rounding per Dense,
+    0.43-1.45% over 4), held to 1%.
 
     Unlike the image model's pooled logits, a segmentor's logits are per
     pixel: a token whose gate flips (a router logit within noise of 0, or
@@ -431,7 +432,7 @@ def test_segmentor_matches_jax_bf16(monkeypatch, mode):
                                       _np(jaux["token_select"]))
     want = _np(jl)
     np.testing.assert_allclose(tl.float().numpy(), want, rtol=0,
-                               atol=0.02 * np.abs(want).max())
+                               atol=0.01 * np.abs(want).max())
 
 
 def test_segmentor_int8_raises():
