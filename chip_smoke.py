@@ -29,8 +29,11 @@ Phases; any failure exits non-zero:
      q, k, v (a reference time only): K1 mha_serving_fused on raw qkv, K15
      mha_serving on contiguous q, k, v and on views of the raw qkv, K13
      flash_attention (and at B=1, N=1025 with an fp32 bias), K14
-     packed_attention; K13 and K14, which only tests call, are first run
-     once each as their own path with the counts set to 0; then K12
+     packed_attention, K13 and K14 also held to their contract check (99%
+     of outputs within one bf16 ulp of the plain version's own value,
+     which a kernel that rounds p before normalising it fails); K13 and
+     K14, which only tests call, are first run once each as their own
+     path with the counts set to 0; then K12
      q8_dispatch_mlp at the int8 dispatch path's shape (B=128, N=197,
      C=768, MLP 3072, K=99, tanh GELU) with seeded router scores of which
      about a tenth of the top K fall under the threshold, beside the
@@ -145,10 +148,10 @@ KERNELS = {
         route="cuda", source=f"{SRC}/attention_sublayer.cu",
         replaces=f"{JAX_OPS}/mha_serving.py:219")),
     "flash_attention": ("fa", dict(
-        route="cuda", source=f"{SRC}/windowed_attention.cu",
+        route="cuda", source=f"{SRC}/softmax_attention.cu",
         replaces=f"{JAX_OPS}/flash_attention.py:73")),
     "packed_attention": ("pa", dict(
-        route="cuda", source=f"{SRC}/windowed_attention.cu",
+        route="cuda", source=f"{SRC}/softmax_attention.cu",
         replaces=f"{JAX_OPS}/packed_attention.py:86")),
     "mha_serving": ("ms", dict(
         route="cuda", source=f"{SRC}/attention_sublayer.cu",
@@ -559,6 +562,14 @@ def phase_attention(torch, ms, qt, fm) -> dict:
         print(f"  SDPA {what} (reference only): {t:.4f} ms")
         return t
 
+    def contract(what, call, plain):
+        share = fa.ulp_share(call(), plain())
+        if share < fa.ULP_SHARE:
+            fail(f"{what}: {share} of outputs within one bf16 ulp of the "
+                 f"plain version's, under {fa.ULP_SHARE}")
+        print(f"  {what}: {share:.6f} of outputs within one bf16 ulp of "
+              f"the plain version's (needs {fa.ULP_SHARE})")
+
     out = {}
     out["mha_serving_fused"] = measure(
         "K1 mha_serving_fused", lambda: ms.mha_serving_fused(qkv, heads=H),
@@ -578,17 +589,25 @@ def phase_attention(torch, ms, qt, fm) -> dict:
         lambda: fa.flash_attention_plain(q, k, v), ("attention",),
         (q, k, v), ops)
     out["flash_attention"]["library_ms"] = sdpa("on q, k, v", q, k, v)
+    contract("K13 flash_attention", lambda: fa.flash_attention(q, k, v),
+             lambda: fa.flash_attention_plain(q, k, v))
     measure(f"K13 flash_attention(B=1, N={SEG_N}, fp32 bias)",
             lambda: fa.flash_attention(sq, sk, sv, bias),
             lambda: fa.flash_attention_plain(sq, sk, sv, bias),
             ("attention",), (sq, sk, sv, bias),
             {"bf16": 2 * attn_ops(1, SEG_N)})
-    sdpa("with the bias as mask", sq, sk, sv,
-         attn_mask=bias.to(torch.bfloat16)[None])
+    contract(f"K13 flash_attention(B=1, N={SEG_N}, fp32 bias)",
+             lambda: fa.flash_attention(sq, sk, sv, bias),
+             lambda: fa.flash_attention_plain(sq, sk, sv, bias))
+    mask = bias.to(torch.bfloat16)[None]
+    sdpa("with the bias as mask", sq, sk, sv, attn_mask=mask)
     out["packed_attention"] = measure(
         "K14 packed_attention", lambda: pa.packed_attention(qkv, num_heads=H),
         lambda: pa.packed_attention_plain(qkv, H), ("attention",), (qkv,),
         ops)
+    contract("K14 packed_attention",
+             lambda: pa.packed_attention(qkv, num_heads=H),
+             lambda: pa.packed_attention_plain(qkv, H))
     out["packed_attention"]["library_ms"] = out["flash_attention"][
         "library_ms"]
     torch.cuda.empty_cache()

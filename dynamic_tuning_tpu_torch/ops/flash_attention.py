@@ -11,9 +11,11 @@ bf16(exp(s - m) / l)`` normalised before its rounding, fp32 accumulation of
 keys past N are never visited, and the output is never padded.
 
 Given CPU tensors the wrapper computes the plain version
-(``flash_attention_plain``); given CUDA tensors it launches the two-pass
-kernel of ``csrc/windowed_attention.cu`` (``dyt_mha_softmax``) or raises.
-``attention_reference`` is the JAX package's fp32 oracle.
+(``flash_attention_plain``); given CUDA tensors it launches the kernel of
+``csrc/softmax_attention.cu`` (``dyt_mha_softmax``: score rows in registers
+for N <= 256, in a shared-memory slab up to ~1.3k, recomputed beyond) or
+raises.  ``attention_reference`` is the JAX package's fp32 oracle;
+``ulp_share`` is the check that holds a kernel to this contract.
 """
 
 from __future__ import annotations
@@ -37,6 +39,24 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return _mm64(p, v.to(bf).transpose(-1, -2)).to(q.dtype)
 
 
+# Share of outputs a kernel must hold within one bf16 ulp of the plain
+# version's own value (``ulp_share``).  The plain version against itself
+# with fp32 sums scores 0.9998-1.0; one that rounds exp(s - m) to bf16
+# before dividing by l (p rounded twice) 0.73-0.93 on the same inputs.
+ULP_SHARE = 0.99
+
+
+def ulp_share(got: torch.Tensor, want: torch.Tensor) -> float:
+    """The share of elements of ``got`` within one bf16 ulp of ``want``'s
+    own magnitude (``2**(floor(log2 |want|) - 7)``).  Sums taken in another
+    order move an output by less; p rounded at another point moves a large
+    share of them by more."""
+    w = want.float()
+    ulp = torch.exp2(torch.floor(torch.log2(w.abs().clamp_min(2.0 ** -126)))
+                     - 7)
+    return ((got.float() - w).abs() <= ulp).float().mean().item()
+
+
 def attention_reference(q, k, v, bias=None) -> torch.Tensor:
     """fp32 oracle: ``softmax(q k^T / sqrt(D) + bias) v`` with no bf16
     rounding, in q's dtype."""
@@ -48,9 +68,9 @@ def attention_reference(q, k, v, bias=None) -> torch.Tensor:
 
 
 def launch_softmax(q, k, v, out, bias=None) -> None:
-    """The two-pass kernel on q, k, v ``[B, H, N, hd]`` (fp32 or bf16, the
-    same for all four) into ``out``; each must have unit stride along hd
-    and rows on 16 bytes.  Shared with K14."""
+    """The softmax-attention kernel on q, k, v ``[B, H, N, hd]`` (fp32 or
+    bf16, the same for all four) into ``out``; each must have unit stride
+    along hd and rows on 16 bytes.  Shared with K14."""
     B, H, N, hd = q.shape
     if hd not in (64, 128):
         raise ValueError(f"head_dim {hd} not supported (64 or 128)")
@@ -74,6 +94,10 @@ def launch_softmax(q, k, v, out, bias=None) -> None:
             raise TypeError(f"bias is {bias.dtype}, want torch.float32")
         if bias.stride(-1) != 1:
             raise ValueError("bias must have unit column stride")
+        if bias.data_ptr() % 16:
+            # the kernel copies bias rows in 16-byte chunks from their
+            # start rounded down, which must stay inside the tensor
+            bias = bias.clone()
     lib = _build.library()
     with torch.cuda.device(q.device):
         err = lib.dyt_mha_softmax(

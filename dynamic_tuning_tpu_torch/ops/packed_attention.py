@@ -10,8 +10,9 @@ contract they set (``num_heads % 4 == 0``, ``N <= 256``), which raises
 ValueError on every device.
 
 Given CPU tensors the wrapper computes the plain version; given CUDA tensors
-it launches K13's kernel on strided views of the buffer, writing
-``[B, N, C]`` directly, or raises.
+it launches K13's kernel (``csrc/softmax_attention.cu``, its register-resident
+form: N <= 256) on strided views of the buffer, writing ``[B, N, C]``
+directly, or raises.
 """
 
 from __future__ import annotations

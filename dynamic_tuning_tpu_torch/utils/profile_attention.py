@@ -1,5 +1,6 @@
-"""Serving attention on the card: K1 against the plain path it replaces and
-SDPA (counterpart of scripts/profile_attention.py).
+"""Serving attention on the card: K1 against the plain path it replaces,
+K13 and K14, each beside SDPA (counterpart of
+scripts/profile_attention.py).
 
     python -m dynamic_tuning_tpu_torch.utils.profile_attention
 
@@ -11,9 +12,13 @@ At ViT-B/16 serving shape (B=128, N=197, 12 heads of 64, bf16 raw qkv
   group: the TPU script's loop over ``group`` has no Hopper counterpart);
 * ``mha_fused_reference``, the plain path K1 replaces: q, k, v transposed
   out of the buffer, the plain core (float64 sums), transposed back;
+* K13, ``ops/flash_attention.flash_attention`` on the transposed q, k, v,
+  and K14, ``ops/packed_attention.packed_attention`` on the raw buffer;
 * ``F.scaled_dot_product_attention`` on the transposed q, k, v (a
   library's time for the max-subtracted softmax: a yardstick, never
   called by the port);
+* K13 at the segmentation shape, B=1, N=1025, 12 heads of 64 with an fp32
+  [12, 1025, 1025] bias, beside SDPA with the bias (in bf16) as its mask;
 * a 4096^3 bf16 matmul, the calibration anchor of the TPU script.
 
 Prints the card's name and power limit first.  Needs a CUDA device.
@@ -26,11 +31,14 @@ import argparse
 import torch
 import torch.nn.functional as F
 
+from dynamic_tuning_tpu_torch.ops import flash_attention as fa
 from dynamic_tuning_tpu_torch.ops import mha_serving as ms
+from dynamic_tuning_tpu_torch.ops import packed_attention as pa
 from dynamic_tuning_tpu_torch.utils.profiling import card_line, time_ms
 
 B, N, H, HD = 128, 197, 12, 64
 C = H * HD
+SEG_N = 1025
 
 
 def main(args) -> dict:
@@ -43,15 +51,28 @@ def main(args) -> dict:
         torch.bfloat16)
     q, k, v = (t.contiguous() for t in
                qkv.view(B, N, 3, H, HD).permute(2, 0, 3, 1, 4))
+    bias = torch.randn((H, SEG_N, SEG_N), generator=g, device="cuda")
+    mask = bias.to(torch.bfloat16)[None]
+    sq, sk, sv = (torch.randn((1, H, SEG_N, HD), generator=g, device="cuda")
+                  .to(torch.bfloat16) for _ in range(3))
     times = {
         "k1": time_ms(lambda: ms.mha_serving_fused(qkv, heads=H)),
         "plain": time_ms(lambda: ms.mha_fused_reference(qkv, heads=H)),
+        "k13": time_ms(lambda: fa.flash_attention(q, k, v)),
+        "k14": time_ms(lambda: pa.packed_attention(qkv, num_heads=H)),
         "sdpa": time_ms(lambda: F.scaled_dot_product_attention(q, k, v)),
+        "k13_bias": time_ms(lambda: fa.flash_attention(sq, sk, sv, bias)),
+        "sdpa_bias": time_ms(lambda: F.scaled_dot_product_attention(
+            sq, sk, sv, attn_mask=mask)),
     }
     print(f"transpose + plain core : {times['plain']:8.4f} ms")
     print(f"K1 mha_serving_fused   : {times['k1']:8.4f} ms (one kernel for "
           "any group)")
+    print(f"K13 flash_attention    : {times['k13']:8.4f} ms")
+    print(f"K14 packed_attention   : {times['k14']:8.4f} ms")
     print(f"SDPA (reference only)  : {times['sdpa']:8.4f} ms")
+    print(f"K13, N={SEG_N}, fp32 bias: {times['k13_bias']:8.4f} ms")
+    print(f"SDPA, the bias as mask : {times['sdpa_bias']:8.4f} ms")
     a = torch.randn((4096, 4096), generator=g, device="cuda").to(
         torch.bfloat16)
     b = torch.randn((4096, 4096), generator=g, device="cuda").to(

@@ -21,6 +21,9 @@ Tolerances, stated where used:
   that sits on a bf16 rounding boundary may round the other way, and moves
   the outputs that read it by up to 2**-8 * p * |v|.  bf16 I/O within two
   bf16 ulps.
+* The card's contract check for K13/K14 (``ulp_share``, 99% of outputs
+  within one bf16 ulp of their own magnitude) is shown here to pass sums
+  in another order and to fail p rounded before its normalisation.
 """
 
 import dataclasses
@@ -206,6 +209,76 @@ def test_attention_references_match_jax():
     want = _np(jpa.packed_attention_reference(_j(qkv), num_heads=4))
     got = tpa.packed_attention_reference(_t(qkv), num_heads=4)
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
+
+
+# --- the contract check held on the card (tfa.ulp_share) ----------------------
+
+def _plain_with_fp32_sums(q, k, v, bias=None):
+    """flash_attention_plain with fp32 sums (scores, l, P V) in place of
+    float64 ones: the same rounding points, sums in another order -- what
+    a right kernel gives."""
+    bf = torch.bfloat16
+    s = (q.to(bf).float() @ k.to(bf).float().transpose(-1, -2)
+         * q.shape[-1] ** -0.5)
+    if bias is not None:
+        s = s + bias.float()
+    e = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    p = (e / e.sum(dim=-1, keepdim=True)).to(bf)
+    return (p.float() @ v.to(bf).float()).to(q.dtype)
+
+
+def _p_rounded_before_dividing(q, k, v, bias=None):
+    """A wrong kernel: exp(s - m) rounded to bf16, then divided by l and
+    rounded again, where the contract normalises p before its one
+    rounding."""
+    bf = torch.bfloat16
+    s = tms._mm64(q.to(bf), k.to(bf)) * q.shape[-1] ** -0.5
+    if bias is not None:
+        s = s + bias.float()
+    e = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    l = e.double().sum(dim=-1, keepdim=True).float()
+    p = (e.to(bf).float() / l).to(bf)
+    return tms._mm64(p, v.to(bf).transpose(-1, -2)).to(q.dtype)
+
+
+CONTRACT_CASES = {
+    "vit_bf16": ((2, 3, 197, 64), False, "bfloat16"),
+    "vit_fp32": ((2, 3, 197, 64), False, "float32"),
+    "bias_fp32": ((1, 2, 300, 64), True, "float32"),
+    "hd128_bias_bf16": ((2, 2, 37, 128), True, "bfloat16"),
+}
+
+
+def _contract_inputs(case):
+    shape, with_bias, dtype = CONTRACT_CASES[case]
+    rs = np.random.RandomState(len(case))
+    q, k, v = (_t(rs.randn(*shape), dtype) for _ in range(3))
+    N = shape[2]
+    bias = _t(rs.randn(shape[1], N, N)) if with_bias else None
+    return q, k, v, bias
+
+
+@pytest.mark.parametrize("case", list(CONTRACT_CASES))
+def test_ulp_share_accepts_sums_in_another_order(case):
+    """The card holds K13/K14 to ``ulp_share >= ULP_SHARE`` against the
+    plain version; the plain version with fp32 sums passes it."""
+    q, k, v, bias = _contract_inputs(case)
+    share = tfa.ulp_share(_plain_with_fp32_sums(q, k, v, bias),
+                          tfa.flash_attention_plain(q, k, v, bias))
+    assert share >= tfa.ULP_SHARE, share
+
+
+@pytest.mark.parametrize("case", list(CONTRACT_CASES))
+def test_ulp_share_rejects_p_rounded_before_dividing(case):
+    """... and a kernel that rounds p at the wrong point fails it (0.73 to
+    0.93 of outputs within one ulp), though its outputs stay within the
+    two bf16 ulps of the largest magnitude that bf16_close allows."""
+    q, k, v, bias = _contract_inputs(case)
+    want = tfa.flash_attention_plain(q, k, v, bias)
+    got = _p_rounded_before_dividing(q, k, v, bias)
+    assert tfa.ulp_share(got, want) < tfa.ULP_SHARE
+    assert ((got.float() - want.float()).abs().max()
+            <= 2 * 2.0 ** -8 * want.float().abs().max())
 
 
 # --- K14 ----------------------------------------------------------------------

@@ -620,12 +620,31 @@ def test_k15_and_k1_round_differently():
     assert not torch.equal(a, b)
 
 
+def contract_close(got, want, what=""):
+    """K13/K14 beside bf16_close: 99% of outputs within one bf16 ulp of
+    their own magnitude (``ulp_share``), which a kernel that rounds p at
+    another point fails (tests/test_torch_port_attn.py)."""
+    from dynamic_tuning_tpu_torch.ops import flash_attention as fa
+
+    share = fa.ulp_share(got, want)
+    assert share >= fa.ULP_SHARE, f"{what}: {share} within one ulp"
+    return share
+
+
 @pytest.mark.parametrize("xdtype", [BF, torch.float32])
 @pytest.mark.parametrize("B,H,N,hd,with_bias", [
     (128, 12, 197, 64, False),            # the speed-test shape
     (1, 12, 1025, 64, True),              # the seg shape, fp32 rel-pos bias
     (2, 3, 37, 128, True),                # odd N: bias rows on 4 bytes
-    (2, 2, 5, 64, False)])                # fewer keys than a 16-key chunk
+    (2, 2, 5, 64, False),                 # fewer keys than a 16-key chunk
+    (2, 2, 256, 64, True),                # the last register-resident N
+    (2, 2, 257, 64, True),                # the first walked N (a slab)
+    (1, 2, 1280, 64, True),               # the last slab N at hd 64
+    (1, 2, 1281, 64, True),               # the first two-pass N at hd 64
+    (1, 3, 1025, 128, True),              # the seg shape at hd 128 (slab)
+    (1, 2, 1089, 128, True),              # the first two-pass N at hd 128
+    (1, 4, 1577, 64, False),              # video pooling
+    (1, 2, 2048, 64, True)])
 def test_flash_attention_kernel(B, H, N, hd, with_bias, xdtype):
     from dynamic_tuning_tpu_torch.ops import flash_attention as fa
 
@@ -639,11 +658,31 @@ def test_flash_attention_kernel(B, H, N, hd, with_bias, xdtype):
     torch.cuda.synchronize()
     assert fa.flash_attention.launches == before + 1
     assert got.dtype == xdtype and got.shape == q.shape
-    bf16_close(got, fa.flash_attention_plain(q, k, v, bias), "K13")
+    want = fa.flash_attention_plain(q, k, v, bias)
+    bf16_close(got, want, "K13")
+    contract_close(got, want, "K13")
+
+
+@pytest.mark.parametrize("N", [37, 300])
+def test_flash_attention_kernel_on_a_bias_view(N):
+    """A bias view whose rows and base are off 16 bytes (the wrapper copies
+    a base off 16 bytes) in both the register-resident and walked forms."""
+    from dynamic_tuning_tpu_torch.ops import flash_attention as fa
+
+    g = torch.Generator(device="cuda").manual_seed(20)
+    q, k, v = (torch.randn((2, 3, N, 64), generator=g, device="cuda")
+               .to(BF) for _ in range(3))
+    bias = torch.randn((3, N, N + 3), generator=g, device="cuda")[..., 1:N + 1]
+    assert bias.data_ptr() % 16
+    got = fa.flash_attention(q, k, v, bias)
+    want = fa.flash_attention_plain(q, k, v, bias)
+    bf16_close(got, want, "K13")
+    contract_close(got, want, "K13")
 
 
 @pytest.mark.parametrize("xdtype", [BF, torch.float32])
-@pytest.mark.parametrize("B,N,C,H", [(128, 197, 768, 12), (2, 64, 512, 4)])
+@pytest.mark.parametrize("B,N,C,H", [(128, 197, 768, 12), (2, 64, 512, 4),
+                                     (2, 256, 768, 12), (3, 7, 512, 4)])
 def test_packed_attention_kernel(B, N, C, H, xdtype):
     from dynamic_tuning_tpu_torch.ops import packed_attention as pa
 
@@ -653,7 +692,9 @@ def test_packed_attention_kernel(B, N, C, H, xdtype):
     torch.cuda.synchronize()
     assert pa.packed_attention.launches == before + 1
     assert got.dtype == xdtype and got.shape == (B, N, C)
-    bf16_close(got, pa.packed_attention_plain(qkv, H), "K14")
+    want = pa.packed_attention_plain(qkv, H)
+    bf16_close(got, want, "K14")
+    contract_close(got, want, "K14")
 
 
 def test_attention_wrappers_raise_on_unsupported_input():

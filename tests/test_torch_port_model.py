@@ -160,6 +160,61 @@ def test_model_matches_jax_bf16(monkeypatch, mode):
         assert (same | near).all()
 
 
+def _jax_bf16_tanh_gelu(x: torch.Tensor) -> torch.Tensor:
+    """jax.nn.gelu(x, approximate=True) on bf16 as XLA on the CPU computes
+    it: its optimised HLO rounds to bf16 after every op, and the Python
+    constants are weak-typed, so rounded to bf16 first (0.044715 ->
+    0.0446777344, sqrt(2/pi) -> 0.796875).  Each torch bf16 op rounds
+    once, so the same ops in jax's order give the same bits."""
+    def c(v):
+        return torch.tensor(v, dtype=torch.float32).to(torch.bfloat16)
+
+    x3 = (x * x) * x
+    inner = c(float(np.float32(np.sqrt(2 / np.pi)))) * (x + c(0.044715) * x3)
+    return x * (c(0.5) * (c(1.0) + torch.tanh(inner)))
+
+
+def test_jax_bf16_tanh_gelu_rounds_after_every_op():
+    """Fault 3 (ROADMAP): the per-op reproduction equals jax.nn.gelu on
+    bf16 bit for bit; the port's once-rounded tanh GELU (F.gelu, as the
+    JAX package's Pallas kernels compute it: fp32, one rounding) differs
+    on a large share of the values."""
+    x = (np.random.RandomState(0).randn(200_000) * 3).astype(np.float32)
+    want = np.asarray(jax.nn.gelu(jnp.asarray(x).astype(jnp.bfloat16),
+                                  approximate=True).astype(jnp.float32))
+    xt = torch.from_numpy(x).to(torch.bfloat16)
+    np.testing.assert_array_equal(_jax_bf16_tanh_gelu(xt).float().numpy(),
+                                  want)
+    once = torch.nn.functional.gelu(xt, approximate="tanh").float().numpy()
+    assert (once != want).mean() >= 0.30
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2, 3])
+def test_model_matches_jax_bf16_with_jax_gelu_rounding(monkeypatch, seed):
+    """test_model_matches_jax_bf16 in mask mode with the tanh GELU and the
+    port's Mlp given jax's per-op bf16 GELU.  The GELU is then no longer
+    a difference: over seeds 0-7 the logit gap is 0 (bit-identical) on
+    five, 0.39-0.92% of the largest logit on the others (summation order
+    elsewhere), against 0.53-1.22% with the once-rounded GELU; held to
+    1%.  The port keeps the once-rounded GELU for serving."""
+    def forward(self, x):
+        h = tlayers._dense(x, self.fc1, self._w, self.dtype)
+        return tlayers._dense(_jax_bf16_tanh_gelu(h), self.fc2, self._w,
+                              self.dtype)
+
+    monkeypatch.setattr(tlayers.Mlp, "forward", forward)
+    jm, params, tm, x = _pair(monkeypatch, dtype="bfloat16", seed=seed,
+                              gelu_approx=True)
+    jl, jaux, tl, taux = _run_both(jm, params, tm, x, {})
+    want = np.asarray(jl.astype(jnp.float32))
+    np.testing.assert_allclose(tl.float().numpy(), want, rtol=0,
+                               atol=0.01 * np.abs(want).max())
+    jl_tok = np.asarray(jaux["token_logits"])
+    near = np.abs(jl_tok) < 0.05 * np.abs(jl_tok).max()
+    same = taux["token_select"].numpy() == np.asarray(jaux["token_select"])
+    assert (same | near).all()
+
+
 INT8_MODES = {"dispatch": {"dispatch": True}, "mask": {},
               "dense": {"complete_model": True}, "plain": {}}
 
