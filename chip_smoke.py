@@ -15,8 +15,10 @@ Phases; any failure exits non-zero:
      dyt_prologue_serving_moe (4 experts of 64; with and without the
      router), K8 dyt_prologue_serving_q8_moe (with and without the router,
      and with the K10 core); then the hand int8 GEMM beside torch._int_mm
-     and cuBLAS bf16 at the int8 path's GEMM shapes (reference times, not
-     used by the port); then K9 mha_windowed_fused at the segmentation
+     and cuBLAS bf16 at the int8 path's GEMM shapes, and the hand bf16
+     GEMM (fp32 out) beside torch.mm(out_dtype=float32) at the same shapes,
+     with TFLOP/s and the bound (reference times, not used by the port);
+     then K9 mha_windowed_fused at the segmentation
      path's shape (N = 1025 tokens of a 512^2 crop, 12 heads of 64, a bf16
      bias in the layer's padded layout) at batch 1 and 2, beside
      F.scaled_dot_product_attention with the bias as its mask (a reference
@@ -29,9 +31,9 @@ Phases; any failure exits non-zero:
      q, k, v (a reference time only): K1 mha_serving_fused on raw qkv, K15
      mha_serving on contiguous q, k, v and on views of the raw qkv, K13
      flash_attention (and at B=1, N=1025 with an fp32 bias), K14
-     packed_attention, K13 and K14 also held to their contract check (99%
-     of outputs within one bf16 ulp of the plain version's own value,
-     which a kernel that rounds p before normalising it fails); K13 and
+     packed_attention, each also held to the contract check (99% of
+     outputs within one bf16 ulp of the plain version's own value, which a
+     kernel that rounds p at another point fails); K13 and
      K14, which only tests call, are first run once each as their own
      path with the counts set to 0; then K12
      q8_dispatch_mlp at the int8 dispatch path's shape (B=128, N=197,
@@ -405,10 +407,12 @@ def phase_kernels(torch, ms, qt) -> dict:
     return out
 
 
-def phase_gemm_reference(torch, _build) -> None:
-    """The hand int8 GEMM (through the stem's entry point, bf16 out) beside
-    torch._int_mm and cuBLAS bf16 at the int8 path's GEMM shapes.  Reference
-    times only: the port calls neither library."""
+def phase_gemm_reference(torch, _build, pi) -> None:
+    """The hand GEMMs at the serving path's GEMM shapes, beside the library:
+    the int8 one (through the stem's entry point, bf16 out) beside
+    torch._int_mm and cuBLAS bf16, and the bf16 one (fp32 out, as K16's
+    probe) beside cuBLAS bf16 with an fp32 output.  Reference times only:
+    the port calls neither library."""
     lib = _build.library()
     stream = torch.cuda.current_stream().cuda_stream
     for name, M, Nn, K in (("qkv", B * N, 3 * C, C), ("proj", B * N, C, C),
@@ -445,6 +449,31 @@ def phase_gemm_reference(torch, _build) -> None:
         t_bf = time_ms(lambda: torch.matmul(ab, wb.t()))
         print(line + f", cuBLAS bf16 {t_bf:.4f} ms "
               f"({ops / t_bf / 1e9:.1f} TFLOP/s)")
+
+        # the hand bf16 GEMM on bf16 values of the same size
+        g = torch.Generator(device="cuda").manual_seed(8)
+        ab = torch.randn((M, K), generator=g, device="cuda").to(
+            torch.bfloat16)
+        wb = (torch.randn((Nn, K), generator=g, device="cuda") * 0.03).to(
+            torch.bfloat16)
+        mm = pi.make_mm(M, K, Nn, torch.bfloat16, torch.float32)
+        got = mm.nt(ab, wb)
+        want = torch.matmul(ab.double(), wb.double().t())
+        err, mag = rel_err(got.double(), want)
+        if not err <= FP32_SUM_REL * mag:
+            fail(f"hand bf16 GEMM ({name}): max |err| {err} > "
+                 f"{FP32_SUM_REL * mag}")
+        del want
+        b_ms, b_by = bound(nbytes(ab, wb, got), {"bf16": ops})
+        t_hand = time_ms(lambda: mm.nt(ab, wb))
+        t_lib = time_ms(lambda: torch.mm(ab, wb.t(), out_dtype=torch.float32))
+        print(f"  hand bf16 GEMM, fp32 out: {t_hand:.4f} ms "
+              f"({ops / t_hand / 1e9:.1f} TFLOP/s); "
+              f"torch.mm(out_dtype=float32) {t_lib:.4f} ms "
+              f"({ops / t_lib / 1e9:.1f}); bound {b_ms:.4f} ms ({b_by}); "
+              f"max|err| {err:.6g} of {mag:.6g}")
+        del a, w, ab, wb, got, out
+    torch.cuda.empty_cache()
 
 
 def phase_windowed(torch, ms, layers) -> dict:
@@ -575,14 +604,23 @@ def phase_attention(torch, ms, qt, fm) -> dict:
         "K1 mha_serving_fused", lambda: ms.mha_serving_fused(qkv, heads=H),
         lambda: ms.attn_core_pairs(qkv, heads=H), ("core",), (qkv,), ops)
     out["mha_serving_fused"]["library_ms"] = sdpa("on q, k, v", q, k, v)
+    contract("K1 mha_serving_fused",
+             lambda: ms.mha_serving_fused(qkv, heads=H),
+             lambda: ms.attn_core_pairs(qkv, heads=H))
     measure("K15 mha_serving (contiguous q, k, v)",
             lambda: ms.mha_serving(q, k, v),
             lambda: ms.mha_serving_plain(q, k, v), ("core",), (q, k, v),
             ops)
+    contract("K15 mha_serving (contiguous q, k, v)",
+             lambda: ms.mha_serving(q, k, v),
+             lambda: ms.mha_serving_plain(q, k, v))
     out["mha_serving"] = measure(
         "K15 mha_serving (views of the raw qkv)",
         lambda: ms.mha_serving(*views),
         lambda: ms.mha_serving_plain(*views), ("core",), (qkv,), ops)
+    contract("K15 mha_serving (views of the raw qkv)",
+             lambda: ms.mha_serving(*views),
+             lambda: ms.mha_serving_plain(*views))
     out["mha_serving"]["library_ms"] = out["mha_serving_fused"]["library_ms"]
     out["flash_attention"] = measure(
         "K13 flash_attention", lambda: fa.flash_attention(q, k, v),
@@ -1126,7 +1164,7 @@ def main() -> None:
             print("  ptxas:", ln.strip(), file=sys.stderr)
 
     measured = phase_kernels(torch, ms, qt)
-    phase_gemm_reference(torch, _build)
+    phase_gemm_reference(torch, _build, pi)
     measured.update(phase_windowed(torch, ms, layers))
     measured.update(phase_k11(torch, fm, fast))
     attention, attention_path = phase_attention(torch, ms, qt, fm)

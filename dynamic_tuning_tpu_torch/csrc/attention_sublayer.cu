@@ -8,41 +8,45 @@
 // dyt_mha_core, also replaces two more TPU kernels of that file:
 // mha_serving_fused (K1, _mha_fused_kernel: raw qkv in, [B, N, C] out) and
 // mha_serving (K15, _mha_kernel: pre-split [B, H, N, hd] q, k, v, with the
-// unfused branch's rounding).  Alone, at B=128, N=197, 12 heads of 64, the
-// core moves 155 MB (0.046 ms at 3.35 TB/s) for 15.3 GFLOP (0.015 ms at
-// the bf16 peak): bytes bound it on paper, mma.sync and one expf per score
-// in practice.  The core reads q, k and v through element strides, so K1
-// and K15 need no transposes around them, and K15 writes [B, N, H, hd]
-// memory that the output projection reads as [B, N, C].
+// unfused branch's rounding); quant.cu's int8 chains (K5, K6, K8) run it
+// through dyt_attn_core.  The core reads q, k and v through element
+// strides, so K1 and K15 need no transposes around them, and K15 writes
+// [B, N, H, hd] memory that the output projection reads as [B, N, C].
 //
 // What bounds it on an H100.  At ViT-B/16 serving shapes (B=128, N=197,
 // C=768, 12 heads of 64) the sublayer does ~0.12 TFLOP of qkv/proj GEMM and
 // ~0.015 TFLOP of attention products per block (0.12 ms at the 989 TFLOP/s
-// bf16 peak), plus one expf per score (60 M per block).  The TPU kernel
+// bf16 peak), plus one exp per score (60 M per block).  The TPU kernel
 // kept every intermediate in VMEM; the chain below moves the bf16 LN rows,
 // qkv buffer and core output through device memory, ~0.5 GB per block
-// (0.15 ms at 3.35 TB/s).  So this first, simple version sits near the
-// balance point: bytes and the mma.sync GEMM's efficiency (~220 TFLOP/s,
-// no wgmma yet) bound it together.
+// (0.15 ms at 3.35 TB/s).  Alone, the core moves 155 MB (0.046 ms) for
+// 15.3 GFLOP (0.015 ms): bytes bound it on paper; on the card the
+// per-score instructions (clamp, an accurate expf, l, the bf16 packing) and
+// the loads each block waits for at its start take as long.
 //
-// What the design does about it.  Four kernels on the caller's stream:
+// What the design does about it.  Four kernels on the caller's stream,
+// each following the TPU kernel's rounding points exactly:
 //   1. layernorm_bf16_kernel (common.cuh) -- one warp per row, fp32
 //      two-pass LN (mean, then mean of centred squares, eps 1e-6), rounded
 //      once to bf16;
-//   2. gemm_nt_kernel<EPI_BIAS_BF16> -- LN rows x Wqkv^T on tensor cores,
-//      fp32 accumulation, + bqkv in fp32, one rounding to bf16;
-//   3. attn_core_kernel -- one block per (sample, head): K and V of the head
-//      stay in shared memory while eight warps stream 16-row query tiles
-//      over 16-key chunks on mma.sync.  The serving softmax has no row max
-//      (e = exp(clip(s, -60, 80) - 20)), so each key chunk is final when it
-//      is computed: scores and probabilities never leave registers, with no
-//      rescaling and no [N, N] score tile anywhere;
+//   2. gemm_nt_kernel<EPI_BIAS_BF16> (gemm.cuh: TMA ring, wgmma, a
+//      persistent grid) -- LN rows x Wqkv^T, fp32 accumulation, + bqkv in
+//      fp32, one rounding to bf16;
+//   3. attn_core_kernel -- one warpgroup per (sample, head): the head's K
+//      and V are staged once into 128-byte swizzled shared-memory tiles,
+//      then each 64-row query tile takes its keys in chunks: S = Q K^T on
+//      wgmma with q' in registers, the clamped exp and l in registers,
+//      P V on wgmma with p as register fragments against V read N-major.
+//      The serving softmax has no row max (e = exp(clip(s, -60, 80) - 20)),
+//      so each key chunk is final when it is computed: no rescaling, no
+//      [N, N] tile anywhere.  Up to 256 keys the whole row is one chunk
+//      (one Q K^T and one P V chain a tile: fewer waits than 64-key chunks,
+//      measured faster); past that, 64-key chunks are software-pipelined;
 //   4. gemm_nt_kernel<EPI_RESIDUAL> -- core x Wproj^T + x + bproj in fp32,
 //      written in the residual dtype (and as an fp32 copy for the DyT
 //      prologue's adapter/router, which read x_mid in fp32).
-// Fusing the chain (wgmma, TMA, the core inside the qkv GEMM's epilogue) is
-// later work; each step follows the TPU kernel's rounding points exactly.
-#include "common.cuh"
+// Fusing the chain (the core inside the qkv GEMM's epilogue) is later work.
+#include "gemm.cuh"
 
 namespace dyt {
 
@@ -60,15 +64,27 @@ namespace dyt {
 //   q' = bf16(q * bf16(scale));  p = bf16(e);  l = sum(p) in fp32;
 //   o = (p @ v in fp32) / l (an IEEE division) -> bf16
 
-constexpr int ATT_WARPS = 8;
+constexpr int CORE_THREADS = 128;   // one warpgroup a block
+constexpr int CORE_STREAM_KEYS = 64;   // keys a chunk past 256 keys
 
-template <int HD>
-struct AttnLayout {
-  static constexpr int LDK = HD + 8;   // K/V smem row stride (bank skew)
-  static int smem_bytes(int N) {
-    const int np = (N + 15) / 16 * 16;
-    return 2 * np * LDK * 2;
+// K and V of a head in 128-byte swizzled tiles [HD / 64][rows][64], rows =
+// N rounded up to 16 (zeros past N), then a 64-row Q tile in rows of
+// HD + 8 elements (the bank skew of its fragment reads).  Q K^T runs over
+// chunks of KC keys (208 or 256: the whole row at N <= 256; else 64): the
+// last chunk reads rows past the end of K's last 64-column block, which
+// land in V, or in slack past it for short heads, and give scores that are
+// masked.
+template <int HD, int KC>
+struct CoreLayout {
+  static constexpr int LDQ = HD + 8;
+  __host__ __device__ static int rows(int N) { return (N + 15) / 16 * 16; }
+  __host__ __device__ static int tile(int N) { return rows(N) * HD * 2; }
+  // bytes from K's start to the Q tile's
+  __host__ __device__ static int q_offset(int N) {
+    const int over = ((N + KC - 1) / KC * KC - rows(N)) * 128;
+    return tile(N) + (tile(N) > over ? tile(N) : over);
   }
+  static int smem_bytes(int N) { return 1024 + q_offset(N) + 64 * LDQ * 2; }
 };
 
 // Element strides (batch, head, row) of q, k, v and out.
@@ -82,114 +98,187 @@ struct CoreArgs {
   float scale;
 };
 
-// Each warp owns 16 query rows at a time and walks the keys in chunks of
-// 16: S = Q K^T lands in mma accumulators, the clamped exp turns it in
-// registers into the bf16 A operand of P V, and l accumulates beside it.
-// Thread (g = lane/4, t = lane%4) holds rows g and g + 8 of every tile.
-template <int HD, bool K15>
-__global__ void __launch_bounds__(ATT_WARPS * 32)
+// One warpgroup per (sample, head), K and V staged once.  Per 64-row query
+// tile, warp w owns rows 16 w .. 16 w + 15 and thread (g = lane/4, t =
+// lane%4) rows g and g + 8: q' is built in registers straight in wgmma's A
+// layout from the tile's rows in shared memory (the next tile's rows are
+// copied in while this one computes).  Then, per chunk of KC keys, S = q'
+// K^T (wgmma, A from registers, K K-major), the clamped exp and l in
+// registers, and P V (wgmma, p from registers, V N-major).  At N <= 256
+// (KC = 208 or 256) a tile's whole score row is one chunk: one Q K^T chain
+// and one P V chain a tile.  Past 256 keys (KC = 64) the chunks are
+// software-pipelined over two score buffers: chunk kc + 1's Q K^T runs
+// while chunk kc's exp runs, and chunk kc's P V while the next scores are
+// awaited.  Only the last chunk masks keys past N, and skips its 8-key
+// tiles past the padded rows.  A warp whose 16 rows lie past N skips the
+// exp and feeds P = 0.  The exp is expf: ex2.approx of x log2 e (K13's
+// form) is ~10% faster here but its rounded argument moves e by ~20 fp32
+// ulps, and the int8 dispatch forward's gate agreement with its plain
+// version then fell under chip_smoke.py's 0.995.
+template <int HD, int KC, bool K15>
+__global__ void __launch_bounds__(CORE_THREADS,
+                                  HD == 64 && KC <= 208 ? 3 : 2)
 attn_core_kernel(const CoreArgs a) {
-  constexpr int LDK = AttnLayout<HD>::LDK;
-  constexpr int CPR = HD / 8;    // 16-byte chunks per head row
-  constexpr int DK = HD / 16;    // k16 steps of Q K^T
-  constexpr int OT = HD / 8;     // n8 tiles of the output
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  const int N = a.N;
-  const int np = (N + 15) / 16 * 16;
-  bf16* Ks = reinterpret_cast<bf16*>(smem_raw);
-  bf16* Vs = Ks + np * LDK;
+  using L = CoreLayout<HD, KC>;
+  constexpr bool STREAM = KC == CORE_STREAM_KEYS;
+  constexpr int DK = HD / 16;          // k16 steps of Q K^T
+  constexpr int NS = KC / 2;           // score accumulators a thread
+  constexpr int PS = KC / 16;          // k16 steps of P V a chunk
+  extern __shared__ unsigned char smem_raw[];
+  const int N = a.N, np = L::rows(N);
+  const int nkc = (N + KC - 1) / KC, nq = (N + 63) / 64;
+  unsigned char* Kt = align1024(smem_raw);
+  unsigned char* Vt = Kt + L::tile(N);
+  bf16* Qs = reinterpret_cast<bf16*>(Kt + L::q_offset(N));
 
   const int b = blockIdx.x / a.H, h = blockIdx.x % a.H;
   const bf16* qb = a.q + b * a.sq[0] + h * a.sq[1];
   const bf16* kb = a.k + b * a.sk[0] + h * a.sk[1];
   const bf16* vb = a.v + b * a.sv[0] + h * a.sv[1];
   bf16* ob = a.o + b * a.so[0] + h * a.so[1];
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t2 = (lane & 3) * 2;
+
+  // rows qt * 64 .. + 63 of q into Qs (zeros past N)
+  auto stage_q = [&](int qt) {
+    for (int i = tid; i < 64 * (HD / 8); i += CORE_THREADS) {
+      const int r = i / (HD / 8), c = (i % (HD / 8)) * 8;
+      const int n = qt * 64 + r;
+      cp_async16(Qs + r * L::LDQ + c, n < N ? qb + n * a.sq[2] + c : qb,
+                 n < N ? 16 : 0);
+    }
+  };
+  // groups: K, the first Q tile, V -- so that waiting for all but the
+  // newest leaves only V in flight
+  stage_sw128<HD>(Kt, kb, a.sk[2], 0, np, N, tid, CORE_THREADS);
+  cp_async_commit();
+  stage_q(0);
+  cp_async_commit();
+  stage_sw128<HD>(Vt, vb, a.sv[2], 0, np, N, tid, CORE_THREADS);
+  cp_async_commit();
   // K15 takes the scale as XLA does a weak-typed Python float times a bf16
   // array: rounded to bf16 first
   const float scale =
       K15 ? __bfloat162float(__float2bfloat16_rn(a.scale)) : a.scale;
 
-  for (int i = threadIdx.x; i < np * CPR; i += blockDim.x) {
-    const int r = i / CPR, c = (i % CPR) * 8;
-    uint4 kv = make_uint4(0, 0, 0, 0), vv = make_uint4(0, 0, 0, 0);
-    if (r < N) {
-      kv = *reinterpret_cast<const uint4*>(kb + r * a.sk[2] + c);
-      vv = *reinterpret_cast<const uint4*>(vb + r * a.sv[2] + c);
+  for (int qt = 0; qt < nq; ++qt) {
+    const int n_lo = qt * 64 + warp * 16 + g, n_hi = n_lo + 8;
+    const bool live = qt * 64 + warp * 16 < N;     // the same for the warp
+    if (qt == 0) {
+      cp_async_wait<1>();          // K and this Q tile (V may be in flight)
+      fence_proxy_async();         // K visible to the tensor cores
+    } else {
+      cp_async_wait<0>();          // the Q tile copied in last time
     }
-    *reinterpret_cast<uint4*>(Ks + r * LDK + c) = kv;
-    *reinterpret_cast<uint4*>(Vs + r * LDK + c) = vv;
-  }
-  __syncthreads();
-
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t2 = (lane & 3) * 2;
-  // ldmatrix row addresses: K as the col-major B of Q K^T (keys lane%8,
-  // +8 for lanes 16..31; d half (lane/8)%2), V transposed for P V (keys
-  // lane%16, d half lane/16)
-  const int k_row = (lane & 7) + ((lane >> 4) << 3), k_col = ((lane >> 3) & 1) * 8;
-  const int v_row = lane & 15, v_col = (lane >> 4) * 8;
-  const int nchunks = np / 16;
-
-  for (int qc = warp; qc < nchunks; qc += ATT_WARPS) {
-    const int n_lo = qc * 16 + g, n_hi = n_lo + 8;
-    // q rows scaled in fp32 and rounded to bf16 before Q K^T, loaded
-    // straight into the A-operand layout
+    __syncthreads();
+    // q rows scaled in fp32 and rounded to bf16 before Q K^T, read straight
+    // into the A-operand layout
     unsigned qf[DK][4];
 #pragma unroll
     for (int d = 0; d < DK; ++d) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const int n = (e & 1) ? n_hi : n_lo;
-        const int col = d * 16 + t2 + (e >> 1) * 8;
-        float2 q = make_float2(0.f, 0.f);
-        if (n < N) q = load2(qb + n * a.sq[2] + col);
+        const int r = warp * 16 + g + (e & 1) * 8;
+        const float2 q =
+            load2(Qs + r * L::LDQ + d * 16 + t2 + (e >> 1) * 8);
         qf[d][e] = pack_bf16x2(q.x * scale, q.y * scale);
       }
     }
-    float o[OT][4];
-#pragma unroll
-    for (int j = 0; j < OT; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) o[j][e] = 0.f;
+    __syncthreads();               // every warp has read this Q tile
+    if (qt + 1 < nq) stage_q(qt + 1);
+    cp_async_commit();
+    float o[HD / 2];
     float l_lo = 0.f, l_hi = 0.f;
 
-    for (int kc = 0; kc < nchunks; ++kc) {
-      float s[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+    // Q K^T of key chunk kc into s
+    auto qk = [&](float (&s)[NS], int kc) {
 #pragma unroll
-      for (int d = 0; d < DK; ++d) {
-        unsigned r[4];
-        ldmatrix_x4(r, Ks + (kc * 16 + k_row) * LDK + d * 16 + k_col);
-        mma_bf16_16816(s[0], qf[d], r[0], r[1]);
-        mma_bf16_16816(s[1], qf[d], r[2], r[3]);
+      for (int d = 0; d < DK; ++d)
+        wgmma_rs<KC, false>(s, qf[d],
+                            desc_sw128(Kt + (d / 4) * np * 128 +
+                                       kc * KC * 128 + (d % 4) * 32),
+                            d > 0);
+    };
+    // chunk kc, its scores in s: (streaming) the next chunk's Q K^T issued,
+    // then e = exp(clip(s, -60, 80) - 20) in place (keys past N give 0), l,
+    // and P V issued.  Element 4 j + e of s is key kc * KC + 8 j + t2 +
+    // (e & 1).
+    auto chunk = [&](float (&s)[NS], float (&nxt)[NS], int kc) {
+      if (STREAM && kc + 1 < nkc) {
+        wgmma_fence();
+        qk(nxt, kc + 1);
+        wgmma_commit();
+        wgmma_wait<1>();           // this chunk's scores (and P V before)
+      } else {
+        wgmma_wait<0>();
       }
-      // e = exp(clip(s, -60, 80) - 20); padded keys contribute nothing
+      unsigned pf[PS][4];
+      if (live) {
+        const bool last = kc * KC + KC > N;
 #pragma unroll
-      for (int j = 0; j < 2; ++j) {
+        for (int j = 0; j < KC / 8; ++j) {
+          // keys past the padded rows: P V never reads them
+          if (last && kc * KC + j * 8 >= np) continue;
 #pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int col = kc * 16 + j * 8 + t2 + (e & 1);
-          float p = col < N
-              ? expf(fminf(fmaxf(s[j][e], -60.f), 80.f) - 20.f) : 0.f;
-          // K15's l sums the bf16 p that the AV product reads; K1's the
-          // fp32 e
-          if constexpr (K15) p = __bfloat162float(__float2bfloat16_rn(p));
-          s[j][e] = p;
+          for (int e = 0; e < 4; ++e) {
+            float p = expf(fminf(fmaxf(s[4 * j + e], -60.f), 80.f) - 20.f);
+            if (last && kc * KC + j * 8 + t2 + (e & 1) >= N) p = 0.f;
+            // K15's l sums the bf16 p that the AV product reads; K1's the
+            // fp32 e
+            if constexpr (K15) p = __bfloat162float(__float2bfloat16_rn(p));
+            s[4 * j + e] = p;
+          }
+          l_lo += s[4 * j] + s[4 * j + 1];
+          l_hi += s[4 * j + 2] + s[4 * j + 3];
         }
-        l_lo += s[j][0] + s[j][1];
-        l_hi += s[j][2] + s[j][3];
-      }
-      const unsigned pf[4] = {pack_bf16x2(s[0][0], s[0][1]),
-                              pack_bf16x2(s[0][2], s[0][3]),
-                              pack_bf16x2(s[1][0], s[1][1]),
-                              pack_bf16x2(s[1][2], s[1][3])};
+        // the A fragments of P V, one per 16 keys (two n8 score tiles)
 #pragma unroll
-      for (int j = 0; j < OT; j += 2) {
-        unsigned r[4];
-        ldmatrix_x4_trans(r, Vs + (kc * 16 + v_row) * LDK + j * 8 + v_col);
-        mma_bf16_16816(o[j], pf, r[0], r[1]);
-        mma_bf16_16816(o[j + 1], pf, r[2], r[3]);
+        for (int st = 0; st < PS; ++st) {
+          pf[st][0] = pack_bf16x2(s[8 * st], s[8 * st + 1]);
+          pf[st][1] = pack_bf16x2(s[8 * st + 2], s[8 * st + 3]);
+          pf[st][2] = pack_bf16x2(s[8 * st + 4], s[8 * st + 5]);
+          pf[st][3] = pack_bf16x2(s[8 * st + 6], s[8 * st + 7]);
+        }
+      } else {
+#pragma unroll
+        for (int st = 0; st < PS; ++st)
+          pf[st][0] = pf[st][1] = pf[st][2] = pf[st][3] = 0u;
       }
+      if (qt == 0 && kc == 0) {
+        cp_async_wait<1>();        // V (the newest group is the next Q tile)
+        fence_proxy_async();
+        __syncthreads();
+      }
+      // P V over this chunk's 16-key steps inside the padded rows
+      wgmma_fence();
+#pragma unroll
+      for (int st = 0; st < PS; ++st) {
+        const int r = kc * KC + st * 16;
+        if (r < np)
+          wgmma_rs<HD, true>(o, pf[st], desc_sw128_mn(Vt + r * 128, np * 128),
+                             r > 0);
+      }
+      wgmma_commit();
+    };
+
+    if constexpr (STREAM) {
+      float sa[NS], sb[NS];
+      wgmma_fence();
+      qk(sa, 0);
+      wgmma_commit();
+      for (int kc = 0; kc < nkc; kc += 2) {
+        chunk(sa, sb, kc);
+        if (kc + 1 < nkc) chunk(sb, sa, kc + 1);
+      }
+    } else {
+      float s[NS];
+      wgmma_fence();
+      qk(s, 0);
+      wgmma_commit();
+      chunk(s, s, 0);
     }
+    wgmma_wait<0>();
+    if (!live) continue;
 
     // each row's l is spread over the four lanes of its quad
 #pragma unroll
@@ -197,39 +286,52 @@ attn_core_kernel(const CoreArgs a) {
       l_lo += __shfl_xor_sync(0xffffffffu, l_lo, m);
       l_hi += __shfl_xor_sync(0xffffffffu, l_hi, m);
     }
-    const float inv_lo = 1.0f / l_lo, inv_hi = 1.0f / l_hi;
+    // K1: o * (1 / l); K15: o / l, the IEEE quotient from the rounded
+    // reciprocal (div_rn_by)
+    const float inv_lo = __frcp_rn(l_lo), inv_hi = __frcp_rn(l_hi);
+    auto out = [&](float x, float l, float r) {
+      return K15 ? div_rn_by(x, l, r) : x * r;
+    };
 #pragma unroll
-    for (int j = 0; j < OT; ++j) {
+    for (int j = 0; j < HD / 8; ++j) {
       const int col = j * 8 + t2;
-      if (n_lo < N) {
-        if constexpr (K15)
-          store2(ob + n_lo * a.so[2] + col, __fdiv_rn(o[j][0], l_lo),
-                 __fdiv_rn(o[j][1], l_lo));
-        else
-          store2(ob + n_lo * a.so[2] + col, o[j][0] * inv_lo,
-                 o[j][1] * inv_lo);
-      }
-      if (n_hi < N) {
-        if constexpr (K15)
-          store2(ob + n_hi * a.so[2] + col, __fdiv_rn(o[j][2], l_hi),
-                 __fdiv_rn(o[j][3], l_hi));
-        else
-          store2(ob + n_hi * a.so[2] + col, o[j][2] * inv_hi,
-                 o[j][3] * inv_hi);
-      }
+      if (n_lo < N)
+        store2(ob + n_lo * a.so[2] + col, out(o[4 * j], l_lo, inv_lo),
+               out(o[4 * j + 1], l_lo, inv_lo));
+      if (n_hi < N)
+        store2(ob + n_hi * a.so[2] + col, out(o[4 * j + 2], l_hi, inv_hi),
+               out(o[4 * j + 3], l_hi, inv_hi));
     }
   }
 }
 
+template <int HD, int KC, bool K15>
+static cudaError_t launch_core_kc(const CoreArgs& a, int B, cudaStream_t s) {
+  const int smem = CoreLayout<HD, KC>::smem_bytes(a.N);
+  cudaError_t err = cudaFuncSetAttribute(
+      attn_core_kernel<HD, KC, K15>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  attn_core_kernel<HD, KC, K15><<<B * a.H, CORE_THREADS, smem, s>>>(a);
+  return cudaGetLastError();
+}
+
+// the chunk width for N: the whole row (13 or 16 chunks of 16 keys) up to
+// 256 keys, else 64-key chunks
 template <int HD, bool K15>
 static cudaError_t launch_attn_core(const CoreArgs& a, int B, cudaStream_t s) {
-  const int smem = AttnLayout<HD>::smem_bytes(a.N);
-  cudaError_t err = cudaFuncSetAttribute(
-      attn_core_kernel<HD, K15>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
-  if (err != cudaSuccess) return err;
-  attn_core_kernel<HD, K15><<<B * a.H, ATT_WARPS * 32, smem, s>>>(a);
-  return cudaGetLastError();
+  const int nc = (a.N + 15) / 16;
+  if (nc <= 13) return launch_core_kc<HD, 208, K15>(a, B, s);
+  if (nc <= 16) return launch_core_kc<HD, 256, K15>(a, B, s);
+  return launch_core_kc<HD, CORE_STREAM_KEYS, K15>(a, B, s);
+}
+
+template <int HD>
+static int core_smem_bytes(int N) {
+  const int nc = (N + 15) / 16;
+  if (nc <= 13) return CoreLayout<HD, 208>::smem_bytes(N);
+  if (nc <= 16) return CoreLayout<HD, 256>::smem_bytes(N);
+  return CoreLayout<HD, CORE_STREAM_KEYS>::smem_bytes(N);
 }
 
 static cudaError_t attn_core_strided(const CoreArgs& a, int B, int hd,
@@ -284,8 +386,8 @@ extern "C" {
 // Shared-memory bytes the attention core needs at (N, hd); 0 when hd is not
 // supported.  The wrapper checks it against the card's per-block limit.
 int dyt_attn_core_smem_bytes(int N, int hd) {
-  if (hd == 64) return dyt::AttnLayout<64>::smem_bytes(N);
-  if (hd == 128) return dyt::AttnLayout<128>::smem_bytes(N);
+  if (hd == 64) return dyt::core_smem_bytes<64>(N);
+  if (hd == 128) return dyt::core_smem_bytes<128>(N);
   return 0;
 }
 

@@ -1,16 +1,10 @@
 // Shared helpers of the serving kernels: bf16 conversions, round-to-nearest
-// fp32 arithmetic, the fp32 GELUs, cp.async, warp reductions, the bf16 and
-// int8 mma.sync primitives, the bf16 LayerNorm rows, and the NT tensor-core
-// GEMM that the attention sublayer chain (attention_sublayer.cu) and the
-// fused LN+MLP chain (fused_mlp.cu) run twice each (quant.cu's int8 GEMM
-// keeps its ring and tiling).
-//
-// The GEMM is the plain Ampere-style form: 128x128x32 block tiles fed by a
-// four-stage cp.async ring, eight warps of 64x32 tiles of mma.sync bf16
-// m16n8k16 products with fp32 accumulators (operands through ldmatrix), and
-// an epilogue that applies the caller's bias / GELU / gate / residual
-// arithmetic in fp32 before the one rounding to the output type.  wgmma and
-// TMA are later work.
+// fp32 arithmetic (and a division by one rounded reciprocal), ex2, the fp32
+// GELUs, cp.async, warp reductions, the bf16 and int8 mma.sync primitives
+// (the windowed and MoE kernels, the int8 GEMM and the long-sequence
+// softmax walk run on them), paired and 8-wide loads and stores, and the
+// bf16 LayerNorm rows.  The bf16 GEMM lives in gemm.cuh and the wgmma / TMA
+// building blocks in wgmma.cuh.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -67,6 +61,25 @@ __device__ __forceinline__ float gelu_tanh(float x) {
   const float inner = mul(F32C(0.7978845608028654),
                           add(x, mul(F32C(0.044715), x3)));
   return mul(x, mul(0.5f, add(1.f, tanhf(inner))));
+}
+
+// x / l rounded to nearest, given r = __frcp_rn(l): one product and one
+// correction (Markstein: with r the rounded reciprocal and q within an ulp
+// of x / l, q + (x - l q) r rounds to the IEEE quotient, the residual
+// being exact in an FMA), for normal operands and quotients; cheaper than
+// __fdiv_rn where one l divides many x
+__device__ __forceinline__ float div_rn_by(float x, float l, float r) {
+  const float q = __fmul_rn(x, r);
+  return __fmaf_rn(__fmaf_rn(-l, q, x), r, q);
+}
+
+constexpr float LOG2E = 1.4426950408889634f;
+
+// 2^x (-inf -> 0): the SFU's approximation, ~2 ulp
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
 }
 
 __device__ __forceinline__ float warp_sum(float v) {
@@ -156,37 +169,8 @@ __device__ __forceinline__ void mma_s8_16832(int (&c)[4],
 }
 
 // ---------------------------------------------------------------------------
-// out[m, n] = epilogue(sum_k A[m, k] * W[n, k]) -- both operands K-contiguous
-// ("NT"), W in torch's [out, in] layout.  Requires K % 8 == 0 and N % 8 == 0
-// (16-byte row chunks, paired epilogue columns); M may be ragged.
-//
-// Block tile BM x BN x BK fed by a STAGES-deep cp.async ring; WM x WN warps,
-// each owning a (BM/WM) x (BN/WN) tile of m16n8 accumulators, fed by
-// ldmatrix.  The smem row stride BK + 8 (80 bytes) puts the eight 16-byte
-// rows of every ldmatrix phase in distinct banks.
-template <int BM_, int BN_, int BK_, int STAGES_, int WM_, int WN_>
-struct GemmCfg {
-  static constexpr int BM = BM_, BN = BN_, BK = BK_, STAGES = STAGES_;
-  static constexpr int WM = WM_, WN = WN_, THREADS = 32 * WM * WN;
-  static constexpr int MT = BM / WM / 16, NT = BN / WN / 8;  // mma tiles/warp
-  static constexpr int LD = BK + 8;
-  static constexpr int STAGE = (BM + BN) * LD;   // bf16 elements per stage
-  static constexpr int SMEM = STAGES * STAGE * 2;
-  static_assert(BM % (16 * WM) == 0 && BN % (16 * WN) == 0 && BK % 16 == 0,
-                "tile shape");
-};
-using GemmDefault = GemmCfg<128, 128, 32, 4, 2, 4>;
-
-enum GemmEpilogue {
-  EPI_BIAS_BF16 = 0,   // out_bf16 = bf16(acc + bias[n])
-  EPI_RESIDUAL = 1,    // xm = (resid + acc) + bias[n]; out_x = TX(xm);
-                       // out_f32 = xm when given
-  EPI_GELU_ERF = 2,    // out_bf16 = bf16(gelu_erf(acc + bias[n]))
-  EPI_GELU_TANH = 3,   // out_bf16 = bf16(gelu_tanh(acc + bias[n]))
-  EPI_GATE = 4,        // out_x = TX((acc + bias[n]) * gate[m]), or
-                       // TX(acc + bias[n]) when gate is null
-  EPI_F32 = 5,         // out_f32 = acc, no bias (the matmul probe, K16)
-};
+// Paired and 8-wide loads and stores of fp32 or bf16 elements, converted to
+// and from fp32 (one rounding to nearest even on the way to bf16).
 
 __device__ __forceinline__ float2 load2(const float* p) {
   return *reinterpret_cast<const float2*>(p);
@@ -230,147 +214,6 @@ __device__ __forceinline__ void store8(bf16* p, const float* v) {
 #pragma unroll
   for (int e = 0; e < 8; ++e) h[e] = from_f32<bf16>(v[e]);
   *reinterpret_cast<uint4*>(p) = *reinterpret_cast<const uint4*>(h);
-}
-
-template <class G, int EPI, typename TX>
-__global__ void __launch_bounds__(G::THREADS)
-gemm_nt_kernel(const bf16* __restrict__ A, const bf16* __restrict__ W,
-               const float* __restrict__ bias, int M, int N, int K,
-               bf16* __restrict__ out_bf16, const TX* __restrict__ resid,
-               TX* __restrict__ out_x, float* __restrict__ out_f32,
-               const float* __restrict__ gate) {
-  constexpr int BM = G::BM, BN = G::BN, BK = G::BK, LD = G::LD;
-  constexpr int MT = G::MT, NT = G::NT;
-  extern __shared__ __align__(128) unsigned char gsmem_raw[];
-  bf16* smem = reinterpret_cast<bf16*>(gsmem_raw);
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
-  const int wm0 = (warp / G::WN) * MT * 16, wn0 = (warp % G::WN) * NT * 8;
-
-  // rows [0, BM) of a stage hold A, rows [BM, BM + BN) hold W
-  auto load_stage = [&](int stage, int k0) {
-    bf16* st = smem + stage * G::STAGE;
-#pragma unroll
-    for (int i = tid; i < (BM + BN) * (BK / 8); i += G::THREADS) {
-      const int r = i / (BK / 8), c = (i % (BK / 8)) * 8;
-      const int gk = k0 + c;
-      const bool is_a = r < BM;
-      const int g = is_a ? m0 + r : n0 + r - BM;
-      const bool ok = g < (is_a ? M : N) && gk < K;
-      const bf16* src = is_a ? A : W;
-      cp_async16(st + r * LD + c, ok ? src + (size_t)g * K + gk : src,
-                 ok ? 16 : 0);
-    }
-  };
-
-  float acc[MT][NT][4];
-#pragma unroll
-  for (int i = 0; i < MT; ++i)
-#pragma unroll
-    for (int j = 0; j < NT; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
-
-  // ldmatrix lane addressing: A rows lane%16, k half lane/16; W rows
-  // lane%8 (+8 for lanes 16..31), k half (lane/8)%2
-  const int a_row = lane & 15, a_k = (lane >> 4) * 8;
-  const int b_row = (lane & 7) + ((lane >> 4) << 3), b_k = ((lane >> 3) & 1) * 8;
-
-  const int nk = (K + BK - 1) / BK;
-#pragma unroll
-  for (int s = 0; s < G::STAGES - 1; ++s) {
-    if (s < nk) load_stage(s, s * BK);
-    cp_async_commit();
-  }
-  for (int kt = 0; kt < nk; ++kt) {
-    cp_async_wait<G::STAGES - 2>();   // stage kt has landed
-    __syncthreads();                  // ... and stage kt-1 is free again
-    const int nxt = kt + G::STAGES - 1;
-    if (nxt < nk) load_stage(nxt % G::STAGES, nxt * BK);
-    cp_async_commit();
-    const bf16* sa = smem + (kt % G::STAGES) * G::STAGE;
-    const bf16* sb = sa + BM * LD;
-#pragma unroll
-    for (int kk = 0; kk < BK; kk += 16) {
-      unsigned af[MT][4], bfr[NT][2];
-#pragma unroll
-      for (int i = 0; i < MT; ++i)
-        ldmatrix_x4(af[i], sa + (wm0 + i * 16 + a_row) * LD + kk + a_k);
-#pragma unroll
-      for (int j = 0; j < NT; j += 2) {
-        unsigned r[4];
-        ldmatrix_x4(r, sb + (wn0 + j * 8 + b_row) * LD + kk + b_k);
-        bfr[j][0] = r[0]; bfr[j][1] = r[1];
-        bfr[j + 1][0] = r[2]; bfr[j + 1][1] = r[3];
-      }
-#pragma unroll
-      for (int i = 0; i < MT; ++i)
-#pragma unroll
-        for (int j = 0; j < NT; ++j)
-          mma_bf16_16816(acc[i][j], af[i], bfr[j][0], bfr[j][1]);
-    }
-  }
-  cp_async_wait<0>();
-
-  // epilogue straight from the accumulators: element pairs (row, col..col+1)
-  const int g = lane >> 2, t2 = (lane & 3) * 2;
-#pragma unroll
-  for (int i = 0; i < MT; ++i) {
-#pragma unroll
-    for (int j = 0; j < NT; ++j) {
-      const int col = n0 + wn0 + j * 8 + t2;
-      if (col >= N) continue;
-      float2 b = make_float2(0.f, 0.f);
-      if constexpr (EPI != EPI_F32) b = load2(bias + col);
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int row = m0 + wm0 + i * 16 + g + h * 8;
-        if (row >= M) continue;
-        const size_t o = (size_t)row * N + col;
-        float v0 = acc[i][j][2 * h], v1 = acc[i][j][2 * h + 1];
-        if constexpr (EPI == EPI_F32) {
-          store2(out_f32 + o, v0, v1);
-        } else if constexpr (EPI == EPI_BIAS_BF16) {
-          store2(out_bf16 + o, v0 + b.x, v1 + b.y);
-        } else if constexpr (EPI == EPI_GELU_ERF) {
-          store2(out_bf16 + o, gelu_erf(add(v0, b.x)), gelu_erf(add(v1, b.y)));
-        } else if constexpr (EPI == EPI_GELU_TANH) {
-          store2(out_bf16 + o, gelu_tanh(add(v0, b.x)),
-                 gelu_tanh(add(v1, b.y)));
-        } else if constexpr (EPI == EPI_GATE) {
-          v0 = add(v0, b.x);
-          v1 = add(v1, b.y);
-          if (gate != nullptr) {
-            const float gm = gate[row];
-            v0 = mul(v0, gm);
-            v1 = mul(v1, gm);
-          }
-          store2(out_x + o, v0, v1);
-        } else {
-          const float2 x = load2(resid + o);
-          v0 = (x.x + v0) + b.x;
-          v1 = (x.y + v1) + b.y;
-          store2(out_x + o, v0, v1);
-          if (out_f32 != nullptr) store2(out_f32 + o, v0, v1);
-        }
-      }
-    }
-  }
-}
-
-template <int EPI, typename TX, class G = GemmDefault>
-cudaError_t launch_gemm_nt(const bf16* A, const bf16* W, const float* bias,
-                           int M, int N, int K, bf16* out_bf16,
-                           const TX* resid, TX* out_x, float* out_f32,
-                           cudaStream_t s, const float* gate = nullptr) {
-  cudaError_t err = cudaFuncSetAttribute(
-      gemm_nt_kernel<G, EPI, TX>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      G::SMEM);
-  if (err != cudaSuccess) return err;
-  dim3 grid((N + G::BN - 1) / G::BN, (M + G::BM - 1) / G::BM);
-  gemm_nt_kernel<G, EPI, TX><<<grid, G::THREADS, G::SMEM, s>>>(
-      A, W, bias, M, N, K, out_bf16, resid, out_x, out_f32, gate);
-  return cudaGetLastError();
 }
 
 // ---------------------------------------------------------------------------

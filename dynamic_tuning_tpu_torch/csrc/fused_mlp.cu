@@ -18,16 +18,17 @@
 // rounding points of the TPU kernel kept exactly:
 //   1. layernorm_bf16_kernel (common.cuh) -- fp32 two-pass LN, eps 1e-6,
 //      the fp32 affine, one rounding of xn to bf16;
-//   2. gemm_nt_kernel<EPI_GELU_ERF|EPI_GELU_TANH> -- xn x W1^T on tensor
-//      cores with fp32 accumulation, + b1 in fp32, GELU in fp32 (the A&S erf
-//      or the tanh form), one rounding of h to bf16, written to device memory
-//      (78 MB at the dispatch rows, another ~0.05 ms of traffic each way);
+//   2. gemm_nt_kernel<EPI_GELU_ERF|EPI_GELU_TANH> (gemm.cuh: a TMA ring,
+//      wgmma, a persistent grid) -- xn x W1^T with fp32 accumulation, + b1
+//      in fp32, GELU in fp32 (the A&S erf or the tanh form), one rounding of
+//      h to bf16, written to device memory (78 MB at the dispatch rows,
+//      another ~0.05 ms of traffic each way);
 //   3. gemm_nt_kernel<EPI_GATE> -- h x W2^T, + b2, times the row's fp32 gate
 //      when there is one, one rounding to x's dtype.
-// So the tensor-core rate of the mma.sync GEMM decides, not the bound.  A
-// single kernel that streams hidden chunks through shared memory (wgmma,
-// TMA) is later work.
-#include "common.cuh"
+// So the GEMM's tensor-core rate and its epilogues decide, with the hidden's
+// round trip beside them.  A single kernel that streams hidden chunks
+// through shared memory is later work.
+#include "gemm.cuh"
 
 namespace dyt {
 

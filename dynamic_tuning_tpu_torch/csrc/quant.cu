@@ -24,10 +24,10 @@
 // adds 15 GFLOP.  Moving the activations through device memory -- int8
 // codes, the bf16 qkv buffer, the fp32 GELU output that fc2's row
 // quantization needs -- costs more: ~0.25 GB for the sublayer and ~0.5 GB
-// for the MLP at dense rows (75 and 150 us at 3.35 TB/s).  The GEMM is the
-// mma.sync form of the bf16 one (common.cuh), so the tensor-core rate, not
-// the bound, decides; wgmma, TMA and fusing the quantizers into the GEMMs
-// are later work.
+// for the MLP at dense rows (75 and 150 us at 3.35 TB/s).  The int8 GEMM is
+// an Ampere-style mma.sync form, so the tensor-core rate, not the bound,
+// decides; wgmma, TMA and fusing the quantizers into the GEMMs are later
+// work.
 //
 // What the design does about it.  Short chains of kernels on the caller's
 // stream, each following the TPU kernel's rounding points exactly:
@@ -53,7 +53,7 @@
 // Every rounding step uses the _rn intrinsics (mul/add/sub of common.cuh):
 // nvcc would otherwise contract a * b + c into one FMA, which rounds once
 // where the TPU kernel rounds twice.
-#include "common.cuh"
+#include "gemm.cuh"
 
 extern "C" int dyt_attn_core(const void* qkv, void* out, int B, int N, int C,
                              int H, float scale, void* stream);
@@ -245,9 +245,10 @@ static cudaError_t launch_row_quant(const TI* x, int8_t* q, float* rs, int M,
 // ---------------------------------------------------------------------------
 // int8 NT GEMM: out[m, n] = epilogue(sum_k A[m, k] * W[n, k]), A [M, K] and
 // W [N, K] int8, K-contiguous.  Requires K % 16 == 0 and N % 8 == 0; M may
-// be ragged.  The ring and tiling of gemm_nt_kernel (common.cuh) with k in
-// bytes: a 64-byte stage row is 32 bf16 there and 64 int8 here, and the
-// m16n8k32 s8 fragments hold the bytes of the m16n8k16 bf16 ones.
+// be ragged.  128x128x64 block tiles (k in bytes) fed by a four-stage
+// cp.async ring, eight warps of 64x32 tiles of mma.sync m16n8k32 fed by
+// ldmatrix: the s8 fragments hold the bytes of the bf16 m16n8k16 ones, so
+// the bf16 ldmatrix addressing serves with k counted in bytes.
 
 template <int BM_, int BN_, int BK_, int STAGES_, int WM_, int WN_>
 struct GemmQ8Cfg {
@@ -327,7 +328,8 @@ gemm_s8_kernel(const int8_t* __restrict__ A, const int8_t* __restrict__ W,
 #pragma unroll
       for (int e = 0; e < 4; ++e) acc[i][j][e] = 0;
 
-  // ldmatrix lane addressing of gemm_nt_kernel, k in bytes
+  // ldmatrix lane addressing: A rows lane%16, k half lane/16; W rows
+  // lane%8 (+8 for lanes 16..31), k half (lane/8)%2; k in bytes
   const int a_row = lane & 15, a_k = (lane >> 4) * 16;
   const int b_row = (lane & 7) + ((lane >> 4) << 3), b_k = ((lane >> 3) & 1) * 16;
 
@@ -960,7 +962,7 @@ int dyt_gemm_s8_s32(const void* a, const void* w, int M, int N, int K,
 }
 
 // K16, bf16: out [M, N] fp32 = a [M, K] bf16 . w [N, K]^T bf16, fp32 sums
-// (K % 8 == 0, N % 8 == 0).
+// (K % 8 == 0, N % 8 == 0, a and w on 16 bytes).
 int dyt_gemm_bf16_f32(const void* a, const void* w, int M, int N, int K,
                       float* out, void* stream) {
   return dyt::launch_gemm_nt<dyt::EPI_F32, float>(

@@ -52,7 +52,7 @@
 // * The walk stays on mma.sync m16n8k16 (a 64-row wgmma tile would need a
 //   slab of 64 rows); fp32 accumulators throughout; fp32 q, k, v are
 //   rounded to bf16 on their way into shared memory.
-#include "common.cuh"
+#include "wgmma.cuh"
 
 namespace dyt {
 
@@ -69,28 +69,8 @@ struct SoftmaxArgs {
   int in_f32;                 // q, k, v, out fp32 (else bf16)
 };
 
-constexpr float LOG2E = 1.4426950408889634f;
-
-// 2^x (-inf -> 0)
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
 // exp(x) for x <= 0 (or -inf -> 0)
 __device__ __forceinline__ float exp_le0(float x) { return ex2(x * LOG2E); }
-
-// 8 consecutive elements of a row into shared memory as bf16; zeros when
-// !ok (``src`` is then any valid address).  bf16 goes by cp.async, fp32 is
-// read, rounded and stored by the thread.
-__device__ __forceinline__ void stage8(bf16* dst, const bf16* src, bool ok) {
-  cp_async16(dst, src, ok ? 16 : 0);
-}
-__device__ __forceinline__ void stage8(bf16* dst, const float* src, bool ok) {
-  float v[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-  if (ok) load8(src, v);
-  store8(dst, v);
-}
 
 // rows r0 .. r0 + rows - 1 of a [N, HD] head (row stride ``ld`` elements)
 // into shared memory rows of stride LDS; rows past N are zero-filled
@@ -223,210 +203,22 @@ __device__ __forceinline__ void store_rows(void* ob, bool f32, long long ld,
 // read them four times.  NC (13 or 16) is the number of 16-key chunks, N
 // padded up: keys past N are zero in shared memory and -inf as scores.
 
-__device__ __forceinline__ void fence_proxy_async() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait0() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
+// The wgmma helpers (descriptors of the 128-byte swizzled tiles, wgmma_ss,
+// wgmma_rs) and stage_sw128 are shared with the serving core and the GEMM:
+// wgmma.cuh.
 
-// descriptor of a K-major bf16 operand in the 128-byte swizzle: rows of
-// 128 B (64 elements), 8-row groups 1024 B apart (the leading offset is
-// unused); ``p`` lies in a 1024-byte aligned atom
-__device__ __forceinline__ uint64_t desc_sw128(const void* p) {
-  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-  return static_cast<uint64_t>((a & 0x3FFFF) >> 4) | (1ull << 16) |
-         (static_cast<uint64_t>(1024 >> 4) << 32) | (1ull << 62);
-}
-
-// d (m64 x nN, fp32) = (acc ? d : 0) + A (m64 x k16) . B (nN x k16)^T, the
-// accumulators in mma.sync's m16n8 order per warp and n8 tile
-template <int N>
-__device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t da,
-                                         uint64_t db, int acc);
-template <>
-__device__ __forceinline__ void wgmma_ss<208>(float (&d)[104], uint64_t da,
-                                             uint64_t db, int acc) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %106, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n208k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
-      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
-      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
-      "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
-      "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, "
-      "%67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
-      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, "
-      "%93, %94, %95, %96, %97, %98, %99, %100, %101, %102, %103"
-      "}, %104, %105, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
-        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
-        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
-        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
-        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]),
-        "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]),
-        "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]),
-        "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
-        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]),
-        "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
-        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]),
-        "+f"(d[95]), "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]),
-        "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103])
-      : "l"(da), "l"(db), "r"(acc));
-}
-template <>
-__device__ __forceinline__ void wgmma_ss<256>(float (&d)[128], uint64_t da,
-                                             uint64_t db, int acc) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
-      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
-      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
-      "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
-      "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, "
-      "%67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
-      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, "
-      "%93, %94, %95, %96, %97, %98, %99, %100, %101, %102, %103, %104, "
-      "%105, %106, %107, %108, %109, %110, %111, %112, %113, %114, %115, "
-      "%116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, "
-      "%127"
-      "}, %128, %129, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
-        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
-        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
-        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
-        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]),
-        "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]),
-        "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]),
-        "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
-        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]),
-        "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
-        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]),
-        "+f"(d[95]), "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]),
-        "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]), "+f"(d[104]),
-        "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]),
-        "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]), "+f"(d[114]),
-        "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
-        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]),
-        "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
-      : "l"(da), "l"(db), "r"(acc));
-}
-
-// d (m64 x nN, fp32) = (acc ? d : 0) + A (m64 x k16, each warp's 16 rows
-// from registers in mma.sync's A layout) . B, B (k16 x nN) read N-major
-// (transposed) from a 128-byte swizzled tile whose rows are its k index
-template <int N>
-__device__ __forceinline__ void wgmma_rs(float (&d)[N / 2],
-                                         const unsigned (&a)[4], uint64_t db,
-                                         int acc);
-template <>
-__device__ __forceinline__ void wgmma_rs<64>(float (&d)[32],
-                                             const unsigned (&a)[4],
-                                             uint64_t db, int acc) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
-      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
-      "%28, %29, %30, %31"
-      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc));
-}
-template <>
-__device__ __forceinline__ void wgmma_rs<128>(float (&d)[64],
-                                             const unsigned (&a)[4],
-                                             uint64_t db, int acc) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
-      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
-      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
-      "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
-      "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
-      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
-        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
-        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
-        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
-        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc));
-}
-
-// descriptor of such an N-major B: 8 k-rows of 128 B (64 n) per 1024-byte
-// atom, atoms along k ``1024`` B apart (SBO) and along n ``lbo`` B apart
-__device__ __forceinline__ uint64_t desc_sw128_mn(const void* p, int lbo) {
-  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-  return static_cast<uint64_t>((a & 0x3FFFF) >> 4) |
-         (static_cast<uint64_t>(lbo >> 4) << 16) |
-         (static_cast<uint64_t>(1024 >> 4) << 32) | (1ull << 62);
-}
-
-// rows r0 .. r0 + rows - 1 of a [N, HD] head into a K-major 128-byte
-// swizzled tile [HD / 64][rows][64]; rows past N are zero-filled
-template <int HD, typename TI>
-__device__ __forceinline__ void stage_sw128_t(unsigned char* dst,
-                                              const TI* src, long long ld,
-                                              int r0, int rows, int N,
-                                              int tid, int nthreads) {
-  constexpr int CPR = HD / 8;
-  for (int i = tid; i < rows * CPR; i += nthreads) {
-    const int r = i / CPR, c = i % CPR;
-    const bool ok = r0 + r < N;
-    bf16* d = reinterpret_cast<bf16*>(
-        dst + (c >> 3) * rows * 128 + r * 128 + (((c & 7) ^ (r & 7)) << 4));
-    stage8(d, src + (ok ? r0 + r : 0) * ld + c * 8, ok);
-  }
-}
+// stage_sw128 on fp32 or bf16 rows
 template <int HD>
 __device__ __forceinline__ void stage_sw128(unsigned char* dst,
                                             const void* src, bool f32,
                                             long long ld, int r0, int rows,
                                             int N, int tid, int nthreads) {
   if (f32)
-    stage_sw128_t<HD>(dst, static_cast<const float*>(src), ld, r0, rows, N,
-                      tid, nthreads);
+    stage_sw128<HD>(dst, static_cast<const float*>(src), ld, r0, rows, N, tid,
+                    nthreads);
   else
-    stage_sw128_t<HD>(dst, static_cast<const bf16*>(src), ld, r0, rows, N,
-                      tid, nthreads);
+    stage_sw128<HD>(dst, static_cast<const bf16*>(src), ld, r0, rows, N, tid,
+                    nthreads);
 }
 
 constexpr int SA_RES_THREADS = 128;        // one warpgroup
@@ -446,8 +238,7 @@ sa_resident_kernel(const SoftmaxArgs a) {
   using RL = ResLayout<HD, NC>;
   constexpr int DK = HD / 16, OT = HD / 8, NK = RL::NK;
   extern __shared__ unsigned char smem_raw[];
-  unsigned char* Kt = reinterpret_cast<unsigned char*>(
-      (reinterpret_cast<size_t>(smem_raw) + 1023) & ~static_cast<size_t>(1023));
+  unsigned char* Kt = align1024(smem_raw);
   unsigned char* Vt = Kt + RL::K;
   unsigned char* Qt = Vt + RL::K;
   const int N = a.N, nq = (N + 63) / 64;
@@ -496,7 +287,7 @@ sa_resident_kernel(const SoftmaxArgs a) {
                    desc_sw128(Kt + kb64 * NK * 128 + ko), d > 0);
     }
     wgmma_commit();
-    wgmma_wait0();
+    wgmma_wait<0>();
     __syncthreads();               // the warpgroup has read this Q tile
     if (qt + 1 < nq)
       stage_sw128<HD>(Qt, qb, f32, a.sq[2], (qt + 1) * 64, 64, N, tid,
@@ -603,9 +394,10 @@ sa_resident_kernel(const SoftmaxArgs a) {
     wgmma_fence();
 #pragma unroll
     for (int c = 0; c < NC; ++c)
-      wgmma_rs<HD>(of, pf[c], desc_sw128_mn(Vt + c * 2048, NK * 128), c > 0);
+      wgmma_rs<HD, true>(of, pf[c], desc_sw128_mn(Vt + c * 2048, NK * 128),
+                         c > 0);
     wgmma_commit();
-    wgmma_wait0();
+    wgmma_wait<0>();
     if (!live) continue;
     store_rows<HD>(ob, f32, a.so[2], o, n_lo, N, L);
   }

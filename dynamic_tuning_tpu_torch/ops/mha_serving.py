@@ -266,8 +266,7 @@ def _check_sublayer(x, gamma, beta, wqkv, bqkv, wproj, bproj, heads):
     if smem == 0:
         raise ValueError(f"head_dim {hd} not supported (64 or 128)")
     if smem > SMEM_PER_BLOCK:
-        raise ValueError(f"N={N}, head_dim={hd} needs {smem} B of shared "
-                         f"memory per block (limit {SMEM_PER_BLOCK})")
+        raise _core_too_long(lib, N, hd, smem)
     return lib
 
 
@@ -578,6 +577,18 @@ def _check_core_operand(t: torch.Tensor, name: str, device) -> None:
                          "stride along hd and rows on 16 bytes")
 
 
+def _core_too_long(lib, N: int, hd: int, smem: int) -> ValueError:
+    """The refusal of an N whose keys and values do not fit the attention
+    core's shared memory, naming the longest N below it that does (asked of
+    the kernel's own layout, ``dyt_attn_core_smem_bytes``)."""
+    longest = next((n for n in range(N - 1, 0, -1)
+                    if lib.dyt_attn_core_smem_bytes(n, hd) <= SMEM_PER_BLOCK),
+                   0)
+    return ValueError(f"N={N}, head_dim={hd} needs {smem} B of shared memory "
+                      f"per block (limit {SMEM_PER_BLOCK}: N <= {longest} at "
+                      f"head_dim {hd})")
+
+
 def _launch_core(q, k, v, out, *, k15: bool) -> None:
     """The strided core kernel on q, k, v [B, H, N, hd] into ``out``."""
     B, H, N, hd = q.shape
@@ -586,8 +597,7 @@ def _launch_core(q, k, v, out, *, k15: bool) -> None:
     lib = _build.library()
     smem = lib.dyt_attn_core_smem_bytes(N, hd)
     if smem > SMEM_PER_BLOCK:
-        raise ValueError(f"N={N}, head_dim={hd} needs {smem} B of shared "
-                         f"memory per block (limit {SMEM_PER_BLOCK})")
+        raise _core_too_long(lib, N, hd, smem)
     with torch.cuda.device(q.device):
         err = lib.dyt_mha_core(
             _ptr(q), _ptr(k), _ptr(v), _ptr(out),

@@ -14,13 +14,13 @@ Needs a CUDA device.
 
 from __future__ import annotations
 
-import os
-import shutil
 import subprocess
-import sys
 from pathlib import Path
 
-PKG = Path(__file__).resolve().parents[1]
+from dynamic_tuning_tpu_torch.utils.ablation import (PKG, build_all,
+                                                     copy_variant,
+                                                     run_in_copy)
+
 OUT = PKG.parent / "build" / "moe_tail_ablation"
 CU = Path("csrc") / "moe_adapter.cu"
 ROUTER = "for (int e = 0; e < NR; ++e) {\n        const float* w"
@@ -77,39 +77,15 @@ def time_tail(E: int = 4, b: int = 64, iters: int = 20) -> float:
     return best
 
 
-def _copy(name: str, edits) -> Path:
-    root = OUT / name.replace(" ", "_")
-    shutil.rmtree(root, ignore_errors=True)
-    shutil.copytree(PKG, root / PKG.name,
-                    ignore=shutil.ignore_patterns("__pycache__"))
-    src = root / PKG.name / CU
-    text = src.read_text()
-    for old, new in edits:
-        if old not in text:
-            raise RuntimeError(f"variant {name!r}: {old!r} is not in {CU}")
-        text = text.replace(old, new)
-    src.write_text(text)
-    return root
-
-
-def _run(root: Path, code: str, **kw) -> subprocess.Popen:
-    # run from the copy: ``python -c`` puts the working directory first on
-    # the import path, ahead of PYTHONPATH
-    env = dict(os.environ, PYTHONPATH=str(root))
-    return subprocess.Popen([sys.executable, "-c", code], cwd=root, env=env,
-                            **kw)
-
-
 def main() -> None:
-    roots = {name: _copy(name, edits) for name, edits in VARIANTS.items()}
-    builds = [_run(root, "from dynamic_tuning_tpu_torch.ops import _build; "
-                         "_build.library()") for root in roots.values()]
-    if any(p.wait() for p in builds):
-        raise RuntimeError("a variant did not build")
+    roots = {name: copy_variant(OUT, name, [(CU, *e) for e in edits])
+             for name, edits in VARIANTS.items()}
+    build_all(roots.values())
     for name, root in roots.items():
-        p = _run(root, "from dynamic_tuning_tpu_torch.utils.moe_tail_ablation "
-                       "import time_tail; print(time_tail())",
-                 stdout=subprocess.PIPE, text=True)
+        p = run_in_copy(root, "from dynamic_tuning_tpu_torch.utils."
+                              "moe_tail_ablation import time_tail; "
+                              "print(time_tail())",
+                        stdout=subprocess.PIPE, text=True)
         out, _ = p.communicate()
         if p.returncode:
             raise RuntimeError(f"variant {name!r} failed")

@@ -146,6 +146,17 @@ def test_mha_serving_fused_plain_matches_jax_kernel(group, hd, dtype):
         _within_ulps(got, want)
 
 
+def test_mha_serving_fused_plain_matches_jax_kernel_at_257_tokens():
+    """K1 at the LayerScale backbone's length (256^2 crops: 16x16 patches +
+    CLS), past the 256 keys of one of the JAX kernel's key tiles."""
+    qkv = np.random.RandomState(257).randn(2, 257, 3 * 4 * 64)
+    want = _np(jms.mha_serving_fused(_j(qkv, "bfloat16"), heads=4,
+                                     interpret=True))
+    got = tms.mha_serving_fused(_t(qkv, "bfloat16"), heads=4)
+    assert got.shape == (2, 257, 256)
+    _within_ulps(got, want)
+
+
 def test_mha_serving_fused_keeps_the_group_contract():
     qkv = torch.zeros((1, 9, 3 * 4 * 64))
     with pytest.raises(ValueError, match="divide"):
@@ -277,6 +288,100 @@ def test_ulp_share_rejects_p_rounded_before_dividing(case):
     want = tfa.flash_attention_plain(q, k, v, bias)
     got = _p_rounded_before_dividing(q, k, v, bias)
     assert tfa.ulp_share(got, want) < tfa.ULP_SHARE
+    assert ((got.float() - want.float()).abs().max()
+            <= 2 * 2.0 ** -8 * want.float().abs().max())
+
+
+# --- the same check for the serving cores K1 and K15 --------------------------
+#
+# The card holds K1 and K15 to ``ulp_share >= ULP_SHARE`` against their plain
+# versions (attn_core_pairs, mha_serving_plain: float64 sums) beside
+# bf16_close.  A right kernel sums in fp32 in another order and may take
+# exp as 2**(x log2 e) (ex2.approx): 0.9995 to 1.0 of outputs within one
+# ulp here, and the check passes it.  It fails a core that rounds q after
+# Q K^T (below).  It cannot see a change that moves l or an output by
+# about an fp32 ulp: o * (1 / l) in place of o / l, or K1's l summed over
+# the bf16 p in place of the fp32 e (K15's rounding; l moves by ~2**-9 /
+# sqrt(N) relative, and the share stays at the right core's, 0.9998 to
+# 0.99999) -- those are not pinned.
+
+def _exp2_form(x):
+    """exp(x) as ex2.approx takes it: 2 ** (x * log2 e), the product rounded
+    to fp32."""
+    return torch.exp2(x * np.float32(1.4426950408889634))
+
+
+def _core(qkv, heads, *, k15=False, exp=torch.exp, scale_scores=False):
+    """The serving core on raw qkv with fp32 sums, in its K1 rounding
+    ([B, N, C] out) or its K15 rounding ([B, H, N, hd] out);
+    ``scale_scores`` multiplies the fp32 scores by the scale in place of
+    rounding q * scale to bf16 before Q K^T."""
+    dt = qkv.dtype
+    B, N, C3 = qkv.shape
+    hd = C3 // 3 // heads
+    q, k, v = (t.float() for t in qkv.reshape(B, N, 3, heads, hd).permute(
+        2, 0, 3, 1, 4))
+    scale = tms.weak_scale(qkv, hd).float() if k15 else hd ** -0.5
+    if scale_scores:
+        s = (q @ k.transpose(-1, -2)) * scale
+    else:
+        s = (q * scale).to(dt).float() @ k.transpose(-1, -2)
+    e = exp(s.clamp(-60.0, 80.0) - 20.0)
+    p = e.to(dt).float()
+    l = (p if k15 else e).sum(-1, keepdim=True)
+    o = (p @ v) / l if k15 else (p @ v) * (1.0 / l)
+    o = o.to(dt)
+    return o if k15 else o.transpose(1, 2).reshape(B, N, C3 // 3)
+
+
+def _plain_core(qkv, heads, k15):
+    if not k15:
+        return tms.attn_core_pairs(qkv, heads=heads)
+    B, N, C3 = qkv.shape
+    q, k, v = qkv.reshape(B, N, 3, heads, C3 // 3 // heads).permute(
+        2, 0, 3, 1, 4)
+    return tms.mha_serving_plain(q, k, v)
+
+
+SERVING_CORE_CASES = {
+    "vit": (2, 197, 3, 64),
+    "layerscale_257": (1, 257, 3, 64),
+    "hd128": (2, 197, 2, 128),
+}
+
+
+def _serving_qkv(case):
+    B, N, H, hd = SERVING_CORE_CASES[case]
+    rs = np.random.RandomState(N + hd)
+    return _t(rs.randn(B, N, 3 * H * hd), "bfloat16"), H
+
+
+@pytest.mark.parametrize("exp", ["exp", "ex2"])
+@pytest.mark.parametrize("k15", [False, True], ids=["K1", "K15"])
+@pytest.mark.parametrize("case", list(SERVING_CORE_CASES))
+def test_ulp_share_accepts_serving_core_sums_in_another_order(case, k15,
+                                                              exp):
+    qkv, H = _serving_qkv(case)
+    got = _core(qkv, H, k15=k15,
+                exp=_exp2_form if exp == "ex2" else torch.exp)
+    want = _plain_core(qkv, H, k15)
+    assert tfa.ulp_share(got, want) >= tfa.ULP_SHARE
+    assert ((got.float() - want.float()).abs().max()
+            <= 2 * 2.0 ** -8 * want.float().abs().max())
+
+
+@pytest.mark.parametrize("k15", [False, True], ids=["K1", "K15"])
+def test_ulp_share_rejects_q_rounded_after_its_scale(k15):
+    """A core that scales the fp32 scores after Q K^T in place of rounding
+    q * scale to bf16 before it fails the check: 0.798 (K1) and 0.797
+    (K15) of outputs within one ulp.  At head_dim 64 the scale is 2**-3 and both orders give
+    the same scores."""
+    qkv, H = _serving_qkv("hd128")
+    got = _core(qkv, H, k15=k15, scale_scores=True)
+    want = _plain_core(qkv, H, k15)
+    assert tfa.ulp_share(got, want) < tfa.ULP_SHARE
+    # ... though it stays within the two ulps of the largest output that
+    # bf16_close allows
     assert ((got.float() - want.float()).abs().max()
             <= 2 * 2.0 ** -8 * want.float().abs().max())
 

@@ -101,6 +101,19 @@ def test_dyt_prologue_kernel(B, N, C, H, F, with_select):
         logits_close(got[2], want[2])
 
 
+@pytest.mark.parametrize("xdtype", [BF, torch.float32])
+def test_attention_sublayer_kernel_fp32_copy(xdtype):
+    """K2's chain with the fp32 copy of x_mid that K3 and K7 hand their
+    adapter: the residual epilogue's two outputs."""
+    x, sub, _ = make_inputs(3, 197, 768, 64, xdtype=xdtype, seed=3)
+    lib = ms._check_sublayer(x, *sub, 12)
+    xm32 = torch.empty(x.shape, dtype=torch.float32, device="cuda")
+    got = ms._launch_sublayer(lib, x, *sub, 12, xm32)
+    torch.cuda.synchronize()
+    assert torch.equal(xm32.to(xdtype), got)
+    bf16_close(xm32, ms._sublayer_f32(x, *sub, 12), "x_mid fp32")
+
+
 def test_attention_core_clamps_large_scores():
     x, sub, _ = make_inputs(2, 197, 768, 64, seed=2)
     wqkv = sub[2].float()
@@ -496,7 +509,8 @@ def k11_inputs(M, C, H, *, xdtype=BF, gated=False, seed=14):
 @pytest.mark.parametrize("gated", [False, True], ids=["no_gate", "gate"])
 @pytest.mark.parametrize("xdtype", [BF, torch.float32])
 @pytest.mark.parametrize("M,C,H", [(128 * 99, 768, 3072),
-                                   (128 * 197, 768, 3072), (77, 128, 512)])
+                                   (128 * 197, 768, 3072), (77, 128, 512),
+                                   (129, 768, 3072)])
 def test_fused_ln_mlp_kernel(M, C, H, xdtype, gated, gelu_approx):
     from dynamic_tuning_tpu_torch.ops import fused_mlp as fm
 
@@ -579,7 +593,23 @@ def core_qkv(B, N, H, hd=64, *, seed=15):
 
 CORE_SHAPES = [(128, 197, 12, 64),       # ViT-B/16 serving
                (3, 19, 2, 64),           # ragged tokens
-               (2, 50, 2, 128)]          # head_dim 128
+               (2, 50, 2, 128),          # head_dim 128
+               (2, 5, 2, 64),            # fewer keys than a 16-key step
+               (2, 256, 2, 64),          # the longest whole-row N
+               (2, 209, 2, 128),         # ... past 13 chunks, head_dim 128
+               (8, 257, 12, 64),         # the LayerScale backbone at 256^2
+               (1, 800, 2, 64),          # the longest N of the mma.sync core
+               (1, 416, 2, 128),         # ... at head_dim 128 (and this one)
+               (1, 864, 2, 64)]          # the longest N the core takes
+
+
+@pytest.mark.parametrize("N,hd,longest", [(865, 64, 864), (417, 128, 416)])
+def test_core_refuses_n_past_its_shared_memory(N, hd, longest):
+    """One key past the longest N the core holds is refused, and the
+    refusal names that N, asked of the kernel's own layout."""
+    qkv = core_qkv(1, N, 2, hd)
+    with pytest.raises(ValueError, match=f"N <= {longest} at head_dim {hd}"):
+        ms.mha_serving_fused(qkv, heads=2)
 
 
 @pytest.mark.parametrize("B,N,H,hd", CORE_SHAPES)
@@ -590,7 +620,9 @@ def test_mha_serving_fused_kernel(B, N, H, hd):
     torch.cuda.synchronize()
     assert ms.mha_serving_fused.launches == before + 1
     assert got.dtype == BF and got.shape == (B, N, H * hd)
-    bf16_close(got, ms.attn_core_pairs(qkv, heads=H), "K1")
+    want = ms.attn_core_pairs(qkv, heads=H)
+    bf16_close(got, want, "K1")
+    contract_close(got, want, "K1")
 
 
 @pytest.mark.parametrize("layout", ["contiguous", "views"])
@@ -607,7 +639,9 @@ def test_mha_serving_kernel(B, N, H, hd, layout):
     torch.cuda.synchronize()
     assert ms.mha_serving.launches == before + 1
     assert got.shape == (B, H, N, hd) and got.transpose(1, 2).is_contiguous()
-    bf16_close(got, ms.mha_serving_plain(q, k, v), "K15")
+    want = ms.mha_serving_plain(q, k, v)
+    bf16_close(got, want, "K15")
+    contract_close(got, want, "K15")
 
 
 def test_k15_and_k1_round_differently():
@@ -621,9 +655,9 @@ def test_k15_and_k1_round_differently():
 
 
 def contract_close(got, want, what=""):
-    """K13/K14 beside bf16_close: 99% of outputs within one bf16 ulp of
-    their own magnitude (``ulp_share``), which a kernel that rounds p at
-    another point fails (tests/test_torch_port_attn.py)."""
+    """K1, K15, K13 and K14 beside bf16_close: 99% of outputs within one
+    bf16 ulp of their own magnitude (``ulp_share``), which a kernel that
+    rounds p or q at another point fails (tests/test_torch_port_attn.py)."""
     from dynamic_tuning_tpu_torch.ops import flash_attention as fa
 
     share = fa.ulp_share(got, want)
@@ -843,6 +877,27 @@ def test_make_mm_int8_kernel_is_exact(M, K, N):
     assert pi.make_mm.launches == before + 1
     assert got.dtype == torch.int32 and got.shape == (M, N)
     assert torch.equal(got, pi.mm_plain(a, b, torch.int32))
+
+
+@pytest.mark.parametrize("K,N", [(64, 40), (768, 768), (768, 2304),
+                                 (768, 3072), (3072, 768)])
+@pytest.mark.parametrize("M", [1, 127, 129, 12673])
+def test_bf16_gemm_kernel(M, K, N):
+    """The hand bf16 GEMM (TMA + wgmma) at ragged M, the serving path's N
+    and K and a ragged N, on both tile widths it picks by N (128 wide below
+    N = 2048, 256 from there): the raw-store epilogue of K16's probe, held
+    as test_make_mm_bf16_kernel holds it."""
+    from dynamic_tuning_tpu_torch.utils import profile_int8 as pi
+    g = torch.Generator(device="cuda").manual_seed(M + K + N)
+    a = torch.randn((M, K), generator=g, device="cuda").to(BF)
+    bt = torch.randn((N, K), generator=g, device="cuda").to(BF)
+    before = pi.make_mm.launches
+    got = pi.make_mm(M, K, N, BF, torch.float32).nt(a, bt)
+    torch.cuda.synchronize()
+    assert pi.make_mm.launches == before + 1
+    want = pi.mm_plain(a, bt.t(), torch.float64)
+    err = (got.double() - want).abs().max().item()
+    assert err <= 2.0 ** -16 * want.abs().max().item(), err
 
 
 @pytest.mark.parametrize("M,K,N", [(197, 768, 2304), (37, 64, 40)])
