@@ -1,10 +1,10 @@
 // Shared helpers of the serving kernels: bf16 conversions, round-to-nearest
 // fp32 arithmetic (and a division by one rounded reciprocal), ex2, the fp32
 // GELUs, cp.async, warp reductions, the bf16 and int8 mma.sync primitives
-// (the windowed and MoE kernels, the int8 GEMM and the long-sequence
-// softmax walk run on them), paired and 8-wide loads and stores, and the
-// bf16 LayerNorm rows.  The bf16 GEMM lives in gemm.cuh and the wgmma / TMA
-// building blocks in wgmma.cuh.
+// (the MoE kernels, K10's int8 attention core and the long-sequence softmax
+// walk run on them), paired and 8-wide loads and stores, and the bf16
+// LayerNorm rows.  The bf16 / int8 GEMM lives in gemm.cuh and the wgmma /
+// TMA building blocks in wgmma.cuh.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -186,6 +186,9 @@ __device__ __forceinline__ void store2(bf16* p, float a, float b) {
   h.x = from_f32<bf16>(a);
   h.y = from_f32<bf16>(b);
   *reinterpret_cast<__nv_bfloat162*>(p) = h;
+}
+__device__ __forceinline__ void store2(int* p, int a, int b) {
+  *reinterpret_cast<int2*>(p) = make_int2(a, b);
 }
 
 // 8 consecutive elements <-> fp32 (16-byte bf16 / 32-byte fp32 accesses)

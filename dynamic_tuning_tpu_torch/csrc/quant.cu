@@ -24,10 +24,10 @@
 // adds 15 GFLOP.  Moving the activations through device memory -- int8
 // codes, the bf16 qkv buffer, the fp32 GELU output that fc2's row
 // quantization needs -- costs more: ~0.25 GB for the sublayer and ~0.5 GB
-// for the MLP at dense rows (75 and 150 us at 3.35 TB/s).  The int8 GEMM is
-// an Ampere-style mma.sync form, so the tensor-core rate, not the bound,
-// decides; wgmma, TMA and fusing the quantizers into the GEMMs are later
-// work.
+// for the MLP at dense rows (75 and 150 us at 3.35 TB/s).  The GEMMs were
+// an Ampere-style mma.sync form (a cp.async ring and ldmatrix) at 300-420
+// TOPS, under torch._int_mm's 510-720: the tensor-core rate, not the bytes,
+// decided.  Fusing the quantizers into the GEMMs is later work.
 //
 // What the design does about it.  Short chains of kernels on the caller's
 // stream, each following the TPU kernel's rounding points exactly:
@@ -37,12 +37,15 @@
 //                     K12 reads its rows through the selection's index and
 //                     writes the gate and the rows' scatter targets;
 //   row_quant_kernel  the same quantization of a bf16 or fp32 row;
-//   gemm_s8_kernel    128x128x64 block tiles fed by a 4-stage cp.async ring,
-//                     8 warps of 64x32 tiles of mma.sync m16n8k32 s8 x s8 ->
-//                     s32, and an epilogue that dequantizes and applies the
-//                     caller's bias / GELU / residual arithmetic in fp32
-//                     (K12's fc2 stores each row at its token), or stores
-//                     the int32 sums as they are (K16);
+//   gemm_nt_kernel<int8_t> (gemm.cuh, the bf16 GEMM's design on int8: a
+//                     persistent grid, a TMA ring of 128-deep k tiles fed by
+//                     one producer thread, two consumer warpgroups on wgmma
+//                     m64nNk32 s8 x s8 -> s32) with EpiQ8, an epilogue that
+//                     dequantizes and applies the caller's bias / GELU /
+//                     residual arithmetic in fp32 and stores whole 16-byte
+//                     pieces of rows staged through shared memory (K12's fc2
+//                     stores each row at its token), or stores the int32
+//                     sums as they are (K16);
 //   k_quant_kernel    (K10) one block per (sample, head pair): k's lane
 //                     means, the centred k rows quantized over the pair's
 //                     2*hd lanes (the TPU's one 128-lane row);
@@ -53,6 +56,8 @@
 // Every rounding step uses the _rn intrinsics (mul/add/sub of common.cuh):
 // nvcc would otherwise contract a * b + c into one FMA, which rounds once
 // where the TPU kernel rounds twice.
+#include <type_traits>
+
 #include "gemm.cuh"
 
 extern "C" int dyt_attn_core(const void* qkv, void* out, int B, int N, int C,
@@ -243,25 +248,11 @@ static cudaError_t launch_row_quant(const TI* x, int8_t* q, float* rs, int M,
 }
 
 // ---------------------------------------------------------------------------
-// int8 NT GEMM: out[m, n] = epilogue(sum_k A[m, k] * W[n, k]), A [M, K] and
-// W [N, K] int8, K-contiguous.  Requires K % 16 == 0 and N % 8 == 0; M may
-// be ragged.  128x128x64 block tiles (k in bytes) fed by a four-stage
-// cp.async ring, eight warps of 64x32 tiles of mma.sync m16n8k32 fed by
-// ldmatrix: the s8 fragments hold the bytes of the bf16 m16n8k16 ones, so
-// the bf16 ldmatrix addressing serves with k counted in bytes.
-
-template <int BM_, int BN_, int BK_, int STAGES_, int WM_, int WN_>
-struct GemmQ8Cfg {
-  static constexpr int BM = BM_, BN = BN_, BK = BK_, STAGES = STAGES_;
-  static constexpr int WM = WM_, WN = WN_, THREADS = 32 * WM * WN;
-  static constexpr int MT = BM / WM / 16, NT = BN / WN / 8;
-  static constexpr int LD = BK + 16;             // bytes; bank skew
-  static constexpr int STAGE = (BM + BN) * LD;   // bytes per stage
-  static constexpr int SMEM = STAGES * STAGE;
-  static_assert(BM % (16 * WM) == 0 && BN % (16 * WN) == 0 && BK % 32 == 0,
-                "tile shape");
-};
-using GemmQ8Default = GemmQ8Cfg<128, 128, 64, 4, 2, 4>;
+// The int8 GEMM: gemm.cuh's TMA + wgmma kernel on int8 operands (A [M, K]
+// and W [N, K], K-contiguous; K % 16 == 0, N % 8 == 0, M ragged) with one
+// of these epilogues.  The int32 sums are exact in any order, and each
+// epilogue rounds at the points q8_epilogue gives, so the outputs are the
+// bits the plain versions compute.
 
 enum Q8Epilogue {
   Q8_OUT = 0,        // out = TO((acc * rs[m]) * cs[n] + bias[n])
@@ -288,149 +279,96 @@ __device__ __forceinline__ float q8_epilogue(int acc, float r, float c,
   return add(add(resid, v), b);                  // Q8_RESID
 }
 
-template <class G, int EPI, typename TO>
-__global__ void __launch_bounds__(G::THREADS)
-gemm_s8_kernel(const int8_t* __restrict__ A, const int8_t* __restrict__ W,
-               const float* __restrict__ rs, const float* __restrict__ cs,
-               const float* __restrict__ bias, int M, int N, int K,
-               TO* __restrict__ out, const TO* __restrict__ resid,
-               float* __restrict__ out_f32, float* __restrict__ row_amax,
-               const int* __restrict__ row_map) {
-  constexpr bool GELU = EPI == Q8_GELU_ERF || EPI == Q8_GELU_TANH;
-  constexpr int BM = G::BM, BN = G::BN, BK = G::BK, LD = G::LD;
-  constexpr int MT = G::MT, NT = G::NT;
-  extern __shared__ __align__(128) unsigned char qsmem[];
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
-  const int wm0 = (warp / G::WN) * MT * 16, wn0 = (warp % G::WN) * NT * 8;
+// A 64-row consumer warpgroup's int32 accumulators of the 128 x BN tile at
+// (m0, n0), dequantized and stored through gemm.cuh's staged stores.  The
+// GELU forms also take each row's amax |out| over the tile's columns (the
+// quad's lanes, then an atomic max across column tiles: bit order is value
+// order for non-negative floats).
+template <int EPI, typename TO>
+struct EpiQ8 {
+  const float* rs;
+  const float* cs;
+  const float* bias;
+  TO* out;
+  const TO* resid;
+  float* out_f32;
+  float* row_amax;
+  const int* row_map;
 
-  // rows [0, BM) of a stage hold A, rows [BM, BM + BN) hold W
-  auto load_stage = [&](int stage, int k0) {
-    unsigned char* st = qsmem + stage * G::STAGE;
-#pragma unroll
-    for (int i = tid; i < (BM + BN) * (BK / 16); i += G::THREADS) {
-      const int r = i / (BK / 16), c = (i % (BK / 16)) * 16;
-      const int gk = k0 + c;
-      const bool is_a = r < BM;
-      const int g = is_a ? m0 + r : n0 + r - BM;
-      const bool ok = g < (is_a ? M : N) && gk < K;
-      const int8_t* src = is_a ? A : W;
-      cp_async16(st + r * LD + c, ok ? src + (size_t)g * K + gk : src,
-                 ok ? 16 : 0);
-    }
-  };
-
-  int acc[MT][NT][4];
-#pragma unroll
-  for (int i = 0; i < MT; ++i)
-#pragma unroll
-    for (int j = 0; j < NT; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0;
-
-  // ldmatrix lane addressing: A rows lane%16, k half lane/16; W rows
-  // lane%8 (+8 for lanes 16..31), k half (lane/8)%2; k in bytes
-  const int a_row = lane & 15, a_k = (lane >> 4) * 16;
-  const int b_row = (lane & 7) + ((lane >> 4) << 3), b_k = ((lane >> 3) & 1) * 16;
-
-  const int nk = (K + BK - 1) / BK;
-#pragma unroll
-  for (int s = 0; s < G::STAGES - 1; ++s) {
-    if (s < nk) load_stage(s, s * BK);
-    cp_async_commit();
+  bool aligned() const {
+    return (reinterpret_cast<uintptr_t>(out) |
+            reinterpret_cast<uintptr_t>(out_f32)) % 16 == 0;
   }
-  for (int kt = 0; kt < nk; ++kt) {
-    cp_async_wait<G::STAGES - 2>();   // stage kt has landed
-    __syncthreads();                  // ... and stage kt-1 is free again
-    const int nxt = kt + G::STAGES - 1;
-    if (nxt < nk) load_stage(nxt % G::STAGES, nxt * BK);
-    cp_async_commit();
-    const unsigned char* sa = qsmem + (kt % G::STAGES) * G::STAGE;
-    const unsigned char* sb = sa + BM * LD;
-#pragma unroll
-    for (int kk = 0; kk < BK; kk += 32) {
-      unsigned af[MT][4], bfr[NT][2];
-#pragma unroll
-      for (int i = 0; i < MT; ++i)
-        ldmatrix_x4(af[i], sa + (wm0 + i * 16 + a_row) * LD + kk + a_k);
-#pragma unroll
-      for (int j = 0; j < NT; j += 2) {
-        unsigned r[4];
-        ldmatrix_x4(r, sb + (wn0 + j * 8 + b_row) * LD + kk + b_k);
-        bfr[j][0] = r[0]; bfr[j][1] = r[1];
-        bfr[j + 1][0] = r[2]; bfr[j + 1][1] = r[3];
-      }
-#pragma unroll
-      for (int i = 0; i < MT; ++i)
-#pragma unroll
-        for (int j = 0; j < NT; ++j)
-          mma_s8_16832(acc[i][j], af[i], bfr[j][0], bfr[j][1]);
-    }
-  }
-  cp_async_wait<0>();
 
-  // epilogue straight from the accumulators: element pairs (row, col..col+1)
-  const int g = lane >> 2, t2 = (lane & 3) * 2;
-  float rmax[MT][2];
+  template <int NA>
+  __device__ __forceinline__ void operator()(const int (&acc)[NA],
+                                             unsigned char* stage, int m0,
+                                             int n0, int M, int N) const {
+    constexpr int BN = 2 * NA;
+    constexpr bool GELU = EPI == Q8_GELU_ERF || EPI == Q8_GELU_TANH;
+    const int lane = threadIdx.x & 31;
+    const int g = lane >> 2, t2 = (lane & 3) * 2;
+    const int row0 = gemm_warp_row0(m0);
+    float r[2] = {0.f, 0.f}, rmax[2] = {0.f, 0.f};
+    if constexpr (EPI != Q8_RAW) {
 #pragma unroll
-  for (int i = 0; i < MT; ++i) rmax[i][0] = rmax[i][1] = 0.f;
+      for (int h = 0; h < 2; ++h)
+        if (row0 + g + 8 * h < M) r[h] = rs[row0 + g + 8 * h];
+    }
 #pragma unroll
-  for (int i = 0; i < MT; ++i) {
-#pragma unroll
-    for (int j = 0; j < NT; ++j) {
-      const int col = n0 + wn0 + j * 8 + t2;
-      if (col >= N) continue;
+    for (int c = 0; c < BN / GEMM_OUT_COLS; ++c) {
+      const int col0 = n0 + c * GEMM_OUT_COLS;
       if constexpr (EPI == Q8_RAW) {
+        int v[4][2][2];
 #pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const int row = m0 + wm0 + i * 16 + g + h * 8;
-          if (row < M)
-            *reinterpret_cast<int2*>(out + (size_t)row * N + col) =
-                make_int2(acc[i][j][2 * h], acc[i][j][2 * h + 1]);
-        }
+        for (int jj = 0; jj < 4; ++jj)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            v[jj][e >> 1][e & 1] = acc[4 * (c * 4 + jj) + e];
+        gemm_store_chunk<TO>(v, out, stage, row0, col0, M, N, lane);
       } else {
-        const float2 c = load2(cs + col);
-        const float2 b = load2(bias + col);
+        float v[4][2][2];
 #pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const int row = m0 + wm0 + i * 16 + g + h * 8;
-          if (row >= M) continue;
-          size_t o = (size_t)row * N + col;
-          if constexpr (EPI == Q8_SCATTER) {
-            const int dst = row_map[row];
-            if (dst < 0) continue;
-            o = (size_t)dst * N + col;
+        for (int jj = 0; jj < 4; ++jj) {
+          const int j = c * 4 + jj, col = n0 + j * 8 + t2;
+          float2 cc = make_float2(0.f, 0.f), b = make_float2(0.f, 0.f);
+          if (col < N) {
+            cc = load2(cs + col);
+            b = load2(bias + col);
           }
-          const float r = rs[row];
-          float2 x = make_float2(0.f, 0.f);
-          if constexpr (EPI == Q8_RESID) x = load2(resid + o);
-          const float v0 =
-              q8_epilogue<EPI>(acc[i][j][2 * h], r, c.x, b.x, x.x);
-          const float v1 =
-              q8_epilogue<EPI>(acc[i][j][2 * h + 1], r, c.y, b.y, x.y);
-          store2(out + o, v0, v1);
-          if constexpr (EPI == Q8_RESID) {
-            if (out_f32 != nullptr) store2(out_f32 + o, v0, v1);
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int row = row0 + g + 8 * h;
+            float2 x = make_float2(0.f, 0.f);
+            if constexpr (EPI == Q8_RESID)
+              if (row < M && col < N) x = load2(resid + (size_t)row * N + col);
+            const float v0 =
+                q8_epilogue<EPI>(acc[4 * j + 2 * h], r[h], cc.x, b.x, x.x);
+            const float v1 =
+                q8_epilogue<EPI>(acc[4 * j + 2 * h + 1], r[h], cc.y, b.y, x.y);
+            v[jj][h][0] = v0;
+            v[jj][h][1] = v1;
+            if constexpr (GELU)
+              if (col < N)
+                rmax[h] = fmaxf(rmax[h], fmaxf(fabsf(v0), fabsf(v1)));
           }
-          if constexpr (GELU)
-            rmax[i][h] = fmaxf(rmax[i][h], fmaxf(fabsf(v0), fabsf(v1)));
         }
+        gemm_store_chunk<TO>(v, out, stage, row0, col0, M, N, lane,
+                             EPI == Q8_SCATTER ? row_map : nullptr);
+        if constexpr (EPI == Q8_RESID)
+          if (out_f32 != nullptr)
+            gemm_store_chunk<float>(v, out_f32, stage, row0, col0, M, N,
+                                    lane);
       }
     }
-  }
-  if constexpr (GELU) {
-    // a row's values in this tile sit in the four lanes of a quad; the
-    // column tiles meet in an atomic max (bit order = value order for
-    // non-negative floats)
-    if (row_amax != nullptr) {
-#pragma unroll
-      for (int i = 0; i < MT; ++i) {
+    if constexpr (GELU) {
+      if (row_amax != nullptr) {
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
-          float m = rmax[i][h];
+          float m = rmax[h];
           m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 1));
           m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 2));
-          const int row = m0 + wm0 + i * 16 + g + h * 8;
+          const int row = row0 + g + 8 * h;
           if ((lane & 3) == 0 && row < M)
             atomicMax(reinterpret_cast<unsigned*>(row_amax) + row,
                       __float_as_uint(m));
@@ -438,23 +376,19 @@ gemm_s8_kernel(const int8_t* __restrict__ A, const int8_t* __restrict__ W,
       }
     }
   }
-}
+};
 
-template <int EPI, typename TO, class G = GemmQ8Default>
+template <int EPI, typename TO>
 static cudaError_t launch_gemm_s8(const int8_t* A, const int8_t* W,
                                   const float* rs, const float* cs,
                                   const float* bias, int M, int N, int K,
                                   TO* out, const TO* resid, float* out_f32,
                                   float* row_amax, cudaStream_t s,
                                   const int* row_map = nullptr) {
-  cudaError_t err = cudaFuncSetAttribute(
-      gemm_s8_kernel<G, EPI, TO>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      G::SMEM);
-  if (err != cudaSuccess) return err;
-  dim3 grid((N + G::BN - 1) / G::BN, (M + G::BM - 1) / G::BM);
-  gemm_s8_kernel<G, EPI, TO><<<grid, G::THREADS, G::SMEM, s>>>(
-      A, W, rs, cs, bias, M, N, K, out, resid, out_f32, row_amax, row_map);
-  return cudaGetLastError();
+  return launch_gemm(A, W, M, N, K,
+                     EpiQ8<EPI, TO>{rs, cs, bias, out, resid, out_f32,
+                                    row_amax, row_map},
+                     s);
 }
 
 // ---------------------------------------------------------------------------
@@ -830,6 +764,46 @@ static cudaError_t dispatch_mlp_q8(const TX* x, const int64_t* idx,
                        RowGather<TX>{idx, keep, cap, N, row_map, gate});
 }
 
+// One EpiQ8 form on its own, chosen at run time (dyt_gemm_s8)
+template <typename TO>
+static cudaError_t gemm_s8_form(int epi, const int8_t* a, const int8_t* w,
+                                const float* rs, const float* cs,
+                                const float* bias, int M, int N, int K,
+                                TO* out, const TO* resid, float* out_f32,
+                                float* row_amax, const int* row_map,
+                                cudaStream_t s) {
+  switch (epi) {
+    case Q8_OUT:
+      return launch_gemm_s8<Q8_OUT, TO>(a, w, rs, cs, bias, M, N, K, out,
+                                        nullptr, nullptr, nullptr, s);
+    case Q8_RESID:
+      return launch_gemm_s8<Q8_RESID, TO>(a, w, rs, cs, bias, M, N, K, out,
+                                          resid, out_f32, nullptr, s);
+    case Q8_SCATTER:
+      return launch_gemm_s8<Q8_SCATTER, TO>(a, w, rs, cs, bias, M, N, K, out,
+                                            nullptr, nullptr, nullptr, s,
+                                            row_map);
+    default:
+      break;
+  }
+  if constexpr (std::is_same<TO, bf16>::value) {
+    if (epi == Q8_STEM)
+      return launch_gemm_s8<Q8_STEM, TO>(a, w, rs, cs, bias, M, N, K, out,
+                                         nullptr, nullptr, nullptr, s);
+  }
+  if constexpr (std::is_same<TO, float>::value) {
+    if (epi == Q8_GELU_ERF)
+      return launch_gemm_s8<Q8_GELU_ERF, TO>(a, w, rs, cs, bias, M, N, K,
+                                             out, nullptr, nullptr, row_amax,
+                                             s);
+    if (epi == Q8_GELU_TANH)
+      return launch_gemm_s8<Q8_GELU_TANH, TO>(a, w, rs, cs, bias, M, N, K,
+                                              out, nullptr, nullptr,
+                                              row_amax, s);
+  }
+  return cudaErrorInvalidValue;
+}
+
 }  // namespace dyt
 
 extern "C" {
@@ -949,6 +923,37 @@ int dyt_q8_dispatch_mlp(const void* x, int x_f32, const void* idx,
       static_cast<const dyt::bf16*>(x), ix, kp, gamma, beta, q1, s1, b1, q2,
       s2, b2, static_cast<dyt::bf16*>(out), static_cast<dyt::bf16*>(gate), a,
       rs, h, hmax, rm, B, N, cap, C, Hd, approx, s);
+}
+
+// The int8 GEMM with any one Q8Epilogue form ``epi`` (the forms' values;
+// tests and probes): a [M, K] and w [N, K] int8 (K % 16 == 0, N % 8 ==
+// 0); rs [M], cs [N], bias [N] fp32; out [M, N] of ``out_type`` (0 bf16,
+// 1 fp32, 2 int32), or for Q8_SCATTER [rows, N] with row m at row_map[m]
+// (int32 [M], none where < 0); resid [M, N] as out (Q8_RESID) and out_f32
+// [M, N] fp32 or null (Q8_RESID); row_amax [M] fp32, zeroed by the caller,
+// or null (the GELU forms).  Q8_RAW takes int32 out only, the GELU forms
+// fp32, Q8_STEM bf16.  Returns a cudaError_t value.
+int dyt_gemm_s8(int epi, int out_type, const void* a, const void* w,
+                const float* rs, const float* cs, const float* bias, int M,
+                int N, int K, void* out, const void* resid, float* out_f32,
+                float* row_amax, const void* row_map, void* stream) {
+  auto* qa = static_cast<const int8_t*>(a);
+  auto* qw = static_cast<const int8_t*>(w);
+  auto* rm = static_cast<const int*>(row_map);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (out_type == 0)
+    return dyt::gemm_s8_form<dyt::bf16>(
+        epi, qa, qw, rs, cs, bias, M, N, K, static_cast<dyt::bf16*>(out),
+        static_cast<const dyt::bf16*>(resid), out_f32, row_amax, rm, s);
+  if (out_type == 1)
+    return dyt::gemm_s8_form<float>(
+        epi, qa, qw, rs, cs, bias, M, N, K, static_cast<float*>(out),
+        static_cast<const float*>(resid), out_f32, row_amax, rm, s);
+  if (out_type == 2 && epi == dyt::Q8_RAW)
+    return dyt::launch_gemm_s8<dyt::Q8_RAW, int>(
+        qa, qw, nullptr, nullptr, nullptr, M, N, K, static_cast<int*>(out),
+        nullptr, nullptr, nullptr, s);
+  return cudaErrorInvalidValue;
 }
 
 // K16, int8: out [M, N] int32 = a [M, K] int8 . w [N, K]^T int8, the exact

@@ -12,101 +12,122 @@
 // N = 1025, 12 heads of 64) the bias is the largest operand: 12 * 1025^2 *
 // 2 B = 25.2 MB, shared over the batch, against 6.3 MB of qkv and 1.6 MB of
 // output -- ~10 us at 3.35 TB/s.  The products are 4 * N^2 * hd * H =
-// 3.2 GFLOP, ~3.3 us at the bf16 peak.  So at batch 1 the kernel is
-// byte-bound on paper; with mma.sync (no wgmma yet) and one N^2 expf per
-// head it is the products and the exp that take the time in practice.
+// 3.2 GFLOP, ~3.3 us at the bf16 peak, and there are 12.6 M expf.  So on
+// paper the bytes bound it; in practice the per-score instructions (the
+// bias add, the clamp, an accurate expf, l, the bf16 packing) and how many
+// warps an SM has to hide them decide.  The mma.sync form this replaces
+// (a two-stage cp.async ring, 17 x 12 = 204 blocks of four warps at B = 1)
+// took 0.055 ms, slower than SDPA with the bias as its mask.
 //
-// What the design does about it.  At N = 1025 a head's K and V (2 * 1040 *
-// 72 * 2 B = 300 KB with the bank skew) do not fit the 227 KB a block may
-// use, so unlike attn_core_kernel (attention_sublayer.cu) K and V are not
-// held whole: each block owns 64 query rows of one (sample, head) and walks
-// the keys in tiles of 64, staging the K tile, the V tile and the matching
-// 64 x 64 bias tile through a two-stage cp.async ring (55 KB at hd = 64),
-// so the next tile's bytes are in flight while the warps compute on this
-// one.  The serving softmax has no row max, so each key chunk is final when
-// it is computed: no rescaling, scores and probabilities stay in registers.
-// The bias tile is read once per (query tile, head) from device memory with
-// 16-byte copies, so its rows must start on 16 bytes: the wrapper passes a
-// bias whose row stride is a multiple of 8 elements (the layer builds it
-// padded that way).  The grid runs the batch fastest, so the blocks that
-// share a bias tile run side by side and the second reads it from L2.
-// 64-row query tiles give 17 x 12 = 204 blocks at B = 1 on 132 SMs
-// (128-row tiles would give 108, fewer than the SMs); four such blocks fit
-// an SM (55 KB of shared memory, 126 registers a thread at hd = 64).
-#include "common.cuh"
+// What the design does about it.  At N = 1025 a head's K and V (262 KB) do
+// not fit a block's 227 KB, so they are streamed: a block is one warpgroup
+// owning 64 query rows of one (sample, head), and walks key tiles of 64.
+//   * TMA brings each tile's K, V and 64 x 64 bias block into a ring of
+//     two 128-byte swizzled stages, paced by a full and an empty mbarrier a
+//     stage; thread 0 issues each tile's loads while the tile before it is
+//     computed, and the other blocks on the SM hide what is left.
+//     The bias rows keep their 16-byte-aligned padded stride (TMA needs
+//     it); the swizzle also spreads a warp's bias reads over the banks.
+//   * Q K^T and P V run on wgmma: q' as register A fragments against K
+//     K-major, then p = bf16(e) as register fragments against V read
+//     N-major through the transposing descriptor (as the serving core).
+//   * The serving softmax has no row max, so partial (o, l) over disjoint
+//     key ranges add with no rescaling: a cluster of WIN_SPLIT blocks
+//     splits each query tile's key tiles, and rank 0 adds the others'
+//     partials from their shared memory (distributed shared memory) before
+//     its one rounding of o * (1 / l).  That doubles the blocks in flight at
+//     B = 1 (408 blocks, four an SM at hd 64: one wave) and halves each
+//     one's walk.
+// Keys past N arrive as zeros (TMA's fill) and are masked to p = 0; query
+// rows past N compute and are not stored.
+#include <cooperative_groups.h>
+
+#include "gemm.cuh"
 
 namespace dyt {
 
-constexpr int WIN_WARPS = 4;                  // 16 query rows per warp
-constexpr int WIN_ROWS = WIN_WARPS * 16;      // query rows per block
-constexpr int WIN_KEYS = 64;                  // keys per staged tile
+constexpr int WIN_THREADS = 128;   // one warpgroup: 64 query rows
+constexpr int WIN_ROWS = 64;       // query rows a block
+constexpr int WIN_KEYS = 64;       // keys a tile
+constexpr int WIN_SPLIT = 2;       // blocks of a cluster sharing a query tile
 
 template <int HD>
 struct WinLayout {
-  static constexpr int LDK = HD + 8;          // K/V row stride (bank skew)
-  static constexpr int LDB = WIN_KEYS + 8;    // bias row stride
-  static constexpr int KV = WIN_KEYS * LDK;   // elements of a K or V tile
-  static constexpr int BIAS = WIN_ROWS * LDB;
+  static constexpr int KV = WIN_KEYS * HD * 2;            // a K or V tile
+  static constexpr int BIAS = WIN_ROWS * WIN_KEYS * 2;    // 8 KB
   static constexpr int STAGE = 2 * KV + BIAS;
-  static constexpr int SMEM = 2 * STAGE * 2;  // two stages, in bytes
+  // two stages: at hd 64 four blocks (49 KB each) fit an SM, so the 408
+  // blocks of B = 1 run in one wave on 132 SMs (three stages fit three,
+  // and the last 12 blocks ran as a second wave)
+  static constexpr int STAGES = 2;
+  static constexpr int RING = STAGES * STAGE;
+  // the partial o and l a block hands rank 0, in the idle ring
+  static constexpr int PARTIAL = (HD / 2 + 2) * WIN_THREADS * 4;
+  static_assert(PARTIAL <= RING, "the partials reuse the ring");
+  static constexpr int SMEM = 1024 + RING + 2 * STAGES * 8;
+  static constexpr int BLOCKS = HD == 64 ? 4 : 2;         // an SM
 };
 
-// Block (b, query tile, h): thread (g = lane/4, t = lane%4) of warp w holds
-// query rows w*16 + g and w*16 + g + 8 of the tile in every accumulator.
+// Block (b * WIN_SPLIT + rank, query tile, h): thread (g = lane/4, t =
+// lane%4) of warp w holds query rows w*16 + g and w*16 + g + 8 of the tile
+// in every accumulator.  Rank r of the cluster walks the r-th share of the
+// key tiles.
 template <int HD>
-__global__ void __launch_bounds__(WIN_WARPS * 32)
-mha_windowed_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ bias,
-                    bf16* __restrict__ out, int N, int H,
-                    long long bias_head_stride, int bias_row_stride,
-                    float scale) {
+__global__ void __launch_bounds__(WIN_THREADS, WinLayout<HD>::BLOCKS)
+mha_windowed_kernel(const __grid_constant__ CUtensorMap map_qkv,
+                    const __grid_constant__ CUtensorMap map_bias,
+                    const bf16* __restrict__ qkv, bf16* __restrict__ out,
+                    int N, int H, float scale) {
   using L = WinLayout<HD>;
-  constexpr int CPR = HD / 8;    // 16-byte chunks per head row
   constexpr int DK = HD / 16;    // k16 steps of Q K^T
-  constexpr int OT = HD / 8;     // n8 tiles of the output
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  bf16* smem = reinterpret_cast<bf16*>(smem_raw);
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* ring = align1024(smem_raw);
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + L::RING);
+  uint64_t* empty = full + L::STAGES;
 
-  const int b = blockIdx.x, q0 = blockIdx.y * WIN_ROWS, h = blockIdx.z;
+  const int rank = blockIdx.x % WIN_SPLIT, b = blockIdx.x / WIN_SPLIT;
+  const int q0 = blockIdx.y * WIN_ROWS, h = blockIdx.z;
   const int C = H * HD, C3 = 3 * C;
-  const bf16* base = qkv + (size_t)b * N * C3;
-  const bf16* bh = bias + (size_t)h * bias_head_stride;
-  const int tid = threadIdx.x;
-
-  // K and V rows k0..k0+63 of head h and the bias block [q0.., k0..]; rows
-  // past N are zero-filled.  A bias chunk that starts before N may run past
-  // it into the row's padding (the wrapper guarantees the row stride
-  // covers it); those columns are masked below.
-  auto load_tile = [&](int stage, int k0) {
-    bf16* Ks = smem + stage * L::STAGE;
-    bf16* Vs = Ks + L::KV;
-    bf16* Bs = Vs + L::KV;
-    for (int i = tid; i < WIN_KEYS * CPR; i += WIN_WARPS * 32) {
-      const int r = i / CPR, c = (i % CPR) * 8;
-      const bool ok = k0 + r < N;
-      const bf16* row = base + (size_t)(ok ? k0 + r : 0) * C3 + h * HD + c;
-      cp_async16(Ks + r * L::LDK + c, row + C, ok ? 16 : 0);
-      cp_async16(Vs + r * L::LDK + c, row + 2 * C, ok ? 16 : 0);
-    }
-    for (int i = tid; i < WIN_ROWS * (WIN_KEYS / 8); i += WIN_WARPS * 32) {
-      const int r = i / (WIN_KEYS / 8), c = (i % (WIN_KEYS / 8)) * 8;
-      const bool ok = q0 + r < N && k0 + c < N;
-      const bf16* src =
-          ok ? bh + (size_t)(q0 + r) * bias_row_stride + k0 + c : bh;
-      cp_async16(Bs + r * L::LDB + c, src, ok ? 16 : 0);
-    }
-  };
-
-  const int warp = tid >> 5, lane = tid & 31;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t2 = (lane & 3) * 2;
-  // ldmatrix row addresses as in attn_core_kernel: K as the col-major B of
-  // Q K^T, V transposed for P V
-  const int k_row = (lane & 7) + ((lane >> 4) << 3), k_col = ((lane >> 3) & 1) * 8;
-  const int v_row = lane & 15, v_col = (lane >> 4) * 8;
-  const int r_lo = warp * 16 + g;               // row within the block tile
-  const int n_lo = q0 + r_lo, n_hi = n_lo + 8;
+  // this block's key tiles: t_begin .. t_begin + ntl - 1
+  const int nt = (N + WIN_KEYS - 1) / WIN_KEYS;
+  const int share = (nt + WIN_SPLIT - 1) / WIN_SPLIT;
+  const int t_begin = rank * share;
+  const int ntl = max(0, min(nt, t_begin + share) - t_begin);
+
+  if (tid == 0) {
+    for (int s = 0; s < L::STAGES; ++s) {
+      mbar_init(&full[s], 1);                     // thread 0's arrive
+      mbar_init(&empty[s], WIN_THREADS / 32);     // lane 0 of each warp
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  // local tile i into stage i % STAGES: K and V rows k0.. of head h (hd in
+  // 64-column boxes) and the bias block [q0.., k0..]
+  auto issue = [&](int i) {
+    const int st = i % L::STAGES, k0 = (t_begin + i) * WIN_KEYS;
+    unsigned char* dst = ring + st * L::STAGE;
+    mbar_expect_tx(&full[st], L::STAGE);
+#pragma unroll
+    for (int c = 0; c < HD / 64; ++c) {
+      tma_load_3d(dst + c * WIN_KEYS * 128, &map_qkv, &full[st],
+                  C + h * HD + 64 * c, k0, b);
+      tma_load_3d(dst + L::KV + c * WIN_KEYS * 128, &map_qkv, &full[st],
+                  2 * C + h * HD + 64 * c, k0, b);
+    }
+    tma_load_3d(dst + 2 * L::KV, &map_bias, &full[st], k0, q0, h);
+  };
+  if (tid == 0)
+    for (int i = 0; i < ntl && i < L::STAGES; ++i) issue(i);
 
   // q rows scaled in fp32 and rounded to bf16 before Q K^T, loaded straight
   // into the A-operand layout
+  const int n_lo = q0 + warp * 16 + g, n_hi = n_lo + 8;
+  const bool live = q0 + warp * 16 < N;           // the same for the warp
+  const bf16* base = qkv + (size_t)b * N * C3;
   unsigned qf[DK][4];
 #pragma unroll
   for (int d = 0; d < DK; ++d) {
@@ -119,67 +140,105 @@ mha_windowed_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ bias,
       qf[d][e] = pack_bf16x2(q.x * scale, q.y * scale);
     }
   }
-  float o[OT][4];
+  float o[HD / 2];
 #pragma unroll
-  for (int j = 0; j < OT; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) o[j][e] = 0.f;
+  for (int i = 0; i < HD / 2; ++i) o[i] = 0.f;
   float l_lo = 0.f, l_hi = 0.f;
 
-  const int ntiles = (N + WIN_KEYS - 1) / WIN_KEYS;
-  load_tile(0, 0);
-  cp_async_commit();
-  for (int t = 0; t < ntiles; ++t) {
-    cp_async_wait<0>();      // tile t has landed ...
-    __syncthreads();         // ... and every warp is done with tile t - 1
-    if (t + 1 < ntiles) load_tile((t + 1) & 1, (t + 1) * WIN_KEYS);
-    cp_async_commit();
-    const bf16* Ks = smem + (t & 1) * L::STAGE;
-    const bf16* Vs = Ks + L::KV;
-    const bf16* Bs = Vs + L::KV;
-    const int k0 = t * WIN_KEYS;
-
+  for (int i = 0; i < ntl; ++i) {
+    const int st = i % L::STAGES, k0 = (t_begin + i) * WIN_KEYS;
+    mbar_wait(&full[st], (i / L::STAGES) & 1);
+    const unsigned char* Kt = ring + st * L::STAGE;
+    const unsigned char* Vt = Kt + L::KV;
+    const unsigned char* Bt = Vt + L::KV;
+    float s[WIN_KEYS / 2];
+    wgmma_fence();
 #pragma unroll
-    for (int kc = 0; kc < WIN_KEYS / 16; ++kc) {
-      if (k0 + kc * 16 >= N) break;          // the same for every warp
-      float s[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
-#pragma unroll
-      for (int d = 0; d < DK; ++d) {
-        unsigned r[4];
-        ldmatrix_x4(r, Ks + (kc * 16 + k_row) * L::LDK + d * 16 + k_col);
-        mma_bf16_16816(s[0], qf[d], r[0], r[1]);
-        mma_bf16_16816(s[1], qf[d], r[2], r[3]);
+    for (int d = 0; d < DK; ++d)
+      wgmma_rs<WIN_KEYS, false>(
+          s, qf[d], desc_sw128(Kt + (d / 4) * WIN_KEYS * 128 + (d % 4) * 32),
+          d > 0);
+    wgmma_commit();
+    wgmma_wait<0>();               // these scores, and the last tile's P V
+    if (i > 0) {
+      // tile i - 1's stage is free: each warp is past its bias reads and
+      // its P V; thread 0 refills it with tile i - 1 + STAGES
+      const int prev = (i - 1) % L::STAGES;
+      if (lane == 0) mbar_arrive(&empty[prev]);
+      if (tid == 0 && i - 1 + L::STAGES < ntl) {
+        mbar_wait(&empty[prev], ((i - 1) / L::STAGES) & 1);
+        issue(i - 1 + L::STAGES);
       }
-      // s + bias, then e = exp(clip(s, -60, 80) - 20); padded keys add 0
+    }
+    // s + bias, then e = exp(clip(s, -60, 80) - 20); keys past N add 0.
+    // Element 4 j + e of s is key k0 + 8 j + t2 + (e & 1) of row g + 8 (e
+    // >> 1): its bias sits in the block's swizzled row at chunk j ^ g.
+    unsigned pf[WIN_KEYS / 16][4];
+    if (live) {
+      const bool last = k0 + WIN_KEYS > N;
 #pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        const int cb = kc * 16 + j * 8 + t2;       // column in the tile
-        const float2 b_lo = load2(Bs + r_lo * L::LDB + cb);
-        const float2 b_hi = load2(Bs + (r_lo + 8) * L::LDB + cb);
+      for (int j = 0; j < WIN_KEYS / 8; ++j) {
+        const bf16* brow = reinterpret_cast<const bf16*>(
+            Bt + (warp * 16 + g) * 128 + ((j ^ g) << 4)) + t2;
+        const float2 b_lo = load2(brow), b_hi = load2(brow + 8 * 64);
         const float bv[4] = {b_lo.x, b_lo.y, b_hi.x, b_hi.y};
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
-          const int col = k0 + cb + (e & 1);
-          s[j][e] = col < N
-              ? expf(fminf(fmaxf(s[j][e] + bv[e], -60.f), 80.f) - 20.f)
-              : 0.f;
+          float p =
+              expf(fminf(fmaxf(s[4 * j + e] + bv[e], -60.f), 80.f) - 20.f);
+          if (last && k0 + j * 8 + t2 + (e & 1) >= N) p = 0.f;
+          s[4 * j + e] = p;
         }
-        l_lo += s[j][0] + s[j][1];     // l sums the fp32 e, not bf16(e)
-        l_hi += s[j][2] + s[j][3];
+        l_lo += s[4 * j] + s[4 * j + 1];     // l sums the fp32 e, not bf16(e)
+        l_hi += s[4 * j + 2] + s[4 * j + 3];
       }
-      const unsigned pf[4] = {pack_bf16x2(s[0][0], s[0][1]),
-                              pack_bf16x2(s[0][2], s[0][3]),
-                              pack_bf16x2(s[1][0], s[1][1]),
-                              pack_bf16x2(s[1][2], s[1][3])};
 #pragma unroll
-      for (int j = 0; j < OT; j += 2) {
-        unsigned r[4];
-        ldmatrix_x4_trans(r, Vs + (kc * 16 + v_row) * L::LDK + j * 8 + v_col);
-        mma_bf16_16816(o[j], pf, r[0], r[1]);
-        mma_bf16_16816(o[j + 1], pf, r[2], r[3]);
+      for (int k = 0; k < WIN_KEYS / 16; ++k) {
+        pf[k][0] = pack_bf16x2(s[8 * k], s[8 * k + 1]);
+        pf[k][1] = pack_bf16x2(s[8 * k + 2], s[8 * k + 3]);
+        pf[k][2] = pack_bf16x2(s[8 * k + 4], s[8 * k + 5]);
+        pf[k][3] = pack_bf16x2(s[8 * k + 6], s[8 * k + 7]);
+      }
+    } else {
+#pragma unroll
+      for (int k = 0; k < WIN_KEYS / 16; ++k)
+        pf[k][0] = pf[k][1] = pf[k][2] = pf[k][3] = 0u;
+    }
+    wgmma_fence();
+#pragma unroll
+    for (int k = 0; k < WIN_KEYS / 16; ++k)
+      wgmma_rs<HD, true>(o, pf[k],
+                         desc_sw128_mn(Vt + k * 16 * 128, WIN_KEYS * 128), 1);
+    wgmma_commit();
+  }
+  wgmma_wait<0>();
+
+  if constexpr (WIN_SPLIT > 1) {
+    // ranks 1.. leave their partial o and l in their idle rings (every load
+    // has been consumed); rank 0 adds them, in rank order
+    namespace cg = cooperative_groups;
+    cg::cluster_group cluster = cg::this_cluster();
+    float* part = reinterpret_cast<float*>(ring);
+    if (rank != 0) {
+#pragma unroll
+      for (int i = 0; i < HD / 2; ++i) part[i * WIN_THREADS + tid] = o[i];
+      part[(HD / 2) * WIN_THREADS + tid] = l_lo;
+      part[(HD / 2 + 1) * WIN_THREADS + tid] = l_hi;
+    }
+    cluster.sync();
+    if (rank == 0) {
+      for (int r = 1; r < WIN_SPLIT; ++r) {
+        const float* peer = cluster.map_shared_rank(part, r);
+#pragma unroll
+        for (int i = 0; i < HD / 2; ++i) o[i] += peer[i * WIN_THREADS + tid];
+        l_lo += peer[(HD / 2) * WIN_THREADS + tid];
+        l_hi += peer[(HD / 2 + 1) * WIN_THREADS + tid];
       }
     }
+    cluster.sync();                // the peers' partials stay until read
+    if (rank != 0) return;
   }
+  if (!live) return;
 
   // each row's l is spread over the four lanes of its quad
 #pragma unroll
@@ -189,14 +248,14 @@ mha_windowed_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ bias,
   }
   const float inv_lo = 1.0f / l_lo, inv_hi = 1.0f / l_hi;
 #pragma unroll
-  for (int j = 0; j < OT; ++j) {
+  for (int j = 0; j < HD / 8; ++j) {
     const int col = h * HD + j * 8 + t2;
     if (n_lo < N)
-      store2(out + ((size_t)b * N + n_lo) * C + col, o[j][0] * inv_lo,
-             o[j][1] * inv_lo);
+      store2(out + ((size_t)b * N + n_lo) * C + col, o[4 * j] * inv_lo,
+             o[4 * j + 1] * inv_lo);
     if (n_hi < N)
-      store2(out + ((size_t)b * N + n_hi) * C + col, o[j][2] * inv_hi,
-             o[j][3] * inv_hi);
+      store2(out + ((size_t)b * N + n_hi) * C + col, o[4 * j + 2] * inv_hi,
+             o[4 * j + 3] * inv_hi);
   }
 }
 
@@ -205,14 +264,52 @@ static cudaError_t launch_windowed(const bf16* qkv, const bf16* bias,
                                    bf16* out, int B, int N, int H,
                                    long long head_stride, int row_stride,
                                    float scale, cudaStream_t s) {
-  constexpr int smem = WinLayout<HD>::SMEM;
-  cudaError_t err = cudaFuncSetAttribute(
-      mha_windowed_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
+  using L = WinLayout<HD>;
+  if (B <= 0 || N <= 0 || H <= 0 || row_stride % 8 || head_stride % 8 ||
+      row_stride < N ||
+      (reinterpret_cast<uintptr_t>(qkv) | reinterpret_cast<uintptr_t>(bias)) %
+          16)
+    return cudaErrorInvalidValue;
+  const long long C3 = 3LL * H * HD;
+  // qkv as [B][N][3C] and the bias as [H][N][N] with its padded strides,
+  // both read in 64 x 64 boxes
+  CUtensorMap map_qkv, map_bias;
+  const cuuint64_t qdims[3] = {static_cast<cuuint64_t>(C3),
+                               static_cast<cuuint64_t>(N),
+                               static_cast<cuuint64_t>(B)};
+  const cuuint64_t qstrides[2] = {static_cast<cuuint64_t>(C3) * 2,
+                                  static_cast<cuuint64_t>(C3) * N * 2};
+  const cuuint64_t bdims[3] = {static_cast<cuuint64_t>(N),
+                               static_cast<cuuint64_t>(N),
+                               static_cast<cuuint64_t>(H)};
+  const cuuint64_t bstrides[2] = {static_cast<cuuint64_t>(row_stride) * 2,
+                                  static_cast<cuuint64_t>(head_stride) * 2};
+  const cuuint32_t box[3] = {64, 64, 1};
+  cudaError_t err = tensor_map(&map_qkv, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+                               qkv, 3, qdims, qstrides, box);
   if (err != cudaSuccess) return err;
-  const dim3 grid(B, (N + WIN_ROWS - 1) / WIN_ROWS, H);
-  mha_windowed_kernel<HD><<<grid, WIN_WARPS * 32, smem, s>>>(
-      qkv, bias, out, N, H, head_stride, row_stride, scale);
+  err = tensor_map(&map_bias, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, bias, 3,
+                   bdims, bstrides, box);
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(mha_windowed_kernel<HD>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             L::SMEM);
+  if (err != cudaSuccess) return err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(B * WIN_SPLIT, (N + WIN_ROWS - 1) / WIN_ROWS, H);
+  cfg.blockDim = dim3(WIN_THREADS);
+  cfg.dynamicSmemBytes = L::SMEM;
+  cfg.stream = s;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = WIN_SPLIT;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, mha_windowed_kernel<HD>, map_qkv, map_bias,
+                           qkv, out, N, H, scale);
+  if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
 
@@ -220,11 +317,11 @@ static cudaError_t launch_windowed(const bf16* qkv, const bf16* bias,
 
 extern "C" {
 
-// qkv [B, N, 3C] bf16 contiguous ([q|k|v] x head x hd columns); bias
-// [H, N, N] bf16 with unit column stride, row stride ``row_stride`` and head
-// stride ``head_stride`` (elements; both multiples of 8, row stride at
-// least N rounded up to 8); out [B, N, C] bf16.  head_dim 64 or 128.
-// Returns a cudaError_t value.
+// qkv [B, N, 3C] bf16 contiguous ([q|k|v] x head x hd columns) on 16 bytes;
+// bias [H, N, N] bf16 on 16 bytes with unit column stride, row stride
+// ``row_stride`` and head stride ``head_stride`` (elements; both multiples
+// of 8, row stride at least N rounded up to 8); out [B, N, C] bf16.
+// head_dim 64 or 128.  Returns a cudaError_t value.
 int dyt_mha_windowed(const void* qkv, const void* bias, void* out, int B,
                      int N, int C, int H, long long head_stride,
                      int row_stride, float scale, void* stream) {

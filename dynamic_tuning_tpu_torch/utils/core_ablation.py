@@ -1,34 +1,42 @@
-"""Where the serving attention core's and the bf16 GEMM's time goes: the
-kernels with one phase taken out or one choice changed.
+"""Where the serving attention core's, the GEMM's and the windowed
+attention's time goes: the kernels with one phase taken out or one choice
+changed.
 
-    python -m dynamic_tuning_tpu_torch.utils.core_ablation
+    python -m dynamic_tuning_tpu_torch.utils.core_ablation [VARIANT ...]
 
 The package is copied once per variant into ``build/core_ablation/
-<variant>/``, and the copy's ``csrc/attention_sublayer.cu`` (the core) or
-``csrc/gemm.cuh`` (the bf16 GEMM) is edited: one phase cut out, the core's
-exp swapped for ``ex2.approx`` of x log2 e, one GEMM tile width used at
-every N (``GEMM_WIDE_N``), or the GEMM's launch and then also its two TMA
-tensor maps taken out of its host function.  The copies are built in
-parallel and each, in its own process, times with CUDA events over 20
-calls after 3 warm-up ones: K1 (``mha_serving_fused``: the core alone) and
-K2 (``attention_sublayer_serving``: LN, the qkv GEMM, the core, the proj
-GEMM) at ViT-B/16 serving shapes (B=128, N=197, C=768, 12 heads of 64),
-and the bf16 GEMM (K16's entry, fp32 out) at the proj, qkv and dispatch
-fc1 shapes; and on the host's clock one GEMM call through ctypes (M=128,
-768 x 768): the median and range over 21 runs of 200 calls.  The two
-no-launch variants' host times differ by the cost of encoding the two
-tensor maps.  A variant's output is wrong by construction (``ex2 exp`` and
-the tile widths excepted): the times only say how much of the kernels'
-time each phase holds on its own.  Needs a CUDA device.
+<variant>/``, and the copy's ``csrc/attention_sublayer.cu`` (the core),
+``csrc/gemm.cuh`` (the bf16 / int8 GEMM) or ``csrc/windowed_attention.cu``
+(K9) is edited: one phase cut out, the core's exp swapped for
+``ex2.approx`` of x log2 e, one GEMM tile width used at every N for one
+operand type (``GemmOperand<T>::WIDE_N``), the GEMM's launch and then also
+its two TMA tensor maps taken out of its host function, K9 without its bias
+tile (no TMA load, a zero bias), without its exp, or without its key split
+(one block a query tile, no cluster).  The copies are built in parallel and
+each, in its own process, times with CUDA events over 20 calls after 3
+warm-up ones: K1 (``mha_serving_fused``: the core alone) and K2
+(``attention_sublayer_serving``: LN, the qkv GEMM, the core, the proj GEMM)
+at ViT-B/16 serving shapes (B=128, N=197, C=768, 12 heads of 64); the
+bf16 GEMM (K16's entry, fp32 out) and the int8 GEMM (the stem's entry: the
+dequantizing bf16 store of the serving epilogues, unit scales) at the
+proj, qkv and dispatch fc1 shapes; K9 through its C entry at B=1 and 2
+(N=1025, 12 heads of 64, the layer's padded bf16 bias); and on the host's
+clock one bf16 GEMM call through ctypes (M=128, 768 x 768): the median and
+range over 21 runs of 200 calls.  The two no-launch variants' host times
+differ by the cost of encoding the two tensor maps.  A variant's output is
+wrong by construction (``ex2 exp`` and the tile widths excepted): the times
+only say how much of the kernels' time each phase holds on its own.  Named
+variants run alone (with ``full`` always).  Needs a CUDA device.
 """
 
 from __future__ import annotations
 
-import subprocess
-from pathlib import Path
-
+import json
 import statistics
+import subprocess
+import sys
 import time
+from pathlib import Path
 
 from dynamic_tuning_tpu_torch.utils.ablation import (PKG, build_all,
                                                      copy_variant,
@@ -37,6 +45,7 @@ from dynamic_tuning_tpu_torch.utils.ablation import (PKG, build_all,
 OUT = PKG.parent / "build" / "core_ablation"
 CORE = Path("csrc") / "attention_sublayer.cu"
 GEMM = Path("csrc") / "gemm.cuh"
+WIN = Path("csrc") / "windowed_attention.cu"
 CLAMPED = "fminf(fmaxf(s[4 * j + e], -60.f), 80.f)"
 EXP = f"float p = expf({CLAMPED} - 20.f);"
 NO_EXP = (CORE, EXP, f"float p = {CLAMPED};")
@@ -44,14 +53,26 @@ NO_QK = (CORE, "auto qk = [&](float (&s)[NS], int kc) {",
          "auto qk = [&](float (&s)[NS], int kc) { return;")
 NO_PV = (CORE, "        if (r < np)\n          wgmma_rs<HD, true>",
          "        if (r < 0)\n          wgmma_rs<HD, true>")
-WIDE_N = "constexpr int GEMM_WIDE_N = 2048;"
-NO_LAUNCH = (GEMM, "  gemm_nt_kernel<BN, EPI, TX><<<grid, GEMM_THREADS, "
-                   "T::SMEM, s>>>(\n      map_a, map_w, bias, M, N, K, "
-                   "out_bf16, resid, out_x, out_f32, gate);", "  (void)grid;")
-NO_MAPS = (GEMM, "  cudaError_t err = tensor_map_bf16(&map_a, A, M, K, T::BM);"
-           "\n  if (err != cudaSuccess) return err;\n  err = tensor_map_bf16("
-           "&map_w, W, N, K, BN);\n  if (err != cudaSuccess) return err;",
+
+
+def wide_n(tma_type: str, n: str) -> tuple:
+    """The GEMM of one operand type with 128 x 256 tiles from N = ``n``."""
+    return (GEMM, f"      {tma_type};\n  static constexpr int WIDE_N = 2048;",
+            f"      {tma_type};\n  static constexpr int WIDE_N = {n};")
+
+
+BF16_MAP = "CU_TENSOR_MAP_DATA_TYPE_BFLOAT16"
+INT8_MAP = "CU_TENSOR_MAP_DATA_TYPE_UINT8"
+NO_LAUNCH = (GEMM, "  gemm_nt_kernel<T, BN, Epi><<<grid, GEMM_THREADS, "
+                   "Tl::SMEM, s>>>(\n      map_a, map_w, M, N, K, epi);",
+             "  (void)grid;")
+NO_MAPS = (GEMM, "  cudaError_t err = tensor_map_rows(&map_a, A, M, K, "
+                 "Tl::BM);\n  if (err != cudaSuccess) return err;\n  err = "
+                 "tensor_map_rows(&map_w, W, N, K, BN);\n  if (err != "
+                 "cudaSuccess) return err;",
            "  cudaError_t err = cudaSuccess;")
+WIN_EXP = ("          float p =\n              expf(fminf(fmaxf(s[4 * j + e] "
+           "+ bv[e], -60.f), 80.f) - 20.f);")
 # variant -> [(source, text, its replacement)]
 VARIANTS = {
     "full": [],
@@ -62,21 +83,36 @@ VARIANTS = {
     "no Q K^T": [NO_QK],
     "no P V": [NO_PV],
     "no core math": [NO_EXP, NO_QK, NO_PV],
-    "no GEMM stores": [(GEMM, "    if (row0 + r < M && col0 + c < N)",
-                        "    if (row0 + r < 0)")],
-    "GEMM 128x128 only": [(GEMM, WIDE_N,
-                           "constexpr int GEMM_WIDE_N = 1 << 30;")],
-    "GEMM 128x256 only": [(GEMM, WIDE_N, "constexpr int GEMM_WIDE_N = 0;")],
+    "no GEMM stores": [(GEMM, "    if (row0 + r < M && col0 + c < N) {",
+                        "    if (row0 + r < 0) {")],
+    "GEMM 128x128 only": [wide_n(BF16_MAP, "1 << 30")],
+    "GEMM 128x256 only": [wide_n(BF16_MAP, "0")],
+    "int8 GEMM 128x128 only": [wide_n(INT8_MAP, "1 << 30")],
+    "int8 GEMM 128x256 only": [wide_n(INT8_MAP, "0")],
     "no GEMM launch": [NO_LAUNCH],
     "no launch or maps": [NO_LAUNCH, NO_MAPS],
+    "K9 no bias tile": [
+        (WIN, "    mbar_expect_tx(&full[st], L::STAGE);",
+         "    mbar_expect_tx(&full[st], 2 * L::KV);"),
+        (WIN, "    tma_load_3d(dst + 2 * L::KV, &map_bias, &full[st], k0, q0, "
+              "h);\n", ""),
+        (WIN, "        const float2 b_lo = load2(brow), b_hi = load2(brow + 8 "
+              "* 64);",
+         "        const float2 b_lo = make_float2(0.f, 0.f), b_hi = b_lo;\n"
+         "        (void)brow;")],
+    "K9 no exp": [(WIN, WIN_EXP, "          float p = fminf(fmaxf(s[4 * j + "
+                                 "e] + bv[e], -60.f), 80.f) - 20.f;")],
+    "K9 no key split": [(WIN, "constexpr int WIN_SPLIT = 2;",
+                         "constexpr int WIN_SPLIT = 1;")],
 }
 GEMMS = {"proj": (25216, 768, 768), "qkv": (25216, 768, 2304),
          "fc1 dispatch": (12672, 768, 3072)}       # (M, K, N)
 
 
-def time_variant() -> list[float]:
-    """This package's K1 and K2 ms, the bf16 GEMM's ms at each of
-    ``GEMMS``, and the host µs of one GEMM call: median, least, most."""
+def time_variant() -> dict:
+    """This package's ms: K1, K2, the bf16 and int8 GEMMs at each of
+    ``GEMMS``, K9 at B=1 and 2; and the host µs of one bf16 GEMM call:
+    median, least, most."""
     import torch
 
     from dynamic_tuning_tpu_torch.ops import _build
@@ -88,19 +124,42 @@ def time_variant() -> list[float]:
     r = lambda *s, sc=1.0: torch.randn(s, generator=g, device="cuda") * sc
     B, N, C, H = 128, 197, 768, 12
     bf = torch.bfloat16
+    lib = _build.library()
+    stream = torch.cuda.current_stream().cuda_stream
     qkv = r(B, N, 3 * C).to(bf)
     x = r(B, N, C).to(bf)
     sub = (r(C, sc=0.05) + 1.0, r(C, sc=0.02), r(3 * C, C, sc=0.03).to(bf),
            r(3 * C, sc=0.02), r(C, C, sc=0.03).to(bf), r(C, sc=0.02))
-    out = [time_ms(lambda: ms.mha_serving_fused(qkv, heads=H)),
-           time_ms(lambda: ms.attention_sublayer_serving(x, *sub, heads=H))]
-    for M, K, Nn in GEMMS.values():
+    out = {"K1": time_ms(lambda: ms.mha_serving_fused(qkv, heads=H)),
+           "K2": time_ms(lambda: ms.attention_sublayer_serving(x, *sub,
+                                                               heads=H))}
+    del qkv, x
+    for name, (M, K, Nn) in GEMMS.items():
         a, bt = r(M, K).to(bf), r(Nn, K, sc=0.03).to(bf)
         mm = make_mm(M, K, Nn, bf, torch.float32)
-        out.append(time_ms(lambda: mm.nt(a, bt)))
-    del qkv, x, a, bt
-    lib = _build.library()
-    stream = torch.cuda.current_stream().cuda_stream
+        out[f"bf16 {name}"] = time_ms(lambda: mm.nt(a, bt))
+        a8 = torch.randint(-127, 128, (M, K), dtype=torch.int8,
+                           device="cuda")
+        w8 = torch.randint(-127, 128, (Nn, K), dtype=torch.int8,
+                           device="cuda")
+        ones_m, ones_n = torch.ones(M, device="cuda"), torch.ones(
+            Nn, device="cuda")
+        zeros = torch.zeros(Nn, device="cuda")
+        o8 = torch.empty((M, Nn), dtype=bf, device="cuda")
+        out[f"int8 {name}"] = time_ms(lambda: lib.dyt_q8_stem_gemm(
+            a8.data_ptr(), w8.data_ptr(), ones_m.data_ptr(),
+            ones_n.data_ptr(), zeros.data_ptr(), M, Nn, K, o8.data_ptr(),
+            stream))
+        del a, bt, a8, w8, o8
+    sn = 1025
+    ld = ms.bias_row_stride(sn)
+    bias = r(H, sn, ld).to(bf)[:, :, :sn]
+    for batch in (1, 2):
+        sq = r(batch, sn, 3 * C).to(bf)
+        so = torch.empty((batch, sn, C), dtype=bf, device="cuda")
+        out[f"K9 B={batch}"] = time_ms(lambda: lib.dyt_mha_windowed(
+            sq.data_ptr(), bias.data_ptr(), so.data_ptr(), batch, sn, C, H,
+            bias.stride(0), bias.stride(1), 0.125, stream))
     a, w = r(128, C).to(bf), r(C, C).to(bf)
     o = torch.empty((128, C), device="cuda")
     call = lambda: lib.dyt_gemm_bf16_f32(a.data_ptr(), w.data_ptr(), 128, C,
@@ -113,28 +172,38 @@ def time_variant() -> list[float]:
             call()
         runs.append((time.perf_counter() - t0) / 200 * 1e6)
     torch.cuda.synchronize()
-    return out + [statistics.median(runs), min(runs), max(runs)]
+    out.update({"host us": statistics.median(runs), "least": min(runs),
+                "most": max(runs)})
+    return out
 
 
-def main() -> None:
+def main(names) -> None:
+    chosen = {n: e for n, e in VARIANTS.items()
+              if not names or n in names or n == "full"}
+    unknown = set(names) - set(VARIANTS)
+    if unknown:
+        raise SystemExit(f"unknown variants {sorted(unknown)}; have "
+                         f"{list(VARIANTS)}")
     roots = {name: copy_variant(OUT, name, edits)
-             for name, edits in VARIANTS.items()}
+             for name, edits in chosen.items()}
     build_all(roots.values())
-    print(f"{'variant':>18}  K1 ms   K2 ms   GEMM ms ("
-          f"{', '.join(f'{k} {v}' for k, v in GEMMS.items())})   host µs "
-          "a GEMM call: median (least-most)")
+    print(f"ms; GEMM shapes (M, K, N): {GEMMS}; host µs a bf16 GEMM call: "
+          "median (least-most)")
     for name, root in roots.items():
-        p = run_in_copy(root, "from dynamic_tuning_tpu_torch.utils."
-                              "core_ablation import time_variant; "
-                              "print(*time_variant())",
+        p = run_in_copy(root, "import json; from dynamic_tuning_tpu_torch."
+                              "utils.core_ablation import time_variant; "
+                              "print(json.dumps(time_variant()))",
                         stdout=subprocess.PIPE, text=True)
-        out, _ = p.communicate()
+        res, _ = p.communicate()
         if p.returncode:
             raise RuntimeError(f"variant {name!r} failed")
-        *ms_, med, lo, hi = map(float, out.split())
-        print(f"{name:>18}  " + "  ".join(f"{v:.4f}" for v in ms_)
-              + f"   {med:.3f} ({lo:.3f}-{hi:.3f})")
+        t = json.loads(res.strip().splitlines()[-1])
+        print(f"{name:>22}: " + ", ".join(
+            f"{k} {v:.4f}" for k, v in t.items()
+            if k not in ("host us", "least", "most"))
+            + f"; host {t['host us']:.3f} ({t['least']:.3f}-{t['most']:.3f})",
+            flush=True)
 
 
 if __name__ == "__main__":
-    main()
+    main(sys.argv[1:])

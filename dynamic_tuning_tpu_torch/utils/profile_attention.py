@@ -19,18 +19,29 @@ At ViT-B/16 serving shape (B=128, N=197, 12 heads of 64, bf16 raw qkv
   called by the port);
 * K13 at the segmentation shape, B=1, N=1025, 12 heads of 64 with an fp32
   [12, 1025, 1025] bias, beside SDPA with the bias (in bf16) as its mask;
+* K9, ``ops/mha_serving.mha_windowed_fused``, at the segmentation shape
+  with B=1 and 2 and the layer's padded bf16 bias: the launch through its
+  C entry alone (the kernel's time: at B=1 the wrapper's host checks take
+  longer than the kernel), the wrapper, and the host's time a wrapper call
+  (200 calls on the host's clock, the card idle first), beside SDPA with
+  the bias as its mask;
 * a 4096^3 bf16 matmul, the calibration anchor of the TPU script.
 
-Prints the card's name and power limit first.  Needs a CUDA device.
+K9 touches only the C entry and wrapper that every tree of the port has,
+so this script can time an older tree's K9 (``PYTHONPATH=<tree> python
+<this file>``).  Prints the card's name and power limit first.  Needs a
+CUDA device.
 """
 
 from __future__ import annotations
 
 import argparse
+import time
 
 import torch
 import torch.nn.functional as F
 
+from dynamic_tuning_tpu_torch.ops import _build
 from dynamic_tuning_tpu_torch.ops import flash_attention as fa
 from dynamic_tuning_tpu_torch.ops import mha_serving as ms
 from dynamic_tuning_tpu_torch.ops import packed_attention as pa
@@ -73,6 +84,7 @@ def main(args) -> dict:
     print(f"SDPA (reference only)  : {times['sdpa']:8.4f} ms")
     print(f"K13, N={SEG_N}, fp32 bias: {times['k13_bias']:8.4f} ms")
     print(f"SDPA, the bias as mask : {times['sdpa_bias']:8.4f} ms")
+    times.update(time_k9(g))
     a = torch.randn((4096, 4096), generator=g, device="cuda").to(
         torch.bfloat16)
     b = torch.randn((4096, 4096), generator=g, device="cuda").to(
@@ -80,6 +92,48 @@ def main(args) -> dict:
     t = time_ms(lambda: torch.matmul(a, b))
     print(f"matmul 4096^3          : {t:8.4f} ms "
           f"{2 * 4096 ** 3 / t / 1e9:6.1f} TFLOP/s")
+    return times
+
+
+def time_k9(g) -> dict:
+    """K9 at B=1 and 2, N=1025, 12 heads of 64, the padded bf16 bias."""
+    lib = _build.library()
+    ld = ms.bias_row_stride(SEG_N)
+    bias = (torch.randn((H, SEG_N, ld), generator=g, device="cuda")
+            .to(torch.bfloat16)[:, :, :SEG_N])
+    mask = bias.contiguous()[None]
+    stream = torch.cuda.current_stream().cuda_stream
+    times = {}
+    for batch in (1, 2):
+        qkv = torch.randn((batch, SEG_N, 3 * C), generator=g,
+                          device="cuda").to(torch.bfloat16)
+        out = torch.empty((batch, SEG_N, C), dtype=torch.bfloat16,
+                          device="cuda")
+        q, k, v = (t.contiguous() for t in qkv.view(
+            batch, SEG_N, 3, H, HD).permute(2, 0, 3, 1, 4))
+        wrapper = lambda: ms.mha_windowed_fused(qkv, bias, heads=H)
+
+        def launch():
+            _build.check(lib, lib.dyt_mha_windowed(
+                qkv.data_ptr(), bias.data_ptr(), out.data_ptr(), batch,
+                SEG_N, C, H, bias.stride(0), bias.stride(1), HD ** -0.5,
+                stream), "windowed attention kernel")
+
+        t = {"k9": time_ms(launch, iters=100),
+             "k9_wrapper": time_ms(wrapper, iters=100),
+             "k9_sdpa": time_ms(lambda: F.scaled_dot_product_attention(
+                 q, k, v, attn_mask=mask))}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(200):
+            wrapper()
+        t["k9_host"] = (time.perf_counter() - t0) / 200 * 1e3
+        torch.cuda.synchronize()
+        print(f"K9, B={batch}, N={SEG_N}: kernel {t['k9']:.4f} ms, through "
+              f"the wrapper {t['k9_wrapper']:.4f} ms, host {t['k9_host']:.4f}"
+              f" ms a wrapper call; SDPA, the bias as mask "
+              f"{t['k9_sdpa']:.4f} ms")
+        times.update({f"{k}_b{batch}": val for k, val in t.items()})
     return times
 
 

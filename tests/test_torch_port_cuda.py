@@ -418,19 +418,55 @@ def windowed_inputs(B, N, H, hd=64, *, seed=11, bias_dtype=BF):
     return qkv.to(BF), bias.to(bias_dtype)
 
 
+@pytest.mark.parametrize("hd", [64, 128])
 @pytest.mark.parametrize("bias_dtype", [BF, torch.float32],
                          ids=["bf16_bias", "fp32_bias"])
-@pytest.mark.parametrize("B", [1, 2])
-@pytest.mark.parametrize("N", [17, 197, 1025])
-def test_mha_windowed_kernel(N, B, bias_dtype):
-    qkv, bias = windowed_inputs(B, N, 12, bias_dtype=bias_dtype)
+@pytest.mark.parametrize("B", [1, 2, 3])
+@pytest.mark.parametrize("N", [17, 63, 64, 65, 197, 1025, 1040, 1100])
+def test_mha_windowed_kernel(N, B, bias_dtype, hd):
+    """N at the 64-key tile's edges and at the key split's (a cluster of two
+    blocks halves the tiles: N <= 64 leaves the second none, 1025 and 1100
+    give it one fewer and as many), B past the pairs the grid interleaves,
+    both head dims; held to two bf16 ulps and to the contract check (99% of
+    outputs within one ulp of the plain version's own value)."""
+    H = 12 if hd == 64 else 4
+    qkv, bias = windowed_inputs(B, N, H, hd, bias_dtype=bias_dtype)
     before = ms.mha_windowed_fused.launches
-    got = ms.mha_windowed_fused(qkv, bias, heads=12)
+    got = ms.mha_windowed_fused(qkv, bias, heads=H)
     torch.cuda.synchronize()
     assert ms.mha_windowed_fused.launches == before + 1
-    want = ms.mha_windowed_plain(qkv, bias, heads=12)
-    assert got.dtype == BF and got.shape == (B, N, 12 * 64)
+    want = ms.mha_windowed_plain(qkv, bias, heads=H)
+    assert got.dtype == BF and got.shape == (B, N, H * hd)
     bf16_close(got, want, "core")
+    contract_close(got, want, "core")
+
+
+@pytest.mark.parametrize("B", [1, 2])
+def test_mha_windowed_kernel_ulp_share(B):
+    """At the segmentation path's shape (N = 1025, 12 heads of 64, the
+    layer's padded bf16 bias), 99% of K9's outputs lie within one bf16 ulp
+    of the plain version's own value (ops/flash_attention.ulp_share)."""
+    from dynamic_tuning_tpu_torch.ops import flash_attention as fa
+    qkv, _ = windowed_inputs(B, 1025, 12, seed=19)
+    ld = ms.bias_row_stride(1025)
+    bias = (torch.randn((12, 1025, ld), device="cuda").to(BF)
+            [:, :, :1025])
+    got = ms.mha_windowed_fused(qkv, bias, heads=12)
+    share = fa.ulp_share(got, ms.mha_windowed_plain(qkv, bias, heads=12))
+    assert share >= fa.ULP_SHARE, share
+
+
+def test_mha_windowed_kernel_fp32_bias_view():
+    """An fp32 bias given as a view with padded rows (row stride past N)
+    is rounded to bf16 into the kernel's layout."""
+    qkv, _ = windowed_inputs(2, 101, 12, seed=20)
+    bias = torch.randn((12, 101, 120), device="cuda")[:, :, :101]
+    assert bias.stride(1) == 120 and not bias.is_contiguous()
+    got = ms.mha_windowed_fused(qkv, bias, heads=12)
+    torch.cuda.synchronize()
+    want = ms.mha_windowed_plain(qkv, bias, heads=12)
+    bf16_close(got, want, "core")
+    contract_close(got, want, "core")
 
 
 def test_mha_windowed_kernel_padded_bias_and_head_dim_128():
@@ -865,8 +901,144 @@ def test_q8_dispatch_mlp_raises_on_unsupported_input():
         qt.q8_dispatch_mlp(x.transpose(0, 1), s, *w, capacity=7)
 
 
+# --- the int8 GEMM: every epilogue form --------------------------------------
+#
+# quant.cu's dyt_gemm_s8 runs one EpiQ8 form on gemm.cuh's int8 kernel at
+# any shape.  The int32 sums are exact in any order and each form rounds at
+# the points of the torch expression in q8_epilogue_plain (the same fp32 ops
+# in the same order), so the raw, out, residual, stem and scatter forms are
+# bit-exact; the GELU forms (the kernel's expf / tanhf against torch's) are
+# held to two bf16 ulps, and the rows' amax the kernel takes in its
+# epilogue to the largest |value| of its own output row, exactly.  Shapes:
+# ragged M on each side of the 128-row tile and of the persistent grid, K
+# short of one 128-deep k tile and past it, N under one 128-wide tile and on
+# both tile widths.
+
+GEMM_S8_MS = [1, 127, 129, 12673]
+GEMM_S8_KS = [16, 64, 768, 3072]
+GEMM_S8_NS = [8, 40, 768, 2304]
+Q8_FORMS = {"out": 0, "gelu_erf": 1, "gelu_tanh": 2, "resid": 3, "stem": 4,
+            "scatter": 5, "raw": 6}
+_GEMM_S8_INPUTS = {}
+
+
+def gemm_s8_inputs(M, K, N):
+    """int8 a [M, K], w [N, K], fp32 row / column scales and a bias, and
+    the exact int32 sums (a float64 product: exact while 127**2 K < 2**53);
+    kept per shape for the forms that share it."""
+    if (M, K, N) not in _GEMM_S8_INPUTS:
+        g = torch.Generator(device="cuda").manual_seed(7 * M + 3 * K + N)
+        i8 = dict(dtype=torch.int8, device="cuda", generator=g)
+        a = torch.randint(-127, 128, (M, K), **i8)
+        w = torch.randint(-127, 128, (N, K), **i8)
+        rs = torch.rand(M, generator=g, device="cuda") * 0.02 + 1e-3
+        cs = torch.rand(N, generator=g, device="cuda") * 0.02 + 1e-3
+        bias = torch.randn(N, generator=g, device="cuda") * 0.1
+        acc = torch.matmul(a.double(), w.double().t()).to(torch.int32)
+        _GEMM_S8_INPUTS.clear()
+        _GEMM_S8_INPUTS[(M, K, N)] = (a, w, rs, cs, bias, acc)
+    return _GEMM_S8_INPUTS[(M, K, N)]
+
+
+def q8_epilogue_plain(form, acc, rs, cs, bias, resid=None):
+    """quant.cu's q8_epilogue in torch, fp32: the same ops in its order."""
+    a = acc.float()                       # int32 -> fp32, to nearest
+    if form == "stem":
+        return a * (rs[:, None] * cs) + bias
+    v = (a * rs[:, None]) * cs
+    if form in ("out", "scatter"):
+        return v + bias
+    if form == "resid":
+        return (resid.float() + v) + bias
+    return qt.gelu_f32(v + bias, form == "gelu_tanh")
+
+
+def run_gemm_s8(form, a, w, rs, cs, bias, out, resid=None, out_f32=None,
+                row_amax=None, row_map=None):
+    from dynamic_tuning_tpu_torch.ops import _build
+    lib = _build.library()
+    ptr = lambda t: None if t is None else t.data_ptr()
+    out_type = {BF: 0, torch.float32: 1, torch.int32: 2}[out.dtype]
+    (M, K), N = a.shape, w.shape[0]
+    err = lib.dyt_gemm_s8(Q8_FORMS[form], out_type, ptr(a), ptr(w), ptr(rs),
+                          ptr(cs), ptr(bias), M, N, K, ptr(out), ptr(resid),
+                          ptr(out_f32), ptr(row_amax), ptr(row_map),
+                          torch.cuda.current_stream().cuda_stream)
+    _build.check(lib, err, f"int8 GEMM ({form})")
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("N", GEMM_S8_NS)
+@pytest.mark.parametrize("K", GEMM_S8_KS)
+@pytest.mark.parametrize("M", GEMM_S8_MS)
+@pytest.mark.parametrize("form,out_dtype", [
+    ("raw", torch.int32), ("out", BF), ("out", torch.float32), ("resid", BF),
+    ("resid", torch.float32), ("stem", BF), ("scatter", BF),
+    ("scatter", torch.float32), ("gelu_erf", torch.float32),
+    ("gelu_tanh", torch.float32)])
+def test_gemm_s8_epilogue(form, out_dtype, M, K, N):
+    a, w, rs, cs, bias, acc = gemm_s8_inputs(M, K, N)
+    g = torch.Generator(device="cuda").manual_seed(M + K + N)
+    if form == "raw":
+        got = torch.empty((M, N), dtype=torch.int32, device="cuda")
+        run_gemm_s8(form, a, w, None, None, None, got)
+        assert torch.equal(got, acc)
+        return
+    if form == "scatter":
+        # rows to a shuffled place in a taller output, a quarter nowhere
+        rows = M + 3
+        row_map = torch.randperm(rows, generator=g, device="cuda")[:M]
+        row_map[torch.rand(M, generator=g, device="cuda") < 0.25] = -1
+        row_map = row_map.to(torch.int32)
+        got = torch.zeros((rows, N), dtype=out_dtype, device="cuda")
+        run_gemm_s8(form, a, w, rs, cs, bias, got, row_map=row_map)
+        want = torch.zeros_like(got)
+        kept = row_map >= 0
+        want[row_map[kept].long()] = q8_epilogue_plain(
+            form, acc, rs, cs, bias)[kept].to(out_dtype)
+        assert torch.equal(got, want)
+        return
+    got = torch.empty((M, N), dtype=out_dtype, device="cuda")
+    if form == "resid":
+        resid = torch.randn((M, N), generator=g, device="cuda").to(out_dtype)
+        xm = torch.empty((M, N), device="cuda")
+        run_gemm_s8(form, a, w, rs, cs, bias, got, resid=resid, out_f32=xm)
+        want = q8_epilogue_plain(form, acc, rs, cs, bias, resid)
+        assert torch.equal(xm, want)
+        assert torch.equal(got, want.to(out_dtype))
+        return
+    if form.startswith("gelu"):
+        amax = torch.zeros(M, device="cuda")
+        run_gemm_s8(form, a, w, rs, cs, bias, got, row_amax=amax)
+        bf16_close(got, q8_epilogue_plain(form, acc, rs, cs, bias), form)
+        assert torch.equal(amax, got.abs().amax(dim=1))
+        return
+    run_gemm_s8(form, a, w, rs, cs, bias, got)
+    assert torch.equal(got, q8_epilogue_plain(form, acc, rs, cs, bias)
+                       .to(out_dtype))
+
+
+def test_gemm_s8_refuses_unsupported_shapes():
+    """K % 16, N % 8 and the form / output type pairs the entry takes."""
+    from dynamic_tuning_tpu_torch.ops import _build
+    a, w, rs, cs, bias, _ = gemm_s8_inputs(127, 64, 40)
+    out = torch.empty((127, 40), device="cuda")
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        run_gemm_s8("raw", a, w, None, None, None, out)   # fp32 raw
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        run_gemm_s8("stem", a, w, rs, cs, bias, out)      # fp32 stem
+    lib = _build.library()
+    stream = torch.cuda.current_stream().cuda_stream
+    for M, K, N in ((127, 56, 40), (127, 64, 36)):
+        assert lib.dyt_gemm_s8(0, 1, a.data_ptr(), w.data_ptr(),
+                               rs.data_ptr(), cs.data_ptr(), bias.data_ptr(),
+                               M, N, K, out.data_ptr(), None, None, None,
+                               None, stream) != 0
+
+
 @pytest.mark.parametrize("M,K,N", [(197, 768, 2304), (37, 64, 40),
-                                   (512, 512, 512)])
+                                   (512, 512, 512)] + [
+    (M, K, N) for M in GEMM_S8_MS for K in GEMM_S8_KS for N in GEMM_S8_NS])
 def test_make_mm_int8_kernel_is_exact(M, K, N):
     from dynamic_tuning_tpu_torch.utils import profile_int8 as pi
     a = torch.randint(-127, 128, (M, K), dtype=torch.int8, device="cuda")
