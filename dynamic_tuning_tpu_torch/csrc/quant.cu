@@ -925,9 +925,8 @@ int dyt_q8_dispatch_mlp(const void* x, int x_f32, const void* idx,
       rs, h, hmax, rm, B, N, cap, C, Hd, approx, s);
 }
 
-// The int8 GEMM with any one Q8Epilogue form ``epi`` (the forms' values;
-// tests and probes): a [M, K] and w [N, K] int8 (K % 16 == 0, N % 8 ==
-// 0); rs [M], cs [N], bias [N] fp32; out [M, N] of ``out_type`` (0 bf16,
+// The int8 GEMM with any one Q8Epilogue form ``epi`` (its value), for the
+// tests: a [M, K] and w [N, K] int8 (K % 16 == 0, N % 8 == 0); rs [M], cs [N], bias [N] fp32; out [M, N] of ``out_type`` (0 bf16,
 // 1 fp32, 2 int32), or for Q8_SCATTER [rows, N] with row m at row_map[m]
 // (int32 [M], none where < 0); resid [M, N] as out (Q8_RESID) and out_f32
 // [M, N] fp32 or null (Q8_RESID); row_amax [M] fp32, zeroed by the caller,

@@ -31,17 +31,18 @@
 //   * Q K^T and P V run on wgmma: q' as register A fragments against K
 //     K-major, then p = bf16(e) as register fragments against V read
 //     N-major through the transposing descriptor (as the serving core).
-//   * The serving softmax has no row max, so partial (o, l) over disjoint
-//     key ranges add with no rescaling: a cluster of WIN_SPLIT blocks
-//     splits each query tile's key tiles, and rank 0 adds the others'
-//     partials from their shared memory (distributed shared memory) before
-//     its one rounding of o * (1 / l).  That doubles the blocks in flight at
-//     B = 1 (408 blocks, four an SM at hd 64: one wave) and halves each
-//     one's walk.
+//   * The serving softmax has no row max, so each key tile is final when
+//     it is computed: no rescaling, scores and p stay in registers.
+//   * Four blocks fit an SM at hd 64 (49 KB of shared memory, at most 128
+//     registers a thread), so the 204 blocks of B = 1 (17 query tiles x 12
+//     heads) run in one wave, and the grid runs the batch fastest, so the
+//     blocks that share a bias tile run side by side and the later ones
+//     read it from L2.  A cluster of two blocks splitting each query tile's
+//     keys (their partial (o, l) added through distributed shared memory)
+//     measured no faster: the busiest SM holds as much work either way.
+//     More stages fit fewer blocks an SM (utils/core_ablation.py).
 // Keys past N arrive as zeros (TMA's fill) and are masked to p = 0; query
 // rows past N compute and are not stored.
-#include <cooperative_groups.h>
-
 #include "gemm.cuh"
 
 namespace dyt {
@@ -49,29 +50,20 @@ namespace dyt {
 constexpr int WIN_THREADS = 128;   // one warpgroup: 64 query rows
 constexpr int WIN_ROWS = 64;       // query rows a block
 constexpr int WIN_KEYS = 64;       // keys a tile
-constexpr int WIN_SPLIT = 2;       // blocks of a cluster sharing a query tile
 
 template <int HD>
 struct WinLayout {
   static constexpr int KV = WIN_KEYS * HD * 2;            // a K or V tile
   static constexpr int BIAS = WIN_ROWS * WIN_KEYS * 2;    // 8 KB
   static constexpr int STAGE = 2 * KV + BIAS;
-  // two stages: at hd 64 four blocks (49 KB each) fit an SM, so the 408
-  // blocks of B = 1 run in one wave on 132 SMs (three stages fit three,
-  // and the last 12 blocks ran as a second wave)
   static constexpr int STAGES = 2;
   static constexpr int RING = STAGES * STAGE;
-  // the partial o and l a block hands rank 0, in the idle ring
-  static constexpr int PARTIAL = (HD / 2 + 2) * WIN_THREADS * 4;
-  static_assert(PARTIAL <= RING, "the partials reuse the ring");
   static constexpr int SMEM = 1024 + RING + 2 * STAGES * 8;
   static constexpr int BLOCKS = HD == 64 ? 4 : 2;         // an SM
 };
 
-// Block (b * WIN_SPLIT + rank, query tile, h): thread (g = lane/4, t =
-// lane%4) of warp w holds query rows w*16 + g and w*16 + g + 8 of the tile
-// in every accumulator.  Rank r of the cluster walks the r-th share of the
-// key tiles.
+// Block (b, query tile, h): thread (g = lane/4, t = lane%4) of warp w holds
+// query rows w*16 + g and w*16 + g + 8 of the tile in every accumulator.
 template <int HD>
 __global__ void __launch_bounds__(WIN_THREADS, WinLayout<HD>::BLOCKS)
 mha_windowed_kernel(const __grid_constant__ CUtensorMap map_qkv,
@@ -85,16 +77,11 @@ mha_windowed_kernel(const __grid_constant__ CUtensorMap map_qkv,
   uint64_t* full = reinterpret_cast<uint64_t*>(ring + L::RING);
   uint64_t* empty = full + L::STAGES;
 
-  const int rank = blockIdx.x % WIN_SPLIT, b = blockIdx.x / WIN_SPLIT;
-  const int q0 = blockIdx.y * WIN_ROWS, h = blockIdx.z;
+  const int b = blockIdx.x, q0 = blockIdx.y * WIN_ROWS, h = blockIdx.z;
   const int C = H * HD, C3 = 3 * C;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t2 = (lane & 3) * 2;
-  // this block's key tiles: t_begin .. t_begin + ntl - 1
-  const int nt = (N + WIN_KEYS - 1) / WIN_KEYS;
-  const int share = (nt + WIN_SPLIT - 1) / WIN_SPLIT;
-  const int t_begin = rank * share;
-  const int ntl = max(0, min(nt, t_begin + share) - t_begin);
+  const int nt = (N + WIN_KEYS - 1) / WIN_KEYS;     // key tiles
 
   if (tid == 0) {
     for (int s = 0; s < L::STAGES; ++s) {
@@ -105,10 +92,10 @@ mha_windowed_kernel(const __grid_constant__ CUtensorMap map_qkv,
   }
   __syncthreads();
 
-  // local tile i into stage i % STAGES: K and V rows k0.. of head h (hd in
+  // key tile i into stage i % STAGES: K and V rows k0.. of head h (hd in
   // 64-column boxes) and the bias block [q0.., k0..]
   auto issue = [&](int i) {
-    const int st = i % L::STAGES, k0 = (t_begin + i) * WIN_KEYS;
+    const int st = i % L::STAGES, k0 = i * WIN_KEYS;
     unsigned char* dst = ring + st * L::STAGE;
     mbar_expect_tx(&full[st], L::STAGE);
 #pragma unroll
@@ -121,7 +108,7 @@ mha_windowed_kernel(const __grid_constant__ CUtensorMap map_qkv,
     tma_load_3d(dst + 2 * L::KV, &map_bias, &full[st], k0, q0, h);
   };
   if (tid == 0)
-    for (int i = 0; i < ntl && i < L::STAGES; ++i) issue(i);
+    for (int i = 0; i < nt && i < L::STAGES; ++i) issue(i);
 
   // q rows scaled in fp32 and rounded to bf16 before Q K^T, loaded straight
   // into the A-operand layout
@@ -145,8 +132,8 @@ mha_windowed_kernel(const __grid_constant__ CUtensorMap map_qkv,
   for (int i = 0; i < HD / 2; ++i) o[i] = 0.f;
   float l_lo = 0.f, l_hi = 0.f;
 
-  for (int i = 0; i < ntl; ++i) {
-    const int st = i % L::STAGES, k0 = (t_begin + i) * WIN_KEYS;
+  for (int i = 0; i < nt; ++i) {
+    const int st = i % L::STAGES, k0 = i * WIN_KEYS;
     mbar_wait(&full[st], (i / L::STAGES) & 1);
     const unsigned char* Kt = ring + st * L::STAGE;
     const unsigned char* Vt = Kt + L::KV;
@@ -165,7 +152,7 @@ mha_windowed_kernel(const __grid_constant__ CUtensorMap map_qkv,
       // its P V; thread 0 refills it with tile i - 1 + STAGES
       const int prev = (i - 1) % L::STAGES;
       if (lane == 0) mbar_arrive(&empty[prev]);
-      if (tid == 0 && i - 1 + L::STAGES < ntl) {
+      if (tid == 0 && i - 1 + L::STAGES < nt) {
         mbar_wait(&empty[prev], ((i - 1) / L::STAGES) & 1);
         issue(i - 1 + L::STAGES);
       }
@@ -213,31 +200,6 @@ mha_windowed_kernel(const __grid_constant__ CUtensorMap map_qkv,
   }
   wgmma_wait<0>();
 
-  if constexpr (WIN_SPLIT > 1) {
-    // ranks 1.. leave their partial o and l in their idle rings (every load
-    // has been consumed); rank 0 adds them, in rank order
-    namespace cg = cooperative_groups;
-    cg::cluster_group cluster = cg::this_cluster();
-    float* part = reinterpret_cast<float*>(ring);
-    if (rank != 0) {
-#pragma unroll
-      for (int i = 0; i < HD / 2; ++i) part[i * WIN_THREADS + tid] = o[i];
-      part[(HD / 2) * WIN_THREADS + tid] = l_lo;
-      part[(HD / 2 + 1) * WIN_THREADS + tid] = l_hi;
-    }
-    cluster.sync();
-    if (rank == 0) {
-      for (int r = 1; r < WIN_SPLIT; ++r) {
-        const float* peer = cluster.map_shared_rank(part, r);
-#pragma unroll
-        for (int i = 0; i < HD / 2; ++i) o[i] += peer[i * WIN_THREADS + tid];
-        l_lo += peer[(HD / 2) * WIN_THREADS + tid];
-        l_hi += peer[(HD / 2 + 1) * WIN_THREADS + tid];
-      }
-    }
-    cluster.sync();                // the peers' partials stay until read
-    if (rank != 0) return;
-  }
   if (!live) return;
 
   // each row's l is spread over the four lanes of its quad
@@ -295,21 +257,9 @@ static cudaError_t launch_windowed(const bf16* qkv, const bf16* bias,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              L::SMEM);
   if (err != cudaSuccess) return err;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(B * WIN_SPLIT, (N + WIN_ROWS - 1) / WIN_ROWS, H);
-  cfg.blockDim = dim3(WIN_THREADS);
-  cfg.dynamicSmemBytes = L::SMEM;
-  cfg.stream = s;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = WIN_SPLIT;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  err = cudaLaunchKernelEx(&cfg, mha_windowed_kernel<HD>, map_qkv, map_bias,
-                           qkv, out, N, H, scale);
-  if (err != cudaSuccess) return err;
+  const dim3 grid(B, (N + WIN_ROWS - 1) / WIN_ROWS, H);
+  mha_windowed_kernel<HD><<<grid, WIN_THREADS, L::SMEM, s>>>(
+      map_qkv, map_bias, qkv, out, N, H, scale);
   return cudaGetLastError();
 }
 

@@ -11,8 +11,9 @@ The package is copied once per variant into ``build/core_ablation/
 ``ex2.approx`` of x log2 e, one GEMM tile width used at every N for one
 operand type (``GemmOperand<T>::WIDE_N``), the GEMM's launch and then also
 its two TMA tensor maps taken out of its host function, K9 without its bias
-tile (no TMA load, a zero bias), without its exp, or without its key split
-(one block a query tile, no cluster).  The copies are built in parallel and
+tile (no TMA load, a zero bias), without its exp, or with a ring of three
+or four stages (three or two blocks an SM at hd 64, where two stages fit
+four).  The copies are built in parallel and
 each, in its own process, times with CUDA events over 20 calls after 3
 warm-up ones: K1 (``mha_serving_fused``: the core alone) and K2
 (``attention_sublayer_serving``: LN, the qkv GEMM, the core, the proj GEMM)
@@ -61,6 +62,14 @@ def wide_n(tma_type: str, n: str) -> tuple:
             f"      {tma_type};\n  static constexpr int WIDE_N = {n};")
 
 
+def k9_stages(stages: int, blocks: int) -> list:
+    """K9's ring of ``stages`` stages, ``blocks`` blocks an SM at hd 64."""
+    return [(WIN, "  static constexpr int STAGES = 2;",
+             f"  static constexpr int STAGES = {stages};"),
+            (WIN, "  static constexpr int BLOCKS = HD == 64 ? 4 : 2;",
+             f"  static constexpr int BLOCKS = HD == 64 ? {blocks} : 2;")]
+
+
 BF16_MAP = "CU_TENSOR_MAP_DATA_TYPE_BFLOAT16"
 INT8_MAP = "CU_TENSOR_MAP_DATA_TYPE_UINT8"
 NO_LAUNCH = (GEMM, "  gemm_nt_kernel<T, BN, Epi><<<grid, GEMM_THREADS, "
@@ -102,8 +111,8 @@ VARIANTS = {
          "        (void)brow;")],
     "K9 no exp": [(WIN, WIN_EXP, "          float p = fminf(fmaxf(s[4 * j + "
                                  "e] + bv[e], -60.f), 80.f) - 20.f;")],
-    "K9 no key split": [(WIN, "constexpr int WIN_SPLIT = 2;",
-                         "constexpr int WIN_SPLIT = 1;")],
+    "K9 3 stages": k9_stages(3, 3),
+    "K9 4 stages": k9_stages(4, 2),
 }
 GEMMS = {"proj": (25216, 768, 768), "qkv": (25216, 768, 2304),
          "fc1 dispatch": (12672, 768, 3072)}       # (M, K, N)

@@ -6,20 +6,23 @@ scripts/profile_int8.py, whose ``make_mm`` is TPU kernel K16).
 Does the hand int8 GEMM reach the card's int8 rate?  ``make_mm(M, K, N,
 dtype, out_dtype)`` returns ``mm(a, b)``, a [M, K] times b [K, N] with
 ``preferred_element_type=out_dtype``: int8 x int8 -> int32, exact, or
-bf16 x bf16 -> fp32, summed in fp32.  On CUDA tensors it runs the hand GEMMs
-with a raw store: ``gemm_s8_kernel`` (csrc/quant.cu, mma.sync, int32 sums as
-they are) and ``gemm_nt_kernel`` (csrc/gemm.cuh, TMA and wgmma, fp32 sums,
-no bias).  Both read their second operand K-contiguous ([N, K]:
-``ldmatrix.trans`` serves no 8-bit operand, and the serving path's weights
-are [out, in]), so ``mm`` lays b out as [N, K] first; ``mm.nt(a, bt)`` is
-the product on that layout.  On CPU tensors ``mm`` computes the plain
+bf16 x bf16 -> fp32, summed in fp32.  On CUDA tensors it runs the hand GEMM
+with a raw store: ``gemm_nt_kernel`` (csrc/gemm.cuh: a TMA ring, one
+producer thread, two consumer warpgroups on wgmma, a persistent grid) on
+int8 operands (m64nNk32 s8, the int32 sums stored as they are) or on bf16
+ones (fp32 sums, no bias).  It reads its second operand K-contiguous ([N,
+K]: 8-bit wgmma takes K-major operands only, and the serving path's
+weights are [out, in]), so ``mm`` lays b out as [N, K] first;
+``mm.nt(a, bt)`` is the product on that layout.  On CPU tensors ``mm`` computes the plain
 version, ``mm_plain`` (a float64 matmul rounded to the output type: exact
 for int8 while 127**2 * K < 2**53).
 
 What bounds it on an H100: at the probe's shapes the int32 / fp32 output is
 most of the bytes (156 of 168 MB at (12672, 768, 3072)), so the int8 bound
 is the byte bound there (0.050 ms against 0.030 for the operations) and the
-epilogue's stores matter as much as the tensor-core rate; the bf16 product
+epilogue's stores matter as much as the tensor-core rate: the kernel stages
+each warp's output through shared memory and stores whole 16-byte pieces
+of rows, while the producer already loads the next tile; the bf16 product
 is operation bound (0.061 ms against 0.050).
 
 ``bench`` times with CUDA events (the TPU script's RTT-cancelling scan

@@ -424,11 +424,11 @@ def windowed_inputs(B, N, H, hd=64, *, seed=11, bias_dtype=BF):
 @pytest.mark.parametrize("B", [1, 2, 3])
 @pytest.mark.parametrize("N", [17, 63, 64, 65, 197, 1025, 1040, 1100])
 def test_mha_windowed_kernel(N, B, bias_dtype, hd):
-    """N at the 64-key tile's edges and at the key split's (a cluster of two
-    blocks halves the tiles: N <= 64 leaves the second none, 1025 and 1100
-    give it one fewer and as many), B past the pairs the grid interleaves,
-    both head dims; held to two bf16 ulps and to the contract check (99% of
-    outputs within one ulp of the plain version's own value)."""
+    """N on each side of the 64-key and 64-row tiles (one tile; 17 and 18
+    tiles, the last one short), B past the pairs of samples the grid runs
+    side by side, both head dims; held to two bf16
+    ulps and to the contract check (99% of outputs within one ulp of the
+    plain version's own value)."""
     H = 12 if hd == 64 else 4
     qkv, bias = windowed_inputs(B, N, H, hd, bias_dtype=bias_dtype)
     before = ms.mha_windowed_fused.launches
@@ -919,25 +919,20 @@ GEMM_S8_KS = [16, 64, 768, 3072]
 GEMM_S8_NS = [8, 40, 768, 2304]
 Q8_FORMS = {"out": 0, "gelu_erf": 1, "gelu_tanh": 2, "resid": 3, "stem": 4,
             "scatter": 5, "raw": 6}
-_GEMM_S8_INPUTS = {}
 
 
 def gemm_s8_inputs(M, K, N):
     """int8 a [M, K], w [N, K], fp32 row / column scales and a bias, and
-    the exact int32 sums (a float64 product: exact while 127**2 K < 2**53);
-    kept per shape for the forms that share it."""
-    if (M, K, N) not in _GEMM_S8_INPUTS:
-        g = torch.Generator(device="cuda").manual_seed(7 * M + 3 * K + N)
-        i8 = dict(dtype=torch.int8, device="cuda", generator=g)
-        a = torch.randint(-127, 128, (M, K), **i8)
-        w = torch.randint(-127, 128, (N, K), **i8)
-        rs = torch.rand(M, generator=g, device="cuda") * 0.02 + 1e-3
-        cs = torch.rand(N, generator=g, device="cuda") * 0.02 + 1e-3
-        bias = torch.randn(N, generator=g, device="cuda") * 0.1
-        acc = torch.matmul(a.double(), w.double().t()).to(torch.int32)
-        _GEMM_S8_INPUTS.clear()
-        _GEMM_S8_INPUTS[(M, K, N)] = (a, w, rs, cs, bias, acc)
-    return _GEMM_S8_INPUTS[(M, K, N)]
+    the exact int32 sums (a float64 product: exact while 127**2 K < 2**53)."""
+    g = torch.Generator(device="cuda").manual_seed(7 * M + 3 * K + N)
+    i8 = dict(dtype=torch.int8, device="cuda", generator=g)
+    a = torch.randint(-127, 128, (M, K), **i8)
+    w = torch.randint(-127, 128, (N, K), **i8)
+    rs = torch.rand(M, generator=g, device="cuda") * 0.02 + 1e-3
+    cs = torch.rand(N, generator=g, device="cuda") * 0.02 + 1e-3
+    bias = torch.randn(N, generator=g, device="cuda") * 0.1
+    acc = torch.matmul(a.double(), w.double().t()).to(torch.int32)
+    return a, w, rs, cs, bias, acc
 
 
 def q8_epilogue_plain(form, acc, rs, cs, bias, resid=None):
