@@ -36,7 +36,11 @@ Phases; any failure exits non-zero:
      flash_attention (and at B=1, N=1025 with an fp32 bias), K14
      packed_attention, each also held to the contract check (99% of
      outputs within one bf16 ulp of the plain version's own value, which a
-     kernel that rounds p at another point fails); K13 and
+     kernel that rounds p at another point fails), and K1 and K15 (views
+     of the raw qkv) past the N whose keys and values fit the staged core,
+     where they walk them through the ring: B=32, N=901 (12 heads of 64)
+     and N=442 (6 heads of 128), each against its plain version, held to
+     the contract check, with its bound and SDPA's time; K13 and
      K14, which only tests call, are first run once each as their own
      path with the counts set to 0; then K12
      q8_dispatch_mlp at the int8 dispatch path's shape (B=128, N=197,
@@ -93,7 +97,16 @@ Phases; any failure exits non-zero:
      synthetic uint8 canvases, one chunk of 128 and a tail of 2, in
      dispatch, auto and int8 dispatch: well-formed results, keep ratios in
      [0, 1], and the launches of K15 (bf16) or of the int8 kernels;
-  8. the wall time, the card's name and power limit (nvidia-smi), a JSON
+  8. past the N whose keys and values fit the staged attention core:
+     fast_vit_forward on ViT-B/16 at 480^2 (N = 901, 12 blocks, batch 32)
+     in dispatch and dense, then predict.serve at --img_size 480 on 34
+     canvases; the serving model of width 768 in 6 heads of 128 at 336^2
+     (N = 442, 12 blocks, batch 32) in bf16 and int8 dispatch (K3, or K6
+     and K4).  Per run, with every launch count set to 0 just before it:
+     12 launches per forward of each of its kernels and none of the
+     others, logits and gates against the same forward on the plain
+     versions (gate agreement >= 0.995), img/s;
+  9. the wall time, the card's name and power limit (nvidia-smi), a JSON
      line of the kernels, and last the JSON result line.
 Needs no network and imports nothing of JAX or of the JAX package.
 """
@@ -211,6 +224,14 @@ MODEL_REL = 0.05
 GATE_AGREE = 0.995
 FAST_ITERS = 5                  # timed forwards per run of the fast path
 SERVE_N = 130                   # predict.serve canvases: a chunk of 128 + 2
+# past the N whose keys and values fit the staged attention core (864 at
+# head_dim 64, 416 at 128): ViT-B/16 at 480^2 (30x30 patches + CLS), and
+# width 768 in 6 heads of 128 at 336^2 (21x21 + CLS)
+LONG_IMG, LONG_B = 480, 32
+LONG_N = (LONG_IMG // 16) ** 2 + 1
+H128_IMG, H128_HEADS = 336, 6
+H128_N = (H128_IMG // 16) ** 2 + 1
+LONG_SERVE = 34                 # predict.serve canvases at 480^2
 
 
 def fail(msg: str) -> None:
@@ -280,11 +301,12 @@ def check_logits(what, got, want) -> float:
     return lerr
 
 
-def measure(name, call, plain, outputs, inputs, ops, timed=None) -> dict:
+def measure(name, call, plain, outputs, inputs, ops, timed=None,
+            plain_iters=20) -> dict:
     """Check ``call()`` against ``plain()`` output by output and time both
     (``timed()`` in place of ``call()`` when given: the same launch without
-    the wrapper's host work).  ``outputs`` names each output ("logits" for
-    router logits)."""
+    the wrapper's host work; the plain version over ``plain_iters``
+    calls).  ``outputs`` names each output ("logits" for router logits)."""
     import torch
     got, want = call(), plain()
     torch.cuda.synchronize()
@@ -296,7 +318,8 @@ def measure(name, call, plain, outputs, inputs, ops, timed=None) -> dict:
             worst = max(worst, check_logits(name, a, b))
         else:
             worst = max(worst, check_close(f"{name} {out_name}", a, b))
-    ms_k, ms_p = time_ms(timed or call), time_ms(plain)
+    ms_k = time_ms(timed or call)
+    ms_p = time_ms(plain, iters=plain_iters, warmup=min(3, plain_iters))
     b_ms, b_by = bound(nbytes(*inputs) + nbytes(*got), ops)
     print(f"{name}: max|err| {worst:.6g}; kernel {ms_k:.4f} ms, plain "
           f"{ms_p:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
@@ -707,6 +730,34 @@ def phase_attention(torch, ms, qt, fm) -> dict:
              lambda: pa.packed_attention_plain(qkv, H))
     out["packed_attention"]["library_ms"] = out["flash_attention"][
         "library_ms"]
+
+    # K1 and K15 past the N whose keys and values fit the staged core: the
+    # ring of key/value tiles (the plain versions' float64 sums take ~1 s a
+    # call here, so they are timed twice)
+    for n, heads in ((LONG_N, H), (H128_N, H128_HEADS)):
+        hd = C // heads
+        lq = torch.randn((LONG_B, n, 3 * C), generator=g,
+                         device="cuda").to(torch.bfloat16)
+        lviews = lq.view(LONG_B, n, 3, heads, hd).permute(2, 0, 3, 1, 4)
+        tag = f"B={LONG_B}, N={n}, {heads} heads of {hd}"
+        ops = {"bf16": 2 * attn_ops(LONG_B, n)}
+        measure(f"K1 mha_serving_fused({tag})",
+                lambda: ms.mha_serving_fused(lq, heads=heads),
+                lambda: ms.attn_core_pairs(lq, heads=heads), ("core",),
+                (lq,), ops, plain_iters=2)
+        contract(f"K1 mha_serving_fused({tag})",
+                 lambda: ms.mha_serving_fused(lq, heads=heads),
+                 lambda: ms.attn_core_pairs(lq, heads=heads))
+        measure(f"K15 mha_serving(views of the raw qkv, {tag})",
+                lambda: ms.mha_serving(*lviews),
+                lambda: ms.mha_serving_plain(*lviews), ("core",), (lq,), ops,
+                plain_iters=2)
+        contract(f"K15 mha_serving(views of the raw qkv, {tag})",
+                 lambda: ms.mha_serving(*lviews),
+                 lambda: ms.mha_serving_plain(*lviews))
+        sdpa(f"on q, k, v ({tag})", *(t.contiguous() for t in lviews))
+        del lq, lviews
+        torch.cuda.empty_cache()
     torch.cuda.empty_cache()
     return out, {k: path[k] for k in ("flash_attention", "packed_attention")}
 
@@ -970,6 +1021,143 @@ def phase_fast(torch, ms, qt, fm, fast, predict, scan_throughput,
     return launches
 
 
+def phase_long(torch, ms, qt, fm, fast, predict, vit, load_timm_state_dict,
+               make_vit_state_dict, np, scan_throughput,
+               forwards_run) -> dict:
+    """Past the N whose keys and values fit the staged attention core: the
+    speed-test forward of ViT-B/16 at 480^2 (N = 901, K15 on the ring) in
+    dispatch and dense, then predict.serve at 480^2; the serving model with
+    6 heads of 128 at 336^2 (N = 442, its fused prologue's core on the
+    ring) in bf16 and int8 dispatch.  Per run, with the counts set to 0
+    just before it: 12 launches a forward of each of its kernels and none
+    of the others, logits and gates against the same forward on the plain
+    versions, img/s.  Returns the launches."""
+    cuda = torch.device("cuda")
+    g = torch.Generator(device="cuda").manual_seed(9)
+    launches = {k: 0 for k in KERNELS}
+    sd = make_vit_state_dict(np.random.RandomState(0), depth=DEPTH, dim=C,
+                             ffn=FFN, classes=100, img=LONG_IMG, patch=16,
+                             router_scale=25.0)
+    args = predict.get_args_parser().parse_args(
+        ["--ckpt", "synthetic.pth", "--images", "-", "--img_size",
+         str(LONG_IMG), "--batch_size", str(LONG_SERVE)])
+    cfg, tuning, sel = predict.configs(args)
+    params = predict.load_params(args, cuda, state_dict=sd)
+    x = torch.randn((LONG_B, LONG_IMG, LONG_IMG, 3), generator=g,
+                    device="cuda")
+    for mode in ("dispatch", "dense"):
+        def fwd(mode=mode):
+            return fast.fast_vit_forward(params, x, cfg=cfg, tuning=tuning,
+                                         select=sel, mode=mode,
+                                         use_kernel=True)
+        reset_counts(ms, qt, fm)
+        with torch.inference_mode():
+            logits, gates = fwd()
+            ips = scan_throughput(fwd, batch=LONG_B, iters=FAST_ITERS,
+                                  warmup_iters=1)
+        torch.cuda.synchronize()
+        n_fwd = 1 + forwards_run(FAST_ITERS, warmup_iters=1)
+        counts = read_counts(ms, qt, fm)
+        want = {k: DEPTH * n_fwd if k in ("fused_ln_mlp", "mha_serving")
+                else 0 for k in KERNELS}
+        run = f"fast {mode} at {LONG_IMG}^2 (N={LONG_N})"
+        if counts != want:
+            fail(f"{run}: kernel launches {counts}, want {want}")
+        for k in KERNELS:
+            launches[k] += counts[k]
+        if (logits.shape != (LONG_B, 100) or not torch.isfinite(logits).all()
+                or (gates is None) != (mode == "dense")):
+            fail(f"{run}: logits {tuple(logits.shape)} or gates malformed")
+        with plain_versions(ms, qt, fm), torch.inference_mode():
+            ref, ref_gates = fwd()
+        err, mag = rel_err(logits, ref)
+        agree = (1.0 if gates is None
+                 else (gates == ref_gates).float().mean().item())
+        print(f"{run}: {ips:.2f} img/s at batch {LONG_B}; {DEPTH} K11 and "
+              f"{DEPTH} K15 launches per forward; vs plain versions: logits "
+              f"max|err| {err:.6g} (tol {MODEL_REL * mag:.6g}), gate "
+              f"agreement {agree:.6f}")
+        if err > MODEL_REL * mag or agree < GATE_AGREE:
+            fail(f"{run} disagrees with the plain-version forward")
+        torch.cuda.empty_cache()
+
+    canvas = LONG_IMG * 256 // 224
+    canvases = torch.randint(0, 256, (LONG_SERVE, canvas, canvas, 3),
+                             generator=g, device="cuda", dtype=torch.uint8)
+    reset_counts(ms, qt, fm)
+    printed = io.StringIO()
+    with contextlib.redirect_stdout(printed):
+        results = predict.serve(args, canvases, params)
+    torch.cuda.synchronize()
+    counts = read_counts(ms, qt, fm)
+    want = {k: DEPTH if k == "mha_serving" else 0 for k in KERNELS}
+    run = f"predict.serve dispatch at {LONG_IMG}^2"
+    if counts != want:
+        fail(f"{run}: kernel launches {counts}, want {want}")
+    launches["mha_serving"] += counts["mha_serving"]
+    if not (len(results) == LONG_SERVE and all(
+            0 <= r["label"] < 100 and 0.0 <= r["keep_ratio"] < 1.0
+            for r in results)):
+        fail(f"{run}: malformed results {results[:2]}")
+    print(f"{run}: {LONG_SERVE} canvases of {canvas}^2, mean keep ratio "
+          f"{sum(r['keep_ratio'] for r in results) / LONG_SERVE:.4f}")
+    del params, sd
+    torch.cuda.empty_cache()
+
+    sd = make_vit_state_dict(np.random.RandomState(0), depth=DEPTH, dim=C,
+                             ffn=FFN, classes=100, img=H128_IMG, patch=16,
+                             router_scale=25.0)
+    x = torch.randn((LONG_B, H128_IMG, H128_IMG, 3), generator=g,
+                    device="cuda")
+    for quant, kernels in (("none", ("dyt_prologue_serving",)),
+                           ("int8", ("dyt_prologue_serving_q8",
+                                     "q8_ln_mlp"))):
+        a = predict.get_args_parser().parse_args(
+            ["--ckpt", "synthetic.pth", "--images", "-", "--img_size",
+             str(H128_IMG), "--num_heads", str(H128_HEADS), "--quant",
+             quant])
+        mcfg, mtuning, msel = predict.configs(a)
+        model = vit.VisionTransformer(mcfg, tuning=mtuning, select=msel,
+                                      dtype=torch.bfloat16)
+        load_timm_state_dict(model, sd, log=lambda m: None)
+        model = model.to(cuda)
+        fwd = lambda: model(x, dispatch=True)
+        reset_counts(ms, qt, fm)
+        with torch.inference_mode():
+            logits, aux = fwd()
+            ips = scan_throughput(fwd, batch=LONG_B, iters=FAST_ITERS,
+                                  warmup_iters=1)
+        torch.cuda.synchronize()
+        n_fwd = 1 + forwards_run(FAST_ITERS, warmup_iters=1)
+        counts = read_counts(ms, qt, fm)
+        want = {k: DEPTH * n_fwd if k in kernels else 0 for k in KERNELS}
+        run = (f"quant={quant} dispatch, {H128_HEADS} heads of "
+               f"{C // H128_HEADS} at {H128_IMG}^2 (N={H128_N})")
+        if counts != want:
+            fail(f"{run}: kernel launches {counts}, want {want}")
+        for k in KERNELS:
+            launches[k] += counts[k]
+        if logits.shape != (LONG_B, 100) or not torch.isfinite(logits).all():
+            fail(f"{run}: logits {tuple(logits.shape)} not finite/shaped")
+        with plain_versions(ms, qt, fm), torch.inference_mode():
+            ref, ref_aux = fwd()
+        err, mag = rel_err(logits, ref)
+        agree = (aux["token_select"] == ref_aux["token_select"]
+                 ).float().mean().item()
+        keep = aux["token_select"].float().mean().item()
+        print(f"{run}: {ips:.2f} img/s at batch {LONG_B}; launches per "
+              "forward: " + ", ".join(f"{k} {counts[k] // n_fwd}"
+                                      for k in kernels)
+              + f"; vs plain versions: logits max|err| {err:.6g} (tol "
+              f"{MODEL_REL * mag:.6g}), gate agreement {agree:.6f}, mean "
+              f"keep ratio {keep:.4f}")
+        if err > MODEL_REL * mag or agree < GATE_AGREE:
+            fail(f"{run} disagrees with the plain-version forward")
+        del model
+        torch.cuda.empty_cache()
+    return launches
+
+
 def count_modules(ms, qt, fm) -> dict:
     """The wrappers' modules by their KERNELS tag."""
     from dynamic_tuning_tpu_torch.ops import flash_attention as fa
@@ -1196,10 +1384,11 @@ def main() -> None:
 
         from dynamic_tuning_tpu_torch import (bench, config, predict,
                                               seg_train, speed)
-        from dynamic_tuning_tpu_torch.checkpoint import (make_seg_state_dict,
-                                                         make_vit_state_dict)
+        from dynamic_tuning_tpu_torch.checkpoint import (
+            load_timm_state_dict, make_seg_state_dict, make_vit_state_dict)
         from dynamic_tuning_tpu_torch.models import fast_inference as fast
-        from dynamic_tuning_tpu_torch.models import layers, seg_vit, upernet
+        from dynamic_tuning_tpu_torch.models import (layers, seg_vit, upernet,
+                                                     vit)
         from dynamic_tuning_tpu_torch.ops import _build
         from dynamic_tuning_tpu_torch.ops import dispatch as D
         from dynamic_tuning_tpu_torch.ops import fused_mlp as fm
@@ -1256,6 +1445,12 @@ def main() -> None:
         launches[k] += n
     launches.update(phase_fast(torch, ms, qt, fm, fast, predict,
                                scan_throughput, forwards_run, sds[0]))
+    del sds
+    torch.cuda.empty_cache()
+    for k, n in phase_long(torch, ms, qt, fm, fast, predict, vit,
+                           load_timm_state_dict, make_vit_state_dict, np,
+                           scan_throughput, forwards_run).items():
+        launches[k] += n
     launches.update(attention_path)
     launches.update(k12_path)
     launches.update(k16_path)

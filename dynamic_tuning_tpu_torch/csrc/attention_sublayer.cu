@@ -41,7 +41,11 @@
 //      so each key chunk is final when it is computed: no rescaling, no
 //      [N, N] tile anywhere.  Up to 256 keys the whole row is one chunk
 //      (one Q K^T and one P V chain a tile: fewer waits than 64-key chunks,
-//      measured faster); past that, 64-key chunks are software-pipelined;
+//      measured faster); past that, 64-key chunks are software-pipelined.
+//      Past the N whose K and V fit a block's shared memory (864 at hd 64,
+//      416 at hd 128), attn_core_ring_kernel runs instead: one warpgroup a
+//      (query tile, head, sample) walking 64-key tiles of K and V that TMA
+//      brings into a ring, with the same per-chunk math and order;
 //   4. gemm_nt_kernel<EPI_RESIDUAL> -- core x Wproj^T + x + bproj in fp32,
 //      written in the residual dtype (and as an fp32 copy for the DyT
 //      prologue's adapter/router, which read x_mid in fp32).
@@ -305,6 +309,233 @@ attn_core_kernel(const CoreArgs a) {
   }
 }
 
+// ---------------------------------------------------------------------------
+// The core past the N whose K and V fit shared memory (the staged kernel's
+// layout needs more than a block's 227 KB from N = 865 at hd 64, 417 at hd
+// 128).  A block is one warpgroup owning 64 query rows of one (sample,
+// head); it walks K and V in tiles of CORE_STREAM_KEYS keys, in the order
+// and with the per-chunk math of the staged kernel's 64-key chunks: Q K^T
+// on wgmma (q' in registers), e = exp(clip(s, -60, 80) - 20) with expf,
+// l over the fp32 e (K1) or the bf16 p (K15), P V on wgmma with the first
+// 16-key step of the first tile starting the sum.  So l and o sum in the
+// same order as the staged kernel's.
+//   * TMA brings each tile's K and V ([HD / 64][64 keys][64], 128-byte
+//     swizzled, as the staged kernel's chunks lie) into a ring of two
+//     stages paced by a full and an empty mbarrier a stage; thread 0 issues
+//     tile i + 2 once every warp is past tile i (K9's ring,
+//     windowed_attention.cu, without the bias block).  TMA rather than
+//     cp.async: one thread issues a tile, the warps spend no instructions
+//     or registers on addresses, and the tensor map keeps strides: K and V
+//     are read through 4-D maps [B][H][N][HD] (innermost last) built from
+//     the element strides, so the raw [B, N, 3C] qkv, views of it and
+//     contiguous [B, H, N, hd] tensors all go through the same map, and no
+//     tile reads past its own (sample, head).
+//   * TMA fills keys past N with zeros; their p is masked to 0, so they add
+//     exact zeros to l and o.
+//   * The grid is (query tile, head, sample): at B = 32, N = 901, 12 heads
+//     5760 blocks, four an SM at hd 64 (33 KB of shared memory, at most
+//     128 registers a thread), two at hd 128 (65 KB).  The blocks of one
+//     (sample, head) run side by side and share its K and V in L2.
+// Query rows past N compute and are not stored.  What bounds it: at
+// B = 32, N = 901, 12 heads of 64 the products are 79.8 GFLOP (0.081 ms at
+// the bf16 peak) against 0.053 ms of bytes, and there are 312 M exps; as in
+// K9, each tile's Q K^T wait, exp and P V run in turn (PERF.md).
+template <int HD>
+struct RingLayout {
+  static constexpr int KV = CORE_STREAM_KEYS * HD * 2;      // a K or V tile
+  static constexpr int STAGE = 2 * KV;
+  static constexpr int STAGES = 2;
+  static constexpr int RING = STAGES * STAGE;
+  static constexpr int SMEM = 1024 + RING + 2 * STAGES * 8;
+  static constexpr int BLOCKS = HD == 64 ? 4 : 2;           // an SM
+};
+
+template <int HD, bool K15>
+__global__ void __launch_bounds__(CORE_THREADS, RingLayout<HD>::BLOCKS)
+attn_core_ring_kernel(const __grid_constant__ CUtensorMap map_k,
+                      const __grid_constant__ CUtensorMap map_v,
+                      const CoreArgs a) {
+  using L = RingLayout<HD>;
+  constexpr int KT = CORE_STREAM_KEYS;
+  constexpr int DK = HD / 16;          // k16 steps of Q K^T
+  constexpr int PS = KT / 16;          // k16 steps of P V a tile
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* ring = align1024(smem_raw);
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + L::RING);
+  uint64_t* empty = full + L::STAGES;
+
+  const int N = a.N, q0 = blockIdx.x * 64, h = blockIdx.y, b = blockIdx.z;
+  const int nt = (N + KT - 1) / KT;                 // key tiles
+  const bf16* qb = a.q + b * a.sq[0] + h * a.sq[1];
+  bf16* ob = a.o + b * a.so[0] + h * a.so[1];
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t2 = (lane & 3) * 2;
+
+  if (tid == 0) {
+    for (int s = 0; s < L::STAGES; ++s) {
+      mbar_init(&full[s], 1);                       // thread 0's arrive
+      mbar_init(&empty[s], CORE_THREADS / 32);      // lane 0 of each warp
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  // key tile i into stage i % STAGES: K, then V, in 64-column boxes
+  auto issue = [&](int i) {
+    const int st = i % L::STAGES;
+    unsigned char* dst = ring + st * L::STAGE;
+    mbar_expect_tx(&full[st], L::STAGE);
+#pragma unroll
+    for (int c = 0; c < HD / 64; ++c) {
+      tma_load_4d(dst + c * KT * 128, &map_k, &full[st], 64 * c, i * KT, h,
+                  b);
+      tma_load_4d(dst + L::KV + c * KT * 128, &map_v, &full[st], 64 * c,
+                  i * KT, h, b);
+    }
+  };
+  if (tid == 0)
+    for (int i = 0; i < nt && i < L::STAGES; ++i) issue(i);
+
+  // K15 takes the scale rounded to bf16 first (as the staged kernel)
+  const float scale =
+      K15 ? __bfloat162float(__float2bfloat16_rn(a.scale)) : a.scale;
+  const int n_lo = q0 + warp * 16 + g, n_hi = n_lo + 8;
+  const bool live = q0 + warp * 16 < N;             // the same for the warp
+  // q rows scaled in fp32 and rounded to bf16 before Q K^T, loaded straight
+  // into the A-operand layout (zeros past N)
+  unsigned qf[DK][4];
+#pragma unroll
+  for (int d = 0; d < DK; ++d) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int n = (e & 1) ? n_hi : n_lo;
+      float2 q = make_float2(0.f, 0.f);
+      if (n < N) q = load2(qb + n * a.sq[2] + d * 16 + t2 + (e >> 1) * 8);
+      qf[d][e] = pack_bf16x2(q.x * scale, q.y * scale);
+    }
+  }
+  float o[HD / 2];
+  float l_lo = 0.f, l_hi = 0.f;
+
+  for (int i = 0; i < nt; ++i) {
+    const int st = i % L::STAGES, k0 = i * KT;
+    mbar_wait(&full[st], (i / L::STAGES) & 1);
+    const unsigned char* Kt = ring + st * L::STAGE;
+    const unsigned char* Vt = Kt + L::KV;
+    float s[KT / 2];
+    wgmma_fence();
+#pragma unroll
+    for (int d = 0; d < DK; ++d)
+      wgmma_rs<KT, false>(
+          s, qf[d], desc_sw128(Kt + (d / 4) * KT * 128 + (d % 4) * 32),
+          d > 0);
+    wgmma_commit();
+    wgmma_wait<0>();               // these scores, and the last tile's P V
+    if (i > 0) {
+      // tile i - 1's stage is free: each warp is past its P V; thread 0
+      // refills it with tile i - 1 + STAGES
+      const int prev = (i - 1) % L::STAGES;
+      if (lane == 0) mbar_arrive(&empty[prev]);
+      if (tid == 0 && i - 1 + L::STAGES < nt) {
+        mbar_wait(&empty[prev], ((i - 1) / L::STAGES) & 1);
+        issue(i - 1 + L::STAGES);
+      }
+    }
+    // e = exp(clip(s, -60, 80) - 20) in place, keys past N masked to 0.
+    // Element 4 j + e of s is key k0 + 8 j + t2 + (e & 1).
+    unsigned pf[PS][4];
+    if (live) {
+      const bool last = k0 + KT > N;
+#pragma unroll
+      for (int j = 0; j < KT / 8; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float p = expf(fminf(fmaxf(s[4 * j + e], -60.f), 80.f) - 20.f);
+          if (last && k0 + j * 8 + t2 + (e & 1) >= N) p = 0.f;
+          // K15's l sums the bf16 p that the AV product reads; K1's the
+          // fp32 e
+          if constexpr (K15) p = __bfloat162float(__float2bfloat16_rn(p));
+          s[4 * j + e] = p;
+        }
+        l_lo += s[4 * j] + s[4 * j + 1];
+        l_hi += s[4 * j + 2] + s[4 * j + 3];
+      }
+#pragma unroll
+      for (int st2 = 0; st2 < PS; ++st2) {
+        pf[st2][0] = pack_bf16x2(s[8 * st2], s[8 * st2 + 1]);
+        pf[st2][1] = pack_bf16x2(s[8 * st2 + 2], s[8 * st2 + 3]);
+        pf[st2][2] = pack_bf16x2(s[8 * st2 + 4], s[8 * st2 + 5]);
+        pf[st2][3] = pack_bf16x2(s[8 * st2 + 6], s[8 * st2 + 7]);
+      }
+    } else {
+#pragma unroll
+      for (int st2 = 0; st2 < PS; ++st2)
+        pf[st2][0] = pf[st2][1] = pf[st2][2] = pf[st2][3] = 0u;
+    }
+    wgmma_fence();
+#pragma unroll
+    for (int st2 = 0; st2 < PS; ++st2)
+      wgmma_rs<HD, true>(o, pf[st2],
+                         desc_sw128_mn(Vt + st2 * 16 * 128, KT * 128),
+                         i > 0 || st2 > 0);
+    wgmma_commit();
+  }
+  wgmma_wait<0>();
+  if (!live) return;
+
+#pragma unroll
+  for (int m = 1; m < 4; m <<= 1) {
+    l_lo += __shfl_xor_sync(0xffffffffu, l_lo, m);
+    l_hi += __shfl_xor_sync(0xffffffffu, l_hi, m);
+  }
+  const float inv_lo = __frcp_rn(l_lo), inv_hi = __frcp_rn(l_hi);
+  auto out = [&](float x, float l, float r) {
+    return K15 ? div_rn_by(x, l, r) : x * r;
+  };
+#pragma unroll
+  for (int j = 0; j < HD / 8; ++j) {
+    const int col = j * 8 + t2;
+    if (n_lo < N)
+      store2(ob + n_lo * a.so[2] + col, out(o[4 * j], l_lo, inv_lo),
+             out(o[4 * j + 1], l_lo, inv_lo));
+    if (n_hi < N)
+      store2(ob + n_hi * a.so[2] + col, out(o[4 * j + 2], l_hi, inv_hi),
+             out(o[4 * j + 3], l_hi, inv_hi));
+  }
+}
+
+template <int HD, bool K15>
+static cudaError_t launch_core_ring(const CoreArgs& a, int B, cudaStream_t s) {
+  using L = RingLayout<HD>;
+  // K and V as [B][H][N][HD] (dims innermost first, byte strides of the
+  // outer three), read in 64 x 64 boxes; rows past N arrive as zeros
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(HD),
+                              static_cast<cuuint64_t>(a.N),
+                              static_cast<cuuint64_t>(a.H),
+                              static_cast<cuuint64_t>(B)};
+  const cuuint32_t box[4] = {64, CORE_STREAM_KEYS, 1, 1};
+  CUtensorMap maps[2];
+  const bf16* src[2] = {a.k, a.v};
+  const long long* st[2] = {a.sk, a.sv};
+  for (int i = 0; i < 2; ++i) {
+    const cuuint64_t strides[3] = {static_cast<cuuint64_t>(st[i][2]) * 2,
+                                   static_cast<cuuint64_t>(st[i][1]) * 2,
+                                   static_cast<cuuint64_t>(st[i][0]) * 2};
+    const cudaError_t err = tensor_map(
+        &maps[i], CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, src[i], 4, dims, strides,
+        box);
+    if (err != cudaSuccess) return err;
+  }
+  cudaError_t err = cudaFuncSetAttribute(
+      attn_core_ring_kernel<HD, K15>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, L::SMEM);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((a.N + 63) / 64, a.H, B);
+  attn_core_ring_kernel<HD, K15><<<grid, CORE_THREADS, L::SMEM, s>>>(
+      maps[0], maps[1], a);
+  return cudaGetLastError();
+}
+
 template <int HD, int KC, bool K15>
 static cudaError_t launch_core_kc(const CoreArgs& a, int B, cudaStream_t s) {
   const int smem = CoreLayout<HD, KC>::smem_bytes(a.N);
@@ -316,22 +547,20 @@ static cudaError_t launch_core_kc(const CoreArgs& a, int B, cudaStream_t s) {
   return cudaGetLastError();
 }
 
+// a block's dynamic shared memory on sm_90 (H100, H200)
+constexpr int CORE_SMEM_LIMIT = 232448;
+
 // the chunk width for N: the whole row (13 or 16 chunks of 16 keys) up to
-// 256 keys, else 64-key chunks
+// 256 keys, else 64-key chunks; the ring once K and V do not fit
 template <int HD, bool K15>
 static cudaError_t launch_attn_core(const CoreArgs& a, int B, cudaStream_t s) {
+  if (a.N <= 0 || B <= 0 || a.H <= 0) return cudaErrorInvalidValue;
   const int nc = (a.N + 15) / 16;
   if (nc <= 13) return launch_core_kc<HD, 208, K15>(a, B, s);
   if (nc <= 16) return launch_core_kc<HD, 256, K15>(a, B, s);
-  return launch_core_kc<HD, CORE_STREAM_KEYS, K15>(a, B, s);
-}
-
-template <int HD>
-static int core_smem_bytes(int N) {
-  const int nc = (N + 15) / 16;
-  if (nc <= 13) return CoreLayout<HD, 208>::smem_bytes(N);
-  if (nc <= 16) return CoreLayout<HD, 256>::smem_bytes(N);
-  return CoreLayout<HD, CORE_STREAM_KEYS>::smem_bytes(N);
+  if (CoreLayout<HD, CORE_STREAM_KEYS>::smem_bytes(a.N) <= CORE_SMEM_LIMIT)
+    return launch_core_kc<HD, CORE_STREAM_KEYS, K15>(a, B, s);
+  return launch_core_ring<HD, K15>(a, B, s);
 }
 
 static cudaError_t attn_core_strided(const CoreArgs& a, int B, int hd,
@@ -383,14 +612,6 @@ static cudaError_t sublayer(const TX* x, const float* gamma, const float* beta,
 
 extern "C" {
 
-// Shared-memory bytes the attention core needs at (N, hd); 0 when hd is not
-// supported.  The wrapper checks it against the card's per-block limit.
-int dyt_attn_core_smem_bytes(int N, int hd) {
-  if (hd == 64) return dyt::core_smem_bytes<64>(N);
-  if (hd == 128) return dyt::core_smem_bytes<128>(N);
-  return 0;
-}
-
 // The bf16 attention core alone: qkv [B, N, 3C] -> out [B, N, C], both bf16
 // (the int8 sublayer chain of quant.cu runs it between its int8 GEMMs).
 int dyt_attn_core(const void* qkv, void* out, int B, int N, int C, int H,
@@ -403,7 +624,9 @@ int dyt_attn_core(const void* qkv, void* out, int B, int N, int C, int H,
 // The attention core on strided bf16 q, k, v [B, H, N, hd] -> out (K1 with
 // k15 = 0, K15 with k15 = 1).  ``strides`` holds 12 element strides: batch,
 // head and row of q, k, v and out, in that order; hd has unit stride, and
-// every row starts on 16 bytes.  hd 64 or 128.  Returns a cudaError_t value.
+// every stride is a multiple of 8 elements (rows, heads and samples on 16
+// bytes: the ring's tensor maps need it).  hd 64 or 128, any N.  Returns a
+// cudaError_t value.
 int dyt_mha_core(const void* q, const void* k, const void* v, void* out,
                  const long long* strides, int B, int N, int H, int hd,
                  float scale, int k15, void* stream) {

@@ -1,8 +1,8 @@
 // Shared helpers of the serving kernels: bf16 conversions, round-to-nearest
 // fp32 arithmetic (and a division by one rounded reciprocal), ex2, the fp32
 // GELUs, cp.async, warp reductions, the bf16 and int8 mma.sync primitives
-// (the MoE kernels, K10's int8 attention core and the long-sequence softmax
-// walk run on them), paired and 8-wide loads and stores, and the bf16
+// (K10's int8 attention core and the long-sequence softmax walk run on
+// them), paired and 8-wide loads and stores, and the bf16
 // LayerNorm rows.  The bf16 / int8 GEMM lives in gemm.cuh and the wgmma /
 // TMA building blocks in wgmma.cuh.
 #pragma once
@@ -139,20 +139,6 @@ __device__ __forceinline__ void mma_bf16_16816(float (&c)[4],
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// c = c + a * b as an IEEE round-to-nearest add of the tensor core's product
-// of this k16 step.  Chained mma accumulation rounds inside the tensor core
-// at every step; over the 48 steps of a K = 768 product that drifts further
-// from the exact sum (which the plain versions form in float64) than one
-// round-to-nearest add per step does.
-__device__ __forceinline__ void mma_bf16_16816_rn(float (&c)[4],
-                                                  const unsigned (&a)[4],
-                                                  unsigned b0, unsigned b1) {
-  float p[4] = {0.f, 0.f, 0.f, 0.f};
-  mma_bf16_16816(p, a, b0, b1);
-#pragma unroll
-  for (int e = 0; e < 4; ++e) c[e] = __fadd_rn(c[e], p[e]);
 }
 
 // c += a (16x32, row) * b (32x8, col) in int8 with int32 accumulators.  Its

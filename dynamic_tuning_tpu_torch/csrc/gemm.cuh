@@ -367,7 +367,7 @@ inline cudaError_t tensor_map(CUtensorMap* map, CUtensorMapDataType type,
                               const cuuint32_t* box) {
   const TensorMapEncodeTiled encode = tensor_map_encoder();
   if (encode == nullptr) return cudaErrorNotSupported;
-  const cuuint32_t step[3] = {1, 1, 1};
+  const cuuint32_t step[5] = {1, 1, 1, 1, 1};
   const CUresult r = encode(
       map, type, rank, const_cast<void*>(p), dims, strides, box, step,
       CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,

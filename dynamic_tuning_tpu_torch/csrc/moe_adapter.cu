@@ -18,311 +18,511 @@
 // bf16 tensor work (~20 us at peak) while the kernel reads the fp32 x_mid
 // (77 MB) and writes adapt (39 MB in bf16): ~35 us at 3.35 TB/s, bound by
 // device-memory bytes.  Each block also pulls both expert stacks (2 * W * C
-// bf16, 786 KB at W = 256) from L2 through shared memory.
+// bf16, 786 KB at W = 256) from L2 through shared memory.  The numerics add
+// work of their own: every k16 tensor-core product is added to its sum with
+// a round-to-nearest fp32 add (the sums then sit near the exact float64
+// ones the plain version forms, and the int8 moe4 forward's gates agree with
+// its plain version's; chained accumulation inside the tensor core took
+// that agreement under 0.995), so both products cost one fp32 add per
+// output element per 16 of depth (~620 M adds), and the router dots are
+// summed in float64 (~100 M fp64 FMAs).
 //
-// What the design does about it.  x_mid is read from device memory once: a
-// block owns 64 rows and streams them in 64-column chunks, the next chunk's
-// rows loading into registers while this one's products run.  Each chunk
-// is rounded to bf16 for the down GEMM (mma.sync, fp32 accumulators)
-// against the matching 64 columns of all W expert rows, staged with
-// cp.async; the same fp32 chunk feeds the E + 1 router dots, summed in
-// float64 over all 256 threads and rounded once (the plain version does the
-// same, so the gates and logits do not depend on a summation order).  A
-// warp keeps the down accumulators of its 16 rows and half of W in
-// registers (64 at W = 256) -- not the A and H fragments too, as a straight
-// copy of the dense adapter kernel (dyt_prologue.cu) would at ~190
-// registers.  Then + bd, ReLU and the gate in fp32, one rounding into a
-// bf16 H tile [64, W] in shared memory, and the up GEMM streams its A
-// fragments from H over K = W.  Every tensor-core step's product is added
-// with a round-to-nearest add (mma_bf16_16816_rn).  99 KB of shared memory
-// at W = 256: two blocks an SM, one's loads under the other's products.
-// + bd, x gate and (up + gates.Bu) * scale use __fadd_rn / __fmul_rn so
-// nvcc contracts no rounding point away.
-//
-// Where the time goes: utils/moe_tail_ablation.py times this kernel with
-// one phase taken out at a time (PERF.md).  No single phase holds it up;
-// deeper pipelining (the next chunk's weights in flight during the
-// products) and more rows per block (half the L2 weight traffic) are the
-// next steps.
-#include "common.cuh"
+// What the design does about it.  The mma.sync form this replaces ran 24
+// rounds of load -> __syncthreads -> compute a block, each round's latency
+// in full view.  Now a persistent grid, one 384-thread block an SM, walks
+// tiles of 64 rows, and:
+//   * one producer thread (warpgroup 2, its registers given to the
+//     consumers with setmaxnreg) keeps a ring of 2 to 4 stages (as
+//     many as fit) in flight with TMA: for each 64-column chunk of x_mid,
+//     the fp32 rows (two 32-column boxes, 128-byte swizzled) and the
+//     matching 64 columns of up to 256 expert rows of Wd; then for each
+//     64-column chunk of the output, the Wu rows over up to 256 of W; a
+//     full and an empty mbarrier a stage pace it, and the next tile's
+//     first chunks load while this one's up product runs;
+//   * two consumer warpgroups share the tile's rows and run both products
+//     on wgmma: the down product with bf16(x) as register A fragments (read
+//     from the fp32 stage, rounded once) against the Wd rows K-major, each
+//     warpgroup 128 of a pass's 256 columns of W; the up product with hg
+//     from a 128-byte swizzled bf16 H tile in shared memory against the Wu
+//     rows K-major, each warpgroup 32 of a chunk's 64 output columns.  Each
+//     k16 step goes into a zeroed partial, added to its sum with __fadd_rn
+//     in step order.  A warpgroup issues a batch of products (both pieces'
+//     of one down step, four up steps), waits for all of them, then adds;
+//     the other warpgroup's products run meanwhile (two alternating
+//     partials, each read after a wait<1>, made ptxas serialize the wgmma
+//     pipeline).  Past W = 256 the down product runs in two passes over
+//     the re-streamed x_mid;
+//   * the router dots run on the fp32 stage in float64: four lanes a row,
+//     16 columns each, up to 8 dots interleaved, added pairwise across the
+//     quad, then to the row's sum (the mma.sync kernel's order, so gates
+//     and logits are its bits).  The chunk's router weights, and in the
+//     epilogue the Bu rows of the output chunk, are loaded one chunk ahead
+//     and converted to float64 once a block into shared memory (loaded and
+//     converted in every thread that reads them, the dots took 127 us of
+//     the kernel's 308); the gates stay in float64 for the epilogue;
+//   * the epilogue stores whole 16-byte pieces of rows through each warp's
+//     staging rows (gemm.cuh's gemm_store_chunk).
+// 64 rows a tile, not 128: a consumer thread then holds 64 down sums at
+// W = 256 beside its partials and A fragments (128 rows took 128 sums,
+// past the 232 registers setmaxnreg gives a consumer thread: that form
+// spilled and ran slower than the mma.sync kernel), and 25216 rows make
+// 394 tiles, three an SM.  The price is twice the expert stacks' L2
+// traffic (~310 MB a call at W = 256).
+// The arithmetic is the mma.sync kernel's, step for step: the same k16
+// products in the same order, one round-to-nearest add each, the same
+// float64 sums and __fadd_rn / __fmul_rn rounding points, so nvcc contracts
+// no rounding point away; the outputs are that kernel's bits.  Where it
+// spends its time: utils/moe_tail_ablation.py (PERF.md).
+#include "gemm.cuh"
 
 namespace dyt {
 
-constexpr int MOE_ROWS = 64;          // rows per block
-constexpr int MOE_THREADS = 256;      // 8 warps: 4 row groups x 2 column halves
-constexpr int MOE_CHUNK = 64;         // x_mid columns / C columns per step
-constexpr int MOE_LDA = MOE_CHUNK + 8;   // bf16 x chunk and Wd chunk stride
-constexpr int MOE_LDF = MOE_CHUNK + 1;   // fp32 x chunk stride (router)
+constexpr int MOE_THREADS = 384;      // two consumer warpgroups + a producer
+constexpr int MOE_CONSUMERS = 256;
+constexpr int MOE_ROWS = 64;          // rows a tile
+constexpr int MOE_CHUNK = 64;         // x_mid columns / output columns a step
+constexpr int MOE_PASS = 256;         // columns of W a down pass covers
+constexpr int MOE_MAX_STAGES = 4;
 constexpr int MOE_MAX_W = 512;
-static_assert(MOE_THREADS == 4 * MOE_ROWS, "a lane quad per row (router)");
+constexpr int MOE_SMEM_LIMIT = 232448;   // a block's shared memory on sm_90
 
-__host__ __device__ inline size_t align128(size_t v) {
-  return (v + 127) & ~(size_t)127;
-}
+// rows of float64 weights converted at a time (router weights of the
+// dots, Bu rows of the epilogue), in two alternating buffers
+constexpr int MOE_CVT = 8;
+// a converted row: 64 values, 2 of padding after each 16 (the four lanes of
+// a row read 16 columns each, on other banks)
+constexpr int MOE_CV_ROW = 72;
+__device__ __forceinline__ int cv_col(int c) { return c + (c >> 4) * 2; }
 
-// Shared-memory layout for E experts, W = E*b columns.
+// Shared-memory layout for E experts, W columns and ``stages`` ring stages:
+// the ring (a stage: the fp32 x chunk [2][64 rows][32], then a Wd box
+// [wbox][64] bf16 or a Wu item [<= 4][64][64] bf16, all 128-byte swizzled),
+// the H tile [w64 / 64][64 rows][64] bf16 (swizzled), the float64 router
+// dots [E + 1][64] (the first E rows then hold the gates, as float64),
+// the converted weights [2][MOE_CVT][MOE_CV_ROW] float64, each consumer
+// warp's output staging rows (gemm.cuh's), then a full and an empty barrier
+// a stage; offsets from the first 1024-byte boundary.
 struct MoeLayout {
-  int ldh;                             // H tile and Wu chunk row stride
-  size_t f_off, a_off, w_off, h_off, r_off, g_off, q_off, bytes;
-  __host__ __device__ MoeLayout(int E, int W) {
-    ldh = W + 8;
-    const size_t wd = (size_t)W * MOE_LDA * 2;          // Wd[0:W][64 cols]
-    const size_t wu = (size_t)MOE_CHUNK * ldh * 2;      // Wu[64 rows][0:W]
-    f_off = 0;                                          // fp32 x chunk
-    a_off = f_off + align128((size_t)MOE_ROWS * MOE_LDF * 4);
-    w_off = a_off + align128((size_t)MOE_ROWS * MOE_LDA * 2);
-    h_off = w_off + align128(wd > wu ? wd : wu);
-    r_off = h_off + align128((size_t)MOE_ROWS * ldh * 2);
-    g_off = r_off + align128((size_t)(E + 1) * MOE_ROWS * 8);  // f64 dots
-    q_off = g_off + align128((size_t)E * MOE_ROWS * 4);        // gates
-    bytes = q_off + (size_t)(E + 1) * MOE_CHUNK * 4;   // router weights,
-                                                        // then up biases
+  int w64, wbox, npass, stage, h_off, rd_off, cv_off, os_off, bar_off,
+      bytes;
+  __host__ __device__ MoeLayout(int E, int W, int stages) {
+    w64 = (W + 63) / 64 * 64;
+    wbox = w64 < MOE_PASS ? w64 : MOE_PASS;
+    npass = (w64 + MOE_PASS - 1) / MOE_PASS;
+    stage = MOE_ROWS * MOE_CHUNK * 4 + wbox * 128;
+    h_off = stages * stage;
+    rd_off = h_off + MOE_ROWS * w64 * 2;
+    cv_off = rd_off + (E + 1) * MOE_ROWS * 8;
+    os_off = cv_off + 2 * MOE_CVT * MOE_CV_ROW * 8;
+    bar_off = os_off + MOE_CONSUMERS / 32 * GEMM_OUT_STAGE;
+    bytes = 1024 + bar_off + 2 * stages * 8;
   }
 };
 
-// NP: the most 16-column pairs of W one warp owns in the down GEMM
-// (ceil(W / 32)); the accumulators take 8 * NP registers.
-template <int NP, typename TO>
-__global__ void __launch_bounds__(MOE_THREADS, NP <= 8 ? 2 : 1)
-moe_adapter_router_kernel(const float* __restrict__ xm, int M, int C,
-                          const float* __restrict__ wr,
-                          const bf16* __restrict__ wd,
+__device__ __forceinline__ void consumer_sync() {
+  asm volatile("bar.sync 1, 256;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void add_rn(float (&acc)[N], const float (&p)[N]) {
+#pragma unroll
+  for (int e = 0; e < N; ++e) acc[e] = __fadd_rn(acc[e], p[e]);
+}
+
+// byte offset of element (row, col) in a [rows][128 B] 128-byte swizzled
+// box, ``esize`` bytes an element
+__device__ __forceinline__ int sw128(int row, int col, int esize) {
+  const int byte = col * esize;
+  return row * 128 + ((((byte >> 4) ^ row) & 7) << 4) + (byte & 15);
+}
+
+template <typename TO>
+__global__ void __launch_bounds__(MOE_THREADS, 1)
+moe_adapter_router_kernel(const __grid_constant__ CUtensorMap map_x,
+                          const __grid_constant__ CUtensorMap map_wd,
+                          const __grid_constant__ CUtensorMap map_wu, int M,
+                          int C, const float* __restrict__ wr,
                           const float* __restrict__ bd,
-                          const bf16* __restrict__ wu,
                           const float* __restrict__ bu,
                           const float* __restrict__ ascale,
                           const float* __restrict__ wsel,
                           const float* __restrict__ bsel,
                           TO* __restrict__ adapt, float* __restrict__ logits,
-                          int E, int b, float inv_tau) {
-  const int W = E * b, P = W / 16;
-  const MoeLayout L(E, W);
-  extern __shared__ __align__(128) unsigned char moe_smem[];
-  float* Xf = reinterpret_cast<float*>(moe_smem + L.f_off);
-  bf16* As = reinterpret_cast<bf16*>(moe_smem + L.a_off);
-  bf16* Ws = reinterpret_cast<bf16*>(moe_smem + L.w_off);   // Wd, then Wu
-  bf16* Hs = reinterpret_cast<bf16*>(moe_smem + L.h_off);
-  double* Rd = reinterpret_cast<double*>(moe_smem + L.r_off);  // [E+1][64]
-  float* G = reinterpret_cast<float*>(moe_smem + L.g_off);     // [E][64]
-  float* Rw = reinterpret_cast<float*>(moe_smem + L.q_off);    // [E+1][64]
+                          int E, int b, float inv_tau, int stages) {
+  constexpr int XB = MOE_ROWS * 128;       // one 32-column x box
+  const int W = E * b;
+  const MoeLayout L(E, W, stages);
+  extern __shared__ unsigned char moe_smem_raw[];
+  unsigned char* base = align1024(moe_smem_raw);
+  unsigned char* Hs = base + L.h_off;
+  double* Rd = reinterpret_cast<double*>(base + L.rd_off);   // [E+1][64]
+  double* CV = reinterpret_cast<double*>(base + L.cv_off);   // [2][8][72]
+  unsigned char* OS = base + L.os_off;
+  uint64_t* full = reinterpret_cast<uint64_t*>(base + L.bar_off);
+  uint64_t* empty = full + stages;
+  const int tiles = (M + MOE_ROWS - 1) / MOE_ROWS, nk = C / MOE_CHUNK;
+  const int npiece = L.w64 / 64;
 
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int m0 = blockIdx.x * MOE_ROWS;
-  const int NR = E + (wsel != nullptr);      // dots per row
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < stages; ++s) {
+      mbar_init(&full[s], 1);                        // the producer's arrive
+      mbar_init(&empty[s], MOE_CONSUMERS / 32);      // lane 0 of each warp
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
 
-  for (int i = tid; i < NR * MOE_ROWS; i += MOE_THREADS) Rd[i] = 0.0;
+  if (threadIdx.x >= MOE_CONSUMERS) {
+    // producer warpgroup: one thread issues every load, in the order the
+    // consumers take them; its registers go to the consumers
+    setmaxnreg_dec<40>();
+    if (threadIdx.x == MOE_CONSUMERS) {
+      int stage = 0, phase = 0;
+      auto slot = [&](int bytes) {
+        mbar_wait(&empty[stage], phase ^ 1);
+        mbar_expect_tx(&full[stage], bytes);
+        return base + stage * L.stage;
+      };
+      auto advance = [&] {
+        if (++stage == stages) {
+          stage = 0;
+          phase ^= 1;
+        }
+      };
+      for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+        const int m0 = t * MOE_ROWS;
+        for (int p = 0; p < L.npass; ++p)
+          for (int k = 0; k < nk; ++k) {
+            unsigned char* st = slot(2 * XB + L.wbox * 128);
+            tma_load_2d(st, &map_x, &full[stage], k * MOE_CHUNK, m0);
+            tma_load_2d(st + XB, &map_x, &full[stage], k * MOE_CHUNK + 32,
+                        m0);
+            tma_load_2d(st + 2 * XB, &map_wd, &full[stage], k * MOE_CHUNK,
+                        p * MOE_PASS);
+            advance();
+          }
+        for (int n = 0; n < nk; ++n)
+          for (int it = 0; it < L.npass; ++it) {
+            const int nkb = min(4, npiece - 4 * it);
+            unsigned char* st = slot(nkb * 64 * 128);
+            for (int kb = 0; kb < nkb; ++kb)
+              tma_load_2d(st + kb * 64 * 128, &map_wu, &full[stage],
+                          it * MOE_PASS + kb * 64, n * MOE_CHUNK);
+            advance();
+          }
+      }
+    }
+    return;
+  }
 
-  // mma.sync fragment addressing (as gemm_nt_kernel): A rows lane%16, k half
-  // lane/16; B rows lane%8 (+8 for lanes 16..31), k half (lane/8)%2;
-  // accumulator pairs at row g (+8), columns t2, t2+1 of each n8 tile
-  const int a_row = lane & 15, a_k = (lane >> 4) * 8;
-  const int b_row = (lane & 7) + ((lane >> 4) << 3), b_k = ((lane >> 3) & 1) * 8;
-  const int g = lane >> 2, t2 = (lane & 3) * 2;
-  const int wm0 = (warp & 3) * 16, half = warp >> 2;
-  // the down GEMM's 16-column pairs of W: the first ceil(P/2) to half 0
-  const int p0 = half ? (P + 1) / 2 : 0, np = half ? P / 2 : (P + 1) / 2;
-
-  float acc[NP][2][4];
+  // consumer warpgroups: cg takes columns [128 cg, 128 cg + 128) of each
+  // down pass and [32 cg, 32 cg + 32) of each output chunk
+  setmaxnreg_inc<232>();
+  const int ctid = threadIdx.x, cg = ctid >> 7, warp = (ctid >> 5) & 3;
+  const int lane = ctid & 31, g = lane >> 2, t2 = (lane & 3) * 2;
+  const int r0 = warp * 16 + g;             // this thread's rows r0, r0 + 8
+  const int NR = E + (wsel != nullptr);     // router dots a row
+  const int dr = ctid >> 2, dpart = ctid & 3;   // router: row, 16 columns
+  const float s_ad = ascale[0];
+  // Weights converted to float64 once a block: rows e0 .. e0 + n - 1
+  // (n <= MOE_CVT) of a chunk's 64 columns of the router weights (row E is
+  // wsel) or of Bu, two values a thread, loaded ahead (load_w, load_b) and
+  // stored to the next CV buffer behind a barrier (store_cv)
+  auto load_w = [&](int kc, int e0, int n, float (&v)[2]) {
 #pragma unroll
-  for (int q = 0; q < NP; ++q)
-#pragma unroll
-    for (int t = 0; t < 2; ++t)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[q][t][e] = 0.f;
-
-  // --- down GEMM + router dots, one pass over the fp32 x_mid rows ----------
-  // x pass p reads row p*16 + tid/16, columns (tid%16)*4..+3 of the chunk:
-  // each half-warp one contiguous 256-byte row segment
-  const int lrow = tid >> 4, lcol = (tid & 15) * 4;
-  float4 xv4[MOE_ROWS / 16];          // this thread's part of the next chunk
-  auto load_x = [&](int k0) {
-#pragma unroll
-    for (int p = 0; p < MOE_ROWS / 16; ++p) {
-      const int gm = m0 + p * 16 + lrow;
-      xv4[p] = gm < M ? *reinterpret_cast<const float4*>(
-                            xm + (size_t)gm * C + k0 + lcol)
-                      : make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int j = 0; j < 2; ++j) {
+      const int i = ctid + j * MOE_CONSUMERS, e = e0 + i / MOE_CHUNK;
+      v[j] = i < n * MOE_CHUNK
+                 ? __ldg((e < E ? wr + (size_t)e * C : wsel) +
+                         kc * MOE_CHUNK + i % MOE_CHUNK)
+                 : 0.f;
     }
   };
-  load_x(0);
-  for (int k0 = 0; k0 < C; k0 += MOE_CHUNK) {
-    for (int i = tid; i < W * (MOE_CHUNK / 8); i += MOE_THREADS) {
-      const int n = i / (MOE_CHUNK / 8), c = (i % (MOE_CHUNK / 8)) * 8;
-      cp_async16(Ws + n * MOE_LDA + c, wd + (size_t)n * C + k0 + c, 16);
-    }
-    cp_async_commit();
+  auto load_b = [&](int nc, int e0, int n, float (&v)[2]) {
 #pragma unroll
-    for (int p = 0; p < MOE_ROWS / 16; ++p) {
-      const int r = p * 16 + lrow;
-      const float4 v = xv4[p];
-      float* f = Xf + r * MOE_LDF + lcol;
-      f[0] = v.x; f[1] = v.y; f[2] = v.z; f[3] = v.w;
-      __align__(8) bf16 h[4] = {from_f32<bf16>(v.x), from_f32<bf16>(v.y),
-                                from_f32<bf16>(v.z), from_f32<bf16>(v.w)};
-      *reinterpret_cast<uint2*>(As + r * MOE_LDA + lcol) =
-          *reinterpret_cast<const uint2*>(h);
+    for (int j = 0; j < 2; ++j) {
+      const int i = ctid + j * MOE_CONSUMERS;
+      v[j] = i < n * MOE_CHUNK
+                 ? __ldg(bu + (size_t)(e0 + i / MOE_CHUNK) * C +
+                         nc * MOE_CHUNK + i % MOE_CHUNK)
+                 : 0.f;
     }
-    for (int i = tid; i < NR * MOE_CHUNK; i += MOE_THREADS) {
-      const int e = i / MOE_CHUNK, c = i % MOE_CHUNK;
-      Rw[i] = e < E ? wr[(size_t)e * C + k0 + c] : wsel[k0 + c];
+  };
+  int cvb = 0;
+  auto store_cv = [&](const float (&v)[2], int n) {
+    double* buf = CV + cvb * MOE_CVT * MOE_CV_ROW;
+    cvb ^= 1;
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const int i = ctid + j * MOE_CONSUMERS;
+      if (i < n * MOE_CHUNK)
+        buf[i / MOE_CHUNK * MOE_CV_ROW + cv_col(i % MOE_CHUNK)] = v[j];
     }
-    cp_async_wait<0>();
-    __syncthreads();
-    // the next chunk's rows load while this one's products run
-    if (k0 + MOE_CHUNK < C) load_x(k0 + MOE_CHUNK);
-    // router dots in float64 (fp32 products are exact there): the four
-    // lanes of a quad take 16 columns each of one row, then add up
-    {
-      const int r = tid >> 2, c0 = (tid & 3) * 16;
-      float xv[16];
-#pragma unroll
-      for (int c = 0; c < 16; ++c) xv[c] = Xf[r * MOE_LDF + c0 + c];
-      for (int e = 0; e < NR; ++e) {
-        const float* w = Rw + e * MOE_CHUNK + c0;
-        double s = 0.0;
-#pragma unroll
-        for (int c = 0; c < 16; ++c) s = fma((double)xv[c], (double)w[c], s);
-        s += __shfl_xor_sync(0xffffffffu, s, 1);
-        s += __shfl_xor_sync(0xffffffffu, s, 2);
-        if ((tid & 3) == 0) Rd[e * MOE_ROWS + r] += s;
-      }
+    consumer_sync();
+    return static_cast<const double*>(buf);
+  };
+  float wpre[2], bpre[2];
+  int stage = 0, phase = 0;
+  auto wait_full = [&] {
+    mbar_wait(&full[stage], phase);
+    return static_cast<const unsigned char*>(base + stage * L.stage);
+  };
+  auto release = [&] {
+    if (lane == 0) mbar_arrive(&empty[stage]);
+    if (++stage == stages) {
+      stage = 0;
+      phase ^= 1;
     }
-#pragma unroll
-    for (int kk = 0; kk < MOE_CHUNK; kk += 16) {
-      unsigned af[4];
-      ldmatrix_x4(af, As + (wm0 + a_row) * MOE_LDA + kk + a_k);
-#pragma unroll
-      for (int q = 0; q < NP; ++q) {
-        if (q >= np) break;
-        unsigned r4[4];
-        ldmatrix_x4(r4, Ws + ((p0 + q) * 16 + b_row) * MOE_LDA + kk + b_k);
-        mma_bf16_16816_rn(acc[q][0], af, r4[0], r4[1]);
-        mma_bf16_16816_rn(acc[q][1], af, r4[2], r4[3]);
-      }
-    }
-    __syncthreads();
-  }
+  };
 
-  // --- expert softmax per row (max-subtracted, IEEE exp and division) ------
-  if (tid < MOE_ROWS) {
-    const int r = tid;
-    float mx = -INFINITY;
-    for (int e = 0; e < E; ++e) {
-      const float v = __fmul_rn((float)Rd[e * MOE_ROWS + r], inv_tau);
-      G[e * MOE_ROWS + r] = v;
-      mx = fmaxf(mx, v);
-    }
-    float sum = 0.f;
-    for (int e = 0; e < E; ++e) {
-      const float ex = expf(__fadd_rn(G[e * MOE_ROWS + r], -mx));
-      G[e * MOE_ROWS + r] = ex;
-      sum = __fadd_rn(sum, ex);
-    }
-    for (int e = 0; e < E; ++e)
-      G[e * MOE_ROWS + r] = __fdiv_rn(G[e * MOE_ROWS + r], sum);
-    if (wsel != nullptr && m0 + r < M)
-      logits[m0 + r] = __fadd_rn((float)Rd[E * MOE_ROWS + r], bsel[0]);
-  }
-  __syncthreads();
+  for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+    const int m0 = t * MOE_ROWS;
+    if (dpart == 0)
+      for (int e = 0; e < NR; ++e) Rd[e * MOE_ROWS + dr] = 0.0;
 
-  // --- bottleneck: bf16(relu(down + bd) * gate) -> H ----------------------
-  const int ldh = L.ldh;
+    // --- down product (+ router dots on the first pass) -------------------
+    for (int p = 0; p < L.npass; ++p) {
+      // acc[q]: piece 4 p + 2 cg + q of W (64 columns); a piece past W is
+      // computed on piece 0's rows and dropped
+      float acc[2][32];
 #pragma unroll
-  for (int q = 0; q < NP; ++q) {
-    if (q >= np) break;
+      for (int q = 0; q < 2; ++q)
 #pragma unroll
-    for (int t = 0; t < 2; ++t) {
-      const int c = (p0 + q) * 16 + t * 8 + t2;
-      const float b0 = bd[c], b1 = bd[c + 1];
-      const int e0 = c / b, e1 = (c + 1) / b;
+        for (int e = 0; e < 32; ++e) acc[q][e] = 0.f;
+      int wd_row[2];
 #pragma unroll
-      for (int hh = 0; hh < 2; ++hh) {
-        const int r = wm0 + g + hh * 8;
-        const float h0 = fmaxf(__fadd_rn(acc[q][t][2 * hh], b0), 0.f);
-        const float h1 = fmaxf(__fadd_rn(acc[q][t][2 * hh + 1], b1), 0.f);
-        store2(Hs + r * ldh + c, __fmul_rn(h0, G[e0 * MOE_ROWS + r]),
-               __fmul_rn(h1, G[e1 * MOE_ROWS + r]));
+      for (int q = 0; q < 2; ++q)
+        wd_row[q] = 4 * p + 2 * cg + q < npiece ? 2 * cg + q : 0;
+      for (int k = 0; k < nk; ++k) {
+        const unsigned char* st = wait_full();
+        const unsigned char* wd = st + 2 * XB;
+        // router dots in float64 over the fp32 chunk (fp32 products are
+        // exact there): this lane's 16 columns of its row against the
+        // chunk's router weights (converted once a block, loaded a chunk
+        // ahead), up to 8 dots interleaved; the four lanes of the row add
+        // up pairwise, then to the row's sum
+        auto dots = [&] {
+          if (k == 0) load_w(0, 0, min(MOE_CVT, NR), wpre);
+          double xd[16];
+#pragma unroll
+          for (int f = 0; f < 4; ++f) {
+            const float4 v = *reinterpret_cast<const float4*>(
+                st + (dpart >> 1) * XB +
+                sw128(dr, (dpart & 1) * 16 + 4 * f, 4));
+            xd[4 * f] = v.x;
+            xd[4 * f + 1] = v.y;
+            xd[4 * f + 2] = v.z;
+            xd[4 * f + 3] = v.w;
+          }
+          for (int e0 = 0; e0 < NR; e0 += MOE_CVT) {
+            const int n = min(MOE_CVT, NR - e0);
+            if (e0 > 0) load_w(k, e0, n, wpre);
+            const double* w = store_cv(wpre, n) + dpart * 18;
+            double sd[MOE_CVT];
+#pragma unroll
+            for (int i = 0; i < MOE_CVT; ++i) sd[i] = 0.0;
+#pragma unroll
+            for (int c = 0; c < 8; ++c)
+#pragma unroll
+              for (int i = 0; i < MOE_CVT; ++i)
+                if (i < n) {
+                  const double2 w2 = *reinterpret_cast<const double2*>(
+                      w + i * MOE_CV_ROW + 2 * c);
+                  sd[i] = fma(xd[2 * c], w2.x, sd[i]);
+                  sd[i] = fma(xd[2 * c + 1], w2.y, sd[i]);
+                }
+#pragma unroll
+            for (int i = 0; i < MOE_CVT; ++i) {
+              if (i < n) {
+                sd[i] += __shfl_xor_sync(0xffffffffu, sd[i], 1);
+                sd[i] += __shfl_xor_sync(0xffffffffu, sd[i], 2);
+                if (dpart == 0) Rd[(e0 + i) * MOE_ROWS + dr] += sd[i];
+              }
+            }
+          }
+          if (k + 1 < nk) load_w(k + 1, 0, min(MOE_CVT, NR), wpre);
+        };
+        if (p == 0) dots();
+        // bf16(x) of this thread's rows as wgmma A fragments, one per k16
+        // step of the chunk
+        unsigned af[4][4];
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int r = r0 + (e & 1) * 8, c = kk * 16 + t2 + (e >> 1) * 8;
+            const float2 v = *reinterpret_cast<const float2*>(
+                st + (c >> 5) * XB + sw128(r, c & 31, 4));
+            af[kk][e] = pack_bf16x2(v.x, v.y);
+          }
+        // per k16 step, both pieces' products into zeroed partials, then
+        // each added to its sum once they are done
+        float pd[2][32];
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          fence_regs(pd[0]);
+          fence_regs(pd[1]);
+          wgmma_fence();
+#pragma unroll
+          for (int q = 0; q < 2; ++q)
+            wgmma_rs<64, false>(
+                pd[q], af[kk],
+                desc_sw128(wd + wd_row[q] * 64 * 128 + kk * 32), 0);
+          wgmma_commit();
+          wgmma_wait<0>();
+          fence_regs(pd[0]);
+          fence_regs(pd[1]);
+          add_rn(acc[0], pd[0]);
+          add_rn(acc[1], pd[1]);
+        }
+        release();
       }
-    }
-  }
-  __syncthreads();
 
-  // --- up GEMM per 64 output columns: (H . Wu^T + gates . Bu) * scale ------
-  const float s = ascale[0];
-  const int wn0 = half * 32;
-  float* Bs = Rw;                     // Bu[0:E][n0:n0+64]
-  for (int n0 = 0; n0 < C; n0 += MOE_CHUNK) {
-    for (int i = tid; i < MOE_CHUNK * (W / 8); i += MOE_THREADS) {
-      const int n = i / (W / 8), c = (i % (W / 8)) * 8;
-      cp_async16(Ws + n * ldh + c, wu + (size_t)(n0 + n) * W + c, 16);
-    }
-    for (int i = tid; i < E * (MOE_CHUNK / 4); i += MOE_THREADS) {
-      const int e = i / (MOE_CHUNK / 4), c = (i % (MOE_CHUNK / 4)) * 4;
-      cp_async16(Bs + e * MOE_CHUNK + c, bu + (size_t)e * C + n0 + c, 16);
-    }
-    cp_async_commit();
-    cp_async_wait<0>();
-    __syncthreads();
-    float u[4][4];
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) u[j][e] = 0.f;
-    for (int kk = 0; kk < W; kk += 16) {
-      unsigned af[4];
-      ldmatrix_x4(af, Hs + (wm0 + a_row) * ldh + kk + a_k);
-#pragma unroll
-      for (int j = 0; j < 4; j += 2) {
-        unsigned r4[4];
-        ldmatrix_x4(r4, Ws + (wn0 + j * 8 + b_row) * ldh + kk + b_k);
-        mma_bf16_16816_rn(u[j], af, r4[0], r4[1]);
-        mma_bf16_16816_rn(u[j + 1], af, r4[2], r4[3]);
+      if (p == 0) {
+        // expert softmax per row (max-subtracted, IEEE exp and division)
+        // by the lane that summed the row's dots; the fp32 steps kept in
+        // the row's float64 slots, the gates left there
+        if (dpart == 0) {
+          if (wsel != nullptr && m0 + dr < M)
+            logits[m0 + dr] =
+                __fadd_rn((float)Rd[E * MOE_ROWS + dr], bsel[0]);
+          float mx = -INFINITY;
+          for (int e = 0; e < E; ++e) {
+            const float v = __fmul_rn((float)Rd[e * MOE_ROWS + dr], inv_tau);
+            Rd[e * MOE_ROWS + dr] = v;
+            mx = fmaxf(mx, v);
+          }
+          float sum = 0.f;
+          for (int e = 0; e < E; ++e) {
+            const float ex =
+                expf(__fadd_rn((float)Rd[e * MOE_ROWS + dr], -mx));
+            Rd[e * MOE_ROWS + dr] = ex;
+            sum = __fadd_rn(sum, ex);
+          }
+          for (int e = 0; e < E; ++e)
+            Rd[e * MOE_ROWS + dr] =
+                __fdiv_rn((float)Rd[e * MOE_ROWS + dr], sum);
+        }
+        consumer_sync();
       }
-    }
+
+      // bottleneck: bf16(relu(down + bd) * gate) -> H
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int c = n0 + wn0 + j * 8 + t2;
-      // gates . Bu: E products summed in float64, rounded once
-      double ub[2][2] = {{0.0, 0.0}, {0.0, 0.0}};
-      for (int e = 0; e < E; ++e) {
-        const float2 bb = load2(Bs + e * MOE_CHUNK + c - n0);
+      for (int q = 0; q < 2; ++q) {
+        const int P = 4 * p + 2 * cg + q;
+        if (P >= npiece) continue;
 #pragma unroll
-        for (int hh = 0; hh < 2; ++hh) {
-          const double ge = G[e * MOE_ROWS + wm0 + g + hh * 8];
-          ub[hh][0] = fma(ge, (double)bb.x, ub[hh][0]);
-          ub[hh][1] = fma(ge, (double)bb.y, ub[hh][1]);
+        for (int j = 0; j < 8; ++j) {
+          const int c = P * 64 + j * 8 + t2;
+          if (c >= W) continue;
+          const float b0 = bd[c], b1 = bd[c + 1];
+          const int e0 = c / b, e1 = (c + 1) / b;
+#pragma unroll
+          for (int hh = 0; hh < 2; ++hh) {
+            const int r = r0 + hh * 8;
+            const float h0 = fmaxf(__fadd_rn(acc[q][4 * j + 2 * hh], b0), 0.f);
+            const float h1 =
+                fmaxf(__fadd_rn(acc[q][4 * j + 2 * hh + 1], b1), 0.f);
+            store2(reinterpret_cast<bf16*>(Hs + P * MOE_ROWS * 128 +
+                                           sw128(r, c & 63, 2)),
+                   __fmul_rn(h0, (float)Rd[e0 * MOE_ROWS + r]),
+                   __fmul_rn(h1, (float)Rd[e1 * MOE_ROWS + r]));
+          }
         }
       }
-#pragma unroll
-      for (int hh = 0; hh < 2; ++hh) {
-        const int gm = m0 + wm0 + g + hh * 8;
-        if (gm >= M) continue;
-        store2(adapt + (size_t)gm * C + c,
-               __fmul_rn(__fadd_rn(u[j][2 * hh], (float)ub[hh][0]), s),
-               __fmul_rn(__fadd_rn(u[j][2 * hh + 1], (float)ub[hh][1]), s));
-      }
     }
-    __syncthreads();        // before the next Wu chunk overwrites Ws
+    fence_proxy_async();          // H visible to the tensor cores
+    consumer_sync();
+
+    // --- up product per 64 output columns: (H . Wu^T + gates . Bu) * scale
+    const int nks = W / 16;       // k16 steps over W
+    for (int n = 0; n < nk; ++n) {
+      float u[16];
+#pragma unroll
+      for (int e = 0; e < 16; ++e) u[e] = 0.f;
+      load_b(n, 0, min(MOE_CVT, E), bpre);     // under the products
+      for (int it = 0; it < L.npass; ++it) {
+        const unsigned char* wu = wait_full();
+        const int ks0 = it * 16, cnt = min(16, nks - ks0);
+        // four k16 steps at a time: H's steps ks0 + s against the item's
+        // Wu rows of this warpgroup's 32 columns, into zeroed partials,
+        // added in order once all four are done (a step past W reads the
+        // H tile's unwritten columns against zero rows of Wu, and is not
+        // added)
+        float pu[4][16];
+        for (int s0 = 0; s0 < cnt; s0 += 4) {
+#pragma unroll
+          for (int i = 0; i < 4; ++i) fence_regs(pu[i]);
+          wgmma_fence();
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const int s = s0 + i, ks = ks0 + s;
+            wgmma_ss<32>(
+                pu[i],
+                desc_sw128(Hs + (ks >> 2) * MOE_ROWS * 128 + (ks & 3) * 32),
+                desc_sw128(wu + (s >> 2) * 64 * 128 + cg * 32 * 128 +
+                           (s & 3) * 32),
+                0);
+          }
+          wgmma_commit();
+          wgmma_wait<0>();
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            fence_regs(pu[i]);
+            if (s0 + i < cnt) add_rn(u, pu[i]);
+          }
+        }
+        release();
+      }
+      // gates . Bu: E products summed in float64 (Bu rows converted once a
+      // block, the gates kept in float64), rounded once
+      double ub[4][2][2];
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) ub[j][hh][0] = ub[j][hh][1] = 0.0;
+      for (int e0 = 0; e0 < E; e0 += MOE_CVT) {
+        const int ne = min(MOE_CVT, E - e0);
+        if (e0 > 0) load_b(n, e0, ne, bpre);
+        const double* bw = store_cv(bpre, ne);
+        for (int i = 0; i < ne; ++i) {
+          const double g0 = Rd[(e0 + i) * MOE_ROWS + r0];
+          const double g1 = Rd[(e0 + i) * MOE_ROWS + r0 + 8];
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            const double2 bb = *reinterpret_cast<const double2*>(
+                bw + i * MOE_CV_ROW + cv_col(cg * 32 + j * 8 + t2));
+            ub[j][0][0] = fma(g0, bb.x, ub[j][0][0]);
+            ub[j][0][1] = fma(g0, bb.y, ub[j][0][1]);
+            ub[j][1][0] = fma(g1, bb.x, ub[j][1][0]);
+            ub[j][1][1] = fma(g1, bb.y, ub[j][1][1]);
+          }
+        }
+      }
+      // (u + gates . Bu) * scale, out through the warp's staging rows as
+      // whole 16-byte pieces of rows
+      float v[4][2][2];
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh)
+#pragma unroll
+          for (int q = 0; q < 2; ++q)
+            v[j][hh][q] = __fmul_rn(
+                __fadd_rn(u[4 * j + 2 * hh + q], (float)ub[j][hh][q]), s_ad);
+      gemm_store_chunk<TO>(v, adapt, OS + (ctid >> 5) * GEMM_OUT_STAGE,
+                           m0 + warp * 16, n * MOE_CHUNK + cg * 32, M, C,
+                           lane);
+    }
+    consumer_sync();              // H, Rd and CV free for the next tile
   }
 }
 
-template <int NP, typename TO>
-static cudaError_t launch_moe(const float* xm, int M, int C, const float* wr,
-                              const bf16* wd, const float* bd, const bf16* wu,
-                              const float* bu, const float* ascale,
-                              const float* wsel, const float* bsel, TO* adapt,
-                              float* logits, int E, int b, float inv_tau,
-                              cudaStream_t st) {
-  const int bytes = (int)MoeLayout(E, E * b).bytes;
-  cudaError_t err = cudaFuncSetAttribute(
-      moe_adapter_router_kernel<NP, TO>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (err != cudaSuccess) return err;
-  moe_adapter_router_kernel<NP, TO>
-      <<<(M + MOE_ROWS - 1) / MOE_ROWS, MOE_THREADS, bytes, st>>>(
-          xm, M, C, wr, wd, bd, wu, bu, ascale, wsel, bsel, adapt, logits, E,
-          b, inv_tau);
-  return cudaGetLastError();
+// the most ring stages (2 to 4) whose layout fits a block; 0 if none does
+inline int moe_stages(int E, int W) {
+  for (int s = MOE_MAX_STAGES; s >= 2; --s)
+    if (MoeLayout(E, W, s).bytes <= MOE_SMEM_LIMIT) return s;
+  return 0;
 }
 
 template <typename TO>
@@ -331,18 +531,49 @@ static cudaError_t moe(const float* xm, int M, int C, const float* wr,
                        const float* bu, const float* ascale, const float* wsel,
                        const float* bsel, TO* adapt, float* logits, int E,
                        int b, float inv_tau, cudaStream_t st) {
-  const int W = E * b;
-  if (W <= 64)
-    return launch_moe<2, TO>(xm, M, C, wr, wd, bd, wu, bu, ascale, wsel, bsel,
-                             adapt, logits, E, b, inv_tau, st);
-  if (W <= 128)
-    return launch_moe<4, TO>(xm, M, C, wr, wd, bd, wu, bu, ascale, wsel, bsel,
-                             adapt, logits, E, b, inv_tau, st);
-  if (W <= 256)
-    return launch_moe<8, TO>(xm, M, C, wr, wd, bd, wu, bu, ascale, wsel, bsel,
-                             adapt, logits, E, b, inv_tau, st);
-  return launch_moe<16, TO>(xm, M, C, wr, wd, bd, wu, bu, ascale, wsel, bsel,
-                            adapt, logits, E, b, inv_tau, st);
+  const int W = E * b, stages = moe_stages(E, W);
+  if (stages == 0) return cudaErrorInvalidValue;
+  if (M <= 0) return cudaSuccess;
+  const MoeLayout L(E, W, stages);
+  // x_mid read in [32 columns, 64 rows] fp32 boxes, Wd in [64, wbox] and Wu
+  // in [64, 64] bf16 boxes, all 128-byte swizzled; zeros past each edge
+  CUtensorMap map_x, map_wd, map_wu;
+  const cuuint64_t xdims[2] = {static_cast<cuuint64_t>(C),
+                               static_cast<cuuint64_t>(M)};
+  const cuuint64_t xstride[1] = {static_cast<cuuint64_t>(C) * 4};
+  const cuuint32_t xbox[2] = {32, MOE_ROWS};
+  cudaError_t err = tensor_map(&map_x, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, xm, 2,
+                               xdims, xstride, xbox);
+  if (err != cudaSuccess) return err;
+  const cuuint64_t ddims[2] = {static_cast<cuuint64_t>(C),
+                               static_cast<cuuint64_t>(W)};
+  const cuuint64_t dstride[1] = {static_cast<cuuint64_t>(C) * 2};
+  const cuuint32_t dbox[2] = {64, static_cast<cuuint32_t>(L.wbox)};
+  err = tensor_map(&map_wd, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, wd, 2, ddims,
+                   dstride, dbox);
+  if (err != cudaSuccess) return err;
+  const cuuint64_t udims[2] = {static_cast<cuuint64_t>(W),
+                               static_cast<cuuint64_t>(C)};
+  const cuuint64_t ustride[1] = {static_cast<cuuint64_t>(W) * 2};
+  const cuuint32_t ubox[2] = {64, 64};
+  err = tensor_map(&map_wu, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, wu, 2, udims,
+                   ustride, ubox);
+  if (err != cudaSuccess) return err;
+  int dev = 0, sms = 0;
+  err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(moe_adapter_router_kernel<TO>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             L.bytes);
+  if (err != cudaSuccess) return err;
+  const int tiles = (M + MOE_ROWS - 1) / MOE_ROWS;
+  moe_adapter_router_kernel<TO>
+      <<<tiles < sms ? tiles : sms, MOE_THREADS, L.bytes, st>>>(
+          map_x, map_wd, map_wu, M, C, wr, bd, bu, ascale, wsel, bsel, adapt,
+          logits, E, b, inv_tau, stages);
+  return cudaGetLastError();
 }
 
 }  // namespace dyt
@@ -356,17 +587,18 @@ int dyt_moe_width_supported(int E, int b) {
   return E >= 2 && b >= 1 && W % 16 == 0 && W <= dyt::MOE_MAX_W;
 }
 
-// Dynamic shared memory of one block (the wrapper checks it against the
-// card's 227 KB).
+// Dynamic shared memory of one block with the fewest stages (the wrapper
+// checks it against the card's 227 KB).
 int dyt_moe_smem_bytes(int E, int b) {
-  return (int)dyt::MoeLayout(E, E * b).bytes;
+  return dyt::MoeLayout(E, E * b, 2).bytes;
 }
 
 // xm: fp32 [M, C] x_mid (C % 64 == 0); wr [E, C] fp32; wd [E*b, C] and
 // wu [C, E*b] bf16; bd [E*b], bu [E, C], ascale [1] fp32; wsel [C] and
 // bsel [1] fp32, or wsel == NULL to skip the router head; adapt [M, C] in the
 // residual dtype (adapt_f32 selects fp32 over bf16); logits fp32 [M];
-// inv_tau the fp32 value of 1/tau.  Returns a cudaError_t value.
+// inv_tau the fp32 value of 1/tau.  xm, wd, wu, wr, wsel and bu on 16 bytes.
+// Returns a cudaError_t value.
 int dyt_moe_adapter_router(const float* xm, int M, int C, const float* wr,
                            const void* wd, const float* bd, const void* wu,
                            const float* bu, const float* ascale,

@@ -1,7 +1,8 @@
 // Hopper (sm_90a) building blocks shared by the kernels that run on wgmma,
 // TMA and mbarriers: the bf16 / int8 GEMM of gemm.cuh, the serving
 // attention core (attention_sublayer.cu), the max-subtracted softmax kernel
-// (softmax_attention.cu) and the windowed attention (windowed_attention.cu).
+// (softmax_attention.cu), the windowed attention (windowed_attention.cu) and
+// the MoE tail (moe_adapter.cu).
 //
 // * 128-byte swizzled tiles.  A K-major operand lies in rows of 128 B (64
 //   bf16 or 128 int8 elements), 16-byte chunk c of row r stored at chunk
@@ -59,6 +60,17 @@ template <int N> __device__ __forceinline__ void wgmma_wait() {
   asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
 }
 
+// Pins the registers of ``r`` to this point of the program: the compiler
+// moves no other access to them across it.  After a wgmma_wait, so that
+// the reads of a finished product's registers stay after the wait (else
+// ptxas serializes the wgmma pipeline to protect them), and before the
+// wgmma that writes them again.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
 // descriptor of a K-major bf16 operand in the 128-byte swizzle: rows of
 // 128 B (64 elements), 8-row groups 1024 B apart (the leading offset is
 // unused); ``p`` lies in a 1024-byte aligned atom
@@ -93,6 +105,21 @@ template <int N, bool TB>
 __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2],
                                          const unsigned (&a)[4], uint64_t db,
                                          int acc);
+
+template <>
+__device__ __forceinline__ void wgmma_ss<32>(float (&d)[16], uint64_t da,
+                                            uint64_t db, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+      "}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15])
+      : "l"(da), "l"(db), "r"(acc));
+}
 
 template <>
 __device__ __forceinline__ void wgmma_ss<128>(float (&d)[64], uint64_t da,
@@ -537,6 +564,18 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
       "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
       "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// the same for a 4-D tensor map (c0 innermost, c1, c2, c3)
+__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1,
+                                            int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
+      "r"(c1), "r"(c2), "r"(c3)
       : "memory");
 }
 

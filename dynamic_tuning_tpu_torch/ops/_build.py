@@ -36,7 +36,6 @@ _SIGNATURES = {
                                _P, _I, _I, _I, _I, _F, _P],
     "dyt_adapter_router": [_P, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P,
                            _I, _P],
-    "dyt_attn_core_smem_bytes": [_I, _I],
     "dyt_adapter_width_supported": [_I],
     "dyt_attention_sublayer_q8": [_P, _I] + [_P] * 15 + [_I, _I, _I, _I, _F,
                                                          _I, _P],

@@ -260,14 +260,8 @@ def _check_sublayer(x, gamma, beta, wqkv, bqkv, wproj, bproj, heads):
     _require(wproj, "wproj", (C, C), bf, dev)
     if C % heads:
         raise ValueError(f"C={C} is not a multiple of heads={heads}")
-    hd = C // heads
-    lib = _build.library()
-    smem = lib.dyt_attn_core_smem_bytes(N, hd)
-    if smem == 0:
-        raise ValueError(f"head_dim {hd} not supported (64 or 128)")
-    if smem > SMEM_PER_BLOCK:
-        raise _core_too_long(lib, N, hd, smem)
-    return lib
+    check_core_head_dim(C // heads)
+    return _build.library()
 
 
 def _launch_sublayer(lib, x, gamma, beta, wqkv, bqkv, wproj, bproj, heads,
@@ -433,6 +427,11 @@ def check_moe_adapter_router(lib, x, wrouter, wdown2d, bdown2d, wup2d, bup,
         _require(bsel, "bsel", (1,), f32, dev)
     if C % 64:
         raise ValueError(f"C={C} must be a multiple of 64")
+    for name, t in (("wrouter", wrouter), ("wdown2d", wdown2d),
+                    ("wup2d", wup2d), ("bup", bup),
+                    ("wsel", wsel if with_select else None)):
+        if t is not None and t.data_ptr() % 16:
+            raise ValueError(f"{name} must start on 16 bytes")
     smem = lib.dyt_moe_smem_bytes(E, W // E)
     if smem > SMEM_PER_BLOCK:
         raise ValueError(f"MoE kernel at {E} experts x {W // E} needs {smem} "
@@ -577,27 +576,19 @@ def _check_core_operand(t: torch.Tensor, name: str, device) -> None:
                          "stride along hd and rows on 16 bytes")
 
 
-def _core_too_long(lib, N: int, hd: int, smem: int) -> ValueError:
-    """The refusal of an N whose keys and values do not fit the attention
-    core's shared memory, naming the longest N below it that does (asked of
-    the kernel's own layout, ``dyt_attn_core_smem_bytes``)."""
-    longest = next((n for n in range(N - 1, 0, -1)
-                    if lib.dyt_attn_core_smem_bytes(n, hd) <= SMEM_PER_BLOCK),
-                   0)
-    return ValueError(f"N={N}, head_dim={hd} needs {smem} B of shared memory "
-                      f"per block (limit {SMEM_PER_BLOCK}: N <= {longest} at "
-                      f"head_dim {hd})")
+def check_core_head_dim(hd: int) -> None:
+    """Raise unless the bf16 attention core takes head_dim ``hd``.  It takes
+    any N: past the N whose keys and values fit a block's shared memory
+    it walks them through a ring of tiles."""
+    if hd not in (64, 128):
+        raise ValueError(f"head_dim {hd} not supported (64 or 128)")
 
 
 def _launch_core(q, k, v, out, *, k15: bool) -> None:
     """The strided core kernel on q, k, v [B, H, N, hd] into ``out``."""
     B, H, N, hd = q.shape
-    if hd not in (64, 128):
-        raise ValueError(f"head_dim {hd} not supported (64 or 128)")
+    check_core_head_dim(hd)
     lib = _build.library()
-    smem = lib.dyt_attn_core_smem_bytes(N, hd)
-    if smem > SMEM_PER_BLOCK:
-        raise _core_too_long(lib, N, hd, smem)
     with torch.cuda.device(q.device):
         err = lib.dyt_mha_core(
             _ptr(q), _ptr(k), _ptr(v), _ptr(out),

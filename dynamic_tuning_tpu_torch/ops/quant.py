@@ -426,10 +426,7 @@ def _check_sublayer_q8(x, gamma, beta, wqkv_q, sqkv, bqkv, wproj_q, sproj,
     if attn_q8:
         _check_core_q8(lib, N, C, heads)
     else:
-        smem = lib.dyt_attn_core_smem_bytes(N, C // heads)
-        if smem == 0 or smem > ms.SMEM_PER_BLOCK:
-            raise ValueError(f"attention core: N={N}, head_dim {C // heads}"
-                             " not supported")
+        ms.check_core_head_dim(C // heads)
     return lib
 
 

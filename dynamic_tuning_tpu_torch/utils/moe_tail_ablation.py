@@ -4,12 +4,14 @@
 
 ``csrc/moe_adapter.cu`` is copied once per variant into
 ``build/moe_tail_ablation/<variant>/`` (with the rest of the package), one
-phase is cut out of the copy's source, the copies are built in parallel and
-each is timed in its own process at ViT-B/16 serving shapes (128 x 197 rows,
-C 768, 4 experts of 64, with the router head), with CUDA events over 20
-launches, best of 3.  A variant's output is wrong by construction: the
-times only say how much of the kernel's time each phase holds on its own.
-Needs a CUDA device.
+phase is cut out of the copy's source (the router dots, the down product's
+wgmma, the round-to-nearest adds of both products' partials, the H tile
+build, the up product's wgmma, its epilogue), the copies are built in
+parallel and each is timed in its own process at ViT-B/16 serving shapes
+(128 x 197 rows, C 768, 4 experts of 64, with the router head), with CUDA
+events over 20 launches, best of 3.  A variant's output is wrong by
+construction: the times only say how much of the kernel's time each phase
+holds on its own.  Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -23,19 +25,22 @@ from dynamic_tuning_tpu_torch.utils.ablation import (PKG, build_all,
 
 OUT = PKG.parent / "build" / "moe_tail_ablation"
 CU = Path("csrc") / "moe_adapter.cu"
-ROUTER = "for (int e = 0; e < NR; ++e) {\n        const float* w"
-# variant -> (text in the kernel source, its replacement)
+# variant -> (text in the kernel source, its replacement), one per phase
 VARIANTS = {
     "full": [],
-    "no router dots": [(ROUTER, ROUTER.replace("e < NR", "e < 0"))],
-    "no down products": [("for (int kk = 0; kk < MOE_CHUNK; kk += 16) {",
-                          "for (int kk = 0; kk < 0; kk += 16) {")],
-    "no up products": [("for (int kk = 0; kk < W; kk += 16) {",
-                        "for (int kk = 0; kk < 0; kk += 16) {")],
-    "no Wd staging": [("i < W * (MOE_CHUNK / 8); i += MOE_THREADS) {",
-                       "i < 0; i += MOE_THREADS) {")],
-    "no Wu staging": [("i < MOE_CHUNK * (W / 8); i += MOE_THREADS) {",
-                       "i < 0; i += MOE_THREADS) {")],
+    "no router dots": [("        if (p == 0) dots();\n", "")],
+    "no down wgmma": [("          for (int q = 0; q < 2; ++q)\n"
+                       "            wgmma_rs<64, false>(",
+                       "          for (int q = 0; q < 0; ++q)\n"
+                       "            wgmma_rs<64, false>(")],
+    "no rn adds": [("acc[e] = __fadd_rn(acc[e], p[e]);", "acc[e] = p[e];")],
+    "no H build": [("if (P >= npiece) continue;", "continue;")],
+    "no up wgmma": [("          for (int i = 0; i < 4; ++i) {\n"
+                     "            const int s = s0 + i, ks = ks0 + s;",
+                     "          for (int i = 0; i < 0; ++i) {\n"
+                     "            const int s = s0 + i, ks = ks0 + s;")],
+    "no epilogue": [("      gemm_store_chunk<TO>(v, adapt,",
+                     "      if (false) gemm_store_chunk<TO>(v, adapt,")],
 }
 
 

@@ -15,6 +15,9 @@ output's largest magnitude (2 * 2**-8 relative), fp32 router logits to
 logit lies within that tolerance of 0.
 """
 
+import contextlib
+from unittest import mock
+
 import pytest
 import torch
 
@@ -388,6 +391,40 @@ def test_moe_wrappers_raise_on_unsupported_width(E, b):
                                        heads=2, tau=1.0)
 
 
+# the MoE tail alone at every form it takes: 2, 4 and 8 experts, W = E*b
+# from 32 to 512 (128-row tiles up to 256, 64-row tiles in two passes
+# past it), ragged rows, C of one chunk and of ViT-B
+MOE_TAIL_WIDTHS = [(2, 16), (4, 8), (2, 48), (4, 16), (8, 16), (4, 64),
+                   (8, 32), (4, 80), (2, 256), (8, 64), (4, 128)]
+
+
+@pytest.mark.parametrize("C", [64, 768])
+@pytest.mark.parametrize("M", [1, 63, 129])
+@pytest.mark.parametrize("E,b", MOE_TAIL_WIDTHS)
+def test_moe_tail_kernel(E, b, M, C):
+    from dynamic_tuning_tpu_torch.ops import _build
+
+    g = torch.Generator(device="cuda").manual_seed(23)
+    xm = torch.randn((1, M, C), generator=g, device="cuda")
+    x_mid = xm.to(BF)
+    moe = moe_inputs(C, E, b, seed=24)
+    sel = (torch.randn((1, C), generator=g, device="cuda") * 25 / C ** 0.5,
+           torch.randn((1,), generator=g, device="cuda") * 0.1)
+    lib = _build.library()
+    for with_select in (True, False):
+        ms.check_moe_adapter_router(lib, x_mid, *moe, *sel, with_select)
+        got = ms.launch_moe_adapter_router(lib, x_mid, xm, *moe, *sel, 0.7,
+                                           with_select)
+        torch.cuda.synchronize()
+        want = ms.moe_adapter_router_plain(xm, BF, *moe, *sel, experts=E,
+                                           bneck=b, tau=0.7,
+                                           with_select=with_select)
+        assert got[1].shape == (1, M, C) and got[1].dtype == BF
+        bf16_close(got[1], want[1], f"adapt E={E} b={b}")
+        if with_select:
+            logits_close(got[2], want[2])
+
+
 def test_wrappers_raise_on_unsupported_input():
     x, sub, ad = make_inputs(2, 19, 128, 16)
     with pytest.raises(TypeError):                  # fp32 weights
@@ -612,6 +649,91 @@ def test_fast_forward_launches_only_k11():
         assert ms.mha_serving.launches == 4
 
 
+@contextlib.contextmanager
+def plain_versions():
+    """The wrappers of the fast forward and of the Block swapped for their
+    plain versions (on CUDA tensors)."""
+    from dynamic_tuning_tpu_torch.ops import fused_mlp as fm
+
+    with contextlib.ExitStack() as stack:
+        for mod, name, fn in (
+                (fm, "fused_ln_mlp", fm.ln_mlp_plain),
+                (ms, "mha_serving", ms.mha_serving_plain),
+                (ms, "dyt_prologue_serving", ms.dyt_prologue_plain),
+                (qt, "dyt_prologue_serving_q8", qt.dyt_prologue_q8_plain),
+                (qt, "q8_ln_mlp", qt.q8_ln_mlp_plain)):
+            stack.enter_context(mock.patch.object(mod, name, fn))
+        yield
+
+
+@pytest.mark.parametrize("mode", ["dispatch", "dense"])
+def test_fast_forward_at_480_matches_plain_versions(mode):
+    """The speed-test forward at 480^2 (901 tokens, K15 on the ring):
+    logits within 5% of the largest and gates identical (router heads
+    scaled so no logit sits near 0) against the same forward on the plain
+    versions."""
+    from dynamic_tuning_tpu_torch.config import (ModelConfig, SelectConfig,
+                                                 TuningConfig)
+    from dynamic_tuning_tpu_torch.models import fast_inference as fast
+    from dynamic_tuning_tpu_torch.models.vit import VisionTransformer
+
+    mc = ModelConfig(img_size=480, patch_size=16, embed_dim=128, depth=2,
+                     num_heads=2, num_classes=10, gelu_approx=True)
+    tuning, sel = TuningConfig(ffn_num=16), SelectConfig()
+    torch.manual_seed(25)
+    model = VisionTransformer(mc, tuning=tuning, select=sel, device="cuda")
+    params = fast.serving_params(model)
+    for blk in params["blocks"]:
+        w, b = blk["router"]
+        blk["router"] = (w * 50, b * 50)
+    x = torch.randn((4, 480, 480, 3), device="cuda")
+    kw = dict(cfg=mc, tuning=tuning, select=sel, mode=mode, use_kernel=True)
+    ms.reset_launch_counts()
+    logits, gates = fast.fast_vit_forward(params, x, **kw)
+    torch.cuda.synchronize()
+    assert ms.mha_serving.launches == 2
+    with plain_versions():
+        ref, ref_gates = fast.fast_vit_forward(params, x, **kw)
+    err = (logits - ref).abs().max().item()
+    assert err <= 0.05 * ref.abs().max().item()
+    if mode == "dense":
+        assert gates is None and ref_gates is None
+    else:
+        assert torch.equal(gates, ref_gates)
+
+
+@pytest.mark.parametrize("quant", ["none", "int8"])
+def test_head_dim_128_block_at_442_tokens(quant):
+    """A fusable DyT Block with 2 heads of 128 at N = 442 in dispatch: its
+    prologue (K3 or K6, the core on the ring) against the Block on the
+    plain versions, outputs within two bf16 ulps and gates identical."""
+    from dynamic_tuning_tpu_torch.config import SelectConfig, TuningConfig
+    from dynamic_tuning_tpu_torch.models import layers
+
+    torch.manual_seed(26)
+    blk = layers.Block(256, 2, torch.Generator().manual_seed(26),
+                       quant=quant,
+                       tuning=TuningConfig(ffn_num=16, d_model=256),
+                       select_cfg=SelectConfig(token_target_ratio=0.5),
+                       dtype=BF).to("cuda")
+    with torch.no_grad():
+        blk.mlp_token_select.mlp_head.weight.mul_(50)
+    x = torch.randn((3, 442, 256), device="cuda").to(BF)
+    ms.reset_launch_counts()
+    qt.reset_launch_counts()
+    with torch.inference_mode():
+        got = blk(x, False, True)
+        torch.cuda.synchronize()
+        launched = (qt.dyt_prologue_serving_q8 if quant == "int8"
+                    else ms.dyt_prologue_serving).launches
+        assert launched == 1
+        with plain_versions():
+            want = blk(x, False, True)
+    bf16_close(got[0], want[0], "block out")
+    assert torch.equal(got[1], want[1])
+    logits_close(got[2], want[2])
+
+
 # --- the attention cores K1 and K15, the softmax kernel of K13 and K14 -------
 #
 # Tolerance as for the attention core: kernel and plain version round at
@@ -635,17 +757,43 @@ CORE_SHAPES = [(128, 197, 12, 64),       # ViT-B/16 serving
                (2, 209, 2, 128),         # ... past 13 chunks, head_dim 128
                (8, 257, 12, 64),         # the LayerScale backbone at 256^2
                (1, 800, 2, 64),          # the longest N of the mma.sync core
-               (1, 416, 2, 128),         # ... at head_dim 128 (and this one)
-               (1, 864, 2, 64)]          # the longest N the core takes
+               (1, 416, 2, 128),         # the longest staged N at hd 128
+               (1, 864, 2, 64),          # ... and at hd 64
+               # past them, the ring of key/value tiles:
+               (1, 865, 2, 64),          # one key past the staged core
+               (2, 901, 12, 64),         # 480^2 in 16^2 patches
+               (1, 1025, 2, 64),         # 512^2
+               (1, 2305, 2, 64),         # 768^2
+               (1, 417, 2, 128),         # one key past, head_dim 128
+               (2, 442, 6, 128),         # 336^2, 6 heads of 128
+               (1, 512, 2, 128),         # the longest N the Block fuses
+               (1, 1025, 2, 128)]
 
 
-@pytest.mark.parametrize("N,hd,longest", [(865, 64, 864), (417, 128, 416)])
-def test_core_refuses_n_past_its_shared_memory(N, hd, longest):
-    """One key past the longest N the core holds is refused, and the
-    refusal names that N, asked of the kernel's own layout."""
-    qkv = core_qkv(1, N, 2, hd)
-    with pytest.raises(ValueError, match=f"N <= {longest} at head_dim {hd}"):
-        ms.mha_serving_fused(qkv, heads=2)
+@pytest.mark.parametrize("N,hd", [(865, 64), (417, 128)])
+def test_core_serves_n_past_its_shared_memory(N, hd):
+    """One key past the longest N whose keys and values fit the staged
+    core's shared memory, the sublayer chains that run the core serve too
+    (the core walks the keys through its ring): K2, K5 and K7 against
+    their plain versions."""
+    C, H = 2 * hd, 2
+    x, sub, ad = make_inputs(2, N, C, 16, seed=21)
+    got = ms.attention_sublayer_serving(x, *sub, heads=H)
+    torch.cuda.synchronize()
+    bf16_close(got, ms.attention_sublayer_plain(x, *sub, heads=H), "K2")
+    got = qt.attention_sublayer_serving_q8(x, *q8_sub(sub), heads=H)
+    torch.cuda.synchronize()
+    bf16_close(got, qt.attention_sublayer_q8_plain(x, *q8_sub(sub), heads=H),
+               "K5")
+    moe = moe_inputs(C, 4, 16, seed=22)
+    got = ms.dyt_prologue_serving_moe(x, *sub, *moe, *ad[5:], heads=H,
+                                      tau=1.0)
+    torch.cuda.synchronize()
+    want = ms.dyt_prologue_moe_plain(x, *sub, *moe, *ad[5:], heads=H,
+                                     tau=1.0)
+    bf16_close(got[0], want[0], "K7 x_mid")
+    bf16_close(got[1], want[1], "K7 adapt")
+    logits_close(got[2], want[2])
 
 
 @pytest.mark.parametrize("B,N,H,hd", CORE_SHAPES)
@@ -782,7 +930,7 @@ def test_attention_wrappers_raise_on_unsupported_input():
         ms.mha_serving_fused(core_qkv(17, 2, 2).transpose(0, 1), heads=2)
     with pytest.raises(ValueError, match="head_dim"):
         ms.mha_serving_fused(core_qkv(1, 17, 2, hd=192), heads=2, group=2)
-    # K15: dtype, shapes, alignment, shared memory
+    # K15: dtype, shapes, alignment
     with pytest.raises(TypeError):
         ms.mha_serving(q.float(), k, v)
     with pytest.raises(ValueError, match="shape"):
@@ -791,9 +939,9 @@ def test_attention_wrappers_raise_on_unsupported_input():
         wide = core_qkv(1, 17, 1, hd=72).view(1, 17, 3, 1, 72)
         ms.mha_serving(*(t[..., 1:65] for t in
                          wide.permute(2, 0, 3, 1, 4)))
-    with pytest.raises(ValueError, match="shared memory"):
-        big = core_qkv(1, 2048, 1).view(1, 2048, 3, 1, 64)
-        ms.mha_serving(*big.permute(2, 0, 3, 1, 4))
+    # ... and serves an N past the staged core's shared memory (the ring)
+    big = core_qkv(1, 2048, 1).view(1, 2048, 3, 1, 64).permute(2, 0, 3, 1, 4)
+    bf16_close(ms.mha_serving(*big), ms.mha_serving_plain(*big), "K15")
     # K13: the bias, mixed dtypes, head dim
     qc, kc, vc = (t.contiguous() for t in (q, k, v))
     with pytest.raises(TypeError):
