@@ -11,7 +11,11 @@ Phases; any failure exits non-zero:
      K2 attention_sublayer_serving, K3 dyt_prologue_serving (with and
      without the router), K4 q8_ln_mlp (dense and dispatch rows), K5
      attention_sublayer_serving_q8, K6 dyt_prologue_serving_q8 (with and
-     without the router), K10 attn_core_pairs_q8, K7
+     without the router), K10 attn_core_pairs_q8 (also at B=32, N=512, the
+     longest N the JAX package gives it, in 12 heads of 64 and 6 of 128;
+     all three also held to the contract check: 99% of outputs within one
+     bf16 ulp of the plain version's own value), the adapter/router kernel
+     of K3 and K6 alone on an fp32 x_mid, K7
      dyt_prologue_serving_moe (4 experts of 64; with and without the
      router), K8 dyt_prologue_serving_q8_moe (with and without the router,
      and with the K10 core); then the hand int8 GEMM at the int8 path's
@@ -232,6 +236,7 @@ LONG_N = (LONG_IMG // 16) ** 2 + 1
 H128_IMG, H128_HEADS = 336, 6
 H128_N = (H128_IMG // 16) ** 2 + 1
 LONG_SERVE = 34                 # predict.serve canvases at 480^2
+Q8_MAX_N = 512                  # the JAX Block routes int8_attn to K10 to here
 
 
 def fail(msg: str) -> None:
@@ -301,6 +306,19 @@ def check_logits(what, got, want) -> float:
     return lerr
 
 
+def check_ulp_share(what, got, want) -> None:
+    """99% of outputs within one bf16 ulp of the plain version's own value
+    (``ops/flash_attention.ulp_share``), which a kernel that rounds p or q
+    at another point fails."""
+    from dynamic_tuning_tpu_torch.ops import flash_attention as fa
+    share = fa.ulp_share(got, want)
+    if share < fa.ULP_SHARE:
+        fail(f"{what}: {share} of outputs within one bf16 ulp of the plain "
+             f"version's, under {fa.ULP_SHARE}")
+    print(f"  {what}: {share:.6f} of outputs within one bf16 ulp of the "
+          f"plain version's (needs {fa.ULP_SHARE})")
+
+
 def measure(name, call, plain, outputs, inputs, ops, timed=None,
             plain_iters=20) -> dict:
     """Check ``call()`` against ``plain()`` output by output and time both
@@ -327,7 +345,7 @@ def measure(name, call, plain, outputs, inputs, ops, timed=None,
                 bound_by=b_by, library_ms=None)
 
 
-def phase_kernels(torch, ms, qt) -> dict:
+def phase_kernels(torch, ms, qt, _build) -> dict:
     """Each wrapper against its plain version at the main path's shapes."""
     x, sub, ad, mlp, qkv, moe = kernel_inputs(torch, ms)
     qsub = (*sub[:2], *qt.quantize_weight(sub[2].float()), sub[3],
@@ -391,6 +409,38 @@ def phase_kernels(torch, ms, qt) -> dict:
         lambda: qt.attn_core_pairs_q8(qkv, heads=H),
         lambda: qt.attn_core_pairs_q8_plain(qkv, heads=H),
         ("core",), (qkv,), {"int8": attn_ops(), "bf16": attn_ops()})
+    check_ulp_share("K10 attn_core_pairs_q8",
+                    qt.attn_core_pairs_q8(qkv, heads=H),
+                    qt.attn_core_pairs_q8_plain(qkv, heads=H))
+    # K10 at the longest N the JAX package gives it (N <= 512), in heads of
+    # 64 and of 128
+    g = torch.Generator(device="cuda").manual_seed(9)
+    for heads in (H, H128_HEADS):
+        lq = torch.randn((LONG_B, Q8_MAX_N, 3 * C), generator=g,
+                         device="cuda")
+        lq[..., C:2 * C] += 1.0
+        lq = lq.to(torch.bfloat16)
+        tag = (f"K10 attn_core_pairs_q8(B={LONG_B}, N={Q8_MAX_N}, {heads} "
+               f"heads of {C // heads})")
+        ops = attn_ops(LONG_B, Q8_MAX_N)
+        measure(tag, lambda: qt.attn_core_pairs_q8(lq, heads=heads),
+                lambda: qt.attn_core_pairs_q8_plain(lq, heads=heads),
+                ("core",), (lq,), {"int8": ops, "bf16": ops}, plain_iters=2)
+        check_ulp_share(tag, qt.attn_core_pairs_q8(lq, heads=heads),
+                        qt.attn_core_pairs_q8_plain(lq, heads=heads))
+        del lq
+    # the adapter/router kernel alone (the tail of K3 and K6) on an fp32
+    # x_mid, beside the bound of its bytes: x_mid read, adapt written
+    lib = _build.library()
+    xm = torch.randn((B, N, C), generator=g, device="cuda")
+    x_mid = xm.to(torch.bfloat16)
+    measure("adapter/router kernel alone (K3/K6 tail)",
+            lambda: ms.launch_adapter_router(lib, x_mid, xm, *ad, True)[1:],
+            lambda: ms.adapter_router_plain(xm, torch.bfloat16, *ad,
+                                            with_select=True)[1:],
+            ("adapt", "logits"), (xm, *ad),
+            {"bf16": adapter, "fp32": 2 * M * C})
+    del xm, x_mid
     # K10 inside K5: the sublayer with the int8 core, for the PERF table
     measure("K5 attention_sublayer_serving_q8(attn_q8=True)",
             lambda: qt.attention_sublayer_serving_q8(x, *qsub, heads=H,
@@ -674,12 +724,7 @@ def phase_attention(torch, ms, qt, fm) -> dict:
         return t
 
     def contract(what, call, plain):
-        share = fa.ulp_share(call(), plain())
-        if share < fa.ULP_SHARE:
-            fail(f"{what}: {share} of outputs within one bf16 ulp of the "
-                 f"plain version's, under {fa.ULP_SHARE}")
-        print(f"  {what}: {share:.6f} of outputs within one bf16 ulp of "
-              f"the plain version's (needs {fa.ULP_SHARE})")
+        check_ulp_share(what, call(), plain())
 
     out = {}
     out["mha_serving_fused"] = measure(
@@ -1411,7 +1456,7 @@ def main() -> None:
         if "registers" in ln or "spill" in ln:
             print("  ptxas:", ln.strip(), file=sys.stderr)
 
-    measured = phase_kernels(torch, ms, qt)
+    measured = phase_kernels(torch, ms, qt, _build)
     phase_gemm_reference(torch, _build, pi)
     measured.update(phase_windowed(torch, ms, layers))
     measured.update(phase_k11(torch, fm, fast))

@@ -1,21 +1,18 @@
 // Shared helpers of the serving kernels: bf16 conversions, round-to-nearest
 // fp32 arithmetic (and a division by one rounded reciprocal), ex2, the fp32
-// GELUs, cp.async, warp reductions, the bf16 and int8 mma.sync primitives
-// (K10's int8 attention core and the long-sequence softmax walk run on
-// them), paired and 8-wide loads and stores, and the bf16
-// LayerNorm rows.  The bf16 / int8 GEMM lives in gemm.cuh and the wgmma /
+// GELUs, cp.async, warp reductions, the bf16 mma.sync primitives (the
+// long-sequence softmax walk runs on them), paired and 8-wide loads and
+// stores, and the bf16 LayerNorm rows.  The bf16 / int8 GEMM lives in gemm.cuh and the wgmma /
 // TMA building blocks in wgmma.cuh.
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 #include <stdint.h>
 
 namespace dyt {
 
 using bf16 = __nv_bfloat16;
-namespace wmma = nvcuda::wmma;
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(bf16 v) { return __bfloat162float(v); }
@@ -138,19 +135,6 @@ __device__ __forceinline__ void mma_bf16_16816(float (&c)[4],
       "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// c += a (16x32, row) * b (32x8, col) in int8 with int32 accumulators.  Its
-// fragments hold the same bytes per thread as the bf16 m16n8k16 ones, so
-// the bf16 ldmatrix addressing serves with k counted in bytes.
-__device__ __forceinline__ void mma_s8_16832(int (&c)[4],
-                                             const unsigned (&a)[4],
-                                             unsigned b0, unsigned b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 

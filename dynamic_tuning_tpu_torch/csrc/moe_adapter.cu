@@ -119,21 +119,10 @@ struct MoeLayout {
   }
 };
 
-__device__ __forceinline__ void consumer_sync() {
-  asm volatile("bar.sync 1, 256;\n" ::: "memory");
-}
-
 template <int N>
 __device__ __forceinline__ void add_rn(float (&acc)[N], const float (&p)[N]) {
 #pragma unroll
   for (int e = 0; e < N; ++e) acc[e] = __fadd_rn(acc[e], p[e]);
-}
-
-// byte offset of element (row, col) in a [rows][128 B] 128-byte swizzled
-// box, ``esize`` bytes an element
-__device__ __forceinline__ int sw128(int row, int col, int esize) {
-  const int byte = col * esize;
-  return row * 128 + ((((byte >> 4) ^ row) & 7) << 4) + (byte & 15);
 }
 
 template <typename TO>

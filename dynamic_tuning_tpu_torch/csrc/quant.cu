@@ -46,13 +46,13 @@
 //                     pieces of rows staged through shared memory (K12's fc2
 //                     stores each row at its token), or stores the int32
 //                     sums as they are (K16);
-//   k_quant_kernel    (K10) one block per (sample, head pair): k's lane
-//                     means, the centred k rows quantized over the pair's
-//                     2*hd lanes (the TPU's one 128-lane row);
-//   attn_core_q8_kernel (K10) one block per (sample, head): q quantized per
-//                     head row in registers, s32 QK^T on mma.sync against
-//                     the head's k codes in shared memory, then the clamped
-//                     exp and the bf16 AV of the bf16 core.
+//   attn_core_q8_kernel (K10) one warpgroup per (sample, head), the two
+//                     heads of a pair a cluster: the k lane means and codes
+//                     (quantized over the pair's 2*hd lanes, the TPU's one
+//                     128-lane row, the row amaxes traded in the cluster)
+//                     built in shared memory, q quantized per head row in
+//                     registers, s32 Q K^T on wgmma, then the clamped exp
+//                     and the bf16 P V of the bf16 core.
 // Every rounding step uses the _rn intrinsics (mul/add/sub of common.cuh):
 // nvcc would otherwise contract a * b + c into one FMA, which rounds once
 // where the TPU kernel rounds twice.
@@ -92,20 +92,6 @@ __device__ __forceinline__ int q8(float v, float inv) {
 __device__ __forceinline__ unsigned pack_s8x4(int a, int b, int c, int d) {
   return (a & 0xff) | ((b & 0xff) << 8) | ((c & 0xff) << 16) |
          (static_cast<unsigned>(d & 0xff) << 24);
-}
-template <int V>   // V = 4 or 8 consecutive bf16 -> fp32
-__device__ __forceinline__ void load_bf16s(const bf16* p, float* v) {
-  if constexpr (V == 8) {
-    load8(p, v);
-  } else {
-    static_assert(V == 4, "4 or 8 values");
-    const uint2 u = *reinterpret_cast<const uint2*>(p);
-    const float2 a =
-        __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
-    const float2 b =
-        __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
-    v[0] = a.x; v[1] = a.y; v[2] = b.x; v[3] = b.y;
-  }
 }
 __device__ __forceinline__ void store_codes8(int8_t* p, const float* v,
                                              float inv) {
@@ -392,170 +378,282 @@ static cudaError_t launch_gemm_s8(const int8_t* A, const int8_t* W,
 }
 
 // ---------------------------------------------------------------------------
-// K10: attention core with an int8 QK^T on the raw [B, N, 3C] bf16 qkv
-// buffer, writing [B, N, C] bf16.  Two kernels:
-//   k_quant_kernel, one block per (sample, head pair p):
-//     kc = k_pair - mean_n(k_pair)   per lane, over the pair's 2*hd lanes
-//     kq, ks = row quant of kc over the 2*hd lanes (one scale per pair row)
-//   attn_core_q8_kernel, one block per (sample, head h):
-//     qq, qs = row quant of fp32 q * scale over the head's hd lanes
-//     s = ((float)(qq . kq_h) * qs) * ks;  e = exp(clip(s, -60, 80) - 20)
-//     o = (bf16(e) @ v in fp32) * (1 / sum(e)) -> bf16
-// The k pass runs once per pair, fully parallel, instead of once per head
-// inside the core's blocks (measured: a core that centred and quantized
-// its own keys took 0.24-0.28 ms at ViT-B shapes, its k pass unhidden).
+// K10: the attention core with an int8 Q K^T, on the raw [B, N, 3C] bf16 qkv
+// buffer, writing [B, N, C] bf16 (H even, hd 64 or 128).  Per sample b and
+// head h of the pair p = h / 2:
+//   kc = k_p - mean_n(k_p)   per lane of the pair's 2 hd lanes (the mean
+//                            summed in float64, rounded once)
+//   kq, ks = row quant of kc over the 2 hd lanes (one scale a pair row)
+//   qq, qs = row quant of fp32 q * scale over the head's hd lanes
+//   s = (float(qq . kq_h) * qs) * ks;  e = expf(clip(s, -60, 80) - 20)
+//   l = sum(e) in fp32;  o = (bf16(e) @ v in fp32) * (1 / l) -> bf16
+//
+// What bounds it on an H100.  At ViT-B/16 serving shapes (B = 128, N = 197,
+// 12 heads of 64) it moves 155 MB (q, k and v read, the output written:
+// 0.046 ms at 3.35 TB/s) for 7.6 G int8 and 7.6 GFLOP bf16 of products, and
+// takes one exp a score (60 M).  The mma.sync form this replaces wrote the
+// k codes and scales to device memory in a kernel of its own and read them
+// back (116 MB more), and its core staged V and the codes with plain loads
+// behind one barrier, overlapping nothing: 0.20 ms.
+//
+// What the design does about it.  One kernel, the bf16 serving core's
+// (attention_sublayer.cu, attn_core_kernel) with int8 scores; one warpgroup
+// per (sample, head), the two heads of a pair a cluster of two blocks:
+//   * the key codes never leave the cluster, and each key is read once: a
+//     block copies its head's k rows (cp.async, all in flight at once) into
+//     the shared memory V will take later, sums its lanes' means in float64
+//     and takes each centred row's amax over its lanes; the two blocks
+//     trade those row amaxes through distributed shared memory, so each
+//     quantizes its lanes with the pair row's scale, straight into the
+//     K-major 128-byte swizzle that 8-bit wgmma takes (a row of 128 bytes:
+//     the head's 64 codes at its half of the pair row at hd 64, its 128 at
+//     hd 128).  (A block that read the whole pair's keys twice, from L2,
+//     spent 70 us of 0.21 ms there: utils/core_ablation.py, PERF.md);
+//   * then V comes into the same shared memory by cp.async, while the first
+//     query tile's Q K^T and exp run;
+//   * per 64-row query tile, q is loaded and quantized per head row straight
+//     into the A layout in registers; Q K^T runs on wgmma m64nNk32 s8 (A
+//     from registers), the scores are dequantized, exponentiated and summed
+//     into l in registers, and P V runs on bf16 wgmma with p from registers
+//     against V read N-major.  Up to 256 keys the whole score row is one
+//     chunk (208 or 256 keys); past that 64-key chunks are
+//     software-pipelined over two score buffers, as in the bf16 core.
+// The means are exact float64 sums and every rounding step the parent's,
+// so the codes and scales are its bits; the scores are exact int32 sums,
+// l sums the fp32 e in the mma.sync form's order (8-key groups in key
+// order, then across the quad), and the exp is expf (ex2.approx moved the
+// int8 gates under chip_smoke.py's bound in the bf16 core).  Only P V's
+// fp32 sums could round otherwise; PERF.md has the comparison.
 
-constexpr int ATTQ_WARPS = 8;
+constexpr int Q8C_THREADS = 128;         // one warpgroup a block
+constexpr int Q8C_STREAM_KEYS = 64;      // keys a chunk past 256 keys
 
-// kq [B, N, C] int8 (k's column layout), ks [B, N, H/2] fp32
-template <int HD>
-__global__ void __launch_bounds__(ATTQ_WARPS * 32)
-k_quant_kernel(const bf16* __restrict__ qkv, int8_t* __restrict__ kq,
-               float* __restrict__ ks, int N, int H) {
-  constexpr int PL = 2 * HD;      // lanes of a head pair
-  constexpr int VPL = PL / 32;    // pair lanes per thread
-  __shared__ double part[ATTQ_WARPS][PL];
-  __shared__ float mean[PL];
-  const int C = H * HD, C3 = 3 * C, P = H / 2;
-  const int b = blockIdx.x / P, p = blockIdx.x % P;
-  const bf16* kpair = qkv + (size_t)b * N * C3 + C + p * PL;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int l0 = lane * VPL;
-
-  // lane means over the N tokens, summed in float64 (one rounding after
-  // the division: the plain version gets the same bits whatever its order)
-  double acc[VPL];
-#pragma unroll
-  for (int e = 0; e < VPL; ++e) acc[e] = 0.0;
-  for (int n = warp; n < N; n += ATTQ_WARPS) {
-    float kv[VPL];
-    load_bf16s<VPL>(kpair + (size_t)n * C3 + l0, kv);
-#pragma unroll
-    for (int e = 0; e < VPL; ++e) acc[e] += kv[e];
+// Shared memory: the key codes [code_rows][128 B] (rows past N zero), V's
+// 128-byte swizzled tile [HD / 64][rows][64] bf16 (first the head's k rows,
+// [N][HD] bf16), the key scales, this head's row amaxes and the pair's row
+// amaxes [code_rows] fp32 each, the head's lane means [HD] and a 64-row
+// query tile in rows of HD + 8 bf16, from a 1024-byte boundary.  The codes span every row the last KC-wide chunk
+// reads.  The float64 partial sums of the means [RG][HD] (8 KB) use the
+// codes' room before the codes are written.
+template <int HD, int KC>
+struct CoreQ8Layout {
+  static constexpr int CPR = HD / 8;                // 8-lane pieces a k row
+  static constexpr int LDQ = HD + 8;                // query tile row, elements
+  static constexpr int RG = Q8C_THREADS / CPR;      // rows a k pass takes at once
+  __host__ __device__ static int rows(int N) { return (N + 15) / 16 * 16; }
+  __host__ __device__ static int code_rows(int N) {
+    const int kr = (N + KC - 1) / KC * KC;
+    return kr > rows(N) ? kr : rows(N);
   }
-#pragma unroll
-  for (int e = 0; e < VPL; ++e) part[warp][l0 + e] = acc[e];
+  __host__ __device__ static int v_off(int N) { return code_rows(N) * 128; }
+  __host__ __device__ static int ks_off(int N) {
+    return v_off(N) + rows(N) * HD * 2;
+  }
+  __host__ __device__ static int mean_off(int N) {
+    return ks_off(N) + 3 * code_rows(N) * 4;
+  }
+  __host__ __device__ static int q_off(int N) { return mean_off(N) + HD * 4; }
+  static int smem_bytes(int N) { return 1024 + q_off(N) + 64 * LDQ * 2; }
+};
+
+// the cluster's barrier, in two halves
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+// the float at ``p``'s offset in the shared memory of cluster block ``rank``
+__device__ __forceinline__ float ld_cluster(const float* p, unsigned rank) {
+  unsigned a;
+  float v;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(a)
+               : "r"(smem_u32(p)), "r"(rank));
+  asm volatile("ld.shared::cluster.f32 %0, [%1];\n"
+               : "=f"(v)
+               : "r"(a)
+               : "memory");
+  return v;
+}
+
+template <int HD, int KC>
+__global__ void __cluster_dims__(2, 1, 1)
+__launch_bounds__(Q8C_THREADS, HD == 64 && KC <= 208 ? 3 : 2)
+attn_core_q8_kernel(const bf16* __restrict__ qkv, bf16* __restrict__ out,
+                    int N, int H, float scale) {
+  using L = CoreQ8Layout<HD, KC>;
+  constexpr bool STREAM = KC == Q8C_STREAM_KEYS;
+  constexpr int DK = HD / 32;          // k32 steps of Q K^T
+  constexpr int NS = KC / 2;           // score accumulators a thread
+  constexpr int PS = KC / 16;          // k16 steps of P V a chunk
+  constexpr int CPR = L::CPR, RG = L::RG;
+  extern __shared__ unsigned char smem_raw[];
+  const int np = L::rows(N), kr = L::code_rows(N);
+  const int nkc = (N + KC - 1) / KC, nq = (N + 63) / 64;
+  unsigned char* Kq = align1024(smem_raw);
+  unsigned char* Vt = Kq + L::v_off(N);
+  const bf16* Kraw = reinterpret_cast<const bf16*>(Vt);
+  float* ks = reinterpret_cast<float*>(Kq + L::ks_off(N));
+  float* ramax = ks + kr;             // this head's lanes
+  float* pamax = ramax + kr;          // the pair's
+  float* mean = reinterpret_cast<float*>(Kq + L::mean_off(N));
+  bf16* Qs = reinterpret_cast<bf16*>(Kq + L::q_off(N));
+  double* part = reinterpret_cast<double*>(Kq);
+
+  const int C = H * HD, C3 = 3 * C;
+  // the cluster's two blocks are the pair's heads: h's rank is h & 1
+  const int b = blockIdx.x / H, h = blockIdx.x % H, hh = h & 1;
+  const bf16* base = qkv + (size_t)b * N * C3;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3, t2 = t * 2;
+
+  // rows qt * 64 .. + 63 of this head's q into Qs (zeros past N)
+  auto stage_q = [&](int qt) {
+    for (int i = tid; i < 64 * CPR; i += Q8C_THREADS) {
+      const int r = i / CPR, c = i % CPR, n = qt * 64 + r;
+      cp_async16(Qs + r * L::LDQ + c * 8,
+                 n < N ? base + (size_t)n * C3 + h * HD + c * 8 : base,
+                 n < N ? 16 : 0);
+    }
+  };
+  // groups: this head's k rows (row-major, all in flight at once), then the
+  // first query tile
+  for (int i = tid; i < N * CPR; i += Q8C_THREADS) {
+    const int n = i / CPR, c = i % CPR;
+    cp_async16(Vt + i * 16, base + (size_t)n * C3 + C + h * HD + c * 8, 16);
+  }
+  cp_async_commit();
+  stage_q(0);
+  cp_async_commit();
+  cp_async_wait<1>();
   __syncthreads();
-  for (int l = threadIdx.x; l < PL; l += blockDim.x) {
+
+  // lanes c * 8 .. c * 8 + 7 of rows rg, rg + RG, ...
+  const int c = tid % CPR, rg = tid / CPR;
+  {
+    double acc[8] = {0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0};
+    for (int n = rg; n < N; n += RG) {
+      float v[8];
+      load8(Kraw + n * HD + c * 8, v);
+#pragma unroll
+      for (int e = 0; e < 8; ++e) acc[e] += v[e];
+    }
+#pragma unroll
+    for (int e = 0; e < 8; ++e) part[rg * HD + c * 8 + e] = acc[e];
+  }
+  __syncthreads();
+  for (int l = tid; l < HD; l += Q8C_THREADS) {
     double sum = 0.0;
 #pragma unroll
-    for (int w = 0; w < ATTQ_WARPS; ++w) sum += part[w][l];
+    for (int r = 0; r < RG; ++r) sum += part[r * HD + l];
     mean[l] = static_cast<float>(sum / N);
   }
   __syncthreads();
+  float mu[8];
+#pragma unroll
+  for (int e = 0; e < 8; ++e) mu[e] = mean[c * 8 + e];
+  // the centred row n, these 8 lanes
+  auto centred = [&](int n, float (&v)[8]) {
+    load8(Kraw + n * HD + c * 8, v);
+#pragma unroll
+    for (int e = 0; e < 8; ++e) v[e] = sub(v[e], mu[e]);
+  };
 
-  // centred rows: one warp per row, amax over the pair's lanes
-  for (int n = warp; n < N; n += ATTQ_WARPS) {
-    float kc[VPL];
-    load_bf16s<VPL>(kpair + (size_t)n * C3 + l0, kc);
+  // each row's amax over this head's lanes (CPR threads a row; every
+  // thread runs the same trips, for the shuffles)
+  for (int n0 = 0; n0 < N; n0 += RG) {
+    const int n = n0 + rg;
     float amax = 0.f;
+    if (n < N) {
+      float v[8];
+      centred(n, v);
 #pragma unroll
-    for (int e = 0; e < VPL; ++e) {
-      kc[e] = sub(kc[e], mean[l0 + e]);
-      amax = fmaxf(amax, fabsf(kc[e]));
+      for (int e = 0; e < 8; ++e) amax = fmaxf(amax, fabsf(v[e]));
     }
-    amax = warp_max(amax);
-    const float inv = inv127(amax);
-    int8_t* row = kq + ((size_t)b * N + n) * C + p * PL + l0;
 #pragma unroll
-    for (int e = 0; e < VPL; e += 4)
-      *reinterpret_cast<unsigned*>(row + e) =
-          pack_s8x4(q8(kc[e], inv), q8(kc[e + 1], inv), q8(kc[e + 2], inv),
-                    q8(kc[e + 3], inv));
-    if (lane == 0) ks[((size_t)b * N + n) * P + p] = row_scale(amax);
+    for (int o = CPR / 2; o > 0; o >>= 1)
+      amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, o));
+    if (c == 0 && n < N) ramax[n] = amax;
   }
-}
-
-template <int HD>
-struct AttnQ8Layout {
-  static constexpr int LDQ = HD + 16;   // int8 k row stride, bytes
-  static constexpr int LDV = HD + 8;    // bf16 v row stride, elements
-  // v, then k codes, then k scales
-  static int smem_bytes(int N) {
-    const int np = (N + 15) / 16 * 16;
-    return np * LDV * 2 + np * LDQ + np * 4;
+  // the pair row's amax: this head's and the partner block's
+  cluster_arrive();
+  cluster_wait();
+  for (int n = tid; n < N; n += Q8C_THREADS) {
+    const float amax = fmaxf(ramax[n], ld_cluster(ramax + n, hh ^ 1));
+    pamax[n] = amax;
+    ks[n] = row_scale(amax);
   }
-};
-
-template <int HD>
-__global__ void __launch_bounds__(ATTQ_WARPS * 32)
-attn_core_q8_kernel(const bf16* __restrict__ qkv,
-                    const int8_t* __restrict__ kq,
-                    const float* __restrict__ kscale,
-                    bf16* __restrict__ out, int N, int H, float scale) {
-  using L = AttnQ8Layout<HD>;
-  constexpr int LDQ = L::LDQ, LDV = L::LDV;
-  constexpr int DK = HD / 32;     // k32 steps of QK^T
-  constexpr int OT = HD / 8;      // n8 tiles of the output
-  constexpr int CPV = HD / 8;     // 16-byte chunks per v row
-  constexpr int CPK = HD / 16;    // 16-byte chunks per k code row
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  const int np = (N + 15) / 16 * 16;
-  bf16* Vs = reinterpret_cast<bf16*>(smem_raw);
-  int8_t* Kq = reinterpret_cast<int8_t*>(smem_raw + np * LDV * 2);
-  float* ks = reinterpret_cast<float*>(smem_raw + np * LDV * 2 + np * LDQ);
-
-  const int C = H * HD, C3 = 3 * C;
-  const int b = blockIdx.x / H, h = blockIdx.x % H;
-  const bf16* base = qkv + (size_t)b * N * C3;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-
-  // v and the head's k codes and scales; padded rows zero (codes 0 and
-  // scale 0: their keys are masked below anyway)
-  for (int i = tid; i < np * CPV; i += blockDim.x) {
-    const int r = i / CPV, c = (i % CPV) * 8;
-    uint4 vv = make_uint4(0, 0, 0, 0);
-    if (r < N)
-      vv = *reinterpret_cast<const uint4*>(base + (size_t)r * C3 + 2 * C +
-                                           h * HD + c);
-    *reinterpret_cast<uint4*>(Vs + r * LDV + c) = vv;
-  }
-  for (int i = tid; i < np * CPK; i += blockDim.x) {
-    const int r = i / CPK, c = (i % CPK) * 16;
-    uint4 kk = make_uint4(0, 0, 0, 0);
-    if (r < N)
-      kk = *reinterpret_cast<const uint4*>(kq + ((size_t)b * N + r) * C +
-                                           h * HD + c);
-    *reinterpret_cast<uint4*>(Kq + r * LDQ + c) = kk;
-  }
-  for (int r = tid; r < np; r += blockDim.x)
-    ks[r] = r < N ? kscale[((size_t)b * N + r) * (H / 2) + h / 2] : 0.f;
+  cluster_arrive();                // this block has read the partner's
   __syncthreads();
 
-  const int g = lane >> 2, t = lane & 3, t2 = t * 2;
-  // ldmatrix row addresses: k codes as the col-major B of QK^T (bytes),
-  // v transposed for PV, as in attn_core_kernel
-  const int k_row = (lane & 7) + ((lane >> 4) << 3), k_col = ((lane >> 3) & 1) * 16;
-  const int v_row = lane & 15, v_col = (lane >> 4) * 8;
-  const int nchunks = np / 16;
+  // the codes, at the head's bytes of each 128-byte row
+  const int koff = HD == 64 ? hh * 64 : 0;
+  for (int n = rg; n < N; n += RG) {
+    float v[8];
+    centred(n, v);
+    const int byte = koff + c * 8;
+    store_codes8(reinterpret_cast<int8_t*>(Kq + n * 128 +
+                                           ((((byte >> 4) ^ n) & 7) << 4) +
+                                           (byte & 15)),
+                 v, inv127(pamax[n]));
+  }
+  // rows past N: zero codes and scales (their scores are masked)
+  for (int i = tid; i < (kr - N) * 8; i += Q8C_THREADS)
+    *reinterpret_cast<uint4*>(Kq + (N + i / 8) * 128 + (i % 8) * 16) =
+        make_uint4(0, 0, 0, 0);
+  for (int n = N + tid; n < kr; n += Q8C_THREADS) ks[n] = 0.f;
+  fence_proxy_async();             // the codes visible to the tensor cores
+  __syncthreads();                 // and the k rows read: V replaces them
+  stage_sw128<HD>(Vt, base + 2 * C + h * HD, C3, 0, np, N, tid,
+                  Q8C_THREADS);
+  cp_async_commit();
 
-  for (int qc = warp; qc < nchunks; qc += ATTQ_WARPS) {
-    const int n_lo = qc * 16 + g, n_hi = n_lo + 8;
-    // q * scale in fp32 (not rounded), straight in the A-operand layout:
-    // register e of k step d holds row (e & 1 ? hi : lo), bytes
-    // d*32 + t*4 + (e >> 1)*16 .. +3
-    float qv[DK][4][4];
+  for (int qt = 0; qt < nq; ++qt) {
+    const int n_lo = qt * 64 + warp * 16 + g, n_hi = n_lo + 8;
+    const bool live = qt * 64 + warp * 16 < N;     // the same for the warp
+    if (qt == 0) {
+      cp_async_wait<1>();          // this Q tile (V may be in flight)
+    } else {
+      cp_async_wait<0>();          // the Q tile copied in last time
+    }
+    __syncthreads();
+    // q * scale in fp32 (not rounded), quantized per head row straight in
+    // the A layout: register e of k step d holds row (e & 1 ? hi : lo),
+    // bytes d * 32 + t * 4 + (e >> 1) * 16 .. + 3 (the four bf16 values
+    // held packed, scaled once for the amax and once more, the same
+    // product, for the codes)
+    uint2 qr[DK][4];
+#pragma unroll
+    for (int d = 0; d < DK; ++d)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        qr[d][e] = *reinterpret_cast<const uint2*>(
+            Qs + (warp * 16 + g + (e & 1) * 8) * L::LDQ + d * 32 + t * 4 +
+            (e >> 1) * 16);
+    __syncthreads();               // every warp has read this Q tile
+    if (qt + 1 < nq) stage_q(qt + 1);
+    cp_async_commit();
+    auto scaled = [&](int d, int e, float (&v)[4]) {
+      const float2 a = __bfloat1622float2(
+          *reinterpret_cast<const __nv_bfloat162*>(&qr[d][e].x));
+      const float2 cc = __bfloat1622float2(
+          *reinterpret_cast<const __nv_bfloat162*>(&qr[d][e].y));
+      v[0] = mul(a.x, scale); v[1] = mul(a.y, scale);
+      v[2] = mul(cc.x, scale); v[3] = mul(cc.y, scale);
+    };
     float am_lo = 0.f, am_hi = 0.f;
 #pragma unroll
-    for (int d = 0; d < DK; ++d) {
+    for (int d = 0; d < DK; ++d)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const int n = (e & 1) ? n_hi : n_lo;
-        const int col = d * 32 + t * 4 + (e >> 1) * 16;
-        float2 a = make_float2(0.f, 0.f), c = make_float2(0.f, 0.f);
-        if (n < N) {
-          const bf16* p = base + (size_t)n * C3 + h * HD + col;
-          a = load2(p);
-          c = load2(p + 2);
-        }
-        qv[d][e][0] = mul(a.x, scale); qv[d][e][1] = mul(a.y, scale);
-        qv[d][e][2] = mul(c.x, scale); qv[d][e][3] = mul(c.y, scale);
+        float v[4];
+        scaled(d, e, v);
         float m = 0.f;
 #pragma unroll
-        for (int i = 0; i < 4; ++i) m = fmaxf(m, fabsf(qv[d][e][i]));
+        for (int i = 0; i < 4; ++i) m = fmaxf(m, fabsf(v[i]));
         if (e & 1) am_hi = fmaxf(am_hi, m); else am_lo = fmaxf(am_lo, m);
       }
-    }
     // each row is spread over the four lanes of its quad
 #pragma unroll
     for (int m = 1; m < 4; m <<= 1) {
@@ -570,102 +668,165 @@ attn_core_q8_kernel(const bf16* __restrict__ qkv,
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const float inv = (e & 1) ? inv_hi : inv_lo;
-        qf[d][e] = pack_s8x4(q8(qv[d][e][0], inv), q8(qv[d][e][1], inv),
-                             q8(qv[d][e][2], inv), q8(qv[d][e][3], inv));
+        float v[4];
+        scaled(d, e, v);
+        qf[d][e] = pack_s8x4(q8(v[0], inv), q8(v[1], inv), q8(v[2], inv),
+                             q8(v[3], inv));
       }
-
-    float o[OT][4];
-#pragma unroll
-    for (int j = 0; j < OT; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) o[j][e] = 0.f;
+    float o[HD / 2];
     float l_lo = 0.f, l_hi = 0.f;
 
-    for (int kc = 0; kc < nchunks; ++kc) {
-      int si[2][4] = {{0, 0, 0, 0}, {0, 0, 0, 0}};
+    // Q K^T of key chunk kc into s (int32)
+    auto qk = [&](int (&s)[NS], int kc) {
 #pragma unroll
-      for (int d = 0; d < DK; ++d) {
-        unsigned r[4];
-        ldmatrix_x4(r, Kq + (kc * 16 + k_row) * LDQ + d * 32 + k_col);
-        mma_s8_16832(si[0], qf[d], r[0], r[1]);
-        mma_s8_16832(si[1], qf[d], r[2], r[3]);
+      for (int d = 0; d < DK; ++d)
+        wgmma_rs_s8<KC>(s, qf[d],
+                        desc_sw128(Kq + kc * KC * 128 + koff + d * 32),
+                        d > 0);
+    };
+    // chunk kc, its scores in s: (streaming) the next chunk's Q K^T issued,
+    // then e = expf(clip(s * qs * ks, -60, 80) - 20) in place as fp32 bits
+    // (keys past N give 0), l, and P V issued.  Element 4 j + e of s is key
+    // kc * KC + 8 j + t2 + (e & 1).
+    auto chunk = [&](int (&s)[NS], int (&nxt)[NS], int kc) {
+      if (STREAM && kc + 1 < nkc) {
+        wgmma_fence();
+        qk(nxt, kc + 1);
+        wgmma_commit();
+        wgmma_wait<1>();           // this chunk's scores (and P V before)
+      } else {
+        wgmma_wait<0>();
       }
-      float s[2][4];
+      unsigned pf[PS][4];
+      if (live) {
+        const bool last = kc * KC + KC > N;
 #pragma unroll
-      for (int j = 0; j < 2; ++j) {
+        for (int j = 0; j < KC / 8; ++j) {
+          // keys past the padded rows: P V never reads them
+          if (last && kc * KC + j * 8 >= np) continue;
+          const int k0 = kc * KC + j * 8 + t2;
+          const float2 kscl = *reinterpret_cast<const float2*>(ks + k0);
 #pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int col = kc * 16 + j * 8 + t2 + (e & 1);
-          if (col < N) {
-            const float sv = mul(mul(__int2float_rn(si[j][e]),
-                                     e < 2 ? qs_lo : qs_hi), ks[col]);
-            s[j][e] = expf(fminf(fmaxf(sv, -60.f), 80.f) - 20.f);
-          } else {
-            s[j][e] = 0.f;               // padded keys contribute nothing
+          for (int e = 0; e < 4; ++e) {
+            const float sv = mul(mul(__int2float_rn(s[4 * j + e]),
+                                     e < 2 ? qs_lo : qs_hi),
+                                 (e & 1) ? kscl.y : kscl.x);
+            float p = expf(fminf(fmaxf(sv, -60.f), 80.f) - 20.f);
+            if (last && k0 + (e & 1) >= N) p = 0.f;
+            s[4 * j + e] = __float_as_int(p);
           }
+          l_lo += __int_as_float(s[4 * j]) + __int_as_float(s[4 * j + 1]);
+          l_hi += __int_as_float(s[4 * j + 2]) + __int_as_float(s[4 * j + 3]);
         }
-        l_lo += s[j][0] + s[j][1];       // l sums the fp32 e
-        l_hi += s[j][2] + s[j][3];
-      }
-      const unsigned pf[4] = {pack_bf16x2(s[0][0], s[0][1]),
-                              pack_bf16x2(s[0][2], s[0][3]),
-                              pack_bf16x2(s[1][0], s[1][1]),
-                              pack_bf16x2(s[1][2], s[1][3])};
+        // the A fragments of P V, one per 16 keys (two n8 score tiles)
 #pragma unroll
-      for (int j = 0; j < OT; j += 2) {
-        unsigned r[4];
-        ldmatrix_x4_trans(r, Vs + (kc * 16 + v_row) * LDV + j * 8 + v_col);
-        mma_bf16_16816(o[j], pf, r[0], r[1]);
-        mma_bf16_16816(o[j + 1], pf, r[2], r[3]);
+        for (int st = 0; st < PS; ++st)
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+            pf[st][i] = pack_bf16x2(__int_as_float(s[8 * st + 2 * i]),
+                                    __int_as_float(s[8 * st + 2 * i + 1]));
+      } else {
+#pragma unroll
+        for (int st = 0; st < PS; ++st)
+          pf[st][0] = pf[st][1] = pf[st][2] = pf[st][3] = 0u;
       }
+      if (qt == 0 && kc == 0) {
+        cp_async_wait<1>();        // V (the newest group is the next Q tile)
+        fence_proxy_async();
+        __syncthreads();
+      }
+      // P V over this chunk's 16-key steps inside the padded rows
+      wgmma_fence();
+#pragma unroll
+      for (int st = 0; st < PS; ++st) {
+        const int r = kc * KC + st * 16;
+        if (r < np)
+          wgmma_rs<HD, true>(o, pf[st], desc_sw128_mn(Vt + r * 128, np * 128),
+                             r > 0);
+      }
+      wgmma_commit();
+    };
+
+    if constexpr (STREAM) {
+      int sa[NS], sb[NS];
+      wgmma_fence();
+      qk(sa, 0);
+      wgmma_commit();
+      for (int kc = 0; kc < nkc; kc += 2) {
+        chunk(sa, sb, kc);
+        if (kc + 1 < nkc) chunk(sb, sa, kc + 1);
+      }
+    } else {
+      int s[NS];
+      wgmma_fence();
+      qk(s, 0);
+      wgmma_commit();
+      chunk(s, s, 0);
     }
+    wgmma_wait<0>();
+    if (!live) continue;
 
 #pragma unroll
     for (int m = 1; m < 4; m <<= 1) {
       l_lo += __shfl_xor_sync(0xffffffffu, l_lo, m);
       l_hi += __shfl_xor_sync(0xffffffffu, l_hi, m);
     }
-    const float inv_l_lo = 1.0f / l_lo, inv_l_hi = 1.0f / l_hi;
+    const float inv_l_lo = __frcp_rn(l_lo), inv_l_hi = __frcp_rn(l_hi);
 #pragma unroll
-    for (int j = 0; j < OT; ++j) {
+    for (int j = 0; j < HD / 8; ++j) {
       const int col = h * HD + j * 8 + t2;
       if (n_lo < N)
-        store2(out + ((size_t)b * N + n_lo) * C + col, o[j][0] * inv_l_lo,
-               o[j][1] * inv_l_lo);
+        store2(out + ((size_t)b * N + n_lo) * C + col, o[4 * j] * inv_l_lo,
+               o[4 * j + 1] * inv_l_lo);
       if (n_hi < N)
-        store2(out + ((size_t)b * N + n_hi) * C + col, o[j][2] * inv_l_hi,
-               o[j][3] * inv_l_hi);
+        store2(out + ((size_t)b * N + n_hi) * C + col,
+               o[4 * j + 2] * inv_l_hi, o[4 * j + 3] * inv_l_hi);
     }
   }
+  cluster_wait();                  // the partner has read this block's amaxes
 }
 
-template <int HD>
-static cudaError_t launch_attn_core_q8(const bf16* qkv, int8_t* kq, float* ks,
-                                       bf16* out, int B, int N, int H,
-                                       float scale, cudaStream_t s) {
-  k_quant_kernel<HD><<<B * (H / 2), ATTQ_WARPS * 32, 0, s>>>(qkv, kq, ks, N,
-                                                             H);
-  cudaError_t err = cudaGetLastError();
+template <int HD, int KC>
+static cudaError_t launch_core_q8_kc(const bf16* qkv, bf16* out, int B,
+                                     int N, int H, float scale,
+                                     cudaStream_t s) {
+  const int smem = CoreQ8Layout<HD, KC>::smem_bytes(N);
+  cudaError_t err = cudaFuncSetAttribute(
+      attn_core_q8_kernel<HD, KC>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  const int smem = AttnQ8Layout<HD>::smem_bytes(N);
-  err = cudaFuncSetAttribute(attn_core_q8_kernel<HD>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             smem);
-  if (err != cudaSuccess) return err;
-  attn_core_q8_kernel<HD><<<B * H, ATTQ_WARPS * 32, smem, s>>>(
-      qkv, kq, ks, out, N, H, scale);
+  attn_core_q8_kernel<HD, KC><<<B * H, Q8C_THREADS, smem, s>>>(qkv, out, N,
+                                                               H, scale);
   return cudaGetLastError();
 }
 
-// kq [B*N, C] int8 and ks [B*N, H/2] fp32 scratch
-static cudaError_t attn_core_q8(const bf16* qkv, int8_t* kq, float* ks,
-                                bf16* out, int B, int N, int C, int H,
-                                float scale, cudaStream_t s) {
-  if (H % 2) return cudaErrorInvalidValue;
+// the chunk width for N, as the bf16 core: the whole row (13 or 16 chunks of
+// 16 keys) up to 256 keys, else 64-key chunks
+template <int HD>
+static cudaError_t launch_attn_core_q8(const bf16* qkv, bf16* out, int B,
+                                       int N, int H, float scale,
+                                       cudaStream_t s) {
+  const int nc = (N + 15) / 16;
+  if (nc <= 13) return launch_core_q8_kc<HD, 208>(qkv, out, B, N, H, scale, s);
+  if (nc <= 16) return launch_core_q8_kc<HD, 256>(qkv, out, B, N, H, scale, s);
+  return launch_core_q8_kc<HD, Q8C_STREAM_KEYS>(qkv, out, B, N, H, scale, s);
+}
+
+template <int HD>
+static int core_q8_smem_bytes(int N) {
+  const int nc = (N + 15) / 16;
+  if (nc <= 13) return CoreQ8Layout<HD, 208>::smem_bytes(N);
+  if (nc <= 16) return CoreQ8Layout<HD, 256>::smem_bytes(N);
+  return CoreQ8Layout<HD, Q8C_STREAM_KEYS>::smem_bytes(N);
+}
+
+static cudaError_t attn_core_q8(const bf16* qkv, bf16* out, int B, int N,
+                                int C, int H, float scale, cudaStream_t s) {
+  if (H <= 0 || H % 2 || N <= 0 || B <= 0) return cudaErrorInvalidValue;
   if (C == 64 * H)
-    return launch_attn_core_q8<64>(qkv, kq, ks, out, B, N, H, scale, s);
+    return launch_attn_core_q8<64>(qkv, out, B, N, H, scale, s);
   if (C == 128 * H)
-    return launch_attn_core_q8<128>(qkv, kq, ks, out, B, N, H, scale, s);
+    return launch_attn_core_q8<128>(qkv, out, B, N, H, scale, s);
   return cudaErrorInvalidValue;
 }
 
@@ -679,9 +840,8 @@ static cudaError_t sublayer_q8(const TX* x, const float* gamma,
                                const int8_t* wproj, const float* sproj,
                                const float* bproj, TX* out, float* xm32,
                                int8_t* a8, float* rs, bf16* qkv_buf,
-                               bf16* attn_buf, float* kscale, int B, int N,
-                               int C, int H, float scale, int attn_q8,
-                               cudaStream_t s) {
+                               bf16* attn_buf, int B, int N, int C, int H,
+                               float scale, int attn_q8, cudaStream_t s) {
   const int M = B * N;
   if (C % 8 || C > 32 * 8 * MAX_CHUNKS) return cudaErrorInvalidValue;
   ln_quant_kernel<TX><<<(M + 7) / 8, 256, 0, s>>>(x, gamma, beta, a8, rs, M,
@@ -691,10 +851,7 @@ static cudaError_t sublayer_q8(const TX* x, const float* gamma,
   err = launch_gemm_s8<Q8_OUT, bf16>(a8, wqkv, rs, sqkv, bqkv, M, 3 * C, C,
                                      qkv_buf, nullptr, nullptr, nullptr, s);
   if (err != cudaSuccess) return err;
-  // a8 is free again once the qkv GEMM has read it: K10 keeps its k codes
-  // there
-  err = attn_q8 ? attn_core_q8(qkv_buf, a8, kscale, attn_buf, B, N, C, H,
-                               scale, s)
+  err = attn_q8 ? attn_core_q8(qkv_buf, attn_buf, B, N, C, H, scale, s)
                 : static_cast<cudaError_t>(
                       dyt_attn_core(qkv_buf, attn_buf, B, N, C, H, scale, s));
   if (err != cudaSuccess) return err;
@@ -811,17 +968,16 @@ extern "C" {
 // Shared-memory bytes of the int8 attention core at (N, hd); 0 when hd is
 // not supported.
 int dyt_attn_core_q8_smem_bytes(int N, int hd) {
-  if (hd == 64) return dyt::AttnQ8Layout<64>::smem_bytes(N);
-  if (hd == 128) return dyt::AttnQ8Layout<128>::smem_bytes(N);
+  if (N <= 0) return 0;
+  if (hd == 64) return dyt::core_q8_smem_bytes<64>(N);
+  if (hd == 128) return dyt::core_q8_smem_bytes<128>(N);
   return 0;
 }
 
-// K10 alone: qkv [B, N, 3C] bf16 -> out [B, N, C] bf16 (H even); kq
-// [B*N, C] int8 and ks [B*N, H/2] fp32 scratch.
-int dyt_attn_core_q8(const void* qkv, void* out, void* kq, float* ks, int B,
-                     int N, int C, int H, float scale, void* stream) {
+// K10 alone: qkv [B, N, 3C] bf16 -> out [B, N, C] bf16 (H even).
+int dyt_attn_core_q8(const void* qkv, void* out, int B, int N, int C, int H,
+                     float scale, void* stream) {
   return dyt::attn_core_q8(static_cast<const dyt::bf16*>(qkv),
-                           static_cast<int8_t*>(kq), ks,
                            static_cast<dyt::bf16*>(out), B, N, C, H, scale,
                            static_cast<cudaStream_t>(stream));
 }
@@ -830,17 +986,15 @@ int dyt_attn_core_q8(const void* qkv, void* out, void* kq, float* ks, int B,
 // residual dtype (x_f32 selects fp32 over bf16); gamma/beta/biases/scales
 // fp32; wqkv [3C, C], wproj [C, C] int8; xm32 an optional fp32 copy of out;
 // a8 [B*N, C] int8, rs [B*N] fp32, qkv_buf [B*N, 3C] and attn_buf [B*N, C]
-// bf16 scratch; attn_q8 selects the K10 core, with kscale [B*N, H/2] fp32
-// scratch.  Returns a cudaError_t value.
+// bf16 scratch; attn_q8 selects the K10 core.  Returns a cudaError_t value.
 int dyt_attention_sublayer_q8(const void* x, int x_f32, const float* gamma,
                               const float* beta, const void* wqkv,
                               const float* sqkv, const float* bqkv,
                               const void* wproj, const float* sproj,
                               const float* bproj, void* out, float* xm32,
                               void* a8, float* rs, void* qkv_buf,
-                              void* attn_buf, float* kscale, int B, int N,
-                              int C, int H, float scale, int attn_q8,
-                              void* stream) {
+                              void* attn_buf, int B, int N, int C, int H,
+                              float scale, int attn_q8, void* stream) {
   using dyt::bf16;
   auto* wq = static_cast<const int8_t*>(wqkv);
   auto* wp = static_cast<const int8_t*>(wproj);
@@ -851,12 +1005,12 @@ int dyt_attention_sublayer_q8(const void* x, int x_f32, const float* gamma,
   if (x_f32)
     return dyt::sublayer_q8<float>(
         static_cast<const float*>(x), gamma, beta, wq, sqkv, bqkv, wp, sproj,
-        bproj, static_cast<float*>(out), xm32, a, rs, qb, ab, kscale, B, N, C,
-        H, scale, attn_q8, s);
+        bproj, static_cast<float*>(out), xm32, a, rs, qb, ab, B, N, C, H,
+        scale, attn_q8, s);
   return dyt::sublayer_q8<bf16>(
       static_cast<const bf16*>(x), gamma, beta, wq, sqkv, bqkv, wp, sproj,
-      bproj, static_cast<bf16*>(out), xm32, a, rs, qb, ab, kscale, B, N, C, H,
-      scale, attn_q8, s);
+      bproj, static_cast<bf16*>(out), xm32, a, rs, qb, ab, B, N, C, H, scale,
+      attn_q8, s);
 }
 
 // K4: x, out [M, C] (x_f32 selects fp32 over bf16); w1 [Hd, C], w2 [C, Hd]

@@ -37,10 +37,10 @@ _SIGNATURES = {
     "dyt_adapter_router": [_P, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P,
                            _I, _P],
     "dyt_adapter_width_supported": [_I],
-    "dyt_attention_sublayer_q8": [_P, _I] + [_P] * 15 + [_I, _I, _I, _I, _F,
+    "dyt_attention_sublayer_q8": [_P, _I] + [_P] * 14 + [_I, _I, _I, _I, _F,
                                                          _I, _P],
     "dyt_q8_ln_mlp": [_P, _I] + [_P] * 13 + [_I, _I, _I, _I, _P],
-    "dyt_attn_core_q8": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
+    "dyt_attn_core_q8": [_P, _P, _I, _I, _I, _I, _F, _P],
     "dyt_attn_core_q8_smem_bytes": [_I, _I],
     "dyt_q8_stem_gemm": [_P, _P, _P, _P, _P, _I, _I, _I, _P, _P],
     "dyt_q8_dispatch_mlp": [_P, _I] + [_P] * 17 + [_I] * 6 + [_P],

@@ -396,10 +396,7 @@ def attn_core_pairs_q8(qkv: torch.Tensor, *, heads: int) -> torch.Tensor:
     dev = qkv.device
     with torch.cuda.device(dev):
         out = torch.empty((B, N, C3 // 3), dtype=BF, device=dev)
-        kq = torch.empty((B * N, C3 // 3), dtype=I8, device=dev)
-        ks = torch.empty((B * N, heads // 2), dtype=F32, device=dev)
-        err = lib.dyt_attn_core_q8(_ptr(qkv), _ptr(out), _ptr(kq), _ptr(ks),
-                                   B, N, C3 // 3, heads,
+        err = lib.dyt_attn_core_q8(_ptr(qkv), _ptr(out), B, N, C3 // 3, heads,
                                    (C3 // 3 // heads) ** -0.5, _stream(dev))
         _build.check(lib, err, "int8 attention core")
     attn_core_pairs_q8.launches += 1
@@ -439,13 +436,11 @@ def _launch_sublayer_q8(lib, x, gamma, beta, wqkv_q, sqkv, bqkv, wproj_q,
     rs = torch.empty((M,), dtype=F32, device=dev)
     qkv = torch.empty((M, 3 * C), dtype=BF, device=dev)
     attn = torch.empty((M, C), dtype=BF, device=dev)
-    kscale = (torch.empty((M, heads // 2), dtype=F32, device=dev)
-              if attn_q8 else None)
     err = lib.dyt_attention_sublayer_q8(
         _ptr(x), int(x.dtype == F32), _ptr(gamma), _ptr(beta), _ptr(wqkv_q),
         _ptr(sqkv), _ptr(bqkv), _ptr(wproj_q), _ptr(sproj), _ptr(bproj),
         _ptr(out), _ptr(xm32), _ptr(a8), _ptr(rs), _ptr(qkv), _ptr(attn),
-        _ptr(kscale), B, N, C, heads, (C // heads) ** -0.5, int(attn_q8),
+        B, N, C, heads, (C // heads) ** -0.5, int(attn_q8),
         _stream(dev))
     _build.check(lib, err, "int8 attention sublayer kernels")
     if attn_q8:

@@ -1,19 +1,26 @@
-"""Where the serving attention core's, the GEMM's and the windowed
-attention's time goes: the kernels with one phase taken out or one choice
-changed.
+"""Where the serving attention core's, the GEMM's, the windowed
+attention's, the int8 core's and the dense adapter/router's time goes: the
+kernels with one phase taken out or one choice changed.
 
     python -m dynamic_tuning_tpu_torch.utils.core_ablation [VARIANT ...]
 
 The package is copied once per variant into ``build/core_ablation/
 <variant>/``, and the copy's ``csrc/attention_sublayer.cu`` (the core),
-``csrc/gemm.cuh`` (the bf16 / int8 GEMM) or ``csrc/windowed_attention.cu``
-(K9) is edited: one phase cut out, the core's exp swapped for
+``csrc/gemm.cuh`` (the bf16 / int8 GEMM), ``csrc/windowed_attention.cu``
+(K9), ``csrc/quant.cu`` (K10) or ``csrc/dyt_prologue.cu`` (the adapter/
+router) is edited: one phase cut out, the core's exp swapped for
 ``ex2.approx`` of x log2 e, one GEMM tile width used at every N for one
 operand type (``GemmOperand<T>::WIDE_N``), the GEMM's launch and then also
 its two TMA tensor maps taken out of its host function, K9 without its bias
 tile (no TMA load, a zero bias), without its exp, or with a ring of three
 or four stages (three or two blocks an SM at hd 64, where two stages fit
-four).  The copies are built in parallel and
+four); K10 with its k pass alone (the k and V staging, the lane means, the
+row amaxes traded in the cluster and the key codes; no query tile), without
+its k pass (the loads kept, the sums, amaxes and codes not made), without
+its cluster (each block takes its own lanes' amax), without its exp, or
+without P V; the adapter/router without its router dots, its down or up
+product, its output stores or its x_mid loads (the producer brings the
+weights only).  The copies are built in parallel and
 each, in its own process, times with CUDA events over 20 calls after 3
 warm-up ones: K1 (``mha_serving_fused``: the core alone) and K2
 (``attention_sublayer_serving``: LN, the qkv GEMM, the core, the proj GEMM)
@@ -21,7 +28,11 @@ at ViT-B/16 serving shapes (B=128, N=197, C=768, 12 heads of 64); the
 bf16 GEMM (K16's entry, fp32 out) and the int8 GEMM (the stem's entry: the
 dequantizing bf16 store of the serving epilogues, unit scales) at the
 proj, qkv and dispatch fc1 shapes; K9 through its C entry at B=1 and 2
-(N=1025, 12 heads of 64, the layer's padded bf16 bias); and on the host's
+(N=1025, 12 heads of 64, the layer's padded bf16 bias); K10 through its C
+entry at B=128, N=197, 12 heads of 64; the adapter/router through its C
+entry at 128 x 197 rows of width 768, F = 64, bf16 out, with the router,
+beside one library call that moves its bytes (x_mid copied to bf16); and on
+the host's
 clock one bf16 GEMM call through ctypes (M=128, 768 x 768): the median and
 range over 21 runs of 200 calls.  The two no-launch variants' host times
 differ by the cost of encoding the two tensor maps.  A variant's output is
@@ -47,6 +58,8 @@ OUT = PKG.parent / "build" / "core_ablation"
 CORE = Path("csrc") / "attention_sublayer.cu"
 GEMM = Path("csrc") / "gemm.cuh"
 WIN = Path("csrc") / "windowed_attention.cu"
+QUANT = Path("csrc") / "quant.cu"
+AR = Path("csrc") / "dyt_prologue.cu"
 CLAMPED = "fminf(fmaxf(s[4 * j + e], -60.f), 80.f)"
 EXP = f"float p = expf({CLAMPED} - 20.f);"
 NO_EXP = (CORE, EXP, f"float p = {CLAMPED};")
@@ -113,6 +126,39 @@ VARIANTS = {
                                  "e] + bv[e], -60.f), 80.f) - 20.f;")],
     "K9 3 stages": k9_stages(3, 3),
     "K9 4 stages": k9_stages(4, 2),
+    "K10 k pass only": [(QUANT, "  for (int qt = 0; qt < nq; ++qt) {",
+                         "  for (int qt = 0; qt < 0; ++qt) {")],
+    "K10 no exp": [(QUANT, "float p = expf(fminf(fmaxf(sv, -60.f), 80.f) - "
+                           "20.f);",
+                    "float p = fminf(fmaxf(sv, -60.f), 80.f);")],
+    "K10 no P V": [(QUANT, NO_PV[1], NO_PV[2])],
+    "K10 no k pass": [
+        (QUANT, "    for (int n = rg; n < N; n += RG) {\n      float v[8];\n      load8(Kraw",
+         "    for (int n = rg; n < 0; n += RG) {\n      float v[8];\n      load8(Kraw"),
+        (QUANT, "  for (int n0 = 0; n0 < N; n0 += RG) {", "  for (int n0 = 0; n0 < 0; n0 += RG) {"),
+        (QUANT, "  for (int n = tid; n < N; n += Q8C_THREADS) {\n    const float amax",
+         "  for (int n = tid; n < 0; n += Q8C_THREADS) {\n    const float amax"),
+        (QUANT, "  for (int n = rg; n < N; n += RG) {\n    float v[8];\n    centred(n, v);",
+         "  for (int n = rg; n < 0; n += RG) {\n    float v[8];\n    centred(n, v);")],
+    "K10 no cluster": [
+        (QUANT, "__global__ void __cluster_dims__(2, 1, 1)\n", "__global__ void\n"),
+        (QUANT, "fmaxf(ramax[n], ld_cluster(ramax + n, hh ^ 1))", "ramax[n]"),
+        (QUANT, '  asm volatile("barrier.cluster.arrive.release.aligned;\\n" ::: "memory");', ""),
+        (QUANT, '  asm volatile("barrier.cluster.wait.acquire.aligned;\\n" ::: "memory");', "")],
+    "adapter no router": [(AR, "const bool router = wsel != nullptr;",
+                           "const bool router = false;")],
+    "adapter no up product": [(AR, "for (int s = 0; s < F / 16; ++s)",
+                               "for (int s = 0; s < 0; ++s)")],
+    "adapter no stores": [(AR, "      gemm_store_chunk<TO>(v, adapt,",
+                           "      if (M < 0) gemm_store_chunk<TO>(v, adapt,")],
+    "adapter no down product": [
+        (AR, "for (int kk = 0; kk < 4; ++kk)\n        wgmma_rs<FH, false>(",
+         "for (int kk = 0; kk < 0; ++kk)\n        wgmma_rs<FH, false>(")],
+    "adapter no x loads": [
+        (AR, "          tma_load_2d(st, &map_x, &full[stage], k * AR_CHUNK, "
+             "m0);\n          tma_load_2d(st + AR_XBOX, &map_x, &full[stage], "
+             "k * AR_CHUNK + 32,\n                      m0);\n", ""),
+        (AR, "slot(L::STAGE)", "slot(L::STAGE - 2 * AR_XBOX)")],
 }
 GEMMS = {"proj": (25216, 768, 768), "qkv": (25216, 768, 2304),
          "fc1 dispatch": (12672, 768, 3072)}       # (M, K, N)
@@ -120,8 +166,8 @@ GEMMS = {"proj": (25216, 768, 768), "qkv": (25216, 768, 2304),
 
 def time_variant() -> dict:
     """This package's ms: K1, K2, the bf16 and int8 GEMMs at each of
-    ``GEMMS``, K9 at B=1 and 2; and the host µs of one bf16 GEMM call:
-    median, least, most."""
+    ``GEMMS``, K9 at B=1 and 2, K10, the adapter/router; and the host µs of
+    one bf16 GEMM call: median, least, most."""
     import torch
 
     from dynamic_tuning_tpu_torch.ops import _build
@@ -169,6 +215,24 @@ def time_variant() -> dict:
         out[f"K9 B={batch}"] = time_ms(lambda: lib.dyt_mha_windowed(
             sq.data_ptr(), bias.data_ptr(), so.data_ptr(), batch, sn, C, H,
             bias.stride(0), bias.stride(1), 0.125, stream))
+    q8 = r(B, N, 3 * C).to(bf)
+    o8 = torch.empty((B, N, C), dtype=bf, device="cuda")
+    out["K10"] = time_ms(lambda: lib.dyt_attn_core_q8(
+        q8.data_ptr(), o8.data_ptr(), B, N, C, H, 0.125, stream))
+    M, F = B * N, 64
+    xm = r(M, C)
+    ad = (r(F, C, sc=0.03).to(bf), r(F, sc=0.02), r(C, F, sc=0.02).to(bf),
+          r(C, sc=0.01), torch.full((1,), 0.1, device="cuda"),
+          r(C, sc=0.9), r(1, sc=0.1))
+    adapt = torch.empty((M, C), dtype=bf, device="cuda")
+    lg = torch.empty((M,), device="cuda")
+    out["adapter"] = time_ms(lambda: lib.dyt_adapter_router(
+        xm.data_ptr(), M, C, *(t.data_ptr() for t in ad), adapt.data_ptr(),
+        0, lg.data_ptr(), F, stream))
+    # the same bytes through one library call: x_mid read, a bf16 copy
+    # written
+    out["x_mid to bf16"] = time_ms(lambda: adapt.copy_(xm))
+    del q8, o8, xm, adapt
     a, w = r(128, C).to(bf), r(C, C).to(bf)
     o = torch.empty((128, C), device="cuda")
     call = lambda: lib.dyt_gemm_bf16_f32(a.data_ptr(), w.data_ptr(), 128, C,

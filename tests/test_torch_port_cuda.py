@@ -23,6 +23,7 @@ import torch
 
 from dynamic_tuning_tpu_torch.ops import mha_serving as ms
 from dynamic_tuning_tpu_torch.ops import quant as qt
+from dynamic_tuning_tpu_torch.utils import kernel_diff as kd
 
 pytestmark = pytest.mark.cuda
 BF = torch.bfloat16
@@ -222,6 +223,47 @@ def test_attn_core_q8_kernel(B, N, C, H):
     torch.cuda.synchronize()
     assert qt.attn_core_pairs_q8.launches == before + 1
     bf16_close(got, qt.attn_core_pairs_q8_plain(qkv, heads=H), "core")
+
+
+@pytest.mark.parametrize("case", range(2 * (len(kd.CORE_Q8_N) + 2)))
+def test_attn_core_q8_kernel_across_n(case):
+    """K10 at every N of its domain (1 to 512) at head dims 64 and 128, and
+    on the adversarial head pair (head 1's keys 20x head 0's, a common key
+    offset): within two bf16 ulps of the largest output and 99% of outputs
+    within one ulp of their own value."""
+    name, qkv, H = list(kd.core_q8_cases())[case]
+    before = qt.attn_core_pairs_q8.launches
+    got = qt.attn_core_pairs_q8(qkv, heads=H)
+    torch.cuda.synchronize()
+    assert qt.attn_core_pairs_q8.launches == before + 1
+    want = qt.attn_core_pairs_q8_plain(qkv, heads=H)
+    bf16_close(got, want, name)
+    contract_close(got, want, name)
+
+
+@pytest.mark.parametrize("F", kd.AR_F)
+@pytest.mark.parametrize("C", kd.AR_C)
+@pytest.mark.parametrize("M", kd.AR_M)
+def test_adapter_router_kernel(M, C, F):
+    """The dense adapter/router kernel alone (the tail of K3 and K6), bf16
+    and fp32 out, with and without the router."""
+    from dynamic_tuning_tpu_torch.ops import _build
+
+    lib = _build.library()
+    xm, ad, sel = kd.adapter_inputs(M, C, F)
+    for dtype in (BF, torch.float32):
+        x_mid = xm.to(dtype)
+        for with_select in (True, False):
+            ms.check_adapter_router(lib, x_mid, *ad, *sel, with_select)
+            got = ms.launch_adapter_router(lib, x_mid, xm, *ad, *sel,
+                                           with_select)
+            torch.cuda.synchronize()
+            want = ms.adapter_router_plain(xm, dtype, *ad, *sel,
+                                           with_select=with_select)
+            assert got[1].shape == (1, M, C) and got[1].dtype == dtype
+            bf16_close(got[1], want[1], f"adapt M={M} C={C} F={F}")
+            if with_select:
+                logits_close(got[2], want[2])
 
 
 def test_q8_patch_embed_kernel():

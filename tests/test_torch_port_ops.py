@@ -29,7 +29,7 @@ DTYPES = {"float32": (jnp.float32, torch.float32),
           "bfloat16": (jnp.bfloat16, torch.bfloat16)}
 
 
-def _weights(seed=0, qk_scale=1.0):
+def _weights(seed=0, qk_scale=1.0, ffn=FFN):
     rs = np.random.RandomState(seed)
 
     def f(*s, sc=1.0):
@@ -38,8 +38,8 @@ def _weights(seed=0, qk_scale=1.0):
     w = dict(x=f(B, N, C), g=1 + f(C, sc=0.1), b=f(C, sc=0.1),
              wqkv=f(C, 3 * C, sc=0.05), bqkv=f(3 * C, sc=0.05),
              wproj=f(C, C, sc=0.05), bproj=f(C, sc=0.05),
-             wd=f(C, FFN, sc=0.05), bd=f(FFN, sc=0.05),
-             wu=f(FFN, C, sc=0.05), bu=f(C, sc=0.05),
+             wd=f(C, ffn, sc=0.05), bd=f(ffn, sc=0.05),
+             wu=f(ffn, C, sc=0.05), bu=f(C, sc=0.05),
              asc=np.array([0.1], np.float32), wsel=f(C, 1, sc=0.1),
              bsel=f(1, sc=0.1))
     w["wqkv"][:, :2 * C] *= qk_scale
@@ -109,6 +109,32 @@ def test_dyt_prologue_matches_jax_kernel(dtype, with_select):
         assert got[2].dtype == torch.float32 and got[2].shape == (B, N, 1)
         np.testing.assert_allclose(got[2].numpy(), _np(want[2]),
                                    rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("with_select", [True, False])
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("ffn", [64, 128])
+def test_dyt_prologue_matches_jax_kernel_at_adapter_width(ffn, dtype,
+                                                          with_select):
+    """K3 at the adapter widths of ViT-B (64) and the widest the card's
+    adapter/router kernel takes (128); 16 is the test above.  The logits
+    come from the fp32 x_mid on both sides; in bf16 that x_mid carries the
+    bf16 qkv and core output, where a value on a rounding boundary may take
+    the neighbouring bf16 value, so bf16 logits are held as the other bf16
+    outputs (one bf16 ulp of the largest), fp32 ones to 1e-5."""
+    jdt, tdt = DTYPES[dtype]
+    w = _weights(seed=2, ffn=ffn)
+    ja, ta = _jax_args(w, jdt), _torch_args(w, tdt)
+    want = jms.dyt_prologue_serving(ja["x"], *ja["sub"], *ja["ad"], heads=H,
+                                    with_select=with_select, interpret=True)
+    got = tms.dyt_prologue_serving(ta["x"], *ta["sub"], *ta["ad"], heads=H,
+                                   with_select=with_select)
+    assert got[1].shape == (B, N, C)
+    _close(got[0], _np(want[0]), dtype)
+    _close(got[1], _np(want[1]), dtype)
+    if with_select:
+        assert got[2].dtype == torch.float32 and got[2].shape == (B, N, 1)
+        _close(got[2], _np(want[2]), dtype)
 
 
 def test_attn_core_matches_jax_fused_core():

@@ -196,26 +196,30 @@ def test_dyt_prologue_q8_matches_jax_kernel(dtype, with_select, attn_q8):
 
 # --- K10 ---------------------------------------------------------------------
 
-def _jax_core_q8(qkv, jdt):
+def _jax_core_q8(qkv, jdt, heads=H):
     """The JAX core on one sample at a time (it writes a [N, C] ref)."""
-    hd = C // H
+    n, c = qkv.shape[1], qkv.shape[2] // 3
+    hd = c // heads
     outs = []
     for s in qkv:
-        out = np.zeros((N, C), jdt)
-        jq.attn_core_pairs_q8(jnp.asarray(s).astype(jdt), out, heads=H,
+        out = np.zeros((n, c), jdt)
+        jq.attn_core_pairs_q8(jnp.asarray(s).astype(jdt), out, heads=heads,
                               hd=hd, scale=hd ** -0.5)
         outs.append(out.astype(np.float32))
     return np.stack(outs)
 
 
-def _pair_qkv(seed=5):
-    """qkv whose head pair has k lanes of very different ranges: head 1's
-    keys are 20x head 0's, and every k lane carries a common offset."""
+def _pair_qkv(seed=5, n=N, c=C, heads=H):
+    """qkv whose head pairs have k lanes of very different ranges: the
+    second head's keys are 20x the first's, and every k lane carries a
+    common offset."""
+    hd = c // heads
     rs = np.random.RandomState(seed)
-    qkv = rs.randn(B, N, 3 * C).astype(np.float32)
-    qkv[..., C:C + 64] *= 0.5
-    qkv[..., C + 64:2 * C] *= 10.0
-    qkv[..., C:2 * C] += 3.0
+    qkv = rs.randn(B, n, 3 * c).astype(np.float32)
+    k = qkv[..., c:2 * c].reshape(B, n, heads // 2, 2, hd)
+    k[..., 0, :] *= 0.5
+    k[..., 1, :] *= 10.0
+    qkv[..., c:2 * c] = k.reshape(B, n, c) + 3.0
     return qkv
 
 
@@ -226,6 +230,22 @@ def test_attn_core_q8_matches_jax(dtype):
     want = _jax_core_q8(qkv, jdt)
     got = tq.attn_core_pairs_q8(_t(qkv).to(tdt), heads=H)
     assert got.dtype == tdt and got.shape == (B, N, C)
+    _close(got, want, dtype)
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("hd,n", [(128, 17), (128, 65), (128, 257),
+                                  (64, 65), (64, 257)])
+def test_attn_core_q8_matches_jax_across_shapes(hd, n, dtype):
+    """K10's plain version (which the card's kernel is held to) against the
+    JAX core at head dim 128 (one head pair of width 256) and past one and
+    four 64-row query tiles."""
+    jdt, tdt = DTYPES[dtype]
+    heads = 256 // hd
+    qkv = _pair_qkv(n=n, c=256, heads=heads)
+    want = _jax_core_q8(qkv, jdt, heads=heads)
+    got = tq.attn_core_pairs_q8(_t(qkv).to(tdt), heads=heads)
+    assert got.dtype == tdt and got.shape == (B, n, 256)
     _close(got, want, dtype)
 
 
