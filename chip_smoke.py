@@ -110,8 +110,29 @@ Phases; any failure exits non-zero:
      12 launches per forward of each of its kernels and none of the
      others, logits and gates against the same forward on the plain
      versions (gate agreement >= 0.995), img/s;
-  9. the wall time, the card's name and power limit (nvidia-smi), a JSON
-     line of the kernels, and last the JSON result line.
+  9. training (after phase 3): the port's train step (train/engine.py:
+     student and teacher forwards, the four-term loss, the backward, AdamW)
+     on ViT-B/16 at full width and depth with the bench's train setup
+     (batch 64, bf16 compute on fp32 master parameters, lr 1e-3, 100 steps
+     an epoch) from phase 3's weights, 8 steps: every loss part finite,
+     grad_norm finite and above 0, the frozen parameters bit-unchanged and
+     every trainable tensor moved, no hand kernel launched (counts set to 0
+     just before), peak memory; then the trained model serves in dispatch:
+     12 K3 launches, logits equal to those of a fresh copy of the trained
+     weights (the serving weight copies refreshed) and held against the
+     plain-version forward as in phase 3; then a 2-block fp32 model of
+     width 768 (dropout 0, TF32 off) takes 3 steps on the card and on the
+     CPU from the same weights and the same gumbel noise: loss parts within
+     rtol 1e-4, keep ratios and the final gates identical;
+ 10. the bench (after phase 5): dynamic_tuning_tpu_torch.bench.main at
+     its full protocol (image, int8, MoE, chip probe, train and seg
+     families), with the counts set to 0 just before: one JSON line whose
+     keys are BENCH_r05.json's, every field not null by design a positive
+     number, and K2, K3, K4, K6, K7, K8 and K9 launched as often as its
+     forwards need (the train family none);
+ 11. the wall time (and each new phase's), the card's name and power limit
+     (nvidia-smi), a JSON line of the kernels, and last the JSON result
+     line.
 Needs no network and imports nothing of JAX or of the JAX package.
 """
 
@@ -1415,6 +1436,169 @@ def phase_slide(torch, ms, qt, fm, bench, seg_train, upernet, model,
     return 4 * DEPTH
 
 
+def phase_train(torch, ms, qt, fm, np, bench, layers, vit, sd) -> None:
+    """The training path: the bench's train setup on ViT-B/16 at full width
+    and depth (phase 3's weights), 8 steps with no hand kernel, then the
+    trained model served on its kernels; and a 2-block fp32 model trained
+    on the card and on the CPU from the same weights and noise."""
+    model, state, step, x, y = bench.build_train("cuda", state_dict=sd)
+    with torch.inference_mode():                # fills the serving caches
+        before, _ = model(x, dispatch=True)
+    params = dict(model.named_parameters())
+    trainable = set(state.optimizer.names)
+    start = {n: p.detach().clone() for n, p in params.items()}
+    reset_counts(ms, qt, fm)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    parts = [step(state, x, y) for _ in range(bench.TRAIN_STEPS)]
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3 / bench.TRAIN_STEPS
+    counts = read_counts(ms, qt, fm)
+    if any(counts.values()) or qt.q8_patch_embed.launches:
+        fail(f"training launched hand kernels: {counts}")
+    for i, p in enumerate(parts):
+        bad = [k for k, v in p.items() if not torch.isfinite(v).all()]
+        if bad or not p["grad_norm"].item() > 0:
+            fail(f"train step {i}: parts {bad} not finite, or grad_norm "
+                 f"{p['grad_norm'].item()} not above 0")
+    for n, p in params.items():
+        if (n in trainable) == torch.equal(p.detach(), start[n]):
+            fail(f"train: {n} " + ("did not move" if n in trainable
+                                   else "is frozen and moved"))
+    last = {k: round(v.item(), 6) for k, v in parts[-1].items()}
+    print(f"train ViT-B/16 batch {bench.TRAIN_BATCH}: {bench.TRAIN_STEPS} "
+          f"steps, {step_ms:.2f} ms a step on the host's clock, peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, no hand "
+          f"kernel launched; {len(trainable)} trainable tensors all moved, "
+          f"the frozen ones bit-unchanged; last step {last}")
+
+    # the trained model serves on the kernels, with refreshed weight copies
+    reset_counts(ms, qt, fm)
+    with torch.inference_mode():
+        logits, aux = model(x, dispatch=True)
+    torch.cuda.synchronize()
+    counts = read_counts(ms, qt, fm)
+    want = {k: DEPTH if k == "dyt_prologue_serving" else 0 for k in KERNELS}
+    if counts != want:
+        fail(f"serving after training: launches {counts}, want {want}")
+    fresh = vit.VisionTransformer(model.cfg, tuning=model.tuning,
+                                  select=model.select_cfg,
+                                  dtype=torch.bfloat16)
+    fresh.load_state_dict(model.state_dict())
+    fresh.to("cuda")
+    with torch.inference_mode():
+        again, _ = fresh(x, dispatch=True)
+    if torch.equal(logits, before) or not torch.equal(logits, again):
+        fail("serving after training does not give what a fresh copy of the "
+             "trained weights gives")
+    compare_with_plain(torch, ms, qt, fm, dict(model=model, x=x,
+                                               logits=logits, aux=aux),
+                       "serving after training")
+    print("serving after training: 12 K3 launches, logits equal to a fresh "
+          "copy's (the weight copies refreshed)")
+    del model, state, step, fresh, start, params
+    torch.cuda.empty_cache()
+    train_card_vs_cpu(torch, np, layers, vit)
+
+
+def train_card_vs_cpu(torch, np, layers, vit) -> None:
+    """A 2-block fp32 ViT of width 768 (dropout 0, TF32 off) takes 3 steps on
+    the card and on the CPU from the same weights and gumbel noise."""
+    from dynamic_tuning_tpu_torch.checkpoint import make_vit_state_dict
+    from dynamic_tuning_tpu_torch.config import (ModelConfig, SelectConfig,
+                                                 TuningConfig)
+    from dynamic_tuning_tpu_torch.train import engine, optim
+    depth, batch, steps = 2, 8, 3
+    sd = make_vit_state_dict(np.random.RandomState(1), depth=depth, dim=C,
+                             ffn=FFN, classes=100, img=224, patch=16)
+    rs = np.random.RandomState(2)
+    x = torch.from_numpy(rs.randn(batch, 224, 224, 3).astype(np.float32))
+    y = torch.from_numpy(rs.randint(0, 100, batch))
+    noise = torch.from_numpy(rs.logistic(
+        size=(batch, depth, N - 1, 1)).astype(np.float32))
+    sel = SelectConfig(token_target_ratio=0.5)
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        model = vit.VisionTransformer(
+            ModelConfig(num_classes=100, depth=depth),
+            tuning=TuningConfig(dropout=0.0), select=sel,
+            dtype=torch.float32)
+        model.load_state_dict({k: torch.from_numpy(v) for k, v in
+                               sd.items()}, strict=True)
+        model.to(dev)
+        opt = optim.make_optimizer(optim.freeze(model), 1e-3,
+                                   warmup_epochs=0, steps_per_epoch=100)
+        state = engine.TrainState(opt, seed=3)
+        step = engine.make_train_step(model, sel)
+        parts = [step(state, x.to(dev), y.to(dev), gate_noise=noise.to(dev))
+                 for _ in range(steps)]
+        with torch.no_grad():
+            _, aux = model(x.to(dev), training=True, gate_noise=noise.to(dev))
+        runs[dev] = ([{k: v.item() for k, v in p.items()} for p in parts],
+                     aux["token_select"].cpu())
+    (card, card_gates), (cpu, cpu_gates) = runs["cuda"], runs["cpu"]
+    # one gate flipped moves the keep ratio by 1 / (batch * depth * 196);
+    # identical gates summed in another order, by an fp32 rounding.  Each
+    # loss part within rtol 1e-4, plus 1e-6 for the parts near 0 (the KL
+    # of two near-equal distributions: fp32 log-probabilities of logits of
+    # a few units carry ~1e-7 each)
+    worst = 0.0
+    for i, (a, b) in enumerate(zip(card, cpu)):
+        if abs(a["keep_ratio"] - b["keep_ratio"]) > 1e-6:
+            fail(f"train step {i}: keep ratio {a['keep_ratio']} on the card, "
+                 f"{b['keep_ratio']} on the CPU")
+        for k in a:
+            if abs(a[k] - b[k]) > 1e-4 * abs(b[k]) + 1e-6:
+                fail(f"train step {i} {k}: card {a[k]}, CPU {b[k]}")
+            worst = max(worst, abs(a[k] - b[k]) / max(abs(b[k]), 1e-30))
+    if not torch.equal(card_gates, cpu_gates):
+        fail("the trained 2-block models gate differently on the card and "
+             "the CPU")
+    print(f"train 2-block fp32 card vs CPU: {steps} steps, loss parts within "
+          f"rtol {worst:.3g} (needs 1e-4, + 1e-6 near 0), keep ratios and "
+          "final gates identical")
+
+
+def phase_bench(torch, ms, qt, fm, bench, sds, seg_sd) -> dict:
+    """bench.main at its full protocol: its line has the root bench's key
+    set and every field not null by design is a positive number; every
+    image-serving kernel and K9 ran as many times as its forwards need."""
+    from dynamic_tuning_tpu_torch.utils.profiling import forwards_run
+    with open(os.path.join(REPO, "BENCH_r05.json")) as f:
+        want_keys = list(json.load(f)["parsed"])
+    reset_counts(ms, qt, fm)
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        bench.main(state_dicts=sds, seg_sd=seg_sd)
+    lines = out.getvalue().splitlines()
+    print("bench: " + lines[-1])
+    line = json.loads(lines[-1])
+    if len(lines) != 1 or list(line) != want_keys:
+        fail(f"bench printed {len(lines)} lines, keys {list(line)}")
+    for k, v in line.items():
+        if k in bench.NULL_BY_DESIGN:
+            ok = v is None
+        elif k in ("metric", "unit", "seg_protocol"):
+            ok = isinstance(v, str)
+        else:
+            ok = isinstance(v, (int, float)) and v > 0
+        if not ok:
+            fail(f"bench field {k} = {v!r}")
+    fwd = bench.IMAGE_FORWARDS * DEPTH
+    seg = DEPTH * len(bench.SEG_MODES) * (1 + forwards_run(
+        bench.SEG_ITERS, bench.SEG_REPEATS, bench.SEG_WARMUP))
+    want = dict.fromkeys(KERNELS, 0)
+    want.update(attention_sublayer_serving=fwd, dyt_prologue_serving=fwd,
+                dyt_prologue_serving_q8=fwd, q8_ln_mlp=2 * fwd,
+                dyt_prologue_serving_moe=fwd,
+                dyt_prologue_serving_q8_moe=fwd, mha_windowed_fused=seg)
+    counts = read_counts(ms, qt, fm)
+    if counts != want or qt.q8_patch_embed.launches != 2 * fwd // DEPTH:
+        fail(f"bench: kernel launches {counts}, want {want}")
+    return counts
+
+
 def main() -> None:
     # the port's timing, bound and card helpers serve every phase
     global bound, card_line, time_ms
@@ -1475,6 +1659,9 @@ def main() -> None:
            for moe in (0, MOE)}
     print(f"synthetic ViT-B/16 weights: {time.perf_counter() - t0:.1f} s")
     launches = phase_model(torch, ms, qt, fm, speed, sds)
+    t0 = time.perf_counter()
+    phase_train(torch, ms, qt, fm, np, bench, layers, vit, sds[0])
+    print(f"phase train: {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
     seg_sd = bench.seg_state_dict(0)
@@ -1485,6 +1672,10 @@ def main() -> None:
     launches["mha_windowed_fused"] = k9
     del seg_model
     torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    for k, n in phase_bench(torch, ms, qt, fm, bench, sds, seg_sd).items():
+        launches[k] += n
+    print(f"phase bench: {time.perf_counter() - t0:.1f} s")
     for k, n in phase_layerscale(torch, ms, qt, fm, D, seg_vit,
                                  make_seg_state_dict, config, np).items():
         launches[k] += n

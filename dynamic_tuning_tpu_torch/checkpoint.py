@@ -79,6 +79,9 @@ _FLAX_TO_TIMM = {
     ("adaptmlp", "up_proj", "kernel"): "adaptmlp.up_proj.weight",
     ("adaptmlp", "up_proj", "bias"): "adaptmlp.up_proj.bias",
     ("adaptmlp", "scale"): "adaptmlp.scale",
+    # the adapter's in/out LayerNorm (the reference adapter's name)
+    ("adaptmlp", "ln", "scale"): "adaptmlp.adapter_layer_norm_before.weight",
+    ("adaptmlp", "ln", "bias"): "adaptmlp.adapter_layer_norm_before.bias",
     # the MoE adapter: the port's own names, mirroring the flax tree
     ("adaptmlp", "router", "kernel"): "adaptmlp.router.weight",
     ("adaptmlp", "down_kernel"): "adaptmlp.down_kernel",

@@ -1,7 +1,7 @@
 """DyT layers in PyTorch (counterpart of dynamic_tuning_tpu/models/layers.py):
 Mlp, Attention (with the windowed relative-position bias of the segmentation
-backbone), Adapter, MoEAdapter, TokenSelect, DropPath and Block, serving
-forms.
+backbone), Adapter (with its optional in/out LayerNorm), MoEAdapter,
+TokenSelect, DropPath and Block, in serving and training forms.
 
 Parameters are fp32 and carry timm's names (``attn.qkv.weight``,
 ``mlp.fc1.bias``, ``adaptmlp.down_proj.weight``,
@@ -24,9 +24,20 @@ and its Attention takes K9 (``ms.mha_windowed_fused``) where the JAX
 Attention would.  So does a block with LayerScale (``init_values``, the
 parameters ``gamma_1``/``gamma_2``) or BEiT q/v biases (``qv_bias_only``,
 the parameters ``attn.q_bias``/``attn.v_bias``), whose Attention takes K1
-(``ms.mha_serving_fused``) with no window at N <= 512.  Training and the
-adapter's in/out LayerNorm belong to later slices and raise
-NotImplementedError.
+(``ms.mha_serving_fused``) with no window at N <= 512.  An adapter with
+an in/out LayerNorm does not fuse: its block runs K2 (K5) for the sublayer,
+then the router and the adapter modules, as the JAX Block does.
+
+Training (``training=True``) takes the module path only, as the JAX
+training program reaches no Pallas kernel: no fused sublayer, no K1/K9, no
+K4, no int8.  The router draws its gumbel noise, and dropout and stochastic
+depth their masks, from the explicit generators of a ``Draws`` (or the
+router takes given noise); no global RNG state is used.  A parameter that
+requires grad is cast live to the compute dtype while grad is enabled, so
+its gradient flows; frozen weights keep their cached copies.  With
+``tags`` (``remat="scores"``) the qkv, the post-projection output and
+fc1's output pass through ``remat_save``, which the selective checkpoint
+keeps; everything else in the block is recomputed in the backward.
 """
 
 from __future__ import annotations
@@ -42,9 +53,102 @@ from dynamic_tuning_tpu_torch.config import SelectConfig, TuningConfig
 from dynamic_tuning_tpu_torch.ops import dispatch as D
 from dynamic_tuning_tpu_torch.ops import mha_serving as ms
 from dynamic_tuning_tpu_torch.ops import quant as qt
-from dynamic_tuning_tpu_torch.ops.gumbel import gumbel_sigmoid
+from dynamic_tuning_tpu_torch.ops.gumbel import gumbel_sigmoid, logistic_noise
 
 LN_EPS = 1e-6
+_MASK64 = (1 << 64) - 1
+
+
+# --- training randomness (explicit, seeded) ----------------------------------
+
+def _splitmix64(z: int) -> int:
+    z = (z + 0x9E3779B97F4A7C15) & _MASK64
+    z = ((z ^ (z >> 30)) * 0xBF58476D1CE4E5B9) & _MASK64
+    z = ((z ^ (z >> 27)) * 0x94D049BB133111EB) & _MASK64
+    return z ^ (z >> 31)
+
+
+def fold_in(seed: int, data: int) -> int:
+    """A 64-bit seed derived from ``seed`` and ``data`` (the role of
+    ``jax.random.fold_in``): distinct ``data`` give unrelated streams."""
+    return _splitmix64((seed & _MASK64) ^ _splitmix64(data & _MASK64))
+
+
+class Draws:
+    """The random streams of one forward, by purpose: ``gate`` (the routers'
+    gumbel noise) and ``dropout`` (dropout and stochastic depth), each a
+    64-bit seed.  ``fold(i)`` gives module i seeds of its own;
+    ``generator(purpose)`` is a ``torch.Generator`` on ``device`` seeded once
+    per Draws object, so a module's draws follow one another in call order,
+    and a block recomputed in the backward (remat), which folds anew, draws
+    what its forward drew."""
+
+    def __init__(self, device, **seeds: int):
+        self.device = torch.device(device)
+        self.seeds = seeds
+        self._gens = {}
+
+    def fold(self, i: int) -> "Draws":
+        return Draws(self.device,
+                     **{k: fold_in(s, i) for k, s in self.seeds.items()})
+
+    def generator(self, purpose: str) -> torch.Generator:
+        g = self._gens.get(purpose)
+        if g is None:
+            if purpose not in self.seeds:
+                raise ValueError(f"this forward was given no {purpose!r} "
+                                 "seed")
+            g = torch.Generator(device=self.device)
+            g.manual_seed(self.seeds[purpose])
+            self._gens[purpose] = g
+        return g
+
+
+def _generator(draws: Optional[Draws], purpose: str) -> torch.Generator:
+    if draws is None:
+        raise ValueError(f"a training forward that draws {purpose} "
+                         "randomness needs draws= (no global RNG is used)")
+    return draws.generator(purpose)
+
+
+def dropout(x: torch.Tensor, rate: float, draws: Optional[Draws]
+            ) -> torch.Tensor:
+    """flax ``nn.Dropout`` in training: each element kept with probability
+    ``1 - rate`` and scaled by its inverse, else 0; the identity at rate 0."""
+    if rate == 0.0:
+        return x
+    if rate == 1.0:
+        return torch.zeros_like(x)
+    keep = 1.0 - rate
+    mask = torch.rand(x.shape, generator=_generator(draws, "dropout"),
+                      device=x.device) < keep
+    return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype,
+                                                   device=x.device))
+
+
+_SAVE_OP = None
+
+
+def _copy(x: torch.Tensor) -> torch.Tensor:
+    return x.clone()
+
+
+def remat_save_op():
+    """The op ``dyt_port::remat_save`` (a copy), the tag that
+    ``remat="scores"``'s selective checkpoint saves: the role of the JAX
+    package's ``checkpoint_name``.  Registered on first use."""
+    global _SAVE_OP
+    if _SAVE_OP is None:
+        if not hasattr(torch.ops.dyt_port, "remat_save"):
+            op = torch.library.custom_op("dyt_port::remat_save",
+                                         mutates_args=())(_copy)
+            op.register_autograd(lambda ctx, grad: grad)
+        _SAVE_OP = torch.ops.dyt_port.remat_save.default
+    return _SAVE_OP
+
+
+def remat_save(x: torch.Tensor) -> torch.Tensor:
+    return remat_save_op()(x)
 
 
 # --- initialisation (all draws from an explicit generator) -------------------
@@ -94,6 +198,9 @@ class _WeightCache:
         return hit[1]
 
     def get(self, p: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+        if p.requires_grad and torch.is_grad_enabled():
+            # trained: cast live, so the gradient reaches p
+            return p.to(dtype)
         if p.dtype == dtype:
             return p.detach()
         return self.cached(p, dtype, lambda t: t.to(dtype).contiguous())
@@ -122,28 +229,38 @@ def _layer_norm(x: torch.Tensor, norm: nn.LayerNorm) -> torch.Tensor:
 # --- modules -----------------------------------------------------------------
 
 class DropPath(nn.Module):
-    """Stochastic depth; the identity in eval (every recipe runs rate 0)."""
+    """Per-sample stochastic depth (the JAX DropPath): in training each
+    sample's branch is kept with probability ``1 - rate`` and scaled by its
+    inverse, else 0; the identity in eval and at rate 0."""
 
     def __init__(self, rate: float = 0.0):
         super().__init__()
         self.rate = rate
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.training and self.rate > 0.0:
-            raise NotImplementedError("stochastic depth trains in the "
-                                      "training slice")
-        return x
+    def forward(self, x: torch.Tensor, *, training: bool = False,
+                draws: Optional[Draws] = None) -> torch.Tensor:
+        if self.rate == 0.0 or not training:
+            return x
+        keep = 1.0 - self.rate
+        shape = (x.shape[0],) + (1,) * (x.ndim - 1)
+        mask = torch.rand(shape, generator=_generator(draws, "dropout"),
+                          device=x.device) < keep
+        return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype,
+                                                       device=x.device))
 
 
 class Mlp(nn.Module):
-    """fc1 -> GELU (erf, or tanh with ``gelu_approx``) -> fc2 in ``dtype``."""
+    """fc1 -> GELU (erf, or tanh with ``gelu_approx``) -> dropout -> fc2 ->
+    dropout in ``dtype`` (dropout at rate ``drop``, in training only)."""
 
     def __init__(self, dim: int, hidden: int, generator: torch.Generator, *,
-                 gelu_approx: bool = False, dtype=torch.bfloat16):
+                 gelu_approx: bool = False, drop: float = 0.0,
+                 dtype=torch.bfloat16):
         super().__init__()
         self.fc1 = _linear(dim, hidden, generator)
         self.fc2 = _linear(hidden, dim, generator)
         self.gelu = "tanh" if gelu_approx else "none"
+        self.drop = drop
         self.dtype = dtype
         self._w = _WeightCache()
 
@@ -152,10 +269,16 @@ class Mlp(nn.Module):
         return (*self._w.int8(self.fc1.weight), self.fc1.bias.detach(),
                 *self._w.int8(self.fc2.weight), self.fc2.bias.detach())
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, *, training: bool = False,
+                draws: Optional[Draws] = None,
+                tags: bool = False) -> torch.Tensor:
         h = _dense(x, self.fc1, self._w, self.dtype)
+        if tags:
+            h = remat_save(h)
         h = F.gelu(h, approximate=self.gelu)
-        return _dense(h, self.fc2, self._w, self.dtype)
+        rate = self.drop if training else 0.0
+        h = dropout(h, rate, draws)
+        return dropout(_dense(h, self.fc2, self._w, self.dtype), rate, draws)
 
 
 # --- relative-position bias (the segmentation backbone) ----------------------
@@ -223,8 +346,11 @@ def _rel_pos_bias_from_table(table: torch.Tensor, wh: int, ww: int, *,
 class Attention(nn.Module):
     """Multi-head self-attention, on the JAX Attention's branches: with no
     window, K1 (``ms.mha_serving_fused``) where the fused-kernel predicate
-    holds and N <= 512; otherwise the unfused branch, the serving clamp form
-    when there is no attention dropout, else the max-subtracted softmax.
+    holds (never in training) and N <= 512; otherwise the unfused branch,
+    the serving clamp form in eval with no attention dropout, else the
+    max-subtracted softmax, attention dropout in training, and the
+    probabilities rounded to the compute dtype before the product with v.
+    The projection's output takes dropout at ``proj_drop`` in training.
 
     ``window_size=(wh, ww)`` adds the learnable BEiT-style relative-position
     bias over the patch grid + CLS (the fp32 parameter
@@ -239,11 +365,13 @@ class Attention(nn.Module):
 
     def __init__(self, dim: int, num_heads: int, generator: torch.Generator,
                  *, qkv_bias: bool = True, attn_drop: float = 0.0,
+                 proj_drop: float = 0.0,
                  window_size: Optional[Tuple[int, int]] = None,
                  qv_bias_only: bool = False, dtype=torch.bfloat16):
         super().__init__()
         self.num_heads = num_heads
         self.attn_drop = attn_drop
+        self.proj_drop = proj_drop
         self.qkv = _linear(dim, 3 * dim, generator,
                            bias=qkv_bias and not qv_bias_only)
         if qkv_bias and qv_bias_only:
@@ -285,7 +413,9 @@ class Attention(nn.Module):
             self._w.get(self.relative_position_bias_table, dtype),
             *self.window_size, row_stride=row_stride)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, *, training: bool = False,
+                draws: Optional[Draws] = None,
+                tags: bool = False) -> torch.Tensor:
         B, N, C = x.shape
         hd = C // self.num_heads
         dt = self.dtype
@@ -295,8 +425,11 @@ class Attention(nn.Module):
             # add of the bias rounded to the compute dtype
             qkv = qkv + torch.cat([self.q_bias, torch.zeros_like(self.q_bias),
                                    self.v_bias]).to(dt)
+        if tags:
+            qkv = remat_save(qkv)
         win = self.window_size
-        fusable = _attention_fusable(self.attn_drop, self.num_heads, hd)
+        fusable = _attention_fusable(not training, self.attn_drop,
+                                     self.num_heads, hd)
         if fusable and win is None and N <= 512:
             out = ms.mha_serving_fused(qkv, heads=self.num_heads)      # K1
             return self._dense(out, self.proj)
@@ -314,17 +447,21 @@ class Attention(nn.Module):
                          k.float().transpose(-1, -2))
         if win is not None:
             s = s + self._bias(torch.float32)
-        if self.attn_drop == 0.0:
+        if not training and self.attn_drop == 0.0:
             # serving form: no row max, normalisation after AV; l sums the
             # rounded p as the XLA branch does (layers.py:309-314)
             p = torch.exp(s.clamp(-60.0, 80.0) - 20.0).to(dt)
             out = torch.matmul(p.float(), v.float())
             out = (out / p.float().sum(dim=-1, keepdim=True)).to(dt)
         else:
-            # eval: attention dropout is the identity
-            out = torch.matmul(torch.softmax(s, dim=-1).to(dt), v)
+            p = dropout(torch.softmax(s, dim=-1),
+                        self.attn_drop if training else 0.0, draws)
+            out = torch.matmul(p.to(dt), v)
         out = out.transpose(1, 2).reshape(B, N, C)
-        return self._dense(out, self.proj)
+        out = self._dense(out, self.proj)
+        if tags:
+            out = remat_save(out)
+        return dropout(out, self.proj_drop if training else 0.0, draws)
 
 
 def _adapter_scale(module: nn.Module, cfg: TuningConfig) -> None:
@@ -339,11 +476,21 @@ def _adapter_scale(module: nn.Module, cfg: TuningConfig) -> None:
 
 
 class Adapter(nn.Module):
-    """AdaptFormer parallel bottleneck: down -> ReLU -> up -> * scale."""
+    """AdaptFormer parallel bottleneck: down -> ReLU -> dropout (training)
+    -> up -> * scale.  ``ffn_adapter_layernorm_option`` "in" puts an fp32
+    LayerNorm before the down projection, "out" after the scale (the JAX
+    module's ``ln``; the parameters ``adapter_layer_norm_before.*``, the
+    reference adapter's name for that LayerNorm in both places)."""
 
     def __init__(self, cfg: TuningConfig, dim: int,
                  generator: torch.Generator, *, dtype=torch.bfloat16):
         super().__init__()
+        if cfg.ffn_adapter_layernorm_option not in ("none", "in", "out"):
+            raise ValueError("ffn_adapter_layernorm_option: none, in or out")
+        self.ln_option = cfg.ffn_adapter_layernorm_option
+        if self.ln_option != "none":
+            self.adapter_layer_norm_before = nn.LayerNorm(dim, eps=LN_EPS)
+        self.drop = cfg.dropout
         lora = cfg.ffn_adapter_init_option == "lora"
         self.down_proj = _linear(dim, cfg.ffn_num, generator,
                                  init=kaiming_uniform_lora if lora
@@ -356,9 +503,14 @@ class Adapter(nn.Module):
         self.dtype = dtype
         self._w = _WeightCache()
 
+    def scale_value(self) -> torch.Tensor:
+        """The adapter scale as an fp32 [1] tensor (the parameter itself
+        when learnable)."""
+        return self.scale if hasattr(self, "scale") else self._scale
+
     def scale_tensor(self) -> torch.Tensor:
-        """The adapter scale as an fp32 [1] tensor."""
-        return (self.scale if hasattr(self, "scale") else self._scale).detach()
+        """The adapter scale as a detached fp32 [1] tensor (for kernels)."""
+        return self.scale_value().detach()
 
     def kernel_weights(self):
         """(wdown [F, C], bdown fp32, wup [C, F], bup fp32, scale fp32 [1])."""
@@ -368,10 +520,17 @@ class Adapter(nn.Module):
                 w(self.up_proj.weight, self.dtype),
                 self.up_proj.bias.detach(), self.scale_tensor())
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        down = _dense(x, self.down_proj, self._w, self.dtype)
-        up = _dense(torch.relu(down), self.up_proj, self._w, self.dtype)
-        return up * self.scale_tensor().to(up.dtype)
+    def forward(self, x: torch.Tensor, *, training: bool = False,
+                draws: Optional[Draws] = None) -> torch.Tensor:
+        if self.ln_option == "in":
+            x = _layer_norm(x, self.adapter_layer_norm_before)
+        down = torch.relu(_dense(x, self.down_proj, self._w, self.dtype))
+        down = dropout(down, self.drop if training else 0.0, draws)
+        up = _dense(down, self.up_proj, self._w, self.dtype)
+        up = up * self.scale_value().to(up.dtype)
+        if self.ln_option == "out":
+            up = _layer_norm(up, self.adapter_layer_norm_before)
+        return up
 
 
 class MoEAdapter(nn.Module):
@@ -394,6 +553,7 @@ class MoEAdapter(nn.Module):
         super().__init__()
         E, b = cfg.moe_experts, cfg.ffn_num
         self.experts, self.bneck, self.tau = E, b, cfg.moe_router_tau
+        self.drop = cfg.dropout
         self.router = _linear(dim, E, generator, bias=False,
                               init=lambda t, g: t.zero_())
         self.down_kernel = nn.Parameter(torch.empty(E, dim, b))
@@ -409,6 +569,7 @@ class MoEAdapter(nn.Module):
         self.dtype = dtype
         self._w = _WeightCache()
 
+    scale_value = Adapter.scale_value
     scale_tensor = Adapter.scale_tensor
 
     def kernel_weights(self):
@@ -422,25 +583,24 @@ class MoEAdapter(nn.Module):
         return (self.router.weight.detach(), down, bdown, up,
                 self.up_bias.detach(), self.scale_tensor())
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, *, training: bool = False,
+                draws: Optional[Draws] = None) -> torch.Tensor:
         w, dt = self._w.get, self.dtype
         gates = torch.softmax(F.linear(x.float(), self.router.weight)
                               / self.tau, dim=-1)               # [..., E]
         h = torch.einsum("...d,edb->...eb", x.to(dt),
                          w(self.down_kernel, dt)) + w(self.down_bias, dt)
-        up = torch.einsum("...eb,ebd->...ed", torch.relu(h),
+        h = dropout(torch.relu(h), self.drop if training else 0.0, draws)
+        up = torch.einsum("...eb,ebd->...ed", h,
                           w(self.up_kernel, dt)) + w(self.up_bias, dt)
         out = torch.einsum("...ed,...e->...d", up, gates.to(dt))
-        return out * self.scale_tensor().to(out.dtype)
+        return out * self.scale_value().to(out.dtype)
 
 
 def make_adapter(cfg: TuningConfig, dim: int, generator: torch.Generator, *,
                  dtype=torch.bfloat16) -> nn.Module:
-    """The block's adapter: ``MoEAdapter`` when ``moe_experts > 1``, else
-    ``Adapter``."""
-    if cfg.ffn_adapter_layernorm_option != "none":
-        raise NotImplementedError("adapter in/out LayerNorm comes with a "
-                                  "later slice")
+    """The block's adapter: ``MoEAdapter`` when ``moe_experts > 1`` (which,
+    as the JAX module, has no in/out LayerNorm), else ``Adapter``."""
     if cfg.moe_experts and cfg.moe_experts > 1:
         return MoEAdapter(cfg, dim, generator, dtype=dtype)
     return Adapter(cfg, dim, generator, dtype=dtype)
@@ -448,48 +608,72 @@ def make_adapter(cfg: TuningConfig, dim: int, generator: torch.Generator, *,
 
 class TokenSelect(nn.Module):
     """Router: an fp32 1-unit head on the non-CLS tokens; the eval gate is
-    ``sigmoid(logits) > threshold``, CLS forced on."""
+    ``sigmoid(logits) > threshold``; in training the hard straight-through
+    gumbel-sigmoid at temperature ``tau``, its logistic noise given
+    (``noise``, [B, T, 1]) or drawn from ``draws``' gate stream.  CLS
+    forced on."""
 
     def __init__(self, dim: int, generator: torch.Generator, *,
-                 threshold: float = 0.5):
+                 threshold: float = 0.5, tau: float = 5.0):
         super().__init__()
         self.mlp_head = _linear(dim, 1, generator)
         self.threshold = threshold
+        self.tau = tau
 
-    def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    def forward(self, x: torch.Tensor, *, training: bool = False,
+                draws: Optional[Draws] = None,
+                noise: Optional[torch.Tensor] = None
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
         logits = F.linear(x[:, 1:, :].float(), self.mlp_head.weight,
                           self.mlp_head.bias)
-        return gate_with_cls(logits, self.threshold), logits
+        if not training:
+            return gate_with_cls(logits, self.threshold), logits
+        if noise is None:
+            noise = logistic_noise(logits.shape, _generator(draws, "gate"),
+                                   dtype=logits.dtype, device=logits.device)
+        gate = gumbel_sigmoid(logits, tau=self.tau, hard=True,
+                              threshold=self.threshold, training=True,
+                              noise=noise.to(logits.dtype))
+        return _cls_on(gate), logits
 
 
 def gate_with_cls(logits: torch.Tensor, threshold: float) -> torch.Tensor:
     """Eval hard gate [B, T, 1] from CLS-stripped logits, CLS prepended."""
-    gate = gumbel_sigmoid(logits, hard=True, threshold=threshold,
-                          training=False)
-    cls_on = torch.ones((logits.shape[0], 1, 1), dtype=gate.dtype,
+    return _cls_on(gumbel_sigmoid(logits, hard=True, threshold=threshold,
+                                  training=False))
+
+
+def _cls_on(gate: torch.Tensor) -> torch.Tensor:
+    """[B, T, 1] gate -> [B, T + 1, 1], a CLS gate of 1 first."""
+    cls_on = torch.ones((gate.shape[0], 1, 1), dtype=gate.dtype,
                         device=gate.device)
     return torch.cat([cls_on, gate], dim=1)
 
 
-def _attention_fusable(attn_drop: float, num_heads: int,
-                       head_dim: int) -> bool:
-    """The JAX Block's predicate for the fused serving kernels, in eval.
-    (The JAX form also asks for a TPU backend or interpret mode; here the
-    wrappers serve both devices.)"""
-    return (attn_drop == 0.0 and num_heads % 2 == 0
+def _attention_fusable(deterministic: bool, attn_drop: float,
+                       num_heads: int, head_dim: int) -> bool:
+    """The JAX Block's predicate for the fused serving kernels: a
+    deterministic (eval) forward without attention dropout.  (The JAX form
+    also asks for a TPU backend or interpret mode; here the wrappers serve
+    both devices.)"""
+    return (deterministic and attn_drop == 0.0 and num_heads % 2 == 0
             and (2 * head_dim) % 128 == 0)
 
 
 class Block(nn.Module):
-    """DyT transformer block, serving forward.  ``forward`` returns
-    ``(x, gate, logits)``; gate and logits are None without a router."""
+    """DyT transformer block.  ``forward`` returns ``(x, gate, logits)``;
+    gate and logits are None without a router.  Serving forms as the JAX
+    Block; ``training=True`` runs the module path (the mask-multiply form,
+    dropout, stochastic depth, the gumbel gate), with ``draws`` the block's
+    random streams or ``noise`` its router noise."""
 
     def __init__(self, dim: int, num_heads: int, generator: torch.Generator,
                  *, mlp_ratio: float = 4.0, qkv_bias: bool = True,
-                 attn_drop: float = 0.0, drop_path: float = 0.0,
-                 select: bool = True, window_size=None,
-                 gelu_approx: bool = False, init_values=None,
-                 qv_bias_only: bool = False, quant: str = "none",
+                 proj_drop: float = 0.0, attn_drop: float = 0.0,
+                 drop_path: float = 0.0, select: bool = True,
+                 window_size=None, gelu_approx: bool = False,
+                 init_values=None, qv_bias_only: bool = False,
+                 quant: str = "none",
                  tuning: TuningConfig = TuningConfig(),
                  select_cfg: SelectConfig = SelectConfig(),
                  dtype=torch.bfloat16):
@@ -505,7 +689,8 @@ class Block(nn.Module):
         self.norm1 = nn.LayerNorm(dim, eps=LN_EPS)
         self.window_size = window_size
         self.attn = Attention(dim, num_heads, generator, qkv_bias=qkv_bias,
-                              attn_drop=attn_drop, window_size=window_size,
+                              attn_drop=attn_drop, proj_drop=proj_drop,
+                              window_size=window_size,
                               qv_bias_only=qv_bias_only, dtype=dtype)
         # LayerScale (BEiT): fp32 [C], constant init_values at init
         self.init_values, self.qv_bias_only = init_values, qv_bias_only
@@ -515,10 +700,11 @@ class Block(nn.Module):
         self.drop_path = DropPath(drop_path)
         self.norm2 = nn.LayerNorm(dim, eps=LN_EPS)
         self.mlp = Mlp(dim, int(dim * mlp_ratio), generator,
-                       gelu_approx=gelu_approx, dtype=dtype)
+                       gelu_approx=gelu_approx, drop=proj_drop, dtype=dtype)
         if select:
             self.mlp_token_select = TokenSelect(
-                dim, generator, threshold=select_cfg.threshold)
+                dim, generator, threshold=select_cfg.threshold,
+                tau=select_cfg.tau)
         if tuning.ffn_adapt:
             self.adaptmlp = make_adapter(tuning, dim, generator, dtype=dtype)
 
@@ -531,7 +717,7 @@ class Block(nn.Module):
 
     def _mlp_rows(self, rows: torch.Tensor) -> torch.Tensor:
         """LN + MLP of ``rows`` (K4 with int8), LayerScale'd: the JAX
-        Block's ``mlp_rows``, before any gate."""
+        Block's ``mlp_rows``, before any gate; eval only."""
         if self.quant != "none":
             out = qt.q8_ln_mlp(rows, self.norm2.weight.detach(),
                                self.norm2.bias.detach(),
@@ -542,30 +728,38 @@ class Block(nn.Module):
         return self._layer_scale("gamma_2", out)
 
     def forward(self, x: torch.Tensor, complete_model: bool = False,
-                dispatch: bool = False
+                dispatch: bool = False, *, training: bool = False,
+                draws: Optional[Draws] = None,
+                noise: Optional[torch.Tensor] = None, tags: bool = False
                 ) -> Tuple[torch.Tensor, Optional[torch.Tensor],
                            Optional[torch.Tensor]]:
         B, N, C = x.shape
         # a windowed block never fuses its sublayer (its Attention takes
         # K9), nor does one with LayerScale or q/v biases (its Attention
-        # takes K1)
-        fuse = (_attention_fusable(self.attn_drop, self.num_heads,
-                                   C // self.num_heads) and N <= 512
-                and self.window_size is None and self.init_values is None
-                and not self.qv_bias_only)
+        # takes K1); a training forward never fuses
+        fuse = (_attention_fusable(not training, self.attn_drop,
+                                   self.num_heads, C // self.num_heads)
+                and N <= 512 and self.window_size is None
+                and self.init_values is None and not self.qv_bias_only)
+        # the adapter (or MoE adapter) fuses into the prologue kernel
+        # unless it has an in/out LayerNorm
+        fuse_adapter = (self.tuning.ffn_adapt and
+                        self.tuning.ffn_adapter_layernorm_option == "none")
         with_select = self.select and not complete_model
         thr = self.select_cfg.threshold
         gate = logits = adapt_x = None
+        adapter_done = False
         # int8: K6/K5 for the sublayer where the kernels apply, K4 for the
-        # MLP always -- on CUDA tensors the kernels run or raise, never bf16
-        q8 = self.quant != "none"
+        # MLP always in eval -- on CUDA tensors the kernels run or raise,
+        # never bf16
+        q8 = self.quant != "none" and not training
         attn_q8 = self.quant == "int8_attn"
 
         if fuse:
             attn_w = (self.attn.q8_weights() if q8
                       else self.attn.kernel_weights())
             g1, b1 = self.norm1.weight.detach(), self.norm1.bias.detach()
-        if fuse and self.tuning.ffn_adapt:
+        if fuse and fuse_adapter:
             head = self.mlp_token_select.mlp_head if with_select else None
             sel_w = ((head.weight.detach(), head.bias.detach())
                      if head is not None else (None, None))
@@ -597,23 +791,26 @@ class Block(nn.Module):
                 gate = gate_with_cls(logits, thr)
             else:
                 x, adapt_x = outs
+            adapter_done = True
+        elif fuse and q8:
+            x = qt.attention_sublayer_serving_q8(
+                x, g1, b1, *attn_w, heads=self.num_heads, attn_q8=attn_q8)
+        elif fuse:
+            x = ms.attention_sublayer_serving(x, g1, b1, *attn_w,
+                                              heads=self.num_heads)
         else:
-            if fuse and q8:
-                x = qt.attention_sublayer_serving_q8(
-                    x, g1, b1, *attn_w, heads=self.num_heads,
-                    attn_q8=attn_q8)
-            elif fuse:
-                x = ms.attention_sublayer_serving(x, g1, b1, *attn_w,
-                                                  heads=self.num_heads)
-            else:
-                h = self.attn(_layer_norm(x, self.norm1).to(self.dtype))
-                x = x + self.drop_path(self._layer_scale("gamma_1", h))
-            if with_select:
-                gate, logits = self.mlp_token_select(x)
-            if self.tuning.ffn_adapt:
-                adapt_x = self.adaptmlp(x.to(self.dtype))
+            h = self.attn(_layer_norm(x, self.norm1).to(self.dtype),
+                          training=training, draws=draws, tags=tags)
+            x = x + self.drop_path(self._layer_scale("gamma_1", h),
+                                   training=training, draws=draws)
+        if with_select and gate is None:
+            gate, logits = self.mlp_token_select(x, training=training,
+                                                 draws=draws, noise=noise)
+        if self.tuning.ffn_adapt and not adapter_done:
+            adapt_x = self.adaptmlp(x.to(self.dtype), training=training,
+                                    draws=draws)
 
-        if dispatch and gate is not None:
+        if dispatch and gate is not None and not training:
             ratio = (self.select_cfg.capacity_ratio
                      if self.select_cfg.capacity_ratio is not None
                      else self.select_cfg.token_target_ratio)
@@ -627,7 +824,13 @@ class Block(nn.Module):
             # the gate actually applied, fp32 for keep-ratio accounting
             gate = eff_gate[..., None].float()
         else:
-            mlp_x = self.drop_path(self._mlp_rows(x))
+            if training:
+                mlp_x = self.mlp(_layer_norm(x, self.norm2).to(self.dtype),
+                                 training=True, draws=draws, tags=tags)
+                mlp_x = self.drop_path(self._layer_scale("gamma_2", mlp_x),
+                                       training=True, draws=draws)
+            else:
+                mlp_x = self._mlp_rows(x)
             if gate is not None:
                 mlp_x = gate.to(mlp_x.dtype) * mlp_x
 

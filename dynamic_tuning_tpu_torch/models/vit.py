@@ -1,27 +1,42 @@
 """DyT VisionTransformer in PyTorch (counterpart of
-dynamic_tuning_tpu/models/vit.py), serving forward.
+dynamic_tuning_tpu/models/vit.py), serving and training forwards.
 
 Images go in as NHWC ``[B, H, W, 3]`` floats, as in the JAX package.  Patch
 embedding is a stride-p convolution in the compute dtype (left to cuDNN, as
-the JAX package left it to XLA), or under ``cfg.quant`` int8 the int8 stem
-on the hand int8 GEMM; the residual stream is kept in
+the JAX package left it to XLA), or in eval under ``cfg.quant`` int8 the
+int8 stem on the hand int8 GEMM; the residual stream is kept in
 ``cfg.residual_dtype``; the final LayerNorm and the head are fp32.
 ``forward`` returns ``(logits, {"token_select": [B, L, T, 1] or None,
 "token_logits": [B, L, T, 1] or None})`` with CLS stripped from both.
+
+The eval forward runs without autograd.  ``training=True`` records the
+graph: the module path of every block (no hand kernel), the mask-multiply
+gate, dropout at ``pos_drop_rate``, ``drop_rate`` (the head) and the
+blocks' rates, stochastic depth, all drawn from ``draws``; the routers'
+gumbel noise drawn from it too, or given as ``gate_noise`` [B, L, T, 1].
+``cfg.remat`` (training only): ``True``/"full" recomputes each block in the
+backward (``torch.utils.checkpoint``), "scores" keeps each block's qkv,
+post-projection and fc1 outputs and recomputes the rest (a selective
+checkpoint, the JAX package's save-list policy).  A recomputed block folds
+its random streams anew, so it draws what its forward drew.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from dynamic_tuning_tpu_torch.config import (ModelConfig, SelectConfig,
                                              TuningConfig)
-from dynamic_tuning_tpu_torch.models.layers import (LN_EPS, Block,
-                                                     _WeightCache,
+from dynamic_tuning_tpu_torch.models.layers import (LN_EPS, Block, Draws,
+                                                     _WeightCache, dropout,
+                                                     remat_save_op,
                                                      trunc_normal_02)
 from dynamic_tuning_tpu_torch.ops import quant as qt
 
@@ -31,9 +46,10 @@ _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 class PatchEmbed(nn.Module):
     """p x p non-overlapping patches -> [B, T, C] in the compute dtype.
 
-    With ``quant`` int8 the stem is the JAX package's ``q8_conv``: int8
-    weights per output channel times int8 activations per image, as a patch
-    matmul on the int8 GEMM (``ops/quant.py::q8_patch_embed``)."""
+    With ``quant`` int8, in eval, the stem is the JAX package's
+    ``q8_conv``: int8 weights per output channel times int8 activations per
+    image, as a patch matmul on the int8 GEMM
+    (``ops/quant.py::q8_patch_embed``)."""
 
     def __init__(self, patch_size: int, in_chans: int, embed_dim: int,
                  generator: torch.Generator, *, dtype=torch.bfloat16,
@@ -48,8 +64,9 @@ class PatchEmbed(nn.Module):
         self.quant = quant
         self._w = _WeightCache()
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.quant != "none":
+    def forward(self, x: torch.Tensor, training: bool = False
+                ) -> torch.Tensor:
+        if self.quant != "none" and not training:
             return qt.q8_patch_embed(
                 x.to(self.dtype),
                 *self._w.int8(self.proj.weight, qt.quantize_conv_weight),
@@ -74,8 +91,9 @@ class VisionTransformer(nn.Module):
         super().__init__()
         if cfg.num_frames > 1:
             raise NotImplementedError("video comes with its own slice")
-        if cfg.remat:
-            raise NotImplementedError("remat is a training option")
+        if cfg.remat not in (False, True, "full", "scores"):
+            raise ValueError(f"remat={cfg.remat!r}: False, True, 'full' or "
+                             "'scores'")
         if select.open and not cfg.class_token:
             raise ValueError("token routing (select.open=True) requires "
                              "class_token=True")
@@ -95,7 +113,8 @@ class VisionTransformer(nn.Module):
             torch.randn(1, cfg.seq_len, C, generator=generator) * 0.02)
         self.blocks = nn.ModuleList([
             Block(C, cfg.num_heads, generator, mlp_ratio=cfg.mlp_ratio,
-                  qkv_bias=cfg.qkv_bias, attn_drop=cfg.attn_drop_rate,
+                  qkv_bias=cfg.qkv_bias, proj_drop=cfg.proj_drop_rate,
+                  attn_drop=cfg.attn_drop_rate,
                   drop_path=cfg.drop_path_rate * i / max(cfg.depth - 1, 1),
                   select=select.open and i >= select.keep_layers,
                   gelu_approx=cfg.gelu_approx, quant=cfg.quant,
@@ -110,22 +129,44 @@ class VisionTransformer(nn.Module):
         if device is not None:
             self.to(device)
 
-    @torch.no_grad()
     def forward(self, x: torch.Tensor, *, training: bool = False,
-                complete_model: bool = False, dispatch: bool = False
+                complete_model: bool = False, dispatch: bool = False,
+                draws: Optional[Draws] = None,
+                gate_noise: Optional[torch.Tensor] = None
                 ) -> Tuple[torch.Tensor, Dict[str, Optional[torch.Tensor]]]:
         if training:
-            raise NotImplementedError("training comes with its own slice")
+            return self._forward(x, True, complete_model, False, draws,
+                                 gate_noise)
+        with torch.no_grad():
+            return self._forward(x, False, complete_model, dispatch, None,
+                                 None)
+
+    def _forward(self, x, training, complete_model, dispatch, draws,
+                 gate_noise):
         cfg = self.cfg
         B = x.shape[0]
-        x = self.patch_embed(x).float()
+        top = draws.fold(cfg.depth) if draws is not None else None
+        x = self.patch_embed(x, training).float()
         if cfg.class_token:
             x = torch.cat([self.cls_token.expand(B, -1, -1), x], dim=1)
-        x = (x + self.pos_embed).to(self.residual_dtype)
+        x = x + self.pos_embed
+        if training:
+            x = dropout(x, cfg.pos_drop_rate, top)
+        x = x.to(self.residual_dtype)
 
         gates, logits_all = [], []
-        for blk in self.blocks:
-            x, gate, logits = blk(x, complete_model, dispatch)
+        for i, blk in enumerate(self.blocks):
+            noise = (gate_noise[:, len(gates)]
+                     if gate_noise is not None and blk.select
+                     and not complete_model else None)
+            run = functools.partial(
+                _run_block, blk, complete_model=complete_model,
+                dispatch=dispatch, training=training, draws=draws, index=i,
+                noise=noise)
+            if training and cfg.remat:
+                x, gate, logits = _checkpointed(run, x, cfg.remat)
+            else:
+                x, gate, logits = run(x)
             if gate is not None:
                 gates.append(gate)
                 logits_all.append(logits)
@@ -136,6 +177,8 @@ class VisionTransformer(nn.Module):
             pooled = x[:, 1 if cfg.class_token else 0:].mean(dim=1)
         else:
             pooled = x[:, 0]
+        if training:
+            pooled = dropout(pooled, cfg.drop_rate, top)
         logits = F.linear(pooled, self.head.weight, self.head.bias)
         if gates:
             token_select = torch.stack(gates, dim=1)[:, :, 1:, :]
@@ -144,6 +187,33 @@ class VisionTransformer(nn.Module):
             token_select = token_logits = None
         return logits, {"token_select": token_select,
                         "token_logits": token_logits}
+
+
+def _run_block(blk, x, *, complete_model, dispatch, training, draws, index,
+               noise, tags=False):
+    """One block; its random streams are folded here, inside any
+    checkpointed region, so a recompute starts them afresh."""
+    return blk(x, complete_model, dispatch, training=training,
+               draws=draws.fold(index) if draws is not None else None,
+               noise=noise, tags=tags)
+
+
+def _save_tagged(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op == remat_save_op()
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _checkpointed(run, x, remat):
+    """``run(x)`` recomputed in the backward: whole (``True``/"full"), or
+    all but the tagged outputs ("scores").  The global RNG is not used, so
+    its state is not saved."""
+    if remat == "scores":
+        return checkpoint(
+            functools.partial(run, tags=True), x, use_reentrant=False,
+            preserve_rng_state=False,
+            context_fn=functools.partial(create_selective_checkpoint_contexts,
+                                         _save_tagged))
+    return checkpoint(run, x, use_reentrant=False, preserve_rng_state=False)
 
 
 def vit_base_patch16_224_in21k(num_classes: int = 1000,

@@ -1270,3 +1270,97 @@ def test_make_mm_bf16_kernel(M, K, N):
     want = pi.mm_plain(a, b, torch.float64)
     err = (got.double() - want).abs().max().item()
     assert err <= 2.0 ** -16 * want.abs().max().item(), err
+
+
+# --- training on the card --------------------------------------------------
+#
+# The training path is the module path (no hand kernel): on the card it runs
+# cuBLAS and torch's own kernels.  fp32 with TF32 off, it agrees with the
+# CPU to fp32 summation order.
+
+def _toy_train(device, dtype, *, seed=31, noise=None):
+    """(model, images, train): a toy DyT ViT (width 128 in 2 heads of 64,
+    so its eval blocks fuse; adapter 16; 17 tokens) on ``device`` from
+    seeded weights, and ``train(steps)``, which trains it and returns each
+    step's parts."""
+    from dynamic_tuning_tpu_torch.config import (ModelConfig, SelectConfig,
+                                                 TuningConfig)
+    from dynamic_tuning_tpu_torch.models.vit import VisionTransformer
+    from dynamic_tuning_tpu_torch.train import engine, optim
+
+    sel = SelectConfig(token_target_ratio=0.5)
+    model = VisionTransformer(
+        ModelConfig(img_size=32, patch_size=8, embed_dim=128, depth=2,
+                    num_heads=2, num_classes=10),
+        tuning=TuningConfig(ffn_num=16, d_model=128, dropout=0.0),
+        select=sel, dtype=dtype,
+        generator=torch.Generator().manual_seed(seed))
+    with torch.no_grad():
+        for blk in model.blocks:
+            blk.mlp_token_select.mlp_head.weight.mul_(50)
+            blk.adaptmlp.up_proj.weight.normal_(
+                0, 0.05, generator=torch.Generator().manual_seed(seed))
+    model.to(device)
+    opt = optim.make_optimizer(optim.freeze(model), 1e-3, warmup_epochs=0,
+                               steps_per_epoch=10)
+    state = engine.TrainState(opt, seed=seed)
+    step = engine.make_train_step(model, sel)
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn((6, 32, 32, 3), generator=g).to(device)
+    y = torch.randint(0, 10, (6,), generator=g).to(device)
+    kw = {} if noise is None else dict(gate_noise=noise.to(device))
+    return model, x, lambda steps: [step(state, x, y, **kw)
+                                    for _ in range(steps)]
+
+
+def test_train_step_on_the_card_matches_the_cpu():
+    g = torch.Generator().manual_seed(5)
+    u = torch.rand((6, 2, 16, 1), generator=g).clamp(1e-6, 1 - 1e-6)
+    noise = torch.log(u) - torch.log1p(-u)
+    card = _toy_train("cuda", torch.float32, noise=noise)[2](3)
+    cpu = _toy_train("cpu", torch.float32, noise=noise)[2](3)
+    for a, b in zip(card, cpu):
+        # one gate flipped moves the keep ratio by 1/192; identical gates
+        # summed in another order, by an fp32 rounding
+        assert abs(a["keep_ratio"].item() - b["keep_ratio"].item()) < 1e-6
+        for k in a:
+            assert a[k].item() == pytest.approx(b[k].item(), rel=1e-4,
+                                                abs=1e-7), k
+
+
+def test_training_launches_no_kernel_and_serves_after():
+    """bf16 training on the card launches no hand kernel; the model, which
+    served before it, then serves in dispatch on K3 what a fresh copy of its
+    trained weights serves (the serving weight copies refreshed), and within
+    5% of the largest logit of the same forward on the plain versions, gates
+    identical."""
+    from dynamic_tuning_tpu_torch.models.vit import VisionTransformer
+
+    model, x, train = _toy_train("cuda", BF)
+    ms.reset_launch_counts()
+    qt.reset_launch_counts()
+    with torch.inference_mode():
+        before, _ = model(x, dispatch=True)
+    torch.cuda.synchronize()
+    assert ms.dyt_prologue_serving.launches == 2
+    ms.reset_launch_counts()
+    parts = train(4)
+    torch.cuda.synchronize()
+    assert all(getattr(m, k).launches == 0 for m in (ms, qt)
+               for k in dir(m) if hasattr(getattr(m, k), "launches"))
+    assert all(torch.isfinite(v).all() for p in parts for v in p.values())
+    fresh = VisionTransformer(model.cfg, tuning=model.tuning,
+                              select=model.select_cfg, dtype=BF)
+    fresh.load_state_dict(model.state_dict())
+    fresh.to("cuda")
+    with torch.inference_mode():
+        logits, aux = model(x, dispatch=True)
+        torch.cuda.synchronize()
+        assert ms.dyt_prologue_serving.launches == 2
+        again, _ = fresh(x, dispatch=True)
+        with plain_versions():
+            ref, ref_aux = model(x, dispatch=True)
+    assert not torch.equal(logits, before)
+    assert torch.equal(logits, again)
+    assert torch.equal(aux["token_select"], ref_aux["token_select"])
+    assert (logits - ref).abs().max().item() <= 0.05 * ref.abs().max().item()
