@@ -130,7 +130,25 @@ Phases; any failure exits non-zero:
      keys are BENCH_r05.json's, every field not null by design a positive
      number, and K2, K3, K4, K6, K7, K8 and K9 launched as often as its
      forwards need (the train family none);
- 11. the wall time (and each new phase's), the card's name and power limit
+ 11. the image runner (after phase 9), through the port's entry points
+     main_image.main and main_vtab.main at ViT-B/16 width and depth, phase
+     3's weights given as a --finetune .pth: A, two epochs of synthetic
+     data at batch 128 (8 steps each, train augmentation on the card, an
+     eval of 256 images after each); C, the same flags resumed from A's
+     epoch-0 checkpoint (epoch 1 alone, traced by torch.profiler for the
+     idle share); C's final_checkpoint.pth and optimizer moments equal
+     A's bit for bit, step and count equal, C's restored best metric A's
+     epoch-0 metric; A's last eval equals a fresh model loaded from A's
+     final_checkpoint.pth; main_vtab --task synthetic (the VTAB recipe:
+     batch 64, no augmentation, adapter 16, dispatch eval), one epoch;
+     main_image --eval --eval_ckpt on A's newest checkpoint gives the
+     acc1 of the eval that saved it.  Every epoch launches no hand kernel,
+     every eval forward K3 12 times and nothing else (counts checked at
+     each epoch's and eval's edges), each eval forward held against the
+     same forward on the plain versions (5% of the largest logit, gates
+     >= 99.5%); train img/s over A's second epoch, the traced epoch's
+     idle share, the augmentation's ms a batch, eval img/s, peak memory;
+ 12. the wall time (and each new phase's), the card's name and power limit
      (nvidia-smi), a JSON line of the kernels, and last the JSON result
      line.
 Needs no network and imports nothing of JAX or of the JAX package.
@@ -1560,6 +1578,282 @@ def train_card_vs_cpu(torch, np, layers, vit) -> None:
           "final gates identical")
 
 
+class RunnerProbe:
+    """Phase 11's instruments on the port's Runner: every evaluate() is timed
+    and checked -- no hand kernel since the last eval (training launches
+    none), K3 12 times a forward and nothing else during it, each forward's
+    logits and gates held against the same forward on the plain versions
+    -- and every train epoch is timed (one of them traced)."""
+
+    def __init__(self, torch, ms, qt, fm, R):
+        self.torch, self.ms, self.qt, self.fm, self.R = torch, ms, qt, fm, R
+        self.expect = dict.fromkeys(KERNELS, 0)
+        self.evals, self.epochs = [], []
+        self.trace_next_epoch = False
+        self.idle = self.top = None
+
+    def reset(self) -> None:
+        reset_counts(self.ms, self.qt, self.fm)
+        self.expect = dict.fromkeys(KERNELS, 0)
+
+    def _check_counts(self, what) -> None:
+        counts = read_counts(self.ms, self.qt, self.fm)
+        if counts != self.expect or self.qt.q8_patch_embed.launches:
+            fail(f"runner {what}: kernel launches {counts}, want "
+                 f"{self.expect}")
+
+    @contextlib.contextmanager
+    def installed(self):
+        real_eval, real_epoch = self.R.Runner.evaluate, \
+            self.R.Runner.train_one_epoch
+        probe = self
+
+        def evaluate(runner):
+            return probe.evaluate(runner, real_eval)
+
+        def train_one_epoch(runner, epoch):
+            return probe.train_one_epoch(runner, epoch, real_epoch)
+
+        # the runner's log goes to its file only: rank 1 has no console
+        quiet = self.R.create_logger
+        with mock.patch.object(self.R.Runner, "evaluate", evaluate), \
+                mock.patch.object(self.R.Runner, "train_one_epoch",
+                                  train_one_epoch), \
+                mock.patch.object(self.R, "create_logger",
+                                  lambda out, rank=0: quiet(out, 1)):
+            yield self
+
+    def train_one_epoch(self, runner, epoch, real):
+        torch = self.torch
+        self._check_counts(f"before epoch {epoch}")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if self.trace_next_epoch:
+            from torch.autograd import DeviceType
+            from torch.profiler import ProfilerActivity, profile
+
+            from dynamic_tuning_tpu_torch.utils.profile_forward import \
+                _busy_us
+            self.trace_next_epoch = False
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                stats = real(runner, epoch)
+                torch.cuda.synchronize()
+            ks = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+            if not ks:
+                fail("the traced epoch holds no device activity")
+            window = (max(e.time_range.end for e in ks)
+                      - min(e.time_range.start for e in ks))
+            busy = _busy_us((e.time_range.start, e.time_range.end)
+                            for e in ks)
+            per_name = {}
+            for e in ks:
+                per_name[e.name] = (per_name.get(e.name, 0.0)
+                                    + e.time_range.elapsed_us())
+            self.idle = (busy / 1e3, window / 1e3, len(ks))
+            self.top = sorted(per_name.items(), key=lambda kv: -kv[1])[:8]
+        else:
+            stats = real(runner, epoch)
+        torch.cuda.synchronize()
+        self.epochs.append(dict(epoch=epoch, s=time.perf_counter() - t0,
+                                steps=runner.steps_per_epoch,
+                                batch=runner.cfg.data.batch_size,
+                                stats=stats))
+        self._check_counts(f"epoch {epoch}")
+        bad = [k for k, v in stats.items() if v != v or abs(v) == float("inf")]
+        if bad:
+            fail(f"runner epoch {epoch}: {bad} not finite")
+        return stats
+
+    def evaluate(self, runner, real):
+        torch = self.torch
+        self._check_counts("before eval")
+        forwards = []
+        step = runner.eval_step
+
+        def recording(x):
+            logits, ts = step(x)
+            forwards.append((x, logits, ts))
+            return logits, ts
+
+        runner.eval_step = recording
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        try:
+            stats = real(runner)
+        finally:
+            runner.eval_step = step
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        self.expect["dyt_prologue_serving"] += DEPTH * len(forwards)
+        self._check_counts(f"eval ({len(forwards)} forwards)")
+        dispatch = runner.cfg.eval_dispatch
+        worst, agree = 0.0, 1.0
+        with plain_versions(self.ms, self.qt, self.fm), \
+                torch.inference_mode():
+            for x, logits, ts in forwards:
+                ref, ref_aux = runner.model(x, dispatch=dispatch)
+                err, mag = rel_err(logits, ref)
+                worst = max(worst, err / mag)
+                agree = min(agree, (ts == ref_aux["token_select"]
+                                    ).float().mean().item())
+                if not torch.isfinite(logits).all():
+                    fail("runner eval: logits not finite")
+        if worst > MODEL_REL or agree < GATE_AGREE:
+            fail(f"runner eval ({'dispatch' if dispatch else 'mask'}) vs "
+                 f"plain versions: max rel err {worst}, gate agreement "
+                 f"{agree}")
+        images = sum(len(x) for x, _, _ in forwards)
+        self.evals.append(dict(runner=runner, stats=stats, s=secs,
+                               images=images, forwards=forwards,
+                               worst=worst, agree=agree))
+        print(f"runner eval ({'dispatch' if dispatch else 'mask'}, "
+              f"{images} images, {len(forwards)} forwards, 12 K3 launches "
+              f"each and nothing else): acc1 {stats['acc1']}, keep ratio "
+              f"{stats['keep_ratio']:.6f}, gflops {stats['gflops']:.4f}; "
+              f"{images / secs:.1f} img/s; vs plain versions max rel err "
+              f"{worst:.3g}, gate agreement {agree:.6f}")
+        return stats
+
+
+def phase_runner(torch, ms, qt, fm, np, vit, sd) -> int:
+    """Phase 11: the image runner on the card, through main_image and
+    main_vtab; returns K3's launches."""
+    import shutil
+
+    from dynamic_tuning_tpu_torch import main_image, main_vtab
+    from dynamic_tuning_tpu_torch.checkpoint import (load_timm_state_dict,
+                                                     load_torch_state_dict,
+                                                     make_vit_state_dict)
+    from dynamic_tuning_tpu_torch.train import runner as R
+    root = os.path.join(REPO, "build", "phase_runner")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    ft64 = os.path.join(root, "ft64.pth")
+    ft16 = os.path.join(root, "ft16.pth")
+    torch.save({k: torch.from_numpy(v) for k, v in sd.items()}, ft64)
+    torch.save({k: torch.from_numpy(v) for k, v in make_vit_state_dict(
+        np.random.RandomState(0), depth=DEPTH, dim=C, ffn=16, classes=100,
+        img=224, patch=16, router_scale=25.0).items()}, ft16)
+    a, c, v = (os.path.join(root, d) for d in "acv")
+    flags = ["--dataset", "synthetic", "--batch_size", "128", "--epochs", "2",
+             "--warmup_epochs", "1", "--no_auto_remove", "--finetune", ft64]
+    parse = main_image.get_args_parser().parse_args
+    probe = RunnerProbe(torch, ms, qt, fm, R)
+    k3 = 0
+    with probe.installed():
+        # A: two epochs, an eval after each
+        probe.reset()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        main_image.main(parse(flags + ["--output_dir", a]))
+        peak = torch.cuda.max_memory_allocated()
+        k3 += probe.expect["dyt_prologue_serving"]
+        ev_a, ep_a = list(probe.evals), list(probe.epochs)
+        if [e["epoch"] for e in ep_a] != [0, 1] or len(ev_a) != 2:
+            fail(f"run A: epochs {[e['epoch'] for e in ep_a]}, "
+                 f"{len(ev_a)} evals")
+        runner_a = ev_a[-1]["runner"]
+        imgs, labels = next(iter(runner_a.train_loader))
+        aug_ms = time_ms(lambda: runner_a._device_batch(imgs, labels, True),
+                         iters=10)
+        # C: resumed from A's epoch-0 checkpoint with the same flags; its
+        # one epoch traced for the idle share
+        probe.reset()
+        probe.trace_next_epoch = True
+        main_image.main(parse(flags + [
+            "--output_dir", c, "--resume", os.path.join(a, "checkpoint-0.pth")]))
+        k3 += probe.expect["dyt_prologue_serving"]
+        ev_c = probe.evals[len(ev_a):]
+        runner_c = ev_c[-1]["runner"]
+        if [e["epoch"] for e in probe.epochs[len(ep_a):]] != [1]:
+            fail("the resumed run did not run epoch 1 alone")
+        if runner_c.max_metric != ev_a[0]["stats"]["metric"]:
+            fail(f"resumed max_metric {runner_c.max_metric}, A's epoch-0 "
+                 f"metric {ev_a[0]['stats']['metric']}")
+        fa = load_torch_state_dict(os.path.join(a, "final_checkpoint.pth"))
+        fc = load_torch_state_dict(os.path.join(c, "final_checkpoint.pth"))
+        differ = [k for k in fa if not torch.equal(fa[k], fc[k])]
+        oa, oc = (r.state.optimizer for r in (runner_a, runner_c))
+        if (runner_a.state.step, oa.count) != (runner_c.state.step, oc.count):
+            fail(f"resumed step/count {runner_c.state.step}/{oc.count}, "
+                 f"uninterrupted {runner_a.state.step}/{oa.count}")
+        if fa.keys() != fc.keys() or differ:
+            fail(f"the resumed final_checkpoint.pth differs from the "
+                 f"uninterrupted one in {len(differ)} tensors: {differ[:6]}")
+        sa, sc = oa.state_dict()["rule"], oc.state_dict()["rule"]
+        for part in ("mu", "nu"):
+            for k in sa[part]:
+                if not torch.equal(sa[part][k], sc[part][k]):
+                    fail(f"resumed optimizer {part} of {k} differs")
+        print(f"runner resume: final_checkpoint.pth of the resumed run equals "
+              f"the uninterrupted one bit for bit ({len(fa)} tensors), "
+              f"optimizer moments too; step {runner_c.state.step}, count "
+              f"{oc.count}; restored max_metric {runner_c.max_metric}")
+        # A's epoch-1 eval equals a fresh model loaded from its final weights
+        fresh = vit.VisionTransformer(runner_a.model_cfg,
+                                      tuning=runner_a.cfg.tuning,
+                                      select=runner_a.cfg.select,
+                                      dtype=torch.bfloat16)
+        load_timm_state_dict(fresh, fa, log=lambda *_: None)
+        fresh.to(runner_a.device)
+        with torch.inference_mode():
+            for x, logits, ts in ev_a[-1]["forwards"]:
+                again, aux = fresh(x)
+                if not (torch.equal(again, logits)
+                        and torch.equal(aux["token_select"], ts)):
+                    fail("A's last eval differs from a fresh model loaded "
+                         "from its final_checkpoint.pth")
+        del fresh
+        # the VTAB recipe with the dispatch eval
+        probe.reset()
+        vargs = main_vtab.get_args_parser().parse_args(
+            ["--task", "synthetic", "--epochs", "1", "--eval_dispatch",
+             "--finetune", ft16, "--output_dir", v])
+        main_vtab.main(vargs)
+        k3 += probe.expect["dyt_prologue_serving"]
+        ev_v = probe.evals[-1]
+        if ev_v["runner"].cfg.data.batch_size != 64 or len(
+                ev_v["forwards"]) != 4:
+            fail("main_vtab did not run its recipe (batch 64, 4 eval "
+                 "forwards)")
+        # --eval --eval_ckpt on A's newest checkpoint
+        newest = max((f for f in os.listdir(a) if f.startswith("checkpoint-")),
+                     key=lambda f: int(f[len("checkpoint-"):-len(".pth")]))
+        saved_by = ev_a[int(newest[len("checkpoint-"):-len(".pth")])]
+        probe.reset()
+        stats = main_image.main(parse(flags + [
+            "--output_dir", os.path.join(root, "e"), "--eval",
+            "--eval_ckpt", os.path.join(a, newest)]))
+        k3 += probe.expect["dyt_prologue_serving"]
+        if stats["acc1"] != saved_by["stats"]["acc1"]:
+            fail(f"--eval_ckpt {newest}: acc1 {stats['acc1']}, the eval "
+                 f"that saved it {saved_by['stats']['acc1']}")
+    last = ep_a[-1]
+    train_ips = last["steps"] * last["batch"] / last["s"]
+    busy_ms, window_ms, kernels = probe.idle
+    c_epoch = probe.epochs[len(ep_a)]
+    print(f"runner train: epoch 1 of run A {last['s']:.3f} s for "
+          f"{last['steps']} steps of {last['batch']}: {train_ips:.1f} img/s "
+          f"(loader, copy, augmentation and step, host clock); epoch 1 of "
+          f"run C traced ({c_epoch['s']:.3f} s under the profiler): "
+          f"kernel-busy {busy_ms:.1f} ms in {kernels} kernels, idle share "
+          f"{1 - busy_ms / window_ms:.4f} of its {window_ms:.1f} ms device "
+          f"window, {1 - busy_ms / 1e3 / last['s']:.4f} of run A's untraced "
+          f"epoch 1; peak memory {peak / 2**30:.2f} GiB")
+    print("runner traced epoch, device ms a step by kernel: " + "; ".join(
+        f"{name[:90]} {us / 1e3 / c_epoch['steps']:.2f}"
+        for name, us in probe.top))
+    print(f"runner train batch on the card (copy + crop + flip + normalize), "
+          f"CUDA events: {aug_ms:.3f} ms a batch of 128")
+    print(f"runner eval: {ev_a[-1]['images'] / ev_a[-1]['s']:.1f} img/s "
+          f"(mask, batch 128, with the loader); vtab dispatch "
+          f"{ev_v['images'] / ev_v['s']:.1f} img/s (batch 64), keep ratio "
+          f"{ev_v['stats']['keep_ratio']:.6f}; --eval_ckpt {newest} acc1 "
+          f"{stats['acc1']} as the eval that saved it; K3 launches {k3}")
+    shutil.rmtree(root, ignore_errors=True)
+    return k3
+
+
 def phase_bench(torch, ms, qt, fm, bench, sds, seg_sd) -> dict:
     """bench.main at its full protocol: its line has the root bench's key
     set and every field not null by design is a positive number; every
@@ -1662,6 +1956,10 @@ def main() -> None:
     t0 = time.perf_counter()
     phase_train(torch, ms, qt, fm, np, bench, layers, vit, sds[0])
     print(f"phase train: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    launches["dyt_prologue_serving"] += phase_runner(torch, ms, qt, fm, np,
+                                                     vit, sds[0])
+    print(f"phase runner: {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
     seg_sd = bench.seg_state_dict(0)

@@ -29,6 +29,10 @@ dynamic_tuning_tpu/train/checkpoint.py).
   interpolated bicubically, unknown keys reported and ignored, keys the
   checkpoint lacks (adapters and routers of an IN21K backbone) left at
   their init and returned as missing;
+* ``from_flax_train_state``: a JAX-package ``TrainState``'s parts (numpy
+  trees: the flat trainable and frozen dicts, optax's state, the step) ->
+  the port's model state dict, ``Optimizer.state_dict()`` and step, so a
+  run started in the JAX package continues in the port;
 * ``make_vit_state_dict`` / ``make_seg_state_dict``: seeded synthetic
   state dicts of the image model and of the segmentor, for runs on random
   weights (``chip_smoke.py``, the bench) and the tests.
@@ -157,6 +161,62 @@ def from_flax_params(params: Mapping, batch_stats: Mapping | None = None
     trees = [params] + ([batch_stats] if batch_stats else [])
     return {flax_path_to_port(p): _to_torch_layout(p, np.array(w))
             for tree in trees for p, w in _flatten(tree)}
+
+
+def _flat_tree(tree: Mapping) -> Dict[Tuple[str, ...], np.ndarray]:
+    """A flat ``{path tuple: array}`` dict (the JAX ``TrainState``'s form) or
+    a nested one -> the flat form."""
+    if tree and isinstance(next(iter(tree)), tuple):
+        return dict(tree)
+    return dict(_flatten(tree))
+
+
+def _timm_tree(tree: Mapping) -> Dict[str, np.ndarray]:
+    return {flax_path_to_timm(p): _to_torch_layout(p, np.array(w))
+            for p, w in _flat_tree(tree).items()}
+
+
+def _find_states(node, out: dict) -> dict:
+    """Walk an optax state (tuples and named tuples) by duck typing: the
+    adam moments (``mu``, ``nu``, ``count``) and MultiSteps' accumulation
+    (``mini_step``, ``acc_grads``)."""
+    if hasattr(node, "mu") and hasattr(node, "nu"):
+        out["adam"] = node
+    elif hasattr(node, "acc_grads") and hasattr(node, "mini_step"):
+        out["multi"] = node
+        _find_states(node.inner_opt_state, out)
+    elif isinstance(node, (tuple, list)):
+        for child in node:
+            _find_states(child, out)
+    return out
+
+
+def from_flax_train_state(trainable: Mapping, frozen: Mapping, opt_state,
+                          step) -> dict:
+    """The parts of a JAX-package ``TrainState`` (host numpy trees) ->
+    ``{"model": timm-named numpy state dict of every parameter,
+    "optimizer": the port's Optimizer.state_dict() (numpy), "step": int}``.
+
+    Reads optax adamw's ``mu``/``nu``/``count`` (laid out as the port's
+    tensors: Dense kernels transposed) and, with ``accum_iter > 1``,
+    ``MultiSteps``' running-mean buffer and ``mini_step``.  Load with
+    ``model.load_state_dict``, ``optimizer.load_state_dict`` and
+    ``TrainState.step``."""
+    found = _find_states(opt_state, {})
+    if "adam" not in found:
+        raise ValueError("no adamw state (mu, nu, count) in the optax state")
+    adam = found["adam"]
+    rule = {"mu": _timm_tree(adam.mu), "nu": _timm_tree(adam.nu),
+            "count": int(np.asarray(adam.count))}
+    multi = found.get("multi")
+    optimizer = {"rule": rule,
+                 "acc": None if multi is None else _timm_tree(
+                     multi.acc_grads),
+                 "mini_step": (0 if multi is None
+                               else int(np.asarray(multi.mini_step)))}
+    model = {**_timm_tree(frozen), **_timm_tree(trainable)}
+    return {"model": model, "optimizer": optimizer,
+            "step": int(np.asarray(step))}
 
 
 def make_vit_state_dict(rs: np.random.RandomState, *, depth: int, dim: int,

@@ -1,21 +1,34 @@
 """The reference's CLI surface for the port's entry points (counterpart of
-``add_common_args`` and ``add_reference_compat_args`` in
 dynamic_tuning_tpu/cli.py).
 
 ``add_common_args`` is the training entry points' shared flag set, with the
-JAX package's names and defaults; an entry point reads the flags its slice
-runs and accepts the rest.  The reference's launch scripts pass launcher and
-DDP flags to every entry point; ``add_reference_compat_args`` accepts them
-so those scripts run unchanged.  ``--model`` and ``--log_dir`` keep their
-meaning, ``--device`` is read by the entry points that can run on the CPU;
-the rest are accepted and do nothing here.
+JAX package's names and defaults; ``args_to_config`` maps it onto the
+port's ``RunConfig`` field for field as the JAX package's does, with the
+``paths.py`` registry lookups for ``--finetune`` and ``--data_path``.  The
+reference's launch scripts pass launcher and DDP flags to every entry
+point; ``add_reference_compat_args`` accepts them so those scripts run
+unchanged.  ``--model``, ``--log_dir`` and ``--start_epoch`` keep their
+meaning, ``--device`` is read by the entry points (``resolve_device``); the
+rest are accepted and do nothing here.
+
+Refused at the edges of the port: ``--model_parallel`` other than 1 (the
+port trains on one device), ``--ckpt_backend orbax`` (the port writes one
+``.pth`` file), and, on the card, ``--compute_dtype float32``
+(``require_card_dtype``: the hand kernels take bf16).
 """
 
 from __future__ import annotations
 
 import argparse
+import logging
+import os
 
 import torch
+
+from dynamic_tuning_tpu_torch import paths
+from dynamic_tuning_tpu_torch.config import (DataConfig, ModelConfig,
+                                             OptimConfig, RunConfig,
+                                             SelectConfig, TuningConfig)
 
 
 def add_common_args(parser: argparse.ArgumentParser):
@@ -94,8 +107,8 @@ def add_reference_compat_args(parser: argparse.ArgumentParser):
     g.add_argument("--no_pin_mem", action="store_false", dest="pin_mem")
     g.add_argument("--device", default=None,
                    help="cuda (the default) or cpu, for the entry points "
-                        "that can run on the CPU (seg_train.py, "
-                        "predict.py); speed.py "
+                        "that can run on the CPU (main_image.py, "
+                        "main_vtab.py, seg_train.py, predict.py); speed.py "
                         "runs on the current CUDA device")
     g.add_argument("--world_size", default=None, type=int,
                    help="ignored (no launcher)")
@@ -110,6 +123,104 @@ def add_reference_compat_args(parser: argparse.ArgumentParser):
                    help="declared but never read by the reference; accepted")
     g.add_argument("--vpt_num", default=1, type=int, help="see --vpt")
     return parser
+
+
+#: the one model family the reference ships, in its spellings
+KNOWN_MODELS = ("vit_base_patch16_224_in21k", "vit_base_patch16",
+                "vit_base_patch16_224")
+#: flags the reference declares but never reads
+_DEAD_IN_REFERENCE = ("global_pool", "vpt")
+#: launcher flags with no meaning for one process: warned when given
+_IGNORED_NONDEFAULT = {
+    "world_size": (None, "one process, one device"),
+    "local_rank": (None, "no per-process launcher"),
+    "dist_url": (None, "no rendezvous: one process"),
+}
+
+
+def check_compat_args(args) -> None:
+    """Validate ``--model`` and warn on the flags that do nothing here."""
+    log = logging.getLogger("dynamic_tuning_tpu_torch")
+    model = getattr(args, "model", KNOWN_MODELS[0])
+    if model not in KNOWN_MODELS:
+        raise ValueError(f"--model {model!r}: unknown model; the reference "
+                         f"ships {KNOWN_MODELS}")
+    for flag in _DEAD_IN_REFERENCE:
+        if getattr(args, flag, False):
+            log.warning("--%s is declared but never read by the reference; "
+                        "it does nothing here either", flag)
+    for flag, (default, why) in _IGNORED_NONDEFAULT.items():
+        if getattr(args, flag, default) != default:
+            log.warning("--%s is ignored: %s", flag, why)
+
+
+def _registry_data_path(name: str) -> str:
+    """The registry's data path of a dataset: the bare lowercase name, the
+    recipe spelling or the name without ``_full``."""
+    for key in (name, name.lower(), name.lower().removesuffix("_full")):
+        p = paths.dataset_path(key, "")
+        if p:
+            return p
+    return ""
+
+
+def args_to_config(args, *, no_aug: bool = False) -> RunConfig:
+    """The parsed flags -> ``RunConfig`` (the JAX package's
+    ``args_to_config`` without the mesh)."""
+    check_compat_args(args)
+    if args.model_parallel != 1:
+        raise ValueError(f"--model_parallel {args.model_parallel}: the port "
+                         "trains on one device (no model axis)")
+    if args.ckpt_backend == "orbax":
+        raise ValueError("--ckpt_backend orbax: orbax writes JAX arrays "
+                         "sharded over a TPU mesh; the port writes one .pth "
+                         "file (the default backend)")
+    finetune = args.finetune
+    if finetune and not os.path.exists(finetune):
+        finetune = paths.checkpoint_path(finetune, fallback=finetune)
+    data_path = args.data_path or _registry_data_path(args.dataset)
+    tuning = TuningConfig(ffn_adapt=args.ffn_adapt, ffn_num=args.ffn_num,
+                          ffn_adapter_scalar=args.adapter_scalar,
+                          moe_experts=args.moe_experts)
+    select = SelectConfig(open=not args.no_select,
+                          keep_layers=args.keep_layers,
+                          token_target_ratio=args.token_target_ratio,
+                          token_loss_ratio=args.token_loss_ratio,
+                          capacity_ratio=args.capacity_ratio)
+    optim = OptimConfig(blr=args.blr, lr=args.lr, min_lr=args.min_lr,
+                        weight_decay=args.weight_decay,
+                        clip_grad=args.clip_grad,
+                        warmup_epochs=args.warmup_epochs, epochs=args.epochs)
+    data = DataConfig(dataset=args.dataset, data_path=data_path,
+                      batch_size=args.batch_size, num_workers=args.num_workers,
+                      inception_norm=args.inception, no_aug=no_aug,
+                      canvas=getattr(args, "canvas", None))
+    model = ModelConfig(num_classes=args.nb_classes,
+                        drop_path_rate=args.drop_path,
+                        gelu_approx=args.gelu_approx,
+                        residual_dtype=args.residual_dtype,
+                        remat=args.remat, quant=args.quant)
+    return RunConfig(model=model, tuning=tuning, select=select, optim=optim,
+                     data=data, seed=args.seed, output_dir=args.output_dir,
+                     eval_dispatch=args.eval_dispatch,
+                     eval_freq=args.eval_freq, save_freq=args.save_freq,
+                     resume=args.resume, finetune=finetune,
+                     fulltune=args.fulltune, accum_iter=args.accum_iter,
+                     compute_dtype=args.compute_dtype,
+                     ckpt_backend=args.ckpt_backend,
+                     auto_remove=args.auto_remove,
+                     log_dir=getattr(args, "log_dir", ""),
+                     start_epoch=getattr(args, "start_epoch", 0))
+
+
+def require_card_dtype(compute_dtype: str, device: torch.device,
+                       entry: str) -> None:
+    """The hand kernels take bf16: on the card, ``--compute_dtype float32``
+    is refused up front (fp32 models run on the CPU)."""
+    if device.type == "cuda" and compute_dtype != "bfloat16":
+        raise ValueError(f"{entry}: --compute_dtype {compute_dtype} on the "
+                         "card: the serving kernels take bf16 (fp32 runs "
+                         "with --device cpu)")
 
 
 def resolve_device(name, entry: str) -> torch.device:

@@ -1,15 +1,18 @@
-"""Configuration dataclasses of the port (the image-serving subset of
+"""Configuration dataclasses of the port (the image subset of
 dynamic_tuning_tpu/config.py).
 
 The same field names and defaults as the JAX package's ``TuningConfig``,
-``SelectConfig`` and ``ModelConfig``, so a config built for one package
-describes the same model in the other.  The port keeps its own copy: it
-imports nothing of the JAX package.
+``SelectConfig``, ``ModelConfig``, ``OptimConfig``, ``DataConfig`` (its
+image fields; the video fields come with the video slice) and
+``RunConfig``, so a config built for one package describes the same run in
+the other.  ``RunConfig`` has no mesh: the port trains on one device.  The
+port keeps its own copy: it imports nothing of the JAX package.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+import dataclasses
+from dataclasses import dataclass, field
 from typing import Optional, Tuple, Union
 
 
@@ -84,3 +87,79 @@ class ModelConfig:
     @property
     def seq_len(self) -> int:
         return self.num_patches + (1 if self.class_token else 0)
+
+
+@dataclass(frozen=True)
+class OptimConfig:
+    """Optimizer + LR schedule (reference train_IN21K.sh, util/lr_sched.py)."""
+
+    blr: float = 1e-3                       # lr = blr * eff_batch / 256
+    lr: Optional[float] = None              # absolute lr, overrides blr
+    min_lr: float = 0.0
+    weight_decay: float = 0.01
+    warmup_epochs: float = 20.0
+    epochs: int = 100
+    clip_grad: Optional[float] = None
+    betas: Tuple[float, float] = (0.9, 0.999)
+
+    def absolute_lr(self, eff_batch_size: int) -> float:
+        if self.lr is not None:
+            return self.lr
+        return self.blr * eff_batch_size / 256.0
+
+
+@dataclass(frozen=True)
+class DataConfig:
+    """The image data settings."""
+
+    dataset: str = "cifar100"
+    data_path: str = ""
+    batch_size: int = 128
+    num_workers: int = 4
+    inception_norm: bool = False            # inception mean/std
+    no_aug: bool = False                    # VTAB-1K: no augmentation
+    canvas: Optional[int] = None            # decode canvas (224 / 256)
+
+
+@dataclass(frozen=True)
+class RunConfig:
+    """Top-level run configuration."""
+
+    model: ModelConfig = field(default_factory=ModelConfig)
+    tuning: TuningConfig = field(default_factory=TuningConfig)
+    select: SelectConfig = field(default_factory=SelectConfig)
+    optim: OptimConfig = field(default_factory=OptimConfig)
+    data: DataConfig = field(default_factory=DataConfig)
+    seed: int = 0
+    output_dir: str = "./output_dir"
+    eval_dispatch: bool = False             # evaluate on the dispatch path
+    eval_freq: int = 1
+    save_freq: int = 1
+    resume: str = ""
+    finetune: str = ""                      # pretrained .pth
+    fulltune: bool = False                  # train the whole backbone
+    accum_iter: int = 1
+    compute_dtype: str = "bfloat16"
+    ckpt_backend: str = "msgpack"           # the single-file backend
+    auto_remove: bool = True                # prune older epoch checkpoints
+    log_dir: str = ""                       # TensorBoard dir; "" = output_dir
+    start_epoch: int = 0                    # first epoch when not resuming
+
+    def replace(self, **kw) -> "RunConfig":
+        return dataclasses.replace(self, **kw)
+
+
+def vtab_config(task: str, data_path: str = "") -> RunConfig:
+    """The VTAB-1K recipe (reference main_vtab.py:350-352, train_vtab.sh)."""
+    return RunConfig(
+        tuning=TuningConfig(ffn_num=16, ffn_adapter_scalar="1.0"),
+        optim=OptimConfig(lr=1e-3, weight_decay=1e-4, warmup_epochs=10,
+                          epochs=100),
+        data=DataConfig(dataset=task, data_path=data_path, batch_size=64,
+                        no_aug=True))
+
+
+def image_config(dataset: str = "cifar100", data_path: str = "") -> RunConfig:
+    """The full-dataset image recipe (reference train_IN21K.sh)."""
+    return RunConfig(data=DataConfig(dataset=dataset, data_path=data_path,
+                                     batch_size=128))

@@ -18,6 +18,12 @@ update; ``accum_iter > 1`` wraps the chain in ``optax.MultiSteps``: the
 running mean of ``accum_iter`` gradients is applied once every
 ``accum_iter`` calls, and the other calls change nothing.  Every update
 runs on the parameters' device with no host synchronisation.
+
+``state_dict()`` / ``load_state_dict()`` carry the state a resumed run
+needs, keyed by the parameters' names: AdamW's ``mu``, ``nu`` and
+``count`` (LARS's momentum ``trace``), the accumulation buffer and
+``mini_step``.  A load copies into the existing tensors, which stay on
+their device.
 """
 
 from __future__ import annotations
@@ -105,6 +111,21 @@ def global_norm(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
         torch.stack(torch._foreach_norm(list(tensors))))
 
 
+@torch.no_grad()
+def _copy_named(dst: Sequence[torch.Tensor], src: Dict[str, torch.Tensor],
+                names: Sequence[str]) -> None:
+    """Copy ``src[name]`` into each of ``dst`` (in ``names`` order)."""
+    if set(src) != set(names):
+        raise KeyError(f"optimizer state for {sorted(set(src) ^ set(names))}"
+                       " does not match the trainable parameters")
+    for t, name in zip(dst, names):
+        v = torch.as_tensor(src[name])
+        if tuple(v.shape) != tuple(t.shape):
+            raise ValueError(f"optimizer state {name}: shape "
+                             f"{tuple(v.shape)}, parameter {tuple(t.shape)}")
+        t.copy_(v)
+
+
 class AdamW:
     """optax.adamw's update: ``-lr(count) * (m_hat / (sqrt(v_hat) + eps) +
     wd * p)``."""
@@ -118,6 +139,15 @@ class AdamW:
         self.mu = [torch.zeros_like(p) for p in params]
         self.nu = [torch.zeros_like(p) for p in params]
         self.count = 0
+
+    def state_dict(self, names: Sequence[str]) -> dict:
+        return {"mu": dict(zip(names, self.mu)),
+                "nu": dict(zip(names, self.nu)), "count": self.count}
+
+    def load_state_dict(self, state: dict, names: Sequence[str]) -> None:
+        _copy_named(self.mu, state["mu"], names)
+        _copy_named(self.nu, state["nu"], names)
+        self.count = int(state["count"])
 
     def updates(self, grads, params) -> List[torch.Tensor]:
         b1, b2 = self.b1, self.b2
@@ -155,6 +185,12 @@ class Lars:
         self.momentum, self.trust = momentum, trust_coefficient
         self.trace = [torch.zeros_like(p) for p in params]
 
+    def state_dict(self, names: Sequence[str]) -> dict:
+        return {"trace": dict(zip(names, self.trace))}
+
+    def load_state_dict(self, state: dict, names: Sequence[str]) -> None:
+        _copy_named(self.trace, state["trace"], names)
+
     def updates(self, grads, params) -> List[torch.Tensor]:
         out = []
         for g, p, t in zip(grads, params, self.trace):
@@ -188,6 +224,28 @@ class Optimizer:
         self.mini_step = 0
         self.acc = ([torch.zeros_like(p) for p in self.params]
                     if accum_iter > 1 else None)
+
+    @property
+    def count(self) -> int:
+        """Applied updates so far (the rule's count; LARS keeps none)."""
+        return getattr(self.rule, "count", 0)
+
+    def state_dict(self) -> dict:
+        """The state as tensors keyed by parameter name (shared with the
+        optimizer, not copied: ``torch.save`` it)."""
+        return {"rule": self.rule.state_dict(self.names),
+                "acc": (None if self.acc is None
+                        else dict(zip(self.names, self.acc))),
+                "mini_step": self.mini_step}
+
+    def load_state_dict(self, state: dict) -> None:
+        self.rule.load_state_dict(state["rule"], self.names)
+        if (state["acc"] is None) != (self.acc is None):
+            raise ValueError("the saved optimizer and this one differ in "
+                             "accum_iter (accumulation buffer)")
+        if self.acc is not None:
+            _copy_named(self.acc, state["acc"], self.names)
+        self.mini_step = int(state["mini_step"])
 
     @torch.no_grad()
     def step(self, grads: Sequence[torch.Tensor]) -> bool:

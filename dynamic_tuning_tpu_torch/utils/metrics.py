@@ -1,11 +1,37 @@
-"""Segmentation metrics (counterpart of the mIoU half of
-dynamic_tuning_tpu/utils/metrics.py; reference mmseg mean_iou), numpy."""
+"""Classification metrics (reference util/metrics.py:4-26) and mIoU for
+segmentation (reference mmseg mean_iou), numpy on the host (counterpart of
+dynamic_tuning_tpu/utils/metrics.py)."""
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Sequence, Tuple
 
 import numpy as np
+
+
+def topk_accuracy(logits, labels, topk: Sequence[int] = (1,)):
+    """Top-k accuracy in percent (reference util/metrics.py:4-11).  Ties
+    rank as the JAX package ranks them: a stable ascending argsort,
+    reversed, so of two equal logits the later class comes first."""
+    logits, labels = np.asarray(logits), np.asarray(labels)
+    maxk = max(topk)
+    pred = np.argsort(logits, axis=-1, kind="stable")[:, ::-1][:, :maxk]
+    correct = pred == labels[:, None]
+    return [float(np.float32(correct[:, :k].any(axis=1).mean()) * 100.0)
+            for k in topk]
+
+
+def mean_per_class_accuracy(logits, labels, num_classes: int) -> float:
+    """Mean per-class recall in percent over all ``num_classes`` (reference
+    util/metrics.py:14-26): a class absent from ``labels`` counts 0."""
+    pred = np.argmax(np.asarray(logits), axis=-1)
+    labels = np.asarray(labels)
+    recall = np.zeros(num_classes, dtype=np.float64)
+    for c in range(num_classes):
+        mask = labels == c
+        if mask.any():
+            recall[c] = (pred[mask] == c).mean()
+    return float(recall.mean() * 100.0)
 
 
 def confusion_matrix(pred: np.ndarray, label: np.ndarray,

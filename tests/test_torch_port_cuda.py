@@ -1364,3 +1364,33 @@ def test_training_launches_no_kernel_and_serves_after():
     assert torch.equal(logits, again)
     assert torch.equal(aux["token_select"], ref_aux["token_select"])
     assert (logits - ref).abs().max().item() <= 0.05 * ref.abs().max().item()
+
+
+@pytest.mark.parametrize("canvas,out", [(256, 224), (224, 32)])
+def test_train_augmentation_on_the_card_matches_the_cpu(canvas, out):
+    """The runner's train augmentation (crop boxes and flips drawn on the
+    host, both PIL passes as fp32 products with TF32 off) on the card
+    against the CPU, held as tests/test_transforms_pil_parity.py holds the
+    JAX package against PIL: a first-pass product summed in another order
+    may land on the other side of a .5 (one count), which the second pass
+    can carry to two counts in a few pixels; so every pixel within two
+    counts, at most max(1, 2e-5 of them) beyond one, 99.9% exact."""
+    from dynamic_tuning_tpu_torch.data import transforms as T
+    g = torch.Generator().manual_seed(canvas + out)
+    imgs = torch.randint(0, 256, (64, canvas, canvas, 3), generator=g,
+                         dtype=torch.uint8)
+    (top, left, ch, cw), flips = T.sample_train_draws(
+        torch.Generator().manual_seed(5), 64, canvas, canvas)
+    cpu = T._pil_resized_crop(imgs, top, left, ch, cw, out)
+    card = T._pil_resized_crop(imgs.cuda(), top, left, ch, cw, out).cpu()
+    d = (card - cpu).abs()
+    beyond = int((d > 1).sum())
+    print(f"card vs CPU {canvas}->{out}: exact share "
+          f"{(d == 0).float().mean().item():.6f}, max {d.max().item()}, "
+          f"{beyond} of {d.numel()} beyond one count")
+    assert d.max().item() <= 2.0
+    assert beyond <= max(1, int(2e-5 * d.numel()))
+    assert (d == 0).float().mean().item() > 0.999
+    full = [T.augment_batch(torch.Generator().manual_seed(5), x, out_size=out,
+                            train=True).cpu() for x in (imgs, imgs.cuda())]
+    assert (full[0] - full[1]).abs().max().item() <= 2.0 / 255 / 0.224 + 1e-5

@@ -247,7 +247,9 @@ def test_eval_augment_matches_jax(out_size, canvas, inception):
 
 
 def test_train_augment_raises():
-    with pytest.raises(NotImplementedError):
+    # train augmentation draws from an explicit generator, never the global
+    # RNG (tests/test_torch_port_data.py holds it against the JAX package)
+    with pytest.raises(ValueError, match="torch.Generator"):
         port_transforms.augment_batch(None, torch.zeros((1, 8, 8, 3),
                                                         dtype=torch.uint8),
                                       out_size=8, train=True)
