@@ -125,11 +125,12 @@ Phases; any failure exits non-zero:
      CPU from the same weights and the same gumbel noise: loss parts within
      rtol 1e-4, keep ratios and the final gates identical;
  10. the bench (after phase 5): dynamic_tuning_tpu_torch.bench.main at
-     its full protocol (image, int8, MoE, chip probe, train and seg
+     its full protocol (image, int8, MoE, chip probe, train, video and seg
      families), with the counts set to 0 just before: one JSON line whose
-     keys are BENCH_r05.json's, every field not null by design a positive
-     number, and K2, K3, K4, K6, K7, K8 and K9 launched as often as its
-     forwards need (the train family none);
+     keys are BENCH_r05.json's, every field not null by design (the video
+     fields included) a positive number, and K2, K3, K4, K6, K7, K8 and K9
+     launched as often as its forwards need (the train family none; the
+     video family K2, K3, K6 + K4 and the int8 stem once a forward);
  11. the image runner (after phase 9), through the port's entry points
      main_image.main and main_vtab.main at ViT-B/16 width and depth, phase
      3's weights given as a --finetune .pth: A, two epochs of synthetic
@@ -148,7 +149,27 @@ Phases; any failure exits non-zero:
      same forward on the plain versions (5% of the largest logit, gates
      >= 99.5%); train img/s over A's second epoch, the traced epoch's
      idle share, the augmentation's ms a batch, eval img/s, peak memory;
- 12. the wall time (and each new phase's), the card's name and power limit
+ 12. the video runner (after phase 11), through the port's entry point
+     main_video.main at the video DyT ViT-B/16's full width and depth (8
+     frames at 224^2, 400 classes), phase 3's weights given as a
+     --finetune .pth (the head re-drawn, the query token and the attentive
+     pooling at their init): A, two epochs of synthetic clips at batch 16
+     (16 steps each, the K400 train augmentation on the card: short-side
+     jitter, crop, flip), a 3-view eval of 64 clips after each (8 clips x
+     3 views x 8 frames = 192 frames a forward); C, the same flags resumed
+     from A's epoch-0 checkpoint (epoch 1 alone, its last 4 steps traced
+     for the idle share): C's final_checkpoint.pth and optimizer moments equal A's bit
+     for bit; main_video --eval --eval_ckpt on A's newest checkpoint gives
+     the acc1 of the eval that saved it.  Every epoch launches no hand
+     kernel, every eval forward K3 12 times and nothing else (counts
+     checked at each epoch's and eval's edges), each eval forward held
+     against the same forward on the plain versions (5% of the largest
+     logit, gates >= 99.5%); then one dispatch forward of the tubelet-2
+     model (16 clips, 4 frame groups each: 12 K3 launches) held the same
+     way; the SSv2 train batch (RandAugment, random resized crop) on the
+     card against the CPU's from the same draws (one count); train clips/s over A's second epoch, the traced steps' idle
+     share, eval clips/s, peak memory;
+ 13. the wall time (and each new phase's), the card's name and power limit
      (nvidia-smi), a JSON line of the kernels, and last the JSON result
      line.
 Needs no network and imports nothing of JAX or of the JAX package.
@@ -264,6 +285,9 @@ LOGIT_REL = 2e-3
 # differences above, carried through 12 blocks, and a gate may flip where a
 # router logit sits within noise of 0 (about 1 in 1000 tokens).
 MODEL_REL = 0.05
+# the video phase traces the last steps of an epoch (the profiler's event
+# processing grows with the ~3400 kernels of each step)
+TRACE_STEPS = 4
 GATE_AGREE = 0.995
 FAST_ITERS = 5                  # timed forwards per run of the fast path
 SERVE_N = 130                   # predict.serve canvases: a chunk of 128 + 2
@@ -1585,11 +1609,13 @@ class RunnerProbe:
     logits and gates held against the same forward on the plain versions
     -- and every train epoch is timed (one of them traced)."""
 
-    def __init__(self, torch, ms, qt, fm, R):
+    def __init__(self, torch, ms, qt, fm, R, cls=None):
         self.torch, self.ms, self.qt, self.fm, self.R = torch, ms, qt, fm, R
+        self.cls = cls or R.Runner
         self.expect = dict.fromkeys(KERNELS, 0)
         self.evals, self.epochs = [], []
         self.trace_next_epoch = False
+        self.trace_steps = None          # None: trace the whole epoch
         self.idle = self.top = None
 
     def reset(self) -> None:
@@ -1604,8 +1630,7 @@ class RunnerProbe:
 
     @contextlib.contextmanager
     def installed(self):
-        real_eval, real_epoch = self.R.Runner.evaluate, \
-            self.R.Runner.train_one_epoch
+        real_eval, real_epoch = self.cls.evaluate, self.cls.train_one_epoch
         probe = self
 
         def evaluate(runner):
@@ -1616,8 +1641,8 @@ class RunnerProbe:
 
         # the runner's log goes to its file only: rank 1 has no console
         quiet = self.R.create_logger
-        with mock.patch.object(self.R.Runner, "evaluate", evaluate), \
-                mock.patch.object(self.R.Runner, "train_one_epoch",
+        with mock.patch.object(self.cls, "evaluate", evaluate), \
+                mock.patch.object(self.cls, "train_one_epoch",
                                   train_one_epoch), \
                 mock.patch.object(self.R, "create_logger",
                                   lambda out, rank=0: quiet(out, 1)):
@@ -1635,9 +1660,29 @@ class RunnerProbe:
             from dynamic_tuning_tpu_torch.utils.profile_forward import \
                 _busy_us
             self.trace_next_epoch = False
-            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            prof = profile(activities=[ProfilerActivity.CUDA])
+            # the whole epoch, or its last trace_steps steps (the profiler
+            # started as the first of them begins)
+            step, calls = runner.train_step, [0]
+            if self.trace_steps:
+                first = runner.steps_per_epoch - self.trace_steps
+
+                def train_step(*args, **kwargs):
+                    if calls[0] == first:
+                        torch.cuda.synchronize()
+                        prof.start()
+                    calls[0] += 1
+                    return step(*args, **kwargs)
+
+                runner.train_step = train_step
+            else:
+                prof.start()
+            try:
                 stats = real(runner, epoch)
                 torch.cuda.synchronize()
+            finally:
+                runner.train_step = step
+                prof.stop()
             ks = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
             if not ks:
                 fail("the traced epoch holds no device activity")
@@ -1706,11 +1751,12 @@ class RunnerProbe:
         self.evals.append(dict(runner=runner, stats=stats, s=secs,
                                images=images, forwards=forwards,
                                worst=worst, agree=agree))
+        gflops = stats.get("gflops", stats.get("gflops_per_clip"))
         print(f"runner eval ({'dispatch' if dispatch else 'mask'}, "
-              f"{images} images, {len(forwards)} forwards, 12 K3 launches "
+              f"{images} inputs, {len(forwards)} forwards, 12 K3 launches "
               f"each and nothing else): acc1 {stats['acc1']}, keep ratio "
-              f"{stats['keep_ratio']:.6f}, gflops {stats['gflops']:.4f}; "
-              f"{images / secs:.1f} img/s; vs plain versions max rel err "
+              f"{stats['keep_ratio']:.6f}, gflops {gflops:.4f}; "
+              f"{images / secs:.1f} inputs/s; vs plain versions max rel err "
               f"{worst:.3g}, gate agreement {agree:.6f}")
         return stats
 
@@ -1854,6 +1900,171 @@ def phase_runner(torch, ms, qt, fm, np, vit, sd) -> int:
     return k3
 
 
+def phase_video(torch, ms, qt, fm, np, sd) -> int:
+    """Phase 12: the video runner on the card, through main_video, then a
+    tubelet-2 dispatch forward; returns K3's launches."""
+    import shutil
+
+    from dynamic_tuning_tpu_torch import config, main_video
+    from dynamic_tuning_tpu_torch.checkpoint import (load_timm_state_dict,
+                                                     load_torch_state_dict)
+    from dynamic_tuning_tpu_torch.models import video_vit
+    from dynamic_tuning_tpu_torch.train import runner as R
+    from dynamic_tuning_tpu_torch.train import video_runner as VR
+    root = os.path.join(REPO, "build", "phase_video")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    ft = os.path.join(root, "ft.pth")
+    torch.save({k: torch.from_numpy(v) for k, v in sd.items()}, ft)
+    a, c = (os.path.join(root, d) for d in "ac")
+    flags = ["--dataset", "synthetic", "--batch_size", "16", "--epochs", "2",
+             "--warmup_epochs", "1", "--no_auto_remove", "--finetune", ft]
+    parse = main_video.get_args_parser().parse_args
+    probe = RunnerProbe(torch, ms, qt, fm, R, VR.VideoRunner)
+    k3 = 0
+    with probe.installed():
+        # A: two epochs, a 3-view eval after each
+        probe.reset()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        main_video.main(parse(flags + ["--output_dir", a]))
+        peak = torch.cuda.max_memory_allocated()
+        k3 += probe.expect["dyt_prologue_serving"]
+        ev_a, ep_a = list(probe.evals), list(probe.epochs)
+        if [e["epoch"] for e in ep_a] != [0, 1] or len(ev_a) != 2:
+            fail(f"video run A: epochs {[e['epoch'] for e in ep_a]}, "
+                 f"{len(ev_a)} evals")
+        runner_a = ev_a[-1]["runner"]
+        x0 = ev_a[-1]["forwards"][0][0]
+        if (runner_a.steps_per_epoch != 16 or len(ev_a[-1]["forwards"]) != 8
+                or tuple(x0.shape) != (24, 8, 224, 224, 3)):
+            fail(f"video run A: {runner_a.steps_per_epoch} steps, "
+                 f"{len(ev_a[-1]['forwards'])} eval forwards of "
+                 f"{tuple(x0.shape)}")
+        # C: resumed from A's epoch-0 checkpoint, its epoch traced
+        probe.reset()
+        probe.trace_next_epoch = True
+        probe.trace_steps = TRACE_STEPS
+        main_video.main(parse(flags + [
+            "--output_dir", c, "--resume",
+            os.path.join(a, "checkpoint-0.pth")]))
+        k3 += probe.expect["dyt_prologue_serving"]
+        runner_c = probe.evals[-1]["runner"]
+        if [e["epoch"] for e in probe.epochs[len(ep_a):]] != [1]:
+            fail("the resumed video run did not run epoch 1 alone")
+        fa = load_torch_state_dict(os.path.join(a, "final_checkpoint.pth"))
+        fc = load_torch_state_dict(os.path.join(c, "final_checkpoint.pth"))
+        differ = [k for k in fa if not torch.equal(fa[k], fc[k])]
+        oa, oc = (r.state.optimizer for r in (runner_a, runner_c))
+        if (runner_a.state.step, oa.count) != (runner_c.state.step, oc.count):
+            fail(f"resumed video step/count {runner_c.state.step}/{oc.count}"
+                 f", uninterrupted {runner_a.state.step}/{oa.count}")
+        if fa.keys() != fc.keys() or differ:
+            fail(f"the resumed video final_checkpoint.pth differs in "
+                 f"{len(differ)} tensors: {differ[:6]}")
+        sa, sc = oa.state_dict()["rule"], oc.state_dict()["rule"]
+        for part in ("mu", "nu"):
+            for k in sa[part]:
+                if not torch.equal(sa[part][k], sc[part][k]):
+                    fail(f"resumed video optimizer {part} of {k} differs")
+        print(f"video resume: final_checkpoint.pth of the resumed run equals "
+              f"the uninterrupted one bit for bit ({len(fa)} tensors), "
+              f"optimizer moments too; step {runner_c.state.step}, count "
+              f"{oc.count}")
+        # --eval --eval_ckpt on A's newest checkpoint
+        newest = max((f for f in os.listdir(a) if f.startswith("checkpoint-")),
+                     key=lambda f: int(f[len("checkpoint-"):-len(".pth")]))
+        saved_by = ev_a[int(newest[len("checkpoint-"):-len(".pth")])]
+        probe.reset()
+        stats = main_video.main(parse(flags + [
+            "--output_dir", os.path.join(root, "e"), "--eval",
+            "--eval_ckpt", os.path.join(a, newest)]))
+        k3 += probe.expect["dyt_prologue_serving"]
+        if stats["acc1"] != saved_by["stats"]["acc1"]:
+            fail(f"video --eval_ckpt {newest}: acc1 {stats['acc1']}, the "
+                 f"eval that saved it {saved_by['stats']['acc1']}")
+    # the SSv2 train batch (RandAugment, random resized crop, no flip) on
+    # the card against the CPU from the same draws: RandAugment's uint8
+    # store may truncate a sum on the other side of an integer
+    from dynamic_tuning_tpu_torch.data import video_transforms as vt
+    clips = torch.randint(0, 256, (16, 8, 256, 256, 3), dtype=torch.uint8,
+                          generator=torch.Generator().manual_seed(2))
+    ssv2 = dict(crop=224, flip=False, randaug="rand-m7-n4-mstd0.5-inc1")
+    cpu = vt.augment_clip_batch(torch.Generator().manual_seed(3),
+                                clips[:4], **ssv2)
+    card = vt.augment_clip_batch(torch.Generator().manual_seed(3),
+                                 clips[:4].cuda(), **ssv2)
+    aug_err = (card.cpu() - cpu).abs().max().item()
+    aug_ms = time_ms(lambda: vt.augment_clip_batch(
+        torch.Generator().manual_seed(3), clips.cuda(), **ssv2), iters=3)
+    # one count of 255 after normalization (std 0.225): 0.0175
+    print(f"video SSv2 train batch (RandAugment + random resized crop): 4 "
+          f"clips, card vs CPU max|err| {aug_err:.6g} (tol 0.0175); "
+          f"{aug_ms:.3f} ms a batch of 16 with the copy")
+    if not aug_err <= 0.0175:
+        fail("the SSv2 train batch on the card disagrees with the CPU's")
+    # the tubelet-2 stem: 16 clips of 4 frame groups, dispatch
+    cfg = config.ModelConfig(num_classes=400, num_frames=8, tubelet_size=2,
+                             gelu_approx=True, residual_dtype="bfloat16")
+    tub = video_vit.VideoVisionTransformer(
+        cfg, tuning=config.TuningConfig(),
+        select=config.SelectConfig(token_target_ratio=0.5),
+        dtype=torch.bfloat16, generator=torch.Generator().manual_seed(1))
+    # the image stem inflated over the tubelet (its kernel halved on each
+    # of the 2 frames), so the routers see the image model's tokens
+    tub_sd = dict(sd, **{"patch_embed.proj.weight": np.repeat(
+        sd["patch_embed.proj.weight"][:, :, None] / 2, 2, axis=2)})
+    load_timm_state_dict(tub, tub_sd, log=lambda *_: None)
+    tub.to("cuda")
+    x = torch.randn((16, 8, 224, 224, 3), device="cuda",
+                    generator=torch.Generator(device="cuda").manual_seed(0))
+    reset_counts(ms, qt, fm)
+    with torch.inference_mode():
+        logits, aux = tub(x, dispatch=True)
+    want = dict.fromkeys(KERNELS, 0)
+    want["dyt_prologue_serving"] = DEPTH
+    counts = read_counts(ms, qt, fm)
+    if counts != want or tuple(aux["token_select"].shape) != (
+            64, DEPTH, N - 1, 1) or not torch.isfinite(logits).all():
+        fail(f"tubelet-2 forward: launches {counts}, gates "
+             f"{tuple(aux['token_select'].shape)}")
+    k3 += DEPTH
+    with plain_versions(ms, qt, fm), torch.inference_mode():
+        ref, ref_aux = tub(x, dispatch=True)
+    err, mag = rel_err(logits, ref)
+    agree = (aux["token_select"] == ref_aux["token_select"]
+             ).float().mean().item()
+    print(f"video tubelet-2 dispatch forward (16 clips x 4 frame groups, 12 "
+          f"K3 launches): logits vs plain versions max|err| {err:.6g} (tol "
+          f"{MODEL_REL * mag:.6g}), gate agreement {agree:.6f}")
+    if err > MODEL_REL * mag or agree < GATE_AGREE:
+        fail("the tubelet-2 forward disagrees with the plain-version forward")
+    del tub
+    last = ep_a[-1]
+    clips_s = last["steps"] * last["batch"] / last["s"]
+    busy_ms, window_ms, kernels = probe.idle
+    c_epoch = probe.epochs[len(ep_a)]
+    ev = ev_a[-1]
+    eval_clips = len(ev["runner"].val_loader.ds)
+    print(f"video train: epoch 1 of run A {last['s']:.3f} s for "
+          f"{last['steps']} steps of {last['batch']} clips x 8 frames: "
+          f"{clips_s:.1f} clips/s (loader, copy, augmentation and step, "
+          f"host clock); the last {TRACE_STEPS} steps of run C's epoch 1 "
+          f"traced ({c_epoch['s']:.3f} s for the epoch under the profiler):"
+          f" kernel-busy {busy_ms:.1f} ms in {kernels} kernels, idle share "
+          f"{1 - busy_ms / window_ms:.4f} of their {window_ms:.1f} ms device "
+          f"window; peak memory {peak / 2**30:.2f} GiB")
+    print("video traced steps, device ms a step by kernel: " + "; ".join(
+        f"{name[:90]} {us / 1e3 / TRACE_STEPS:.2f}"
+        for name, us in probe.top))
+    print(f"video eval: {eval_clips / ev['s']:.1f} clips/s ({eval_clips} "
+          f"clips x 3 views, mask, 8 clips a forward, with the loader); "
+          f"--eval_ckpt {newest} acc1 {stats['acc1']} as the eval that "
+          f"saved it; K3 launches {k3}")
+    shutil.rmtree(root, ignore_errors=True)
+    return k3
+
+
 def phase_bench(torch, ms, qt, fm, bench, sds, seg_sd) -> dict:
     """bench.main at its full protocol: its line has the root bench's key
     set and every field not null by design is a positive number; every
@@ -1880,16 +2091,21 @@ def phase_bench(torch, ms, qt, fm, bench, sds, seg_sd) -> dict:
         if not ok:
             fail(f"bench field {k} = {v!r}")
     fwd = bench.IMAGE_FORWARDS * DEPTH
+    vfwd = bench.VIDEO_FORWARDS * DEPTH
     seg = DEPTH * len(bench.SEG_MODES) * (1 + forwards_run(
         bench.SEG_ITERS, bench.SEG_REPEATS, bench.SEG_WARMUP))
     want = dict.fromkeys(KERNELS, 0)
-    want.update(attention_sublayer_serving=fwd, dyt_prologue_serving=fwd,
-                dyt_prologue_serving_q8=fwd, q8_ln_mlp=2 * fwd,
-                dyt_prologue_serving_moe=fwd,
+    # the image families, then the video family's dense, dyt and q8 models
+    want.update(attention_sublayer_serving=fwd + vfwd,
+                dyt_prologue_serving=fwd + vfwd,
+                dyt_prologue_serving_q8=fwd + vfwd,
+                q8_ln_mlp=2 * fwd + vfwd, dyt_prologue_serving_moe=fwd,
                 dyt_prologue_serving_q8_moe=fwd, mha_windowed_fused=seg)
     counts = read_counts(ms, qt, fm)
-    if counts != want or qt.q8_patch_embed.launches != 2 * fwd // DEPTH:
-        fail(f"bench: kernel launches {counts}, want {want}")
+    stem = (2 * fwd + vfwd) // DEPTH
+    if counts != want or qt.q8_patch_embed.launches != stem:
+        fail(f"bench: kernel launches {counts} (int8 stem "
+             f"{qt.q8_patch_embed.launches}), want {want} (stem {stem})")
     return counts
 
 
@@ -1960,6 +2176,10 @@ def main() -> None:
     launches["dyt_prologue_serving"] += phase_runner(torch, ms, qt, fm, np,
                                                      vit, sds[0])
     print(f"phase runner: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    launches["dyt_prologue_serving"] += phase_video(torch, ms, qt, fm, np,
+                                                    sds[0])
+    print(f"phase video: {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
     seg_sd = bench.seg_state_dict(0)

@@ -52,8 +52,19 @@ whose output the timed forward does not use, is left out as the JAX
 bench's compiled program leaves it out.  Weights are seeded synthetic
 (``checkpoint.make_seg_state_dict``).
 
-Null by design: the video fields (ROADMAP.md queue 1 item 6), the int8 seg
-fields (item 5) and ``probe_rtt_ms_est``.
+Video family (bench.py:322-377): the video DyT ViT-B/16
+(``models/video_vit.py``) on 16 clips of 8 frames at 224^2 (128 frames a
+forward), 400 classes, tanh GELU, bf16 compute and residual stream: ``dyt``
+with capacity dispatch (K3 in every block), ``dense`` without adapter or
+router (K2), ``q8`` int8 with dispatch (K6 + K4, the int8 stem).  The image
+families' synthetic weights (the head of another width dropped, the query
+token and the attentive pooling at their init).  Each model takes 2
+warm-up forwards, then their runs of 10 forwards between CUDA events are
+interleaved, best of 3; ``video_vs_dense`` and ``video_int8_vs_dense`` are
+clips/s over the dense model's.
+
+Null by design: the int8 seg fields (ROADMAP.md queue 1 item 5) and
+``probe_rtt_ms_est``.
 """
 
 from __future__ import annotations
@@ -64,11 +75,13 @@ import sys
 import numpy as np
 import torch
 
-from dynamic_tuning_tpu_torch.checkpoint import (make_seg_state_dict,
+from dynamic_tuning_tpu_torch.checkpoint import (load_timm_state_dict,
+                                                 make_seg_state_dict,
                                                  make_vit_state_dict)
 from dynamic_tuning_tpu_torch.config import (ModelConfig, SelectConfig,
                                              TuningConfig)
 from dynamic_tuning_tpu_torch.models.upernet import DyTSegmentor
+from dynamic_tuning_tpu_torch.models.video_vit import VideoVisionTransformer
 from dynamic_tuning_tpu_torch.models.vit import VisionTransformer
 from dynamic_tuning_tpu_torch.ops.flops import dense_vit_flops
 from dynamic_tuning_tpu_torch.train import engine, optim
@@ -88,9 +101,7 @@ FIELDS = (
     "video_dense_clips_s", "video_vs_dense", "video_int8_clips_s",
     "video_int8_vs_dense", "seg_crops_s", "seg_dense_crops_s",
     "seg_vs_dense", "seg_int8_crops_s", "seg_int8_vs_dense", "seg_protocol")
-NULL_BY_DESIGN = ("probe_rtt_ms_est", "video_clips_s", "video_dense_clips_s",
-                  "video_vs_dense", "video_int8_clips_s",
-                  "video_int8_vs_dense", "seg_int8_crops_s",
+NULL_BY_DESIGN = ("probe_rtt_ms_est", "seg_int8_crops_s",
                   "seg_int8_vs_dense")
 
 BATCH, IMG, CLASSES, FFN, MOE = 128, 224, 100, 64, 4
@@ -100,6 +111,12 @@ TRAIN_BATCH, TRAIN_STEPS, TRAIN_REPEATS = 64, 8, 3
 SEG_CROP, SEG_CLASSES = 512, 150
 SEG_MODES = ("dispatch", "dense")
 SEG_ITERS, SEG_REPEATS, SEG_WARMUP = 12, 3, 2
+VIDEO_BATCH, VIDEO_FRAMES, VIDEO_CLASSES = 16, 8, 400
+VIDEO_WARMUP, VIDEO_ITERS, VIDEO_REPEATS = 2, 10, 3
+# (quant, routed: adapter, router and dispatch) of each video model
+VIDEO_MODELS = {"dense": ("none", False), "dyt": ("none", True),
+                "q8": ("int8", True)}
+VIDEO_FORWARDS = VIDEO_WARMUP + VIDEO_REPEATS * VIDEO_ITERS
 # (quant, mode as speed.py names it, MoE experts) of each image model
 IMAGE_MODELS = {"dyt": ("none", "dispatch", 0),
                 "plain": ("none", "plain", 0),
@@ -341,6 +358,69 @@ def seg_family(device="cuda", *, seed: int = 0, state_dict=None):
     return fields, runs
 
 
+def build_video_model(name: str, device, state_dict, *, seed: int = 0
+                      ) -> VideoVisionTransformer:
+    """One of ``VIDEO_MODELS`` on ``device``: the keys of ``state_dict`` (an
+    image ViT-B/16's) that it has, the rest from the seeded init."""
+    quant, routed = VIDEO_MODELS[name]
+    if routed:
+        tuning = TuningConfig(ffn_num=FFN)
+        select = SelectConfig(token_target_ratio=0.5)
+    else:
+        tuning = TuningConfig(ffn_adapt=False)
+        select = SelectConfig(open=False)
+    cfg = ModelConfig(num_classes=VIDEO_CLASSES, num_frames=VIDEO_FRAMES,
+                      gelu_approx=True, residual_dtype="bfloat16",
+                      quant=quant)
+    model = VideoVisionTransformer(
+        cfg, tuning=tuning, select=select, dtype=torch.bfloat16,
+        generator=torch.Generator().manual_seed(seed + 1))
+    load_timm_state_dict(model, state_dict, log=lambda *_: None)
+    return model.to(device)
+
+
+def video_family(device="cuda", *, seed: int = 0, state_dict=None) -> dict:
+    """The video fields: clips/s of each of ``VIDEO_MODELS``, their runs
+    interleaved, best of ``VIDEO_REPEATS``."""
+    _need_card("the video bench")
+    if state_dict is None:
+        state_dict = image_state_dicts(seed)[0]
+    g = torch.Generator(device=device).manual_seed(seed)
+    x = torch.randn((VIDEO_BATCH, VIDEO_FRAMES, IMG, IMG, 3), generator=g,
+                    device=device)
+    models = {n: build_video_model(n, device, state_dict, seed=seed)
+              for n in VIDEO_MODELS}
+    dispatch = {n: VIDEO_MODELS[n][1] for n in VIDEO_MODELS}
+
+    def run_s(n) -> float:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for i in range(VIDEO_ITERS):
+            models[n](x + (i != 0), dispatch=dispatch[n])
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end) / 1e3
+
+    best = dict.fromkeys(VIDEO_MODELS, float("inf"))
+    with torch.inference_mode():
+        for n in VIDEO_MODELS:
+            for i in range(VIDEO_WARMUP):
+                models[n](x + (i != 0), dispatch=dispatch[n])
+        torch.cuda.synchronize()
+        for _ in range(VIDEO_REPEATS):
+            for n in VIDEO_MODELS:
+                best[n] = min(best[n], run_s(n))
+    del models
+    torch.cuda.empty_cache()
+    cps = {n: VIDEO_BATCH * VIDEO_ITERS / best[n] for n in VIDEO_MODELS}
+    return {"video_clips_s": round(cps["dyt"], 1),
+            "video_dense_clips_s": round(cps["dense"], 1),
+            "video_vs_dense": round(cps["dyt"] / cps["dense"], 4),
+            "video_int8_clips_s": round(cps["q8"], 1),
+            "video_int8_vs_dense": round(cps["q8"] / cps["dense"], 4)}
+
+
 def main(*, seed: int = 0, state_dicts=None, seg_sd=None) -> dict:
     """Run every family and print the line; returns its fields.
     ``state_dicts`` / ``seg_sd``: weights made already (else made here from
@@ -351,6 +431,8 @@ def main(*, seed: int = 0, state_dicts=None, seg_sd=None) -> dict:
     fields.update(chip_probe(seed=seed))
     fields.update(train_family(seed=seed,
                                chip_bf16_tflops=fields["chip_bf16_tflops"]))
+    fields.update(video_family(seed=seed, state_dict=(
+        None if state_dicts is None else state_dicts[0])))
     seg, runs = seg_family(seed=seed, state_dict=seg_sd)
     del runs
     torch.cuda.empty_cache()

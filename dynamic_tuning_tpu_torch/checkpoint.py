@@ -22,7 +22,11 @@ dynamic_tuning_tpu/train/checkpoint.py).
   axes and laid out [in, out, kh, kw] (flax's ConvTranspose does not flip
   its kernel, torch's does); the heads mirror the flax tree (``kernel`` ->
   ``weight``, GroupNorm/BatchNorm ``scale`` -> ``weight``, batch_stats
-  ``mean``/``var`` -> ``running_mean``/``running_var``).
+  ``mean``/``var`` -> ``running_mean``/``running_var``).  The video
+  model's tree adds ``query_token`` and ``attentive_blocks/...``
+  (``attentive_blocks.norm_q.weight``, ``attentive_blocks.cross_attn.q.
+  weight``, ``...cross_attn.q_bias``, the reference video model's names),
+  and its tubelet stem's 5-D kernel goes DHWIO -> OIDHW.
 * ``load_timm_state_dict``: a timm/DyT state dict into a port model with
   the rules of ``import_pretrained``: ``pre_logits.*`` dropped, a head of
   another width dropped (head surgery), a pos-embed of another patch grid
@@ -96,6 +100,29 @@ _FLAX_TO_TIMM = {
         "mlp_token_select.mlp_head.weight",
     ("mlp_token_select", "mlp_head", "bias"):
         "mlp_token_select.mlp_head.bias",
+    # the video model's attentive pooling (the reference video model's
+    # names, video_vision_transformer_IN21K.py:27-110,408-413)
+    ("query_token",): "query_token",
+    ("attentive_blocks", "norm_q", "scale"): "attentive_blocks.norm_q.weight",
+    ("attentive_blocks", "norm_q", "bias"): "attentive_blocks.norm_q.bias",
+    ("attentive_blocks", "norm_k", "scale"): "attentive_blocks.norm_k.weight",
+    ("attentive_blocks", "norm_k", "bias"): "attentive_blocks.norm_k.bias",
+    ("attentive_blocks", "norm_v", "scale"): "attentive_blocks.norm_v.weight",
+    ("attentive_blocks", "norm_v", "bias"): "attentive_blocks.norm_v.bias",
+    ("attentive_blocks", "cross_attn", "q", "kernel"):
+        "attentive_blocks.cross_attn.q.weight",
+    ("attentive_blocks", "cross_attn", "k", "kernel"):
+        "attentive_blocks.cross_attn.k.weight",
+    ("attentive_blocks", "cross_attn", "v", "kernel"):
+        "attentive_blocks.cross_attn.v.weight",
+    ("attentive_blocks", "cross_attn", "q_bias"):
+        "attentive_blocks.cross_attn.q_bias",
+    ("attentive_blocks", "cross_attn", "v_bias"):
+        "attentive_blocks.cross_attn.v_bias",
+    ("attentive_blocks", "cross_attn", "proj", "kernel"):
+        "attentive_blocks.cross_attn.proj.weight",
+    ("attentive_blocks", "cross_attn", "proj", "bias"):
+        "attentive_blocks.cross_attn.proj.bias",
 }
 
 
@@ -115,7 +142,7 @@ def flax_path_to_timm(path: Tuple[str, ...]) -> str:
     key = _FLAX_TO_TIMM.get(tuple(rest))
     if key is None:
         raise ValueError(f"no timm name for flax param {'/'.join(path)} "
-                         "(not part of the ported image model)")
+                         "(not part of the ported image and video models)")
     return prefix + key
 
 
@@ -151,6 +178,9 @@ def _to_torch_layout(path: Tuple[str, ...], w: np.ndarray) -> np.ndarray:
             return np.ascontiguousarray(w[::-1, ::-1].transpose(2, 3, 0, 1))
         if w.ndim == 4:
             return np.ascontiguousarray(w.transpose(3, 2, 0, 1))  # -> OIHW
+        if w.ndim == 5:
+            # the tubelet stem's Conv3d: DHWIO -> OIDHW
+            return np.ascontiguousarray(w.transpose(4, 3, 0, 1, 2))
     return w
 
 

@@ -108,8 +108,9 @@ def add_reference_compat_args(parser: argparse.ArgumentParser):
     g.add_argument("--device", default=None,
                    help="cuda (the default) or cpu, for the entry points "
                         "that can run on the CPU (main_image.py, "
-                        "main_vtab.py, seg_train.py, predict.py); speed.py "
-                        "runs on the current CUDA device")
+                        "main_vtab.py, main_video.py, seg_train.py, "
+                        "predict.py); speed.py runs on the current CUDA "
+                        "device")
     g.add_argument("--world_size", default=None, type=int,
                    help="ignored (no launcher)")
     g.add_argument("--local_rank", default=None, type=int,
@@ -130,6 +131,14 @@ KNOWN_MODELS = ("vit_base_patch16_224_in21k", "vit_base_patch16",
                 "vit_base_patch16_224")
 #: flags the reference declares but never reads
 _DEAD_IN_REFERENCE = ("global_pool", "vpt")
+#: main_video's flags the reference declares but never reads, with their
+#: defaults (reference main_video.py:117-141): warned when given otherwise
+_DEAD_NONDEFAULT = {
+    "drop": 0.0, "attn_drop_rate": 0.0, "init_scale": 0.001,
+    "num_segments": 1, "num_sample": 1, "crop_pct": None,
+    "short_side_size": 224, "input_size": 224, "linprob": True,
+    "use_mean_pooling": True,
+}
 #: launcher flags with no meaning for one process: warned when given
 _IGNORED_NONDEFAULT = {
     "world_size": (None, "one process, one device"),
@@ -152,6 +161,10 @@ def check_compat_args(args) -> None:
     for flag, (default, why) in _IGNORED_NONDEFAULT.items():
         if getattr(args, flag, default) != default:
             log.warning("--%s is ignored: %s", flag, why)
+    for flag, default in _DEAD_NONDEFAULT.items():
+        if getattr(args, flag, default) != default:
+            log.warning("--%s=%s has no effect: the reference declares it "
+                        "but never reads it", flag, getattr(args, flag))
 
 
 def _registry_data_path(name: str) -> str:

@@ -1,12 +1,12 @@
-"""Configuration dataclasses of the port (the image subset of
+"""Configuration dataclasses of the port (counterpart of
 dynamic_tuning_tpu/config.py).
 
 The same field names and defaults as the JAX package's ``TuningConfig``,
-``SelectConfig``, ``ModelConfig``, ``OptimConfig``, ``DataConfig`` (its
-image fields; the video fields come with the video slice) and
-``RunConfig``, so a config built for one package describes the same run in
-the other.  ``RunConfig`` has no mesh: the port trains on one device.  The
-port keeps its own copy: it imports nothing of the JAX package.
+``SelectConfig``, ``ModelConfig``, ``OptimConfig``, ``DataConfig`` (image
+and video fields) and ``RunConfig``, so a config built for one package
+describes the same run in the other.  ``RunConfig`` has no mesh: the port
+trains on one device.  The port keeps its own copy: it imports nothing of
+the JAX package.
 """
 
 from __future__ import annotations
@@ -110,7 +110,7 @@ class OptimConfig:
 
 @dataclass(frozen=True)
 class DataConfig:
-    """The image data settings."""
+    """The data settings of the image and video runs."""
 
     dataset: str = "cifar100"
     data_path: str = ""
@@ -119,6 +119,18 @@ class DataConfig:
     inception_norm: bool = False            # inception mean/std
     no_aug: bool = False                    # VTAB-1K: no augmentation
     canvas: Optional[int] = None            # decode canvas (224 / 256)
+    # video (reference video_datasets.py):
+    num_frames: int = 8
+    sampling_rate: int = 16                 # 0: TSN segment sampling (SSv2)
+    test_num_segment: int = 3               # eval views: temporal ...
+    test_num_crop: int = 1                  # ... x spatial
+    randaug: Optional[str] = None           # e.g. "rand-m7-n4-mstd0.5-inc1"
+    # train resize: "random_resized_crop" (SSv2) or
+    # "random_short_side_scale_jitter" (K400)
+    train_resize_type: str = "random_resized_crop"
+    jitter_min: Optional[int] = None        # short-side jitter bounds
+    jitter_max: Optional[int] = None        # (None: 256 / 320)
+    mirror: bool = True                     # horizontal flip (not SSv2)
 
 
 @dataclass(frozen=True)

@@ -64,25 +64,36 @@ def _keys_cubic(x: torch.Tensor) -> torch.Tensor:
     return torch.where(x >= 2.0, torch.zeros_like(x), out)
 
 
-def _weight_mat(in_size: int, out_size: int, scale: float,
-                translation: float, device) -> torch.Tensor:
-    """[out, in] resampling weights of ``scale_and_translate`` along one
-    axis (output = input * scale + translation), in float32."""
-    f32 = torch.float32
-    scale_t = torch.tensor(scale, dtype=f32)
-    inv = 1.0 / scale_t
+def weight_mats(in_size: int, out_size: int, scale: torch.Tensor,
+                translation: torch.Tensor) -> torch.Tensor:
+    """[n, out, in] float32 resampling weights of ``scale_and_translate``
+    along one axis (output = input * scale + translation), one matrix per
+    element of ``scale`` and ``translation`` (float32 [n]), on their
+    device."""
+    f32, dev = torch.float32, scale.device
+    inv = 1.0 / scale[:, None, None]
     kernel_scale = torch.clamp(inv, min=1.0)       # antialias when minifying
-    sample = ((torch.arange(out_size, dtype=f32) + 0.5) * inv
-              - torch.tensor(translation, dtype=f32) * inv - 0.5)
-    dist = (sample[None, :] - torch.arange(in_size, dtype=f32)[:, None]).abs()
-    w = _keys_cubic(dist / kernel_scale)                       # [in, out]
-    total = w.sum(dim=0, keepdim=True)
+    sample = ((torch.arange(out_size, dtype=f32, device=dev) + 0.5) * inv
+              - translation[:, None, None] * inv - 0.5)       # [n, 1, out]
+    dist = (sample - torch.arange(in_size, dtype=f32,
+                                  device=dev)[:, None]).abs()
+    w = _keys_cubic(dist / kernel_scale)                      # [n, in, out]
+    total = w.sum(dim=1, keepdim=True)
     w = torch.where(total.abs() > 1000.0 * torch.finfo(f32).eps,
                     w / torch.where(total != 0, total, torch.ones_like(total)),
                     torch.zeros_like(w))
     inside = (sample >= -0.5) & (sample <= in_size - 0.5)
-    w = torch.where(inside[None, :], w, torch.zeros_like(w))
-    return w.t().contiguous().to(device)
+    w = torch.where(inside, w, torch.zeros_like(w))
+    return w.transpose(1, 2).contiguous()
+
+
+def _weight_mat(in_size: int, out_size: int, scale: float,
+                translation: float, device) -> torch.Tensor:
+    """``weight_mats`` of one Python-float scale and translation, [out,
+    in]."""
+    f32 = torch.float32
+    return weight_mats(in_size, out_size, torch.tensor([scale], dtype=f32),
+                       torch.tensor([translation], dtype=f32))[0].to(device)
 
 
 def center_crop_resize(images: torch.Tensor, resize_to: int = 256,

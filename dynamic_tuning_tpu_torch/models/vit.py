@@ -90,13 +90,10 @@ class VisionTransformer(nn.Module):
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         if cfg.num_frames > 1:
-            raise NotImplementedError("video comes with its own slice")
-        if cfg.remat not in (False, True, "full", "scores"):
-            raise ValueError(f"remat={cfg.remat!r}: False, True, 'full' or "
-                             "'scores'")
-        if select.open and not cfg.class_token:
-            raise ValueError("token routing (select.open=True) requires "
-                             "class_token=True")
+            raise NotImplementedError(
+                f"num_frames={cfg.num_frames}: clips go to "
+                "models/video_vit.py::VideoVisionTransformer")
+        check_config(cfg, select)
         if generator is None:
             generator = torch.Generator().manual_seed(0)
         self.cfg, self.tuning, self.select_cfg = cfg, tuning, select
@@ -111,15 +108,7 @@ class VisionTransformer(nn.Module):
                 torch.randn(1, 1, C, generator=generator) * 1e-6)
         self.pos_embed = nn.Parameter(
             torch.randn(1, cfg.seq_len, C, generator=generator) * 0.02)
-        self.blocks = nn.ModuleList([
-            Block(C, cfg.num_heads, generator, mlp_ratio=cfg.mlp_ratio,
-                  qkv_bias=cfg.qkv_bias, proj_drop=cfg.proj_drop_rate,
-                  attn_drop=cfg.attn_drop_rate,
-                  drop_path=cfg.drop_path_rate * i / max(cfg.depth - 1, 1),
-                  select=select.open and i >= select.keep_layers,
-                  gelu_approx=cfg.gelu_approx, quant=cfg.quant,
-                  tuning=tuning, select_cfg=select, dtype=dtype)
-            for i in range(cfg.depth)])
+        self.blocks = make_blocks(cfg, tuning, select, generator, dtype)
         self.norm = nn.LayerNorm(C, eps=LN_EPS)
         self.head = nn.Linear(C, cfg.num_classes)
         with torch.no_grad():
@@ -154,23 +143,10 @@ class VisionTransformer(nn.Module):
             x = dropout(x, cfg.pos_drop_rate, top)
         x = x.to(self.residual_dtype)
 
-        gates, logits_all = [], []
-        for i, blk in enumerate(self.blocks):
-            noise = (gate_noise[:, len(gates)]
-                     if gate_noise is not None and blk.select
-                     and not complete_model else None)
-            run = functools.partial(
-                _run_block, blk, complete_model=complete_model,
-                dispatch=dispatch, training=training, draws=draws, index=i,
-                noise=noise)
-            if training and cfg.remat:
-                x, gate, logits = _checkpointed(run, x, cfg.remat)
-            else:
-                x, gate, logits = run(x)
-            if gate is not None:
-                gates.append(gate)
-                logits_all.append(logits)
-
+        x, aux = run_blocks(self.blocks, x, remat=cfg.remat,
+                            training=training, complete_model=complete_model,
+                            dispatch=dispatch, draws=draws,
+                            gate_noise=gate_noise)
         x = F.layer_norm(x.float(), (cfg.embed_dim,), self.norm.weight,
                          self.norm.bias, LN_EPS)
         if cfg.global_pool == "avg":
@@ -179,14 +155,62 @@ class VisionTransformer(nn.Module):
             pooled = x[:, 0]
         if training:
             pooled = dropout(pooled, cfg.drop_rate, top)
-        logits = F.linear(pooled, self.head.weight, self.head.bias)
-        if gates:
-            token_select = torch.stack(gates, dim=1)[:, :, 1:, :]
-            token_logits = torch.stack(logits_all, dim=1)
+        return F.linear(pooled, self.head.weight, self.head.bias), aux
+
+
+def check_config(cfg: ModelConfig, select: SelectConfig) -> None:
+    """The refusals every ViT of the port shares."""
+    if cfg.remat not in (False, True, "full", "scores"):
+        raise ValueError(f"remat={cfg.remat!r}: False, True, 'full' or "
+                         "'scores'")
+    if select.open and not cfg.class_token:
+        raise ValueError("token routing (select.open=True) requires "
+                         "class_token=True")
+
+
+def make_blocks(cfg: ModelConfig, tuning: TuningConfig, select: SelectConfig,
+                generator: torch.Generator, dtype) -> nn.ModuleList:
+    """The ``cfg.depth`` DyT blocks of a ViT (a router from block
+    ``select.keep_layers`` on, stochastic depth rising linearly)."""
+    return nn.ModuleList([
+        Block(cfg.embed_dim, cfg.num_heads, generator,
+              mlp_ratio=cfg.mlp_ratio, qkv_bias=cfg.qkv_bias,
+              proj_drop=cfg.proj_drop_rate, attn_drop=cfg.attn_drop_rate,
+              drop_path=cfg.drop_path_rate * i / max(cfg.depth - 1, 1),
+              select=select.open and i >= select.keep_layers,
+              gelu_approx=cfg.gelu_approx, quant=cfg.quant, tuning=tuning,
+              select_cfg=select, dtype=dtype)
+        for i in range(cfg.depth)])
+
+
+def run_blocks(blocks: nn.ModuleList, x: torch.Tensor, *, remat,
+               training: bool, complete_model: bool, dispatch: bool,
+               draws: Optional[Draws], gate_noise: Optional[torch.Tensor]
+               ) -> Tuple[torch.Tensor, Dict[str, Optional[torch.Tensor]]]:
+    """The residual stream ``x`` [B, N, C] through ``blocks`` ->
+    (x, {"token_select": [B, L, N - 1, 1], "token_logits": [B, L, N - 1,
+    1]}, both None without routers); ``remat`` recomputes each block in
+    the training backward."""
+    gates, logits_all = [], []
+    for i, blk in enumerate(blocks):
+        noise = (gate_noise[:, len(gates)]
+                 if gate_noise is not None and blk.select
+                 and not complete_model else None)
+        run = functools.partial(
+            _run_block, blk, complete_model=complete_model,
+            dispatch=dispatch, training=training, draws=draws, index=i,
+            noise=noise)
+        if training and remat:
+            x, gate, logits = _checkpointed(run, x, remat)
         else:
-            token_select = token_logits = None
-        return logits, {"token_select": token_select,
-                        "token_logits": token_logits}
+            x, gate, logits = run(x)
+        if gate is not None:
+            gates.append(gate)
+            logits_all.append(logits)
+    if not gates:
+        return x, {"token_select": None, "token_logits": None}
+    return x, {"token_select": torch.stack(gates, dim=1)[:, :, 1:, :],
+               "token_logits": torch.stack(logits_all, dim=1)}
 
 
 def _run_block(blk, x, *, complete_model, dispatch, training, draws, index,

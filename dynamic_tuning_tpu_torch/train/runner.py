@@ -81,13 +81,17 @@ def make_tb_flush(ml: MetricLogger, writer, steps_per_epoch: int,
 
 class Runner:
     """Trains and evaluates one image run on ``device`` (the card unless
-    the caller asks for the CPU)."""
+    the caller asks for the CPU).  ``VideoRunner`` shares all but the
+    data, the model, the freeze rule, the batch transform and the eval."""
+
+    ENTRY = "the image runner"
+    MODEL = VisionTransformer
 
     def __init__(self, cfg: RunConfig, device=None):
         self.cfg = cfg
         self.device = (torch.device(device) if device is not None
-                       else resolve_device(None, "the image runner"))
-        require_card_dtype(cfg.compute_dtype, self.device, "the image runner")
+                       else resolve_device(None, self.ENTRY))
+        require_card_dtype(cfg.compute_dtype, self.device, self.ENTRY)
         if cfg.resume:
             C.require_pth(cfg.resume)
         self.logger = create_logger(cfg.output_dir, 0)
@@ -96,25 +100,15 @@ class Runner:
         self.dtype = _DTYPES[cfg.compute_dtype]
 
         # data ---------------------------------------------------------------
-        train_ds, val_ds, nb_classes, metric = build_image_dataset(
-            cfg.data.dataset, cfg.data.data_path, no_aug=cfg.data.no_aug,
-            canvas=cfg.data.canvas or 0)
-        self.metric_name = metric
-        self.nb_classes = nb_classes
-        self.train_loader = make_loader(
-            train_ds, cfg.data.batch_size, shuffle=True, drop_last=True,
-            seed=cfg.seed, num_workers=cfg.data.num_workers)
-        self.val_loader = make_loader(val_ds, cfg.data.batch_size,
-                                      shuffle=False,
-                                      num_workers=cfg.data.num_workers)
+        self._build_data()
 
         # model --------------------------------------------------------------
         model_cfg = cfg.model
-        if model_cfg.num_classes != nb_classes:
-            model_cfg = model_cfg.__class__(**{**model_cfg.__dict__,
-                                               "num_classes": nb_classes})
+        if model_cfg.num_classes != self.nb_classes:
+            model_cfg = model_cfg.__class__(**{
+                **model_cfg.__dict__, "num_classes": self.nb_classes})
         self.model_cfg = model_cfg
-        self.model = VisionTransformer(
+        self.model = self.MODEL(
             model_cfg, tuning=cfg.tuning, select=cfg.select,
             dtype=self.dtype,
             generator=torch.Generator().manual_seed(cfg.seed))
@@ -130,7 +124,7 @@ class Runner:
         # --fulltune trains the whole backbone (main_image.py:254); else the
         # reference freeze rule: adapters, routers and head
         named = optim.freeze(self.model, (lambda _: True) if cfg.fulltune
-                             else optim.default_trainable_predicate)
+                             else self.trainable_predicate)
         frozen = [(n, p) for n, p in self.model.named_parameters()
                   if not p.requires_grad]
         self.logger.info(
@@ -189,6 +183,24 @@ class Runner:
         self.aug_seed = fold_in(cfg.seed, 3)
 
     # ------------------------------------------------------------------
+    def _build_data(self) -> None:
+        """The loaders, ``nb_classes`` and ``metric_name``."""
+        cfg = self.cfg
+        train_ds, val_ds, self.nb_classes, self.metric_name = \
+            build_image_dataset(cfg.data.dataset, cfg.data.data_path,
+                                no_aug=cfg.data.no_aug,
+                                canvas=cfg.data.canvas or 0)
+        self.train_loader = make_loader(
+            train_ds, cfg.data.batch_size, shuffle=True, drop_last=True,
+            seed=cfg.seed, num_workers=cfg.data.num_workers)
+        self.val_loader = make_loader(val_ds, cfg.data.batch_size,
+                                      shuffle=False,
+                                      num_workers=cfg.data.num_workers)
+
+    @staticmethod
+    def trainable_predicate(name: str) -> bool:
+        return optim.default_trainable_predicate(name)
+
     def _device_batch(self, imgs: np.ndarray, labels: np.ndarray,
                       train: bool, step: int = 0
                       ) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -90,9 +90,9 @@ def test_learnable_adapter_scale_crosses_the_bridge():
 
 
 def test_unknown_flax_param_raises():
-    # the video model's attentive pooling is not ported
+    # a parameter no ported model has (timm's avg-pool norm)
     with pytest.raises(ValueError, match="no timm name"):
-        flax_path_to_timm(("attentive_blocks", "cross_attn", "q_bias"))
+        flax_path_to_timm(("fc_norm", "scale"))
 
 
 def _timm_sd(classes=10, seed=0):
