@@ -69,10 +69,11 @@ Phases; any failure exits non-zero:
      the mean keep ratio;
   4. segmentation serving through dynamic_tuning_tpu_torch.bench.seg_family:
      the DyT segmentor (ViT-B/16 backbone at 512^2, UPerHead 768, 150
-     classes, seeded synthetic weights) in dispatch and the dense
-     comparator, batch-1 crops; with the counts set to 0 just before: 12 K9
-     launches per forward and none of the image kernels, finite logits,
-     crops/s; each first forward against the same forward on the plain
+     classes, seeded synthetic weights) in dispatch, the dense comparator
+     and int8 dispatch, batch-1 crops; with the counts set to 0 just
+     before: 12 K9 launches per forward (int8: and 12 K4 and the stem
+     once) and none of the other kernels, finite logits, crops/s; each
+     first forward against the same forward on the plain
      versions -- for dispatch, its gates against the free-running
      plain-version forward's, and its logits against the plain-version
      forward given the kernel forward's dispatch decisions (per-pixel
@@ -128,9 +129,10 @@ Phases; any failure exits non-zero:
      its full protocol (image, int8, MoE, chip probe, train, video and seg
      families), with the counts set to 0 just before: one JSON line whose
      keys are BENCH_r05.json's, every field not null by design (the video
-     fields included) a positive number, and K2, K3, K4, K6, K7, K8 and K9
-     launched as often as its forwards need (the train family none; the
-     video family K2, K3, K6 + K4 and the int8 stem once a forward);
+     and int8 seg fields included) a positive number, and K2, K3, K4, K6,
+     K7, K8 and K9 launched as often as its forwards need (the train family
+     none; the video family K2, K3, K6 + K4 and the int8 stem once a
+     forward; the seg family K9, and its int8 model K4 and the stem);
  11. the image runner (after phase 9), through the port's entry points
      main_image.main and main_vtab.main at ViT-B/16 width and depth, phase
      3's weights given as a --finetune .pth: A, two epochs of synthetic
@@ -166,10 +168,35 @@ Phases; any failure exits non-zero:
      against the same forward on the plain versions (5% of the largest
      logit, gates >= 99.5%); then one dispatch forward of the tubelet-2
      model (16 clips, 4 frame groups each: 12 K3 launches) held the same
-     way; the SSv2 train batch (RandAugment, random resized crop) on the
-     card against the CPU's from the same draws (one count); train clips/s over A's second epoch, the traced steps' idle
+     way, its stem the image stem inflated over the tubelet, and beside it
+     the same forward with the stem at random init as a diagnostic, each
+     gate that differs from the plain-version forward's printed with its
+     distance from its boundary in bf16 ulps, and K3 on each block's
+     inputs no more than twice as far from the plain version evaluated in
+     fp32 as its plain version; the SSv2 train batch (RandAugment, random
+     resized crop) on the card against the CPU's from the same draws (one
+     count); train clips/s over A's second epoch, the traced steps' idle
      share, eval clips/s, peak memory;
- 13. the wall time (and each new phase's), the card's name and power limit
+ 13. segmentation training (after phase 5), through the port's entry
+     point seg_train.main: ViT-B/16 at full width and depth + UPerHead 768
+     at 512^2 crops, batch 2 of synthetic data, bf16 on fp32 masters, the
+     seg family's weights as the backbone's --finetune: A, 16 iterations
+     with evaluations (16 crops by slide inference) at 8 and 16; C, resumed
+     from A's iteration-8 checkpoint with --quant int8 (training bf16,
+     evaluating int8), its last 4 steps traced for the idle share: C's
+     trainable tensors and moments equal A's bit for bit; a --seg_norm bn
+     run of 2 iterations, whose running statistics a resume restores.
+     Training launches no hand kernel; every evaluation forward K9 12
+     times (int8: and K4 12 times and the stem once) and nothing else,
+     each held against the plain versions (5% of the largest logit given
+     the same gates; the evaluation's gates, all its forwards together,
+     >= 99.5% against the free-running plain-version forwards'); train
+     crops/s and ms a step, peak memory, the idle share.
+     Then int8: q8_conv (im2col + torch._int_mm) at the UPerHead's shapes,
+     its int32 sums exact against the float64 product, with its time and
+     bound; one int8 dispatch crop forward (K9 x12, K4 x12, the stem once)
+     against the plain versions;
+ 14. the wall time (and each new phase's), the card's name and power limit
      (nvidia-smi), a JSON line of the kernels, and last the JSON result
      line.
 Needs no network and imports nothing of JAX or of the JAX package.
@@ -180,6 +207,7 @@ from __future__ import annotations
 import contextlib
 import io
 import json
+import math
 import os
 import sys
 import time
@@ -1360,16 +1388,33 @@ def routing(D, *, record=None, replay=None):
         yield
 
 
+@contextlib.contextmanager
+def gates_replayed(layers, token_select):
+    """Each eval router's hard gate, in call order, replaced by a recorded
+    forward's (``token_select`` [B, L, T, 1], CLS stripped): a mask-mode
+    forward given the same gate decisions."""
+    calls = iter(range(token_select.shape[1]))
+
+    def gate_with_cls(logits, threshold):
+        return layers._cls_on(token_select[:, next(calls)].to(logits.dtype))
+
+    with mock.patch.object(layers, "gate_with_cls", gate_with_cls):
+        yield
+
+
 def compare_with_plain(torch, ms, qt, fm, res, run) -> None:
     """The dispatch forward again on the plain versions."""
     model, x = res["model"], res["x"]
     with plain_versions(ms, qt, fm), torch.inference_mode():
         ref, ref_aux = model(x, dispatch=True)
     err, mag = rel_err(res["logits"], ref)
-    agree = (res["aux"]["token_select"] == ref_aux["token_select"]
-             ).float().mean().item()
+    eq = (res["aux"]["token_select"] == ref_aux["token_select"]).float()
+    agree = eq.mean().item()
+    # one image's share, beside the seg evaluations' per-crop shares
+    per_input = eq.flatten(1).mean(dim=1).min().item()
     print(f"{run} logits vs plain versions: max|err| {err:.6g} (tol "
-          f"{MODEL_REL * mag:.6g}), gate agreement {agree:.6f}")
+          f"{MODEL_REL * mag:.6g}), gate agreement {agree:.6f} (per input "
+          f"at least {per_input:.6f})")
     if err > MODEL_REL * mag or agree < GATE_AGREE:
         fail(f"{run} forward disagrees with the plain-version forward")
 
@@ -1381,60 +1426,78 @@ def check_counts(ms, qt, fm, what, want_k9) -> None:
         fail(f"{what}: kernel launches {counts}, want {want}")
 
 
+SEG_FIELDS = {"dispatch": "seg_crops_s", "dense": "seg_dense_crops_s",
+              "q8": "seg_int8_crops_s"}
+
+
+def check_seg_forward(torch, ms, qt, fm, D, model, x, kw, logits, aux,
+                      what) -> str:
+    """A seg crop forward against the same forward on the plain versions:
+    with dispatch, its gates against the free-running plain-version
+    forward's, and its logits against the plain-version forward given the
+    kernel forward's dispatch decisions (per-pixel logits: a gate that
+    flips near 0 rewrites its own 16x16-pixel patch's logits outright,
+    beside any kernel error).  Returns the report."""
+    with plain_versions(ms, qt, fm), torch.inference_mode():
+        free, _, free_aux = model(x, **kw)
+    line = ""
+    if kw.get("dispatch"):
+        scores = []
+        with routing(D, record=scores), torch.inference_mode():
+            model(x, **kw)
+        with (routing(D, replay=scores), plain_versions(ms, qt, fm),
+              torch.inference_mode()):
+            ref, _, _ = model(x, **kw)
+        agree = (aux["token_select"] == free_aux["token_select"]
+                 ).float().mean().item()
+        keep = aux["token_select"].float().mean().item()
+        ferr, fmag = rel_err(logits, free)
+        past = ((logits - free).abs() > MODEL_REL * fmag).float().mean()
+        line += (f"; gate agreement with the plain-version forward "
+                 f"{agree:.6f} (its logits: max|err| {ferr:.6g} of "
+                 f"{fmag:.6g}, a share {past.item():.6f} past "
+                 f"{MODEL_REL:g} of it), mean keep ratio {keep:.4f}")
+    else:
+        ref, agree = free, 1.0
+    err, mag = rel_err(logits, ref)
+    line += (f"; logits vs plain versions"
+             f"{' on the same dispatch' if kw.get('dispatch') else ''}: "
+             f"max|err| {err:.6g} (tol {MODEL_REL * mag:.6g})")
+    if err > MODEL_REL * mag or agree < GATE_AGREE:
+        fail(f"{what} forward disagrees with the plain-version forward")
+    return line
+
+
 def phase_seg(torch, ms, qt, fm, D, bench, sd):
-    """Segmentation serving through bench.seg_family: dispatch and dense.
-    Returns K9's launches and the dispatch model."""
+    """Segmentation serving through bench.seg_family: dispatch, dense and
+    int8 dispatch.  Returns K9's and K4's launches and the dispatch and
+    int8 models."""
     reset_counts(ms, qt, fm)
     fields, runs = bench.seg_family("cuda", state_dict=sd)
     fwd = sum(r["forwards"] for r in runs.values())
-    check_counts(ms, qt, fm, "seg family", DEPTH * fwd)
+    q8 = runs["q8"]["forwards"]
+    want = dict.fromkeys(KERNELS, 0)
+    want.update(mha_windowed_fused=DEPTH * fwd, q8_ln_mlp=DEPTH * q8)
+    counts = read_counts(ms, qt, fm)
+    if counts != want or qt.q8_patch_embed.launches != q8:
+        fail(f"seg family: kernel launches {counts} (int8 stem "
+             f"{qt.q8_patch_embed.launches}), want {want} (stem {q8})")
     for mode, r in runs.items():
         logits = r["logits"]
         if (logits.shape != (1, 512, 512, SEG_CLASSES)
                 or not torch.isfinite(logits).all()):
             fail(f"seg {mode}: logits {tuple(logits.shape)} not "
                  "finite/shaped")
-        model, x, kw = r["model"], r["x"], bench.seg_kwargs(mode)
-        crops = fields["seg_crops_s" if mode == "dispatch"
-                       else "seg_dense_crops_s"]
-        line = f"seg {mode}: {crops} crops/s over {r['forwards']} forwards"
-        with plain_versions(ms, qt, fm), torch.inference_mode():
-            free, _, free_aux = model(x, **kw)
-        if mode == "dispatch":
-            # the kernel forward's dispatch decisions, replayed in the
-            # plain-version forward: what is left is the kernels' numerics
-            # (a gate that flips near 0 changes its own 16x16-pixel patch's
-            # logits outright, beside any kernel error)
-            scores = []
-            with routing(D, record=scores), torch.inference_mode():
-                model(x, **kw)
-            with (routing(D, replay=scores), plain_versions(ms, qt, fm),
-                  torch.inference_mode()):
-                ref, _, _ = model(x, **kw)
-            agree = (r["aux"]["token_select"] == free_aux["token_select"]
-                     ).float().mean().item()
-            keep = r["aux"]["token_select"].float().mean().item()
-            ferr, fmag = rel_err(logits, free)
-            past = ((logits - free).abs() > MODEL_REL * fmag).float().mean()
-            line += (f"; gate agreement with the plain-version forward "
-                     f"{agree:.6f} (its logits: max|err| {ferr:.6g} of "
-                     f"{fmag:.6g}, a share {past.item():.6f} past "
-                     f"{MODEL_REL:g} of it), mean keep ratio {keep:.4f}")
-        else:
-            ref, agree = free, 1.0
-        err, mag = rel_err(logits, ref)
-        line += (f"; logits vs plain versions"
-                 f"{' on the same dispatch' if mode == 'dispatch' else ''}: "
-                 f"max|err| {err:.6g} (tol {MODEL_REL * mag:.6g})")
-        print(line)
-        if err > MODEL_REL * mag or agree < GATE_AGREE:
-            fail(f"seg {mode} forward disagrees with the plain-version "
-                 "forward")
+        print(f"seg {mode}: {fields[SEG_FIELDS[mode]]} crops/s over "
+              f"{r['forwards']} forwards"
+              + check_seg_forward(torch, ms, qt, fm, D, r["model"], r["x"],
+                                  bench.seg_kwargs(mode), logits, r["aux"],
+                                  f"seg {mode}"))
     print("seg family: " + json.dumps(fields))
-    model = runs["dispatch"]["model"]
+    models = runs["dispatch"]["model"], runs["q8"]["model"]
     del runs
     torch.cuda.empty_cache()
-    return DEPTH * fwd, model
+    return DEPTH * fwd, DEPTH * q8, models
 
 
 def phase_slide(torch, ms, qt, fm, bench, seg_train, upernet, model,
@@ -1602,6 +1665,26 @@ def train_card_vs_cpu(torch, np, layers, vit) -> None:
           "final gates identical")
 
 
+def trace_summary(prof, what: str):
+    """((busy ms, window ms, kernels), the 8 kernels of most device time as
+    (name, us)) of a stopped CUDA profile."""
+    from torch.autograd import DeviceType
+
+    from dynamic_tuning_tpu_torch.utils.profile_forward import _busy_us
+    ks = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not ks:
+        fail(f"{what} hold no device activity")
+    window = (max(e.time_range.end for e in ks)
+              - min(e.time_range.start for e in ks))
+    busy = _busy_us((e.time_range.start, e.time_range.end) for e in ks)
+    per_name = {}
+    for e in ks:
+        per_name[e.name] = (per_name.get(e.name, 0.0)
+                            + e.time_range.elapsed_us())
+    return ((busy / 1e3, window / 1e3, len(ks)),
+            sorted(per_name.items(), key=lambda kv: -kv[1])[:8])
+
+
 class RunnerProbe:
     """Phase 11's instruments on the port's Runner: every evaluate() is timed
     and checked -- no hand kernel since the last eval (training launches
@@ -1654,11 +1737,7 @@ class RunnerProbe:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         if self.trace_next_epoch:
-            from torch.autograd import DeviceType
             from torch.profiler import ProfilerActivity, profile
-
-            from dynamic_tuning_tpu_torch.utils.profile_forward import \
-                _busy_us
             self.trace_next_epoch = False
             prof = profile(activities=[ProfilerActivity.CUDA])
             # the whole epoch, or its last trace_steps steps (the profiler
@@ -1683,19 +1762,7 @@ class RunnerProbe:
             finally:
                 runner.train_step = step
                 prof.stop()
-            ks = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-            if not ks:
-                fail("the traced epoch holds no device activity")
-            window = (max(e.time_range.end for e in ks)
-                      - min(e.time_range.start for e in ks))
-            busy = _busy_us((e.time_range.start, e.time_range.end)
-                            for e in ks)
-            per_name = {}
-            for e in ks:
-                per_name[e.name] = (per_name.get(e.name, 0.0)
-                                    + e.time_range.elapsed_us())
-            self.idle = (busy / 1e3, window / 1e3, len(ks))
-            self.top = sorted(per_name.items(), key=lambda kv: -kv[1])[:8]
+            self.idle, self.top = trace_summary(prof, "the traced steps")
         else:
             stats = real(runner, epoch)
         torch.cuda.synchronize()
@@ -1905,10 +1972,8 @@ def phase_video(torch, ms, qt, fm, np, sd) -> int:
     tubelet-2 dispatch forward; returns K3's launches."""
     import shutil
 
-    from dynamic_tuning_tpu_torch import config, main_video
-    from dynamic_tuning_tpu_torch.checkpoint import (load_timm_state_dict,
-                                                     load_torch_state_dict)
-    from dynamic_tuning_tpu_torch.models import video_vit
+    from dynamic_tuning_tpu_torch import main_video
+    from dynamic_tuning_tpu_torch.checkpoint import load_torch_state_dict
     from dynamic_tuning_tpu_torch.train import runner as R
     from dynamic_tuning_tpu_torch.train import video_runner as VR
     root = os.path.join(REPO, "build", "phase_video")
@@ -2003,43 +2068,12 @@ def phase_video(torch, ms, qt, fm, np, sd) -> int:
           f"{aug_ms:.3f} ms a batch of 16 with the copy")
     if not aug_err <= 0.0175:
         fail("the SSv2 train batch on the card disagrees with the CPU's")
-    # the tubelet-2 stem: 16 clips of 4 frame groups, dispatch
-    cfg = config.ModelConfig(num_classes=400, num_frames=8, tubelet_size=2,
-                             gelu_approx=True, residual_dtype="bfloat16")
-    tub = video_vit.VideoVisionTransformer(
-        cfg, tuning=config.TuningConfig(),
-        select=config.SelectConfig(token_target_ratio=0.5),
-        dtype=torch.bfloat16, generator=torch.Generator().manual_seed(1))
-    # the image stem inflated over the tubelet (its kernel halved on each
-    # of the 2 frames), so the routers see the image model's tokens
-    tub_sd = dict(sd, **{"patch_embed.proj.weight": np.repeat(
-        sd["patch_embed.proj.weight"][:, :, None] / 2, 2, axis=2)})
-    load_timm_state_dict(tub, tub_sd, log=lambda *_: None)
-    tub.to("cuda")
-    x = torch.randn((16, 8, 224, 224, 3), device="cuda",
-                    generator=torch.Generator(device="cuda").manual_seed(0))
-    reset_counts(ms, qt, fm)
-    with torch.inference_mode():
-        logits, aux = tub(x, dispatch=True)
-    want = dict.fromkeys(KERNELS, 0)
-    want["dyt_prologue_serving"] = DEPTH
-    counts = read_counts(ms, qt, fm)
-    if counts != want or tuple(aux["token_select"].shape) != (
-            64, DEPTH, N - 1, 1) or not torch.isfinite(logits).all():
-        fail(f"tubelet-2 forward: launches {counts}, gates "
-             f"{tuple(aux['token_select'].shape)}")
-    k3 += DEPTH
-    with plain_versions(ms, qt, fm), torch.inference_mode():
-        ref, ref_aux = tub(x, dispatch=True)
-    err, mag = rel_err(logits, ref)
-    agree = (aux["token_select"] == ref_aux["token_select"]
-             ).float().mean().item()
-    print(f"video tubelet-2 dispatch forward (16 clips x 4 frame groups, 12 "
-          f"K3 launches): logits vs plain versions max|err| {err:.6g} (tol "
-          f"{MODEL_REL * mag:.6g}), gate agreement {agree:.6f}")
-    if err > MODEL_REL * mag or agree < GATE_AGREE:
-        fail("the tubelet-2 forward disagrees with the plain-version forward")
-    del tub
+    # the tubelet-2 stem: 16 clips of 4 frame groups, dispatch; the image
+    # stem inflated over the tubelet (its kernel halved on each of the 2
+    # frames), so the routers see the image model's tokens -- the gate;
+    # then the stem at random init -- a diagnostic beside it
+    k3 += tubelet_forward(torch, ms, qt, fm, np, sd, inflated=True)
+    k3 += tubelet_forward(torch, ms, qt, fm, np, sd, inflated=False)
     last = ep_a[-1]
     clips_s = last["steps"] * last["batch"] / last["s"]
     busy_ms, window_ms, kernels = probe.idle
@@ -2063,6 +2097,446 @@ def phase_video(torch, ms, qt, fm, np, sd) -> int:
           f"saved it; K3 launches {k3}")
     shutil.rmtree(root, ignore_errors=True)
     return k3
+
+
+
+
+class SegProbe:
+    """Watches the seg runners that seg_train.main builds: each evaluation
+    forward recorded and held against the plain versions, the launch
+    counts checked at every evaluation's edges (training launches no hand
+    kernel; an evaluation forward K9 12 times, and with int8 K4 12 times
+    and the stem once), the host time at each evaluation's edges, and,
+    when asked, the steps before a run's last evaluation traced for the
+    idle share.  An evaluation forward's logits are held against the plain
+    versions given its gates (``gates_replayed``); the evaluation's gates,
+    all of its forwards' together, against the free-running plain-version
+    forwards' (``GATE_AGREE``)."""
+
+    def __init__(self, torch, ms, qt, fm, SR):
+        from dynamic_tuning_tpu_torch.models import layers
+        self.torch, self.ms, self.qt, self.fm, self.SR = torch, ms, qt, fm, SR
+        self.layers = layers
+        self.trace_steps, self.time_from, self.t_steps = 0, -1, None
+        self.evals, self.k9, self.k4 = [], 0, 0
+        self.prof = self.idle = None
+
+    @contextlib.contextmanager
+    def installed(self):
+        probe, cls = self, self.SR.SegRunner
+        real_eval, real_step = cls.evaluate, cls.train_step
+
+        def evaluate(runner, max_images=None):
+            return probe.evaluate(runner, real_eval, max_images)
+
+        def train_step(runner, *args, **kwargs):
+            if runner.state.step == probe.time_from:
+                probe.torch.cuda.synchronize()
+                probe.t_steps = time.perf_counter()
+            if (probe.trace_steps and probe.prof is None and
+                    runner.total_iters - runner.state.step
+                    == probe.trace_steps):
+                from torch.profiler import ProfilerActivity, profile
+                probe.torch.cuda.synchronize()
+                probe.prof = profile(activities=[ProfilerActivity.CUDA])
+                probe.prof.start()
+            return real_step(runner, *args, **kwargs)
+
+        quiet = self.SR.create_logger
+        with mock.patch.object(cls, "evaluate", evaluate), \
+                mock.patch.object(cls, "train_step", train_step), \
+                mock.patch.object(self.SR, "create_logger",
+                                  lambda out, rank=0: quiet(out, 1)):
+            yield self
+
+    def _stop_trace(self):
+        self.torch.cuda.synchronize()
+        self.prof.stop()
+        self.idle, self.top = trace_summary(self.prof, "the traced seg steps")
+        self.prof, self.trace_steps = None, 0
+
+    def evaluate(self, runner, real, max_images):
+        torch, ms, qt, fm = self.torch, self.ms, self.qt, self.fm
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if self.prof is not None:
+            self._stop_trace()
+        counts = read_counts(ms, qt, fm)
+        if any(counts.values()) or qt.q8_patch_embed.launches:
+            fail(f"seg training launched hand kernels: {counts}")
+        forwards, apply = [], runner._apply
+
+        def recording(tiles):
+            logits, _, aux = runner.model(tiles, aux_logits=False)
+            forwards.append((tiles, logits, aux))
+            return logits
+
+        runner._apply = recording
+        try:
+            stats = real(runner, max_images)
+        finally:
+            del runner._apply
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        n = len(forwards)
+        q8 = runner.cfg.model.quant != "none"
+        want = dict.fromkeys(KERNELS, 0)
+        want.update(mha_windowed_fused=DEPTH * n,
+                    q8_ln_mlp=DEPTH * n if q8 else 0)
+        counts = read_counts(ms, qt, fm)
+        if counts != want or qt.q8_patch_embed.launches != (n if q8 else 0):
+            fail(f"seg eval ({n} forwards): launches {counts} (stem "
+                 f"{qt.q8_patch_embed.launches}), want {want}")
+        self.k9 += DEPTH * n
+        self.k4 += want["q8_ln_mlp"]
+        reset_counts(ms, qt, fm)
+        # per-pixel logits: a gate that flips near the threshold rewrites
+        # its own patch's logits, so the logits are held against the plain
+        # versions given the same gates; the gates against the free-running
+        # plain-version forward's, over all of the evaluation's gates (a
+        # forward holds one crop, 12288 gates; the image runner's forwards
+        # hold 128 images, ~300k)
+        worst, same, gates, crop_min, flips = 0.0, 0, 0, 1.0, []
+        with plain_versions(ms, qt, fm), torch.inference_mode():
+            for tiles, logits, aux in forwards:
+                ts = aux["token_select"]
+                _, _, free_aux = runner.model(tiles, aux_logits=False)
+                eq = ts == free_aux["token_select"]
+                same, gates = same + int(eq.sum()), gates + eq.numel()
+                crop_min = min(crop_min, eq.float().mean().item())
+                flips += gate_flips(torch, aux, free_aux, ts.shape[2] + 1)
+                with gates_replayed(self.layers, ts):
+                    ref, _, _ = runner.model(tiles, aux_logits=False)
+                err, mag = rel_err(logits, ref)
+                worst = max(worst, err / mag)
+                if not torch.isfinite(logits).all():
+                    fail("seg eval: logits not finite")
+        agree = same / gates
+        if worst > MODEL_REL or agree < GATE_AGREE:
+            fail(f"seg eval vs plain versions: max rel err {worst}, gate "
+                 f"agreement {agree} ({gates - same} of {gates} gates "
+                 f"differ; per crop at least {crop_min})")
+        self.evals.append(dict(runner=runner, step=runner.state.step,
+                               stats=stats, t0=t0, s=secs,
+                               forwards=n, worst=worst, agree=agree,
+                               crop_min=crop_min))
+        print(f"seg eval at iteration {runner.state.step}"
+              f"{' (int8)' if q8 else ''}: {n} crops, K9 x12"
+              f"{' + K4 x12 + the stem' if q8 else ''} a forward and nothing "
+              f"else; miou {stats['miou']:.4f}; vs plain versions given the "
+              f"same gates max rel err {worst:.3g}; gate agreement "
+              f"{agree:.6f} ({gates - same} of {gates} gates differ; per "
+              f"crop at least {crop_min:.6f}; the differing router logits "
+              f"at most {max([f[1] for f in flips], default=0):.3g} bf16 "
+              f"ulps from 0); {n / secs:.1f} crops/s with the loader")
+        return stats
+
+
+def phase_seg_train(torch, ms, qt, fm, D, seg_sd, q8_model) -> dict:
+    """Phase 13: segmentation training through seg_train.main on the card
+    (A; C resumed from A's iteration-8 checkpoint, evaluating in int8; a
+    BatchNorm pair), then int8 segmentation: q8_conv at the UPerHead's
+    shapes, one int8 dispatch crop forward.  Returns the launches of K9
+    and K4."""
+    import shutil
+
+    from dynamic_tuning_tpu_torch import seg_train
+    from dynamic_tuning_tpu_torch.train import seg_runner as SR
+    root = os.path.join(REPO, "build", "phase_seg_train")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    ft = os.path.join(root, "ft.pth")
+    torch.save({k[len("backbone."):]: torch.from_numpy(v)
+                for k, v in seg_sd.items() if k.startswith("backbone.")}, ft)
+    a, c, bn_a, bn_c = (os.path.join(root, d)
+                        for d in ("a", "c", "bn_a", "bn_c"))
+    flags = ["--dataset", "synthetic", "--crop_size", "512", "--batch_size",
+             "2", "--total_iters", "16", "--eval_interval", "8",
+             "--no_auto_remove", "--num_workers", "2", "--finetune", ft]
+    parse = seg_train.get_args_parser().parse_args
+    probe = SegProbe(torch, ms, qt, fm, SR)
+    with probe.installed():
+        reset_counts(ms, qt, fm)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        probe.time_from = 8            # iterations 9-16, up to the eval
+        seg_train.main(parse(flags + ["--output_dir", a]))
+        peak = torch.cuda.max_memory_allocated()
+        probe.time_from = -1
+        ev_a = list(probe.evals)
+        runner_a = ev_a[-1]["runner"]
+        if [(e["step"], e["forwards"]) for e in ev_a] != [(8, 16), (16, 16)]:
+            fail("seg run A: evaluations (iteration, crops) "
+                 f"{[(e['step'], e['forwards']) for e in ev_a]}")
+        steps_s = ev_a[1]["t0"] - probe.t_steps
+        # C: resumed from A's iteration-8 checkpoint, evaluating in int8
+        # (training runs bf16 all the same); its last 4 steps traced
+        probe.trace_steps = TRACE_STEPS
+        seg_train.main(parse(flags + [
+            "--output_dir", c, "--quant", "int8", "--resume",
+            os.path.join(a, "checkpoint-8.pth")]))
+        runner_c = probe.evals[-1]["runner"]
+        if (len(probe.evals) != 3 or runner_c.start_iter != 8
+                or runner_c.cfg.model.quant != "int8"):
+            fail("the resumed seg run did not run iterations 9-16 alone")
+        oa, oc = runner_a.state.optimizer, runner_c.state.optimizer
+        if (runner_a.state.step, oa.count) != (runner_c.state.step, oc.count):
+            fail(f"resumed seg step/count {runner_c.state.step}/{oc.count}, "
+                 f"uninterrupted {runner_a.state.step}/{oa.count}")
+        pa = dict(runner_a.model.named_parameters())
+        pc = dict(runner_c.model.named_parameters())
+        differ = [n for n in oa.names if not torch.equal(pa[n], pc[n])]
+        sa, sc = oa.state_dict()["rule"], oc.state_dict()["rule"]
+        differ += [f"{part} {n}" for part in ("mu", "nu") for n in oa.names
+                   if not torch.equal(sa[part][n], sc[part][n])]
+        if differ:
+            fail(f"the resumed seg run differs from the uninterrupted one "
+                 f"in {len(differ)} tensors: {differ[:6]}")
+        print(f"seg resume: the run resumed at iteration 8 (evaluating in "
+              f"int8) ends with A's {len(oa.names)} trainable tensors and "
+              f"their moments bit for bit; step {runner_c.state.step}, count "
+              f"{oc.count}")
+        del runner_a, runner_c, pa, pc, sa, sc
+        # BatchNorm heads: two steps, then a resume restores the running
+        # statistics the checkpoint holds
+        bn = flags[:4] + ["--batch_size", "2", "--total_iters", "2",
+                          "--eval_interval", "2", "--no_auto_remove",
+                          "--num_workers", "2", "--finetune", ft,
+                          "--seg_norm", "bn"]
+        seg_train.main(parse(bn + ["--output_dir", bn_a]))
+        runner_bn = probe.evals[-1]["runner"]
+        resumed = seg_train.build_runner(parse(bn + [
+            "--output_dir", bn_c, "--resume",
+            os.path.join(bn_a, "checkpoint-2.pth")]), log=lambda m: None)
+        ba = dict(runner_bn.model.named_buffers())
+        bc = dict(resumed.model.named_buffers())
+        names = runner_bn.buffers
+        if (not names or any(not torch.equal(ba[n], bc[n]) for n in names)
+                or all(torch.equal(bc[n], torch.ones_like(bc[n]))
+                       for n in names if n.endswith("running_var"))):
+            fail("the BatchNorm running statistics did not come back on "
+                 "resume")
+        print(f"seg BatchNorm: 2 steps, then --resume restores its "
+              f"{len(names)} running statistics bit for bit")
+        del runner_bn, resumed
+    busy_ms, window_ms, kernels = probe.idle
+    print(f"seg train ViT-B/16 + UPerHead 768 at 512^2, batch 2 (bf16 on "
+          f"fp32 masters, no hand kernel): iterations 9-16 of run A "
+          f"{steps_s:.3f} s, {steps_s * 1e3 / 8:.1f} ms a step, "
+          f"{16 / steps_s:.2f} crops/s (loader, copy and step, host clock); "
+          f"peak memory {peak / 2**30:.2f} GiB; run C's last {TRACE_STEPS} "
+          f"steps traced: kernel-busy {busy_ms:.1f} ms in {kernels} kernels,"
+          f" idle share {1 - busy_ms / window_ms:.4f} of their "
+          f"{window_ms:.1f} ms device window")
+    print("seg traced steps, device ms a step by kernel: " + "; ".join(
+        f"{name[:90]} {us / 1e3 / TRACE_STEPS:.2f}"
+        for name, us in probe.top))
+
+    # (b) int8: q8_conv at the UPerHead's shapes, its int32 sums exact
+    g = torch.Generator(device="cuda").manual_seed(5)
+    shapes = [("fpn_bottleneck 3x3 3072->768 at 128^2", 128, 3072, 3),
+              ("psp bottleneck 3x3 3840->768 at 16^2", 16, 3840, 3),
+              ("lateral 1x1 768->768 at 128^2", 128, 768, 1)] + [
+        (f"psp pool_{i} 1x1 768->768 at {sc}^2", sc, 768, 1)
+        for i, sc in enumerate((1, 2, 3, 6))]
+    for name, hw, cin, k in shapes:
+        x = torch.randn((1, hw, hw, cin), generator=g, device="cuda")
+        w = torch.randn((768, cin, k, k), generator=g, device="cuda") * 0.02
+        wq, ws = qt.quantize_conv_weight(w)
+        xq, _ = qt.sample_quant(x)
+        rows = qt.im2col(xq, k)
+        got = qt._int_mm_padded(rows, wq)
+        # float64 holds each sum exactly
+        want = torch.matmul(rows.double(), wq.double().t())
+        if got.dtype != torch.int32 or not torch.equal(got.double(), want):
+            fail(f"q8_conv {name}: int32 sums differ from the float64 "
+                 "product")
+        out = qt.q8_conv_codes(x, wq, ws, kernel=k)
+        ms_k = time_ms(lambda: qt.q8_conv_codes(x, wq, ws, kernel=k))
+        ms_p = time_ms(lambda: qt.int_matmul(qt.im2col(
+            qt.sample_quant(x)[0], k), wq), iters=5)
+        ops = 2 * rows.shape[0] * rows.shape[1] * 768
+        b_ms, b_by = bound(nbytes(x, wq, out), {"int8": ops})
+        print(f"q8_conv {name}: int32 sums exact ({rows.shape[0]} x "
+              f"{rows.shape[1]} x 768); {ms_k:.4f} ms (im2col + _int_mm + "
+              f"scales), the float64 product alone {ms_p:.4f} ms, bound "
+              f"{b_ms:.4f} ms ({b_by})")
+    # one int8 dispatch crop forward: K9 x12, K4 x12, the stem once
+    x = torch.randn((1, 512, 512, 3), generator=g, device="cuda")
+    kw = dict(dispatch=True, aux_logits=False)
+    reset_counts(ms, qt, fm)
+    with torch.inference_mode():
+        logits, _, aux = q8_model(x, **kw)
+    torch.cuda.synchronize()
+    want = dict.fromkeys(KERNELS, 0)
+    want.update(mha_windowed_fused=DEPTH, q8_ln_mlp=DEPTH)
+    counts = read_counts(ms, qt, fm)
+    if counts != want or qt.q8_patch_embed.launches != 1:
+        fail(f"int8 seg crop forward: launches {counts} (stem "
+             f"{qt.q8_patch_embed.launches}), want {want} and the stem once")
+    print("int8 seg dispatch crop forward: K9 x12, K4 x12, the stem once"
+          + check_seg_forward(torch, ms, qt, fm, D, q8_model, x, kw, logits,
+                              aux, "int8 seg crop"))
+    shutil.rmtree(root, ignore_errors=True)
+    return {"mha_windowed_fused": probe.k9 + DEPTH,
+            "q8_ln_mlp": probe.k4 + DEPTH}
+
+
+def _bf16_ulp(v: float) -> float:
+    """The spacing of bf16 values at magnitude ``v``."""
+    return 2.0 ** (math.floor(math.log2(max(abs(v), 1e-30))) - 7)
+
+
+def gate_flips(torch, aux, ref_aux, capacity: int) -> list:
+    """Each gate of a dispatch forward that differs from the plain-version
+    forward's, as (block, threshold distance, threshold band, capacity
+    distance, capacity band), in bf16 ulps.  Threshold: the plain
+    forward's router logit's distance from 0, and the two forwards' logit
+    difference at that token, in ulps of the block's largest |logit|.
+    Capacity: its score's distance from the score on the other side of the
+    last kept place, and twice the row's largest score difference between
+    the forwards (the token's score and the boundary -- an order
+    statistic, which moves no more than the largest difference -- may move
+    apart), in ulps of the boundary score.  A flip lies inside the band
+    when a distance is at most its band."""
+    gate = aux["token_select"][..., 0]
+    ref_gate = ref_aux["token_select"][..., 0]
+    logits = aux["token_logits"][..., 0].float()
+    ref = ref_aux["token_logits"][..., 0].float()
+    kept = capacity - 1                    # CLS takes one place
+    out = []
+    for b, blk, t in (gate != ref_gate).nonzero().tolist():
+        row, krow = ref[b, blk], logits[b, blk]
+        lu = _bf16_ulp(row.abs().max().item())
+        flip = [blk, abs(row[t].item()) / lu,
+                abs(krow[t].item() - row[t].item()) / lu, math.inf, 0.0]
+        if kept < row.numel():
+            s, ks = torch.sigmoid(row), torch.sigmoid(krow)
+            order = torch.sort(s, descending=True, stable=True).indices
+            pos = (order == t).nonzero().item()
+            other = s[order[kept] if pos < kept else order[kept - 1]].item()
+            su = _bf16_ulp(other)
+            flip[3] = abs(s[t].item() - other) / su
+            flip[4] = 2 * (ks - s).abs().max().item() / su
+        out.append(tuple(flip))
+    return out
+
+
+def k3_against_fp32(torch, ms, blocks) -> None:
+    """K3 and its plain version on each block's inputs of a plain-version
+    forward, both held against the plain version evaluated in fp32 (the
+    weights and x in fp32, no bf16 rounding inside): the router logits'
+    largest error in bf16 ulps of the block's largest |logit|, and x_mid's
+    largest relative error.  Fails where K3 is more than twice as far from
+    the fp32 evaluation as the plain version -- an error of K3's own, not
+    the rounding both share."""
+    bf16 = torch.bfloat16
+    rows, launches = [], ms.dyt_prologue_serving.launches
+    with torch.inference_mode():
+        for i, (args, kwargs) in enumerate(blocks):
+            exact = ms.dyt_prologue_plain(
+                *(a.float() if torch.is_tensor(a) and a.dtype == bf16 else a
+                  for a in args), **kwargs)
+            lu = _bf16_ulp(exact[2].abs().max().item())
+            xm = exact[0].abs().max().item()
+            row = [i]
+            for out in (ms.dyt_prologue_serving(*args, **kwargs),
+                        ms.dyt_prologue_plain(*args, **kwargs)):
+                row += [(out[2] - exact[2]).abs().max().item() / lu,
+                        (out[0].float() - exact[0]).abs().max().item() / xm]
+            rows.append(row)
+    ms.dyt_prologue_serving.launches = launches
+    worse = [r for r in rows if r[1] > 2 * r[3] or r[2] > 2 * r[4]]
+    print("  K3 per block on the plain forward's inputs, against the plain "
+          "version in fp32 (block, K3 logit err in ulps, K3 x_mid rel err, "
+          "plain bf16 logit err in ulps, plain x_mid rel err): "
+          + ", ".join(f"({r[0]}, {r[1]:.3g}, {r[2]:.3g}, {r[3]:.3g}, "
+                      f"{r[4]:.3g})" for r in rows))
+    if worse:
+        fail(f"K3 is more than twice as far from the fp32 evaluation as its "
+             f"plain version: {worse}")
+
+
+def tubelet_forward(torch, ms, qt, fm, np, sd, *, inflated: bool) -> int:
+    """One dispatch forward of the tubelet-2 video model (16 clips of 4
+    frame groups) held against the plain-version forward, each differing
+    gate's distance from its boundary printed; the gate applies to the
+    inflated stem, the random-init stem is a diagnostic.  Returns K3's
+    launches."""
+    from dynamic_tuning_tpu_torch import config
+    from dynamic_tuning_tpu_torch.checkpoint import load_timm_state_dict
+    from dynamic_tuning_tpu_torch.models import video_vit
+    from dynamic_tuning_tpu_torch.ops import dispatch as D
+    cfg = config.ModelConfig(num_classes=400, num_frames=8, tubelet_size=2,
+                             gelu_approx=True, residual_dtype="bfloat16")
+    tub = video_vit.VideoVisionTransformer(
+        cfg, tuning=config.TuningConfig(),
+        select=config.SelectConfig(token_target_ratio=0.5),
+        dtype=torch.bfloat16, generator=torch.Generator().manual_seed(1))
+    stem = "patch_embed.proj.weight"
+    if inflated:
+        tub_sd = dict(sd, **{stem: np.repeat(sd[stem][:, :, None] / 2, 2,
+                                             axis=2)})
+    else:
+        tub_sd = {k: v for k, v in sd.items() if k != stem}
+    load_timm_state_dict(tub, tub_sd, log=lambda *_: None)
+    tub.to("cuda")
+    x = torch.randn((16, 8, 224, 224, 3), device="cuda",
+                    generator=torch.Generator(device="cuda").manual_seed(0))
+    reset_counts(ms, qt, fm)
+    with torch.inference_mode():
+        logits, aux = tub(x, dispatch=True)
+    want = dict.fromkeys(KERNELS, 0)
+    want["dyt_prologue_serving"] = DEPTH
+    counts = read_counts(ms, qt, fm)
+    if counts != want or tuple(aux["token_select"].shape) != (
+            64, DEPTH, N - 1, 1) or not torch.isfinite(logits).all():
+        fail(f"tubelet-2 forward: launches {counts}, gates "
+             f"{tuple(aux['token_select'].shape)}")
+    blocks = []
+
+    def recording(*args, **kwargs):
+        blocks.append((args, kwargs))
+        return ms.dyt_prologue_plain(*args, **kwargs)
+
+    with plain_versions(ms, qt, fm), torch.inference_mode(), \
+            mock.patch.object(ms, "dyt_prologue_serving", recording):
+        ref, ref_aux = tub(x, dispatch=True)
+    err, mag = rel_err(logits, ref)
+    agree = (aux["token_select"] == ref_aux["token_select"]
+             ).float().mean().item()
+    if not inflated:
+        k3_against_fp32(torch, ms, blocks)
+    del blocks
+    stem_name = ("the image stem inflated" if inflated
+                 else "its stem at random init (diagnostic)")
+    print(f"video tubelet-2 dispatch forward, {stem_name} (16 clips x 4 "
+          f"frame groups, 12 K3 launches): logits vs plain versions max|err| "
+          f"{err:.6g} (tol {MODEL_REL * mag:.6g}), gate agreement "
+          f"{agree:.6f}")
+    flips = gate_flips(torch, aux, ref_aux, D.capacity_for(N - 1, 0.5))
+    if flips:
+        thr = [f for f in flips if f[1] <= f[2]]
+        cap = [f for f in flips if f[1] > f[2] and f[3] <= f[4]]
+        outside = [f for f in flips if f[1] > f[2] and f[3] > f[4]]
+        by_block = {}
+        for f in flips:
+            by_block[f[0]] = by_block.get(f[0], 0) + 1
+        print(f"  {len(flips)} gates differ (per block {by_block}): "
+              f"{len(thr)} straddle the threshold (logit within the "
+              f"forwards' difference of 0: at most {max([f[1] for f in thr], default=0):.4g} "
+              f"ulps), {len(cap)} sit at the capacity boundary (score within "
+              f"twice the row's largest score difference of the boundary "
+              f"score: at most {max([f[3] for f in cap], default=0):.4g} "
+              f"ulps, bands up to {max([f[4] for f in cap], default=0):.4g}),"
+              f" {len(outside)} outside the band"
+              + (f" (block, threshold distance, band, capacity distance, "
+                 f"band): {outside[:8]}" if outside else ""))
+    if inflated and (err > MODEL_REL * mag or agree < GATE_AGREE):
+        fail("the tubelet-2 forward disagrees with the plain-version forward")
+    del tub
+    torch.cuda.empty_cache()
+    return DEPTH
 
 
 def phase_bench(torch, ms, qt, fm, bench, sds, seg_sd) -> dict:
@@ -2095,14 +2569,17 @@ def phase_bench(torch, ms, qt, fm, bench, sds, seg_sd) -> dict:
     seg = DEPTH * len(bench.SEG_MODES) * (1 + forwards_run(
         bench.SEG_ITERS, bench.SEG_REPEATS, bench.SEG_WARMUP))
     want = dict.fromkeys(KERNELS, 0)
-    # the image families, then the video family's dense, dyt and q8 models
+    # the image families, the video family's dense, dyt and q8 models and
+    # the seg family's int8 model (K4 and the stem beside K9)
+    seg_q8 = seg // len(bench.SEG_MODES)      # the int8 model's forwards
     want.update(attention_sublayer_serving=fwd + vfwd,
                 dyt_prologue_serving=fwd + vfwd,
                 dyt_prologue_serving_q8=fwd + vfwd,
-                q8_ln_mlp=2 * fwd + vfwd, dyt_prologue_serving_moe=fwd,
+                q8_ln_mlp=2 * fwd + vfwd + seg_q8,
+                dyt_prologue_serving_moe=fwd,
                 dyt_prologue_serving_q8_moe=fwd, mha_windowed_fused=seg)
     counts = read_counts(ms, qt, fm)
-    stem = (2 * fwd + vfwd) // DEPTH
+    stem = (2 * fwd + vfwd + seg_q8) // DEPTH
     if counts != want or qt.q8_patch_embed.launches != stem:
         fail(f"bench: kernel launches {counts} (int8 stem "
              f"{qt.q8_patch_embed.launches}), want {want} (stem {stem})")
@@ -2184,11 +2661,20 @@ def main() -> None:
     t0 = time.perf_counter()
     seg_sd = bench.seg_state_dict(0)
     print(f"synthetic seg weights: {time.perf_counter() - t0:.1f} s")
-    k9, seg_model = phase_seg(torch, ms, qt, fm, D, bench, seg_sd)
+    k9, k4, (seg_model, q8_model) = phase_seg(torch, ms, qt, fm, D, bench,
+                                              seg_sd)
     k9 += phase_slide(torch, ms, qt, fm, bench, seg_train, upernet,
                       seg_model, seg_sd)
     launches["mha_windowed_fused"] = k9
+    launches["q8_ln_mlp"] += k4
     del seg_model
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    for k, n in phase_seg_train(torch, ms, qt, fm, D, seg_sd,
+                                q8_model).items():
+        launches[k] += n
+    print(f"phase seg train: {time.perf_counter() - t0:.1f} s")
+    del q8_model
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     for k, n in phase_bench(torch, ms, qt, fm, bench, sds, seg_sd).items():

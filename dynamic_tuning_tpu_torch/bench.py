@@ -46,11 +46,13 @@ residual stream, tanh GELU, keep ratio 0.5), batch-1 crops -- the shipping
 slide cadence (tile_batch 1).  ``dispatch`` is the DyT model with capacity
 dispatch; ``dense`` the comparator without adapter or router
 (``TuningConfig(ffn_adapt=False)``, ``SelectConfig(open=False)``), which
-still runs K9 in every block.  Each is timed as the best of 3 runs of 12
-forwards between CUDA events, after 2 untimed forwards; the auxiliary head,
-whose output the timed forward does not use, is left out as the JAX
-bench's compiled program leaves it out.  Weights are seeded synthetic
-(``checkpoint.make_seg_state_dict``).
+still runs K9 in every block; ``q8`` the DyT model in int8 with dispatch
+(the int8 stem, K9 and K4 in every block, the heads' convs on
+``ops/quant.py::q8_conv_codes``), on the DyT weights.  Each takes 2
+untimed forwards, then their runs of 12 forwards between CUDA events are
+interleaved, best of 3; the auxiliary head, whose output the timed forward
+does not use, is left out as the JAX bench's compiled program leaves it
+out.  Weights are seeded synthetic (``checkpoint.make_seg_state_dict``).
 
 Video family (bench.py:322-377): the video DyT ViT-B/16
 (``models/video_vit.py``) on 16 clips of 8 frames at 224^2 (128 frames a
@@ -63,8 +65,7 @@ warm-up forwards, then their runs of 10 forwards between CUDA events are
 interleaved, best of 3; ``video_vs_dense`` and ``video_int8_vs_dense`` are
 clips/s over the dense model's.
 
-Null by design: the int8 seg fields (ROADMAP.md queue 1 item 5) and
-``probe_rtt_ms_est``.
+Null by design: ``probe_rtt_ms_est``.
 """
 
 from __future__ import annotations
@@ -85,8 +86,7 @@ from dynamic_tuning_tpu_torch.models.video_vit import VideoVisionTransformer
 from dynamic_tuning_tpu_torch.models.vit import VisionTransformer
 from dynamic_tuning_tpu_torch.ops.flops import dense_vit_flops
 from dynamic_tuning_tpu_torch.train import engine, optim
-from dynamic_tuning_tpu_torch.utils.profiling import (forwards_run,
-                                                      scan_throughput)
+from dynamic_tuning_tpu_torch.utils.profiling import forwards_run
 
 METRIC = ("DyT ViT-B/16 images/sec/chip (capacity dispatch, keep 0.5, "
           "batch 128, bf16)")
@@ -101,15 +101,14 @@ FIELDS = (
     "video_dense_clips_s", "video_vs_dense", "video_int8_clips_s",
     "video_int8_vs_dense", "seg_crops_s", "seg_dense_crops_s",
     "seg_vs_dense", "seg_int8_crops_s", "seg_int8_vs_dense", "seg_protocol")
-NULL_BY_DESIGN = ("probe_rtt_ms_est", "seg_int8_crops_s",
-                  "seg_int8_vs_dense")
+NULL_BY_DESIGN = ("probe_rtt_ms_est",)
 
 BATCH, IMG, CLASSES, FFN, MOE = 128, 224, 100, 64, 4
 WARMUP, ITERS, REPEATS = 5, 30, 5
 PROBE_N, PROBE_ITERS, PROBE_REPEATS = 2048, 200, 3
 TRAIN_BATCH, TRAIN_STEPS, TRAIN_REPEATS = 64, 8, 3
 SEG_CROP, SEG_CLASSES = 512, 150
-SEG_MODES = ("dispatch", "dense")
+SEG_MODES = ("dispatch", "dense", "q8")
 SEG_ITERS, SEG_REPEATS, SEG_WARMUP = 12, 3, 2
 VIDEO_BATCH, VIDEO_FRAMES, VIDEO_CLASSES = 16, 8, 400
 VIDEO_WARMUP, VIDEO_ITERS, VIDEO_REPEATS = 2, 10, 3
@@ -163,32 +162,44 @@ def build_image_model(name: str, device, state_dicts) -> VisionTransformer:
     return model.to(device)
 
 
-def _run_s(model, x, dispatch: bool) -> float:
-    """Seconds on the card for one run of ``ITERS`` forwards."""
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for i in range(ITERS):
-        model(x + (i != 0), dispatch=dispatch)
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / 1e3
+def interleaved_best(fns: dict, *, iters: int, repeats: int,
+                     warmup: int) -> dict:
+    """{name: seconds}: ``fns[name](i)`` called ``warmup`` times for each
+    name, then runs of ``iters`` calls between CUDA events, the names'
+    runs interleaved, best of ``repeats`` each (``i`` counts the calls of
+    a run from 0)."""
+    for f in fns.values():
+        for i in range(warmup):
+            f(i)
+    torch.cuda.synchronize()
+    best = dict.fromkeys(fns, float("inf"))
+    for _ in range(repeats):
+        for name, f in fns.items():
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            for i in range(iters):
+                f(i)
+            end.record()
+            end.synchronize()
+            best[name] = min(best[name], start.elapsed_time(end) / 1e3)
+    return best
+
+
+def _forwards(model, x, dispatch: bool):
+    """A call of ``interleaved_best``: one forward, its input moved after
+    the first so no two calls in a row see the same tensor."""
+    return lambda i: model(x + (i != 0), dispatch=dispatch)
 
 
 def time_image_models(names, device, state_dicts, x) -> dict:
     """{name: img/s}: the models of ``names`` warmed up, then their runs
     interleaved, best of ``REPEATS`` each."""
     models = {n: build_image_model(n, device, state_dicts) for n in names}
-    dispatch = {n: IMAGE_MODELS[n][1] == "dispatch" for n in names}
-    best = {n: float("inf") for n in names}
     with torch.inference_mode():
-        for n in names:
-            for i in range(WARMUP):
-                models[n](x + (i != 0), dispatch=dispatch[n])
-        torch.cuda.synchronize()
-        for _ in range(REPEATS):
-            for n in names:
-                best[n] = min(best[n], _run_s(models[n], x, dispatch[n]))
+        best = interleaved_best(
+            {n: _forwards(models[n], x, IMAGE_MODELS[n][1] == "dispatch")
+             for n in names}, iters=ITERS, repeats=REPEATS, warmup=WARMUP)
     del models
     torch.cuda.empty_cache()
     return {n: BATCH * ITERS / best[n] for n in names}
@@ -304,15 +315,16 @@ def seg_state_dict(seed: int = 0):
 def build_segmentor(mode: str, device, *, state_dict=None,
                     seed: int = 0) -> DyTSegmentor:
     """The seg family's model for ``mode`` (``dispatch``/``mask``: DyT;
-    ``dense``: no adapter, no router) on ``device`` with the synthetic
-    weights of ``seed`` (or ``state_dict``; keys the model lacks are
-    skipped)."""
+    ``q8``: DyT in int8; ``dense``: no adapter, no router) on ``device``
+    with the synthetic weights of ``seed`` (or ``state_dict``; keys the
+    model lacks are skipped)."""
     if mode == "dense":
         tuning, select = TuningConfig(ffn_adapt=False), SelectConfig(open=False)
     else:
         tuning, select = TuningConfig(), SelectConfig(token_target_ratio=0.5)
     cfg = ModelConfig(img_size=SEG_CROP, gelu_approx=True,
-                      residual_dtype="bfloat16")
+                      residual_dtype="bfloat16",
+                      quant="int8" if mode == "q8" else "none")
     model = DyTSegmentor(cfg, num_classes=SEG_CLASSES, tuning=tuning,
                          select=select, dtype=torch.bfloat16)
     _load(model, seg_state_dict(seed) if state_dict is None else state_dict)
@@ -320,7 +332,7 @@ def build_segmentor(mode: str, device, *, state_dict=None,
 
 
 def seg_kwargs(mode: str) -> dict:
-    return dict(dispatch=mode == "dispatch", aux_logits=False)
+    return dict(dispatch=mode in ("dispatch", "q8"), aux_logits=False)
 
 
 def seg_family(device="cuda", *, seed: int = 0, state_dict=None):
@@ -332,26 +344,27 @@ def seg_family(device="cuda", *, seed: int = 0, state_dict=None):
         state_dict = seg_state_dict(seed)
     g = torch.Generator(device=device).manual_seed(seed)
     x = torch.randn((1, SEG_CROP, SEG_CROP, 3), generator=g, device=device)
-    runs, crops_s = {}, {}
-    for mode in SEG_MODES:
-        # built outside inference mode: its parameters stay normal tensors
-        model = build_segmentor(mode, device, state_dict=state_dict)
-        kw = seg_kwargs(mode)
-        with torch.inference_mode():
-            logits, _, aux = model(x, **kw)
-            # scan_throughput's timing with a batch of one crop
-            crops_s[mode] = scan_throughput(
-                lambda: model(x, **kw), batch=1, iters=SEG_ITERS,
-                repeats=SEG_REPEATS, warmup_iters=SEG_WARMUP)
-            runs[mode] = dict(model=model, x=x, logits=logits, aux=aux,
-                              forwards=1 + forwards_run(
-                                  SEG_ITERS, SEG_REPEATS, SEG_WARMUP))
+    # built outside inference mode: their parameters stay normal tensors
+    models = {m: build_segmentor(m, device, state_dict=state_dict)
+              for m in SEG_MODES}
+    kw = {m: seg_kwargs(m) for m in SEG_MODES}
+    runs = {}
+    with torch.inference_mode():
+        for m in SEG_MODES:
+            logits, _, aux = models[m](x, **kw[m])
+            runs[m] = dict(model=models[m], x=x, logits=logits, aux=aux,
+                           forwards=1 + forwards_run(
+                               SEG_ITERS, SEG_REPEATS, SEG_WARMUP))
+        best = interleaved_best(
+            {m: (lambda i, m=m: models[m](x, **kw[m])) for m in SEG_MODES},
+            iters=SEG_ITERS, repeats=SEG_REPEATS, warmup=SEG_WARMUP)
+    crops_s = {m: SEG_ITERS / best[m] for m in SEG_MODES}
     fields = {
         "seg_crops_s": round(crops_s["dispatch"], 2),
         "seg_dense_crops_s": round(crops_s["dense"], 2),
         "seg_vs_dense": round(crops_s["dispatch"] / crops_s["dense"], 4),
-        "seg_int8_crops_s": None,
-        "seg_int8_vs_dense": None,
+        "seg_int8_crops_s": round(crops_s["q8"], 2),
+        "seg_int8_vs_dense": round(crops_s["q8"] / crops_s["dense"], 4),
         "seg_protocol": "shipping default: dispatch, head 768, bf16, "
                         "batch-1 tiles == slide tile_batch=1",
     }
@@ -390,27 +403,11 @@ def video_family(device="cuda", *, seed: int = 0, state_dict=None) -> dict:
                     device=device)
     models = {n: build_video_model(n, device, state_dict, seed=seed)
               for n in VIDEO_MODELS}
-    dispatch = {n: VIDEO_MODELS[n][1] for n in VIDEO_MODELS}
-
-    def run_s(n) -> float:
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for i in range(VIDEO_ITERS):
-            models[n](x + (i != 0), dispatch=dispatch[n])
-        end.record()
-        end.synchronize()
-        return start.elapsed_time(end) / 1e3
-
-    best = dict.fromkeys(VIDEO_MODELS, float("inf"))
     with torch.inference_mode():
-        for n in VIDEO_MODELS:
-            for i in range(VIDEO_WARMUP):
-                models[n](x + (i != 0), dispatch=dispatch[n])
-        torch.cuda.synchronize()
-        for _ in range(VIDEO_REPEATS):
-            for n in VIDEO_MODELS:
-                best[n] = min(best[n], run_s(n))
+        best = interleaved_best(
+            {n: _forwards(models[n], x, VIDEO_MODELS[n][1])
+             for n in VIDEO_MODELS},
+            iters=VIDEO_ITERS, repeats=VIDEO_REPEATS, warmup=VIDEO_WARMUP)
     del models
     torch.cuda.empty_cache()
     cps = {n: VIDEO_BATCH * VIDEO_ITERS / best[n] for n in VIDEO_MODELS}

@@ -70,10 +70,16 @@ class DataLoader:
         return n // self.batch_size if self.drop_last else -(-n // self.batch_size)
 
     def __iter__(self) -> Iterator[Tuple[np.ndarray, np.ndarray]]:
+        return self.iter_from(0)
+
+    def iter_from(self, start: int) -> Iterator[Tuple[np.ndarray,
+                                                      np.ndarray]]:
+        """The epoch's batches from batch ``start`` on (a run resumed
+        within an epoch); the ones before are not loaded."""
         idx = self._indices()
         nb = len(self)
         batches = [idx[i * self.batch_size:(i + 1) * self.batch_size]
-                   for i in range(nb)]
+                   for i in range(start, nb)]
 
         q: "queue.Queue" = queue.Queue(maxsize=self.prefetch)
         pool = ThreadPoolExecutor(max_workers=self.num_workers)

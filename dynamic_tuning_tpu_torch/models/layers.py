@@ -336,11 +336,61 @@ def _rel_pos_bias_from_table(table: torch.Tensor, wh: int, ww: int, *,
     values are the same).  With ``row_stride`` the bias is a view of an
     [H, N, row_stride] buffer whose rows are padded (K9 reads 16-byte
     rows)."""
+    if table.requires_grad and row_stride is None:
+        return _RelPosBias.apply(table, wh, ww)
     N = wh * ww + 1
     ld = N if row_stride is None else row_stride
     idx = _rel_pos_gather_index(wh, ww, ld, table.device)
     flat = torch.index_select(table.t(), 1, idx)          # [H, N * ld]
     return flat.view(table.shape[1], N, ld)[:, :, :N]
+
+
+_REL_POS_SEGMENTS = {}
+
+
+def _rel_pos_segments(wh: int, ww: int, device) -> torch.Tensor:
+    """[S, L] int64: for each of the S table slots, the flat positions
+    ``i * N + j`` of the [N, N] bias that read it, padded with ``N * N``
+    (the zero the backward appends).  Cached per (grid, device)."""
+    key = (wh, ww, str(device))
+    seg = _REL_POS_SEGMENTS.get(key)
+    if seg is None:
+        rel, S = _relative_position_index(wh, ww)
+        flat = rel.reshape(-1).long()
+        order = torch.argsort(flat, stable=True)
+        counts = torch.bincount(flat, minlength=S)
+        starts = torch.cumsum(counts, 0) - counts
+        slot = flat[order]
+        seg = torch.full((S, int(counts.max())), flat.numel(),
+                         dtype=torch.int64)
+        seg[slot, torch.arange(flat.numel()) - starts[slot]] = order
+        seg = seg.to(device)
+        _REL_POS_SEGMENTS[key] = seg
+    return seg
+
+
+class _RelPosBias(torch.autograd.Function):
+    """[table_size, H] -> the [H, N, N] bias, for a table that trains: the
+    gather of ``_rel_pos_bias_from_table``, and a backward that sums each
+    slot's positions as one gather and one reduction, in the same order on
+    every run and with no host synchronisation (index_select's backward
+    adds with atomics on a card; an embedding's sorts and reads a count
+    back)."""
+
+    @staticmethod
+    def forward(ctx, table, wh, ww):
+        ctx.grid = (wh, ww)
+        N = wh * ww + 1
+        idx = _rel_pos_gather_index(wh, ww, N, table.device)
+        return torch.index_select(table.t(), 1, idx).view(
+            table.shape[1], N, N)
+
+    @staticmethod
+    def backward(ctx, grad):
+        H = grad.shape[0]
+        g = torch.cat([grad.reshape(H, -1), grad.new_zeros((H, 1))], dim=1)
+        seg = _rel_pos_segments(*ctx.grid, grad.device)
+        return g[:, seg].sum(dim=-1).t(), None, None
 
 
 class Attention(nn.Module):

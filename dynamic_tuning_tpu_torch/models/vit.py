@@ -24,7 +24,7 @@ its random streams anew, so it draws what its forward drew.
 from __future__ import annotations
 
 import functools
-from typing import Dict, Optional, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -185,12 +185,14 @@ def make_blocks(cfg: ModelConfig, tuning: TuningConfig, select: SelectConfig,
 
 def run_blocks(blocks: nn.ModuleList, x: torch.Tensor, *, remat,
                training: bool, complete_model: bool, dispatch: bool,
-               draws: Optional[Draws], gate_noise: Optional[torch.Tensor]
+               draws: Optional[Draws], gate_noise: Optional[torch.Tensor],
+               taps: Optional[list] = None, tap_at: Sequence[int] = ()
                ) -> Tuple[torch.Tensor, Dict[str, Optional[torch.Tensor]]]:
     """The residual stream ``x`` [B, N, C] through ``blocks`` ->
     (x, {"token_select": [B, L, N - 1, 1], "token_logits": [B, L, N - 1,
     1]}, both None without routers); ``remat`` recomputes each block in
-    the training backward."""
+    the training backward.  The stream after each block of ``tap_at`` is
+    appended to ``taps``."""
     gates, logits_all = [], []
     for i, blk in enumerate(blocks):
         noise = (gate_noise[:, len(gates)]
@@ -207,6 +209,8 @@ def run_blocks(blocks: nn.ModuleList, x: torch.Tensor, *, remat,
         if gate is not None:
             gates.append(gate)
             logits_all.append(logits)
+        if i in tap_at:
+            taps.append(x)
     if not gates:
         return x, {"token_select": None, "token_logits": None}
     return x, {"token_select": torch.stack(gates, dim=1)[:, :, 1:, :],

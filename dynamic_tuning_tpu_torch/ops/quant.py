@@ -22,7 +22,9 @@ Six kernels, each a wrapper with its plain PyTorch version beside it:
   around ``q8_ln_mlp``, as the JAX Block does.
 
 Besides them, ``q8_patch_embed`` is the int8 stem (the JAX package's XLA
-``q8_conv`` at stride = kernel, a patch matmul) on the same int8 GEMM.
+``q8_conv`` at stride = kernel, a patch matmul) on the same int8 GEMM, and
+``q8_conv_codes`` the seg heads' int8 convs (the same XLA ``q8_conv`` at
+stride 1, SAME): an im2col of the int8 codes and ``torch._int_mm``.
 
 A wrapper given CPU tensors computes the plain version.  Given CUDA tensors
 it launches the kernels of ``csrc/quant.cu`` or raises; there is no other
@@ -47,8 +49,10 @@ are those of the TPU kernels:
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
+import torch.nn.functional as F
 
 from dynamic_tuning_tpu_torch.ops import _build
 from dynamic_tuning_tpu_torch.ops import dispatch as D
@@ -236,15 +240,66 @@ def patchify(x: torch.Tensor, patch: int) -> torch.Tensor:
     return x.reshape(B * gh * gw, patch * patch * c)
 
 
-def q8_conv(x: torch.Tensor, w: torch.Tensor, *, patch: int) -> torch.Tensor:
-    """The JAX package's ``q8_conv`` at stride = kernel = ``patch``, VALID:
-    NHWC x, OIHW w -> fp32 [B, H/p, W/p, O] (no bias)."""
+def im2col(x: torch.Tensor, kernel: int) -> torch.Tensor:
+    """NHWC [B, H, W, c] -> [B * H * W, kernel * kernel * c] rows of the
+    stride-1 windows of an odd ``kernel`` over the zero-padded map (SAME),
+    (kh, kw, c) order."""
+    B, H, W, c = x.shape
+    if kernel == 1:
+        return x.reshape(B * H * W, c)
+    p = kernel // 2
+    xp = x.new_zeros((B, H + 2 * p, W + 2 * p, c))
+    xp[:, p:p + H, p:p + W] = x
+    cols = [xp[:, i:i + H, j:j + W] for i in range(kernel)
+            for j in range(kernel)]
+    return torch.cat(cols, dim=-1).reshape(B * H * W, kernel * kernel * c)
+
+
+def _int_mm_padded(qa: torch.Tensor, qb: torch.Tensor) -> torch.Tensor:
+    """Exact int32 ``qa @ qb.T`` on CUDA through ``torch._int_mm``, its
+    shape rules (more than 16 rows, k and n multiples of 8) met by zero
+    rows and columns, which add nothing to a sum."""
+    M, K = qa.shape
+    N = qb.shape[0]
+    Mp, Kp, Np = max(M, 17), -(-K // 8) * 8, -(-N // 8) * 8
+    if (Mp, Kp) != (M, K):
+        qa = F.pad(qa, (0, Kp - K, 0, Mp - M))
+    if (Np, Kp) != (N, K):
+        qb = F.pad(qb, (0, Kp - K, 0, Np - N))
+    return torch._int_mm(qa, qb.t())[:M, :N]
+
+
+def q8_conv_codes(x: torch.Tensor, wq: torch.Tensor, ws: torch.Tensor, *,
+                  kernel: int) -> torch.Tensor:
+    """The JAX package's ``q8_conv`` at stride 1, SAME, an odd ``kernel``
+    (the seg heads' 1x1 and 3x3) on weights quantized already
+    (``quantize_conv_weight``: wq [O, kernel*kernel*c] int8, ws [O]): NHWC
+    x -> fp32 [B, H, W, O], no bias.  Per-sample activation codes (amax
+    over H, W and c), exact int32 sums, then ``acc * (sample_scale *
+    col_scale)``.  The sums are float64 products on the CPU (the plain
+    version) and ``torch._int_mm`` on CUDA: the JAX package computes this
+    conv in XLA, not in a Pallas kernel."""
     B, H, W, _ = x.shape
-    wq, ws = quantize_conv_weight(w)
     xq, sa = sample_quant(x)
-    acc = int_matmul(patchify(xq, patch), wq)
-    T = (H // patch) * (W // patch)
-    out = acc * (sa.repeat_interleave(T)[:, None] * ws)
+    rows = im2col(xq, kernel)
+    acc = (int_matmul(rows, wq) if x.device.type == "cpu"
+           else _int_mm_padded(rows, wq).float())
+    out = acc.reshape(B, H * W, -1) * (sa[:, None] * ws)[:, None, :]
+    return out.reshape(B, H, W, -1)
+
+
+def q8_conv(x: torch.Tensor, w: torch.Tensor, *,
+            patch: Optional[int] = None) -> torch.Tensor:
+    """The JAX package's ``q8_conv``: NHWC x, OIHW fp32 w -> fp32
+    [B, H', W', O] (no bias); with ``patch``, stride = kernel = ``patch``
+    and VALID (the stem's arithmetic, ``q8_patch_embed_plain``), else
+    stride 1 and SAME (``q8_conv_codes``)."""
+    wq, ws = quantize_conv_weight(w)
+    if patch is None:
+        return q8_conv_codes(x, wq, ws, kernel=w.shape[-1])
+    B, H, W, _ = x.shape
+    out = q8_patch_embed_plain(x, wq, ws, torch.zeros_like(ws), patch=patch,
+                               dtype=torch.float32)
     return out.reshape(B, H // patch, W // patch, -1)
 
 

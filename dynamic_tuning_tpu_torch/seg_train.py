@@ -1,35 +1,42 @@
 """Semantic-segmentation entry point of the port (counterpart of the
 repository's seg_train.py: ADE20K, UperNet + DyT ViT, the our_vit.py
-recipe), evaluation only.
+recipe): training and evaluation.
 
-    python -m dynamic_tuning_tpu_torch.seg_train --eval --dataset synthetic \
-        --crop_size 512
-    python -m dynamic_tuning_tpu_torch.seg_train --eval --data_path ADE \
+    python -m dynamic_tuning_tpu_torch.seg_train --dataset synthetic \
+        --crop_size 512 --total_iters 16 --eval_interval 8
+    python -m dynamic_tuning_tpu_torch.seg_train --data_path ADE \
         --finetune vit_base_patch16_224_in21k.pth
+    python -m dynamic_tuning_tpu_torch.seg_train --eval --data_path ADE \
+        --eval_ckpt output_dir/checkpoint-16000.pth
 
-Same flags and defaults as ``seg_train.py``.  ``--eval`` runs slide
-inference (crop ``--crop_size``, stride ``--slide_stride``) over the
-validation split and prints mIoU and pixel accuracy; without ``--eval`` it
-raises (training is a later slice).  Weights are random from ``--seed``
-unless ``--finetune`` names a ``.pth`` backbone or ``--eval_ckpt`` a port
-segmentor state dict.  Runs on the CUDA device and raises when there is
+Same flags and defaults as ``seg_train.py``: crop 512, AdamW 1e-3 weight
+decay 0.05, poly LR with a 1500-iteration warmup, 160k iterations at batch
+2, drop path 0.1, a slide evaluation (crop ``--crop_size``, stride
+``--slide_stride``) every ``--eval_interval`` iterations and at the end,
+``checkpoint-{iter}.pth`` in ``--output_dir`` when the mIoU is at least the
+best so far; ``--resume`` continues from one.  ``--eval`` only evaluates
+(``--eval_ckpt``: such a checkpoint or a whole port segmentor state dict).
+``--seg_norm bn`` trains the heads' BatchNorm; ``--quant int8`` trains in
+bf16 and evaluates in int8; ``--remat`` recomputes each block in the
+backward.  Weights are random from ``--seed`` unless ``--finetune`` names
+a ``.pth`` backbone.  Runs on the CUDA device and raises when there is
 none; ``--device cpu`` runs it on the CPU (fp32 or bf16, plain versions of
-the kernels).
+the kernels), e.g. at a toy crop:
+
+    python -m dynamic_tuning_tpu_torch.seg_train --dataset synthetic \
+        --crop_size 32 --device cpu --compute_dtype float32 \
+        --total_iters 4 --eval_interval 2 --output_dir /tmp/seg
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import logging
 
-import torch
-
-from dynamic_tuning_tpu_torch.cli import add_common_args, resolve_device
-from dynamic_tuning_tpu_torch.config import (ModelConfig, SelectConfig,
-                                             TuningConfig)
+from dynamic_tuning_tpu_torch.cli import (add_common_args, args_to_config,
+                                          resolve_device)
 from dynamic_tuning_tpu_torch.train.seg_runner import SegRunner
-
-_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
 
 def get_args_parser():
@@ -53,52 +60,39 @@ def get_args_parser():
                    help="window tiles per forward (default 1 = the "
                         "reference's one-at-a-time cadence)")
     p.add_argument("--seg_norm", default="gn", choices=["gn", "bn"],
-                   help="head norm: gn, or bn (running statistics)")
+                   help="head norm: gn, or bn (batch statistics in "
+                        "training, running statistics in eval)")
     p.add_argument("--seg_head_channels", type=int, default=0,
                    help="opt-in narrower UPerHead width; 0 = reference "
                         "parity (embed_dim)")
     return p
 
 
-def build_runner(args, log=print) -> SegRunner:
+def build_runner(args, log=None) -> SegRunner:
     device = resolve_device(args.device, "seg_train.py")
-    dtype = _DTYPES[args.compute_dtype]
-    if device.type == "cuda" and dtype != torch.bfloat16:
-        raise NotImplementedError("--compute_dtype float32 runs on the CPU "
-                                  "only: the kernels take bf16")
-    model = ModelConfig(img_size=args.crop_size, num_classes=args.nb_classes,
-                        drop_path_rate=args.drop_path,
-                        gelu_approx=args.gelu_approx,
-                        residual_dtype=args.residual_dtype, quant=args.quant)
-    tuning = TuningConfig(ffn_adapt=args.ffn_adapt, ffn_num=args.ffn_num,
-                          ffn_adapter_scalar=args.adapter_scalar,
-                          moe_experts=args.moe_experts)
-    select = SelectConfig(open=not args.no_select,
-                          keep_layers=args.keep_layers,
-                          token_target_ratio=args.token_target_ratio,
-                          token_loss_ratio=args.token_loss_ratio,
-                          capacity_ratio=args.capacity_ratio)
-    return SegRunner(model, tuning, select, dataset=args.dataset,
-                     data_path=args.data_path, finetune=args.finetune,
-                     seed=args.seed, crop=args.crop_size,
+    cfg = args_to_config(args)
+    # extend the flags' ModelConfig, as seg_train.py does
+    cfg = cfg.replace(model=dataclasses.replace(
+        cfg.model, img_size=args.crop_size, drop_path_rate=args.drop_path))
+    return SegRunner(cfg, total_iters=args.total_iters,
+                     eval_interval=args.eval_interval, crop=args.crop_size,
                      slide_stride=args.slide_stride,
                      tile_batch=args.slide_tile_batch, norm=args.seg_norm,
-                     head_channels=args.seg_head_channels, dtype=dtype,
-                     device=device, log=log)
+                     head_channels=args.seg_head_channels, device=device,
+                     log=log)
 
 
 def main(args):
-    if not args.eval:
-        raise NotImplementedError("segmentation training is not ported yet "
-                                  "(ROADMAP.md, queue 1 item 5); pass --eval")
     if args.config and not args.config.endswith("our_vit.py"):
         logging.getLogger("dynamic_tuning_tpu_torch").warning(
             "config file %r is NOT read: the built-in defaults are "
             "our_vit.py's values", args.config)
     runner = build_runner(args)
-    if args.eval_ckpt:
-        runner.load_eval_checkpoint(args.eval_ckpt)
-    return runner.evaluate()
+    if args.eval:
+        if args.eval_ckpt:
+            runner.load_eval_checkpoint(args.eval_ckpt)
+        return runner.evaluate()
+    return runner.run()
 
 
 if __name__ == "__main__":

@@ -13,8 +13,11 @@ Format: one ``.pth`` written with ``torch.save``, a dict of
   come back from ``--finetune`` or the seeded init, as the run's flags
   give them);
 * ``optimizer``: ``Optimizer.state_dict()`` (moments, count, accumulation);
-* ``step``, ``seed`` (the ``TrainState``'s), ``epoch`` and ``extra`` (the
-  best metric).
+* ``step``, ``seed`` (the ``TrainState``'s), ``epoch`` (the segmentation
+  runner's iteration) and ``extra`` (the best metric);
+* ``buffers``, when the caller names some: the segmentor's BatchNorm
+  running statistics, which the JAX package writes as a ``.msgpack``
+  sidecar and a torch state dict carries beside its parameters.
 
 Writes go to a temporary file that ``os.replace`` renames, so a crash never
 leaves a truncated checkpoint under the final name.  The JAX package's
@@ -27,7 +30,7 @@ from __future__ import annotations
 import glob
 import os
 import re
-from typing import Optional, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 from torch import nn
@@ -58,12 +61,15 @@ def _atomic_save(obj, path: str) -> None:
 def save_checkpoint(output_dir: str, model: nn.Module, state: TrainState,
                     epoch: int, *, tag: Optional[str] = None,
                     extra: Optional[dict] = None,
-                    auto_remove: bool = False) -> str:
-    """Write ``checkpoint-{epoch}.pth`` (or ``{tag}.pth``); with
-    ``auto_remove`` delete the epoch checkpoints before ``epoch``."""
+                    auto_remove: bool = False,
+                    buffers: Sequence[str] = ()) -> str:
+    """Write ``checkpoint-{epoch}.pth`` (or ``{tag}.pth``), with the model
+    buffers named in ``buffers``; with ``auto_remove`` delete the epoch
+    checkpoints before ``epoch``."""
     os.makedirs(output_dir, exist_ok=True)
     path = os.path.join(output_dir, f"{tag or f'checkpoint-{epoch}'}.pth")
     params = dict(model.named_parameters())
+    own = dict(model.named_buffers())
     payload = {
         "model": {n: params[n] for n in state.optimizer.names},
         "optimizer": state.optimizer.state_dict(),
@@ -72,6 +78,8 @@ def save_checkpoint(output_dir: str, model: nn.Module, state: TrainState,
         "epoch": int(epoch),
         "extra": dict(extra or {}),
     }
+    if buffers:
+        payload["buffers"] = {n: own[n] for n in buffers}
     _atomic_save(_to_cpu(payload), path)
     if auto_remove and tag is None:
         for old in glob.glob(os.path.join(output_dir, "checkpoint-*.pth")):
@@ -82,8 +90,10 @@ def save_checkpoint(output_dir: str, model: nn.Module, state: TrainState,
 
 
 @torch.no_grad()
-def _copy_params(model: nn.Module, tensors: dict) -> None:
-    params = dict(model.named_parameters())
+def _copy_params(model: nn.Module, tensors: dict, buffers: bool = False
+                 ) -> None:
+    params = dict(model.named_buffers() if buffers
+                  else model.named_parameters())
     unknown = sorted(set(tensors) - set(params))
     if unknown:
         raise KeyError(f"checkpoint tensors the model lacks: {unknown[:8]}")
@@ -98,8 +108,9 @@ def _copy_params(model: nn.Module, tensors: dict) -> None:
 def load_checkpoint(path: str, model: nn.Module,
                     state: Optional[TrainState] = None) -> Tuple[int, dict]:
     """Restore a checkpoint of ``save_checkpoint`` into ``model`` (copies
-    into its parameters, so an optimizer over them stays valid) and, given
-    ``state``, the optimizer, step and seed.  Returns (epoch, extra)."""
+    into its parameters and saved buffers, so an optimizer over them stays
+    valid) and, given ``state``, the optimizer, step and seed.  Returns
+    (epoch, extra)."""
     require_pth(path)
     blob = torch.load(path, map_location="cpu", weights_only=True)
     if state is not None and set(blob["model"]) != set(
@@ -108,6 +119,7 @@ def load_checkpoint(path: str, model: nn.Module,
                        f"tensors, the run trains {len(state.optimizer.names)}"
                        " (another freeze rule: --fulltune?)")
     _copy_params(model, blob["model"])
+    _copy_params(model, blob.get("buffers", {}), buffers=True)
     if state is not None:
         state.optimizer.load_state_dict(blob["optimizer"])
         state.step = int(blob["step"])

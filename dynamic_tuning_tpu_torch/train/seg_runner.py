@@ -1,73 +1,235 @@
-"""Segmentation evaluation runner (counterpart of the evaluation half of
-dynamic_tuning_tpu/train/seg_runner.py::SegRunner).
+"""The segmentation runner (counterpart of
+dynamic_tuning_tpu/train/seg_runner.py::SegRunner): iteration-based
+training on the poly schedule and mIoU evaluation by slide inference.
 
-Builds the ``DyTSegmentor``, optionally imports a ``.pth`` backbone
-(``--finetune``: the IN21K ViT, its pos-embed interpolated to the crop's
-patch grid, as ``import_pretrained`` does) or a whole port segmentor state
-dict (``--eval_ckpt``), and evaluates mIoU by slide inference (reference
-test_cfg: crop 512, stride 341): per validation image, the normalized image
-is slid over, the logits are resized bilinearly to the ground truth's shape
-(mmseg's protocol: the prediction goes back to the original resolution,
-never the GT down), arg-maxed and counted into a confusion matrix.
-Training is a later slice: ``run`` raises.
+Reference recipe (configs/beit/upernet/our_vit.py, mmcv_custom/train_api.py):
+AdamW lr 1e-3, weight decay 0.05 on every trainable tensor (no mask), poly
+power 1 after a 1500-iteration linear warmup from lr * 1e-6, 160k
+iterations at batch 2 of 512^2 crops, slide evaluation (crop 512, stride
+341) every ``eval_interval`` iterations and at the end; a checkpoint when
+the mIoU is at least the best so far.  The loss is CE(main) + 0.4 CE(aux)
++ the token budget loss (``models/upernet.py::seg_loss``).
+
+Training is the module path (no hand kernel) with bf16 matmuls on fp32
+master parameters; the freeze rule trains the adapters, routers,
+relative-position tables, FPN necks and both heads
+(``seg_trainable_predicate``).  With ``--seg_norm bn`` the heads' BatchNorm
+normalises by batch statistics and carries its running statistics, which
+the checkpoint holds.  Per step, the loader's uint8 batch is copied to the
+device once and normalized there; step i-1's loss parts are read on the
+host after step i is enqueued.  Every draw is a function of (seed,
+iteration): the loader's permutation and crops by epoch, the routers'
+noise and the dropout masks by step, so a run resumed from a checkpoint
+(its iteration from the optimizer's step; the epoch and the batch within
+it from that) continues what an uninterrupted run would have done, bit for
+bit: the step's convolutions take cuDNN's deterministic algorithms, and
+the heads' resizes and pooling and the relative-position gather have
+gradients summed in a fixed order (``models/upernet.py``,
+``models/layers.py``).  The JAX runner restarts its data at epoch 0 on a
+resume.
+
+Evaluation: per validation image, the normalized image is slid over, the
+logits are resized bilinearly to the ground truth's shape (mmseg's
+protocol: the prediction goes back to the original resolution, never the
+GT down), arg-maxed and counted into a confusion matrix.  ``--eval_ckpt``
+takes a checkpoint of ``run`` or a whole segmentor state dict.
 """
 
 from __future__ import annotations
 
 import json
-import os
-from typing import Dict, Optional
+import time
+from typing import Callable, Dict, Optional
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
-from dynamic_tuning_tpu_torch import paths
 from dynamic_tuning_tpu_torch.checkpoint import (load_timm_state_dict,
                                                  load_torch_state_dict)
-from dynamic_tuning_tpu_torch.config import (ModelConfig, SelectConfig,
-                                             TuningConfig)
+from dynamic_tuning_tpu_torch.cli import require_card_dtype, resolve_device
+from dynamic_tuning_tpu_torch.config import RunConfig
+from dynamic_tuning_tpu_torch.data.loader import make_loader
 from dynamic_tuning_tpu_torch.data.segmentation import (build_seg_dataset,
                                                         seg_normalize)
-from dynamic_tuning_tpu_torch.models.upernet import (DyTSegmentor,
+from dynamic_tuning_tpu_torch.models.layers import fold_in
+from dynamic_tuning_tpu_torch.models.upernet import (DyTSegmentor, seg_loss,
                                                      slide_inference)
+from dynamic_tuning_tpu_torch.train import checkpoint as C
+from dynamic_tuning_tpu_torch.train import engine, optim
+from dynamic_tuning_tpu_torch.utils.logger import create_logger
+from dynamic_tuning_tpu_torch.utils.meters import MetricLogger
 from dynamic_tuning_tpu_torch.utils.metrics import (confusion_matrix,
                                                     miou_from_confusion)
 
+_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+#: trainable-name parts (besides both heads and the FPN necks)
+SEG_TRAINABLE_KEYWORDS = ("adaptmlp", "mlp_token_select",
+                          "relative_position_bias_table")
+LOG_EVERY = 50
+
+
+def poly_schedule(base_lr: float, total_iters: int, warmup_iters: int = 1500,
+                  warmup_ratio: float = 1e-6, power: float = 1.0,
+                  min_lr: float = 0.0) -> Callable[[int], float]:
+    """mmcv's poly schedule with a linear warmup, at an update count:
+
+    lr(s) = base * (ratio + (1 - ratio) * s / warmup)        for s < warmup
+    lr(s) = (base - min) * (1 - min(s / total, 1)) ** power + min
+
+    in float32 with the JAX schedule's operations in its order (optax
+    evaluates it at the count before the increment: step 0 trains at
+    ``base * ratio``)."""
+    f32 = np.float32
+
+    def sched(step: int) -> float:
+        s = f32(step)
+        if step < warmup_iters:
+            warm = f32(1 - warmup_ratio) * s / f32(max(warmup_iters, 1))
+            return float(f32(base_lr) * (f32(warmup_ratio) + warm))
+        prog = np.clip(s / f32(max(total_iters, 1)), f32(0), f32(1))
+        return float(f32(base_lr - min_lr)
+                     * np.power(f32(1) - prog, f32(power)) + f32(min_lr))
+
+    return sched
+
+
+def seg_trainable_predicate(name: str) -> bool:
+    """The segmentation freeze rule on the port's names: both heads, the
+    FPN necks (``backbone.fpn*``), and every adapter, router and
+    relative-position table train; the pretrained backbone is frozen (the
+    reference freezes all but the keys the pretrained checkpoint lacks,
+    seg_train.py:226-230)."""
+    parts = name.split(".")
+    if parts[0] in ("decode_head", "auxiliary_head"):
+        return True
+    if any(k in parts for k in SEG_TRAINABLE_KEYWORDS):
+        return True
+    return len(parts) > 1 and parts[1].startswith("fpn")
+
+
+def _deterministic_cudnn():
+    """cuDNN's deterministic convolution algorithms, the other settings as
+    they are: a conv's weight gradient then sums in one order on every
+    run, so a resumed run can equal an uninterrupted one bit for bit."""
+    c = torch.backends.cudnn
+    return c.flags(enabled=c.enabled, benchmark=False,
+                   benchmark_limit=c.benchmark_limit, deterministic=True,
+                   allow_tf32=c.allow_tf32)
+
+
+def _bn_buffers(model: torch.nn.Module):
+    """The names of the BatchNorm running statistics (none with GN)."""
+    return [n for n, _ in model.named_buffers()
+            if n.endswith((".running_mean", ".running_var"))]
+
 
 class SegRunner:
-    """The segmentor and its validation set on ``device``, ready to
-    ``evaluate``."""
+    """Trains and evaluates the DyT segmentor on ``device`` (the card
+    unless the caller asks for the CPU)."""
 
-    def __init__(self, model_cfg: ModelConfig, tuning: TuningConfig,
-                 select: SelectConfig, *, dataset: str, data_path: str = "",
-                 finetune: str = "", seed: int = 0, crop: int = 512,
+    def __init__(self, cfg: RunConfig, *, total_iters: int = 160_000,
+                 eval_interval: int = 16_000, crop: int = 512,
                  slide_stride: int = 341, tile_batch: int = 1,
-                 norm: str = "gn", head_channels: int = 0,
-                 dtype=torch.bfloat16, device="cuda", log=print):
+                 norm: str = "gn", head_channels: int = 0, device=None,
+                 log: Optional[Callable[[str], None]] = None):
+        self.cfg = cfg
+        self.total_iters, self.eval_interval = total_iters, eval_interval
         self.crop, self.slide_stride = crop, slide_stride
         self.tile_batch = tile_batch
-        self.device = torch.device(device)
-        self.log = log
-        _, self.val_ds, self.num_classes = build_seg_dataset(
-            dataset, data_path, crop)
+        self.device = (torch.device(device) if device is not None
+                       else resolve_device(None, "seg_train.py"))
+        require_card_dtype(cfg.compute_dtype, self.device, "seg_train.py")
+        if cfg.resume:
+            C.require_pth(cfg.resume)
+        self.logger = create_logger(cfg.output_dir, 0)
+        self.log = log or self.logger.info
+        self.dtype = _DTYPES[cfg.compute_dtype]
+
+        train_ds, self.val_ds, self.num_classes = build_seg_dataset(
+            cfg.data.dataset, cfg.data.data_path, crop)
+        self.train_loader = make_loader(
+            train_ds, cfg.data.batch_size, shuffle=True, drop_last=True,
+            seed=cfg.seed, num_workers=cfg.data.num_workers)
+
         self.model = DyTSegmentor(
-            model_cfg, num_classes=self.num_classes, tuning=tuning,
-            select=select, norm=norm, head_channels=head_channels or None,
-            dtype=dtype, generator=torch.Generator().manual_seed(seed))
-        if finetune:
-            path = finetune
-            if not os.path.exists(path):     # a DYT_CLUSTER registry key
-                path = paths.checkpoint_path(finetune, fallback=finetune)
+            cfg.model, num_classes=self.num_classes, tuning=cfg.tuning,
+            select=cfg.select, norm=norm, head_channels=head_channels or None,
+            dtype=self.dtype, generator=torch.Generator().manual_seed(
+                cfg.seed))
+        if cfg.finetune:
             # backbone import (reference seg_train.py:216-221)
             load_timm_state_dict(self.model.backbone,
-                                 load_torch_state_dict(path), log=log)
+                                 load_torch_state_dict(cfg.finetune),
+                                 log=self.log)
         self.model.to(self.device)
+        named = optim.freeze(self.model, seg_trainable_predicate)
+        self.log(f"seg trainable (M): "
+                 f"{optim.count_params(named, False) / 1e6:.2f}")
+        self.buffers = _bn_buffers(self.model)
+
+        # optax.adamw(poly, weight_decay) with no mask, after the optional
+        # global-norm clip (JAX seg_runner.py:113-118)
+        self.lr_at = poly_schedule(cfg.optim.lr or 1e-3, total_iters)
+        rule = optim.AdamW([p for _, p in named], self.lr_at,
+                           b1=cfg.optim.betas[0], b2=cfg.optim.betas[1],
+                           eps=1e-8, weight_decay=cfg.optim.weight_decay)
+        opt = optim.Optimizer(named, rule, clip_grad=cfg.optim.clip_grad)
+        self.state = engine.TrainState(opt, seed=fold_in(cfg.seed, 2))
+        self.start_iter = 0
+        self.max_miou = 0.0
+        if cfg.resume:
+            _, extra = C.load_checkpoint(cfg.resume, self.model, self.state)
+            self.start_iter = self.state.step
+            # saved only on improvement: the stored mIoU is the best so far
+            self.max_miou = float(extra.get("miou", 0.0))
+            self.log(f"resumed from {cfg.resume} at iteration "
+                     f"{self.start_iter} (best mIoU {self.max_miou:.2f})")
+
+    # ------------------------------------------------------------------
+    def train_step(self, images: torch.Tensor, labels: torch.Tensor,
+                   gate_noise: Optional[torch.Tensor] = None
+                   ) -> Dict[str, torch.Tensor]:
+        """One iteration on a normalized NHWC batch and its [B, H, W]
+        labels: the training forward, ``seg_loss``, the gradients of the
+        trainable tensors, the optimizer update (the BatchNorm running
+        statistics moved by the forward).  Returns the loss parts
+        (``loss``, ``decode_loss``, ``aux_loss``, ``token_loss``,
+        ``keep_ratio`` with routers) as detached device scalars."""
+        state = self.state
+        draws, _ = engine.step_draws(state.seed, state.step, images.device)
+        opt = state.optimizer
+        with _deterministic_cudnn():
+            logits, aux_logits, aux = self.model(images, training=True,
+                                                 draws=draws,
+                                                 gate_noise=gate_noise)
+            total, parts = seg_loss(logits, aux_logits, labels, aux["loss"])
+            grads = torch.autograd.grad(total, opt.params,
+                                        allow_unused=True)
+        parts["loss"] = total
+        if aux["token_select"] is not None:
+            parts["keep_ratio"] = aux["token_select"].float().mean()
+        opt.step([torch.zeros_like(p) if g is None else g
+                  for g, p in zip(grads, opt.params)])
+        state.step += 1
+        return {k: v.detach() for k, v in parts.items()}
+
+    def _device_batch(self, imgs: np.ndarray, anns: np.ndarray):
+        x = torch.from_numpy(imgs).to(self.device, non_blocking=True)
+        y = torch.from_numpy(anns).to(self.device, torch.int64,
+                                      non_blocking=True)
+        return seg_normalize(x), y
 
     def load_eval_checkpoint(self, path: str) -> None:
-        """A whole port segmentor state dict (``.pth``), strictly."""
-        sd = load_torch_state_dict(path)
-        self.model.load_state_dict(sd, strict=True)
+        """A checkpoint of ``run`` (its trainable tensors and BatchNorm
+        statistics) or a whole segmentor state dict, strictly."""
+        C.require_pth(path)
+        blob = torch.load(path, map_location="cpu", weights_only=True)
+        if isinstance(blob, dict) and "optimizer" in blob:
+            C.load_checkpoint(path, self.model)
+        else:
+            self.model.load_state_dict(load_torch_state_dict(path),
+                                       strict=True)
 
     def _apply(self, tiles: torch.Tensor) -> torch.Tensor:
         logits, _, _ = self.model(tiles, aux_logits=False)
@@ -102,6 +264,45 @@ class SegRunner:
             {k: round(float(v), 4) for k, v in stats.items()}))
         return stats
 
-    def run(self):
-        raise NotImplementedError("segmentation training is not ported yet "
-                                  "(ROADMAP.md, queue 1 item 5); use --eval")
+    def run(self) -> Dict[str, float]:
+        """Train from ``start_iter`` to ``total_iters``; returns
+        ``{"max_miou": ...}``."""
+        cfg = self.cfg
+        ml = MetricLogger(logger=self.logger)
+        it = self.start_iter
+        max_miou, t0 = self.max_miou, time.time()
+        per_epoch = len(self.train_loader)
+        epoch, skip = divmod(it, per_epoch)
+        # step i-1's parts are read after step i is enqueued: one step in
+        # flight; the iteration-50 log runs one step stale, the eval and
+        # checkpoint boundaries are exact
+        pending = None
+        while it < self.total_iters:
+            self.train_loader.set_epoch(epoch)
+            for imgs, anns in self.train_loader.iter_from(skip):
+                xb, yb = self._device_batch(imgs, anns)
+                parts = self.train_step(xb, yb)
+                if pending is not None:
+                    ml.update(**{k: float(v) for k, v in pending.items()})
+                pending = parts
+                it += 1
+                if it % LOG_EVERY == 0:
+                    self.log(f"iter {it}/{self.total_iters} "
+                             f"lr {self.lr_at(it - 1):.3e} {ml}")
+                if it % self.eval_interval == 0 or it == self.total_iters:
+                    ml.update(**{k: float(v) for k, v in pending.items()})
+                    pending = None
+                    stats = self.evaluate()
+                    if cfg.output_dir and stats["metric"] >= max_miou:
+                        C.save_checkpoint(cfg.output_dir, self.model,
+                                          self.state, it,
+                                          extra={"miou": stats["metric"]},
+                                          auto_remove=cfg.auto_remove,
+                                          buffers=self.buffers)
+                    max_miou = max(max_miou, stats["metric"])
+                if it >= self.total_iters:
+                    break
+            epoch, skip = epoch + 1, 0
+        self.log(f"seg training done in {time.time() - t0:.0f}s; max mIoU "
+                 f"{max_miou:.2f}")
+        return {"max_miou": max_miou}

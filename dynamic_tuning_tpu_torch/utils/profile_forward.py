@@ -9,7 +9,8 @@
 
 Takes ``speed.py``'s flags and model; ``--task seg`` takes the seg bench's
 segmentor instead (``bench.build_segmentor``: one 512^2 crop, ``--mode
-dispatch``, ``mask`` or ``dense``, the auxiliary head left out); ``--task
+dispatch``, ``mask`` or ``dense``, with ``--quant int8`` the int8 model in
+dispatch, the auxiliary head left out); ``--task
 fast`` serves ``speed.py``'s model through the speed-test forward
 (``models/fast_inference.fast_vit_forward``, K11 with ``--use_kernel``,
 else the cuBLAS MLP chain; ``--mode dispatch``, ``mask`` or ``dense``).
@@ -56,6 +57,11 @@ def main(args) -> dict:
     task = getattr(args, "task", "image")
     if task == "seg":
         mode = "dense" if args.mode == "plain" else args.mode
+        if args.quant != "none":
+            if mode != "dispatch":
+                raise ValueError("--task seg --quant int8 profiles the "
+                                 "bench's int8 model, in dispatch")
+            mode = "q8"
         model = bench.build_segmentor(mode, device, seed=args.seed)
         batch, img = 1, bench.SEG_CROP
         kwargs = bench.seg_kwargs(mode)

@@ -604,6 +604,141 @@ def test_seg_model_launches_only_k9():
             ms.dyt_prologue_serving_moe.launches) == (0, 0, 0)
 
 
+
+@pytest.mark.parametrize("k,hw,cin", [(1, 1, 768), (1, 6, 768),
+                                      (1, 128, 768), (3, 16, 3840),
+                                      (3, 128, 3072), (3, 7, 20)])
+def test_q8_conv_exact_against_its_plain_version(k, hw, cin):
+    """The seg heads' int8 conv (im2col + torch._int_mm, its shape rules
+    met by zero padding) against its plain version (float64 products) on
+    the same card tensors: int32 sums and fp32 outputs identical, at the
+    UPerHead's shapes (the PSP's 1x1 pools give 1 to 36 rows), a ragged
+    one, and batch 2 with one sample all zeros.  Against the whole plain
+    version on the CPU, within one ulp of the scale: torch divides a CUDA
+    tensor by a Python number as a product with its reciprocal, so the
+    per-sample scale ``amax / 127`` may take the neighbouring float."""
+    g = torch.Generator(device="cuda").manual_seed(15)
+    x = torch.randn((2, hw, hw, cin), generator=g, device="cuda")
+    x[1] = 0.0
+    w = torch.randn((24 if cin == 20 else 768, cin, k, k), generator=g,
+                    device="cuda") * 0.02
+    wq, ws = qt.quantize_conv_weight(w)
+    rows = qt.im2col(qt.sample_quant(x)[0], k)
+    acc = qt._int_mm_padded(rows, wq)
+    assert acc.dtype == torch.int32
+    assert torch.equal(acc.double(),
+                       torch.matmul(rows.double(), wq.double().t()))
+    got = qt.q8_conv_codes(x, wq, ws, kernel=k)
+    sa = qt.sample_quant(x)[1]
+    plain = (qt.int_matmul(rows, wq).reshape(2, hw * hw, -1)
+             * (sa[:, None] * ws)[:, None, :]).reshape(got.shape)
+    assert got.shape == (2, hw, hw, w.shape[0])
+    assert torch.equal(got, plain)
+    assert not got[1].any()
+    cpu = qt.q8_conv_codes(x.cpu(), wq.cpu(), ws.cpu(), kernel=k)
+    torch.testing.assert_close(got.cpu(), cpu, rtol=2.0 ** -22, atol=0)
+
+
+@pytest.mark.parametrize("dispatch", [False, True], ids=["mask", "dispatch"])
+def test_int8_windowed_block_matches_its_plain_version(dispatch):
+    """One windowed int8 block at the seg shape (N = 1025, 12 heads of 64):
+    K9 for its attention and K4 for its MLP rows (every row in mask mode,
+    the kept ones under dispatch), against the same block on the plain
+    versions: 2 bf16 ulps of the largest output, router logits as the
+    serving blocks', every gate whose logit is not within that of 0 equal
+    (given the plain forward's scores under dispatch)."""
+    from dynamic_tuning_tpu_torch.config import SelectConfig, TuningConfig
+    from dynamic_tuning_tpu_torch.models import layers
+
+    g = torch.Generator().manual_seed(16)
+    blk = layers.Block(768, 12, g, window_size=(32, 32), quant="int8",
+                       gelu_approx=True, tuning=TuningConfig(),
+                       select_cfg=SelectConfig(token_target_ratio=0.5),
+                       dtype=BF).cuda()
+    with torch.no_grad():
+        blk.mlp_token_select.mlp_head.weight.mul_(25.0)
+        blk.attn.relative_position_bias_table.normal_(generator=torch.Generator(
+            device="cuda").manual_seed(3))
+    x = torch.randn((1, 1025, 768), generator=torch.Generator(
+        device="cuda").manual_seed(17), device="cuda").to(BF)
+    ms.reset_launch_counts()
+    qt.reset_launch_counts()
+    with torch.inference_mode():
+        out, gate, logits = blk(x, False, dispatch)
+    torch.cuda.synchronize()
+    assert ms.mha_windowed_fused.launches == 1
+    assert qt.q8_ln_mlp.launches == 1
+    assert (ms.attention_sublayer_serving.launches,
+            ms.dyt_prologue_serving.launches,
+            qt.dyt_prologue_serving_q8.launches) == (0, 0, 0)
+    with mock.patch.object(ms, "mha_windowed_fused", ms.mha_windowed_plain), \
+            mock.patch.object(qt, "q8_ln_mlp", qt.q8_ln_mlp_plain), \
+            torch.inference_mode():
+        ref, ref_gate, ref_logits = blk(x, False, dispatch)
+    logits_close(logits, ref_logits)
+    sure = (ref_logits.abs() > 2e-3 * ref_logits.abs().max())[..., 0]
+    if not dispatch:
+        assert torch.equal(gate[:, 1:, 0][sure], ref_gate[:, 1:, 0][sure])
+        same = (gate == ref_gate)[..., 0]          # rows of equal gates
+        bf16_close(out[same], ref[same], "int8 windowed block")
+        return
+    # under dispatch, the plain forward given the kernel forward's scores
+    real = layers.D.dispatch_mlp
+    scores = torch.cat([torch.full((1, 1), float("inf"), device="cuda"),
+                        torch.sigmoid(logits[..., 0].float())], dim=1)
+    with mock.patch.object(layers.D, "dispatch_mlp",
+                           lambda x_, s_, *a: real(x_, scores, *a)), \
+            mock.patch.object(ms, "mha_windowed_fused", ms.mha_windowed_plain), \
+            mock.patch.object(qt, "q8_ln_mlp", qt.q8_ln_mlp_plain), \
+            torch.inference_mode():
+        ref, ref_gate, _ = blk(x, False, True)
+    assert torch.equal(gate, ref_gate)
+    bf16_close(out, ref, "int8 windowed block, dispatch")
+
+
+
+@pytest.mark.parametrize("norm", ["gn", "bn"])
+def test_seg_train_step_is_deterministic(norm):
+    """Two seg runners from the same seed take the same three steps on the
+    card and end with the same parameters, moments and BatchNorm
+    statistics bit for bit (cuDNN's deterministic convolutions; the
+    resizes, pooling and relative-position gather with gradients summed in
+    a fixed order): what lets a resumed run equal an uninterrupted one."""
+    from dynamic_tuning_tpu_torch.config import (DataConfig, ModelConfig,
+                                                 RunConfig, TuningConfig)
+    from dynamic_tuning_tpu_torch.train.seg_runner import SegRunner
+
+    cfg = RunConfig(model=ModelConfig(img_size=128, patch_size=16,
+                                      embed_dim=128, depth=4, num_heads=2,
+                                      drop_path_rate=0.1),
+                    tuning=TuningConfig(ffn_num=16),
+                    data=DataConfig(dataset="synthetic", batch_size=2,
+                                    num_workers=1), output_dir="")
+    runs = []
+    for _ in range(2):
+        r = SegRunner(cfg, total_iters=3, eval_interval=3, crop=128,
+                      norm=norm, head_channels=64, device="cuda",
+                      log=lambda m: None)
+        imgs, anns = next(iter(r.train_loader))
+        for _ in range(3):
+            r.train_step(*r._device_batch(imgs, anns))
+        runs.append(r)
+    a, b = runs
+    pa, pb = dict(a.model.named_parameters()), dict(b.model.named_parameters())
+    names = a.state.optimizer.names
+    assert any("relative_position_bias_table" in n for n in names)
+    for n in names:
+        assert torch.equal(pa[n], pb[n]), n
+    for part in ("mu", "nu"):
+        sa = a.state.optimizer.state_dict()["rule"][part]
+        sb = b.state.optimizer.state_dict()["rule"][part]
+        for n in names:
+            assert torch.equal(sa[n], sb[n]), (part, n)
+    ba, bb = dict(a.model.named_buffers()), dict(b.model.named_buffers())
+    for n in a.buffers:
+        assert torch.equal(ba[n], bb[n]), n
+
+
 # --- fused LN + MLP (K11) ----------------------------------------------------
 #
 # Tolerance as for K2: the kernel rounds at the plain version's points (bf16

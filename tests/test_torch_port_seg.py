@@ -68,6 +68,17 @@ JDT = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
 TDT = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _few_threads():
+    """Toy-size ops (and the CLI's 32^2 crops) gain little from many
+    intra-op threads, and beside other test processes those threads wait
+    on each other (tests/test_torch_port_runner.py does the same)."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(min(before, 2))
+    yield
+    torch.set_num_threads(before)
+
+
 @pytest.fixture(autouse=True)
 def _eval_only():
     """The port's serving forwards: no autograd."""
@@ -283,20 +294,29 @@ def test_windowed_block_matches_jax(monkeypatch, mode):
 
 def test_block_beit_options_raise():
     """The BEiT options build (LayerScale gammas, q/v biases in place of the
-    qkv bias); what the segmentation path still lacks raises and points at
-    ROADMAP.md's queue 1 item 5."""
+    qkv bias), in int8 too, and train; what the backbone refuses raises: an
+    input of another patch grid, an unknown remat."""
     g = torch.Generator()
     blk = tlayers.Block(DIM, HEADS, g, window_size=(GRID, GRID),
                         init_values=0.1, qv_bias_only=True)
     assert torch.equal(blk.gamma_1, torch.full((DIM,), 0.1))
     assert blk.attn.qkv.bias is None and blk.attn.q_bias.shape == (DIM,)
     mc = port_cfg(dataclasses.replace(model_cfg(), quant="int8"))
-    with pytest.raises(NotImplementedError, match="queue 1 item 5"):
-        SegVisionTransformer(mc, init_values=0.1, qv_bias_only=True)
+    q8 = SegVisionTransformer(mc, init_values=0.1, qv_bias_only=True)
+    assert all(b.quant == "int8" for b in q8.blocks)
+    assert q8.patch_embed.quant == "int8"
     tb = SegVisionTransformer(port_cfg(model_cfg()), init_values=0.1,
                               qv_bias_only=True, dtype=torch.float32)
-    with pytest.raises(NotImplementedError, match="queue 1 item 5"):
-        tb(torch.zeros((1, IMG, IMG, 3)), training=True)
+    with torch.enable_grad():
+        feats, _ = tb(torch.zeros((1, IMG, IMG, 3)), training=True,
+                      draws=tlayers.Draws("cpu", gate=0, dropout=1))
+        feats[0].sum().backward()
+    assert tb.blocks[0].attn.relative_position_bias_table.grad is not None
+    with pytest.raises(ValueError, match="patch grid"):
+        tb(torch.zeros((1, IMG + PATCH, IMG, 3)))
+    with pytest.raises(ValueError, match="remat"):
+        SegVisionTransformer(port_cfg(dataclasses.replace(model_cfg(),
+                                                          remat="blocks")))
 
 
 # --- backbone and heads --------------------------------------------------------
@@ -435,10 +455,37 @@ def test_segmentor_matches_jax_bf16(monkeypatch, mode):
                                atol=0.01 * np.abs(want).max())
 
 
-def test_segmentor_int8_raises():
-    mc = port_cfg(dataclasses.replace(model_cfg(), quant="int8"))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tup.DyTSegmentor(mc, num_classes=NC, head_channels=HEAD_CH)
+def test_segmentor_int8_serves_int8():
+    """An int8 segmentor quantizes where JAX does: the stem, every block's
+    MLP (K4's plain version; attention stays on K9), every ConvModule
+    (q8_conv); the fp32 classifiers stay fp32.  Its logits move away from
+    the fp32 model's by more than the int8 tolerance (1e-2 of the largest
+    logit); training runs the fp32 path, the same as the fp32 model's."""
+    params, stats = _seg_variables()
+    sd = {k: _t(v) for k, v in from_flax_params(params, stats).items()}
+    models = {}
+    for quant in ("none", "int8"):
+        mc = port_cfg(dataclasses.replace(model_cfg(), quant=quant))
+        m = tup.DyTSegmentor(mc, num_classes=NC, tuning=port_cfg(TUNING),
+                             select=port_cfg(SELECT), head_channels=HEAD_CH,
+                             dtype=torch.float32)
+        m.load_state_dict(sd, strict=True)
+        m.decode_head.dropout = m.auxiliary_head.dropout = 0.0
+        models[quant] = m
+    q8 = models["int8"]
+    assert q8.decode_head.fpn_bottleneck.quant == "int8"
+    assert q8.auxiliary_head.conv0.quant == "int8"
+    x = _t(_image())
+    f32, _, _ = models["none"](x)
+    got, _, _ = q8(x)
+    assert (got - f32).abs().max() > 1e-2 * f32.abs().max()
+    noise = torch.from_numpy(np.random.RandomState(3).logistic(
+        size=(2, DEPTH, GRID * GRID, 1)).astype(np.float32))
+    with torch.enable_grad():
+        train = [m(x, training=True, gate_noise=noise,
+                   draws=tlayers.Draws("cpu", gate=0, dropout=1))[0]
+                 for m in models.values()]
+    assert torch.equal(train[0], train[1])
 
 
 # --- slide inference ------------------------------------------------------------
@@ -490,21 +537,30 @@ def test_slide_inference_tile_batch_identical(tile_batch):
 @pytest.mark.parametrize("src,dst", [((4, 6), (16, 16)), ((16, 16), (5, 3)),
                                      ((6, 6), (2, 9)), ((3, 3), (64, 64))])
 def test_resize_matches_jax(src, dst):
-    """torch's bilinear (align_corners=False, no antialias) against the JAX
-    package's _resize, upscaling and downscaling."""
+    """The port's bilinear (align_corners=False, no antialias), in eval and
+    on a tensor that requires grad, against the JAX package's _resize,
+    upscaling and downscaling."""
     x = np.random.RandomState(10).randn(2, *src, 5).astype(np.float32)
     want = np.asarray(jup._resize(jnp.asarray(x), dst))
-    got = tup._resize(_t(x).permute(0, 3, 1, 2), dst).permute(0, 2, 3, 1)
-    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
+    for grad in (False, True):      # F.interpolate; the axis matrices
+        xt = _t(x).permute(0, 3, 1, 2).requires_grad_(grad)
+        got = tup._resize(xt, dst).permute(0, 2, 3, 1)
+        np.testing.assert_allclose(got.detach().numpy(), want, rtol=1e-5,
+                                   atol=1e-5)
 
 
 @pytest.mark.parametrize("hw,out", [(16, 3), (16, 6), (2, 3), (2, 6), (7, 5)])
 def test_adaptive_pool_matches_jax(hw, out):
+    """The port's pooling, in eval (torch's AdaptiveAvgPool2d) and on a
+    tensor that requires grad (the window matrices), against the JAX
+    package's."""
     x = np.random.RandomState(11).randn(2, hw, hw, 4).astype(np.float32)
     want = np.asarray(jup._adaptive_avg_pool(jnp.asarray(x), out))
-    got = torch.nn.functional.adaptive_avg_pool2d(
-        _t(x).permute(0, 3, 1, 2), out).permute(0, 2, 3, 1)
-    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-6)
+    for grad in (False, True):
+        xt = _t(x).permute(0, 3, 1, 2).requires_grad_(grad)
+        got = tup._adaptive_avg_pool(xt, out).permute(0, 2, 3, 1)
+        np.testing.assert_allclose(got.detach().numpy(), want, rtol=1e-5,
+                                   atol=1e-6)
 
 
 # --- loss, metrics, data --------------------------------------------------------
@@ -679,10 +735,13 @@ def test_seg_runner_evaluate_matches_jax_pipeline(monkeypatch):
     metrics).  The runner's model and data are swapped for the test's
     7-class ones."""
     jm, variables, tm = _pair(monkeypatch)
-    runner = SegRunner(port_cfg(model_cfg()), port_cfg(TUNING),
-                       port_cfg(SELECT), dataset="synthetic", crop=IMG,
-                       slide_stride=43, head_channels=HEAD_CH,
-                       dtype=torch.float32, device="cpu", log=lambda m: None)
+    cfg = tcfg.RunConfig(model=port_cfg(model_cfg()), tuning=port_cfg(TUNING),
+                         select=port_cfg(SELECT),
+                         data=tcfg.DataConfig(dataset="synthetic"),
+                         compute_dtype="float32", output_dir="")
+    runner = SegRunner(cfg, crop=IMG, slide_stride=43,
+                       head_channels=HEAD_CH, device="cpu",
+                       log=lambda m: None)
     ds = tseg_data.SyntheticSegDataset(4, IMG, NC, train=False, seed=1)
     runner.model, runner.val_ds, runner.num_classes = tm, ds, NC
     got = runner.evaluate(max_images=2)
@@ -699,28 +758,41 @@ def test_seg_runner_evaluate_matches_jax_pipeline(monkeypatch):
     assert got["images"] == 2
     assert got["miou"] == pytest.approx(miou, abs=1e-9)
     assert got["aAcc"] == pytest.approx(np.diag(cm).sum() / cm.sum() * 100)
-    with pytest.raises(NotImplementedError, match="--eval"):
-        runner.run()
 
 
-def test_seg_train_cli():
-    """The reference's seg_train.py defaults; training raises; the entry
-    point wants a card unless asked for the CPU, and --device cpu
-    evaluates (ViT-B at a 32^2 crop, one synthetic image)."""
+def test_seg_train_cli(tmp_path):
+    """The reference's seg_train.py defaults; the entry point wants a card
+    unless asked for the CPU; --device cpu trains (ViT-B at a 32^2 crop, 4
+    iterations, evaluations of the 16 synthetic images at 2 and 4) and
+    saves; a run resumed from the iteration-2 checkpoint ends the same;
+    its runner evaluates that checkpoint (--eval_ckpt)."""
     p = seg_train.get_args_parser()
-    args = p.parse_args(["--eval", "--dataset", "synthetic", "--crop_size",
-                         "32", "--device", "cpu", "--compute_dtype",
-                         "float32"])
+    args = p.parse_args(["--dataset", "synthetic", "--crop_size", "32",
+                         "--device", "cpu", "--compute_dtype", "float32"])
     assert (args.batch_size, args.lr, args.weight_decay, args.drop_path,
-            args.slide_stride, args.seg_norm) == (2, 1e-3, 0.05, 0.1, 341,
-                                                   "gn")
+            args.slide_stride, args.seg_norm, args.total_iters,
+            args.eval_interval) == (2, 1e-3, 0.05, 0.1, 341, "gn", 160_000,
+                                    16_000)
     assert p.parse_args([]).dataset == "ade20k"
-    with pytest.raises(NotImplementedError, match="--eval"):
-        seg_train.main(p.parse_args(["--dataset", "synthetic"]))
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="--device cpu"):
             seg_train.build_runner(p.parse_args(["--eval"]))
-    runner = seg_train.build_runner(args, log=lambda m: None)
-    assert runner.device.type == "cpu" and runner.num_classes == 150
+
+    train = ["--dataset", "synthetic", "--crop_size", "32", "--device", "cpu",
+             "--compute_dtype", "float32", "--total_iters", "4",
+             "--eval_interval", "2", "--num_workers", "1",
+             "--no_auto_remove"]
+    a, c = tmp_path / "a", tmp_path / "c"
+    with torch.enable_grad():
+        out = seg_train.main(p.parse_args(train + ["--output_dir", str(a)]))
+        assert set(out) == {"max_miou"} and out["max_miou"] >= 0.0
+        assert (a / "checkpoint-2.pth").exists()
+        runner = seg_train.build_runner(p.parse_args(train + [
+            "--output_dir", str(c), "--resume", str(a / "checkpoint-2.pth")]),
+            log=lambda m: None)
+        assert runner.device.type == "cpu" and runner.num_classes == 150
+        assert runner.start_iter == 2
+        assert runner.run() == out
+    runner.load_eval_checkpoint(str(a / "checkpoint-2.pth"))
     stats = runner.evaluate(max_images=1)
     assert stats["images"] == 1 and 0.0 <= stats["aAcc"] <= 100.0
