@@ -196,7 +196,30 @@ Phases; any failure exits non-zero:
      its int32 sums exact against the float64 product, with its time and
      bound; one int8 dispatch crop forward (K9 x12, K4 x12, the stem once)
      against the plain versions;
- 14. the wall time (and each new phase's), the card's name and power limit
+ 14. data-parallel training (after phase 13), through the port's entry
+     points under torchrun's variables: (b) two processes on this card
+     over gloo (``python3 chip_smoke.py --parallel-worker DIR``, NCCL
+     refuses two ranks on one card) run main_image.main at ViT-B/16's
+     width and depth, 16 images a rank, 3 steps, then an evaluation of 33
+     synthetic images (rank 1's shard padded), against one process at 32
+     images a step: the ranks end identical, the first moments (the
+     summed gradients) within relative L2 2**-5 of one process's, world
+     2's accuracy equal to one process's on world 2's weights, gates >=
+     GATE_AGREE; K3 counted in every evaluation; (c) seg_train.main with
+     BatchNorm heads, 2 ranks x 2 crops against 1 x 4: the running
+     statistics and the auxiliary head's first moments within 2**-5,
+     every other group's (backbone, PSP, decode head) within 2**-4; the
+     same first iteration in fp32 through SegRunner.train_step: running
+     statistics within 1e-4, every settled first moment (at least 2**-5
+     of its tensor's largest) of one process's sign, the two
+     gradient-free FPN biases below 2**-10 of their group; (a)
+     an NCCL group of world 1: 4 image steps through the all-reduce
+     against the same steps without a group, and the all-reduce alone at
+     the image and seg buckets; (d) the native JPEG loader: built or not
+     and why, its canvases of dynamic_tuning_tpu_torch/native/fixtures
+     within one count of PIL's, its decode time; prints the ``decoder:``
+     line, a ``ddp`` JSON line and a ``ddp:`` summary;
+ 15. the wall time (and each new phase's), the card's name and power limit
      (nvidia-smi), a JSON line of the kernels, and last the JSON result
      line.
 Needs no network and imports nothing of JAX or of the JAX package.
@@ -2586,6 +2609,619 @@ def phase_bench(torch, ms, qt, fm, bench, sds, seg_sd) -> dict:
     return counts
 
 
+# --- phase 14: data-parallel training ----------------------------------------
+
+PAR_BATCH = 16                  # images a rank of (b): the global batch 32
+PAR_STEPS = 3
+PAR_EVAL = 33                   # odd: rank 1's shard ends in a pad
+PAR_NCCL_BATCH, PAR_NCCL_STEPS = 64, 4
+# world 2 against world 1: each rank rounds its bf16 gradient products
+# before the sum over ranks, and a batch of 16 takes other GEMM tilings
+# than one of 32, so the summed gradients (the optimizer's first moments)
+# agree to bf16 noise: their relative L2 distance within 2**-5.  Seg runs
+# a global batch of 4 crops (2 a rank): at 2 the PSP's 1x1 pooled map
+# would normalise 2 values a channel, a BatchNorm whose output is +-1 and
+# whose gradient is 0 in exact arithmetic.  Even at 4 that BatchNorm's
+# values are global means of near-alike synthetic crops, and flax's fast
+# variance E[x^2] - E[x]^2 loses u * mean^2 / var of its precision, so the
+# order of its sums moves the decode head and, backward, the backbone: in
+# fp32 the first moments downstream of it agree to ~1e-3 where the
+# running statistics and the auxiliary head agree to ~1e-6.  In bf16 the
+# running statistics and the auxiliary head are held to 2**-5 and every
+# other group of seg's first moments to 2**-4 (bf16 noise reaches 3.2e-2
+# in the backbone's FPN).  The same first iteration in fp32 (the training
+# path has no hand kernel) holds the running statistics to PAR_FP32_REL
+# and, in every group, the settled elements: where the gradient is at
+# least SETTLED of its tensor's largest, Adam's first step is
+# lr * sign(g), and noise of 1e-3 cannot flip that sign.  Two biases have
+# no gradient in exact arithmetic (a constant before a 1x1 conv and a
+# BatchNorm): their first moments are rounding noise, held below
+# NO_GRADIENT_REL of their group's largest instead.
+PAR_REL = 2.0 ** -5
+PAR_FP32_REL = 1e-4
+SETTLED = 2.0 ** -5
+SEG_NO_GRADIENT = ("backbone.fpn1_deconv2.bias", "backbone.fpn2_deconv.bias")
+NO_GRADIENT_REL = 2.0 ** -10
+PAR_SEG_BATCH = 2               # crops a rank of (c): the global batch 4
+JPEG_DIR = os.path.join(REPO, "dynamic_tuning_tpu_torch", "native",
+                        "fixtures")
+
+
+PAR_GROUPS = ("psp", "decode_head", "auxiliary_head", "adaptmlp",
+              "mlp_token_select", "relative_position", "fpn", "head")
+
+
+def _groups(names) -> dict:
+    """group -> the tensor names of PAR_GROUPS' group."""
+    groups = {}
+    for k in names:
+        g = next((g for g in PAR_GROUPS
+                  if any(part.startswith(g) for part in k.split("."))),
+                 "other")
+        groups.setdefault(g, []).append(k)
+    return groups
+
+
+def _group_rel(got: dict, want: dict) -> dict:
+    """The relative L2 distance of each group of tensors."""
+    return {g: _rel_l2({k: got[k] for k in ks}, {k: want[k] for k in ks})
+            for g, ks in _groups(want).items()}
+
+
+def _by_group(rel: dict) -> str:
+    return ", ".join(f"{g} {r:.2e}" for g, r in rel.items())
+
+
+def _settled_flips(got: dict, want: dict) -> tuple:
+    """By group, [elements whose first moment in ``got`` has another sign
+    than in ``want``, elements compared]: those where ``want``'s first
+    moment is at least SETTLED of its tensor's largest, SEG_NO_GRADIENT
+    aside; the tensors with a flip; and the largest first moment of
+    SEG_NO_GRADIENT in either run over its group's largest."""
+    out, where, free = {}, {}, 0.0
+    for g, ks in _groups(want).items():
+        out[g] = [0, 0]
+        top = max(float(want[k].abs().max()) for k in ks
+                  if k not in SEG_NO_GRADIENT)
+        for k in ks:
+            if k in SEG_NO_GRADIENT:
+                free = max(free, float(want[k].abs().max()) / top,
+                           float(got[k].abs().max()) / top)
+                continue
+            m = want[k].abs() >= SETTLED * want[k].abs().max()
+            flips = int((got[k][m].sign() != want[k][m].sign()).sum())
+            out[g][0] += flips
+            out[g][1] += int(m.sum())
+            if flips:
+                where[k] = flips
+    return out, where, free
+
+
+def _train_gate_agreement(ranks: list, one: dict) -> float:
+    """The first training step's student gates of the ranks (rows r::world
+    of the global batch) against one process's."""
+    world = len(ranks)
+    return float(sum((r["gates"] == one["gates"][i::world]).float().sum()
+                     for i, r in enumerate(ranks)) / one["gates"].numel())
+
+
+def _rel_l2(got: dict, want: dict, base: dict | None = None) -> float:
+    """||got - want|| / ||want - base|| over every tensor (base 0)."""
+    num = den = 0.0
+    for k, w in want.items():
+        b = 0.0 if base is None else base[k]
+        num += float((got[k].double() - w.double()).pow(2).sum())
+        den += float((w.double() - b).pow(2).sum())
+    return math.sqrt(num / max(den, 1e-300))
+
+
+@contextlib.contextmanager
+def _par_probe(torch, cls, rec: dict):
+    """Record a runner's instance, each train step's host-clock ms (the
+    card synchronised before and after) and each eval forward's logits and
+    gates."""
+    real_init, real_eval = cls.__init__, cls.evaluate
+
+    def init(self, *a, **kw):
+        real_init(self, *a, **kw)
+        rec["runner"] = self
+        rec["start"] = _trained(self)["params"]
+        fwd = self.model.forward
+
+        def traced(*a, **kw):
+            out = fwd(*a, **kw)
+            ts = out[-1]["token_select"]
+            if (kw.get("training") and not kw.get("complete_model")
+                    and ts is not None and not rec["train_gates"]):
+                rec["train_gates"].append(ts.detach().float().cpu())
+            return out
+        self.model.forward = traced
+        if hasattr(self, "eval_step"):
+            ev = self.eval_step
+
+            def recorded(xb):
+                logits, ts = ev(xb)
+                rec["forwards"].append((logits.float().cpu(),
+                                        ts.float().cpu()))
+                return logits, ts
+            self.eval_step = recorded
+        step = self.train_step
+
+        def timed(*a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            parts = step(*a, **kw)
+            torch.cuda.synchronize()
+            rec["step_ms"].append((time.perf_counter() - t0) * 1e3)
+            rec["parts"].append({k: float(v) for k, v in parts.items()})
+            return parts
+        self.train_step = timed
+
+    def evaluate(self, *a, **kw):
+        rec["stats"].append(real_eval(self, *a, **kw))
+        return rec["stats"][-1]
+
+    rec.update(step_ms=[], parts=[], forwards=[], stats=[], train_gates=[])
+    with mock.patch.object(cls, "__init__", init), \
+            mock.patch.object(cls, "evaluate", evaluate):
+        yield rec
+
+
+def _trained(runner) -> dict:
+    """A runner's trainable tensors, first moments and buffers, on the
+    host."""
+    opt = runner.state.optimizer
+    params = dict(runner.model.named_parameters())
+    rule = opt.state_dict()["rule"]
+    return dict(params={n: params[n].detach().float().cpu()
+                        for n in opt.names},
+                mu={n: rule["mu"][n].float().cpu() for n in opt.names},
+                buffers={n: b.float().cpu()
+                         for n, b in runner.model.named_buffers()
+                         if n.endswith((".running_mean", ".running_var"))},
+                bucket=sum(p.numel() for p in opt.params) * 4)
+
+
+def _eval_rows(torch, runner, rec) -> dict:
+    """label -> (logits, gates) of each evaluated image (the synthetic
+    val images' labels are distinct), pads dropped."""
+    labels = torch.cat([torch.from_numpy(lb) for _, lb in runner.val_loader])
+    logits = torch.cat([f[0] for f in rec["forwards"]])
+    gates = torch.cat([f[1] for f in rec["forwards"]])
+    return {int(lb): (logits[i], gates[i]) for i, lb in enumerate(labels)
+            if lb >= 0}
+
+
+def par_image_run(torch, ms, ft: str, out: str, batch: int) -> dict:
+    """main_image.main on PAR_STEPS steps of the global batch (96 synthetic
+    images) and one evaluation of PAR_EVAL images, ``batch`` images a
+    process."""
+    from dynamic_tuning_tpu_torch import main_image
+    from dynamic_tuning_tpu_torch.train import runner as R
+    real_build = R.build_image_dataset
+
+    def build(*a, **kw):
+        train, val, nc, metric = real_build(*a, **kw)
+        train.n, val.n = PAR_STEPS * 2 * PAR_BATCH, PAR_EVAL
+        return train, val, nc, metric
+
+    flags = ["--dataset", "synthetic", "--batch_size", str(batch),
+             "--epochs", "1", "--warmup_epochs", "1", "--no_auto_remove",
+             "--num_workers", "2", "--finetune", ft, "--output_dir", out]
+    rec = {}
+    ms.reset_launch_counts()
+    with mock.patch.object(R, "build_image_dataset", build), \
+            _par_probe(torch, R.Runner, rec):
+        main_image.main(main_image.get_args_parser().parse_args(flags))
+    runner = rec["runner"]
+    return dict(_trained(runner), step_ms=rec["step_ms"], parts=rec["parts"],
+                gates=rec["train_gates"][0],
+                rows=_eval_rows(torch, runner, rec), stats=rec["stats"][-1],
+                start=rec["start"], k3=ms.dyt_prologue_serving.launches,
+                runner=runner)
+
+
+def _seg_flags(ft: str, out: str, batch: int) -> list:
+    return ["--dataset", "synthetic", "--crop_size", "512", "--batch_size",
+            str(batch), "--total_iters", "1", "--eval_interval", "1",
+            "--seg_norm", "bn", "--no_auto_remove", "--num_workers", "2",
+            "--finetune", ft, "--output_dir", out]
+
+
+def par_seg_run(torch, ms, ft: str, out: str, batch: int) -> dict:
+    """seg_train.main with BatchNorm heads: one iteration of the global
+    batch of 4 crops at 512^2, ``batch`` a process, then its evaluation of
+    16 crops (rank-strided)."""
+    from dynamic_tuning_tpu_torch import seg_train
+    from dynamic_tuning_tpu_torch.train import seg_runner as SR
+    flags = _seg_flags(ft, out, batch)
+    rec = {}
+    ms.reset_launch_counts()
+    with _par_probe(torch, SR.SegRunner, rec):
+        seg_train.main(seg_train.get_args_parser().parse_args(flags))
+    return dict(_trained(rec["runner"]), step_ms=rec["step_ms"],
+                parts=rec["parts"], miou=rec["stats"][-1]["miou"],
+                gates=rec["train_gates"][0],
+                k9=ms.mha_windowed_fused.launches)
+
+
+def par_seg_step32(torch, ft: str, out: str, batch: int) -> dict:
+    """par_seg_run's first iteration in fp32, through
+    ``SegRunner.train_step``: the training path has no hand kernel, and the
+    card's refusal of fp32 (``require_card_dtype``) guards the evaluation's
+    bf16 kernels, which this step does not run."""
+    from dynamic_tuning_tpu_torch import seg_train
+    from dynamic_tuning_tpu_torch.train import seg_runner as SR
+    args = seg_train.get_args_parser().parse_args(
+        _seg_flags(ft, out, batch) + ["--compute_dtype", "float32"])
+    with mock.patch.object(SR, "require_card_dtype", lambda *a: None):
+        runner = seg_train.build_runner(args)
+    runner.train_loader.set_epoch(0)
+    batches = runner.train_loader.iter_from(0)
+    imgs, anns = next(batches)
+    batches.close()
+    start = _trained(runner)["params"]
+    runner.train_step(*runner._device_batch(imgs, anns))
+    res = dict(_trained(runner), start=start)
+    del runner
+    torch.cuda.empty_cache()
+    return res
+
+
+def parallel_worker(out: str) -> None:
+    """One process of phase 14 (b, c): two of them share cuda:0 over gloo,
+    launched with torchrun's variables."""
+    import torch
+
+    sys.path.insert(0, REPO)
+    from dynamic_tuning_tpu_torch.ops import _build
+    from dynamic_tuning_tpu_torch.ops import mha_serving as ms
+    from dynamic_tuning_tpu_torch.parallel import multihost as MH
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    _build.library()
+    if not MH.maybe_initialize_distributed("cuda", backend="gloo"):
+        fail("parallel worker: no process group from the environment")
+    rank = MH.process_index()
+    img = par_image_run(torch, ms, os.path.join(out, "ft64.pth"),
+                        os.path.join(out, "img_w2"), PAR_BATCH)
+    img.pop("runner")
+    seg = par_seg_run(torch, ms, os.path.join(out, "ft_seg.pth"),
+                      os.path.join(out, "seg_w2"), PAR_SEG_BATCH)
+    seg32 = par_seg_step32(torch, os.path.join(out, "ft_seg.pth"),
+                           os.path.join(out, "seg32_w2"), PAR_SEG_BATCH)
+    torch.save(dict(img=img, seg=seg, seg32=seg32),
+               os.path.join(out, f"rank{rank}.pt"))
+    MH.shutdown()
+
+
+def _launch_world(out: str, world: int = 2, timeout: int = 600) -> list:
+    """``world`` processes of ``parallel_worker`` on cuda:0, torchrun's
+    variables each; their results in rank order."""
+    import socket
+    import subprocess
+
+    import torch
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    procs, logs = [], []
+    for r in range(world):
+        log = open(os.path.join(out, f"rank{r}.log"), "w")
+        env = dict(os.environ, RANK=str(r), WORLD_SIZE=str(world),
+                   LOCAL_RANK="0", MASTER_ADDR="127.0.0.1",
+                   MASTER_PORT=str(port))
+        procs.append(subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--parallel-worker",
+             out], cwd=REPO, env=env, stdout=log, stderr=subprocess.STDOUT))
+        logs.append(log)
+    try:
+        for p in procs:
+            p.wait(timeout=timeout)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for log in logs:
+            log.close()
+    for r, p in enumerate(procs):
+        if p.returncode != 0:
+            with open(os.path.join(out, f"rank{r}.log")) as f:
+                print(f.read()[-4000:], file=sys.stderr)
+            fail(f"parallel worker rank {r} exited {p.returncode}")
+    return [torch.load(os.path.join(out, f"rank{r}.pt"), weights_only=False)
+            for r in range(world)]
+
+
+def par_nccl(torch, ft: str, out: str, seg_bucket: int) -> dict:
+    """(a) an NCCL process group of world 1 on the card: PAR_NCCL_STEPS
+    steps of the image runner through the all-reduce, against the same
+    steps without a group; the all-reduce alone at the image and the seg
+    buckets."""
+    import socket
+
+    from dynamic_tuning_tpu_torch import main_image
+    from dynamic_tuning_tpu_torch.cli import args_to_config
+    from dynamic_tuning_tpu_torch.parallel import mesh as P
+    from dynamic_tuning_tpu_torch.parallel import multihost as MH
+    from dynamic_tuning_tpu_torch.train import runner as R
+    flags = ["--dataset", "synthetic", "--batch_size", str(PAR_NCCL_BATCH),
+             "--epochs", "1", "--warmup_epochs", "1", "--no_auto_remove",
+             "--num_workers", "2", "--finetune", ft, "--output_dir", out]
+    cfg = args_to_config(main_image.get_args_parser().parse_args(flags))
+    res = {}
+    for mode in ("nccl", "plain"):
+        if mode == "nccl":
+            with socket.socket() as s:
+                s.bind(("127.0.0.1", 0))
+                port = s.getsockname()[1]
+            MH.initialize(f"127.0.0.1:{port}", 1, 0, device="cuda")
+        try:
+            rec = {}
+            with _par_probe(torch, R.Runner, rec):
+                runner = R.Runner(cfg, torch.device("cuda"))
+            runner.train_loader.ds.n = PAR_NCCL_STEPS * PAR_NCCL_BATCH
+            runner.train_one_epoch(0)
+            res[mode] = dict(step_ms=rec["step_ms"], parts=rec["parts"],
+                             params=_trained(runner)["params"],
+                             backend=(torch.distributed.get_backend()
+                                      if P.group_active() else "none"))
+            if mode == "nccl":
+                opt = runner.state.optimizer
+                grads = [torch.ones_like(p) for p in opt.params]
+                res["image_bucket"] = P.all_reduce_bytes(grads)
+                res["image_ar_ms"] = time_ms(
+                    lambda: P.all_reduce_grads(grads), iters=10)
+                big = [torch.ones(seg_bucket // 4, device="cuda")]
+                res["seg_ar_ms"] = time_ms(lambda: P.all_reduce_grads(big),
+                                           iters=5)
+                del big, grads
+        finally:
+            MH.shutdown()
+        del runner
+        torch.cuda.empty_cache()
+    return res
+
+
+def par_decoder(np) -> str:
+    """(d) the native JPEG loader: built or not and why; its canvases
+    against PIL's (stored beside the JPEGs of ``native/fixtures``, each
+    within one count); its decode time."""
+    import importlib.util
+
+    from dynamic_tuning_tpu_torch.data import native_loader as NL
+    if not NL.available():
+        pil = ("PIL" if importlib.util.find_spec("PIL")
+               else "PIL, which this host lacks too")
+        return (f"{pil} (the native loader did not build: "
+                f"{NL.why_unavailable().splitlines()[0]})")
+    ref = np.load(os.path.join(JPEG_DIR, "pil_canvases.npz"))
+    worst, n = 0, 0
+    for key in ref.files:
+        name, canvas, square = key.rsplit("_", 2)
+        got = NL.decode_resize(os.path.join(JPEG_DIR, name + ".jpg"),
+                               int(canvas), square=square == "square")
+        if got is None:
+            fail(f"native decode of {name}.jpg failed")
+        worst = max(worst, int(np.abs(got.astype(np.int32)
+                                      - ref[key].astype(np.int32)).max()))
+        n += 1
+    if worst > 1:
+        fail(f"native decode differs from PIL by {worst} counts")
+    big = os.path.join(JPEG_DIR, "smooth_500x375.jpg")
+    t0 = time.perf_counter()
+    for _ in range(20):
+        NL.decode_resize(big, 256)
+    native_ms = (time.perf_counter() - t0) / 20 * 1e3
+    try:
+        from dynamic_tuning_tpu_torch.data.datasets import decode_canvas
+        t0 = time.perf_counter()
+        for _ in range(20):
+            decode_canvas(big, 256)
+        pil = f"{(time.perf_counter() - t0) / 20 * 1e3:.3f} ms"
+    except ImportError:
+        pil = "not installed on this host"
+    return (f"native ({NL.library_path()}): {n} canvases within {worst} "
+            f"count of PIL's; a 500x375 JPEG to a 256 canvas in "
+            f"{native_ms:.3f} ms (host clock, one thread), PIL {pil}")
+
+
+def phase_parallel(torch, ms, qt, fm, np, sd, seg_sd) -> dict:
+    """Phase 14: data-parallel training (``parallel/``).  (b, c) two gloo
+    processes on this card against one process: the image runner at
+    ViT-B/16's width and depth, 16 images a rank, 3 steps, then an
+    evaluation of 33 images (padded); the seg runner with BatchNorm heads,
+    2 ranks x 2 crops against 1 x 4; (a) an NCCL group of world 1, 4 image
+    steps through the all-reduce; (d) the native JPEG loader.  Returns K3's
+    and K9's launches (the evaluations')."""
+    import shutil
+    root = os.path.join(REPO, "build", "phase_parallel")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    ft = os.path.join(root, "ft64.pth")
+    torch.save({k: torch.from_numpy(v) for k, v in sd.items()}, ft)
+    torch.save({k[len("backbone."):]: torch.from_numpy(v)
+                for k, v in seg_sd.items() if k.startswith("backbone.")},
+               os.path.join(root, "ft_seg.pth"))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ranks = _launch_world(root)
+    t_world = time.perf_counter() - t0
+    w2 = [r["img"] for r in ranks]
+    s2 = [r["seg"] for r in ranks]
+    f2 = [r["seg32"] for r in ranks]
+    for what, runs in (("image", w2), ("seg", s2), ("fp32 seg", f2)):
+        for part in ("params", "buffers"):
+            a, b = runs[0][part], runs[1][part]
+            if any(not torch.equal(a[n], b[n]) for n in a):
+                fail(f"parallel {what}: the ranks' {part} differ")
+        if runs[0].get("parts") != runs[1].get("parts"):
+            fail(f"parallel {what}: the ranks report other loss parts")
+    # (b) one process on the global batch
+    reset_counts(ms, qt, fm)
+    w1 = par_image_run(torch, ms, ft, os.path.join(root, "img_w1"),
+                       2 * PAR_BATCH)
+    k3 = sum(r["k3"] for r in w2) + w1["k3"]
+    if not all(r["k3"] for r in w2):
+        fail("parallel image: an evaluation forward launched no K3")
+    problems = []
+    mu_rel = _rel_l2(w2[0]["mu"], w1["mu"])
+    upd_rel = _rel_l2(w2[0]["params"], w1["params"], base=w1["start"])
+    img_train_gates = _train_gate_agreement(w2, w1)
+    print(f"ddp image, world 2 vs 1: first moments by group "
+          f"{_by_group(_group_rel(w2[0]['mu'], w1['mu']))}; first step's training "
+          f"gates {img_train_gates:.6f}")
+    runner = w1.pop("runner")
+    if mu_rel > PAR_REL:
+        problems.append(f"image world 2 vs 1: first moments at relative L2 "
+                        f"{mu_rel:.3e} (> {PAR_REL})")
+    rows1 = w1["rows"]
+    rows2 = {k: v for r in w2 for k, v in r["rows"].items()}
+    if sorted(rows2) != sorted(rows1) or len(rows1) != PAR_EVAL:
+        fail(f"parallel eval: world 2 evaluated {sorted(rows2)}, world 1 "
+             f"{sorted(rows1)}")
+    agree_trained = float(np.mean([
+        float((rows2[k][1] == rows1[k][1]).float().mean()) for k in rows1]))
+    # the same weights (world 2's) evaluated by one process
+    with torch.no_grad():
+        own = dict(runner.model.named_parameters())
+        for n, p in w2[0]["params"].items():
+            own[n].copy_(p.to(own[n].device))
+    rec = dict(forwards=[])
+    real_step = runner.eval_step
+
+    def recorded(xb):
+        logits, ts = real_step(xb)
+        rec["forwards"].append((logits.float().cpu(), ts.float().cpu()))
+        return logits, ts
+    runner.eval_step = recorded
+    ms.reset_launch_counts()
+    same = runner.evaluate()
+    k3 += ms.dyt_prologue_serving.launches
+    rows_same = _eval_rows(torch, runner, rec)
+    acc2 = w2[0]["stats"]["acc1"]
+    agree_same = float(np.mean([
+        float((rows2[k][1] == rows_same[k][1]).float().mean())
+        for k in rows_same]))
+    logit_rel = max(float((rows2[k][0] - rows_same[k][0]).abs().max())
+                    for k in rows_same) / max(
+        float(rows_same[k][0].abs().max()) for k in rows_same)
+    if same["acc1"] != acc2 or w2[1]["stats"]["acc1"] != acc2 \
+            or same["acc5"] != w2[0]["stats"]["acc5"] \
+            or logit_rel > MODEL_REL or agree_same < GATE_AGREE \
+            or agree_trained < GATE_AGREE:
+        problems.append(f"eval: acc1 world 2 {acc2}, one process on its "
+                        f"weights {same['acc1']}, logits {logit_rel:.3e}; "
+                        f"gates {agree_same:.5f} "
+                        f"(same weights), {agree_trained:.5f} (each run's "
+                        "own)")
+    del runner
+    torch.cuda.empty_cache()
+    # (c) seg: one process on the global batch
+    s1 = par_seg_run(torch, ms, os.path.join(root, "ft_seg.pth"),
+                     os.path.join(root, "seg_w1"), 2 * PAR_SEG_BATCH)
+    k9 = sum(r["k9"] for r in s2) + s1["k9"]
+    seg_groups = _group_rel(s2[0]["mu"], s1["mu"])
+    init = {n: (torch.ones_like(b) if n.endswith("running_var")
+                else torch.zeros_like(b)) for n, b in s1["buffers"].items()}
+    seg_bn = _rel_l2(s2[0]["buffers"], s1["buffers"], base=init)
+    seg_train_gates = _train_gate_agreement(s2, s1)
+    f1 = par_seg_step32(torch, os.path.join(root, "ft_seg.pth"),
+                        os.path.join(root, "seg32_w1"), 2 * PAR_SEG_BATCH)
+    f32_groups = _group_rel(f2[0]["mu"], f1["mu"])
+    f32_bn = _rel_l2(f2[0]["buffers"], f1["buffers"], base=init)
+    f32_flips, flipped, no_grad = _settled_flips(f2[0]["mu"], f1["mu"])
+    print(f"ddp seg, world 2 vs 1: first moments by group "
+          f"{_by_group(seg_groups)}; BatchNorm statistics "
+          f"{seg_bn:.2e}; training gates {seg_train_gates:.6f}; in fp32: "
+          f"{_by_group(f32_groups)}; BatchNorm statistics {f32_bn:.2e}; "
+          f"settled signs flipped {f32_flips} {flipped}; gradient-free "
+          f"biases' first moments {no_grad:.2e} of their group's largest")
+    aux = seg_groups.get("auxiliary_head", math.inf)
+    if not s1["buffers"] or "psp" not in seg_groups \
+            or max(seg_groups.values()) > 2 * PAR_REL or aux > PAR_REL \
+            or seg_bn > PAR_REL:
+        problems.append(f"seg: first moments by group "
+                        f"{_by_group(seg_groups)} (> {2 * PAR_REL}, the "
+                        f"auxiliary head > {PAR_REL}), BatchNorm statistics "
+                        f"{seg_bn:.3e} (> {PAR_REL})")
+    if sorted(f32_flips) != sorted(seg_groups) \
+            or any(f or not n for f, n in f32_flips.values()) \
+            or f32_bn > PAR_FP32_REL or not no_grad < NO_GRADIENT_REL:
+        problems.append(f"fp32 seg: settled first moments of another sign "
+                        f"by group {f32_flips} (of those compared) "
+                        f"{flipped}, BatchNorm statistics {f32_bn:.3e} "
+                        f"(> {PAR_FP32_REL}), gradient-free biases "
+                        f"{no_grad:.3e} (> {NO_GRADIENT_REL})")
+    # (a) NCCL, world 1
+    nccl = par_nccl(torch, ft, os.path.join(root, "nccl"), s1["bucket"])
+    parts_rel = max(abs(a[k] - b[k]) / max(abs(b[k]), 1e-12)
+                    for a, b in zip(nccl["nccl"]["parts"],
+                                    nccl["plain"]["parts"]) for k in b)
+    if nccl["nccl"]["backend"] != "nccl" or parts_rel > 1e-3:
+        problems.append(f"NCCL world 1: backend {nccl['nccl']['backend']}, "
+                        f"loss parts {parts_rel:.3e} from the steps without "
+                        "a group")
+    decoder = par_decoder(np)
+    print(f"decoder: {decoder}")
+
+    def ms_of(v):
+        return "/".join(f"{x:.1f}" for x in v)
+    print(json.dumps({"ddp": {
+        "world_2_gloo_one_card": {
+            "image_step_ms_rank0": w2[0]["step_ms"],
+            "image_step_ms_rank1": w2[1]["step_ms"],
+            "seg_step_ms_rank0": s2[0]["step_ms"],
+            "wall_s_both_processes": round(t_world, 1)},
+        "world_1_no_group": {"image_step_ms": w1["step_ms"],
+                             "seg_step_ms": s1["step_ms"]},
+        "world_1_nccl": {"image_step_ms_batch64": nccl["nccl"]["step_ms"],
+                         "plain_step_ms_batch64": nccl["plain"]["step_ms"],
+                         "loss_parts_rel_vs_plain": parts_rel,
+                         "image_all_reduce_ms": nccl["image_ar_ms"],
+                         "seg_all_reduce_ms": nccl["seg_ar_ms"]},
+        "all_reduce_bytes": {"image": nccl["image_bucket"],
+                             "seg": s1["bucket"]},
+        "image_first_moments_rel_l2": mu_rel,
+        "image_params_rel_l2": upd_rel,
+        "eval_acc1_world2": acc2, "eval_acc1_one_process_same_weights":
+            same["acc1"], "eval_acc1_world1_trained": w1["stats"]["acc1"],
+        "eval_acc5_world2": w2[0]["stats"]["acc5"],
+        "eval_acc5_one_process_same_weights": same["acc5"],
+        "eval_logits_rel_same_weights": logit_rel,
+        "gate_agreement_same_weights": agree_same,
+        "gate_agreement_each_trained": agree_trained,
+        "seg_first_moments_rel_l2_by_group": seg_groups,
+        "seg_fp32_first_moments_rel_l2_by_group": f32_groups,
+        "seg_fp32_bn_stats_rel_l2": f32_bn,
+        "seg_fp32_settled_sign_flips_by_group": f32_flips,
+        "seg_fp32_gradient_free_biases_first_moment": no_grad,
+        "seg_bn_stats_rel_l2": seg_bn,
+        "seg_miou_world2": s2[0]["miou"], "seg_miou_world1": s1["miou"],
+        "training_gate_agreement": {"image": img_train_gates,
+                                    "seg": seg_train_gates}}}))
+    print(f"ddp: world 2 (gloo, one card) vs 1: image steps "
+          f"{ms_of(w2[0]['step_ms'])} ms a rank vs {ms_of(w1['step_ms'])} "
+          f"ms; first moments at relative L2 {mu_rel:.2e}, gates "
+          f"{agree_same:.5f} / {agree_trained:.5f}, acc1 {acc2} = "
+          f"{same['acc1']}; seg moments at most "
+          f"{max(seg_groups.values()):.2e} a group, BatchNorm "
+          f"{seg_bn:.2e} (fp32: moments {max(f32_groups.values()):.2e}, "
+          f"settled signs flipped "
+          f"{sum(f for f, _ in f32_flips.values())}, BatchNorm "
+          f"{f32_bn:.2e}); NCCL world 1 steps "
+          f"{ms_of(nccl['nccl']['step_ms'])} ms vs "
+          f"{ms_of(nccl['plain']['step_ms'])} ms without a group, "
+          f"all-reduce {nccl['image_bucket'] / 1e6:.2f} MB in "
+          f"{nccl['image_ar_ms']:.3f} ms (image), {s1['bucket'] / 1e6:.1f} "
+          f"MB in {nccl['seg_ar_ms']:.3f} ms (seg)")
+    if problems:
+        fail("parallel: " + "; ".join(problems))
+    shutil.rmtree(root, ignore_errors=True)
+    return {"dyt_prologue_serving": k3, "mha_windowed_fused": k9}
+
+
 def main() -> None:
     # the port's timing, bound and card helpers serve every phase
     global bound, card_line, time_ms
@@ -2677,6 +3313,12 @@ def main() -> None:
     del q8_model
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
+    for k, n in phase_parallel(torch, ms, qt, fm, np, sds[0],
+                               seg_sd).items():
+        launches[k] += n
+    print(f"phase parallel: {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
     for k, n in phase_bench(torch, ms, qt, fm, bench, sds, seg_sd).items():
         launches[k] += n
     print(f"phase bench: {time.perf_counter() - t0:.1f} s")
@@ -2708,4 +3350,7 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--parallel-worker"]:
+        parallel_worker(sys.argv[2])
+    else:
+        main()

@@ -9,12 +9,16 @@ reference's launch scripts pass launcher and DDP flags to every entry
 point; ``add_reference_compat_args`` accepts them so those scripts run
 unchanged.  ``--model``, ``--log_dir`` and ``--start_epoch`` keep their
 meaning, ``--device`` is read by the entry points (``resolve_device``); the
-rest are accepted and do nothing here.
+rest are accepted and do nothing here.  The launcher flags
+(``--world_size``, ``--local_rank``, ``--dist_url``) are warned about: the
+process topology is discovered from the launcher's environment
+(``parallel/multihost.py``; ``torchrun`` sets it).
 
-Refused at the edges of the port: ``--model_parallel`` other than 1 (the
-port trains on one device), ``--ckpt_backend orbax`` (the port writes one
-``.pth`` file), and, on the card, ``--compute_dtype float32``
-(``require_card_dtype``: the hand kernels take bf16).
+Refused at the edges of the port: ``--model_parallel`` other than 1
+(tensor parallelism is not ported yet: ``parallel.mesh.make_mesh``),
+``--ckpt_backend orbax`` (the port writes one ``.pth`` file), and, on the
+card, ``--compute_dtype float32`` (``require_card_dtype``: the hand
+kernels take bf16).
 """
 
 from __future__ import annotations
@@ -29,6 +33,8 @@ from dynamic_tuning_tpu_torch import paths
 from dynamic_tuning_tpu_torch.config import (DataConfig, ModelConfig,
                                              OptimConfig, RunConfig,
                                              SelectConfig, TuningConfig)
+from dynamic_tuning_tpu_torch.parallel.mesh import make_mesh
+from dynamic_tuning_tpu_torch.parallel.multihost import local_device
 
 
 def add_common_args(parser: argparse.ArgumentParser):
@@ -112,12 +118,13 @@ def add_reference_compat_args(parser: argparse.ArgumentParser):
                         "predict.py); speed.py runs on the current CUDA "
                         "device")
     g.add_argument("--world_size", default=None, type=int,
-                   help="ignored (no launcher)")
+                   help="ignored (topology discovered)")
     g.add_argument("--local_rank", default=None, type=int,
-                   help="ignored (no launcher)")
+                   help="ignored (LOCAL_RANK from the launcher)")
     g.add_argument("--dist_on_itp", action="store_true",
-                   help="ignored (no launcher)")
-    g.add_argument("--dist_url", default=None, help="ignored (no launcher)")
+                   help="ignored (topology discovered)")
+    g.add_argument("--dist_url", default=None,
+                   help="ignored (rendezvous from the launcher)")
     g.add_argument("--global_pool", action="store_true",
                    help="declared but never read by the reference; accepted")
     g.add_argument("--vpt", action="store_true",
@@ -141,9 +148,12 @@ _DEAD_NONDEFAULT = {
 }
 #: launcher flags with no meaning for one process: warned when given
 _IGNORED_NONDEFAULT = {
-    "world_size": (None, "one process, one device"),
-    "local_rank": (None, "no per-process launcher"),
-    "dist_url": (None, "no rendezvous: one process"),
+    "world_size": (None, "process topology is discovered, not declared "
+                         "(parallel/multihost.py)"),
+    "local_rank": (None, "the card comes from the launcher's LOCAL_RANK "
+                         "(parallel/multihost.py)"),
+    "dist_url": (None, "rendezvous comes from the launcher's environment "
+                       "(MASTER_ADDR/MASTER_PORT)"),
 }
 
 
@@ -181,9 +191,7 @@ def args_to_config(args, *, no_aug: bool = False) -> RunConfig:
     """The parsed flags -> ``RunConfig`` (the JAX package's
     ``args_to_config`` without the mesh)."""
     check_compat_args(args)
-    if args.model_parallel != 1:
-        raise ValueError(f"--model_parallel {args.model_parallel}: the port "
-                         "trains on one device (no model axis)")
+    make_mesh(args.model_parallel)
     if args.ckpt_backend == "orbax":
         raise ValueError("--ckpt_backend orbax: orbax writes JAX arrays "
                          "sharded over a TPU mesh; the port writes one .pth "
@@ -238,11 +246,12 @@ def require_card_dtype(compute_dtype: str, device: torch.device,
 
 def resolve_device(name, entry: str) -> torch.device:
     """``--device``: CUDA unless the caller asks for the CPU; raises when
-    CUDA is asked for and there is no card."""
+    CUDA is asked for and there is no card.  Under a launcher, CUDA is this
+    process's card, ``cuda:LOCAL_RANK``."""
     dev = torch.device(name or "cuda")
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"{entry} runs on the GPU and found no CUDA "
                            "device (pass --device cpu to run on the CPU)")
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"--device {name}: cuda or cpu")
-    return dev
+    return local_device(dev)

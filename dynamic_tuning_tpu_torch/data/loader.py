@@ -6,7 +6,16 @@ Replaces torch DataLoader + DistributedSampler (reference main_image.py:169-183)
     strided shard, drop-last;
   * eval: rank-strided Subset semantics (main_image.py:178);
   * a background thread pool decodes samples and a prefetch queue keeps the
-    device fed.
+    device fed; ``make_loader`` takes the native C++ decode pipeline
+    (``data/native_loader.py``) for file-backed datasets when it builds,
+    as the JAX package does.
+
+Each process's shard is strided (rank r holds samples r, r + R, ...), and
+the shards are padded to equal length so every process runs as many
+batches: by repeating leading samples (training, DistributedSampler's
+rule), or with ``sentinel_pad`` by the last sample under label -1, which
+evaluation drops (``parallel.mesh.pad_eval_batch``), so that R processes
+evaluate exactly the samples one process does.
 
 Batches are plain numpy (uint8 canvases + int32 labels); the runner copies
 each batch to the device once and augments it there.
@@ -14,6 +23,7 @@ each batch to the device once and augments it there.
 
 from __future__ import annotations
 
+import os
 import queue
 import threading
 from concurrent.futures import ThreadPoolExecutor
@@ -21,13 +31,17 @@ from typing import Iterator, Tuple
 
 import numpy as np
 
+from dynamic_tuning_tpu_torch.parallel.mesh import (eval_pad_count,
+                                                    pad_eval_batch)
+
 
 class DataLoader:
     def __init__(self, dataset, batch_size: int, *, shuffle: bool = False,
                  drop_last: bool = False, seed: int = 0, num_workers: int = 4,
                  prefetch: int = 4, process_index: int = 0,
-                 process_count: int = 1):
+                 process_count: int = 1, sentinel_pad: bool = False):
         self.ds = dataset
+        self.sentinel_pad = sentinel_pad
         self.batch_size = batch_size
         self.shuffle = shuffle
         self.drop_last = drop_last
@@ -58,10 +72,10 @@ class DataLoader:
         # semantics: repeat leading indices) so every process iterates the
         # same number of samples and batches (a one-batch mismatch across
         # processes deadlocks their collectives).
-        if self.process_count > 1:
-            total = -(-n // self.process_count) * self.process_count
-            if total > n:
-                idx = np.concatenate([idx, idx[:total - n]])
+        pad = eval_pad_count(n, self.process_count)
+        if pad:
+            idx = np.concatenate([idx, np.full(pad, -1, idx.dtype)
+                                  if self.sentinel_pad else idx[:pad]])
         # strided per-process shard (reference main_image.py:178)
         return idx[self.process_index::self.process_count]
 
@@ -86,9 +100,16 @@ class DataLoader:
         stop = threading.Event()
 
         def make_batch(bidx):
-            samples = list(pool.map(self.ds.__getitem__, bidx))
-            imgs = np.stack([s[0] for s in samples])
+            real = bidx[bidx >= 0]       # sentinel pads close a shard
+            samples = list(pool.map(self.ds.__getitem__, real))
+            imgs = (np.stack([s[0] for s in samples]) if samples
+                    else np.zeros((0,), np.uint8))
             labels = np.asarray([s[1] for s in samples], np.int32)
+            if len(real) < len(bidx):
+                imgs, labels = pad_eval_batch(
+                    imgs, labels, len(bidx) - len(real),
+                    fill=self.ds[len(self.ds) - 1][0])
+                labels = labels.astype(np.int32)
             return imgs, labels
 
         def put(item) -> bool:
@@ -132,13 +153,50 @@ class DataLoader:
 
 def make_loader(dataset, batch_size: int, *, shuffle: bool = False,
                 drop_last: bool = False, seed: int = 0, num_workers: int = 4,
-                process_index: int = 0, process_count: int = 1):
-    """The loader of ``dataset``: the Python threaded ``DataLoader`` for
-    every dataset.  The JAX package's ``make_loader`` takes its native C++
-    decode pipeline for file-backed datasets (ImageFolder, ImageFilelist)
-    when that library builds; it reproduces PIL's resampler to +-1
-    (dynamic_tuning_tpu/data/datasets.py:34), so the two packages may decode
-    a JPEG differently by that much.  Both give the same batch order."""
+                process_index: int = 0, process_count: int = 1,
+                sentinel_pad: bool = False):
+    """The loader of ``dataset``, in the JAX package's order: the native
+    C++ decode pipeline for file-backed datasets (ImageFolder,
+    ImageFilelist) when its library builds, else the Python threaded
+    ``DataLoader`` (in-memory arrays, synthetic data, video, and any
+    dataset when the library is missing).  Both decoders give the same
+    batch order; the native resampler reproduces PIL's to +-1.
+    ``decoder_of`` names the one a loader runs."""
+    samples = None
+    canvas = getattr(dataset, "canvas", None)
+    if hasattr(dataset, "clip_len"):           # video: the C++ JPEG loader
+        samples = None                         # cannot decode mp4 frames
+    elif hasattr(dataset, "samples"):          # ImageFolder: (abs_path, label)
+        samples = list(dataset.samples)
+    elif hasattr(dataset, "items") and hasattr(dataset, "root"):
+        samples = [(os.path.join(dataset.root, rel), lab)
+                   for rel, lab in dataset.items]
+    if samples is not None and canvas is not None:
+        from dynamic_tuning_tpu_torch.data import native_loader
+        if native_loader.available():
+            return native_loader.NativeDataLoader(
+                samples, batch_size, canvas=canvas, shuffle=shuffle,
+                drop_last=drop_last, seed=seed, num_workers=num_workers,
+                process_index=process_index, process_count=process_count,
+                square=getattr(dataset, "square", False),
+                sentinel_pad=sentinel_pad)
     return DataLoader(dataset, batch_size, shuffle=shuffle,
                       drop_last=drop_last, seed=seed, num_workers=num_workers,
-                      process_index=process_index, process_count=process_count)
+                      process_index=process_index, process_count=process_count,
+                      sentinel_pad=sentinel_pad)
+
+
+def decoder_of(loader) -> str:
+    """Which decoder ``loader`` runs, for the runners' logs."""
+    from dynamic_tuning_tpu_torch.data import native_loader
+    if isinstance(loader, native_loader.NativeDataLoader):
+        return f"native C++ (libjpeg/libpng, {native_loader.library_path()})"
+    ds = getattr(loader, "ds", None)
+    if hasattr(ds, "clip_len"):
+        return f"the video frames of {type(ds).__name__} (no JPEG decode)"
+    if hasattr(ds, "samples") or (hasattr(ds, "items")
+                                  and hasattr(ds, "root")):
+        why = native_loader.why_unavailable().splitlines()
+        return ("PIL (the native loader is unavailable: "
+                f"{why[0] if why else 'unknown'})")
+    return f"none: {type(ds).__name__} holds decoded arrays"

@@ -34,6 +34,8 @@ from typing import Dict, List, Sequence, Tuple
 import torch
 import torch.nn.functional as F
 
+from dynamic_tuning_tpu_torch.parallel.mesh import rank_rows
+
 _MAX_LEVEL = 10.0
 FILL = 128.0
 F32 = torch.float32
@@ -309,11 +311,16 @@ def rand_augment(frames: torch.Tensor, draws: Dict[str, list], *,
 
 
 def rand_augment_clips(generator: torch.Generator, clips: torch.Tensor,
-                       config: str) -> torch.Tensor:
+                       config: str, shard: Tuple[int, int] = (0, 1)
+                       ) -> torch.Tensor:
     """uint8 clips [B, T, H, W, 3] -> uint8, each clip's frames through
-    one draw of ``config``, the draws from ``generator``."""
+    one draw of ``config``, the draws from ``generator`` (made for the
+    global batch of B * world clips, of which ``shard`` = (rank, world)
+    keeps rows rank::world)."""
     m, n, mstd, inc = parse_config(config)
-    draws = sample_rand_augment(generator, clips.shape[0], n)
+    draws = rank_rows(sample_rand_augment(generator,
+                                          clips.shape[0] * shard[1], n),
+                      *shard)
     out = [rand_augment(c, d, magnitude=m, mstd=mstd, increasing=inc)
            for c, d in zip(clips, draws)]
     return torch.stack(out).to(torch.uint8)

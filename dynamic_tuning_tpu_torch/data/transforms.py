@@ -42,6 +42,8 @@ from typing import Tuple
 
 import torch
 
+from dynamic_tuning_tpu_torch.parallel.mesh import rank_rows
+
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
 IMAGENET_STD = (0.229, 0.224, 0.225)
 INCEPTION_MEAN = (0.5, 0.5, 0.5)
@@ -244,23 +246,34 @@ def hflip(images: torch.Tensor, flips: torch.Tensor) -> torch.Tensor:
                        images.flip(2), images)
 
 
+def shard_rows(draws, shard: Tuple[int, int]):
+    """``parallel.mesh.rank_rows`` of each tensor of ``draws`` (a tensor, a
+    tuple or a list of them) for ``shard`` = (rank, world): this process's
+    rows of draws made for the global batch."""
+    if isinstance(draws, (tuple, list)):
+        return type(draws)(shard_rows(d, shard) for d in draws)
+    return rank_rows(draws, *shard)
+
+
 def augment_batch(generator, images: torch.Tensor, *, out_size: int = 224,
-                  inception: bool = False, train: bool = True
-                  ) -> torch.Tensor:
+                  inception: bool = False, train: bool = True,
+                  shard: Tuple[int, int] = (0, 1)) -> torch.Tensor:
     """[B, H, W, C] uint8 canvases -> [B, out, out, C] normalized float32 on
     the canvases' device.
 
     Train: per-image RandomResizedCrop + flip + normalize, the boxes and
-    flips drawn from ``generator`` (a host ``torch.Generator``).  Eval:
-    resize-256/centre-crop-224 (scaled with ``out_size``) + normalize;
-    ``generator`` is unused there."""
+    flips drawn from ``generator`` (a host ``torch.Generator``) for the
+    global batch of B * world images, of which ``shard`` = (rank, world)
+    keeps rows rank::world.  Eval: resize-256/centre-crop-224 (scaled with
+    ``out_size``) + normalize; ``generator`` is unused there."""
     if train:
         if not isinstance(generator, torch.Generator):
             raise ValueError("train augmentation draws its boxes and flips "
                              "from a torch.Generator (no global RNG is "
                              f"used); got {generator!r}")
-        (top, left, ch, cw), flips = sample_train_draws(
-            generator, images.shape[0], images.shape[1], images.shape[2])
+        (top, left, ch, cw), flips = shard_rows(sample_train_draws(
+            generator, images.shape[0] * shard[1], images.shape[1],
+            images.shape[2]), shard)
         out = hflip(_pil_resized_crop(images, top, left, ch, cw, out_size),
                     flips)
     else:

@@ -45,7 +45,8 @@ from typing import Optional, Tuple
 import torch
 
 from dynamic_tuning_tpu_torch.data.transforms import (_fp32_products,
-                                                      normalize, weight_mats)
+                                                      normalize, shard_rows,
+                                                      weight_mats)
 
 F32 = torch.float32
 
@@ -260,32 +261,38 @@ def augment_clip_batch(generator, clips: torch.Tensor, *, crop: int = 224,
                        pre_cropped: bool = False,
                        resize_type: str = "random_resized_crop",
                        scale_min: float = 0.08,
-                       scale_max: float = 1.0) -> torch.Tensor:
+                       scale_max: float = 1.0,
+                       shard: Tuple[int, int] = (0, 1)) -> torch.Tensor:
     """[B, T, H, W, C] uint8 -> [B, T, crop, crop, C] normalized float32 on
     the clips' device.  Train draws from ``generator`` (a host
     ``torch.Generator``), in this order: RandAugment's (with ``randaug``),
-    the crops', the flips'; eval uses none."""
+    the crops', the flips', each for the global batch of B * world clips,
+    of which ``shard`` = (rank, world) keeps rows rank::world; eval uses
+    none."""
     if train:
         if not isinstance(generator, torch.Generator):
             raise ValueError("train augmentation draws from a "
                              "torch.Generator (no global RNG is used); got "
                              f"{generator!r}")
-        n, H, W = clips.shape[0], clips.shape[2], clips.shape[3]
+        H, W = clips.shape[2], clips.shape[3]
+        n = clips.shape[0] * shard[1]
         if randaug is not None:
             from dynamic_tuning_tpu_torch.data.randaugment import \
                 rand_augment_clips
-            clips = rand_augment_clips(generator, clips, randaug)
+            clips = rand_augment_clips(generator, clips, randaug, shard)
         if resize_type == "random_resized_crop":
-            box = _sample_crop_box_10try(generator, n, H, W,
-                                         (scale_min, scale_max))
+            box = shard_rows(_sample_crop_box_10try(
+                generator, n, H, W, (scale_min, scale_max)), shard)
             out = clip_random_resized_crop(clips, *box, crop=crop)
         elif resize_type == "random_short_side_scale_jitter":
-            draws = sample_scale_jitter(generator, n, min_size, max_size)
+            draws = shard_rows(sample_scale_jitter(generator, n, min_size,
+                                                   max_size), shard)
             out = clip_scale_jitter_crop(clips, *draws, crop=crop)
         else:
             raise ValueError(f"resize_type={resize_type!r}")
         if flip:
-            out = clip_hflip(out, sample_flips(generator, n))
+            out = clip_hflip(out, shard_rows(sample_flips(generator, n),
+                                             shard))
     elif pre_cropped:
         out = clips.to(F32)
     else:

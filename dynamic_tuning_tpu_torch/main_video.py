@@ -12,7 +12,9 @@ over [1.0, 1.15] x the crop and a flip; SSv2 (``--dataset ssv2``) with
 the random resized crop, RandAugment "rand-m7-n4-mstd0.5-inc1" and no
 flip (its labels name directions).  Runs on the card unless
 ``--device cpu``.  ``--eval`` evaluates (the weights of ``--eval_ckpt``
-when given) instead of training.
+when given) instead of training.  ``torchrun --nproc_per_node=N -m
+dynamic_tuning_tpu_torch.main_video ...`` trains on N cards
+(``parallel/``).
 """
 
 import argparse
@@ -21,6 +23,8 @@ import dataclasses
 from dynamic_tuning_tpu_torch.cli import (add_common_args, args_to_config,
                                           resolve_device)
 from dynamic_tuning_tpu_torch.config import DataConfig
+from dynamic_tuning_tpu_torch.parallel.multihost import \
+    maybe_initialize_distributed
 from dynamic_tuning_tpu_torch.train.checkpoint import require_pth
 from dynamic_tuning_tpu_torch.train.video_runner import VideoRunner
 
@@ -86,6 +90,7 @@ def build_config(args):
 
 
 def main(args):
+    maybe_initialize_distributed(args.device)
     device = resolve_device(args.device, "main_video")
     if args.eval_ckpt:
         require_pth(args.eval_ckpt)

@@ -8,7 +8,9 @@ The recipe: lr 1e-3 absolute, weight decay 1e-4, 100 epochs, warmup 10,
 adapter 16 at scale 1.0, batch 64, no augmentation.  ``--task`` is a task,
 a comma-separated list or ``all`` (the 19 tasks); ``--dataset <task>`` also
 works (the reference script's spelling).  Prints each task's best top-1
-and, for several, their mean.  Runs on the card unless ``--device cpu``.
+and, for several, their mean.  Runs on the card unless ``--device cpu``;
+``torchrun --nproc_per_node=N -m dynamic_tuning_tpu_torch.main_vtab ...``
+trains on N cards (``parallel/``).
 """
 
 import argparse
@@ -17,6 +19,8 @@ import json
 from dynamic_tuning_tpu_torch.cli import (add_common_args, args_to_config,
                                           resolve_device)
 from dynamic_tuning_tpu_torch.data.vtab import VTAB_TASKS
+from dynamic_tuning_tpu_torch.parallel.multihost import \
+    maybe_initialize_distributed
 from dynamic_tuning_tpu_torch.train.checkpoint import require_pth
 from dynamic_tuning_tpu_torch.train.runner import Runner
 
@@ -48,6 +52,7 @@ def run_task(args, task: str, device):
 
 
 def main(args):
+    maybe_initialize_distributed(args.device)
     device = resolve_device(args.device, "main_vtab")
     if args.eval_ckpt:
         require_pth(args.eval_ckpt)

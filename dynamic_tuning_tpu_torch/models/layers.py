@@ -54,6 +54,7 @@ from dynamic_tuning_tpu_torch.ops import dispatch as D
 from dynamic_tuning_tpu_torch.ops import mha_serving as ms
 from dynamic_tuning_tpu_torch.ops import quant as qt
 from dynamic_tuning_tpu_torch.ops.gumbel import gumbel_sigmoid, logistic_noise
+from dynamic_tuning_tpu_torch.parallel.mesh import rank_rows
 
 LN_EPS = 1e-6
 _MASK64 = (1 << 64) - 1
@@ -81,16 +82,40 @@ class Draws:
     ``generator(purpose)`` is a ``torch.Generator`` on ``device`` seeded once
     per Draws object, so a module's draws follow one another in call order,
     and a block recomputed in the backward (remat), which folds anew, draws
-    what its forward drew."""
+    what its forward drew.
 
-    def __init__(self, device, **seeds: int):
+    ``rows`` = (rank, world): this process holds rows rank::world of the
+    global batch (``parallel/mesh.py``).  ``rand`` draws the global shape
+    (leading dimension times ``world``) and keeps those rows, so every
+    rank's generator advances alike and a run of ``world`` processes draws
+    what one process draws on the global batch."""
+
+    def __init__(self, device, rows: Tuple[int, int] = (0, 1),
+                 **seeds: int):
         self.device = torch.device(device)
+        self.rows = tuple(rows)
         self.seeds = seeds
         self._gens = {}
 
     def fold(self, i: int) -> "Draws":
-        return Draws(self.device,
+        return Draws(self.device, self.rows,
                      **{k: fold_in(s, i) for k, s in self.seeds.items()})
+
+    def global_shape(self, shape) -> Tuple[int, ...]:
+        """The global batch's shape of a tensor of this rank's ``shape``."""
+        shape = tuple(shape)
+        return (shape[0] * self.rows[1],) + shape[1:]
+
+    def own(self, x: torch.Tensor) -> torch.Tensor:
+        """This rank's rows of a draw of ``global_shape``."""
+        return rank_rows(x, *self.rows)
+
+    def rand(self, purpose: str, shape, dtype=torch.float32
+             ) -> torch.Tensor:
+        """U[0, 1) of ``shape`` (this rank's rows) from ``purpose``."""
+        return self.own(torch.rand(self.global_shape(shape),
+                                   generator=self.generator(purpose),
+                                   dtype=dtype, device=self.device))
 
     def generator(self, purpose: str) -> torch.Generator:
         g = self._gens.get(purpose)
@@ -104,11 +129,15 @@ class Draws:
         return g
 
 
-def _generator(draws: Optional[Draws], purpose: str) -> torch.Generator:
+def draws_required(draws: Optional[Draws], purpose: str) -> Draws:
     if draws is None:
         raise ValueError(f"a training forward that draws {purpose} "
                          "randomness needs draws= (no global RNG is used)")
-    return draws.generator(purpose)
+    return draws
+
+
+def _rand(draws: Optional[Draws], purpose: str, shape) -> torch.Tensor:
+    return draws_required(draws, purpose).rand(purpose, shape)
 
 
 def dropout(x: torch.Tensor, rate: float, draws: Optional[Draws]
@@ -120,8 +149,7 @@ def dropout(x: torch.Tensor, rate: float, draws: Optional[Draws]
     if rate == 1.0:
         return torch.zeros_like(x)
     keep = 1.0 - rate
-    mask = torch.rand(x.shape, generator=_generator(draws, "dropout"),
-                      device=x.device) < keep
+    mask = _rand(draws, "dropout", x.shape).to(x.device) < keep
     return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype,
                                                    device=x.device))
 
@@ -243,8 +271,7 @@ class DropPath(nn.Module):
             return x
         keep = 1.0 - self.rate
         shape = (x.shape[0],) + (1,) * (x.ndim - 1)
-        mask = torch.rand(shape, generator=_generator(draws, "dropout"),
-                          device=x.device) < keep
+        mask = _rand(draws, "dropout", shape).to(x.device) < keep
         return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype,
                                                        device=x.device))
 
@@ -679,8 +706,9 @@ class TokenSelect(nn.Module):
         if not training:
             return gate_with_cls(logits, self.threshold), logits
         if noise is None:
-            noise = logistic_noise(logits.shape, _generator(draws, "gate"),
-                                   dtype=logits.dtype, device=logits.device)
+            noise = draws_required(draws, "gate").own(logistic_noise(
+                draws.global_shape(logits.shape), draws.generator("gate"),
+                dtype=logits.dtype, device=logits.device))
         gate = gumbel_sigmoid(logits, tau=self.tau, hard=True,
                               threshold=self.threshold, training=True,
                               noise=noise.to(logits.dtype))

@@ -178,7 +178,7 @@ class SegVisionTransformer(nn.Module):
 
         if aux["token_select"] is not None:
             loss = self.select_cfg.token_loss_ratio * token_budget_loss(
-                aux["token_select"], self.select_cfg)
+                aux["token_select"], self.select_cfg, global_batch=training)
         else:
             loss = torch.zeros((), dtype=torch.float32, device=x.device)
         aux = dict(aux, loss=loss)

@@ -48,6 +48,8 @@ from dynamic_tuning_tpu_torch.models.layers import (Draws, _WeightCache,
                                                      dropout)
 from dynamic_tuning_tpu_torch.models.seg_vit import SegVisionTransformer
 from dynamic_tuning_tpu_torch.ops import quant as qt
+from dynamic_tuning_tpu_torch.parallel.mesh import (global_sum,
+                                                    process_count, sync_sum)
 
 GN_EPS = 1e-6        # flax GroupNorm's default
 BN_EPS = 1e-5
@@ -143,7 +145,11 @@ class _BatchNorm(nn.Module):
     normalises by the batch statistics over (N, H, W) in fp32 -- the
     variance ``max(E[x^2] - E[x]^2, 0)``, flax's fast biased form -- and
     folds both into the running statistics in place
-    (``F.batch_norm(training=True)`` would store the unbiased variance)."""
+    (``F.batch_norm(training=True)`` would store the unbiased variance).
+    Under a process group the statistics are the global batch's, as under
+    the JAX package's mesh (SyncBN): each channel's sum, sum of squares and
+    count summed over ranks (``parallel.mesh.sync_sum``, whose backward
+    sums the ranks' gradients)."""
 
     def __init__(self, ch: int):
         super().__init__()
@@ -158,8 +164,12 @@ class _BatchNorm(nn.Module):
             return F.batch_norm(x, self.running_mean, self.running_var,
                                 self.weight, self.bias, training=False,
                                 eps=BN_EPS)
-        mean = x.mean(dim=(0, 2, 3))
-        var = torch.clamp_min((x * x).mean(dim=(0, 2, 3)) - mean * mean, 0.0)
+        C = x.shape[1]
+        stats = sync_sum(torch.cat([
+            x.sum(dim=(0, 2, 3)), (x * x).sum(dim=(0, 2, 3)),
+            x.new_full((1,), float(x.numel() // C))]))
+        mean, sq = stats[:C] / stats[-1], stats[C:2 * C] / stats[-1]
+        var = torch.clamp_min(sq - mean * mean, 0.0)
         with torch.no_grad():
             for stat, batch in ((self.running_mean, mean),
                                 (self.running_var, var)):
@@ -391,14 +401,16 @@ def seg_loss(logits: torch.Tensor, aux_logits: torch.Tensor,
     {decode_loss, aux_loss, token_loss}).  logits [B, H, W, classes],
     labels [B, H, W] with ``ignore_index`` for unlabelled pixels.  Each CE
     is the reference's executed mean: ignored pixels add 0 to the sum but
-    count in the denominator, ``labels.numel()``."""
+    count in the denominator, ``labels.numel()`` (the global batch's under
+    a process group, ``parallel/mesh.py``)."""
     valid = labels != ignore_index
     safe = torch.where(valid, labels, torch.zeros_like(labels)).long()
 
     def ce(lg):
         logp = F.log_softmax(lg.float(), dim=-1)
         nll = -torch.gather(logp, -1, safe[..., None])[..., 0]
-        return (nll * valid).sum() / labels.numel()
+        return (global_sum((nll * valid).sum())
+                / (labels.numel() * process_count()))
 
     main = ce(logits)
     aux = ce(aux_logits)

@@ -23,10 +23,12 @@ device unless ``--device cpu`` is given; without a card it raises.
 
 The work splits into ``load_canvases`` (decode to uint8 canvases on the
 host) and ``serve`` (transforms and forwards on the device), so a caller
-can serve canvases it made itself.  Decoding uses PIL (imported inside
-``load_canvases``) with the geometry of ``predict.py``'s PIL branch: short
-side to the canvas, bilinear, centre crop.  The repository's native JPEG
-decoder is not ported yet; where PIL is missing, so is decoding.
+can serve canvases it made itself.  Decoding takes the port's native
+loader (``data/native_loader.decode_resize``) when it builds, as
+``predict.py`` takes the repository's, else PIL (imported inside
+``load_canvases``), both with the same geometry: short side to the
+canvas, bilinear, centre crop.  ``main`` prints which decoder ran on
+stderr.
 """
 
 from __future__ import annotations
@@ -34,6 +36,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import sys
 
 import numpy as np
 import torch
@@ -43,6 +46,7 @@ from dynamic_tuning_tpu_torch.checkpoint import (load_timm_state_dict,
 from dynamic_tuning_tpu_torch.cli import resolve_device
 from dynamic_tuning_tpu_torch.config import (ModelConfig, SelectConfig,
                                              TuningConfig)
+from dynamic_tuning_tpu_torch.data import native_loader
 from dynamic_tuning_tpu_torch.data.transforms import augment_batch
 from dynamic_tuning_tpu_torch.models.fast_inference import (chunked_serving,
                                                             fast_vit_forward,
@@ -125,13 +129,26 @@ def _list_images(path):
             if f.lower().endswith(exts)]
 
 
+def decoder() -> str:
+    """The decoder ``load_canvases`` takes: native or PIL (and why)."""
+    if native_loader.available():
+        return "native"
+    return f"PIL ({native_loader.why_unavailable().splitlines()[0]})"
+
+
 def load_canvases(paths, canvas: int) -> np.ndarray:
     """Decode ``paths`` to uint8 canvases [n, canvas, canvas, 3]: short side
-    resized to ``canvas`` (bilinear), then the centre crop."""
-    from PIL import Image
-
+    resized to ``canvas`` (bilinear), then the centre crop; through the
+    native loader when it builds (a file it cannot decode falls to PIL)."""
     out = np.empty((len(paths), canvas, canvas, 3), np.uint8)
+    native = native_loader.available()
     for i, path in enumerate(paths):
+        img = native_loader.decode_resize(path, canvas) if native else None
+        if img is not None:
+            out[i] = img
+            continue
+        from PIL import Image
+
         with Image.open(path) as im:
             img = im.convert("RGB")
         w, h = img.size
@@ -201,6 +218,7 @@ def main(args):
     params = load_params(args, device)
     paths = _list_images(args.images)
     canvas = max(int(args.img_size * 256 / 224), args.img_size)
+    print(f"decoder: {decoder()}", file=sys.stderr)
     results = []
     for i in range(0, len(paths), args.batch_size):
         chunk = paths[i:i + args.batch_size]

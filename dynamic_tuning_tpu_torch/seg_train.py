@@ -26,6 +26,10 @@ the kernels), e.g. at a toy crop:
     python -m dynamic_tuning_tpu_torch.seg_train --dataset synthetic \
         --crop_size 32 --device cpu --compute_dtype float32 \
         --total_iters 4 --eval_interval 2 --output_dir /tmp/seg
+
+``torchrun --nproc_per_node=N -m dynamic_tuning_tpu_torch.seg_train ...``
+trains on N cards, ``--batch_size`` crops each (``parallel/``; the heads'
+BatchNorm normalises over the global batch).
 """
 
 from __future__ import annotations
@@ -36,6 +40,8 @@ import logging
 
 from dynamic_tuning_tpu_torch.cli import (add_common_args, args_to_config,
                                           resolve_device)
+from dynamic_tuning_tpu_torch.parallel.multihost import \
+    maybe_initialize_distributed
 from dynamic_tuning_tpu_torch.train.seg_runner import SegRunner
 
 
@@ -49,7 +55,8 @@ def get_args_parser():
                    help="mmcv config path (reference CLI compatibility); "
                         "our_vit.py's values are the built-in defaults -- "
                         "other config files are not read (warned)")
-    p.add_argument("--launcher", default="none", help="ignored (no launcher)")
+    p.add_argument("--launcher", default="none",
+                   help="ignored (the topology comes from the environment)")
     p.set_defaults(dataset="ade20k", batch_size=2, lr=1e-3, weight_decay=0.05,
                    drop_path=0.1)
     p.add_argument("--crop_size", type=int, default=512)
@@ -83,6 +90,7 @@ def build_runner(args, log=None) -> SegRunner:
 
 
 def main(args):
+    maybe_initialize_distributed(args.device)
     if args.config and not args.config.endswith("our_vit.py"):
         logging.getLogger("dynamic_tuning_tpu_torch").warning(
             "config file %r is NOT read: the built-in defaults are "

@@ -20,7 +20,11 @@ Format: one ``.pth`` written with ``torch.save``, a dict of
   sidecar and a torch state dict carries beside its parameters.
 
 Writes go to a temporary file that ``os.replace`` renames, so a crash never
-leaves a truncated checkpoint under the final name.  The JAX package's
+leaves a truncated checkpoint under the final name.  Under a process group
+every rank calls the savers together: rank 0 writes (the ranks hold the
+same parameters and optimizer state) and the others wait at a barrier, so
+no rank reads a checkpoint before it is whole; every rank reads on a
+resume.  The JAX package's
 ``.msgpack`` trees are refused (its pytrees hold flax paths and optax
 states; ``checkpoint.from_flax_train_state`` converts a JAX run's state).
 """
@@ -35,6 +39,7 @@ from typing import Optional, Sequence, Tuple
 import torch
 from torch import nn
 
+from dynamic_tuning_tpu_torch.parallel.mesh import barrier, is_main
 from dynamic_tuning_tpu_torch.train.engine import TrainState
 
 
@@ -65,9 +70,19 @@ def save_checkpoint(output_dir: str, model: nn.Module, state: TrainState,
                     buffers: Sequence[str] = ()) -> str:
     """Write ``checkpoint-{epoch}.pth`` (or ``{tag}.pth``), with the model
     buffers named in ``buffers``; with ``auto_remove`` delete the epoch
-    checkpoints before ``epoch``."""
-    os.makedirs(output_dir, exist_ok=True)
+    checkpoints before ``epoch``.  Rank 0 writes, the others wait."""
     path = os.path.join(output_dir, f"{tag or f'checkpoint-{epoch}'}.pth")
+    if is_main():
+        _write_checkpoint(path, model, state, epoch, extra, auto_remove,
+                          tag, buffers)
+    barrier()
+    return path
+
+
+def _write_checkpoint(path, model, state, epoch, extra, auto_remove, tag,
+                      buffers) -> None:
+    output_dir = os.path.dirname(path)
+    os.makedirs(output_dir, exist_ok=True)
     params = dict(model.named_parameters())
     own = dict(model.named_buffers())
     payload = {
@@ -86,7 +101,6 @@ def save_checkpoint(output_dir: str, model: nn.Module, state: TrainState,
             m = re.search(r"checkpoint-(\d+)\.pth$", old)
             if m and int(m.group(1)) < epoch:
                 os.remove(old)
-    return path
 
 
 @torch.no_grad()
@@ -131,9 +145,12 @@ def save_params(path: str, model: nn.Module) -> None:
     """The final weights (reference ``final_checkpoint.pth``,
     main_image.py:357-358): every parameter under its timm name, loadable
     by ``checkpoint.load_timm_state_dict`` and by the JAX package's
-    ``load_torch_state_dict`` + ``import_pretrained``."""
-    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
-    _atomic_save(_to_cpu(dict(model.state_dict())), path)
+    ``load_torch_state_dict`` + ``import_pretrained``.  Rank 0 writes, the
+    others wait."""
+    if is_main():
+        os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+        _atomic_save(_to_cpu(dict(model.state_dict())), path)
+    barrier()
 
 
 @torch.no_grad()

@@ -19,6 +19,15 @@ dropout, the teacher's dropout -- in the manner of the JAX engine's
 ``fold_in`` and ``split``; every block folds its index into them
 (``models.layers.Draws``).  Tests give the routers' noise instead
 (``gate_noise``).
+
+Under a process group (``parallel/``), each rank holds its rows of the
+global batch and a full copy of the parameters: the draws are the global
+batch's (each rank keeps its rows), the losses are global means, and the
+gradients are summed over ranks in one flat bucket
+(``parallel.mesh.all_reduce_grads``) before the grad norm, the clip and the
+optimizer, so every rank takes the same update and the returned parts are
+the global batch's.  No ``DistributedDataParallel``: its reducer hooks
+``.backward()``, and this step takes ``torch.autograd.grad``.
 """
 
 from __future__ import annotations
@@ -30,6 +39,10 @@ import torch
 
 from dynamic_tuning_tpu_torch.config import SelectConfig
 from dynamic_tuning_tpu_torch.models.layers import Draws, fold_in
+from dynamic_tuning_tpu_torch.parallel.mesh import (all_reduce_grads,
+                                                    global_mean,
+                                                    process_count,
+                                                    process_index)
 from dynamic_tuning_tpu_torch.train import losses as L
 from dynamic_tuning_tpu_torch.train.optim import Optimizer, global_norm
 
@@ -48,10 +61,12 @@ class TrainState:
 
 
 def step_draws(seed: int, step: int, device) -> Tuple[Draws, Draws]:
-    """(student, teacher) random streams of step ``step``."""
+    """(student, teacher) random streams of step ``step``, this rank's
+    rows of the global batch's."""
     s = fold_in(seed, step)
-    return (Draws(device, gate=fold_in(s, 0), dropout=fold_in(s, 1)),
-            Draws(device, dropout=fold_in(s, 2)))
+    rows = (process_index(), process_count())
+    return (Draws(device, rows, gate=fold_in(s, 0), dropout=fold_in(s, 1)),
+            Draws(device, rows, dropout=fold_in(s, 2)))
 
 
 def make_train_step(model: torch.nn.Module, select_cfg: SelectConfig,
@@ -93,11 +108,12 @@ def make_train_step(model: torch.nn.Module, select_cfg: SelectConfig,
             mark(timer, "teacher")
         parts["loss"] = total
         if token_select is not None:
-            parts["keep_ratio"] = token_select.float().mean()
+            with torch.no_grad():
+                parts["keep_ratio"] = global_mean(token_select.float())
         opt = state.optimizer
         grads = torch.autograd.grad(total, opt.params, allow_unused=True)
-        grads = [torch.zeros_like(p) if g is None else g
-                 for g, p in zip(grads, opt.params)]
+        grads = all_reduce_grads([torch.zeros_like(p) if g is None else g
+                                  for g, p in zip(grads, opt.params)])
         mark(timer, "backward")
         parts["grad_norm"] = global_norm(grads)
         opt.step(grads)

@@ -25,6 +25,18 @@ the metric does not fall; ``final_checkpoint.pth`` at the end.  Every draw
 is a function of (seed, step) or (seed, epoch): the loader's permutation,
 the crops and flips, the routers' noise and the dropout masks, so a resumed
 run continues what an uninterrupted one would have done.
+
+Across processes (``parallel/``; ``torchrun --nproc_per_node=N``), each
+process drives one card and computes what one process computes on the
+global batch: the loaders shard by rank (strided), the effective batch
+counts every process (``absolute_lr`` sees batch x accum x world), the
+augmentation's draws and the step's are the global batch's (each rank
+keeps its rows), the step reduces over ranks (``train/engine.py``).
+Evaluation pads the ranks' shards to equal length with label -1, runs
+each rank's share, drops the pads and gathers logits and labels on the
+host; the keep ratio and GFLOPs stay each process's own, as in the JAX
+runner.  The logger's console, TensorBoard and the checkpoints belong to
+rank 0 (the savers wait at a barrier); every rank reads on resume.
 """
 
 from __future__ import annotations
@@ -42,7 +54,7 @@ from dynamic_tuning_tpu_torch.checkpoint import (load_timm_state_dict,
 from dynamic_tuning_tpu_torch.cli import require_card_dtype, resolve_device
 from dynamic_tuning_tpu_torch.config import RunConfig
 from dynamic_tuning_tpu_torch.data.datasets import build_image_dataset
-from dynamic_tuning_tpu_torch.data.loader import make_loader
+from dynamic_tuning_tpu_torch.data.loader import decoder_of, make_loader
 from dynamic_tuning_tpu_torch.data.transforms import (augment_batch,
                                                       normalize_batch,
                                                       resize_batch)
@@ -50,6 +62,7 @@ from dynamic_tuning_tpu_torch.models.layers import fold_in
 from dynamic_tuning_tpu_torch.models.vit import VisionTransformer
 from dynamic_tuning_tpu_torch.ops.flops import (batch_select_flops,
                                                 dense_vit_flops)
+from dynamic_tuning_tpu_torch.parallel import mesh as P
 from dynamic_tuning_tpu_torch.train import checkpoint as C
 from dynamic_tuning_tpu_torch.train import engine, optim
 from dynamic_tuning_tpu_torch.utils.logger import (TensorBoardWriter,
@@ -94,13 +107,18 @@ class Runner:
         require_card_dtype(cfg.compute_dtype, self.device, self.ENTRY)
         if cfg.resume:
             C.require_pth(cfg.resume)
-        self.logger = create_logger(cfg.output_dir, 0)
+        self.rank, self.world = P.process_index(), P.process_count()
+        self.logger = create_logger(cfg.output_dir, self.rank)
         tb_dir = cfg.log_dir or cfg.output_dir
-        self.writer = TensorBoardWriter(tb_dir) if tb_dir else None
+        self.writer = (TensorBoardWriter(tb_dir)
+                       if tb_dir and self.rank == 0 else None)
         self.dtype = _DTYPES[cfg.compute_dtype]
 
         # data ---------------------------------------------------------------
         self._build_data()
+        self.logger.info(f"process {self.rank} of {self.world} on "
+                         f"{self.device}; decoder: "
+                         f"{decoder_of(self.train_loader)}")
 
         # model --------------------------------------------------------------
         model_cfg = cfg.model
@@ -134,8 +152,8 @@ class Runner:
 
         # optimizer ----------------------------------------------------------
         accum = max(cfg.accum_iter, 1)
-        eff_batch = cfg.data.batch_size * accum
-        lr = cfg.optim.absolute_lr(eff_batch)
+        eff_batch = cfg.data.batch_size * accum * self.world
+        self.lr = lr = cfg.optim.absolute_lr(eff_batch)
         self.logger.info(f"effective batch {eff_batch}; actual lr {lr:.2e}")
         self.steps_per_epoch = len(self.train_loader)
         # the schedule advances once per applied step
@@ -190,12 +208,14 @@ class Runner:
             build_image_dataset(cfg.data.dataset, cfg.data.data_path,
                                 no_aug=cfg.data.no_aug,
                                 canvas=cfg.data.canvas or 0)
+        shards = dict(process_index=self.rank, process_count=self.world)
         self.train_loader = make_loader(
             train_ds, cfg.data.batch_size, shuffle=True, drop_last=True,
-            seed=cfg.seed, num_workers=cfg.data.num_workers)
+            seed=cfg.seed, num_workers=cfg.data.num_workers, **shards)
         self.val_loader = make_loader(val_ds, cfg.data.batch_size,
                                       shuffle=False,
-                                      num_workers=cfg.data.num_workers)
+                                      num_workers=cfg.data.num_workers,
+                                      sentinel_pad=True, **shards)
 
     @staticmethod
     def trainable_predicate(name: str) -> bool:
@@ -217,7 +237,7 @@ class Runner:
         gen = (torch.Generator().manual_seed(fold_in(self.aug_seed, step))
                if train else None)
         return augment_batch(gen, x, out_size=s, inception=inception,
-                             train=train), y
+                             train=train, shard=(self.rank, self.world)), y
 
     def train_one_epoch(self, epoch: int) -> Dict[str, float]:
         self.train_loader.set_epoch(epoch)
@@ -250,15 +270,18 @@ class Runner:
         cfg, mc = self.cfg, self.model_cfg
         all_logits, all_labels = [], []
         keep_sum, keep_n = 0.0, 0
-        layer_keep = None
+        layer_keep, layer_n = None, 0
         gflops_sum, gflops_n = 0.0, 0
         for imgs, labels in self.val_loader:
             xb, _ = self._device_batch(imgs, labels, train=False)
             logits, token_select = self.eval_step(xb)
-            all_logits.append(logits.float().cpu().numpy())
-            all_labels.append(labels)
-            if token_select is not None:
-                ts = token_select.float().cpu().numpy().astype(np.float64)
+            valid = labels >= 0            # the shard's sentinel pads
+            all_logits.append(logits.float().cpu().numpy()[valid])
+            all_labels.append(labels[valid])
+            if token_select is not None and valid.any():
+                layer_n += 1
+                ts = token_select.float().cpu().numpy().astype(
+                    np.float64)[valid]
                 keep_sum += ts.sum()
                 keep_n += ts.size
                 per_layer = ts.mean(axis=(0, 2, 3))   # [L]
@@ -270,8 +293,9 @@ class Runner:
                     num_classes=self.nb_classes, depth=mc.depth)
                 gflops_sum += g.sum()
                 gflops_n += len(g)
-        logits = np.concatenate(all_logits)
-        labels = np.concatenate(all_labels)
+        # every rank's rows (the JAX runner's process_allgather)
+        logits = P.gather_rows(np.concatenate(all_logits))
+        labels = P.gather_rows(np.concatenate(all_labels))
         acc1, acc5 = topk_accuracy(logits, labels,
                                    (1, min(5, self.nb_classes)))
         stats = {"acc1": acc1, "acc5": acc5}
@@ -288,7 +312,7 @@ class Runner:
             stats["flops_ratio_vs_dense"] = gf / dense
             self.logger.info(f"eval GFLOPs/sample {gf:.2f} "
                              f"({100 * gf / dense:.1f}% of dense)")
-            rates = layer_keep / len(all_logits)
+            rates = layer_keep / layer_n
             self.logger.info("per-layer keep rates: "
                              + " ".join(f"{r:.3f}" for r in rates))
         self.logger.info("eval: " + json.dumps(

@@ -33,6 +33,14 @@ logits are resized bilinearly to the ground truth's shape (mmseg's
 protocol: the prediction goes back to the original resolution, never the
 GT down), arg-maxed and counted into a confusion matrix.  ``--eval_ckpt``
 takes a checkpoint of ``run`` or a whole segmentor state dict.
+
+Across processes (``parallel/``): the loader shards by rank, the step's
+draws, ``seg_loss`` and the BatchNorm statistics are the global batch's
+and the gradients are summed over ranks, as in the image engine.
+Evaluation strides the images by rank (rank r takes images r, r + R, ...)
+and sums the ranks' confusion matrices on the host; its forwards run no
+collective, so ranks may slide over different numbers of crops.  Rank 0
+logs to the console and writes the checkpoints.
 """
 
 from __future__ import annotations
@@ -49,12 +57,13 @@ from dynamic_tuning_tpu_torch.checkpoint import (load_timm_state_dict,
                                                  load_torch_state_dict)
 from dynamic_tuning_tpu_torch.cli import require_card_dtype, resolve_device
 from dynamic_tuning_tpu_torch.config import RunConfig
-from dynamic_tuning_tpu_torch.data.loader import make_loader
+from dynamic_tuning_tpu_torch.data.loader import decoder_of, make_loader
 from dynamic_tuning_tpu_torch.data.segmentation import (build_seg_dataset,
                                                         seg_normalize)
 from dynamic_tuning_tpu_torch.models.layers import fold_in
 from dynamic_tuning_tpu_torch.models.upernet import (DyTSegmentor, seg_loss,
                                                      slide_inference)
+from dynamic_tuning_tpu_torch.parallel import mesh as P
 from dynamic_tuning_tpu_torch.train import checkpoint as C
 from dynamic_tuning_tpu_torch.train import engine, optim
 from dynamic_tuning_tpu_torch.utils.logger import create_logger
@@ -142,7 +151,8 @@ class SegRunner:
         require_card_dtype(cfg.compute_dtype, self.device, "seg_train.py")
         if cfg.resume:
             C.require_pth(cfg.resume)
-        self.logger = create_logger(cfg.output_dir, 0)
+        self.rank, self.world = P.process_index(), P.process_count()
+        self.logger = create_logger(cfg.output_dir, self.rank)
         self.log = log or self.logger.info
         self.dtype = _DTYPES[cfg.compute_dtype]
 
@@ -150,7 +160,10 @@ class SegRunner:
             cfg.data.dataset, cfg.data.data_path, crop)
         self.train_loader = make_loader(
             train_ds, cfg.data.batch_size, shuffle=True, drop_last=True,
-            seed=cfg.seed, num_workers=cfg.data.num_workers)
+            seed=cfg.seed, num_workers=cfg.data.num_workers,
+            process_index=self.rank, process_count=self.world)
+        self.log(f"process {self.rank} of {self.world} on {self.device}; "
+                 f"decoder: {decoder_of(self.train_loader)}")
 
         self.model = DyTSegmentor(
             cfg.model, num_classes=self.num_classes, tuning=cfg.tuning,
@@ -208,9 +221,11 @@ class SegRunner:
                                         allow_unused=True)
         parts["loss"] = total
         if aux["token_select"] is not None:
-            parts["keep_ratio"] = aux["token_select"].float().mean()
-        opt.step([torch.zeros_like(p) if g is None else g
-                  for g, p in zip(grads, opt.params)])
+            with torch.no_grad():
+                parts["keep_ratio"] = P.global_mean(
+                    aux["token_select"].float())
+        opt.step(P.all_reduce_grads([torch.zeros_like(p) if g is None else g
+                                     for g, p in zip(grads, opt.params)]))
         state.step += 1
         return {k: v.detach() for k, v in parts.items()}
 
@@ -238,12 +253,13 @@ class SegRunner:
     @torch.no_grad()
     def evaluate(self, max_images: Optional[int] = None) -> Dict[str, float]:
         """mIoU and pixel accuracy (percent) over the first ``max_images``
-        validation images (all by default)."""
+        validation images (all by default), each rank sliding over its
+        share."""
         nc = self.num_classes
         cm = np.zeros((nc, nc), np.int64)
         n = len(self.val_ds) if max_images is None else min(
             max_images, len(self.val_ds))
-        for i in range(n):
+        for i in range(self.rank, n, self.world):
             img, ann = self.val_ds[i]
             ann = np.asarray(ann)
             x = seg_normalize(img).to(self.device)
@@ -257,6 +273,7 @@ class SegRunner:
                     mode="bilinear", align_corners=False)[0].permute(1, 2, 0)
             pred = logits.argmax(dim=-1).cpu().numpy()
             cm += confusion_matrix(pred, ann, nc)
+        cm = np.sum(P.gather_host(cm), axis=0)
         miou, _ = miou_from_confusion(cm)
         acc = float(np.diag(cm).sum() / max(cm.sum(), 1) * 100)
         stats = {"miou": miou, "aAcc": acc, "metric": miou, "images": n}

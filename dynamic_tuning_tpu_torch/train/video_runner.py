@@ -21,7 +21,11 @@ GFLOPs come from the per-frame gates (T rows a clip, one per frame group
 with a tubelet stem): GFLOPs a clip are the sum over its frames, each batch
 averaged, then the batches averaged (engine_finetune.py:341-352).  With
 ``save_views_dir`` each view's logits are written for
-``utils/multiview.merge_view_outputs``.
+``utils/multiview.merge_view_outputs``, one file a process, under global
+clip ids (rank r's local clip p is clip p * world + r of the strided
+shards).  Across processes the image runner's rules hold: the ranks' clips
+padded with label -1 and dropped, logits and labels gathered on the host,
+the keep ratio and GFLOPs each process's own.
 """
 
 from __future__ import annotations
@@ -39,6 +43,7 @@ from dynamic_tuning_tpu_torch.models.layers import fold_in
 from dynamic_tuning_tpu_torch.models.video_vit import VideoVisionTransformer
 from dynamic_tuning_tpu_torch.ops.flops import (batch_select_flops,
                                                 dense_vit_flops)
+from dynamic_tuning_tpu_torch.parallel import mesh as P
 from dynamic_tuning_tpu_torch.train import optim
 from dynamic_tuning_tpu_torch.train.runner import Runner
 from dynamic_tuning_tpu_torch.utils.metrics import topk_accuracy
@@ -60,12 +65,14 @@ class VideoRunner(Runner):
             test_num_segment=d.test_num_segment,
             test_num_crop=d.test_num_crop, spatial_size=cfg.model.img_size)
         self.metric_name = "accuracy"
+        shards = dict(process_index=self.rank, process_count=self.world)
         self.train_loader = make_loader(
             train_ds, d.batch_size, shuffle=True, drop_last=True,
-            seed=cfg.seed, num_workers=d.num_workers)
+            seed=cfg.seed, num_workers=d.num_workers, **shards)
         self.val_loader = make_loader(val_ds, max(d.batch_size // 2, 1),
                                       shuffle=False,
-                                      num_workers=d.num_workers)
+                                      num_workers=d.num_workers,
+                                      sentinel_pad=True, **shards)
 
     @staticmethod
     def trainable_predicate(name: str) -> bool:
@@ -92,7 +99,7 @@ class VideoRunner(Runner):
             gen, x, crop=crop, inception=d.inception_norm, train=True,
             flip=d.mirror, randaug=d.randaug,
             resize_type=d.train_resize_type, min_size=d.jitter_min or 256,
-            max_size=d.jitter_max or 320), y
+            max_size=d.jitter_max or 320, shard=(self.rank, self.world)), y
 
     def evaluate(self, save_views_dir: Optional[str] = None
                  ) -> Dict[str, float]:
@@ -103,27 +110,33 @@ class VideoRunner(Runner):
             B, V = clips.shape[0], clips.shape[1]
             xb, _ = self._device_batch(clips, labels, train=False)
             logits, token_select = self.eval_step(xb)
-            per_view = logits.float().cpu().numpy().reshape(B, V, -1)
-            if save_views_dir:
-                # clip ids in loader order; the first batch starts the
-                # shard anew
+            valid = labels >= 0            # the shard's sentinel pads
+            labels = labels[valid]
+            nB = len(labels)
+            per_view = logits.float().cpu().numpy().reshape(B, V, -1)[valid]
+            if save_views_dir and nB:
+                # global clip ids (the strided shards); this rank's first
+                # batch starts its file anew
                 first = sum(map(len, all_labels))
-                ids = np.arange(first, first + B)
-                save_view_outputs(save_views_dir, 0, np.repeat(ids, V),
-                                  per_view.reshape(B * V, -1),
+                ids = np.arange(first, first + nB) * self.world + self.rank
+                save_view_outputs(save_views_dir, self.rank,
+                                  np.repeat(ids, V),
+                                  per_view.reshape(nB * V, -1),
                                   np.repeat(labels, V), append=first > 0)
             all_logits.append(per_view.mean(axis=1))
             all_labels.append(labels)
-            if token_select is not None:
+            if token_select is not None and nB:
                 ts = token_select.float().cpu().numpy()   # [B*V*T, L, N-1, 1]
+                ts = ts.reshape(B, -1, *ts.shape[1:])[valid]
+                ts = ts.reshape(-1, *ts.shape[2:])
                 keeps.append(ts.mean())
                 g = batch_select_flops(
                     ts, T=mc.seq_len, dim=mc.embed_dim,
                     mlp_ratio=mc.mlp_ratio, bottleneck=self.cfg.tuning.ffn_num,
                     num_classes=self.nb_classes, depth=mc.depth)
                 gflops.append(g.reshape(-1, T).sum(-1).mean())
-        logits = np.concatenate(all_logits)
-        labels = np.concatenate(all_labels)
+        logits = P.gather_rows(np.concatenate(all_logits))
+        labels = P.gather_rows(np.concatenate(all_labels))
         acc1, acc5 = topk_accuracy(logits, labels,
                                    (1, min(5, self.nb_classes)))
         stats = {"acc1": acc1, "acc5": acc5, "metric": acc1}

@@ -1529,3 +1529,92 @@ def test_train_augmentation_on_the_card_matches_the_cpu(canvas, out):
     full = [T.augment_batch(torch.Generator().manual_seed(5), x, out_size=out,
                             train=True).cpu() for x in (imgs, imgs.cuda())]
     assert (full[0] - full[1]).abs().max().item() <= 2.0 / 255 / 0.224 + 1e-5
+
+
+# --- data parallelism: two gloo ranks on one card ----------------------------
+
+def _ddp_step() -> dict:
+    """One train step (every dropout on, the draws the global batch's) of
+    a bf16 model of width 128, 2 blocks, on this process's rows of a
+    global batch of 8 on the card; its loss parts, summed gradients and
+    parameters on the host."""
+    from dynamic_tuning_tpu_torch.config import (ModelConfig, SelectConfig,
+                                                 TuningConfig)
+    from dynamic_tuning_tpu_torch.models.vit import VisionTransformer
+    from dynamic_tuning_tpu_torch.parallel import mesh as P
+    from dynamic_tuning_tpu_torch.train import engine, optim
+    cfg = ModelConfig(img_size=32, patch_size=8, embed_dim=128, depth=2,
+                      num_heads=2, num_classes=10, drop_path_rate=0.1,
+                      attn_drop_rate=0.1, proj_drop_rate=0.1)
+    model = VisionTransformer(cfg, tuning=TuningConfig(ffn_num=8,
+                                                       d_model=128),
+                              select=SelectConfig(),
+                              generator=torch.Generator().manual_seed(0))
+    model.cuda()
+    named = optim.freeze(model)
+    opt = optim.make_optimizer(named, 1e-3, epochs=1, warmup_epochs=0,
+                               steps_per_epoch=1)
+    grads = []
+    real = opt.step
+    opt.step = lambda g: grads.extend(t.float().cpu() for t in g) or real(g)
+    g = torch.Generator().manual_seed(1)
+    x = torch.randn((8, 32, 32, 3), generator=g).cuda()
+    y = torch.randint(0, 10, (8,), generator=g).cuda()
+    parts = engine.make_train_step(model, SelectConfig())(
+        engine.TrainState(opt, seed=3), P.rank_rows(x), P.rank_rows(y))
+    return dict(parts={k: float(v) for k, v in parts.items()},
+                grads=dict(zip(opt.names, grads)),
+                params={n: p.detach().float().cpu() for n, p in named})
+
+
+def _ddp_worker(out: str) -> None:
+    from dynamic_tuning_tpu_torch.parallel import multihost as MH
+    assert MH.maybe_initialize_distributed("cuda", backend="gloo")
+    torch.save(_ddp_step(), f"{out}/rank{MH.process_index()}.pt")
+    MH.shutdown()
+
+
+def _rel_l2(got: dict, want: dict) -> float:
+    num = sum(float((got[k] - w).double().pow(2).sum())
+              for k, w in want.items())
+    den = sum(float(w.double().pow(2).sum()) for w in want.values())
+    return (num / den) ** 0.5
+
+
+def test_two_gloo_ranks_on_one_card_match_one_rank(tmp_path):
+    """Two processes on cuda:0 over gloo (NCCL refuses two ranks on one
+    card), one step against one process on the global batch: the ranks
+    end identical; the summed gradients within relative L2 2**-5 of one
+    process's (each rank rounds its bf16 products before the sum), the
+    loss parts within 2**-5."""
+    import os
+    import socket
+    import subprocess
+    import sys
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    tests = os.path.dirname(os.path.abspath(__file__))
+    code = (f"import sys; sys.path.insert(0, {tests!r}); "
+            "import test_torch_port_cuda as T; "
+            f"T._ddp_worker({str(tmp_path)!r})")
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", code], cwd=os.path.dirname(tests),
+        env=dict(os.environ, RANK=str(r), WORLD_SIZE="2", LOCAL_RANK="0",
+                 MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port),
+                 PYTHONPATH=os.path.dirname(tests)),
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(2)]
+    logs = [p.communicate(timeout=300)[0] for p in procs]
+    assert all(p.returncode == 0 for p in procs), "\n".join(
+        log[-2000:] for log in logs)
+    r0, r1 = (torch.load(tmp_path / f"rank{r}.pt") for r in range(2))
+    one = _ddp_step()
+    assert r0["parts"] == r1["parts"]
+    assert all(torch.equal(r0["params"][n], r1["params"][n])
+               for n in r0["params"])
+    for k, v in one["parts"].items():
+        assert abs(r0["parts"][k] - v) <= 2.0 ** -5 * max(abs(v), 1e-3), k
+    rel = _rel_l2(r0["grads"], one["grads"])
+    print(f"two gloo ranks vs one: summed gradients at relative L2 {rel:.3e}")
+    assert rel <= 2.0 ** -5

@@ -282,10 +282,13 @@ def predict_setup(tmp_path_factory):
                                         ("dispatch", "int8")])
 def test_predict_matches_jax(predict_setup, monkeypatch, mode, quant):
     from dynamic_tuning_tpu.data import native_loader
+    from dynamic_tuning_tpu_torch.data import native_loader as port_native
 
     images, ckpt = predict_setup
-    # the JAX CLI's PIL branch (the repository ships the native decoder)
+    # both CLIs' PIL branch (each takes its native decoder when it builds;
+    # tests/test_torch_port_native_loader.py holds the native canvases)
     monkeypatch.setattr(native_loader, "available", lambda: False)
+    monkeypatch.setattr(port_native, "available", lambda: False)
     monkeypatch.setenv("DYT_FUSED_ATTN", "interpret")
     flags = ["--ckpt", ckpt, "--images", images, "--mode", mode,
              "--batch_size", "2", "--quant", quant] + ARCH
