@@ -139,10 +139,10 @@ Phases; any failure exits non-zero:
      data at batch 128 (8 steps each, train augmentation on the card, an
      eval of 256 images after each); C, the same flags resumed from A's
      epoch-0 checkpoint (epoch 1 alone, traced by torch.profiler for the
-     idle share); C's final_checkpoint.pth and optimizer moments equal
+     idle share); C's final_checkpoint.msgpack and optimizer moments equal
      A's bit for bit, step and count equal, C's restored best metric A's
      epoch-0 metric; A's last eval equals a fresh model loaded from A's
-     final_checkpoint.pth; main_vtab --task synthetic (the VTAB recipe:
+     final_checkpoint.msgpack; main_vtab --task synthetic (the VTAB recipe:
      batch 64, no augmentation, adapter 16, dispatch eval), one epoch;
      main_image --eval --eval_ckpt on A's newest checkpoint gives the
      acc1 of the eval that saved it.  Every epoch launches no hand kernel,
@@ -160,7 +160,7 @@ Phases; any failure exits non-zero:
      jitter, crop, flip), a 3-view eval of 64 clips after each (8 clips x
      3 views x 8 frames = 192 frames a forward); C, the same flags resumed
      from A's epoch-0 checkpoint (epoch 1 alone, its last 4 steps traced
-     for the idle share): C's final_checkpoint.pth and optimizer moments equal A's bit
+     for the idle share): C's final_checkpoint.msgpack and optimizer moments equal A's bit
      for bit; main_video --eval --eval_ckpt on A's newest checkpoint gives
      the acc1 of the eval that saved it.  Every epoch launches no hand
      kernel, every eval forward K3 12 times and nothing else (counts
@@ -219,7 +219,23 @@ Phases; any failure exits non-zero:
      and why, its canvases of dynamic_tuning_tpu_torch/native/fixtures
      within one count of PIL's, its decode time; prints the ``decoder:``
      line, a ``ddp`` JSON line and a ``ddp:`` summary;
- 15. the wall time (and each new phase's), the card's name and power limit
+ 15. the JAX package's files (after phase 7): (a) phase 3's weights
+     written as final_checkpoint.msgpack by the port's writer and as a
+     .pth, each loaded by predict.load_params (size, load ms, the card's
+     name and power limit) and served by predict.serve (128 canvases) and
+     one dispatch forward of 128 images: the serving tensors, results and
+     logits bit-identical, 12 K15 launches a forward; (b) main_image at
+     batch 16, 2 epochs of 4 steps, --finetune the .msgpack of (a),
+     resumed from its checkpoint-0.msgpack: the final_checkpoint.msgpack
+     byte-identical, the moments too, K3 12 a forward in every eval; (c)
+     a BatchNorm segmentor's running statistics through save_aux_state /
+     load_aux_state into a copy without them: buffers and a 512^2 dispatch
+     crop's logits bit-identical, 12 K9 a forward; (d) the committed
+     JAX-written dynamic_tuning_tpu_torch/fixtures/final_checkpoint.msgpack
+     decoded and re-encoded byte for byte; (e) the native video decoder:
+     if it builds, the committed clip's frames equal the JAX decoder's
+     stored frames, else ``native_video: unavailable: <why>``;
+ 16. the wall time (and each new phase's), the card's name and power limit
      (nvidia-smi), a JSON line of the kernels, and last the JSON result
      line.
 Needs no network and imports nothing of JAX or of the JAX package.
@@ -1858,9 +1874,9 @@ def phase_runner(torch, ms, qt, fm, np, vit, sd) -> int:
 
     from dynamic_tuning_tpu_torch import main_image, main_vtab
     from dynamic_tuning_tpu_torch.checkpoint import (load_timm_state_dict,
-                                                     load_torch_state_dict,
                                                      make_vit_state_dict)
     from dynamic_tuning_tpu_torch.train import runner as R
+    from dynamic_tuning_tpu_torch.train.checkpoint import load_params
     root = os.path.join(REPO, "build", "phase_runner")
     shutil.rmtree(root, ignore_errors=True)
     os.makedirs(root)
@@ -1897,7 +1913,8 @@ def phase_runner(torch, ms, qt, fm, np, vit, sd) -> int:
         probe.reset()
         probe.trace_next_epoch = True
         main_image.main(parse(flags + [
-            "--output_dir", c, "--resume", os.path.join(a, "checkpoint-0.pth")]))
+            "--output_dir", c, "--resume",
+            os.path.join(a, "checkpoint-0.msgpack")]))
         k3 += probe.expect["dyt_prologue_serving"]
         ev_c = probe.evals[len(ev_a):]
         runner_c = ev_c[-1]["runner"]
@@ -1906,22 +1923,23 @@ def phase_runner(torch, ms, qt, fm, np, vit, sd) -> int:
         if runner_c.max_metric != ev_a[0]["stats"]["metric"]:
             fail(f"resumed max_metric {runner_c.max_metric}, A's epoch-0 "
                  f"metric {ev_a[0]['stats']['metric']}")
-        fa = load_torch_state_dict(os.path.join(a, "final_checkpoint.pth"))
-        fc = load_torch_state_dict(os.path.join(c, "final_checkpoint.pth"))
+        fa = load_params(os.path.join(a, "final_checkpoint.msgpack"))
+        fc = load_params(os.path.join(c, "final_checkpoint.msgpack"))
         differ = [k for k in fa if not torch.equal(fa[k], fc[k])]
         oa, oc = (r.state.optimizer for r in (runner_a, runner_c))
         if (runner_a.state.step, oa.count) != (runner_c.state.step, oc.count):
             fail(f"resumed step/count {runner_c.state.step}/{oc.count}, "
                  f"uninterrupted {runner_a.state.step}/{oa.count}")
         if fa.keys() != fc.keys() or differ:
-            fail(f"the resumed final_checkpoint.pth differs from the "
+            fail(f"the resumed final_checkpoint.msgpack differs from the "
                  f"uninterrupted one in {len(differ)} tensors: {differ[:6]}")
         sa, sc = oa.state_dict()["rule"], oc.state_dict()["rule"]
         for part in ("mu", "nu"):
             for k in sa[part]:
                 if not torch.equal(sa[part][k], sc[part][k]):
                     fail(f"resumed optimizer {part} of {k} differs")
-        print(f"runner resume: final_checkpoint.pth of the resumed run equals "
+        print(f"runner resume: final_checkpoint.msgpack of the resumed run "
+              f"equals "
               f"the uninterrupted one bit for bit ({len(fa)} tensors), "
               f"optimizer moments too; step {runner_c.state.step}, count "
               f"{oc.count}; restored max_metric {runner_c.max_metric}")
@@ -1938,7 +1956,7 @@ def phase_runner(torch, ms, qt, fm, np, vit, sd) -> int:
                 if not (torch.equal(again, logits)
                         and torch.equal(aux["token_select"], ts)):
                     fail("A's last eval differs from a fresh model loaded "
-                         "from its final_checkpoint.pth")
+                         "from its final_checkpoint.msgpack")
         del fresh
         # the VTAB recipe with the dispatch eval
         probe.reset()
@@ -1954,8 +1972,8 @@ def phase_runner(torch, ms, qt, fm, np, vit, sd) -> int:
                  "forwards)")
         # --eval --eval_ckpt on A's newest checkpoint
         newest = max((f for f in os.listdir(a) if f.startswith("checkpoint-")),
-                     key=lambda f: int(f[len("checkpoint-"):-len(".pth")]))
-        saved_by = ev_a[int(newest[len("checkpoint-"):-len(".pth")])]
+                     key=lambda f: int(f[len("checkpoint-"):-len(".msgpack")]))
+        saved_by = ev_a[int(newest[len("checkpoint-"):-len(".msgpack")])]
         probe.reset()
         stats = main_image.main(parse(flags + [
             "--output_dir", os.path.join(root, "e"), "--eval",
@@ -1996,8 +2014,8 @@ def phase_video(torch, ms, qt, fm, np, sd) -> int:
     import shutil
 
     from dynamic_tuning_tpu_torch import main_video
-    from dynamic_tuning_tpu_torch.checkpoint import load_torch_state_dict
     from dynamic_tuning_tpu_torch.train import runner as R
+    from dynamic_tuning_tpu_torch.train.checkpoint import load_params
     from dynamic_tuning_tpu_torch.train import video_runner as VR
     root = os.path.join(REPO, "build", "phase_video")
     shutil.rmtree(root, ignore_errors=True)
@@ -2035,34 +2053,35 @@ def phase_video(torch, ms, qt, fm, np, sd) -> int:
         probe.trace_steps = TRACE_STEPS
         main_video.main(parse(flags + [
             "--output_dir", c, "--resume",
-            os.path.join(a, "checkpoint-0.pth")]))
+            os.path.join(a, "checkpoint-0.msgpack")]))
         k3 += probe.expect["dyt_prologue_serving"]
         runner_c = probe.evals[-1]["runner"]
         if [e["epoch"] for e in probe.epochs[len(ep_a):]] != [1]:
             fail("the resumed video run did not run epoch 1 alone")
-        fa = load_torch_state_dict(os.path.join(a, "final_checkpoint.pth"))
-        fc = load_torch_state_dict(os.path.join(c, "final_checkpoint.pth"))
+        fa = load_params(os.path.join(a, "final_checkpoint.msgpack"))
+        fc = load_params(os.path.join(c, "final_checkpoint.msgpack"))
         differ = [k for k in fa if not torch.equal(fa[k], fc[k])]
         oa, oc = (r.state.optimizer for r in (runner_a, runner_c))
         if (runner_a.state.step, oa.count) != (runner_c.state.step, oc.count):
             fail(f"resumed video step/count {runner_c.state.step}/{oc.count}"
                  f", uninterrupted {runner_a.state.step}/{oa.count}")
         if fa.keys() != fc.keys() or differ:
-            fail(f"the resumed video final_checkpoint.pth differs in "
+            fail(f"the resumed video final_checkpoint.msgpack differs in "
                  f"{len(differ)} tensors: {differ[:6]}")
         sa, sc = oa.state_dict()["rule"], oc.state_dict()["rule"]
         for part in ("mu", "nu"):
             for k in sa[part]:
                 if not torch.equal(sa[part][k], sc[part][k]):
                     fail(f"resumed video optimizer {part} of {k} differs")
-        print(f"video resume: final_checkpoint.pth of the resumed run equals "
+        print(f"video resume: final_checkpoint.msgpack of the resumed run "
+              f"equals "
               f"the uninterrupted one bit for bit ({len(fa)} tensors), "
               f"optimizer moments too; step {runner_c.state.step}, count "
               f"{oc.count}")
         # --eval --eval_ckpt on A's newest checkpoint
         newest = max((f for f in os.listdir(a) if f.startswith("checkpoint-")),
-                     key=lambda f: int(f[len("checkpoint-"):-len(".pth")]))
-        saved_by = ev_a[int(newest[len("checkpoint-"):-len(".pth")])]
+                     key=lambda f: int(f[len("checkpoint-"):-len(".msgpack")]))
+        saved_by = ev_a[int(newest[len("checkpoint-"):-len(".msgpack")])]
         probe.reset()
         stats = main_video.main(parse(flags + [
             "--output_dir", os.path.join(root, "e"), "--eval",
@@ -2297,7 +2316,7 @@ def phase_seg_train(torch, ms, qt, fm, D, seg_sd, q8_model) -> dict:
         probe.trace_steps = TRACE_STEPS
         seg_train.main(parse(flags + [
             "--output_dir", c, "--quant", "int8", "--resume",
-            os.path.join(a, "checkpoint-8.pth")]))
+            os.path.join(a, "checkpoint-8.msgpack")]))
         runner_c = probe.evals[-1]["runner"]
         if (len(probe.evals) != 3 or runner_c.start_iter != 8
                 or runner_c.cfg.model.quant != "int8"):
@@ -2321,7 +2340,7 @@ def phase_seg_train(torch, ms, qt, fm, D, seg_sd, q8_model) -> dict:
               f"{oc.count}")
         del runner_a, runner_c, pa, pc, sa, sc
         # BatchNorm heads: two steps, then a resume restores the running
-        # statistics the checkpoint holds
+        # statistics of the checkpoint's aux-batch_stats sidecar
         bn = flags[:4] + ["--batch_size", "2", "--total_iters", "2",
                           "--eval_interval", "2", "--no_auto_remove",
                           "--num_workers", "2", "--finetune", ft,
@@ -2330,7 +2349,8 @@ def phase_seg_train(torch, ms, qt, fm, D, seg_sd, q8_model) -> dict:
         runner_bn = probe.evals[-1]["runner"]
         resumed = seg_train.build_runner(parse(bn + [
             "--output_dir", bn_c, "--resume",
-            os.path.join(bn_a, "checkpoint-2.pth")]), log=lambda m: None)
+            os.path.join(bn_a, "checkpoint-2.msgpack")]),
+            log=lambda m: None)
         ba = dict(runner_bn.model.named_buffers())
         bc = dict(resumed.model.named_buffers())
         names = runner_bn.buffers
@@ -2560,6 +2580,247 @@ def tubelet_forward(torch, ms, qt, fm, np, sd, *, inflated: bool) -> int:
     del tub
     torch.cuda.empty_cache()
     return DEPTH
+
+
+FILES_DIR = "phase_files"
+FILES_SERVE = 128               # canvases served from each weights file
+FILES_BATCH, FILES_STEPS = 16, 4    # the small runner of phase 15 (b)
+
+
+def _serve_file(torch, ms, qt, fm, predict, path, canvases, x) -> tuple:
+    """predict's load of ``path`` (timed), its serve of ``canvases`` and
+    one fast forward of ``x`` on the loaded tensors: (load s, serving
+    tensors, results, logits, K15 launches of the forward)."""
+    args = predict.get_args_parser().parse_args(
+        ["--ckpt", path, "--images", "-", "--batch_size", str(FILES_SERVE)])
+    cfg, tuning, sel = predict.configs(args)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params = predict.load_params(args, torch.device("cuda"))
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    reset_counts(ms, qt, fm)
+    with contextlib.redirect_stdout(io.StringIO()):
+        results = predict.serve(args, canvases, params)
+    torch.cuda.synchronize()
+    want = {k: DEPTH if k == "mha_serving" else 0 for k in KERNELS}
+    if read_counts(ms, qt, fm) != want:
+        fail(f"files: predict.serve of {os.path.basename(path)}: launches "
+             f"{read_counts(ms, qt, fm)}, want {want}")
+    reset_counts(ms, qt, fm)
+    with torch.inference_mode():
+        logits, _ = predict.fast_vit_forward(params, x, cfg=cfg,
+                                             tuning=tuning, select=sel,
+                                             mode="dispatch",
+                                             use_kernel=False)
+    torch.cuda.synchronize()
+    return load_s, params, results, logits, read_counts(ms, qt, fm)
+
+
+def phase_files(torch, ms, qt, fm, np, predict, config, sd) -> dict:
+    """Phase 15: the JAX package's files on the card.  (a) phase 3's
+    weights as final_checkpoint.msgpack (the port's writer) and as a .pth,
+    each loaded and served by predict; (b) the image runner at a small
+    batch resumed from its checkpoint-0.msgpack; (c) the segmentor's
+    BatchNorm statistics through the aux-batch_stats sidecar; (d) the
+    committed JAX-written .msgpack decoded and re-encoded; (e) the native
+    video decoder on the committed clip.  Returns the launches of K15, K3
+    and K9."""
+    import shutil
+
+    from dynamic_tuning_tpu_torch import main_image, serialization
+    from dynamic_tuning_tpu_torch.checkpoint import (make_seg_state_dict,
+                                                     to_flax_params)
+    from dynamic_tuning_tpu_torch.models.upernet import DyTSegmentor
+    from dynamic_tuning_tpu_torch.train import checkpoint as TC
+    from dynamic_tuning_tpu_torch.train import runner as R
+    root = os.path.join(REPO, "build", FILES_DIR)
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    launches = {"mha_serving": 0, "dyt_prologue_serving": 0,
+                "mha_windowed_fused": 0}
+    card = card_line()
+
+    # (a) serving from a .msgpack: the same tensors, logits and launches as
+    # from the .pth of the same weights
+    t0 = time.perf_counter()
+    mp_path = os.path.join(root, "final_checkpoint.msgpack")
+    pth_path = os.path.join(root, "final_checkpoint.pth")
+    size = serialization.write_file(mp_path, to_flax_params(sd)[0])
+    write_s = time.perf_counter() - t0
+    torch.save({k: torch.from_numpy(v) for k, v in sd.items()}, pth_path)
+    g = torch.Generator(device="cuda").manual_seed(15)
+    canvases = torch.randint(0, 256, (FILES_SERVE, 256, 256, 3), generator=g,
+                             device="cuda", dtype=torch.uint8)
+    x = torch.randn((B, 224, 224, 3), generator=g, device="cuda")
+    mp = _serve_file(torch, ms, qt, fm, predict, mp_path, canvases, x)
+    pt = _serve_file(torch, ms, qt, fm, predict, pth_path, canvases, x)
+    flat_mp, spec_mp = torch.utils._pytree.tree_flatten(mp[1])
+    flat_pt, spec_pt = torch.utils._pytree.tree_flatten(pt[1])
+    if spec_mp != spec_pt or not all(
+            torch.equal(a, b) if isinstance(a, torch.Tensor) else a == b
+            for a, b in zip(flat_mp, flat_pt)):
+        fail("files: the .msgpack's serving tensors differ from the .pth's")
+    if not torch.equal(mp[3], pt[3]) or mp[2] != pt[2]:
+        fail("files: logits served from the .msgpack differ from the .pth's")
+    want = {k: DEPTH if k == "mha_serving" else 0 for k in KERNELS}
+    if mp[4] != want or pt[4] != want:
+        fail(f"files: forward launches {mp[4]} / {pt[4]}, want {want}")
+    launches["mha_serving"] += 4 * DEPTH
+    print(f"files (a): final_checkpoint.msgpack of ViT-B/16 (adapter {FFN}, "
+          f"keep 0.5) {size / 1e6:.3f} MB, written in {write_s:.3f} s; "
+          f"predict.load_params to the card {mp[0] * 1e3:.1f} ms (.pth of "
+          f"the same weights {pt[0] * 1e3:.1f} ms); predict.serve of "
+          f"{FILES_SERVE} canvases and a dispatch forward of {B} images "
+          f"equal bit for bit from both, {DEPTH} K15 launches a forward; "
+          f"{card}")
+    del mp, pt, flat_mp, flat_pt
+    os.remove(pth_path)
+    torch.cuda.empty_cache()
+
+    # (b) the image runner resumed from checkpoint-0.msgpack, --finetune
+    # the .msgpack of (a)
+    real_build = R.build_image_dataset
+
+    def build(*a, **kw):
+        train, val, nc, metric = real_build(*a, **kw)
+        train.n, val.n = FILES_STEPS * FILES_BATCH, 2 * FILES_BATCH
+        return train, val, nc, metric
+
+    a_dir, c_dir = os.path.join(root, "a"), os.path.join(root, "c")
+    flags = ["--dataset", "synthetic", "--batch_size", str(FILES_BATCH),
+             "--epochs", "2", "--warmup_epochs", "1", "--no_auto_remove",
+             "--num_workers", "2", "--finetune", mp_path]
+    parse = main_image.get_args_parser().parse_args
+    probe = RunnerProbe(torch, ms, qt, fm, R)
+    t0 = time.perf_counter()
+    with mock.patch.object(R, "build_image_dataset", build), \
+            probe.installed():
+        probe.reset()
+        main_image.main(parse(flags + ["--output_dir", a_dir]))
+        launches["dyt_prologue_serving"] += probe.expect[
+            "dyt_prologue_serving"]
+        runner_a = probe.evals[-1]["runner"]
+        ckpt = os.path.join(a_dir, "checkpoint-0.msgpack")
+        if not os.path.exists(ckpt):
+            fail(f"files (b): no {ckpt}: {sorted(os.listdir(a_dir))}")
+        probe.reset()
+        main_image.main(parse(flags + ["--output_dir", c_dir, "--resume",
+                                       ckpt]))
+        launches["dyt_prologue_serving"] += probe.expect[
+            "dyt_prologue_serving"]
+        runner_c = probe.evals[-1]["runner"]
+    fa, fc = (open(os.path.join(d, "final_checkpoint.msgpack"), "rb").read()
+              for d in (a_dir, c_dir))
+    oa, oc = runner_a.state.optimizer, runner_c.state.optimizer
+    moments = all(torch.equal(p, q) for p, q in zip(oa.rule.mu + oa.rule.nu,
+                                                    oc.rule.mu + oc.rule.nu))
+    if fa != fc or not moments or (runner_a.state.step, oa.count) != (
+            runner_c.state.step, oc.count):
+        fail("files (b): the run resumed from checkpoint-0.msgpack differs "
+             "from the uninterrupted one")
+    print(f"files (b): main_image at batch {FILES_BATCH}, 2 epochs of "
+          f"{FILES_STEPS} steps (--finetune the .msgpack of (a)), resumed "
+          f"from checkpoint-0.msgpack ({os.path.getsize(ckpt) / 1e6:.3f} MB): "
+          f"final_checkpoint.msgpack equal byte for byte "
+          f"({len(fa) / 1e6:.3f} MB), moments bit-identical, step "
+          f"{runner_c.state.step}; {time.perf_counter() - t0:.1f} s")
+    del runner_a, runner_c, oa, oc, probe
+    shutil.rmtree(a_dir, ignore_errors=True)
+    shutil.rmtree(c_dir, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+    # (c) the segmentor's BatchNorm statistics through the sidecar
+    t0 = time.perf_counter()
+    seg_sd = make_seg_state_dict(np.random.RandomState(15), depth=DEPTH,
+                                 dim=C, ffn=FFN, img=512, patch=16,
+                                 num_classes=SEG_CLASSES, norm="bn")
+
+    def segmentor(with_stats):
+        m = DyTSegmentor(config.ModelConfig(img_size=512, gelu_approx=True,
+                                            residual_dtype="bfloat16"),
+                         num_classes=SEG_CLASSES,
+                         tuning=config.TuningConfig(),
+                         select=config.SelectConfig(token_target_ratio=0.5),
+                         norm="bn", dtype=torch.bfloat16)
+        m.load_state_dict({k: torch.from_numpy(v) for k, v in seg_sd.items()
+                           if with_stats or ".running_" not in k},
+                          strict=with_stats)
+        return m.cuda()
+
+    src, dst = segmentor(True), segmentor(False)
+    names = [n for n, _ in src.named_buffers()
+             if n.endswith((".running_mean", ".running_var"))]
+    own = dict(src.named_buffers())
+    path = TC.save_aux_state(root, "batch_stats",
+                             {n: own[n] for n in names}, 16)
+    stats = TC.load_aux_state(root, "batch_stats")
+    with torch.no_grad():
+        theirs = dict(dst.named_buffers())
+        for n, v in stats.items():
+            theirs[n].copy_(v)
+    if set(stats) != set(names) or not all(
+            torch.equal(own[n], theirs[n]) for n in names):
+        fail("files (c): the BatchNorm statistics did not round-trip")
+    crop = torch.randn((1, 512, 512, 3), generator=g, device="cuda")
+    outs = []
+    for m in (src, dst):
+        reset_counts(ms, qt, fm)
+        with torch.inference_mode():
+            outs.append(m(crop, dispatch=True, aux_logits=False)[0])
+        torch.cuda.synchronize()
+        want = {k: DEPTH if k == "mha_windowed_fused" else 0
+                for k in KERNELS}
+        if read_counts(ms, qt, fm) != want:
+            fail(f"files (c): launches {read_counts(ms, qt, fm)}, want "
+                 f"{want}")
+        launches["mha_windowed_fused"] += DEPTH
+    if not torch.equal(*outs) or not torch.isfinite(outs[0]).all():
+        fail("files (c): the crop's logits differ after the sidecar")
+    print(f"files (c): {len(names)} BatchNorm statistics through "
+          f"{os.path.basename(path)} ({os.path.getsize(path)} bytes) bit for "
+          f"bit, and a dispatch crop's logits {tuple(outs[0].shape)} equal "
+          f"({DEPTH} K9 launches a forward); "
+          f"{time.perf_counter() - t0:.1f} s")
+    del src, dst, outs, seg_sd
+    torch.cuda.empty_cache()
+
+    # (d) the committed file the JAX package wrote: decoded here, where
+    # no msgpack, flax or ml_dtypes is installed, and written back
+    fixture = os.path.join(REPO, "dynamic_tuning_tpu_torch", "fixtures",
+                           "final_checkpoint.msgpack")
+    data = open(fixture, "rb").read()
+    t0 = time.perf_counter()
+    tree = serialization.unpackb(data)
+    decode_ms = (time.perf_counter() - t0) * 1e3
+    if serialization.packb(tree) != data:
+        fail("files (d): the JAX-written .msgpack does not re-encode to its "
+             "own bytes")
+    print(f"files (d): the JAX package's final_checkpoint.msgpack "
+          f"({len(data)} bytes, fp32 and bf16 leaves) decoded in "
+          f"{decode_ms:.2f} ms and re-encoded byte for byte")
+
+    # (e) the native video decoder, if it builds on this host
+    from dynamic_tuning_tpu_torch.data import native_video
+    fixtures = os.path.join(REPO, "dynamic_tuning_tpu_torch", "native",
+                            "fixtures")
+    if native_video.available():
+        clip = os.path.join(fixtures, "clip_64x48.mp4")
+        stored = np.load(os.path.join(fixtures, "clip_64x48_frames.npz"))
+        n = int(stored["probe"][0])
+        got = native_video.read_frames(clip, list(range(n)))
+        if tuple(native_video.probe(clip)) != tuple(
+                int(v) for v in stored["probe"]) or not np.array_equal(
+                np.stack([got[i] for i in range(n)]), stored["frames"]):
+            fail("files (e): the native decoder's frames differ from the "
+                 "JAX decoder's stored frames")
+        print(f"native_video: built; {n} frames of the fixture clip equal "
+              "the JAX decoder's bit for bit")
+    else:
+        why = native_video.why_unavailable().strip().splitlines()
+        print(f"native_video: unavailable: {why[0] if why else '?'}")
+    shutil.rmtree(root, ignore_errors=True)
+    return launches
 
 
 def phase_bench(torch, ms, qt, fm, bench, sds, seg_sd) -> dict:
@@ -3327,6 +3588,11 @@ def main() -> None:
         launches[k] += n
     launches.update(phase_fast(torch, ms, qt, fm, fast, predict,
                                scan_throughput, forwards_run, sds[0]))
+    t0 = time.perf_counter()
+    for k, n in phase_files(torch, ms, qt, fm, np, predict, config,
+                            sds[0]).items():
+        launches[k] += n
+    print(f"phase files: {time.perf_counter() - t0:.1f} s")
     del sds
     torch.cuda.empty_cache()
     for k, n in phase_long(torch, ms, qt, fm, fast, predict, vit,

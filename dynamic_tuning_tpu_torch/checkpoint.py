@@ -44,6 +44,7 @@ dynamic_tuning_tpu/train/checkpoint.py).
 
 from __future__ import annotations
 
+import ast
 import re
 from typing import Dict, List, Mapping, Tuple
 
@@ -184,39 +185,171 @@ def _to_torch_layout(path: Tuple[str, ...], w: np.ndarray) -> np.ndarray:
     return w
 
 
+def _relayout(fn, path: Tuple[str, ...], w):
+    """``fn(path, array)`` as an array of its own (a transpose copies once;
+    a leaf kept as it is, a view of a file's buffer, is copied); a bf16
+    tensor (numpy has no bfloat16) goes through its bits and comes back a
+    bf16 tensor."""
+    if isinstance(w, torch.Tensor):
+        bf16 = w.dtype == torch.bfloat16
+        out = fn(path, _host(w))
+        return torch.from_numpy(out).view(torch.bfloat16) if bf16 else out
+    out = fn(path, np.asarray(w))
+    return out if out.flags.owndata else out.copy()
+
+
 def from_flax_params(params: Mapping, batch_stats: Mapping | None = None
                      ) -> Dict[str, np.ndarray]:
     """JAX-package param tree (and, for a BatchNorm segmentor, its
-    ``batch_stats`` tree) -> the port's numpy state dict."""
+    ``batch_stats`` tree) -> the port's numpy state dict (a bf16 leaf, as a
+    ``.msgpack`` gives it, as a bf16 tensor)."""
     trees = [params] + ([batch_stats] if batch_stats else [])
-    return {flax_path_to_port(p): _to_torch_layout(p, np.array(w))
+    return {flax_path_to_port(p): _relayout(_to_torch_layout, p, w)
             for tree in trees for p, w in _flatten(tree)}
 
 
+_TIMM_TO_FLAX = {v: k for k, v in _FLAX_TO_TIMM.items()}
+_LEAF_OF = {"bias": "bias", "running_mean": "mean", "running_var": "var"}
+
+
+def port_name_to_flax_path(name: str, ndim: int) -> Tuple[str, Tuple[str, ...]]:
+    """The inverse of ``flax_path_to_port``: a port state-dict key (and its
+    tensor's rank, which tells a Dense/Conv ``kernel`` from a norm's
+    ``scale``) -> (flax collection, flax path).  The collection is
+    ``"params"``, or ``"batch_stats"`` for BatchNorm running statistics."""
+    parts = name.split(".")
+    if parts[0] in _SEG_TOPS:
+        top, rest = parts[0], parts[1:]
+        if top == "backbone" and not re.fullmatch(r"fpn\d_deconv\d?",
+                                                  rest[0]):
+            return "params", ("backbone",) + port_name_to_flax_path(
+                ".".join(rest), ndim)[1]
+        leaf = rest[-1]
+        if leaf == "weight":
+            leaf = "kernel" if ndim > 1 else "scale"
+        elif leaf in _LEAF_OF:
+            leaf = _LEAF_OF[leaf]
+        else:
+            raise ValueError(f"no flax path for port tensor {name}")
+        coll = "batch_stats" if leaf in ("mean", "var") else "params"
+        return coll, (top,) + tuple(rest[:-1]) + (leaf,)
+    m = re.fullmatch(r"blocks\.(\d+)\.(.*)", name)
+    prefix, key = ((f"blocks_{m.group(1)}",), m.group(2)) if m else ((),
+                                                                    name)
+    path = _TIMM_TO_FLAX.get(key)
+    if path is None:
+        raise ValueError(f"no flax path for port tensor {name}")
+    return "params", prefix + path
+
+
+def _to_flax_layout(path: Tuple[str, ...], w: np.ndarray) -> np.ndarray:
+    """The inverse of ``_to_torch_layout``."""
+    if path[-1] == "kernel":
+        if w.ndim == 2:
+            return np.ascontiguousarray(w.T)             # [out,in] -> [in,out]
+        if w.ndim == 4 and _is_deconv(path):
+            # [in, out, kh, kw] -> [kh, kw, in, out], then unflip
+            return np.ascontiguousarray(w.transpose(2, 3, 0, 1)[::-1, ::-1])
+        if w.ndim == 4:
+            return np.ascontiguousarray(w.transpose(2, 3, 1, 0))  # -> HWIO
+        if w.ndim == 5:
+            return np.ascontiguousarray(w.transpose(2, 3, 4, 1, 0))  # DHWIO
+    return w
+
+
+def _host(t) -> np.ndarray:
+    """A tensor or array as a numpy array on the host, always a copy (a
+    bf16 tensor as its bits, int16: numpy has no bfloat16)."""
+    if isinstance(t, torch.Tensor):
+        t = t.detach().to("cpu", copy=True)
+        if t.dtype == torch.bfloat16:
+            t = t.view(torch.int16)
+        return t.numpy()
+    return np.array(t)
+
+
+def nest(flat: Mapping[Tuple[str, ...], object]) -> dict:
+    """``{path tuple: leaf}`` -> nested dicts (flax's ``unflatten_dict``)."""
+    out: dict = {}
+    for path, v in flat.items():
+        node = out
+        for k in path[:-1]:
+            node = node.setdefault(k, {})
+        node[path[-1]] = v
+    return out
+
+
+def to_flax_flat(state_dict: Mapping) -> Dict[str, Dict[Tuple[str, ...],
+                                                          np.ndarray]]:
+    """A port state dict (tensors or arrays) -> ``{collection: {flax path:
+    array in the flax layout}}``, the inverse of ``from_flax_params``."""
+    out: Dict[str, dict] = {"params": {}, "batch_stats": {}}
+    for name, t in state_dict.items():
+        coll, path = port_name_to_flax_path(name, t.ndim)
+        out[coll][path] = _relayout(_to_flax_layout, path, t)
+    return out
+
+
+def to_flax_params(state_dict: Mapping) -> Tuple[dict, dict]:
+    """A port state dict (tensors or arrays, always copied) -> (the JAX
+    package's nested param tree, its ``batch_stats`` tree, empty without
+    BatchNorm)."""
+    flat = to_flax_flat(state_dict)
+    return nest(flat["params"]), nest(flat["batch_stats"])
+
+
+def _path_key(key) -> Tuple[str, ...]:
+    """An optax moment's key: a flax path tuple, or its string form as
+    ``flax.serialization.to_state_dict`` writes it."""
+    if isinstance(key, tuple):
+        return key
+    path = ast.literal_eval(key)
+    if not isinstance(path, tuple):
+        raise ValueError(f"optimizer state key {key!r} is not a flax path")
+    return path
+
+
 def _flat_tree(tree: Mapping) -> Dict[Tuple[str, ...], np.ndarray]:
-    """A flat ``{path tuple: array}`` dict (the JAX ``TrainState``'s form) or
-    a nested one -> the flat form."""
-    if tree and isinstance(next(iter(tree)), tuple):
-        return dict(tree)
+    """A flat ``{path tuple: array}`` dict (the JAX ``TrainState``'s form),
+    its serialized form (``{"('blocks_0', ...)": array}``) or a nested one
+    -> the flat form."""
+    if not tree:
+        return {}
+    first = next(iter(tree))
+    if isinstance(first, tuple) or (isinstance(first, str)
+                                    and first.startswith("(")):
+        return {_path_key(k): v for k, v in tree.items()}
     return dict(_flatten(tree))
 
 
 def _timm_tree(tree: Mapping) -> Dict[str, np.ndarray]:
-    return {flax_path_to_timm(p): _to_torch_layout(p, np.array(w))
+    return {flax_path_to_port(p): _relayout(_to_torch_layout, p, w)
             for p, w in _flat_tree(tree).items()}
 
 
+def _field(node, name):
+    return node[name] if isinstance(node, Mapping) else getattr(node, name)
+
+
 def _find_states(node, out: dict) -> dict:
-    """Walk an optax state (tuples and named tuples) by duck typing: the
-    adam moments (``mu``, ``nu``, ``count``) and MultiSteps' accumulation
+    """Walk an optax state by duck typing, as named tuples or as the dicts
+    of its serialized form (``{'0': ..., '1': ...}`` for a chain): the adam
+    moments (``mu``, ``nu``, ``count``) and MultiSteps' accumulation
     (``mini_step``, ``acc_grads``)."""
-    if hasattr(node, "mu") and hasattr(node, "nu"):
+    def has(*names):
+        return all((k in node) if isinstance(node, Mapping)
+                   else hasattr(node, k) for k in names)
+
+    if has("mu", "nu"):
         out["adam"] = node
-    elif hasattr(node, "acc_grads") and hasattr(node, "mini_step"):
+    elif has("acc_grads", "mini_step"):
         out["multi"] = node
-        _find_states(node.inner_opt_state, out)
+        _find_states(_field(node, "inner_opt_state"), out)
     elif isinstance(node, (tuple, list)):
         for child in node:
+            _find_states(child, out)
+    elif isinstance(node, Mapping):
+        for child in node.values():
             _find_states(child, out)
     return out
 
@@ -224,29 +357,62 @@ def _find_states(node, out: dict) -> dict:
 def from_flax_train_state(trainable: Mapping, frozen: Mapping, opt_state,
                           step) -> dict:
     """The parts of a JAX-package ``TrainState`` (host numpy trees) ->
-    ``{"model": timm-named numpy state dict of every parameter,
+    ``{"model": the port's numpy state dict of every parameter,
     "optimizer": the port's Optimizer.state_dict() (numpy), "step": int}``.
 
     Reads optax adamw's ``mu``/``nu``/``count`` (laid out as the port's
     tensors: Dense kernels transposed) and, with ``accum_iter > 1``,
-    ``MultiSteps``' running-mean buffer and ``mini_step``.  Load with
-    ``model.load_state_dict``, ``optimizer.load_state_dict`` and
-    ``TrainState.step``."""
+    ``MultiSteps``' running-mean buffer and ``mini_step``, from optax's
+    named tuples or from their ``to_state_dict`` form (a ``.msgpack``
+    checkpoint's ``opt_state``).  Load with ``model.load_state_dict``,
+    ``optimizer.load_state_dict`` and ``TrainState.step``."""
     found = _find_states(opt_state, {})
     if "adam" not in found:
         raise ValueError("no adamw state (mu, nu, count) in the optax state")
     adam = found["adam"]
-    rule = {"mu": _timm_tree(adam.mu), "nu": _timm_tree(adam.nu),
-            "count": int(np.asarray(adam.count))}
+    rule = {"mu": _timm_tree(_field(adam, "mu")),
+            "nu": _timm_tree(_field(adam, "nu")),
+            "count": int(np.asarray(_field(adam, "count")))}
     multi = found.get("multi")
     optimizer = {"rule": rule,
                  "acc": None if multi is None else _timm_tree(
-                     multi.acc_grads),
-                 "mini_step": (0 if multi is None
-                               else int(np.asarray(multi.mini_step)))}
+                     _field(multi, "acc_grads")),
+                 "mini_step": (0 if multi is None else int(np.asarray(
+                     _field(multi, "mini_step"))))}
     model = {**_timm_tree(frozen), **_timm_tree(trainable)}
     return {"model": model, "optimizer": optimizer,
             "step": int(np.asarray(step))}
+
+
+def to_flax_opt_state(optimizer) -> dict:
+    """The port's ``Optimizer`` (AdamW) -> the ``to_state_dict`` form of the
+    optax state that the JAX package's ``make_optimizer`` +
+    ``with_grad_accumulation`` build for the same flags, which its
+    ``load_checkpoint`` restores: adamw is the chain (``scale_by_adam``,
+    ``add_decayed_weights``, the schedule's count); ``clip_grad`` puts an
+    empty state before it and layer decay one after it, as chain entries
+    ``'0'``, ``'1'``, ...; ``accum_iter > 1`` wraps it in ``MultiSteps``.
+    The moments are keyed by the string form of their flax path."""
+    if not hasattr(optimizer.rule, "mu"):
+        raise ValueError("only the AdamW optimizer state has an optax form")
+
+    def paths(tensors):
+        flat = to_flax_flat(dict(zip(optimizer.names, tensors)))["params"]
+        return {str(p): w for p, w in flat.items()}
+
+    count = np.asarray(optimizer.count, np.int32)
+    adamw = {"0": {"count": count, "mu": paths(optimizer.rule.mu),
+                   "nu": paths(optimizer.rule.nu)},
+             "1": {}, "2": {"count": count}}
+    chain = ([{}] if optimizer.clip_grad is not None else []) + [adamw] + (
+        [{}] if optimizer.scales is not None else [])
+    inner = adamw if len(chain) == 1 else {str(i): c
+                                           for i, c in enumerate(chain)}
+    if optimizer.acc is None:
+        return inner
+    return {"mini_step": np.asarray(optimizer.mini_step, np.int32),
+            "gradient_step": count, "inner_opt_state": inner,
+            "acc_grads": paths(optimizer.acc), "skip_state": {}}
 
 
 def make_vit_state_dict(rs: np.random.RandomState, *, depth: int, dim: int,

@@ -16,7 +16,9 @@ process topology is discovered from the launcher's environment
 
 Refused at the edges of the port: ``--model_parallel`` other than 1
 (tensor parallelism is not ported yet: ``parallel.mesh.make_mesh``),
-``--ckpt_backend orbax`` (the port writes one ``.pth`` file), and, on the
+``--ckpt_backend orbax`` (orbax and tensorstore are not installed on the
+card's machine; the port writes the JAX package's ``.msgpack`` files, the
+default backend), and, on the
 card, ``--compute_dtype float32`` (``require_card_dtype``: the hand
 kernels take bf16).
 """
@@ -193,9 +195,10 @@ def args_to_config(args, *, no_aug: bool = False) -> RunConfig:
     check_compat_args(args)
     make_mesh(args.model_parallel)
     if args.ckpt_backend == "orbax":
-        raise ValueError("--ckpt_backend orbax: orbax writes JAX arrays "
-                         "sharded over a TPU mesh; the port writes one .pth "
-                         "file (the default backend)")
+        raise ValueError("--ckpt_backend orbax: the port has no orbax or "
+                         "tensorstore (the card's machine lacks both); it "
+                         "writes the JAX package's .msgpack files (the "
+                         "default backend)")
     finetune = args.finetune
     if finetune and not os.path.exists(finetune):
         finetune = paths.checkpoint_path(finetune, fallback=finetune)

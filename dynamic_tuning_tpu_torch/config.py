@@ -148,7 +148,7 @@ class RunConfig:
     eval_freq: int = 1
     save_freq: int = 1
     resume: str = ""
-    finetune: str = ""                      # pretrained .pth
+    finetune: str = ""                      # pretrained .pth or .msgpack
     fulltune: bool = False                  # train the whole backbone
     accum_iter: int = 1
     compute_dtype: str = "bfloat16"

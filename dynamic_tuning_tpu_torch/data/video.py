@@ -9,11 +9,13 @@ video_datasets/k400.py, sthv2_dataset.py, video_datasets.py).
   stacked so the runner averages their logits (engine_finetune.py:302-305);
 * ``DummyVideoDataset``: seeded random clips (k400.py:323-339).
 
-Decoding picks decord, then PyAV, then OpenCV, each tried on import
-(override with ``DYT_VIDEO_BACKEND=decord|av|cv2``); sampled frames are
-resized on the host to a fixed canvas (``_bicubic_resize``: torch's bicubic
-kernel, A = -0.75, as 4-tap numpy matrices), and every augmentation runs on
-the device (``data/video_transforms.py``).  Numpy only.
+Decoding picks the port's native libav decoder (``data/native_video.py``)
+when it builds, then decord, PyAV and OpenCV, each tried on import
+(override with ``DYT_VIDEO_BACKEND=native|decord|av|cv2``); sampled frames
+are resized on the host to a fixed canvas (``_bicubic_resize``: torch's
+bicubic kernel, A = -0.75, as 4 taps a sample, in C when the native
+library loads, ``DYT_NATIVE_RESIZE=0`` for numpy), and every augmentation
+runs on the device (``data/video_transforms.py``).  Numpy only.
 """
 
 from __future__ import annotations
@@ -24,17 +26,24 @@ from typing import List, Optional, Tuple
 
 import numpy as np
 
-BACKENDS = ("decord", "av", "cv2")
+BACKENDS = ("native", "decord", "av", "cv2")
 
 
 def decode_backend() -> str:
-    """The first frame-decode backend that imports: decord (the reference's
-    K400 decoder, k400.py:115), PyAV (its SSv2 decoder,
-    sthv2_dataset.py:115), OpenCV; ``DYT_VIDEO_BACKEND`` forces one."""
+    """The first frame-decode backend that loads: the native decoder
+    (``native/dyt_video.cpp``) when it builds, decord (the reference's K400
+    decoder, k400.py:115), PyAV (its SSv2 decoder, sthv2_dataset.py:115),
+    OpenCV; ``DYT_VIDEO_BACKEND`` forces one (raising, with the build's
+    error, when it cannot load)."""
     forced = os.environ.get("DYT_VIDEO_BACKEND")
     for name in [forced] if forced else BACKENDS:
         try:
-            if name == "decord":
+            if name == "native":
+                from dynamic_tuning_tpu_torch.data import native_video
+                if not native_video.available():
+                    raise ImportError("native video decoder unavailable: "
+                                      + native_video.why_unavailable())
+            elif name == "decord":
                 import decord  # noqa: F401
             elif name == "av":
                 import av  # noqa: F401
@@ -47,7 +56,14 @@ def decode_backend() -> str:
         except ImportError:
             if forced:
                 raise
-    raise ImportError("no video decode backend (decord/av/cv2) available")
+    raise ImportError("no video decode backend (native/decord/av/cv2) "
+                      "available")
+
+
+def _read_frames_native(path: str, want: List[int]):
+    from dynamic_tuning_tpu_torch.data import native_video
+
+    return native_video.read_frames(path, want)
 
 
 def _read_frames_decord(path: str, want: List[int]):
@@ -92,8 +108,8 @@ def _read_frames_cv2(path: str, want: List[int]):
     return frames
 
 
-_READERS = {"decord": _read_frames_decord, "av": _read_frames_av,
-            "cv2": _read_frames_cv2}
+_READERS = {"native": _read_frames_native, "decord": _read_frames_decord,
+            "av": _read_frames_av, "cv2": _read_frames_cv2}
 
 
 def sample_indices_random(num_frames: int, clip_len: int, rate: int,
@@ -258,6 +274,10 @@ class VideoDataset:
 
     def _num_frames(self, path: str) -> int:
         full = os.path.join(self.root, path)
+        if self.backend == "native":
+            from dynamic_tuning_tpu_torch.data import native_video
+
+            return max(native_video.probe(full)[0], 1)
         if self.backend == "decord":
             import decord
 
@@ -370,9 +390,22 @@ def _bicubic_resize(img: np.ndarray, nw: int, nh: int) -> np.ndarray:
     A = -0.75, half-pixel coordinates): rows, then columns, in float32,
     rounded half up and clipped to uint8.  The reference resizes after
     normalizing, without a clamp; the weights sum to 1, so the two differ
-    only by this rounding (<= 1 level but at overshooting edges)."""
+    only by this rounding (<= 1 level but at overshooting edges).
+
+    Where the native library loads (and ``DYT_NATIVE_RESIZE`` is not
+    ``0``) a uint8 RGB frame is resized in C (``native_video.
+    resize_bicubic``: the same taps and float32 pair order, the GIL
+    released, so loader threads resize concurrently).  A C call that fails
+    raises; only an unavailable library means the numpy form."""
     ih, wh = _tb_taps(img.shape[0], nh)
     iw, ww = _tb_taps(img.shape[1], nw)
+    if (img.dtype == np.uint8 and img.ndim == 3 and img.shape[2] == 3
+            and os.environ.get("DYT_NATIVE_RESIZE", "1") != "0"):
+        from dynamic_tuning_tpu_torch.data import native_video
+
+        out = native_video.resize_bicubic(img, nh, nw, ih, wh, iw, ww)
+        if out is not None:
+            return out
     out = img.astype(np.float32)
     out = (out[ih] * wh[:, :, None, None]).sum(axis=1)         # [nh, w, c]
     out = (out[:, iw] * ww[None, :, :, None]).sum(axis=2)      # [nh, nw, c]

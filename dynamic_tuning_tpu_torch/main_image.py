@@ -3,7 +3,7 @@ the root main_image.py; reference main_image.py).
 
     python -m dynamic_tuning_tpu_torch.main_image --dataset synthetic
     python -m dynamic_tuning_tpu_torch.main_image --dataset synthetic --device cpu
-    python -m dynamic_tuning_tpu_torch.main_image --eval --eval_ckpt out/checkpoint-0.pth
+    python -m dynamic_tuning_tpu_torch.main_image --eval --eval_ckpt out/checkpoint-0.msgpack
     torchrun --nproc_per_node=4 -m dynamic_tuning_tpu_torch.main_image \
         --dataset synthetic
 
@@ -21,7 +21,7 @@ from dynamic_tuning_tpu_torch.cli import (add_common_args, args_to_config,
                                           resolve_device)
 from dynamic_tuning_tpu_torch.parallel.multihost import \
     maybe_initialize_distributed
-from dynamic_tuning_tpu_torch.train.checkpoint import require_pth
+from dynamic_tuning_tpu_torch.train.checkpoint import require_checkpoint
 from dynamic_tuning_tpu_torch.train.runner import Runner
 
 
@@ -34,7 +34,7 @@ def main(args):
     maybe_initialize_distributed(args.device)
     device = resolve_device(args.device, "main_image")
     if args.eval_ckpt:
-        require_pth(args.eval_ckpt)
+        require_checkpoint(args.eval_ckpt)
     runner = Runner(args_to_config(args), device)
     if args.eval:
         if args.eval_ckpt:

@@ -3,7 +3,7 @@ root main_video.py; reference main_video.py, train_video.sh).
 
     python -m dynamic_tuning_tpu_torch.main_video --dataset synthetic
     python -m dynamic_tuning_tpu_torch.main_video --dataset synthetic --device cpu
-    python -m dynamic_tuning_tpu_torch.main_video --eval --eval_ckpt out/checkpoint-0.pth
+    python -m dynamic_tuning_tpu_torch.main_video --eval --eval_ckpt out/checkpoint-0.msgpack
 
 The reference flag surface and recipe defaults (train_video.sh: batch 16
 clips, blr 1e-3, K400 12 epochs, warmup 2, 8 frames at stride 16, eval 3
@@ -25,7 +25,7 @@ from dynamic_tuning_tpu_torch.cli import (add_common_args, args_to_config,
 from dynamic_tuning_tpu_torch.config import DataConfig
 from dynamic_tuning_tpu_torch.parallel.multihost import \
     maybe_initialize_distributed
-from dynamic_tuning_tpu_torch.train.checkpoint import require_pth
+from dynamic_tuning_tpu_torch.train.checkpoint import require_checkpoint
 from dynamic_tuning_tpu_torch.train.video_runner import VideoRunner
 
 
@@ -93,7 +93,7 @@ def main(args):
     maybe_initialize_distributed(args.device)
     device = resolve_device(args.device, "main_video")
     if args.eval_ckpt:
-        require_pth(args.eval_ckpt)
+        require_checkpoint(args.eval_ckpt)
     runner = VideoRunner(build_config(args), device)
     if args.eval:
         if args.eval_ckpt:

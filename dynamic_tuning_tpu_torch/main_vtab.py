@@ -21,7 +21,7 @@ from dynamic_tuning_tpu_torch.cli import (add_common_args, args_to_config,
 from dynamic_tuning_tpu_torch.data.vtab import VTAB_TASKS
 from dynamic_tuning_tpu_torch.parallel.multihost import \
     maybe_initialize_distributed
-from dynamic_tuning_tpu_torch.train.checkpoint import require_pth
+from dynamic_tuning_tpu_torch.train.checkpoint import require_checkpoint
 from dynamic_tuning_tpu_torch.train.runner import Runner
 
 
@@ -55,7 +55,7 @@ def main(args):
     maybe_initialize_distributed(args.device)
     device = resolve_device(args.device, "main_vtab")
     if args.eval_ckpt:
-        require_pth(args.eval_ckpt)
+        require_checkpoint(args.eval_ckpt)
     task = args.task or args.dataset or "cifar_vtab"
     tasks = (list(VTAB_TASKS) if task == "all"
              else [t for t in task.split(",") if t])

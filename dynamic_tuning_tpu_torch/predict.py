@@ -17,9 +17,11 @@ device unless ``--device cpu`` is given; without a card it raises.
   config where the fast forward would not.
 * Batches larger than 128 run as chained 128-image chunks
   (``chunked_serving``).
-* Checkpoints: a ``.pth``/``.pt`` state dict (timm/DyT names) loads through
-  ``load_timm_state_dict``; flax ``.msgpack`` checkpoints are not read here
-  (ROADMAP.md).
+* Checkpoints: a ``.pth``/``.pt`` state dict (timm/DyT names), or the JAX
+  package's ``final_checkpoint.msgpack`` (a flax param tree, read by
+  ``train/checkpoint.load_params`` through ``from_flax_params``), loads
+  through ``load_timm_state_dict`` into the same tensors; what follows the
+  load does not know which file it came from.
 
 The work splits into ``load_canvases`` (decode to uint8 canvases on the
 host) and ``serve`` (transforms and forwards on the device), so a caller
@@ -41,8 +43,7 @@ import sys
 import numpy as np
 import torch
 
-from dynamic_tuning_tpu_torch.checkpoint import (load_timm_state_dict,
-                                                 load_torch_state_dict)
+from dynamic_tuning_tpu_torch.checkpoint import load_timm_state_dict
 from dynamic_tuning_tpu_torch.cli import resolve_device
 from dynamic_tuning_tpu_torch.config import (ModelConfig, SelectConfig,
                                              TuningConfig)
@@ -52,6 +53,7 @@ from dynamic_tuning_tpu_torch.models.fast_inference import (chunked_serving,
                                                             fast_vit_forward,
                                                             serving_params)
 from dynamic_tuning_tpu_torch.models.vit import VisionTransformer
+from dynamic_tuning_tpu_torch.train import checkpoint as C
 
 # Carried over from the JAX package (its TPU batch curve put the dispatch
 # crossover at ~8): below this batch --mode auto serves dense.  Not yet
@@ -111,11 +113,7 @@ def load_params(args, device, state_dict=None):
     model = VisionTransformer(cfg, tuning=tuning, select=sel,
                               dtype=torch.bfloat16)
     if state_dict is None:
-        if not args.ckpt.endswith((".pth", ".pt")):
-            raise NotImplementedError(
-                f"{args.ckpt}: only .pth/.pt state dicts load in the port; "
-                "flax .msgpack checkpoints are not ported (ROADMAP.md)")
-        state_dict = load_torch_state_dict(args.ckpt)
+        state_dict = C.load_params(args.ckpt)
     load_timm_state_dict(model, state_dict, log=lambda m: None)
     model = model.to(device)
     return serving_params(model) if args.quant == "none" else model

@@ -7,21 +7,24 @@ recipe): training and evaluation.
     python -m dynamic_tuning_tpu_torch.seg_train --data_path ADE \
         --finetune vit_base_patch16_224_in21k.pth
     python -m dynamic_tuning_tpu_torch.seg_train --eval --data_path ADE \
-        --eval_ckpt output_dir/checkpoint-16000.pth
+        --eval_ckpt output_dir/checkpoint-16000.msgpack
 
 Same flags and defaults as ``seg_train.py``: crop 512, AdamW 1e-3 weight
 decay 0.05, poly LR with a 1500-iteration warmup, 160k iterations at batch
 2, drop path 0.1, a slide evaluation (crop ``--crop_size``, stride
 ``--slide_stride``) every ``--eval_interval`` iterations and at the end,
-``checkpoint-{iter}.pth`` in ``--output_dir`` when the mIoU is at least the
-best so far; ``--resume`` continues from one.  ``--eval`` only evaluates
-(``--eval_ckpt``: such a checkpoint or a whole port segmentor state dict).
+``checkpoint-{iter}.msgpack`` (with ``--seg_norm bn`` and its
+``aux-batch_stats-{iter}.msgpack``, the JAX runner's files) in
+``--output_dir`` when the mIoU is at least the best so far; ``--resume``
+continues from one (or from a ``.pth`` of earlier port runs).  ``--eval``
+only evaluates (``--eval_ckpt``: such a checkpoint or a whole segmentor's
+weights).
 ``--seg_norm bn`` trains the heads' BatchNorm; ``--quant int8`` trains in
 bf16 and evaluates in int8; ``--remat`` recomputes each block in the
 backward.  Weights are random from ``--seed`` unless ``--finetune`` names
-a ``.pth`` backbone.  Runs on the CUDA device and raises when there is
-none; ``--device cpu`` runs it on the CPU (fp32 or bf16, plain versions of
-the kernels), e.g. at a toy crop:
+a ``.pth`` backbone or a ``.msgpack`` segmentor.  Runs on the CUDA
+device and raises when there is none; ``--device cpu`` runs it on the CPU
+(fp32 or bf16, plain versions of the kernels), e.g. at a toy crop:
 
     python -m dynamic_tuning_tpu_torch.seg_train --dataset synthetic \
         --crop_size 32 --device cpu --compute_dtype float32 \

@@ -21,7 +21,11 @@ head train) or ``--fulltune``; the effective batch and ``absolute_lr``; the
 warmup-cosine schedule per applied step (``accum_iter``), offset by
 ``--start_epoch`` when not resuming; resume restores the weights, the
 optimizer, the step and the best metric; a checkpoint is saved only when
-the metric does not fall; ``final_checkpoint.pth`` at the end.  Every draw
+the metric does not fall; ``final_checkpoint.msgpack`` at the end.  The
+files are the JAX runner's (``checkpoint-<epoch>.msgpack``, read and
+written by ``train/checkpoint.py``): a JAX run resumes here and a run of
+the port resumes in the JAX package; ``--resume`` also takes a ``.pth`` of
+earlier port runs.  Every draw
 is a function of (seed, step) or (seed, epoch): the loader's permutation,
 the crops and flips, the routers' noise and the dropout masks, so a resumed
 run continues what an uninterrupted one would have done.
@@ -49,8 +53,7 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from dynamic_tuning_tpu_torch.checkpoint import (load_timm_state_dict,
-                                                 load_torch_state_dict)
+from dynamic_tuning_tpu_torch.checkpoint import load_timm_state_dict
 from dynamic_tuning_tpu_torch.cli import require_card_dtype, resolve_device
 from dynamic_tuning_tpu_torch.config import RunConfig
 from dynamic_tuning_tpu_torch.data.datasets import build_image_dataset
@@ -106,7 +109,7 @@ class Runner:
                        else resolve_device(None, self.ENTRY))
         require_card_dtype(cfg.compute_dtype, self.device, self.ENTRY)
         if cfg.resume:
-            C.require_pth(cfg.resume)
+            C.require_checkpoint(cfg.resume)
         self.rank, self.world = P.process_index(), P.process_count()
         self.logger = create_logger(cfg.output_dir, self.rank)
         tb_dir = cfg.log_dir or cfg.output_dir
@@ -130,10 +133,11 @@ class Runner:
             model_cfg, tuning=cfg.tuning, select=cfg.select,
             dtype=self.dtype,
             generator=torch.Generator().manual_seed(cfg.seed))
-        # pretrained import, then the head re-drawn (main_image.py:219-247)
+        # pretrained import (a timm .pth, or a .msgpack param tree as the
+        # JAX runner takes it), then the head re-drawn (main_image.py:219-247)
         if cfg.finetune:
             missing, _ = load_timm_state_dict(
-                self.model, load_torch_state_dict(cfg.finetune),
+                self.model, C.load_params(cfg.finetune),
                 log=self.logger.info)
             self.logger.info(f"missing (stay at init): {missing}")
             C.reinit_head(self.model, torch.Generator().manual_seed(
@@ -339,7 +343,8 @@ class Runner:
                 self.logger.info(f"Max metric: {max_metric:.2f}%")
         if cfg.output_dir:
             C.save_params(os.path.join(cfg.output_dir,
-                                       "final_checkpoint.pth"), self.model)
+                                       "final_checkpoint.msgpack"),
+                          self.model)
         self.logger.info(f"Training time {time.time() - t0:.0f}s; "
                          f"max metric {max_metric:.2f}")
         return {"max_metric": max_metric}

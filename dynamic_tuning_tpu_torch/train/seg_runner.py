@@ -15,8 +15,10 @@ master parameters; the freeze rule trains the adapters, routers,
 relative-position tables, FPN necks and both heads
 (``seg_trainable_predicate``).  With ``--seg_norm bn`` the heads' BatchNorm
 normalises by batch statistics and carries its running statistics, which
-the checkpoint holds.  Per step, the loader's uint8 batch is copied to the
-device once and normalized there; step i-1's loss parts are read on the
+go beside the checkpoint in the JAX runner's sidecar
+(``aux-batch_stats-<iter>.msgpack``, restored on a resume; a ``.pth``
+checkpoint of earlier runs holds them inside).  Per step, the loader's
+uint8 batch is copied to the device once and normalized there; step i-1's loss parts are read on the
 host after step i is enqueued.  Every draw is a function of (seed,
 iteration): the loader's permutation and crops by epoch, the routers'
 noise and the dropout masks by step, so a run resumed from a checkpoint
@@ -32,7 +34,8 @@ Evaluation: per validation image, the normalized image is slid over, the
 logits are resized bilinearly to the ground truth's shape (mmseg's
 protocol: the prediction goes back to the original resolution, never the
 GT down), arg-maxed and counted into a confusion matrix.  ``--eval_ckpt``
-takes a checkpoint of ``run`` or a whole segmentor state dict.
+takes a checkpoint of ``run`` (with its sidecar) or a whole segmentor's
+weights (a ``.msgpack`` param tree or a state dict).
 
 Across processes (``parallel/``): the loader shards by rank, the step's
 draws, ``seg_loss`` and the BatchNorm statistics are the global batch's
@@ -53,6 +56,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from dynamic_tuning_tpu_torch import serialization
 from dynamic_tuning_tpu_torch.checkpoint import (load_timm_state_dict,
                                                  load_torch_state_dict)
 from dynamic_tuning_tpu_torch.cli import require_card_dtype, resolve_device
@@ -150,7 +154,7 @@ class SegRunner:
                        else resolve_device(None, "seg_train.py"))
         require_card_dtype(cfg.compute_dtype, self.device, "seg_train.py")
         if cfg.resume:
-            C.require_pth(cfg.resume)
+            C.require_checkpoint(cfg.resume)
         self.rank, self.world = P.process_index(), P.process_count()
         self.logger = create_logger(cfg.output_dir, self.rank)
         self.log = log or self.logger.info
@@ -170,7 +174,11 @@ class SegRunner:
             select=cfg.select, norm=norm, head_channels=head_channels or None,
             dtype=self.dtype, generator=torch.Generator().manual_seed(
                 cfg.seed))
-        if cfg.finetune:
+        if cfg.finetune.endswith(".msgpack"):
+            # a whole segmentor's param tree, as the JAX runner takes it
+            load_timm_state_dict(self.model, C.load_params(cfg.finetune),
+                                 log=self.log)
+        elif cfg.finetune:
             # backbone import (reference seg_train.py:216-221)
             load_timm_state_dict(self.model.backbone,
                                  load_torch_state_dict(cfg.finetune),
@@ -192,7 +200,8 @@ class SegRunner:
         self.start_iter = 0
         self.max_miou = 0.0
         if cfg.resume:
-            _, extra = C.load_checkpoint(cfg.resume, self.model, self.state)
+            it, extra = C.load_checkpoint(cfg.resume, self.model, self.state)
+            C.restore_aux_state(cfg.resume, self.model, self.buffers, it)
             self.start_iter = self.state.step
             # saved only on improvement: the stored mIoU is the best so far
             self.max_miou = float(extra.get("miou", 0.0))
@@ -236,15 +245,19 @@ class SegRunner:
         return seg_normalize(x), y
 
     def load_eval_checkpoint(self, path: str) -> None:
-        """A checkpoint of ``run`` (its trainable tensors and BatchNorm
-        statistics) or a whole segmentor state dict, strictly."""
-        C.require_pth(path)
-        blob = torch.load(path, map_location="cpu", weights_only=True)
-        if isinstance(blob, dict) and "optimizer" in blob:
-            C.load_checkpoint(path, self.model)
+        """A checkpoint of ``run`` (its parameters and BatchNorm
+        statistics) or a whole segmentor's weights, strictly."""
+        C.require_checkpoint(path)
+        if path.endswith(".msgpack"):
+            is_ckpt = "opt_state" in serialization.read_file(path)
         else:
-            self.model.load_state_dict(load_torch_state_dict(path),
-                                       strict=True)
+            blob = torch.load(path, map_location="cpu", weights_only=True)
+            is_ckpt = isinstance(blob, dict) and "optimizer" in blob
+        if is_ckpt:
+            it, _ = C.load_checkpoint(path, self.model)
+            C.restore_aux_state(path, self.model, self.buffers, it)
+        else:
+            self.model.load_state_dict(C.load_params(path), strict=True)
 
     def _apply(self, tiles: torch.Tensor) -> torch.Tensor:
         logits, _, _ = self.model(tiles, aux_logits=False)
@@ -281,6 +294,17 @@ class SegRunner:
             {k: round(float(v), 4) for k, v in stats.items()}))
         return stats
 
+    def _save(self, it: int, miou: float) -> None:
+        """The checkpoint of iteration ``it`` and the BatchNorm statistics
+        in their sidecar (JAX ``seg_runner.py:277-287``)."""
+        cfg = self.cfg
+        C.save_checkpoint(cfg.output_dir, self.model, self.state, it,
+                          extra={"miou": miou}, auto_remove=cfg.auto_remove)
+        own = dict(self.model.named_buffers())
+        C.save_aux_state(cfg.output_dir, "batch_stats",
+                         {n: own[n] for n in self.buffers}, it,
+                         auto_remove=cfg.auto_remove)
+
     def run(self) -> Dict[str, float]:
         """Train from ``start_iter`` to ``total_iters``; returns
         ``{"max_miou": ...}``."""
@@ -311,11 +335,7 @@ class SegRunner:
                     pending = None
                     stats = self.evaluate()
                     if cfg.output_dir and stats["metric"] >= max_miou:
-                        C.save_checkpoint(cfg.output_dir, self.model,
-                                          self.state, it,
-                                          extra={"miou": stats["metric"]},
-                                          auto_remove=cfg.auto_remove,
-                                          buffers=self.buffers)
+                        self._save(it, stats["metric"])
                     max_miou = max(max_miou, stats["metric"])
                 if it >= self.total_iters:
                     break

@@ -9,7 +9,7 @@ attentive pooling train beside adapters, routers and head; ``--fulltune``
 trains everything), the clip augmentation on the device
 (``data/video_transforms.py``: the draws from a host generator seeded by
 (seed, step)) and a multi-view eval.  The train loop, the engine, the
-optimizer and its schedule, checkpoints, resume and ``final_checkpoint.pth``
+optimizer and its schedule, checkpoints, resume and ``final_checkpoint.msgpack``
 are the image runner's.
 
 Eval: the val loader yields ``[B, V, T, H, W, C]`` clips of V views in

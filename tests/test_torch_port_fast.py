@@ -307,11 +307,14 @@ def test_predict_matches_jax(predict_setup, monkeypatch, mode, quant):
 
 
 def test_predict_refuses_msgpack_and_missing_card(predict_setup):
+    """A file that is neither a .msgpack nor a .pth is refused (a .msgpack
+    serves: tests/test_torch_port_msgpack.py), and so is a run with no
+    card and no --device cpu."""
     images, _ = predict_setup
     p = port_predict.get_args_parser()
-    args = p.parse_args(["--ckpt", "model.msgpack", "--images", images,
+    args = p.parse_args(["--ckpt", "model.ckpt", "--images", images,
                          "--device", "cpu"] + ARCH)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    with pytest.raises(NotImplementedError, match="a checkpoint is"):
         port_predict.main(args)
     if not torch.cuda.is_available():
         args = p.parse_args(["--ckpt", "m.pth", "--images", images] + ARCH)

@@ -362,7 +362,7 @@ def _resume_case(out) -> dict:
 
     a = runner(out / "a")
     a.run()
-    c = runner(out / "c", resume=str(out / "a" / "checkpoint-0.pth"))
+    c = runner(out / "c", resume=str(out / "a" / "checkpoint-0.msgpack"))
     c.run()
     pa, pc = dict(a.model.named_parameters()), dict(c.model.named_parameters())
     oa, oc = a.state.optimizer, c.state.optimizer
@@ -773,7 +773,8 @@ def test_world2_resume_is_bit_identical(worlds):
         assert res["differ"] == [], res["differ"][:6]
         assert res["count"][0] == res["count"][1] == res["steps"]
     files = worlds["ranks"][0]["resume"]["files"]
-    assert "checkpoint-0.pth" in files and "final_checkpoint.pth" in files
+    assert ("checkpoint-0.msgpack" in files
+            and "final_checkpoint.msgpack" in files)
     assert "log_rank1.txt" in files and "scalars.tsv" in files
 
 

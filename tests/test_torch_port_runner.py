@@ -27,7 +27,7 @@ of 128 (256 where JAX is not compared).
   with them off.
 * Train -> eval -> train in bf16 (the serving weight copies are made
   under inference mode between epochs): the second eval equals an eval of
-  a fresh model loaded from ``final_checkpoint.pth``.
+  a fresh model loaded from ``final_checkpoint.msgpack``.
 * Checkpoints: save/load bit-exact, ``auto_remove``, ``final_checkpoint.pth``
   into the JAX model through ``load_torch_state_dict`` + ``import_pretrained``
   (eval logits within 1e-5), ``--finetune`` (only the head re-drawn, std
@@ -334,15 +334,15 @@ def test_resume_is_bit_identical(tmp_path, aug):
     a = Runner(cfg, "cpu")
     a_evals = _recorded_evals(a)
     a.run()
-    ckpt = tmp_path / "a" / "checkpoint-0.pth"
+    ckpt = tmp_path / "a" / "checkpoint-0.msgpack"
     assert ckpt.exists()
     c = Runner(cfg.replace(resume=str(ckpt), output_dir=str(tmp_path / "c")),
                "cpu")
     assert c.start_epoch == 1 and c.state.step == 4
     assert c.max_metric == a_evals[0]["stats"]["metric"]
     c.run()
-    fa = torch.load(tmp_path / "a" / "final_checkpoint.pth")
-    fc = torch.load(tmp_path / "c" / "final_checkpoint.pth")
+    fa = C.load_params(str(tmp_path / "a" / "final_checkpoint.msgpack"))
+    fc = C.load_params(str(tmp_path / "c" / "final_checkpoint.msgpack"))
     assert fa.keys() == fc.keys()
     for k in fa:
         assert torch.equal(fa[k], fc[k]), k
@@ -356,14 +356,14 @@ def test_resume_is_bit_identical(tmp_path, aug):
     b = Runner(cfg.replace(output_dir=str(tmp_path / "b"), start_epoch=1),
                "cpu")
     b.run()
-    fb = torch.load(tmp_path / "b" / "final_checkpoint.pth")
+    fb = C.load_params(str(tmp_path / "b" / "final_checkpoint.msgpack"))
     assert any(not torch.equal(fa[k], fb[k]) for k in fa)
 
 
 def test_train_eval_train_equals_a_fresh_model(tmp_path):
     """bf16: the eval between epochs makes the serving weight copies under
     inference mode; the next epoch trains, and the eval after it equals
-    an eval of a fresh model loaded from final_checkpoint.pth."""
+    an eval of a fresh model loaded from final_checkpoint.msgpack."""
     cfg = port_cfg(run_cfg(tmp_path / "a", batch=256, dtype="bfloat16"))
     a = Runner(cfg, "cpu")
     evals = _recorded_evals(a)
@@ -371,8 +371,8 @@ def test_train_eval_train_equals_a_fresh_model(tmp_path):
     assert len(evals) == 2
     assert not torch.equal(evals[0]["logits"][0], evals[1]["logits"][0])
     fresh = Runner(cfg.replace(output_dir=str(tmp_path / "f")), "cpu")
-    load_timm_state_dict(fresh.model, load_torch_state_dict(
-        str(tmp_path / "a" / "final_checkpoint.pth")))
+    load_timm_state_dict(fresh.model, C.load_params(
+        str(tmp_path / "a" / "final_checkpoint.msgpack")))
     again = _recorded_evals(fresh)
     fresh.evaluate()
     assert again[0]["stats"] == evals[1]["stats"]
@@ -421,7 +421,7 @@ def test_auto_remove_prunes_older_checkpoints(tmp_path):
     C.save_checkpoint(str(tmp_path), r.model, r.state, 3, tag="best",
                       auto_remove=True)
     names = sorted(p.name for p in tmp_path.iterdir() if p.is_file())
-    assert names == ["best.pth", "checkpoint-2.pth"]
+    assert names == ["best.msgpack", "checkpoint-2.msgpack"]
     assert not any(p.name.endswith(".tmp") for p in tmp_path.iterdir())
 
 
@@ -563,9 +563,9 @@ def test_main_image_trains_and_evaluates_on_the_cpu(tmp_path, monkeypatch,
     parse = main_image.get_args_parser().parse_args
     out = main_image.main(parse(flags))
     assert out["max_metric"] >= 0.0
-    assert (tmp_path / "final_checkpoint.pth").exists()
+    assert (tmp_path / "final_checkpoint.msgpack").exists()
     stats = main_image.main(parse(flags + [
-        "--eval", "--eval_ckpt", str(tmp_path / "checkpoint-0.pth")]))
+        "--eval", "--eval_ckpt", str(tmp_path / "checkpoint-0.msgpack")]))
     assert stats["metric"] == out["max_metric"]
     assert "Accuracy on the val set" in capsys.readouterr().out
 
@@ -584,7 +584,7 @@ def test_main_vtab_runs_a_task_list_on_the_cpu(tmp_path, monkeypatch,
     results = main_vtab.main(args)
     assert set(results) == {"synthetic", "synthetic_b"}
     for task in results:
-        assert (tmp_path / task / "final_checkpoint.pth").exists()
+        assert (tmp_path / task / "final_checkpoint.msgpack").exists()
     printed = capsys.readouterr().out
     assert '"mean_top1"' in printed
 
@@ -608,11 +608,12 @@ def test_refusals_at_the_edges_of_the_slice(tmp_path):
     cfg = port_cfg(run_cfg(tmp_path))
     with pytest.raises(ValueError, match="compute_dtype float32"):
         Runner(cfg, torch.device("cuda"))
-    with pytest.raises(NotImplementedError, match="only .pth"):
-        Runner(cfg.replace(resume=str(tmp_path / "checkpoint-0.msgpack")),
+    # a checkpoint is a .msgpack or a .pth/.pt
+    with pytest.raises(NotImplementedError, match="a checkpoint is"):
+        Runner(cfg.replace(resume=str(tmp_path / "checkpoint-0.ckpt")),
                "cpu")
-    with pytest.raises(NotImplementedError, match="only .pth"):
+    with pytest.raises(NotImplementedError, match="a checkpoint is"):
         main_image.main(parse(["--device", "cpu", "--eval", "--eval_ckpt",
-                               str(tmp_path / "final.msgpack")]))
-    with pytest.raises(NotImplementedError, match="only .pth"):
-        Runner(cfg.replace(finetune=str(tmp_path / "x.msgpack")), "cpu")
+                               str(tmp_path / "final.ckpt")]))
+    with pytest.raises(NotImplementedError, match="a checkpoint is"):
+        Runner(cfg.replace(finetune=str(tmp_path / "x.ckpt")), "cpu")

@@ -786,13 +786,14 @@ def test_seg_train_cli(tmp_path):
     with torch.enable_grad():
         out = seg_train.main(p.parse_args(train + ["--output_dir", str(a)]))
         assert set(out) == {"max_miou"} and out["max_miou"] >= 0.0
-        assert (a / "checkpoint-2.pth").exists()
+        assert (a / "checkpoint-2.msgpack").exists()
         runner = seg_train.build_runner(p.parse_args(train + [
-            "--output_dir", str(c), "--resume", str(a / "checkpoint-2.pth")]),
+            "--output_dir", str(c), "--resume",
+            str(a / "checkpoint-2.msgpack")]),
             log=lambda m: None)
         assert runner.device.type == "cpu" and runner.num_classes == 150
         assert runner.start_iter == 2
         assert runner.run() == out
-    runner.load_eval_checkpoint(str(a / "checkpoint-2.pth"))
+    runner.load_eval_checkpoint(str(a / "checkpoint-2.msgpack"))
     stats = runner.evaluate(max_images=1)
     assert stats["images"] == 1 and 0.0 <= stats["aAcc"] <= 100.0

@@ -16,6 +16,9 @@ package's, on the CPU.
   Each step is also taken from the JAX runner's state before it, and the
   free-running gap is traced to the step whose head ReLU inputs change
   side;
+* the JAX runner's checkpoint and BatchNorm sidecar resume the port's
+  runner exactly and the port's resume the JAX runner's, each followed by
+  a step on both sides within the trajectory tolerance;
 * a resume: 4 iterations with evaluations at 2 and 4 against a run resumed
   from the iteration-2 checkpoint, bit for bit; the draws of remat'ed
   windowed blocks; the serving copies after optimizer steps;
@@ -43,10 +46,12 @@ from flax import traverse_util
 from dynamic_tuning_tpu import config as jc
 from dynamic_tuning_tpu.models import upernet as jup
 from dynamic_tuning_tpu.ops import quant as jq
+from dynamic_tuning_tpu.train import checkpoint as jckpt
 from dynamic_tuning_tpu.train import optim as joptim
 from dynamic_tuning_tpu.train import seg_runner as jsr
 from dynamic_tuning_tpu.train.engine import create_train_state
 from dynamic_tuning_tpu_torch import config as tc
+from dynamic_tuning_tpu_torch import serialization
 from dynamic_tuning_tpu_torch.checkpoint import (_find_states,
                                                  _to_torch_layout,
                                                  flax_path_to_port,
@@ -54,6 +59,7 @@ from dynamic_tuning_tpu_torch.checkpoint import (_find_states,
 from dynamic_tuning_tpu_torch.models import layers as tlayers
 from dynamic_tuning_tpu_torch.models import upernet as tup
 from dynamic_tuning_tpu_torch.ops import quant as tq
+from dynamic_tuning_tpu_torch.train import checkpoint as C
 from dynamic_tuning_tpu_torch.train import seg_runner as tsr
 
 DIM, DEPTH, HEADS, FFN, IMG, PATCH, HEAD_CH = 128, 4, 2, 8, 64, 16, 64
@@ -504,7 +510,8 @@ def trajectory(tmp_path_factory):
             rerun = _jax_state(jr)[0]
     return dict(pr=pr, jparts=jparts, pparts=pparts, forced=forced,
                 free=free, kinks=kinks, first=first, final=final,
-                rerun=rerun, names=pr.state.optimizer.names)
+                rerun=rerun, names=pr.state.optimizer.names, jr=jr,
+                noise=noise, gate_noise=gate_noise, snaps=snaps)
 
 
 def test_seg_trajectory_loss_parts_match_jax(trajectory):
@@ -590,6 +597,65 @@ def _port_run(out, **kw):
                          log=lambda m: None)
 
 
+def _same_state(got, want):
+    """Two ``_port_state``s equal on ``want``'s keys, bit for bit."""
+    for g, w in zip(got[:3], want[:3]):
+        for k in w:
+            np.testing.assert_array_equal(g[k], w[k], err_msg=k)
+    assert got[3] == want[3]
+
+
+def test_seg_checkpoint_crosses_to_and_from_jax(trajectory, tmp_path):
+    """The JAX SegRunner's checkpoint and ``aux-batch_stats`` sidecar
+    resume the port's SegRunner exactly, and the next step on each side
+    lands within ``PARAM_TOL`` on every element (running statistics
+    included); the port's checkpoint and sidecar resume the JAX runner
+    (``load_checkpoint``, ``load_aux_state``) exactly, and the next steps
+    agree again."""
+    jr, gate_noise = trajectory["jr"], trajectory["gate_noise"]
+    # the JAX runner's state after its second step (its schedule runs to
+    # STEPS, so the steps after it have a nonzero lr)
+    state, stats = trajectory["snaps"][1]
+    (x1, y1), (x2, y2) = _data(9, 2, TRAJ_B)
+    it = int(state.step)
+    jdir, pdir = tmp_path / "jax", tmp_path / "port"
+    jckpt.save_checkpoint(str(jdir), state, it, extra={"miou": 1.5})
+    jckpt.save_aux_state(str(jdir), "batch_stats", stats, it)
+    jr.state = jax.tree_util.tree_map(jnp.asarray, state)
+    jr.batch_stats = jax.tree_util.tree_map(jnp.asarray, stats)
+    with pytest.MonkeyPatch.context() as mp:
+        _patch_jax(mp, trajectory["noise"])
+        mp.setattr(tsr, "poly_schedule", functools.partial(
+            tsr.poly_schedule, warmup_iters=WARMUP))
+        _frozen_too(mp)
+        pr = tsr.SegRunner(port_cfg(run_cfg(pdir, TRAJ_B)).replace(
+            resume=str(jdir / f"checkpoint-{it}.msgpack")),
+            total_iters=STEPS, eval_interval=STEPS, crop=IMG,
+            norm=TRAJ_NORM, head_channels=TRAJ_HEAD, device="cpu",
+            log=lambda m: None)
+        pr.model.decode_head.dropout = pr.model.auxiliary_head.dropout = 0.0
+        assert (pr.start_iter, pr.max_miou) == (it, 1.5)
+        _same_state(_port_state(pr), _jax_state(jr))
+        for x, y in ((x1, y1), (x2, y2)):
+            jr.state, jr.batch_stats, _ = jr.train_step(
+                jr.state, jr.batch_stats, jnp.asarray(x), jnp.asarray(y))
+            pr.train_step(_t(x), _t(y).long(), gate_noise=gate_noise)
+            assert _off(_port_state(pr)[0], _jax_state(jr)[0])[0] == 0
+            if x is x1:     # port -> JAX after the first step
+                pr._save(it + 1, 2.5)
+                assert {"checkpoint-%d.msgpack" % (it + 1),
+                        "aux-batch_stats-%d.msgpack" % (it + 1)} <= set(
+                            os.listdir(pdir))
+                state, last, extra = jckpt.load_checkpoint(
+                    str(pdir / f"checkpoint-{it + 1}.msgpack"), jr.state)
+                assert (last, float(extra["miou"])) == (it + 1, 2.5)
+                jr.state = state
+                jr.batch_stats = jax.tree_util.tree_map(
+                    jnp.asarray, jckpt.load_aux_state(
+                        str(pdir), "batch_stats", jr.batch_stats))
+                _same_state(_jax_state(jr), _port_state(pr))
+
+
 def test_seg_resume_is_bit_identical(tmp_path):
     """4 iterations (evaluations at 2 and 4, drop path and head dropout
     on), then a run resumed from the iteration-2 checkpoint: trainable
@@ -597,9 +663,9 @@ def test_seg_resume_is_bit_identical(tmp_path):
     a = _port_run(tmp_path / "a")
     a.val_ds.n = 2
     a.run()
-    assert "checkpoint-2.pth" in os.listdir(tmp_path / "a")
+    assert "checkpoint-2.msgpack" in os.listdir(tmp_path / "a")
     c = _port_run(tmp_path / "c",
-                  resume=str(tmp_path / "a" / "checkpoint-2.pth"))
+                  resume=str(tmp_path / "a" / "checkpoint-2.msgpack"))
     c.val_ds.n = 2
     assert c.start_iter == 2
     c.run()
@@ -615,15 +681,17 @@ def test_seg_resume_is_bit_identical(tmp_path):
     ba, bc = dict(a.model.named_buffers()), dict(c.model.named_buffers())
     for n in a.buffers:
         assert torch.equal(ba[n], bc[n]), n
-    path = str(tmp_path / "a" / "checkpoint-2.pth")
-    blob = torch.load(path)
-    assert set(blob["buffers"]) == set(a.buffers) and blob["step"] == 2
+    path = str(tmp_path / "a" / "checkpoint-2.msgpack")
+    assert serialization.read_file(path)["step"] == 2
+    # the BatchNorm statistics are in the JAX runner's sidecar
+    saved = C.load_aux_state(str(tmp_path / "a"), "batch_stats", step=2)
+    assert set(saved) == set(a.buffers)
     # --eval_ckpt takes it: the BatchNorm statistics come back too
     fresh = _port_run(tmp_path / "e")
     fresh.load_eval_checkpoint(path)
     bf = dict(fresh.model.named_buffers())
     for n in a.buffers:
-        assert torch.equal(bf[n], blob["buffers"][n]), n
+        assert torch.equal(bf[n], saved[n]), n
         assert not torch.equal(bf[n], ba[n]), n
 
 

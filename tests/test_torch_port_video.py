@@ -521,12 +521,12 @@ def test_video_resume_is_bit_identical(tmp_path, monkeypatch):
     a = tvr.VideoRunner(cfg, "cpu")
     a.run()
     c = tvr.VideoRunner(cfg.replace(
-        resume=str(tmp_path / "a" / "checkpoint-0.pth"),
+        resume=str(tmp_path / "a" / "checkpoint-0.msgpack"),
         output_dir=str(tmp_path / "c")), "cpu")
     assert c.start_epoch == 1 and c.state.step == 2
     c.run()
-    fa = torch.load(tmp_path / "a" / "final_checkpoint.pth")
-    fc = torch.load(tmp_path / "c" / "final_checkpoint.pth")
+    fa = C.load_params(str(tmp_path / "a" / "final_checkpoint.msgpack"))
+    fc = C.load_params(str(tmp_path / "c" / "final_checkpoint.msgpack"))
     assert fa.keys() == fc.keys() and "query_token" in fa
     for k in fa:
         assert torch.equal(fa[k], fc[k]), k
@@ -576,9 +576,9 @@ def test_main_video_trains_and_evaluates_on_the_cpu(tmp_path, monkeypatch,
              str(tmp_path)]
     parse = main_video.get_args_parser().parse_args
     out = main_video.main(parse(flags))
-    assert (tmp_path / "final_checkpoint.pth").exists()
+    assert (tmp_path / "final_checkpoint.msgpack").exists()
     stats = main_video.main(parse(flags + [
-        "--eval", "--eval_ckpt", str(tmp_path / "checkpoint-0.pth")]))
+        "--eval", "--eval_ckpt", str(tmp_path / "checkpoint-0.msgpack")]))
     assert stats["metric"] == out["max_metric"]
     assert stats["gflops_per_clip"] > 0
     assert "Accuracy on the val set" in capsys.readouterr().out
@@ -608,13 +608,14 @@ def test_video_refusals_and_the_card_default(tmp_path):
     cfg = port_cfg(run_cfg(tmp_path))
     with pytest.raises(ValueError, match="compute_dtype float32"):
         tvr.VideoRunner(cfg, torch.device("cuda"))
-    for bad in (dict(resume=str(tmp_path / "checkpoint-0.msgpack")),
-                dict(finetune=str(tmp_path / "x.msgpack"))):
-        with pytest.raises(NotImplementedError, match="only .pth"):
+    # a checkpoint is a .msgpack or a .pth/.pt
+    for bad in (dict(resume=str(tmp_path / "checkpoint-0.ckpt")),
+                dict(finetune=str(tmp_path / "x.ckpt"))):
+        with pytest.raises(NotImplementedError, match="a checkpoint is"):
             tvr.VideoRunner(cfg.replace(**bad), "cpu")
-    with pytest.raises(NotImplementedError, match="only .pth"):
+    with pytest.raises(NotImplementedError, match="a checkpoint is"):
         main_video.main(parse(["--device", "cpu", "--eval", "--eval_ckpt",
-                               str(tmp_path / "final.msgpack")]))
+                               str(tmp_path / "final.ckpt")]))
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="--device cpu"):
             main_video.main(parse(["--dataset", "synthetic"]))
