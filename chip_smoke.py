@@ -235,7 +235,31 @@ Phases; any failure exits non-zero:
      decoded and re-encoded byte for byte; (e) the native video decoder:
      if it builds, the committed clip's frames equal the JAX decoder's
      stored frames, else ``native_video: unavailable: <why>``;
- 16. the wall time (and each new phase's), the card's name and power limit
+ 16. the fp32 forms, the adapter and MoE widths and the head dims the JAX
+     kernels take and the wgmma kernels are not built for (``FORMS``):
+     each fp32 form against its plain version at ViT-B/16 width (B=32,
+     N=197, 12 heads of 64, F=64, MoE 4 x 64; K9 at B=1, N=1025), within
+     1e-5 of the plain version's largest |output|, router logits too
+     (K6/K8 with fp32 adapters also print the share within 1e-5: their
+     core's output is requantized, so it must land on the plain version's
+     bits), with its bound, K1/K9 beside SDPA in fp32 and the fp32
+     GEMM alone beside torch.matmul with TF32 off; the bf16 forms at F = 8
+     (padded) and 256 (the SIMT tail), MoE 2 x 4 (padded) and 4 x 192 (the
+     SIMT tail), head dims 192 (C=768) and 256 (C=1024) in 4 heads (K3, K6
+     with the int8-score core, K15, K1, K10; K9 at 192); then the main path
+     of each form, the counts set to 0 just before each run: speed.main in
+     fp32 (dispatch, int8 and int8_attn at batch 128 against the
+     plain-version forward, logits within 1e-3 of the largest, gates
+     agreeing on 0.9995 with each differing gate's distances printed;
+     dense; plain and MoE at batch 32 held the same way, int8 MoE to the
+     int8 bounds of phase 3) and in bf16 at F = 256, 8,
+     MoE 4 x 192 and 2 x 4; a bf16 ViT-B/16 at head dim 192; predict.serve
+     at head dim 192 (--quant none and int8_attn); main_image
+     --compute_dtype float32 (2 steps, an evaluation on the dispatch path);
+     an fp32 seg crop evaluation (K9 fp32 in every block); the fp32
+     LayerScale backbone (K1 fp32); each with 12 launches a forward of its
+     kernels and none of the others;
+ 17. the wall time (and each new phase's), the card's name and power limit
      (nvidia-smi), a JSON line of the kernels, and last the JSON result
      line.
 Needs no network and imports nothing of JAX or of the JAX package.
@@ -423,9 +447,9 @@ def check_close(what, got, want, rel=BF16_REL) -> float:
     return err
 
 
-def check_logits(what, got, want) -> float:
+def check_logits(what, got, want, rel=LOGIT_REL) -> float:
     lerr, lmag = rel_err(got, want)
-    tol = LOGIT_REL * lmag
+    tol = rel * lmag
     sure = want.abs() > tol
     flips = int(((got > 0) != (want > 0))[sure].sum())
     if lerr > tol or flips:
@@ -450,11 +474,15 @@ def check_ulp_share(what, got, want) -> None:
 
 
 def measure(name, call, plain, outputs, inputs, ops, timed=None,
-            plain_iters=20) -> dict:
-    """Check ``call()`` against ``plain()`` output by output and time both
-    (``timed()`` in place of ``call()`` when given: the same launch without
-    the wrapper's host work; the plain version over ``plain_iters``
-    calls).  ``outputs`` names each output ("logits" for router logits)."""
+            plain_iters=20, rel=BF16_REL, logit_rel=LOGIT_REL,
+            library=None, check_only=False) -> dict:
+    """Check ``call()`` against ``plain()`` output by output (within ``rel``
+    of each output's largest magnitude, router logits within
+    ``logit_rel``) and, unless ``check_only``, time both (``timed()`` in
+    place of ``call()`` when given: the same launch without the wrapper's
+    host work; the plain version over ``plain_iters`` calls) and
+    ``library()``, one PyTorch call of the same function, when given.
+    ``outputs`` names each output ("logits" for router logits)."""
     import torch
     got, want = call(), plain()
     torch.cuda.synchronize()
@@ -463,16 +491,21 @@ def measure(name, call, plain, outputs, inputs, ops, timed=None,
     worst = 0.0
     for out_name, a, b in zip(outputs, got, want):
         if out_name == "logits":
-            worst = max(worst, check_logits(name, a, b))
+            worst = max(worst, check_logits(name, a, b, logit_rel))
         else:
-            worst = max(worst, check_close(f"{name} {out_name}", a, b))
+            worst = max(worst, check_close(f"{name} {out_name}", a, b, rel))
+    if check_only:
+        print(f"{name}: max|err| {worst:.6g} (checked, not timed)")
+        return dict(max_abs_err=worst)
     ms_k = time_ms(timed or call)
     ms_p = time_ms(plain, iters=plain_iters, warmup=min(3, plain_iters))
+    ms_l = None if library is None else time_ms(library)
     b_ms, b_by = bound(nbytes(*inputs) + nbytes(*got), ops)
+    lib_txt = "" if ms_l is None else f", library {ms_l:.4f} ms"
     print(f"{name}: max|err| {worst:.6g}; kernel {ms_k:.4f} ms, plain "
-          f"{ms_p:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+          f"{ms_p:.4f} ms{lib_txt}, bound {b_ms:.4f} ms ({b_by})")
     return dict(max_abs_err=worst, ms=ms_k, plain_ms=ms_p, bound_ms=b_ms,
-                bound_by=b_by, library_ms=None)
+                bound_by=b_by, library_ms=ms_l)
 
 
 def phase_kernels(torch, ms, qt, _build) -> dict:
@@ -642,7 +675,7 @@ def phase_gemm_reference(torch, _build, pi) -> None:
             _build.check(lib, lib.dyt_q8_stem_gemm(
                 a.data_ptr(), w.data_ptr(), ones_m.data_ptr(),
                 ones_n.data_ptr(), zeros.data_ptr(), M, Nn, K,
-                out.data_ptr(), stream), "int8 GEMM (stem store)")
+                out.data_ptr(), 0, stream), "int8 GEMM (stem store)")
 
         def hand_raw():
             _build.check(lib, lib.dyt_gemm_s8_s32(
@@ -1347,8 +1380,35 @@ def reset_counts(ms, qt, fm) -> None:
 
 
 def read_counts(ms, qt, fm) -> dict:
+    """Each KERNELS entry's launches: a wrapper's count, or for a wrapper
+    with forms (``ms.form_of``) that of the entry's form after its ":"
+    ("bf16" when it names none)."""
     mods = count_modules(ms, qt, fm)
-    return {k: getattr(mods[m], k).launches for k, (m, _) in KERNELS.items()}
+    out = {}
+    for k, (m, _) in KERNELS.items():
+        name, _, form = k.partition(":")
+        fn = getattr(mods[m], name)
+        forms = getattr(fn, "forms", None)
+        out[k] = fn.launches if forms is None else forms.get(form or "bf16",
+                                                             0)
+    return out
+
+
+def speed_run(torch, speed, args, state_dict):
+    """speed.main(args, state_dict).  With a state dict every parameter is
+    loaded from it (checked: none missing), so the model's truncated-normal
+    init draws, ~86 M of them on the host's CPU for ViT-B, are skipped; the
+    model is the same."""
+    if state_dict is None:
+        return speed.main(args)
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out), mock.patch.object(
+            torch.nn.init, "trunc_normal_", lambda t, *a, **k: t):
+        res = speed.main(args, state_dict=state_dict)
+    sys.stdout.write(out.getvalue())
+    if "; 0 missing" not in out.getvalue():
+        fail("speed.main: the state dict left parameters at their init")
+    return res
 
 
 def phase_model(torch, ms, qt, fm, speed, sds) -> dict:
@@ -1359,7 +1419,7 @@ def phase_model(torch, ms, qt, fm, speed, sds) -> dict:
             ["--mode", mode, "--quant", quant, "--moe_experts", str(moe),
              "--moe_router_tau", str(TAU), "--warmup", "3", "--iters", "10"])
         reset_counts(ms, qt, fm)
-        res = speed.main(args, state_dict=sds[moe])
+        res = speed_run(torch, speed, args, sds[moe])
         counts = read_counts(ms, qt, fm)
         stem = qt.q8_patch_embed.launches
         fwd = res["forwards"]
@@ -3108,15 +3168,11 @@ def par_seg_run(torch, ms, ft: str, out: str, batch: int) -> dict:
 
 def par_seg_step32(torch, ft: str, out: str, batch: int) -> dict:
     """par_seg_run's first iteration in fp32, through
-    ``SegRunner.train_step``: the training path has no hand kernel, and the
-    card's refusal of fp32 (``require_card_dtype``) guards the evaluation's
-    bf16 kernels, which this step does not run."""
+    ``SegRunner.train_step``: the training path has no hand kernel."""
     from dynamic_tuning_tpu_torch import seg_train
-    from dynamic_tuning_tpu_torch.train import seg_runner as SR
     args = seg_train.get_args_parser().parse_args(
         _seg_flags(ft, out, batch) + ["--compute_dtype", "float32"])
-    with mock.patch.object(SR, "require_card_dtype", lambda *a: None):
-        runner = seg_train.build_runner(args)
+    runner = seg_train.build_runner(args)
     runner.train_loader.set_epoch(0)
     batches = runner.train_loader.iter_from(0)
     imgs, anns = next(batches)
@@ -3483,6 +3539,596 @@ def phase_parallel(torch, ms, qt, fm, np, sd, seg_sd) -> dict:
     return {"dyt_prologue_serving": k3, "mha_windowed_fused": k9}
 
 
+# --- phase 16: fp32 forms, adapter and MoE widths, head dims 192 and 256 ----
+
+F32_B = 32                      # fp32 kernel checks: ViT-B/16 rows of 32 images
+F32_REL = 1e-5                  # an fp32 form against its plain version
+# fp32 ViT-B/16 forwards against the plain-version forward: the kernels'
+# fp32 sums in other orders, carried through 12 blocks (int8: one code
+# step where an activation sits on a rounding boundary)
+F32_MODEL_REL = 1e-3
+F32_GATE_AGREE = 0.9995
+WIDE_F = 256                    # an adapter past the wgmma tail's 128
+WIDE_MOE = (4, 192)             # E * b = 768, past the wgmma tail's 512
+HD192_HEADS = 4                 # C = 768 in 4 heads of 192
+# name:form -> (module of the wrapper, JSON fields): the forms this phase
+# adds to the kernels line
+FORMS = {
+    "attention_sublayer_serving:fp32": ("ms", dict(
+        route="cuda", source=f"{SRC}/simt_chain.cu",
+        replaces=f"{JAX_OPS}/mha_serving.py:465")),
+    "dyt_prologue_serving:fp32": ("ms", dict(
+        route="cuda", source=f"{SRC}/simt_chain.cu",
+        replaces=f"{JAX_OPS}/mha_serving.py:581")),
+    "dyt_prologue_serving_moe:fp32": ("ms", dict(
+        route="cuda", source=f"{SRC}/simt_chain.cu",
+        replaces=f"{JAX_OPS}/mha_serving.py:763")),
+    "dyt_prologue_serving_q8:fp32": ("qt", dict(
+        route="cuda", source=f"{SRC}/quant.cu",
+        replaces=f"{JAX_OPS}/quant.py:531")),
+    "dyt_prologue_serving_q8_moe:fp32": ("qt", dict(
+        route="cuda", source=f"{SRC}/quant.cu",
+        replaces=f"{JAX_OPS}/quant.py:674")),
+    "attn_core_pairs_q8:fp32": ("qt", dict(
+        route="cuda", source=f"{SRC}/simt_core_q8.cu",
+        replaces=f"{JAX_OPS}/quant.py:309")),
+    "mha_windowed_fused:fp32": ("ms", dict(
+        route="cuda", source=f"{SRC}/simt_core.cu",
+        replaces=f"{JAX_OPS}/mha_serving.py:321")),
+    "mha_serving_fused:fp32": ("ms", dict(
+        route="cuda", source=f"{SRC}/simt_core.cu",
+        replaces=f"{JAX_OPS}/mha_serving.py:219")),
+    "dyt_prologue_serving:bf16+simt_core": ("ms", dict(
+        route="cuda", source=f"{SRC}/simt_core.cu",
+        replaces=f"{JAX_OPS}/mha_serving.py:581")),
+    "dyt_prologue_serving_q8:bf16+simt_core": ("qt", dict(
+        route="cuda", source=f"{SRC}/simt_core.cu",
+        replaces=f"{JAX_OPS}/quant.py:531")),
+    "attn_core_pairs_q8:bf16+simt_core": ("qt", dict(
+        route="cuda", source=f"{SRC}/simt_core_q8.cu",
+        replaces=f"{JAX_OPS}/quant.py:309")),
+    "mha_serving:bf16+simt_core": ("ms", dict(
+        route="cuda", source=f"{SRC}/simt_core.cu",
+        replaces=f"{JAX_OPS}/mha_serving.py:49")),
+    "dyt_prologue_serving:bf16+simt_tail": ("ms", dict(
+        route="cuda", source=f"{SRC}/simt_chain.cu",
+        replaces=f"{JAX_OPS}/mha_serving.py:581")),
+    "dyt_prologue_serving_q8:bf16+simt_tail": ("qt", dict(
+        route="cuda", source=f"{SRC}/simt_chain.cu",
+        replaces=f"{JAX_OPS}/quant.py:531")),
+    "dyt_prologue_serving_moe:bf16+simt_tail": ("ms", dict(
+        route="cuda", source=f"{SRC}/simt_chain.cu",
+        replaces=f"{JAX_OPS}/mha_serving.py:763")),
+}
+KERNELS.update(FORMS)
+# speed.main runs of the phase: (flags, batch, state dict (MoE experts) or
+# None for speed's own random weights, KERNELS entries launched once a
+# block, the bounds it is held to against the plain-version forward:
+# "fp32" (F32_MODEL_REL, F32_GATE_AGREE), "int8" (MODEL_REL: K5's qkv
+# scratch is bf16 at fp32 compute, as the TPU kernel's, so its core rounds
+# as the bf16 core does), or None)
+F32 = ["--compute_dtype", "float32", "--residual_dtype", "float32"]
+FORM_RUNS = [
+    (F32 + ["--mode", "dispatch"], B, 0, ("dyt_prologue_serving:fp32",),
+     "fp32"),
+    (F32 + ["--mode", "dispatch", "--quant", "int8"], B, 0,
+     ("dyt_prologue_serving_q8:fp32", "q8_ln_mlp"), "fp32"),
+    (F32 + ["--mode", "dispatch", "--quant", "int8_attn"], B, 0,
+     ("dyt_prologue_serving_q8:fp32", "q8_ln_mlp", "attn_core_pairs_q8:fp32"),
+     "fp32"),
+    (F32 + ["--mode", "dense"], B, 0, ("dyt_prologue_serving:fp32",), None),
+    (F32 + ["--mode", "plain"], F32_B, 0,
+     ("attention_sublayer_serving:fp32",), "fp32"),
+    (F32 + ["--mode", "dispatch", "--moe_experts", str(MOE)], F32_B, MOE,
+     ("dyt_prologue_serving_moe:fp32",), "fp32"),
+    (F32 + ["--mode", "dispatch", "--moe_experts", str(MOE), "--quant",
+            "int8"], F32_B, MOE,
+     ("dyt_prologue_serving_q8_moe:fp32", "q8_ln_mlp"), "fp32"),
+    (F32 + ["--mode", "plain", "--quant", "int8"], F32_B, 0,
+     ("attention_sublayer_serving_q8", "q8_ln_mlp"), "int8"),
+    (["--mode", "dispatch", "--ffn_num", str(WIDE_F)], F32_B, None,
+     ("dyt_prologue_serving:bf16+simt_tail",), None),
+    (["--mode", "dispatch", "--ffn_num", str(WIDE_F), "--quant", "int8"],
+     F32_B, None, ("dyt_prologue_serving_q8:bf16+simt_tail", "q8_ln_mlp"),
+     None),
+    (["--mode", "dispatch", "--moe_experts", str(WIDE_MOE[0]), "--ffn_num",
+      str(WIDE_MOE[1])], F32_B, None,
+     ("dyt_prologue_serving_moe:bf16+simt_tail",), None),
+    (["--mode", "dispatch", "--ffn_num", "8"], F32_B, None,
+     ("dyt_prologue_serving",), None),
+    (["--mode", "dispatch", "--moe_experts", "2", "--ffn_num", "4"], F32_B,
+     None, ("dyt_prologue_serving_moe",), None),
+]
+
+
+def forms_inputs(torch, ms, qt, *, dtype, batch=F32_B, C_=C, F=FFN,
+                 moe=(MOE, FFN), seed=19):
+    """Kernel arguments at ViT-B/16 scales in ``dtype`` weights: x, the
+    sublayer (and its int8 form), the adapter and router, the MoE
+    experts."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    f32 = torch.float32
+
+    def r(*shape, s=1.0, dt=f32):
+        return (torch.randn(shape, generator=g, device="cuda") * s).to(dt)
+    x = r(batch, N, C_, dt=dtype)
+    sub = (r(C_, s=0.05) + 1.0, r(C_, s=0.02), r(3 * C_, C_, s=0.03),
+           r(3 * C_, s=0.02), r(C_, C_, s=0.03), r(C_, s=0.02))
+    qsub = (*sub[:2], *qt.quantize_weight(sub[2]), sub[3],
+            *qt.quantize_weight(sub[4]), sub[5])
+    sub = (*sub[:2], sub[2].to(dtype), sub[3], sub[4].to(dtype), sub[5])
+    ad = (r(F, C_, s=0.03, dt=dtype), r(F, s=0.02),
+          r(C_, F, s=0.02, dt=dtype), r(C_, s=0.01),
+          torch.full((1,), 0.1, device="cuda"), r(1, C_, s=25.0 / C_ ** 0.5),
+          r(1, s=0.1))
+    E, b = moe
+    experts = (r(E, C_, s=2.0 / C_ ** 0.5),
+               *ms.moe_kernel_weights(r(E, C_, b, s=0.03), r(E, b, s=0.02),
+                                      r(E, b, C_, s=0.02), dtype),
+               r(E, C_, s=0.01), ad[4])
+    return x, sub, qsub, ad, experts
+
+
+def share_within(got, want, rel) -> float:
+    """The share of outputs within ``rel`` of the largest |want|."""
+    tol = rel * want.float().abs().max().item()
+    return ((got.float() - want.float()).abs() <= tol).float().mean().item()
+
+
+def forms_kernels(torch, ms, qt, _build) -> dict:
+    """Each new form against its plain version at the main path's widths,
+    timed beside its bound (and the library's call where one computes the
+    same function)."""
+    import torch.nn.functional as F
+    out = {}
+    f32, bf = torch.float32, torch.bfloat16
+    M = F32_B * N
+    gemm = 2 * M * C * 4 * C                       # qkv + proj
+    attn = attn_ops(F32_B)
+    adapter = 4 * M * C * FFN
+    experts = 4 * M * C * MOE * FFN
+    x, sub, qsub, ad, moe = forms_inputs(torch, ms, qt, dtype=f32)
+    fp32 = dict(rel=F32_REL, logit_rel=F32_REL, plain_iters=5)
+    out["attention_sublayer_serving:fp32"] = measure(
+        "K2 fp32", lambda: ms.attention_sublayer_serving(x, *sub, heads=H),
+        lambda: ms.attention_sublayer_plain(x, *sub, heads=H), ("x_mid",),
+        (x, *sub), {"fp32": gemm + 2 * attn}, **fp32)
+    out["dyt_prologue_serving:fp32"] = measure(
+        "K3 fp32", lambda: ms.dyt_prologue_serving(x, *sub, *ad, heads=H),
+        lambda: ms.dyt_prologue_plain(x, *sub, *ad, heads=H),
+        ("x_mid", "adapt", "logits"), (x, *sub, *ad),
+        {"fp32": gemm + 2 * attn + adapter + 2 * M * C}, **fp32)
+    out["dyt_prologue_serving_moe:fp32"] = measure(
+        "K7 fp32 (4 x 64)",
+        lambda: ms.dyt_prologue_serving_moe(x, *sub, *moe, *ad[5:], heads=H,
+                                            tau=TAU),
+        lambda: ms.dyt_prologue_moe_plain(x, *sub, *moe, *ad[5:], heads=H,
+                                          tau=TAU),
+        ("x_mid", "adapt", "logits"), (x, *sub, *moe, *ad[5:]),
+        {"fp32": gemm + 2 * attn + experts + 2 * M * C * (MOE + 1)}, **fp32)
+    # int8 forms with fp32 adapters: the core's fp32 output is quantized for
+    # proj, so it must land on the plain version's bits (the SIMT core sums
+    # in float64 as the plain version does); the share of outputs within
+    # 1e-5 printed beside
+    for key, name, call, plain, ins, ops in (
+            ("dyt_prologue_serving_q8:fp32", "K6 fp32",
+             lambda: qt.dyt_prologue_serving_q8(x, *qsub, *ad, heads=H),
+             lambda: qt.dyt_prologue_q8_plain(x, *qsub, *ad, heads=H),
+             (x, *qsub, *ad),
+             {"int8": gemm, "fp32": 2 * attn + adapter + 2 * M * C}),
+            ("dyt_prologue_serving_q8_moe:fp32", "K8 fp32 (4 x 64)",
+             lambda: qt.dyt_prologue_serving_q8_moe(
+                 x, *qsub, *moe, *ad[5:], heads=H, tau=TAU),
+             lambda: qt.dyt_prologue_q8_moe_plain(
+                 x, *qsub, *moe, *ad[5:], heads=H, tau=TAU),
+             (x, *qsub, *moe, *ad[5:]),
+             {"int8": gemm,
+              "fp32": 2 * attn + experts + 2 * M * C * (MOE + 1)})):
+        out[key] = measure(name, call, plain, ("x_mid", "adapt", "logits"),
+                           ins, ops, **fp32)
+        got, want = call(), plain()
+        print(f"  {name}: x_mid {share_within(got[0], want[0], F32_REL):.6f}"
+              f", adapt {share_within(got[1], want[1], F32_REL):.6f} of "
+              f"outputs within {F32_REL} of the largest; bit-identical: "
+              f"x_mid {share_within(got[0], want[0], 0.0):.6f}, adapt "
+              f"{share_within(got[1], want[1], 0.0):.6f}")
+    g = torch.Generator(device="cuda").manual_seed(20)
+    qkv = torch.randn((F32_B, N, 3 * C), generator=g, device="cuda")
+    qkv[..., C:2 * C] += 1.0
+    out["attn_core_pairs_q8:fp32"] = measure(
+        "K10 fp32", lambda: qt.attn_core_pairs_q8(qkv, heads=H),
+        lambda: qt.attn_core_pairs_q8_plain(qkv, heads=H), ("core",), (qkv,),
+        {"int8": attn, "fp32": attn}, **fp32)
+    q, k, v = (t.contiguous() for t in qkv.view(F32_B, N, 3, H, C // H)
+               .permute(2, 0, 3, 1, 4))
+    out["mha_serving_fused:fp32"] = measure(
+        "K1 fp32", lambda: ms.mha_serving_fused(qkv, heads=H),
+        lambda: ms.attn_core_pairs(qkv, heads=H), ("core",), (qkv,),
+        {"fp32": 2 * attn}, library=lambda:
+        F.scaled_dot_product_attention(q, k, v), **fp32)
+    ld = ms.bias_row_stride(SEG_N)
+    bias = (torch.randn((H, SEG_N, ld), generator=g, device="cuda")
+            .to(bf)[:, :, :SEG_N])
+    sq = torch.randn((1, SEG_N, 3 * C), generator=g, device="cuda")
+    q9, k9, v9 = (t.contiguous() for t in sq.view(1, SEG_N, 3, H, C // H)
+                  .permute(2, 0, 3, 1, 4))
+    mask = bias.float().contiguous()[None]
+    out["mha_windowed_fused:fp32"] = measure(
+        f"K9 fp32 (B=1, N={SEG_N})",
+        lambda: ms.mha_windowed_fused(sq, bias, heads=H),
+        lambda: ms.mha_windowed_plain(sq, bias, heads=H), ("core",),
+        (sq, bias.contiguous()), {"fp32": 2 * attn_ops(1, SEG_N)},
+        library=lambda: F.scaled_dot_product_attention(q9, k9, v9,
+                                                       attn_mask=mask),
+        **fp32)
+    # the fp32 GEMM alone at the qkv product's shape, beside torch.matmul
+    # with TF32 off (cuBLAS's fp32 SGEMM): a reference time
+    lib = _build.library()
+    a = torch.randn((M, C), generator=g, device="cuda")
+    w = sub[2]
+    prod = torch.empty((M, 3 * C), device="cuda")
+
+    def hand():
+        _build.check(lib, lib.dyt_gemm_f32(
+            a.data_ptr(), w.data_ptr(), M, 3 * C, C, prod.data_ptr(),
+            torch.cuda.current_stream().cuda_stream), "fp32 GEMM")
+        return prod
+    hand()
+    check_close("fp32 GEMM", hand(),
+                torch.matmul(a.double(), w.double().t()).float(), F32_REL)
+    t_hand, t_lib = time_ms(hand), time_ms(lambda: torch.matmul(a, w.t()))
+    ops = 2 * M * C * 3 * C
+    b_ms, b_by = bound(nbytes(a, w, prod), {"fp32": ops})
+    print(f"fp32 GEMM ({M} x {3 * C} x {C}): hand {t_hand:.4f} ms "
+          f"({ops / t_hand / 1e9:.1f} TFLOP/s), torch.matmul TF32 off "
+          f"{t_lib:.4f} ms ({ops / t_lib / 1e9:.1f} TFLOP/s), bound "
+          f"{b_ms:.4f} ms ({b_by})")
+    del a, prod, qkv, q, k, v, sq, q9, k9, v9, mask
+
+    # bf16 at other widths and head dims, against the plain versions
+    bfq = dict(plain_iters=5)
+    for F_ in (8, WIDE_F):
+        x_, s_, qs_, ad_, _ = forms_inputs(torch, ms, qt, dtype=bf, F=F_)
+        pad = (*ms.pad_adapter_weights(*ad_[:3],
+                                       ms.adapter_kernel_width(F_, bf)),
+               *ad_[3:])
+        for key, name, call, plain, ops in (
+                ("dyt_prologue_serving:bf16+simt_tail", "K3",
+                 lambda: ms.dyt_prologue_serving(x_, *s_, *pad, heads=H),
+                 lambda: ms.dyt_prologue_plain(x_, *s_, *ad_, heads=H),
+                 {"bf16": gemm + 2 * attn + 4 * M * C * F_,
+                  "fp32": 2 * M * C}),
+                ("dyt_prologue_serving_q8:bf16+simt_tail", "K6",
+                 lambda: qt.dyt_prologue_serving_q8(x_, *qs_, *pad, heads=H),
+                 lambda: qt.dyt_prologue_q8_plain(x_, *qs_, *ad_, heads=H),
+                 {"int8": gemm, "bf16": 2 * attn + 4 * M * C * F_,
+                  "fp32": 2 * M * C})):
+            res = measure(f"{name} bf16 F={F_}" + (
+                " (padded to the wgmma tail's 16)" if F_ == 8 else
+                " (the SIMT tail)"), call, plain,
+                ("x_mid", "adapt", "logits"), (x_, *s_, *ad_), ops,
+                check_only=F_ != WIDE_F, **bfq)
+            if F_ == WIDE_F:
+                out[key] = res
+    for (E_, b_), tag in (((2, 4), "padded to 2 x 8"),
+                          (WIDE_MOE, "the SIMT tail")):
+        x_, s_, _, ad_, moe_ = forms_inputs(torch, ms, qt, dtype=bf,
+                                            moe=(E_, b_))
+        res = measure(
+            f"K7 bf16 {E_} x {b_} ({tag})",
+            lambda: ms.dyt_prologue_serving_moe(x_, *s_, *moe_, *ad_[5:],
+                                                heads=H, tau=TAU),
+            lambda: ms.dyt_prologue_moe_plain(x_, *s_, *moe_, *ad_[5:],
+                                              heads=H, tau=TAU),
+            ("x_mid", "adapt", "logits"), (x_, *s_, *moe_, *ad_[5:]),
+            {"bf16": gemm + 2 * attn + 4 * M * C * E_ * b_,
+             "fp32": 2 * M * C * (E_ + 1)},
+            check_only=(E_, b_) != WIDE_MOE, **bfq)
+        if (E_, b_) == WIDE_MOE:
+            out["dyt_prologue_serving_moe:bf16+simt_tail"] = res
+    for C_, heads in ((C, HD192_HEADS), (1024, 4)):
+        hd = C_ // heads
+        x_, s_, qs_, ad_, _ = forms_inputs(torch, ms, qt, dtype=bf, C_=C_)
+        g_ = 2 * M * C_ * 4 * C_
+        a_ = 2 * F32_B * heads * N * N * hd        # one product of the core
+        # the SIMT core's products take bf16 operands (K10's q.k int8): the
+        # bound counts them at the bf16 (int8) tensor rate, the least time
+        # the card could take for them; head dim 256 is checked, not timed
+        # (the kernels line holds 192)
+        line = hd == C // HD192_HEADS
+        bfh = dict(bfq, check_only=not line)
+        res = measure(
+            f"K3 bf16 head_dim {hd} (C={C_}, {heads} heads; the SIMT core)",
+            lambda: ms.dyt_prologue_serving(x_, *s_, *ad_, heads=heads),
+            lambda: ms.dyt_prologue_plain(x_, *s_, *ad_, heads=heads),
+            ("x_mid", "adapt", "logits"), (x_, *s_, *ad_),
+            {"bf16": g_ + 2 * a_ + 4 * M * C_ * FFN, "fp32": 2 * M * C_},
+            **bfh)
+        res6 = measure(
+            f"K6 bf16 head_dim {hd} with the int8-score core",
+            lambda: qt.dyt_prologue_serving_q8(x_, *qs_, *ad_, heads=heads,
+                                               attn_q8=True),
+            lambda: qt.dyt_prologue_q8_plain(x_, *qs_, *ad_, heads=heads,
+                                             attn_q8=True),
+            ("x_mid", "adapt", "logits"), (x_, *qs_, *ad_),
+            {"int8": g_ + a_, "bf16": a_ + 4 * M * C_ * FFN,
+             "fp32": 2 * M * C_}, **bfh)
+        qkv_ = torch.randn((F32_B, N, 3 * C_), generator=g,
+                           device="cuda").to(bf)
+        qkv_[..., C_:2 * C_] += 1.0
+        q_, k_, v_ = qkv_.view(F32_B, N, 3, heads, hd).permute(2, 0, 3, 1, 4)
+        qc, kc, vc = (t.contiguous() for t in (q_, k_, v_))
+        res15 = measure(
+            f"K15 bf16 head_dim {hd} (views of the raw qkv)",
+            lambda: ms.mha_serving(q_, k_, v_),
+            lambda: ms.mha_serving_plain(q_, k_, v_), ("core",), (qkv_,),
+            {"bf16": 2 * a_}, library=lambda:
+            F.scaled_dot_product_attention(qc, kc, vc), **bfh)
+        measure(f"K1 bf16 head_dim {hd}",
+                lambda: ms.mha_serving_fused(qkv_, heads=heads),
+                lambda: ms.attn_core_pairs(qkv_, heads=heads), ("core",),
+                (qkv_,), {"bf16": 2 * a_}, check_only=True, **bfq)
+        res10 = measure(
+            f"K10 bf16 head_dim {hd}",
+            lambda: qt.attn_core_pairs_q8(qkv_, heads=heads),
+            lambda: qt.attn_core_pairs_q8_plain(qkv_, heads=heads),
+            ("core",), (qkv_,), {"int8": a_, "bf16": a_}, **bfh)
+        if line:
+            out["dyt_prologue_serving:bf16+simt_core"] = res
+            out["dyt_prologue_serving_q8:bf16+simt_core"] = res6
+            out["mha_serving:bf16+simt_core"] = res15
+            out["attn_core_pairs_q8:bf16+simt_core"] = res10
+            sq = torch.randn((1, SEG_N, 3 * C_), generator=g,
+                             device="cuda").to(bf)
+            b9 = torch.randn((heads, SEG_N, SEG_N), generator=g,
+                             device="cuda").to(bf)
+            measure(f"K9 bf16 head_dim {hd} (B=1, N={SEG_N})",
+                    lambda: ms.mha_windowed_fused(sq, b9, heads=heads),
+                    lambda: ms.mha_windowed_plain(sq, b9, heads=heads),
+                    ("core",), (sq, b9),
+                    {"bf16": 4 * SEG_N * SEG_N * hd * heads},
+                    check_only=True, **bfq)
+        torch.cuda.empty_cache()
+    return out
+
+
+def forms_compare(torch, ms, qt, fm, res, run, kwargs, fp32: bool) -> None:
+    """A forward of the phase against the plain-version forward: logits
+    within F32_MODEL_REL (fp32) or MODEL_REL (bf16) of their largest, gates
+    (dispatch) agreeing on F32_GATE_AGREE or GATE_AGREE of the tokens, each
+    differing gate printed with its distances from its boundaries."""
+    model, x = res["model"], res["x"]
+    with plain_versions(ms, qt, fm), torch.inference_mode():
+        ref, ref_aux = model(x, **kwargs)
+    err, mag = rel_err(res["logits"], ref)
+    tol = (F32_MODEL_REL if fp32 else MODEL_REL) * mag
+    line = f"{run} vs plain versions: logits max|err| {err:.6g} (tol {tol:.6g})"
+    agree = 1.0
+    if res["aux"]["token_select"] is not None:
+        eq = res["aux"]["token_select"] == ref_aux["token_select"]
+        agree = eq.float().mean().item()
+        line += f", gate agreement {agree:.6f}"
+        if kwargs.get("dispatch"):
+            flips = gate_flips(torch, res["aux"], ref_aux, K_DISPATCH)
+            if flips:
+                line += ("; differing gates (block, threshold distance, band,"
+                         " capacity distance, band; bf16 ulps): " + ", ".join(
+                             f"({f[0]}, {f[1]:.3g}, {f[2]:.3g}, {f[3]:.3g},"
+                             f" {f[4]:.3g})" for f in flips[:12]))
+    print(line)
+    if err > tol or agree < (F32_GATE_AGREE if fp32 else GATE_AGREE):
+        fail(f"{run} forward disagrees with the plain-version forward")
+
+
+def forms_counts(ms, qt, fm, run, kernels, forwards=None) -> dict:
+    """The launches since the counts were set to 0: DEPTH a forward of each
+    of ``kernels`` and none of the others (``forwards`` None: as many
+    forwards as the first of ``kernels`` shows, at least one)."""
+    counts = read_counts(ms, qt, fm)
+    if forwards is None:
+        forwards = max(counts[kernels[0]] // DEPTH, 1)
+    want = {k: DEPTH * forwards if k in kernels else 0 for k in KERNELS}
+    if counts != want:
+        fail(f"{run}: kernel launches {counts}, want {want}")
+    return counts
+
+
+def forms_main_path(torch, ms, qt, fm, speed, predict, config,
+                    sds) -> dict:
+    """The main path of every new form, through the entry points: speed.main
+    in fp32 (dispatch, dense, plain, int8, int8_attn, MoE) and at the bf16
+    widths; a bf16 ViT at head dim 192; predict.serve at head dim 192
+    (--quant none: K15; int8_attn: K6 and K10); main_image in fp32 (2 steps
+    and a dispatch evaluation); an fp32 seg crop evaluation (K9); the fp32
+    LayerScale backbone (K1).  Launches counted for each, the counts set to
+    0 just before."""
+    import shutil
+
+    from dynamic_tuning_tpu_torch import main_image, seg_train
+    from dynamic_tuning_tpu_torch.checkpoint import load_timm_state_dict
+    from dynamic_tuning_tpu_torch.data import datasets
+    from dynamic_tuning_tpu_torch.models import seg_vit
+    from dynamic_tuning_tpu_torch.models.vit import VisionTransformer
+    launches = {k: 0 for k in KERNELS}
+    ips = {}
+    for flags, batch, sd, kernels, compare in FORM_RUNS:
+        args = speed.get_args_parser().parse_args(
+            flags + ["--batch_size", str(batch), "--moe_router_tau", str(TAU),
+                     "--warmup", "1", "--iters", "1"])
+        t0 = time.perf_counter()
+        reset_counts(ms, qt, fm)
+        res = speed_run(torch, speed, args, None if sd is None else sds[sd])
+        run = "speed " + " ".join(flags) + f" (batch {batch})"
+        counts = forms_counts(ms, qt, fm, run, kernels, res["forwards"])
+        for k in KERNELS:
+            launches[k] += counts[k]
+        if not torch.isfinite(res["logits"]).all():
+            fail(f"{run}: logits not finite")
+        ips[run] = res["throughput_img_s"]
+        print(f"{run}: {res['throughput_img_s']} img/s; launches per "
+              "forward: " + ", ".join(f"{k} {counts[k] // res['forwards']}"
+                                      for k in kernels))
+        if compare:
+            forms_compare(torch, ms, qt, fm, res, run,
+                          dict(complete_model=args.mode == "dense",
+                               dispatch=args.mode == "dispatch"),
+                          compare == "fp32")
+        print(f"  ({time.perf_counter() - t0:.1f} s)")
+        del res
+        torch.cuda.empty_cache()
+    # a bf16 ViT-B/16 at head dim 192 (4 heads): the model's forward (its
+    # init draws skipped: every parameter is loaded, checked)
+    t0 = time.perf_counter()
+    cfg = config.ModelConfig(num_classes=100, num_heads=HD192_HEADS,
+                             gelu_approx=True, residual_dtype="bfloat16")
+    with mock.patch.object(torch.nn.init, "trunc_normal_",
+                           lambda t, *a, **k: t):
+        model = VisionTransformer(cfg, tuning=config.TuningConfig(),
+                                  select=config.SelectConfig(
+                                      token_target_ratio=0.5),
+                                  dtype=torch.bfloat16)
+    missing, _ = load_timm_state_dict(model, {k: torch.from_numpy(v)
+                                              for k, v in sds[0].items()},
+                                      log=lambda m: None)
+    if missing:
+        fail(f"head dim 192 ViT: {len(missing)} parameters not loaded")
+    model = model.cuda().eval()
+    g = torch.Generator(device="cuda").manual_seed(21)
+    x = torch.randn((F32_B, 224, 224, 3), generator=g, device="cuda")
+    reset_counts(ms, qt, fm)
+    with torch.inference_mode():
+        logits, aux = model(x, dispatch=True)
+    run = f"ViT-B/16 bf16 head_dim {C // HD192_HEADS} dispatch"
+    counts = forms_counts(ms, qt, fm, run,
+                          ("dyt_prologue_serving:bf16+simt_core",), 1)
+    for k in KERNELS:
+        launches[k] += counts[k]
+    forms_compare(torch, ms, qt, fm, dict(model=model, x=x, logits=logits,
+                                          aux=aux), run, dict(dispatch=True),
+                  False)
+    print(f"  ({time.perf_counter() - t0:.1f} s)")
+    del model
+    # predict.serve at head dim 192: the fast path (K15) and int8_attn
+    t0 = time.perf_counter()
+    canv = torch.randint(0, 256, (F32_B, 256, 256, 3), generator=g,
+                         device="cuda", dtype=torch.uint8)
+    sd = {k: torch.from_numpy(v) for k, v in sds[0].items()}
+    for quant, kernels in (("none", ("mha_serving:bf16+simt_core",)),
+                           ("int8_attn",
+                            ("dyt_prologue_serving_q8:bf16+simt_core",
+                             "attn_core_pairs_q8:bf16+simt_core",
+                             "q8_ln_mlp"))):
+        a = predict.get_args_parser().parse_args(
+            ["--ckpt", "unused", "--images", "unused", "--num_heads",
+             str(HD192_HEADS), "--quant", quant, "--batch_size",
+             str(F32_B)])
+        params = predict.load_params(a, torch.device("cuda"), state_dict=sd)
+        reset_counts(ms, qt, fm)
+        with contextlib.redirect_stdout(io.StringIO()):
+            results = predict.serve(a, canv, params)
+        run = f"predict.serve head_dim {C // HD192_HEADS} quant={quant}"
+        counts = forms_counts(ms, qt, fm, run, kernels)
+        for k in KERNELS:
+            launches[k] += counts[k]
+        if len(results) != F32_B:
+            fail(f"{run}: {len(results)} results")
+        print(f"{run}: {len(results)} canvases, {DEPTH} launches of "
+              f"{', '.join(kernels)} a forward "
+              f"({time.perf_counter() - t0:.1f} s since the first)")
+        del params
+    # main_image in fp32: 2 training steps, an evaluation on the dispatch
+    # path (64 synthetic images of each split, batch 32)
+    root = os.path.join(REPO, "build", "phase_forms")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    ft = os.path.join(root, "ft64.pth")
+    torch.save(sd, ft)
+    real = datasets.SyntheticDataset
+    flags = ["--dataset", "synthetic", "--batch_size", str(F32_B),
+             "--epochs", "1", "--warmup_epochs", "1", "--no_auto_remove",
+             "--compute_dtype", "float32", "--eval_dispatch", "--finetune",
+             ft, "--output_dir", os.path.join(root, "image")]
+    reset_counts(ms, qt, fm)
+    t0 = time.perf_counter()
+    with mock.patch.object(datasets, "SyntheticDataset",
+                           lambda n, *a, **kw: real(min(n, 2 * F32_B), *a,
+                                                    **kw)):
+        stats = main_image.main(main_image.get_args_parser().parse_args(
+            flags))
+    counts = forms_counts(ms, qt, fm, "main_image fp32",
+                          ("dyt_prologue_serving:fp32",))
+    for k in KERNELS:
+        launches[k] += counts[k]
+    if not 0.0 <= stats["max_metric"] <= 100.0:
+        fail(f"main_image fp32: run stats {stats}")
+    print(f"main_image fp32: 2 steps of {F32_B} and an evaluation of "
+          f"{2 * F32_B} images on the dispatch path in "
+          f"{time.perf_counter() - t0:.1f} s, acc1 {stats['max_metric']}, "
+          f"{counts['dyt_prologue_serving:fp32']} K3 fp32 launches "
+          f"({DEPTH} a forward)")
+    # an fp32 seg crop evaluation (slide inference of one synthetic image)
+    args = seg_train.get_args_parser().parse_args(
+        ["--dataset", "synthetic", "--crop_size", "512", "--compute_dtype",
+         "float32", "--eval", "--output_dir", os.path.join(root, "seg")])
+    t0 = time.perf_counter()
+    runner = seg_train.build_runner(args, log=lambda m: None)
+    reset_counts(ms, qt, fm)
+    seg_stats = runner.evaluate(max_images=1)
+    counts = forms_counts(ms, qt, fm, "seg fp32 evaluation",
+                          ("mha_windowed_fused:fp32",))
+    for k in KERNELS:
+        launches[k] += counts[k]
+    print(f"seg fp32 evaluation of 1 image: "
+          f"{counts['mha_windowed_fused:fp32'] // DEPTH} crops, {DEPTH} K9 "
+          f"fp32 launches a crop, mIoU {seg_stats['miou']} "
+          f"({time.perf_counter() - t0:.1f} s with the build)")
+    del runner
+    shutil.rmtree(root, ignore_errors=True)
+    # the fp32 LayerScale / q-v-bias backbone without windows (K1)
+    t0 = time.perf_counter()
+    cfg = config.ModelConfig(img_size=LS_IMG, gelu_approx=True,
+                             residual_dtype="float32")
+    model = seg_vit.SegVisionTransformer(
+        cfg, config.TuningConfig(), config.SelectConfig(
+            token_target_ratio=0.5), use_rel_pos_bias=False,
+        init_values=0.1, qv_bias_only=True, dtype=torch.float32,
+        generator=torch.Generator().manual_seed(0)).cuda().eval()
+    x = torch.randn((LS_BATCH, LS_IMG, LS_IMG, 3), generator=g,
+                    device="cuda")
+    reset_counts(ms, qt, fm)
+    with torch.inference_mode():
+        feats, _ = model(x, complete_model=True)
+    counts = forms_counts(ms, qt, fm, "fp32 LayerScale backbone",
+                          ("mha_serving_fused:fp32",), 1)
+    for k in KERNELS:
+        launches[k] += counts[k]
+    with plain_versions(ms, qt, fm), torch.inference_mode():
+        ref, _ = model(x, complete_model=True)
+    worst = max(rel_err(f, r)[0] / rel_err(f, r)[1] for f, r in zip(feats,
+                                                                     ref))
+    print(f"fp32 LayerScale backbone ({LS_IMG}^2, batch {LS_BATCH}, dense): "
+          f"{DEPTH} K1 fp32 launches; features vs plain versions max rel "
+          f"err {worst:.3g} ({time.perf_counter() - t0:.1f} s)")
+    if worst > F32_MODEL_REL:
+        fail("fp32 LayerScale backbone disagrees with its plain versions")
+    print(json.dumps({"fp32_img_s": {k: v for k, v in ips.items()
+                                     if "float32" in k}}))
+    return launches
+
+
+def phase_forms(torch, ms, qt, fm, speed, predict, config, _build,
+                sds) -> tuple:
+    """Phase 16: the fp32 forms, adapter and MoE widths and head dims 192
+    and 256.  Returns (measured, launches) of the FORMS entries."""
+    t0 = time.perf_counter()
+    measured = forms_kernels(torch, ms, qt, _build)
+    print(f"phase forms, kernel checks: {time.perf_counter() - t0:.1f} s")
+    launches = forms_main_path(torch, ms, qt, fm, speed, predict, config,
+                               sds)
+    print(f"phase forms: {time.perf_counter() - t0:.1f} s")
+    return measured, launches
+
+
 def main() -> None:
     # the port's timing, bound and card helpers serve every phase
     global bound, card_line, time_ms
@@ -3519,7 +4165,9 @@ def main() -> None:
     t0 = time.perf_counter()
     _build.library()
     print(f"kernel build: {time.perf_counter() - t0:.1f} s "
-          f"(nvcc {_build.build_seconds} s)")
+          f"(nvcc {_build.build_seconds} s; by source: "
+          + ", ".join(f"{k} {v}" for k, v in sorted(
+              _build.file_seconds.items(), key=lambda kv: -kv[1])) + ")")
     for ln in _build.build_log.splitlines():
         if "registers" in ln or "spill" in ln:
             print("  ptxas:", ln.strip(), file=sys.stderr)
@@ -3543,6 +4191,12 @@ def main() -> None:
            for moe in (0, MOE)}
     print(f"synthetic ViT-B/16 weights: {time.perf_counter() - t0:.1f} s")
     launches = phase_model(torch, ms, qt, fm, speed, sds)
+    forms_measured, forms_launches = phase_forms(torch, ms, qt, fm, speed,
+                                                 predict, config, _build, sds)
+    measured.update(forms_measured)
+    for k, n in forms_launches.items():
+        launches[k] += n
+    torch.cuda.empty_cache()
     t0 = time.perf_counter()
     phase_train(torch, ms, qt, fm, np, bench, layers, vit, sds[0])
     print(f"phase train: {time.perf_counter() - t0:.1f} s")

@@ -15,17 +15,19 @@ process topology is discovered from the launcher's environment
 (``parallel/multihost.py``; ``torchrun`` sets it).
 
 Refused at the edges of the port: ``--model_parallel`` other than 1
-(tensor parallelism is not ported yet: ``parallel.mesh.make_mesh``),
+(tensor parallelism is not ported yet: ``parallel.mesh.make_mesh``) and
 ``--ckpt_backend orbax`` (orbax and tensorstore are not installed on the
 card's machine; the port writes the JAX package's ``.msgpack`` files, the
-default backend), and, on the
-card, ``--compute_dtype float32`` (``require_card_dtype``: the hand
-kernels take bf16).
+default backend).  ``--compute_dtype float32`` runs on the card as on the
+CPU: the hand kernels have fp32 forms, and ``fp32_on_card`` turns TF32 off
+for the run.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
+import functools
 import logging
 import os
 
@@ -237,14 +239,34 @@ def args_to_config(args, *, no_aug: bool = False) -> RunConfig:
                      start_epoch=getattr(args, "start_epoch", 0))
 
 
-def require_card_dtype(compute_dtype: str, device: torch.device,
-                       entry: str) -> None:
-    """The hand kernels take bf16: on the card, ``--compute_dtype float32``
-    is refused up front (fp32 models run on the CPU)."""
-    if device.type == "cuda" and compute_dtype != "bfloat16":
-        raise ValueError(f"{entry}: --compute_dtype {compute_dtype} on the "
-                         "card: the serving kernels take bf16 (fp32 runs "
-                         "with --device cpu)")
+@contextlib.contextmanager
+def fp32_on_card(compute_dtype: str, device: torch.device):
+    """Inside, fp32 compute on the card is fp32 throughout: torch's float32
+    matmuls (the MLP, the head; ``torch.backends.cuda.matmul.allow_tf32``,
+    False by default) and cuDNN's float32 convolutions (the patch
+    embedding, the seg heads; ``torch.backends.cudnn.allow_tf32``, True by
+    default) run without TF32, whose 10-bit mantissa the JAX package's
+    fp32 does not have.  Both flags are restored on the way out.  The hand
+    kernels' fp32 forms never use TF32.  Nothing changes for bf16 or on the
+    CPU."""
+    m, c = torch.backends.cuda.matmul, torch.backends.cudnn
+    before = m.allow_tf32, c.allow_tf32
+    if device.type == "cuda" and compute_dtype == "float32":
+        m.allow_tf32 = c.allow_tf32 = False
+    try:
+        yield
+    finally:
+        m.allow_tf32, c.allow_tf32 = before
+
+
+def fp32_scoped(method):
+    """A runner method run inside ``fp32_on_card`` of the runner's
+    ``cfg.compute_dtype`` and ``device``."""
+    @functools.wraps(method)
+    def scoped(self, *args, **kwargs):
+        with fp32_on_card(self.cfg.compute_dtype, self.device):
+            return method(self, *args, **kwargs)
+    return scoped
 
 
 def resolve_device(name, entry: str) -> torch.device:

@@ -52,6 +52,12 @@
 // Fusing the chain (the core inside the qkv GEMM's epilogue) is later work.
 #include "gemm.cuh"
 
+extern "C" int dyt_simt_core(const void* q, const void* k, const void* v,
+                             void* out, const long long* strides, int B,
+                             int N, int H, int hd, float scale, int t_f32,
+                             int k15, const void* bias, long long bias_head,
+                             long long bias_row, void* stream);
+
 namespace dyt {
 
 // ---------------------------------------------------------------------------
@@ -563,8 +569,23 @@ static cudaError_t launch_attn_core(const CoreArgs& a, int B, cudaStream_t s) {
   return launch_core_ring<HD, K15>(a, B, s);
 }
 
+// The SIMT core (simt_core.cu) when the caller asks for it (``simt``: the
+// wrappers route the head dims the wgmma cores are not built for, 192 and
+// 256, there), else the wgmma core at head dims 64 and 128; either mode.
 static cudaError_t attn_core_strided(const CoreArgs& a, int B, int hd,
-                                     bool k15, cudaStream_t s) {
+                                     bool k15, bool simt, cudaStream_t s) {
+  if (simt) {
+    long long st[12];
+    for (int i = 0; i < 3; ++i) {
+      st[i] = a.sq[i];
+      st[3 + i] = a.sk[i];
+      st[6 + i] = a.sv[i];
+      st[9 + i] = a.so[i];
+    }
+    return static_cast<cudaError_t>(dyt_simt_core(a.q, a.k, a.v, a.o, st, B,
+                                                  a.N, a.H, hd, a.scale, 0,
+                                                  k15, nullptr, 0, 0, s));
+  }
   if (hd == 64)
     return k15 ? launch_attn_core<64, true>(a, B, s)
                : launch_attn_core<64, false>(a, B, s);
@@ -576,13 +597,13 @@ static cudaError_t attn_core_strided(const CoreArgs& a, int B, int hd,
 
 // The K1 mode on the raw qkv buffer [B, N, 3C] -> out [B, N, C].
 static cudaError_t attn_core(const bf16* qkv, bf16* out, int B, int N, int C,
-                             int H, float scale, cudaStream_t s) {
+                             int H, float scale, bool simt, cudaStream_t s) {
   if (H <= 0 || C % H) return cudaErrorInvalidValue;
   const long long hd = C / H, C3 = 3LL * C, rows = (long long)N * C3;
   const CoreArgs a{qkv, qkv + C, qkv + 2 * C, out,
                    {rows, hd, C3}, {rows, hd, C3}, {rows, hd, C3},
                    {(long long)N * C, hd, C}, N, H, scale};
-  return attn_core_strided(a, B, (int)hd, false, s);
+  return attn_core_strided(a, B, (int)hd, false, simt, s);
 }
 
 template <typename TX>
@@ -591,7 +612,7 @@ static cudaError_t sublayer(const TX* x, const float* gamma, const float* beta,
                             const bf16* wproj, const float* bproj, TX* out,
                             float* xm32, bf16* ln_buf, bf16* qkv_buf,
                             bf16* attn_buf, int B, int N, int C, int H,
-                            float scale, cudaStream_t s) {
+                            float scale, bool simt, cudaStream_t s) {
   const int M = B * N;
   cudaError_t err = launch_layernorm_bf16<TX>(x, gamma, beta, ln_buf, M, C, s);
   if (err != cudaSuccess) return err;
@@ -601,7 +622,7 @@ static cudaError_t sublayer(const TX* x, const float* gamma, const float* beta,
                                           nullptr, s);
   if (err != cudaSuccess) return err;
 
-  err = attn_core(qkv_buf, attn_buf, B, N, C, H, scale, s);
+  err = attn_core(qkv_buf, attn_buf, B, N, C, H, scale, simt, s);
   if (err != cudaSuccess) return err;
 
   return launch_gemm_nt<EPI_RESIDUAL, TX>(attn_buf, wproj, bproj, M, C, C,
@@ -613,23 +634,25 @@ static cudaError_t sublayer(const TX* x, const float* gamma, const float* beta,
 extern "C" {
 
 // The bf16 attention core alone: qkv [B, N, 3C] -> out [B, N, C], both bf16
-// (the int8 sublayer chain of quant.cu runs it between its int8 GEMMs).
+// (the int8 sublayer chain of quant.cu runs it between its int8 GEMMs);
+// simt selects the SIMT core over the wgmma core (head dims 64, 128).
 int dyt_attn_core(const void* qkv, void* out, int B, int N, int C, int H,
-                  float scale, void* stream) {
+                  float scale, int simt, void* stream) {
   return dyt::attn_core(static_cast<const dyt::bf16*>(qkv),
                         static_cast<dyt::bf16*>(out), B, N, C, H, scale,
-                        static_cast<cudaStream_t>(stream));
+                        simt != 0, static_cast<cudaStream_t>(stream));
 }
 
 // The attention core on strided bf16 q, k, v [B, H, N, hd] -> out (K1 with
 // k15 = 0, K15 with k15 = 1).  ``strides`` holds 12 element strides: batch,
 // head and row of q, k, v and out, in that order; hd has unit stride, and
 // every stride is a multiple of 8 elements (rows, heads and samples on 16
-// bytes: the ring's tensor maps need it).  hd 64 or 128, any N.  Returns a
-// cudaError_t value.
+// bytes: the ring's tensor maps need it).  hd 64 or 128 on the wgmma core,
+// or with simt any head dim of the SIMT core (64 to 256, a multiple of 64);
+// any N.  Returns a cudaError_t value.
 int dyt_mha_core(const void* q, const void* k, const void* v, void* out,
                  const long long* strides, int B, int N, int H, int hd,
-                 float scale, int k15, void* stream) {
+                 float scale, int k15, int simt, void* stream) {
   using dyt::bf16;
   dyt::CoreArgs a{static_cast<const bf16*>(q), static_cast<const bf16*>(k),
                   static_cast<const bf16*>(v), static_cast<bf16*>(out),
@@ -640,20 +663,22 @@ int dyt_mha_core(const void* q, const void* k, const void* v, void* out,
     a.sv[i] = strides[6 + i];
     a.so[i] = strides[9 + i];
   }
-  return dyt::attn_core_strided(a, B, hd, k15 != 0,
+  return dyt::attn_core_strided(a, B, hd, k15 != 0, simt != 0,
                                 static_cast<cudaStream_t>(stream));
 }
 
 // x, out: [B, N, C] in the residual dtype (x_f32 selects fp32 over bf16);
 // gamma/beta/bqkv/bproj fp32; wqkv [3C, C], wproj [C, C] bf16; xm32 an
 // optional fp32 [B, N, C] copy of out; ln_buf [B*N, C], qkv_buf [B*N, 3C],
-// attn_buf [B*N, C] bf16 scratch.  Returns a cudaError_t value.
+// attn_buf [B*N, C] bf16 scratch; simt_core as dyt_attn_core's simt.
+// Returns a cudaError_t value.
 int dyt_attention_sublayer(const void* x, int x_f32, const float* gamma,
                            const float* beta, const void* wqkv,
                            const float* bqkv, const void* wproj,
                            const float* bproj, void* out, float* xm32,
                            void* ln_buf, void* qkv_buf, void* attn_buf, int B,
-                           int N, int C, int H, float scale, void* stream) {
+                           int N, int C, int H, float scale, int simt_core,
+                           void* stream) {
   using dyt::bf16;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   auto* wq = static_cast<const bf16*>(wqkv);
@@ -664,10 +689,12 @@ int dyt_attention_sublayer(const void* x, int x_f32, const float* gamma,
   if (x_f32)
     return dyt::sublayer<float>(static_cast<const float*>(x), gamma, beta, wq,
                                 bqkv, wp, bproj, static_cast<float*>(out),
-                                xm32, lb, qb, ab, B, N, C, H, scale, s);
+                                xm32, lb, qb, ab, B, N, C, H, scale,
+                                simt_core != 0, s);
   return dyt::sublayer<bf16>(static_cast<const bf16*>(x), gamma, beta, wq,
                              bqkv, wp, bproj, static_cast<bf16*>(out), xm32,
-                             lb, qb, ab, B, N, C, H, scale, s);
+                             lb, qb, ab, B, N, C, H, scale, simt_core != 0,
+                             s);
 }
 
 const char* dyt_error_string(int err) {

@@ -405,7 +405,8 @@ static cudaError_t adapter_router(const float* xm, int M, int C,
 
 extern "C" {
 
-// Bottleneck widths the adapter kernel is instantiated for.
+// Bottleneck widths the adapter kernel is instantiated for (the wrappers'
+// AR_WIDTHS, held to this list on the card by the tests).
 int dyt_adapter_width_supported(int F) {
   return F == 16 || F == 32 || F == 48 || F == 64 || F == 96 || F == 128;
 }

@@ -10,9 +10,10 @@
 //   K12 q8_dispatch_mlp (_q8_dispatch_mlp_kernel): the top-K rows of each
 //       sample gathered through an index into K4's chain, the MLP rows
 //       scattered back to their tokens (zeros elsewhere), and the gate
-// and computes the int8 patch-embed stem (XLA's q8_conv there), and the
-// GEMMs of scripts/profile_int8.py::make_mm (K16, the int8 / bf16 matmul
-// probe): int8 x int8 -> int32 and bf16 x bf16 -> fp32, stored raw.
+// and computes the GEMMs of scripts/profile_int8.py::make_mm (K16, the int8
+// / bf16 matmul probe): int8 x int8 -> int32 and bf16 x bf16 -> fp32, stored
+// raw.  The int8 GEMM's epilogues are q8_gemm.cuh's; the int8 patch-embed
+// stem (XLA's q8_conv there) is q8_stem.cu.
 //
 // Scheme: per-output-channel int8 weights (quantized once at load by the
 // caller) times dynamic per-row int8 activations,
@@ -40,9 +41,10 @@
 //   gemm_nt_kernel<int8_t> (gemm.cuh, the bf16 GEMM's design on int8: a
 //                     persistent grid, a TMA ring of 128-deep k tiles fed by
 //                     one producer thread, two consumer warpgroups on wgmma
-//                     m64nNk32 s8 x s8 -> s32) with EpiQ8, an epilogue that
-//                     dequantizes and applies the caller's bias / GELU /
-//                     residual arithmetic in fp32 and stores whole 16-byte
+//                     m64nNk32 s8 x s8 -> s32) with EpiQ8 (q8_gemm.cuh),
+//                     an epilogue that dequantizes and applies the
+//                     caller's bias / GELU / residual arithmetic in fp32
+//                     and stores whole 16-byte
 //                     pieces of rows staged through shared memory (K12's fc2
 //                     stores each row at its token), or stores the int32
 //                     sums as they are (K16);
@@ -58,10 +60,16 @@
 // where the TPU kernel rounds twice.
 #include <type_traits>
 
-#include "gemm.cuh"
+#include "q8_gemm.cuh"
 
 extern "C" int dyt_attn_core(const void* qkv, void* out, int B, int N, int C,
-                             int H, float scale, void* stream);
+                             int H, float scale, int simt, void* stream);
+extern "C" int dyt_simt_core_qkv(const void* qkv, void* out, int B, int N,
+                                 int C, int H, float scale, int t_f32,
+                                 int exact, void* stream);
+extern "C" int dyt_simt_core_q8(const void* qkv, void* out, void* scratch,
+                                int B, int N, int C, int H, float scale,
+                                int t_f32, void* stream);
 
 namespace dyt {
 
@@ -231,150 +239,6 @@ static cudaError_t launch_row_quant(const TI* x, int8_t* q, float* rs, int M,
                                     cudaStream_t s) {
   row_quant_kernel<TI><<<(M + 7) / 8, 256, 0, s>>>(x, q, rs, M, K, amax_in);
   return cudaGetLastError();
-}
-
-// ---------------------------------------------------------------------------
-// The int8 GEMM: gemm.cuh's TMA + wgmma kernel on int8 operands (A [M, K]
-// and W [N, K], K-contiguous; K % 16 == 0, N % 8 == 0, M ragged) with one
-// of these epilogues.  The int32 sums are exact in any order, and each
-// epilogue rounds at the points q8_epilogue gives, so the outputs are the
-// bits the plain versions compute.
-
-enum Q8Epilogue {
-  Q8_OUT = 0,        // out = TO((acc * rs[m]) * cs[n] + bias[n])
-  Q8_GELU_ERF = 1,   // out (fp32) = gelu_erf((acc * rs) * cs + bias), and
-                     // the rows' amax |out| into row_amax when given
-  Q8_GELU_TANH = 2,  // out (fp32) = gelu_tanh((acc * rs) * cs + bias), idem
-  Q8_RESID = 3,      // xm = (resid + (acc * rs) * cs) + bias; out = TO(xm);
-                     // out_f32 = xm when given
-  Q8_STEM = 4,       // out = TO(acc * (rs[m] * cs[n]) + bias)  (q8_conv)
-  Q8_SCATTER = 5,    // Q8_OUT's value into row row_map[m] of out, none
-                     // where row_map[m] < 0  (K12's fc2)
-  Q8_RAW = 6,        // out (int32) = acc  (K16)
-};
-
-template <int EPI>
-__device__ __forceinline__ float q8_epilogue(int acc, float r, float c,
-                                             float b, float resid) {
-  const float a = __int2float_rn(acc);
-  if constexpr (EPI == Q8_STEM) return add(mul(a, mul(r, c)), b);
-  const float v = mul(mul(a, r), c);
-  if constexpr (EPI == Q8_OUT || EPI == Q8_SCATTER) return add(v, b);
-  if constexpr (EPI == Q8_GELU_ERF) return gelu_erf(add(v, b));
-  if constexpr (EPI == Q8_GELU_TANH) return gelu_tanh(add(v, b));
-  return add(add(resid, v), b);                  // Q8_RESID
-}
-
-// A 64-row consumer warpgroup's int32 accumulators of the 128 x BN tile at
-// (m0, n0), dequantized and stored through gemm.cuh's staged stores.  The
-// GELU forms also take each row's amax |out| over the tile's columns (the
-// quad's lanes, then an atomic max across column tiles: bit order is value
-// order for non-negative floats).
-template <int EPI, typename TO>
-struct EpiQ8 {
-  const float* rs;
-  const float* cs;
-  const float* bias;
-  TO* out;
-  const TO* resid;
-  float* out_f32;
-  float* row_amax;
-  const int* row_map;
-
-  bool aligned() const {
-    return (reinterpret_cast<uintptr_t>(out) |
-            reinterpret_cast<uintptr_t>(out_f32)) % 16 == 0;
-  }
-
-  template <int NA>
-  __device__ __forceinline__ void operator()(const int (&acc)[NA],
-                                             unsigned char* stage, int m0,
-                                             int n0, int M, int N) const {
-    constexpr int BN = 2 * NA;
-    constexpr bool GELU = EPI == Q8_GELU_ERF || EPI == Q8_GELU_TANH;
-    const int lane = threadIdx.x & 31;
-    const int g = lane >> 2, t2 = (lane & 3) * 2;
-    const int row0 = gemm_warp_row0(m0);
-    float r[2] = {0.f, 0.f}, rmax[2] = {0.f, 0.f};
-    if constexpr (EPI != Q8_RAW) {
-#pragma unroll
-      for (int h = 0; h < 2; ++h)
-        if (row0 + g + 8 * h < M) r[h] = rs[row0 + g + 8 * h];
-    }
-#pragma unroll
-    for (int c = 0; c < BN / GEMM_OUT_COLS; ++c) {
-      const int col0 = n0 + c * GEMM_OUT_COLS;
-      if constexpr (EPI == Q8_RAW) {
-        int v[4][2][2];
-#pragma unroll
-        for (int jj = 0; jj < 4; ++jj)
-#pragma unroll
-          for (int e = 0; e < 4; ++e)
-            v[jj][e >> 1][e & 1] = acc[4 * (c * 4 + jj) + e];
-        gemm_store_chunk<TO>(v, out, stage, row0, col0, M, N, lane);
-      } else {
-        float v[4][2][2];
-#pragma unroll
-        for (int jj = 0; jj < 4; ++jj) {
-          const int j = c * 4 + jj, col = n0 + j * 8 + t2;
-          float2 cc = make_float2(0.f, 0.f), b = make_float2(0.f, 0.f);
-          if (col < N) {
-            cc = load2(cs + col);
-            b = load2(bias + col);
-          }
-#pragma unroll
-          for (int h = 0; h < 2; ++h) {
-            const int row = row0 + g + 8 * h;
-            float2 x = make_float2(0.f, 0.f);
-            if constexpr (EPI == Q8_RESID)
-              if (row < M && col < N) x = load2(resid + (size_t)row * N + col);
-            const float v0 =
-                q8_epilogue<EPI>(acc[4 * j + 2 * h], r[h], cc.x, b.x, x.x);
-            const float v1 =
-                q8_epilogue<EPI>(acc[4 * j + 2 * h + 1], r[h], cc.y, b.y, x.y);
-            v[jj][h][0] = v0;
-            v[jj][h][1] = v1;
-            if constexpr (GELU)
-              if (col < N)
-                rmax[h] = fmaxf(rmax[h], fmaxf(fabsf(v0), fabsf(v1)));
-          }
-        }
-        gemm_store_chunk<TO>(v, out, stage, row0, col0, M, N, lane,
-                             EPI == Q8_SCATTER ? row_map : nullptr);
-        if constexpr (EPI == Q8_RESID)
-          if (out_f32 != nullptr)
-            gemm_store_chunk<float>(v, out_f32, stage, row0, col0, M, N,
-                                    lane);
-      }
-    }
-    if constexpr (GELU) {
-      if (row_amax != nullptr) {
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          float m = rmax[h];
-          m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 1));
-          m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 2));
-          const int row = row0 + g + 8 * h;
-          if ((lane & 3) == 0 && row < M)
-            atomicMax(reinterpret_cast<unsigned*>(row_amax) + row,
-                      __float_as_uint(m));
-        }
-      }
-    }
-  }
-};
-
-template <int EPI, typename TO>
-static cudaError_t launch_gemm_s8(const int8_t* A, const int8_t* W,
-                                  const float* rs, const float* cs,
-                                  const float* bias, int M, int N, int K,
-                                  TO* out, const TO* resid, float* out_f32,
-                                  float* row_amax, cudaStream_t s,
-                                  const int* row_map = nullptr) {
-  return launch_gemm(A, W, M, N, K,
-                     EpiQ8<EPI, TO>{rs, cs, bias, out, resid, out_f32,
-                                    row_amax, row_map},
-                     s);
 }
 
 // ---------------------------------------------------------------------------
@@ -833,29 +697,53 @@ static cudaError_t attn_core_q8(const bf16* qkv, bf16* out, int B, int N,
 // ---------------------------------------------------------------------------
 // The chains
 
-template <typename TX>
+// The chain with its qkv and core-output scratch in TS: bf16 (K5, and K6 /
+// K8 with bf16 adapters) or fp32 (K6 / K8 with fp32 adapters, JAX's
+// ``adtype``: the int8 GEMM's epilogue stores the fp32 qkv, the SIMT core
+// runs on it with its sums in float64, as the plain version's, so its fp32
+// output is row-quantized for proj into the plain version's codes).
+// ``simt_core`` selects the SIMT core's form of the core over the wgmma
+// core's: the caller decides, and an fp32 scratch takes the SIMT core only.
+// ``core_scratch`` holds the int8-score SIMT core's codes (attn_q8 with
+// simt_core).
+template <typename TX, typename TS>
 static cudaError_t sublayer_q8(const TX* x, const float* gamma,
                                const float* beta, const int8_t* wqkv,
                                const float* sqkv, const float* bqkv,
                                const int8_t* wproj, const float* sproj,
                                const float* bproj, TX* out, float* xm32,
-                               int8_t* a8, float* rs, bf16* qkv_buf,
-                               bf16* attn_buf, int B, int N, int C, int H,
-                               float scale, int attn_q8, cudaStream_t s) {
+                               int8_t* a8, float* rs, TS* qkv_buf,
+                               TS* attn_buf, void* core_scratch, int B, int N,
+                               int C, int H, float scale, int attn_q8,
+                               int simt_core, cudaStream_t s) {
+  constexpr bool F32 = std::is_same<TS, float>::value;
+  if (F32 && !simt_core) return cudaErrorInvalidValue;
   const int M = B * N;
   if (C % 8 || C > 32 * 8 * MAX_CHUNKS) return cudaErrorInvalidValue;
   ln_quant_kernel<TX><<<(M + 7) / 8, 256, 0, s>>>(x, gamma, beta, a8, rs, M,
                                                   C, RowGather<TX>{});
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  err = launch_gemm_s8<Q8_OUT, bf16>(a8, wqkv, rs, sqkv, bqkv, M, 3 * C, C,
-                                     qkv_buf, nullptr, nullptr, nullptr, s);
+  err = launch_gemm_s8<Q8_OUT, TS>(a8, wqkv, rs, sqkv, bqkv, M, 3 * C, C,
+                                   qkv_buf, nullptr, nullptr, nullptr, s);
   if (err != cudaSuccess) return err;
-  err = attn_q8 ? attn_core_q8(qkv_buf, attn_buf, B, N, C, H, scale, s)
-                : static_cast<cudaError_t>(
-                      dyt_attn_core(qkv_buf, attn_buf, B, N, C, H, scale, s));
+  if constexpr (F32) {
+    err = static_cast<cudaError_t>(
+        attn_q8 ? dyt_simt_core_q8(qkv_buf, attn_buf, core_scratch, B, N, C,
+                                   H, scale, 1, s)
+                : dyt_simt_core_qkv(qkv_buf, attn_buf, B, N, C, H, scale, 1,
+                                    1, s));
+  } else if (attn_q8) {
+    err = simt_core ? static_cast<cudaError_t>(dyt_simt_core_q8(
+                          qkv_buf, attn_buf, core_scratch, B, N, C, H, scale,
+                          0, s))
+                    : attn_core_q8(qkv_buf, attn_buf, B, N, C, H, scale, s);
+  } else {
+    err = static_cast<cudaError_t>(dyt_attn_core(
+        qkv_buf, attn_buf, B, N, C, H, scale, simt_core, s));
+  }
   if (err != cudaSuccess) return err;
-  err = launch_row_quant<bf16>(attn_buf, a8, rs, M, C, nullptr, s);
+  err = launch_row_quant<TS>(attn_buf, a8, rs, M, C, nullptr, s);
   if (err != cudaSuccess) return err;
   return launch_gemm_s8<Q8_RESID, TX>(a8, wproj, rs, sproj, bproj, M, C, C,
                                       out, x, xm32, nullptr, s);
@@ -986,31 +874,41 @@ int dyt_attn_core_q8(const void* qkv, void* out, int B, int N, int C, int H,
 // residual dtype (x_f32 selects fp32 over bf16); gamma/beta/biases/scales
 // fp32; wqkv [3C, C], wproj [C, C] int8; xm32 an optional fp32 copy of out;
 // a8 [B*N, C] int8, rs [B*N] fp32, qkv_buf [B*N, 3C] and attn_buf [B*N, C]
-// bf16 scratch; attn_q8 selects the K10 core.  Returns a cudaError_t value.
+// scratch in bf16, or fp32 with scratch_f32; attn_q8 selects the K10 core,
+// simt_core the SIMT core's form of the core (set for fp32 scratch);
+// core_scratch dyt_simt_core_q8_scratch_bytes on 16 bytes with both, else
+// unused.  Returns a cudaError_t value.
 int dyt_attention_sublayer_q8(const void* x, int x_f32, const float* gamma,
                               const float* beta, const void* wqkv,
                               const float* sqkv, const float* bqkv,
                               const void* wproj, const float* sproj,
                               const float* bproj, void* out, float* xm32,
                               void* a8, float* rs, void* qkv_buf,
-                              void* attn_buf, int B, int N, int C, int H,
-                              float scale, int attn_q8, void* stream) {
+                              void* attn_buf, int scratch_f32,
+                              void* core_scratch, int B, int N, int C, int H,
+                              float scale, int attn_q8, int simt_core,
+                              void* stream) {
   using dyt::bf16;
   auto* wq = static_cast<const int8_t*>(wqkv);
   auto* wp = static_cast<const int8_t*>(wproj);
   auto* a = static_cast<int8_t*>(a8);
-  auto* qb = static_cast<bf16*>(qkv_buf);
-  auto* ab = static_cast<bf16*>(attn_buf);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (x_f32)
-    return dyt::sublayer_q8<float>(
-        static_cast<const float*>(x), gamma, beta, wq, sqkv, bqkv, wp, sproj,
-        bproj, static_cast<float*>(out), xm32, a, rs, qb, ab, B, N, C, H,
-        scale, attn_q8, s);
-  return dyt::sublayer_q8<bf16>(
-      static_cast<const bf16*>(x), gamma, beta, wq, sqkv, bqkv, wp, sproj,
-      bproj, static_cast<bf16*>(out), xm32, a, rs, qb, ab, B, N, C, H, scale,
-      attn_q8, s);
+  auto run = [&](auto* qb, auto* ab) {
+    if (x_f32)
+      return dyt::sublayer_q8(static_cast<const float*>(x), gamma, beta, wq,
+                              sqkv, bqkv, wp, sproj, bproj,
+                              static_cast<float*>(out), xm32, a, rs, qb, ab,
+                              core_scratch, B, N, C, H, scale, attn_q8,
+                              simt_core, s);
+    return dyt::sublayer_q8(static_cast<const bf16*>(x), gamma, beta, wq,
+                            sqkv, bqkv, wp, sproj, bproj,
+                            static_cast<bf16*>(out), xm32, a, rs, qb, ab,
+                            core_scratch, B, N, C, H, scale, attn_q8,
+                            simt_core, s);
+  };
+  if (scratch_f32)
+    return run(static_cast<float*>(qkv_buf), static_cast<float*>(attn_buf));
+  return run(static_cast<bf16*>(qkv_buf), static_cast<bf16*>(attn_buf));
 }
 
 // K4: x, out [M, C] (x_f32 selects fp32 over bf16); w1 [Hd, C], w2 [C, Hd]
@@ -1034,18 +932,6 @@ int dyt_q8_ln_mlp(const void* x, int x_f32, const float* gamma,
   return dyt::ln_mlp_q8<dyt::bf16>(
       static_cast<const dyt::bf16*>(x), gamma, beta, q1, s1, b1, q2, s2, b2,
       static_cast<dyt::bf16*>(out), a, rs, h, hmax, M, C, Hd, approx, s);
-}
-
-// The int8 stem: a [M, K] int8 patch rows with per-row (per-image) scales
-// rs, w [N, K] int8 with scales cs, bias [N] -> out [M, N] bf16 =
-// acc * (rs * cs) + bias.
-int dyt_q8_stem_gemm(const void* a, const void* w, const float* rs,
-                     const float* cs, const float* bias, int M, int N, int K,
-                     void* out, void* stream) {
-  return dyt::launch_gemm_s8<dyt::Q8_STEM, dyt::bf16>(
-      static_cast<const int8_t*>(a), static_cast<const int8_t*>(w), rs, cs,
-      bias, M, N, K, static_cast<dyt::bf16*>(out), nullptr, nullptr, nullptr,
-      static_cast<cudaStream_t>(stream));
 }
 
 // K12: x [B, N, C] (x_f32 selects fp32 over bf16); idx [B, cap] int64 and

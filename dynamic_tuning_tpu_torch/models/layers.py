@@ -590,12 +590,24 @@ class Adapter(nn.Module):
         return self.scale_value().detach()
 
     def kernel_weights(self):
-        """(wdown [F, C], bdown fp32, wup [C, F], bup fp32, scale fp32 [1])."""
-        w = self._w.get
-        return (w(self.down_proj.weight, self.dtype),
-                self.down_proj.bias.detach(),
-                w(self.up_proj.weight, self.dtype),
-                self.up_proj.bias.detach(), self.scale_tensor())
+        """(wdown [F', C], bdown fp32 [F'], wup [C, F'], bup fp32, scale fp32
+        [1]) with F' = ``ms.adapter_kernel_width``: a bf16 bottleneck the
+        wgmma tail is not built for is zero-padded up to one it is, once
+        per load (exact: ``ms.pad_adapter_weights``)."""
+        F = self.down_proj.out_features
+        width = ms.adapter_kernel_width(F, self.dtype)
+        if width == F:
+            w = self._w.get
+            return (w(self.down_proj.weight, self.dtype),
+                    self.down_proj.bias.detach(),
+                    w(self.up_proj.weight, self.dtype),
+                    self.up_proj.bias.detach(), self.scale_tensor())
+        wd, bd, wu = self._w.cached(
+            (self.down_proj.weight, self.down_proj.bias, self.up_proj.weight),
+            ("padded", self.dtype, width),
+            lambda d, b, u: ms.pad_adapter_weights(
+                d.to(self.dtype), b, u.to(self.dtype), width))
+        return wd, bd, wu, self.up_proj.bias.detach(), self.scale_tensor()
 
     def forward(self, x: torch.Tensor, *, training: bool = False,
                 draws: Optional[Draws] = None) -> torch.Tensor:
@@ -650,9 +662,10 @@ class MoEAdapter(nn.Module):
     scale_tensor = Adapter.scale_tensor
 
     def kernel_weights(self):
-        """(wrouter fp32 [E, C], wdown2d [E*b, C], bdown2d fp32 [E*b],
-        wup2d [C, E*b], bup fp32 [E, C], scale fp32 [1]) for K7/K8, the
-        expert stacks laid out once per load (``ms.moe_kernel_weights``)."""
+        """(wrouter fp32 [E, C], wdown2d [E*b', C], bdown2d fp32 [E*b'],
+        wup2d [C, E*b'], bup fp32 [E, C], scale fp32 [1]) for K7/K8, the
+        expert stacks laid out once per load (``ms.moe_kernel_weights``,
+        each expert zero-padded to the width b' the wgmma tail takes)."""
         down, bdown, up = self._w.cached(
             (self.down_kernel, self.down_bias, self.up_kernel),
             ("moe", self.dtype),

@@ -11,6 +11,7 @@ first call of a kernel wrapper on a CUDA tensor builds and loads.
 
 from __future__ import annotations
 
+import concurrent.futures
 import ctypes
 import hashlib
 import os
@@ -28,21 +29,23 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
 build_seconds: float | None = None      # wall time of this process's build
+file_seconds: dict = {}                 # source -> seconds until its object
 build_log: str = ""                     # nvcc's output (ptxas register use)
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_LL = ctypes.c_longlong
 _SIGNATURES = {
     "dyt_attention_sublayer": [_P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                               _P, _I, _I, _I, _I, _F, _P],
+                               _P, _I, _I, _I, _I, _F, _I, _P],
+    "dyt_adapter_width_supported": [_I],
     "dyt_adapter_router": [_P, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P,
                            _I, _P],
-    "dyt_adapter_width_supported": [_I],
-    "dyt_attention_sublayer_q8": [_P, _I] + [_P] * 14 + [_I, _I, _I, _I, _F,
-                                                         _I, _P],
+    "dyt_attention_sublayer_q8": [_P, _I] + [_P] * 14 + [_I, _P, _I, _I, _I,
+                                                         _I, _F, _I, _I, _P],
     "dyt_q8_ln_mlp": [_P, _I] + [_P] * 13 + [_I, _I, _I, _I, _P],
     "dyt_attn_core_q8": [_P, _P, _I, _I, _I, _I, _F, _P],
     "dyt_attn_core_q8_smem_bytes": [_I, _I],
-    "dyt_q8_stem_gemm": [_P, _P, _P, _P, _P, _I, _I, _I, _P, _P],
+    "dyt_q8_stem_gemm": [_P, _P, _P, _P, _P, _I, _I, _I, _P, _I, _P],
     "dyt_q8_dispatch_mlp": [_P, _I] + [_P] * 17 + [_I] * 6 + [_P],
     "dyt_gemm_s8": [_I, _I] + [_P] * 5 + [_I, _I, _I] + [_P] * 6,
     "dyt_gemm_s8_s32": [_P, _P, _I, _I, _I, _P, _P],
@@ -51,13 +54,23 @@ _SIGNATURES = {
                                                          _P],
     "dyt_moe_width_supported": [_I, _I],
     "dyt_moe_smem_bytes": [_I, _I],
-    "dyt_mha_windowed": [_P, _P, _P, _I, _I, _I, _I, ctypes.c_longlong, _I,
-                         _F, _P],
+    "dyt_mha_windowed": [_P, _P, _P, _I, _I, _I, _I, _LL, _I, _F, _P],
     "dyt_fused_ln_mlp": [_P, _I] + [_P] * 10 + [_I, _I, _I, _I, _P],
-    "dyt_mha_core": [_P] * 5 + [_I, _I, _I, _I, _F, _I, _P],
-    "dyt_mha_softmax": [_P] * 6 + [ctypes.c_longlong] * 2
+    "dyt_mha_core": [_P] * 5 + [_I, _I, _I, _I, _F, _I, _I, _P],
+    "dyt_mha_softmax": [_P] * 6 + [_LL] * 2
                        + [_I, _I, _I, _I, _F, _I, _P],
+    "dyt_attention_sublayer_f32": [_P, _I] + [_P] * 11 + [_I] * 4 + [_F, _P],
+    "dyt_tail_simt": [_P, _I, _I] + [_P] * 9 + [_I, _P, _I, _I, _I, _F, _I,
+                                                 _P, _P, _P],
+    "dyt_simt_core_qkv": [_P, _P, _I, _I, _I, _I, _F, _I, _I, _P],
+    "dyt_gemm_f32": [_P, _P, _I, _I, _I, _P, _P],
+    "dyt_simt_core": [_P] * 5 + [_I, _I, _I, _I, _F, _I, _I, _P, _LL, _LL,
+                                 _P],
+    "dyt_simt_core_q8": [_P, _P, _P, _I, _I, _I, _I, _F, _I, _P],
+    "dyt_simt_core_q8_scratch_bytes": [_I, _I, _I, _I],
 }
+# entry points whose result is not a cudaError_t int
+_RESTYPES = {"dyt_simt_core_q8_scratch_bytes": ctypes.c_longlong}
 
 
 def strides_arg(*tensors) -> ctypes.Array:
@@ -110,12 +123,19 @@ def build() -> Path:
         jobs.append((src, obj, subprocess.Popen(
             [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
-    logs, failed = [], []
-    for src, _, proc in jobs:
+    def finish(job):
+        src, _, proc = job
         out, _ = proc.communicate()
-        logs.append(f"--- {src.name}\n{out}")
-        if proc.returncode != 0:
-            failed.append(src.name)
+        return src.name, out, proc.returncode, time.perf_counter() - t0
+
+    logs, failed = [], []
+    # one thread a job drains its nvcc's output as it comes
+    with concurrent.futures.ThreadPoolExecutor(len(jobs)) as pool:
+        for name, out, rc, sec in pool.map(finish, jobs):
+            file_seconds[name] = round(sec, 1)
+            logs.append(f"--- {name} ({sec:.1f} s)\n{out}")
+            if rc != 0:
+                failed.append(name)
     tmp = lib_path.with_suffix(f".{os.getpid()}.tmp")
     if not failed:
         link = subprocess.run([nvcc, "-shared", "-o", str(tmp),
@@ -142,7 +162,7 @@ def library() -> ctypes.CDLL:
             for name, argtypes in _SIGNATURES.items():
                 fn = getattr(lib, name)
                 fn.argtypes = argtypes
-                fn.restype = ctypes.c_int
+                fn.restype = _RESTYPES.get(name, ctypes.c_int)
             lib.dyt_error_string.argtypes = [ctypes.c_int]
             lib.dyt_error_string.restype = ctypes.c_char_p
             _lib = lib

@@ -26,11 +26,17 @@ A wrapper given CPU tensors computes the plain version.  Given CUDA tensors it
 launches the hand-written kernels of ``csrc/`` (built by ``_build`` on first
 use) or raises: on an unsupported shape, dtype or layout, or on a failed build
 or launch.  There is no other path.  Each launch adds one to the wrapper's
-``launches`` count.
+``launches`` count and one to ``forms[form]``, the form it took (``form_of``):
+"bf16" (the wgmma kernels), "fp32" (fp32 weights or qkv: the fp32 GEMM of
+``csrc/gemm_f32.cuh``, the SIMT core of ``csrc/simt_core.cu``, the SIMT
+tails of ``csrc/simt_chain.cu``), "bf16+simt_core" (bf16 at head dim 192 or
+256, the SIMT core in bf16) and "bf16+simt_tail" (a bf16 adapter or MoE tail
+at a width the wgmma tails do not take, on the SIMT tail).
 
-Weights are in torch's ``[out, in]`` layout; the kernels want them in the
-compute dtype (bf16), cast once by the caller.  The numerics follow the TPU
-kernels, not the unfused XLA branch of the JAX Attention module:
+Weights are in torch's ``[out, in]`` layout, in the compute dtype (bf16 or
+fp32), cast once by the caller; the form follows their dtype, as the JAX
+kernels run their products in the weights' dtype.  The numerics follow the
+TPU kernels, not the unfused XLA branch of the JAX Attention module:
 
 * LN in fp32, eps 1e-6: mean, then the mean of the centred squares;
 * qkv rounded to the compute dtype after the fp32 bias add;
@@ -48,7 +54,9 @@ kernels, not the unfused XLA branch of the JAX Attention module:
 
 Where a sum decides a rounding that later steps amplify (the attention
 core's scores, ``l`` and AV; every product of the MoE tail; its router and
-token-router dots), the plain versions sum in float64 and round once.  The
+token-router dots; in fp32 the adapter's products, router dots and the
+expert gates' sum too),
+the plain versions sum in float64 and round once.  The
 MoE tail kernel adds each tensor-core step's product with a round-to-nearest
 add and sums its dots in float64, so it lands near those exact sums and the
 bf16 roundings downstream mostly agree.
@@ -62,6 +70,12 @@ from dynamic_tuning_tpu_torch.ops import _build
 
 LN_EPS = 1e-6
 SMEM_PER_BLOCK = 232448          # H100: 227 KB of dynamic shared memory
+BF, F32 = torch.bfloat16, torch.float32
+WGMMA_HEAD_DIMS = (64, 128)      # the wgmma cores'
+CORE_HEAD_DIMS = (64, 128, 192, 256)     # with the SIMT core's
+AR_WIDTHS = (16, 32, 48, 64, 96, 128)    # the wgmma adapter/router kernel's F
+#                                  (csrc's dyt_adapter_width_supported)
+MOE_MAX_W = 512                  # the wgmma MoE tail's largest E * b
 
 
 # --- plain versions ----------------------------------------------------------
@@ -157,22 +171,75 @@ def dyt_prologue_plain(x, gamma, beta, wqkv, bqkv, wproj, bproj, wdown,
 def adapter_router_plain(xm, out_dtype, wdown, bdown, wup, bup, adapter_scale,
                          wsel, bsel, *, with_select: bool):
     """The prologue's tail on the fp32 x_mid ``xm``: (x_mid, adapt[,
-    logits]) with x_mid and adapt in ``out_dtype``."""
+    logits]) with x_mid and adapt in ``out_dtype``.  With fp32 weights the
+    two products and the router dots are summed in float64 and rounded
+    once (no bf16 rounding absorbs a sum's order there, and in K6 an int8
+    quantization of the next block amplifies it)."""
     dtype = wdown.dtype
-    down = torch.clamp_min(_mm(xm.to(dtype), wdown) + bdown, 0.0).to(dtype)
-    adapt = ((_mm(down, wup) + bup) * adapter_scale).to(out_dtype)
+    mm = _mm64 if dtype == F32 else _mm
+    down = torch.clamp_min(mm(xm.to(dtype), wdown) + bdown, 0.0).to(dtype)
+    adapt = ((mm(down, wup) + bup) * adapter_scale).to(out_dtype)
     if not with_select:
         return xm.to(out_dtype), adapt
-    logits = torch.matmul(xm, wsel.float().reshape(-1, 1)) + bsel
+    if dtype == F32:
+        logits = _mm64(xm, wsel.reshape(1, -1)) + bsel
+    else:
+        logits = torch.matmul(xm, wsel.float().reshape(-1, 1)) + bsel
     return xm.to(out_dtype), adapt, logits
+
+
+def adapter_kernel_width(F: int, dtype) -> int:
+    """The width the kernels take a bf16 adapter of bottleneck ``F`` at: up
+    to 128, the next width the wgmma adapter/router kernel is built for
+    (``AR_WIDTHS``); past it, and in fp32, ``F`` itself (the SIMT tail takes
+    any width)."""
+    if dtype == BF and F <= AR_WIDTHS[-1]:
+        return next(w for w in AR_WIDTHS if w >= F)
+    return F
+
+
+def pad_adapter_weights(wdown, bdown, wup, width: int):
+    """wdown [F, C], bdown [F] and wup [C, F] with zero rows, entries and
+    columns up to ``width``.  Exact: a padded unit's bottleneck is
+    relu(0 + 0) = 0, and its zero column of wup adds nothing to the up
+    product."""
+    pad = width - wdown.shape[0]
+    if pad == 0:
+        return wdown, bdown, wup
+    return (torch.cat([wdown, wdown.new_zeros((pad, wdown.shape[1]))]),
+            torch.cat([bdown, bdown.new_zeros((pad,))]),
+            torch.cat([wup, wup.new_zeros((wup.shape[0], pad))], dim=1))
+
+
+def moe_kernel_bneck(E: int, b: int, dtype) -> int:
+    """The expert width the kernels take E bf16 experts of width ``b`` at:
+    the least b' >= b with E * b' a multiple of 16, where E * b' <= 512 (the
+    wgmma MoE tail's domain); else ``b`` (the SIMT tail takes any E * b, as
+    it takes every fp32 width)."""
+    if dtype != BF or E < 2:
+        return b
+    bp = b
+    while (E * bp) % 16:
+        bp += 1
+    return bp if E * bp <= MOE_MAX_W else b
 
 
 def moe_kernel_weights(down_kernel, down_bias, up_kernel, dtype):
     """The expert stacks in the layout of the MoE tail: (wdown2d [E*b, C]
     in ``dtype``, row e*b+j = down_kernel[e, :, j]; bdown2d fp32 [E*b];
     wup2d [C, E*b] in ``dtype``) from down_kernel [E, C, b], down_bias
-    [E, b] and up_kernel [E, b, C]."""
+    [E, b] and up_kernel [E, b, C], each expert zero-padded to
+    ``moe_kernel_bneck`` (exact, as ``pad_adapter_weights``)."""
     E, C, b = down_kernel.shape
+    bp = moe_kernel_bneck(E, b, dtype)
+    if bp != b:
+        down_kernel = torch.cat(
+            [down_kernel, down_kernel.new_zeros((E, C, bp - b))], dim=2)
+        down_bias = torch.cat([down_bias, down_bias.new_zeros((E, bp - b))],
+                              dim=1)
+        up_kernel = torch.cat(
+            [up_kernel, up_kernel.new_zeros((E, bp - b, C))], dim=1)
+        b = bp
     wdown2d = down_kernel.transpose(1, 2).reshape(E * b, C)
     wup2d = up_kernel.reshape(E * b, C).t()
     return (wdown2d.to(dtype).contiguous(),
@@ -196,7 +263,12 @@ def moe_adapter_router_plain(xm, out_dtype, wrouter, wdown2d, bdown2d, wup2d,
     # does; 1/tau as an fp32 multiplier, as the TPU kernel scales them
     r = _mm64(xm, wrouter) * torch.tensor(1.0 / tau, dtype=torch.float32)
     eg = torch.exp(r - r.amax(dim=-1, keepdim=True))
-    gates = eg / eg.sum(dim=-1, keepdim=True)                   # [.., E]
+    if wdown2d.dtype == F32:
+        # the sum over the experts in float64, rounded once, as the SIMT
+        # tail sums it: with fp32 experts no bf16 rounding absorbs its order
+        gates = eg / eg.double().sum(dim=-1, keepdim=True).float()
+    else:
+        gates = eg / eg.sum(dim=-1, keepdim=True)               # [.., E]
     h = torch.clamp_min(_mm64(xm.to(wdown2d.dtype), wdown2d) + bdown2d, 0.0)
     hg = (h * gates.repeat_interleave(bneck, dim=-1)).to(wup2d.dtype)
     up = _mm64(hg, wup2d)
@@ -243,6 +315,41 @@ def _require(t: torch.Tensor, name: str, shape, dtypes, device) -> None:
         raise ValueError(f"{name} must be contiguous")
 
 
+def compute_dtype(*weights: torch.Tensor) -> torch.dtype:
+    """The dtype of the weights, which picks the form: bf16 or fp32, the
+    same for all of them."""
+    dt = weights[0].dtype
+    if dt not in (BF, F32) or any(w.dtype != dt for w in weights):
+        raise TypeError("the weights must be all bf16 or all fp32, got "
+                        f"{[w.dtype for w in weights]}")
+    return dt
+
+
+def simt_core(dtype, hd: int) -> bool:
+    """Whether the attention core runs on the SIMT core: in fp32, and at a
+    head dim the wgmma cores are not built for.  The wrappers decide here
+    and pass the route to the C entry points, which follow it."""
+    return dtype == F32 or hd not in WGMMA_HEAD_DIMS
+
+
+def form_of(dtype, hd: int | None = None, simt_tail: bool = False) -> str:
+    """The form a wrapper takes (its ``forms`` key): "fp32", or "bf16" with
+    "+simt_core" at a head dim the wgmma cores do not take and
+    "+simt_tail" for a tail on the SIMT form."""
+    if dtype == F32:
+        return "fp32"
+    form = "bf16"
+    if hd is not None and simt_core(dtype, hd):
+        form += "+simt_core"
+    return form + "+simt_tail" if simt_tail else form
+
+
+def counted(fn, form: str) -> None:
+    """One launch of wrapper ``fn`` in ``form``."""
+    fn.launches += 1
+    fn.forms[form] = fn.forms.get(form, 0) + 1
+
+
 def _check_sublayer(x, gamma, beta, wqkv, bqkv, wproj, bproj, heads):
     if x.device.type != "cuda":
         raise ValueError(f"x is on {x.device}: the kernels take CPU tensors "
@@ -251,13 +358,14 @@ def _check_sublayer(x, gamma, beta, wqkv, bqkv, wproj, bproj, heads):
         raise ValueError(f"x must be [B, N, C], got {tuple(x.shape)}")
     B, N, C = x.shape
     dev = x.device
-    f32, bf = (torch.float32,), (torch.bfloat16,)
-    _require(x, "x", (B, N, C), (torch.float32, torch.bfloat16), dev)
+    f32 = (F32,)
+    _require(x, "x", (B, N, C), (F32, BF), dev)
     for name, t, shape in (("gamma", gamma, (C,)), ("beta", beta, (C,)),
                            ("bqkv", bqkv, (3 * C,)), ("bproj", bproj, (C,))):
         _require(t, name, shape, f32, dev)
-    _require(wqkv, "wqkv", (3 * C, C), bf, dev)
-    _require(wproj, "wproj", (C, C), bf, dev)
+    wd = (compute_dtype(wqkv, wproj),)
+    _require(wqkv, "wqkv", (3 * C, C), wd, dev)
+    _require(wproj, "wproj", (C, C), wd, dev)
     if C % heads:
         raise ValueError(f"C={C} is not a multiple of heads={heads}")
     check_core_head_dim(C // heads)
@@ -266,20 +374,35 @@ def _check_sublayer(x, gamma, beta, wqkv, bqkv, wproj, bproj, heads):
 
 def _launch_sublayer(lib, x, gamma, beta, wqkv, bqkv, wproj, bproj, heads,
                      xm32):
+    """The sublayer chain in the weights' dtype: the bf16 chain of
+    ``attention_sublayer.cu`` or the fp32 chain of ``simt_chain.cu``."""
     B, N, C = x.shape
     M = B * N
     out = torch.empty_like(x)
-    ln_buf = torch.empty((M, C), dtype=torch.bfloat16, device=x.device)
-    qkv_buf = torch.empty((M, 3 * C), dtype=torch.bfloat16, device=x.device)
-    attn_buf = torch.empty((M, C), dtype=torch.bfloat16, device=x.device)
+    dt = wqkv.dtype
+    ln_buf = torch.empty((M, C), dtype=dt, device=x.device)
+    qkv_buf = torch.empty((M, 3 * C), dtype=dt, device=x.device)
+    attn_buf = torch.empty((M, C), dtype=dt, device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    err = lib.dyt_attention_sublayer(
-        _ptr(x), int(x.dtype == torch.float32), _ptr(gamma), _ptr(beta),
-        _ptr(wqkv), _ptr(bqkv), _ptr(wproj), _ptr(bproj), _ptr(out),
-        _ptr(xm32), _ptr(ln_buf), _ptr(qkv_buf), _ptr(attn_buf), B, N, C,
-        heads, (C // heads) ** -0.5, stream)
+    args = (_ptr(x), int(x.dtype == F32), _ptr(gamma), _ptr(beta),
+            _ptr(wqkv), _ptr(bqkv), _ptr(wproj), _ptr(bproj), _ptr(out),
+            _ptr(xm32), _ptr(ln_buf), _ptr(qkv_buf), _ptr(attn_buf), B, N,
+            C, heads, (C // heads) ** -0.5)
+    if dt == F32:                         # the SIMT core throughout
+        err = lib.dyt_attention_sublayer_f32(*args, stream)
+    else:
+        err = lib.dyt_attention_sublayer(
+            *args, int(simt_core(dt, C // heads)), stream)
     _build.check(lib, err, "attention sublayer kernels")
     return out
+
+
+def _xm32(x):
+    """The fp32 copy of x_mid the tails read: none needed (None) when the
+    residual is fp32 already, x_mid itself then."""
+    if x.dtype == F32:
+        return None
+    return torch.empty(x.shape, dtype=F32, device=x.device)
 
 
 def attention_sublayer_serving(x, gamma, beta, wqkv, bqkv, wproj, bproj, *,
@@ -287,7 +410,7 @@ def attention_sublayer_serving(x, gamma, beta, wqkv, bqkv, wproj, bproj, *,
     """K2: x [B, N, C] (bf16 or fp32) -> x + proj(core(qkv(LN(x)))).
 
     gamma/beta/bqkv/bproj fp32; wqkv [3C, C] and wproj [C, C] in the compute
-    dtype (bf16 on CUDA)."""
+    dtype (bf16 or fp32)."""
     if x.device.type == "cpu":
         return attention_sublayer_plain(x, gamma, beta, wqkv, bqkv, wproj,
                                         bproj, heads=heads)
@@ -295,11 +418,9 @@ def attention_sublayer_serving(x, gamma, beta, wqkv, bqkv, wproj, bproj, *,
     with torch.cuda.device(x.device):
         out = _launch_sublayer(lib, x, gamma, beta, wqkv, bqkv, wproj, bproj,
                                heads, None)
-    attention_sublayer_serving.launches += 1
+    counted(attention_sublayer_serving,
+            form_of(wqkv.dtype, x.shape[-1] // heads))
     return out
-
-
-attention_sublayer_serving.launches = 0
 
 
 def dyt_prologue_serving(x, gamma, beta, wqkv, bqkv, wproj, bproj, wdown,
@@ -308,8 +429,10 @@ def dyt_prologue_serving(x, gamma, beta, wqkv, bqkv, wproj, bproj, wdown,
     """K3: (x_mid, adapt, logits [B, N, 1] fp32), or (x_mid, adapt) when
     ``with_select`` is False (teacher / dense mode; wsel and bsel unused).
 
-    wdown [F, C] and wup [C, F] in the compute dtype; bdown [F], bup [C],
-    adapter_scale [1], wsel [1, C] and bsel [1] fp32."""
+    wdown [F, C] and wup [C, F] in the compute dtype (that of wqkv); bdown
+    [F], bup [C], adapter_scale [1], wsel [1, C] and bsel [1] fp32.  A bf16
+    F of ``AR_WIDTHS`` takes the wgmma tail (``adapter_kernel_width`` pads
+    the others up to one), any other F the SIMT tail."""
     if x.device.type == "cpu":
         return dyt_prologue_plain(x, gamma, beta, wqkv, bqkv, wproj, bproj,
                                   wdown, bdown, wup, bup, adapter_scale, wsel,
@@ -317,56 +440,72 @@ def dyt_prologue_serving(x, gamma, beta, wqkv, bqkv, wproj, bproj, wdown,
     lib = _check_sublayer(x, gamma, beta, wqkv, bqkv, wproj, bproj, heads)
     check_adapter_router(lib, x, wdown, bdown, wup, bup, adapter_scale, wsel,
                          bsel, with_select)
+    compute_dtype(wqkv, wdown)
     with torch.cuda.device(x.device):
-        xm32 = torch.empty(x.shape, dtype=torch.float32, device=x.device)
+        xm32 = _xm32(x)
         x_mid = _launch_sublayer(lib, x, gamma, beta, wqkv, bqkv, wproj,
                                  bproj, heads, xm32)
-        outs = launch_adapter_router(lib, x_mid, xm32, wdown, bdown, wup, bup,
-                                     adapter_scale, wsel, bsel, with_select)
-    dyt_prologue_serving.launches += 1
+        outs = launch_adapter_router(lib, x_mid,
+                                     x_mid if xm32 is None else xm32, wdown,
+                                     bdown, wup, bup, adapter_scale, wsel,
+                                     bsel, with_select)
+    counted(dyt_prologue_serving,
+            form_of(wqkv.dtype, x.shape[-1] // heads,
+                    _adapter_tail(wdown) == "simt"))
     return outs
 
 
-dyt_prologue_serving.launches = 0
+def _adapter_tail(wdown) -> str:
+    """"wgmma" for a bf16 adapter width the wgmma kernel is built for, else
+    "simt"."""
+    return ("wgmma" if wdown.dtype == BF and wdown.shape[0] in AR_WIDTHS
+            else "simt")
 
 
 def check_adapter_router(lib, x, wdown, bdown, wup, bup, adapter_scale, wsel,
                          bsel, with_select: bool) -> None:
-    """Raise on adapter/router arguments the CUDA kernel does not take."""
+    """Raise on adapter/router arguments the CUDA kernels do not take."""
     C = x.shape[-1]
     F = wdown.shape[0]
-    dev, f32 = x.device, (torch.float32,)
-    _require(wdown, "wdown", (F, C), (torch.bfloat16,), dev)
-    _require(wup, "wup", (C, F), (torch.bfloat16,), dev)
+    dev, f32 = x.device, (F32,)
+    wd = (compute_dtype(wdown, wup),)
+    _require(wdown, "wdown", (F, C), wd, dev)
+    _require(wup, "wup", (C, F), wd, dev)
     _require(bdown, "bdown", (F,), f32, dev)
     _require(bup, "bup", (C,), f32, dev)
     _require(adapter_scale, "adapter_scale", (1,), f32, dev)
     if with_select:
         _require(wsel, "wsel", (1, C), f32, dev)
         _require(bsel, "bsel", (1,), f32, dev)
-    if not lib.dyt_adapter_width_supported(F):
-        raise ValueError(f"adapter width {F} not supported "
-                         "(16, 32, 48, 64, 96 or 128)")
-    if C % 64:
+    if _adapter_tail(wdown) == "wgmma" and C % 64:
         raise ValueError(f"C={C} must be a multiple of 64")
 
 
 def launch_adapter_router(lib, x_mid, xm32, wdown, bdown, wup, bup,
                           adapter_scale, wsel, bsel, with_select: bool):
-    """The adapter/router kernel on the fp32 copy ``xm32`` of ``x_mid``:
+    """The adapter/router tail on the fp32 copy ``xm32`` of ``x_mid`` (the
+    wgmma kernel for a bf16 width of ``AR_WIDTHS``, else the SIMT tail):
     (x_mid, adapt[, logits])."""
     B, N, C = x_mid.shape
     dev = x_mid.device
+    F = wdown.shape[0]
     adapt = torch.empty_like(x_mid)
-    logits = (torch.empty((B, N, 1), dtype=torch.float32, device=dev)
+    logits = (torch.empty((B, N, 1), dtype=F32, device=dev)
               if with_select else None)
-    err = lib.dyt_adapter_router(
-        _ptr(xm32), B * N, C, _ptr(wdown), _ptr(bdown), _ptr(wup),
-        _ptr(bup), _ptr(adapter_scale),
-        _ptr(wsel) if with_select else None,
-        _ptr(bsel) if with_select else None, _ptr(adapt),
-        int(x_mid.dtype == torch.float32), _ptr(logits), wdown.shape[0],
-        torch.cuda.current_stream(dev).cuda_stream)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    sel = ((_ptr(wsel), _ptr(bsel)) if with_select else (None, None))
+    if _adapter_tail(wdown) == "wgmma":
+        err = lib.dyt_adapter_router(
+            _ptr(xm32), B * N, C, _ptr(wdown), _ptr(bdown), _ptr(wup),
+            _ptr(bup), _ptr(adapter_scale), *sel, _ptr(adapt),
+            int(x_mid.dtype == F32), _ptr(logits), F, stream)
+    else:
+        h = torch.empty((B * N, F), dtype=wdown.dtype, device=dev)
+        err = lib.dyt_tail_simt(
+            _ptr(xm32), B * N, C, None, _ptr(wdown), _ptr(bdown), _ptr(wup),
+            _ptr(bup), _ptr(adapter_scale), *sel, _ptr(adapt),
+            int(x_mid.dtype == F32), _ptr(logits), F, 0, 1, 1.0,
+            int(wdown.dtype == F32), _ptr(h), None, stream)
     _build.check(lib, err, "adapter/router kernel")
     return (x_mid, adapt, logits) if with_select else (x_mid, adapt)
 
@@ -381,82 +520,105 @@ def dyt_prologue_serving_moe(x, gamma, beta, wqkv, bqkv, wproj, bproj,
     Sublayer weights as for ``dyt_prologue_serving``; the experts as
     ``moe_kernel_weights`` lays them out (wdown2d [E*b, C], wup2d [C, E*b]
     in the compute dtype), wrouter [E, C], bdown2d [E*b], bup [E, C],
-    adapter_scale [1], wsel [1, C] and bsel [1] fp32."""
+    adapter_scale [1], wsel [1, C] and bsel [1] fp32.  A bf16 E * b that is
+    a multiple of 16 and at most 512 takes the wgmma tail
+    (``moe_kernel_bneck`` pads the others up to one where it can), any
+    other the SIMT tail."""
     if x.device.type == "cpu":
         return dyt_prologue_moe_plain(
             x, gamma, beta, wqkv, bqkv, wproj, bproj, wrouter, wdown2d,
             bdown2d, wup2d, bup, adapter_scale, wsel, bsel, heads=heads,
             tau=tau, with_select=with_select)
     lib = _check_sublayer(x, gamma, beta, wqkv, bqkv, wproj, bproj, heads)
-    check_moe_adapter_router(lib, x, wrouter, wdown2d, bdown2d, wup2d, bup,
-                             adapter_scale, wsel, bsel, with_select)
+    tail = check_moe_adapter_router(lib, x, wrouter, wdown2d, bdown2d, wup2d,
+                                    bup, adapter_scale, wsel, bsel,
+                                    with_select)
+    compute_dtype(wqkv, wdown2d)
     with torch.cuda.device(x.device):
-        xm32 = torch.empty(x.shape, dtype=torch.float32, device=x.device)
+        xm32 = _xm32(x)
         x_mid = _launch_sublayer(lib, x, gamma, beta, wqkv, bqkv, wproj,
                                  bproj, heads, xm32)
         outs = launch_moe_adapter_router(
-            lib, x_mid, xm32, wrouter, wdown2d, bdown2d, wup2d, bup,
-            adapter_scale, wsel, bsel, tau, with_select)
-    dyt_prologue_serving_moe.launches += 1
+            lib, x_mid, x_mid if xm32 is None else xm32, wrouter, wdown2d,
+            bdown2d, wup2d, bup, adapter_scale, wsel, bsel, tau, with_select)
+    counted(dyt_prologue_serving_moe,
+            form_of(wqkv.dtype, x.shape[-1] // heads, tail == "simt"))
     return outs
 
 
-dyt_prologue_serving_moe.launches = 0
+def _moe_tail(lib, E, W, C, wdown2d) -> str:
+    """"wgmma" where the wgmma MoE tail takes the bf16 experts (E >= 2,
+    E * b a multiple of 16 and at most 512, C a multiple of 64, its layout
+    within a block's shared memory), else "simt"."""
+    if (wdown2d.dtype == BF and E >= 2 and W % E == 0 and C % 64 == 0
+            and lib.dyt_moe_width_supported(E, W // E)
+            and lib.dyt_moe_smem_bytes(E, W // E) <= SMEM_PER_BLOCK):
+        return "wgmma"
+    return "simt"
 
 
 def check_moe_adapter_router(lib, x, wrouter, wdown2d, bdown2d, wup2d, bup,
                              adapter_scale, wsel, bsel,
-                             with_select: bool) -> None:
-    """Raise on MoE adapter/router arguments the CUDA kernel does not take."""
+                             with_select: bool) -> str:
+    """Raise on MoE adapter/router arguments the CUDA kernels do not take;
+    return the tail that takes them ("wgmma" or "simt")."""
     C = x.shape[-1]
     if wrouter.dim() != 2 or wdown2d.dim() != 2:
         raise ValueError("wrouter and wdown2d must be 2-D")
     E, W = wrouter.shape[0], wdown2d.shape[0]
-    if E < 2 or W % E or not lib.dyt_moe_width_supported(E, W // E):
-        raise ValueError(f"MoE width {E} experts x {W / E:g} not supported "
-                         "(E >= 2, E*b a multiple of 16 and at most 512)")
-    dev, f32 = x.device, (torch.float32,)
+    if E < 1 or W % E:
+        raise ValueError(f"MoE width {E} experts x {W / max(E, 1):g} not "
+                         "supported (E >= 1 experts of one width)")
+    dev, f32 = x.device, (F32,)
+    wd = (compute_dtype(wdown2d, wup2d),)
     _require(wrouter, "wrouter", (E, C), f32, dev)
-    _require(wdown2d, "wdown2d", (W, C), (torch.bfloat16,), dev)
-    _require(wup2d, "wup2d", (C, W), (torch.bfloat16,), dev)
+    _require(wdown2d, "wdown2d", (W, C), wd, dev)
+    _require(wup2d, "wup2d", (C, W), wd, dev)
     _require(bdown2d, "bdown2d", (W,), f32, dev)
     _require(bup, "bup", (E, C), f32, dev)
     _require(adapter_scale, "adapter_scale", (1,), f32, dev)
     if with_select:
         _require(wsel, "wsel", (1, C), f32, dev)
         _require(bsel, "bsel", (1,), f32, dev)
-    if C % 64:
-        raise ValueError(f"C={C} must be a multiple of 64")
-    for name, t in (("wrouter", wrouter), ("wdown2d", wdown2d),
-                    ("wup2d", wup2d), ("bup", bup),
-                    ("wsel", wsel if with_select else None)):
-        if t is not None and t.data_ptr() % 16:
-            raise ValueError(f"{name} must start on 16 bytes")
-    smem = lib.dyt_moe_smem_bytes(E, W // E)
-    if smem > SMEM_PER_BLOCK:
-        raise ValueError(f"MoE kernel at {E} experts x {W // E} needs {smem} "
-                         f"B of shared memory per block (limit "
-                         f"{SMEM_PER_BLOCK})")
+    tail = _moe_tail(lib, E, W, C, wdown2d)
+    if tail == "wgmma":
+        for name, t in (("wrouter", wrouter), ("wdown2d", wdown2d),
+                        ("wup2d", wup2d), ("bup", bup),
+                        ("wsel", wsel if with_select else None)):
+            if t is not None and t.data_ptr() % 16:
+                raise ValueError(f"{name} must start on 16 bytes")
+    return tail
 
 
 def launch_moe_adapter_router(lib, x_mid, xm32, wrouter, wdown2d, bdown2d,
                               wup2d, bup, adapter_scale, wsel, bsel,
                               tau: float, with_select: bool):
-    """The MoE adapter/router kernel on the fp32 copy ``xm32`` of
-    ``x_mid``: (x_mid, adapt[, logits])."""
+    """The MoE adapter/router tail on the fp32 copy ``xm32`` of ``x_mid``
+    (the wgmma kernel where it takes the experts, else the SIMT tail):
+    (x_mid, adapt[, logits])."""
     B, N, C = x_mid.shape
     dev = x_mid.device
     E, b = _moe_dims(wrouter, wdown2d)
     adapt = torch.empty_like(x_mid)
-    logits = (torch.empty((B, N, 1), dtype=torch.float32, device=dev)
+    logits = (torch.empty((B, N, 1), dtype=F32, device=dev)
               if with_select else None)
-    err = lib.dyt_moe_adapter_router(
-        _ptr(xm32), B * N, C, _ptr(wrouter), _ptr(wdown2d), _ptr(bdown2d),
-        _ptr(wup2d), _ptr(bup), _ptr(adapter_scale),
-        _ptr(wsel) if with_select else None,
-        _ptr(bsel) if with_select else None, _ptr(adapt),
-        int(x_mid.dtype == torch.float32), _ptr(logits), E, b, 1.0 / tau,
-        torch.cuda.current_stream(dev).cuda_stream)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    sel = ((_ptr(wsel), _ptr(bsel)) if with_select else (None, None))
+    if _moe_tail(lib, E, E * b, C, wdown2d) == "wgmma":
+        err = lib.dyt_moe_adapter_router(
+            _ptr(xm32), B * N, C, _ptr(wrouter), _ptr(wdown2d),
+            _ptr(bdown2d), _ptr(wup2d), _ptr(bup), _ptr(adapter_scale), *sel,
+            _ptr(adapt), int(x_mid.dtype == F32), _ptr(logits), E, b,
+            1.0 / tau, stream)
+    else:
+        h = torch.empty((B * N, E * b), dtype=wdown2d.dtype, device=dev)
+        gates = torch.empty((B * N, E), dtype=F32, device=dev)
+        err = lib.dyt_tail_simt(
+            _ptr(xm32), B * N, C, _ptr(wrouter), _ptr(wdown2d),
+            _ptr(bdown2d), _ptr(wup2d), _ptr(bup), _ptr(adapter_scale), *sel,
+            _ptr(adapt), int(x_mid.dtype == F32), _ptr(logits), E * b, E, b,
+            1.0 / tau, int(wdown2d.dtype == F32), _ptr(h), _ptr(gates),
+            stream)
     _build.check(lib, err, "MoE adapter/router kernel")
     return (x_mid, adapt, logits) if with_select else (x_mid, adapt)
 
@@ -492,7 +654,9 @@ def mha_windowed_fused(qkv: torch.Tensor, bias: torch.Tensor, *,
     """K9: qkv [B, N, 3C] + bias [H, N, N] -> [B, N, C] in qkv's dtype.
 
     The bias may be fp32 or bf16 (it is rounded to bf16 either way); on
-    CUDA qkv must be bf16 and contiguous, head_dim 64 or 128."""
+    CUDA qkv is bf16 or fp32 and contiguous, head_dim 64, 128, 192 or 256:
+    bf16 at 64 and 128 on the wgmma kernel, the rest on the SIMT core with
+    the bf16 bias upcast at the score add."""
     if qkv.device.type == "cpu":
         return mha_windowed_plain(qkv, bias, heads=heads)
     if qkv.device.type != "cuda":
@@ -504,29 +668,32 @@ def mha_windowed_fused(qkv: torch.Tensor, bias: torch.Tensor, *,
     C = C3 // 3
     if C % heads:
         raise ValueError(f"C={C} is not a multiple of heads={heads}")
-    if C // heads not in (64, 128):
-        raise ValueError(f"head_dim {C // heads} not supported (64 or 128)")
-    _require(qkv, "qkv", (B, N, C3), (torch.bfloat16,), qkv.device)
+    hd = C // heads
+    check_core_head_dim(hd)
+    _require(qkv, "qkv", (B, N, C3), (BF, F32), qkv.device)
     if qkv.data_ptr() % 16:
         raise ValueError("qkv must start on 16 bytes")
     if tuple(bias.shape) != (heads, N, N) or bias.device != qkv.device:
         raise ValueError(f"bias has shape {tuple(bias.shape)} on "
                          f"{bias.device}, want {(heads, N, N)} on "
                          f"{qkv.device}")
+    form = form_of(qkv.dtype, hd)
     lib = _build.library()
     with torch.cuda.device(qkv.device):
         bias = _windowed_bias(bias, heads, N)
-        out = torch.empty((B, N, C), dtype=torch.bfloat16, device=qkv.device)
-        err = lib.dyt_mha_windowed(
-            _ptr(qkv), _ptr(bias), _ptr(out), B, N, C, heads,
-            bias.stride(0), bias.stride(1), (C // heads) ** -0.5,
-            torch.cuda.current_stream(qkv.device).cuda_stream)
-        _build.check(lib, err, "windowed attention kernel")
-    mha_windowed_fused.launches += 1
+        out = torch.empty((B, N, C), dtype=qkv.dtype, device=qkv.device)
+        if form == "bf16":
+            err = lib.dyt_mha_windowed(
+                _ptr(qkv), _ptr(bias), _ptr(out), B, N, C, heads,
+                bias.stride(0), bias.stride(1), hd ** -0.5,
+                torch.cuda.current_stream(qkv.device).cuda_stream)
+            _build.check(lib, err, "windowed attention kernel")
+        else:
+            q, k, v = qkv.view(B, N, 3, heads, hd).permute(2, 0, 3, 1, 4)
+            _launch_simt_core(q, k, v,
+                              out.view(B, N, heads, hd).transpose(1, 2), bias)
+    counted(mha_windowed_fused, form)
     return out
-
-
-mha_windowed_fused.launches = 0
 
 
 # --- K1 and K15: the core alone ------------------------------------------------
@@ -562,14 +729,15 @@ def mha_fused_reference(qkv: torch.Tensor, *, heads: int) -> torch.Tensor:
     return mha_serving_plain(q, k, v).transpose(1, 2).reshape(B, N, C3 // 3)
 
 
-def _check_core_operand(t: torch.Tensor, name: str, device) -> None:
-    """Raise unless ``t`` is a bf16 ``[B, H, N, hd]`` tensor on ``device``
-    that the strided core reads: unit stride along hd, every other stride a
-    multiple of 8 elements, data on 16 bytes."""
+def _check_core_operand(t: torch.Tensor, name: str, device,
+                        dtypes=(BF,)) -> None:
+    """Raise unless ``t`` is a ``[B, H, N, hd]`` tensor of ``dtypes`` on
+    ``device`` that the strided cores read: unit stride along hd, every
+    other stride a multiple of 8 elements, data on 16 bytes."""
     if t.device != device:
         raise ValueError(f"{name} is on {t.device}, q on {device}")
-    if t.dtype != torch.bfloat16:
-        raise TypeError(f"{name} is {t.dtype}, want torch.bfloat16")
+    if t.dtype not in dtypes:
+        raise TypeError(f"{name} is {t.dtype}, want one of {dtypes}")
     if (t.stride(-1) != 1 or any(st % 8 for st in t.stride()[:3])
             or t.data_ptr() % 16):
         raise ValueError(f"{name} (strides {t.stride()}) must have unit "
@@ -577,15 +745,19 @@ def _check_core_operand(t: torch.Tensor, name: str, device) -> None:
 
 
 def check_core_head_dim(hd: int) -> None:
-    """Raise unless the bf16 attention core takes head_dim ``hd``.  It takes
-    any N: past the N whose keys and values fit a block's shared memory
-    it walks them through a ring of tiles."""
-    if hd not in (64, 128):
-        raise ValueError(f"head_dim {hd} not supported (64 or 128)")
+    """Raise unless the attention cores take head_dim ``hd``: the wgmma
+    cores 64 and 128 (bf16), the SIMT core also 192 and 256 (and every one
+    of them in fp32).  They take any N: past the N whose keys and values
+    fit a block's shared memory the wgmma core walks them through a ring of
+    tiles, the SIMT core always walks them in tiles."""
+    if hd not in CORE_HEAD_DIMS:
+        raise ValueError(f"head_dim {hd} not supported (64, 128, 192 or "
+                         "256)")
 
 
 def _launch_core(q, k, v, out, *, k15: bool) -> None:
-    """The strided core kernel on q, k, v [B, H, N, hd] into ``out``."""
+    """The strided core on bf16 q, k, v [B, H, N, hd] into ``out``: the
+    wgmma core at head dims 64 and 128, the SIMT core at 192 and 256."""
     B, H, N, hd = q.shape
     check_core_head_dim(hd)
     lib = _build.library()
@@ -593,8 +765,26 @@ def _launch_core(q, k, v, out, *, k15: bool) -> None:
         err = lib.dyt_mha_core(
             _ptr(q), _ptr(k), _ptr(v), _ptr(out),
             _build.strides_arg(q, k, v, out), B, N, H, hd, hd ** -0.5,
-            int(k15), torch.cuda.current_stream(q.device).cuda_stream)
+            int(k15), int(simt_core(BF, hd)),
+            torch.cuda.current_stream(q.device).cuda_stream)
         _build.check(lib, err, "attention core kernel")
+
+
+def _launch_simt_core(q, k, v, out, bias=None) -> None:
+    """The SIMT core (K1's rounding) on strided q, k, v [B, H, N, hd] of one
+    dtype (bf16 or fp32) into ``out``, with an optional bf16 ``bias``
+    [H, N, N] of unit column stride."""
+    B, H, N, hd = q.shape
+    lib = _build.library()
+    with torch.cuda.device(q.device):
+        err = lib.dyt_simt_core(
+            _ptr(q), _ptr(k), _ptr(v), _ptr(out),
+            _build.strides_arg(q, k, v, out), B, N, H, hd, hd ** -0.5,
+            int(q.dtype == F32), 0, _ptr(bias),
+            0 if bias is None else bias.stride(0),
+            0 if bias is None else bias.stride(1),
+            torch.cuda.current_stream(q.device).cuda_stream)
+        _build.check(lib, err, "SIMT attention core")
 
 
 def _cuda_only(t: torch.Tensor, name: str) -> None:
@@ -607,9 +797,9 @@ def mha_serving(q: torch.Tensor, k: torch.Tensor,
                 v: torch.Tensor) -> torch.Tensor:
     """K15: q, k, v ``[B, H, N, hd]`` -> ``[B, H, N, hd]`` in q's dtype.
 
-    On CUDA: bf16, head_dim 64 or 128, any views with unit stride along hd
-    and rows on 16 bytes (such as the q, k, v views of a raw ``[B, N, 3C]``
-    qkv buffer).  The output is allocated ``[B, N, H, hd]`` and returned as
+    On CUDA: bf16, head_dim 64 or 128 (the wgmma core) or 192 or 256 (the
+    SIMT core), any views with unit stride along hd and rows on 16 bytes
+    (such as the q, k, v views of a raw ``[B, N, 3C]`` qkv buffer).  The output is allocated ``[B, N, H, hd]`` and returned as
     its ``[B, H, N, hd]`` view, so ``.transpose(1, 2).reshape(B, N, C)``
     copies nothing."""
     if q.device.type == "cpu":
@@ -627,11 +817,8 @@ def mha_serving(q: torch.Tensor, k: torch.Tensor,
     out = torch.empty((B, N, H, hd), dtype=torch.bfloat16,
                       device=q.device).transpose(1, 2)
     _launch_core(q, k, v, out, k15=True)
-    mha_serving.launches += 1
+    counted(mha_serving, form_of(BF, hd))
     return out
-
-
-mha_serving.launches = 0
 
 
 def mha_serving_fused(qkv: torch.Tensor, *, heads: int,
@@ -641,7 +828,8 @@ def mha_serving_fused(qkv: torch.Tensor, *, heads: int,
     ``group`` is the TPU kernel's number of heads per matmul pair; its
     contract (``group`` divides ``heads``, ``group * hd`` a multiple of 128)
     raises ValueError here too, and one kernel runs whatever the group.  On
-    CUDA qkv must be bf16 and contiguous, head_dim 64 or 128."""
+    CUDA qkv is bf16 or fp32 and contiguous, head_dim 64, 128, 192 or 256:
+    bf16 at 64 and 128 on the wgmma core, the rest on the SIMT core."""
     if qkv.dim() != 3 or qkv.shape[-1] % 3:
         raise ValueError(f"qkv must be [B, N, 3C], got {tuple(qkv.shape)}")
     B, N, C3 = qkv.shape
@@ -656,23 +844,29 @@ def mha_serving_fused(qkv: torch.Tensor, *, heads: int,
     if qkv.device.type == "cpu":
         return attn_core_pairs(qkv, heads=heads)
     _cuda_only(qkv, "qkv")
-    _require(qkv, "qkv", (B, N, C3), (torch.bfloat16,), qkv.device)
+    _require(qkv, "qkv", (B, N, C3), (BF, F32), qkv.device)
+    check_core_head_dim(hd)
     q, k, v = qkv.view(B, N, 3, heads, hd).permute(2, 0, 3, 1, 4)
-    out = torch.empty((B, N, C), dtype=torch.bfloat16, device=qkv.device)
-    _check_core_operand(q, "qkv", qkv.device)
-    _launch_core(q, k, v, out.view(B, N, heads, hd).transpose(1, 2),
-                 k15=False)
-    mha_serving_fused.launches += 1
+    out = torch.empty((B, N, C), dtype=qkv.dtype, device=qkv.device)
+    _check_core_operand(q, "qkv", qkv.device, (BF, F32))
+    o = out.view(B, N, heads, hd).transpose(1, 2)
+    if qkv.dtype == BF:
+        _launch_core(q, k, v, o, k15=False)
+    else:
+        _launch_simt_core(q, k, v, o)
+    counted(mha_serving_fused, form_of(qkv.dtype, hd))
     return out
 
 
-mha_serving_fused.launches = 0
+_WRAPPERS = (attention_sublayer_serving, dyt_prologue_serving,
+             dyt_prologue_serving_moe, mha_windowed_fused, mha_serving_fused,
+             mha_serving)
 
 
 def reset_launch_counts() -> None:
-    attention_sublayer_serving.launches = 0
-    dyt_prologue_serving.launches = 0
-    dyt_prologue_serving_moe.launches = 0
-    mha_windowed_fused.launches = 0
-    mha_serving_fused.launches = 0
-    mha_serving.launches = 0
+    for fn in _WRAPPERS:
+        fn.launches = 0
+        fn.forms = {}
+
+
+reset_launch_counts()

@@ -40,10 +40,18 @@ are those of the TPU kernels:
 * int32 sums exact (the plain versions form them in float64, exact past
   2**24), then ``(acc * row_scale) * col_scale``, then the bias;
 * K5's qkv and core output are rounded to bf16 whatever x's dtype; K6's
-  and K8's follow the adapter dtype; ``x_mid = (x + proj) + b``;
+  and K8's follow the adapter dtype (fp32 adapters: an fp32 scratch from the
+  int8 GEMM's epilogue, the SIMT core, the SIMT tail); ``x_mid = (x + proj)
+  + b``;
 * K10: q scaled in fp32 and quantized per head row; k centred by its lane
   mean over the N tokens and quantized per row of a HEAD PAIR (the TPU's
-  128-lane row), so one k scale covers heads 2p and 2p+1.
+  128-lane row), so one k scale covers heads 2p and 2p+1; P.V in the
+  scratch dtype (bf16 e and v, or fp32).  bf16 at head dims 64 and 128 on
+  the wgmma core, fp32 and the head dims 192 and 256 on the SIMT core's
+  int8-score form.
+
+Each launch also adds one to the wrapper's ``forms[form]``
+(``mha_serving.form_of``).
 """
 
 from __future__ import annotations
@@ -166,8 +174,14 @@ def attn_core_pairs_q8_plain(qkv: torch.Tensor, *, heads: int
     ks = ks.repeat_interleave(2, dim=1)                   # [B, H, N, 1]
     s = int_matmul(qq, kq) * qs * ks.transpose(-1, -2)
     e = torch.exp(s.clamp(-60.0, 80.0) - 20.0)
-    l = e.sum(dim=-1, keepdim=True)
-    o = torch.matmul(e.to(dtype).float(), v.float()) * (1.0 / l)
+    if dtype == F32:
+        # fp32: l and P.V summed in float64 and rounded once, as the fp32
+        # core (its output is requantized for proj)
+        l = e.double().sum(dim=-1, keepdim=True).float()
+        o = ms._mm64(e, v.transpose(-1, -2)) * (1.0 / l)
+    else:
+        l = e.sum(dim=-1, keepdim=True)
+        o = torch.matmul(e.to(dtype).float(), v.float()) * (1.0 / l)
     return o.to(dtype).transpose(1, 2).reshape(B, N, heads * hd)
 
 
@@ -428,37 +442,52 @@ def q8_dispatch_mlp(x, scores, gamma, beta, w1q, s1, b1, w2q, s2, b2, *,
 q8_dispatch_mlp.launches = 0
 
 
-def _check_core_q8(lib, N, C, heads) -> None:
+def _core_q8_route(lib, N, C, heads, dtype) -> str:
+    """"wgmma" for bf16 at head dims 64 and 128 where K10's layout fits a
+    block, else "simt" (the SIMT core's int8-score form)."""
     hd = C // heads
     smem = lib.dyt_attn_core_q8_smem_bytes(N, hd)
-    if heads % 2 or smem == 0:
+    return ("wgmma" if dtype == BF and 0 < smem <= ms.SMEM_PER_BLOCK
+            else "simt")
+
+
+def _check_core_q8(N, C, heads) -> None:
+    hd = C // heads
+    if heads % 2 or hd not in ms.CORE_HEAD_DIMS:
         raise ValueError(f"int8 attention core: head_dim {hd} with {heads} "
-                         "heads not supported (pairs of heads of 64 or 128)")
-    if smem > ms.SMEM_PER_BLOCK:
-        raise ValueError(f"N={N}, head_dim={hd} needs {smem} B of shared "
-                         f"memory per block (limit {ms.SMEM_PER_BLOCK})")
+                         "heads not supported (pairs of heads of 64, 128, "
+                         "192 or 256)")
+
+
+def _core_scratch(lib, B, N, C, heads, dev):
+    return torch.empty((lib.dyt_simt_core_q8_scratch_bytes(B, N, C, heads),),
+                       dtype=torch.uint8, device=dev)
 
 
 def attn_core_pairs_q8(qkv: torch.Tensor, *, heads: int) -> torch.Tensor:
-    """K10: raw qkv [B, N, 3C] bf16 -> [B, N, C] bf16 through the int8
-    QK^T core."""
+    """K10: raw qkv [B, N, 3C] bf16 or fp32 -> [B, N, C] in qkv's dtype
+    through the int8 QK^T core."""
     if qkv.device.type == "cpu":
         return attn_core_pairs_q8_plain(qkv, heads=heads)
     lib = _cuda_lib(qkv)
     B, N, C3 = qkv.shape
-    _require(qkv, "qkv", (B, N, C3), (BF,), qkv.device)
-    _check_core_q8(lib, N, C3 // 3, heads)
+    C = C3 // 3
+    _require(qkv, "qkv", (B, N, C3), (BF, F32), qkv.device)
+    _check_core_q8(N, C, heads)
     dev = qkv.device
     with torch.cuda.device(dev):
-        out = torch.empty((B, N, C3 // 3), dtype=BF, device=dev)
-        err = lib.dyt_attn_core_q8(_ptr(qkv), _ptr(out), B, N, C3 // 3, heads,
-                                   (C3 // 3 // heads) ** -0.5, _stream(dev))
+        out = torch.empty((B, N, C), dtype=qkv.dtype, device=dev)
+        if _core_q8_route(lib, N, C, heads, qkv.dtype) == "wgmma":
+            err = lib.dyt_attn_core_q8(_ptr(qkv), _ptr(out), B, N, C, heads,
+                                       (C // heads) ** -0.5, _stream(dev))
+        else:
+            scratch = _core_scratch(lib, B, N, C, heads, dev)
+            err = lib.dyt_simt_core_q8(_ptr(qkv), _ptr(out), _ptr(scratch),
+                                       B, N, C, heads, (C // heads) ** -0.5,
+                                       int(qkv.dtype == F32), _stream(dev))
         _build.check(lib, err, "int8 attention core")
-    attn_core_pairs_q8.launches += 1
+    ms.counted(attn_core_pairs_q8, ms.form_of(qkv.dtype, C // heads))
     return out
-
-
-attn_core_pairs_q8.launches = 0
 
 
 def _check_sublayer_q8(x, gamma, beta, wqkv_q, sqkv, bqkv, wproj_q, sproj,
@@ -476,30 +505,38 @@ def _check_sublayer_q8(x, gamma, beta, wqkv_q, sqkv, bqkv, wproj_q, sproj,
     if C % heads:
         raise ValueError(f"C={C} is not a multiple of heads={heads}")
     if attn_q8:
-        _check_core_q8(lib, N, C, heads)
+        _check_core_q8(N, C, heads)
     else:
         ms.check_core_head_dim(C // heads)
     return lib
 
 
 def _launch_sublayer_q8(lib, x, gamma, beta, wqkv_q, sqkv, bqkv, wproj_q,
-                        sproj, bproj, heads, attn_q8, xm32):
+                        sproj, bproj, heads, attn_q8, xm32, scratch=BF):
+    """K5's chain with its qkv and core-output scratch in ``scratch`` (bf16,
+    or fp32 for fp32 adapters)."""
     B, N, C = x.shape
     M, dev = B * N, x.device
     out = torch.empty_like(x)
     a8 = torch.empty((M, C), dtype=I8, device=dev)
     rs = torch.empty((M,), dtype=F32, device=dev)
-    qkv = torch.empty((M, 3 * C), dtype=BF, device=dev)
-    attn = torch.empty((M, C), dtype=BF, device=dev)
+    qkv = torch.empty((M, 3 * C), dtype=scratch, device=dev)
+    attn = torch.empty((M, C), dtype=scratch, device=dev)
+    # the route decided here and passed down: the int8-score core where
+    # K10's layout does not fit (or in fp32), else the core of ms.simt_core
+    simt = (_core_q8_route(lib, N, C, heads, scratch) == "simt" if attn_q8
+            else ms.simt_core(scratch, C // heads))
+    core_scratch = (_core_scratch(lib, B, N, C, heads, dev)
+                    if attn_q8 and simt else None)
     err = lib.dyt_attention_sublayer_q8(
         _ptr(x), int(x.dtype == F32), _ptr(gamma), _ptr(beta), _ptr(wqkv_q),
         _ptr(sqkv), _ptr(bqkv), _ptr(wproj_q), _ptr(sproj), _ptr(bproj),
         _ptr(out), _ptr(xm32), _ptr(a8), _ptr(rs), _ptr(qkv), _ptr(attn),
-        B, N, C, heads, (C // heads) ** -0.5, int(attn_q8),
-        _stream(dev))
+        int(scratch == F32), _ptr(core_scratch), B, N, C, heads,
+        (C // heads) ** -0.5, int(attn_q8), int(simt), _stream(dev))
     _build.check(lib, err, "int8 attention sublayer kernels")
     if attn_q8:
-        attn_core_pairs_q8.launches += 1
+        ms.counted(attn_core_pairs_q8, ms.form_of(scratch, C // heads))
     return out
 
 
@@ -508,7 +545,8 @@ def attention_sublayer_serving_q8(x, gamma, beta, wqkv_q, sqkv, bqkv,
                                   attn_q8: bool = False) -> torch.Tensor:
     """K5: x [B, N, C] (bf16 or fp32) -> x + proj(core(qkv(LN(x)))) with
     qkv [3C, C] and proj [C, C] int8 (fp32 scales and biases); the core is
-    K10 when ``attn_q8``."""
+    K10 when ``attn_q8``.  The qkv scratch is bf16 whatever x's dtype, as
+    the TPU kernel's."""
     if x.device.type == "cpu":
         return attention_sublayer_q8_plain(x, gamma, beta, wqkv_q, sqkv,
                                            bqkv, wproj_q, sproj, bproj,
@@ -518,20 +556,19 @@ def attention_sublayer_serving_q8(x, gamma, beta, wqkv_q, sqkv, bqkv,
     with torch.cuda.device(x.device):
         out = _launch_sublayer_q8(lib, x, gamma, beta, wqkv_q, sqkv, bqkv,
                                   wproj_q, sproj, bproj, heads, attn_q8, None)
-    attention_sublayer_serving_q8.launches += 1
+    ms.counted(attention_sublayer_serving_q8,
+               ms.form_of(BF, x.shape[-1] // heads))
     return out
-
-
-attention_sublayer_serving_q8.launches = 0
 
 
 def dyt_prologue_serving_q8(x, gamma, beta, wqkv_q, sqkv, bqkv, wproj_q,
                             sproj, bproj, wdown, bdown, wup, bup,
                             adapter_scale, wsel, bsel, *, heads: int,
                             with_select: bool = True, attn_q8: bool = False):
-    """K6: K5's x_mid, then K3's adapter/router kernel on its fp32 copy:
-    (x_mid, adapt, logits [B, N, 1] fp32), or (x_mid, adapt) without the
-    router.  Adapter weights as for ``dyt_prologue_serving``."""
+    """K6: K5's x_mid (its scratch in the adapter's dtype), then K3's
+    adapter/router tail on its fp32 copy: (x_mid, adapt, logits [B, N, 1]
+    fp32), or (x_mid, adapt) without the router.  Adapter weights as for
+    ``dyt_prologue_serving`` (bf16 or fp32)."""
     if x.device.type == "cpu":
         return dyt_prologue_q8_plain(
             x, gamma, beta, wqkv_q, sqkv, bqkv, wproj_q, sproj, bproj, wdown,
@@ -542,18 +579,17 @@ def dyt_prologue_serving_q8(x, gamma, beta, wqkv_q, sqkv, bqkv, wproj_q,
     ms.check_adapter_router(lib, x, wdown, bdown, wup, bup, adapter_scale,
                             wsel, bsel, with_select)
     with torch.cuda.device(x.device):
-        xm32 = torch.empty(x.shape, dtype=F32, device=x.device)
+        xm32 = ms._xm32(x)
         x_mid = _launch_sublayer_q8(lib, x, gamma, beta, wqkv_q, sqkv, bqkv,
                                     wproj_q, sproj, bproj, heads, attn_q8,
-                                    xm32)
-        outs = ms.launch_adapter_router(lib, x_mid, xm32, wdown, bdown, wup,
-                                        bup, adapter_scale, wsel, bsel,
-                                        with_select)
-    dyt_prologue_serving_q8.launches += 1
+                                    xm32, wdown.dtype)
+        outs = ms.launch_adapter_router(
+            lib, x_mid, x_mid if xm32 is None else xm32, wdown, bdown, wup,
+            bup, adapter_scale, wsel, bsel, with_select)
+    ms.counted(dyt_prologue_serving_q8,
+               ms.form_of(wdown.dtype, x.shape[-1] // heads,
+                          ms._adapter_tail(wdown) == "simt"))
     return outs
-
-
-dyt_prologue_serving_q8.launches = 0
 
 
 def dyt_prologue_serving_q8_moe(x, gamma, beta, wqkv_q, sqkv, bqkv, wproj_q,
@@ -562,9 +598,10 @@ def dyt_prologue_serving_q8_moe(x, gamma, beta, wqkv_q, sqkv, bqkv, wproj_q,
                                 heads: int, tau: float,
                                 with_select: bool = True,
                                 attn_q8: bool = False):
-    """K8: K5's x_mid, then K7's MoE adapter/router kernel on its fp32 copy:
-    (x_mid, adapt, logits [B, N, 1] fp32), or (x_mid, adapt) without the
-    router.  Expert weights as for ``dyt_prologue_serving_moe``."""
+    """K8: K5's x_mid (its scratch in the experts' dtype), then K7's MoE
+    adapter/router tail on its fp32 copy: (x_mid, adapt, logits [B, N, 1]
+    fp32), or (x_mid, adapt) without the router.  Expert weights as for
+    ``dyt_prologue_serving_moe``."""
     if x.device.type == "cpu":
         return dyt_prologue_q8_moe_plain(
             x, gamma, beta, wqkv_q, sqkv, bqkv, wproj_q, sproj, bproj,
@@ -572,27 +609,27 @@ def dyt_prologue_serving_q8_moe(x, gamma, beta, wqkv_q, sqkv, bqkv, wproj_q,
             heads=heads, tau=tau, with_select=with_select, attn_q8=attn_q8)
     lib = _check_sublayer_q8(x, gamma, beta, wqkv_q, sqkv, bqkv, wproj_q,
                              sproj, bproj, heads, attn_q8)
-    ms.check_moe_adapter_router(lib, x, wrouter, wdown2d, bdown2d, wup2d,
-                                bup, adapter_scale, wsel, bsel, with_select)
+    tail = ms.check_moe_adapter_router(lib, x, wrouter, wdown2d, bdown2d,
+                                       wup2d, bup, adapter_scale, wsel, bsel,
+                                       with_select)
     with torch.cuda.device(x.device):
-        xm32 = torch.empty(x.shape, dtype=F32, device=x.device)
+        xm32 = ms._xm32(x)
         x_mid = _launch_sublayer_q8(lib, x, gamma, beta, wqkv_q, sqkv, bqkv,
                                     wproj_q, sproj, bproj, heads, attn_q8,
-                                    xm32)
+                                    xm32, wdown2d.dtype)
         outs = ms.launch_moe_adapter_router(
-            lib, x_mid, xm32, wrouter, wdown2d, bdown2d, wup2d, bup,
-            adapter_scale, wsel, bsel, tau, with_select)
-    dyt_prologue_serving_q8_moe.launches += 1
+            lib, x_mid, x_mid if xm32 is None else xm32, wrouter, wdown2d,
+            bdown2d, wup2d, bup, adapter_scale, wsel, bsel, tau, with_select)
+    ms.counted(dyt_prologue_serving_q8_moe,
+               ms.form_of(wdown2d.dtype, x.shape[-1] // heads,
+                          tail == "simt"))
     return outs
-
-
-dyt_prologue_serving_q8_moe.launches = 0
 
 
 def q8_patch_embed(x, wq, ws, bias, *, patch: int,
                    dtype: torch.dtype = BF) -> torch.Tensor:
     """The int8 stem: NHWC images [B, H, W, c] -> [B, T, O] in ``dtype``
-    (bf16 on CUDA).  wq [O, p*p*c] int8 and ws [O] from
+    (bf16 or fp32).  wq [O, p*p*c] int8 and ws [O] from
     ``quantize_conv_weight``, bias [O] fp32.  The per-image activation
     quantization and the patch gather are plain tensor code (XLA in the JAX
     package); the int8 GEMM is the hand kernel."""
@@ -601,9 +638,11 @@ def q8_patch_embed(x, wq, ws, bias, *, patch: int,
     lib = _cuda_lib(x)
     B, H, W, c = x.shape
     O, K = wq.shape
-    if dtype != BF or K != patch * patch * c or H % patch or W % patch:
-        raise ValueError(f"int8 stem: bf16 output and a {patch}x{patch} "
-                         f"patch grid expected, got {dtype}, {tuple(x.shape)}"
+    if (dtype not in (BF, F32) or K != patch * patch * c or H % patch
+            or W % patch):
+        raise ValueError(f"int8 stem: bf16 or fp32 output and a {patch}x"
+                         f"{patch} patch grid expected, got {dtype}, "
+                         f"{tuple(x.shape)}"
                          f" against weights {tuple(wq.shape)}")
     _require_q8(wq, ws, bias, "patch_embed", O, K, x.device)
     xq, sa = sample_quant(x)
@@ -611,10 +650,10 @@ def q8_patch_embed(x, wq, ws, bias, *, patch: int,
     rows = patchify(xq, patch).contiguous()
     rs = sa.repeat_interleave(T).contiguous()
     with torch.cuda.device(x.device):
-        out = torch.empty((B * T, O), dtype=BF, device=x.device)
+        out = torch.empty((B * T, O), dtype=dtype, device=x.device)
         err = lib.dyt_q8_stem_gemm(_ptr(rows), _ptr(wq), _ptr(rs), _ptr(ws),
                                    _ptr(bias), B * T, O, K, _ptr(out),
-                                   _stream(x.device))
+                                   int(dtype == F32), _stream(x.device))
         _build.check(lib, err, "int8 stem GEMM")
     q8_patch_embed.launches += 1
     return out.reshape(B, T, O)
@@ -623,8 +662,15 @@ def q8_patch_embed(x, wq, ws, bias, *, patch: int,
 q8_patch_embed.launches = 0
 
 
+_FORMED = (attn_core_pairs_q8, attention_sublayer_serving_q8,
+           dyt_prologue_serving_q8, dyt_prologue_serving_q8_moe)
+
+
 def reset_launch_counts() -> None:
-    for fn in (q8_ln_mlp, attn_core_pairs_q8, attention_sublayer_serving_q8,
-               dyt_prologue_serving_q8, dyt_prologue_serving_q8_moe,
-               q8_patch_embed, q8_dispatch_mlp):
+    for fn in (q8_ln_mlp, q8_patch_embed, q8_dispatch_mlp) + _FORMED:
         fn.launches = 0
+    for fn in _FORMED:
+        fn.forms = {}
+
+
+reset_launch_counts()

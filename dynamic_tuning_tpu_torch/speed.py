@@ -5,7 +5,8 @@
     python -m dynamic_tuning_tpu_torch.speed --moe_experts 4 --mode dispatch
 
 Same flags and defaults as ``speed.py``: ViT-B/16 at 224^2, batch 128, bf16
-compute and residual stream, tanh GELU, ``--mode dispatch|mask|dense|plain``
+compute and residual stream (``--compute_dtype float32`` for fp32 compute:
+the hand kernels' fp32 forms), tanh GELU, ``--mode dispatch|mask|dense|plain``
 (capacity dispatch; eval mask; the DyT model in complete_model mode; the
 plain ViT without adapter or router), ``--quant none|int8|int8_attn`` (W8A8
 serving in every mode, the plain ViT included), ``--moe_experts N`` (the
@@ -26,7 +27,8 @@ import sys
 import torch
 
 from dynamic_tuning_tpu_torch import paths
-from dynamic_tuning_tpu_torch.cli import add_reference_compat_args
+from dynamic_tuning_tpu_torch.cli import (add_reference_compat_args,
+                                          fp32_on_card)
 from dynamic_tuning_tpu_torch.checkpoint import (load_timm_state_dict,
                                                  load_torch_state_dict)
 from dynamic_tuning_tpu_torch.config import (ModelConfig, SelectConfig,
@@ -34,6 +36,8 @@ from dynamic_tuning_tpu_torch.config import (ModelConfig, SelectConfig,
 from dynamic_tuning_tpu_torch.models.vit import VisionTransformer
 from dynamic_tuning_tpu_torch.utils.profiling import (forwards_run,
                                                       scan_throughput)
+
+_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
 
 def get_args_parser():
@@ -53,7 +57,8 @@ def get_args_parser():
     p.add_argument("--ckpt", default="", help="optional trained .pth")
     p.add_argument("--warmup", default=5, type=int)
     p.add_argument("--iters", default=15, type=int)
-    p.add_argument("--compute_dtype", default="bfloat16")
+    p.add_argument("--compute_dtype", default="bfloat16",
+                   choices=["bfloat16", "float32"])
     p.add_argument("--residual_dtype", default="bfloat16",
                    choices=["bfloat16", "float32"])
     p.add_argument("--gelu_approx", action="store_true", default=True)
@@ -97,10 +102,8 @@ def get_args_parser():
 
 
 def build_model(args, device, state_dict=None) -> VisionTransformer:
-    """The model ``--mode`` measures, on ``device``, eval mode."""
-    if args.compute_dtype != "bfloat16":
-        raise NotImplementedError("--compute_dtype other than bfloat16 is not "
-                                  "ported yet: the kernels take bf16 weights")
+    """The model ``--mode`` measures, on ``device``, eval mode, in
+    ``--compute_dtype`` (bfloat16 or float32)."""
     sel = SelectConfig(token_target_ratio=args.token_target_ratio,
                        capacity_ratio=args.capacity_ratio)
     if args.mode == "plain":
@@ -115,7 +118,7 @@ def build_model(args, device, state_dict=None) -> VisionTransformer:
     model = VisionTransformer(
         ModelConfig(num_classes=args.nb_classes, gelu_approx=args.gelu_approx,
                     residual_dtype=args.residual_dtype, quant=args.quant),
-        tuning=tuning, select=sel, dtype=torch.bfloat16,
+        tuning=tuning, select=sel, dtype=_DTYPES[args.compute_dtype],
         generator=torch.Generator().manual_seed(args.seed + 1))
     if state_dict is None:
         state_dict = _checkpoint(args)
@@ -153,7 +156,7 @@ def main(args, state_dict=None) -> dict:
                     device=device)
     kwargs = dict(complete_model=args.mode == "dense",
                   dispatch=args.mode == "dispatch")
-    with torch.inference_mode():
+    with fp32_on_card(args.compute_dtype, device), torch.inference_mode():
         logits, aux = model(x, **kwargs)      # builds the kernels if needed
         ips = scan_throughput(lambda: model(x, **kwargs),
                               batch=args.batch_size, iters=args.iters,

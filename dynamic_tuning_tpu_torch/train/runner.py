@@ -54,7 +54,7 @@ import numpy as np
 import torch
 
 from dynamic_tuning_tpu_torch.checkpoint import load_timm_state_dict
-from dynamic_tuning_tpu_torch.cli import require_card_dtype, resolve_device
+from dynamic_tuning_tpu_torch.cli import fp32_scoped, resolve_device
 from dynamic_tuning_tpu_torch.config import RunConfig
 from dynamic_tuning_tpu_torch.data.datasets import build_image_dataset
 from dynamic_tuning_tpu_torch.data.loader import decoder_of, make_loader
@@ -107,7 +107,6 @@ class Runner:
         self.cfg = cfg
         self.device = (torch.device(device) if device is not None
                        else resolve_device(None, self.ENTRY))
-        require_card_dtype(cfg.compute_dtype, self.device, self.ENTRY)
         if cfg.resume:
             C.require_checkpoint(cfg.resume)
         self.rank, self.world = P.process_index(), P.process_count()
@@ -243,6 +242,7 @@ class Runner:
         return augment_batch(gen, x, out_size=s, inception=inception,
                              train=train, shard=(self.rank, self.world)), y
 
+    @fp32_scoped
     def train_one_epoch(self, epoch: int) -> Dict[str, float]:
         self.train_loader.set_epoch(epoch)
         ml = MetricLogger(logger=self.logger)
@@ -270,6 +270,7 @@ class Runner:
         """Weights of a checkpoint for ``--eval_ckpt`` (no optimizer)."""
         C.load_checkpoint(path, self.model)
 
+    @fp32_scoped
     def evaluate(self) -> Dict[str, float]:
         cfg, mc = self.cfg, self.model_cfg
         all_logits, all_labels = [], []

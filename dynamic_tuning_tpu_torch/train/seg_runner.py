@@ -59,7 +59,7 @@ import torch.nn.functional as F
 from dynamic_tuning_tpu_torch import serialization
 from dynamic_tuning_tpu_torch.checkpoint import (load_timm_state_dict,
                                                  load_torch_state_dict)
-from dynamic_tuning_tpu_torch.cli import require_card_dtype, resolve_device
+from dynamic_tuning_tpu_torch.cli import fp32_scoped, resolve_device
 from dynamic_tuning_tpu_torch.config import RunConfig
 from dynamic_tuning_tpu_torch.data.loader import decoder_of, make_loader
 from dynamic_tuning_tpu_torch.data.segmentation import (build_seg_dataset,
@@ -152,7 +152,6 @@ class SegRunner:
         self.tile_batch = tile_batch
         self.device = (torch.device(device) if device is not None
                        else resolve_device(None, "seg_train.py"))
-        require_card_dtype(cfg.compute_dtype, self.device, "seg_train.py")
         if cfg.resume:
             C.require_checkpoint(cfg.resume)
         self.rank, self.world = P.process_index(), P.process_count()
@@ -209,6 +208,7 @@ class SegRunner:
                      f"{self.start_iter} (best mIoU {self.max_miou:.2f})")
 
     # ------------------------------------------------------------------
+    @fp32_scoped
     def train_step(self, images: torch.Tensor, labels: torch.Tensor,
                    gate_noise: Optional[torch.Tensor] = None
                    ) -> Dict[str, torch.Tensor]:
@@ -263,6 +263,7 @@ class SegRunner:
         logits, _, _ = self.model(tiles, aux_logits=False)
         return logits
 
+    @fp32_scoped
     @torch.no_grad()
     def evaluate(self, max_images: Optional[int] = None) -> Dict[str, float]:
         """mIoU and pixel accuracy (percent) over the first ``max_images``

@@ -36,6 +36,7 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from dynamic_tuning_tpu_torch.cli import fp32_scoped
 from dynamic_tuning_tpu_torch.data.loader import make_loader
 from dynamic_tuning_tpu_torch.data.video import build_video_dataset
 from dynamic_tuning_tpu_torch.data.video_transforms import augment_clip_batch
@@ -101,6 +102,7 @@ class VideoRunner(Runner):
             resize_type=d.train_resize_type, min_size=d.jitter_min or 256,
             max_size=d.jitter_max or 320, shard=(self.rank, self.world)), y
 
+    @fp32_scoped
     def evaluate(self, save_views_dir: Optional[str] = None
                  ) -> Dict[str, float]:
         mc = self.model_cfg

@@ -203,7 +203,7 @@ def time_variant() -> dict:
         o8 = torch.empty((M, Nn), dtype=bf, device="cuda")
         out[f"int8 {name}"] = time_ms(lambda: lib.dyt_q8_stem_gemm(
             a8.data_ptr(), w8.data_ptr(), ones_m.data_ptr(),
-            ones_n.data_ptr(), zeros.data_ptr(), M, Nn, K, o8.data_ptr(),
+            ones_n.data_ptr(), zeros.data_ptr(), M, Nn, K, o8.data_ptr(), 0,
             stream))
         del a, bt, a8, w8, o8
     sn = 1025

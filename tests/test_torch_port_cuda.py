@@ -327,14 +327,19 @@ def test_q8_wrappers_raise_on_unsupported_input():
 MOE_WIDTHS = [(4, 64), (4, 8), (2, 16)]       # (experts, bottleneck)
 
 
-def moe_inputs(C, E, b, seed=0):
+def moe_inputs(C, E, b, seed=0, *, pad=True):
     """(wrouter, wdown2d, bdown2d, wup2d, bup, adapter_scale) on the card:
-    router logits of a few units, so the gates differ per token."""
+    router logits of a few units, so the gates differ per token.  The
+    stacks as ``ms.moe_kernel_weights`` lays them out (padded to a width
+    the wgmma tail takes), or unpadded."""
     g = torch.Generator(device="cuda").manual_seed(seed)
     r = lambda *s, sc=1.0: torch.randn(s, generator=g, device="cuda") * sc
     wrouter = r(E, C, sc=2.0 / C ** 0.5)
-    stacks = ms.moe_kernel_weights(r(E, C, b, sc=0.03), r(E, b, sc=0.02),
-                                   r(E, b, C, sc=0.02), BF)
+    dk, db, uk = r(E, C, b, sc=0.03), r(E, b, sc=0.02), r(E, b, C, sc=0.02)
+    stacks = (ms.moe_kernel_weights(dk, db, uk, BF) if pad else
+              (dk.transpose(1, 2).reshape(E * b, C).to(BF).contiguous(),
+               db.reshape(E * b), uk.reshape(E * b, C).t().to(BF)
+               .contiguous()))
     return (wrouter, *stacks, r(E, C, sc=0.01),
             torch.full((1,), 0.1, device="cuda"))
 
@@ -422,15 +427,41 @@ def test_moe_model_launches_only_moe_prologue(quant):
     assert qt.q8_patch_embed.launches == (1 if q8 else 0)
 
 
-@pytest.mark.parametrize("E,b", [(3, 8), (1, 64), (4, 132)])
+@pytest.mark.parametrize("E,b", [(3, 8), (2, 4), (4, 132)])
 def test_moe_wrappers_raise_on_unsupported_width(E, b):
+    """Stacks whose rows are not E experts of one width raise; an E * b
+    that the wgmma tail does not take (not a multiple of 16, or past 512)
+    runs on the SIMT tail, bf16 in and out, held to K7's bound."""
     x, sub, ad = make_inputs(2, 19, 128, 16)
-    moe = moe_inputs(128, E, b)
+    moe = moe_inputs(128, E, b, pad=False)
+    ragged = (moe[0], moe[1][:-1], moe[2][:-1], moe[3][:, :-1], *moe[4:])
     with pytest.raises(ValueError, match="MoE width"):
-        ms.dyt_prologue_serving_moe(x, *sub, *moe, *ad[5:], heads=2, tau=1.0)
+        ms.dyt_prologue_serving_moe(x, *sub, *ragged, *ad[5:], heads=2,
+                                    tau=1.0)
     with pytest.raises(ValueError, match="MoE width"):
-        qt.dyt_prologue_serving_q8_moe(x, *q8_sub(sub), *moe, *ad[5:],
+        qt.dyt_prologue_serving_q8_moe(x, *q8_sub(sub), *ragged, *ad[5:],
                                        heads=2, tau=1.0)
+    for q8 in (False, True):
+        before = (qt.dyt_prologue_serving_q8_moe if q8
+                  else ms.dyt_prologue_serving_moe).forms.get(
+                      "bf16+simt_tail", 0)
+        if q8:
+            got = qt.dyt_prologue_serving_q8_moe(x, *q8_sub(sub), *moe,
+                                                 *ad[5:], heads=2, tau=1.0)
+            want = qt.dyt_prologue_q8_moe_plain(x, *q8_sub(sub), *moe,
+                                                *ad[5:], heads=2, tau=1.0)
+            fn = qt.dyt_prologue_serving_q8_moe
+        else:
+            got = ms.dyt_prologue_serving_moe(x, *sub, *moe, *ad[5:],
+                                              heads=2, tau=1.0)
+            want = ms.dyt_prologue_moe_plain(x, *sub, *moe, *ad[5:],
+                                             heads=2, tau=1.0)
+            fn = ms.dyt_prologue_serving_moe
+        torch.cuda.synchronize()
+        assert fn.forms.get("bf16+simt_tail", 0) == before + 1
+        bf16_close(got[0], want[0], "x_mid")
+        bf16_close(got[1], want[1], "adapt")
+        logits_close(got[2], want[2])
 
 
 # the MoE tail alone at every form it takes: 2, 4 and 8 experts, W = E*b
@@ -469,7 +500,7 @@ def test_moe_tail_kernel(E, b, M, C):
 
 def test_wrappers_raise_on_unsupported_input():
     x, sub, ad = make_inputs(2, 19, 128, 16)
-    with pytest.raises(TypeError):                  # fp32 weights
+    with pytest.raises(TypeError):                  # fp32 and bf16 mixed
         ms.attention_sublayer_serving(x, sub[0], sub[1], sub[2].float(),
                                       *sub[3:], heads=2)
     with pytest.raises(ValueError, match="contiguous"):
@@ -477,9 +508,12 @@ def test_wrappers_raise_on_unsupported_input():
                                       .transpose(0, 1), *sub, heads=2)
     with pytest.raises(ValueError, match="head_dim"):
         ms.attention_sublayer_serving(x, *sub, heads=4)     # hd = 32
-    with pytest.raises(ValueError, match="adapter width"):
-        x2, sub2, ad2 = make_inputs(2, 19, 128, 8)
-        ms.dyt_prologue_serving(x2, *sub2, *ad2, heads=2)
+    # an adapter width the wgmma tail is not built for runs on the SIMT tail
+    x2, sub2, ad2 = make_inputs(2, 19, 128, 8)
+    got = ms.dyt_prologue_serving(x2, *sub2, *ad2, heads=2)
+    torch.cuda.synchronize()
+    want = ms.dyt_prologue_plain(x2, *sub2, *ad2, heads=2)
+    bf16_close(got[1], want[1], "adapt F=8")
 
 
 # --- windowed attention (K9) -------------------------------------------------
@@ -576,7 +610,7 @@ def test_mha_windowed_raises_on_unsupported_input():
         ms.mha_windowed_fused(qkv, bias, heads=4)
     qkv, bias = windowed_inputs(1, 17, 2)
     with pytest.raises(TypeError):
-        ms.mha_windowed_fused(qkv.float(), bias, heads=2)
+        ms.mha_windowed_fused(qkv.half(), bias, heads=2)
     with pytest.raises(ValueError, match="bias"):
         ms.mha_windowed_fused(qkv, bias[:, :16, :16], heads=2)
 
@@ -1102,11 +1136,11 @@ def test_attention_wrappers_raise_on_unsupported_input():
     with pytest.raises(ValueError, match="divide"):
         ms.mha_serving_fused(qkv, heads=2, group=4)
     with pytest.raises(TypeError):
-        ms.mha_serving_fused(qkv.float(), heads=2)
+        ms.mha_serving_fused(qkv.half(), heads=2)
     with pytest.raises(ValueError, match="contiguous"):
         ms.mha_serving_fused(core_qkv(17, 2, 2).transpose(0, 1), heads=2)
     with pytest.raises(ValueError, match="head_dim"):
-        ms.mha_serving_fused(core_qkv(1, 17, 2, hd=192), heads=2, group=2)
+        ms.mha_serving_fused(core_qkv(1, 17, 2, hd=320), heads=2, group=2)
     # K15: dtype, shapes, alignment
     with pytest.raises(TypeError):
         ms.mha_serving(q.float(), k, v)
@@ -1618,3 +1652,251 @@ def test_two_gloo_ranks_on_one_card_match_one_rank(tmp_path):
     rel = _rel_l2(r0["grads"], one["grads"])
     print(f"two gloo ranks vs one: summed gradients at relative L2 {rel:.3e}")
     assert rel <= 2.0 ** -5
+
+
+# --- fp32 forms, adapter and MoE widths, head dims 192 and 256 ----------------
+#
+# Tolerance.  The fp32 forms (the fp32 GEMM, the SIMT core, the SIMT tails)
+# round at the plain versions' points in fp32 and differ only in the order
+# of their sums (the plain versions sum the core's scores, l and products in
+# float64): every output within 1e-5 of the plain version's largest
+# magnitude, router logits too, every gate identical.  The int8 forms in
+# fp32 (K6, K8 with fp32 adapters, K10 on fp32 qkv) quantize the core's
+# fp32 output, so a last-bit difference may move one activation code: the
+# int8 bound above (two bf16 ulps).  bf16 forms at other widths and head
+# dims: the bf16 bounds above.
+
+F32 = torch.float32
+
+
+def fp32_close(got, want, what=""):
+    tol = 1e-5 * want.float().abs().max().item()
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= tol, f"{what}: max |err| {err} > {tol}"
+    return err
+
+
+def fp32_logits_close(got, want):
+    fp32_close(got, want, "logits")
+    assert torch.equal(got > 0, want > 0), "gate flipped"
+
+
+def moe_inputs_f32(C, E, b, seed=0):
+    """moe_inputs' arguments in fp32 (the SIMT tail takes any E * b)."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    r = lambda *s, sc=1.0: torch.randn(s, generator=g, device="cuda") * sc
+    stacks = ms.moe_kernel_weights(r(E, C, b, sc=0.03), r(E, b, sc=0.02),
+                                   r(E, b, C, sc=0.02), F32)
+    return (r(E, C, sc=2.0 / C ** 0.5), *stacks, r(E, C, sc=0.01),
+            torch.full((1,), 0.1, device="cuda"))
+
+
+def fp32_inputs(B, N, C, F, *, xdtype=F32, seed=0):
+    x, sub, ad = make_inputs(B, N, C, F, xdtype=xdtype, seed=seed)
+    sub = tuple(t.float() for t in sub)
+    ad = tuple(t.float() for t in ad)
+    return x, sub, ad
+
+
+F32_SHAPES = [(32, 197, 768, 12, 64),       # ViT-B/16 (fp32 serving batch)
+              (3, 19, 128, 2, 16),          # ragged rows and tokens
+              (2, 197, 256, 2, 32),         # head_dim 128
+              (2, 19, 384, 2, 8),           # head_dim 192, F = 8
+              (2, 33, 512, 2, 100)]         # head_dim 256, F = 100
+
+
+@pytest.mark.parametrize("xdtype", [F32, BF])
+@pytest.mark.parametrize("B,N,C,H,F", F32_SHAPES)
+def test_fp32_prologue_forms(B, N, C, H, F, xdtype):
+    """K2, K3 (with and without the router) and K7 with fp32 weights; x in
+    fp32 or bf16 (a bf16 residual stream)."""
+    x, sub, ad = fp32_inputs(B, N, C, F, xdtype=xdtype, seed=5)
+    close = fp32_close if xdtype == F32 else bf16_close
+    before = ms.attention_sublayer_serving.forms.get("fp32", 0)
+    got = ms.attention_sublayer_serving(x, *sub, heads=H)
+    torch.cuda.synchronize()
+    assert ms.attention_sublayer_serving.forms["fp32"] == before + 1
+    close(got, ms.attention_sublayer_plain(x, *sub, heads=H), "K2")
+    for s in (True, False):
+        got = ms.dyt_prologue_serving(x, *sub, *ad, heads=H, with_select=s)
+        torch.cuda.synchronize()
+        want = ms.dyt_prologue_plain(x, *sub, *ad, heads=H, with_select=s)
+        close(got[0], want[0], "K3 x_mid")
+        close(got[1], want[1], "K3 adapt")
+        if s:
+            fp32_logits_close(got[2], want[2])
+    moe = moe_inputs_f32(C, 4, F, seed=6)
+    got = ms.dyt_prologue_serving_moe(x, *sub, *moe, *ad[5:], heads=H,
+                                      tau=0.7)
+    torch.cuda.synchronize()
+    want = ms.dyt_prologue_moe_plain(x, *sub, *moe, *ad[5:], heads=H,
+                                     tau=0.7)
+    close(got[0], want[0], "K7 x_mid")
+    close(got[1], want[1], "K7 adapt")
+    fp32_logits_close(got[2], want[2])
+
+
+@pytest.mark.parametrize("attn_q8", [False, True], ids=["core", "int8_attn"])
+@pytest.mark.parametrize("B,N,C,H,F", F32_SHAPES[:4])
+def test_fp32_q8_prologue_forms(B, N, C, H, F, attn_q8):
+    """K6 and K8 with fp32 adapters: the fp32 qkv scratch, the SIMT core
+    (or the int8-score form), the SIMT tails; fp32 x."""
+    x, sub, ad = fp32_inputs(B, N, C, F, seed=7)
+    qs = q8_sub(sub)
+    got = qt.dyt_prologue_serving_q8(x, *qs, *ad, heads=H, attn_q8=attn_q8)
+    torch.cuda.synchronize()
+    want = qt.dyt_prologue_q8_plain(x, *qs, *ad, heads=H, attn_q8=attn_q8)
+    bf16_close(got[0], want[0], "K6 x_mid")
+    bf16_close(got[1], want[1], "K6 adapt")
+    logits_close(got[2], want[2])
+    moe = moe_inputs_f32(C, 2, 4, seed=8)
+    got = qt.dyt_prologue_serving_q8_moe(x, *qs, *moe, *ad[5:], heads=H,
+                                         tau=1.0, attn_q8=attn_q8)
+    torch.cuda.synchronize()
+    want = qt.dyt_prologue_q8_moe_plain(x, *qs, *moe, *ad[5:], heads=H,
+                                        tau=1.0, attn_q8=attn_q8)
+    bf16_close(got[0], want[0], "K8 x_mid")
+    bf16_close(got[1], want[1], "K8 adapt")
+    logits_close(got[2], want[2])
+
+
+@pytest.mark.parametrize("dtype", [F32, BF])
+@pytest.mark.parametrize("B,N,H,hd", [(32, 197, 12, 64), (3, 19, 2, 64),
+                                      (2, 50, 2, 128), (2, 65, 4, 192),
+                                      (2, 33, 4, 256), (1, 300, 2, 64)])
+def test_simt_core_forms(B, N, H, hd, dtype):
+    """K1 on the SIMT core (fp32 at every head dim, bf16 at 192 and 256),
+    K9 with its bf16 bias, K15 at 192 and 256, and K10 on fp32 qkv or at
+    head dims 192 and 256, each against its plain version."""
+    qkv = core_qkv(B, N, H, hd).to(dtype)
+    qkv[..., H * hd:2 * H * hd] += 1.0             # keys with a lane offset
+    close = fp32_close if dtype == F32 else bf16_close
+    simt = dtype == F32 or hd not in (64, 128)
+    got = ms.mha_serving_fused(qkv, heads=H)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype
+    close(got, ms.attn_core_pairs(qkv, heads=H), "K1")
+    g = torch.Generator(device="cuda").manual_seed(3)
+    bias = torch.randn((H, N, N), generator=g, device="cuda").to(BF)
+    got = ms.mha_windowed_fused(qkv, bias, heads=H)
+    torch.cuda.synchronize()
+    close(got, ms.mha_windowed_plain(qkv, bias, heads=H), "K9")
+    if dtype == BF and hd not in (64, 128):
+        # K15 (the speed-test forward's rounding) on views of the raw qkv
+        q, k, v = qkv.view(B, N, 3, H, hd).permute(2, 0, 3, 1, 4)
+        got = ms.mha_serving(q, k, v)
+        torch.cuda.synchronize()
+        bf16_close(got, ms.mha_serving_plain(q, k, v), "K15")
+    if simt:
+        before = qt.attn_core_pairs_q8.forms.get(ms.form_of(dtype, hd), 0)
+        got = qt.attn_core_pairs_q8(qkv, heads=H)
+        torch.cuda.synchronize()
+        assert qt.attn_core_pairs_q8.forms[ms.form_of(dtype, hd)] == \
+            before + 1
+        bf16_close(got, qt.attn_core_pairs_q8_plain(qkv, heads=H), "K10")
+
+
+@pytest.mark.parametrize("F", [8, 24, 100, 256])
+def test_bf16_adapter_widths(F):
+    """K3 and K6 at a bf16 width the wgmma tail is not built for: padded
+    (F <= 128, as Adapter.kernel_weights does) onto the wgmma tail, or on
+    the SIMT tail (256); against the plain version on the unpadded
+    weights."""
+    x, sub, ad = make_inputs(4, 197, 768, F, seed=9)
+    width = ms.adapter_kernel_width(F, BF)
+    pad = (*ms.pad_adapter_weights(*ad[:3], width), *ad[3:])
+    form = "bf16" if width != F else "bf16+simt_tail"
+    before = ms.dyt_prologue_serving.forms.get(form, 0)
+    got = ms.dyt_prologue_serving(x, *sub, *pad, heads=12)
+    torch.cuda.synchronize()
+    assert ms.dyt_prologue_serving.forms[form] == before + 1
+    want = ms.dyt_prologue_plain(x, *sub, *ad, heads=12)
+    bf16_close(got[0], want[0], "K3 x_mid")
+    bf16_close(got[1], want[1], "K3 adapt")
+    logits_close(got[2], want[2])
+    got = qt.dyt_prologue_serving_q8(x, *q8_sub(sub), *pad, heads=12)
+    torch.cuda.synchronize()
+    want = qt.dyt_prologue_q8_plain(x, *q8_sub(sub), *ad, heads=12)
+    bf16_close(got[1], want[1], "K6 adapt")
+    logits_close(got[2], want[2])
+
+
+def test_adapter_widths_are_the_kernels():
+    """The wrappers route a bf16 adapter to the wgmma tail at the widths of
+    ms.AR_WIDTHS: the widths the kernel is instantiated for."""
+    from dynamic_tuning_tpu_torch.ops import _build
+    lib = _build.library()
+    assert tuple(F for F in range(1, 1025)
+                 if lib.dyt_adapter_width_supported(F)) == ms.AR_WIDTHS
+
+
+def test_core_routes_follow_the_flag():
+    """The C entry point follows the route the wrappers pass: the wgmma core
+    refuses a head dim it is not built for, the SIMT core takes it."""
+    from dynamic_tuning_tpu_torch.ops import _build
+    lib = _build.library()
+    B, N, H, hd = 2, 197, 4, 192
+    qkv = torch.randn((B, N, 3 * H * hd), device="cuda").to(BF)
+    q, k, v = qkv.view(B, N, 3, H, hd).permute(2, 0, 3, 1, 4)
+    out = torch.empty((B, N, H, hd), dtype=BF, device="cuda").transpose(1, 2)
+    stream = torch.cuda.current_stream().cuda_stream
+    for simt in (0, 1):
+        err = lib.dyt_mha_core(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                               out.data_ptr(), _build.strides_arg(q, k, v, out),
+                               B, N, H, hd, hd ** -0.5, 0, simt, stream)
+        assert (err == 0) == bool(simt), (simt, err)
+    torch.cuda.synchronize()
+    bf16_close(out.transpose(1, 2).reshape(B, N, H * hd),
+               ms.attn_core_pairs(qkv, heads=H), "K1 hd 192")
+
+
+@pytest.mark.parametrize("C,H", [(768, 4), (1024, 4)])
+def test_bf16_head_dims_192_and_256(C, H):
+    """K2, K3 and K5/K6 (with the int8-score core too) at head dims 192
+    and 256: the bf16 chains with the SIMT core."""
+    x, sub, ad = make_inputs(4, 197, C, 64, seed=10)
+    got = ms.dyt_prologue_serving(x, *sub, *ad, heads=H)
+    torch.cuda.synchronize()
+    assert ms.dyt_prologue_serving.forms["bf16+simt_core"] >= 1
+    want = ms.dyt_prologue_plain(x, *sub, *ad, heads=H)
+    bf16_close(got[0], want[0], "K3 x_mid")
+    logits_close(got[2], want[2])
+    got = ms.attention_sublayer_serving(x, *sub, heads=H)
+    torch.cuda.synchronize()
+    bf16_close(got, ms.attention_sublayer_plain(x, *sub, heads=H), "K2")
+    for aq in (False, True):
+        got = qt.dyt_prologue_serving_q8(x, *q8_sub(sub), *ad, heads=H,
+                                         attn_q8=aq)
+        torch.cuda.synchronize()
+        want = qt.dyt_prologue_q8_plain(x, *q8_sub(sub), *ad, heads=H,
+                                        attn_q8=aq)
+        bf16_close(got[0], want[0], "K6 x_mid")
+        logits_close(got[2], want[2])
+
+
+def test_fp32_model_launches_only_fp32_forms():
+    """An fp32 DyT ViT on the card: every fused block takes K3's fp32 form
+    (dispatch), K6's and K10's with int8_attn, and nothing else."""
+    from dynamic_tuning_tpu_torch.config import (ModelConfig, SelectConfig,
+                                                 TuningConfig)
+    from dynamic_tuning_tpu_torch.models.vit import VisionTransformer
+    for quant in ("none", "int8_attn"):
+        model = VisionTransformer(
+            ModelConfig(img_size=64, num_classes=10, embed_dim=256,
+                        depth=2, num_heads=4, quant=quant),
+            tuning=TuningConfig(ffn_num=24, d_model=256),
+            select=SelectConfig(), dtype=F32,
+            generator=torch.Generator().manual_seed(0)).cuda().eval()
+        ms.reset_launch_counts()
+        qt.reset_launch_counts()
+        x = torch.randn((2, 64, 64, 3), device="cuda")
+        with torch.no_grad():
+            logits, _ = model(x, dispatch=True)
+        torch.cuda.synchronize()
+        assert torch.isfinite(logits).all()
+        if quant == "none":
+            assert ms.dyt_prologue_serving.forms == {"fp32": 2}
+        else:
+            assert qt.dyt_prologue_serving_q8.forms == {"fp32": 2}
+            assert qt.attn_core_pairs_q8.forms == {"fp32": 2}
+            assert ms.dyt_prologue_serving.launches == 0

@@ -1,0 +1,254 @@
+"""Adapter widths, MoE widths and head dims the JAX kernels take and the
+port's wgmma kernels are not built for, on the CPU.
+
+* the padding that takes a bf16 adapter of bottleneck F <= 128 to the next
+  width the wgmma adapter/router kernel is built for
+  (``ms.adapter_kernel_width``, ``ms.pad_adapter_weights``, done once per
+  load by ``Adapter.kernel_weights``) and a bf16 MoE adapter to an E * b
+  that is a multiple of 16 (``ms.moe_kernel_bneck`` in
+  ``ms.moe_kernel_weights``) is exact: the plain version on the padded
+  weights equals the one on the unpadded weights (fp32 within 1e-6 of the
+  largest output; the wrapper too at F = 8, 24 and 100);
+* whole DyT ViTs against the JAX model in interpret mode
+  (``DYT_FUSED_ATTN=interpret``): bf16 at ``ffn_num`` 8, 24 and 256
+  (padded to 16 and 32 by the port; 256 on the SIMT tail) in dense and
+  dispatch mode; MoE at 2 experts of 4 (padded to 2 x 8 in bf16), fp32 and bf16;
+  head dim 192 (C = 384 in 2 heads), fp32 and bf16 dispatch, and
+  int8_attn at fp32 compute.
+
+Tolerances: fp32 logits within 1e-5 of their largest magnitude, every gate
+identical (int8: 1e-2, as tests/test_torch_port_model.py); bf16 as the
+bf16 model tests of tests/test_torch_port_model.py and
+tests/test_torch_port_moe.py (1.2% and 1% of the largest logit; a gate may
+differ only where its router logit is within 5% of the largest of 0).
+
+Size: depth 2, 32x32 images of 16x16 patches (5 tokens), 2 images.
+"""
+
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from dynamic_tuning_tpu.config import ModelConfig, SelectConfig, TuningConfig
+from dynamic_tuning_tpu.models.vit import VisionTransformer as JaxViT
+from dynamic_tuning_tpu.train.checkpoint import import_pretrained
+from dynamic_tuning_tpu_torch import config as tcfg
+from dynamic_tuning_tpu_torch.checkpoint import from_flax_params
+from dynamic_tuning_tpu_torch.models.layers import MoEAdapter
+from dynamic_tuning_tpu_torch.models.vit import VisionTransformer
+from dynamic_tuning_tpu_torch.ops import mha_serving as ms
+from torch_oracle import make_vit_state_dict
+
+DEPTH, IMG, PATCH, CLASSES = 2, 32, 16, 10
+JDT = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
+TDT = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+BF = torch.bfloat16
+
+
+class _Quiet:
+    def info(self, *a):
+        pass
+
+
+def port_cfg(cfg):
+    return getattr(tcfg, type(cfg).__name__)(**dataclasses.asdict(cfg))
+
+
+def _perturb(tree, rs, scale=0.05):
+    """Every leaf moved off its init (MoE routers and up kernels start at
+    zero, which would make the gates uniform and the mixture zero)."""
+    return jax.tree_util.tree_map(
+        lambda a: a + jnp.asarray(rs.randn(*a.shape) * scale, a.dtype), tree)
+
+
+def _pair(monkeypatch, *, dtype, ffn, dim=128, heads=2, experts=0,
+          quant="none", seed=0):
+    """(jax model, jax params, port model, input) with identical weights."""
+    mc = ModelConfig(img_size=IMG, patch_size=PATCH, embed_dim=dim,
+                     depth=DEPTH, num_heads=heads, num_classes=CLASSES,
+                     residual_dtype=dtype, quant=quant)
+    tuning = TuningConfig(ffn_num=ffn, d_model=dim, moe_experts=experts,
+                          moe_router_tau=0.7)
+    sel = SelectConfig(token_target_ratio=0.5)
+    rs = np.random.RandomState(seed)
+    sd = make_vit_state_dict(rs, depth=DEPTH, dim=dim, ffn=ffn,
+                             classes=CLASSES, img=IMG, patch=PATCH)
+    for i in range(DEPTH):
+        k = f"blocks.{i}.adaptmlp.up_proj.weight"
+        sd[k] = (rs.randn(*sd[k].shape) * 0.05).astype(np.float32)
+    x = rs.randn(2, IMG, IMG, 3).astype(np.float32)
+    jm = JaxViT(mc, tuning=tuning, select=sel, dtype=JDT[dtype])
+    # the tree's shapes only (an eager init takes ~10 s here), every leaf
+    # then taken from the state dict (the MoE adapters from the
+    # perturbation below); applied in interpret mode
+    monkeypatch.setenv("DYT_FUSED_ATTN", "interpret")
+    # the port's own init draws are all replaced by the strict load below
+    # (torch's truncated normal takes ~1.5 s a model here)
+    monkeypatch.setattr(torch.nn.init, "trunc_normal_",
+                        lambda t, *a, **k: t)
+    shapes = jax.eval_shape(jm.init, jax.random.PRNGKey(0),
+                            jnp.asarray(x[:1]))["params"]
+    params = jax.tree_util.tree_map(lambda s: jnp.zeros(s.shape, s.dtype),
+                                    shapes)
+    params, _ = import_pretrained(params, sd, logger=_Quiet())
+    if experts:
+        params = {k: ({**v, "adaptmlp": _perturb(v["adaptmlp"], rs)}
+                      if k.startswith("blocks_") else v)
+                  for k, v in params.items()}
+    tm = VisionTransformer(port_cfg(mc), tuning=port_cfg(tuning),
+                           select=port_cfg(sel), dtype=TDT[dtype])
+    tm.load_state_dict({k: torch.from_numpy(v) for k, v in
+                        from_flax_params(params).items()}, strict=True)
+    return jm, params, tm, x
+
+
+def _check(jm, params, tm, x, kwargs, dtype, *, rel=None):
+    jl, jaux = jax.jit(lambda p, a: jm.apply({"params": p}, a, **kwargs))(
+        params, jnp.asarray(x))
+    with torch.no_grad():
+        tl, taux = tm(torch.from_numpy(x), **kwargs)
+    want = np.asarray(jl.astype(jnp.float32))
+    rel = rel or (1e-5 if dtype == "float32" else 0.012)
+    np.testing.assert_allclose(tl.float().numpy(), want, rtol=0,
+                               atol=rel * np.abs(want).max())
+    if jaux.get("token_select") is None:
+        assert taux["token_select"] is None
+        return
+    same = taux["token_select"].numpy() == np.asarray(jaux["token_select"])
+    if dtype == "float32":
+        assert same.all()
+        return
+    jl_tok = np.asarray(jaux["token_logits"])
+    assert (same | (np.abs(jl_tok) < 0.05 * np.abs(jl_tok).max())).all()
+
+
+# --- padding ------------------------------------------------------------------
+
+def test_kernel_widths():
+    assert [ms.adapter_kernel_width(f, BF) for f in (1, 8, 16, 24, 33, 100,
+                                                     128, 129, 256)] == [
+        16, 16, 16, 32, 48, 128, 128, 129, 256]
+    assert ms.adapter_kernel_width(8, torch.float32) == 8
+    assert ms.moe_kernel_bneck(2, 4, BF) == 8
+    assert ms.moe_kernel_bneck(3, 5, BF) == 16          # 48
+    assert ms.moe_kernel_bneck(4, 64, BF) == 64
+    assert ms.moe_kernel_bneck(4, 192, BF) == 192       # 768: the SIMT tail
+    assert ms.moe_kernel_bneck(2, 4, torch.float32) == 4
+    assert ms.form_of(torch.float32, 64) == "fp32"
+    assert ms.form_of(BF, 64) == "bf16"
+    assert ms.form_of(BF, 192, True) == "bf16+simt_core+simt_tail"
+
+
+def _adapter(rs, F, C=128):
+    t = lambda *s, sc=1.0: torch.from_numpy(  # noqa: E731
+        (rs.randn(*s) * sc).astype(np.float32))
+    return (t(F, C, sc=0.05), t(F, sc=0.05), t(C, F, sc=0.05), t(C, sc=0.02),
+            torch.full((1,), 0.1), t(1, C, sc=0.3), t(1, sc=0.1))
+
+
+@pytest.mark.parametrize("F", [8, 24, 100])
+def test_padded_adapter_is_exact(F):
+    rs = np.random.RandomState(F)
+    wd, bd, wu, bu, sc, ws, bs = _adapter(rs, F)
+    xm = torch.from_numpy(rs.randn(2, 9, 128).astype(np.float32))
+    width = ms.adapter_kernel_width(F, BF)
+    assert width > F
+    pd, pb, pu = ms.pad_adapter_weights(wd, bd, wu, width)
+    assert pd.shape == (width, 128) and pu.shape == (128, width)
+    assert not pd[F:].any() and not pb[F:].any() and not pu[:, F:].any()
+    want = ms.adapter_router_plain(xm, torch.float32, wd, bd, wu, bu, sc, ws,
+                                   bs, with_select=True)
+    got = ms.adapter_router_plain(xm, torch.float32, pd, pb, pu, bu, sc, ws,
+                                  bs, with_select=True)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), w.numpy(), rtol=0,
+                                   atol=1e-6 * w.abs().max().item())
+    # the wrapper (its plain version on the CPU) with the padded weights
+    rs2 = np.random.RandomState(7)
+    C, H = 128, 2
+    t = lambda *s, sc=1.0: torch.from_numpy(  # noqa: E731
+        (rs2.randn(*s) * sc).astype(np.float32))
+    sub = (1.0 + t(C, sc=0.05), t(C, sc=0.02), t(3 * C, C, sc=0.03),
+           t(3 * C, sc=0.02), t(C, C, sc=0.03), t(C, sc=0.02))
+    x = t(2, 9, C)
+    want = ms.dyt_prologue_plain(x, *sub, wd, bd, wu, bu, sc, ws, bs,
+                                 heads=H)
+    got = ms.dyt_prologue_serving(x, *sub, pd, pb, pu, bu, sc, ws, bs,
+                                  heads=H)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), w.numpy(), rtol=0,
+                                   atol=1e-6 * w.abs().max().item())
+
+
+@pytest.mark.parametrize("E,b", [(2, 4), (3, 5)])
+def test_padded_moe_is_exact(E, b):
+    """The padded bf16 expert stacks give the unpadded ones' outputs (the
+    plain version sums in float64: zero columns add nothing)."""
+    rs = np.random.RandomState(E * b)
+    C = 128
+    t = lambda *s, sc=1.0: torch.from_numpy(  # noqa: E731
+        (rs.randn(*s) * sc).astype(np.float32))
+    dk, db, uk = t(E, C, b, sc=0.05), t(E, b, sc=0.05), t(E, b, C, sc=0.05)
+    wr, bu = t(E, C, sc=0.1), t(E, C, sc=0.02)
+    sc, ws, bs = torch.full((1,), 0.1), t(1, C, sc=0.3), t(1, sc=0.1)
+    padded = ms.moe_kernel_weights(dk, db, uk, BF)
+    bp = ms.moe_kernel_bneck(E, b, BF)
+    assert padded[0].shape == (E * bp, C) and (E * bp) % 16 == 0
+    unpadded = (dk.transpose(1, 2).reshape(E * b, C).to(BF), db.reshape(-1),
+                uk.reshape(E * b, C).t().contiguous().to(BF))
+    xm = t(2, 9, C)
+    kw = dict(experts=E, tau=0.7, with_select=True)
+    want = ms.moe_adapter_router_plain(xm, torch.float32, wr, *unpadded, bu,
+                                       sc, ws, bs, bneck=b, **kw)
+    got = ms.moe_adapter_router_plain(xm, torch.float32, wr, *padded, bu, sc,
+                                      ws, bs, bneck=bp, **kw)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), w.numpy(), rtol=0,
+                                   atol=1e-6 * w.abs().max().item())
+
+
+# --- whole models against JAX ---------------------------------------------------
+
+MODES = {"dispatch": {"dispatch": True}, "dense": {"complete_model": True}}
+
+
+@pytest.mark.parametrize("ffn,mode", [(8, "dense"), (24, "dispatch"),
+                                      (256, "dense")])
+def test_bf16_adapter_widths_match_jax(monkeypatch, ffn, mode):
+    """bf16 at adapter widths padded to the wgmma tail's (8 -> 16, 24 ->
+    32) and past it (256, the SIMT tail); each width in one mode (the fp32
+    file takes the other pairings; the plain ViT, which has no adapter, is
+    tests/test_torch_port_model.py::test_model_matches_jax_bf16[plain])."""
+    jm, params, tm, x = _pair(monkeypatch, dtype="bfloat16", ffn=ffn)
+    wd = tm.blocks[0].adaptmlp.kernel_weights()[0]
+    assert wd.shape[0] == ms.adapter_kernel_width(ffn, BF)
+    _check(jm, params, tm, x, MODES[mode], "bfloat16")
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_moe_2x4_matches_jax(monkeypatch, dtype):
+    jm, params, tm, x = _pair(monkeypatch, dtype=dtype, ffn=4, experts=2)
+    assert isinstance(tm.blocks[0].adaptmlp, MoEAdapter)
+    wd = tm.blocks[0].adaptmlp.kernel_weights()[1]
+    assert wd.shape[0] == (16 if dtype == "bfloat16" else 8)
+    _check(jm, params, tm, x, {"dispatch": True}, dtype,
+           rel=None if dtype == "float32" else 0.01)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_head_dim_192_matches_jax(monkeypatch, dtype):
+    """K3 at head dim 192: the SIMT core in bf16 on the card, the fp32 core
+    in fp32; dispatch."""
+    jm, params, tm, x = _pair(monkeypatch, dtype=dtype, ffn=64, dim=384,
+                              heads=2)
+    _check(jm, params, tm, x, MODES["dispatch"], dtype)
+
+
+def test_head_dim_192_int8_attn_fp32_matches_jax(monkeypatch):
+    jm, params, tm, x = _pair(monkeypatch, dtype="float32", ffn=24, dim=384,
+                              heads=2, quant="int8_attn")
+    _check(jm, params, tm, x, {"dispatch": True}, "float32", rel=1e-2)
