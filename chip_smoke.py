@@ -235,30 +235,32 @@ Phases; any failure exits non-zero:
      decoded and re-encoded byte for byte; (e) the native video decoder:
      if it builds, the committed clip's frames equal the JAX decoder's
      stored frames, else ``native_video: unavailable: <why>``;
- 16. the fp32 forms, the adapter and MoE widths and the head dims the JAX
-     kernels take and the wgmma kernels are not built for (``FORMS``):
-     each fp32 form against its plain version at ViT-B/16 width (B=32,
-     N=197, 12 heads of 64, F=64, MoE 4 x 64; K9 at B=1, N=1025), within
-     1e-5 of the plain version's largest |output|, router logits too
-     (K6/K8 with fp32 adapters also print the share within 1e-5: their
-     core's output is requantized, so it must land on the plain version's
-     bits), with its bound, K1/K9 beside SDPA in fp32 and the fp32
-     GEMM alone beside torch.matmul with TF32 off; the bf16 forms at F = 8
-     (padded) and 256 (the SIMT tail), MoE 2 x 4 (padded) and 4 x 192 (the
-     SIMT tail), head dims 192 (C=768) and 256 (C=1024) in 4 heads (K3, K6
-     with the int8-score core, K15, K1, K10; K9 at 192); then the main path
-     of each form, the counts set to 0 just before each run: speed.main in
-     fp32 (dispatch, int8 and int8_attn at batch 128 against the
-     plain-version forward, logits within 1e-3 of the largest, gates
-     agreeing on 0.9995 with each differing gate's distances printed;
-     dense; plain and MoE at batch 32 held the same way, int8 MoE to the
-     int8 bounds of phase 3) and in bf16 at F = 256, 8,
-     MoE 4 x 192 and 2 x 4; a bf16 ViT-B/16 at head dim 192; predict.serve
-     at head dim 192 (--quant none and int8_attn); main_image
-     --compute_dtype float32 (2 steps, an evaluation on the dispatch path);
-     an fp32 seg crop evaluation (K9 fp32 in every block); the fp32
-     LayerScale backbone (K1 fp32); each with 12 launches a forward of its
-     kernels and none of the others;
+ 16. the fp32 forms, the adapter and MoE widths and the head dims 192 and
+     256 (``FORMS``): each fp32 form against its plain version at ViT-B/16
+     width (B=32, N=197, 12 heads of 64, F=64, MoE 4 x 64; K9 at B=1,
+     N=1025), within 1e-5 of the plain version's largest |output|, router
+     logits too (K6/K8 with fp32 adapters also print the share within
+     1e-5: their core's output is requantized, so it must land on the
+     plain version's bits), with its bound, K1/K9 beside SDPA in fp32 (on
+     the register-tiled fp32 core) and the fp32 GEMM alone beside
+     torch.matmul with TF32 off; the bf16 forms at F = 8 (padded) and 256
+     (the SIMT tail), MoE 2 x 4 (padded) and 4 x 192 (the SIMT tail), head
+     dims 192 (C=768) and 256 (C=1024) in 4 heads (K3, K15 and K1 on the
+     wgmma core, K6 with the int8-score core, K10; K9 at 192 beside SDPA
+     with its bias as the mask), every one timed; then the main path of
+     each form, the counts set to 0 just before each run and no launch in
+     a form the run does not list: speed.main in fp32 (dispatch, int8 and
+     int8_attn at batch 128 against the plain-version forward, logits
+     within 1e-3 of the largest, gates agreeing on 0.9995 with each
+     differing gate's distances printed; dense; plain and MoE at batch 32
+     held the same way, int8 MoE to the int8 bounds of phase 3) and in
+     bf16 at F = 256, 8, MoE 4 x 192 and 2 x 4; a bf16 ViT-B/16 at head
+     dim 192 (its img/s at batch 32); predict.serve at head dim 192
+     (--quant none, its forward against the plain-version forward, and
+     int8_attn); main_image --compute_dtype float32 (2 steps, an
+     evaluation on the dispatch path); an fp32 seg crop evaluation (K9
+     fp32 in every block); the fp32 LayerScale backbone (K1 fp32); each
+     with 12 launches a forward of its kernels and none of the others;
  17. the wall time (and each new phase's), the card's name and power limit
      (nvidia-smi), a JSON line of the kernels, and last the JSON result
      line.
@@ -753,6 +755,34 @@ def windowed_launch(torch, ms, qkv, bias):
             qkv.data_ptr(), bias.data_ptr(), out.data_ptr(), batch, n,
             c3 // 3, H, bias.stride(0), bias.stride(1), scale, stream),
             "windowed attention kernel")
+    return launch
+
+
+def core_launch(torch, q, k, v, *, k15=False, bias=None):
+    """The attention core's launch through its C entry alone (what the
+    wrapper launches after its checks) on strided q, k, v [B, H, N, hd]:
+    bf16 on the wgmma core (K1's or K15's mode), fp32 on the fp32 core
+    (K1's rounding, with K9's padded bf16 ``bias``)."""
+    from dynamic_tuning_tpu_torch.ops import _build
+    lib = _build.library()
+    batch, heads, n, hd = q.shape
+    out = torch.empty((batch, n, heads, hd), dtype=q.dtype,
+                      device="cuda").transpose(1, 2)
+    stream = torch.cuda.current_stream().cuda_stream
+    st = _build.strides_arg(q, k, v, out)
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), st,
+            batch, n, heads, hd, hd ** -0.5)
+    if q.dtype == torch.float32:
+        def launch():
+            _build.check(lib, lib.dyt_f32_core(
+                *ptrs, None if bias is None else bias.data_ptr(),
+                0 if bias is None else bias.stride(0),
+                0 if bias is None else bias.stride(1), stream),
+                "fp32 attention core")
+    else:
+        def launch():
+            _build.check(lib, lib.dyt_mha_core(*ptrs, int(k15), stream),
+                         "attention core kernel")
     return launch
 
 
@@ -3573,22 +3603,22 @@ FORMS = {
         route="cuda", source=f"{SRC}/simt_core_q8.cu",
         replaces=f"{JAX_OPS}/quant.py:309")),
     "mha_windowed_fused:fp32": ("ms", dict(
-        route="cuda", source=f"{SRC}/simt_core.cu",
+        route="cuda", source=f"{SRC}/f32_core.cu",
         replaces=f"{JAX_OPS}/mha_serving.py:321")),
     "mha_serving_fused:fp32": ("ms", dict(
-        route="cuda", source=f"{SRC}/simt_core.cu",
+        route="cuda", source=f"{SRC}/f32_core.cu",
         replaces=f"{JAX_OPS}/mha_serving.py:219")),
-    "dyt_prologue_serving:bf16+simt_core": ("ms", dict(
-        route="cuda", source=f"{SRC}/simt_core.cu",
+    "dyt_prologue_serving:bf16+wide_heads": ("ms", dict(
+        route="cuda", source=f"{SRC}/attention_sublayer.cu",
         replaces=f"{JAX_OPS}/mha_serving.py:581")),
     "dyt_prologue_serving_q8:bf16+simt_core": ("qt", dict(
-        route="cuda", source=f"{SRC}/simt_core.cu",
+        route="cuda", source=f"{SRC}/simt_core_q8.cu",
         replaces=f"{JAX_OPS}/quant.py:531")),
     "attn_core_pairs_q8:bf16+simt_core": ("qt", dict(
         route="cuda", source=f"{SRC}/simt_core_q8.cu",
         replaces=f"{JAX_OPS}/quant.py:309")),
-    "mha_serving:bf16+simt_core": ("ms", dict(
-        route="cuda", source=f"{SRC}/simt_core.cu",
+    "mha_serving:bf16+wide_heads": ("ms", dict(
+        route="cuda", source=f"{SRC}/attention_sublayer.cu",
         replaces=f"{JAX_OPS}/mha_serving.py:49")),
     "dyt_prologue_serving:bf16+simt_tail": ("ms", dict(
         route="cuda", source=f"{SRC}/simt_chain.cu",
@@ -3742,10 +3772,12 @@ def forms_kernels(torch, ms, qt, _build) -> dict:
     q, k, v = (t.contiguous() for t in qkv.view(F32_B, N, 3, H, C // H)
                .permute(2, 0, 3, 1, 4))
     out["mha_serving_fused:fp32"] = measure(
-        "K1 fp32", lambda: ms.mha_serving_fused(qkv, heads=H),
+        "K1 fp32 (the fp32 core)", lambda: ms.mha_serving_fused(qkv, heads=H),
         lambda: ms.attn_core_pairs(qkv, heads=H), ("core",), (qkv,),
         {"fp32": 2 * attn}, library=lambda:
-        F.scaled_dot_product_attention(q, k, v), **fp32)
+        F.scaled_dot_product_attention(q, k, v),
+        timed=core_launch(torch, *qkv.view(F32_B, N, 3, H, C // H).permute(
+            2, 0, 3, 1, 4)), **fp32)
     ld = ms.bias_row_stride(SEG_N)
     bias = (torch.randn((H, SEG_N, ld), generator=g, device="cuda")
             .to(bf)[:, :, :SEG_N])
@@ -3754,13 +3786,14 @@ def forms_kernels(torch, ms, qt, _build) -> dict:
                   .permute(2, 0, 3, 1, 4))
     mask = bias.float().contiguous()[None]
     out["mha_windowed_fused:fp32"] = measure(
-        f"K9 fp32 (B=1, N={SEG_N})",
+        f"K9 fp32 (B=1, N={SEG_N}; the fp32 core)",
         lambda: ms.mha_windowed_fused(sq, bias, heads=H),
         lambda: ms.mha_windowed_plain(sq, bias, heads=H), ("core",),
         (sq, bias.contiguous()), {"fp32": 2 * attn_ops(1, SEG_N)},
         library=lambda: F.scaled_dot_product_attention(q9, k9, v9,
                                                        attn_mask=mask),
-        **fp32)
+        timed=core_launch(torch, *sq.view(1, SEG_N, 3, H, C // H).permute(
+            2, 0, 3, 1, 4), bias=bias), **fp32)
     # the fp32 GEMM alone at the qkv product's shape, beside torch.matmul
     # with TF32 off (cuBLAS's fp32 SGEMM): a reference time
     lib = _build.library()
@@ -3806,8 +3839,7 @@ def forms_kernels(torch, ms, qt, _build) -> dict:
             res = measure(f"{name} bf16 F={F_}" + (
                 " (padded to the wgmma tail's 16)" if F_ == 8 else
                 " (the SIMT tail)"), call, plain,
-                ("x_mid", "adapt", "logits"), (x_, *s_, *ad_), ops,
-                check_only=F_ != WIDE_F, **bfq)
+                ("x_mid", "adapt", "logits"), (x_, *s_, *ad_), ops, **bfq)
             if F_ == WIDE_F:
                 out[key] = res
     for (E_, b_), tag in (((2, 4), "padded to 2 x 8"),
@@ -3822,8 +3854,7 @@ def forms_kernels(torch, ms, qt, _build) -> dict:
                                               heads=H, tau=TAU),
             ("x_mid", "adapt", "logits"), (x_, *s_, *moe_, *ad_[5:]),
             {"bf16": gemm + 2 * attn + 4 * M * C * E_ * b_,
-             "fp32": 2 * M * C * (E_ + 1)},
-            check_only=(E_, b_) != WIDE_MOE, **bfq)
+             "fp32": 2 * M * C * (E_ + 1)}, **bfq)
         if (E_, b_) == WIDE_MOE:
             out["dyt_prologue_serving_moe:bf16+simt_tail"] = res
     for C_, heads in ((C, HD192_HEADS), (1024, 4)):
@@ -3831,19 +3862,17 @@ def forms_kernels(torch, ms, qt, _build) -> dict:
         x_, s_, qs_, ad_, _ = forms_inputs(torch, ms, qt, dtype=bf, C_=C_)
         g_ = 2 * M * C_ * 4 * C_
         a_ = 2 * F32_B * heads * N * N * hd        # one product of the core
-        # the SIMT core's products take bf16 operands (K10's q.k int8): the
-        # bound counts them at the bf16 (int8) tensor rate, the least time
-        # the card could take for them; head dim 256 is checked, not timed
-        # (the kernels line holds 192)
+        # the cores' products take bf16 operands (K10's q.k int8): the bound
+        # counts them at the bf16 (int8) tensor rate; every form is timed,
+        # the kernels line holds head dim 192
         line = hd == C // HD192_HEADS
-        bfh = dict(bfq, check_only=not line)
         res = measure(
-            f"K3 bf16 head_dim {hd} (C={C_}, {heads} heads; the SIMT core)",
+            f"K3 bf16 head_dim {hd} (C={C_}, {heads} heads; the wgmma core)",
             lambda: ms.dyt_prologue_serving(x_, *s_, *ad_, heads=heads),
             lambda: ms.dyt_prologue_plain(x_, *s_, *ad_, heads=heads),
             ("x_mid", "adapt", "logits"), (x_, *s_, *ad_),
             {"bf16": g_ + 2 * a_ + 4 * M * C_ * FFN, "fp32": 2 * M * C_},
-            **bfh)
+            **bfq)
         res6 = measure(
             f"K6 bf16 head_dim {hd} with the int8-score core",
             lambda: qt.dyt_prologue_serving_q8(x_, *qs_, *ad_, heads=heads,
@@ -3852,42 +3881,52 @@ def forms_kernels(torch, ms, qt, _build) -> dict:
                                              attn_q8=True),
             ("x_mid", "adapt", "logits"), (x_, *qs_, *ad_),
             {"int8": g_ + a_, "bf16": a_ + 4 * M * C_ * FFN,
-             "fp32": 2 * M * C_}, **bfh)
+             "fp32": 2 * M * C_}, **bfq)
         qkv_ = torch.randn((F32_B, N, 3 * C_), generator=g,
                            device="cuda").to(bf)
         qkv_[..., C_:2 * C_] += 1.0
         q_, k_, v_ = qkv_.view(F32_B, N, 3, heads, hd).permute(2, 0, 3, 1, 4)
         qc, kc, vc = (t.contiguous() for t in (q_, k_, v_))
+        sdpa = lambda: F.scaled_dot_product_attention(qc, kc, vc)  # noqa
         res15 = measure(
             f"K15 bf16 head_dim {hd} (views of the raw qkv)",
             lambda: ms.mha_serving(q_, k_, v_),
             lambda: ms.mha_serving_plain(q_, k_, v_), ("core",), (qkv_,),
-            {"bf16": 2 * a_}, library=lambda:
-            F.scaled_dot_product_attention(qc, kc, vc), **bfh)
+            {"bf16": 2 * a_}, library=sdpa,
+            timed=core_launch(torch, q_, k_, v_, k15=True), **bfq)
+        check_ulp_share(f"K15 bf16 head_dim {hd}", ms.mha_serving(q_, k_, v_),
+                        ms.mha_serving_plain(q_, k_, v_))
         measure(f"K1 bf16 head_dim {hd}",
                 lambda: ms.mha_serving_fused(qkv_, heads=heads),
                 lambda: ms.attn_core_pairs(qkv_, heads=heads), ("core",),
-                (qkv_,), {"bf16": 2 * a_}, check_only=True, **bfq)
+                (qkv_,), {"bf16": 2 * a_}, library=sdpa,
+                timed=core_launch(torch, q_, k_, v_, k15=False), **bfq)
+        check_ulp_share(f"K1 bf16 head_dim {hd}",
+                        ms.mha_serving_fused(qkv_, heads=heads),
+                        ms.attn_core_pairs(qkv_, heads=heads))
         res10 = measure(
             f"K10 bf16 head_dim {hd}",
             lambda: qt.attn_core_pairs_q8(qkv_, heads=heads),
             lambda: qt.attn_core_pairs_q8_plain(qkv_, heads=heads),
-            ("core",), (qkv_,), {"int8": a_, "bf16": a_}, **bfh)
+            ("core",), (qkv_,), {"int8": a_, "bf16": a_}, **bfq)
         if line:
-            out["dyt_prologue_serving:bf16+simt_core"] = res
+            out["dyt_prologue_serving:bf16+wide_heads"] = res
             out["dyt_prologue_serving_q8:bf16+simt_core"] = res6
-            out["mha_serving:bf16+simt_core"] = res15
+            out["mha_serving:bf16+wide_heads"] = res15
             out["attn_core_pairs_q8:bf16+simt_core"] = res10
             sq = torch.randn((1, SEG_N, 3 * C_), generator=g,
                              device="cuda").to(bf)
             b9 = torch.randn((heads, SEG_N, SEG_N), generator=g,
                              device="cuda").to(bf)
-            measure(f"K9 bf16 head_dim {hd} (B=1, N={SEG_N})",
+            q9, k9, v9 = (t.contiguous() for t in sq.view(
+                1, SEG_N, 3, heads, hd).permute(2, 0, 3, 1, 4))
+            measure(f"K9 bf16 head_dim {hd} (B=1, N={SEG_N}; the SIMT core)",
                     lambda: ms.mha_windowed_fused(sq, b9, heads=heads),
                     lambda: ms.mha_windowed_plain(sq, b9, heads=heads),
                     ("core",), (sq, b9),
                     {"bf16": 4 * SEG_N * SEG_N * hd * heads},
-                    check_only=True, **bfq)
+                    library=lambda: F.scaled_dot_product_attention(
+                        q9, k9, v9, attn_mask=b9[None]), **bfq)
         torch.cuda.empty_cache()
     return out
 
@@ -3920,16 +3959,38 @@ def forms_compare(torch, ms, qt, fm, res, run, kwargs, fp32: bool) -> None:
         fail(f"{run} forward disagrees with the plain-version forward")
 
 
+def unlisted_forms(ms, qt, fm) -> dict:
+    """Launches since the counts were set to 0 in a (wrapper, form) that
+    KERNELS does not list (a bf16 head dim 192 launch on the SIMT core, say):
+    read_counts cannot see them."""
+    mods = count_modules(ms, qt, fm)
+    listed = {(m, k.partition(":")[0], k.partition(":")[2] or "bf16")
+              for k, (m, _) in KERNELS.items()}
+    out = {}
+    for m, mod in mods.items():
+        for name in dir(mod):
+            forms = getattr(getattr(mod, name), "forms", None)
+            if not isinstance(forms, dict):
+                continue
+            for form, n in forms.items():
+                if n and (m, name, form) not in listed:
+                    out[f"{name}:{form}"] = n
+    return out
+
+
 def forms_counts(ms, qt, fm, run, kernels, forwards=None) -> dict:
     """The launches since the counts were set to 0: DEPTH a forward of each
-    of ``kernels`` and none of the others (``forwards`` None: as many
-    forwards as the first of ``kernels`` shows, at least one)."""
+    of ``kernels`` and none of the others, in any form (``forwards`` None:
+    as many forwards as the first of ``kernels`` shows, at least one)."""
     counts = read_counts(ms, qt, fm)
     if forwards is None:
         forwards = max(counts[kernels[0]] // DEPTH, 1)
     want = {k: DEPTH * forwards if k in kernels else 0 for k in KERNELS}
     if counts != want:
         fail(f"{run}: kernel launches {counts}, want {want}")
+    extra = unlisted_forms(ms, qt, fm)
+    if extra:
+        fail(f"{run}: launches in forms the run does not list: {extra}")
     return counts
 
 
@@ -3938,15 +3999,16 @@ def forms_main_path(torch, ms, qt, fm, speed, predict, config,
     """The main path of every new form, through the entry points: speed.main
     in fp32 (dispatch, dense, plain, int8, int8_attn, MoE) and at the bf16
     widths; a bf16 ViT at head dim 192; predict.serve at head dim 192
-    (--quant none: K15; int8_attn: K6 and K10); main_image in fp32 (2 steps
-    and a dispatch evaluation); an fp32 seg crop evaluation (K9); the fp32
-    LayerScale backbone (K1).  Launches counted for each, the counts set to
-    0 just before."""
+    (--quant none: K15, its forward against the plain versions'; int8_attn:
+    K6 and K10); main_image in fp32 (2 steps and a dispatch evaluation); an
+    fp32 seg crop evaluation (K9); the fp32 LayerScale backbone (K1).
+    Launches counted for each, the counts set to 0 just before."""
     import shutil
 
     from dynamic_tuning_tpu_torch import main_image, seg_train
     from dynamic_tuning_tpu_torch.checkpoint import load_timm_state_dict
     from dynamic_tuning_tpu_torch.data import datasets
+    from dynamic_tuning_tpu_torch.models import fast_inference as fast
     from dynamic_tuning_tpu_torch.models import seg_vit
     from dynamic_tuning_tpu_torch.models.vit import VisionTransformer
     launches = {k: 0 for k in KERNELS}
@@ -3977,7 +4039,8 @@ def forms_main_path(torch, ms, qt, fm, speed, predict, config,
         del res
         torch.cuda.empty_cache()
     # a bf16 ViT-B/16 at head dim 192 (4 heads): the model's forward (its
-    # init draws skipped: every parameter is loaded, checked)
+    # init draws skipped: every parameter is loaded, checked), its K3 on the
+    # wgmma core
     t0 = time.perf_counter()
     cfg = config.ModelConfig(num_classes=100, num_heads=HD192_HEADS,
                              gelu_approx=True, residual_dtype="bfloat16")
@@ -4000,20 +4063,23 @@ def forms_main_path(torch, ms, qt, fm, speed, predict, config,
         logits, aux = model(x, dispatch=True)
     run = f"ViT-B/16 bf16 head_dim {C // HD192_HEADS} dispatch"
     counts = forms_counts(ms, qt, fm, run,
-                          ("dyt_prologue_serving:bf16+simt_core",), 1)
+                          ("dyt_prologue_serving:bf16+wide_heads",), 1)
     for k in KERNELS:
         launches[k] += counts[k]
     forms_compare(torch, ms, qt, fm, dict(model=model, x=x, logits=logits,
                                           aux=aux), run, dict(dispatch=True),
                   False)
-    print(f"  ({time.perf_counter() - t0:.1f} s)")
+    with torch.inference_mode():
+        t_fwd = time_ms(lambda: model(x, dispatch=True), iters=10)
+    print(f"{run}: {F32_B / t_fwd * 1e3:.2f} img/s at batch {F32_B} "
+          f"({t_fwd:.4f} ms a forward) ({time.perf_counter() - t0:.1f} s)")
     del model
     # predict.serve at head dim 192: the fast path (K15) and int8_attn
     t0 = time.perf_counter()
     canv = torch.randint(0, 256, (F32_B, 256, 256, 3), generator=g,
                          device="cuda", dtype=torch.uint8)
     sd = {k: torch.from_numpy(v) for k, v in sds[0].items()}
-    for quant, kernels in (("none", ("mha_serving:bf16+simt_core",)),
+    for quant, kernels in (("none", ("mha_serving:bf16+wide_heads",)),
                            ("int8_attn",
                             ("dyt_prologue_serving_q8:bf16+simt_core",
                              "attn_core_pairs_q8:bf16+simt_core",
@@ -4035,6 +4101,26 @@ def forms_main_path(torch, ms, qt, fm, speed, predict, config,
         print(f"{run}: {len(results)} canvases, {DEPTH} launches of "
               f"{', '.join(kernels)} a forward "
               f"({time.perf_counter() - t0:.1f} s since the first)")
+        if quant == "none":
+            # the forward predict.serve runs, against the plain versions'
+            cfg_, tuning_, sel_ = predict.configs(a)
+
+            def fwd():
+                return fast.fast_vit_forward(
+                    params, x, cfg=cfg_, tuning=tuning_, select=sel_,
+                    mode="dispatch", use_kernel=False)
+            with torch.inference_mode():
+                logits, gates = fwd()
+                with plain_versions(ms, qt, fm):
+                    ref, ref_gates = fwd()
+            err, mag = rel_err(logits, ref)
+            agree = (gates == ref_gates).float().mean().item()
+            print(f"  its forward vs plain versions: logits max|err| "
+                  f"{err:.6g} (tol {MODEL_REL * mag:.6g}), gate agreement "
+                  f"{agree:.6f}")
+            if err > MODEL_REL * mag or agree < GATE_AGREE:
+                fail(f"{run}: the forward disagrees with the plain-version "
+                     "forward")
         del params
     # main_image in fp32: 2 training steps, an evaluation on the dispatch
     # path (64 synthetic images of each split, batch 32)

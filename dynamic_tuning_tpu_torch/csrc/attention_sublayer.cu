@@ -50,13 +50,17 @@
 //      written in the residual dtype (and as an fp32 copy for the DyT
 //      prologue's adapter/router, which read x_mid in fp32).
 // Fusing the chain (the core inside the qkv GEMM's epilogue) is later work.
+//
+// Head dims 192 and 256 (the JAX package fuses every head dim with
+// (2 hd) % 128 == 0; dynamic_tuning_tpu/models/layers.py::_attention_fusable)
+// take attn_core_wide_kernel (K and V staged by TMA, two warpgroups, q' read
+// from shared memory; its note below) while a head's K and V fit, and
+// attn_core_wide_ring_kernel past that, in place of the TPU kernels'
+// generic forms (dynamic_tuning_tpu/ops/mha_serving.py:31 _mha_kernel, :110
+// _mha_fused_kernel and :409 attn_core_pairs).  At B = 32, N = 197 in 4
+// heads of 192 the core moves 38.7 MB (0.012 ms at 3.35 TB/s) for 7.6
+// GFLOP (0.008 ms at the bf16 peak), with 5 M exps.
 #include "gemm.cuh"
-
-extern "C" int dyt_simt_core(const void* q, const void* k, const void* v,
-                             void* out, const long long* strides, int B,
-                             int N, int H, int hd, float scale, int t_f32,
-                             int k15, const void* bias, long long bias_head,
-                             long long bias_row, void* stream);
 
 namespace dyt {
 
@@ -510,35 +514,543 @@ attn_core_ring_kernel(const __grid_constant__ CUtensorMap map_k,
   }
 }
 
-template <int HD, bool K15>
-static cudaError_t launch_core_ring(const CoreArgs& a, int B, cudaStream_t s) {
-  using L = RingLayout<HD>;
-  // K and V as [B][H][N][HD] (dims innermost first, byte strides of the
-  // outer three), read in 64 x 64 boxes; rows past N arrive as zeros
-  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(HD),
+// q, k or v (``p``, element strides ``st`` of batch, head, row) as
+// [B][H][N][hd] (dims innermost first, byte strides of the outer three),
+// read in boxes of 64 columns by ``box_rows`` rows; rows past N arrive as
+// zeros
+static cudaError_t head_map(CUtensorMap* map, const bf16* p,
+                            const long long* st, const CoreArgs& a, int B,
+                            int hd, int box_rows) {
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(hd),
                               static_cast<cuuint64_t>(a.N),
                               static_cast<cuuint64_t>(a.H),
                               static_cast<cuuint64_t>(B)};
-  const cuuint32_t box[4] = {64, CORE_STREAM_KEYS, 1, 1};
+  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(st[2]) * 2,
+                                 static_cast<cuuint64_t>(st[1]) * 2,
+                                 static_cast<cuuint64_t>(st[0]) * 2};
+  const cuuint32_t box[4] = {64, static_cast<cuuint32_t>(box_rows), 1, 1};
+  return tensor_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, p, 4, dims,
+                    strides, box);
+}
+
+// K's and V's maps, boxes of ``box_rows`` keys
+static cudaError_t core_maps(const CoreArgs& a, int B, int hd, int box_rows,
+                             CUtensorMap (&maps)[2]) {
+  const cudaError_t err = head_map(&maps[0], a.k, a.sk, a, B, hd, box_rows);
+  if (err != cudaSuccess) return err;
+  return head_map(&maps[1], a.v, a.sv, a, B, hd, box_rows);
+}
+
+template <int HD, bool K15>
+static cudaError_t launch_core_ring(const CoreArgs& a, int B, cudaStream_t s) {
+  using L = RingLayout<HD>;
   CUtensorMap maps[2];
-  const bf16* src[2] = {a.k, a.v};
-  const long long* st[2] = {a.sk, a.sv};
-  for (int i = 0; i < 2; ++i) {
-    const cuuint64_t strides[3] = {static_cast<cuuint64_t>(st[i][2]) * 2,
-                                   static_cast<cuuint64_t>(st[i][1]) * 2,
-                                   static_cast<cuuint64_t>(st[i][0]) * 2};
-    const cudaError_t err = tensor_map(
-        &maps[i], CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, src[i], 4, dims, strides,
-        box);
-    if (err != cudaSuccess) return err;
-  }
-  cudaError_t err = cudaFuncSetAttribute(
+  cudaError_t err = core_maps(a, B, HD, CORE_STREAM_KEYS, maps);
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(
       attn_core_ring_kernel<HD, K15>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, L::SMEM);
   if (err != cudaSuccess) return err;
   const dim3 grid((a.N + 63) / 64, a.H, B);
   attn_core_ring_kernel<HD, K15><<<grid, CORE_THREADS, L::SMEM, s>>>(
       maps[0], maps[1], a);
+  return cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// Head dims 192 and 256 with a head's K and V staged (up to N = 224 at hd
+// 192, 160 at hd 256; the ring past that).  The TPU kernels are generic in
+// the head dim; the port's staged kernel above is not instantiated here,
+// because its whole-row scores (104 registers at N = 197) and q' in the A
+// layout (48 or 64) beside o (96 or 128) pass 255 registers, and one block
+// an SM (K and V take 2 x 80 KB at N = 197, hd 192) would leave the tensor
+// cores idle while its one warpgroup runs the exps.  So:
+//   * two warpgroups a block, each its own 64-row query tiles (qt = wg, wg
+//     + 2, ...): one's exps run while the other's products do;
+//   * K and V come by TMA, one box of 64 columns by all the head's rows a
+//     column block (the staged kernel's 128-byte swizzled layout), on two
+//     mbarriers, so that Q K^T starts when K is in and P V waits for V;
+//   * each warpgroup's q tile comes by TMA too, in the swizzle Q K^T reads
+//     (the first ones before K and V, each next one as soon as the tile is
+//     free), and is scaled and rounded in place: Q K^T reads q' from
+//     shared memory (wgmma's SS form), so no register holds it;
+//   * at hd 192 the output is staged, rounded, in the same tile and stored
+//     in whole 16-byte chunks of each row (the fragments' own stores write
+//     16 bytes a row a warp, and took longer than the products);
+//   * the keys go in chunks: at hd 192 64 keys, 32 score registers
+//     double-buffered (the next chunk's Q K^T runs under this chunk's
+//     exps); at hd 256, where o alone takes 128 registers, 32 keys in one
+//     buffer;
+//   * P V is one m64n192k16 or m64n256k16 product a 16-key step, so the
+//     output columns stay in one warpgroup.
+// The per-chunk math, masks and order are those of the staged kernel's
+// 64-key chunks (32-key at hd 256): l over the fp32 e in K1's mode, over
+// the bf16 p in K15's, the first P V step of the first chunk starting the
+// sum.
+constexpr int WIDE_THREADS = 256;
+
+template <int HD>
+struct WideLayout {
+  __host__ __device__ static int rows(int N) { return (N + 15) / 16 * 16; }
+  __host__ __device__ static int tile(int N) { return rows(N) * HD * 2; }
+  static constexpr int QW = 64 * HD * 2;        // a warpgroup's q' tile
+  // K, V (which also catches the last chunk's reads past K's last column
+  // block), the two q' tiles, the K, V and two q mbarriers
+  __host__ __device__ static int qw_offset(int N) { return 2 * tile(N); }
+  __host__ __device__ static int bar_offset(int N) {
+    return qw_offset(N) + 2 * QW;
+  }
+  static int smem_bytes(int N) { return 1024 + bar_offset(N) + 32; }
+};
+
+__device__ __forceinline__ void wg_sync(int wg) {
+  asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");
+}
+
+// q' = bf16(q * scale) in place in a warpgroup's raw q tile (as TMA wrote
+// it, in the 128-byte swizzle), each 16-byte chunk by one of its threads
+template <int HD>
+__device__ __forceinline__ void wide_scale_q(unsigned char* Qw, int wt,
+                                             float scale) {
+  for (int i = wt; i < 64 * (HD / 8); i += 128) {
+    uint4* p = reinterpret_cast<uint4*>(Qw + i * 16);
+    float v[8];
+    load8(reinterpret_cast<const bf16*>(p), v);
+    uint4 w;
+    w.x = pack_bf16x2(v[0] * scale, v[1] * scale);
+    w.y = pack_bf16x2(v[2] * scale, v[3] * scale);
+    w.z = pack_bf16x2(v[4] * scale, v[5] * scale);
+    w.w = pack_bf16x2(v[6] * scale, v[7] * scale);
+    *p = w;
+  }
+}
+
+// Chunk kc's scores (KC keys, element 4 j + e is key kc * KC + 8 j + t2 +
+// (e & 1)) to e = exp(clip(s, -60, 80) - 20) in place (keys past N give 0;
+// with SKIP, keys at or past np are skipped: the caller's P V never reads
+// them), their sums into l, and P V's A fragments (zeros for a warp whose
+// rows all lie past N).  K15's l sums the bf16 p that P V reads, K1's the
+// fp32 e.
+template <int KC, bool K15, bool SKIP>
+__device__ __forceinline__ void wide_exp(float (&s)[KC / 2],
+                                         unsigned (&pf)[KC / 16][4], int kc,
+                                         int N, int np, int t2, bool live,
+                                         float& l_lo, float& l_hi) {
+  if (!live) {
+#pragma unroll
+    for (int st = 0; st < KC / 16; ++st)
+      pf[st][0] = pf[st][1] = pf[st][2] = pf[st][3] = 0u;
+    return;
+  }
+  const bool last = kc * KC + KC > N;
+#pragma unroll
+  for (int j = 0; j < KC / 8; ++j) {
+    if (SKIP && last && kc * KC + j * 8 >= np) continue;
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      float p = expf(fminf(fmaxf(s[4 * j + e], -60.f), 80.f) - 20.f);
+      if (last && kc * KC + j * 8 + t2 + (e & 1) >= N) p = 0.f;
+      if constexpr (K15) p = __bfloat162float(__float2bfloat16_rn(p));
+      s[4 * j + e] = p;
+    }
+    l_lo += s[4 * j] + s[4 * j + 1];
+    l_hi += s[4 * j + 2] + s[4 * j + 3];
+  }
+#pragma unroll
+  for (int st = 0; st < KC / 16; ++st) {
+    pf[st][0] = pack_bf16x2(s[8 * st], s[8 * st + 1]);
+    pf[st][1] = pack_bf16x2(s[8 * st + 2], s[8 * st + 3]);
+    pf[st][2] = pack_bf16x2(s[8 * st + 4], s[8 * st + 5]);
+    pf[st][3] = pack_bf16x2(s[8 * st + 6], s[8 * st + 7]);
+  }
+}
+
+// A warpgroup's 64-row tile of o (rows q0 ..) divided by l (K1: o * (1 /
+// l); K15: o / l, the IEEE quotient from the rounded reciprocal), rounded to
+// bf16 and stored.  At hd 192 it is staged in the warpgroup's q' tile (its
+// Q K^T are complete), row-major with each row's 16-byte chunks XOR-
+// swizzled by the row (conflict-free 4-byte stores), then stored a 16-byte
+// chunk a thread, each row's chunks by consecutive threads: the fragments'
+// own stores write 16 bytes a row a warp, and took longer than the
+// products.  At hd 256 the staging's addresses beside o's 128 registers
+// spill, and the fragments store o themselves.
+template <int HD, bool K15>
+__device__ __forceinline__ void wide_store(const float (&o)[HD / 2],
+                                           float l_lo, float l_hi,
+                                           unsigned char* Qw, bf16* ob,
+                                           long long ld, int q0, int N,
+                                           int wt, int wg, bool live) {
+  constexpr bool STAGE_O = HD <= 192;
+  const int warp = wt >> 5, lane = wt & 31;
+  const int g = lane >> 2, t2 = (lane & 3) * 2;
+  if (live) {
+    // each row's l is spread over the four lanes of its quad
+#pragma unroll
+    for (int m = 1; m < 4; m <<= 1) {
+      l_lo += __shfl_xor_sync(0xffffffffu, l_lo, m);
+      l_hi += __shfl_xor_sync(0xffffffffu, l_hi, m);
+    }
+    const float inv_lo = __frcp_rn(l_lo), inv_hi = __frcp_rn(l_hi);
+    auto out = [&](float x, float l, float r) {
+      return K15 ? div_rn_by(x, l, r) : x * r;
+    };
+    const int r_lo = warp * 16 + g, r_hi = r_lo + 8;
+    const int n_lo = q0 + r_lo, n_hi = q0 + r_hi;
+#pragma unroll
+    for (int j = 0; j < HD / 8; ++j) {
+      if constexpr (STAGE_O) {
+        *reinterpret_cast<unsigned*>(
+            Qw + r_lo * HD * 2 + ((j ^ (r_lo & 7)) << 4) + t2 * 2) =
+            pack_bf16x2(out(o[4 * j], l_lo, inv_lo),
+                        out(o[4 * j + 1], l_lo, inv_lo));
+        *reinterpret_cast<unsigned*>(
+            Qw + r_hi * HD * 2 + ((j ^ (r_hi & 7)) << 4) + t2 * 2) =
+            pack_bf16x2(out(o[4 * j + 2], l_hi, inv_hi),
+                        out(o[4 * j + 3], l_hi, inv_hi));
+      } else {
+        const int col = j * 8 + t2;
+        if (n_lo < N)
+          store2(ob + n_lo * ld + col, out(o[4 * j], l_lo, inv_lo),
+                 out(o[4 * j + 1], l_lo, inv_lo));
+        if (n_hi < N)
+          store2(ob + n_hi * ld + col, out(o[4 * j + 2], l_hi, inv_hi),
+                 out(o[4 * j + 3], l_hi, inv_hi));
+      }
+    }
+  }
+  if constexpr (STAGE_O) {
+    wg_sync(wg);
+    for (int i = wt; i < 64 * (HD / 8); i += 128) {
+      const int r = i / (HD / 8), c = i % (HD / 8), n = q0 + r;
+      if (n < N)
+        *reinterpret_cast<uint4*>(ob + n * ld + c * 8) =
+            *reinterpret_cast<const uint4*>(Qw + r * HD * 2 +
+                                            ((c ^ (r & 7)) << 4));
+    }
+  }
+}
+
+template <int HD, bool K15>
+__global__ void __launch_bounds__(WIDE_THREADS, 1)
+attn_core_wide_kernel(const __grid_constant__ CUtensorMap map_q,
+                      const __grid_constant__ CUtensorMap map_k,
+                      const __grid_constant__ CUtensorMap map_v,
+                      const CoreArgs a) {
+  using L = WideLayout<HD>;
+  constexpr bool PIPE = HD <= 192;     // two score buffers
+  constexpr int KC = PIPE ? 64 : 32;   // keys a chunk
+  constexpr int DK = HD / 16;          // k16 steps of Q K^T
+  constexpr int NS = KC / 2;           // score accumulators a thread
+  constexpr int PS = KC / 16;          // k16 steps of P V a chunk
+  extern __shared__ unsigned char smem_raw[];
+  const int N = a.N, np = L::rows(N);
+  const int nkc = (N + KC - 1) / KC, nq = (N + 63) / 64;
+  unsigned char* Kt = align1024(smem_raw);
+  unsigned char* Vt = Kt + L::tile(N);
+  uint64_t* bar = reinterpret_cast<uint64_t*>(Kt + L::bar_offset(N));
+
+  const int b = blockIdx.x / a.H, h = blockIdx.x % a.H;
+  bf16* ob = a.o + b * a.so[0] + h * a.so[1];
+  const int tid = threadIdx.x, wg = tid >> 7, wt = tid & 127;
+  const int warp = wt >> 5, t2 = (tid & 3) * 2;
+  unsigned char* Qw = Kt + L::qw_offset(N) + wg * L::QW;
+  uint64_t* qbar = &bar[2 + wg];
+
+  // query tile qt's raw q rows into warpgroup (qt & 1)'s tile by TMA, in
+  // the 128-byte swizzle Q K^T reads (zeros past N)
+  auto issue_q = [&](int qt) {
+    unsigned char* dst = Kt + L::qw_offset(N) + (qt & 1) * L::QW;
+    uint64_t* qb = &bar[2 + (qt & 1)];
+    mbar_expect_tx(qb, L::QW);
+#pragma unroll
+    for (int c = 0; c < HD / 64; ++c)
+      tma_load_4d(dst + c * 64 * 128, &map_q, qb, 64 * c, qt * 64, h, b);
+  };
+  if (tid == 0) {
+    for (int i = 0; i < 4; ++i) mbar_init(&bar[i], 1);
+    mbar_init_fence();
+  }
+  __syncthreads();
+  if (tid == 0) {
+    // both warpgroups' first q tiles, then K, then V
+    for (int qt = 0; qt < 2 && qt < nq; ++qt) issue_q(qt);
+    for (int i = 0; i < 2; ++i) {
+      mbar_expect_tx(&bar[i], (HD / 64) * np * 128);
+#pragma unroll
+      for (int c = 0; c < HD / 64; ++c)
+        tma_load_4d((i ? Vt : Kt) + c * np * 128, i ? &map_v : &map_k,
+                    &bar[i], 64 * c, 0, h, b);
+    }
+  }
+  // K15 takes the scale rounded to bf16 first (as the staged kernel)
+  const float scale =
+      K15 ? __bfloat162float(__float2bfloat16_rn(a.scale)) : a.scale;
+
+  for (int qt = wg, it = 0; qt < nq; qt += 2, ++it) {
+    const bool live = qt * 64 + warp * 16 < N;     // the same for the warp
+    const bool first = qt == wg;
+    mbar_wait(qbar, it & 1);
+    wide_scale_q<HD>(Qw, wt, scale);
+    fence_proxy_async();           // q' visible to the tensor cores
+    wg_sync(wg);
+    if (first) mbar_wait(&bar[0], 0);              // K
+    float o[HD / 2];
+    float l_lo = 0.f, l_hi = 0.f;
+
+    // Q K^T of key chunk kc into s
+    auto qk = [&](float (&s)[NS], int kc) {
+#pragma unroll
+      for (int d = 0; d < DK; ++d)
+        wgmma_ss<KC>(s, desc_sw128(Qw + (d / 4) * 64 * 128 + (d % 4) * 32),
+                     desc_sw128(Kt + (d / 4) * np * 128 + kc * KC * 128 +
+                                (d % 4) * 32),
+                     d > 0);
+    };
+    // chunk kc's exps, l, and P V issued
+    auto exp_pv = [&](float (&s)[NS], int kc) {
+      unsigned pf[PS][4];
+      wide_exp<KC, K15, true>(s, pf, kc, N, np, t2, live, l_lo, l_hi);
+      if (first && kc == 0) mbar_wait(&bar[1], 0);  // V
+      wgmma_fence();
+#pragma unroll
+      for (int st = 0; st < PS; ++st) {
+        const int r = kc * KC + st * 16;
+        if (r < np)
+          wgmma_rs<HD, true>(o, pf[st], desc_sw128_mn(Vt + r * 128, np * 128),
+                             r > 0);
+      }
+      wgmma_commit();
+    };
+
+    if constexpr (PIPE) {
+      // chunk kc + 1's Q K^T issued before chunk kc's exps
+      float sa[NS], sb[NS];
+      auto chunk = [&](float (&s)[NS], float (&nxt)[NS], int kc) {
+        if (kc + 1 < nkc) {
+          wgmma_fence();
+          qk(nxt, kc + 1);
+          wgmma_commit();
+          wgmma_wait<1>();         // this chunk's scores (and P V before)
+        } else {
+          wgmma_wait<0>();
+        }
+        exp_pv(s, kc);
+      };
+      wgmma_fence();
+      qk(sa, 0);
+      wgmma_commit();
+      for (int kc = 0; kc < nkc; kc += 2) {
+        chunk(sa, sb, kc);
+        if (kc + 1 < nkc) chunk(sb, sa, kc + 1);
+      }
+    } else {
+      float s[NS];
+      for (int kc = 0; kc < nkc; ++kc) {
+        wgmma_fence();
+        qk(s, kc);
+        wgmma_commit();
+        wgmma_wait<0>();           // these scores, and the last P V
+        exp_pv(s, kc);
+      }
+    }
+    wgmma_wait<0>();
+    wide_store<HD, K15>(o, l_lo, l_hi, Qw, ob, a.so[2], qt * 64, N, wt, wg,
+                        live);
+    // the tile is free once every thread has read its rows: this
+    // warpgroup's next q tile
+    wg_sync(wg);
+    if (wt == 0 && qt + 2 < nq) {
+      fence_proxy_async();
+      issue_q(qt + 2);
+    }
+  }
+}
+
+template <int HD, bool K15>
+static cudaError_t launch_core_wide(const CoreArgs& a, int B,
+                                    cudaStream_t s) {
+  using L = WideLayout<HD>;
+  // K and V in one box a column block, q in 64-row tiles
+  CUtensorMap maps[2], map_q;
+  cudaError_t err = core_maps(a, B, HD, L::rows(a.N), maps);
+  if (err != cudaSuccess) return err;
+  err = head_map(&map_q, a.q, a.sq, a, B, HD, 64);
+  if (err != cudaSuccess) return err;
+  const int smem = L::smem_bytes(a.N);
+  err = cudaFuncSetAttribute(attn_core_wide_kernel<HD, K15>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             smem);
+  if (err != cudaSuccess) return err;
+  attn_core_wide_kernel<HD, K15><<<B * a.H, WIDE_THREADS, smem, s>>>(
+      map_q, maps[0], maps[1], a);
+  return cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// Head dims 192 and 256 past the N whose K and V fit the wide kernel (224
+// at hd 192, 160 at hd 256): the wide kernel's two warpgroups, each its own
+// 64-row query tile (a block the pair 2 x, 2 x + 1 of one (sample, head)),
+// walking the head's keys in 64-key tiles that TMA brings into a ring of
+// two stages (96 or 128 KB) shared by both: thread 0 refills a stage once
+// every warp of the block is past its P V.  The q tiles come by TMA with
+// the first key tiles and are scaled in place, as in the wide kernel; the
+// per-chunk math, order and chunk widths are the wide kernel's, so both
+// give the same bits (a ragged last tile's keys past N add exact zeros).
+// Both warpgroups wait for each stage, so they run in step: the exps of one
+// run beside the other's products, not a tile apart.
+template <int HD>
+struct WideRingLayout {
+  static constexpr int KT = CORE_STREAM_KEYS;               // keys a tile
+  static constexpr int KV = KT * HD * 2;                    // a K or V tile
+  static constexpr int STAGE = 2 * KV;
+  static constexpr int STAGES = 2;
+  static constexpr int RING = STAGES * STAGE;
+  static constexpr int QW = 64 * HD * 2;                    // a q' tile
+  static constexpr int SMEM = 1024 + RING + 2 * QW + (2 * STAGES + 2) * 8;
+};
+
+template <int HD, bool K15>
+__global__ void __launch_bounds__(WIDE_THREADS, 1)
+attn_core_wide_ring_kernel(const __grid_constant__ CUtensorMap map_q,
+                           const __grid_constant__ CUtensorMap map_k,
+                           const __grid_constant__ CUtensorMap map_v,
+                           const CoreArgs a) {
+  using L = WideRingLayout<HD>;
+  constexpr int KT = L::KT;
+  constexpr int KC = HD <= 192 ? 64 : 32;   // keys a chunk (the wide kernel's)
+  constexpr int CPT = KT / KC;              // chunks a tile
+  constexpr int DK = HD / 16;               // k16 steps of Q K^T
+  constexpr int NS = KC / 2;                // score accumulators a thread
+  constexpr int PS = KC / 16;               // k16 steps of P V a chunk
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* ring = align1024(smem_raw);
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + L::RING + 2 * L::QW);
+  uint64_t* empty = full + L::STAGES;
+  uint64_t* qbar = empty + L::STAGES;
+
+  const int N = a.N, nt = (N + KT - 1) / KT;
+  const int h = blockIdx.y, b = blockIdx.z;
+  bf16* ob = a.o + b * a.so[0] + h * a.so[1];
+  const int tid = threadIdx.x, wg = tid >> 7, wt = tid & 127;
+  const int warp = wt >> 5, lane = tid & 31, t2 = (lane & 3) * 2;
+  const int qt = 2 * blockIdx.x + wg;
+  const bool active = qt * 64 < N;                 // the same for the group
+  const bool live = active && qt * 64 + warp * 16 < N;
+  unsigned char* Qw = ring + L::RING + wg * L::QW;
+
+  // key tile i into stage i % STAGES: K, then V, in 64-column boxes
+  auto issue = [&](int i) {
+    const int st = i % L::STAGES;
+    unsigned char* dst = ring + st * L::STAGE;
+    mbar_expect_tx(&full[st], L::STAGE);
+#pragma unroll
+    for (int c = 0; c < HD / 64; ++c) {
+      tma_load_4d(dst + c * KT * 128, &map_k, &full[st], 64 * c, i * KT, h,
+                  b);
+      tma_load_4d(dst + L::KV + c * KT * 128, &map_v, &full[st], 64 * c,
+                  i * KT, h, b);
+    }
+  };
+  if (tid == 0) {
+    for (int st = 0; st < L::STAGES; ++st) {
+      mbar_init(&full[st], 1);                     // thread 0's arrive
+      mbar_init(&empty[st], WIDE_THREADS / 32);    // lane 0 of each warp
+    }
+    mbar_init(&qbar[0], 1);
+    mbar_init(&qbar[1], 1);
+    mbar_init_fence();
+  }
+  __syncthreads();
+  if (tid == 0) {
+    // the two q tiles (zeros past N), then the first key tiles
+    for (int w = 0; w < 2 && (2 * blockIdx.x + w) * 64 < N; ++w) {
+      mbar_expect_tx(&qbar[w], L::QW);
+#pragma unroll
+      for (int c = 0; c < HD / 64; ++c)
+        tma_load_4d(ring + L::RING + w * L::QW + c * 64 * 128, &map_q,
+                    &qbar[w], 64 * c, (2 * blockIdx.x + w) * 64, h, b);
+    }
+    for (int i = 0; i < nt && i < L::STAGES; ++i) issue(i);
+  }
+  // K15 takes the scale rounded to bf16 first (as the staged kernel)
+  const float scale =
+      K15 ? __bfloat162float(__float2bfloat16_rn(a.scale)) : a.scale;
+  if (active) {
+    mbar_wait(&qbar[wg], 0);
+    wide_scale_q<HD>(Qw, wt, scale);
+    fence_proxy_async();           // q' visible to the tensor cores
+    wg_sync(wg);
+  }
+  float o[HD / 2];
+  float l_lo = 0.f, l_hi = 0.f;
+
+  // tile i - 1's stage is free (every P V before this point is complete):
+  // each warp says so; thread 0 refills it with tile i - 1 + STAGES
+  auto release = [&](int i) {
+    const int prev = (i - 1) % L::STAGES;
+    if (lane == 0) mbar_arrive(&empty[prev]);
+    if (tid == 0 && i - 1 + L::STAGES < nt) {
+      mbar_wait(&empty[prev], ((i - 1) / L::STAGES) & 1);
+      issue(i - 1 + L::STAGES);
+    }
+  };
+  for (int i = 0; i < nt; ++i) {
+    const int st = i % L::STAGES;
+    mbar_wait(&full[st], (i / L::STAGES) & 1);
+    const unsigned char* Kt = ring + st * L::STAGE;
+    const unsigned char* Vt = Kt + L::KV;
+#pragma unroll
+    for (int cc = 0; cc < CPT; ++cc) {
+      const int kc = i * CPT + cc;                 // keys kc * KC ..
+      float s[NS];
+      if (active) {
+        wgmma_fence();
+#pragma unroll
+        for (int d = 0; d < DK; ++d)
+          wgmma_ss<KC>(s, desc_sw128(Qw + (d / 4) * 64 * 128 + (d % 4) * 32),
+                       desc_sw128(Kt + (d / 4) * KT * 128 + cc * KC * 128 +
+                                  (d % 4) * 32),
+                       d > 0);
+        wgmma_commit();
+      }
+      wgmma_wait<0>();             // these scores, and the last P V
+      if (cc == 0 && i > 0) release(i);
+      if (!active) continue;
+      // every key of the tile (TMA zero-fills past N; p is masked there)
+      unsigned pf[PS][4];
+      wide_exp<KC, K15, false>(s, pf, kc, N, 0, t2, live, l_lo, l_hi);
+      wgmma_fence();
+#pragma unroll
+      for (int st2 = 0; st2 < PS; ++st2)
+        wgmma_rs<HD, true>(o, pf[st2],
+                           desc_sw128_mn(Vt + (cc * KC + st2 * 16) * 128,
+                                         KT * 128),
+                           kc > 0 || st2 > 0);
+      wgmma_commit();
+    }
+  }
+  wgmma_wait<0>();
+  if (active)
+    wide_store<HD, K15>(o, l_lo, l_hi, Qw, ob, a.so[2], qt * 64, N, wt, wg,
+                        live);
+}
+
+template <int HD, bool K15>
+static cudaError_t launch_core_wide_ring(const CoreArgs& a, int B,
+                                         cudaStream_t s) {
+  using L = WideRingLayout<HD>;
+  CUtensorMap maps[2], map_q;
+  cudaError_t err = core_maps(a, B, HD, L::KT, maps);
+  if (err != cudaSuccess) return err;
+  err = head_map(&map_q, a.q, a.sq, a, B, HD, 64);
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(attn_core_wide_ring_kernel<HD, K15>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             L::SMEM);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((a.N + 127) / 128, a.H, B);
+  attn_core_wide_ring_kernel<HD, K15><<<grid, WIDE_THREADS, L::SMEM, s>>>(
+      map_q, maps[0], maps[1], a);
   return cudaGetLastError();
 }
 
@@ -557,53 +1069,53 @@ static cudaError_t launch_core_kc(const CoreArgs& a, int B, cudaStream_t s) {
 constexpr int CORE_SMEM_LIMIT = 232448;
 
 // the chunk width for N: the whole row (13 or 16 chunks of 16 keys) up to
-// 256 keys, else 64-key chunks; the ring once K and V do not fit
+// 256 keys, else 64-key chunks; the ring once K and V do not fit.  Head
+// dims 192 and 256: the wide kernel while K and V fit, else its ring.
 template <int HD, bool K15>
 static cudaError_t launch_attn_core(const CoreArgs& a, int B, cudaStream_t s) {
   if (a.N <= 0 || B <= 0 || a.H <= 0) return cudaErrorInvalidValue;
-  const int nc = (a.N + 15) / 16;
-  if (nc <= 13) return launch_core_kc<HD, 208, K15>(a, B, s);
-  if (nc <= 16) return launch_core_kc<HD, 256, K15>(a, B, s);
-  if (CoreLayout<HD, CORE_STREAM_KEYS>::smem_bytes(a.N) <= CORE_SMEM_LIMIT)
-    return launch_core_kc<HD, CORE_STREAM_KEYS, K15>(a, B, s);
-  return launch_core_ring<HD, K15>(a, B, s);
+  if constexpr (HD > 128) {
+    if (WideLayout<HD>::smem_bytes(a.N) <= CORE_SMEM_LIMIT)
+      return launch_core_wide<HD, K15>(a, B, s);
+    return launch_core_wide_ring<HD, K15>(a, B, s);
+  } else {
+    const int nc = (a.N + 15) / 16;
+    if (nc <= 13) return launch_core_kc<HD, 208, K15>(a, B, s);
+    if (nc <= 16) return launch_core_kc<HD, 256, K15>(a, B, s);
+    if (CoreLayout<HD, CORE_STREAM_KEYS>::smem_bytes(a.N) <= CORE_SMEM_LIMIT)
+      return launch_core_kc<HD, CORE_STREAM_KEYS, K15>(a, B, s);
+    return launch_core_ring<HD, K15>(a, B, s);
+  }
 }
 
-// The SIMT core (simt_core.cu) when the caller asks for it (``simt``: the
-// wrappers route the head dims the wgmma cores are not built for, 192 and
-// 256, there), else the wgmma core at head dims 64 and 128; either mode.
+template <int HD>
+static cudaError_t launch_core_hd(const CoreArgs& a, int B, bool k15,
+                                  cudaStream_t s) {
+  return k15 ? launch_attn_core<HD, true>(a, B, s)
+             : launch_attn_core<HD, false>(a, B, s);
+}
+
+// The wgmma core at head dims 64, 128, 192 and 256; either mode.
 static cudaError_t attn_core_strided(const CoreArgs& a, int B, int hd,
-                                     bool k15, bool simt, cudaStream_t s) {
-  if (simt) {
-    long long st[12];
-    for (int i = 0; i < 3; ++i) {
-      st[i] = a.sq[i];
-      st[3 + i] = a.sk[i];
-      st[6 + i] = a.sv[i];
-      st[9 + i] = a.so[i];
-    }
-    return static_cast<cudaError_t>(dyt_simt_core(a.q, a.k, a.v, a.o, st, B,
-                                                  a.N, a.H, hd, a.scale, 0,
-                                                  k15, nullptr, 0, 0, s));
+                                     bool k15, cudaStream_t s) {
+  switch (hd) {
+    case 64: return launch_core_hd<64>(a, B, k15, s);
+    case 128: return launch_core_hd<128>(a, B, k15, s);
+    case 192: return launch_core_hd<192>(a, B, k15, s);
+    case 256: return launch_core_hd<256>(a, B, k15, s);
+    default: return cudaErrorInvalidValue;
   }
-  if (hd == 64)
-    return k15 ? launch_attn_core<64, true>(a, B, s)
-               : launch_attn_core<64, false>(a, B, s);
-  if (hd == 128)
-    return k15 ? launch_attn_core<128, true>(a, B, s)
-               : launch_attn_core<128, false>(a, B, s);
-  return cudaErrorInvalidValue;
 }
 
 // The K1 mode on the raw qkv buffer [B, N, 3C] -> out [B, N, C].
 static cudaError_t attn_core(const bf16* qkv, bf16* out, int B, int N, int C,
-                             int H, float scale, bool simt, cudaStream_t s) {
+                             int H, float scale, cudaStream_t s) {
   if (H <= 0 || C % H) return cudaErrorInvalidValue;
   const long long hd = C / H, C3 = 3LL * C, rows = (long long)N * C3;
   const CoreArgs a{qkv, qkv + C, qkv + 2 * C, out,
                    {rows, hd, C3}, {rows, hd, C3}, {rows, hd, C3},
                    {(long long)N * C, hd, C}, N, H, scale};
-  return attn_core_strided(a, B, (int)hd, false, simt, s);
+  return attn_core_strided(a, B, (int)hd, false, s);
 }
 
 template <typename TX>
@@ -612,7 +1124,7 @@ static cudaError_t sublayer(const TX* x, const float* gamma, const float* beta,
                             const bf16* wproj, const float* bproj, TX* out,
                             float* xm32, bf16* ln_buf, bf16* qkv_buf,
                             bf16* attn_buf, int B, int N, int C, int H,
-                            float scale, bool simt, cudaStream_t s) {
+                            float scale, cudaStream_t s) {
   const int M = B * N;
   cudaError_t err = launch_layernorm_bf16<TX>(x, gamma, beta, ln_buf, M, C, s);
   if (err != cudaSuccess) return err;
@@ -622,7 +1134,7 @@ static cudaError_t sublayer(const TX* x, const float* gamma, const float* beta,
                                           nullptr, s);
   if (err != cudaSuccess) return err;
 
-  err = attn_core(qkv_buf, attn_buf, B, N, C, H, scale, simt, s);
+  err = attn_core(qkv_buf, attn_buf, B, N, C, H, scale, s);
   if (err != cudaSuccess) return err;
 
   return launch_gemm_nt<EPI_RESIDUAL, TX>(attn_buf, wproj, bproj, M, C, C,
@@ -634,25 +1146,24 @@ static cudaError_t sublayer(const TX* x, const float* gamma, const float* beta,
 extern "C" {
 
 // The bf16 attention core alone: qkv [B, N, 3C] -> out [B, N, C], both bf16
-// (the int8 sublayer chain of quant.cu runs it between its int8 GEMMs);
-// simt selects the SIMT core over the wgmma core (head dims 64, 128).
+// (the int8 sublayer chain of quant.cu runs it between its int8 GEMMs),
+// head dims 64, 128, 192 and 256.
 int dyt_attn_core(const void* qkv, void* out, int B, int N, int C, int H,
-                  float scale, int simt, void* stream) {
+                  float scale, void* stream) {
   return dyt::attn_core(static_cast<const dyt::bf16*>(qkv),
                         static_cast<dyt::bf16*>(out), B, N, C, H, scale,
-                        simt != 0, static_cast<cudaStream_t>(stream));
+                        static_cast<cudaStream_t>(stream));
 }
 
 // The attention core on strided bf16 q, k, v [B, H, N, hd] -> out (K1 with
 // k15 = 0, K15 with k15 = 1).  ``strides`` holds 12 element strides: batch,
 // head and row of q, k, v and out, in that order; hd has unit stride, and
 // every stride is a multiple of 8 elements (rows, heads and samples on 16
-// bytes: the ring's tensor maps need it).  hd 64 or 128 on the wgmma core,
-// or with simt any head dim of the SIMT core (64 to 256, a multiple of 64);
-// any N.  Returns a cudaError_t value.
+// bytes: the tensor maps need it).  hd 64, 128, 192 or 256; any N.
+// Returns a cudaError_t value.
 int dyt_mha_core(const void* q, const void* k, const void* v, void* out,
                  const long long* strides, int B, int N, int H, int hd,
-                 float scale, int k15, int simt, void* stream) {
+                 float scale, int k15, void* stream) {
   using dyt::bf16;
   dyt::CoreArgs a{static_cast<const bf16*>(q), static_cast<const bf16*>(k),
                   static_cast<const bf16*>(v), static_cast<bf16*>(out),
@@ -663,22 +1174,20 @@ int dyt_mha_core(const void* q, const void* k, const void* v, void* out,
     a.sv[i] = strides[6 + i];
     a.so[i] = strides[9 + i];
   }
-  return dyt::attn_core_strided(a, B, hd, k15 != 0, simt != 0,
+  return dyt::attn_core_strided(a, B, hd, k15 != 0,
                                 static_cast<cudaStream_t>(stream));
 }
 
 // x, out: [B, N, C] in the residual dtype (x_f32 selects fp32 over bf16);
 // gamma/beta/bqkv/bproj fp32; wqkv [3C, C], wproj [C, C] bf16; xm32 an
 // optional fp32 [B, N, C] copy of out; ln_buf [B*N, C], qkv_buf [B*N, 3C],
-// attn_buf [B*N, C] bf16 scratch; simt_core as dyt_attn_core's simt.
-// Returns a cudaError_t value.
+// attn_buf [B*N, C] bf16 scratch.  Returns a cudaError_t value.
 int dyt_attention_sublayer(const void* x, int x_f32, const float* gamma,
                            const float* beta, const void* wqkv,
                            const float* bqkv, const void* wproj,
                            const float* bproj, void* out, float* xm32,
                            void* ln_buf, void* qkv_buf, void* attn_buf, int B,
-                           int N, int C, int H, float scale, int simt_core,
-                           void* stream) {
+                           int N, int C, int H, float scale, void* stream) {
   using dyt::bf16;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   auto* wq = static_cast<const bf16*>(wqkv);
@@ -689,12 +1198,10 @@ int dyt_attention_sublayer(const void* x, int x_f32, const float* gamma,
   if (x_f32)
     return dyt::sublayer<float>(static_cast<const float*>(x), gamma, beta, wq,
                                 bqkv, wp, bproj, static_cast<float*>(out),
-                                xm32, lb, qb, ab, B, N, C, H, scale,
-                                simt_core != 0, s);
+                                xm32, lb, qb, ab, B, N, C, H, scale, s);
   return dyt::sublayer<bf16>(static_cast<const bf16*>(x), gamma, beta, wq,
                              bqkv, wp, bproj, static_cast<bf16*>(out), xm32,
-                             lb, qb, ab, B, N, C, H, scale, simt_core != 0,
-                             s);
+                             lb, qb, ab, B, N, C, H, scale, s);
 }
 
 const char* dyt_error_string(int err) {

@@ -63,10 +63,10 @@
 #include "q8_gemm.cuh"
 
 extern "C" int dyt_attn_core(const void* qkv, void* out, int B, int N, int C,
-                             int H, float scale, int simt, void* stream);
-extern "C" int dyt_simt_core_qkv(const void* qkv, void* out, int B, int N,
-                                 int C, int H, float scale, int t_f32,
-                                 int exact, void* stream);
+                             int H, float scale, void* stream);
+extern "C" int dyt_simt_core_exact(const float* qkv, float* out, int B,
+                                   int N, int C, int H, float scale,
+                                   void* stream);
 extern "C" int dyt_simt_core_q8(const void* qkv, void* out, void* scratch,
                                 int B, int N, int C, int H, float scale,
                                 int t_f32, void* stream);
@@ -702,8 +702,10 @@ static cudaError_t attn_core_q8(const bf16* qkv, bf16* out, int B, int N,
 // ``adtype``: the int8 GEMM's epilogue stores the fp32 qkv, the SIMT core
 // runs on it with its sums in float64, as the plain version's, so its fp32
 // output is row-quantized for proj into the plain version's codes).
-// ``simt_core`` selects the SIMT core's form of the core over the wgmma
-// core's: the caller decides, and an fp32 scratch takes the SIMT core only.
+// ``simt_core`` selects the SIMT core's int8-score form over K10's wgmma
+// form (attn_q8), and must be set with an fp32 scratch, which takes the SIMT
+// core's exact form (or its int8-score form) only; the caller decides.  A
+// bf16 scratch without int8 scores runs attention_sublayer.cu's wgmma core.
 // ``core_scratch`` holds the int8-score SIMT core's codes (attn_q8 with
 // simt_core).
 template <typename TX, typename TS>
@@ -731,16 +733,16 @@ static cudaError_t sublayer_q8(const TX* x, const float* gamma,
     err = static_cast<cudaError_t>(
         attn_q8 ? dyt_simt_core_q8(qkv_buf, attn_buf, core_scratch, B, N, C,
                                    H, scale, 1, s)
-                : dyt_simt_core_qkv(qkv_buf, attn_buf, B, N, C, H, scale, 1,
-                                    1, s));
+                : dyt_simt_core_exact(qkv_buf, attn_buf, B, N, C, H, scale,
+                                      s));
   } else if (attn_q8) {
     err = simt_core ? static_cast<cudaError_t>(dyt_simt_core_q8(
                           qkv_buf, attn_buf, core_scratch, B, N, C, H, scale,
                           0, s))
                     : attn_core_q8(qkv_buf, attn_buf, B, N, C, H, scale, s);
   } else {
-    err = static_cast<cudaError_t>(dyt_attn_core(
-        qkv_buf, attn_buf, B, N, C, H, scale, simt_core, s));
+    err = static_cast<cudaError_t>(
+        dyt_attn_core(qkv_buf, attn_buf, B, N, C, H, scale, s));
   }
   if (err != cudaSuccess) return err;
   err = launch_row_quant<TS>(attn_buf, a8, rs, M, C, nullptr, s);
@@ -875,7 +877,7 @@ int dyt_attn_core_q8(const void* qkv, void* out, int B, int N, int C, int H,
 // fp32; wqkv [3C, C], wproj [C, C] int8; xm32 an optional fp32 copy of out;
 // a8 [B*N, C] int8, rs [B*N] fp32, qkv_buf [B*N, 3C] and attn_buf [B*N, C]
 // scratch in bf16, or fp32 with scratch_f32; attn_q8 selects the K10 core,
-// simt_core the SIMT core's form of the core (set for fp32 scratch);
+// simt_core the SIMT core's form of it (set for fp32 scratch);
 // core_scratch dyt_simt_core_q8_scratch_bytes on 16 bytes with both, else
 // unused.  Returns a cudaError_t value.
 int dyt_attention_sublayer_q8(const void* x, int x_f32, const float* gamma,

@@ -2,7 +2,7 @@
 // and the SIMT forms of the tails at widths the wgmma tails do not take:
 //   * the fp32 attention sublayer chain, x + proj(core(qkv(LN(x)))) with
 //     fp32 weights: LN to fp32 rows, the fp32 GEMM (gemm_f32.cuh) for qkv
-//     (+ bias), the SIMT core (simt_core.cu) on the fp32 qkv, the fp32 GEMM
+//     (+ bias), the fp32 core (f32_core.cu) on the fp32 qkv, the fp32 GEMM
 //     for proj with the residual epilogue; the first four steps of K2, K3
 //     and K7 with fp32 weights (dynamic_tuning_tpu/ops/mha_serving.py::
 //     attention_sublayer_serving, dyt_prologue_serving,
@@ -34,9 +34,8 @@
 
 #include "gemm_f32.cuh"
 
-extern "C" int dyt_simt_core_qkv(const void* qkv, void* out, int B, int N,
-                                 int C, int H, float scale, int t_f32,
-                                 int exact, void* stream);
+extern "C" int dyt_f32_core_qkv(const float* qkv, float* out, int B, int N,
+                                int C, int H, float scale, void* stream);
 
 namespace dyt {
 
@@ -90,7 +89,7 @@ static cudaError_t sublayer_f32(const TX* x, const float* gamma,
       ln_buf, wqkv, M, 3 * C, C, GfBias<float>{bqkv, qkv_buf, 3 * C}, s);
   if (err != cudaSuccess) return err;
   err = static_cast<cudaError_t>(
-      dyt_simt_core_qkv(qkv_buf, attn_buf, B, N, C, H, scale, 1, 0, s));
+      dyt_f32_core_qkv(qkv_buf, attn_buf, B, N, C, H, scale, s));
   if (err != cudaSuccess) return err;
   return launch_gemm_f32<float, float, false>(
       attn_buf, wproj, M, C, C, GfResid<TX>{bproj, x, out, xm32, C}, s);
@@ -210,7 +209,7 @@ extern "C" {
 // selects fp32 over bf16); gamma/beta/bqkv/bproj fp32; wqkv [3C, C] and
 // wproj [C, C] fp32; xm32 an optional fp32 [B, N, C] copy of out; ln_buf
 // [B*N, C], qkv_buf [B*N, 3C] and attn_buf [B*N, C] fp32 scratch.  Head dim
-// C / H one the SIMT core takes.  Returns a cudaError_t value.
+// C / H one the fp32 core takes.  Returns a cudaError_t value.
 int dyt_attention_sublayer_f32(const void* x, int x_f32, const float* gamma,
                                const float* beta, const float* wqkv,
                                const float* bqkv, const float* wproj,

@@ -28,10 +28,15 @@ use) or raises: on an unsupported shape, dtype or layout, or on a failed build
 or launch.  There is no other path.  Each launch adds one to the wrapper's
 ``launches`` count and one to ``forms[form]``, the form it took (``form_of``):
 "bf16" (the wgmma kernels), "fp32" (fp32 weights or qkv: the fp32 GEMM of
-``csrc/gemm_f32.cuh``, the SIMT core of ``csrc/simt_core.cu``, the SIMT
-tails of ``csrc/simt_chain.cu``), "bf16+simt_core" (bf16 at head dim 192 or
-256, the SIMT core in bf16) and "bf16+simt_tail" (a bf16 adapter or MoE tail
-at a width the wgmma tails do not take, on the SIMT tail).
+``csrc/gemm_f32.cuh``, the register-tiled fp32 core of
+``csrc/f32_core.cu``, the SIMT tails of ``csrc/simt_chain.cu``),
+"bf16+wide_heads" (bf16 at head dim 192 or 256 on the wgmma core),
+"bf16+simt_core" (K9 and K10 at head dim 192 or 256: the SIMT core in bf16)
+and "+simt_tail" (a bf16 adapter or MoE tail at a width the wgmma tails do
+not take, on the SIMT tail).  ``core_of`` is the one table of which
+attention core each wrapper runs; each wrapper calls the entry of that core,
+and the one C entry with a choice of cores (the int8 chain's) follows the
+route the wrapper passes it.
 
 Weights are in torch's ``[out, in]`` layout, in the compute dtype (bf16 or
 fp32), cast once by the caller; the form follows their dtype, as the JAX
@@ -71,8 +76,9 @@ from dynamic_tuning_tpu_torch.ops import _build
 LN_EPS = 1e-6
 SMEM_PER_BLOCK = 232448          # H100: 227 KB of dynamic shared memory
 BF, F32 = torch.bfloat16, torch.float32
-WGMMA_HEAD_DIMS = (64, 128)      # the wgmma cores'
-CORE_HEAD_DIMS = (64, 128, 192, 256)     # with the SIMT core's
+CORE_HEAD_DIMS = (64, 128, 192, 256)     # every core's
+WIDE_HEAD_DIMS = (192, 256)      # fused by JAX ((2 hd) % 128 == 0); K9's and
+#                                  K10's wgmma kernels are built for 64, 128
 AR_WIDTHS = (16, 32, 48, 64, 96, 128)    # the wgmma adapter/router kernel's F
 #                                  (csrc's dyt_adapter_width_supported)
 MOE_MAX_W = 512                  # the wgmma MoE tail's largest E * b
@@ -325,22 +331,60 @@ def compute_dtype(*weights: torch.Tensor) -> torch.dtype:
     return dt
 
 
-def simt_core(dtype, hd: int) -> bool:
-    """Whether the attention core runs on the SIMT core: in fp32, and at a
-    head dim the wgmma cores are not built for.  The wrappers decide here
-    and pass the route to the C entry points, which follow it."""
-    return dtype == F32 or hd not in WGMMA_HEAD_DIMS
+CORE_KERNELS = ("K1", "K2", "K3", "K5", "K6", "K7", "K8", "K9", "K10",
+                "K15")
 
 
-def form_of(dtype, hd: int | None = None, simt_tail: bool = False) -> str:
+def core_of(kernel: str, dtype, hd: int, *, attn_q8: bool = False,
+            q8_fits: bool = True) -> str:
+    """The attention core that a launch of ``kernel`` runs on operands
+    (q, k, v) of ``dtype`` at head dim ``hd``: the wrappers route by this
+    table alone and pass the route to the C entry points, which follow it.
+
+    * "wgmma": ``attention_sublayer.cu``'s core (staged, or its ring past
+      the staged N) -- bf16 K1, K15 and the cores of K2, K3, K7 and of K5,
+      K6, K8 without int8 scores, at every head dim;
+    * "windowed": ``windowed_attention.cu`` -- bf16 K9 at head dims 64, 128;
+    * "q8": ``quant.cu``'s int8-score wgmma core -- bf16 K10 (and K5, K6, K8
+      with ``attn_q8``) at head dims 64, 128 where its layout fits a block
+      (``q8_fits``);
+    * "simt": ``simt_core.cu`` in bf16 -- K9 at head dims 192, 256;
+    * "simt_q8": the SIMT core's int8-score form -- the rest of K10's;
+    * "f32": ``f32_core.cu``'s register-tiled fp32 core -- fp32 K1, K9 and
+      the cores of K2, K3, K7;
+    * "f32_exact": the SIMT core with float64 sums -- K6, K8 with an fp32
+      qkv scratch (fp32 adapters), whose core output is requantized.
+
+    ``dtype`` is the core's: qkv's, the weights' for K2/K3/K7, the qkv
+    scratch's for K5/K6/K8.  K15 takes bf16 only, and so does K5, whose
+    scratch is bf16 whatever x's dtype (the TPU kernel's)."""
+    if kernel not in CORE_KERNELS:
+        raise ValueError(f"{kernel} runs no attention core")
+    check_core_head_dim(hd)
+    if dtype not in (BF, F32) or (kernel in ("K5", "K15") and dtype != BF):
+        raise TypeError(f"{kernel} takes no {dtype} on the card")
+    if kernel == "K10" or (attn_q8 and kernel in ("K5", "K6", "K8")):
+        return ("q8" if dtype == BF and hd not in WIDE_HEAD_DIMS and q8_fits
+                else "simt_q8")
+    if kernel == "K9":
+        if dtype == F32:
+            return "f32"
+        return "simt" if hd in WIDE_HEAD_DIMS else "windowed"
+    if dtype == F32:
+        return "f32_exact" if kernel in ("K6", "K8") else "f32"
+    return "wgmma"
+
+
+def form_of(dtype, hd: int | None = None, simt_tail: bool = False,
+            core: str = "wgmma") -> str:
     """The form a wrapper takes (its ``forms`` key): "fp32", or "bf16" with
-    "+simt_core" at a head dim the wgmma cores do not take and
-    "+simt_tail" for a tail on the SIMT form."""
+    "+wide_heads" at head dim 192 or 256 ("+simt_core" there when ``core``
+    is the SIMT core's) and "+simt_tail" for a tail on the SIMT form."""
     if dtype == F32:
         return "fp32"
     form = "bf16"
-    if hd is not None and simt_core(dtype, hd):
-        form += "+simt_core"
+    if hd in WIDE_HEAD_DIMS:
+        form += "+simt_core" if core in ("simt", "simt_q8") else "+wide_heads"
     return form + "+simt_tail" if simt_tail else form
 
 
@@ -388,11 +432,10 @@ def _launch_sublayer(lib, x, gamma, beta, wqkv, bqkv, wproj, bproj, heads,
             _ptr(wqkv), _ptr(bqkv), _ptr(wproj), _ptr(bproj), _ptr(out),
             _ptr(xm32), _ptr(ln_buf), _ptr(qkv_buf), _ptr(attn_buf), B, N,
             C, heads, (C // heads) ** -0.5)
-    if dt == F32:                         # the SIMT core throughout
+    if dt == F32:                         # the fp32 core throughout
         err = lib.dyt_attention_sublayer_f32(*args, stream)
-    else:
-        err = lib.dyt_attention_sublayer(
-            *args, int(simt_core(dt, C // heads)), stream)
+    else:                                 # the wgmma core at every head dim
+        err = lib.dyt_attention_sublayer(*args, stream)
     _build.check(lib, err, "attention sublayer kernels")
     return out
 
@@ -655,8 +698,9 @@ def mha_windowed_fused(qkv: torch.Tensor, bias: torch.Tensor, *,
 
     The bias may be fp32 or bf16 (it is rounded to bf16 either way); on
     CUDA qkv is bf16 or fp32 and contiguous, head_dim 64, 128, 192 or 256:
-    bf16 at 64 and 128 on the wgmma kernel, the rest on the SIMT core with
-    the bf16 bias upcast at the score add."""
+    bf16 at 64 and 128 on the wgmma kernel, at 192 and 256 on the SIMT
+    core, fp32 on the fp32 core, the bf16 bias upcast at the score add
+    (``core_of``)."""
     if qkv.device.type == "cpu":
         return mha_windowed_plain(qkv, bias, heads=heads)
     if qkv.device.type != "cuda":
@@ -669,20 +713,19 @@ def mha_windowed_fused(qkv: torch.Tensor, bias: torch.Tensor, *,
     if C % heads:
         raise ValueError(f"C={C} is not a multiple of heads={heads}")
     hd = C // heads
-    check_core_head_dim(hd)
     _require(qkv, "qkv", (B, N, C3), (BF, F32), qkv.device)
+    core = core_of("K9", qkv.dtype, hd)
     if qkv.data_ptr() % 16:
         raise ValueError("qkv must start on 16 bytes")
     if tuple(bias.shape) != (heads, N, N) or bias.device != qkv.device:
         raise ValueError(f"bias has shape {tuple(bias.shape)} on "
                          f"{bias.device}, want {(heads, N, N)} on "
                          f"{qkv.device}")
-    form = form_of(qkv.dtype, hd)
     lib = _build.library()
     with torch.cuda.device(qkv.device):
         bias = _windowed_bias(bias, heads, N)
         out = torch.empty((B, N, C), dtype=qkv.dtype, device=qkv.device)
-        if form == "bf16":
+        if core == "windowed":
             err = lib.dyt_mha_windowed(
                 _ptr(qkv), _ptr(bias), _ptr(out), B, N, C, heads,
                 bias.stride(0), bias.stride(1), hd ** -0.5,
@@ -690,9 +733,10 @@ def mha_windowed_fused(qkv: torch.Tensor, bias: torch.Tensor, *,
             _build.check(lib, err, "windowed attention kernel")
         else:
             q, k, v = qkv.view(B, N, 3, heads, hd).permute(2, 0, 3, 1, 4)
-            _launch_simt_core(q, k, v,
-                              out.view(B, N, heads, hd).transpose(1, 2), bias)
-    counted(mha_windowed_fused, form)
+            o = out.view(B, N, heads, hd).transpose(1, 2)
+            launch = _launch_f32_core if core == "f32" else _launch_simt_core
+            launch(q, k, v, o, bias)
+    counted(mha_windowed_fused, form_of(qkv.dtype, hd, core=core))
     return out
 
 
@@ -745,11 +789,12 @@ def _check_core_operand(t: torch.Tensor, name: str, device,
 
 
 def check_core_head_dim(hd: int) -> None:
-    """Raise unless the attention cores take head_dim ``hd``: the wgmma
-    cores 64 and 128 (bf16), the SIMT core also 192 and 256 (and every one
-    of them in fp32).  They take any N: past the N whose keys and values
-    fit a block's shared memory the wgmma core walks them through a ring of
-    tiles, the SIMT core always walks them in tiles."""
+    """Raise unless the attention cores take head_dim ``hd``: 64, 128, 192
+    or 256, in bf16 and in fp32 (``core_of`` says which core; the one
+    place this refusal is made).  They take any N: past the N whose keys
+    and values fit a block's shared memory the wgmma core walks them
+    through a ring of tiles, the SIMT and fp32 cores always walk them in
+    tiles."""
     if hd not in CORE_HEAD_DIMS:
         raise ValueError(f"head_dim {hd} not supported (64, 128, 192 or "
                          "256)")
@@ -757,34 +802,48 @@ def check_core_head_dim(hd: int) -> None:
 
 def _launch_core(q, k, v, out, *, k15: bool) -> None:
     """The strided core on bf16 q, k, v [B, H, N, hd] into ``out``: the
-    wgmma core at head dims 64 and 128, the SIMT core at 192 and 256."""
+    wgmma core at every head dim (``core_of``)."""
     B, H, N, hd = q.shape
-    check_core_head_dim(hd)
     lib = _build.library()
     with torch.cuda.device(q.device):
         err = lib.dyt_mha_core(
             _ptr(q), _ptr(k), _ptr(v), _ptr(out),
             _build.strides_arg(q, k, v, out), B, N, H, hd, hd ** -0.5,
-            int(k15), int(simt_core(BF, hd)),
-            torch.cuda.current_stream(q.device).cuda_stream)
+            int(k15), torch.cuda.current_stream(q.device).cuda_stream)
         _build.check(lib, err, "attention core kernel")
 
 
+def _bias_args(bias):
+    return (_ptr(bias), 0 if bias is None else bias.stride(0),
+            0 if bias is None else bias.stride(1))
+
+
 def _launch_simt_core(q, k, v, out, bias=None) -> None:
-    """The SIMT core (K1's rounding) on strided q, k, v [B, H, N, hd] of one
-    dtype (bf16 or fp32) into ``out``, with an optional bf16 ``bias``
-    [H, N, N] of unit column stride."""
+    """The SIMT core (K1's rounding) on strided bf16 q, k, v [B, H, N, hd]
+    into ``out``, with an optional bf16 ``bias`` [H, N, N] of unit column
+    stride: K9 at head dims 192 and 256."""
     B, H, N, hd = q.shape
     lib = _build.library()
     with torch.cuda.device(q.device):
         err = lib.dyt_simt_core(
             _ptr(q), _ptr(k), _ptr(v), _ptr(out),
             _build.strides_arg(q, k, v, out), B, N, H, hd, hd ** -0.5,
-            int(q.dtype == F32), 0, _ptr(bias),
-            0 if bias is None else bias.stride(0),
-            0 if bias is None else bias.stride(1),
-            torch.cuda.current_stream(q.device).cuda_stream)
+            *_bias_args(bias), torch.cuda.current_stream(q.device).cuda_stream)
         _build.check(lib, err, "SIMT attention core")
+
+
+def _launch_f32_core(q, k, v, out, bias=None) -> None:
+    """The register-tiled fp32 core (K1's rounding) on strided fp32 q, k, v
+    [B, H, N, hd] into ``out``, with an optional bf16 ``bias`` [H, N, N] of
+    unit column stride."""
+    B, H, N, hd = q.shape
+    lib = _build.library()
+    with torch.cuda.device(q.device):
+        err = lib.dyt_f32_core(
+            _ptr(q), _ptr(k), _ptr(v), _ptr(out),
+            _build.strides_arg(q, k, v, out), B, N, H, hd, hd ** -0.5,
+            *_bias_args(bias), torch.cuda.current_stream(q.device).cuda_stream)
+        _build.check(lib, err, "fp32 attention core")
 
 
 def _cuda_only(t: torch.Tensor, name: str) -> None:
@@ -797,11 +856,11 @@ def mha_serving(q: torch.Tensor, k: torch.Tensor,
                 v: torch.Tensor) -> torch.Tensor:
     """K15: q, k, v ``[B, H, N, hd]`` -> ``[B, H, N, hd]`` in q's dtype.
 
-    On CUDA: bf16, head_dim 64 or 128 (the wgmma core) or 192 or 256 (the
-    SIMT core), any views with unit stride along hd and rows on 16 bytes
-    (such as the q, k, v views of a raw ``[B, N, 3C]`` qkv buffer).  The output is allocated ``[B, N, H, hd]`` and returned as
-    its ``[B, H, N, hd]`` view, so ``.transpose(1, 2).reshape(B, N, C)``
-    copies nothing."""
+    On CUDA: bf16, head_dim 64, 128, 192 or 256 (the wgmma core), any views
+    with unit stride along hd and rows on 16 bytes (such as the q, k, v
+    views of a raw ``[B, N, 3C]`` qkv buffer).  The output is allocated
+    ``[B, N, H, hd]`` and returned as its ``[B, H, N, hd]`` view, so
+    ``.transpose(1, 2).reshape(B, N, C)`` copies nothing."""
     if q.device.type == "cpu":
         return mha_serving_plain(q, k, v)
     _cuda_only(q, "q")
@@ -814,6 +873,7 @@ def mha_serving(q: torch.Tensor, k: torch.Tensor,
     for name, t in (("q", q), ("k", k), ("v", v)):
         _check_core_operand(t, name, q.device)
     B, H, N, hd = q.shape
+    core_of("K15", q.dtype, hd)
     out = torch.empty((B, N, H, hd), dtype=torch.bfloat16,
                       device=q.device).transpose(1, 2)
     _launch_core(q, k, v, out, k15=True)
@@ -829,7 +889,7 @@ def mha_serving_fused(qkv: torch.Tensor, *, heads: int,
     contract (``group`` divides ``heads``, ``group * hd`` a multiple of 128)
     raises ValueError here too, and one kernel runs whatever the group.  On
     CUDA qkv is bf16 or fp32 and contiguous, head_dim 64, 128, 192 or 256:
-    bf16 at 64 and 128 on the wgmma core, the rest on the SIMT core."""
+    bf16 on the wgmma core, fp32 on the fp32 core (``core_of``)."""
     if qkv.dim() != 3 or qkv.shape[-1] % 3:
         raise ValueError(f"qkv must be [B, N, 3C], got {tuple(qkv.shape)}")
     B, N, C3 = qkv.shape
@@ -845,15 +905,15 @@ def mha_serving_fused(qkv: torch.Tensor, *, heads: int,
         return attn_core_pairs(qkv, heads=heads)
     _cuda_only(qkv, "qkv")
     _require(qkv, "qkv", (B, N, C3), (BF, F32), qkv.device)
-    check_core_head_dim(hd)
+    core = core_of("K1", qkv.dtype, hd)
     q, k, v = qkv.view(B, N, 3, heads, hd).permute(2, 0, 3, 1, 4)
     out = torch.empty((B, N, C), dtype=qkv.dtype, device=qkv.device)
     _check_core_operand(q, "qkv", qkv.device, (BF, F32))
     o = out.view(B, N, heads, hd).transpose(1, 2)
-    if qkv.dtype == BF:
-        _launch_core(q, k, v, o, k15=False)
+    if core == "f32":
+        _launch_f32_core(q, k, v, o)
     else:
-        _launch_simt_core(q, k, v, o)
+        _launch_core(q, k, v, o, k15=False)
     counted(mha_serving_fused, form_of(qkv.dtype, hd))
     return out
 

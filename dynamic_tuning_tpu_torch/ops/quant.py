@@ -41,14 +41,14 @@ are those of the TPU kernels:
   2**24), then ``(acc * row_scale) * col_scale``, then the bias;
 * K5's qkv and core output are rounded to bf16 whatever x's dtype; K6's
   and K8's follow the adapter dtype (fp32 adapters: an fp32 scratch from the
-  int8 GEMM's epilogue, the SIMT core, the SIMT tail); ``x_mid = (x + proj)
-  + b``;
+  int8 GEMM's epilogue, the SIMT core's exact form, the SIMT tail);
+  ``x_mid = (x + proj) + b``;
 * K10: q scaled in fp32 and quantized per head row; k centred by its lane
   mean over the N tokens and quantized per row of a HEAD PAIR (the TPU's
   128-lane row), so one k scale covers heads 2p and 2p+1; P.V in the
   scratch dtype (bf16 e and v, or fp32).  bf16 at head dims 64 and 128 on
   the wgmma core, fp32 and the head dims 192 and 256 on the SIMT core's
-  int8-score form.
+  int8-score form (``mha_serving.core_of``).
 
 Each launch also adds one to the wrapper's ``forms[form]``
 (``mha_serving.form_of``).
@@ -442,13 +442,14 @@ def q8_dispatch_mlp(x, scores, gamma, beta, w1q, s1, b1, w2q, s2, b2, *,
 q8_dispatch_mlp.launches = 0
 
 
-def _core_q8_route(lib, N, C, heads, dtype) -> str:
-    """"wgmma" for bf16 at head dims 64 and 128 where K10's layout fits a
-    block, else "simt" (the SIMT core's int8-score form)."""
+def _core_q8_route(lib, N, C, heads, dtype, kernel="K10") -> str:
+    """K10's core (``ms.core_of``): "q8" for bf16 at head dims 64 and 128
+    where its layout fits a block, else "simt_q8" (the SIMT core's
+    int8-score form)."""
     hd = C // heads
     smem = lib.dyt_attn_core_q8_smem_bytes(N, hd)
-    return ("wgmma" if dtype == BF and 0 < smem <= ms.SMEM_PER_BLOCK
-            else "simt")
+    return ms.core_of(kernel, dtype, hd, attn_q8=True,
+                      q8_fits=0 < smem <= ms.SMEM_PER_BLOCK)
 
 
 def _check_core_q8(N, C, heads) -> None:
@@ -477,7 +478,8 @@ def attn_core_pairs_q8(qkv: torch.Tensor, *, heads: int) -> torch.Tensor:
     dev = qkv.device
     with torch.cuda.device(dev):
         out = torch.empty((B, N, C), dtype=qkv.dtype, device=dev)
-        if _core_q8_route(lib, N, C, heads, qkv.dtype) == "wgmma":
+        core = _core_q8_route(lib, N, C, heads, qkv.dtype)
+        if core == "q8":
             err = lib.dyt_attn_core_q8(_ptr(qkv), _ptr(out), B, N, C, heads,
                                        (C // heads) ** -0.5, _stream(dev))
         else:
@@ -486,7 +488,8 @@ def attn_core_pairs_q8(qkv: torch.Tensor, *, heads: int) -> torch.Tensor:
                                        B, N, C, heads, (C // heads) ** -0.5,
                                        int(qkv.dtype == F32), _stream(dev))
         _build.check(lib, err, "int8 attention core")
-    ms.counted(attn_core_pairs_q8, ms.form_of(qkv.dtype, C // heads))
+    ms.counted(attn_core_pairs_q8,
+               ms.form_of(qkv.dtype, C // heads, core=core))
     return out
 
 
@@ -512,9 +515,10 @@ def _check_sublayer_q8(x, gamma, beta, wqkv_q, sqkv, bqkv, wproj_q, sproj,
 
 
 def _launch_sublayer_q8(lib, x, gamma, beta, wqkv_q, sqkv, bqkv, wproj_q,
-                        sproj, bproj, heads, attn_q8, xm32, scratch=BF):
+                        sproj, bproj, heads, attn_q8, xm32, scratch=BF,
+                        kernel="K5"):
     """K5's chain with its qkv and core-output scratch in ``scratch`` (bf16,
-    or fp32 for fp32 adapters)."""
+    or fp32 for fp32 adapters); returns (out, the core it ran)."""
     B, N, C = x.shape
     M, dev = B * N, x.device
     out = torch.empty_like(x)
@@ -522,10 +526,11 @@ def _launch_sublayer_q8(lib, x, gamma, beta, wqkv_q, sqkv, bqkv, wproj_q,
     rs = torch.empty((M,), dtype=F32, device=dev)
     qkv = torch.empty((M, 3 * C), dtype=scratch, device=dev)
     attn = torch.empty((M, C), dtype=scratch, device=dev)
-    # the route decided here and passed down: the int8-score core where
-    # K10's layout does not fit (or in fp32), else the core of ms.simt_core
-    simt = (_core_q8_route(lib, N, C, heads, scratch) == "simt" if attn_q8
-            else ms.simt_core(scratch, C // heads))
+    # the route decided here (ms.core_of) and passed down: a SIMT form of
+    # the core (the int8-score form, or the exact fp32 core) or a wgmma one
+    core = (_core_q8_route(lib, N, C, heads, scratch, kernel) if attn_q8
+            else ms.core_of(kernel, scratch, C // heads))
+    simt = core in ("simt_q8", "f32_exact")
     core_scratch = (_core_scratch(lib, B, N, C, heads, dev)
                     if attn_q8 and simt else None)
     err = lib.dyt_attention_sublayer_q8(
@@ -536,8 +541,9 @@ def _launch_sublayer_q8(lib, x, gamma, beta, wqkv_q, sqkv, bqkv, wproj_q,
         (C // heads) ** -0.5, int(attn_q8), int(simt), _stream(dev))
     _build.check(lib, err, "int8 attention sublayer kernels")
     if attn_q8:
-        ms.counted(attn_core_pairs_q8, ms.form_of(scratch, C // heads))
-    return out
+        ms.counted(attn_core_pairs_q8,
+                   ms.form_of(scratch, C // heads, core=core))
+    return out, core
 
 
 def attention_sublayer_serving_q8(x, gamma, beta, wqkv_q, sqkv, bqkv,
@@ -554,10 +560,11 @@ def attention_sublayer_serving_q8(x, gamma, beta, wqkv_q, sqkv, bqkv,
     lib = _check_sublayer_q8(x, gamma, beta, wqkv_q, sqkv, bqkv, wproj_q,
                              sproj, bproj, heads, attn_q8)
     with torch.cuda.device(x.device):
-        out = _launch_sublayer_q8(lib, x, gamma, beta, wqkv_q, sqkv, bqkv,
-                                  wproj_q, sproj, bproj, heads, attn_q8, None)
+        out, core = _launch_sublayer_q8(lib, x, gamma, beta, wqkv_q, sqkv,
+                                        bqkv, wproj_q, sproj, bproj, heads,
+                                        attn_q8, None)
     ms.counted(attention_sublayer_serving_q8,
-               ms.form_of(BF, x.shape[-1] // heads))
+               ms.form_of(BF, x.shape[-1] // heads, core=core))
     return out
 
 
@@ -580,15 +587,15 @@ def dyt_prologue_serving_q8(x, gamma, beta, wqkv_q, sqkv, bqkv, wproj_q,
                             wsel, bsel, with_select)
     with torch.cuda.device(x.device):
         xm32 = ms._xm32(x)
-        x_mid = _launch_sublayer_q8(lib, x, gamma, beta, wqkv_q, sqkv, bqkv,
-                                    wproj_q, sproj, bproj, heads, attn_q8,
-                                    xm32, wdown.dtype)
+        x_mid, core = _launch_sublayer_q8(
+            lib, x, gamma, beta, wqkv_q, sqkv, bqkv, wproj_q, sproj, bproj,
+            heads, attn_q8, xm32, wdown.dtype, "K6")
         outs = ms.launch_adapter_router(
             lib, x_mid, x_mid if xm32 is None else xm32, wdown, bdown, wup,
             bup, adapter_scale, wsel, bsel, with_select)
     ms.counted(dyt_prologue_serving_q8,
                ms.form_of(wdown.dtype, x.shape[-1] // heads,
-                          ms._adapter_tail(wdown) == "simt"))
+                          ms._adapter_tail(wdown) == "simt", core))
     return outs
 
 
@@ -614,15 +621,15 @@ def dyt_prologue_serving_q8_moe(x, gamma, beta, wqkv_q, sqkv, bqkv, wproj_q,
                                        with_select)
     with torch.cuda.device(x.device):
         xm32 = ms._xm32(x)
-        x_mid = _launch_sublayer_q8(lib, x, gamma, beta, wqkv_q, sqkv, bqkv,
-                                    wproj_q, sproj, bproj, heads, attn_q8,
-                                    xm32, wdown2d.dtype)
+        x_mid, core = _launch_sublayer_q8(
+            lib, x, gamma, beta, wqkv_q, sqkv, bqkv, wproj_q, sproj, bproj,
+            heads, attn_q8, xm32, wdown2d.dtype, "K8")
         outs = ms.launch_moe_adapter_router(
             lib, x_mid, x_mid if xm32 is None else xm32, wrouter, wdown2d,
             bdown2d, wup2d, bup, adapter_scale, wsel, bsel, tau, with_select)
     ms.counted(dyt_prologue_serving_q8_moe,
                ms.form_of(wdown2d.dtype, x.shape[-1] // heads,
-                          tail == "simt"))
+                          tail == "simt", core))
     return outs
 
 

@@ -4,14 +4,16 @@
     python -m dynamic_tuning_tpu_torch.speed --quant int8 --mode dispatch
     python -m dynamic_tuning_tpu_torch.speed --moe_experts 4 --mode dispatch
 
-Same flags and defaults as ``speed.py``: ViT-B/16 at 224^2, batch 128, bf16
+The flags and defaults of ``speed.py``: ViT-B/16 at 224^2, batch 128, bf16
 compute and residual stream (``--compute_dtype float32`` for fp32 compute:
 the hand kernels' fp32 forms), tanh GELU, ``--mode dispatch|mask|dense|plain``
 (capacity dispatch; eval mask; the DyT model in complete_model mode; the
 plain ViT without adapter or router), ``--quant none|int8|int8_attn`` (W8A8
 serving in every mode, the plain ViT included), ``--moe_experts N`` (the
 MoE-enhanced adapter of N experts of width ``--ffn_num``, router
-temperature ``--moe_router_tau``; no effect in plain mode).  Weights are random from
+temperature ``--moe_router_tau``; no effect in plain mode), ``--num_heads``
+(ViT-B/16's 768 channels in 12 heads of 64, or 4 of 192, a head dim the
+JAX package fuses too).  Weights are random from
 ``--seed`` unless ``--ckpt``/``--finetune`` names a ``.pth``.  Prints the
 same JSON line as ``speed.py``; the card it ran on goes to stderr.  Needs a
 CUDA device.
@@ -46,6 +48,7 @@ def get_args_parser():
     p.add_argument("--batch_size", default=128, type=int)
     p.add_argument("--nb_classes", default=100, type=int)
     p.add_argument("--ffn_num", default=64, type=int)
+    p.add_argument("--num_heads", default=12, type=int)
     p.add_argument("--moe_experts", default=0, type=int,
                    help="MoE adapter of N experts when N > 1 (ignored in "
                         "plain mode)")
@@ -116,7 +119,8 @@ def build_model(args, device, state_dict=None) -> VisionTransformer:
                               moe_experts=args.moe_experts,
                               moe_router_tau=args.moe_router_tau)
     model = VisionTransformer(
-        ModelConfig(num_classes=args.nb_classes, gelu_approx=args.gelu_approx,
+        ModelConfig(num_classes=args.nb_classes, num_heads=args.num_heads,
+                    gelu_approx=args.gelu_approx,
                     residual_dtype=args.residual_dtype, quant=args.quant),
         tuning=tuning, select=sel, dtype=_DTYPES[args.compute_dtype],
         generator=torch.Generator().manual_seed(args.seed + 1))

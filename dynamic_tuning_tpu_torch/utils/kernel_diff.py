@@ -1,15 +1,20 @@
-"""The int8 attention core (K10) and the dense adapter/router kernel of this
-tree against the same kernels of another checkout, bit for bit.
+"""The bf16 attention core (K1, K15) at head dims 64 and 128, the int8
+attention core (K10) and the dense adapter/router kernel of this tree
+against the same kernels of another checkout, bit for bit.
 
     python -m dynamic_tuning_tpu_torch.utils.kernel_diff OTHER_TREE
 
 OTHER_TREE is the root of another checkout of the repository (the parent
 commit unpacked with ``git archive``, say).  Its kernels are built from its
 own sources by its own ``ops/_build.py`` and called through their C entries
-(K10's with or without the k-code scratch of the earlier form, as that
-tree's signature table says); this tree's through its wrappers.  Over the
-cases below, which ``tests/test_torch_port_cuda.py`` also holds against the
-plain versions -- K10 at every N of ``CORE_Q8_N`` at head dims 64 and 128
+(K10's with or without the k-code scratch of the earlier form, the core's
+with or without the earlier form's SIMT flag, as that tree's signature
+table says); this tree's through its wrappers (the core through its C
+entry, ``dyt_mha_core``, in both).  Over the cases below,
+which ``tests/test_torch_port_cuda.py`` also holds against the plain
+versions -- the core in both modes at every shape of ``CORE`` (the staged
+kernel whole-row and in 64-key chunks, the ring past the staged N), K10 at
+every N of ``CORE_Q8_N`` at head dims 64 and 128
 and on the adversarial head pair, the adapter/router at every M x C x F of
 ``AR_M``, ``AR_C``, ``AR_F`` in bf16 and fp32 out, with and without the
 router -- it prints, per kernel, how many output elements differ and by how
@@ -30,6 +35,9 @@ from pathlib import Path
 
 import torch
 
+CORE = ((2, 19, 2, 64), (32, 197, 12, 64), (2, 197, 2, 128),
+        (2, 256, 2, 64), (2, 209, 2, 128), (2, 300, 2, 64), (1, 864, 2, 64),
+        (1, 865, 2, 64), (1, 417, 2, 128), (2, 901, 12, 64))
 CORE_Q8_N = (1, 17, 64, 65, 197, 256, 257, 442, 511, 512)
 AR_M = (1, 63, 64, 129, 25216)
 AR_C = (64, 128, 768, 1024)
@@ -121,6 +129,12 @@ def other_core_q8(other, sigs, qkv, out, H, stream) -> int:
         N, C, H, (C // H) ** -0.5, stream)
 
 
+def core_mode(sigs, k15) -> tuple:
+    """``dyt_mha_core``'s arguments after the scale: the mode, then the
+    earlier form's SIMT flag (0, the wgmma core) where the entry takes it."""
+    return (k15, 0) if len(sigs["dyt_mha_core"]) == 13 else (k15,)
+
+
 class Tally:
     def __init__(self):
         self.cases = self.elements = self.differ = self.max_ulps = 0
@@ -156,6 +170,26 @@ def main(argv) -> None:
     other, sigs = _other_library(Path(argv[0]).resolve())
     stream = torch.cuda.current_stream().cuda_stream
     p = lambda t: None if t is None else t.data_ptr()
+
+    for k15 in (0, 1):
+        bf16_core = Tally()
+        for B, N, H, hd in CORE:
+            qkv = core_q8_qkv(B, N, H * hd, H, seed=N)
+            q, k, v = qkv.view(B, N, 3, H, hd).permute(2, 0, 3, 1, 4)
+            outs = []
+            for which, table in ((lib, _build._SIGNATURES),
+                                 (other, sigs)):
+                o = torch.empty((B, N, H, hd), dtype=torch.bfloat16,
+                                device="cuda").transpose(1, 2)
+                _build.check(which, which.dyt_mha_core(
+                    p(q), p(k), p(v), p(o), _build.strides_arg(q, k, v, o),
+                    B, N, H, hd, hd ** -0.5, *core_mode(table, k15),
+                    stream), "core")
+                outs.append(o)
+            torch.cuda.synchronize()
+            bf16_core.add(*outs)
+        print(bf16_core.line(f"bf16 core, {'K15' if k15 else 'K1'} mode"),
+              flush=True)
 
     core = Tally()
     for _, qkv, H in core_q8_cases():

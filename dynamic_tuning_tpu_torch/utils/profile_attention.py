@@ -1,8 +1,10 @@
 """Serving attention on the card: K1 against the plain path it replaces,
 K13 and K14, each beside SDPA (counterpart of
-scripts/profile_attention.py).
+scripts/profile_attention.py), and the cores at head dims 192 and 256 and
+in fp32.
 
-    python -m dynamic_tuning_tpu_torch.utils.profile_attention
+    python -m dynamic_tuning_tpu_torch.utils.profile_attention \
+        [--part all|serving|cores]
 
 At ViT-B/16 serving shape (B=128, N=197, 12 heads of 64, bf16 raw qkv
 ``[B, N, 3C]`` from a seed) it times, with CUDA events over 20 calls after
@@ -27,37 +29,83 @@ At ViT-B/16 serving shape (B=128, N=197, 12 heads of 64, bf16 raw qkv
   the bias as its mask;
 * a 4096^3 bf16 matmul, the calibration anchor of the TPU script.
 
-K9 touches only the C entry and wrapper that every tree of the port has,
-so this script can time an older tree's K9 (``PYTHONPATH=<tree> python
-<this file>``).  Prints the card's name and power limit first.  Needs a
-CUDA device.
+With ``--part cores`` (or ``all``) it times the cores that serve head dims
+192 and 256 in bf16 and the fp32 forms, through their public wrappers:
+each wrapper's device time a call (``torch.profiler``: the sum of its
+kernels' times over 20 calls, so the wrapper's host checks, which outlast
+a kernel of a few tens of microseconds, do not count) and its time on CUDA
+events (host work included), beside its bound
+(``utils/profiling.py::bound_ms``) and, where one PyTorch call computes the
+same function, SDPA's device time:
+
+* K15 and K1 in bf16 at B=32, N=197, C=768 in 4 heads of 192 and C=1024 in
+  4 heads of 256 (K15 on views of the raw qkv, SDPA on contiguous q, k,
+  v), and K3 (F = 64) and K10 (the SIMT core's int8-score form) there;
+  K9 in bf16 at head dim 192 (the SIMT core; B=1, N=1025, 4 heads) beside
+  SDPA with its bias as the mask;
+* K1 in fp32 at ViT-B/16 rows (B=32, N=197, 12 heads of 64) beside SDPA in
+  fp32 with TF32 off, and K10 there (the int8-score form, float64 sums); K9 in fp32 at the seg crop (B=1, N=1025) with its
+  bf16 bias, beside SDPA with the bias as its mask;
+* K2, K3 and K7 (4 experts of 64) with fp32 weights at B=32;
+* the host's time a call of the bf16 core's C entry (``dyt_mha_core``, K1
+  mode, B=32, N=197) at head dims 64 (the staged kernel: no tensor map)
+  and 192 (the wide kernel: three maps encoded a call), 200 calls on the
+  host's clock from an idle card (trees whose entry takes that form).
+
+Every case touches only the wrappers and C entries that every tree of the
+port since its fp32 forms has, so this script can time an older tree
+(``PYTHONPATH=<tree> python <this file>``; run the two in turns, other,
+this, this, other, in one call to compare them on one card).  Prints the
+card's name and power limit first and, with ``--part cores``, one JSON
+line of its numbers last.  Needs a CUDA device.
 """
 
 from __future__ import annotations
 
 import argparse
+import json
+import os
 import time
 
 import torch
 import torch.nn.functional as F
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile
 
+import dynamic_tuning_tpu_torch as pkg
 from dynamic_tuning_tpu_torch.ops import _build
 from dynamic_tuning_tpu_torch.ops import flash_attention as fa
 from dynamic_tuning_tpu_torch.ops import mha_serving as ms
 from dynamic_tuning_tpu_torch.ops import packed_attention as pa
-from dynamic_tuning_tpu_torch.utils.profiling import card_line, time_ms
+from dynamic_tuning_tpu_torch.ops import quant as qt
+from dynamic_tuning_tpu_torch.utils.profiling import (bound_ms, card_line,
+                                                      time_ms)
 
 B, N, H, HD = 128, 197, 12, 64
 C = H * HD
 SEG_N = 1025
+CORES_B, F_ADAPT, E = 32, 64, 4
+BF, F32 = torch.bfloat16, torch.float32
 
 
 def main(args) -> dict:
     if not torch.cuda.is_available():
         raise RuntimeError("profile_attention times the GPU and found no "
                            "CUDA device")
-    print(f"card: {card_line()}")
+    print(f"card: {card_line()}; package: "
+          f"{os.path.dirname(os.path.abspath(pkg.__file__))}", flush=True)
     g = torch.Generator(device="cuda").manual_seed(args.seed)
+    times = serving(g) if args.part in ("all", "serving") else {}
+    if args.part in ("all", "cores"):
+        out = cores(g)
+        print(json.dumps(out))
+        times.update(out)
+    return times
+
+
+def serving(g) -> dict:
+    """K1, its plain path, K13, K14 and SDPA at ViT-B/16 serving shape, K13
+    and K9 at the segmentation shape, and the matmul anchor."""
     qkv = torch.randn((B, N, 3 * C), generator=g, device="cuda").to(
         torch.bfloat16)
     q, k, v = (t.contiguous() for t in
@@ -137,9 +185,193 @@ def time_k9(g) -> dict:
     return times
 
 
+def device_ms(fn, iters: int = 20) -> float:
+    """Device ms a call of ``fn``: the kernels' summed time over ``iters``
+    calls (after one untimed call), from torch.profiler."""
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.time_range.elapsed_us() for e in prof.events()
+             if e.device_type == DeviceType.CUDA)
+    if not us:
+        raise RuntimeError("the trace holds no device activity")
+    return us / iters / 1e3
+
+
+def _nbytes(*ts) -> int:
+    return sum(t.numel() * t.element_size() for t in ts)
+
+
+def _line(out, name, fn, inputs, ops, library=None) -> None:
+    """``fn``'s device ms and event ms beside its bound and ``library``'s
+    device ms."""
+    result = fn()
+    result = result if isinstance(result, tuple) else (result,)
+    ms_k, ms_e = device_ms(fn), time_ms(fn)
+    lib = None if library is None else device_ms(library)
+    b, by = bound_ms(_nbytes(*inputs) + _nbytes(*result), ops)
+    out[name] = dict(ms=round(ms_k, 4), event_ms=round(ms_e, 4),
+                     bound_ms=round(b, 4), bound_by=by,
+                     library_ms=None if lib is None else round(lib, 4))
+    txt = "" if lib is None else f", SDPA {lib:.4f} ms"
+    print(f"{name}: {ms_k:.4f} ms on the device ({ms_e:.4f} on events)"
+          f"{txt}; bound {b:.4f} ms ({by}, {100 * b / ms_k:.0f}%)",
+          flush=True)
+
+
+def _qkv(g, batch, tokens, width, dtype):
+    qkv = torch.randn((batch, tokens, 3 * width), generator=g,
+                      device="cuda")
+    qkv[..., width:2 * width] += 1.0               # keys with a lane offset
+    return qkv.to(dtype)
+
+
+def _split(qkv, heads):
+    Bq, Nq, C3 = qkv.shape
+    return qkv.view(Bq, Nq, 3, heads, C3 // 3 // heads).permute(2, 0, 3, 1,
+                                                                 4)
+
+
+def _weights(g, width, dtype):
+    r = lambda *s, sc=1.0: torch.randn(  # noqa: E731
+        s, generator=g, device="cuda") * sc
+    sub = (r(width, sc=0.05) + 1.0, r(width, sc=0.02),
+           r(3 * width, width, sc=0.03).to(dtype), r(3 * width, sc=0.02),
+           r(width, width, sc=0.03).to(dtype), r(width, sc=0.02))
+    ad = (r(F_ADAPT, width, sc=0.03).to(dtype), r(F_ADAPT, sc=0.02),
+          r(width, F_ADAPT, sc=0.02).to(dtype), r(width, sc=0.01),
+          torch.full((1,), 0.1, device="cuda"),
+          r(1, width, sc=25.0 / width ** 0.5), r(1, sc=0.1))
+    moe = (r(E, width, sc=2.0 / width ** 0.5),
+           *ms.moe_kernel_weights(r(E, width, F_ADAPT, sc=0.03),
+                                  r(E, F_ADAPT, sc=0.02),
+                                  r(E, F_ADAPT, width, sc=0.02), dtype),
+           r(E, width, sc=0.01), ad[4])
+    return sub, ad, moe
+
+
+def cores(g) -> dict:
+    """The bf16 cores at head dims 192 and 256 and the fp32 forms (the
+    module docstring's list), with TF32 off for the fp32 ones."""
+    tf32 = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        return _cores(g)
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = tf32
+
+
+def _cores(g) -> dict:
+    out = {}
+    for width, heads in ((768, 4), (1024, 4)):
+        hd = width // heads
+        qkv = _qkv(g, CORES_B, N, width, BF)
+        q, k, v = _split(qkv, heads)
+        qc, kc, vc = (t.contiguous() for t in (q, k, v))
+        sdpa = lambda: F.scaled_dot_product_attention(qc, kc, vc)  # noqa
+        ops = {"bf16": 4 * CORES_B * heads * N * N * hd}
+        _line(out, f"K15 bf16 hd {hd}", lambda: ms.mha_serving(q, k, v),
+              (qkv,), ops, sdpa)
+        _line(out, f"K1 bf16 hd {hd}",
+              lambda: ms.mha_serving_fused(qkv, heads=heads), (qkv,), ops,
+              sdpa)
+        x = torch.randn((CORES_B, N, width), generator=g,
+                        device="cuda").to(BF)
+        sub, ad, _ = _weights(g, width, BF)
+        M = CORES_B * N
+        _line(out, f"K3 bf16 hd {hd}",
+              lambda: ms.dyt_prologue_serving(x, *sub, *ad, heads=heads),
+              (x, *sub, *ad),
+              {"bf16": 8 * M * width * width
+               + 4 * CORES_B * heads * N * N * hd
+               + 4 * M * width * F_ADAPT, "fp32": 2 * M * width})
+        _line(out, f"K10 bf16 hd {hd}",
+              lambda: qt.attn_core_pairs_q8(qkv, heads=heads), (qkv,),
+              {"int8": ops["bf16"] // 2, "bf16": ops["bf16"] // 2})
+    sq = _qkv(g, 1, SEG_N, 768, BF)
+    ld = ms.bias_row_stride(SEG_N)
+    bias = (torch.randn((4, SEG_N, ld), generator=g, device="cuda")
+            .to(BF)[:, :, :SEG_N])
+    q9, k9, v9 = (t.contiguous() for t in _split(sq, 4))
+    mask = bias.contiguous()[None]
+    _line(out, "K9 bf16 hd 192",
+          lambda: ms.mha_windowed_fused(sq, bias, heads=4),
+          (sq, bias.contiguous()), {"bf16": 4 * 4 * SEG_N * SEG_N * 192},
+          lambda: F.scaled_dot_product_attention(q9, k9, v9, attn_mask=mask))
+    qkv = _qkv(g, CORES_B, N, C, F32)
+    q, k, v = (t.contiguous() for t in _split(qkv, H))
+    attn = 4 * CORES_B * H * N * N * HD
+    _line(out, "K1 fp32", lambda: ms.mha_serving_fused(qkv, heads=H),
+          (qkv,), {"fp32": attn},
+          lambda: F.scaled_dot_product_attention(q, k, v))
+    _line(out, "K10 fp32", lambda: qt.attn_core_pairs_q8(qkv, heads=H),
+          (qkv,), {"int8": attn // 2, "fp32": attn // 2})
+    sq = _qkv(g, 1, SEG_N, C, F32)
+    ld = ms.bias_row_stride(SEG_N)
+    bias = (torch.randn((H, SEG_N, ld), generator=g, device="cuda")
+            .to(BF)[:, :, :SEG_N])
+    q9, k9, v9 = (t.contiguous() for t in _split(sq, H))
+    mask = bias.float().contiguous()[None]
+    _line(out, "K9 fp32", lambda: ms.mha_windowed_fused(sq, bias, heads=H),
+          (sq, bias.contiguous()), {"fp32": 4 * H * SEG_N * SEG_N * HD},
+          lambda: F.scaled_dot_product_attention(q9, k9, v9, attn_mask=mask))
+    x = torch.randn((CORES_B, N, C), generator=g, device="cuda")
+    sub, ad, moe = _weights(g, C, F32)
+    M = CORES_B * N
+    gemm = 8 * M * C * C
+    for name, call, ins, ops in (
+            ("K2 fp32", lambda: ms.attention_sublayer_serving(x, *sub,
+                                                              heads=H),
+             (x, *sub), gemm + attn),
+            ("K3 fp32", lambda: ms.dyt_prologue_serving(x, *sub, *ad,
+                                                        heads=H),
+             (x, *sub, *ad), gemm + attn + 4 * M * C * F_ADAPT + 2 * M * C),
+            ("K7 fp32 (4 x 64)", lambda: ms.dyt_prologue_serving_moe(
+                x, *sub, *moe, *ad[5:], heads=H, tau=1.0),
+             (x, *sub, *moe, *ad[5:]),
+             gemm + attn + 4 * M * C * E * F_ADAPT + 2 * M * C * (E + 1))):
+        _line(out, name, call, ins, {"fp32": ops})
+    if len(_build._SIGNATURES["dyt_mha_core"]) == 12:
+        for width, heads in ((768, 12), (768, 4)):
+            qkv = _qkv(g, CORES_B, N, width, BF)
+            hd = width // heads
+            us = entry_host_us(*_split(qkv, heads))
+            out[f"dyt_mha_core host us, hd {hd}"] = round(us, 2)
+            print(f"dyt_mha_core, hd {hd}: {us:.2f} us of host time a call",
+                  flush=True)
+    return out
+
+
+def entry_host_us(q, k, v, calls: int = 200) -> float:
+    """Host microseconds a call of ``dyt_mha_core`` (K1 mode) on strided
+    bf16 q, k, v, from an idle card."""
+    lib = _build.library()
+    Bq, Hq, Nq, hd = q.shape
+    o = torch.empty((Bq, Nq, Hq, hd), dtype=BF, device="cuda").transpose(1, 2)
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            _build.strides_arg(q, k, v, o), Bq, Nq, Hq, hd, hd ** -0.5, 0,
+            torch.cuda.current_stream().cuda_stream)
+    _build.check(lib, lib.dyt_mha_core(*args), "attention core")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        _build.check(lib, lib.dyt_mha_core(*args), "attention core")
+    us = (time.perf_counter() - t0) / calls * 1e6
+    torch.cuda.synchronize()
+    return us
+
+
 def get_args_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--part", default="all",
+                   choices=("all", "serving", "cores"))
     return p
 
 

@@ -7,7 +7,9 @@
     python -m dynamic_tuning_tpu_torch.utils.profile_forward --task fast \
         --mode dispatch [--use_kernel] --warmup 5 --iters 3
 
-Takes ``speed.py``'s flags and model; ``--task seg`` takes the seg bench's
+Takes ``speed.py``'s flags and model (``--compute_dtype float32
+--residual_dtype float32``: the fp32 forward, TF32 off); ``--task seg``
+takes the seg bench's
 segmentor instead (``bench.build_segmentor``: one 512^2 crop, ``--mode
 dispatch``, ``mask`` or ``dense``, with ``--quant int8`` the int8 model in
 dispatch, the auxiliary head left out); ``--task
@@ -32,6 +34,7 @@ from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
 from dynamic_tuning_tpu_torch import bench, speed
+from dynamic_tuning_tpu_torch.cli import fp32_on_card
 from dynamic_tuning_tpu_torch.models import fast_inference as fast
 
 
@@ -81,7 +84,8 @@ def main(args) -> dict:
         kwargs = dict(complete_model=args.mode == "dense",
                       dispatch=args.mode == "dispatch")
     x = torch.randn((batch, img, img, 3), generator=g, device=device)
-    with torch.inference_mode():
+    # --compute_dtype float32 runs with TF32 off, as speed.main does
+    with fp32_on_card(args.compute_dtype, device), torch.inference_mode():
         for _ in range(args.warmup):
             model(x, **kwargs)
         torch.cuda.synchronize()

@@ -978,7 +978,18 @@ CORE_SHAPES = [(128, 197, 12, 64),       # ViT-B/16 serving
                (1, 417, 2, 128),         # one key past, head_dim 128
                (2, 442, 6, 128),         # 336^2, 6 heads of 128
                (1, 512, 2, 128),         # the longest N the Block fuses
-               (1, 1025, 2, 128)]
+               (1, 1025, 2, 128),
+               # head dims 192 and 256 (the wide kernel: two warpgroups,
+               # q' from shared memory), staged and past the staged N on
+               # its ring:
+               (4, 197, 4, 192),         # ViT-B/16 in 4 heads of 192
+               (2, 224, 2, 192),         # the longest staged N at hd 192
+               (2, 300, 2, 192),         # ... past it
+               (2, 33, 2, 256),          # staged at hd 256
+               (2, 160, 2, 256),         # the longest staged N at hd 256
+               (2, 197, 2, 256),         # ... past it
+               (1, 257, 2, 256),         # an odd count of query tiles
+               (1, 1025, 2, 192)]        # 512^2 on the ring
 
 
 @pytest.mark.parametrize("N,hd", [(865, 64), (417, 128)])
@@ -1760,40 +1771,96 @@ def test_fp32_q8_prologue_forms(B, N, C, H, F, attn_q8):
     logits_close(got[2], want[2])
 
 
+def _form_count(fn, form):
+    return fn.forms.get(form, 0)
+
+
 @pytest.mark.parametrize("dtype", [F32, BF])
 @pytest.mark.parametrize("B,N,H,hd", [(32, 197, 12, 64), (3, 19, 2, 64),
                                       (2, 50, 2, 128), (2, 65, 4, 192),
                                       (2, 33, 4, 256), (1, 300, 2, 64)])
 def test_simt_core_forms(B, N, H, hd, dtype):
-    """K1 on the SIMT core (fp32 at every head dim, bf16 at 192 and 256),
-    K9 with its bf16 bias, K15 at 192 and 256, and K10 on fp32 qkv or at
-    head dims 192 and 256, each against its plain version."""
+    """K1 (fp32 on the fp32 core at every head dim, bf16 at 192 and 256 on
+    the wgmma core), K9 with its bf16 bias (fp32 on the fp32 core, bf16 at
+    192 and 256 on the SIMT core), K15 at 192 and 256 (the wgmma core), and
+    K10 on fp32 qkv or at head dims 192 and 256 (the SIMT core's int8-score
+    form), each against its plain version, each counted under its form."""
     qkv = core_qkv(B, N, H, hd).to(dtype)
     qkv[..., H * hd:2 * H * hd] += 1.0             # keys with a lane offset
     close = fp32_close if dtype == F32 else bf16_close
-    simt = dtype == F32 or hd not in (64, 128)
+    wide = hd not in (64, 128)
+    form = ms.form_of(dtype, hd)
+    assert form == ("fp32" if dtype == F32 else
+                    "bf16+wide_heads" if wide else "bf16")
+    before = _form_count(ms.mha_serving_fused, form)
     got = ms.mha_serving_fused(qkv, heads=H)
     torch.cuda.synchronize()
+    assert _form_count(ms.mha_serving_fused, form) == before + 1
     assert got.dtype == dtype
     close(got, ms.attn_core_pairs(qkv, heads=H), "K1")
     g = torch.Generator(device="cuda").manual_seed(3)
     bias = torch.randn((H, N, N), generator=g, device="cuda").to(BF)
+    core9 = ms.core_of("K9", dtype, hd)
+    form9 = ms.form_of(dtype, hd, core=core9)
+    before = _form_count(ms.mha_windowed_fused, form9)
     got = ms.mha_windowed_fused(qkv, bias, heads=H)
     torch.cuda.synchronize()
+    assert _form_count(ms.mha_windowed_fused, form9) == before + 1
     close(got, ms.mha_windowed_plain(qkv, bias, heads=H), "K9")
-    if dtype == BF and hd not in (64, 128):
+    if dtype == BF and wide:
         # K15 (the speed-test forward's rounding) on views of the raw qkv
         q, k, v = qkv.view(B, N, 3, H, hd).permute(2, 0, 3, 1, 4)
+        before = _form_count(ms.mha_serving, "bf16+wide_heads")
         got = ms.mha_serving(q, k, v)
         torch.cuda.synchronize()
-        bf16_close(got, ms.mha_serving_plain(q, k, v), "K15")
-    if simt:
-        before = qt.attn_core_pairs_q8.forms.get(ms.form_of(dtype, hd), 0)
+        assert _form_count(ms.mha_serving, "bf16+wide_heads") == before + 1
+        want = ms.mha_serving_plain(q, k, v)
+        bf16_close(got, want, "K15")
+        contract_close(got, want, "K15")
+    if dtype == F32 or wide:
+        form10 = ms.form_of(dtype, hd, core="simt_q8")
+        before = _form_count(qt.attn_core_pairs_q8, form10)
         got = qt.attn_core_pairs_q8(qkv, heads=H)
         torch.cuda.synchronize()
-        assert qt.attn_core_pairs_q8.forms[ms.form_of(dtype, hd)] == \
-            before + 1
+        assert _form_count(qt.attn_core_pairs_q8, form10) == before + 1
         bf16_close(got, qt.attn_core_pairs_q8_plain(qkv, heads=H), "K10")
+
+
+@pytest.mark.parametrize("mode", ["K1", "K9"])
+@pytest.mark.parametrize("B,N,H,hd", [
+    (32, 197, 12, 64),                    # ViT-B/16 in fp32
+    (3, 19, 2, 64),                       # fewer keys than a 64-key tile
+    (2, 65, 2, 64),                       # one key past a tile
+    (2, 129, 2, 64),                      # one 16-key group past two tiles
+    (2, 50, 2, 128),                      # 32-key tiles past hd 64
+    (2, 97, 3, 192),
+    (2, 33, 2, 256),
+    (1, 1025, 2, 64)])                    # the seg crop's N
+def test_f32_core(B, N, H, hd, mode):
+    """The register-tiled fp32 core through its C entry on views of a raw
+    fp32 qkv: K1's rounding, with and without K9's bf16 bias, against the
+    plain versions: within 1e-5 of the largest output."""
+    from dynamic_tuning_tpu_torch.ops import _build
+    lib = _build.library()
+    qkv = core_qkv(B, N, H, hd, seed=24).float()
+    qkv[..., H * hd:2 * H * hd] += 1.0
+    q, k, v = qkv.view(B, N, 3, H, hd).permute(2, 0, 3, 1, 4)
+    # K9's bias as the layer lays it out (rows on 16 bytes, padded to 8)
+    b = (ms._windowed_bias(torch.randn((H, N, N), device="cuda").to(BF), H,
+                           N) if mode == "K9" else None)
+    out = torch.empty((B, N, H, hd), device="cuda").transpose(1, 2)
+    err = lib.dyt_f32_core(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        _build.strides_arg(q, k, v, out), B, N, H, hd, hd ** -0.5,
+        None if b is None else b.data_ptr(),
+        0 if b is None else b.stride(0), 0 if b is None else b.stride(1),
+        torch.cuda.current_stream().cuda_stream)
+    assert err == 0, lib.dyt_error_string(err)
+    torch.cuda.synchronize()
+    want = ms.attn_core_pairs(qkv, heads=H, bias=None if b is None
+                              else b.float())
+    fp32_close(out, want.view(B, N, H, hd).transpose(1, 2),
+               f"fp32 core ({mode})")
 
 
 @pytest.mark.parametrize("F", [8, 24, 100, 256])
@@ -1831,39 +1898,55 @@ def test_adapter_widths_are_the_kernels():
 
 
 def test_core_routes_follow_the_flag():
-    """The C entry point follows the route the wrappers pass: the wgmma core
-    refuses a head dim it is not built for, the SIMT core takes it."""
+    """The wgmma core's C entry serves head dim 192 and refuses a head dim
+    no core is built for (96)."""
     from dynamic_tuning_tpu_torch.ops import _build
     lib = _build.library()
-    B, N, H, hd = 2, 197, 4, 192
-    qkv = torch.randn((B, N, 3 * H * hd), device="cuda").to(BF)
-    q, k, v = qkv.view(B, N, 3, H, hd).permute(2, 0, 3, 1, 4)
-    out = torch.empty((B, N, H, hd), dtype=BF, device="cuda").transpose(1, 2)
     stream = torch.cuda.current_stream().cuda_stream
-    for simt in (0, 1):
-        err = lib.dyt_mha_core(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                               out.data_ptr(), _build.strides_arg(q, k, v, out),
-                               B, N, H, hd, hd ** -0.5, 0, simt, stream)
-        assert (err == 0) == bool(simt), (simt, err)
-    torch.cuda.synchronize()
-    bf16_close(out.transpose(1, 2).reshape(B, N, H * hd),
-               ms.attn_core_pairs(qkv, heads=H), "K1 hd 192")
+    for hd in (192, 96):
+        B, N, H = 2, 197, 4
+        qkv = torch.randn((B, N, 3 * H * hd), device="cuda").to(BF)
+        q, k, v = qkv.view(B, N, 3, H, hd).permute(2, 0, 3, 1, 4)
+        out = torch.zeros((B, N, H, hd), dtype=BF,
+                          device="cuda").transpose(1, 2)
+        err = lib.dyt_mha_core(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            _build.strides_arg(q, k, v, out), B, N, H, hd, hd ** -0.5, 0,
+            stream)
+        assert (err == 0) == (hd == 192), (hd, err)
+        torch.cuda.synchronize()
+        if hd == 192:
+            bf16_close(out.transpose(1, 2).reshape(B, N, H * hd),
+                       ms.attn_core_pairs(qkv, heads=H), "K1 hd 192")
 
 
 @pytest.mark.parametrize("C,H", [(768, 4), (1024, 4)])
 def test_bf16_head_dims_192_and_256(C, H):
-    """K2, K3 and K5/K6 (with the int8-score core too) at head dims 192
-    and 256: the bf16 chains with the SIMT core."""
+    """K2, K3, K7 and K5/K6 at head dims 192 and 256: the bf16 chains with
+    the wgmma core ("bf16+wide_heads"), and K6 with int8 scores on the SIMT
+    core's int8-score form ("bf16+simt_core")."""
     x, sub, ad = make_inputs(4, 197, C, 64, seed=10)
+    ms.reset_launch_counts()
+    qt.reset_launch_counts()
     got = ms.dyt_prologue_serving(x, *sub, *ad, heads=H)
     torch.cuda.synchronize()
-    assert ms.dyt_prologue_serving.forms["bf16+simt_core"] >= 1
     want = ms.dyt_prologue_plain(x, *sub, *ad, heads=H)
     bf16_close(got[0], want[0], "K3 x_mid")
     logits_close(got[2], want[2])
     got = ms.attention_sublayer_serving(x, *sub, heads=H)
     torch.cuda.synchronize()
     bf16_close(got, ms.attention_sublayer_plain(x, *sub, heads=H), "K2")
+    moe = moe_inputs(C, 4, 16, seed=11)
+    got = ms.dyt_prologue_serving_moe(x, *sub, *moe, *ad[5:], heads=H,
+                                      tau=0.7)
+    torch.cuda.synchronize()
+    want = ms.dyt_prologue_moe_plain(x, *sub, *moe, *ad[5:], heads=H,
+                                     tau=0.7)
+    bf16_close(got[0], want[0], "K7 x_mid")
+    got = qt.attention_sublayer_serving_q8(x, *q8_sub(sub), heads=H)
+    torch.cuda.synchronize()
+    bf16_close(got, qt.attention_sublayer_q8_plain(x, *q8_sub(sub), heads=H),
+               "K5")
     for aq in (False, True):
         got = qt.dyt_prologue_serving_q8(x, *q8_sub(sub), *ad, heads=H,
                                          attn_q8=aq)
@@ -1872,6 +1955,13 @@ def test_bf16_head_dims_192_and_256(C, H):
                                         attn_q8=aq)
         bf16_close(got[0], want[0], "K6 x_mid")
         logits_close(got[2], want[2])
+    wide = {"bf16+wide_heads": 1}
+    for fn in (ms.dyt_prologue_serving, ms.attention_sublayer_serving,
+               ms.dyt_prologue_serving_moe, qt.attention_sublayer_serving_q8):
+        assert fn.forms == wide, (fn.__name__, fn.forms)
+    assert qt.dyt_prologue_serving_q8.forms == {"bf16+wide_heads": 1,
+                                                "bf16+simt_core": 1}
+    assert qt.attn_core_pairs_q8.forms == {"bf16+simt_core": 1}
 
 
 def test_fp32_model_launches_only_fp32_forms():

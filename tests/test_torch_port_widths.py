@@ -13,8 +13,10 @@ port's wgmma kernels are not built for, on the CPU.
   (``DYT_FUSED_ATTN=interpret``): bf16 at ``ffn_num`` 8, 24 and 256
   (padded to 16 and 32 by the port; 256 on the SIMT tail) in dense and
   dispatch mode; MoE at 2 experts of 4 (padded to 2 x 8 in bf16), fp32 and bf16;
-  head dim 192 (C = 384 in 2 heads), fp32 and bf16 dispatch, and
-  int8_attn at fp32 compute.
+  head dims 192 (C = 384 in 2 heads) and 256 (C = 512 in 2 heads), fp32
+  and bf16 dispatch, and int8_attn at fp32 compute;
+* the route table (``ms.core_of``): which attention core each kernel's
+  wrapper runs, by dtype, head dim and int8 scores; ``speed --num_heads``.
 
 Tolerances: fp32 logits within 1e-5 of their largest magnitude, every gate
 identical (int8: 1e-2, as tests/test_torch_port_model.py); bf16 as the
@@ -140,7 +142,7 @@ def test_kernel_widths():
     assert ms.moe_kernel_bneck(2, 4, torch.float32) == 4
     assert ms.form_of(torch.float32, 64) == "fp32"
     assert ms.form_of(BF, 64) == "bf16"
-    assert ms.form_of(BF, 192, True) == "bf16+simt_core+simt_tail"
+    assert ms.form_of(BF, 192, True) == "bf16+wide_heads+simt_tail"
 
 
 def _adapter(rs, F, C=128):
@@ -239,11 +241,14 @@ def test_moe_2x4_matches_jax(monkeypatch, dtype):
            rel=None if dtype == "float32" else 0.01)
 
 
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_head_dim_192_matches_jax(monkeypatch, dtype):
-    """K3 at head dim 192: the SIMT core in bf16 on the card, the fp32 core
-    in fp32; dispatch."""
-    jm, params, tm, x = _pair(monkeypatch, dtype=dtype, ffn=64, dim=384,
+@pytest.mark.parametrize(
+    "dtype,hd", [("float32", 192), ("bfloat16", 192), ("float32", 256),
+                 ("bfloat16", 256)],
+    ids=["float32", "bfloat16", "float32-hd256", "bfloat16-hd256"])
+def test_head_dim_192_matches_jax(monkeypatch, dtype, hd):
+    """K3 at head dims 192 and 256 (2 heads): the wgmma core in bf16 on the
+    card, the fp32 core in fp32; dispatch."""
+    jm, params, tm, x = _pair(monkeypatch, dtype=dtype, ffn=64, dim=2 * hd,
                               heads=2)
     _check(jm, params, tm, x, MODES["dispatch"], dtype)
 
@@ -252,3 +257,74 @@ def test_head_dim_192_int8_attn_fp32_matches_jax(monkeypatch):
     jm, params, tm, x = _pair(monkeypatch, dtype="float32", ffn=24, dim=384,
                               heads=2, quant="int8_attn")
     _check(jm, params, tm, x, {"dispatch": True}, "float32", rel=1e-2)
+
+
+# --- the route table --------------------------------------------------------
+
+F32 = torch.float32
+# kernel -> {(dtype, head dim, int8 scores, K10's layout fits): core}
+ROUTES = {
+    "K1": {(BF, 64, 0, 1): "wgmma", (BF, 128, 0, 1): "wgmma",
+           (BF, 192, 0, 1): "wgmma", (BF, 256, 0, 1): "wgmma",
+           (F32, 64, 0, 1): "f32", (F32, 256, 0, 1): "f32"},
+    "K15": {(BF, 64, 0, 1): "wgmma", (BF, 192, 0, 1): "wgmma",
+            (BF, 256, 0, 1): "wgmma"},
+    "K2": {(BF, 64, 0, 1): "wgmma", (BF, 192, 0, 1): "wgmma",
+           (F32, 64, 0, 1): "f32", (F32, 192, 0, 1): "f32"},
+    "K3": {(BF, 128, 0, 1): "wgmma", (BF, 256, 0, 1): "wgmma",
+           (F32, 64, 0, 1): "f32"},
+    "K7": {(BF, 64, 0, 1): "wgmma", (BF, 192, 0, 1): "wgmma",
+           (F32, 128, 0, 1): "f32"},
+    "K5": {(BF, 64, 0, 1): "wgmma", (BF, 192, 0, 1): "wgmma",
+           (BF, 64, 1, 1): "q8", (BF, 64, 1, 0): "simt_q8",
+           (BF, 192, 1, 1): "simt_q8"},
+    "K6": {(BF, 256, 0, 1): "wgmma", (BF, 128, 1, 1): "q8",
+           (BF, 256, 1, 1): "simt_q8", (F32, 64, 0, 1): "f32_exact",
+           (F32, 64, 1, 1): "simt_q8", (F32, 192, 0, 1): "f32_exact"},
+    "K8": {(BF, 192, 0, 1): "wgmma", (BF, 64, 1, 1): "q8",
+           (F32, 64, 0, 1): "f32_exact", (F32, 64, 1, 1): "simt_q8"},
+    "K9": {(BF, 64, 0, 1): "windowed", (BF, 128, 0, 1): "windowed",
+           (BF, 192, 0, 1): "simt", (BF, 256, 0, 1): "simt",
+           (F32, 64, 0, 1): "f32", (F32, 256, 0, 1): "f32"},
+    "K10": {(BF, 64, 0, 1): "q8", (BF, 128, 0, 1): "q8",
+            (BF, 128, 0, 0): "simt_q8", (BF, 192, 0, 1): "simt_q8",
+            (BF, 256, 0, 1): "simt_q8", (F32, 64, 0, 1): "simt_q8"},
+}
+
+
+@pytest.mark.parametrize("kernel", sorted(ROUTES))
+def test_core_routes(kernel):
+    """The attention core each wrapper runs (``ms.core_of``, the one table
+    the wrappers route by): bf16 K1, K15 and the cores of K2, K3, K7 and of
+    K5, K6, K8 without int8 scores on the wgmma core at every head dim; K9
+    and K10 on their wgmma kernels at 64 and 128 and on the SIMT core at 192
+    and 256; fp32 K1, K2, K3, K7, K9 on the fp32 core; fp32 K6, K8 on the
+    exact core; K5 and K15 in fp32 on none (K5's scratch is bf16); and the
+    forms the counts are kept under."""
+    for (dtype, hd, q8, fits), core in ROUTES[kernel].items():
+        got = ms.core_of(kernel, dtype, hd, attn_q8=bool(q8),
+                         q8_fits=bool(fits))
+        assert got == core, (kernel, dtype, hd, q8, fits, got)
+        want = ("fp32" if dtype == F32 else
+                "bf16" if hd in (64, 128) else
+                "bf16+simt_core" if core.startswith("simt") else
+                "bf16+wide_heads")
+        assert ms.form_of(dtype, hd, core=core) == want
+    with pytest.raises(ValueError):
+        ms.core_of(kernel, BF, 96)
+    if kernel in ("K5", "K15"):
+        with pytest.raises(TypeError):
+            ms.core_of(kernel, F32, 64)
+
+
+def test_speed_builds_head_dim_192():
+    """``speed --num_heads 4`` builds ViT-B/16 in 4 heads of 192 (the
+    forward PERF.md times at that head dim), whose sublayers the wrappers
+    send to the wgmma core."""
+    from dynamic_tuning_tpu_torch import speed
+    args = speed.get_args_parser().parse_args(["--num_heads", "4"])
+    model = speed.build_model(args, torch.device("cpu"))
+    assert len(model.blocks) == 12
+    assert {blk.num_heads for blk in model.blocks} == {4}
+    assert {blk.attn.num_heads for blk in model.blocks} == {4}
+    assert ms.core_of("K3", BF, model.cfg.embed_dim // 4) == "wgmma"
