@@ -235,29 +235,38 @@ Phases; any failure exits non-zero:
      decoded and re-encoded byte for byte; (e) the native video decoder:
      if it builds, the committed clip's frames equal the JAX decoder's
      stored frames, else ``native_video: unavailable: <why>``;
- 16. the fp32 forms, the adapter and MoE widths and the head dims 192 and
-     256 (``FORMS``): each fp32 form against its plain version at ViT-B/16
-     width (B=32, N=197, 12 heads of 64, F=64, MoE 4 x 64; K9 at B=1,
-     N=1025), within 1e-5 of the plain version's largest |output|, router
-     logits too (K6/K8 with fp32 adapters also print the share within
-     1e-5: their core's output is requantized, so it must land on the
-     plain version's bits), with its bound, K1/K9 beside SDPA in fp32 (on
-     the register-tiled fp32 core) and the fp32 GEMM alone beside
-     torch.matmul with TF32 off; the bf16 forms at F = 8 (padded) and 256
-     (the SIMT tail), MoE 2 x 4 (padded) and 4 x 192 (the SIMT tail), head
-     dims 192 (C=768) and 256 (C=1024) in 4 heads (K3, K15 and K1 on the
-     wgmma core, K6 with the int8-score core, K10; K9 at 192 beside SDPA
-     with its bias as the mask), every one timed; then the main path of
-     each form, the counts set to 0 just before each run and no launch in
-     a form the run does not list: speed.main in fp32 (dispatch, int8 and
-     int8_attn at batch 128 against the plain-version forward, logits
-     within 1e-3 of the largest, gates agreeing on 0.9995 with each
-     differing gate's distances printed; dense; plain and MoE at batch 32
-     held the same way, int8 MoE to the int8 bounds of phase 3) and in
-     bf16 at F = 256, 8, MoE 4 x 192 and 2 x 4; a bf16 ViT-B/16 at head
-     dim 192 (its img/s at batch 32); predict.serve at head dim 192
-     (--quant none, its forward against the plain-version forward, and
-     int8_attn); main_image --compute_dtype float32 (2 steps, an
+ 16. the fp32 forms, the adapter and MoE widths and the head dims 192,
+     256 and past 256 (``FORMS``): each fp32 form against its plain
+     version at ViT-B/16 width (B=32, N=197, 12 heads of 64, F=64, MoE 4 x
+     64; K9 at B=1, N=1025), within 1e-5 of the plain version's largest
+     |output|, router logits too (K6/K8 with fp32 adapters also print the
+     share within 1e-5: their core's output is requantized, so it must
+     land on the plain version's bits), with its bound, K1/K9 beside SDPA
+     in fp32 (on the register-tiled fp32 core) and the fp32 GEMM alone
+     beside torch.matmul with TF32 off; the bf16 forms at F = 8 (padded)
+     and 256 (the SIMT tail), MoE 2 x 4 (padded) and 4 x 192 (the SIMT
+     tail), head dims 192 (C=768) and 256 (C=1024) in 4 heads and 384
+     (C=768 in 2 heads): K3, K15 and K1 (the wgmma core; at 384 the SIMT
+     core's 64-column slices), K6 with the int8-score core, K10 (its
+     int8-score wgmma core; at 384 the SIMT form), K9 at B=1, N=1025
+     (the wgmma ring with the bias blocks; at 384 the SIMT core) beside
+     SDPA with its bias as the mask, each held to ``ulp_share`` too and
+     timed, K10 at 192 and 256 beside the SIMT form the parent ran; every
+     core form at 2 heads of 320 checked (bf16 and fp32 K1,
+     K9, K10, K2, K3, K7, K5, K6, K8 with and without int8 scores, K15,
+     the exact core bit for bit); then the main path of each form, the
+     counts set to 0 just before each run and no launch in a form the run
+     does not list: speed.main in fp32 (dispatch, int8 and int8_attn at
+     batch 128 against the plain-version forward, logits within 1e-3 of
+     the largest, gates agreeing on 0.9995 with each differing gate's
+     distances printed; dense; plain and MoE at batch 32 held the same
+     way, int8 MoE to the int8 bounds of phase 3) and in bf16 at F = 256,
+     8, MoE 4 x 192 and 2 x 4; a bf16 ViT-B/16 at head dims 192 and 384
+     against its plain-version forward (its img/s at batch 32); the BEiT
+     backbone at head dim 192 on a 512^2 crop (K9); predict.serve at head
+     dims 192 and 384 (--quant none, at 192 its forward against the
+     plain-version forward, and int8_attn); main_image, main_vtab and
+     main_video with --compute_dtype float32 (short runs, each with an
      evaluation on the dispatch path); an fp32 seg crop evaluation (K9
      fp32 in every block); the fp32 LayerScale backbone (K1 fp32); each
      with 12 launches a forward of its kernels and none of the others;
@@ -739,7 +748,7 @@ def phase_gemm_reference(torch, _build, pi) -> None:
     torch.cuda.empty_cache()
 
 
-def windowed_launch(torch, ms, qkv, bias):
+def windowed_launch(torch, ms, qkv, bias, heads=H):
     """K9's launch through its C entry alone, on ``qkv`` and the layer's
     padded bf16 ``bias`` (what the wrapper launches after its checks)."""
     from dynamic_tuning_tpu_torch.ops import _build
@@ -748,14 +757,30 @@ def windowed_launch(torch, ms, qkv, bias):
     out = torch.empty((batch, n, c3 // 3), dtype=torch.bfloat16,
                       device="cuda")
     stream = torch.cuda.current_stream().cuda_stream
-    scale = (c3 // 3 // H) ** -0.5
+    scale = (c3 // 3 // heads) ** -0.5
 
     def launch():
         _build.check(lib, lib.dyt_mha_windowed(
             qkv.data_ptr(), bias.data_ptr(), out.data_ptr(), batch, n,
-            c3 // 3, H, bias.stride(0), bias.stride(1), scale, stream),
+            c3 // 3, heads, bias.stride(0), bias.stride(1), scale, stream),
             "windowed attention kernel")
     return launch
+
+
+def simt_q8_launch(torch, qt, qkv, heads):
+    """K10 on the SIMT core's int8-score form through its C entry: the
+    route the parent took at head dims 192 and 256, timed beside the wgmma
+    kernel that replaces it."""
+    from dynamic_tuning_tpu_torch.ops import _build
+    lib = _build.library()
+    batch, n, c3 = qkv.shape
+    C_ = c3 // 3
+    out = torch.empty((batch, n, C_), dtype=torch.bfloat16, device="cuda")
+    scratch = qt._core_scratch(lib, batch, n, C_, heads, qkv.device)
+    stream = torch.cuda.current_stream().cuda_stream
+    return lambda: _build.check(lib, lib.dyt_simt_core_q8(
+        qkv.data_ptr(), out.data_ptr(), scratch.data_ptr(), batch, n, C_,
+        heads, (C_ // heads) ** -0.5, 0, stream), "SIMT int8-score core")
 
 
 def core_launch(torch, q, k, v, *, k15=False, bias=None):
@@ -3569,7 +3594,7 @@ def phase_parallel(torch, ms, qt, fm, np, sd, seg_sd) -> dict:
     return {"dyt_prologue_serving": k3, "mha_windowed_fused": k9}
 
 
-# --- phase 16: fp32 forms, adapter and MoE widths, head dims 192 and 256 ----
+# --- phase 16: fp32 forms, adapter and MoE widths, head dims 192 and up ----
 
 F32_B = 32                      # fp32 kernel checks: ViT-B/16 rows of 32 images
 F32_REL = 1e-5                  # an fp32 form against its plain version
@@ -3581,6 +3606,8 @@ F32_GATE_AGREE = 0.9995
 WIDE_F = 256                    # an adapter past the wgmma tail's 128
 WIDE_MOE = (4, 192)             # E * b = 768, past the wgmma tail's 512
 HD192_HEADS = 4                 # C = 768 in 4 heads of 192
+HD384_HEADS = 2                 # C = 768 in 2 heads of 384 (past 256)
+SEG_HD192_IMG = 512             # the head-dim-192 BEiT backbone's crop
 # name:form -> (module of the wrapper, JSON fields): the forms this phase
 # adds to the kernels line
 FORMS = {
@@ -3611,15 +3638,32 @@ FORMS = {
     "dyt_prologue_serving:bf16+wide_heads": ("ms", dict(
         route="cuda", source=f"{SRC}/attention_sublayer.cu",
         replaces=f"{JAX_OPS}/mha_serving.py:581")),
-    "dyt_prologue_serving_q8:bf16+simt_core": ("qt", dict(
-        route="cuda", source=f"{SRC}/simt_core_q8.cu",
+    "dyt_prologue_serving_q8:bf16+wide_heads": ("qt", dict(
+        route="cuda", source=f"{SRC}/quant.cu",
         replaces=f"{JAX_OPS}/quant.py:531")),
-    "attn_core_pairs_q8:bf16+simt_core": ("qt", dict(
-        route="cuda", source=f"{SRC}/simt_core_q8.cu",
+    "attn_core_pairs_q8:bf16+wide_heads": ("qt", dict(
+        route="cuda", source=f"{SRC}/quant.cu",
         replaces=f"{JAX_OPS}/quant.py:309")),
     "mha_serving:bf16+wide_heads": ("ms", dict(
         route="cuda", source=f"{SRC}/attention_sublayer.cu",
         replaces=f"{JAX_OPS}/mha_serving.py:49")),
+    "mha_windowed_fused:bf16+wide_heads": ("ms", dict(
+        route="cuda", source=f"{SRC}/attention_sublayer.cu",
+        replaces=f"{JAX_OPS}/mha_serving.py:321")),
+    # past head dim 256 (2 heads of 384 at ViT-B/16 width): the SIMT core's
+    # 64-column slices
+    "dyt_prologue_serving:bf16+simt_core": ("ms", dict(
+        route="cuda", source=f"{SRC}/simt_core.cuh",
+        replaces=f"{JAX_OPS}/mha_serving.py:581")),
+    "mha_serving:bf16+simt_core": ("ms", dict(
+        route="cuda", source=f"{SRC}/simt_core.cuh",
+        replaces=f"{JAX_OPS}/mha_serving.py:49")),
+    "dyt_prologue_serving_q8:bf16+simt_core": ("qt", dict(
+        route="cuda", source=f"{SRC}/simt_core.cuh",
+        replaces=f"{JAX_OPS}/quant.py:531")),
+    "attn_core_pairs_q8:bf16+simt_core": ("qt", dict(
+        route="cuda", source=f"{SRC}/simt_core.cuh",
+        replaces=f"{JAX_OPS}/quant.py:309")),
     "dyt_prologue_serving:bf16+simt_tail": ("ms", dict(
         route="cuda", source=f"{SRC}/simt_chain.cu",
         replaces=f"{JAX_OPS}/mha_serving.py:581")),
@@ -3857,17 +3901,18 @@ def forms_kernels(torch, ms, qt, _build) -> dict:
              "fp32": 2 * M * C * (E_ + 1)}, **bfq)
         if (E_, b_) == WIDE_MOE:
             out["dyt_prologue_serving_moe:bf16+simt_tail"] = res
-    for C_, heads in ((C, HD192_HEADS), (1024, 4)):
+    for C_, heads in ((C, HD192_HEADS), (1024, 4), (C, HD384_HEADS)):
         hd = C_ // heads
+        wide = hd > 256                # the SIMT core's 64-column slices
+        core = "the SIMT core" if wide else "the wgmma core"
         x_, s_, qs_, ad_, _ = forms_inputs(torch, ms, qt, dtype=bf, C_=C_)
         g_ = 2 * M * C_ * 4 * C_
         a_ = 2 * F32_B * heads * N * N * hd        # one product of the core
         # the cores' products take bf16 operands (K10's q.k int8): the bound
         # counts them at the bf16 (int8) tensor rate; every form is timed,
-        # the kernels line holds head dim 192
-        line = hd == C // HD192_HEADS
+        # the kernels line holds head dims 192 and 384
         res = measure(
-            f"K3 bf16 head_dim {hd} (C={C_}, {heads} heads; the wgmma core)",
+            f"K3 bf16 head_dim {hd} (C={C_}, {heads} heads; {core})",
             lambda: ms.dyt_prologue_serving(x_, *s_, *ad_, heads=heads),
             lambda: ms.dyt_prologue_plain(x_, *s_, *ad_, heads=heads),
             ("x_mid", "adapt", "logits"), (x_, *s_, *ad_),
@@ -3889,46 +3934,165 @@ def forms_kernels(torch, ms, qt, _build) -> dict:
         qc, kc, vc = (t.contiguous() for t in (q_, k_, v_))
         sdpa = lambda: F.scaled_dot_product_attention(qc, kc, vc)  # noqa
         res15 = measure(
-            f"K15 bf16 head_dim {hd} (views of the raw qkv)",
+            f"K15 bf16 head_dim {hd} (views of the raw qkv; {core})",
             lambda: ms.mha_serving(q_, k_, v_),
             lambda: ms.mha_serving_plain(q_, k_, v_), ("core",), (qkv_,),
             {"bf16": 2 * a_}, library=sdpa,
-            timed=core_launch(torch, q_, k_, v_, k15=True), **bfq)
+            timed=None if wide else core_launch(torch, q_, k_, v_, k15=True),
+            **bfq)
         check_ulp_share(f"K15 bf16 head_dim {hd}", ms.mha_serving(q_, k_, v_),
                         ms.mha_serving_plain(q_, k_, v_))
         measure(f"K1 bf16 head_dim {hd}",
                 lambda: ms.mha_serving_fused(qkv_, heads=heads),
                 lambda: ms.attn_core_pairs(qkv_, heads=heads), ("core",),
                 (qkv_,), {"bf16": 2 * a_}, library=sdpa,
-                timed=core_launch(torch, q_, k_, v_, k15=False), **bfq)
+                timed=None if wide else core_launch(torch, q_, k_, v_,
+                                                    k15=False), **bfq)
         check_ulp_share(f"K1 bf16 head_dim {hd}",
                         ms.mha_serving_fused(qkv_, heads=heads),
                         ms.attn_core_pairs(qkv_, heads=heads))
+        route10 = qt._core_q8_route(_build.library(), N, C_, heads, bf)
         res10 = measure(
-            f"K10 bf16 head_dim {hd}",
+            f"K10 bf16 head_dim {hd} (route {route10})",
             lambda: qt.attn_core_pairs_q8(qkv_, heads=heads),
             lambda: qt.attn_core_pairs_q8_plain(qkv_, heads=heads),
             ("core",), (qkv_,), {"int8": a_, "bf16": a_}, **bfq)
-        if line:
+        check_ulp_share(f"K10 bf16 head_dim {hd}",
+                        qt.attn_core_pairs_q8(qkv_, heads=heads),
+                        qt.attn_core_pairs_q8_plain(qkv_, heads=heads))
+        if not wide:
+            print(f"  K10 bf16 head_dim {hd} on the SIMT int8-score form "
+                  f"(the parent's route): "
+                  f"{time_ms(simt_q8_launch(torch, qt, qkv_, heads)):.4f} ms")
+        # K9 at the seg crop (B=1, N=SEG_N) with the layer's padded bias
+        sq = torch.randn((1, SEG_N, 3 * C_), generator=g,
+                         device="cuda").to(bf)
+        ld = ms.bias_row_stride(SEG_N)
+        b9 = (torch.randn((heads, SEG_N, ld), generator=g, device="cuda")
+              .to(bf)[:, :, :SEG_N])
+        q9, k9, v9 = (t.contiguous() for t in sq.view(
+            1, SEG_N, 3, heads, hd).permute(2, 0, 3, 1, 4))
+        mask = b9.contiguous()[None]
+        res9 = measure(
+            f"K9 bf16 head_dim {hd} (B=1, N={SEG_N}; "
+            + ("the SIMT core)" if wide else "the wgmma ring with the bias "
+               "blocks)"),
+            lambda: ms.mha_windowed_fused(sq, b9, heads=heads),
+            lambda: ms.mha_windowed_plain(sq, b9, heads=heads),
+            ("core",), (sq, b9.contiguous()),
+            {"bf16": 4 * SEG_N * SEG_N * hd * heads},
+            timed=None if wide else windowed_launch(torch, ms, sq, b9,
+                                                    heads),
+            library=lambda: F.scaled_dot_product_attention(
+                q9, k9, v9, attn_mask=mask), **bfq)
+        check_ulp_share(f"K9 bf16 head_dim {hd}",
+                        ms.mha_windowed_fused(sq, b9, heads=heads),
+                        ms.mha_windowed_plain(sq, b9, heads=heads))
+        if hd == 192:
             out["dyt_prologue_serving:bf16+wide_heads"] = res
-            out["dyt_prologue_serving_q8:bf16+simt_core"] = res6
+            out["dyt_prologue_serving_q8:bf16+wide_heads"] = res6
             out["mha_serving:bf16+wide_heads"] = res15
+            out["attn_core_pairs_q8:bf16+wide_heads"] = res10
+            out["mha_windowed_fused:bf16+wide_heads"] = res9
+        elif wide:
+            out["dyt_prologue_serving:bf16+simt_core"] = res
+            out["dyt_prologue_serving_q8:bf16+simt_core"] = res6
+            out["mha_serving:bf16+simt_core"] = res15
             out["attn_core_pairs_q8:bf16+simt_core"] = res10
-            sq = torch.randn((1, SEG_N, 3 * C_), generator=g,
-                             device="cuda").to(bf)
-            b9 = torch.randn((heads, SEG_N, SEG_N), generator=g,
-                             device="cuda").to(bf)
-            q9, k9, v9 = (t.contiguous() for t in sq.view(
-                1, SEG_N, 3, heads, hd).permute(2, 0, 3, 1, 4))
-            measure(f"K9 bf16 head_dim {hd} (B=1, N={SEG_N}; the SIMT core)",
-                    lambda: ms.mha_windowed_fused(sq, b9, heads=heads),
-                    lambda: ms.mha_windowed_plain(sq, b9, heads=heads),
-                    ("core",), (sq, b9),
-                    {"bf16": 4 * SEG_N * SEG_N * hd * heads},
-                    library=lambda: F.scaled_dot_product_attention(
-                        q9, k9, v9, attn_mask=b9[None]), **bfq)
+        del x_, s_, qs_, ad_, qkv_, q_, k_, v_, qc, kc, vc, sq, b9, q9, k9
+        del v9, mask
         torch.cuda.empty_cache()
+    forms_past_256(torch, ms, qt, _build)
     return out
+
+
+def forms_past_256(torch, ms, qt, _build) -> None:
+    """Every core form at 2 heads of 320 (past the wgmma and fp32 cores'
+    head dims: the SIMT core's 64-column slices) against its plain version,
+    checked and not timed: bf16 and fp32 K1, K9 (bias), K10 and the
+    sublayer chains K2, K3, K7, K5, K6, K8 (with and without int8 scores),
+    K15, and the exact core bit for bit."""
+    f32, bf = torch.float32, torch.bfloat16
+    heads, C_, Bq, Nq = 2, 640, 4, N
+    hd = C_ // heads
+    g = torch.Generator(device="cuda").manual_seed(32)
+    lib = _build.library()
+    for dt in (bf, f32):
+        qkv = torch.randn((Bq, Nq, 3 * C_), generator=g, device="cuda")
+        qkv[..., C_:2 * C_] += 1.0
+        qkv = qkv.to(dt)
+        rel = dict(rel=F32_REL) if dt == f32 else {}
+        tag = f"hd {hd} {'fp32' if dt == f32 else 'bf16'}"
+        bias = torch.randn((heads, Nq, Nq), generator=g,
+                           device="cuda").to(bf)
+        for name, call, plain in (
+                ("K1", lambda: ms.mha_serving_fused(qkv, heads=heads),
+                 lambda: ms.attn_core_pairs(qkv, heads=heads)),
+                ("K9", lambda: ms.mha_windowed_fused(qkv, bias, heads=heads),
+                 lambda: ms.mha_windowed_plain(qkv, bias, heads=heads))):
+            measure(f"{name} {tag}", call, plain, ("core",), (qkv,), {},
+                    check_only=True, **rel)
+        measure(f"K10 {tag}", lambda: qt.attn_core_pairs_q8(qkv, heads=heads),
+                lambda: qt.attn_core_pairs_q8_plain(qkv, heads=heads),
+                ("core",), (qkv,), {}, check_only=True)
+        if dt == bf:
+            q_, k_, v_ = qkv.view(Bq, Nq, 3, heads, hd).permute(2, 0, 3, 1, 4)
+            measure(f"K15 {tag}", lambda: ms.mha_serving(q_, k_, v_),
+                    lambda: ms.mha_serving_plain(q_, k_, v_), ("core",),
+                    (qkv,), {}, check_only=True)
+        else:
+            out = torch.empty((Bq, Nq, C_), device="cuda")
+            _build.check(lib, lib.dyt_simt_core_exact(
+                qkv.data_ptr(), out.data_ptr(), Bq, Nq, C_, heads,
+                hd ** -0.5, torch.cuda.current_stream().cuda_stream),
+                "exact core")
+            same = torch.equal(out, ms.attn_core_pairs(qkv, heads=heads))
+            print(f"exact core {tag}: bit-identical to the plain version: "
+                  f"{same}")
+            if not same:
+                fail(f"exact core {tag} differs from its plain version")
+        x_, s_, qs_, ad_, moe_ = forms_inputs(torch, ms, qt, dtype=dt,
+                                              batch=Bq, C_=C_)
+        for name, call, plain, outs in (
+                ("K2", lambda: ms.attention_sublayer_serving(
+                    x_, *s_, heads=heads),
+                 lambda: ms.attention_sublayer_plain(x_, *s_, heads=heads),
+                 ("x_mid",)),
+                ("K3", lambda: ms.dyt_prologue_serving(x_, *s_, *ad_,
+                                                       heads=heads),
+                 lambda: ms.dyt_prologue_plain(x_, *s_, *ad_, heads=heads),
+                 ("x_mid", "adapt", "logits")),
+                ("K7", lambda: ms.dyt_prologue_serving_moe(
+                    x_, *s_, *moe_, *ad_[5:], heads=heads, tau=TAU),
+                 lambda: ms.dyt_prologue_moe_plain(
+                     x_, *s_, *moe_, *ad_[5:], heads=heads, tau=TAU),
+                 ("x_mid", "adapt", "logits"))):
+            measure(f"{name} {tag}", call, plain, outs, (x_,), {},
+                    check_only=True, **(dict(rel=F32_REL, logit_rel=F32_REL)
+                                        if dt == f32 else {}))
+        for q8 in (False, True):
+            kw = dict(heads=heads, attn_q8=q8)
+            q8rel = dict(rel=F32_REL, logit_rel=F32_REL) if dt == f32 else {}
+            if dt == bf:
+                measure(f"K5 {tag} attn_q8={q8}",
+                        lambda: qt.attention_sublayer_serving_q8(x_, *qs_,
+                                                                 **kw),
+                        lambda: qt.attention_sublayer_q8_plain(x_, *qs_,
+                                                               **kw),
+                        ("x_mid",), (x_,), {}, check_only=True)
+            measure(f"K6 {tag} attn_q8={q8}",
+                    lambda: qt.dyt_prologue_serving_q8(x_, *qs_, *ad_, **kw),
+                    lambda: qt.dyt_prologue_q8_plain(x_, *qs_, *ad_, **kw),
+                    ("x_mid", "adapt", "logits"), (x_,), {}, check_only=True,
+                    **q8rel)
+            measure(f"K8 {tag} attn_q8={q8}",
+                    lambda: qt.dyt_prologue_serving_q8_moe(
+                        x_, *qs_, *moe_, *ad_[5:], tau=TAU, **kw),
+                    lambda: qt.dyt_prologue_q8_moe_plain(
+                        x_, *qs_, *moe_, *ad_[5:], tau=TAU, **kw),
+                    ("x_mid", "adapt", "logits"), (x_,), {}, check_only=True,
+                    **q8rel)
+    torch.cuda.empty_cache()
 
 
 def forms_compare(torch, ms, qt, fm, res, run, kwargs, fp32: bool) -> None:
@@ -3998,11 +4162,13 @@ def forms_main_path(torch, ms, qt, fm, speed, predict, config,
                     sds) -> dict:
     """The main path of every new form, through the entry points: speed.main
     in fp32 (dispatch, dense, plain, int8, int8_attn, MoE) and at the bf16
-    widths; a bf16 ViT at head dim 192; predict.serve at head dim 192
-    (--quant none: K15, its forward against the plain versions'; int8_attn:
-    K6 and K10); main_image in fp32 (2 steps and a dispatch evaluation); an
-    fp32 seg crop evaluation (K9); the fp32 LayerScale backbone (K1).
-    Launches counted for each, the counts set to 0 just before."""
+    widths; a bf16 ViT at head dims 192 and 384; the BEiT backbone at head
+    dim 192 (K9); predict.serve at head dims 192 and 384 (--quant none:
+    K15, at 192 its forward against the plain versions'; int8_attn: K6 and
+    K10); main_image, main_vtab and main_video in fp32 (short runs, each
+    with a dispatch evaluation); an fp32 seg crop evaluation (K9); the fp32
+    LayerScale backbone (K1).  Launches counted for each, the counts set
+    to 0 just before."""
     import shutil
 
     from dynamic_tuning_tpu_torch import main_image, seg_train
@@ -4011,6 +4177,7 @@ def forms_main_path(torch, ms, qt, fm, speed, predict, config,
     from dynamic_tuning_tpu_torch.models import fast_inference as fast
     from dynamic_tuning_tpu_torch.models import seg_vit
     from dynamic_tuning_tpu_torch.models.vit import VisionTransformer
+    from dynamic_tuning_tpu_torch.ops import dispatch as D
     launches = {k: 0 for k in KERNELS}
     ips = {}
     for flags, batch, sd, kernels, compare in FORM_RUNS:
@@ -4038,90 +4205,137 @@ def forms_main_path(torch, ms, qt, fm, speed, predict, config,
         print(f"  ({time.perf_counter() - t0:.1f} s)")
         del res
         torch.cuda.empty_cache()
-    # a bf16 ViT-B/16 at head dim 192 (4 heads): the model's forward (its
-    # init draws skipped: every parameter is loaded, checked), its K3 on the
-    # wgmma core
-    t0 = time.perf_counter()
-    cfg = config.ModelConfig(num_classes=100, num_heads=HD192_HEADS,
-                             gelu_approx=True, residual_dtype="bfloat16")
-    with mock.patch.object(torch.nn.init, "trunc_normal_",
-                           lambda t, *a, **k: t):
-        model = VisionTransformer(cfg, tuning=config.TuningConfig(),
-                                  select=config.SelectConfig(
-                                      token_target_ratio=0.5),
-                                  dtype=torch.bfloat16)
-    missing, _ = load_timm_state_dict(model, {k: torch.from_numpy(v)
-                                              for k, v in sds[0].items()},
-                                      log=lambda m: None)
-    if missing:
-        fail(f"head dim 192 ViT: {len(missing)} parameters not loaded")
-    model = model.cuda().eval()
+    # a bf16 ViT-B/16 at head dims 192 (4 heads: the wgmma core) and 384 (2
+    # heads: the SIMT core's slices): the model's forward (its init draws
+    # skipped: every parameter is loaded, checked)
     g = torch.Generator(device="cuda").manual_seed(21)
     x = torch.randn((F32_B, 224, 224, 3), generator=g, device="cuda")
+    for heads, form in ((HD192_HEADS, "wide_heads"),
+                        (HD384_HEADS, "simt_core")):
+        t0 = time.perf_counter()
+        cfg = config.ModelConfig(num_classes=100, num_heads=heads,
+                                 gelu_approx=True, residual_dtype="bfloat16")
+        with mock.patch.object(torch.nn.init, "trunc_normal_",
+                               lambda t, *a, **k: t):
+            model = VisionTransformer(cfg, tuning=config.TuningConfig(),
+                                      select=config.SelectConfig(
+                                          token_target_ratio=0.5),
+                                      dtype=torch.bfloat16)
+        missing, _ = load_timm_state_dict(model, {
+            k: torch.from_numpy(v) for k, v in sds[0].items()},
+            log=lambda m: None)
+        if missing:
+            fail(f"head dim {C // heads} ViT: {len(missing)} parameters not "
+                 "loaded")
+        model = model.cuda().eval()
+        reset_counts(ms, qt, fm)
+        with torch.inference_mode():
+            logits, aux = model(x, dispatch=True)
+        run = f"ViT-B/16 bf16 head_dim {C // heads} dispatch"
+        counts = forms_counts(ms, qt, fm, run,
+                              (f"dyt_prologue_serving:bf16+{form}",), 1)
+        for k in KERNELS:
+            launches[k] += counts[k]
+        forms_compare(torch, ms, qt, fm, dict(model=model, x=x,
+                                              logits=logits, aux=aux), run,
+                      dict(dispatch=True), False)
+        with torch.inference_mode():
+            t_fwd = time_ms(lambda: model(x, dispatch=True), iters=10)
+        print(f"{run}: {F32_B / t_fwd * 1e3:.2f} img/s at batch {F32_B} "
+              f"({t_fwd:.4f} ms a forward) "
+              f"({time.perf_counter() - t0:.1f} s)")
+        del model
+    # the BEiT backbone (K9 in every block) at head dim 192 on one 512^2
+    # crop, dispatch, against its plain-version forward
+    t0 = time.perf_counter()
+    cfg = config.ModelConfig(img_size=SEG_HD192_IMG, num_heads=HD192_HEADS,
+                             gelu_approx=True, residual_dtype="bfloat16")
+    model = seg_vit.beit_backbone(
+        cfg, config.TuningConfig(), config.SelectConfig(
+            token_target_ratio=0.5), dtype=torch.bfloat16,
+        generator=torch.Generator().manual_seed(1)).cuda().eval()
+    xs = torch.randn((1, SEG_HD192_IMG, SEG_HD192_IMG, 3), generator=g,
+                     device="cuda")
     reset_counts(ms, qt, fm)
-    with torch.inference_mode():
-        logits, aux = model(x, dispatch=True)
-    run = f"ViT-B/16 bf16 head_dim {C // HD192_HEADS} dispatch"
+    scores = []
+    with routing(D, record=scores), torch.inference_mode():
+        feats, aux = model(xs, dispatch=True)
+    run = f"beit_backbone bf16 head_dim {C // HD192_HEADS}"
     counts = forms_counts(ms, qt, fm, run,
-                          ("dyt_prologue_serving:bf16+wide_heads",), 1)
+                          ("mha_windowed_fused:bf16+wide_heads",), 1)
     for k in KERNELS:
         launches[k] += counts[k]
-    forms_compare(torch, ms, qt, fm, dict(model=model, x=x, logits=logits,
-                                          aux=aux), run, dict(dispatch=True),
-                  False)
-    with torch.inference_mode():
-        t_fwd = time_ms(lambda: model(x, dispatch=True), iters=10)
-    print(f"{run}: {F32_B / t_fwd * 1e3:.2f} img/s at batch {F32_B} "
-          f"({t_fwd:.4f} ms a forward) ({time.perf_counter() - t0:.1f} s)")
-    del model
-    # predict.serve at head dim 192: the fast path (K15) and int8_attn
+    # the plain-version forward free (its gates) and on the kernels'
+    # dispatch (its features), as phase 6 holds the BEiT backbone
+    with plain_versions(ms, qt, fm), torch.inference_mode():
+        _, free_aux = model(xs, dispatch=True)
+    with (routing(D, replay=scores), plain_versions(ms, qt, fm),
+          torch.inference_mode()):
+        ref, _ = model(xs, dispatch=True)
+    agree = (aux["token_select"] == free_aux["token_select"]).float().mean(
+    ).item()
+    worst = max(rel_err(f, r)[0] / rel_err(f, r)[1] for f, r in zip(feats,
+                                                                     ref))
+    print(f"{run} ({SEG_HD192_IMG}^2, dispatch): {DEPTH} K9 launches; gate "
+          f"agreement with the plain-version forward {agree:.6f}; features "
+          f"vs plain versions on the same dispatch: max rel err {worst:.3g} "
+          f"(tol {MODEL_REL:g}) ({time.perf_counter() - t0:.1f} s)")
+    if (not all(torch.isfinite(f).all() for f in feats) or worst > MODEL_REL
+            or agree < GATE_AGREE):
+        fail(f"{run} disagrees with its plain versions")
+    del model, feats, ref
+    # predict.serve at head dims 192 and 384: the fast path (K15) and
+    # int8_attn (K6 and K10)
     t0 = time.perf_counter()
     canv = torch.randint(0, 256, (F32_B, 256, 256, 3), generator=g,
                          device="cuda", dtype=torch.uint8)
     sd = {k: torch.from_numpy(v) for k, v in sds[0].items()}
-    for quant, kernels in (("none", ("mha_serving:bf16+wide_heads",)),
-                           ("int8_attn",
-                            ("dyt_prologue_serving_q8:bf16+simt_core",
-                             "attn_core_pairs_q8:bf16+simt_core",
-                             "q8_ln_mlp"))):
-        a = predict.get_args_parser().parse_args(
-            ["--ckpt", "unused", "--images", "unused", "--num_heads",
-             str(HD192_HEADS), "--quant", quant, "--batch_size",
-             str(F32_B)])
-        params = predict.load_params(a, torch.device("cuda"), state_dict=sd)
-        reset_counts(ms, qt, fm)
-        with contextlib.redirect_stdout(io.StringIO()):
-            results = predict.serve(a, canv, params)
-        run = f"predict.serve head_dim {C // HD192_HEADS} quant={quant}"
-        counts = forms_counts(ms, qt, fm, run, kernels)
-        for k in KERNELS:
-            launches[k] += counts[k]
-        if len(results) != F32_B:
-            fail(f"{run}: {len(results)} results")
-        print(f"{run}: {len(results)} canvases, {DEPTH} launches of "
-              f"{', '.join(kernels)} a forward "
-              f"({time.perf_counter() - t0:.1f} s since the first)")
-        if quant == "none":
-            # the forward predict.serve runs, against the plain versions'
-            cfg_, tuning_, sel_ = predict.configs(a)
+    for heads, form in ((HD192_HEADS, "wide_heads"),
+                        (HD384_HEADS, "simt_core")):
+        for quant, kernels in (
+                ("none", (f"mha_serving:bf16+{form}",)),
+                ("int8_attn", (f"dyt_prologue_serving_q8:bf16+{form}",
+                               f"attn_core_pairs_q8:bf16+{form}",
+                               "q8_ln_mlp"))):
+            a = predict.get_args_parser().parse_args(
+                ["--ckpt", "unused", "--images", "unused", "--num_heads",
+                 str(heads), "--quant", quant, "--batch_size", str(F32_B)])
+            params = predict.load_params(a, torch.device("cuda"),
+                                         state_dict=sd)
+            reset_counts(ms, qt, fm)
+            with contextlib.redirect_stdout(io.StringIO()):
+                results = predict.serve(a, canv, params)
+            run = f"predict.serve head_dim {C // heads} quant={quant}"
+            counts = forms_counts(ms, qt, fm, run, kernels)
+            for k in KERNELS:
+                launches[k] += counts[k]
+            if len(results) != F32_B:
+                fail(f"{run}: {len(results)} results")
+            print(f"{run}: {len(results)} canvases, {DEPTH} launches of "
+                  f"{', '.join(kernels)} a forward "
+                  f"({time.perf_counter() - t0:.1f} s since the first)")
+            if quant == "none" and heads == HD192_HEADS:
+                # the forward predict.serve runs, against the plain
+                # versions'
+                cfg_, tuning_, sel_ = predict.configs(a)
 
-            def fwd():
-                return fast.fast_vit_forward(
-                    params, x, cfg=cfg_, tuning=tuning_, select=sel_,
-                    mode="dispatch", use_kernel=False)
-            with torch.inference_mode():
-                logits, gates = fwd()
-                with plain_versions(ms, qt, fm):
-                    ref, ref_gates = fwd()
-            err, mag = rel_err(logits, ref)
-            agree = (gates == ref_gates).float().mean().item()
-            print(f"  its forward vs plain versions: logits max|err| "
-                  f"{err:.6g} (tol {MODEL_REL * mag:.6g}), gate agreement "
-                  f"{agree:.6f}")
-            if err > MODEL_REL * mag or agree < GATE_AGREE:
-                fail(f"{run}: the forward disagrees with the plain-version "
-                     "forward")
-        del params
+                def fwd():
+                    return fast.fast_vit_forward(
+                        params, x, cfg=cfg_, tuning=tuning_, select=sel_,
+                        mode="dispatch", use_kernel=False)
+                with torch.inference_mode():
+                    logits, gates = fwd()
+                    with plain_versions(ms, qt, fm):
+                        ref, ref_gates = fwd()
+                err, mag = rel_err(logits, ref)
+                agree = (gates == ref_gates).float().mean().item()
+                print(f"  its forward vs plain versions: logits max|err| "
+                      f"{err:.6g} (tol {MODEL_REL * mag:.6g}), gate "
+                      f"agreement {agree:.6f}")
+                if err > MODEL_REL * mag or agree < GATE_AGREE:
+                    fail(f"{run}: the forward disagrees with the "
+                         "plain-version forward")
+            del params
     # main_image in fp32: 2 training steps, an evaluation on the dispatch
     # path (64 synthetic images of each split, batch 32)
     root = os.path.join(REPO, "build", "phase_forms")
@@ -4152,6 +4366,50 @@ def forms_main_path(torch, ms, qt, fm, speed, predict, config,
           f"{time.perf_counter() - t0:.1f} s, acc1 {stats['max_metric']}, "
           f"{counts['dyt_prologue_serving:fp32']} K3 fp32 launches "
           f"({DEPTH} a forward)")
+    # main_vtab and main_video in fp32 (the VTAB recipe's one epoch on 64
+    # synthetic images; one epoch of 32 synthetic clips of 8 frames and a
+    # 3-view evaluation of 16), each with a dispatch evaluation
+    import numpy as np
+
+    from dynamic_tuning_tpu_torch import main_video, main_vtab
+    from dynamic_tuning_tpu_torch.checkpoint import make_vit_state_dict
+    from dynamic_tuning_tpu_torch.data import video as vdata
+    real_v = vdata.DummyVideoDataset
+    ft16 = os.path.join(root, "ft16.pth")        # the VTAB recipe's F = 16
+    torch.save({k: torch.from_numpy(v) for k, v in make_vit_state_dict(
+        np.random.RandomState(0), depth=DEPTH, dim=C, ffn=16, classes=100,
+        img=224, patch=16, router_scale=25.0).items()}, ft16)
+    for name, main, patch, flags in (
+            ("main_vtab fp32", main_vtab,
+             mock.patch.object(datasets, "SyntheticDataset",
+                               lambda n, *a, **kw: real(min(n, 2 * F32_B),
+                                                        *a, **kw)),
+             ["--task", "synthetic", "--epochs", "1", "--finetune", ft16]),
+            ("main_video fp32", main_video,
+             mock.patch.object(vdata, "DummyVideoDataset",
+                               lambda n, *a, **kw: real_v(
+                                   min(n, 32 if n > 64 else 16), *a, **kw)),
+             ["--dataset", "synthetic", "--batch_size", "16", "--epochs",
+              "1", "--warmup_epochs", "1", "--no_auto_remove", "--finetune",
+              ft])):
+        reset_counts(ms, qt, fm)
+        t0 = time.perf_counter()
+        with patch:
+            stats = main.main(main.get_args_parser().parse_args(
+                flags + ["--compute_dtype", "float32", "--eval_dispatch",
+                         "--output_dir", os.path.join(root,
+                                                      name.split()[0])]))
+        counts = forms_counts(ms, qt, fm, name,
+                              ("dyt_prologue_serving:fp32",))
+        for k in KERNELS:
+            launches[k] += counts[k]
+        stats = stats.get("synthetic", stats)      # main_vtab: by task
+        acc = stats.get("max_metric", stats.get("acc1"))
+        if acc is None or not 0.0 <= acc <= 100.0:
+            fail(f"{name}: run stats {stats}")
+        print(f"{name}: trained and evaluated on the dispatch path in "
+              f"{time.perf_counter() - t0:.1f} s, acc1 {acc}, "
+              f"{counts['dyt_prologue_serving:fp32']} K3 fp32 launches")
     # an fp32 seg crop evaluation (slide inference of one synthetic image)
     args = seg_train.get_args_parser().parse_args(
         ["--dataset", "synthetic", "--crop_size", "512", "--compute_dtype",
@@ -4204,8 +4462,9 @@ def forms_main_path(torch, ms, qt, fm, speed, predict, config,
 
 def phase_forms(torch, ms, qt, fm, speed, predict, config, _build,
                 sds) -> tuple:
-    """Phase 16: the fp32 forms, adapter and MoE widths and head dims 192
-    and 256.  Returns (measured, launches) of the FORMS entries."""
+    """Phase 16: the fp32 forms, adapter and MoE widths and head dims 192,
+    256 and past 256.  Returns (measured, launches) of the FORMS
+    entries."""
     t0 = time.perf_counter()
     measured = forms_kernels(torch, ms, qt, _build)
     print(f"phase forms, kernel checks: {time.perf_counter() - t0:.1f} s")

@@ -59,8 +59,15 @@
 // generic forms (dynamic_tuning_tpu/ops/mha_serving.py:31 _mha_kernel, :110
 // _mha_fused_kernel and :409 attn_core_pairs).  At B = 32, N = 197 in 4
 // heads of 192 the core moves 38.7 MB (0.012 ms at 3.35 TB/s) for 7.6
-// GFLOP (0.008 ms at the bf16 peak), with 5 M exps.
+// GFLOP (0.008 ms at the bf16 peak), with 5 M exps.  The ring with K9's
+// bias blocks in its stages is K9 at these head dims (dyt_mha_windowed
+// forwards to dyt_mha_windowed_wide).  Past head dim 256 the chain's core
+// is simt_core.cu's, where the caller routes it (``simt_core``).
 #include "gemm.cuh"
+
+extern "C" int dyt_simt_core_qkv(const void* qkv, void* out, int B, int N,
+                                 int C, int H, float scale, int t_f32,
+                                 void* stream);
 
 namespace dyt {
 
@@ -889,7 +896,8 @@ static cudaError_t launch_core_wide(const CoreArgs& a, int B,
 // ---------------------------------------------------------------------------
 // Head dims 192 and 256 past the N whose K and V fit the wide kernel (224
 // at hd 192, 160 at hd 256): the wide kernel's two warpgroups, each its own
-// 64-row query tile (a block the pair 2 x, 2 x + 1 of one (sample, head)),
+// 64-row query tile (a block the pair 2 x, 2 x + 1 of one (sample, head);
+// one tile, the second warpgroup idle, where those blocks fit one wave),
 // walking the head's keys in 64-key tiles that TMA brings into a ring of
 // two stages (96 or 128 KB) shared by both: thread 0 refills a stage once
 // every warp of the block is past its P V.  The q tiles come by TMA with
@@ -898,24 +906,33 @@ static cudaError_t launch_core_wide(const CoreArgs& a, int B,
 // give the same bits (a ragged last tile's keys past N add exact zeros).
 // Both warpgroups wait for each stage, so they run in step: the exps of one
 // run beside the other's products, not a tile apart.
-template <int HD>
+//
+// With BIAS it is also K9 at these head dims (dynamic_tuning_tpu/ops/
+// mha_serving.py:321 mha_windowed_fused, entered through dyt_mha_windowed):
+// each stage also holds the two warpgroups' 64 x 64 blocks of the bf16
+// [H, N, N] bias, which TMA brings with K and V (the 3-D map and 128-byte
+// swizzle of windowed_attention.cu), added to the fp32 scores before the
+// exp.  Two stages take 160 KB at hd 256, 128 KB at hd 192.
+template <int HD, bool BIAS = false>
 struct WideRingLayout {
   static constexpr int KT = CORE_STREAM_KEYS;               // keys a tile
   static constexpr int KV = KT * HD * 2;                    // a K or V tile
-  static constexpr int STAGE = 2 * KV;
+  static constexpr int BT = 64 * KT * 2;                    // a bias block
+  static constexpr int STAGE = 2 * KV + (BIAS ? 2 * BT : 0);
   static constexpr int STAGES = 2;
   static constexpr int RING = STAGES * STAGE;
   static constexpr int QW = 64 * HD * 2;                    // a q' tile
   static constexpr int SMEM = 1024 + RING + 2 * QW + (2 * STAGES + 2) * 8;
 };
 
-template <int HD, bool K15>
+template <int HD, bool K15, bool BIAS>
 __global__ void __launch_bounds__(WIDE_THREADS, 1)
 attn_core_wide_ring_kernel(const __grid_constant__ CUtensorMap map_q,
                            const __grid_constant__ CUtensorMap map_k,
                            const __grid_constant__ CUtensorMap map_v,
-                           const CoreArgs a) {
-  using L = WideRingLayout<HD>;
+                           const __grid_constant__ CUtensorMap map_bias,
+                           const CoreArgs a, int tpb) {
+  using L = WideRingLayout<HD, BIAS>;
   constexpr int KT = L::KT;
   constexpr int KC = HD <= 192 ? 64 : 32;   // keys a chunk (the wide kernel's)
   constexpr int CPT = KT / KC;              // chunks a tile
@@ -933,16 +950,20 @@ attn_core_wide_ring_kernel(const __grid_constant__ CUtensorMap map_q,
   bf16* ob = a.o + b * a.so[0] + h * a.so[1];
   const int tid = threadIdx.x, wg = tid >> 7, wt = tid & 127;
   const int warp = wt >> 5, lane = tid & 31, t2 = (lane & 3) * 2;
-  const int qt = 2 * blockIdx.x + wg;
-  const bool active = qt * 64 < N;                 // the same for the group
+  const int g = lane >> 2;
+  const int q0t = tpb * blockIdx.x, qt = q0t + wg;
+  // the query tiles that have rows (K9 loads their bias blocks)
+  const int nqb = tpb == 2 && (q0t + 1) * 64 < N ? 2 : 1;
+  const bool active = wg < tpb && qt * 64 < N;     // the same for the group
   const bool live = active && qt * 64 + warp * 16 < N;
   unsigned char* Qw = ring + L::RING + wg * L::QW;
 
-  // key tile i into stage i % STAGES: K, then V, in 64-column boxes
+  // key tile i into stage i % STAGES: K, then V, in 64-column boxes (and
+  // the bias blocks [query tile, key tile] of the live query tiles)
   auto issue = [&](int i) {
     const int st = i % L::STAGES;
     unsigned char* dst = ring + st * L::STAGE;
-    mbar_expect_tx(&full[st], L::STAGE);
+    mbar_expect_tx(&full[st], 2 * L::KV + (BIAS ? nqb * L::BT : 0));
 #pragma unroll
     for (int c = 0; c < HD / 64; ++c) {
       tma_load_4d(dst + c * KT * 128, &map_k, &full[st], 64 * c, i * KT, h,
@@ -950,6 +971,10 @@ attn_core_wide_ring_kernel(const __grid_constant__ CUtensorMap map_q,
       tma_load_4d(dst + L::KV + c * KT * 128, &map_v, &full[st], 64 * c,
                   i * KT, h, b);
     }
+    if constexpr (BIAS)
+      for (int w = 0; w < nqb; ++w)
+        tma_load_3d(dst + 2 * L::KV + w * L::BT, &map_bias, &full[st],
+                    i * KT, (q0t + w) * 64, h);
   };
   if (tid == 0) {
     for (int st = 0; st < L::STAGES; ++st) {
@@ -963,12 +988,12 @@ attn_core_wide_ring_kernel(const __grid_constant__ CUtensorMap map_q,
   __syncthreads();
   if (tid == 0) {
     // the two q tiles (zeros past N), then the first key tiles
-    for (int w = 0; w < 2 && (2 * blockIdx.x + w) * 64 < N; ++w) {
+    for (int w = 0; w < tpb && (q0t + w) * 64 < N; ++w) {
       mbar_expect_tx(&qbar[w], L::QW);
 #pragma unroll
       for (int c = 0; c < HD / 64; ++c)
         tma_load_4d(ring + L::RING + w * L::QW + c * 64 * 128, &map_q,
-                    &qbar[w], 64 * c, (2 * blockIdx.x + w) * 64, h, b);
+                    &qbar[w], 64 * c, (q0t + w) * 64, h, b);
     }
     for (int i = 0; i < nt && i < L::STAGES; ++i) issue(i);
   }
@@ -1016,6 +1041,25 @@ attn_core_wide_ring_kernel(const __grid_constant__ CUtensorMap map_q,
       wgmma_wait<0>();             // these scores, and the last P V
       if (cc == 0 && i > 0) release(i);
       if (!active) continue;
+      if constexpr (BIAS) {
+        // s + bias: element 4 j + e of s is key cc * KC + 8 j + t2 + (e &
+        // 1) of row g + 8 (e >> 1) of the warp's 16; its bias sits in the
+        // block's swizzled row at 16-byte chunk (cc * KC / 8 + j) ^ g
+        if (live) {
+          const unsigned char* Bt = Kt + 2 * L::KV + wg * L::BT;
+#pragma unroll
+          for (int j = 0; j < KC / 8; ++j) {
+            const bf16* brow = reinterpret_cast<const bf16*>(
+                Bt + (warp * 16 + g) * 128 +
+                (((cc * (KC / 8) + j) ^ g) << 4)) + t2;
+            const float2 b_lo = load2(brow), b_hi = load2(brow + 8 * 64);
+            s[4 * j] += b_lo.x;
+            s[4 * j + 1] += b_lo.y;
+            s[4 * j + 2] += b_hi.x;
+            s[4 * j + 3] += b_hi.y;
+          }
+        }
+      }
       // every key of the tile (TMA zero-fills past N; p is masked there)
       unsigned pf[PS][4];
       wide_exp<KC, K15, false>(s, pf, kc, N, 0, t2, live, l_lo, l_hi);
@@ -1035,22 +1079,50 @@ attn_core_wide_ring_kernel(const __grid_constant__ CUtensorMap map_q,
                         live);
 }
 
-template <int HD, bool K15>
+// ``bias`` null (K1, K15) or K9's bf16 [H, N, N] bias with its padded
+// strides (elements; multiples of 8, the row stride at least N).
+template <int HD, bool K15, bool BIAS = false>
 static cudaError_t launch_core_wide_ring(const CoreArgs& a, int B,
-                                         cudaStream_t s) {
-  using L = WideRingLayout<HD>;
-  CUtensorMap maps[2], map_q;
+                                         cudaStream_t s,
+                                         const bf16* bias = nullptr,
+                                         long long head_stride = 0,
+                                         long long row_stride = 0) {
+  using L = WideRingLayout<HD, BIAS>;
+  CUtensorMap maps[2], map_q, map_bias{};
   cudaError_t err = core_maps(a, B, HD, L::KT, maps);
   if (err != cudaSuccess) return err;
   err = head_map(&map_q, a.q, a.sq, a, B, HD, 64);
   if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(attn_core_wide_ring_kernel<HD, K15>,
+  if constexpr (BIAS) {
+    const cuuint64_t dims[3] = {static_cast<cuuint64_t>(a.N),
+                                static_cast<cuuint64_t>(a.N),
+                                static_cast<cuuint64_t>(a.H)};
+    const cuuint64_t strides[2] = {static_cast<cuuint64_t>(row_stride) * 2,
+                                   static_cast<cuuint64_t>(head_stride) * 2};
+    const cuuint32_t box[3] = {64, 64, 1};
+    err = tensor_map(&map_bias, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, bias, 3,
+                     dims, strides, box);
+    if (err != cudaSuccess) return err;
+  }
+  err = cudaFuncSetAttribute(attn_core_wide_ring_kernel<HD, K15, BIAS>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              L::SMEM);
   if (err != cudaSuccess) return err;
-  const dim3 grid((a.N + 127) / 128, a.H, B);
-  attn_core_wide_ring_kernel<HD, K15><<<grid, WIDE_THREADS, L::SMEM, s>>>(
-      map_q, maps[0], maps[1], a);
+  // one query tile a block when those blocks fit the SMs in one wave (one
+  // block an SM), else the pair: K9 at B=1, N=1025 in 4 heads runs faster
+  // as 68 single tiles than as 36 pairs, and at B=2 as 72 pairs than as two
+  // waves of single tiles (PERF.md §6, K9)
+  int dev = 0, sms = 0;
+  err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return err;
+  const int nq = (a.N + 63) / 64;
+  const int tpb = (long long)nq * a.H * B <= sms ? 1 : 2;
+  const dim3 grid((nq + tpb - 1) / tpb, a.H, B);
+  attn_core_wide_ring_kernel<HD, K15, BIAS>
+      <<<grid, WIDE_THREADS, L::SMEM, s>>>(map_q, maps[0], maps[1], map_bias,
+                                           a, tpb);
   return cudaGetLastError();
 }
 
@@ -1118,13 +1190,15 @@ static cudaError_t attn_core(const bf16* qkv, bf16* out, int B, int N, int C,
   return attn_core_strided(a, B, (int)hd, false, s);
 }
 
+// The chain; ``simt_core`` runs its core on simt_core.cu's kernel (head
+// dims past 256, where the caller routes it) in place of the wgmma core.
 template <typename TX>
 static cudaError_t sublayer(const TX* x, const float* gamma, const float* beta,
                             const bf16* wqkv, const float* bqkv,
                             const bf16* wproj, const float* bproj, TX* out,
                             float* xm32, bf16* ln_buf, bf16* qkv_buf,
                             bf16* attn_buf, int B, int N, int C, int H,
-                            float scale, cudaStream_t s) {
+                            float scale, int simt_core, cudaStream_t s) {
   const int M = B * N;
   cudaError_t err = launch_layernorm_bf16<TX>(x, gamma, beta, ln_buf, M, C, s);
   if (err != cudaSuccess) return err;
@@ -1134,7 +1208,9 @@ static cudaError_t sublayer(const TX* x, const float* gamma, const float* beta,
                                           nullptr, s);
   if (err != cudaSuccess) return err;
 
-  err = attn_core(qkv_buf, attn_buf, B, N, C, H, scale, s);
+  err = simt_core ? static_cast<cudaError_t>(dyt_simt_core_qkv(
+                        qkv_buf, attn_buf, B, N, C, H, scale, 0, s))
+                  : attn_core(qkv_buf, attn_buf, B, N, C, H, scale, s);
   if (err != cudaSuccess) return err;
 
   return launch_gemm_nt<EPI_RESIDUAL, TX>(attn_buf, wproj, bproj, M, C, C,
@@ -1181,13 +1257,15 @@ int dyt_mha_core(const void* q, const void* k, const void* v, void* out,
 // x, out: [B, N, C] in the residual dtype (x_f32 selects fp32 over bf16);
 // gamma/beta/bqkv/bproj fp32; wqkv [3C, C], wproj [C, C] bf16; xm32 an
 // optional fp32 [B, N, C] copy of out; ln_buf [B*N, C], qkv_buf [B*N, 3C],
-// attn_buf [B*N, C] bf16 scratch.  Returns a cudaError_t value.
+// attn_buf [B*N, C] bf16 scratch; simt_core the SIMT core's route (head
+// dims past 256).  Returns a cudaError_t value.
 int dyt_attention_sublayer(const void* x, int x_f32, const float* gamma,
                            const float* beta, const void* wqkv,
                            const float* bqkv, const void* wproj,
                            const float* bproj, void* out, float* xm32,
                            void* ln_buf, void* qkv_buf, void* attn_buf, int B,
-                           int N, int C, int H, float scale, void* stream) {
+                           int N, int C, int H, float scale, int simt_core,
+                           void* stream) {
   using dyt::bf16;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   auto* wq = static_cast<const bf16*>(wqkv);
@@ -1198,10 +1276,42 @@ int dyt_attention_sublayer(const void* x, int x_f32, const float* gamma,
   if (x_f32)
     return dyt::sublayer<float>(static_cast<const float*>(x), gamma, beta, wq,
                                 bqkv, wp, bproj, static_cast<float*>(out),
-                                xm32, lb, qb, ab, B, N, C, H, scale, s);
+                                xm32, lb, qb, ab, B, N, C, H, scale,
+                                simt_core, s);
   return dyt::sublayer<bf16>(static_cast<const bf16*>(x), gamma, beta, wq,
                              bqkv, wp, bproj, static_cast<bf16*>(out), xm32,
-                             lb, qb, ab, B, N, C, H, scale, s);
+                             lb, qb, ab, B, N, C, H, scale, simt_core, s);
+}
+
+// K9 at head dims 192 and 256 (dyt_mha_windowed's arguments: qkv [B, N,
+// 3C] bf16 contiguous on 16 bytes, bias [H, N, N] bf16 on 16 bytes with
+// unit column stride and padded row and head strides, out [B, N, C] bf16):
+// the wide core's ring with the bias blocks.  Returns a cudaError_t value.
+int dyt_mha_windowed_wide(const void* qkv, const void* bias, void* out, int B,
+                          int N, int C, int H, long long head_stride,
+                          int row_stride, float scale, void* stream) {
+  using dyt::bf16;
+  if (B <= 0 || N <= 0 || H <= 0 || C % H || row_stride % 8 ||
+      head_stride % 8 || row_stride < N ||
+      (reinterpret_cast<uintptr_t>(qkv) | reinterpret_cast<uintptr_t>(bias)) %
+          16)
+    return cudaErrorInvalidValue;
+  const long long hd = C / H, C3 = 3LL * C, rows = (long long)N * C3;
+  auto* q = static_cast<const bf16*>(qkv);
+  const dyt::CoreArgs a{q, q + C, q + 2 * C, static_cast<bf16*>(out),
+                        {rows, hd, C3}, {rows, hd, C3}, {rows, hd, C3},
+                        {(long long)N * C, hd, C}, N, H, scale};
+  auto* bp = static_cast<const bf16*>(bias);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (hd == 192)
+    return dyt::launch_core_wide_ring<192, false, true>(a, B, s, bp,
+                                                        head_stride,
+                                                        row_stride);
+  if (hd == 256)
+    return dyt::launch_core_wide_ring<256, false, true>(a, B, s, bp,
+                                                        head_stride,
+                                                        row_stride);
+  return cudaErrorInvalidValue;
 }
 
 const char* dyt_error_string(int err) {

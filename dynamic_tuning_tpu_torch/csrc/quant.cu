@@ -70,6 +70,9 @@ extern "C" int dyt_simt_core_exact(const float* qkv, float* out, int B,
 extern "C" int dyt_simt_core_q8(const void* qkv, void* out, void* scratch,
                                 int B, int N, int C, int H, float scale,
                                 int t_f32, void* stream);
+extern "C" int dyt_simt_core_qkv(const void* qkv, void* out, int B, int N,
+                                 int C, int H, float scale, int t_f32,
+                                 void* stream);
 
 namespace dyt {
 
@@ -243,7 +246,8 @@ static cudaError_t launch_row_quant(const TI* x, int8_t* q, float* rs, int M,
 
 // ---------------------------------------------------------------------------
 // K10: the attention core with an int8 Q K^T, on the raw [B, N, 3C] bf16 qkv
-// buffer, writing [B, N, C] bf16 (H even, hd 64 or 128).  Per sample b and
+// buffer, writing [B, N, C] bf16 (H even, hd 64, 128, 192 or 256).  Per
+// sample b and
 // head h of the pair p = h / 2:
 //   kc = k_p - mean_n(k_p)   per lane of the pair's 2 hd lanes (the mean
 //                            summed in float64, rounded once)
@@ -288,28 +292,45 @@ static cudaError_t launch_row_quant(const TI* x, int8_t* q, float* rs, int M,
 // order, then across the quad), and the exp is expf (ex2.approx moved the
 // int8 gates under chip_smoke.py's bound in the bf16 core).  Only P V's
 // fp32 sums could round otherwise; PERF.md has the comparison.
+//
+// Head dims 192 and 256 (dynamic_tuning_tpu/ops/quant.py:309 is generic in
+// hd; the SIMT int8-score form served them before, at 7% of its bound).
+// The codes of a head row take two 128-byte column blocks, each its own
+// K-major swizzled tile that Q K^T's k32 steps walk; a k row of the k pass
+// is a warp.  The whole-row chunk's 104-128 score registers beside o's 96
+// or 128 would pass 255, so the chunks are the wide bf16 core's: 64 keys
+// pipelined over two buffers at hd 192, 32 keys one by one at hd 256.  One
+// block an SM (its layout takes 160-202 KB at N = 197), so the route stays
+// the SIMT form past the N whose layout fits (~300 at hd 192, ~240 at 256).
 
 constexpr int Q8C_THREADS = 128;         // one warpgroup a block
 constexpr int Q8C_STREAM_KEYS = 64;      // keys a chunk past 256 keys
 
-// Shared memory: the key codes [code_rows][128 B] (rows past N zero), V's
-// 128-byte swizzled tile [HD / 64][rows][64] bf16 (first the head's k rows,
-// [N][HD] bf16), the key scales, this head's row amaxes and the pair's row
-// amaxes [code_rows] fp32 each, the head's lane means [HD] and a 64-row
-// query tile in rows of HD + 8 bf16, from a 1024-byte boundary.  The codes span every row the last KC-wide chunk
-// reads.  The float64 partial sums of the means [RG][HD] (8 KB) use the
-// codes' room before the codes are written.
+// Shared memory: the key codes [CB][code_rows][128 B] (CB column blocks of
+// 128 codes; rows past N zero), V's 128-byte swizzled tile [HD / 64][rows]
+// [64] bf16 (first the head's k rows, [N][HD] bf16), the key scales, this
+// head's row amaxes and the pair's row amaxes [code_rows] fp32 each, the
+// head's lane means [HD] and a 64-row query tile in rows of HD + 8 bf16,
+// from a 1024-byte boundary.  The codes span every row the last KC-wide
+// chunk reads.  The float64 partial sums of the means [RG][HD] (8 KB) use
+// the codes' room before the codes are written.  A k row is TPR threads of
+// the k pass: its CPR 8-lane pieces, and at head dims 192 and 256 a whole
+// warp (24 or 32 pieces; the rest idle), so a row's shuffles stay in it.
 template <int HD, int KC>
 struct CoreQ8Layout {
   static constexpr int CPR = HD / 8;                // 8-lane pieces a k row
+  static constexpr int TPR = HD <= 128 ? CPR : 32;  // threads a k row
+  static constexpr int CB = HD <= 128 ? 1 : (HD + 127) / 128;
   static constexpr int LDQ = HD + 8;                // query tile row, elements
-  static constexpr int RG = Q8C_THREADS / CPR;      // rows a k pass takes at once
+  static constexpr int RG = Q8C_THREADS / TPR;      // k rows a pass takes
   __host__ __device__ static int rows(int N) { return (N + 15) / 16 * 16; }
   __host__ __device__ static int code_rows(int N) {
     const int kr = (N + KC - 1) / KC * KC;
     return kr > rows(N) ? kr : rows(N);
   }
-  __host__ __device__ static int v_off(int N) { return code_rows(N) * 128; }
+  __host__ __device__ static int v_off(int N) {
+    return CB * code_rows(N) * 128;
+  }
   __host__ __device__ static int ks_off(int N) {
     return v_off(N) + rows(N) * HD * 2;
   }
@@ -343,15 +364,15 @@ __device__ __forceinline__ float ld_cluster(const float* p, unsigned rank) {
 
 template <int HD, int KC>
 __global__ void __cluster_dims__(2, 1, 1)
-__launch_bounds__(Q8C_THREADS, HD == 64 && KC <= 208 ? 3 : 2)
+__launch_bounds__(Q8C_THREADS, HD == 64 && KC <= 208 ? 3 : HD <= 128 ? 2 : 1)
 attn_core_q8_kernel(const bf16* __restrict__ qkv, bf16* __restrict__ out,
                     int N, int H, float scale) {
   using L = CoreQ8Layout<HD, KC>;
-  constexpr bool STREAM = KC == Q8C_STREAM_KEYS;
+  constexpr bool STREAM = KC == Q8C_STREAM_KEYS;     // two score buffers
   constexpr int DK = HD / 32;          // k32 steps of Q K^T
   constexpr int NS = KC / 2;           // score accumulators a thread
   constexpr int PS = KC / 16;          // k16 steps of P V a chunk
-  constexpr int CPR = L::CPR, RG = L::RG;
+  constexpr int CPR = L::CPR, TPR = L::TPR, RG = L::RG;
   extern __shared__ unsigned char smem_raw[];
   const int np = L::rows(N), kr = L::code_rows(N);
   const int nkc = (N + KC - 1) / KC, nq = (N + 63) / 64;
@@ -393,9 +414,10 @@ attn_core_q8_kernel(const bf16* __restrict__ qkv, bf16* __restrict__ out,
   cp_async_wait<1>();
   __syncthreads();
 
-  // lanes c * 8 .. c * 8 + 7 of rows rg, rg + RG, ...
-  const int c = tid % CPR, rg = tid / CPR;
-  {
+  // lanes c * 8 .. c * 8 + 7 of rows rg, rg + RG, ... (c < CPR)
+  const int c = tid % TPR, rg = tid / TPR;
+  const bool piece = c < CPR;
+  if (piece) {
     double acc[8] = {0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0};
     for (int n = rg; n < N; n += RG) {
       float v[8];
@@ -416,7 +438,7 @@ attn_core_q8_kernel(const bf16* __restrict__ qkv, bf16* __restrict__ out,
   __syncthreads();
   float mu[8];
 #pragma unroll
-  for (int e = 0; e < 8; ++e) mu[e] = mean[c * 8 + e];
+  for (int e = 0; e < 8; ++e) mu[e] = piece ? mean[c * 8 + e] : 0.f;
   // the centred row n, these 8 lanes
   auto centred = [&](int n, float (&v)[8]) {
     load8(Kraw + n * HD + c * 8, v);
@@ -424,19 +446,19 @@ attn_core_q8_kernel(const bf16* __restrict__ qkv, bf16* __restrict__ out,
     for (int e = 0; e < 8; ++e) v[e] = sub(v[e], mu[e]);
   };
 
-  // each row's amax over this head's lanes (CPR threads a row; every
+  // each row's amax over this head's lanes (TPR threads a row; every
   // thread runs the same trips, for the shuffles)
   for (int n0 = 0; n0 < N; n0 += RG) {
     const int n = n0 + rg;
     float amax = 0.f;
-    if (n < N) {
+    if (n < N && piece) {
       float v[8];
       centred(n, v);
 #pragma unroll
       for (int e = 0; e < 8; ++e) amax = fmaxf(amax, fabsf(v[e]));
     }
 #pragma unroll
-    for (int o = CPR / 2; o > 0; o >>= 1)
+    for (int o = TPR / 2; o > 0; o >>= 1)
       amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, o));
     if (c == 0 && n < N) ramax[n] = amax;
   }
@@ -451,21 +473,24 @@ attn_core_q8_kernel(const bf16* __restrict__ qkv, bf16* __restrict__ out,
   cluster_arrive();                // this block has read the partner's
   __syncthreads();
 
-  // the codes, at the head's bytes of each 128-byte row
+  // the codes, at the head's bytes of each 128-byte row (of column block
+  // byte / 128 past hd 128)
   const int koff = HD == 64 ? hh * 64 : 0;
-  for (int n = rg; n < N; n += RG) {
+  for (int n = rg; n < N && piece; n += RG) {
     float v[8];
     centred(n, v);
-    const int byte = koff + c * 8;
-    store_codes8(reinterpret_cast<int8_t*>(Kq + n * 128 +
-                                           ((((byte >> 4) ^ n) & 7) << 4) +
-                                           (byte & 15)),
+    const int byte = koff + c * 8, cb = byte >> 7, wb = byte & 127;
+    store_codes8(reinterpret_cast<int8_t*>(Kq + cb * kr * 128 + n * 128 +
+                                           ((((wb >> 4) ^ n) & 7) << 4) +
+                                           (wb & 15)),
                  v, inv127(pamax[n]));
   }
   // rows past N: zero codes and scales (their scores are masked)
-  for (int i = tid; i < (kr - N) * 8; i += Q8C_THREADS)
-    *reinterpret_cast<uint4*>(Kq + (N + i / 8) * 128 + (i % 8) * 16) =
-        make_uint4(0, 0, 0, 0);
+  for (int i = tid; i < L::CB * (kr - N) * 8; i += Q8C_THREADS) {
+    const int cb = i / ((kr - N) * 8), j = i % ((kr - N) * 8);
+    *reinterpret_cast<uint4*>(Kq + cb * kr * 128 + (N + j / 8) * 128 +
+                              (j % 8) * 16) = make_uint4(0, 0, 0, 0);
+  }
   for (int n = N + tid; n < kr; n += Q8C_THREADS) ks[n] = 0.f;
   fence_proxy_async();             // the codes visible to the tensor cores
   __syncthreads();                 // and the k rows read: V replaces them
@@ -545,7 +570,8 @@ attn_core_q8_kernel(const bf16* __restrict__ qkv, bf16* __restrict__ out,
 #pragma unroll
       for (int d = 0; d < DK; ++d)
         wgmma_rs_s8<KC>(s, qf[d],
-                        desc_sw128(Kq + kc * KC * 128 + koff + d * 32),
+                        desc_sw128(Kq + (d / 4) * kr * 128 + kc * KC * 128 +
+                                   koff + (d % 4) * 32),
                         d > 0);
     };
     // chunk kc, its scores in s: (streaming) the next chunk's Q K^T issued,
@@ -620,6 +646,15 @@ attn_core_q8_kernel(const bf16* __restrict__ qkv, bf16* __restrict__ out,
         chunk(sa, sb, kc);
         if (kc + 1 < nkc) chunk(sb, sa, kc + 1);
       }
+    } else if constexpr (KC == 32) {
+      // hd 256: 32-key chunks one by one (the wide core's plan)
+      int s[NS];
+      for (int kc = 0; kc < nkc; ++kc) {
+        wgmma_fence();
+        qk(s, kc);
+        wgmma_commit();
+        chunk(s, s, kc);
+      }
     } else {
       int s[NS];
       wgmma_fence();
@@ -665,23 +700,37 @@ static cudaError_t launch_core_q8_kc(const bf16* qkv, bf16* out, int B,
 }
 
 // the chunk width for N, as the bf16 core: the whole row (13 or 16 chunks of
-// 16 keys) up to 256 keys, else 64-key chunks
+// 16 keys) up to 256 keys, else 64-key chunks; at head dims 192 and 256 the
+// wide core's chunks at every N (64 keys pipelined, 32 one by one), whose
+// score registers leave room for o's 96 or 128
 template <int HD>
 static cudaError_t launch_attn_core_q8(const bf16* qkv, bf16* out, int B,
                                        int N, int H, float scale,
                                        cudaStream_t s) {
-  const int nc = (N + 15) / 16;
-  if (nc <= 13) return launch_core_q8_kc<HD, 208>(qkv, out, B, N, H, scale, s);
-  if (nc <= 16) return launch_core_q8_kc<HD, 256>(qkv, out, B, N, H, scale, s);
-  return launch_core_q8_kc<HD, Q8C_STREAM_KEYS>(qkv, out, B, N, H, scale, s);
+  if constexpr (HD > 128) {
+    return launch_core_q8_kc<HD, HD <= 192 ? 64 : 32>(qkv, out, B, N, H,
+                                                      scale, s);
+  } else {
+    const int nc = (N + 15) / 16;
+    if (nc <= 13)
+      return launch_core_q8_kc<HD, 208>(qkv, out, B, N, H, scale, s);
+    if (nc <= 16)
+      return launch_core_q8_kc<HD, 256>(qkv, out, B, N, H, scale, s);
+    return launch_core_q8_kc<HD, Q8C_STREAM_KEYS>(qkv, out, B, N, H, scale,
+                                                  s);
+  }
 }
 
 template <int HD>
 static int core_q8_smem_bytes(int N) {
-  const int nc = (N + 15) / 16;
-  if (nc <= 13) return CoreQ8Layout<HD, 208>::smem_bytes(N);
-  if (nc <= 16) return CoreQ8Layout<HD, 256>::smem_bytes(N);
-  return CoreQ8Layout<HD, Q8C_STREAM_KEYS>::smem_bytes(N);
+  if constexpr (HD > 128) {
+    return CoreQ8Layout<HD, HD <= 192 ? 64 : 32>::smem_bytes(N);
+  } else {
+    const int nc = (N + 15) / 16;
+    if (nc <= 13) return CoreQ8Layout<HD, 208>::smem_bytes(N);
+    if (nc <= 16) return CoreQ8Layout<HD, 256>::smem_bytes(N);
+    return CoreQ8Layout<HD, Q8C_STREAM_KEYS>::smem_bytes(N);
+  }
 }
 
 static cudaError_t attn_core_q8(const bf16* qkv, bf16* out, int B, int N,
@@ -691,6 +740,10 @@ static cudaError_t attn_core_q8(const bf16* qkv, bf16* out, int B, int N,
     return launch_attn_core_q8<64>(qkv, out, B, N, H, scale, s);
   if (C == 128 * H)
     return launch_attn_core_q8<128>(qkv, out, B, N, H, scale, s);
+  if (C == 192 * H)
+    return launch_attn_core_q8<192>(qkv, out, B, N, H, scale, s);
+  if (C == 256 * H)
+    return launch_attn_core_q8<256>(qkv, out, B, N, H, scale, s);
   return cudaErrorInvalidValue;
 }
 
@@ -742,7 +795,9 @@ static cudaError_t sublayer_q8(const TX* x, const float* gamma,
                     : attn_core_q8(qkv_buf, attn_buf, B, N, C, H, scale, s);
   } else {
     err = static_cast<cudaError_t>(
-        dyt_attn_core(qkv_buf, attn_buf, B, N, C, H, scale, s));
+        simt_core ? dyt_simt_core_qkv(qkv_buf, attn_buf, B, N, C, H, scale, 0,
+                                      s)
+                  : dyt_attn_core(qkv_buf, attn_buf, B, N, C, H, scale, s));
   }
   if (err != cudaSuccess) return err;
   err = launch_row_quant<TS>(attn_buf, a8, rs, M, C, nullptr, s);
@@ -861,6 +916,8 @@ int dyt_attn_core_q8_smem_bytes(int N, int hd) {
   if (N <= 0) return 0;
   if (hd == 64) return dyt::core_q8_smem_bytes<64>(N);
   if (hd == 128) return dyt::core_q8_smem_bytes<128>(N);
+  if (hd == 192) return dyt::core_q8_smem_bytes<192>(N);
+  if (hd == 256) return dyt::core_q8_smem_bytes<256>(N);
   return 0;
 }
 

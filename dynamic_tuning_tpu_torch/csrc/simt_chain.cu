@@ -36,6 +36,9 @@
 
 extern "C" int dyt_f32_core_qkv(const float* qkv, float* out, int B, int N,
                                 int C, int H, float scale, void* stream);
+extern "C" int dyt_simt_core_qkv(const void* qkv, void* out, int B, int N,
+                                 int C, int H, float scale, int t_f32,
+                                 void* stream);
 
 namespace dyt {
 
@@ -78,7 +81,7 @@ static cudaError_t sublayer_f32(const TX* x, const float* gamma,
                                const float* bproj, TX* out, float* xm32,
                                float* ln_buf, float* qkv_buf, float* attn_buf,
                                int B, int N, int C, int H, float scale,
-                               cudaStream_t s) {
+                               int simt_core, cudaStream_t s) {
   const int M = B * N;
   if (M <= 0 || C <= 0) return cudaErrorInvalidValue;
   layernorm_f32_kernel<TX><<<(M + 7) / 8, 256, 0, s>>>(x, gamma, beta, ln_buf,
@@ -89,7 +92,8 @@ static cudaError_t sublayer_f32(const TX* x, const float* gamma,
       ln_buf, wqkv, M, 3 * C, C, GfBias<float>{bqkv, qkv_buf, 3 * C}, s);
   if (err != cudaSuccess) return err;
   err = static_cast<cudaError_t>(
-      dyt_f32_core_qkv(qkv_buf, attn_buf, B, N, C, H, scale, s));
+      simt_core ? dyt_simt_core_qkv(qkv_buf, attn_buf, B, N, C, H, scale, 1, s)
+                : dyt_f32_core_qkv(qkv_buf, attn_buf, B, N, C, H, scale, s));
   if (err != cudaSuccess) return err;
   return launch_gemm_f32<float, float, false>(
       attn_buf, wproj, M, C, C, GfResid<TX>{bproj, x, out, xm32, C}, s);
@@ -208,25 +212,26 @@ extern "C" {
 // The fp32 sublayer chain: x, out [B, N, C] in the residual dtype (x_f32
 // selects fp32 over bf16); gamma/beta/bqkv/bproj fp32; wqkv [3C, C] and
 // wproj [C, C] fp32; xm32 an optional fp32 [B, N, C] copy of out; ln_buf
-// [B*N, C], qkv_buf [B*N, 3C] and attn_buf [B*N, C] fp32 scratch.  Head dim
-// C / H one the fp32 core takes.  Returns a cudaError_t value.
+// [B*N, C], qkv_buf [B*N, 3C] and attn_buf [B*N, C] fp32 scratch; the core
+// the fp32 core (head dims up to 256) or, with simt_core, the SIMT core
+// (past 256), as the caller routes it.  Returns a cudaError_t value.
 int dyt_attention_sublayer_f32(const void* x, int x_f32, const float* gamma,
                                const float* beta, const float* wqkv,
                                const float* bqkv, const float* wproj,
                                const float* bproj, void* out, float* xm32,
                                float* ln_buf, float* qkv_buf, float* attn_buf,
                                int B, int N, int C, int H, float scale,
-                               void* stream) {
+                               int simt_core, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (x_f32)
     return dyt::sublayer_f32<float>(
         static_cast<const float*>(x), gamma, beta, wqkv, bqkv, wproj, bproj,
         static_cast<float*>(out), xm32, ln_buf, qkv_buf, attn_buf, B, N, C, H,
-        scale, s);
+        scale, simt_core, s);
   return dyt::sublayer_f32<dyt::bf16>(
       static_cast<const dyt::bf16*>(x), gamma, beta, wqkv, bqkv, wproj, bproj,
       static_cast<dyt::bf16*>(out), xm32, ln_buf, qkv_buf, attn_buf, B, N, C,
-      H, scale, s);
+      H, scale, simt_core, s);
 }
 
 // The fp32 GEMM alone: out [M, N] fp32 = a [M, K] . w [N, K]^T, fp32

@@ -116,7 +116,7 @@ static cudaError_t simt_core_q8_qkv(const T* qkv, T* out, void* scratch,
   const long long NC = (long long)N * C, C3 = 3LL * C;
   ScArgs<T> a{qc, kc, qkv + 2 * C, out,
               {NC, hd, C}, {NC, hd, C}, {(long long)N * C3, hd, C3},
-              {NC, hd, C}, nullptr, 0, 0, qs, ks, N, H, scale};
+              {NC, hd, C}, nullptr, 0, 0, qs, ks, N, H, scale, 0};
   // fp32: its output feeds proj's int8 quantization (sums in float64)
   using Acc = typename std::conditional<std::is_same<T, float>::value,
                                         double, float>::type;

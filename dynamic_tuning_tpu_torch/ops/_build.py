@@ -36,7 +36,7 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _LL = ctypes.c_longlong
 _SIGNATURES = {
     "dyt_attention_sublayer": [_P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                               _P, _I, _I, _I, _I, _F, _P],
+                               _P, _I, _I, _I, _I, _F, _I, _P],
     "dyt_adapter_width_supported": [_I],
     "dyt_adapter_router": [_P, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P,
                            _I, _P],
@@ -59,13 +59,16 @@ _SIGNATURES = {
     "dyt_mha_core": [_P] * 5 + [_I, _I, _I, _I, _F, _I, _P],
     "dyt_mha_softmax": [_P] * 6 + [_LL] * 2
                        + [_I, _I, _I, _I, _F, _I, _P],
-    "dyt_attention_sublayer_f32": [_P, _I] + [_P] * 11 + [_I] * 4 + [_F, _P],
+    "dyt_attention_sublayer_f32": [_P, _I] + [_P] * 11 + [_I] * 4 + [_F, _I,
+                                                                     _P],
     "dyt_tail_simt": [_P, _I, _I] + [_P] * 9 + [_I, _P, _I, _I, _I, _F, _I,
                                                  _P, _P, _P],
     "dyt_gemm_f32": [_P, _P, _I, _I, _I, _P, _P],
-    "dyt_simt_core": [_P] * 5 + [_I, _I, _I, _I, _F, _P, _LL, _LL, _P],
+    "dyt_simt_core": [_P] * 5 + [_I, _I, _I, _I, _F, _P, _LL, _LL, _I, _I,
+                                 _P],
     "dyt_f32_core": [_P] * 5 + [_I, _I, _I, _I, _F, _P, _LL, _LL, _P],
     "dyt_simt_core_q8": [_P, _P, _P, _I, _I, _I, _I, _F, _I, _P],
+    "dyt_simt_core_exact": [_P, _P, _I, _I, _I, _I, _F, _P],
     "dyt_simt_core_q8_scratch_bytes": [_I, _I, _I, _I],
 }
 # entry points whose result is not a cudaError_t int

@@ -30,11 +30,12 @@ or launch.  There is no other path.  Each launch adds one to the wrapper's
 "bf16" (the wgmma kernels), "fp32" (fp32 weights or qkv: the fp32 GEMM of
 ``csrc/gemm_f32.cuh``, the register-tiled fp32 core of
 ``csrc/f32_core.cu``, the SIMT tails of ``csrc/simt_chain.cu``),
-"bf16+wide_heads" (bf16 at head dim 192 or 256 on the wgmma core),
-"bf16+simt_core" (K9 and K10 at head dim 192 or 256: the SIMT core in bf16)
-and "+simt_tail" (a bf16 adapter or MoE tail at a width the wgmma tails do
-not take, on the SIMT tail).  ``core_of`` is the one table of which
-attention core each wrapper runs; each wrapper calls the entry of that core,
+"bf16+wide_heads" (bf16 at head dim 192 or 256 on the wgmma kernels),
+"bf16+simt_core" (bf16 past head dim 256, and K10 past its wgmma layout's
+N: the SIMT core, which walks any head dim in 64-column slices) and
+"+simt_tail" (a bf16 adapter or MoE tail at a width the wgmma tails do not
+take, on the SIMT tail).  ``core_of`` is the one table of which attention
+core each wrapper runs; each wrapper calls the entry of that core,
 and the one C entry with a choice of cores (the int8 chain's) follows the
 route the wrapper passes it.
 
@@ -76,9 +77,8 @@ from dynamic_tuning_tpu_torch.ops import _build
 LN_EPS = 1e-6
 SMEM_PER_BLOCK = 232448          # H100: 227 KB of dynamic shared memory
 BF, F32 = torch.bfloat16, torch.float32
-CORE_HEAD_DIMS = (64, 128, 192, 256)     # every core's
-WIDE_HEAD_DIMS = (192, 256)      # fused by JAX ((2 hd) % 128 == 0); K9's and
-#                                  K10's wgmma kernels are built for 64, 128
+WGMMA_MAX_HD = 256               # the wgmma and fp32 cores' largest head
+#                                  dim; past it every core is the SIMT core's
 AR_WIDTHS = (16, 32, 48, 64, 96, 128)    # the wgmma adapter/router kernel's F
 #                                  (csrc's dyt_adapter_width_supported)
 MOE_MAX_W = 512                  # the wgmma MoE tail's largest E * b
@@ -335,55 +335,67 @@ CORE_KERNELS = ("K1", "K2", "K3", "K5", "K6", "K7", "K8", "K9", "K10",
                 "K15")
 
 
-def core_of(kernel: str, dtype, hd: int, *, attn_q8: bool = False,
-            q8_fits: bool = True) -> str:
+def core_of(kernel: str, dtype, hd: int, *, heads: int,
+            attn_q8: bool = False, q8_fits: bool = True) -> str:
     """The attention core that a launch of ``kernel`` runs on operands
-    (q, k, v) of ``dtype`` at head dim ``hd``: the wrappers route by this
-    table alone and pass the route to the C entry points, which follow it.
+    (q, k, v) of ``dtype`` at head dim ``hd`` in ``heads`` heads: the
+    wrappers route by this table alone and pass the route to the C entry
+    points, which follow it.  The one place a head dim or head count is
+    refused: the cores take every head dim the JAX package fuses ((2 hd) %
+    128 == 0, on an even head count; K15, whose TPU kernel pairs no heads,
+    on any head count) and raise ValueError on the rest, as its asserts do.
 
     * "wgmma": ``attention_sublayer.cu``'s core (staged, or its ring past
       the staged N) -- bf16 K1, K15 and the cores of K2, K3, K7 and of K5,
-      K6, K8 without int8 scores, at every head dim;
-    * "windowed": ``windowed_attention.cu`` -- bf16 K9 at head dims 64, 128;
+      K6, K8 without int8 scores, at head dims up to 256;
+    * "windowed": bf16 K9 up to 256 (``windowed_attention.cu`` at 64 and
+      128, the wgmma core's ring with the bias tiles at 192 and 256);
     * "q8": ``quant.cu``'s int8-score wgmma core -- bf16 K10 (and K5, K6, K8
-      with ``attn_q8``) at head dims 64, 128 where its layout fits a block
+      with ``attn_q8``) up to 256 where its layout fits a block
       (``q8_fits``);
-    * "simt": ``simt_core.cu`` in bf16 -- K9 at head dims 192, 256;
     * "simt_q8": the SIMT core's int8-score form -- the rest of K10's;
     * "f32": ``f32_core.cu``'s register-tiled fp32 core -- fp32 K1, K9 and
-      the cores of K2, K3, K7;
+      the cores of K2, K3, K7 up to 256;
     * "f32_exact": the SIMT core with float64 sums -- K6, K8 with an fp32
-      qkv scratch (fp32 adapters), whose core output is requantized.
+      qkv scratch (fp32 adapters), whose core output is requantized;
+    * "simt": ``simt_core.cu`` in the operands' dtype -- every other core
+      past head dim 256 (K15 in its own rounding, K9 with its bias).
 
     ``dtype`` is the core's: qkv's, the weights' for K2/K3/K7, the qkv
     scratch's for K5/K6/K8.  K15 takes bf16 only, and so does K5, whose
     scratch is bf16 whatever x's dtype (the TPU kernel's)."""
     if kernel not in CORE_KERNELS:
         raise ValueError(f"{kernel} runs no attention core")
-    check_core_head_dim(hd)
+    if hd <= 0 or (2 * hd) % 128:
+        raise ValueError(f"head_dim {hd} not supported: (2 * head_dim) % "
+                         "128 must be 0, as the JAX kernels ask")
+    if heads % 2 and kernel != "K15":
+        raise ValueError(f"{heads} heads not supported: the {kernel} core "
+                         "takes pairs of heads, as the JAX kernels do")
     if dtype not in (BF, F32) or (kernel in ("K5", "K15") and dtype != BF):
         raise TypeError(f"{kernel} takes no {dtype} on the card")
+    wide = hd > WGMMA_MAX_HD
     if kernel == "K10" or (attn_q8 and kernel in ("K5", "K6", "K8")):
-        return ("q8" if dtype == BF and hd not in WIDE_HEAD_DIMS and q8_fits
-                else "simt_q8")
+        return "q8" if dtype == BF and not wide and q8_fits else "simt_q8"
+    if dtype == F32 and kernel in ("K6", "K8"):
+        return "f32_exact"
+    if wide:
+        return "simt"
     if kernel == "K9":
-        if dtype == F32:
-            return "f32"
-        return "simt" if hd in WIDE_HEAD_DIMS else "windowed"
-    if dtype == F32:
-        return "f32_exact" if kernel in ("K6", "K8") else "f32"
-    return "wgmma"
+        return "f32" if dtype == F32 else "windowed"
+    return "f32" if dtype == F32 else "wgmma"
 
 
 def form_of(dtype, hd: int | None = None, simt_tail: bool = False,
             core: str = "wgmma") -> str:
     """The form a wrapper takes (its ``forms`` key): "fp32", or "bf16" with
-    "+wide_heads" at head dim 192 or 256 ("+simt_core" there when ``core``
-    is the SIMT core's) and "+simt_tail" for a tail on the SIMT form."""
+    "+wide_heads" at head dim 192 or 256 ("+simt_core" where ``core`` is
+    the SIMT core's: past head dim 256, and K10 past its layout's N) and
+    "+simt_tail" for a tail on the SIMT form."""
     if dtype == F32:
         return "fp32"
     form = "bf16"
-    if hd in WIDE_HEAD_DIMS:
+    if hd is not None and hd > 128:
         form += "+simt_core" if core in ("simt", "simt_q8") else "+wide_heads"
     return form + "+simt_tail" if simt_tail else form
 
@@ -394,7 +406,10 @@ def counted(fn, form: str) -> None:
     fn.forms[form] = fn.forms.get(form, 0) + 1
 
 
-def _check_sublayer(x, gamma, beta, wqkv, bqkv, wproj, bproj, heads):
+def _check_sublayer(x, gamma, beta, wqkv, bqkv, wproj, bproj, heads,
+                    kernel):
+    """Raise on sublayer arguments the kernels do not take; return the
+    library and the core ``kernel`` runs (``core_of``)."""
     if x.device.type != "cuda":
         raise ValueError(f"x is on {x.device}: the kernels take CPU tensors "
                          "(plain version) or CUDA tensors")
@@ -412,14 +427,15 @@ def _check_sublayer(x, gamma, beta, wqkv, bqkv, wproj, bproj, heads):
     _require(wproj, "wproj", (C, C), wd, dev)
     if C % heads:
         raise ValueError(f"C={C} is not a multiple of heads={heads}")
-    check_core_head_dim(C // heads)
-    return _build.library()
+    core = core_of(kernel, wd[0], C // heads, heads=heads)
+    return _build.library(), core
 
 
 def _launch_sublayer(lib, x, gamma, beta, wqkv, bqkv, wproj, bproj, heads,
-                     xm32):
+                     xm32, core):
     """The sublayer chain in the weights' dtype: the bf16 chain of
-    ``attention_sublayer.cu`` or the fp32 chain of ``simt_chain.cu``."""
+    ``attention_sublayer.cu`` or the fp32 chain of ``simt_chain.cu``, its
+    core the SIMT core where ``core`` says so (past head dim 256)."""
     B, N, C = x.shape
     M = B * N
     out = torch.empty_like(x)
@@ -431,11 +447,11 @@ def _launch_sublayer(lib, x, gamma, beta, wqkv, bqkv, wproj, bproj, heads,
     args = (_ptr(x), int(x.dtype == F32), _ptr(gamma), _ptr(beta),
             _ptr(wqkv), _ptr(bqkv), _ptr(wproj), _ptr(bproj), _ptr(out),
             _ptr(xm32), _ptr(ln_buf), _ptr(qkv_buf), _ptr(attn_buf), B, N,
-            C, heads, (C // heads) ** -0.5)
-    if dt == F32:                         # the fp32 core throughout
-        err = lib.dyt_attention_sublayer_f32(*args, stream)
-    else:                                 # the wgmma core at every head dim
-        err = lib.dyt_attention_sublayer(*args, stream)
+            C, heads, (C // heads) ** -0.5, int(core == "simt"), stream)
+    if dt == F32:
+        err = lib.dyt_attention_sublayer_f32(*args)
+    else:
+        err = lib.dyt_attention_sublayer(*args)
     _build.check(lib, err, "attention sublayer kernels")
     return out
 
@@ -457,12 +473,13 @@ def attention_sublayer_serving(x, gamma, beta, wqkv, bqkv, wproj, bproj, *,
     if x.device.type == "cpu":
         return attention_sublayer_plain(x, gamma, beta, wqkv, bqkv, wproj,
                                         bproj, heads=heads)
-    lib = _check_sublayer(x, gamma, beta, wqkv, bqkv, wproj, bproj, heads)
+    lib, core = _check_sublayer(x, gamma, beta, wqkv, bqkv, wproj, bproj,
+                                heads, "K2")
     with torch.cuda.device(x.device):
         out = _launch_sublayer(lib, x, gamma, beta, wqkv, bqkv, wproj, bproj,
-                               heads, None)
+                               heads, None, core)
     counted(attention_sublayer_serving,
-            form_of(wqkv.dtype, x.shape[-1] // heads))
+            form_of(wqkv.dtype, x.shape[-1] // heads, core=core))
     return out
 
 
@@ -480,21 +497,22 @@ def dyt_prologue_serving(x, gamma, beta, wqkv, bqkv, wproj, bproj, wdown,
         return dyt_prologue_plain(x, gamma, beta, wqkv, bqkv, wproj, bproj,
                                   wdown, bdown, wup, bup, adapter_scale, wsel,
                                   bsel, heads=heads, with_select=with_select)
-    lib = _check_sublayer(x, gamma, beta, wqkv, bqkv, wproj, bproj, heads)
+    lib, core = _check_sublayer(x, gamma, beta, wqkv, bqkv, wproj, bproj,
+                                heads, "K3")
     check_adapter_router(lib, x, wdown, bdown, wup, bup, adapter_scale, wsel,
                          bsel, with_select)
     compute_dtype(wqkv, wdown)
     with torch.cuda.device(x.device):
         xm32 = _xm32(x)
         x_mid = _launch_sublayer(lib, x, gamma, beta, wqkv, bqkv, wproj,
-                                 bproj, heads, xm32)
+                                 bproj, heads, xm32, core)
         outs = launch_adapter_router(lib, x_mid,
                                      x_mid if xm32 is None else xm32, wdown,
                                      bdown, wup, bup, adapter_scale, wsel,
                                      bsel, with_select)
     counted(dyt_prologue_serving,
             form_of(wqkv.dtype, x.shape[-1] // heads,
-                    _adapter_tail(wdown) == "simt"))
+                    _adapter_tail(wdown) == "simt", core))
     return outs
 
 
@@ -572,7 +590,8 @@ def dyt_prologue_serving_moe(x, gamma, beta, wqkv, bqkv, wproj, bproj,
             x, gamma, beta, wqkv, bqkv, wproj, bproj, wrouter, wdown2d,
             bdown2d, wup2d, bup, adapter_scale, wsel, bsel, heads=heads,
             tau=tau, with_select=with_select)
-    lib = _check_sublayer(x, gamma, beta, wqkv, bqkv, wproj, bproj, heads)
+    lib, core = _check_sublayer(x, gamma, beta, wqkv, bqkv, wproj, bproj,
+                                heads, "K7")
     tail = check_moe_adapter_router(lib, x, wrouter, wdown2d, bdown2d, wup2d,
                                     bup, adapter_scale, wsel, bsel,
                                     with_select)
@@ -580,12 +599,12 @@ def dyt_prologue_serving_moe(x, gamma, beta, wqkv, bqkv, wproj, bproj,
     with torch.cuda.device(x.device):
         xm32 = _xm32(x)
         x_mid = _launch_sublayer(lib, x, gamma, beta, wqkv, bqkv, wproj,
-                                 bproj, heads, xm32)
+                                 bproj, heads, xm32, core)
         outs = launch_moe_adapter_router(
             lib, x_mid, x_mid if xm32 is None else xm32, wrouter, wdown2d,
             bdown2d, wup2d, bup, adapter_scale, wsel, bsel, tau, with_select)
     counted(dyt_prologue_serving_moe,
-            form_of(wqkv.dtype, x.shape[-1] // heads, tail == "simt"))
+            form_of(wqkv.dtype, x.shape[-1] // heads, tail == "simt", core))
     return outs
 
 
@@ -697,9 +716,9 @@ def mha_windowed_fused(qkv: torch.Tensor, bias: torch.Tensor, *,
     """K9: qkv [B, N, 3C] + bias [H, N, N] -> [B, N, C] in qkv's dtype.
 
     The bias may be fp32 or bf16 (it is rounded to bf16 either way); on
-    CUDA qkv is bf16 or fp32 and contiguous, head_dim 64, 128, 192 or 256:
-    bf16 at 64 and 128 on the wgmma kernel, at 192 and 256 on the SIMT
-    core, fp32 on the fp32 core, the bf16 bias upcast at the score add
+    CUDA qkv is bf16 or fp32 and contiguous, any head dim ``core_of``
+    takes: bf16 up to 256 on the wgmma kernels, fp32 up to 256 on the fp32
+    core, past 256 on the SIMT core, the bf16 bias upcast at the score add
     (``core_of``)."""
     if qkv.device.type == "cpu":
         return mha_windowed_plain(qkv, bias, heads=heads)
@@ -714,7 +733,7 @@ def mha_windowed_fused(qkv: torch.Tensor, bias: torch.Tensor, *,
         raise ValueError(f"C={C} is not a multiple of heads={heads}")
     hd = C // heads
     _require(qkv, "qkv", (B, N, C3), (BF, F32), qkv.device)
-    core = core_of("K9", qkv.dtype, hd)
+    core = core_of("K9", qkv.dtype, hd, heads=heads)
     if qkv.data_ptr() % 16:
         raise ValueError("qkv must start on 16 bytes")
     if tuple(bias.shape) != (heads, N, N) or bias.device != qkv.device:
@@ -788,21 +807,12 @@ def _check_core_operand(t: torch.Tensor, name: str, device,
                          "stride along hd and rows on 16 bytes")
 
 
-def check_core_head_dim(hd: int) -> None:
-    """Raise unless the attention cores take head_dim ``hd``: 64, 128, 192
-    or 256, in bf16 and in fp32 (``core_of`` says which core; the one
-    place this refusal is made).  They take any N: past the N whose keys
-    and values fit a block's shared memory the wgmma core walks them
-    through a ring of tiles, the SIMT and fp32 cores always walk them in
-    tiles."""
-    if hd not in CORE_HEAD_DIMS:
-        raise ValueError(f"head_dim {hd} not supported (64, 128, 192 or "
-                         "256)")
-
-
 def _launch_core(q, k, v, out, *, k15: bool) -> None:
     """The strided core on bf16 q, k, v [B, H, N, hd] into ``out``: the
-    wgmma core at every head dim (``core_of``)."""
+    wgmma core at head dims up to 256 (``core_of``).  Every core takes any
+    N: past the N whose keys and values fit a block's shared memory the
+    wgmma core walks them through a ring of tiles, the SIMT and fp32 cores
+    always walk them in tiles."""
     B, H, N, hd = q.shape
     lib = _build.library()
     with torch.cuda.device(q.device):
@@ -818,17 +828,18 @@ def _bias_args(bias):
             0 if bias is None else bias.stride(1))
 
 
-def _launch_simt_core(q, k, v, out, bias=None) -> None:
-    """The SIMT core (K1's rounding) on strided bf16 q, k, v [B, H, N, hd]
-    into ``out``, with an optional bf16 ``bias`` [H, N, N] of unit column
-    stride: K9 at head dims 192 and 256."""
+def _launch_simt_core(q, k, v, out, bias=None, *, k15: bool = False) -> None:
+    """The SIMT core on strided bf16 or fp32 q, k, v [B, H, N, hd] into
+    ``out`` (K1's rounding, or K15's), with an optional bf16 ``bias`` [H, N,
+    N] of unit column stride: every core past head dim 256."""
     B, H, N, hd = q.shape
     lib = _build.library()
     with torch.cuda.device(q.device):
         err = lib.dyt_simt_core(
             _ptr(q), _ptr(k), _ptr(v), _ptr(out),
             _build.strides_arg(q, k, v, out), B, N, H, hd, hd ** -0.5,
-            *_bias_args(bias), torch.cuda.current_stream(q.device).cuda_stream)
+            *_bias_args(bias), int(q.dtype == F32), int(k15),
+            torch.cuda.current_stream(q.device).cuda_stream)
         _build.check(lib, err, "SIMT attention core")
 
 
@@ -856,7 +867,8 @@ def mha_serving(q: torch.Tensor, k: torch.Tensor,
                 v: torch.Tensor) -> torch.Tensor:
     """K15: q, k, v ``[B, H, N, hd]`` -> ``[B, H, N, hd]`` in q's dtype.
 
-    On CUDA: bf16, head_dim 64, 128, 192 or 256 (the wgmma core), any views
+    On CUDA: bf16, any head dim ``core_of`` takes (the wgmma core up to
+    256, the SIMT core past it), any views
     with unit stride along hd and rows on 16 bytes (such as the q, k, v
     views of a raw ``[B, N, 3C]`` qkv buffer).  The output is allocated
     ``[B, N, H, hd]`` and returned as its ``[B, H, N, hd]`` view, so
@@ -873,11 +885,14 @@ def mha_serving(q: torch.Tensor, k: torch.Tensor,
     for name, t in (("q", q), ("k", k), ("v", v)):
         _check_core_operand(t, name, q.device)
     B, H, N, hd = q.shape
-    core_of("K15", q.dtype, hd)
+    core = core_of("K15", q.dtype, hd, heads=H)
     out = torch.empty((B, N, H, hd), dtype=torch.bfloat16,
                       device=q.device).transpose(1, 2)
-    _launch_core(q, k, v, out, k15=True)
-    counted(mha_serving, form_of(BF, hd))
+    if core == "simt":
+        _launch_simt_core(q, k, v, out, k15=True)
+    else:
+        _launch_core(q, k, v, out, k15=True)
+    counted(mha_serving, form_of(BF, hd, core=core))
     return out
 
 
@@ -888,8 +903,9 @@ def mha_serving_fused(qkv: torch.Tensor, *, heads: int,
     ``group`` is the TPU kernel's number of heads per matmul pair; its
     contract (``group`` divides ``heads``, ``group * hd`` a multiple of 128)
     raises ValueError here too, and one kernel runs whatever the group.  On
-    CUDA qkv is bf16 or fp32 and contiguous, head_dim 64, 128, 192 or 256:
-    bf16 on the wgmma core, fp32 on the fp32 core (``core_of``)."""
+    CUDA qkv is bf16 or fp32 and contiguous, any head dim ``core_of``
+    takes: up to 256 bf16 on the wgmma core and fp32 on the fp32 core, past
+    it the SIMT core (``core_of``)."""
     if qkv.dim() != 3 or qkv.shape[-1] % 3:
         raise ValueError(f"qkv must be [B, N, 3C], got {tuple(qkv.shape)}")
     B, N, C3 = qkv.shape
@@ -905,16 +921,17 @@ def mha_serving_fused(qkv: torch.Tensor, *, heads: int,
         return attn_core_pairs(qkv, heads=heads)
     _cuda_only(qkv, "qkv")
     _require(qkv, "qkv", (B, N, C3), (BF, F32), qkv.device)
-    core = core_of("K1", qkv.dtype, hd)
+    core = core_of("K1", qkv.dtype, hd, heads=heads)
     q, k, v = qkv.view(B, N, 3, heads, hd).permute(2, 0, 3, 1, 4)
     out = torch.empty((B, N, C), dtype=qkv.dtype, device=qkv.device)
     _check_core_operand(q, "qkv", qkv.device, (BF, F32))
     o = out.view(B, N, heads, hd).transpose(1, 2)
-    if core == "f32":
-        _launch_f32_core(q, k, v, o)
-    else:
+    launch = {"f32": _launch_f32_core, "simt": _launch_simt_core}.get(core)
+    if launch is None:
         _launch_core(q, k, v, o, k15=False)
-    counted(mha_serving_fused, form_of(qkv.dtype, hd))
+    else:
+        launch(q, k, v, o)
+    counted(mha_serving_fused, form_of(qkv.dtype, hd, core=core))
     return out
 
 

@@ -46,9 +46,10 @@ are those of the TPU kernels:
 * K10: q scaled in fp32 and quantized per head row; k centred by its lane
   mean over the N tokens and quantized per row of a HEAD PAIR (the TPU's
   128-lane row), so one k scale covers heads 2p and 2p+1; P.V in the
-  scratch dtype (bf16 e and v, or fp32).  bf16 at head dims 64 and 128 on
-  the wgmma core, fp32 and the head dims 192 and 256 on the SIMT core's
-  int8-score form (``mha_serving.core_of``).
+  scratch dtype (bf16 e and v, or fp32).  bf16 at head dims up to 256 on
+  the wgmma core where its layout fits a block, fp32, longer rows and head
+  dims past 256 on the SIMT core's int8-score form
+  (``mha_serving.core_of``).
 
 Each launch also adds one to the wrapper's ``forms[form]``
 (``mha_serving.form_of``).
@@ -443,21 +444,15 @@ q8_dispatch_mlp.launches = 0
 
 
 def _core_q8_route(lib, N, C, heads, dtype, kernel="K10") -> str:
-    """K10's core (``ms.core_of``): "q8" for bf16 at head dims 64 and 128
-    where its layout fits a block, else "simt_q8" (the SIMT core's
-    int8-score form)."""
+    """K10's core (``ms.core_of``, which refuses what it does not take):
+    "q8" for bf16 at head dims up to 256 where its layout fits a block,
+    else "simt_q8" (the SIMT core's int8-score form)."""
     hd = C // heads
-    smem = lib.dyt_attn_core_q8_smem_bytes(N, hd)
-    return ms.core_of(kernel, dtype, hd, attn_q8=True,
-                      q8_fits=0 < smem <= ms.SMEM_PER_BLOCK)
-
-
-def _check_core_q8(N, C, heads) -> None:
-    hd = C // heads
-    if heads % 2 or hd not in ms.CORE_HEAD_DIMS:
-        raise ValueError(f"int8 attention core: head_dim {hd} with {heads} "
-                         "heads not supported (pairs of heads of 64, 128, "
-                         "192 or 256)")
+    fits = (hd > 0 and hd <= ms.WGMMA_MAX_HD
+            and 0 < lib.dyt_attn_core_q8_smem_bytes(N, hd)
+            <= ms.SMEM_PER_BLOCK)
+    return ms.core_of(kernel, dtype, hd, heads=heads, attn_q8=True,
+                      q8_fits=fits)
 
 
 def _core_scratch(lib, B, N, C, heads, dev):
@@ -474,11 +469,12 @@ def attn_core_pairs_q8(qkv: torch.Tensor, *, heads: int) -> torch.Tensor:
     B, N, C3 = qkv.shape
     C = C3 // 3
     _require(qkv, "qkv", (B, N, C3), (BF, F32), qkv.device)
-    _check_core_q8(N, C, heads)
+    if C % heads:
+        raise ValueError(f"C={C} is not a multiple of heads={heads}")
+    core = _core_q8_route(lib, N, C, heads, qkv.dtype)
     dev = qkv.device
     with torch.cuda.device(dev):
         out = torch.empty((B, N, C), dtype=qkv.dtype, device=dev)
-        core = _core_q8_route(lib, N, C, heads, qkv.dtype)
         if core == "q8":
             err = lib.dyt_attn_core_q8(_ptr(qkv), _ptr(out), B, N, C, heads,
                                        (C // heads) ** -0.5, _stream(dev))
@@ -507,10 +503,6 @@ def _check_sublayer_q8(x, gamma, beta, wqkv_q, sqkv, bqkv, wproj_q, sproj,
     _require_q8(wproj_q, sproj, bproj, "proj", C, C, dev)
     if C % heads:
         raise ValueError(f"C={C} is not a multiple of heads={heads}")
-    if attn_q8:
-        _check_core_q8(N, C, heads)
-    else:
-        ms.check_core_head_dim(C // heads)
     return lib
 
 
@@ -527,10 +519,11 @@ def _launch_sublayer_q8(lib, x, gamma, beta, wqkv_q, sqkv, bqkv, wproj_q,
     qkv = torch.empty((M, 3 * C), dtype=scratch, device=dev)
     attn = torch.empty((M, C), dtype=scratch, device=dev)
     # the route decided here (ms.core_of) and passed down: a SIMT form of
-    # the core (the int8-score form, or the exact fp32 core) or a wgmma one
+    # the core (the int8-score form, the exact fp32 core, or the bf16 core
+    # past head dim 256) or a wgmma one
     core = (_core_q8_route(lib, N, C, heads, scratch, kernel) if attn_q8
-            else ms.core_of(kernel, scratch, C // heads))
-    simt = core in ("simt_q8", "f32_exact")
+            else ms.core_of(kernel, scratch, C // heads, heads=heads))
+    simt = core in ("simt_q8", "f32_exact", "simt")
     core_scratch = (_core_scratch(lib, B, N, C, heads, dev)
                     if attn_q8 and simt else None)
     err = lib.dyt_attention_sublayer_q8(

@@ -1,6 +1,7 @@
-"""The bf16 attention core (K1, K15) at head dims 64 and 128, the int8
-attention core (K10) and the dense adapter/router kernel of this tree
-against the same kernels of another checkout, bit for bit.
+"""The bf16 attention core (K1, K15) and the windowed core (K9) at head dims
+64 and 128, the int8 attention core (K10) and the dense adapter/router
+kernel of this tree against the same kernels of another checkout, bit for
+bit.
 
     python -m dynamic_tuning_tpu_torch.utils.kernel_diff OTHER_TREE
 
@@ -13,7 +14,8 @@ table says); this tree's through its wrappers (the core through its C
 entry, ``dyt_mha_core``, in both).  Over the cases below,
 which ``tests/test_torch_port_cuda.py`` also holds against the plain
 versions -- the core in both modes at every shape of ``CORE`` (the staged
-kernel whole-row and in 64-key chunks, the ring past the staged N), K10 at
+kernel whole-row and in 64-key chunks, the ring past the staged N), K9 at
+every shape of ``WINDOWED`` with a padded bf16 bias, K10 at
 every N of ``CORE_Q8_N`` at head dims 64 and 128
 and on the adversarial head pair, the adapter/router at every M x C x F of
 ``AR_M``, ``AR_C``, ``AR_F`` in bf16 and fp32 out, with and without the
@@ -38,6 +40,8 @@ import torch
 CORE = ((2, 19, 2, 64), (32, 197, 12, 64), (2, 197, 2, 128),
         (2, 256, 2, 64), (2, 209, 2, 128), (2, 300, 2, 64), (1, 864, 2, 64),
         (1, 865, 2, 64), (1, 417, 2, 128), (2, 901, 12, 64))
+WINDOWED = ((1, 1025, 12, 64), (2, 197, 4, 128), (3, 19, 2, 64),
+            (2, 129, 2, 128))
 CORE_Q8_N = (1, 17, 64, 65, 197, 256, 257, 442, 511, 512)
 AR_M = (1, 63, 64, 129, 25216)
 AR_C = (64, 128, 768, 1024)
@@ -190,6 +194,25 @@ def main(argv) -> None:
             bf16_core.add(*outs)
         print(bf16_core.line(f"bf16 core, {'K15' if k15 else 'K1'} mode"),
               flush=True)
+
+    windowed = Tally()
+    for B, N, H, hd in WINDOWED:
+        qkv = core_q8_qkv(B, N, H * hd, H, seed=N + 1)
+        ld = ms.bias_row_stride(N)
+        g = torch.Generator(device="cuda").manual_seed(N)
+        bias = torch.randn((H, N, ld), generator=g, device="cuda").to(
+            torch.bfloat16)[:, :, :N]
+        outs = []
+        for which in (lib, other):
+            o = torch.empty((B, N, H * hd), dtype=torch.bfloat16,
+                            device="cuda")
+            _build.check(which, which.dyt_mha_windowed(
+                p(qkv), p(bias), p(o), B, N, H * hd, H, bias.stride(0),
+                bias.stride(1), hd ** -0.5, stream), "K9")
+            outs.append(o)
+        torch.cuda.synchronize()
+        windowed.add(*outs)
+    print(windowed.line("K9 mha_windowed_fused"), flush=True)
 
     core = Tally()
     for _, qkv, H in core_q8_cases():

@@ -40,9 +40,14 @@ same function, SDPA's device time:
 
 * K15 and K1 in bf16 at B=32, N=197, C=768 in 4 heads of 192 and C=1024 in
   4 heads of 256 (K15 on views of the raw qkv, SDPA on contiguous q, k,
-  v), and K3 (F = 64) and K10 (the SIMT core's int8-score form) there;
-  K9 in bf16 at head dim 192 (the SIMT core; B=1, N=1025, 4 heads) beside
-  SDPA with its bias as the mask;
+  v), and K3 (F = 64) and K10 (the int8-score wgmma core) there, and K10
+  at C=768 in 12 heads of 64 (the same products); K9 in bf16 at head dims
+  192 and 256 (B=1 and 2, N=1025, 4 heads) beside SDPA with its bias as
+  the mask;
+* past head dim 256 (the SIMT core, which walks hd in 64-column slices):
+  K15, K1, K3 and K10 in bf16 and K1 in fp32 at B=32, N=197, C=768 in 2
+  heads of 384, and K9 in bf16 at B=1, N=1025 there (a tree that refuses
+  the head dim prints so);
 * K1 in fp32 at ViT-B/16 rows (B=32, N=197, 12 heads of 64) beside SDPA in
   fp32 with TF32 off, and K10 there (the int8-score form, float64 sums); K9 in fp32 at the seg crop (B=1, N=1025) with its
   bf16 bias, beside SDPA with the bias as its mask;
@@ -294,16 +299,21 @@ def _cores(g) -> dict:
         _line(out, f"K10 bf16 hd {hd}",
               lambda: qt.attn_core_pairs_q8(qkv, heads=heads), (qkv,),
               {"int8": ops["bf16"] // 2, "bf16": ops["bf16"] // 2})
-    sq = _qkv(g, 1, SEG_N, 768, BF)
-    ld = ms.bias_row_stride(SEG_N)
-    bias = (torch.randn((4, SEG_N, ld), generator=g, device="cuda")
-            .to(BF)[:, :, :SEG_N])
-    q9, k9, v9 = (t.contiguous() for t in _split(sq, 4))
-    mask = bias.contiguous()[None]
-    _line(out, "K9 bf16 hd 192",
-          lambda: ms.mha_windowed_fused(sq, bias, heads=4),
-          (sq, bias.contiguous()), {"bf16": 4 * 4 * SEG_N * SEG_N * 192},
-          lambda: F.scaled_dot_product_attention(q9, k9, v9, attn_mask=mask))
+    qkv = _qkv(g, CORES_B, N, 768, BF)
+    _line(out, "K10 bf16 hd 64 (12 heads, C=768)",
+          lambda: qt.attn_core_pairs_q8(qkv, heads=12), (qkv,),
+          {"int8": 2 * CORES_B * 768 * N * N,
+           "bf16": 2 * CORES_B * 768 * N * N})
+    for width in (768, 1024):
+        for batch in (1, 2):
+            _k9(out, g, width, 4, batch)
+    for name, fn in (("hd 384", _past_256), ("K9 bf16 hd 384",
+                                             lambda o, g_: _k9(o, g_, 768,
+                                                               2))):
+        try:
+            fn(out, g)
+        except ValueError as e:               # a tree that refuses hd 384
+            print(f"{name}: refused ({e})", flush=True)
     qkv = _qkv(g, CORES_B, N, C, F32)
     q, k, v = (t.contiguous() for t in _split(qkv, H))
     attn = 4 * CORES_B * H * N * N * HD
@@ -346,6 +356,55 @@ def _cores(g) -> dict:
             print(f"dyt_mha_core, hd {hd}: {us:.2f} us of host time a call",
                   flush=True)
     return out
+
+
+def _k9(out, g, width, heads, batch=1) -> None:
+    """K9 in bf16 at B=``batch``, N=SEG_N in ``heads`` heads of ``width``,
+    beside SDPA with its bias as the mask."""
+    hd = width // heads
+    sq = _qkv(g, batch, SEG_N, width, BF)
+    ld = ms.bias_row_stride(SEG_N)
+    bias = (torch.randn((heads, SEG_N, ld), generator=g, device="cuda")
+            .to(BF)[:, :, :SEG_N])
+    q9, k9, v9 = (t.contiguous() for t in _split(sq, heads))
+    mask = bias.contiguous()[None]
+    _line(out, f"K9 bf16 hd {hd}" + (f" B={batch}" if batch > 1 else ""),
+          lambda: ms.mha_windowed_fused(sq, bias, heads=heads),
+          (sq, bias.contiguous()),
+          {"bf16": 4 * batch * heads * SEG_N * SEG_N * hd},
+          lambda: F.scaled_dot_product_attention(q9, k9, v9, attn_mask=mask))
+
+
+def _past_256(out, g) -> None:
+    """The cores at B=32, N=197, C=768 in 2 heads of 384."""
+    width, heads = 768, 2
+    hd = width // heads
+    qkv = _qkv(g, CORES_B, N, width, BF)
+    q, k, v = _split(qkv, heads)
+    qc, kc, vc = (t.contiguous() for t in (q, k, v))
+    sdpa = lambda: F.scaled_dot_product_attention(qc, kc, vc)  # noqa
+    ops = {"bf16": 4 * CORES_B * heads * N * N * hd}
+    _line(out, f"K15 bf16 hd {hd}", lambda: ms.mha_serving(q, k, v),
+          (qkv,), ops, sdpa)
+    _line(out, f"K1 bf16 hd {hd}",
+          lambda: ms.mha_serving_fused(qkv, heads=heads), (qkv,), ops, sdpa)
+    _line(out, f"K10 bf16 hd {hd}",
+          lambda: qt.attn_core_pairs_q8(qkv, heads=heads), (qkv,),
+          {"int8": ops["bf16"] // 2, "bf16": ops["bf16"] // 2})
+    x = torch.randn((CORES_B, N, width), generator=g, device="cuda").to(BF)
+    sub, ad, _ = _weights(g, width, BF)
+    M = CORES_B * N
+    _line(out, f"K3 bf16 hd {hd}",
+          lambda: ms.dyt_prologue_serving(x, *sub, *ad, heads=heads),
+          (x, *sub, *ad),
+          {"bf16": 8 * M * width * width + ops["bf16"]
+           + 4 * M * width * F_ADAPT, "fp32": 2 * M * width})
+    qf = qkv.float()
+    qfc, kfc, vfc = (t.contiguous() for t in _split(qf, heads))
+    _line(out, f"K1 fp32 hd {hd}",
+          lambda: ms.mha_serving_fused(qf, heads=heads), (qf,),
+          {"fp32": ops["bf16"]},
+          lambda: F.scaled_dot_product_attention(qfc, kfc, vfc))
 
 
 def entry_host_us(q, k, v, calls: int = 200) -> float:

@@ -110,9 +110,9 @@ def test_attention_sublayer_kernel_fp32_copy(xdtype):
     """K2's chain with the fp32 copy of x_mid that K3 and K7 hand their
     adapter: the residual epilogue's two outputs."""
     x, sub, _ = make_inputs(3, 197, 768, 64, xdtype=xdtype, seed=3)
-    lib = ms._check_sublayer(x, *sub, 12)
+    lib, core = ms._check_sublayer(x, *sub, 12, "K3")
     xm32 = torch.empty(x.shape, dtype=torch.float32, device="cuda")
-    got = ms._launch_sublayer(lib, x, *sub, 12, xm32)
+    got = ms._launch_sublayer(lib, x, *sub, 12, xm32, core)
     torch.cuda.synchronize()
     assert torch.equal(xm32.to(xdtype), got)
     bf16_close(xm32, ms._sublayer_f32(x, *sub, 12), "x_mid fp32")
@@ -1151,7 +1151,7 @@ def test_attention_wrappers_raise_on_unsupported_input():
     with pytest.raises(ValueError, match="contiguous"):
         ms.mha_serving_fused(core_qkv(17, 2, 2).transpose(0, 1), heads=2)
     with pytest.raises(ValueError, match="head_dim"):
-        ms.mha_serving_fused(core_qkv(1, 17, 2, hd=320), heads=2, group=2)
+        ms.mha_serving_fused(core_qkv(1, 17, 2, hd=96), heads=2, group=2)
     # K15: dtype, shapes, alignment
     with pytest.raises(TypeError):
         ms.mha_serving(q.float(), k, v)
@@ -1782,14 +1782,15 @@ def _form_count(fn, form):
 def test_simt_core_forms(B, N, H, hd, dtype):
     """K1 (fp32 on the fp32 core at every head dim, bf16 at 192 and 256 on
     the wgmma core), K9 with its bf16 bias (fp32 on the fp32 core, bf16 at
-    192 and 256 on the SIMT core), K15 at 192 and 256 (the wgmma core), and
-    K10 on fp32 qkv or at head dims 192 and 256 (the SIMT core's int8-score
-    form), each against its plain version, each counted under its form."""
+    192 and 256 on the wgmma core's ring with the bias blocks), K15 at 192
+    and 256 (the wgmma core), and K10 on fp32 qkv (the SIMT core's
+    int8-score form) or at head dims 192 and 256 (the int8-score wgmma
+    core), each against its plain version, each counted under its form."""
     qkv = core_qkv(B, N, H, hd).to(dtype)
     qkv[..., H * hd:2 * H * hd] += 1.0             # keys with a lane offset
     close = fp32_close if dtype == F32 else bf16_close
     wide = hd not in (64, 128)
-    form = ms.form_of(dtype, hd)
+    form = ms.form_of(dtype, hd, core=ms.core_of("K1", dtype, hd, heads=H))
     assert form == ("fp32" if dtype == F32 else
                     "bf16+wide_heads" if wide else "bf16")
     before = _form_count(ms.mha_serving_fused, form)
@@ -1800,8 +1801,9 @@ def test_simt_core_forms(B, N, H, hd, dtype):
     close(got, ms.attn_core_pairs(qkv, heads=H), "K1")
     g = torch.Generator(device="cuda").manual_seed(3)
     bias = torch.randn((H, N, N), generator=g, device="cuda").to(BF)
-    core9 = ms.core_of("K9", dtype, hd)
+    core9 = ms.core_of("K9", dtype, hd, heads=H)
     form9 = ms.form_of(dtype, hd, core=core9)
+    assert form9 == form
     before = _form_count(ms.mha_windowed_fused, form9)
     got = ms.mha_windowed_fused(qkv, bias, heads=H)
     torch.cuda.synchronize()
@@ -1818,12 +1820,184 @@ def test_simt_core_forms(B, N, H, hd, dtype):
         bf16_close(got, want, "K15")
         contract_close(got, want, "K15")
     if dtype == F32 or wide:
-        form10 = ms.form_of(dtype, hd, core="simt_q8")
+        core10 = qt._core_q8_route(kd_lib(), N, H * hd, H, dtype)
+        assert core10 == ("simt_q8" if dtype == F32 else "q8")
+        form10 = ms.form_of(dtype, hd, core=core10)
         before = _form_count(qt.attn_core_pairs_q8, form10)
         got = qt.attn_core_pairs_q8(qkv, heads=H)
         torch.cuda.synchronize()
         assert _form_count(qt.attn_core_pairs_q8, form10) == before + 1
         bf16_close(got, qt.attn_core_pairs_q8_plain(qkv, heads=H), "K10")
+
+
+def kd_lib():
+    from dynamic_tuning_tpu_torch.ops import _build
+    return _build.library()
+
+
+@pytest.mark.parametrize("B,N,H,hd", [
+    (1, 1025, 4, 192),                    # the seg crop's N in 4 heads
+    (1, 1025, 2, 256),
+    (2, 129, 2, 192),                     # one key past a ring of two tiles
+    (2, 200, 4, 256),
+    (3, 19, 2, 256),                      # fewer keys than a tile
+    (2, 65, 2, 192)])                     # one query row past a tile
+def test_wide_windowed_kernel(B, N, H, hd):
+    """K9 at head dims 192 and 256 on the wgmma core's ring with the bias
+    blocks (the layer's padded bf16 bias) against its plain version: two
+    bf16 ulps of the largest output, 99% within one ulp of their own
+    magnitude (``ulp_share``)."""
+    qkv = core_qkv(B, N, H, hd, seed=31)
+    qkv[..., H * hd:2 * H * hd] += 1.0
+    ld = ms.bias_row_stride(N)
+    g = torch.Generator(device="cuda").manual_seed(4)
+    bias = (torch.randn((H, N, ld), generator=g, device="cuda").to(BF)
+            [:, :, :N])
+    assert ms.core_of("K9", BF, hd, heads=H) == "windowed"
+    before = _form_count(ms.mha_windowed_fused, "bf16+wide_heads")
+    got = ms.mha_windowed_fused(qkv, bias, heads=H)
+    torch.cuda.synchronize()
+    assert _form_count(ms.mha_windowed_fused, "bf16+wide_heads") == before + 1
+    want = ms.mha_windowed_plain(qkv, bias, heads=H)
+    assert got.dtype == BF and got.shape == (B, N, H * hd)
+    bf16_close(got, want, "K9")
+    contract_close(got, want, "K9")
+
+
+@pytest.mark.parametrize("B,N,H,hd", [
+    (32, 197, 4, 192),                    # ViT-B/16 in 4 heads of 192
+    (32, 197, 2, 256),
+    (2, 300, 2, 192),                     # the longest N its layout takes
+    (2, 240, 2, 256),
+    (2, 65, 2, 192),                      # one key past a 64-key chunk
+    (3, 33, 2, 256),                      # one key past a 32-key chunk
+    (2, 1, 2, 256),
+    (2, 400, 2, 192)])                    # past the layout: the SIMT form
+def test_wide_attn_core_q8(B, N, H, hd):
+    """K10 at head dims 192 and 256 on the int8-score wgmma core (an
+    adversarial head pair, as ``kd.core_q8_qkv(pair=True)``: keys with a
+    lane offset, one head's keys 20x the other's) against its plain
+    version: two bf16 ulps, ``ulp_share``; past its layout's N the SIMT
+    form."""
+    qkv = core_qkv(B, N, H, hd, seed=33)
+    k = qkv[..., H * hd:2 * H * hd].view(B, N, H // 2, 2, hd)
+    k[..., 1, :] *= 20.0
+    qkv[..., H * hd:2 * H * hd] += 1.0
+    core = qt._core_q8_route(kd_lib(), N, H * hd, H, BF)
+    assert core == ("simt_q8" if N == 400 else "q8")
+    form = ms.form_of(BF, hd, core=core)
+    before = _form_count(qt.attn_core_pairs_q8, form)
+    got = qt.attn_core_pairs_q8(qkv, heads=H)
+    torch.cuda.synchronize()
+    assert _form_count(qt.attn_core_pairs_q8, form) == before + 1
+    want = qt.attn_core_pairs_q8_plain(qkv, heads=H)
+    bf16_close(got, want, "K10")
+    contract_close(got, want, "K10")
+
+
+@pytest.mark.parametrize("hd", [320, 384, 512])
+def test_cores_past_head_dim_256(hd):
+    """Every core form at 2 heads of ``hd`` (past the wgmma and fp32 cores'
+    head dims: the SIMT core, which walks hd in 64-column slices) against
+    its plain version: bf16 K1, K9 (bias), K15 and K10 (two bf16 ulps), fp32
+    K1, K9 and K10 (1e-5 of the largest output), the exact core (float64
+    sums) bit for bit; each counted under its form."""
+    B, N, H = 2, 131, 2
+    for dtype in (BF, F32):
+        qkv = core_qkv(B, N, H, hd, seed=hd).to(dtype)
+        qkv[..., H * hd:2 * H * hd] += 1.0
+        close = fp32_close if dtype == F32 else bf16_close
+        form = "fp32" if dtype == F32 else "bf16+simt_core"
+        for kernel, call, plain in (
+                ("K1", lambda: ms.mha_serving_fused(qkv, heads=H),
+                 lambda: ms.attn_core_pairs(qkv, heads=H)),
+                ("K10", lambda: qt.attn_core_pairs_q8(qkv, heads=H),
+                 lambda: qt.attn_core_pairs_q8_plain(qkv, heads=H))):
+            fn = (ms.mha_serving_fused if kernel == "K1"
+                  else qt.attn_core_pairs_q8)
+            before = _form_count(fn, form)
+            got = call()
+            torch.cuda.synchronize()
+            assert _form_count(fn, form) == before + 1, kernel
+            (close if kernel == "K1" else bf16_close)(got, plain(), kernel)
+        g = torch.Generator(device="cuda").manual_seed(5)
+        bias = torch.randn((H, N, N), generator=g, device="cuda").to(BF)
+        before = _form_count(ms.mha_windowed_fused, form)
+        got = ms.mha_windowed_fused(qkv, bias, heads=H)
+        torch.cuda.synchronize()
+        assert _form_count(ms.mha_windowed_fused, form) == before + 1
+        close(got, ms.mha_windowed_plain(qkv, bias, heads=H), "K9")
+        if dtype == BF:
+            q, k, v = qkv.view(B, N, 3, H, hd).permute(2, 0, 3, 1, 4)
+            before = _form_count(ms.mha_serving, form)
+            got = ms.mha_serving(q, k, v)
+            torch.cuda.synchronize()
+            assert _form_count(ms.mha_serving, form) == before + 1
+            want = ms.mha_serving_plain(q, k, v)
+            bf16_close(got, want, "K15")
+            contract_close(got, want, "K15")
+        else:
+            lib = kd_lib()
+            out = torch.empty((B, N, H * hd), device="cuda")
+            err = lib.dyt_simt_core_exact(
+                qkv.data_ptr(), out.data_ptr(), B, N, H * hd, H,
+                hd ** -0.5, torch.cuda.current_stream().cuda_stream)
+            assert err == 0, lib.dyt_error_string(err)
+            torch.cuda.synchronize()
+            want = ms.attn_core_pairs(qkv, heads=H)
+            assert torch.equal(out, want), (
+                (out != want).float().mean().item())
+
+
+@pytest.mark.parametrize("hd", [320, 512])
+def test_sublayers_past_head_dim_256(hd):
+    """K2, K3 and K7 (bf16 and fp32) and K5, K6, K8 (bf16 with and without
+    int8 scores, fp32 adapters on the exact core) at 2 heads of ``hd``:
+    the chains' C entries take the SIMT core the wrappers route them to."""
+    B, N, H, F = 2, 37, 2, 32
+    C = H * hd
+    x, sub, ad = make_inputs(B, N, C, F, seed=hd)
+    got = ms.attention_sublayer_serving(x, *sub, heads=H)
+    torch.cuda.synchronize()
+    bf16_close(got, ms.attention_sublayer_plain(x, *sub, heads=H), "K2")
+    got = ms.dyt_prologue_serving(x, *sub, *ad, heads=H)
+    torch.cuda.synchronize()
+    want = ms.dyt_prologue_plain(x, *sub, *ad, heads=H)
+    bf16_close(got[0], want[0], "K3 x_mid")
+    bf16_close(got[1], want[1], "K3 adapt")
+    logits_close(got[2], want[2])
+    qs = q8_sub(sub)
+    for attn_q8 in (False, True):
+        got = qt.dyt_prologue_serving_q8(x, *qs, *ad, heads=H,
+                                         attn_q8=attn_q8)
+        torch.cuda.synchronize()
+        want = qt.dyt_prologue_q8_plain(x, *qs, *ad, heads=H,
+                                        attn_q8=attn_q8)
+        bf16_close(got[0], want[0], "K6 x_mid")
+        bf16_close(got[1], want[1], "K6 adapt")
+    xf, subf, adf = fp32_inputs(B, N, C, F, seed=hd)
+    got = ms.dyt_prologue_serving(xf, *subf, *adf, heads=H)
+    torch.cuda.synchronize()
+    want = ms.dyt_prologue_plain(xf, *subf, *adf, heads=H)
+    fp32_close(got[0], want[0], "K3 fp32 x_mid")
+    moe = moe_inputs_f32(C, 2, 4, seed=8)
+    got = ms.dyt_prologue_serving_moe(xf, *subf, *moe, *adf[5:], heads=H,
+                                      tau=0.7)
+    torch.cuda.synchronize()
+    want = ms.dyt_prologue_moe_plain(xf, *subf, *moe, *adf[5:], heads=H,
+                                     tau=0.7)
+    fp32_close(got[0], want[0], "K7 fp32 x_mid")
+    qsf = q8_sub(subf)
+    for attn_q8 in (False, True):
+        got = qt.dyt_prologue_serving_q8_moe(xf, *qsf, *moe, *adf[5:],
+                                             heads=H, tau=1.0,
+                                             attn_q8=attn_q8)
+        torch.cuda.synchronize()
+        want = qt.dyt_prologue_q8_moe_plain(xf, *qsf, *moe, *adf[5:],
+                                            heads=H, tau=1.0,
+                                            attn_q8=attn_q8)
+        bf16_close(got[0], want[0], "K8 fp32 x_mid")
+        bf16_close(got[1], want[1], "K8 fp32 adapt")
 
 
 @pytest.mark.parametrize("mode", ["K1", "K9"])
@@ -1923,8 +2097,8 @@ def test_core_routes_follow_the_flag():
 @pytest.mark.parametrize("C,H", [(768, 4), (1024, 4)])
 def test_bf16_head_dims_192_and_256(C, H):
     """K2, K3, K7 and K5/K6 at head dims 192 and 256: the bf16 chains with
-    the wgmma core ("bf16+wide_heads"), and K6 with int8 scores on the SIMT
-    core's int8-score form ("bf16+simt_core")."""
+    the wgmma core ("bf16+wide_heads"), and K6 with int8 scores on the
+    int8-score wgmma core (the same form)."""
     x, sub, ad = make_inputs(4, 197, C, 64, seed=10)
     ms.reset_launch_counts()
     qt.reset_launch_counts()
@@ -1959,9 +2133,8 @@ def test_bf16_head_dims_192_and_256(C, H):
     for fn in (ms.dyt_prologue_serving, ms.attention_sublayer_serving,
                ms.dyt_prologue_serving_moe, qt.attention_sublayer_serving_q8):
         assert fn.forms == wide, (fn.__name__, fn.forms)
-    assert qt.dyt_prologue_serving_q8.forms == {"bf16+wide_heads": 1,
-                                                "bf16+simt_core": 1}
-    assert qt.attn_core_pairs_q8.forms == {"bf16+simt_core": 1}
+    assert qt.dyt_prologue_serving_q8.forms == {"bf16+wide_heads": 2}
+    assert qt.attn_core_pairs_q8.forms == {"bf16+wide_heads": 1}
 
 
 def test_fp32_model_launches_only_fp32_forms():

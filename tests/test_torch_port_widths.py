@@ -14,9 +14,12 @@ port's wgmma kernels are not built for, on the CPU.
   (padded to 16 and 32 by the port; 256 on the SIMT tail) in dense and
   dispatch mode; MoE at 2 experts of 4 (padded to 2 x 8 in bf16), fp32 and bf16;
   head dims 192 (C = 384 in 2 heads) and 256 (C = 512 in 2 heads), fp32
-  and bf16 dispatch, and int8_attn at fp32 compute;
+  and bf16 dispatch, and int8_attn at fp32 compute; head dim 320 (C = 640
+  in 2 heads, past the wgmma cores' head dims), fp32 and bf16 dispatch,
+  and its K9 (with a bias), K10 and K15 against the JAX kernels;
 * the route table (``ms.core_of``): which attention core each kernel's
-  wrapper runs, by dtype, head dim and int8 scores; ``speed --num_heads``.
+  wrapper runs, by dtype, head dim and int8 scores, and the head dims and
+  head counts it refuses; ``speed --num_heads``.
 
 Tolerances: fp32 logits within 1e-5 of their largest magnitude, every gate
 identical (int8: 1e-2, as tests/test_torch_port_model.py); bf16 as the
@@ -253,6 +256,70 @@ def test_head_dim_192_matches_jax(monkeypatch, dtype, hd):
     _check(jm, params, tm, x, MODES["dispatch"], dtype)
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_head_dim_320_matches_jax(monkeypatch, dtype):
+    """A DyT ViT (K3 in every Block forward) at head dim 320 (C = 640 in 2
+    heads), which JAX fuses and the card serves on the SIMT core; dispatch."""
+    jm, params, tm, x = _pair(monkeypatch, dtype=dtype, ffn=64, dim=640,
+                              heads=2)
+    assert ms.core_of("K3", TDT[dtype], 320, heads=2) == "simt"
+    _check(jm, params, tm, x, MODES["dispatch"], dtype)
+
+
+def _close_rel(got, want, dtype):
+    """Within 1e-5 (fp32) or 0.012 (bf16) of the largest |want|: the
+    model tolerances of ``_check``."""
+    want = np.asarray(want, np.float32)
+    rel = 1e-5 if dtype == "float32" else 0.012
+    np.testing.assert_allclose(got.float().numpy(), want, rtol=0,
+                               atol=rel * np.abs(want).max())
+
+
+@pytest.mark.parametrize("kernel,dtype", [
+    ("K9", "float32"), ("K9", "bfloat16"), ("K10", "float32"),
+    ("K10", "bfloat16"), ("K15", "bfloat16")])
+def test_head_dim_320_kernels_match_jax(kernel, dtype):
+    """K9 (with a bias), K10 and K15 at 2 heads of 320 against the JAX
+    kernels in interpret mode (K15 takes bf16 only)."""
+    from dynamic_tuning_tpu.ops import mha_serving as jms
+    from dynamic_tuning_tpu.ops import quant as jq
+    from dynamic_tuning_tpu_torch.ops import quant as tq
+    H, hd, N, B = 2, 320, 13, 2
+    C = H * hd
+    rs = np.random.RandomState(32)
+    qkv = rs.randn(B, N, 3 * C).astype(np.float32)
+    qkv[..., C:2 * C] += 1.0
+    jdt, tdt = JDT[dtype], TDT[dtype]
+    if kernel == "K9":
+        bias = rs.randn(H, N, N).astype(np.float32)
+        want = jms.mha_windowed_fused(jnp.asarray(qkv, jdt),
+                                      jnp.asarray(bias, jnp.bfloat16),
+                                      heads=H, interpret=True)
+        got = ms.mha_windowed_fused(torch.from_numpy(qkv).to(tdt),
+                                    torch.from_numpy(bias), heads=H)
+        assert ms.core_of("K9", tdt, hd, heads=H) == "simt"
+    elif kernel == "K10":
+        outs = []
+        for smp in qkv:
+            out = np.zeros((N, C), jdt)
+            jq.attn_core_pairs_q8(jnp.asarray(smp, jdt), out, heads=H,
+                                  hd=hd, scale=hd ** -0.5)
+            outs.append(out.astype(np.float32))
+        want = np.stack(outs)
+        got = tq.attn_core_pairs_q8(torch.from_numpy(qkv).to(tdt), heads=H)
+        assert ms.core_of("K10", tdt, hd, heads=H) == "simt_q8"
+    else:
+        q, k, v = (a.astype(np.float32) for a in np.asarray(
+            jnp.asarray(qkv, jnp.bfloat16)).reshape(B, N, 3, H, hd)
+                   .transpose(2, 0, 3, 1, 4))
+        want = jms.mha_serving(*(jnp.asarray(a, jnp.bfloat16)
+                                 for a in (q, k, v)), interpret=True)
+        got = ms.mha_serving(*(torch.from_numpy(np.ascontiguousarray(a))
+                               .to(BF) for a in (q, k, v)))
+        assert ms.core_of("K15", BF, hd, heads=H) == "simt"
+    _close_rel(got, np.asarray(jnp.asarray(want, jnp.float32)), dtype)
+
+
 def test_head_dim_192_int8_attn_fp32_matches_jax(monkeypatch):
     jm, params, tm, x = _pair(monkeypatch, dtype="float32", ffn=24, dim=384,
                               heads=2, quant="int8_attn")
@@ -263,6 +330,7 @@ def test_head_dim_192_int8_attn_fp32_matches_jax(monkeypatch):
 
 F32 = torch.float32
 # kernel -> {(dtype, head dim, int8 scores, K10's layout fits): core}
+WIDE = (320, 384, 512)                 # past the wgmma cores' head dims
 ROUTES = {
     "K1": {(BF, 64, 0, 1): "wgmma", (BF, 128, 0, 1): "wgmma",
            (BF, 192, 0, 1): "wgmma", (BF, 256, 0, 1): "wgmma",
@@ -277,32 +345,48 @@ ROUTES = {
            (F32, 128, 0, 1): "f32"},
     "K5": {(BF, 64, 0, 1): "wgmma", (BF, 192, 0, 1): "wgmma",
            (BF, 64, 1, 1): "q8", (BF, 64, 1, 0): "simt_q8",
-           (BF, 192, 1, 1): "simt_q8"},
+           (BF, 192, 1, 1): "q8", (BF, 256, 1, 0): "simt_q8"},
     "K6": {(BF, 256, 0, 1): "wgmma", (BF, 128, 1, 1): "q8",
-           (BF, 256, 1, 1): "simt_q8", (F32, 64, 0, 1): "f32_exact",
+           (BF, 256, 1, 1): "q8", (F32, 64, 0, 1): "f32_exact",
            (F32, 64, 1, 1): "simt_q8", (F32, 192, 0, 1): "f32_exact"},
     "K8": {(BF, 192, 0, 1): "wgmma", (BF, 64, 1, 1): "q8",
            (F32, 64, 0, 1): "f32_exact", (F32, 64, 1, 1): "simt_q8"},
     "K9": {(BF, 64, 0, 1): "windowed", (BF, 128, 0, 1): "windowed",
-           (BF, 192, 0, 1): "simt", (BF, 256, 0, 1): "simt",
+           (BF, 192, 0, 1): "windowed", (BF, 256, 0, 1): "windowed",
            (F32, 64, 0, 1): "f32", (F32, 256, 0, 1): "f32"},
     "K10": {(BF, 64, 0, 1): "q8", (BF, 128, 0, 1): "q8",
-            (BF, 128, 0, 0): "simt_q8", (BF, 192, 0, 1): "simt_q8",
-            (BF, 256, 0, 1): "simt_q8", (F32, 64, 0, 1): "simt_q8"},
+            (BF, 128, 0, 0): "simt_q8", (BF, 192, 0, 1): "q8",
+            (BF, 256, 0, 1): "q8", (BF, 192, 0, 0): "simt_q8",
+            (F32, 64, 0, 1): "simt_q8"},
 }
+# past head dim 256 every core is the SIMT core's, in each of its forms
+for _hd in WIDE:
+    for _k in ("K1", "K2", "K3", "K7", "K9"):
+        ROUTES[_k].update({(BF, _hd, 0, 1): "simt", (F32, _hd, 0, 1): "simt"})
+    ROUTES["K15"][(BF, _hd, 0, 1)] = "simt"
+    for _k in ("K5", "K6", "K8"):
+        ROUTES[_k].update({(BF, _hd, 0, 1): "simt",
+                           (BF, _hd, 1, 1): "simt_q8"})
+    for _k in ("K6", "K8"):
+        ROUTES[_k].update({(F32, _hd, 0, 1): "f32_exact",
+                           (F32, _hd, 1, 1): "simt_q8"})
+    ROUTES["K10"].update({(BF, _hd, 0, 1): "simt_q8",
+                          (F32, _hd, 0, 1): "simt_q8"})
 
 
 @pytest.mark.parametrize("kernel", sorted(ROUTES))
 def test_core_routes(kernel):
     """The attention core each wrapper runs (``ms.core_of``, the one table
-    the wrappers route by): bf16 K1, K15 and the cores of K2, K3, K7 and of
-    K5, K6, K8 without int8 scores on the wgmma core at every head dim; K9
-    and K10 on their wgmma kernels at 64 and 128 and on the SIMT core at 192
-    and 256; fp32 K1, K2, K3, K7, K9 on the fp32 core; fp32 K6, K8 on the
-    exact core; K5 and K15 in fp32 on none (K5's scratch is bf16); and the
-    forms the counts are kept under."""
+    the wrappers route by): up to head dim 256, bf16 K1, K15 and the cores
+    of K2, K3, K7 and of K5, K6, K8 without int8 scores on the wgmma core,
+    K9 and K10 on their wgmma kernels (K10 on the SIMT core's int8-score
+    form where its layout does not fit), fp32 K1, K2, K3, K7, K9 on the
+    fp32 core; fp32 K6, K8 on the exact core; past 256 every core on the
+    SIMT core; K5 and K15 in fp32 on none (K5's scratch is bf16); and the
+    forms the counts are kept under.  Head dims JAX does not fuse, and odd
+    head counts (but for K15, which pairs no heads), raise here alone."""
     for (dtype, hd, q8, fits), core in ROUTES[kernel].items():
-        got = ms.core_of(kernel, dtype, hd, attn_q8=bool(q8),
+        got = ms.core_of(kernel, dtype, hd, heads=2, attn_q8=bool(q8),
                          q8_fits=bool(fits))
         assert got == core, (kernel, dtype, hd, q8, fits, got)
         want = ("fp32" if dtype == F32 else
@@ -310,11 +394,18 @@ def test_core_routes(kernel):
                 "bf16+simt_core" if core.startswith("simt") else
                 "bf16+wide_heads")
         assert ms.form_of(dtype, hd, core=core) == want
-    with pytest.raises(ValueError):
-        ms.core_of(kernel, BF, 96)
+    for hd in (96, 160, 0, 32):
+        with pytest.raises(ValueError, match="head_dim"):
+            ms.core_of(kernel, BF, hd, heads=2)
+    if kernel == "K15":
+        assert ms.core_of(kernel, BF, 320, heads=3) == "simt"
+    else:
+        for hd in (64, 320):
+            with pytest.raises(ValueError, match="heads"):
+                ms.core_of(kernel, BF, hd, heads=3)
     if kernel in ("K5", "K15"):
         with pytest.raises(TypeError):
-            ms.core_of(kernel, F32, 64)
+            ms.core_of(kernel, F32, 64, heads=2)
 
 
 def test_speed_builds_head_dim_192():
@@ -327,4 +418,4 @@ def test_speed_builds_head_dim_192():
     assert len(model.blocks) == 12
     assert {blk.num_heads for blk in model.blocks} == {4}
     assert {blk.attn.num_heads for blk in model.blocks} == {4}
-    assert ms.core_of("K3", BF, model.cfg.embed_dim // 4) == "wgmma"
+    assert ms.core_of("K3", BF, model.cfg.embed_dim // 4, heads=4) == "wgmma"
