@@ -246,30 +246,35 @@ Phases; any failure exits non-zero:
      beside torch.matmul with TF32 off; the bf16 forms at F = 8 (padded)
      and 256 (the SIMT tail), MoE 2 x 4 (padded) and 4 x 192 (the SIMT
      tail), head dims 192 (C=768) and 256 (C=1024) in 4 heads and 384
-     (C=768 in 2 heads): K3, K15 and K1 (the wgmma core; at 384 the SIMT
-     core's 64-column slices), K6 with the int8-score core, K10 (its
-     int8-score wgmma core; at 384 the SIMT form), K9 at B=1, N=1025
-     (the wgmma ring with the bias blocks; at 384 the SIMT core) beside
-     SDPA with its bias as the mask, each held to ``ulp_share`` too and
-     timed, K10 at 192 and 256 beside the SIMT form the parent ran; every
-     core form at 2 heads of 320 checked (bf16 and fp32 K1,
-     K9, K10, K2, K3, K7, K5, K6, K8 with and without int8 scores, K15,
-     the exact core bit for bit); then the main path of each form, the
+     (C=768 in 2 heads): K3, K15 and K1 (the wgmma core; at 384 the
+     wgmma core past 256, hd a run-time count), K6 with the int8-score
+     core, K10 (its int8-score wgmma core; at 384 the SIMT form), K9 at
+     B=1, N=1025 (the wgmma ring with the bias blocks; at 384 the core
+     past 256 with them) beside SDPA with its bias as the mask, each held
+     to ``ulp_share`` too and timed (the cores through their C entries),
+     K10 at 192 and 256 beside the SIMT form the parent ran; in fp32 at
+     384 (the fp32 core past 256) K1 beside SDPA in fp32, K9 beside SDPA
+     with its mask, K3; every core form at 2 heads of 320 and of 832 (past
+     the cores' 768: the SIMT core's slices) checked (bf16 and fp32 K1,
+     K9, K10, K2, K3, K7, at 320 K5, K6, K8 with and without int8 scores,
+     K15, the exact core bit for bit); then the main path of each form, the
      counts set to 0 just before each run and no launch in a form the run
      does not list: speed.main in fp32 (dispatch, int8 and int8_attn at
      batch 128 against the plain-version forward, logits within 1e-3 of
      the largest, gates agreeing on 0.9995 with each differing gate's
      distances printed; dense; plain and MoE at batch 32 held the same
      way, int8 MoE to the int8 bounds of phase 3) and in bf16 at F = 256,
-     8, MoE 4 x 192 and 2 x 4; a bf16 ViT-B/16 at head dims 192 and 384
-     against its plain-version forward (its img/s at batch 32); the BEiT
-     backbone at head dim 192 on a 512^2 crop (K9); predict.serve at head
-     dims 192 and 384 (--quant none, at 192 its forward against the
-     plain-version forward, and int8_attn); main_image, main_vtab and
-     main_video with --compute_dtype float32 (short runs, each with an
-     evaluation on the dispatch path); an fp32 seg crop evaluation (K9
-     fp32 in every block); the fp32 LayerScale backbone (K1 fp32); each
-     with 12 launches a forward of its kernels and none of the others;
+     8, MoE 4 x 192 and 2 x 4, and in fp32 in 2 heads of 384 (dispatch,
+     batch 32); a bf16 ViT-B/16 at head dims 192 and 384 against its
+     plain-version forward (its img/s at batch 32); the BEiT backbone on a
+     512^2 crop (K9) in bf16 at head dims 192 and 384 and in fp32 at 384;
+     predict.serve at head dims 192 and 384 (--quant none, at 192 its
+     forward against the plain-version forward, and int8_attn); main_image,
+     main_vtab and main_video with --compute_dtype float32 (short runs,
+     each with an evaluation on the dispatch path); an fp32 seg crop
+     evaluation (K9 fp32 in every block); the LayerScale backbone (K1) in
+     fp32 at head dims 64 and 384 and in bf16 at 384; each with 12
+     launches a forward of its kernels and none of the others;
  17. the wall time (and each new phase's), the card's name and power limit
      (nvidia-smi), a JSON line of the kernels, and last the JSON result
      line.
@@ -3650,14 +3655,30 @@ FORMS = {
     "mha_windowed_fused:bf16+wide_heads": ("ms", dict(
         route="cuda", source=f"{SRC}/attention_sublayer.cu",
         replaces=f"{JAX_OPS}/mha_serving.py:321")),
-    # past head dim 256 (2 heads of 384 at ViT-B/16 width): the SIMT core's
-    # 64-column slices
-    "dyt_prologue_serving:bf16+simt_core": ("ms", dict(
-        route="cuda", source=f"{SRC}/simt_core.cuh",
+    # past head dim 256 (2 heads of 384 at ViT-B/16 width): the wgmma core
+    # past 256 and the fp32 core's (hd a run-time count); with int8 scores
+    # the SIMT core's 64-column slices
+    "dyt_prologue_serving:bf16+past_256": ("ms", dict(
+        route="cuda", source=f"{SRC}/attention_sublayer.cu",
         replaces=f"{JAX_OPS}/mha_serving.py:581")),
-    "mha_serving:bf16+simt_core": ("ms", dict(
-        route="cuda", source=f"{SRC}/simt_core.cuh",
+    "mha_serving:bf16+past_256": ("ms", dict(
+        route="cuda", source=f"{SRC}/attention_sublayer.cu",
         replaces=f"{JAX_OPS}/mha_serving.py:49")),
+    "mha_serving_fused:bf16+past_256": ("ms", dict(
+        route="cuda", source=f"{SRC}/attention_sublayer.cu",
+        replaces=f"{JAX_OPS}/mha_serving.py:219")),
+    "mha_windowed_fused:bf16+past_256": ("ms", dict(
+        route="cuda", source=f"{SRC}/attention_sublayer.cu",
+        replaces=f"{JAX_OPS}/mha_serving.py:321")),
+    "dyt_prologue_serving:fp32+past_256": ("ms", dict(
+        route="cuda", source=f"{SRC}/f32_core.cu",
+        replaces=f"{JAX_OPS}/mha_serving.py:581")),
+    "mha_serving_fused:fp32+past_256": ("ms", dict(
+        route="cuda", source=f"{SRC}/f32_core.cu",
+        replaces=f"{JAX_OPS}/mha_serving.py:219")),
+    "mha_windowed_fused:fp32+past_256": ("ms", dict(
+        route="cuda", source=f"{SRC}/f32_core.cu",
+        replaces=f"{JAX_OPS}/mha_serving.py:321")),
     "dyt_prologue_serving_q8:bf16+simt_core": ("qt", dict(
         route="cuda", source=f"{SRC}/simt_core.cuh",
         replaces=f"{JAX_OPS}/quant.py:531")),
@@ -3700,6 +3721,8 @@ FORM_RUNS = [
      ("dyt_prologue_serving_q8_moe:fp32", "q8_ln_mlp"), "fp32"),
     (F32 + ["--mode", "plain", "--quant", "int8"], F32_B, 0,
      ("attention_sublayer_serving_q8", "q8_ln_mlp"), "int8"),
+    (F32 + ["--mode", "dispatch", "--num_heads", str(HD384_HEADS)], F32_B,
+     0, ("dyt_prologue_serving:fp32+past_256",), "fp32"),
     (["--mode", "dispatch", "--ffn_num", str(WIDE_F)], F32_B, None,
      ("dyt_prologue_serving:bf16+simt_tail",), None),
     (["--mode", "dispatch", "--ffn_num", str(WIDE_F), "--quant", "int8"],
@@ -3903,8 +3926,8 @@ def forms_kernels(torch, ms, qt, _build) -> dict:
             out["dyt_prologue_serving_moe:bf16+simt_tail"] = res
     for C_, heads in ((C, HD192_HEADS), (1024, 4), (C, HD384_HEADS)):
         hd = C_ // heads
-        wide = hd > 256                # the SIMT core's 64-column slices
-        core = "the SIMT core" if wide else "the wgmma core"
+        past = hd > 256                # the wgmma core past 256
+        core = "the wgmma core past 256" if past else "the wgmma core"
         x_, s_, qs_, ad_, _ = forms_inputs(torch, ms, qt, dtype=bf, C_=C_)
         g_ = 2 * M * C_ * 4 * C_
         a_ = 2 * F32_B * heads * N * N * hd        # one product of the core
@@ -3938,16 +3961,15 @@ def forms_kernels(torch, ms, qt, _build) -> dict:
             lambda: ms.mha_serving(q_, k_, v_),
             lambda: ms.mha_serving_plain(q_, k_, v_), ("core",), (qkv_,),
             {"bf16": 2 * a_}, library=sdpa,
-            timed=None if wide else core_launch(torch, q_, k_, v_, k15=True),
-            **bfq)
+            timed=core_launch(torch, q_, k_, v_, k15=True), **bfq)
         check_ulp_share(f"K15 bf16 head_dim {hd}", ms.mha_serving(q_, k_, v_),
                         ms.mha_serving_plain(q_, k_, v_))
-        measure(f"K1 bf16 head_dim {hd}",
-                lambda: ms.mha_serving_fused(qkv_, heads=heads),
-                lambda: ms.attn_core_pairs(qkv_, heads=heads), ("core",),
-                (qkv_,), {"bf16": 2 * a_}, library=sdpa,
-                timed=None if wide else core_launch(torch, q_, k_, v_,
-                                                    k15=False), **bfq)
+        res1 = measure(f"K1 bf16 head_dim {hd}",
+                       lambda: ms.mha_serving_fused(qkv_, heads=heads),
+                       lambda: ms.attn_core_pairs(qkv_, heads=heads),
+                       ("core",), (qkv_,), {"bf16": 2 * a_}, library=sdpa,
+                       timed=core_launch(torch, q_, k_, v_, k15=False),
+                       **bfq)
         check_ulp_share(f"K1 bf16 head_dim {hd}",
                         ms.mha_serving_fused(qkv_, heads=heads),
                         ms.attn_core_pairs(qkv_, heads=heads))
@@ -3960,7 +3982,7 @@ def forms_kernels(torch, ms, qt, _build) -> dict:
         check_ulp_share(f"K10 bf16 head_dim {hd}",
                         qt.attn_core_pairs_q8(qkv_, heads=heads),
                         qt.attn_core_pairs_q8_plain(qkv_, heads=heads))
-        if not wide:
+        if not past:
             print(f"  K10 bf16 head_dim {hd} on the SIMT int8-score form "
                   f"(the parent's route): "
                   f"{time_ms(simt_q8_launch(torch, qt, qkv_, heads)):.4f} ms")
@@ -3975,14 +3997,13 @@ def forms_kernels(torch, ms, qt, _build) -> dict:
         mask = b9.contiguous()[None]
         res9 = measure(
             f"K9 bf16 head_dim {hd} (B=1, N={SEG_N}; "
-            + ("the SIMT core)" if wide else "the wgmma ring with the bias "
-               "blocks)"),
+            + ("the wgmma core past 256" if past else "the wgmma ring")
+            + " with the bias blocks)",
             lambda: ms.mha_windowed_fused(sq, b9, heads=heads),
             lambda: ms.mha_windowed_plain(sq, b9, heads=heads),
             ("core",), (sq, b9.contiguous()),
             {"bf16": 4 * SEG_N * SEG_N * hd * heads},
-            timed=None if wide else windowed_launch(torch, ms, sq, b9,
-                                                    heads),
+            timed=windowed_launch(torch, ms, sq, b9, heads),
             library=lambda: F.scaled_dot_product_attention(
                 q9, k9, v9, attn_mask=mask), **bfq)
         check_ulp_share(f"K9 bf16 head_dim {hd}",
@@ -3994,30 +4015,72 @@ def forms_kernels(torch, ms, qt, _build) -> dict:
             out["mha_serving:bf16+wide_heads"] = res15
             out["attn_core_pairs_q8:bf16+wide_heads"] = res10
             out["mha_windowed_fused:bf16+wide_heads"] = res9
-        elif wide:
-            out["dyt_prologue_serving:bf16+simt_core"] = res
+        elif past:
+            out["dyt_prologue_serving:bf16+past_256"] = res
             out["dyt_prologue_serving_q8:bf16+simt_core"] = res6
-            out["mha_serving:bf16+simt_core"] = res15
+            out["mha_serving:bf16+past_256"] = res15
+            out["mha_serving_fused:bf16+past_256"] = res1
+            out["mha_windowed_fused:bf16+past_256"] = res9
             out["attn_core_pairs_q8:bf16+simt_core"] = res10
         del x_, s_, qs_, ad_, qkv_, q_, k_, v_, qc, kc, vc, sq, b9, q9, k9
         del v9, mask
         torch.cuda.empty_cache()
+    # fp32 past head dim 256 (2 heads of 384, the fp32 core past 256): K1
+    # beside SDPA in fp32 (TF32 off), K9 at the seg crop beside SDPA with
+    # the bias as its mask, K3
+    heads, hd = HD384_HEADS, C // HD384_HEADS
+    qkv_ = torch.randn((F32_B, N, 3 * C), generator=g, device="cuda")
+    qkv_[..., C:2 * C] += 1.0
+    q_, k_, v_ = (t.contiguous() for t in qkv_.view(
+        F32_B, N, 3, heads, hd).permute(2, 0, 3, 1, 4))
+    out["mha_serving_fused:fp32+past_256"] = measure(
+        f"K1 fp32 head_dim {hd} (the fp32 core past 256)",
+        lambda: ms.mha_serving_fused(qkv_, heads=heads),
+        lambda: ms.attn_core_pairs(qkv_, heads=heads), ("core",), (qkv_,),
+        {"fp32": 2 * attn}, library=lambda: F.scaled_dot_product_attention(
+            q_, k_, v_), rel=F32_REL, plain_iters=5)
+    sq = torch.randn((1, SEG_N, 3 * C), generator=g, device="cuda")
+    sq[..., C:2 * C] += 1.0
+    ld = ms.bias_row_stride(SEG_N)
+    b9 = (torch.randn((heads, SEG_N, ld), generator=g, device="cuda")
+          .to(bf)[:, :, :SEG_N])
+    q9, k9, v9 = (t.contiguous() for t in sq.view(
+        1, SEG_N, 3, heads, hd).permute(2, 0, 3, 1, 4))
+    mask = b9.float().contiguous()[None]
+    out["mha_windowed_fused:fp32+past_256"] = measure(
+        f"K9 fp32 head_dim {hd} (B=1, N={SEG_N}; the fp32 core past 256)",
+        lambda: ms.mha_windowed_fused(sq, b9, heads=heads),
+        lambda: ms.mha_windowed_plain(sq, b9, heads=heads), ("core",),
+        (sq, b9.contiguous()), {"fp32": 4 * SEG_N * SEG_N * C},
+        library=lambda: F.scaled_dot_product_attention(q9, k9, v9,
+                                                       attn_mask=mask),
+        rel=F32_REL, plain_iters=5)
+    out["dyt_prologue_serving:fp32+past_256"] = measure(
+        f"K3 fp32 head_dim {hd}",
+        lambda: ms.dyt_prologue_serving(x, *sub, *ad, heads=heads),
+        lambda: ms.dyt_prologue_plain(x, *sub, *ad, heads=heads),
+        ("x_mid", "adapt", "logits"), (x, *sub, *ad),
+        {"fp32": gemm + 2 * attn + adapter + 2 * M * C}, **fp32)
+    del qkv_, q_, k_, v_, sq, b9, q9, k9, v9, mask
+    torch.cuda.empty_cache()
     forms_past_256(torch, ms, qt, _build)
     return out
 
 
 def forms_past_256(torch, ms, qt, _build) -> None:
-    """Every core form at 2 heads of 320 (past the wgmma and fp32 cores'
-    head dims: the SIMT core's 64-column slices) against its plain version,
-    checked and not timed: bf16 and fp32 K1, K9 (bias), K10 and the
-    sublayer chains K2, K3, K7, K5, K6, K8 (with and without int8 scores),
-    K15, and the exact core bit for bit."""
+    """Every core form at 2 heads of 320 (the wgmma core past 256 and the
+    fp32 core's; with int8 scores and on the exact route the SIMT core's
+    64-column slices) and of 832 (past ms.WIDE_MAX_HD: every form on the
+    slices) against its plain version, checked and not timed: bf16 and
+    fp32 K1, K9 (bias), K10 and the sublayer chains K2, K3, K7, K5, K6, K8
+    (with and without int8 scores; at 320 only: the int8 chains take C up
+    to 1024), K15, and the exact core bit for bit."""
     f32, bf = torch.float32, torch.bfloat16
-    heads, C_, Bq, Nq = 2, 640, 4, N
-    hd = C_ // heads
     g = torch.Generator(device="cuda").manual_seed(32)
     lib = _build.library()
-    for dt in (bf, f32):
+    for hd, dt in ((320, bf), (320, f32), (832, bf), (832, f32)):
+        heads, Bq, Nq = 2, 4, N
+        C_ = heads * hd
         qkv = torch.randn((Bq, Nq, 3 * C_), generator=g, device="cuda")
         qkv[..., C_:2 * C_] += 1.0
         qkv = qkv.to(dt)
@@ -4070,7 +4133,7 @@ def forms_past_256(torch, ms, qt, _build) -> None:
             measure(f"{name} {tag}", call, plain, outs, (x_,), {},
                     check_only=True, **(dict(rel=F32_REL, logit_rel=F32_REL)
                                         if dt == f32 else {}))
-        for q8 in (False, True):
+        for q8 in (False, True) if C_ <= 1024 else ():
             kw = dict(heads=heads, attn_q8=q8)
             q8rel = dict(rel=F32_REL, logit_rel=F32_REL) if dt == f32 else {}
             if dt == bf:
@@ -4206,12 +4269,12 @@ def forms_main_path(torch, ms, qt, fm, speed, predict, config,
         del res
         torch.cuda.empty_cache()
     # a bf16 ViT-B/16 at head dims 192 (4 heads: the wgmma core) and 384 (2
-    # heads: the SIMT core's slices): the model's forward (its init draws
+    # heads: the wgmma core past 256): the model's forward (its init draws
     # skipped: every parameter is loaded, checked)
     g = torch.Generator(device="cuda").manual_seed(21)
     x = torch.randn((F32_B, 224, 224, 3), generator=g, device="cuda")
     for heads, form in ((HD192_HEADS, "wide_heads"),
-                        (HD384_HEADS, "simt_core")):
+                        (HD384_HEADS, "past_256")):
         t0 = time.perf_counter()
         cfg = config.ModelConfig(num_classes=100, num_heads=heads,
                                  gelu_approx=True, residual_dtype="bfloat16")
@@ -4245,57 +4308,68 @@ def forms_main_path(torch, ms, qt, fm, speed, predict, config,
               f"({t_fwd:.4f} ms a forward) "
               f"({time.perf_counter() - t0:.1f} s)")
         del model
-    # the BEiT backbone (K9 in every block) at head dim 192 on one 512^2
-    # crop, dispatch, against its plain-version forward
-    t0 = time.perf_counter()
-    cfg = config.ModelConfig(img_size=SEG_HD192_IMG, num_heads=HD192_HEADS,
-                             gelu_approx=True, residual_dtype="bfloat16")
-    model = seg_vit.beit_backbone(
-        cfg, config.TuningConfig(), config.SelectConfig(
-            token_target_ratio=0.5), dtype=torch.bfloat16,
-        generator=torch.Generator().manual_seed(1)).cuda().eval()
-    xs = torch.randn((1, SEG_HD192_IMG, SEG_HD192_IMG, 3), generator=g,
-                     device="cuda")
-    reset_counts(ms, qt, fm)
-    scores = []
-    with routing(D, record=scores), torch.inference_mode():
-        feats, aux = model(xs, dispatch=True)
-    run = f"beit_backbone bf16 head_dim {C // HD192_HEADS}"
-    counts = forms_counts(ms, qt, fm, run,
-                          ("mha_windowed_fused:bf16+wide_heads",), 1)
-    for k in KERNELS:
-        launches[k] += counts[k]
-    # the plain-version forward free (its gates) and on the kernels'
-    # dispatch (its features), as phase 6 holds the BEiT backbone
-    with plain_versions(ms, qt, fm), torch.inference_mode():
-        _, free_aux = model(xs, dispatch=True)
-    with (routing(D, replay=scores), plain_versions(ms, qt, fm),
-          torch.inference_mode()):
-        ref, _ = model(xs, dispatch=True)
-    agree = (aux["token_select"] == free_aux["token_select"]).float().mean(
-    ).item()
-    worst = max(rel_err(f, r)[0] / rel_err(f, r)[1] for f, r in zip(feats,
-                                                                     ref))
-    print(f"{run} ({SEG_HD192_IMG}^2, dispatch): {DEPTH} K9 launches; gate "
-          f"agreement with the plain-version forward {agree:.6f}; features "
-          f"vs plain versions on the same dispatch: max rel err {worst:.3g} "
-          f"(tol {MODEL_REL:g}) ({time.perf_counter() - t0:.1f} s)")
-    if (not all(torch.isfinite(f).all() for f in feats) or worst > MODEL_REL
-            or agree < GATE_AGREE):
-        fail(f"{run} disagrees with its plain versions")
-    del model, feats, ref
+    # the BEiT backbone (K9 in every block) on one 512^2 crop, dispatch,
+    # against its plain-version forward: bf16 at head dim 192 (the wgmma
+    # ring) and 384 (the wgmma core past 256), fp32 at 384 (the fp32 core
+    # past 256)
+    for heads, dtype, key, rel, agree_min in (
+            (HD192_HEADS, torch.bfloat16,
+             "mha_windowed_fused:bf16+wide_heads", MODEL_REL, GATE_AGREE),
+            (HD384_HEADS, torch.bfloat16,
+             "mha_windowed_fused:bf16+past_256", MODEL_REL, GATE_AGREE),
+            (HD384_HEADS, torch.float32,
+             "mha_windowed_fused:fp32+past_256", F32_MODEL_REL,
+             F32_GATE_AGREE)):
+        t0 = time.perf_counter()
+        kind = "bfloat16" if dtype == torch.bfloat16 else "float32"
+        cfg = config.ModelConfig(img_size=SEG_HD192_IMG, num_heads=heads,
+                                 gelu_approx=True, residual_dtype=kind)
+        model = seg_vit.beit_backbone(
+            cfg, config.TuningConfig(), config.SelectConfig(
+                token_target_ratio=0.5), dtype=dtype,
+            generator=torch.Generator().manual_seed(1)).cuda().eval()
+        xs = torch.randn((1, SEG_HD192_IMG, SEG_HD192_IMG, 3), generator=g,
+                         device="cuda")
+        reset_counts(ms, qt, fm)
+        scores = []
+        with routing(D, record=scores), torch.inference_mode():
+            feats, aux = model(xs, dispatch=True)
+        run = f"beit_backbone {kind} head_dim {C // heads}"
+        counts = forms_counts(ms, qt, fm, run, (key,), 1)
+        for k in KERNELS:
+            launches[k] += counts[k]
+        # the plain-version forward free (its gates) and on the kernels'
+        # dispatch (its features), as phase 6 holds the BEiT backbone
+        with plain_versions(ms, qt, fm), torch.inference_mode():
+            _, free_aux = model(xs, dispatch=True)
+        with (routing(D, replay=scores), plain_versions(ms, qt, fm),
+              torch.inference_mode()):
+            ref, _ = model(xs, dispatch=True)
+        agree = (aux["token_select"] == free_aux["token_select"]).float(
+        ).mean().item()
+        worst = max(rel_err(f, r)[0] / rel_err(f, r)[1]
+                    for f, r in zip(feats, ref))
+        print(f"{run} ({SEG_HD192_IMG}^2, dispatch): {DEPTH} K9 launches; "
+              f"gate agreement with the plain-version forward {agree:.6f}; "
+              f"features vs plain versions on the same dispatch: max rel "
+              f"err {worst:.3g} (tol {rel:g}) "
+              f"({time.perf_counter() - t0:.1f} s)")
+        if (not all(torch.isfinite(f).all() for f in feats) or worst > rel
+                or agree < agree_min):
+            fail(f"{run} disagrees with its plain versions")
+        del model, feats, ref
     # predict.serve at head dims 192 and 384: the fast path (K15) and
     # int8_attn (K6 and K10)
     t0 = time.perf_counter()
     canv = torch.randint(0, 256, (F32_B, 256, 256, 3), generator=g,
                          device="cuda", dtype=torch.uint8)
     sd = {k: torch.from_numpy(v) for k, v in sds[0].items()}
-    for heads, form in ((HD192_HEADS, "wide_heads"),
-                        (HD384_HEADS, "simt_core")):
+    for heads, form, q8_form in ((HD192_HEADS, "wide_heads", "wide_heads"),
+                                 (HD384_HEADS, "past_256", "simt_core")):
         for quant, kernels in (
                 ("none", (f"mha_serving:bf16+{form}",)),
-                ("int8_attn", (f"dyt_prologue_serving_q8:bf16+{form}",
-                               f"attn_core_pairs_q8:bf16+{form}",
+                ("int8_attn", (f"dyt_prologue_serving_q8:bf16+{q8_form}",
+                               f"attn_core_pairs_q8:bf16+{q8_form}",
                                "q8_ln_mlp"))):
             a = predict.get_args_parser().parse_args(
                 ["--ckpt", "unused", "--images", "unused", "--num_heads",
@@ -4428,33 +4502,43 @@ def forms_main_path(torch, ms, qt, fm, speed, predict, config,
           f"({time.perf_counter() - t0:.1f} s with the build)")
     del runner
     shutil.rmtree(root, ignore_errors=True)
-    # the fp32 LayerScale / q-v-bias backbone without windows (K1)
-    t0 = time.perf_counter()
-    cfg = config.ModelConfig(img_size=LS_IMG, gelu_approx=True,
-                             residual_dtype="float32")
-    model = seg_vit.SegVisionTransformer(
-        cfg, config.TuningConfig(), config.SelectConfig(
-            token_target_ratio=0.5), use_rel_pos_bias=False,
-        init_values=0.1, qv_bias_only=True, dtype=torch.float32,
-        generator=torch.Generator().manual_seed(0)).cuda().eval()
-    x = torch.randn((LS_BATCH, LS_IMG, LS_IMG, 3), generator=g,
-                    device="cuda")
-    reset_counts(ms, qt, fm)
-    with torch.inference_mode():
-        feats, _ = model(x, complete_model=True)
-    counts = forms_counts(ms, qt, fm, "fp32 LayerScale backbone",
-                          ("mha_serving_fused:fp32",), 1)
-    for k in KERNELS:
-        launches[k] += counts[k]
-    with plain_versions(ms, qt, fm), torch.inference_mode():
-        ref, _ = model(x, complete_model=True)
-    worst = max(rel_err(f, r)[0] / rel_err(f, r)[1] for f, r in zip(feats,
-                                                                     ref))
-    print(f"fp32 LayerScale backbone ({LS_IMG}^2, batch {LS_BATCH}, dense): "
-          f"{DEPTH} K1 fp32 launches; features vs plain versions max rel "
-          f"err {worst:.3g} ({time.perf_counter() - t0:.1f} s)")
-    if worst > F32_MODEL_REL:
-        fail("fp32 LayerScale backbone disagrees with its plain versions")
+    # the LayerScale / q-v-bias backbone without windows (K1): fp32 in 12
+    # heads of 64 (the fp32 core) and 2 of 384 (the fp32 core past 256),
+    # bf16 in 2 heads of 384 (the wgmma core past 256)
+    for heads, dtype, key, rel in (
+            (H, torch.float32, "mha_serving_fused:fp32", F32_MODEL_REL),
+            (HD384_HEADS, torch.float32, "mha_serving_fused:fp32+past_256",
+             F32_MODEL_REL),
+            (HD384_HEADS, torch.bfloat16, "mha_serving_fused:bf16+past_256",
+             MODEL_REL)):
+        t0 = time.perf_counter()
+        kind = "bfloat16" if dtype == torch.bfloat16 else "float32"
+        cfg = config.ModelConfig(img_size=LS_IMG, num_heads=heads,
+                                 gelu_approx=True, residual_dtype=kind)
+        model = seg_vit.SegVisionTransformer(
+            cfg, config.TuningConfig(), config.SelectConfig(
+                token_target_ratio=0.5), use_rel_pos_bias=False,
+            init_values=0.1, qv_bias_only=True, dtype=dtype,
+            generator=torch.Generator().manual_seed(0)).cuda().eval()
+        x = torch.randn((LS_BATCH, LS_IMG, LS_IMG, 3), generator=g,
+                        device="cuda")
+        run = f"{kind} LayerScale backbone head_dim {C // heads}"
+        reset_counts(ms, qt, fm)
+        with torch.inference_mode():
+            feats, _ = model(x, complete_model=True)
+        counts = forms_counts(ms, qt, fm, run, (key,), 1)
+        for k in KERNELS:
+            launches[k] += counts[k]
+        with plain_versions(ms, qt, fm), torch.inference_mode():
+            ref, _ = model(x, complete_model=True)
+        worst = max(rel_err(f, r)[0] / rel_err(f, r)[1]
+                    for f, r in zip(feats, ref))
+        print(f"{run} ({LS_IMG}^2, batch {LS_BATCH}, dense): {DEPTH} K1 "
+              f"launches; features vs plain versions max rel err "
+              f"{worst:.3g} (tol {rel:g}) ({time.perf_counter() - t0:.1f} s)")
+        if not all(torch.isfinite(f).all() for f in feats) or worst > rel:
+            fail(f"{run} disagrees with its plain versions")
+        del model, feats, ref
     print(json.dumps({"fp32_img_s": {k: v for k, v in ips.items()
                                      if "float32" in k}}))
     return launches

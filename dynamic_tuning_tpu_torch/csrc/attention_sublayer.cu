@@ -61,8 +61,11 @@
 // heads of 192 the core moves 38.7 MB (0.012 ms at 3.35 TB/s) for 7.6
 // GFLOP (0.008 ms at the bf16 peak), with 5 M exps.  The ring with K9's
 // bias blocks in its stages is K9 at these head dims (dyt_mha_windowed
-// forwards to dyt_mha_windowed_wide).  Past head dim 256 the chain's core
-// is simt_core.cu's, where the caller routes it (``simt_core``).
+// forwards to dyt_mha_windowed_wide).  Past head dim 256, up to 768, the
+// core is attn_core_xwide_kernel (o's columns split between warpgroups and
+// blocks, hd a run-time count; its note below), K9 too; past 768 the
+// chain's core is simt_core.cu's, where the caller routes it
+// (``simt_core``).
 #include "gemm.cuh"
 
 extern "C" int dyt_simt_core_qkv(const void* qkv, void* out, int B, int N,
@@ -1126,6 +1129,320 @@ static cudaError_t launch_core_wide_ring(const CoreArgs& a, int B,
   return cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// Head dims past 256 (320, 384, ... up to XW_MAX_HD), hd a run-time count of
+// 64-column blocks, so that no list of template instances stops at its
+// last entry.  o for a whole row no longer fits a thread's registers (192
+// fp32 at hd 384 in wgmma's layout), so o's columns are split: a block owns
+// one 64-row query tile of one (sample, head) and a group of 2 WCB of o's
+// 64-column blocks, WCB for each of its two warpgroups (m64n64 to m64n256
+// P V products into 32 WCB registers a thread; WCB is the one template
+// parameter besides the mode: a P V width picked at run time made ptxas
+// serialize the products).  Both warpgroups compute the same scores S = Q
+// K^T on the tensor cores (wgmma_ss, q' and k from shared memory, over all
+// of hd): the serving softmax has no row max, so e and l are the same bits
+// in each, and each sums o's columns over the same key chunks in the same
+// order (K1's l over the fp32 e, K15's over the bf16 p).  S costs the
+// tensor cores twice what it would once, against the SIMT slices kernel's
+// hd / 64 recomputations on the CUDA cores.
+//   * q comes once by TMA (64-column boxes, the 128-byte swizzle) and is
+//     scaled in place;
+//   * the keys come in tiles of XW_KT = 32 that TMA brings into a ring of
+//     stages: all of K's column blocks, the V column blocks of the block's
+//     group (zeros past hd: a group's last blocks may lie past it, and are
+//     computed and not stored) and (K9) the query tile's unswizzled 64 x
+//     32 bias block; thread 0 refills a stage once every warp is past its
+//     P V (the wide ring's protocol);
+//   * each tile is one 32-key chunk: S (16 registers), the bias, the
+//     clamped expf and l (wide_exp), then P V of the warpgroup's columns;
+//     the two warpgroups' products interleave on the tensor cores (a
+//     second score buffer with tile i + 1's S issued before tile i's exps
+//     made ptxas serialize the products, and ran slower: PERF.md §6);
+//   * o is stored from the fragments.
+// The column groups, WCB and the stages are picked at launch (xw_plan):
+// the fewest groups (or, where the blocks of one group would leave SMs
+// idle, as many more as fill them: K9 at B=1, N=1025 in 2 heads has 34
+// query tiles), then the fewest columns past hd, with two stages or more
+// fitting a block (as many as fit, at most four).  Past XW_MAX_HD the q
+// tile and two stages of K no longer fit beside V's column blocks; those
+// head dims take the SIMT slices kernel (ops/mha_serving.py::core_of
+// routes them).
+constexpr int XW_KT = 32;               // keys a tile, the chunk of S
+constexpr int XW_MAX_CB = 4;            // o's 64-column blocks a warpgroup
+constexpr int XW_MAX_HD = 768;
+constexpr int XW_BOX = XW_KT * 128;     // a 64-column box of 32 keys
+constexpr int XW_QBOX = 64 * 128;       // a 64-column box of the q tile
+
+struct XwPlan {
+  int ncb;                  // hd / 64
+  int wcb;                  // o's column blocks a warpgroup
+  int groups;               // column groups of o (blocks a query tile)
+  int stages;
+  int stage_bytes;
+  int smem;
+};
+
+// The plan for head dim ``hd`` (``bias``: K9's blocks in each stage) and
+// ``tiles`` query tiles on ``sms`` SMs, false where none fits a block.
+static bool xw_plan(int hd, bool bias, long long tiles, int sms,
+                    XwPlan* p) {
+  if (hd <= 256 || hd % 64 || hd > XW_MAX_HD) return false;
+  const int ncb = hd / 64;
+  const long long fill = tiles < sms ? sms / tiles : 1;
+  const int want = static_cast<int>(fill < (ncb + 1) / 2 ? fill
+                                                         : (ncb + 1) / 2);
+  bool found = false;
+  for (int wcb = XW_MAX_CB; wcb >= 1; --wcb) {
+    const int G = (ncb + 2 * wcb - 1) / (2 * wcb);
+    if (G < want) continue;
+    const int waste = 2 * wcb * G - ncb;
+    if (found && (G > p->groups ||
+                  (G == p->groups && waste >= 2 * p->wcb * G - ncb)))
+      continue;
+    const int stage = (ncb + 2 * wcb) * XW_BOX + (bias ? 64 * XW_KT * 2 : 0);
+    for (int st = 4; st >= 2; --st) {
+      const int smem = 1024 + ncb * XW_QBOX + st * stage + (2 * st + 1) * 8;
+      if (smem <= 232448) {
+        *p = XwPlan{ncb, wcb, G, st, stage, smem};
+        found = true;
+        break;
+      }
+    }
+  }
+  return found;
+}
+
+template <int WCB, bool K15, bool BIAS>
+__global__ void __launch_bounds__(WIDE_THREADS, 1)
+attn_core_xwide_kernel(const __grid_constant__ CUtensorMap map_q,
+                       const __grid_constant__ CUtensorMap map_k,
+                       const __grid_constant__ CUtensorMap map_v,
+                       const __grid_constant__ CUtensorMap map_bias,
+                       const CoreArgs a, const XwPlan p) {
+  constexpr int KT = XW_KT;
+  constexpr int NS = KT / 2;                // score accumulators a thread
+  constexpr int PS = KT / 16;               // k16 steps of P V a tile
+  constexpr int W = 64 * WCB;               // a warpgroup's o columns
+  constexpr int CBB = 2 * WCB;              // the block's column blocks
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* Qs = align1024(smem_raw);
+  const int ncb = p.ncb, nst = p.stages, G = p.groups;
+  unsigned char* ring = Qs + ncb * XW_QBOX;
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + nst * p.stage_bytes);
+  uint64_t* empty = full + nst;
+  uint64_t* qbar = empty + nst;
+
+  const int N = a.N, nt = (N + KT - 1) / KT;
+  const int qt = blockIdx.x / G, grp = blockIdx.x % G;
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int tid = threadIdx.x, wg = tid >> 7, wt = tid & 127;
+  const int warp = wt >> 5, lane = tid & 31, t2 = (lane & 3) * 2;
+  const int g = lane >> 2;
+  const int cb0 = grp * CBB;                // the group's first column block
+  const int wc0 = wg * WCB;                 // this warpgroup's, in the group
+  const bool live = qt * 64 + warp * 16 < N;       // the same for the warp
+
+  // key tile i into stage i % nst: K's column blocks, the group's of V,
+  // (K9) the bias block [query tile, key tile]
+  auto issue = [&](int i) {
+    const int st = i % nst;
+    unsigned char* dst = ring + st * p.stage_bytes;
+    mbar_expect_tx(&full[st], (ncb + CBB) * XW_BOX +
+                                  (BIAS ? 64 * KT * 2 : 0));
+    for (int c = 0; c < ncb; ++c)
+      tma_load_4d(dst + c * XW_BOX, &map_k, &full[st], 64 * c, i * KT, h, b);
+#pragma unroll
+    for (int c = 0; c < CBB; ++c)
+      tma_load_4d(dst + (ncb + c) * XW_BOX, &map_v, &full[st],
+                  64 * (cb0 + c), i * KT, h, b);
+    if constexpr (BIAS)
+      tma_load_3d(dst + (ncb + CBB) * XW_BOX, &map_bias, &full[st], i * KT,
+                  qt * 64, h);
+  };
+  if (tid == 0) {
+    for (int st = 0; st < nst; ++st) {
+      mbar_init(&full[st], 1);                     // thread 0's arrive
+      mbar_init(&empty[st], WIDE_THREADS / 32);    // lane 0 of each warp
+    }
+    mbar_init(qbar, 1);
+    mbar_init_fence();
+  }
+  __syncthreads();
+  if (tid == 0) {
+    // the q tile (zeros past N), then the first key tiles
+    mbar_expect_tx(qbar, ncb * XW_QBOX);
+    for (int c = 0; c < ncb; ++c)
+      tma_load_4d(Qs + c * XW_QBOX, &map_q, qbar, 64 * c, qt * 64, h, b);
+    for (int i = 0; i < nt && i < nst; ++i) issue(i);
+  }
+  // K15 takes the scale rounded to bf16 first (as the staged kernel); q' =
+  // bf16(q * scale) in place, each 16-byte chunk by one thread of the block
+  const float scale =
+      K15 ? __bfloat162float(__float2bfloat16_rn(a.scale)) : a.scale;
+  mbar_wait(qbar, 0);
+  for (int i = tid; i < ncb * 64 * 8; i += WIDE_THREADS) {
+    uint4* q = reinterpret_cast<uint4*>(Qs + i * 16);
+    float v[8];
+    load8(reinterpret_cast<const bf16*>(q), v);
+    uint4 w;
+    w.x = pack_bf16x2(v[0] * scale, v[1] * scale);
+    w.y = pack_bf16x2(v[2] * scale, v[3] * scale);
+    w.z = pack_bf16x2(v[4] * scale, v[5] * scale);
+    w.w = pack_bf16x2(v[6] * scale, v[7] * scale);
+    *q = w;
+  }
+  fence_proxy_async();             // q' visible to the tensor cores
+  __syncthreads();
+
+  float o[W / 2];
+  float l_lo = 0.f, l_hi = 0.f;
+  float s[NS];
+  for (int i = 0; i < nt; ++i) {
+    const int st = i % nst;
+    mbar_wait(&full[st], (i / nst) & 1);
+    const unsigned char* Kt = ring + st * p.stage_bytes;
+    const unsigned char* Vt = Kt + ncb * XW_BOX;
+    // S of tile i over all of hd
+    wgmma_fence();
+    for (int c = 0; c < ncb; ++c) {
+#pragma unroll
+      for (int d = 0; d < 4; ++d)
+        wgmma_ss<KT>(s, desc_sw128(Qs + c * XW_QBOX + d * 32),
+                     desc_sw128(Kt + c * XW_BOX + d * 32), c > 0 || d > 0);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();               // these scores, and the last P V
+    fence_regs(s);
+    if (i > 0) {
+      // tile i - 1's stage is free: each warp says so; thread 0 refills it
+      // with tile i - 1 + nst
+      const int prev = (i - 1) % nst;
+      if (lane == 0) mbar_arrive(&empty[prev]);
+      if (tid == 0 && i - 1 + nst < nt) {
+        mbar_wait(&empty[prev], ((i - 1) / nst) & 1);
+        issue(i - 1 + nst);
+      }
+    }
+    if constexpr (BIAS) {
+      // s + bias: element 4 j + e of s is key 8 j + t2 + (e & 1) of row g +
+      // 8 (e >> 1) of the warp's 16, in the block's [64][32] rows
+      if (live) {
+        const bf16* brow = reinterpret_cast<const bf16*>(Vt + CBB * XW_BOX) +
+                           (warp * 16 + g) * KT + t2;
+#pragma unroll
+        for (int j = 0; j < KT / 8; ++j) {
+          const float2 b_lo = load2(brow + j * 8);
+          const float2 b_hi = load2(brow + 8 * KT + j * 8);
+          s[4 * j] += b_lo.x;
+          s[4 * j + 1] += b_lo.y;
+          s[4 * j + 2] += b_hi.x;
+          s[4 * j + 3] += b_hi.y;
+        }
+      }
+    }
+    // every key of the tile (TMA zero-fills past N; p is masked there)
+    unsigned pf[PS][4];
+    wide_exp<KT, K15, false>(s, pf, i, N, 0, t2, live, l_lo, l_hi);
+    wgmma_fence();
+#pragma unroll
+    for (int st2 = 0; st2 < PS; ++st2)
+      wgmma_rs<W, true>(o, pf[st2],
+                        desc_sw128_mn(Vt + wc0 * XW_BOX + st2 * 16 * 128,
+                                      XW_BOX),
+                        i > 0 || st2 > 0);
+    wgmma_commit();
+  }
+  wgmma_wait<0>();
+  if (!live) return;
+
+  // each row's l is spread over the four lanes of its quad
+#pragma unroll
+  for (int m = 1; m < 4; m <<= 1) {
+    l_lo += __shfl_xor_sync(0xffffffffu, l_lo, m);
+    l_hi += __shfl_xor_sync(0xffffffffu, l_hi, m);
+  }
+  // K1: o * (1 / l); K15: o / l, the IEEE quotient from the rounded
+  // reciprocal (div_rn_by)
+  const float inv_lo = __frcp_rn(l_lo), inv_hi = __frcp_rn(l_hi);
+  auto out = [&](float x, float l, float r) {
+    return K15 ? div_rn_by(x, l, r) : x * r;
+  };
+  const int n_lo = qt * 64 + warp * 16 + g, n_hi = n_lo + 8;
+  const int cbw = cb0 + wc0;                // this warpgroup's first block
+  bf16* ob = a.o + b * a.so[0] + h * a.so[1] + cbw * 64;
+#pragma unroll
+  for (int j = 0; j < W / 8; ++j) {
+    if (cbw + j / 8 >= ncb) break;          // columns past hd
+    const int col = j * 8 + t2;
+    if (n_lo < N)
+      store2(ob + n_lo * a.so[2] + col, out(o[4 * j], l_lo, inv_lo),
+             out(o[4 * j + 1], l_lo, inv_lo));
+    if (n_hi < N)
+      store2(ob + n_hi * a.so[2] + col, out(o[4 * j + 2], l_hi, inv_hi),
+             out(o[4 * j + 3], l_hi, inv_hi));
+  }
+}
+
+template <int WCB, bool K15, bool BIAS>
+static cudaError_t launch_xwide_plan(const CUtensorMap (&maps)[4],
+                                     const CoreArgs& a, int B,
+                                     const XwPlan& p, cudaStream_t s) {
+  auto kernel = attn_core_xwide_kernel<WCB, K15, BIAS>;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, p.smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((a.N + 63) / 64 * p.groups, a.H, B);
+  kernel<<<grid, WIDE_THREADS, p.smem, s>>>(maps[0], maps[1], maps[2],
+                                            maps[3], a, p);
+  return cudaGetLastError();
+}
+
+// The core past head dim 256 (either mode; with BIAS K9's bias [H, N, N],
+// its padded strides in elements).
+template <bool K15, bool BIAS = false>
+static cudaError_t launch_core_xwide(const CoreArgs& a, int B, int hd,
+                                     cudaStream_t s,
+                                     const bf16* bias = nullptr,
+                                     long long head_stride = 0,
+                                     long long row_stride = 0) {
+  if (a.N <= 0 || B <= 0 || a.H <= 0 || B > 65535 || a.H > 65535)
+    return cudaErrorInvalidValue;
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return err;
+  XwPlan p;
+  if (!xw_plan(hd, BIAS, (long long)(a.N + 63) / 64 * a.H * B, sms, &p))
+    return cudaErrorInvalidValue;
+  // q, K, V and (K9) the bias
+  CUtensorMap maps[4] = {};
+  err = head_map(&maps[0], a.q, a.sq, a, B, hd, 64);
+  if (err != cudaSuccess) return err;
+  err = head_map(&maps[1], a.k, a.sk, a, B, hd, XW_KT);
+  if (err != cudaSuccess) return err;
+  err = head_map(&maps[2], a.v, a.sv, a, B, hd, XW_KT);
+  if (err != cudaSuccess) return err;
+  if constexpr (BIAS) {
+    // [64 rows][32 keys] boxes, unswizzled (read by the threads, not wgmma)
+    const cuuint64_t dims[3] = {static_cast<cuuint64_t>(a.N),
+                                static_cast<cuuint64_t>(a.N),
+                                static_cast<cuuint64_t>(a.H)};
+    const cuuint64_t strides[2] = {static_cast<cuuint64_t>(row_stride) * 2,
+                                   static_cast<cuuint64_t>(head_stride) * 2};
+    const cuuint32_t box[3] = {XW_KT, 64, 1};
+    err = tensor_map(&maps[3], CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, bias, 3,
+                     dims, strides, box, CU_TENSOR_MAP_SWIZZLE_NONE);
+    if (err != cudaSuccess) return err;
+  }
+  switch (p.wcb) {
+    case 1: return launch_xwide_plan<1, K15, BIAS>(maps, a, B, p, s);
+    case 2: return launch_xwide_plan<2, K15, BIAS>(maps, a, B, p, s);
+    case 3: return launch_xwide_plan<3, K15, BIAS>(maps, a, B, p, s);
+    default: return launch_xwide_plan<4, K15, BIAS>(maps, a, B, p, s);
+  }
+}
+
 template <int HD, int KC, bool K15>
 static cudaError_t launch_core_kc(const CoreArgs& a, int B, cudaStream_t s) {
   const int smem = CoreLayout<HD, KC>::smem_bytes(a.N);
@@ -1167,7 +1484,8 @@ static cudaError_t launch_core_hd(const CoreArgs& a, int B, bool k15,
              : launch_attn_core<HD, false>(a, B, s);
 }
 
-// The wgmma core at head dims 64, 128, 192 and 256; either mode.
+// The wgmma core at head dims 64, 128, 192 and 256, and past 256 up to
+// XW_MAX_HD; either mode.
 static cudaError_t attn_core_strided(const CoreArgs& a, int B, int hd,
                                      bool k15, cudaStream_t s) {
   switch (hd) {
@@ -1175,7 +1493,9 @@ static cudaError_t attn_core_strided(const CoreArgs& a, int B, int hd,
     case 128: return launch_core_hd<128>(a, B, k15, s);
     case 192: return launch_core_hd<192>(a, B, k15, s);
     case 256: return launch_core_hd<256>(a, B, k15, s);
-    default: return cudaErrorInvalidValue;
+    default:
+      return k15 ? launch_core_xwide<true>(a, B, hd, s)
+                 : launch_core_xwide<false>(a, B, hd, s);
   }
 }
 
@@ -1191,7 +1511,8 @@ static cudaError_t attn_core(const bf16* qkv, bf16* out, int B, int N, int C,
 }
 
 // The chain; ``simt_core`` runs its core on simt_core.cu's kernel (head
-// dims past 256, where the caller routes it) in place of the wgmma core.
+// dims past XW_MAX_HD, where the caller routes it) in place of the wgmma
+// core.
 template <typename TX>
 static cudaError_t sublayer(const TX* x, const float* gamma, const float* beta,
                             const bf16* wqkv, const float* bqkv,
@@ -1223,7 +1544,7 @@ extern "C" {
 
 // The bf16 attention core alone: qkv [B, N, 3C] -> out [B, N, C], both bf16
 // (the int8 sublayer chain of quant.cu runs it between its int8 GEMMs),
-// head dims 64, 128, 192 and 256.
+// head dims 64, 128, 192, 256 and the multiples of 64 past 256 up to 768.
 int dyt_attn_core(const void* qkv, void* out, int B, int N, int C, int H,
                   float scale, void* stream) {
   return dyt::attn_core(static_cast<const dyt::bf16*>(qkv),
@@ -1235,7 +1556,8 @@ int dyt_attn_core(const void* qkv, void* out, int B, int N, int C, int H,
 // k15 = 0, K15 with k15 = 1).  ``strides`` holds 12 element strides: batch,
 // head and row of q, k, v and out, in that order; hd has unit stride, and
 // every stride is a multiple of 8 elements (rows, heads and samples on 16
-// bytes: the tensor maps need it).  hd 64, 128, 192 or 256; any N.
+// bytes: the tensor maps need it).  hd 64, 128, 192, 256, or a multiple of
+// 64 past 256 up to 768; any N.
 // Returns a cudaError_t value.
 int dyt_mha_core(const void* q, const void* k, const void* v, void* out,
                  const long long* strides, int B, int N, int H, int hd,
@@ -1258,7 +1580,7 @@ int dyt_mha_core(const void* q, const void* k, const void* v, void* out,
 // gamma/beta/bqkv/bproj fp32; wqkv [3C, C], wproj [C, C] bf16; xm32 an
 // optional fp32 [B, N, C] copy of out; ln_buf [B*N, C], qkv_buf [B*N, 3C],
 // attn_buf [B*N, C] bf16 scratch; simt_core the SIMT core's route (head
-// dims past 256).  Returns a cudaError_t value.
+// dims past 768).  Returns a cudaError_t value.
 int dyt_attention_sublayer(const void* x, int x_f32, const float* gamma,
                            const float* beta, const void* wqkv,
                            const float* bqkv, const void* wproj,
@@ -1283,10 +1605,11 @@ int dyt_attention_sublayer(const void* x, int x_f32, const float* gamma,
                              lb, qb, ab, B, N, C, H, scale, simt_core, s);
 }
 
-// K9 at head dims 192 and 256 (dyt_mha_windowed's arguments: qkv [B, N,
-// 3C] bf16 contiguous on 16 bytes, bias [H, N, N] bf16 on 16 bytes with
-// unit column stride and padded row and head strides, out [B, N, C] bf16):
-// the wide core's ring with the bias blocks.  Returns a cudaError_t value.
+// K9 at head dims 192 and 256 and past them up to 768 (dyt_mha_windowed's
+// arguments: qkv [B, N, 3C] bf16 contiguous on 16 bytes, bias [H, N, N] bf16
+// on 16 bytes with unit column stride and padded row and head strides, out
+// [B, N, C] bf16): the wide core's ring with the bias blocks, past 256 the
+// core past 256 with its bias blocks.  Returns a cudaError_t value.
 int dyt_mha_windowed_wide(const void* qkv, const void* bias, void* out, int B,
                           int N, int C, int H, long long head_stride,
                           int row_stride, float scale, void* stream) {
@@ -1311,7 +1634,8 @@ int dyt_mha_windowed_wide(const void* qkv, const void* bias, void* out, int B,
     return dyt::launch_core_wide_ring<256, false, true>(a, B, s, bp,
                                                         head_stride,
                                                         row_stride);
-  return cudaErrorInvalidValue;
+  return dyt::launch_core_xwide<false, true>(a, B, (int)hd, s, bp,
+                                             head_stride, row_stride);
 }
 
 const char* dyt_error_string(int err) {

@@ -12,7 +12,9 @@
 // The serving softmax has no row max, so each key tile's e is final when it
 // is computed: the walk over keys carries only l and o, never rescales.
 // Where an int8 quantization follows (the fp32 cores inside K6 and K8) the
-// exact route of simt_core.cuh (float64 sums) runs instead.
+// exact route of simt_core.cuh (float64 sums) runs instead.  Head dims past
+// 256, up to 768, take f32_core_xwide_kernel (its note below); past 768 the
+// SIMT core of simt_core.cuh, where the caller routes it.
 //
 // Not TF32 or 3xTF32 on wgmma: the port's fp32 is full fp32, as JAX's, and
 // wgmma takes tf32 operands only K-major (V would need a transposed copy).
@@ -301,6 +303,293 @@ static cudaError_t launch_fc(const FcArgs& a, int B, cudaStream_t s) {
   return cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// Head dims past 256 (320, 384, ... up to FX_MAX_HD), hd a run-time count of
+// 64-column blocks.  The layout above would hold q', two stages of K and of
+// V as fp32 rows (~296 KB at hd 384) and o for 4 rows x hd / 16 columns a
+// thread, so here:
+//   * q' stays in shared memory (scaled once, rows of hd + 4 words), and K
+//     and V come through a ring of 64-column slices of a KT-key tile ([KT]
+//     [68] words, by cp.async, two to four deep): for each key tile, K's
+//     ncb slices, then the V slices of the block's column group;
+//   * S = q' K^T sums each thread's 4 x (KT / 16) micro-tile over the K
+//     slices (f32_core_kernel's reads, a slice at a time: the micro-tile
+//     does not depend on hd); after the last, the clamped expf, l and the
+//     P tile;
+//   * o's columns are split over blocks: a block owns at most FX_MAX_CB
+//     column blocks (4 rows x 4 columns x FX_MAX_CB a thread, 96
+//     registers), so up to hd 384 one group computes S once; past that S
+//     is computed once a group, and so it is where the blocks of one group
+//     would leave SMs idle and more groups fill them (K9 at B=1, N=1025 in
+//     2 heads has 34 query tiles);
+//   * P V then runs a V slice at a time into the slice's 16 accumulators.
+// KT is 64 (64 FMAs per 8 loads in S, as the kernel above at hd 64) where
+// its layout fits a block, else 32 (hd 640 and past).  The sums are those
+// of the kernel above in its order over keys (S over hd in the same
+// ascending order, four products an FMA chain), full fp32 FMAs and expf.
+constexpr int FX_SW = 68;               // words a slice row (64 + 4)
+constexpr int FX_MAX_CB = 6;            // o's 64-column blocks a block
+constexpr int FX_MAX_HD = 768;
+
+struct FxPlan {
+  int ncb, kt, groups, ring, qw, smem;
+};
+
+// The plan for head dim ``hd`` and ``tiles`` query tiles on ``sms`` SMs,
+// false where none fits a block.
+static bool fx_plan(int hd, long long tiles, int sms, FxPlan* p) {
+  if (hd <= 256 || hd % 64 || hd > FX_MAX_HD) return false;
+  const int ncb = hd / 64;
+  const long long fill = tiles < sms ? sms / tiles : 1;
+  int groups = (ncb + FX_MAX_CB - 1) / FX_MAX_CB;
+  if (groups < fill) groups = fill < ncb ? static_cast<int>(fill) : ncb;
+  const int qw = hd + 4;
+  for (int kt = 64; kt >= 32; kt /= 2) {
+    for (int ring = 4; ring >= 2; --ring) {
+      // q', the ring, the P tile [KT][PW], two bias blocks [64][KT] bf16
+      const int smem = (FC_QT * qw + (ring + 1) * kt * FX_SW) * 4 +
+                       2 * FC_QT * kt * 2;
+      if (smem <= 232448) {
+        *p = FxPlan{ncb, kt, groups, ring, qw, smem};
+        return true;
+      }
+    }
+  }
+  return false;
+}
+
+template <int NJ, int NJA>
+__device__ __forceinline__ void fx_scores(const float* __restrict__ Qs,
+                                          int qw,
+                                          const float* __restrict__ Ks,
+                                          int ty, int tx,
+                                          float (&acc)[4][NJ]) {
+#pragma unroll 8
+  for (int d = 0; d < 64; d += 4) {
+    float4 qv[4], kv[NJA];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      qv[i] = *reinterpret_cast<const float4*>(Qs + (4 * ty + i) * qw + d);
+#pragma unroll
+    for (int j = 0; j < NJA; ++j)
+      kv[j] = *reinterpret_cast<const float4*>(Ks + (tx + 16 * j) * FX_SW +
+                                               d);
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < NJA; ++j) {
+        acc[i][j] = fmaf(qv[i].x, kv[j].x, acc[i][j]);
+        acc[i][j] = fmaf(qv[i].y, kv[j].y, acc[i][j]);
+        acc[i][j] = fmaf(qv[i].z, kv[j].z, acc[i][j]);
+        acc[i][j] = fmaf(qv[i].w, kv[j].w, acc[i][j]);
+      }
+  }
+}
+
+template <int KT>
+__global__ void __launch_bounds__(FC_THREADS, 1)
+f32_core_xwide_kernel(const FcArgs a, const FxPlan p) {
+  constexpr int NJ = KT / 16, PW = FC_QT + 4;
+  extern __shared__ __align__(16) float fx_smem[];
+  const int ncb = p.ncb, qw = p.qw, R = p.ring, G = p.groups;
+  float* Qs = fx_smem;
+  float* ring = Qs + FC_QT * qw;
+  float* Ps = ring + R * KT * FX_SW;
+  bf16* Bs = reinterpret_cast<bf16*>(Ps + KT * PW);
+
+  const int N = a.N, h = blockIdx.y, b = blockIdx.z;
+  const int qt = blockIdx.x / G, grp = blockIdx.x % G, q0 = qt * FC_QT;
+  const int cb0 = grp * ncb / G, ncbb = (grp + 1) * ncb / G - cb0;
+  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
+  const bool live = q0 + 8 * (tid >> 5) < N;       // the same for the warp
+  const float* kb = a.k + b * a.sk[0] + h * a.sk[1];
+  const float* vb = a.v + b * a.sv[0] + h * a.sv[1];
+  const int nt = (N + KT - 1) / KT, U = ncb + ncbb, units = nt * U;
+  const bf16* bb = a.bias != nullptr ? a.bias + h * a.bh : nullptr;
+
+  // unit gi (key tile gi / U; its slice u = gi % U: K's column block u, or
+  // V's cb0 + u - ncb) into ring slot gi % R, zeros past N, with a tile's
+  // bias block beside its first slice; one commit group a unit (empty past
+  // the last)
+  auto issue = [&](int gi) {
+    if (gi < units) {
+      const int t = gi / U, u = gi % U;
+      const bool isk = u < ncb;
+      const float* src = isk ? kb + 64 * u : vb + 64 * (cb0 + u - ncb);
+      const long long ld = isk ? a.sk[2] : a.sv[2];
+      float* dst = ring + (gi % R) * KT * FX_SW;
+      for (int i = tid; i < KT * 16; i += FC_THREADS) {
+        const int r = i >> 4, c = (i & 15) * 4, n = t * KT + r;
+        const bool ok = n < N;
+        cp_async16(dst + r * FX_SW + c, ok ? src + n * ld + c : src,
+                   ok ? 16 : 0);
+      }
+      if (u == 0 && bb != nullptr) {
+        bf16* bd = Bs + (t & 1) * FC_QT * KT;
+        for (int i = tid; i < FC_QT * (KT / 8); i += FC_THREADS) {
+          const int r = i / (KT / 8), c = (i % (KT / 8)) * 8;
+          const int n = q0 + r, key = t * KT + c;
+          const bool ok = n < N && key < N;
+          cp_async16(bd + r * KT + c, ok ? bb + n * a.br + key : bb,
+                     ok ? 16 : 0);
+        }
+      }
+    }
+    cp_async_commit();
+  };
+  for (int gi = 0; gi < R - 1; ++gi) issue(gi);
+
+  // q' = q * scale into shared memory, zeros past N
+  {
+    const float* qb = a.q + b * a.sq[0] + h * a.sq[1];
+    for (int i = tid; i < FC_QT * (ncb * 16); i += FC_THREADS) {
+      const int r = i / (ncb * 16), c = (i % (ncb * 16)) * 4;
+      float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (q0 + r < N) {
+        v = *reinterpret_cast<const float4*>(qb + (q0 + r) * a.sq[2] + c);
+        v = make_float4(__fmul_rn(v.x, a.scale), __fmul_rn(v.y, a.scale),
+                        __fmul_rn(v.z, a.scale), __fmul_rn(v.w, a.scale));
+      }
+      *reinterpret_cast<float4*>(Qs + r * qw + c) = v;
+    }
+  }
+
+  float o[4][FX_MAX_CB][4];
+  float l[4] = {0.f, 0.f, 0.f, 0.f};
+  float s[4][NJ];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) s[i][j] = 0.f;
+#pragma unroll
+    for (int c = 0; c < FX_MAX_CB; ++c)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o[i][c][e] = 0.f;
+  }
+
+  for (int gi = 0; gi < units; ++gi) {
+    const int t = gi / U, u = gi % U;
+    const int k0 = t * KT, kn = N - k0 < KT ? N - k0 : KT;
+    // unit gi's copies (this thread's), then everyone's; every thread is
+    // past unit gi - 1, so its slot takes unit gi + R - 1
+    switch (R) {
+      case 2: cp_async_wait<0>(); break;
+      case 3: cp_async_wait<1>(); break;
+      default: cp_async_wait<2>(); break;
+    }
+    __syncthreads();
+    issue(gi + R - 1);
+    if (!live) continue;
+    const float* sl = ring + (gi % R) * KT * FX_SW;
+    if (u < ncb) {
+      // --- scores of the 16-key groups that hold keys, slice u ------------
+      const int nja = (kn + 15) / 16;
+      if (nja == NJ) {
+        fx_scores<NJ, NJ>(Qs + 64 * u, qw, sl, ty, tx, s);
+      } else if constexpr (NJ == 4) {
+        if (nja == 1) fx_scores<NJ, 1>(Qs + 64 * u, qw, sl, ty, tx, s);
+        else if (nja == 2) fx_scores<NJ, 2>(Qs + 64 * u, qw, sl, ty, tx, s);
+        else fx_scores<NJ, 3>(Qs + 64 * u, qw, sl, ty, tx, s);
+      } else {
+        fx_scores<NJ, 1>(Qs + 64 * u, qw, sl, ty, tx, s);
+      }
+      if (u < ncb - 1) continue;
+      // --- e = exp(clip(s [+ bias], -60, 80) - 20), l, P = e k-major ------
+      const bf16* bt = Bs + (t & 1) * FC_QT * KT;
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) {
+        const int key = k0 + tx + 16 * j;
+        float e[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          e[i] = 0.f;
+          if (key < N) {
+            float v = s[i][j];
+            if (bb != nullptr)
+              v = __fadd_rn(v, __bfloat162float(
+                                   bt[(4 * ty + i) * KT + tx + 16 * j]));
+            e[i] = expf(__fsub_rn(fminf(fmaxf(v, -60.f), 80.f), 20.f));
+          }
+          l[i] += e[i];
+          s[i][j] = 0.f;
+        }
+        *reinterpret_cast<float4*>(Ps + (tx + 16 * j) * PW + 4 * ty) =
+            make_float4(e[0], e[1], e[2], e[3]);
+      }
+    } else {
+      // --- o += P V over the tile's kn keys, V slice c --------------------
+      const int c = u - ncb;
+#pragma unroll
+      for (int cc = 0; cc < FX_MAX_CB; ++cc) {
+        if (cc != c) continue;
+#pragma unroll 4
+        for (int kk = 0; kk < kn; ++kk) {
+          const float4 pv =
+              *reinterpret_cast<const float4*>(Ps + kk * PW + 4 * ty);
+          const float pr[4] = {pv.x, pv.y, pv.z, pv.w};
+          const float4 v =
+              *reinterpret_cast<const float4*>(sl + kk * FX_SW + 4 * tx);
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            o[i][cc][0] = fmaf(pr[i], v.x, o[i][cc][0]);
+            o[i][cc][1] = fmaf(pr[i], v.y, o[i][cc][1]);
+            o[i][cc][2] = fmaf(pr[i], v.z, o[i][cc][2]);
+            o[i][cc][3] = fmaf(pr[i], v.w, o[i][cc][3]);
+          }
+        }
+      }
+    }
+  }
+  cp_async_wait<0>();
+  if (!live) return;
+
+  // --- l over the half warp, o * (1 / l) ---------------------------------
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int m = 1; m < 16; m <<= 1)
+      l[i] += __shfl_xor_sync(0xffffffffu, l[i], m);
+  float* ob = a.o + b * a.so[0] + h * a.so[1] + cb0 * 64;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int n = q0 + 4 * ty + i;
+    if (n >= N) continue;
+    const float inv = __frcp_rn(l[i]);
+    auto out = [&](float x) { return __fmul_rn(x, inv); };
+#pragma unroll
+    for (int c = 0; c < FX_MAX_CB; ++c)
+      if (c < ncbb)
+        *reinterpret_cast<float4*>(ob + n * a.so[2] + 64 * c + 4 * tx) =
+            make_float4(out(o[i][c][0]), out(o[i][c][1]), out(o[i][c][2]),
+                        out(o[i][c][3]));
+  }
+}
+
+template <int KT>
+static cudaError_t launch_fx_kt(const FcArgs& a, int B, const FxPlan& p,
+                                cudaStream_t s) {
+  cudaError_t err = cudaFuncSetAttribute(
+      f32_core_xwide_kernel<KT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      p.smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((a.N + FC_QT - 1) / FC_QT * p.groups, a.H, B);
+  f32_core_xwide_kernel<KT><<<grid, FC_THREADS, p.smem, s>>>(a, p);
+  return cudaGetLastError();
+}
+
+static cudaError_t launch_fx(const FcArgs& a, int B, int hd, cudaStream_t s) {
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return err;
+  FxPlan p;
+  if (!fx_plan(hd, (long long)(a.N + FC_QT - 1) / FC_QT * a.H * B, sms, &p))
+    return cudaErrorInvalidValue;
+  return p.kt == 64 ? launch_fx_kt<64>(a, B, p, s)
+                    : launch_fx_kt<32>(a, B, p, s);
+}
+
 static cudaError_t f32_core(const FcArgs& a, int B, int hd, cudaStream_t s) {
   if (a.N <= 0 || B <= 0 || a.H <= 0 || B > 65535 || a.H > 65535)
     return cudaErrorInvalidValue;
@@ -309,7 +598,7 @@ static cudaError_t f32_core(const FcArgs& a, int B, int hd, cudaStream_t s) {
     case 128: return launch_fc<128>(a, B, s);
     case 192: return launch_fc<192>(a, B, s);
     case 256: return launch_fc<256>(a, B, s);
-    default: return cudaErrorInvalidValue;
+    default: return launch_fx(a, B, hd, s);
   }
 }
 
@@ -320,9 +609,10 @@ extern "C" {
 // The fp32 core on strided q, k, v [B, H, N, hd] -> out (K1's rounding);
 // ``strides`` as dyt_mha_core's (batch, head, row of q, k, v
 // and out; unit stride along hd; every stride a multiple of 8 elements and
-// the operands on 16 bytes); head dim 64, 128, 192 or 256; bias null or
-// bf16 [H, N, N] with head stride ``bias_head`` and row stride ``bias_row``
-// (unit column stride).  Returns a cudaError_t value.
+// the operands on 16 bytes); head dim 64, 128, 192, 256 or a multiple of 64
+// past 256 up to 768; bias null or bf16 [H, N, N] with head stride
+// ``bias_head`` and row stride ``bias_row`` (unit column stride).  Returns a
+// cudaError_t value.
 int dyt_f32_core(const float* q, const float* k, const float* v, float* out,
                  const long long* strides, int B, int N, int H, int hd,
                  float scale, const void* bias, long long bias_head,
@@ -341,7 +631,8 @@ int dyt_f32_core(const float* q, const float* k, const float* v, float* out,
 
 // The fp32 core (K1's rounding) on the raw qkv [B, N, 3C] -> out [B, N, C],
 // both fp32 and contiguous: the core of the fp32 sublayer chain
-// (simt_chain.cu).  Returns a cudaError_t value.
+// (simt_chain.cu), head dims as dyt_f32_core's.  Returns a cudaError_t
+// value.
 int dyt_f32_core_qkv(const float* qkv, float* out, int B, int N, int C,
                      int H, float scale, void* stream) {
   if (H <= 0 || C % H) return cudaErrorInvalidValue;

@@ -360,17 +360,18 @@ inline TensorMapEncodeTiled tensor_map_encoder() {
 
 // A tensor of ``rank`` dimensions (dims innermost first, the byte strides of
 // dims 1.. in ``strides``) read in 128-byte swizzled boxes of ``box``
-// elements, zeros past its edges.
-inline cudaError_t tensor_map(CUtensorMap* map, CUtensorMapDataType type,
-                              const void* p, int rank, const cuuint64_t* dims,
-                              const cuuint64_t* strides,
-                              const cuuint32_t* box) {
+// elements (or unswizzled, row after row, with ``swizzle`` NONE), zeros
+// past its edges.
+inline cudaError_t tensor_map(
+    CUtensorMap* map, CUtensorMapDataType type, const void* p, int rank,
+    const cuuint64_t* dims, const cuuint64_t* strides, const cuuint32_t* box,
+    CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_128B) {
   const TensorMapEncodeTiled encode = tensor_map_encoder();
   if (encode == nullptr) return cudaErrorNotSupported;
   const cuuint32_t step[5] = {1, 1, 1, 1, 1};
   const CUresult r = encode(
       map, type, rank, const_cast<void*>(p), dims, strides, box, step,
-      CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+      CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
       CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }

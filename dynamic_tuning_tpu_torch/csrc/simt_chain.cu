@@ -213,8 +213,8 @@ extern "C" {
 // selects fp32 over bf16); gamma/beta/bqkv/bproj fp32; wqkv [3C, C] and
 // wproj [C, C] fp32; xm32 an optional fp32 [B, N, C] copy of out; ln_buf
 // [B*N, C], qkv_buf [B*N, 3C] and attn_buf [B*N, C] fp32 scratch; the core
-// the fp32 core (head dims up to 256) or, with simt_core, the SIMT core
-// (past 256), as the caller routes it.  Returns a cudaError_t value.
+// the fp32 core (head dims up to 768) or, with simt_core, the SIMT core
+// (past 768), as the caller routes it.  Returns a cudaError_t value.
 int dyt_attention_sublayer_f32(const void* x, int x_f32, const float* gamma,
                                const float* beta, const float* wqkv,
                                const float* bqkv, const float* wproj,

@@ -24,13 +24,14 @@ int dyt_simt_core_exact(const float* qkv, float* out, int B, int N, int C,
 }
 
 // The core on strided q, k, v [B, H, N, hd] -> out, bf16 or fp32 (t_f32),
-// with K1's rounding or K15's (k15, bf16): bf16 K9 past head dim 256, and
-// every core past it (K1, K15, K9 in either dtype and the cores of the
-// bf16 and fp32 sublayer chains).  ``strides`` as dyt_mha_core's (batch,
-// head, row of q, k, v and out; unit stride along hd; every stride a
-// multiple of 8 elements and the operands on 16 bytes); bias null or bf16
-// [H, N, N] with head stride ``bias_head`` and row stride ``bias_row``
-// (unit column stride).  hd any multiple of 64.
+// with K1's rounding or K15's (k15, bf16): every core past head dim 768
+// (K1, K15, K9 in either dtype and the cores of the bf16 and fp32 sublayer
+// chains), where the wgmma and fp32 cores' layouts no longer fit.
+// ``strides`` as dyt_mha_core's (batch, head, row of q, k, v and out; unit
+// stride along hd; every stride a multiple of 8 elements and the operands
+// on 16 bytes); bias null or bf16 [H, N, N] with head stride ``bias_head``
+// and row stride ``bias_row`` (unit column stride).  hd any multiple of
+// 64.
 int dyt_simt_core(const void* q, const void* k, const void* v, void* out,
                   const long long* strides, int B, int N, int H, int hd,
                   float scale, const void* bias,
@@ -59,7 +60,7 @@ int dyt_simt_core(const void* q, const void* k, const void* v, void* out,
 
 // The core with K1's rounding on raw qkv [B, N, 3C] -> out [B, N, C],
 // bf16 or fp32 (t_f32), both contiguous: the core of the bf16, fp32 and
-// int8 sublayer chains past head dim 256.  Returns a cudaError_t value.
+// int8 sublayer chains past head dim 768.  Returns a cudaError_t value.
 int dyt_simt_core_qkv(const void* qkv, void* out, int B, int N, int C, int H,
                       float scale, int t_f32, void* stream) {
   if (H <= 0 || C % H) return cudaErrorInvalidValue;

@@ -11,11 +11,12 @@
 //     each head pair's 2 hd lanes and the per-head q codes come from two
 //     small kernels (k_lane_mean_kernel, q8_codes_kernel), the exact int32
 //     Q K^T from dp4a;
-//   * every core past head dim 256 (below).
-// Up to head dim 256 the fp32 cores of K1, K2, K3, K7 and K9 are
-// f32_core.cu's register-tiled kernel, and bf16 K1, K15, K9 and the cores
-// of K2, K3, K5-K8 attention_sublayer.cu's and windowed_attention.cu's
-// wgmma cores.  These replace the same TPU kernels
+//   * past head dim 256 the int8-score form and the exact route, and past
+//     768 every core (below).
+// Up to head dim 768 the fp32 cores of K1, K2, K3, K7 and K9 are
+// f32_core.cu's register-tiled kernels, and bf16 K1, K15, K9 and the cores
+// of K2, K3, K5-K8 without int8 scores attention_sublayer.cu's and
+// windowed_attention.cu's wgmma cores.  These replace the same TPU kernels
 // as the cores they stand in for (dynamic_tuning_tpu/ops/mha_serving.py::
 // attn_core_pairs inside quant.py's int8 chains K6 and K8; quant.py::
 // attn_core_pairs_q8; mha_serving.py::mha_windowed_fused), at the dtypes
@@ -57,12 +58,13 @@
 // twice the registers), fp32 elsewhere.
 //
 // Head dims past 256 (the JAX package fuses every hd with (2 hd) % 128 ==
-// 0: 320, 384, 512 and on) take simt_core_slices_kernel, every core's form
-// there (bf16 and fp32, K1's and K15's rounding, the bias, the int8-score
-// and exact forms), with hd given at run time: a list of template
-// instances would stop at its last entry.  The rows of Q, K and V above
-// would not fit a block past hd ~ 400, nor o a thread's registers, so the
-// kernel walks hd in 64-column slices:
+// 0: 320, 384, 512 and on) take simt_core_slices_kernel in the int8-score
+// and exact forms, and past 768 (where the wgmma and fp32 cores' q tile
+// and two stages of K no longer fit a block) in every form (bf16 and fp32,
+// K1's and K15's rounding, the bias), with hd given at run time: a list of
+// template instances would stop at its last entry.  The rows of Q, K and V
+// above would not fit a block past hd ~ 400, nor o a thread's registers, so
+// the kernel walks hd in 64-column slices:
 //   * o is built one 64-column slice at a time (four sums a row a thread);
 //   * for each slice the block walks the key tiles (32 keys) and sums each
 //     tile's q . k over the 64-column slices of q and k (or of their codes)
@@ -446,7 +448,7 @@ static cudaError_t launch_ss(const ScArgs<T>& a, int B, int hd,
 
 // The int8-score and float64 forms at head dims 64 .. 256 on their template
 // instances; past 256, and the fp32-sum cores without int8 scores (K1's and
-// K15's rounding, K9's bias: no route sends them here below 257), on the
+// K15's rounding, K9's bias: no route sends them here below 769), on the
 // slices kernel.
 template <typename T, bool Q8, typename Acc = float>
 static cudaError_t simt_core(const ScArgs<T>& a, int B, int hd,

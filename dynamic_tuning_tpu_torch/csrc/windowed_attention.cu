@@ -276,8 +276,9 @@ extern "C" {
 // bias [H, N, N] bf16 on 16 bytes with unit column stride, row stride
 // ``row_stride`` and head stride ``head_stride`` (elements; both multiples
 // of 8, row stride at least N rounded up to 8); out [B, N, C] bf16.
-// head_dim 64 or 128 here, 192 or 256 on the wgmma core's ring with bias
-// blocks (attention_sublayer.cu).  Returns a cudaError_t value.
+// head_dim 64 or 128 here; 192, 256 and past them up to 768 on the wgmma
+// cores with bias blocks (attention_sublayer.cu).  Returns a cudaError_t
+// value.
 int dyt_mha_windowed(const void* qkv, const void* bias, void* out, int B,
                      int N, int C, int H, long long head_stride,
                      int row_stride, float scale, void* stream) {
@@ -292,7 +293,7 @@ int dyt_mha_windowed(const void* qkv, const void* bias, void* out, int B,
   if (C == 128 * H)
     return dyt::launch_windowed<128>(q, b, o, B, N, H, head_stride,
                                      row_stride, scale, s);
-  if (C == 192 * H || C == 256 * H)
+  if (H > 0 && C % H == 0 && C / H > 128)
     return dyt_mha_windowed_wide(qkv, bias, out, B, N, C, H, head_stride,
                                  row_stride, scale, stream);
   return cudaErrorInvalidValue;

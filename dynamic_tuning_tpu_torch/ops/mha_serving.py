@@ -30,8 +30,10 @@ or launch.  There is no other path.  Each launch adds one to the wrapper's
 "bf16" (the wgmma kernels), "fp32" (fp32 weights or qkv: the fp32 GEMM of
 ``csrc/gemm_f32.cuh``, the register-tiled fp32 core of
 ``csrc/f32_core.cu``, the SIMT tails of ``csrc/simt_chain.cu``),
-"bf16+wide_heads" (bf16 at head dim 192 or 256 on the wgmma kernels),
-"bf16+simt_core" (bf16 past head dim 256, and K10 past its wgmma layout's
+"bf16+wide_heads" (bf16 at head dims 192 and 256 on the wgmma kernels),
+"bf16+past_256" and "fp32+past_256" (past head dim 256, up to 768, on the
+wgmma core and the fp32 core that take hd at run time), "bf16+simt_core"
+(bf16 past head dim 768, K10 past head dim 256 and past its wgmma layout's
 N: the SIMT core, which walks any head dim in 64-column slices) and
 "+simt_tail" (a bf16 adapter or MoE tail at a width the wgmma tails do not
 take, on the SIMT tail).  ``core_of`` is the one table of which attention
@@ -77,8 +79,11 @@ from dynamic_tuning_tpu_torch.ops import _build
 LN_EPS = 1e-6
 SMEM_PER_BLOCK = 232448          # H100: 227 KB of dynamic shared memory
 BF, F32 = torch.bfloat16, torch.float32
-WGMMA_MAX_HD = 256               # the wgmma and fp32 cores' largest head
-#                                  dim; past it every core is the SIMT core's
+Q8_MAX_HD = 256                  # K10's int8-score wgmma core's largest
+#                                  head dim; past it its SIMT form
+WIDE_MAX_HD = 768                # the wgmma and fp32 cores' largest head
+#                                  dim (csrc's XW_MAX_HD, FX_MAX_HD); past it
+#                                  every core is the SIMT core's
 AR_WIDTHS = (16, 32, 48, 64, 96, 128)    # the wgmma adapter/router kernel's F
 #                                  (csrc's dyt_adapter_width_supported)
 MOE_MAX_W = 512                  # the wgmma MoE tail's largest E * b
@@ -346,20 +351,23 @@ def core_of(kernel: str, dtype, hd: int, *, heads: int,
     on any head count) and raise ValueError on the rest, as its asserts do.
 
     * "wgmma": ``attention_sublayer.cu``'s core (staged, or its ring past
-      the staged N) -- bf16 K1, K15 and the cores of K2, K3, K7 and of K5,
-      K6, K8 without int8 scores, at head dims up to 256;
-    * "windowed": bf16 K9 up to 256 (``windowed_attention.cu`` at 64 and
-      128, the wgmma core's ring with the bias tiles at 192 and 256);
+      the staged N; past head dim 256 ``attn_core_xwide_kernel``) -- bf16
+      K1, K15 and the cores of K2, K3, K7 and of K5, K6, K8 without int8
+      scores, at head dims up to ``WIDE_MAX_HD``;
+    * "windowed": bf16 K9 up to ``WIDE_MAX_HD`` (``windowed_attention.cu``
+      at 64 and 128, the wgmma cores with the bias blocks past 128);
     * "q8": ``quant.cu``'s int8-score wgmma core -- bf16 K10 (and K5, K6, K8
-      with ``attn_q8``) up to 256 where its layout fits a block
+      with ``attn_q8``) up to ``Q8_MAX_HD`` where its layout fits a block
       (``q8_fits``);
     * "simt_q8": the SIMT core's int8-score form -- the rest of K10's;
-    * "f32": ``f32_core.cu``'s register-tiled fp32 core -- fp32 K1, K9 and
-      the cores of K2, K3, K7 up to 256;
+    * "f32": ``f32_core.cu``'s register-tiled fp32 cores -- fp32 K1, K9 and
+      the cores of K2, K3, K7 up to ``WIDE_MAX_HD``;
     * "f32_exact": the SIMT core with float64 sums -- K6, K8 with an fp32
       qkv scratch (fp32 adapters), whose core output is requantized;
     * "simt": ``simt_core.cu`` in the operands' dtype -- every other core
-      past head dim 256 (K15 in its own rounding, K9 with its bias).
+      past ``WIDE_MAX_HD`` (K15 in its own rounding, K9 with its bias): the
+      q tile and two stages of K of the wgmma and fp32 cores no longer fit
+      a block's shared memory there.
 
     ``dtype`` is the core's: qkv's, the weights' for K2/K3/K7, the qkv
     scratch's for K5/K6/K8.  K15 takes bf16 only, and so does K5, whose
@@ -374,12 +382,12 @@ def core_of(kernel: str, dtype, hd: int, *, heads: int,
                          "takes pairs of heads, as the JAX kernels do")
     if dtype not in (BF, F32) or (kernel in ("K5", "K15") and dtype != BF):
         raise TypeError(f"{kernel} takes no {dtype} on the card")
-    wide = hd > WGMMA_MAX_HD
     if kernel == "K10" or (attn_q8 and kernel in ("K5", "K6", "K8")):
-        return "q8" if dtype == BF and not wide and q8_fits else "simt_q8"
+        return ("q8" if dtype == BF and hd <= Q8_MAX_HD and q8_fits
+                else "simt_q8")
     if dtype == F32 and kernel in ("K6", "K8"):
         return "f32_exact"
-    if wide:
+    if hd > WIDE_MAX_HD:
         return "simt"
     if kernel == "K9":
         return "f32" if dtype == F32 else "windowed"
@@ -388,15 +396,22 @@ def core_of(kernel: str, dtype, hd: int, *, heads: int,
 
 def form_of(dtype, hd: int | None = None, simt_tail: bool = False,
             core: str = "wgmma") -> str:
-    """The form a wrapper takes (its ``forms`` key): "fp32", or "bf16" with
-    "+wide_heads" at head dim 192 or 256 ("+simt_core" where ``core`` is
-    the SIMT core's: past head dim 256, and K10 past its layout's N) and
+    """The form a wrapper takes (its ``forms`` key): "fp32" ("fp32+past_256"
+    on the fp32 core past head dim 256), or "bf16" with "+wide_heads" at
+    head dims 192 and 256 and "+past_256" past them on the wgmma cores
+    ("+simt_core" where ``core`` is the SIMT core's past head dim 128: past
+    ``WIDE_MAX_HD``, and K10 past ``Q8_MAX_HD`` or its layout's N) and
     "+simt_tail" for a tail on the SIMT form."""
+    past = hd is not None and hd > 256
     if dtype == F32:
-        return "fp32"
+        return "fp32+past_256" if past and core == "f32" else "fp32"
     form = "bf16"
-    if hd is not None and hd > 128:
-        form += "+simt_core" if core in ("simt", "simt_q8") else "+wide_heads"
+    if core in ("simt", "simt_q8") and hd is not None and hd > 128:
+        form += "+simt_core"
+    elif past:
+        form += "+past_256"
+    elif hd is not None and hd > 128:
+        form += "+wide_heads"
     return form + "+simt_tail" if simt_tail else form
 
 
@@ -435,7 +450,7 @@ def _launch_sublayer(lib, x, gamma, beta, wqkv, bqkv, wproj, bproj, heads,
                      xm32, core):
     """The sublayer chain in the weights' dtype: the bf16 chain of
     ``attention_sublayer.cu`` or the fp32 chain of ``simt_chain.cu``, its
-    core the SIMT core where ``core`` says so (past head dim 256)."""
+    core the SIMT core where ``core`` says so (past ``WIDE_MAX_HD``)."""
     B, N, C = x.shape
     M = B * N
     out = torch.empty_like(x)
@@ -717,9 +732,9 @@ def mha_windowed_fused(qkv: torch.Tensor, bias: torch.Tensor, *,
 
     The bias may be fp32 or bf16 (it is rounded to bf16 either way); on
     CUDA qkv is bf16 or fp32 and contiguous, any head dim ``core_of``
-    takes: bf16 up to 256 on the wgmma kernels, fp32 up to 256 on the fp32
-    core, past 256 on the SIMT core, the bf16 bias upcast at the score add
-    (``core_of``)."""
+    takes: bf16 on the wgmma kernels and fp32 on the fp32 cores up to
+    ``WIDE_MAX_HD``, past it on the SIMT core, the bf16 bias upcast at the
+    score add (``core_of``)."""
     if qkv.device.type == "cpu":
         return mha_windowed_plain(qkv, bias, heads=heads)
     if qkv.device.type != "cuda":
@@ -809,10 +824,10 @@ def _check_core_operand(t: torch.Tensor, name: str, device,
 
 def _launch_core(q, k, v, out, *, k15: bool) -> None:
     """The strided core on bf16 q, k, v [B, H, N, hd] into ``out``: the
-    wgmma core at head dims up to 256 (``core_of``).  Every core takes any
-    N: past the N whose keys and values fit a block's shared memory the
-    wgmma core walks them through a ring of tiles, the SIMT and fp32 cores
-    always walk them in tiles."""
+    wgmma core at head dims up to ``WIDE_MAX_HD`` (``core_of``).  Every
+    core takes any N: past the N whose keys and values fit a block's shared
+    memory the wgmma core walks them through a ring of tiles, the SIMT and
+    fp32 cores always walk them in tiles."""
     B, H, N, hd = q.shape
     lib = _build.library()
     with torch.cuda.device(q.device):
@@ -831,7 +846,7 @@ def _bias_args(bias):
 def _launch_simt_core(q, k, v, out, bias=None, *, k15: bool = False) -> None:
     """The SIMT core on strided bf16 or fp32 q, k, v [B, H, N, hd] into
     ``out`` (K1's rounding, or K15's), with an optional bf16 ``bias`` [H, N,
-    N] of unit column stride: every core past head dim 256."""
+    N] of unit column stride: every core past ``WIDE_MAX_HD``."""
     B, H, N, hd = q.shape
     lib = _build.library()
     with torch.cuda.device(q.device):
@@ -868,7 +883,7 @@ def mha_serving(q: torch.Tensor, k: torch.Tensor,
     """K15: q, k, v ``[B, H, N, hd]`` -> ``[B, H, N, hd]`` in q's dtype.
 
     On CUDA: bf16, any head dim ``core_of`` takes (the wgmma core up to
-    256, the SIMT core past it), any views
+    ``WIDE_MAX_HD``, the SIMT core past it), any views
     with unit stride along hd and rows on 16 bytes (such as the q, k, v
     views of a raw ``[B, N, 3C]`` qkv buffer).  The output is allocated
     ``[B, N, H, hd]`` and returned as its ``[B, H, N, hd]`` view, so
@@ -904,8 +919,8 @@ def mha_serving_fused(qkv: torch.Tensor, *, heads: int,
     contract (``group`` divides ``heads``, ``group * hd`` a multiple of 128)
     raises ValueError here too, and one kernel runs whatever the group.  On
     CUDA qkv is bf16 or fp32 and contiguous, any head dim ``core_of``
-    takes: up to 256 bf16 on the wgmma core and fp32 on the fp32 core, past
-    it the SIMT core (``core_of``)."""
+    takes: up to ``WIDE_MAX_HD`` bf16 on the wgmma core and fp32 on the
+    fp32 core, past it the SIMT core (``core_of``)."""
     if qkv.dim() != 3 or qkv.shape[-1] % 3:
         raise ValueError(f"qkv must be [B, N, 3C], got {tuple(qkv.shape)}")
     B, N, C3 = qkv.shape

@@ -448,7 +448,7 @@ def _core_q8_route(lib, N, C, heads, dtype, kernel="K10") -> str:
     "q8" for bf16 at head dims up to 256 where its layout fits a block,
     else "simt_q8" (the SIMT core's int8-score form)."""
     hd = C // heads
-    fits = (hd > 0 and hd <= ms.WGMMA_MAX_HD
+    fits = (hd > 0 and hd <= ms.Q8_MAX_HD
             and 0 < lib.dyt_attn_core_q8_smem_bytes(N, hd)
             <= ms.SMEM_PER_BLOCK)
     return ms.core_of(kernel, dtype, hd, heads=heads, attn_q8=True,
@@ -520,7 +520,7 @@ def _launch_sublayer_q8(lib, x, gamma, beta, wqkv_q, sqkv, bqkv, wproj_q,
     attn = torch.empty((M, C), dtype=scratch, device=dev)
     # the route decided here (ms.core_of) and passed down: a SIMT form of
     # the core (the int8-score form, the exact fp32 core, or the bf16 core
-    # past head dim 256) or a wgmma one
+    # past ms.WIDE_MAX_HD) or a wgmma one
     core = (_core_q8_route(lib, N, C, heads, scratch, kernel) if attn_q8
             else ms.core_of(kernel, scratch, C // heads, heads=heads))
     simt = core in ("simt_q8", "f32_exact", "simt")

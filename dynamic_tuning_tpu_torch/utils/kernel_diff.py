@@ -1,7 +1,7 @@
 """The bf16 attention core (K1, K15) and the windowed core (K9) at head dims
-64 and 128, the int8 attention core (K10) and the dense adapter/router
-kernel of this tree against the same kernels of another checkout, bit for
-bit.
+64 to 256, the fp32 core, the int8 attention core (K10) and the dense
+adapter/router kernel of this tree against the same kernels of another
+checkout, bit for bit.
 
     python -m dynamic_tuning_tpu_torch.utils.kernel_diff OTHER_TREE
 
@@ -14,8 +14,10 @@ table says); this tree's through its wrappers (the core through its C
 entry, ``dyt_mha_core``, in both).  Over the cases below,
 which ``tests/test_torch_port_cuda.py`` also holds against the plain
 versions -- the core in both modes at every shape of ``CORE`` (the staged
-kernel whole-row and in 64-key chunks, the ring past the staged N), K9 at
-every shape of ``WINDOWED`` with a padded bf16 bias, K10 at
+kernel whole-row and in 64-key chunks, the ring past the staged N; at head
+dims 192 and 256 the wide kernel and its ring), K9 at every shape of
+``WINDOWED`` with a padded bf16 bias, the fp32 core (``dyt_f32_core``) at
+every shape of ``F32_CORE`` with and without K9's bias, K10 at
 every N of ``CORE_Q8_N`` at head dims 64 and 128
 and on the adversarial head pair, the adapter/router at every M x C x F of
 ``AR_M``, ``AR_C``, ``AR_F`` in bf16 and fp32 out, with and without the
@@ -39,9 +41,15 @@ import torch
 
 CORE = ((2, 19, 2, 64), (32, 197, 12, 64), (2, 197, 2, 128),
         (2, 256, 2, 64), (2, 209, 2, 128), (2, 300, 2, 64), (1, 864, 2, 64),
-        (1, 865, 2, 64), (1, 417, 2, 128), (2, 901, 12, 64))
+        (1, 865, 2, 64), (1, 417, 2, 128), (2, 901, 12, 64),
+        (8, 197, 4, 192), (2, 300, 2, 192), (8, 197, 4, 256),
+        (2, 240, 2, 256))
 WINDOWED = ((1, 1025, 12, 64), (2, 197, 4, 128), (3, 19, 2, 64),
-            (2, 129, 2, 128))
+            (2, 129, 2, 128), (1, 1025, 4, 192), (2, 129, 2, 192),
+            (1, 1025, 2, 256), (3, 19, 2, 256))
+F32_CORE = ((32, 197, 12, 64), (3, 19, 2, 64), (2, 129, 2, 64),
+            (2, 50, 2, 128), (2, 97, 2, 192), (2, 33, 2, 256),
+            (1, 1025, 2, 64))
 CORE_Q8_N = (1, 17, 64, 65, 197, 256, 257, 442, 511, 512)
 AR_M = (1, 63, 64, 129, 25216)
 AR_C = (64, 128, 768, 1024)
@@ -213,6 +221,29 @@ def main(argv) -> None:
         torch.cuda.synchronize()
         windowed.add(*outs)
     print(windowed.line("K9 mha_windowed_fused"), flush=True)
+
+    for with_bias in (False, True):
+        f32_core = Tally()
+        for B, N, H, hd in F32_CORE:
+            qkv = core_q8_qkv(B, N, H * hd, H, seed=N + 2).float()
+            q, k, v = qkv.view(B, N, 3, H, hd).permute(2, 0, 3, 1, 4)
+            g = torch.Generator(device="cuda").manual_seed(N)
+            b = (ms._windowed_bias(torch.randn((H, N, N), generator=g,
+                                               device="cuda").to(
+                torch.bfloat16), H, N) if with_bias else None)
+            outs = []
+            for which in (lib, other):
+                o = torch.empty((B, N, H, hd), device="cuda").transpose(1, 2)
+                _build.check(which, which.dyt_f32_core(
+                    p(q), p(k), p(v), p(o), _build.strides_arg(q, k, v, o),
+                    B, N, H, hd, hd ** -0.5, p(b),
+                    0 if b is None else b.stride(0),
+                    0 if b is None else b.stride(1), stream), "fp32 core")
+                outs.append(o)
+            torch.cuda.synchronize()
+            f32_core.add(*outs)
+        print(f32_core.line("fp32 core" + (", K9's bias" if with_bias
+                                           else "")), flush=True)
 
     core = Tally()
     for _, qkv, H in core_q8_cases():

@@ -4,7 +4,7 @@ scripts/profile_attention.py), and the cores at head dims 192 and 256 and
 in fp32.
 
     python -m dynamic_tuning_tpu_torch.utils.profile_attention \
-        [--part all|serving|cores]
+        [--part all|serving|cores|past256]
 
 At ViT-B/16 serving shape (B=128, N=197, 12 heads of 64, bf16 raw qkv
 ``[B, N, 3C]`` from a seed) it times, with CUDA events over 20 calls after
@@ -44,10 +44,14 @@ same function, SDPA's device time:
   at C=768 in 12 heads of 64 (the same products); K9 in bf16 at head dims
   192 and 256 (B=1 and 2, N=1025, 4 heads) beside SDPA with its bias as
   the mask;
-* past head dim 256 (the SIMT core, which walks hd in 64-column slices):
-  K15, K1, K3 and K10 in bf16 and K1 in fp32 at B=32, N=197, C=768 in 2
-  heads of 384, and K9 in bf16 at B=1, N=1025 there (a tree that refuses
-  the head dim prints so);
+* past head dim 256 (``--part past256`` times these alone): K15, K1, K10,
+  K2, K3 and K7 (4 experts of 64) in bf16 and K1, K2, K3 and K7 in fp32
+  at B=32, N=197, C=768 in 2 heads of 384, and K9 in bf16 at B=1 and 2
+  and in fp32 at B=1, N=1025 there (a tree that refuses the head dim
+  prints so); then, end to end in 2 heads of 384, ``speed.main --mode
+  dispatch`` at batch 128 in bf16 and fp32 (ViT-B/16 weights from a seed)
+  and ``predict.serve`` on 512 synthetic 256^2 canvases at batch 128
+  (img/s, best of 4 on the host's clock);
 * K1 in fp32 at ViT-B/16 rows (B=32, N=197, 12 heads of 64) beside SDPA in
   fp32 with TF32 off, and K10 there (the int8-score form, float64 sums); K9 in fp32 at the seg crop (B=1, N=1025) with its
   bf16 bias, beside SDPA with the bias as its mask;
@@ -68,6 +72,8 @@ line of its numbers last.  Needs a CUDA device.
 from __future__ import annotations
 
 import argparse
+import contextlib
+import io
 import json
 import os
 import time
@@ -101,8 +107,8 @@ def main(args) -> dict:
           f"{os.path.dirname(os.path.abspath(pkg.__file__))}", flush=True)
     g = torch.Generator(device="cuda").manual_seed(args.seed)
     times = serving(g) if args.part in ("all", "serving") else {}
-    if args.part in ("all", "cores"):
-        out = cores(g)
+    if args.part in ("all", "cores", "past256"):
+        out = cores(g, past_only=args.part == "past256")
         print(json.dumps(out))
         times.update(out)
     return times
@@ -258,14 +264,19 @@ def _weights(g, width, dtype):
     return sub, ad, moe
 
 
-def cores(g) -> dict:
+def cores(g, past_only: bool = False) -> dict:
     """The bf16 cores at head dims 192 and 256 and the fp32 forms (the
-    module docstring's list), with TF32 off for the fp32 ones."""
+    module docstring's list), or with ``past_only`` those past head dim
+    256 alone, with TF32 off for the fp32 ones."""
     tf32 = (torch.backends.cuda.matmul.allow_tf32,
             torch.backends.cudnn.allow_tf32)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     try:
+        if past_only:
+            out = {}
+            _past_256_all(out, g)
+            return out
         return _cores(g)
     finally:
         (torch.backends.cuda.matmul.allow_tf32,
@@ -307,13 +318,7 @@ def _cores(g) -> dict:
     for width in (768, 1024):
         for batch in (1, 2):
             _k9(out, g, width, 4, batch)
-    for name, fn in (("hd 384", _past_256), ("K9 bf16 hd 384",
-                                             lambda o, g_: _k9(o, g_, 768,
-                                                               2))):
-        try:
-            fn(out, g)
-        except ValueError as e:               # a tree that refuses hd 384
-            print(f"{name}: refused ({e})", flush=True)
+    _past_256_all(out, g)
     qkv = _qkv(g, CORES_B, N, C, F32)
     q, k, v = (t.contiguous() for t in _split(qkv, H))
     attn = 4 * CORES_B * H * N * N * HD
@@ -358,53 +363,131 @@ def _cores(g) -> dict:
     return out
 
 
-def _k9(out, g, width, heads, batch=1) -> None:
-    """K9 in bf16 at B=``batch``, N=SEG_N in ``heads`` heads of ``width``,
-    beside SDPA with its bias as the mask."""
+def _k9(out, g, width, heads, batch=1, dtype=BF) -> None:
+    """K9 at B=``batch``, N=SEG_N in ``heads`` heads of ``width``, bf16 or
+    fp32 qkv with the bf16 bias, beside SDPA with the bias as the mask."""
     hd = width // heads
-    sq = _qkv(g, batch, SEG_N, width, BF)
+    sq = _qkv(g, batch, SEG_N, width, dtype)
     ld = ms.bias_row_stride(SEG_N)
     bias = (torch.randn((heads, SEG_N, ld), generator=g, device="cuda")
             .to(BF)[:, :, :SEG_N])
     q9, k9, v9 = (t.contiguous() for t in _split(sq, heads))
-    mask = bias.contiguous()[None]
-    _line(out, f"K9 bf16 hd {hd}" + (f" B={batch}" if batch > 1 else ""),
+    mask = bias.to(dtype).contiguous()[None]
+    kind = "bf16" if dtype == BF else "fp32"
+    _line(out, f"K9 {kind} hd {hd}" + (f" B={batch}" if batch > 1 else ""),
           lambda: ms.mha_windowed_fused(sq, bias, heads=heads),
           (sq, bias.contiguous()),
-          {"bf16": 4 * batch * heads * SEG_N * SEG_N * hd},
+          {kind: 4 * batch * heads * SEG_N * SEG_N * hd},
           lambda: F.scaled_dot_product_attention(q9, k9, v9, attn_mask=mask))
 
 
+def _past_256_all(out, g) -> None:
+    """The cores past head dim 256 (2 heads of 384) and the forwards that
+    run them, or the refusal of a tree that does not take the head dim."""
+    for name, fn in (
+            ("hd 384", _past_256),
+            ("K9 bf16 hd 384", lambda o, g_: _k9(o, g_, 768, 2)),
+            ("K9 bf16 hd 384 B=2", lambda o, g_: _k9(o, g_, 768, 2, 2)),
+            ("K9 fp32 hd 384", lambda o, g_: _k9(o, g_, 768, 2, 1, F32)),
+            ("forwards hd 384", _past_256_forwards)):
+        try:
+            fn(out, g)
+        except ValueError as e:               # a tree that refuses hd 384
+            print(f"{name}: refused ({e})", flush=True)
+
+
+def _past_256_forwards(out, g) -> None:
+    """img/s of ViT-B/16 in 2 heads of 384: speed.main (dispatch, batch
+    128, bf16 and fp32) and predict.serve (512 canvases, batch 128, best of
+    4)."""
+    from unittest import mock
+
+    import numpy as np
+
+    from dynamic_tuning_tpu_torch import predict, speed
+    from dynamic_tuning_tpu_torch.checkpoint import make_vit_state_dict
+    sd = {k: torch.from_numpy(v) for k, v in make_vit_state_dict(
+        np.random.RandomState(0), depth=12, dim=C, ffn=F_ADAPT,
+        classes=100, img=224, patch=16, router_scale=25.0).items()}
+    for kind, flags in (("bf16", []),
+                        ("fp32", ["--compute_dtype", "float32",
+                                  "--residual_dtype", "float32"])):
+        args = speed.get_args_parser().parse_args(
+            ["--num_heads", "2", "--mode", "dispatch"] + flags)
+        # every parameter comes from the state dict: the init draws skipped
+        with contextlib.redirect_stdout(io.StringIO()), mock.patch.object(
+                torch.nn.init, "trunc_normal_", lambda t, *a, **k: t):
+            ips = speed.main(args, state_dict=sd)["throughput_img_s"]
+        out[f"speed {kind} hd 384 img/s"] = ips
+        print(f"speed --num_heads 2 --mode dispatch {kind} (batch 128): "
+              f"{ips} img/s", flush=True)
+        torch.cuda.empty_cache()
+    canv = torch.randint(0, 256, (512, 256, 256, 3), generator=g,
+                         device="cuda", dtype=torch.uint8)
+    a = predict.get_args_parser().parse_args(
+        ["--ckpt", "unused", "--images", "unused", "--num_heads", "2",
+         "--batch_size", "128"])
+    params = predict.load_params(a, torch.device("cuda"), state_dict=sd)
+    best = 0.0
+    for _ in range(4):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            predict.serve(a, canv, params)
+        torch.cuda.synchronize()
+        best = max(best, canv.shape[0] / (time.perf_counter() - t0))
+    out["predict.serve hd 384 img/s"] = round(best, 2)
+    print(f"predict.serve --num_heads 2 (512 canvases, batch 128): "
+          f"{best:.2f} img/s", flush=True)
+
+
 def _past_256(out, g) -> None:
-    """The cores at B=32, N=197, C=768 in 2 heads of 384."""
+    """The cores and sublayers at B=32, N=197, C=768 in 2 heads of 384."""
     width, heads = 768, 2
     hd = width // heads
     qkv = _qkv(g, CORES_B, N, width, BF)
     q, k, v = _split(qkv, heads)
     qc, kc, vc = (t.contiguous() for t in (q, k, v))
     sdpa = lambda: F.scaled_dot_product_attention(qc, kc, vc)  # noqa
-    ops = {"bf16": 4 * CORES_B * heads * N * N * hd}
+    attn = 4 * CORES_B * heads * N * N * hd
+    ops = {"bf16": attn}
     _line(out, f"K15 bf16 hd {hd}", lambda: ms.mha_serving(q, k, v),
           (qkv,), ops, sdpa)
     _line(out, f"K1 bf16 hd {hd}",
           lambda: ms.mha_serving_fused(qkv, heads=heads), (qkv,), ops, sdpa)
     _line(out, f"K10 bf16 hd {hd}",
           lambda: qt.attn_core_pairs_q8(qkv, heads=heads), (qkv,),
-          {"int8": ops["bf16"] // 2, "bf16": ops["bf16"] // 2})
-    x = torch.randn((CORES_B, N, width), generator=g, device="cuda").to(BF)
-    sub, ad, _ = _weights(g, width, BF)
-    M = CORES_B * N
-    _line(out, f"K3 bf16 hd {hd}",
-          lambda: ms.dyt_prologue_serving(x, *sub, *ad, heads=heads),
-          (x, *sub, *ad),
-          {"bf16": 8 * M * width * width + ops["bf16"]
-           + 4 * M * width * F_ADAPT, "fp32": 2 * M * width})
+          {"int8": attn // 2, "bf16": attn // 2})
     qf = qkv.float()
     qfc, kfc, vfc = (t.contiguous() for t in _split(qf, heads))
     _line(out, f"K1 fp32 hd {hd}",
           lambda: ms.mha_serving_fused(qf, heads=heads), (qf,),
-          {"fp32": ops["bf16"]},
+          {"fp32": attn},
           lambda: F.scaled_dot_product_attention(qfc, kfc, vfc))
+    M = CORES_B * N
+    gemm = 8 * M * width * width
+    for dtype, kind in ((BF, "bf16"), (F32, "fp32")):
+        x = torch.randn((CORES_B, N, width), generator=g,
+                        device="cuda").to(dtype)
+        sub, ad, moe = _weights(g, width, dtype)
+        # a bf16 form's products at the bf16 tensor rate, its router and
+        # the MoE gates in fp32; an fp32 form's all in fp32
+        for name, call, ins, prod, f32_ops in (
+                ("K2", lambda: ms.attention_sublayer_serving(
+                    x, *sub, heads=heads), (x, *sub), gemm + attn, 0),
+                ("K3", lambda: ms.dyt_prologue_serving(
+                    x, *sub, *ad, heads=heads), (x, *sub, *ad),
+                 gemm + attn + 4 * M * width * F_ADAPT, 2 * M * width),
+                ("K7", lambda: ms.dyt_prologue_serving_moe(
+                    x, *sub, *moe, *ad[5:], heads=heads, tau=1.0),
+                 (x, *sub, *moe, *ad[5:]),
+                 gemm + attn + 4 * M * width * E * F_ADAPT,
+                 2 * M * width * (E + 1))):
+            ops_ = ({"bf16": prod, "fp32": f32_ops} if dtype == BF
+                    else {"fp32": prod + f32_ops})
+            _line(out, f"{name} {kind} hd {hd}" + (
+                f" ({E} x {F_ADAPT})" if name == "K7" else ""), call, ins,
+                ops_)
 
 
 def entry_host_us(q, k, v, calls: int = 200) -> float:
@@ -430,7 +513,7 @@ def get_args_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--part", default="all",
-                   choices=("all", "serving", "cores"))
+                   choices=("all", "serving", "cores", "past256"))
     return p
 
 

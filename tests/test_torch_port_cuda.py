@@ -1895,39 +1895,55 @@ def test_wide_attn_core_q8(B, N, H, hd):
     contract_close(got, want, "K10")
 
 
-@pytest.mark.parametrize("hd", [320, 384, 512])
+@pytest.mark.parametrize("hd", [320, 384, 512, 640, 832])
 def test_cores_past_head_dim_256(hd):
-    """Every core form at 2 heads of ``hd`` (past the wgmma and fp32 cores'
-    head dims: the SIMT core, which walks hd in 64-column slices) against
-    its plain version: bf16 K1, K9 (bias), K15 and K10 (two bf16 ulps), fp32
-    K1, K9 and K10 (1e-5 of the largest output), the exact core (float64
-    sums) bit for bit; each counted under its form."""
+    """Every core form at 2 heads of ``hd`` past 256 against its plain
+    version: bf16 K1, K9 (bias), K15 (two bf16 ulps and ``ulp_share``) and
+    K10 (two bf16 ulps), fp32 K1, K9 and K10 (1e-5 of the largest output),
+    the exact core (float64 sums) bit for bit; each counted under its form.
+    Up to ``ms.WIDE_MAX_HD`` bf16 K1, K9 and K15 run on the wgmma core past
+    256 (hd a run-time count, 640 one it splits over two column groups) and
+    fp32 K1 and K9 on the fp32 core's; past it (832) the SIMT core's slices
+    take them, as they take K10 and the exact core past 256."""
     B, N, H = 2, 131, 2
+    wide = hd <= ms.WIDE_MAX_HD
     for dtype in (BF, F32):
         qkv = core_qkv(B, N, H, hd, seed=hd).to(dtype)
         qkv[..., H * hd:2 * H * hd] += 1.0
         close = fp32_close if dtype == F32 else bf16_close
-        form = "fp32" if dtype == F32 else "bf16+simt_core"
-        for kernel, call, plain in (
-                ("K1", lambda: ms.mha_serving_fused(qkv, heads=H),
-                 lambda: ms.attn_core_pairs(qkv, heads=H)),
-                ("K10", lambda: qt.attn_core_pairs_q8(qkv, heads=H),
-                 lambda: qt.attn_core_pairs_q8_plain(qkv, heads=H))):
-            fn = (ms.mha_serving_fused if kernel == "K1"
-                  else qt.attn_core_pairs_q8)
-            before = _form_count(fn, form)
+        simt = "fp32" if dtype == F32 else "bf16+simt_core"
+        form = ("fp32+past_256" if dtype == F32 and wide else
+                "fp32" if dtype == F32 else
+                "bf16+past_256" if wide else "bf16+simt_core")
+        assert ms.core_of("K1", dtype, hd, heads=H) == (
+            "simt" if not wide else "f32" if dtype == F32 else "wgmma")
+        assert ms.core_of("K9", dtype, hd, heads=H) == (
+            "simt" if not wide else "f32" if dtype == F32 else "windowed")
+        for kernel, fn, call, plain, f in (
+                ("K1", ms.mha_serving_fused,
+                 lambda: ms.mha_serving_fused(qkv, heads=H),
+                 lambda: ms.attn_core_pairs(qkv, heads=H), form),
+                ("K10", qt.attn_core_pairs_q8,
+                 lambda: qt.attn_core_pairs_q8(qkv, heads=H),
+                 lambda: qt.attn_core_pairs_q8_plain(qkv, heads=H), simt)):
+            before = _form_count(fn, f)
             got = call()
             torch.cuda.synchronize()
-            assert _form_count(fn, form) == before + 1, kernel
-            (close if kernel == "K1" else bf16_close)(got, plain(), kernel)
+            assert _form_count(fn, f) == before + 1, kernel
+            want = plain()
+            (close if kernel == "K1" else bf16_close)(got, want, kernel)
+            if kernel == "K1" and dtype == BF:
+                contract_close(got, want, kernel)
         g = torch.Generator(device="cuda").manual_seed(5)
         bias = torch.randn((H, N, N), generator=g, device="cuda").to(BF)
         before = _form_count(ms.mha_windowed_fused, form)
         got = ms.mha_windowed_fused(qkv, bias, heads=H)
         torch.cuda.synchronize()
         assert _form_count(ms.mha_windowed_fused, form) == before + 1
-        close(got, ms.mha_windowed_plain(qkv, bias, heads=H), "K9")
+        want = ms.mha_windowed_plain(qkv, bias, heads=H)
+        close(got, want, "K9")
         if dtype == BF:
+            contract_close(got, want, "K9")
             q, k, v = qkv.view(B, N, 3, H, hd).permute(2, 0, 3, 1, 4)
             before = _form_count(ms.mha_serving, form)
             got = ms.mha_serving(q, k, v)
@@ -1949,25 +1965,92 @@ def test_cores_past_head_dim_256(hd):
                 (out != want).float().mean().item())
 
 
-@pytest.mark.parametrize("hd", [320, 512])
+@pytest.mark.parametrize("hd", [320, 448, 512, 768])
+def test_cores_past_head_dim_256_full_grid(hd):
+    """bf16 K1 and K15 and fp32 K1 at B=16, N=197 in 2 heads of ``hd``,
+    where the query tiles fill the SMs, so the wgmma core past 256 takes
+    its widest warpgroups (64 to 256 columns of o each: 320 and 448 with a
+    column block past hd, 768 in three column groups) and the fp32 core
+    its widest group, against their plain versions: bf16 within two ulps
+    and ``ulp_share``, fp32 within 1e-5 of the largest output."""
+    B, N, H = 16, 197, 2
+    qkv = core_qkv(B, N, H, hd, seed=hd + 1)
+    qkv[..., H * hd:2 * H * hd] += 1.0
+    got = ms.mha_serving_fused(qkv, heads=H)
+    want = ms.attn_core_pairs(qkv, heads=H)
+    bf16_close(got, want, "K1")
+    contract_close(got, want, "K1")
+    q, k, v = qkv.view(B, N, 3, H, hd).permute(2, 0, 3, 1, 4)
+    got = ms.mha_serving(q, k, v)
+    want = ms.mha_serving_plain(q, k, v)
+    bf16_close(got, want, "K15")
+    contract_close(got, want, "K15")
+    qf = qkv.float()
+    fp32_close(ms.mha_serving_fused(qf, heads=H),
+               ms.attn_core_pairs(qf, heads=H), "K1 fp32")
+
+
+@pytest.mark.parametrize("B,N,H,hd", [
+    (1, 1025, 2, 384),                    # the seg crop in 2 heads of 384
+    (2, 1025, 2, 384),
+    (1, 1025, 2, 768),                    # the widest, four column groups
+    (3, 19, 2, 448),                      # fewer keys than a tile
+    (2, 33, 2, 576),                      # one key past a 32-key tile
+    (2, 65, 4, 320)])                     # one query row past a tile
+def test_windowed_past_head_dim_256(B, N, H, hd):
+    """K9 past head dim 256 (bf16 on the wgmma core with its bias blocks,
+    fp32 on the fp32 core) with the layer's padded bf16 bias against its
+    plain version: bf16 within two ulps and ``ulp_share``, fp32 within 1e-5
+    of the largest output."""
+    for dtype in (BF, F32):
+        qkv = core_qkv(B, N, H, hd, seed=41).to(dtype)
+        qkv[..., H * hd:2 * H * hd] += 1.0
+        ld = ms.bias_row_stride(N)
+        g = torch.Generator(device="cuda").manual_seed(6)
+        bias = (torch.randn((H, N, ld), generator=g, device="cuda").to(BF)
+                [:, :, :N])
+        form = "fp32+past_256" if dtype == F32 else "bf16+past_256"
+        before = _form_count(ms.mha_windowed_fused, form)
+        got = ms.mha_windowed_fused(qkv, bias, heads=H)
+        torch.cuda.synchronize()
+        assert _form_count(ms.mha_windowed_fused, form) == before + 1
+        want = ms.mha_windowed_plain(qkv, bias, heads=H)
+        assert got.dtype == dtype and got.shape == (B, N, H * hd)
+        if dtype == BF:
+            bf16_close(got, want, "K9")
+            contract_close(got, want, "K9")
+        else:
+            fp32_close(got, want, "K9 fp32")
+
+
+@pytest.mark.parametrize("hd", [320, 512, 640, 832])
 def test_sublayers_past_head_dim_256(hd):
     """K2, K3 and K7 (bf16 and fp32) and K5, K6, K8 (bf16 with and without
     int8 scores, fp32 adapters on the exact core) at 2 heads of ``hd``:
-    the chains' C entries take the SIMT core the wrappers route them to."""
+    the chains' C entries take the core the wrappers route them to (up to
+    ``ms.WIDE_MAX_HD`` the wgmma core past 256 and the fp32 core's, past it
+    the SIMT core), each counted under its form.  The int8 chains take C up
+    to 1024 (their LN kernel's rows), so 2 heads of 320 and 512 only."""
     B, N, H, F = 2, 37, 2, 32
     C = H * hd
+    form = ("bf16+past_256" if hd <= ms.WIDE_MAX_HD else "bf16+simt_core")
     x, sub, ad = make_inputs(B, N, C, F, seed=hd)
+    before = _form_count(ms.attention_sublayer_serving, form)
     got = ms.attention_sublayer_serving(x, *sub, heads=H)
     torch.cuda.synchronize()
+    assert _form_count(ms.attention_sublayer_serving, form) == before + 1
     bf16_close(got, ms.attention_sublayer_plain(x, *sub, heads=H), "K2")
+    before = _form_count(ms.dyt_prologue_serving, form)
     got = ms.dyt_prologue_serving(x, *sub, *ad, heads=H)
     torch.cuda.synchronize()
+    assert _form_count(ms.dyt_prologue_serving, form) == before + 1
     want = ms.dyt_prologue_plain(x, *sub, *ad, heads=H)
     bf16_close(got[0], want[0], "K3 x_mid")
     bf16_close(got[1], want[1], "K3 adapt")
     logits_close(got[2], want[2])
+    q8 = (False, True) if C <= 1024 else ()
     qs = q8_sub(sub)
-    for attn_q8 in (False, True):
+    for attn_q8 in q8:
         got = qt.dyt_prologue_serving_q8(x, *qs, *ad, heads=H,
                                          attn_q8=attn_q8)
         torch.cuda.synchronize()
@@ -1988,7 +2071,7 @@ def test_sublayers_past_head_dim_256(hd):
                                      tau=0.7)
     fp32_close(got[0], want[0], "K7 fp32 x_mid")
     qsf = q8_sub(subf)
-    for attn_q8 in (False, True):
+    for attn_q8 in q8:
         got = qt.dyt_prologue_serving_q8_moe(xf, *qsf, *moe, *adf[5:],
                                              heads=H, tau=1.0,
                                              attn_q8=attn_q8)

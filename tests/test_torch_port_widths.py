@@ -14,9 +14,9 @@ port's wgmma kernels are not built for, on the CPU.
   (padded to 16 and 32 by the port; 256 on the SIMT tail) in dense and
   dispatch mode; MoE at 2 experts of 4 (padded to 2 x 8 in bf16), fp32 and bf16;
   head dims 192 (C = 384 in 2 heads) and 256 (C = 512 in 2 heads), fp32
-  and bf16 dispatch, and int8_attn at fp32 compute; head dim 320 (C = 640
-  in 2 heads, past the wgmma cores' head dims), fp32 and bf16 dispatch,
-  and its K9 (with a bias), K10 and K15 against the JAX kernels;
+  and bf16 dispatch, and int8_attn at fp32 compute; head dims 320, 384
+  and 512 (C = 2 hd in 2 heads, past 256), fp32 and bf16 dispatch, and
+  their K9 (with a bias), K10 and K15 against the JAX kernels;
 * the route table (``ms.core_of``): which attention core each kernel's
   wrapper runs, by dtype, head dim and int8 scores, and the head dims and
   head counts it refuses; ``speed --num_heads``.
@@ -256,13 +256,19 @@ def test_head_dim_192_matches_jax(monkeypatch, dtype, hd):
     _check(jm, params, tm, x, MODES["dispatch"], dtype)
 
 
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_head_dim_320_matches_jax(monkeypatch, dtype):
-    """A DyT ViT (K3 in every Block forward) at head dim 320 (C = 640 in 2
-    heads), which JAX fuses and the card serves on the SIMT core; dispatch."""
-    jm, params, tm, x = _pair(monkeypatch, dtype=dtype, ffn=64, dim=640,
+@pytest.mark.parametrize(
+    "dtype,hd", [("float32", 320), ("bfloat16", 320), ("float32", 384),
+                 ("bfloat16", 384), ("float32", 512), ("bfloat16", 512)],
+    ids=["float32", "bfloat16", "float32-hd384", "bfloat16-hd384",
+         "float32-hd512", "bfloat16-hd512"])
+def test_head_dim_320_matches_jax(monkeypatch, dtype, hd):
+    """A DyT ViT (K3 in every Block forward) at head dims 320, 384 and 512
+    (C = 2 hd in 2 heads), which JAX fuses and the card serves on the
+    wgmma core past 256 (bf16) and the fp32 core's; dispatch."""
+    jm, params, tm, x = _pair(monkeypatch, dtype=dtype, ffn=64, dim=2 * hd,
                               heads=2)
-    assert ms.core_of("K3", TDT[dtype], 320, heads=2) == "simt"
+    assert ms.core_of("K3", TDT[dtype], hd, heads=2) == (
+        "f32" if dtype == "float32" else "wgmma")
     _check(jm, params, tm, x, MODES["dispatch"], dtype)
 
 
@@ -275,16 +281,25 @@ def _close_rel(got, want, dtype):
                                atol=rel * np.abs(want).max())
 
 
-@pytest.mark.parametrize("kernel,dtype", [
-    ("K9", "float32"), ("K9", "bfloat16"), ("K10", "float32"),
-    ("K10", "bfloat16"), ("K15", "bfloat16")])
-def test_head_dim_320_kernels_match_jax(kernel, dtype):
-    """K9 (with a bias), K10 and K15 at 2 heads of 320 against the JAX
-    kernels in interpret mode (K15 takes bf16 only)."""
+_KERNELS_320 = [("K9", "float32"), ("K9", "bfloat16"), ("K10", "float32"),
+                ("K10", "bfloat16"), ("K15", "bfloat16")]
+
+
+@pytest.mark.parametrize(
+    "kernel,dtype,hd",
+    [(k, d, 320) for k, d in _KERNELS_320]
+    + [(k, d, hd) for hd in (384, 512) for k, d in _KERNELS_320],
+    ids=[f"{k}-{d}" for k, d in _KERNELS_320]
+    + [f"{k}-{d}-hd{hd}" for hd in (384, 512) for k, d in _KERNELS_320])
+def test_head_dim_320_kernels_match_jax(kernel, dtype, hd):
+    """K9 (with a bias), K10 and K15 at 2 heads of 320, 384 and 512 against
+    the JAX kernels in interpret mode (K15 takes bf16 only), each routed to
+    its core past 256: K9 and K15 to the wgmma core's and the fp32 core's,
+    K10 to the SIMT core's int8-score form."""
     from dynamic_tuning_tpu.ops import mha_serving as jms
     from dynamic_tuning_tpu.ops import quant as jq
     from dynamic_tuning_tpu_torch.ops import quant as tq
-    H, hd, N, B = 2, 320, 13, 2
+    H, N, B = 2, 13, 2
     C = H * hd
     rs = np.random.RandomState(32)
     qkv = rs.randn(B, N, 3 * C).astype(np.float32)
@@ -297,7 +312,8 @@ def test_head_dim_320_kernels_match_jax(kernel, dtype):
                                       heads=H, interpret=True)
         got = ms.mha_windowed_fused(torch.from_numpy(qkv).to(tdt),
                                     torch.from_numpy(bias), heads=H)
-        assert ms.core_of("K9", tdt, hd, heads=H) == "simt"
+        assert ms.core_of("K9", tdt, hd, heads=H) == (
+            "f32" if dtype == "float32" else "windowed")
     elif kernel == "K10":
         outs = []
         for smp in qkv:
@@ -316,7 +332,7 @@ def test_head_dim_320_kernels_match_jax(kernel, dtype):
                                  for a in (q, k, v)), interpret=True)
         got = ms.mha_serving(*(torch.from_numpy(np.ascontiguousarray(a))
                                .to(BF) for a in (q, k, v)))
-        assert ms.core_of("K15", BF, hd, heads=H) == "simt"
+        assert ms.core_of("K15", BF, hd, heads=H) == "wgmma"
     _close_rel(got, np.asarray(jnp.asarray(want, jnp.float32)), dtype)
 
 
@@ -330,7 +346,8 @@ def test_head_dim_192_int8_attn_fp32_matches_jax(monkeypatch):
 
 F32 = torch.float32
 # kernel -> {(dtype, head dim, int8 scores, K10's layout fits): core}
-WIDE = (320, 384, 512)                 # past the wgmma cores' head dims
+WIDE = (320, 384, 512, 640, 768)       # past 256, up to ms.WIDE_MAX_HD
+PAST = (832, 1024)                     # past ms.WIDE_MAX_HD
 ROUTES = {
     "K1": {(BF, 64, 0, 1): "wgmma", (BF, 128, 0, 1): "wgmma",
            (BF, 192, 0, 1): "wgmma", (BF, 256, 0, 1): "wgmma",
@@ -359,13 +376,22 @@ ROUTES = {
             (BF, 256, 0, 1): "q8", (BF, 192, 0, 0): "simt_q8",
             (F32, 64, 0, 1): "simt_q8"},
 }
-# past head dim 256 every core is the SIMT core's, in each of its forms
-for _hd in WIDE:
-    for _k in ("K1", "K2", "K3", "K7", "K9"):
-        ROUTES[_k].update({(BF, _hd, 0, 1): "simt", (F32, _hd, 0, 1): "simt"})
-    ROUTES["K15"][(BF, _hd, 0, 1)] = "simt"
+# past head dim 256, up to WIDE_MAX_HD: bf16 K1, K15, K9 and the cores
+# without int8 scores on the wgmma core past 256, fp32 K1, K9 and the cores
+# of K2, K3, K7 on the fp32 core's; past WIDE_MAX_HD (the ceiling: the q
+# tile and two stages of K no longer fit a block) the SIMT core's slices;
+# past 256 K10 and the int8-score cores on the SIMT int8-score form, fp32
+# K6 and K8 on the exact core
+for _hd in WIDE + PAST:
+    _past = _hd in PAST
+    for _k in ("K1", "K2", "K3", "K7"):
+        ROUTES[_k].update({(BF, _hd, 0, 1): "simt" if _past else "wgmma",
+                           (F32, _hd, 0, 1): "simt" if _past else "f32"})
+    ROUTES["K9"].update({(BF, _hd, 0, 1): "simt" if _past else "windowed",
+                         (F32, _hd, 0, 1): "simt" if _past else "f32"})
+    ROUTES["K15"][(BF, _hd, 0, 1)] = "simt" if _past else "wgmma"
     for _k in ("K5", "K6", "K8"):
-        ROUTES[_k].update({(BF, _hd, 0, 1): "simt",
+        ROUTES[_k].update({(BF, _hd, 0, 1): "simt" if _past else "wgmma",
                            (BF, _hd, 1, 1): "simt_q8"})
     for _k in ("K6", "K8"):
         ROUTES[_k].update({(F32, _hd, 0, 1): "f32_exact",
@@ -377,28 +403,35 @@ for _hd in WIDE:
 @pytest.mark.parametrize("kernel", sorted(ROUTES))
 def test_core_routes(kernel):
     """The attention core each wrapper runs (``ms.core_of``, the one table
-    the wrappers route by): up to head dim 256, bf16 K1, K15 and the cores
-    of K2, K3, K7 and of K5, K6, K8 without int8 scores on the wgmma core,
-    K9 and K10 on their wgmma kernels (K10 on the SIMT core's int8-score
-    form where its layout does not fit), fp32 K1, K2, K3, K7, K9 on the
-    fp32 core; fp32 K6, K8 on the exact core; past 256 every core on the
-    SIMT core; K5 and K15 in fp32 on none (K5's scratch is bf16); and the
-    forms the counts are kept under.  Head dims JAX does not fuse, and odd
-    head counts (but for K15, which pairs no heads), raise here alone."""
+    the wrappers route by): up to head dim 768 (``ms.WIDE_MAX_HD``), bf16
+    K1, K15 and the cores of K2, K3, K7 and of K5, K6, K8 without int8
+    scores on the wgmma core, K9 on its wgmma kernels, fp32 K1, K2, K3, K7,
+    K9 on the fp32 core; K10 on its wgmma kernel up to 256 (on the SIMT
+    core's int8-score form where its layout does not fit, and past 256);
+    fp32 K6, K8 on the exact core; past 768 every core on the SIMT core; K5
+    and K15 in fp32 on none (K5's scratch is bf16); and the forms the
+    counts are kept under (past 256 "+past_256" on the wgmma and fp32
+    cores, "+simt_core" on the SIMT core's).  Head dims JAX does not fuse,
+    and odd head counts (but for K15, which pairs no heads), raise here
+    alone."""
     for (dtype, hd, q8, fits), core in ROUTES[kernel].items():
         got = ms.core_of(kernel, dtype, hd, heads=2, attn_q8=bool(q8),
                          q8_fits=bool(fits))
         assert got == core, (kernel, dtype, hd, q8, fits, got)
-        want = ("fp32" if dtype == F32 else
+        want = ("fp32+past_256" if dtype == F32 and core == "f32"
+                and hd > 256 else
+                "fp32" if dtype == F32 else
                 "bf16" if hd in (64, 128) else
                 "bf16+simt_core" if core.startswith("simt") else
+                "bf16+past_256" if hd > 256 else
                 "bf16+wide_heads")
         assert ms.form_of(dtype, hd, core=core) == want
     for hd in (96, 160, 0, 32):
         with pytest.raises(ValueError, match="head_dim"):
             ms.core_of(kernel, BF, hd, heads=2)
     if kernel == "K15":
-        assert ms.core_of(kernel, BF, 320, heads=3) == "simt"
+        assert ms.core_of(kernel, BF, 320, heads=3) == "wgmma"
+        assert ms.core_of(kernel, BF, 832, heads=3) == "simt"
     else:
         for hd in (64, 320):
             with pytest.raises(ValueError, match="heads"):
@@ -419,3 +452,21 @@ def test_speed_builds_head_dim_192():
     assert {blk.num_heads for blk in model.blocks} == {4}
     assert {blk.attn.num_heads for blk in model.blocks} == {4}
     assert ms.core_of("K3", BF, model.cfg.embed_dim // 4, heads=4) == "wgmma"
+
+
+def test_speed_builds_head_dim_384():
+    """``speed --num_heads 2`` builds ViT-B/16 in 2 heads of 384 (the
+    forward PERF.md times past head dim 256), whose sublayers the wrappers
+    send to the wgmma core past 256 (bf16) and the fp32 core's."""
+    from dynamic_tuning_tpu_torch import speed
+    args = speed.get_args_parser().parse_args(["--num_heads", "2"])
+    model = speed.build_model(args, torch.device("cpu"))
+    assert len(model.blocks) == 12
+    assert {blk.num_heads for blk in model.blocks} == {2}
+    assert {blk.attn.num_heads for blk in model.blocks} == {2}
+    hd = model.cfg.embed_dim // 2
+    assert hd == 384
+    assert ms.core_of("K3", BF, hd, heads=2) == "wgmma"
+    assert ms.core_of("K3", F32, hd, heads=2) == "f32"
+    assert ms.form_of(BF, hd, core="wgmma") == "bf16+past_256"
+    assert ms.form_of(F32, hd, core="f32") == "fp32+past_256"
