@@ -241,8 +241,11 @@ Phases; any failure exits non-zero:
      64; K9 at B=1, N=1025), within 1e-5 of the plain version's largest
      |output|, router logits too (K6/K8 with fp32 adapters also print the
      share within 1e-5: their core's output is requantized, so it must
-     land on the plain version's bits), with its bound, K1/K9 beside SDPA
-     in fp32 (on the register-tiled fp32 core) and the fp32 GEMM alone
+     land on the plain version's bits), with its bound (float64 products
+     at the FP64 tensor peak); the exact core (DMMA) alone at head dims
+     64, 128, 192 and 256 and the float64 tail (DMMA) alone, adapter and
+     MoE 4 x 64, each bit for bit and timed beside its bound; K1/K9 beside
+     SDPA in fp32 (on the register-tiled fp32 core) and the fp32 GEMM alone
      beside torch.matmul with TF32 off; the bf16 forms at F = 8 (padded)
      and 256 (the SIMT tail), MoE 2 x 4 (padded) and 4 x 192 (the SIMT
      tail), head dims 192 (C=768) and 256 (C=1024) in 4 heads and 384
@@ -257,9 +260,9 @@ Phases; any failure exits non-zero:
      with its mask, K3; every core form at 2 heads of 320 and of 832 (past
      the cores' 768: the SIMT core's slices) checked (bf16 and fp32 K1,
      K9, K10, K2, K3, K7, at 320 K5, K6, K8 with and without int8 scores,
-     K15, the exact core bit for bit); then the main path of each form, the
-     counts set to 0 just before each run and no launch in a form the run
-     does not list: speed.main in fp32 (dispatch, int8 and int8_attn at
+     K15, the exact route's slices kernel bit for bit); then the main path
+     of each form, the counts set to 0 just before each run and no launch
+     in a form the run does not list: speed.main in fp32 (dispatch, int8 and int8_attn at
      batch 128 against the plain-version forward, logits within 1e-3 of
      the largest, gates agreeing on 0.9995 with each differing gate's
      distances printed; dense; plain and MoE at batch 32 held the same
@@ -3625,11 +3628,13 @@ FORMS = {
     "dyt_prologue_serving_moe:fp32": ("ms", dict(
         route="cuda", source=f"{SRC}/simt_chain.cu",
         replaces=f"{JAX_OPS}/mha_serving.py:763")),
+    # the int8 chains of quant.cu with fp32 adapters: the exact core and the
+    # float64 tail on the FP64 tensor cores (DMMA)
     "dyt_prologue_serving_q8:fp32": ("qt", dict(
-        route="cuda", source=f"{SRC}/quant.cu",
+        route="cuda", source=f"{SRC}/exact_core.cu",
         replaces=f"{JAX_OPS}/quant.py:531")),
     "dyt_prologue_serving_q8_moe:fp32": ("qt", dict(
-        route="cuda", source=f"{SRC}/quant.cu",
+        route="cuda", source=f"{SRC}/f64_tail.cu",
         replaces=f"{JAX_OPS}/quant.py:674")),
     "attn_core_pairs_q8:fp32": ("qt", dict(
         route="cuda", source=f"{SRC}/simt_core_q8.cu",
@@ -3790,11 +3795,13 @@ def forms_kernels(torch, ms, qt, _build) -> dict:
         "K2 fp32", lambda: ms.attention_sublayer_serving(x, *sub, heads=H),
         lambda: ms.attention_sublayer_plain(x, *sub, heads=H), ("x_mid",),
         (x, *sub), {"fp32": gemm + 2 * attn}, **fp32)
+    # the float64 products (the exact core, the fp32 tails) at the FP64
+    # tensor cores' peak, "fp64"
     out["dyt_prologue_serving:fp32"] = measure(
         "K3 fp32", lambda: ms.dyt_prologue_serving(x, *sub, *ad, heads=H),
         lambda: ms.dyt_prologue_plain(x, *sub, *ad, heads=H),
         ("x_mid", "adapt", "logits"), (x, *sub, *ad),
-        {"fp32": gemm + 2 * attn + adapter + 2 * M * C}, **fp32)
+        {"fp32": gemm + 2 * attn, "fp64": adapter + 2 * M * C}, **fp32)
     out["dyt_prologue_serving_moe:fp32"] = measure(
         "K7 fp32 (4 x 64)",
         lambda: ms.dyt_prologue_serving_moe(x, *sub, *moe, *ad[5:], heads=H,
@@ -3802,9 +3809,10 @@ def forms_kernels(torch, ms, qt, _build) -> dict:
         lambda: ms.dyt_prologue_moe_plain(x, *sub, *moe, *ad[5:], heads=H,
                                           tau=TAU),
         ("x_mid", "adapt", "logits"), (x, *sub, *moe, *ad[5:]),
-        {"fp32": gemm + 2 * attn + experts + 2 * M * C * (MOE + 1)}, **fp32)
+        {"fp32": gemm + 2 * attn, "fp64": experts + 2 * M * C * (MOE + 1)},
+        **fp32)
     # int8 forms with fp32 adapters: the core's fp32 output is quantized for
-    # proj, so it must land on the plain version's bits (the SIMT core sums
+    # proj, so it must land on the plain version's bits (the exact core sums
     # in float64 as the plain version does); the share of outputs within
     # 1e-5 printed beside
     for key, name, call, plain, ins, ops in (
@@ -3812,7 +3820,7 @@ def forms_kernels(torch, ms, qt, _build) -> dict:
              lambda: qt.dyt_prologue_serving_q8(x, *qsub, *ad, heads=H),
              lambda: qt.dyt_prologue_q8_plain(x, *qsub, *ad, heads=H),
              (x, *qsub, *ad),
-             {"int8": gemm, "fp32": 2 * attn + adapter + 2 * M * C}),
+             {"int8": gemm, "fp64": 2 * attn + adapter + 2 * M * C}),
             ("dyt_prologue_serving_q8_moe:fp32", "K8 fp32 (4 x 64)",
              lambda: qt.dyt_prologue_serving_q8_moe(
                  x, *qsub, *moe, *ad[5:], heads=H, tau=TAU),
@@ -3820,7 +3828,7 @@ def forms_kernels(torch, ms, qt, _build) -> dict:
                  x, *qsub, *moe, *ad[5:], heads=H, tau=TAU),
              (x, *qsub, *moe, *ad[5:]),
              {"int8": gemm,
-              "fp32": 2 * attn + experts + 2 * M * C * (MOE + 1)})):
+              "fp64": 2 * attn + experts + 2 * M * C * (MOE + 1)})):
         out[key] = measure(name, call, plain, ("x_mid", "adapt", "logits"),
                            ins, ops, **fp32)
         got, want = call(), plain()
@@ -3829,6 +3837,7 @@ def forms_kernels(torch, ms, qt, _build) -> dict:
               f"outputs within {F32_REL} of the largest; bit-identical: "
               f"x_mid {share_within(got[0], want[0], 0.0):.6f}, adapt "
               f"{share_within(got[1], want[1], 0.0):.6f}")
+    forms_exact(torch, ms, _build, x, ad, moe)
     g = torch.Generator(device="cuda").manual_seed(20)
     qkv = torch.randn((F32_B, N, 3 * C), generator=g, device="cuda")
     qkv[..., C:2 * C] += 1.0
@@ -4060,11 +4069,79 @@ def forms_kernels(torch, ms, qt, _build) -> dict:
         lambda: ms.dyt_prologue_serving(x, *sub, *ad, heads=heads),
         lambda: ms.dyt_prologue_plain(x, *sub, *ad, heads=heads),
         ("x_mid", "adapt", "logits"), (x, *sub, *ad),
-        {"fp32": gemm + 2 * attn + adapter + 2 * M * C}, **fp32)
+        {"fp32": gemm + 2 * attn, "fp64": adapter + 2 * M * C}, **fp32)
     del qkv_, q_, k_, v_, sq, b9, q9, k9, v9, mask
     torch.cuda.empty_cache()
     forms_past_256(torch, ms, qt, _build)
     return out
+
+
+def forms_exact(torch, ms, _build, x, ad, moe) -> None:
+    """The two parts of the exact fp32 route on the FP64 tensor cores,
+    each alone against its plain version bit for bit and timed beside its
+    bound: the exact core (K6's and K8's core with fp32 adapters) at head
+    dims 64, 128, 192 and 256 (B=32, N=197; C=768 in 12, 6 and 4 heads,
+    C=1024 in 4), and the float64 tail with fp32 weights (the adapter, F=64,
+    and the MoE tail, 4 x 64, both with the token router) on fp32 rows of
+    ViT-B/16 width (B=32, N=197); the MoE tail with 200 experts of 1 is
+    checked, not timed."""
+    lib = _build.library()
+    stream = torch.cuda.current_stream().cuda_stream
+    g = torch.Generator(device="cuda").manual_seed(23)
+    exact = dict(rel=0.0, logit_rel=0.0, plain_iters=5)
+    for width, heads in ((C, H), (C, 6), (C, HD192_HEADS), (1024, 4)):
+        hd = width // heads
+        qkv = torch.randn((F32_B, N, 3 * width), generator=g, device="cuda")
+        qkv[..., width:2 * width] += 1.0
+        out = torch.empty((F32_B, N, width), device="cuda")
+
+        def core(qkv=qkv, out=out, heads=heads, width=width, hd=hd):
+            _build.check(lib, lib.dyt_exact_core(
+                qkv.data_ptr(), out.data_ptr(), F32_B, N, width, heads,
+                hd ** -0.5, stream), "exact core")
+            return out
+        measure(f"exact core head_dim {hd} (DMMA; bit for bit)", core,
+                lambda qkv=qkv, heads=heads: ms.attn_core_pairs(
+                    qkv, heads=heads),
+                ("core",), (qkv,),
+                {"fp64": 4 * F32_B * heads * N * N * hd}, **exact)
+        del qkv, out
+    M = F32_B * N
+    xm = x.reshape(F32_B, N, C)
+    f32 = torch.float32
+    measure("fp32 adapter tail (F=64, router; DMMA; bit for bit)",
+            lambda: ms.launch_adapter_router(lib, xm, xm, *ad, True)[1:],
+            lambda: ms.adapter_router_plain(xm, f32, *ad,
+                                            with_select=True)[1:],
+            ("adapt", "logits"), (xm, *ad),
+            {"fp64": 4 * M * C * FFN + 2 * M * C}, **exact)
+    measure(f"fp32 MoE tail ({MOE} x {FFN}, router; DMMA; bit for bit)",
+            lambda: ms.launch_moe_adapter_router(lib, xm, xm, *moe, *ad[5:],
+                                                 TAU, True)[1:],
+            lambda: ms.moe_adapter_router_plain(
+                xm, f32, *moe, *ad[5:], experts=MOE, bneck=FFN, tau=TAU,
+                with_select=True)[1:],
+            ("adapt", "logits"), (xm, *moe, *ad[5:]),
+            {"fp64": 4 * M * C * MOE * FFN + 2 * M * C * (MOE + 1)},
+            **exact)
+    # more router columns than one round of the kernel's (192): the router
+    # rounds come first, the softmax after the last of them
+    E2, b2 = 200, 1
+
+    def w(*shape, sc):
+        return torch.randn(shape, generator=g, device="cuda") * sc
+    many = (w(E2, C, sc=2.0 / C ** 0.5),
+            *ms.moe_kernel_weights(w(E2, C, b2, sc=0.03), w(E2, b2, sc=0.02),
+                                   w(E2, b2, C, sc=0.02), f32),
+            w(E2, C, sc=0.01), moe[-1])
+    measure(f"fp32 MoE tail ({E2} x {b2}, router; DMMA; bit for bit)",
+            lambda: ms.launch_moe_adapter_router(lib, xm, xm, *many, *ad[5:],
+                                                 TAU, True)[1:],
+            lambda: ms.moe_adapter_router_plain(
+                xm, f32, *many, *ad[5:], experts=E2, bneck=b2, tau=TAU,
+                with_select=True)[1:],
+            ("adapt", "logits"), (xm, *many, *ad[5:]), {}, check_only=True,
+            **exact)
 
 
 def forms_past_256(torch, ms, qt, _build) -> None:
@@ -4074,7 +4151,7 @@ def forms_past_256(torch, ms, qt, _build) -> None:
     slices) against its plain version, checked and not timed: bf16 and
     fp32 K1, K9 (bias), K10 and the sublayer chains K2, K3, K7, K5, K6, K8
     (with and without int8 scores; at 320 only: the int8 chains take C up
-    to 1024), K15, and the exact core bit for bit."""
+    to 1024), K15, and the exact route's slices kernel bit for bit."""
     f32, bf = torch.float32, torch.bfloat16
     g = torch.Generator(device="cuda").manual_seed(32)
     lib = _build.library()
@@ -4108,12 +4185,12 @@ def forms_past_256(torch, ms, qt, _build) -> None:
             _build.check(lib, lib.dyt_simt_core_exact(
                 qkv.data_ptr(), out.data_ptr(), Bq, Nq, C_, heads,
                 hd ** -0.5, torch.cuda.current_stream().cuda_stream),
-                "exact core")
+                "exact SIMT core")
             same = torch.equal(out, ms.attn_core_pairs(qkv, heads=heads))
-            print(f"exact core {tag}: bit-identical to the plain version: "
-                  f"{same}")
+            print(f"exact SIMT core {tag}: bit-identical to the plain "
+                  f"version: {same}")
             if not same:
-                fail(f"exact core {tag} differs from its plain version")
+                fail(f"exact SIMT core {tag} differs from its plain version")
         x_, s_, qs_, ad_, moe_ = forms_inputs(torch, ms, qt, dtype=dt,
                                               batch=Bq, C_=C_)
         for name, call, plain, outs in (

@@ -3,8 +3,9 @@
 // both operands K-contiguous (W in torch's [out, in] layout), read as fp32
 // or bf16 and multiplied in fp32 with fp32 sums.  It is the qkv and proj
 // product of the fp32 sublayer chain (K2, K3 and K7 with fp32 weights,
-// simt_chain.cu) and both products of the SIMT adapter and MoE tails (fp32
-// weights, and bf16 weights at widths the wgmma tails do not take).
+// simt_chain.cu) and both products of the SIMT adapter and MoE tails (bf16
+// weights at widths the wgmma tails do not take).  The tails with fp32
+// weights, which sum in float64, are f64_tail.cu's DMMA kernel.
 //
 // Not TF32: the tensor cores' fp32 input keeps a 10-bit mantissa (about
 // three decimal digits), and the fp32 forms are held to the JAX package's
@@ -85,23 +86,10 @@ __device__ __forceinline__ void gf_stash(float* tile, const float (&v)[8]) {
   for (int i = 0; i < 8; ++i) tile[(kk + i) * GF_LD + r] = v[i];
 }
 
-__device__ __forceinline__ float gf_fma(float a, float b, float c) {
-  return fmaf(a, b, c);
-}
-__device__ __forceinline__ double gf_fma(float a, float b, double c) {
-  return fma(static_cast<double>(a), static_cast<double>(b), c);
-}
-__device__ __forceinline__ float gf_f32(float v) { return v; }
-__device__ __forceinline__ float gf_f32(double v) {
-  return __double2float_rn(v);
-}
-
 // A [M, K] of TA (rounded to bf16 first when ROUND_A: the adapter's bf16(x)
 // of an fp32 x_mid), W [N, K] of TW; each output (m, n) goes to
-// ``epi(m, n, acc)``, its sum in Acc (fp32, or float64 where the plain
-// version sums in float64: the fp32 tails, whose outputs an int8
-// requantization downstream amplifies) rounded once to fp32.
-template <typename TA, typename TW, bool ROUND_A, class Epi, typename Acc>
+// ``epi(m, n, acc)``, its fp32 sum.
+template <typename TA, typename TW, bool ROUND_A, class Epi>
 __global__ void __launch_bounds__(GF_THREADS)
 gemm_f32_kernel(const TA* __restrict__ A, const TW* __restrict__ W, int M,
                 int N, int K, bool vec_a, bool vec_w, const Epi epi) {
@@ -111,7 +99,7 @@ gemm_f32_kernel(const TA* __restrict__ A, const TW* __restrict__ W, int M,
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
   const int nk = (K + GF_BK - 1) / GF_BK;
 
-  Acc acc[8][8];
+  float acc[8][8];
 #pragma unroll
   for (int i = 0; i < 8; ++i)
 #pragma unroll
@@ -148,7 +136,7 @@ gemm_f32_kernel(const TA* __restrict__ A, const TW* __restrict__ W, int M,
 #pragma unroll
       for (int i = 0; i < 8; ++i)
 #pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = gf_fma(a[i], w[j], acc[i][j]);
+        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i], w[j], acc[i][j]);
     }
     if (more) {
       gf_stash(As[cur ^ 1], va);
@@ -164,7 +152,7 @@ gemm_f32_kernel(const TA* __restrict__ A, const TW* __restrict__ W, int M,
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
       const int n = n0 + (j < 4 ? 4 * tx + j : 64 + 4 * tx + j - 4);
-      if (n < N) epi(m, n, gf_f32(acc[i][j]));
+      if (n < N) epi(m, n, acc[i][j]);
     }
   }
 }
@@ -252,15 +240,14 @@ inline bool gf_vec(const T* p, int K) {
   return reinterpret_cast<uintptr_t>(p) % 16 == 0 && K % 8 == 0;
 }
 
-template <typename TA, typename TW, bool ROUND_A, typename Acc = float,
-          class Epi>
+template <typename TA, typename TW, bool ROUND_A, class Epi>
 cudaError_t launch_gemm_f32(const TA* A, const TW* W, int M, int N, int K,
                             const Epi& epi, cudaStream_t s) {
   if (M < 0 || N <= 0 || K <= 0) return cudaErrorInvalidValue;
   if (M == 0) return cudaSuccess;
   const dim3 grid((N + GF_BN - 1) / GF_BN, (M + GF_BM - 1) / GF_BM);
   if (grid.y > 65535) return cudaErrorInvalidValue;
-  gemm_f32_kernel<TA, TW, ROUND_A, Epi, Acc><<<grid, GF_THREADS, 0, s>>>(
+  gemm_f32_kernel<TA, TW, ROUND_A, Epi><<<grid, GF_THREADS, 0, s>>>(
       A, W, M, N, K, gf_vec(A, K), gf_vec(W, K), epi);
   return cudaGetLastError();
 }

@@ -64,6 +64,8 @@
 
 extern "C" int dyt_attn_core(const void* qkv, void* out, int B, int N, int C,
                              int H, float scale, void* stream);
+extern "C" int dyt_exact_core(const float* qkv, float* out, int B, int N,
+                              int C, int H, float scale, void* stream);
 extern "C" int dyt_simt_core_exact(const float* qkv, float* out, int B,
                                    int N, int C, int H, float scale,
                                    void* stream);
@@ -752,13 +754,16 @@ static cudaError_t attn_core_q8(const bf16* qkv, bf16* out, int B, int N,
 
 // The chain with its qkv and core-output scratch in TS: bf16 (K5, and K6 /
 // K8 with bf16 adapters) or fp32 (K6 / K8 with fp32 adapters, JAX's
-// ``adtype``: the int8 GEMM's epilogue stores the fp32 qkv, the SIMT core
+// ``adtype``: the int8 GEMM's epilogue stores the fp32 qkv, the exact core
 // runs on it with its sums in float64, as the plain version's, so its fp32
 // output is row-quantized for proj into the plain version's codes).
-// ``simt_core`` selects the SIMT core's int8-score form over K10's wgmma
-// form (attn_q8), and must be set with an fp32 scratch, which takes the SIMT
-// core's exact form (or its int8-score form) only; the caller decides.  A
-// bf16 scratch without int8 scores runs attention_sublayer.cu's wgmma core.
+// ``simt_core`` selects the SIMT core's form over the tensor-core one: with
+// int8 scores (attn_q8) the SIMT int8-score form over K10's wgmma form (an
+// fp32 scratch takes the SIMT form only); on an fp32 scratch without them
+// the exact SIMT slices kernel (simt_core.cu, past head dim 256) over the
+// DMMA exact core (exact_core.cu, head dims 64 to 256); on a bf16 scratch
+// without them the SIMT core over attention_sublayer.cu's wgmma core.  The
+// caller decides.
 // ``core_scratch`` holds the int8-score SIMT core's codes (attn_q8 with
 // simt_core).
 template <typename TX, typename TS>
@@ -772,7 +777,7 @@ static cudaError_t sublayer_q8(const TX* x, const float* gamma,
                                int C, int H, float scale, int attn_q8,
                                int simt_core, cudaStream_t s) {
   constexpr bool F32 = std::is_same<TS, float>::value;
-  if (F32 && !simt_core) return cudaErrorInvalidValue;
+  if (F32 && attn_q8 && !simt_core) return cudaErrorInvalidValue;
   const int M = B * N;
   if (C % 8 || C > 32 * 8 * MAX_CHUNKS) return cudaErrorInvalidValue;
   ln_quant_kernel<TX><<<(M + 7) / 8, 256, 0, s>>>(x, gamma, beta, a8, rs, M,
@@ -784,10 +789,12 @@ static cudaError_t sublayer_q8(const TX* x, const float* gamma,
   if (err != cudaSuccess) return err;
   if constexpr (F32) {
     err = static_cast<cudaError_t>(
-        attn_q8 ? dyt_simt_core_q8(qkv_buf, attn_buf, core_scratch, B, N, C,
-                                   H, scale, 1, s)
-                : dyt_simt_core_exact(qkv_buf, attn_buf, B, N, C, H, scale,
-                                      s));
+        attn_q8     ? dyt_simt_core_q8(qkv_buf, attn_buf, core_scratch, B, N,
+                                       C, H, scale, 1, s)
+        : simt_core ? dyt_simt_core_exact(qkv_buf, attn_buf, B, N, C, H,
+                                          scale, s)
+                    : dyt_exact_core(qkv_buf, attn_buf, B, N, C, H, scale,
+                                     s));
   } else if (attn_q8) {
     err = simt_core ? static_cast<cudaError_t>(dyt_simt_core_q8(
                           qkv_buf, attn_buf, core_scratch, B, N, C, H, scale,

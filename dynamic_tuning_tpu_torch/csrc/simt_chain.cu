@@ -7,31 +7,26 @@
 //     and K7 with fp32 weights (dynamic_tuning_tpu/ops/mha_serving.py::
 //     attention_sublayer_serving, dyt_prologue_serving,
 //     dyt_prologue_serving_moe, whose products run in the weights' dtype);
-//   * the adapter/router tail, (relu(x . Wd^T + bd) . Wu^T + bu) * s and
-//     x . wsel + bsel, and the MoE tail (dyt_prologue_serving_moe's
-//     moe_adapter_rows: gates = softmax((x . Wr) * (1 / tau)), the gated
-//     bottleneck, the gated up bias): a router kernel (one warp a row: the
-//     router dots in float64, the expert softmax, the token-router logit)
-//     and two fp32 GEMMs with the mixture in their epilogues.  With fp32
-//     weights every rounding is fp32's and the products are summed in
-//     float64, as the plain version sums them (the tails of K3, K6, K7
-//     and K8 in fp32: K6's and K8's outputs feed the next block's int8
-//     quantization); with bf16 weights the down product reads bf16(x) and stores the
-//     bottleneck in bf16 (MoE: bf16(h * gate)), as the wgmma tails do, at
-//     any F and any E * b (past 128 and past 512, where those stop).
+//   * the adapter/router tail with bf16 weights, (relu(bf16(x) . Wd^T +
+//     bd) . Wu^T + bu) * s and x . wsel + bsel, and the MoE tail
+//     (dyt_prologue_serving_moe's moe_adapter_rows: gates = softmax((x .
+//     Wr) * (1 / tau)), the gated bottleneck, the gated up bias) at any F
+//     and any E * b (past 128 and past 512, where the wgmma tails stop): a
+//     router kernel (one warp a row: the router dots in float64, the expert
+//     softmax, the token-router logit) and two fp32 GEMMs with the mixture
+//     in their epilogues; the bottleneck is stored in bf16 (MoE: bf16(h *
+//     gate)), as the wgmma tails store it.  With fp32 weights the tail
+//     sums in float64 on the FP64 tensor cores (f64_tail.cu).
 //
 // What bounds it on an H100.  The fp32 sublayer of ViT-B/16 at batch 128 is
 // 119 GFLOP of qkv and proj products (1.8 ms at the 67 TFLOP/s FFMA peak)
-// and 15 GFLOP in the core; the fp32 adapter tail is 10 GFLOP (0.15 ms)
-// against 0.12 GB of bytes (0.04 ms): all bound by FFMA operations.
+// and 15 GFLOP in the core: bound by FFMA operations.
 //
 // What the design does about it: the simple form -- each step a kernel of
 // its own on the caller's stream, the intermediates (LN rows, qkv, core
 // output, bottleneck) through device memory; the GEMMs are gemm_f32.cuh's
 // register-blocked SGEMM.  Fusing and the tensor cores (3xTF32) are later
 // work.
-#include <type_traits>
-
 #include "gemm_f32.cuh"
 
 extern "C" int dyt_f32_core_qkv(const float* qkv, float* out, int B, int N,
@@ -151,24 +146,20 @@ tail_router_kernel(const float* __restrict__ xm, int M, int C,
   }
 }
 
-// The tail on the fp32 x_mid xm [M, C]: with E == 0 the adapter (wd [F, C],
-// bd [F], wu [C, F], bu [C]), else the MoE tail (F = E * b columns; wr
-// [E, C], wd [W, C], bd [W], wu [C, W], bu [E, C]); TW the weights' type,
-// TH the bottleneck's (TW), TO adapt's.  h [M, F] of TH and gates [M, E]
-// fp32 are scratch.
-template <typename TW, typename TO>
+// The bf16-weight tail on the fp32 x_mid xm [M, C]: with E == 0 the
+// adapter (wd [F, C], bd [F], wu [C, F], bu [C]), else the MoE tail (F = E
+// * b columns; wr [E, C], wd [W, C], bd [W], wu [C, W], bu [E, C]); TO
+// adapt's type.  h [M, F] bf16 and gates [M, E] fp32 are scratch.
+template <typename TO>
 static cudaError_t tail(const float* xm, int M, int C, const float* wr,
-                        const TW* wd, const float* bd, const TW* wu,
+                        const bf16* wd, const float* bd, const bf16* wu,
                         const float* bu, const float* ascale,
                         const float* wsel, const float* bsel, TO* adapt,
                         float* logits, int F, int E, int b, float inv_tau,
-                        TW* h, float* gates, cudaStream_t s) {
+                        bf16* h, float* gates, cudaStream_t s) {
   if (M < 0 || C <= 0 || F <= 0 || (E > 0 && (b <= 0 || F != E * b)))
     return cudaErrorInvalidValue;
   if (M == 0) return cudaSuccess;
-  constexpr bool BF = !std::is_same<TW, float>::value;
-  // fp32 weights: both products summed in float64, as the plain version
-  using Acc = typename std::conditional<BF, float, double>::type;
   if (E > 0 || wsel != nullptr) {
     tail_router_kernel<<<(M + 7) / 8, 256, 0, s>>>(
         xm, M, C, wr, E, inv_tau, gates, wsel, bsel, logits);
@@ -176,33 +167,13 @@ static cudaError_t tail(const float* xm, int M, int C, const float* wr,
     if (err != cudaSuccess) return err;
   }
   const float* g = E > 0 ? gates : nullptr;
-  cudaError_t err = launch_gemm_f32<float, TW, BF, Acc>(
-      xm, wd, M, F, C, GfReluGate<TW>{bd, g, h, F, E > 0 ? E : 1,
-                                      E > 0 ? b : 1},
+  cudaError_t err = launch_gemm_f32<float, bf16, true>(
+      xm, wd, M, F, C, GfReluGate<bf16>{bd, g, h, F, E > 0 ? E : 1,
+                                        E > 0 ? b : 1},
       s);
   if (err != cudaSuccess) return err;
-  return launch_gemm_f32<TW, TW, false, Acc>(
+  return launch_gemm_f32<bf16, bf16, false>(
       h, wu, M, C, F, GfUp<TO>{bu, g, ascale, adapt, C, E}, s);
-}
-
-template <typename TW>
-static cudaError_t tail_out(const float* xm, int M, int C, const float* wr,
-                            const void* wd, const float* bd, const void* wu,
-                            const float* bu, const float* ascale,
-                            const float* wsel, const float* bsel, void* adapt,
-                            int adapt_f32, float* logits, int F, int E, int b,
-                            float inv_tau, void* h, float* gates,
-                            cudaStream_t s) {
-  auto* d = static_cast<const TW*>(wd);
-  auto* u = static_cast<const TW*>(wu);
-  auto* hh = static_cast<TW*>(h);
-  if (adapt_f32)
-    return tail<TW, float>(xm, M, C, wr, d, bd, u, bu, ascale, wsel, bsel,
-                           static_cast<float*>(adapt), logits, F, E, b,
-                           inv_tau, hh, gates, s);
-  return tail<TW, bf16>(xm, M, C, wr, d, bd, u, bu, ascale, wsel, bsel,
-                        static_cast<bf16*>(adapt), logits, F, E, b, inv_tau,
-                        hh, gates, s);
 }
 
 }  // namespace dyt
@@ -243,27 +214,29 @@ int dyt_gemm_f32(const float* a, const float* w, int M, int N, int K,
       a, w, M, N, K, dyt::GfStore{out, N}, static_cast<cudaStream_t>(stream));
 }
 
-// The SIMT adapter/router tail (E == 0) or MoE tail (E >= 1, F = E * b) on
-// the fp32 x_mid xm [M, C]: weights fp32 (w_f32) or bf16 -- wd [F, C],
-// wu [C, F]; bd [F], bu [C] (adapter) or [E, C] (MoE), wr [E, C] (MoE),
-// ascale [1] fp32; wsel [C] and bsel [1] fp32, or wsel == NULL to skip the
-// token router; adapt [M, C] fp32 (adapt_f32) or bf16; logits [M] fp32;
-// scratch h [M, F] in the weights' type and gates [M, E] fp32 (MoE).
-// Returns a cudaError_t value.
+// The SIMT adapter/router tail (E == 0) or MoE tail (E >= 1, F = E * b)
+// with bf16 weights on the fp32 x_mid xm [M, C]: wd [F, C], wu [C, F] bf16;
+// bd [F], bu [C] (adapter) or [E, C] (MoE), wr [E, C] (MoE), ascale [1]
+// fp32; wsel [C] and bsel [1] fp32, or wsel == NULL to skip the token
+// router; adapt [M, C] fp32 (adapt_f32) or bf16; logits [M] fp32; scratch
+// h [M, F] bf16 and gates [M, E] fp32 (MoE).  Returns a cudaError_t value.
 int dyt_tail_simt(const float* xm, int M, int C, const float* wr,
                   const void* wd, const float* bd, const void* wu,
                   const float* bu, const float* ascale, const float* wsel,
                   const float* bsel, void* adapt, int adapt_f32,
-                  float* logits, int F, int E, int b, float inv_tau,
-                  int w_f32, void* h, float* gates, void* stream) {
+                  float* logits, int F, int E, int b, float inv_tau, void* h,
+                  float* gates, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (w_f32)
-    return dyt::tail_out<float>(xm, M, C, wr, wd, bd, wu, bu, ascale, wsel,
-                                bsel, adapt, adapt_f32, logits, F, E, b,
-                                inv_tau, h, gates, s);
-  return dyt::tail_out<dyt::bf16>(xm, M, C, wr, wd, bd, wu, bu, ascale, wsel,
-                                  bsel, adapt, adapt_f32, logits, F, E, b,
-                                  inv_tau, h, gates, s);
+  auto* d = static_cast<const dyt::bf16*>(wd);
+  auto* u = static_cast<const dyt::bf16*>(wu);
+  auto* hh = static_cast<dyt::bf16*>(h);
+  if (adapt_f32)
+    return dyt::tail<float>(xm, M, C, wr, d, bd, u, bu, ascale, wsel, bsel,
+                            static_cast<float*>(adapt), logits, F, E, b,
+                            inv_tau, hh, gates, s);
+  return dyt::tail<dyt::bf16>(xm, M, C, wr, d, bd, u, bu, ascale, wsel, bsel,
+                              static_cast<dyt::bf16*>(adapt), logits, F, E,
+                              b, inv_tau, hh, gates, s);
 }
 
 }  // extern "C"

@@ -1,6 +1,7 @@
 // The SIMT attention core's entries on fp32 or bf16 q, k, v: the exact fp32
-// route (float64 sums) on raw qkv, and the core on strided q, k, v (K1's or
-// K15's rounding, K9's bias); the design is simt_core.cuh's.  The
+// route (float64 sums) on raw qkv past head dim 256, and the core on
+// strided q, k, v (K1's or K15's rounding, K9's bias); the design is
+// simt_core.cuh's.  The
 // int8-score form is simt_core_q8.cu, its own translation unit so that the
 // two build in parallel.
 #include "simt_core.cuh"
@@ -8,8 +9,9 @@
 extern "C" {
 
 // The exact fp32 core on raw qkv [B, N, 3C] -> out [B, N, C], both fp32 and
-// contiguous, its sums in float64: the core of the int8 chains with fp32
-// adapters (quant.cu), whose output is requantized.  Returns a cudaError_t
+// contiguous, its sums in float64, on the slices kernel: the exact route
+// past head dim 256 (quant.cu's fp32 chain with simt_core set; the DMMA
+// exact core, exact_core.cu, takes 64 to 256).  Returns a cudaError_t
 // value.
 int dyt_simt_core_exact(const float* qkv, float* out, int B, int N, int C,
                         int H, float scale, void* stream) {

@@ -1,18 +1,16 @@
 // The serving attention core on the CUDA cores (SIMT), for what the other
 // cores do not take (its entries: simt_core.cu, and simt_core_q8.cu for the
 // int8-score form):
-//   * the exact fp32 route: the fp32 core inside the int8 chains of K6 and
-//     K8 with an fp32 qkv scratch (fp32 adapters), whose output is
-//     requantized, so its scores, l and o are summed in float64 (Acc) as
-//     the plain version sums them, and land on its bits;
 //   * the int8-score form of K10 (dynamic_tuning_tpu/ops/quant.py::
 //     attn_core_pairs_q8) on fp32 qkv, and on bf16 qkv past the N whose
 //     layout fits quant.cu's wgmma form: the k lane means, the k codes of
 //     each head pair's 2 hd lanes and the per-head q codes come from two
 //     small kernels (k_lane_mean_kernel, q8_codes_kernel), the exact int32
 //     Q K^T from dp4a;
-//   * past head dim 256 the int8-score form and the exact route, and past
-//     768 every core (below).
+//   * past head dim 256 the int8-score form and the exact fp32 route (the
+//     core of K6 and K8 with fp32 adapters, whose output is requantized, so
+//     its sums are float64 as the plain version's; up to 256 it is
+//     exact_core.cu's DMMA kernel), and past 768 every core (below).
 // Up to head dim 768 the fp32 cores of K1, K2, K3, K7 and K9 are
 // f32_core.cu's register-tiled kernels, and bf16 K1, K15, K9 and the cores
 // of K2, K3, K5-K8 without int8 scores attention_sublayer.cu's and
@@ -31,10 +29,11 @@
 // The serving softmax has no row max, so each key tile's e is final when
 // computed: the walk over keys carries only l and o, never rescales.
 //
-// What bounds it on an H100.  The exact route at ViT-B/16 (B = 32, N = 197,
-// 12 heads of 64) does 1.9 G multiply-adds in float64: 0.11 ms at the FP64
-// rate (half the FFMA rate); the bf16 forms at head dim 192 do 7.6 GFLOP
-// that the tensor cores would take in 0.008 ms, against 0.012 ms of bytes.
+// What bounds it on an H100.  K10's fp32 form at ViT-B/16 (B = 32, N = 197,
+// 12 heads of 64) sums its P V in float64: 0.95 G multiply-adds, 0.057 ms at
+// the FP64 rate (half the FFMA rate); the bf16 forms at head dim 192 do 7.6
+// GFLOP that the tensor cores would take in 0.008 ms, against 0.012 ms of
+// bytes.
 //
 // What the design does about it (a simple form: exactness first, and the
 // shapes it serves are off the main paths' hot loop).  A block of 256
@@ -53,9 +52,9 @@
 //     row is split over the sixteen threads of a half warp, so at hd 256 a
 //     thread holds 64 sums, not 256;
 //   * l is summed over the half warp at the end, o * (1 / l) stored in T.
-// Acc is float64 on the exact route and in the int8-score form on fp32 qkv
-// (the kernel then gives the plain version's bits, at the FP64 rate and
-// twice the registers), fp32 elsewhere.
+// Acc is float64 in the int8-score form on fp32 qkv and on the exact route
+// past 256 (the kernel then gives the plain version's bits, at the FP64
+// rate and twice the registers), fp32 elsewhere.
 //
 // Head dims past 256 (the JAX package fuses every hd with (2 hd) % 128 ==
 // 0: 320, 384, 512 and on) take simt_core_slices_kernel in the int8-score
@@ -446,17 +445,17 @@ static cudaError_t launch_ss(const ScArgs<T>& a, int B, int hd,
   return cudaGetLastError();
 }
 
-// The int8-score and float64 forms at head dims 64 .. 256 on their template
-// instances; past 256, and the fp32-sum cores without int8 scores (K1's and
-// K15's rounding, K9's bias: no route sends them here below 769), on the
-// slices kernel.
+// The int8-score forms at head dims 64 .. 256 on their template instances;
+// past 256, and every form without int8 scores (the exact route, which
+// the fp32 int8 chain runs here past 256 only; K1's and K15's rounding and
+// K9's bias, which no route sends here below 769), on the slices kernel.
 template <typename T, bool Q8, typename Acc = float>
 static cudaError_t simt_core(const ScArgs<T>& a, int B, int hd,
                              cudaStream_t s) {
   if (a.N <= 0 || B <= 0 || a.H <= 0 || B > 65535 || a.H > 65535 || hd <= 0 ||
       hd % SS_W)
     return cudaErrorInvalidValue;
-  if constexpr (!Q8 && std::is_same<Acc, float>::value) {
+  if constexpr (!Q8) {
     return launch_ss<T, Q8, Acc>(a, B, hd, s);
   } else {
     switch (hd) {

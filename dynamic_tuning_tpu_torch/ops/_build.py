@@ -61,13 +61,16 @@ _SIGNATURES = {
                        + [_I, _I, _I, _I, _F, _I, _P],
     "dyt_attention_sublayer_f32": [_P, _I] + [_P] * 11 + [_I] * 4 + [_F, _I,
                                                                      _P],
-    "dyt_tail_simt": [_P, _I, _I] + [_P] * 9 + [_I, _P, _I, _I, _I, _F, _I,
-                                                 _P, _P, _P],
+    "dyt_tail_simt": [_P, _I, _I] + [_P] * 9 + [_I, _P, _I, _I, _I, _F, _P,
+                                                 _P, _P],
+    "dyt_tail_f64": [_P, _I, _I] + [_P] * 9 + [_I, _P, _I, _I, _I, _F, _P,
+                                                _P, _P],
     "dyt_gemm_f32": [_P, _P, _I, _I, _I, _P, _P],
     "dyt_simt_core": [_P] * 5 + [_I, _I, _I, _I, _F, _P, _LL, _LL, _I, _I,
                                  _P],
     "dyt_f32_core": [_P] * 5 + [_I, _I, _I, _I, _F, _P, _LL, _LL, _P],
     "dyt_simt_core_q8": [_P, _P, _P, _I, _I, _I, _I, _F, _I, _P],
+    "dyt_exact_core": [_P, _P, _I, _I, _I, _I, _F, _P],
     "dyt_simt_core_exact": [_P, _P, _I, _I, _I, _I, _F, _P],
     "dyt_simt_core_q8_scratch_bytes": [_I, _I, _I, _I],
 }

@@ -29,7 +29,8 @@ or launch.  There is no other path.  Each launch adds one to the wrapper's
 ``launches`` count and one to ``forms[form]``, the form it took (``form_of``):
 "bf16" (the wgmma kernels), "fp32" (fp32 weights or qkv: the fp32 GEMM of
 ``csrc/gemm_f32.cuh``, the register-tiled fp32 core of
-``csrc/f32_core.cu``, the SIMT tails of ``csrc/simt_chain.cu``),
+``csrc/f32_core.cu``, the float64 DMMA tail of ``csrc/f64_tail.cu``; in
+K6 and K8 the exact core of ``csrc/exact_core.cu``),
 "bf16+wide_heads" (bf16 at head dims 192 and 256 on the wgmma kernels),
 "bf16+past_256" and "fp32+past_256" (past head dim 256, up to 768, on the
 wgmma core and the fp32 core that take hd at run time), "bf16+simt_core"
@@ -87,6 +88,9 @@ WIDE_MAX_HD = 768                # the wgmma and fp32 cores' largest head
 AR_WIDTHS = (16, 32, 48, 64, 96, 128)    # the wgmma adapter/router kernel's F
 #                                  (csrc's dyt_adapter_width_supported)
 MOE_MAX_W = 512                  # the wgmma MoE tail's largest E * b
+EXACT_MAX_HD = 256               # the DMMA exact core's largest head dim
+#                                  (exact_core.cu); past it the SIMT slices
+#                                  kernel's exact form
 
 
 # --- plain versions ----------------------------------------------------------
@@ -202,8 +206,8 @@ def adapter_router_plain(xm, out_dtype, wdown, bdown, wup, bup, adapter_scale,
 def adapter_kernel_width(F: int, dtype) -> int:
     """The width the kernels take a bf16 adapter of bottleneck ``F`` at: up
     to 128, the next width the wgmma adapter/router kernel is built for
-    (``AR_WIDTHS``); past it, and in fp32, ``F`` itself (the SIMT tail takes
-    any width)."""
+    (``AR_WIDTHS``); past it, and in fp32, ``F`` itself (the SIMT tail, and
+    with fp32 weights the float64 tail, take any width)."""
     if dtype == BF and F <= AR_WIDTHS[-1]:
         return next(w for w in AR_WIDTHS if w >= F)
     return F
@@ -225,8 +229,8 @@ def pad_adapter_weights(wdown, bdown, wup, width: int):
 def moe_kernel_bneck(E: int, b: int, dtype) -> int:
     """The expert width the kernels take E bf16 experts of width ``b`` at:
     the least b' >= b with E * b' a multiple of 16, where E * b' <= 512 (the
-    wgmma MoE tail's domain); else ``b`` (the SIMT tail takes any E * b, as
-    it takes every fp32 width)."""
+    wgmma MoE tail's domain); else ``b`` (the SIMT tail takes any E * b,
+    and fp32 experts take the float64 tail at any width)."""
     if dtype != BF or E < 2:
         return b
     bp = b
@@ -275,7 +279,7 @@ def moe_adapter_router_plain(xm, out_dtype, wrouter, wdown2d, bdown2d, wup2d,
     r = _mm64(xm, wrouter) * torch.tensor(1.0 / tau, dtype=torch.float32)
     eg = torch.exp(r - r.amax(dim=-1, keepdim=True))
     if wdown2d.dtype == F32:
-        # the sum over the experts in float64, rounded once, as the SIMT
+        # the sum over the experts in float64, rounded once, as the float64
         # tail sums it: with fp32 experts no bf16 rounding absorbs its order
         gates = eg / eg.double().sum(dim=-1, keepdim=True).float()
     else:
@@ -362,8 +366,11 @@ def core_of(kernel: str, dtype, hd: int, *, heads: int,
     * "simt_q8": the SIMT core's int8-score form -- the rest of K10's;
     * "f32": ``f32_core.cu``'s register-tiled fp32 cores -- fp32 K1, K9 and
       the cores of K2, K3, K7 up to ``WIDE_MAX_HD``;
-    * "f32_exact": the SIMT core with float64 sums -- K6, K8 with an fp32
-      qkv scratch (fp32 adapters), whose core output is requantized;
+    * "f32_exact": the exact core with float64 sums on DMMA
+      (``exact_core.cu``) -- K6, K8 with an fp32 qkv scratch (fp32
+      adapters), whose core output is requantized, up to ``EXACT_MAX_HD``;
+    * "simt_exact": the same sums on ``simt_core.cu``'s slices kernel --
+      K6, K8 with an fp32 qkv scratch past ``EXACT_MAX_HD``;
     * "simt": ``simt_core.cu`` in the operands' dtype -- every other core
       past ``WIDE_MAX_HD`` (K15 in its own rounding, K9 with its bias): the
       q tile and two stages of K of the wgmma and fp32 cores no longer fit
@@ -386,7 +393,7 @@ def core_of(kernel: str, dtype, hd: int, *, heads: int,
         return ("q8" if dtype == BF and hd <= Q8_MAX_HD and q8_fits
                 else "simt_q8")
     if dtype == F32 and kernel in ("K6", "K8"):
-        return "f32_exact"
+        return "f32_exact" if hd <= EXACT_MAX_HD else "simt_exact"
     if hd > WIDE_MAX_HD:
         return "simt"
     if kernel == "K9":
@@ -507,7 +514,8 @@ def dyt_prologue_serving(x, gamma, beta, wqkv, bqkv, wproj, bproj, wdown,
     wdown [F, C] and wup [C, F] in the compute dtype (that of wqkv); bdown
     [F], bup [C], adapter_scale [1], wsel [1, C] and bsel [1] fp32.  A bf16
     F of ``AR_WIDTHS`` takes the wgmma tail (``adapter_kernel_width`` pads
-    the others up to one), any other F the SIMT tail."""
+    the others up to one), any other bf16 F the SIMT tail, fp32 weights
+    the float64 tail on DMMA."""
     if x.device.type == "cpu":
         return dyt_prologue_plain(x, gamma, beta, wqkv, bqkv, wproj, bproj,
                                   wdown, bdown, wup, bup, adapter_scale, wsel,
@@ -532,10 +540,11 @@ def dyt_prologue_serving(x, gamma, beta, wqkv, bqkv, wproj, bproj, wdown,
 
 
 def _adapter_tail(wdown) -> str:
-    """"wgmma" for a bf16 adapter width the wgmma kernel is built for, else
-    "simt"."""
-    return ("wgmma" if wdown.dtype == BF and wdown.shape[0] in AR_WIDTHS
-            else "simt")
+    """"f64" for fp32 weights (the float64 tail on DMMA), "wgmma" for a bf16
+    adapter width the wgmma kernel is built for, else "simt"."""
+    if wdown.dtype == F32:
+        return "f64"
+    return "wgmma" if wdown.shape[0] in AR_WIDTHS else "simt"
 
 
 def check_adapter_router(lib, x, wdown, bdown, wup, bup, adapter_scale, wsel,
@@ -560,8 +569,9 @@ def check_adapter_router(lib, x, wdown, bdown, wup, bup, adapter_scale, wsel,
 def launch_adapter_router(lib, x_mid, xm32, wdown, bdown, wup, bup,
                           adapter_scale, wsel, bsel, with_select: bool):
     """The adapter/router tail on the fp32 copy ``xm32`` of ``x_mid`` (the
-    wgmma kernel for a bf16 width of ``AR_WIDTHS``, else the SIMT tail):
-    (x_mid, adapt[, logits])."""
+    wgmma kernel for a bf16 width of ``AR_WIDTHS``, the SIMT tail for other
+    bf16 widths, the float64 DMMA tail for fp32 weights): (x_mid, adapt[,
+    logits])."""
     B, N, C = x_mid.shape
     dev = x_mid.device
     F = wdown.shape[0]
@@ -570,18 +580,20 @@ def launch_adapter_router(lib, x_mid, xm32, wdown, bdown, wup, bup,
               if with_select else None)
     stream = torch.cuda.current_stream(dev).cuda_stream
     sel = ((_ptr(wsel), _ptr(bsel)) if with_select else (None, None))
-    if _adapter_tail(wdown) == "wgmma":
+    tail = _adapter_tail(wdown)
+    args = (_ptr(xm32), B * N, C, None, _ptr(wdown), _ptr(bdown), _ptr(wup),
+            _ptr(bup), _ptr(adapter_scale), *sel, _ptr(adapt),
+            int(x_mid.dtype == F32), _ptr(logits), F, 0, 1, 1.0)
+    if tail == "wgmma":
         err = lib.dyt_adapter_router(
             _ptr(xm32), B * N, C, _ptr(wdown), _ptr(bdown), _ptr(wup),
             _ptr(bup), _ptr(adapter_scale), *sel, _ptr(adapt),
             int(x_mid.dtype == F32), _ptr(logits), F, stream)
     else:
-        h = torch.empty((B * N, F), dtype=wdown.dtype, device=dev)
-        err = lib.dyt_tail_simt(
-            _ptr(xm32), B * N, C, None, _ptr(wdown), _ptr(bdown), _ptr(wup),
-            _ptr(bup), _ptr(adapter_scale), *sel, _ptr(adapt),
-            int(x_mid.dtype == F32), _ptr(logits), F, 0, 1, 1.0,
-            int(wdown.dtype == F32), _ptr(h), None, stream)
+        fn = lib.dyt_tail_f64 if tail == "f64" else lib.dyt_tail_simt
+        h = torch.empty((B * N, F), dtype=F32 if tail == "f64" else BF,
+                        device=dev)
+        err = fn(*args, _ptr(h), None, stream)
     _build.check(lib, err, "adapter/router kernel")
     return (x_mid, adapt, logits) if with_select else (x_mid, adapt)
 
@@ -599,7 +611,8 @@ def dyt_prologue_serving_moe(x, gamma, beta, wqkv, bqkv, wproj, bproj,
     adapter_scale [1], wsel [1, C] and bsel [1] fp32.  A bf16 E * b that is
     a multiple of 16 and at most 512 takes the wgmma tail
     (``moe_kernel_bneck`` pads the others up to one where it can), any
-    other the SIMT tail."""
+    other bf16 width the SIMT tail, fp32 experts the float64 tail on
+    DMMA."""
     if x.device.type == "cpu":
         return dyt_prologue_moe_plain(
             x, gamma, beta, wqkv, bqkv, wproj, bproj, wrouter, wdown2d,
@@ -624,10 +637,13 @@ def dyt_prologue_serving_moe(x, gamma, beta, wqkv, bqkv, wproj, bproj,
 
 
 def _moe_tail(lib, E, W, C, wdown2d) -> str:
-    """"wgmma" where the wgmma MoE tail takes the bf16 experts (E >= 2,
-    E * b a multiple of 16 and at most 512, C a multiple of 64, its layout
-    within a block's shared memory), else "simt"."""
-    if (wdown2d.dtype == BF and E >= 2 and W % E == 0 and C % 64 == 0
+    """"f64" for fp32 experts (the float64 tail on DMMA); "wgmma" where the
+    wgmma MoE tail takes the bf16 experts (E >= 2, E * b a multiple of 16
+    and at most 512, C a multiple of 64, its layout within a block's shared
+    memory), else "simt"."""
+    if wdown2d.dtype == F32:
+        return "f64"
+    if (E >= 2 and W % E == 0 and C % 64 == 0
             and lib.dyt_moe_width_supported(E, W // E)
             and lib.dyt_moe_smem_bytes(E, W // E) <= SMEM_PER_BLOCK):
         return "wgmma"
@@ -638,7 +654,7 @@ def check_moe_adapter_router(lib, x, wrouter, wdown2d, bdown2d, wup2d, bup,
                              adapter_scale, wsel, bsel,
                              with_select: bool) -> str:
     """Raise on MoE adapter/router arguments the CUDA kernels do not take;
-    return the tail that takes them ("wgmma" or "simt")."""
+    return the tail that takes them ("wgmma", "simt" or "f64")."""
     C = x.shape[-1]
     if wrouter.dim() != 2 or wdown2d.dim() != 2:
         raise ValueError("wrouter and wdown2d must be 2-D")
@@ -671,8 +687,8 @@ def launch_moe_adapter_router(lib, x_mid, xm32, wrouter, wdown2d, bdown2d,
                               wup2d, bup, adapter_scale, wsel, bsel,
                               tau: float, with_select: bool):
     """The MoE adapter/router tail on the fp32 copy ``xm32`` of ``x_mid``
-    (the wgmma kernel where it takes the experts, else the SIMT tail):
-    (x_mid, adapt[, logits])."""
+    (the wgmma kernel where it takes the bf16 experts, else the SIMT tail;
+    the float64 DMMA tail for fp32 experts): (x_mid, adapt[, logits])."""
     B, N, C = x_mid.shape
     dev = x_mid.device
     E, b = _moe_dims(wrouter, wdown2d)
@@ -681,21 +697,23 @@ def launch_moe_adapter_router(lib, x_mid, xm32, wrouter, wdown2d, bdown2d,
               if with_select else None)
     stream = torch.cuda.current_stream(dev).cuda_stream
     sel = ((_ptr(wsel), _ptr(bsel)) if with_select else (None, None))
-    if _moe_tail(lib, E, E * b, C, wdown2d) == "wgmma":
+    tail = _moe_tail(lib, E, E * b, C, wdown2d)
+    args = (_ptr(xm32), B * N, C, _ptr(wrouter), _ptr(wdown2d),
+            _ptr(bdown2d), _ptr(wup2d), _ptr(bup), _ptr(adapter_scale), *sel,
+            _ptr(adapt), int(x_mid.dtype == F32), _ptr(logits), E * b, E, b,
+            1.0 / tau)
+    if tail == "wgmma":
         err = lib.dyt_moe_adapter_router(
             _ptr(xm32), B * N, C, _ptr(wrouter), _ptr(wdown2d),
             _ptr(bdown2d), _ptr(wup2d), _ptr(bup), _ptr(adapter_scale), *sel,
             _ptr(adapt), int(x_mid.dtype == F32), _ptr(logits), E, b,
             1.0 / tau, stream)
     else:
-        h = torch.empty((B * N, E * b), dtype=wdown2d.dtype, device=dev)
+        fn = lib.dyt_tail_f64 if tail == "f64" else lib.dyt_tail_simt
+        h = torch.empty((B * N, E * b), dtype=F32 if tail == "f64" else BF,
+                        device=dev)
         gates = torch.empty((B * N, E), dtype=F32, device=dev)
-        err = lib.dyt_tail_simt(
-            _ptr(xm32), B * N, C, _ptr(wrouter), _ptr(wdown2d),
-            _ptr(bdown2d), _ptr(wup2d), _ptr(bup), _ptr(adapter_scale), *sel,
-            _ptr(adapt), int(x_mid.dtype == F32), _ptr(logits), E * b, E, b,
-            1.0 / tau, int(wdown2d.dtype == F32), _ptr(h), _ptr(gates),
-            stream)
+        err = fn(*args, _ptr(h), _ptr(gates), stream)
     _build.check(lib, err, "MoE adapter/router kernel")
     return (x_mid, adapt, logits) if with_select else (x_mid, adapt)
 

@@ -41,7 +41,7 @@ are those of the TPU kernels:
   2**24), then ``(acc * row_scale) * col_scale``, then the bias;
 * K5's qkv and core output are rounded to bf16 whatever x's dtype; K6's
   and K8's follow the adapter dtype (fp32 adapters: an fp32 scratch from the
-  int8 GEMM's epilogue, the SIMT core's exact form, the SIMT tail);
+  int8 GEMM's epilogue, the exact core and the float64 tail on DMMA);
   ``x_mid = (x + proj) + b``;
 * K10: q scaled in fp32 and quantized per head row; k centred by its lane
   mean over the N tokens and quantized per row of a HEAD PAIR (the TPU's
@@ -518,12 +518,13 @@ def _launch_sublayer_q8(lib, x, gamma, beta, wqkv_q, sqkv, bqkv, wproj_q,
     rs = torch.empty((M,), dtype=F32, device=dev)
     qkv = torch.empty((M, 3 * C), dtype=scratch, device=dev)
     attn = torch.empty((M, C), dtype=scratch, device=dev)
-    # the route decided here (ms.core_of) and passed down: a SIMT form of
-    # the core (the int8-score form, the exact fp32 core, or the bf16 core
-    # past ms.WIDE_MAX_HD) or a wgmma one
+    # the route decided here (ms.core_of) and passed down: a SIMT core (the
+    # int8-score form, the exact fp32 form past ms.EXACT_MAX_HD, or the bf16
+    # core past ms.WIDE_MAX_HD) or a tensor-core one (wgmma, or the exact
+    # fp32 core on DMMA)
     core = (_core_q8_route(lib, N, C, heads, scratch, kernel) if attn_q8
             else ms.core_of(kernel, scratch, C // heads, heads=heads))
-    simt = core in ("simt_q8", "f32_exact", "simt")
+    simt = core in ("simt_q8", "simt_exact", "simt")
     core_scratch = (_core_scratch(lib, B, N, C, heads, dev)
                     if attn_q8 and simt else None)
     err = lib.dyt_attention_sublayer_q8(

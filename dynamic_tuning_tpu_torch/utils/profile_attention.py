@@ -4,7 +4,7 @@ scripts/profile_attention.py), and the cores at head dims 192 and 256 and
 in fp32.
 
     python -m dynamic_tuning_tpu_torch.utils.profile_attention \
-        [--part all|serving|cores|past256]
+        [--part all|serving|cores|past256|exact]
 
 At ViT-B/16 serving shape (B=128, N=197, 12 heads of 64, bf16 raw qkv
 ``[B, N, 3C]`` from a seed) it times, with CUDA events over 20 calls after
@@ -61,6 +61,18 @@ same function, SDPA's device time:
   and 192 (the wide kernel: three maps encoded a call), 200 calls on the
   host's clock from an idle card (trees whose entry takes that form).
 
+With ``--part exact`` (alone) it splits the exact fp32 route: K6 and K8
+with fp32 adapters and experts at B=32, N=197, C=768, 12 heads of 64,
+F=64 and 4 experts of 64, each launch inside them by its kernel's name
+(device time a call, torch.profiler: LN and quantization, the int8
+GEMMs, the exact core, the router, the tail's products), the wholes; the
+exact core alone through its C entry at head dims 64, 128, 192 and 256
+(C=768 in 12, 6 and 4 heads, C=1024 in 4); the fp32 tails alone (adapter
+F=64 and MoE 4 x 64, both with the token router); K3 and K7 with fp32
+weights; then ``speed.main --compute_dtype float32 --residual_dtype
+float32 --mode dispatch --quant int8`` with and without ``--moe_experts
+4`` at batch 128 (img/s; ViT-B/16 weights from a seed).
+
 Every case touches only the wrappers and C entries that every tree of the
 port since its fp32 forms has, so this script can time an older tree
 (``PYTHONPATH=<tree> python <this file>``; run the two in turns, other,
@@ -89,8 +101,8 @@ from dynamic_tuning_tpu_torch.ops import flash_attention as fa
 from dynamic_tuning_tpu_torch.ops import mha_serving as ms
 from dynamic_tuning_tpu_torch.ops import packed_attention as pa
 from dynamic_tuning_tpu_torch.ops import quant as qt
-from dynamic_tuning_tpu_torch.utils.profiling import (bound_ms, card_line,
-                                                      time_ms)
+from dynamic_tuning_tpu_torch.utils.profiling import (PEAK, bound_ms,
+                                                      card_line, time_ms)
 
 B, N, H, HD = 128, 197, 12, 64
 C = H * HD
@@ -109,6 +121,10 @@ def main(args) -> dict:
     times = serving(g) if args.part in ("all", "serving") else {}
     if args.part in ("all", "cores", "past256"):
         out = cores(g, past_only=args.part == "past256")
+        print(json.dumps(out))
+        times.update(out)
+    if args.part == "exact":
+        out = exact(g)
         print(json.dumps(out))
         times.update(out)
     return times
@@ -363,6 +379,153 @@ def _cores(g) -> dict:
     return out
 
 
+def kernel_split(fn, iters: int = 20) -> dict:
+    """Device ms a call of ``fn`` by kernel name (torch.profiler over
+    ``iters`` calls, after one untimed call), in the order first seen."""
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    split = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            split[e.name] = split.get(e.name, 0.0) + e.time_range.elapsed_us()
+    return {k: v / iters / 1e3 for k, v in split.items()}
+
+
+def _exact_core_entry(lib):
+    """The exact core's C entry: ``dyt_exact_core``, or on a tree before
+    it the SIMT core's ``dyt_simt_core_exact`` (the same arguments)."""
+    try:
+        return lib.dyt_exact_core
+    except AttributeError:
+        return lib.dyt_simt_core_exact
+
+
+def exact(g) -> dict:
+    """The ``--part exact`` list of the module docstring, TF32 off."""
+    tf32 = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        return _exact(g)
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = tf32
+
+
+def _exact(g) -> dict:
+    # float64 products at the FP64 tensor peak ("fp64"; a tree before that
+    # key counts them under "fp32", the same rate)
+    f64 = "fp64" if "fp64" in PEAK else "fp32"
+    out = {}
+    M = CORES_B * N
+    gemm = 8 * M * C * C
+    attn = 4 * CORES_B * H * N * N * HD
+    adapter = 4 * M * C * F_ADAPT
+    experts = 4 * M * C * E * F_ADAPT
+    x = torch.randn((CORES_B, N, C), generator=g, device="cuda")
+    sub, ad, moe = _weights(g, C, F32)
+    qsub = (*sub[:2], *qt.quantize_weight(sub[2]), sub[3],
+            *qt.quantize_weight(sub[4]), sub[5])
+    for name, call, ins, ops in (
+            ("K6 fp32", lambda: qt.dyt_prologue_serving_q8(x, *qsub, *ad,
+                                                           heads=H),
+             (x, *qsub, *ad),
+             {"int8": gemm, f64: attn + adapter + 2 * M * C}),
+            ("K8 fp32 (4 x 64)", lambda: qt.dyt_prologue_serving_q8_moe(
+                x, *qsub, *moe, *ad[5:], heads=H, tau=1.0),
+             (x, *qsub, *moe, *ad[5:]),
+             {"int8": gemm,
+              f64: attn + experts + 2 * M * C * (E + 1)})):
+        _line(out, name, call, ins, ops)
+        for kernel, t in kernel_split(call).items():
+            out[f"{name} / {kernel[:60]}"] = round(t, 4)
+            print(f"  {kernel[:100]}: {t:.4f} ms", flush=True)
+    lib = _build.library()
+    entry = _exact_core_entry(lib)
+    for width, heads in ((768, 12), (768, 6), (768, 4), (1024, 4)):
+        hd = width // heads
+        qkv = _qkv(g, CORES_B, N, width, F32)
+        o = torch.empty((CORES_B, N, width), device="cuda")
+        stream = torch.cuda.current_stream().cuda_stream
+
+        def core(qkv=qkv, o=o, heads=heads, width=width, hd=hd):
+            _build.check(lib, entry(qkv.data_ptr(), o.data_ptr(), CORES_B, N,
+                                    width, heads, hd ** -0.5, stream),
+                         "exact core")
+            return o
+        core()
+        if not torch.equal(core(), ms.attn_core_pairs(qkv, heads=heads)):
+            print(f"exact core hd {hd}: NOT bit-identical to the plain "
+                  "version", flush=True)
+        _line(out, f"exact core hd {hd}", core, (qkv,),
+              {f64: 4 * CORES_B * heads * N * N * hd})
+    x_mid = torch.randn((CORES_B, N, C), generator=g, device="cuda")
+    _line(out, "fp32 adapter tail (F=64, router)",
+          lambda: ms.launch_adapter_router(lib, x_mid, x_mid, *ad[:5],
+                                           *ad[5:], True)[1:],
+          (x_mid, *ad), {f64: adapter + 2 * M * C})
+    _line(out, "fp32 MoE tail (4 x 64, router)",
+          lambda: ms.launch_moe_adapter_router(lib, x_mid, x_mid, *moe,
+                                               *ad[5:], 1.0, True)[1:],
+          (x_mid, *moe, *ad[5:]), {f64: experts + 2 * M * C * (E + 1)})
+    for name, call, ins, ops in (
+            ("K3 fp32", lambda: ms.dyt_prologue_serving(x, *sub, *ad,
+                                                        heads=H),
+             (x, *sub, *ad),
+             _ops(("fp32", gemm + attn), (f64, adapter + 2 * M * C))),
+            ("K7 fp32 (4 x 64)", lambda: ms.dyt_prologue_serving_moe(
+                x, *sub, *moe, *ad[5:], heads=H, tau=1.0),
+             (x, *sub, *moe, *ad[5:]),
+             _ops(("fp32", gemm + attn),
+                  (f64, experts + 2 * M * C * (E + 1))))):
+        _line(out, name, call, ins, ops)
+    _exact_forwards(out)
+    return out
+
+
+def _ops(*pairs) -> dict:
+    """{type: operations} from (type, count) pairs, a type's counts added."""
+    ops = {}
+    for kind, n in pairs:
+        ops[kind] = ops.get(kind, 0) + n
+    return ops
+
+
+def _exact_forwards(out) -> None:
+    """img/s of the fp32 int8 dispatch forward (ViT-B/16, batch 128), with
+    adapters and with 4 experts of 64."""
+    from unittest import mock
+
+    import numpy as np
+
+    from dynamic_tuning_tpu_torch import speed
+    from dynamic_tuning_tpu_torch.checkpoint import make_vit_state_dict
+    for moe in (0, E):
+        sd = {k: torch.from_numpy(v) for k, v in make_vit_state_dict(
+            np.random.RandomState(0), depth=12, dim=C, ffn=F_ADAPT,
+            classes=100, img=224, patch=16, router_scale=25.0,
+            moe_experts=moe).items()}
+        flags = ["--compute_dtype", "float32", "--residual_dtype", "float32",
+                 "--mode", "dispatch", "--quant", "int8"]
+        if moe:
+            flags += ["--moe_experts", str(moe)]
+        args = speed.get_args_parser().parse_args(flags)
+        with contextlib.redirect_stdout(io.StringIO()), mock.patch.object(
+                torch.nn.init, "trunc_normal_", lambda t, *a, **k: t):
+            ips = speed.main(args, state_dict=sd)["throughput_img_s"]
+        key = f"speed fp32 int8 dispatch{' moe4' if moe else ''} img/s"
+        out[key] = ips
+        print(f"speed {' '.join(flags)} (batch 128): {ips} img/s",
+              flush=True)
+        del sd
+        torch.cuda.empty_cache()
+
+
 def _k9(out, g, width, heads, batch=1, dtype=BF) -> None:
     """K9 at B=``batch``, N=SEG_N in ``heads`` heads of ``width``, bf16 or
     fp32 qkv with the bf16 bias, beside SDPA with the bias as the mask."""
@@ -513,7 +676,8 @@ def get_args_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--part", default="all",
-                   choices=("all", "serving", "cores", "past256"))
+                   choices=("all", "serving", "cores", "past256",
+                            "exact"))
     return p
 
 

@@ -16,8 +16,9 @@ from typing import Callable
 import torch
 
 # NVIDIA's H100 SXM data sheet: HBM bytes/s and dense peak ops/s per type
+# ("fp32" the CUDA cores' FFMA rate, "fp64" the FP64 tensor cores')
 HBM = 3.35e12
-PEAK = {"bf16": 989e12, "int8": 1979e12, "fp32": 67e12}
+PEAK = {"bf16": 989e12, "int8": 1979e12, "fp32": 67e12, "fp64": 67e12}
 
 
 def scan_throughput(apply_once: Callable[[], object], *, batch: int,

@@ -1771,6 +1771,84 @@ def test_fp32_q8_prologue_forms(B, N, C, H, F, attn_q8):
     logits_close(got[2], want[2])
 
 
+# The exact fp32 route (K6 and K8 with fp32 adapters) sums in float64 on
+# the FP64 tensor cores; a float64 sum rounded once to fp32 gives the plain
+# version's bits whatever its order, but where the two float64 sums straddle
+# an fp32 rounding boundary: none of these outputs does.
+EXACT_CORE_SHAPES = [(32, 197, 12, 64),   # ViT-B/16 rows (fp32 serving)
+                     (3, 19, 2, 64),      # ragged tokens, one key chunk
+                     (2, 65, 2, 64),      # a partial query tile
+                     (2, 65, 6, 128),
+                     (2, 197, 2, 128),
+                     (2, 19, 4, 192),
+                     (3, 197, 4, 192),
+                     (2, 65, 2, 256),
+                     (2, 197, 4, 256)]
+
+
+@pytest.mark.parametrize("B,N,H,hd", EXACT_CORE_SHAPES)
+def test_exact_core_bits(B, N, H, hd):
+    """The exact core (DMMA at head dims 64 to 256) bit-identical to
+    ``attn_core_pairs`` on fp32 qkv."""
+    qkv = core_qkv(B, N, H, hd, seed=hd + N).float()
+    qkv[..., H * hd:2 * H * hd] += 1.0
+    lib = kd_lib()
+    out = torch.full((B, N, H * hd), float("nan"), device="cuda")
+    err = lib.dyt_exact_core(qkv.data_ptr(), out.data_ptr(), B, N, H * hd, H,
+                             hd ** -0.5,
+                             torch.cuda.current_stream().cuda_stream)
+    assert err == 0, lib.dyt_error_string(err)
+    torch.cuda.synchronize()
+    want = ms.attn_core_pairs(qkv, heads=H)
+    assert torch.equal(out, want), (out != want).float().mean().item()
+
+
+@pytest.mark.parametrize("with_select", [True, False],
+                         ids=["router", "no_router"])
+@pytest.mark.parametrize("E,b,M,C", [
+    (0, 8, 6304, 768), (0, 16, 63, 128), (0, 64, 6304, 768),
+    (0, 64, 1, 768), (0, 100, 129, 256), (0, 256, 197, 768),
+    (2, 4, 6304, 768), (2, 4, 63, 128), (4, 64, 6304, 768),
+    (4, 64, 129, 1024), (4, 16, 49, 384),
+    # past 64 experts; 200 take more router columns than a round of the
+    # kernel's (192): the router rounds first, the softmax after the last
+    (128, 2, 197, 768), (200, 1, 129, 256)])
+def test_f64_tail_bits(E, b, M, C, with_select):
+    """The float64 tail (DMMA) with fp32 weights bit-identical to the plain
+    adapter/router tail (E == 0, F == b) and MoE tail (E experts of b): x_mid
+    fp32 and adapt fp32, or adapt bf16 from a bf16 residual stream."""
+    from dynamic_tuning_tpu_torch.ops import _build
+
+    g = torch.Generator(device="cuda").manual_seed(29)
+    xm = torch.randn((1, M, C), generator=g, device="cuda")
+    sel = (torch.randn((1, C), generator=g, device="cuda") * 25 / C ** 0.5,
+           torch.randn((1,), generator=g, device="cuda") * 0.1)
+    lib = _build.library()
+    for x_mid in (xm, xm.to(BF)):
+        if E == 0:
+            _, _, ad = fp32_inputs(1, M, C, b, seed=E + b + M)
+            ms.check_adapter_router(lib, x_mid, *ad[:5], *sel, with_select)
+            got = ms.launch_adapter_router(lib, x_mid, xm, *ad[:5], *sel,
+                                           with_select)
+            want = ms.adapter_router_plain(xm, x_mid.dtype, *ad[:5], *sel,
+                                           with_select=with_select)
+        else:
+            moe = moe_inputs_f32(C, E, b, seed=E + b + M)
+            assert ms.check_moe_adapter_router(lib, x_mid, *moe, *sel,
+                                               with_select) == "f64"
+            got = ms.launch_moe_adapter_router(lib, x_mid, xm, *moe, *sel,
+                                               0.7, with_select)
+            want = ms.moe_adapter_router_plain(
+                xm, x_mid.dtype, *moe, *sel, experts=E, bneck=b, tau=0.7,
+                with_select=with_select)
+        torch.cuda.synchronize()
+        assert got[1].dtype == x_mid.dtype and got[1].shape == (1, M, C)
+        assert torch.equal(got[1], want[1]), (
+            (got[1] != want[1]).float().mean().item())
+        if with_select:
+            assert torch.equal(got[2], want[2].reshape(got[2].shape))
+
+
 def _form_count(fn, form):
     return fn.forms.get(form, 0)
 
@@ -1953,16 +2031,22 @@ def test_cores_past_head_dim_256(hd):
             bf16_close(got, want, "K15")
             contract_close(got, want, "K15")
         else:
+            # the exact route past 256 is the slices kernel's; the DMMA
+            # exact core refuses these head dims
             lib = kd_lib()
             out = torch.empty((B, N, H * hd), device="cuda")
+            stream = torch.cuda.current_stream().cuda_stream
             err = lib.dyt_simt_core_exact(
                 qkv.data_ptr(), out.data_ptr(), B, N, H * hd, H,
-                hd ** -0.5, torch.cuda.current_stream().cuda_stream)
+                hd ** -0.5, stream)
             assert err == 0, lib.dyt_error_string(err)
             torch.cuda.synchronize()
             want = ms.attn_core_pairs(qkv, heads=H)
             assert torch.equal(out, want), (
                 (out != want).float().mean().item())
+            assert lib.dyt_exact_core(
+                qkv.data_ptr(), out.data_ptr(), B, N, H * hd, H,
+                hd ** -0.5, stream) != 0
 
 
 @pytest.mark.parametrize("hd", [320, 448, 512, 768])

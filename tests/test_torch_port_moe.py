@@ -77,13 +77,13 @@ def _close(got, want, dtype, fp32_rel):
                                atol=rel * np.abs(want).max())
 
 
-def _moe(rs, E, b):
-    """MoE weights in the flax layout: router logits of order 1, so the
-    gates differ per token."""
+def _moe(rs, E, b, c=C):
+    """MoE weights in the flax layout at width ``c``: router logits of
+    order 1, so the gates differ per token."""
     f = lambda *s, sc: (rs.randn(*s) * sc).astype(np.float32)
-    return dict(wr=f(C, E, sc=2.0 / np.sqrt(C)), dk=f(E, C, b, sc=0.05),
-                db=f(E, b, sc=0.05), uk=f(E, b, C, sc=0.05),
-                ub=f(E, C, sc=0.05), asc=np.array([0.1], np.float32))
+    return dict(wr=f(c, E, sc=2.0 / np.sqrt(c)), dk=f(E, c, b, sc=0.05),
+                db=f(E, b, sc=0.05), uk=f(E, b, c, sc=0.05),
+                ub=f(E, c, sc=0.05), asc=np.array([0.1], np.float32))
 
 
 def _jmoe(m, jdt):
@@ -105,13 +105,13 @@ def _tmoe(m, tdt):
             _t(m["ub"]), _t(m["asc"]))
 
 
-def _weights(seed):
+def _weights(seed, n=N, c=C):
     rs = np.random.RandomState(seed)
     f = lambda *s, sc=1.0: (rs.randn(*s) * sc).astype(np.float32)
-    return rs, dict(x=f(B, N, C), g=1 + f(C, sc=0.1), b=f(C, sc=0.1),
-                    wqkv=f(C, 3 * C, sc=0.05), bqkv=f(3 * C, sc=0.05),
-                    wproj=f(C, C, sc=0.05), bproj=f(C, sc=0.05),
-                    wsel=f(C, 1, sc=0.1), bsel=f(1, sc=0.1))
+    return rs, dict(x=f(B, n, c), g=1 + f(c, sc=0.1), b=f(c, sc=0.1),
+                    wqkv=f(c, 3 * c, sc=0.05), bqkv=f(3 * c, sc=0.05),
+                    wproj=f(c, c, sc=0.05), bproj=f(c, sc=0.05),
+                    wsel=f(c, 1, sc=0.1), bsel=f(1, sc=0.1))
 
 
 # --- the MoE tail --------------------------------------------------------------
@@ -203,14 +203,14 @@ def _tsub_q8(w):
             _t(w["bproj"]))
 
 
-def _check_prologue(got, want, dtype, with_select, fp32_rel):
+def _check_prologue(got, want, dtype, with_select, fp32_rel, n=N, c=C):
     assert len(got) == len(want) == (3 if with_select else 2)
-    assert got[0].shape == got[1].shape == (B, N, C)
+    assert got[0].shape == got[1].shape == (B, n, c)
     _close(got[0], _np(want[0]), dtype, fp32_rel)
     _close(got[1], _np(want[1]), dtype, fp32_rel)
     if with_select:
         # router logits are fp32 from the fp32 x_mid on both sides
-        assert got[2].dtype == torch.float32 and got[2].shape == (B, N, 1)
+        assert got[2].dtype == torch.float32 and got[2].shape == (B, n, 1)
         _close(got[2], _np(want[2]), "float32", fp32_rel)
 
 
@@ -232,24 +232,56 @@ def test_dyt_prologue_moe_matches_jax_kernel(dtype, with_select, tau):
     _check_prologue(got, want, dtype, with_select, 1e-5)
 
 
-@pytest.mark.parametrize("attn_q8", [False, True], ids=["core", "int8_attn"])
-@pytest.mark.parametrize("with_select", [True, False])
-@pytest.mark.parametrize("dtype", list(DTYPES))
-def test_dyt_prologue_q8_moe_matches_jax_kernel(dtype, with_select, attn_q8):
+# K8 with fp32 experts (the exact route: the exact core and the float64
+# tail on the card) at other widths and ragged lengths: (N, C, heads, E, b).
+# Held to 1e-3 of the largest magnitude: the JAX kernel sums its core in
+# fp32, the plain version in float64, and at these sizes a few requantized
+# core outputs sit on an int8 code boundary and take the neighbouring code,
+# which moves their row of x_mid by one code step through proj (up to 4e-4
+# of the largest magnitude here).
+Q8_FP32_DIMS = [(19, 128, 2, 2, 4), (65, 256, 2, 4, 64),
+                (197, 384, 2, 2, 4), (65, 512, 2, 4, 64), (19, 128, 2, 80, 1)]
+Q8_MOE_CASES = (
+    [pytest.param(d, s, a, None,
+                  id=f"{d}-{s}-{'int8_attn' if a else 'core'}")
+     for d in DTYPES for s in (True, False) for a in (False, True)]
+    + [pytest.param("float32", s, False, dims,
+                    id=f"float32-{s}-core-N{dims[0]}-hd{dims[1] // dims[2]}"
+                       f"-{dims[3]}x{dims[4]}")
+       for dims in Q8_FP32_DIMS for s in (True, False)])
+
+
+@pytest.mark.parametrize("dtype,with_select,attn_q8,dims", Q8_MOE_CASES)
+def test_dyt_prologue_q8_moe_matches_jax_kernel(dtype, with_select, attn_q8,
+                                                dims):
     jdt, tdt = DTYPES[dtype]
-    rs, w = _weights(11)
-    m = _moe(rs, 4, 16)
+    n, width, heads, E, b = dims or (N, C, H, 4, 16)
+    rs, w = _weights(11, n=n, c=width)
+    m = _moe(rs, E, b, c=width)
     c = lambda a: jnp.asarray(a).astype(jdt)
     # the JAX Block hands K8 its expert stacks in the compute dtype
     want = jq.dyt_prologue_serving_q8_moe(
         c(w["x"]), *_jsub(w, jdt, cast=False), m["wr"], c(m["dk"]), m["db"],
-        c(m["uk"]), m["ub"], m["asc"], w["wsel"], w["bsel"], heads=H,
+        c(m["uk"]), m["ub"], m["asc"], w["wsel"], w["bsel"], heads=heads,
         tau=0.7, with_select=with_select, attn_q8=attn_q8, interpret=True)
     got = tq.dyt_prologue_serving_q8_moe(
         _t(w["x"]).to(tdt), *_tsub_q8(w), *_tmoe(m, tdt), _t(w["wsel"].T),
-        _t(w["bsel"]), heads=H, tau=0.7, with_select=with_select,
+        _t(w["bsel"]), heads=heads, tau=0.7, with_select=with_select,
         attn_q8=attn_q8)
-    _check_prologue(got, want, dtype, with_select, 1e-4)
+    _check_prologue(got, want, dtype, with_select, 1e-3 if dims else 1e-4,
+                    n=n, c=width)
+
+
+@pytest.mark.parametrize("E", [1, 64, 65, 256])
+def test_f64_tail_takes_every_expert_count(E):
+    """fp32 experts of any count go to the float64 tail, as the JAX kernels
+    take any count: the wrappers refuse none before a launch (no library is
+    needed for the check)."""
+    c = 8
+    z = lambda *s: torch.zeros(s)
+    args = (z(1, 2, c), z(E, c), z(E, c), z(E), z(c, E), z(E, c), z(1),
+            z(1, c), z(1))
+    assert tms.check_moe_adapter_router(None, *args, True) == "f64"
 
 
 def test_moe_wrappers_refuse_other_devices():

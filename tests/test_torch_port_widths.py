@@ -381,7 +381,8 @@ ROUTES = {
 # of K2, K3, K7 on the fp32 core's; past WIDE_MAX_HD (the ceiling: the q
 # tile and two stages of K no longer fit a block) the SIMT core's slices;
 # past 256 K10 and the int8-score cores on the SIMT int8-score form, fp32
-# K6 and K8 on the exact core
+# K6 and K8 on the slices kernel's exact form (the DMMA exact core stops at
+# ms.EXACT_MAX_HD)
 for _hd in WIDE + PAST:
     _past = _hd in PAST
     for _k in ("K1", "K2", "K3", "K7"):
@@ -394,7 +395,7 @@ for _hd in WIDE + PAST:
         ROUTES[_k].update({(BF, _hd, 0, 1): "simt" if _past else "wgmma",
                            (BF, _hd, 1, 1): "simt_q8"})
     for _k in ("K6", "K8"):
-        ROUTES[_k].update({(F32, _hd, 0, 1): "f32_exact",
+        ROUTES[_k].update({(F32, _hd, 0, 1): "simt_exact",
                            (F32, _hd, 1, 1): "simt_q8"})
     ROUTES["K10"].update({(BF, _hd, 0, 1): "simt_q8",
                           (F32, _hd, 0, 1): "simt_q8"})
@@ -408,7 +409,8 @@ def test_core_routes(kernel):
     scores on the wgmma core, K9 on its wgmma kernels, fp32 K1, K2, K3, K7,
     K9 on the fp32 core; K10 on its wgmma kernel up to 256 (on the SIMT
     core's int8-score form where its layout does not fit, and past 256);
-    fp32 K6, K8 on the exact core; past 768 every core on the SIMT core; K5
+    fp32 K6, K8 on the exact core up to 256 and on the SIMT core's exact
+    form past it; past 768 every core on the SIMT core; K5
     and K15 in fp32 on none (K5's scratch is bf16); and the forms the
     counts are kept under (past 256 "+past_256" on the wgmma and fp32
     cores, "+simt_core" on the SIMT core's).  Head dims JAX does not fuse,
