@@ -247,16 +247,19 @@ Phases; any failure exits non-zero:
      MoE 4 x 64, each bit for bit and timed beside its bound; K1/K9 beside
      SDPA in fp32 (on the register-tiled fp32 core) and the fp32 GEMM alone
      beside torch.matmul with TF32 off; the bf16 forms at F = 8 (padded)
-     and 256 (the SIMT tail), MoE 2 x 4 (padded) and 4 x 192 (the SIMT
-     tail), head dims 192 (C=768) and 256 (C=1024) in 4 heads and 384
-     (C=768 in 2 heads): K3, K15 and K1 (the wgmma core; at 384 the
-     wgmma core past 256, hd a run-time count), K6 with the int8-score
-     core, K10 (its int8-score wgmma core; at 384 the SIMT form), K9 at
-     B=1, N=1025 (the wgmma ring with the bias blocks; at 384 the core
-     past 256 with them) beside SDPA with its bias as the mask, each held
-     to ``ulp_share`` too and timed (the cores through their C entries),
-     K10 at 192 and 256 beside the SIMT form the parent ran; in fp32 at
-     384 (the fp32 core past 256) K1 beside SDPA in fp32, K9 beside SDPA
+     and 256 (the SIMT tail), MoE 2 x 4 (padded), K7 and K8 at 4 x 192
+     (the wgmma tail past 512: lines "...@4x192") and K7 at 4 x 260 (the
+     SIMT tail, checked), head dims 192 (C=768) and 256 (C=1024) in 4
+     heads and 384 (C=768 in 2 heads): K3, K15 and K1 (the wgmma core; at
+     384 the wgmma core past 256, hd a run-time count), K6 with the
+     int8-score core, K10 (its int8-score wgmma core; at 384 the wgmma key
+     ring), K9 at B=1, N=1025 (the wgmma ring with the bias blocks; at 384
+     the core past 256 with them) beside SDPA with its bias as the mask,
+     each held to ``ulp_share`` too and timed (the cores through their C
+     entries), K10 beside the SIMT form an earlier tree ran; K10 on the key
+     ring past the staged core's N (head dim 192 at N = 320, 256 at N =
+     300), within two ulps and ``ulp_share``; in fp32 at 384 (the fp32
+     core past 256) K1 beside SDPA in fp32, K9 beside SDPA
      with its mask, K3; every core form at 2 heads of 320 and of 832 (past
      the cores' 768: the SIMT core's slices) checked (bf16 and fp32 K1,
      K9, K10, K2, K3, K7, at 320 K5, K6, K8 with and without int8 scores,
@@ -267,12 +270,14 @@ Phases; any failure exits non-zero:
      the largest, gates agreeing on 0.9995 with each differing gate's
      distances printed; dense; plain and MoE at batch 32 held the same
      way, int8 MoE to the int8 bounds of phase 3) and in bf16 at F = 256,
-     8, MoE 4 x 192 and 2 x 4, and in fp32 in 2 heads of 384 (dispatch,
+     8, MoE 4 x 192 (bf16 and int8, each against the plain-version
+     forward) and 2 x 4, and in fp32 in 2 heads of 384 (dispatch,
      batch 32); a bf16 ViT-B/16 at head dims 192 and 384 against its
      plain-version forward (its img/s at batch 32); the BEiT backbone on a
      512^2 crop (K9) in bf16 at head dims 192 and 384 and in fp32 at 384;
      predict.serve at head dims 192 and 384 (--quant none, at 192 its
-     forward against the plain-version forward, and int8_attn); main_image,
+     forward against the plain-version forward, and int8_attn, at 384 its
+     model's forward against the plain-version forward); main_image,
      main_vtab and main_video with --compute_dtype float32 (short runs,
      each with an evaluation on the dispatch path); an fp32 seg crop
      evaluation (K9 fp32 in every block); the LayerScale backbone (K1) in
@@ -777,8 +782,8 @@ def windowed_launch(torch, ms, qkv, bias, heads=H):
 
 def simt_q8_launch(torch, qt, qkv, heads):
     """K10 on the SIMT core's int8-score form through its C entry: the
-    route the parent took at head dims 192 and 256, timed beside the wgmma
-    kernel that replaces it."""
+    route earlier trees took at head dims 192 to 768, timed beside the
+    wgmma kernels that replace it."""
     from dynamic_tuning_tpu_torch.ops import _build
     lib = _build.library()
     batch, n, c3 = qkv.shape
@@ -1445,10 +1450,14 @@ def reset_counts(ms, qt, fm) -> None:
 def read_counts(ms, qt, fm) -> dict:
     """Each KERNELS entry's launches: a wrapper's count, or for a wrapper
     with forms (``ms.form_of``) that of the entry's form after its ":"
-    ("bf16" when it names none)."""
+    ("bf16" when it names none); 0 for a "name@width" entry (its launches
+    are its wrapper's in the runs that name it: ``forms_counts``)."""
     mods = count_modules(ms, qt, fm)
     out = {}
     for k, (m, _) in KERNELS.items():
+        if "@" in k:
+            out[k] = 0
+            continue
         name, _, form = k.partition(":")
         fn = getattr(mods[m], name)
         forms = getattr(fn, "forms", None)
@@ -3612,12 +3621,14 @@ F32_REL = 1e-5                  # an fp32 form against its plain version
 F32_MODEL_REL = 1e-3
 F32_GATE_AGREE = 0.9995
 WIDE_F = 256                    # an adapter past the wgmma tail's 128
-WIDE_MOE = (4, 192)             # E * b = 768, past the wgmma tail's 512
+WIDE_MOE = (4, 192)             # E * b = 768: the wgmma tail past 512
+SIMT_MOE = (4, 260)             # E * b = 1040, past the wgmma tail's 1024
 HD192_HEADS = 4                 # C = 768 in 4 heads of 192
 HD384_HEADS = 2                 # C = 768 in 2 heads of 384 (past 256)
 SEG_HD192_IMG = 512             # the head-dim-192 BEiT backbone's crop
 # name:form -> (module of the wrapper, JSON fields): the forms this phase
-# adds to the kernels line
+# adds to the kernels line ("name@width": a width of the wrapper's bf16
+# form that gets a line of its own, counted in the runs that name it)
 FORMS = {
     "attention_sublayer_serving:fp32": ("ms", dict(
         route="cuda", source=f"{SRC}/simt_chain.cu",
@@ -3684,11 +3695,12 @@ FORMS = {
     "mha_windowed_fused:fp32+past_256": ("ms", dict(
         route="cuda", source=f"{SRC}/f32_core.cu",
         replaces=f"{JAX_OPS}/mha_serving.py:321")),
-    "dyt_prologue_serving_q8:bf16+simt_core": ("qt", dict(
-        route="cuda", source=f"{SRC}/simt_core.cuh",
+    # with int8 scores past head dim 256: the int8-score wgmma key ring
+    "dyt_prologue_serving_q8:bf16+q8_ring": ("qt", dict(
+        route="cuda", source=f"{SRC}/q8_ring.cu",
         replaces=f"{JAX_OPS}/quant.py:531")),
-    "attn_core_pairs_q8:bf16+simt_core": ("qt", dict(
-        route="cuda", source=f"{SRC}/simt_core.cuh",
+    "attn_core_pairs_q8:bf16+q8_ring": ("qt", dict(
+        route="cuda", source=f"{SRC}/q8_ring.cu",
         replaces=f"{JAX_OPS}/quant.py:309")),
     "dyt_prologue_serving:bf16+simt_tail": ("ms", dict(
         route="cuda", source=f"{SRC}/simt_chain.cu",
@@ -3696,9 +3708,13 @@ FORMS = {
     "dyt_prologue_serving_q8:bf16+simt_tail": ("qt", dict(
         route="cuda", source=f"{SRC}/simt_chain.cu",
         replaces=f"{JAX_OPS}/quant.py:531")),
-    "dyt_prologue_serving_moe:bf16+simt_tail": ("ms", dict(
-        route="cuda", source=f"{SRC}/simt_chain.cu",
+    # the wgmma MoE tail past E * b = 512 (up to 1024)
+    "dyt_prologue_serving_moe@4x192": ("ms", dict(
+        route="cuda", source=f"{SRC}/moe_adapter.cu",
         replaces=f"{JAX_OPS}/mha_serving.py:763")),
+    "dyt_prologue_serving_q8_moe@4x192": ("qt", dict(
+        route="cuda", source=f"{SRC}/moe_adapter.cu",
+        replaces=f"{JAX_OPS}/quant.py:674")),
 }
 KERNELS.update(FORMS)
 # speed.main runs of the phase: (flags, batch, state dict (MoE experts) or
@@ -3706,7 +3722,7 @@ KERNELS.update(FORMS)
 # block, the bounds it is held to against the plain-version forward:
 # "fp32" (F32_MODEL_REL, F32_GATE_AGREE), "int8" (MODEL_REL: K5's qkv
 # scratch is bf16 at fp32 compute, as the TPU kernel's, so its core rounds
-# as the bf16 core does), or None)
+# as the bf16 core does), "bf16" (MODEL_REL, GATE_AGREE), or None)
 F32 = ["--compute_dtype", "float32", "--residual_dtype", "float32"]
 FORM_RUNS = [
     (F32 + ["--mode", "dispatch"], B, 0, ("dyt_prologue_serving:fp32",),
@@ -3735,7 +3751,10 @@ FORM_RUNS = [
      None),
     (["--mode", "dispatch", "--moe_experts", str(WIDE_MOE[0]), "--ffn_num",
       str(WIDE_MOE[1])], F32_B, None,
-     ("dyt_prologue_serving_moe:bf16+simt_tail",), None),
+     ("dyt_prologue_serving_moe@4x192",), "bf16"),
+    (["--mode", "dispatch", "--moe_experts", str(WIDE_MOE[0]), "--ffn_num",
+      str(WIDE_MOE[1]), "--quant", "int8"], F32_B, None,
+     ("dyt_prologue_serving_q8_moe@4x192", "q8_ln_mlp"), "int8"),
     (["--mode", "dispatch", "--ffn_num", "8"], F32_B, None,
      ("dyt_prologue_serving",), None),
     (["--mode", "dispatch", "--moe_experts", "2", "--ffn_num", "4"], F32_B,
@@ -3919,9 +3938,11 @@ def forms_kernels(torch, ms, qt, _build) -> dict:
             if F_ == WIDE_F:
                 out[key] = res
     for (E_, b_), tag in (((2, 4), "padded to 2 x 8"),
-                          (WIDE_MOE, "the SIMT tail")):
-        x_, s_, _, ad_, moe_ = forms_inputs(torch, ms, qt, dtype=bf,
-                                            moe=(E_, b_))
+                          (WIDE_MOE, "the wgmma tail past 512"),
+                          (SIMT_MOE, "the SIMT tail")):
+        x_, s_, qs_, ad_, moe_ = forms_inputs(torch, ms, qt, dtype=bf,
+                                              moe=(E_, b_))
+        tail_ops = {"bf16": 4 * M * C * E_ * b_, "fp32": 2 * M * C * (E_ + 1)}
         res = measure(
             f"K7 bf16 {E_} x {b_} ({tag})",
             lambda: ms.dyt_prologue_serving_moe(x_, *s_, *moe_, *ad_[5:],
@@ -3929,10 +3950,20 @@ def forms_kernels(torch, ms, qt, _build) -> dict:
             lambda: ms.dyt_prologue_moe_plain(x_, *s_, *moe_, *ad_[5:],
                                               heads=H, tau=TAU),
             ("x_mid", "adapt", "logits"), (x_, *s_, *moe_, *ad_[5:]),
-            {"bf16": gemm + 2 * attn + 4 * M * C * E_ * b_,
-             "fp32": 2 * M * C * (E_ + 1)}, **bfq)
+            {"bf16": gemm + 2 * attn + tail_ops["bf16"],
+             "fp32": tail_ops["fp32"]}, check_only=(E_, b_) == SIMT_MOE,
+            **bfq)
         if (E_, b_) == WIDE_MOE:
-            out["dyt_prologue_serving_moe:bf16+simt_tail"] = res
+            out["dyt_prologue_serving_moe@4x192"] = res
+            out["dyt_prologue_serving_q8_moe@4x192"] = measure(
+                f"K8 bf16 {E_} x {b_} ({tag})",
+                lambda: qt.dyt_prologue_serving_q8_moe(
+                    x_, *qs_, *moe_, *ad_[5:], heads=H, tau=TAU),
+                lambda: qt.dyt_prologue_q8_moe_plain(
+                    x_, *qs_, *moe_, *ad_[5:], heads=H, tau=TAU),
+                ("x_mid", "adapt", "logits"), (x_, *qs_, *moe_, *ad_[5:]),
+                {"int8": gemm, "bf16": 2 * attn + tail_ops["bf16"],
+                 "fp32": tail_ops["fp32"]}, **bfq)
     for C_, heads in ((C, HD192_HEADS), (1024, 4), (C, HD384_HEADS)):
         hd = C_ // heads
         past = hd > 256                # the wgmma core past 256
@@ -3991,10 +4022,9 @@ def forms_kernels(torch, ms, qt, _build) -> dict:
         check_ulp_share(f"K10 bf16 head_dim {hd}",
                         qt.attn_core_pairs_q8(qkv_, heads=heads),
                         qt.attn_core_pairs_q8_plain(qkv_, heads=heads))
-        if not past:
-            print(f"  K10 bf16 head_dim {hd} on the SIMT int8-score form "
-                  f"(the parent's route): "
-                  f"{time_ms(simt_q8_launch(torch, qt, qkv_, heads)):.4f} ms")
+        print(f"  K10 bf16 head_dim {hd} on the SIMT int8-score form "
+              f"(an earlier tree's route): "
+              f"{time_ms(simt_q8_launch(torch, qt, qkv_, heads)):.4f} ms")
         # K9 at the seg crop (B=1, N=SEG_N) with the layer's padded bias
         sq = torch.randn((1, SEG_N, 3 * C_), generator=g,
                          device="cuda").to(bf)
@@ -4026,14 +4056,34 @@ def forms_kernels(torch, ms, qt, _build) -> dict:
             out["mha_windowed_fused:bf16+wide_heads"] = res9
         elif past:
             out["dyt_prologue_serving:bf16+past_256"] = res
-            out["dyt_prologue_serving_q8:bf16+simt_core"] = res6
+            out["dyt_prologue_serving_q8:bf16+q8_ring"] = res6
             out["mha_serving:bf16+past_256"] = res15
             out["mha_serving_fused:bf16+past_256"] = res1
             out["mha_windowed_fused:bf16+past_256"] = res9
-            out["attn_core_pairs_q8:bf16+simt_core"] = res10
+            out["attn_core_pairs_q8:bf16+q8_ring"] = res10
         del x_, s_, qs_, ad_, qkv_, q_, k_, v_, qc, kc, vc, sq, b9, q9, k9
         del v9, mask
         torch.cuda.empty_cache()
+    # K10 on the int8-score key ring past the staged core's layout (head
+    # dim 192 at N = 320, 256 at N = 300; B=32, 2 heads), held to K10's
+    # bounds and timed
+    for heads, hd, n in ((2, 192, 320), (2, 256, 300)):
+        C_ = heads * hd
+        qkv_ = torch.randn((F32_B, n, 3 * C_), generator=g,
+                           device="cuda").to(bf)
+        qkv_[..., C_:2 * C_] += 1.0
+        route10 = qt._core_q8_route(_build.library(), n, C_, heads, bf)
+        if route10 != "q8_ring":
+            fail(f"K10 at head dim {hd}, N={n} routed to {route10}")
+        a_ = 2 * F32_B * heads * n * n * hd
+        measure(f"K10 bf16 head_dim {hd}, N={n} (route {route10})",
+                lambda: qt.attn_core_pairs_q8(qkv_, heads=heads),
+                lambda: qt.attn_core_pairs_q8_plain(qkv_, heads=heads),
+                ("core",), (qkv_,), {"int8": a_, "bf16": a_}, **bfq)
+        check_ulp_share(f"K10 bf16 head_dim {hd}, N={n}",
+                        qt.attn_core_pairs_q8(qkv_, heads=heads),
+                        qt.attn_core_pairs_q8_plain(qkv_, heads=heads))
+        del qkv_
     # fp32 past head dim 256 (2 heads of 384, the fp32 core past 256): K1
     # beside SDPA in fp32 (TF32 off), K9 at the seg crop beside SDPA with
     # the bias as its mask, K3
@@ -4285,16 +4335,21 @@ def unlisted_forms(ms, qt, fm) -> dict:
 def forms_counts(ms, qt, fm, run, kernels, forwards=None) -> dict:
     """The launches since the counts were set to 0: DEPTH a forward of each
     of ``kernels`` and none of the others, in any form (``forwards`` None:
-    as many forwards as the first of ``kernels`` shows, at least one)."""
+    as many forwards as the first of ``kernels`` shows, at least one); a
+    "name@width" entry of ``kernels`` stands for its wrapper's bf16 form
+    and gets its launches."""
     counts = read_counts(ms, qt, fm)
+    base = [k.partition("@")[0] for k in kernels]
     if forwards is None:
-        forwards = max(counts[kernels[0]] // DEPTH, 1)
-    want = {k: DEPTH * forwards if k in kernels else 0 for k in KERNELS}
+        forwards = max(counts[base[0]] // DEPTH, 1)
+    want = {k: DEPTH * forwards if k in base else 0 for k in KERNELS}
     if counts != want:
         fail(f"{run}: kernel launches {counts}, want {want}")
     extra = unlisted_forms(ms, qt, fm)
     if extra:
         fail(f"{run}: launches in forms the run does not list: {extra}")
+    for k, b in zip(kernels, base):
+        counts[k] = counts[b]
     return counts
 
 
@@ -4442,7 +4497,7 @@ def forms_main_path(torch, ms, qt, fm, speed, predict, config,
                          device="cuda", dtype=torch.uint8)
     sd = {k: torch.from_numpy(v) for k, v in sds[0].items()}
     for heads, form, q8_form in ((HD192_HEADS, "wide_heads", "wide_heads"),
-                                 (HD384_HEADS, "past_256", "simt_core")):
+                                 (HD384_HEADS, "past_256", "q8_ring")):
         for quant, kernels in (
                 ("none", (f"mha_serving:bf16+{form}",)),
                 ("int8_attn", (f"dyt_prologue_serving_q8:bf16+{q8_form}",
@@ -4465,6 +4520,15 @@ def forms_main_path(torch, ms, qt, fm, speed, predict, config,
             print(f"{run}: {len(results)} canvases, {DEPTH} launches of "
                   f"{', '.join(kernels)} a forward "
                   f"({time.perf_counter() - t0:.1f} s since the first)")
+            if quant == "int8_attn" and heads == HD384_HEADS:
+                # its model's forward on the int8-score key ring, against
+                # the plain versions'
+                with torch.inference_mode():
+                    logits, aux = params(x, dispatch=True)
+                forms_compare(torch, ms, qt, fm,
+                              dict(model=params, x=x, logits=logits,
+                                   aux=aux), f"{run}: its model",
+                              dict(dispatch=True), False)
             if quant == "none" and heads == HD192_HEADS:
                 # the forward predict.serve runs, against the plain
                 # versions'

@@ -50,8 +50,8 @@
 //     of one down step, four up steps), waits for all of them, then adds;
 //     the other warpgroup's products run meanwhile (two alternating
 //     partials, each read after a wait<1>, made ptxas serialize the wgmma
-//     pipeline).  Past W = 256 the down product runs in two passes over
-//     the re-streamed x_mid;
+//     pipeline).  Past W = 256 the down product runs in passes over the
+//     re-streamed x_mid;
 //   * the router dots run on the fp32 stage in float64: four lanes a row,
 //     16 columns each, up to 8 dots interleaved, added pairwise across the
 //     quad, then to the row's sum (the mma.sync kernel's order, so gates
@@ -68,6 +68,14 @@
 // spilled and ran slower than the mma.sync kernel), and 25216 rows make
 // 394 tiles, three an SM.  The price is twice the expert stacks' L2
 // traffic (~310 MB a call at W = 256).
+// Past W = 512, up to 1024 (4 experts of 192, say, which the JAX kernels
+// take as they take any ffn_num x moe_experts), the H tile alone takes 96
+// to 128 KB, and the 256-column pass's 48 KB stages fit two at most up to
+// W = 768.  Past that (or for many experts) the wide layout narrows the
+// pass to 128 columns of W (a piece of 64 a warpgroup: 32 KB stages, x_mid
+// re-streamed twice as often) and keeps one converted-weight buffer behind
+// one more barrier a refill (MoePlan; the order is measured).  Every
+// layout adds the same k16 products in the same order.
 // The arithmetic is the mma.sync kernel's, step for step: the same k16
 // products in the same order, one round-to-nearest add each, the same
 // float64 sums and __fadd_rn / __fmul_rn rounding points, so nvcc contracts
@@ -81,41 +89,55 @@ constexpr int MOE_THREADS = 384;      // two consumer warpgroups + a producer
 constexpr int MOE_CONSUMERS = 256;
 constexpr int MOE_ROWS = 64;          // rows a tile
 constexpr int MOE_CHUNK = 64;         // x_mid columns / output columns a step
-constexpr int MOE_PASS = 256;         // columns of W a down pass covers
+constexpr int MOE_PASS = 256;         // columns of W a down pass covers up
+                                      // to E*b = 512, and an up item
 constexpr int MOE_MAX_STAGES = 4;
-constexpr int MOE_MAX_W = 512;
+constexpr int MOE_NARROW_W = 512;     // past it the wide layouts (MoePlan)
+constexpr int MOE_MAX_W = 1024;
 constexpr int MOE_SMEM_LIMIT = 232448;   // a block's shared memory on sm_90
 
 // rows of float64 weights converted at a time (router weights of the
-// dots, Bu rows of the epilogue), in two alternating buffers
+// dots, Bu rows of the epilogue), in two alternating buffers (one with the
+// 128-column pass)
 constexpr int MOE_CVT = 8;
 // a converted row: 64 values, 2 of padding after each 16 (the four lanes of
 // a row read 16 columns each, on other banks)
 constexpr int MOE_CV_ROW = 72;
 __device__ __forceinline__ int cv_col(int c) { return c + (c >> 4) * 2; }
 
-// Shared-memory layout for E experts, W columns and ``stages`` ring stages:
-// the ring (a stage: the fp32 x chunk [2][64 rows][32], then a Wd box
-// [wbox][64] bf16 or a Wu item [<= 4][64][64] bf16, all 128-byte swizzled),
-// the H tile [w64 / 64][64 rows][64] bf16 (swizzled), the float64 router
-// dots [E + 1][64] (the first E rows then hold the gates, as float64),
-// the converted weights [2][MOE_CVT][MOE_CV_ROW] float64, each consumer
-// warp's output staging rows (gemm.cuh's), then a full and an empty barrier
-// a stage; offsets from the first 1024-byte boundary.
+// The layout's free choices: the columns of W a down pass covers (its Wd
+// box: 256, each consumer warpgroup two 64-column pieces of it, with two
+// alternating converted-weight buffers; or 128, one piece each, with one
+// buffer behind one more barrier a refill) and the ring's stages (2 to 4).
+struct MoePlan {
+  int pass, stages;
+};
+
+// Shared-memory layout for E experts, W columns and a plan: the ring (a
+// stage: the fp32 x chunk [2][64 rows][32], then a Wd box [wbox][64] bf16
+// or a Wu item [<= 4][64][64] bf16, all 128-byte swizzled), the H tile
+// [w64 / 64][64 rows][64] bf16 (swizzled), the float64 router dots [E + 1]
+// [64] (the first E rows then hold the gates, as float64), the converted
+// weights [cv_bufs][MOE_CVT][MOE_CV_ROW] float64, each consumer warp's
+// output staging rows (gemm.cuh's), then a full and an empty barrier a stage;
+// offsets from the first 1024-byte boundary.  A stage holds an up item (up
+// to four 64-column pieces of W: 32 KB) at either pass width.
 struct MoeLayout {
-  int w64, wbox, npass, stage, h_off, rd_off, cv_off, os_off, bar_off,
-      bytes;
-  __host__ __device__ MoeLayout(int E, int W, int stages) {
+  int w64, wbox, npass, nup, cv_bufs, stage, h_off, rd_off, cv_off, os_off,
+      bar_off, bytes;
+  __host__ __device__ MoeLayout(int E, int W, const MoePlan& plan) {
     w64 = (W + 63) / 64 * 64;
-    wbox = w64 < MOE_PASS ? w64 : MOE_PASS;
-    npass = (w64 + MOE_PASS - 1) / MOE_PASS;
+    wbox = w64 < plan.pass ? w64 : plan.pass;
+    npass = (w64 + plan.pass - 1) / plan.pass;
+    nup = (w64 + MOE_PASS - 1) / MOE_PASS;
+    cv_bufs = plan.pass == MOE_PASS ? 2 : 1;
     stage = MOE_ROWS * MOE_CHUNK * 4 + wbox * 128;
-    h_off = stages * stage;
+    h_off = plan.stages * stage;
     rd_off = h_off + MOE_ROWS * w64 * 2;
     cv_off = rd_off + (E + 1) * MOE_ROWS * 8;
-    os_off = cv_off + 2 * MOE_CVT * MOE_CV_ROW * 8;
+    os_off = cv_off + cv_bufs * MOE_CVT * MOE_CV_ROW * 8;
     bar_off = os_off + MOE_CONSUMERS / 32 * GEMM_OUT_STAGE;
-    bytes = 1024 + bar_off + 2 * stages * 8;
+    bytes = 1024 + bar_off + 2 * plan.stages * 8;
   }
 };
 
@@ -125,7 +147,9 @@ __device__ __forceinline__ void add_rn(float (&acc)[N], const float (&p)[N]) {
   for (int e = 0; e < N; ++e) acc[e] = __fadd_rn(acc[e], p[e]);
 }
 
-template <typename TO>
+// PW: the 64-column pieces of W a consumer warpgroup takes a down pass (2:
+// the 256-column pass, 1: the 128-column one)
+template <typename TO, int PW>
 __global__ void __launch_bounds__(MOE_THREADS, 1)
 moe_adapter_router_kernel(const __grid_constant__ CUtensorMap map_x,
                           const __grid_constant__ CUtensorMap map_wd,
@@ -137,10 +161,11 @@ moe_adapter_router_kernel(const __grid_constant__ CUtensorMap map_x,
                           const float* __restrict__ wsel,
                           const float* __restrict__ bsel,
                           TO* __restrict__ adapt, float* __restrict__ logits,
-                          int E, int b, float inv_tau, int stages) {
+                          int E, int b, float inv_tau, MoePlan plan) {
   constexpr int XB = MOE_ROWS * 128;       // one 32-column x box
-  const int W = E * b;
-  const MoeLayout L(E, W, stages);
+  constexpr int PPP = 2 * PW;              // 64-column pieces a pass
+  const int W = E * b, stages = plan.stages;
+  const MoeLayout L(E, W, plan);
   extern __shared__ unsigned char moe_smem_raw[];
   unsigned char* base = align1024(moe_smem_raw);
   unsigned char* Hs = base + L.h_off;
@@ -187,11 +212,11 @@ moe_adapter_router_kernel(const __grid_constant__ CUtensorMap map_x,
             tma_load_2d(st + XB, &map_x, &full[stage], k * MOE_CHUNK + 32,
                         m0);
             tma_load_2d(st + 2 * XB, &map_wd, &full[stage], k * MOE_CHUNK,
-                        p * MOE_PASS);
+                        p * PPP * 64);
             advance();
           }
         for (int n = 0; n < nk; ++n)
-          for (int it = 0; it < L.npass; ++it) {
+          for (int it = 0; it < L.nup; ++it) {
             const int nkb = min(4, npiece - 4 * it);
             unsigned char* st = slot(nkb * 64 * 128);
             for (int kb = 0; kb < nkb; ++kb)
@@ -204,8 +229,8 @@ moe_adapter_router_kernel(const __grid_constant__ CUtensorMap map_x,
     return;
   }
 
-  // consumer warpgroups: cg takes columns [128 cg, 128 cg + 128) of each
-  // down pass and [32 cg, 32 cg + 32) of each output chunk
+  // consumer warpgroups: cg takes columns [64 PW cg, 64 PW (cg + 1)) of
+  // each down pass and [32 cg, 32 cg + 32) of each output chunk
   setmaxnreg_inc<232>();
   const int ctid = threadIdx.x, cg = ctid >> 7, warp = (ctid >> 5) & 3;
   const int lane = ctid & 31, g = lane >> 2, t2 = (lane & 3) * 2;
@@ -240,7 +265,10 @@ moe_adapter_router_kernel(const __grid_constant__ CUtensorMap map_x,
   int cvb = 0;
   auto store_cv = [&](const float (&v)[2], int n) {
     double* buf = CV + cvb * MOE_CVT * MOE_CV_ROW;
-    cvb ^= 1;
+    if (PW == 1)
+      consumer_sync();            // one buffer: every reader is done with it
+    else
+      cvb ^= 1;
 #pragma unroll
     for (int j = 0; j < 2; ++j) {
       const int i = ctid + j * MOE_CONSUMERS;
@@ -271,17 +299,17 @@ moe_adapter_router_kernel(const __grid_constant__ CUtensorMap map_x,
 
     // --- down product (+ router dots on the first pass) -------------------
     for (int p = 0; p < L.npass; ++p) {
-      // acc[q]: piece 4 p + 2 cg + q of W (64 columns); a piece past W is
-      // computed on piece 0's rows and dropped
-      float acc[2][32];
+      // acc[q]: piece PPP p + PW cg + q of W (64 columns); a piece past W
+      // is computed on piece 0's rows and dropped
+      float acc[PW][32];
 #pragma unroll
-      for (int q = 0; q < 2; ++q)
+      for (int q = 0; q < PW; ++q)
 #pragma unroll
         for (int e = 0; e < 32; ++e) acc[q][e] = 0.f;
-      int wd_row[2];
+      int wd_row[PW];
 #pragma unroll
-      for (int q = 0; q < 2; ++q)
-        wd_row[q] = 4 * p + 2 * cg + q < npiece ? 2 * cg + q : 0;
+      for (int q = 0; q < PW; ++q)
+        wd_row[q] = PPP * p + PW * cg + q < npiece ? PW * cg + q : 0;
       for (int k = 0; k < nk; ++k) {
         const unsigned char* st = wait_full();
         const unsigned char* wd = st + 2 * XB;
@@ -346,23 +374,23 @@ moe_adapter_router_kernel(const __grid_constant__ CUtensorMap map_x,
           }
         // per k16 step, both pieces' products into zeroed partials, then
         // each added to its sum once they are done
-        float pd[2][32];
+        float pd[PW][32];
 #pragma unroll
         for (int kk = 0; kk < 4; ++kk) {
-          fence_regs(pd[0]);
-          fence_regs(pd[1]);
+#pragma unroll
+          for (int q = 0; q < PW; ++q) fence_regs(pd[q]);
           wgmma_fence();
 #pragma unroll
-          for (int q = 0; q < 2; ++q)
+          for (int q = 0; q < PW; ++q)
             wgmma_rs<64, false>(
                 pd[q], af[kk],
                 desc_sw128(wd + wd_row[q] * 64 * 128 + kk * 32), 0);
           wgmma_commit();
           wgmma_wait<0>();
-          fence_regs(pd[0]);
-          fence_regs(pd[1]);
-          add_rn(acc[0], pd[0]);
-          add_rn(acc[1], pd[1]);
+#pragma unroll
+          for (int q = 0; q < PW; ++q) fence_regs(pd[q]);
+#pragma unroll
+          for (int q = 0; q < PW; ++q) add_rn(acc[q], pd[q]);
         }
         release();
       }
@@ -397,8 +425,8 @@ moe_adapter_router_kernel(const __grid_constant__ CUtensorMap map_x,
 
       // bottleneck: bf16(relu(down + bd) * gate) -> H
 #pragma unroll
-      for (int q = 0; q < 2; ++q) {
-        const int P = 4 * p + 2 * cg + q;
+      for (int q = 0; q < PW; ++q) {
+        const int P = PPP * p + PW * cg + q;
         if (P >= npiece) continue;
 #pragma unroll
         for (int j = 0; j < 8; ++j) {
@@ -430,7 +458,7 @@ moe_adapter_router_kernel(const __grid_constant__ CUtensorMap map_x,
 #pragma unroll
       for (int e = 0; e < 16; ++e) u[e] = 0.f;
       load_b(n, 0, min(MOE_CVT, E), bpre);     // under the products
-      for (int it = 0; it < L.npass; ++it) {
+      for (int it = 0; it < L.nup; ++it) {
         const unsigned char* wu = wait_full();
         const int ks0 = it * 16, cnt = min(16, nks - ks0);
         // four k16 steps at a time: H's steps ks0 + s against the item's
@@ -507,11 +535,26 @@ moe_adapter_router_kernel(const __grid_constant__ CUtensorMap map_x,
   }
 }
 
-// the most ring stages (2 to 4) whose layout fits a block; 0 if none does
-inline int moe_stages(int E, int W) {
-  for (int s = MOE_MAX_STAGES; s >= 2; --s)
-    if (MoeLayout(E, W, s).bytes <= MOE_SMEM_LIMIT) return s;
-  return 0;
+// The plan for E experts and W columns: the 256-column pass with the most
+// stages (2 to 4) whose layout fits a block; past E*b = MOE_NARROW_W, where
+// none does (W = 1024, or many experts), the 128-column pass likewise; false
+// where none fits.  Measured once with the layout forced (PERF.md): the
+// 256-column pass ran ~10% under the 128-column one at W = 768; the stage
+// count (2 or 3) and a second converted-weight buffer made no difference
+// past 1% for the 128-column pass.
+inline bool moe_plan(int E, int W, MoePlan* plan) {
+  const int passes[2] = {MOE_PASS, 128};
+  for (const int pass : passes) {
+    if (pass != MOE_PASS && W <= MOE_NARROW_W) break;
+    for (int s = MOE_MAX_STAGES; s >= 2; --s) {
+      const MoePlan p{pass, s};
+      if (MoeLayout(E, W, p).bytes <= MOE_SMEM_LIMIT) {
+        *plan = p;
+        return true;
+      }
+    }
+  }
+  return false;
 }
 
 template <typename TO>
@@ -520,10 +563,11 @@ static cudaError_t moe(const float* xm, int M, int C, const float* wr,
                        const float* bu, const float* ascale, const float* wsel,
                        const float* bsel, TO* adapt, float* logits, int E,
                        int b, float inv_tau, cudaStream_t st) {
-  const int W = E * b, stages = moe_stages(E, W);
-  if (stages == 0) return cudaErrorInvalidValue;
+  const int W = E * b;
+  MoePlan plan;
+  if (!moe_plan(E, W, &plan)) return cudaErrorInvalidValue;
   if (M <= 0) return cudaSuccess;
-  const MoeLayout L(E, W, stages);
+  const MoeLayout L(E, W, plan);
   // x_mid read in [32 columns, 64 rows] fp32 boxes, Wd in [64, wbox] and Wu
   // in [64, 64] bf16 boxes, all 128-byte swizzled; zeros past each edge
   CUtensorMap map_x, map_wd, map_wu;
@@ -553,15 +597,16 @@ static cudaError_t moe(const float* xm, int M, int C, const float* wr,
   if (err != cudaSuccess) return err;
   err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(moe_adapter_router_kernel<TO>,
+  auto kernel = plan.pass == MOE_PASS ? moe_adapter_router_kernel<TO, 2>
+                                      : moe_adapter_router_kernel<TO, 1>;
+  err = cudaFuncSetAttribute(kernel,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              L.bytes);
   if (err != cudaSuccess) return err;
   const int tiles = (M + MOE_ROWS - 1) / MOE_ROWS;
-  moe_adapter_router_kernel<TO>
-      <<<tiles < sms ? tiles : sms, MOE_THREADS, L.bytes, st>>>(
-          map_x, map_wd, map_wu, M, C, wr, bd, bu, ascale, wsel, bsel, adapt,
-          logits, E, b, inv_tau, stages);
+  kernel<<<tiles < sms ? tiles : sms, MOE_THREADS, L.bytes, st>>>(
+      map_x, map_wd, map_wu, M, C, wr, bd, bu, ascale, wsel, bsel, adapt,
+      logits, E, b, inv_tau, plan);
   return cudaGetLastError();
 }
 
@@ -570,16 +615,23 @@ static cudaError_t moe(const float* xm, int M, int C, const float* wr,
 extern "C" {
 
 // Expert counts and widths the MoE kernel takes: E >= 2, W = E*b a multiple
-// of 16 and at most 512.
+// of 16 and at most 1024 (where a layout fits: dyt_moe_smem_bytes).
 int dyt_moe_width_supported(int E, int b) {
   const int W = E * b;
   return E >= 2 && b >= 1 && W % 16 == 0 && W <= dyt::MOE_MAX_W;
 }
 
-// Dynamic shared memory of one block with the fewest stages (the wrapper
-// checks it against the card's 227 KB).
+// Dynamic shared memory of one block of the layout the kernel takes for E
+// experts of width b; where none fits, of the smallest (past the card's
+// 227 KB: the wrapper checks it).
 int dyt_moe_smem_bytes(int E, int b) {
-  return dyt::MoeLayout(E, E * b, 2).bytes;
+  const int W = E * b;
+  dyt::MoePlan plan;
+  if (dyt::moe_plan(E, W, &plan)) return dyt::MoeLayout(E, W, plan).bytes;
+  return dyt::MoeLayout(E, W, W <= dyt::MOE_NARROW_W
+                                  ? dyt::MoePlan{dyt::MOE_PASS, 2}
+                                  : dyt::MoePlan{128, 2})
+      .bytes;
 }
 
 // xm: fp32 [M, C] x_mid (C % 64 == 0); wr [E, C] fp32; wd [E*b, C] and

@@ -54,7 +54,12 @@
 //                     128-lane row, the row amaxes traded in the cluster)
 //                     built in shared memory, q quantized per head row in
 //                     registers, s32 Q K^T on wgmma, then the clamped exp
-//                     and the bf16 P V of the bf16 core.
+//                     and the bf16 P V of the bf16 core; at head dims 64 to
+//                     256 while the pair's codes and V fit a block.  Past
+//                     that N, and at head dims 320 to 768, K10 runs on
+//                     q8_ring.cu's wgmma key ring (the codes from
+//                     q8_codes.cuh, keys in 32-row tiles by TMA); on fp32
+//                     qkv and past 768 on simt_core_q8.cu's SIMT form.
 // Every rounding step uses the _rn intrinsics (mul/add/sub of common.cuh):
 // nvcc would otherwise contract a * b + c into one FMA, which rounds once
 // where the TPU kernel rounds twice.
@@ -72,6 +77,9 @@ extern "C" int dyt_simt_core_exact(const float* qkv, float* out, int B,
 extern "C" int dyt_simt_core_q8(const void* qkv, void* out, void* scratch,
                                 int B, int N, int C, int H, float scale,
                                 int t_f32, void* stream);
+extern "C" int dyt_attn_core_q8_ring(const void* qkv, void* out,
+                                     void* scratch, int B, int N, int C,
+                                     int H, float scale, void* stream);
 extern "C" int dyt_simt_core_qkv(const void* qkv, void* out, int B, int N,
                                  int C, int H, float scale, int t_f32,
                                  void* stream);
@@ -302,8 +310,9 @@ static cudaError_t launch_row_quant(const TI* x, int8_t* q, float* rs, int M,
 // is a warp.  The whole-row chunk's 104-128 score registers beside o's 96
 // or 128 would pass 255, so the chunks are the wide bf16 core's: 64 keys
 // pipelined over two buffers at hd 192, 32 keys one by one at hd 256.  One
-// block an SM (its layout takes 160-202 KB at N = 197), so the route stays
-// the SIMT form past the N whose layout fits (~300 at hd 192, ~240 at 256).
+// block an SM (its layout takes 160-202 KB at N = 197); past the N whose
+// layout fits (~300 at hd 192, ~240 at 256) the route is
+// q8_ring.cu's key ring.
 
 constexpr int Q8C_THREADS = 128;         // one warpgroup a block
 constexpr int Q8C_STREAM_KEYS = 64;      // keys a chunk past 256 keys
@@ -752,20 +761,24 @@ static cudaError_t attn_core_q8(const bf16* qkv, bf16* out, int B, int N,
 // ---------------------------------------------------------------------------
 // The chains
 
+// the chain's core forms (the caller's route, ops/mha_serving.py::core_of)
+constexpr int CORE_TENSOR = 0, CORE_SIMT = 1, CORE_Q8_RING = 2;
+
 // The chain with its qkv and core-output scratch in TS: bf16 (K5, and K6 /
 // K8 with bf16 adapters) or fp32 (K6 / K8 with fp32 adapters, JAX's
 // ``adtype``: the int8 GEMM's epilogue stores the fp32 qkv, the exact core
 // runs on it with its sums in float64, as the plain version's, so its fp32
 // output is row-quantized for proj into the plain version's codes).
-// ``simt_core`` selects the SIMT core's form over the tensor-core one: with
-// int8 scores (attn_q8) the SIMT int8-score form over K10's wgmma form (an
-// fp32 scratch takes the SIMT form only); on an fp32 scratch without them
-// the exact SIMT slices kernel (simt_core.cu, past head dim 256) over the
-// DMMA exact core (exact_core.cu, head dims 64 to 256); on a bf16 scratch
-// without them the SIMT core over attention_sublayer.cu's wgmma core.  The
-// caller decides.
-// ``core_scratch`` holds the int8-score SIMT core's codes (attn_q8 with
-// simt_core).
+// ``core`` selects the core's form: CORE_TENSOR (0) the tensor-core one,
+// CORE_SIMT (1) the SIMT core's, CORE_Q8_RING (2) the int8-score wgmma key
+// ring.  With int8 scores (attn_q8): K10's staged wgmma form, the SIMT
+// int8-score form (an fp32 scratch takes it only) or the ring (bf16); on an
+// fp32 scratch without them the exact SIMT slices kernel (simt_core.cu, past
+// head dim 256) over the DMMA exact core (exact_core.cu, head dims 64 to
+// 256); on a bf16 scratch without them the SIMT core over
+// attention_sublayer.cu's wgmma core.  The caller decides.
+// ``core_scratch`` holds the codes of the int8-score SIMT form and of the
+// ring (attn_q8 with CORE_SIMT or CORE_Q8_RING).
 template <typename TX, typename TS>
 static cudaError_t sublayer_q8(const TX* x, const float* gamma,
                                const float* beta, const int8_t* wqkv,
@@ -775,9 +788,13 @@ static cudaError_t sublayer_q8(const TX* x, const float* gamma,
                                int8_t* a8, float* rs, TS* qkv_buf,
                                TS* attn_buf, void* core_scratch, int B, int N,
                                int C, int H, float scale, int attn_q8,
-                               int simt_core, cudaStream_t s) {
+                               int core, cudaStream_t s) {
   constexpr bool F32 = std::is_same<TS, float>::value;
-  if (F32 && attn_q8 && !simt_core) return cudaErrorInvalidValue;
+  if (core < CORE_TENSOR || core > CORE_Q8_RING ||
+      (core == CORE_Q8_RING && (F32 || !attn_q8)) ||
+      (F32 && attn_q8 && core != CORE_SIMT))
+    return cudaErrorInvalidValue;
+  const bool simt_core = core == CORE_SIMT;
   const int M = B * N;
   if (C % 8 || C > 32 * 8 * MAX_CHUNKS) return cudaErrorInvalidValue;
   ln_quant_kernel<TX><<<(M + 7) / 8, 256, 0, s>>>(x, gamma, beta, a8, rs, M,
@@ -796,10 +813,14 @@ static cudaError_t sublayer_q8(const TX* x, const float* gamma,
                     : dyt_exact_core(qkv_buf, attn_buf, B, N, C, H, scale,
                                      s));
   } else if (attn_q8) {
-    err = simt_core ? static_cast<cudaError_t>(dyt_simt_core_q8(
-                          qkv_buf, attn_buf, core_scratch, B, N, C, H, scale,
-                          0, s))
-                    : attn_core_q8(qkv_buf, attn_buf, B, N, C, H, scale, s);
+    err = core == CORE_Q8_RING
+              ? static_cast<cudaError_t>(dyt_attn_core_q8_ring(
+                    qkv_buf, attn_buf, core_scratch, B, N, C, H, scale, s))
+          : simt_core ? static_cast<cudaError_t>(dyt_simt_core_q8(
+                            qkv_buf, attn_buf, core_scratch, B, N, C, H,
+                            scale, 0, s))
+                      : attn_core_q8(qkv_buf, attn_buf, B, N, C, H, scale,
+                                     s);
   } else {
     err = static_cast<cudaError_t>(
         simt_core ? dyt_simt_core_qkv(qkv_buf, attn_buf, B, N, C, H, scale, 0,
@@ -940,10 +961,11 @@ int dyt_attn_core_q8(const void* qkv, void* out, int B, int N, int C, int H,
 // residual dtype (x_f32 selects fp32 over bf16); gamma/beta/biases/scales
 // fp32; wqkv [3C, C], wproj [C, C] int8; xm32 an optional fp32 copy of out;
 // a8 [B*N, C] int8, rs [B*N] fp32, qkv_buf [B*N, 3C] and attn_buf [B*N, C]
-// scratch in bf16, or fp32 with scratch_f32; attn_q8 selects the K10 core,
-// simt_core the SIMT core's form of it (set for fp32 scratch);
-// core_scratch dyt_simt_core_q8_scratch_bytes on 16 bytes with both, else
-// unused.  Returns a cudaError_t value.
+// scratch in bf16, or fp32 with scratch_f32; attn_q8 selects the K10 core;
+// core its form (0 the tensor-core one, 1 the SIMT core's, which fp32
+// scratch takes with attn_q8, 2 the int8-score key ring, bf16 with attn_q8
+// only); core_scratch dyt_simt_core_q8_scratch_bytes on 16 bytes with
+// attn_q8 and core 1 or 2, else unused.  Returns a cudaError_t value.
 int dyt_attention_sublayer_q8(const void* x, int x_f32, const float* gamma,
                               const float* beta, const void* wqkv,
                               const float* sqkv, const float* bqkv,
@@ -952,7 +974,7 @@ int dyt_attention_sublayer_q8(const void* x, int x_f32, const float* gamma,
                               void* a8, float* rs, void* qkv_buf,
                               void* attn_buf, int scratch_f32,
                               void* core_scratch, int B, int N, int C, int H,
-                              float scale, int attn_q8, int simt_core,
+                              float scale, int attn_q8, int core,
                               void* stream) {
   using dyt::bf16;
   auto* wq = static_cast<const int8_t*>(wqkv);
@@ -965,12 +987,12 @@ int dyt_attention_sublayer_q8(const void* x, int x_f32, const float* gamma,
                               sqkv, bqkv, wp, sproj, bproj,
                               static_cast<float*>(out), xm32, a, rs, qb, ab,
                               core_scratch, B, N, C, H, scale, attn_q8,
-                              simt_core, s);
+                              core, s);
     return dyt::sublayer_q8(static_cast<const bf16*>(x), gamma, beta, wq,
                             sqkv, bqkv, wp, sproj, bproj,
                             static_cast<bf16*>(out), xm32, a, rs, qb, ab,
                             core_scratch, B, N, C, H, scale, attn_q8,
-                            simt_core, s);
+                            core, s);
   };
   if (scratch_f32)
     return run(static_cast<float*>(qkv_buf), static_cast<float*>(attn_buf));

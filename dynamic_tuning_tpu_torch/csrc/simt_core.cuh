@@ -107,7 +107,7 @@ struct ScLayout {
 // Element strides (batch, head, row) of q, k, v and out, unit stride along
 // hd.  In the int8-score form q and k are the codes ([B, N, C] int8, head h
 // at column h * hd for both: the k codes of a pair row cover its two heads'
-// lanes), qs [B, N, H] and ks [B, N, H / 2] their row scales.
+// lanes), qs [B, N, H] and ks [B, H / 2, ks_n] their row scales.
 template <typename T>
 struct ScArgs {
   const void* q;
@@ -122,6 +122,7 @@ struct ScArgs {
   int N, H;
   float scale;
   int k15;                   // K15's rounding (the slices kernel only)
+  int ks_n;                  // a pair's row of ks (N rounded up to 4)
 };
 
 // Acc, the sums' type: fp32, or float64 where the output is requantized
@@ -249,10 +250,10 @@ simt_core_slices_kernel(const ScArgs<T> a, int hd) {
               isq ? qb + n * a.sq[2] + c : kb + n * a.sk[2] + c);
         *reinterpret_cast<int4*>((isq ? Qi : Ki) + r * L::QW + c / 4) = v;
       }
+      const float* ksb = a.ks + ((long long)b * (a.H / 2) + h / 2) * a.ks_n;
       for (int r = tid; r < KT; r += SC_THREADS) {
         const int n = k0 + r;
-        ksc[r] = n < N ? a.ks[((long long)b * N + n) * (a.H / 2) + h / 2]
-                       : 0.f;
+        ksc[r] = n < N ? ksb[n] : 0.f;
       }
     } else {
       const T* qb = static_cast<const T*>(a.q) + b * a.sq[0] + h * a.sq[1] +

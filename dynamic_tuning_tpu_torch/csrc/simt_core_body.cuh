@@ -80,10 +80,10 @@
         if (n < N) v = *reinterpret_cast<const int4*>(kb + n * a.sk[2] + c);
         *reinterpret_cast<int4*>(Ki + r * L::QW + c / 4) = v;
       }
+      const float* ksb = a.ks + ((long long)b * (a.H / 2) + h / 2) * a.ks_n;
       for (int r = tid; r < KT; r += SC_THREADS) {
         const int n = k0 + r;
-        ksc[r] = n < N ? a.ks[((long long)b * N + n) * (a.H / 2) + h / 2]
-                       : 0.f;
+        ksc[r] = n < N ? ksb[n] : 0.f;
       }
     } else {
       const T* kb = static_cast<const T*>(a.k) + b * a.sk[0] + h * a.sk[1];

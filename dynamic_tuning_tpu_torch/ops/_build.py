@@ -45,6 +45,7 @@ _SIGNATURES = {
     "dyt_q8_ln_mlp": [_P, _I] + [_P] * 13 + [_I, _I, _I, _I, _P],
     "dyt_attn_core_q8": [_P, _P, _I, _I, _I, _I, _F, _P],
     "dyt_attn_core_q8_smem_bytes": [_I, _I],
+    "dyt_attn_core_q8_ring": [_P, _P, _P, _I, _I, _I, _I, _F, _P],
     "dyt_q8_stem_gemm": [_P, _P, _P, _P, _P, _I, _I, _I, _P, _I, _P],
     "dyt_q8_dispatch_mlp": [_P, _I] + [_P] * 17 + [_I] * 6 + [_P],
     "dyt_gemm_s8": [_I, _I] + [_P] * 5 + [_I, _I, _I] + [_P] * 6,

@@ -33,14 +33,17 @@ or launch.  There is no other path.  Each launch adds one to the wrapper's
 K6 and K8 the exact core of ``csrc/exact_core.cu``),
 "bf16+wide_heads" (bf16 at head dims 192 and 256 on the wgmma kernels),
 "bf16+past_256" and "fp32+past_256" (past head dim 256, up to 768, on the
-wgmma core and the fp32 core that take hd at run time), "bf16+simt_core"
-(bf16 past head dim 768, K10 past head dim 256 and past its wgmma layout's
-N: the SIMT core, which walks any head dim in 64-column slices) and
-"+simt_tail" (a bf16 adapter or MoE tail at a width the wgmma tails do not
-take, on the SIMT tail).  ``core_of`` is the one table of which attention
-core each wrapper runs; each wrapper calls the entry of that core,
-and the one C entry with a choice of cores (the int8 chain's) follows the
-route the wrapper passes it.
+wgmma core and the fp32 core that take hd at run time), "bf16+q8_ring"
+(bf16 K10, and K5/K6/K8 with int8 scores, on ``csrc/q8_ring.cu``'s wgmma
+key ring: past head dim 256 up to 768, and at head dims 64 to 256 past the
+N whose codes and V fit the staged int8-score core), "bf16+simt_core"
+(bf16 past head dim 768: the SIMT core, which walks any head dim in
+64-column slices) and "+simt_tail" (a bf16 adapter or MoE tail at a width
+the wgmma tails do not take, on the SIMT tail).
+``core_of`` is the one table of which attention core each wrapper runs;
+each wrapper calls the entry of that core, and the one C entry with a
+choice of cores (the int8 chain's) follows the route the wrapper passes
+it.
 
 Weights are in torch's ``[out, in]`` layout, in the compute dtype (bf16 or
 fp32), cast once by the caller; the form follows their dtype, as the JAX
@@ -80,14 +83,14 @@ from dynamic_tuning_tpu_torch.ops import _build
 LN_EPS = 1e-6
 SMEM_PER_BLOCK = 232448          # H100: 227 KB of dynamic shared memory
 BF, F32 = torch.bfloat16, torch.float32
-Q8_MAX_HD = 256                  # K10's int8-score wgmma core's largest
-#                                  head dim; past it its SIMT form
+Q8_MAX_HD = 256                  # K10's staged int8-score wgmma core's
+#                                  largest head dim; past it the key ring
 WIDE_MAX_HD = 768                # the wgmma and fp32 cores' largest head
 #                                  dim (csrc's XW_MAX_HD, FX_MAX_HD); past it
 #                                  every core is the SIMT core's
 AR_WIDTHS = (16, 32, 48, 64, 96, 128)    # the wgmma adapter/router kernel's F
 #                                  (csrc's dyt_adapter_width_supported)
-MOE_MAX_W = 512                  # the wgmma MoE tail's largest E * b
+MOE_MAX_W = 1024                 # the wgmma MoE tail's largest E * b
 EXACT_MAX_HD = 256               # the DMMA exact core's largest head dim
 #                                  (exact_core.cu); past it the SIMT slices
 #                                  kernel's exact form
@@ -228,9 +231,10 @@ def pad_adapter_weights(wdown, bdown, wup, width: int):
 
 def moe_kernel_bneck(E: int, b: int, dtype) -> int:
     """The expert width the kernels take E bf16 experts of width ``b`` at:
-    the least b' >= b with E * b' a multiple of 16, where E * b' <= 512 (the
-    wgmma MoE tail's domain); else ``b`` (the SIMT tail takes any E * b,
-    and fp32 experts take the float64 tail at any width)."""
+    the least b' >= b with E * b' a multiple of 16, where E * b' <=
+    ``MOE_MAX_W`` = 1024 (the wgmma MoE tail's domain); else ``b`` (the SIMT
+    tail takes any E * b, and fp32 experts take the float64 tail at any
+    width)."""
     if dtype != BF or E < 2:
         return b
     bp = b
@@ -360,10 +364,14 @@ def core_of(kernel: str, dtype, hd: int, *, heads: int,
       scores, at head dims up to ``WIDE_MAX_HD``;
     * "windowed": bf16 K9 up to ``WIDE_MAX_HD`` (``windowed_attention.cu``
       at 64 and 128, the wgmma cores with the bias blocks past 128);
-    * "q8": ``quant.cu``'s int8-score wgmma core -- bf16 K10 (and K5, K6, K8
-      with ``attn_q8``) up to ``Q8_MAX_HD`` where its layout fits a block
-      (``q8_fits``);
-    * "simt_q8": the SIMT core's int8-score form -- the rest of K10's;
+    * "q8": ``quant.cu``'s staged int8-score wgmma core -- bf16 K10 (and
+      K5, K6, K8 with ``attn_q8``) up to ``Q8_MAX_HD`` where its layout fits
+      a block (``q8_fits``);
+    * "q8_ring": ``q8_ring.cu``'s int8-score wgmma key ring -- bf16 K10
+      (and K5, K6, K8 with ``attn_q8``) past the staged core's N at head dims
+      64 to ``Q8_MAX_HD`` and past it up to ``WIDE_MAX_HD``;
+    * "simt_q8": the SIMT core's int8-score form -- the rest of K10's: fp32
+      qkv, and bf16 past ``WIDE_MAX_HD``;
     * "f32": ``f32_core.cu``'s register-tiled fp32 cores -- fp32 K1, K9 and
       the cores of K2, K3, K7 up to ``WIDE_MAX_HD``;
     * "f32_exact": the exact core with float64 sums on DMMA
@@ -390,8 +398,9 @@ def core_of(kernel: str, dtype, hd: int, *, heads: int,
     if dtype not in (BF, F32) or (kernel in ("K5", "K15") and dtype != BF):
         raise TypeError(f"{kernel} takes no {dtype} on the card")
     if kernel == "K10" or (attn_q8 and kernel in ("K5", "K6", "K8")):
-        return ("q8" if dtype == BF and hd <= Q8_MAX_HD and q8_fits
-                else "simt_q8")
+        if dtype != BF or hd > WIDE_MAX_HD:
+            return "simt_q8"
+        return "q8" if hd <= Q8_MAX_HD and q8_fits else "q8_ring"
     if dtype == F32 and kernel in ("K6", "K8"):
         return "f32_exact" if hd <= EXACT_MAX_HD else "simt_exact"
     if hd > WIDE_MAX_HD:
@@ -406,14 +415,16 @@ def form_of(dtype, hd: int | None = None, simt_tail: bool = False,
     """The form a wrapper takes (its ``forms`` key): "fp32" ("fp32+past_256"
     on the fp32 core past head dim 256), or "bf16" with "+wide_heads" at
     head dims 192 and 256 and "+past_256" past them on the wgmma cores
-    ("+simt_core" where ``core`` is the SIMT core's past head dim 128: past
-    ``WIDE_MAX_HD``, and K10 past ``Q8_MAX_HD`` or its layout's N) and
-    "+simt_tail" for a tail on the SIMT form."""
+    ("+simt_core" where ``core`` is the SIMT core's past head dim 128, past
+    ``WIDE_MAX_HD``; "+q8_ring" at any head dim where ``core`` is the
+    int8-score key ring) and "+simt_tail" for a tail on the SIMT form."""
     past = hd is not None and hd > 256
     if dtype == F32:
         return "fp32+past_256" if past and core == "f32" else "fp32"
     form = "bf16"
-    if core in ("simt", "simt_q8") and hd is not None and hd > 128:
+    if core == "q8_ring":
+        form += "+q8_ring"
+    elif core in ("simt", "simt_q8") and hd is not None and hd > 128:
         form += "+simt_core"
     elif past:
         form += "+past_256"
@@ -609,10 +620,9 @@ def dyt_prologue_serving_moe(x, gamma, beta, wqkv, bqkv, wproj, bproj,
     ``moe_kernel_weights`` lays them out (wdown2d [E*b, C], wup2d [C, E*b]
     in the compute dtype), wrouter [E, C], bdown2d [E*b], bup [E, C],
     adapter_scale [1], wsel [1, C] and bsel [1] fp32.  A bf16 E * b that is
-    a multiple of 16 and at most 512 takes the wgmma tail
-    (``moe_kernel_bneck`` pads the others up to one where it can), any
-    other bf16 width the SIMT tail, fp32 experts the float64 tail on
-    DMMA."""
+    a multiple of 16 and at most ``MOE_MAX_W`` takes the wgmma tail
+    (``moe_kernel_bneck`` pads the others up to one where it can), any other
+    bf16 width the SIMT tail, fp32 experts the float64 tail on DMMA."""
     if x.device.type == "cpu":
         return dyt_prologue_moe_plain(
             x, gamma, beta, wqkv, bqkv, wproj, bproj, wrouter, wdown2d,
@@ -639,8 +649,8 @@ def dyt_prologue_serving_moe(x, gamma, beta, wqkv, bqkv, wproj, bproj,
 def _moe_tail(lib, E, W, C, wdown2d) -> str:
     """"f64" for fp32 experts (the float64 tail on DMMA); "wgmma" where the
     wgmma MoE tail takes the bf16 experts (E >= 2, E * b a multiple of 16
-    and at most 512, C a multiple of 64, its layout within a block's shared
-    memory), else "simt"."""
+    and at most ``MOE_MAX_W``, C a multiple of 64, its layout within a
+    block's shared memory), else "simt"."""
     if wdown2d.dtype == F32:
         return "f64"
     if (E >= 2 and W % E == 0 and C % 64 == 0

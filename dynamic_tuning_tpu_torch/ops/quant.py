@@ -47,9 +47,10 @@ are those of the TPU kernels:
   mean over the N tokens and quantized per row of a HEAD PAIR (the TPU's
   128-lane row), so one k scale covers heads 2p and 2p+1; P.V in the
   scratch dtype (bf16 e and v, or fp32).  bf16 at head dims up to 256 on
-  the wgmma core where its layout fits a block, fp32, longer rows and head
-  dims past 256 on the SIMT core's int8-score form
-  (``mha_serving.core_of``).
+  the staged wgmma core where its layout fits a block, past that N and
+  past head dim 256 (up to 768) on the wgmma key ring of
+  ``csrc/q8_ring.cu``; fp32 and head dims past 768 on the SIMT core's
+  int8-score form (``mha_serving.core_of``).
 
 Each launch also adds one to the wrapper's ``forms[form]``
 (``mha_serving.form_of``).
@@ -445,8 +446,9 @@ q8_dispatch_mlp.launches = 0
 
 def _core_q8_route(lib, N, C, heads, dtype, kernel="K10") -> str:
     """K10's core (``ms.core_of``, which refuses what it does not take):
-    "q8" for bf16 at head dims up to 256 where its layout fits a block,
-    else "simt_q8" (the SIMT core's int8-score form)."""
+    "q8" for bf16 at head dims up to 256 where the staged core's layout
+    fits a block, "q8_ring" (the wgmma key ring) for the rest of bf16 up to
+    head dim 768, else "simt_q8" (the SIMT core's int8-score form)."""
     hd = C // heads
     fits = (hd > 0 and hd <= ms.Q8_MAX_HD
             and 0 < lib.dyt_attn_core_q8_smem_bytes(N, hd)
@@ -456,6 +458,7 @@ def _core_q8_route(lib, N, C, heads, dtype, kernel="K10") -> str:
 
 
 def _core_scratch(lib, B, N, C, heads, dev):
+    """The codes' scratch of the ring and the SIMT int8-score form."""
     return torch.empty((lib.dyt_simt_core_q8_scratch_bytes(B, N, C, heads),),
                        dtype=torch.uint8, device=dev)
 
@@ -478,6 +481,11 @@ def attn_core_pairs_q8(qkv: torch.Tensor, *, heads: int) -> torch.Tensor:
         if core == "q8":
             err = lib.dyt_attn_core_q8(_ptr(qkv), _ptr(out), B, N, C, heads,
                                        (C // heads) ** -0.5, _stream(dev))
+        elif core == "q8_ring":
+            err = lib.dyt_attn_core_q8_ring(
+                _ptr(qkv), _ptr(out),
+                _ptr(_core_scratch(lib, B, N, C, heads, dev)), B, N, C,
+                heads, (C // heads) ** -0.5, _stream(dev))
         else:
             scratch = _core_scratch(lib, B, N, C, heads, dev)
             err = lib.dyt_simt_core_q8(_ptr(qkv), _ptr(out), _ptr(scratch),
@@ -518,21 +526,23 @@ def _launch_sublayer_q8(lib, x, gamma, beta, wqkv_q, sqkv, bqkv, wproj_q,
     rs = torch.empty((M,), dtype=F32, device=dev)
     qkv = torch.empty((M, 3 * C), dtype=scratch, device=dev)
     attn = torch.empty((M, C), dtype=scratch, device=dev)
-    # the route decided here (ms.core_of) and passed down: a SIMT core (the
-    # int8-score form, the exact fp32 form past ms.EXACT_MAX_HD, or the bf16
-    # core past ms.WIDE_MAX_HD) or a tensor-core one (wgmma, or the exact
-    # fp32 core on DMMA)
+    # the route decided here (ms.core_of) and passed down as the chain's
+    # core flag: 1 a SIMT core (the int8-score form, the exact fp32 form
+    # past ms.EXACT_MAX_HD, or the bf16 core past ms.WIDE_MAX_HD), 2 the
+    # int8-score key ring, 0 a tensor-core one (wgmma, the staged int8-score
+    # core, or the exact fp32 core on DMMA)
     core = (_core_q8_route(lib, N, C, heads, scratch, kernel) if attn_q8
             else ms.core_of(kernel, scratch, C // heads, heads=heads))
-    simt = core in ("simt_q8", "simt_exact", "simt")
+    flag = (2 if core == "q8_ring" else
+            1 if core in ("simt_q8", "simt_exact", "simt") else 0)
     core_scratch = (_core_scratch(lib, B, N, C, heads, dev)
-                    if attn_q8 and simt else None)
+                    if core in ("simt_q8", "q8_ring") else None)
     err = lib.dyt_attention_sublayer_q8(
         _ptr(x), int(x.dtype == F32), _ptr(gamma), _ptr(beta), _ptr(wqkv_q),
         _ptr(sqkv), _ptr(bqkv), _ptr(wproj_q), _ptr(sproj), _ptr(bproj),
         _ptr(out), _ptr(xm32), _ptr(a8), _ptr(rs), _ptr(qkv), _ptr(attn),
         int(scratch == F32), _ptr(core_scratch), B, N, C, heads,
-        (C // heads) ** -0.5, int(attn_q8), int(simt), _stream(dev))
+        (C // heads) ** -0.5, int(attn_q8), flag, _stream(dev))
     _build.check(lib, err, "int8 attention sublayer kernels")
     if attn_q8:
         ms.counted(attn_core_pairs_q8,

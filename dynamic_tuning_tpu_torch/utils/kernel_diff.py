@@ -1,7 +1,7 @@
 """The bf16 attention core (K1, K15) and the windowed core (K9) at head dims
-64 to 256, the fp32 core, the int8 attention core (K10) and the dense
-adapter/router kernel of this tree against the same kernels of another
-checkout, bit for bit.
+64 to 256, the fp32 core, the int8 attention core (K10), the dense
+adapter/router kernel and the MoE tail of this tree against the same
+kernels of another checkout, bit for bit.
 
     python -m dynamic_tuning_tpu_torch.utils.kernel_diff OTHER_TREE
 
@@ -21,9 +21,11 @@ every shape of ``F32_CORE`` with and without K9's bias, K10 at
 every N of ``CORE_Q8_N`` at head dims 64 and 128
 and on the adversarial head pair, the adapter/router at every M x C x F of
 ``AR_M``, ``AR_C``, ``AR_F`` in bf16 and fp32 out, with and without the
-router -- it prints, per kernel, how many output elements differ and by how
-many ulps of their type at most, and the largest |difference| of the
-router logits.  Then it times both trees' kernels through their C entries
+router, the bf16 MoE tail at every E x b, M x C of ``MOE_TAIL`` (E * b up to
+512, the widths every tree since the tail's takes), bf16 out, with and
+without the router -- it prints, per kernel, how many output elements
+differ and by how many ulps of their type at most, and the largest
+|difference| of the router logits.  Then it times both trees' kernels through their C entries
 at the main path's shapes (``TIMED``: K10 at B=128, N=197, 12 heads of 64
 and at B=32, N=512 in 12 heads of 64 and 6 of 128; the adapter/router at
 128 x 197 rows of ViT-B/16, F = 64, bf16 out, with the router), in turns
@@ -54,6 +56,10 @@ CORE_Q8_N = (1, 17, 64, 65, 197, 256, 257, 442, 511, 512)
 AR_M = (1, 63, 64, 129, 25216)
 AR_C = (64, 128, 768, 1024)
 AR_F = (16, 32, 48, 64, 96, 128)
+# (E, b, M, C) of the MoE tail
+MOE_TAIL = ((4, 64, 6304, 768), (4, 64, 25216, 768), (2, 16, 129, 64),
+            (4, 8, 1, 768), (8, 64, 1000, 768), (2, 256, 63, 768),
+            (4, 128, 6304, 768), (4, 80, 200, 128))
 # (kernel, B, N, heads) for K10, (kernel, M, C, F) for the adapter/router
 TIMED = (("K10", 128, 197, 12), ("K10", 32, 512, 12), ("K10", 32, 512, 6),
          ("adapter/router", 128 * 197, 768, 64))
@@ -278,6 +284,34 @@ def main(argv) -> None:
                         adapter.add(got[1], want,
                                     (got[2], lw) if router else None)
     print(adapter.line("adapter/router"), flush=True)
+
+    tail = Tally()
+    for E, b, M, C in MOE_TAIL:
+        g = torch.Generator(device="cuda").manual_seed(E * b + M)
+        r = lambda *s, sc=1.0: torch.randn(s, generator=g,  # noqa: E731
+                                           device="cuda") * sc
+        bf = torch.bfloat16
+        xm = r(1, M, C)
+        moe = (r(E, C, sc=2.0 / C ** 0.5),
+               *ms.moe_kernel_weights(r(E, C, b, sc=0.03), r(E, b, sc=0.02),
+                                      r(E, b, C, sc=0.02), bf),
+               r(E, C, sc=0.01), torch.full((1,), 0.1, device="cuda"))
+        sel = (r(1, C, sc=25.0 / C ** 0.5), r(1, sc=0.1))
+        for router in (True, False):
+            outs = []
+            for which in (lib, other):
+                adapt = torch.empty((1, M, C), dtype=bf, device="cuda")
+                lw = torch.empty((1, M, 1), device="cuda")
+                _build.check(which, which.dyt_moe_adapter_router(
+                    p(xm), M, C, *(p(t) for t in moe),
+                    p(sel[0]) if router else None,
+                    p(sel[1]) if router else None, p(adapt), 0, p(lw), E, b,
+                    1.0 / 0.7, stream), "MoE tail")
+                outs.append((adapt, lw))
+            torch.cuda.synchronize()
+            tail.add(outs[0][0], outs[1][0],
+                     (outs[0][1], outs[1][1]) if router else None)
+    print(tail.line("MoE tail (E * b <= 512)"), flush=True)
 
     from dynamic_tuning_tpu_torch.utils.profiling import (bound_ms,
                                                           card_line, time_ms)

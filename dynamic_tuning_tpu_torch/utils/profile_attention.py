@@ -4,7 +4,7 @@ scripts/profile_attention.py), and the cores at head dims 192 and 256 and
 in fp32.
 
     python -m dynamic_tuning_tpu_torch.utils.profile_attention \
-        [--part all|serving|cores|past256|exact]
+        [--part all|serving|cores|past256|exact|q8ring|moetail]
 
 At ViT-B/16 serving shape (B=128, N=197, 12 heads of 64, bf16 raw qkv
 ``[B, N, 3C]`` from a seed) it times, with CUDA events over 20 calls after
@@ -73,6 +73,22 @@ weights; then ``speed.main --compute_dtype float32 --residual_dtype
 float32 --mode dispatch --quant int8`` with and without ``--moe_experts
 4`` at batch 128 (img/s; ViT-B/16 weights from a seed).
 
+With ``--part q8ring`` (alone) it times K10's int8-score core where the
+wgmma key ring (``csrc/q8_ring.cu``) serves it: K10 and K6 (F = 64, with
+int8 scores) at B=32, N=197, C=768 in 2 heads of 384, K10 at head dim 192
+with N = 320 and at 256 with N = 300 (past the staged core's layout), each
+with its kernels' split (the two code kernels, the ring), beside its bound;
+then ``predict.serve --num_heads 2 --quant int8_attn`` on 512 synthetic
+256^2 canvases at batch 128 (img/s, best of 4); then, on a tree that has
+the ring, at N = 197 and head dims 64, 128, 192 and 256 (C = 768 in 12, 6
+and 4 heads, C = 1024 in 4), where the staged core serves K10, the ring
+through its C entry beside it.  With ``--part moetail`` (alone) it times
+the bf16 MoE tail at 4 experts of 192 (E * b = 768): the tail alone on
+ViT-B/16 rows (B=32) with the router, K7 and K8 (the int8 chain) there,
+each beside its bound; the tail alone at 3 x 256, 4 x 256, 8 x 128 and
+16 x 64 where the tree's wgmma tail takes them; then ``speed.main --mode
+dispatch --moe_experts 4 --ffn_num 192`` at batch 32, bf16 and ``--quant int8`` (img/s; ViT-B/16 weights from a seed).
+
 Every case touches only the wrappers and C entries that every tree of the
 port since its fp32 forms has, so this script can time an older tree
 (``PYTHONPATH=<tree> python <this file>``; run the two in turns, other,
@@ -123,8 +139,9 @@ def main(args) -> dict:
         out = cores(g, past_only=args.part == "past256")
         print(json.dumps(out))
         times.update(out)
-    if args.part == "exact":
-        out = exact(g)
+    if args.part in ("exact", "q8ring", "moetail"):
+        out = {"exact": exact, "q8ring": q8ring, "moetail": moetail}[
+            args.part](g)
         print(json.dumps(out))
         times.update(out)
     return times
@@ -653,6 +670,177 @@ def _past_256(out, g) -> None:
                 ops_)
 
 
+def _split_line(out, name, fn) -> None:
+    """``fn``'s device ms by kernel, under ``name / kernel``."""
+    for kernel, t in kernel_split(fn).items():
+        out[f"{name} / {kernel[:60]}"] = round(t, 4)
+        print(f"  {kernel[:100]}: {t:.4f} ms", flush=True)
+
+
+def q8ring(g) -> dict:
+    """The ``--part q8ring`` list of the module docstring."""
+    out = {}
+    width = 768
+    for heads, hd, tokens in ((2, 384, N), (2, 192, 320), (2, 256, 300)):
+        qkv = _qkv(g, CORES_B, tokens, heads * hd, BF)
+        attn = 4 * CORES_B * heads * tokens * tokens * hd
+        name = f"K10 bf16 hd {hd} N={tokens}"
+
+        def call(qkv=qkv, heads=heads):
+            return qt.attn_core_pairs_q8(qkv, heads=heads)
+        _line(out, name, call, (qkv,), {"int8": attn // 2, "bf16": attn // 2})
+        _split_line(out, name, call)
+    heads, hd = 2, 384
+    M = CORES_B * N
+    attn = 4 * CORES_B * heads * N * N * hd
+    x = torch.randn((CORES_B, N, width), generator=g, device="cuda").to(BF)
+    sub, ad, _ = _weights(g, width, BF)
+    qsub = (*sub[:2], *qt.quantize_weight(sub[2].float()), sub[3],
+            *qt.quantize_weight(sub[4].float()), sub[5])
+
+    def k6():
+        return qt.dyt_prologue_serving_q8(x, *qsub, *ad, heads=heads,
+                                          attn_q8=True)
+    _line(out, f"K6 bf16 hd {hd} int8 scores", k6, (x, *qsub, *ad),
+          {"int8": 8 * M * width * width + attn // 2,
+           "bf16": attn // 2 + 4 * M * width * F_ADAPT,
+           "fp32": 2 * M * width})
+    _split_line(out, f"K6 bf16 hd {hd} int8 scores", k6)
+    _serve_forward(out, g, ["--num_heads", "2", "--quant", "int8_attn"],
+                   "predict.serve hd 384 int8_attn img/s")
+    lib = _build.library()
+    stream = torch.cuda.current_stream().cuda_stream
+    for hs, cw in ((12, 768), (6, 768), (4, 768), (4, 1024)):
+        if not hasattr(lib, "dyt_attn_core_q8_ring"):
+            break
+        hd_ = cw // hs
+        qkv = _qkv(g, CORES_B, N, cw, BF)
+        ops = {"int8": 2 * CORES_B * hs * N * N * hd_,
+               "bf16": 2 * CORES_B * hs * N * N * hd_}
+        _line(out, f"K10 bf16 hd {hd_} N={N} staged", lambda qkv=qkv, h=hs:
+              qt.attn_core_pairs_q8(qkv, heads=h), (qkv,), ops)
+        ring_out = torch.empty((CORES_B, N, cw), dtype=BF, device="cuda")
+        scratch = torch.empty((lib.dyt_simt_core_q8_scratch_bytes(
+            CORES_B, N, cw, hs),), dtype=torch.uint8, device="cuda")
+
+        def ring(qkv=qkv, h=hs, o=ring_out, s=scratch, w=cw):
+            _build.check(lib, lib.dyt_attn_core_q8_ring(
+                qkv.data_ptr(), o.data_ptr(), s.data_ptr(), CORES_B, N, w, h,
+                (w // h) ** -0.5, stream), "int8-score key ring")
+            return o
+        _line(out, f"K10 bf16 hd {hd_} N={N} ring", ring, (qkv,), ops)
+    return out
+
+
+def _serve_forward(out, g, flags, key) -> None:
+    """img/s of ``predict.serve`` with ``flags`` on 512 synthetic canvases at
+    batch 128 (ViT-B/16 weights from a seed; best of 4)."""
+    import numpy as np
+
+    from dynamic_tuning_tpu_torch import predict
+    from dynamic_tuning_tpu_torch.checkpoint import make_vit_state_dict
+    sd = {k: torch.from_numpy(v) for k, v in make_vit_state_dict(
+        np.random.RandomState(0), depth=12, dim=C, ffn=F_ADAPT,
+        classes=100, img=224, patch=16, router_scale=25.0).items()}
+    canv = torch.randint(0, 256, (512, 256, 256, 3), generator=g,
+                         device="cuda", dtype=torch.uint8)
+    a = predict.get_args_parser().parse_args(
+        ["--ckpt", "unused", "--images", "unused", "--batch_size", "128"]
+        + flags)
+    params = predict.load_params(a, torch.device("cuda"), state_dict=sd)
+    best = 0.0
+    for _ in range(4):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            predict.serve(a, canv, params)
+        torch.cuda.synchronize()
+        best = max(best, canv.shape[0] / (time.perf_counter() - t0))
+    out[key] = round(best, 2)
+    print(f"predict.serve {' '.join(flags)} (512 canvases, batch 128): "
+          f"{best:.2f} img/s", flush=True)
+    del params
+    torch.cuda.empty_cache()
+
+
+def moetail(g) -> dict:
+    """The ``--part moetail`` list of the module docstring."""
+    from unittest import mock
+
+    from dynamic_tuning_tpu_torch import speed
+    out = {}
+    lib = _build.library()
+    M = CORES_B * N
+    E_, b_ = 4, 192
+    W = E_ * b_
+    x = torch.randn((CORES_B, N, C), generator=g, device="cuda").to(BF)
+    x_mid = torch.randn((CORES_B, N, C), generator=g, device="cuda")
+    x_mid_bf = x_mid.to(BF)
+    sub, ad, _ = _weights(g, C, BF)
+    r = lambda *s_, sc=1.0: torch.randn(  # noqa: E731
+        s_, generator=g, device="cuda") * sc
+
+    def experts(E, b):
+        return (r(E, C, sc=2.0 / C ** 0.5),
+                *ms.moe_kernel_weights(r(E, C, b, sc=0.03), r(E, b, sc=0.02),
+                                       r(E, b, C, sc=0.02), BF),
+                r(E, C, sc=0.01), ad[4])
+    moe = experts(E_, b_)
+    tail_ops = {"bf16": 4 * M * C * W, "fp32": 2 * M * C * (E_ + 1)}
+    _line(out, f"MoE tail bf16 {E_} x {b_} (router)",
+          lambda: ms.launch_moe_adapter_router(lib, x_mid_bf, x_mid, *moe,
+                                               *ad[5:], 1.0, True)[1:],
+          (x_mid, *moe, *ad[5:]), tail_ops)
+    qsub = (*sub[:2], *qt.quantize_weight(sub[2].float()), sub[3],
+            *qt.quantize_weight(sub[4].float()), sub[5])
+    attn = 4 * CORES_B * H * N * N * HD
+    gemm = 8 * M * C * C
+    for name, call, ins, ops in (
+            ("K7", lambda: ms.dyt_prologue_serving_moe(
+                x, *sub, *moe, *ad[5:], heads=H, tau=1.0),
+             (x, *sub, *moe, *ad[5:]),
+             {"bf16": gemm + attn + tail_ops["bf16"],
+              "fp32": tail_ops["fp32"]}),
+            ("K8", lambda: qt.dyt_prologue_serving_q8_moe(
+                x, *qsub, *moe, *ad[5:], heads=H, tau=1.0),
+             (x, *qsub, *moe, *ad[5:]),
+             {"int8": gemm, "bf16": attn + tail_ops["bf16"],
+              "fp32": tail_ops["fp32"]})):
+        _line(out, f"{name} bf16 {E_} x {b_}", call, ins, ops)
+        _split_line(out, f"{name} bf16 {E_} x {b_}", call)
+    for E, b in ((3, 256), (4, 256), (8, 128), (16, 64)):
+        ex = experts(E, b)
+        if ms.check_moe_adapter_router(lib, x_mid_bf, *ex, *ad[5:],
+                                       True) != "wgmma":
+            print(f"MoE tail {E} x {b}: not on the wgmma tail", flush=True)
+            continue
+        _line(out, f"MoE tail bf16 {E} x {b} (router)",
+              lambda ex=ex: ms.launch_moe_adapter_router(
+                  lib, x_mid_bf, x_mid, *ex, *ad[5:], 1.0, True)[1:],
+              (x_mid, *ex, *ad[5:]),
+              {"bf16": 4 * M * C * E * b, "fp32": 2 * M * C * (E + 1)})
+    import numpy as np
+
+    from dynamic_tuning_tpu_torch.checkpoint import make_vit_state_dict
+    sd = {k: torch.from_numpy(v) for k, v in make_vit_state_dict(
+        np.random.RandomState(0), depth=12, dim=C, ffn=b_, classes=100,
+        img=224, patch=16, router_scale=25.0, moe_experts=E_).items()}
+    for flags in ([], ["--quant", "int8"]):
+        args = speed.get_args_parser().parse_args(
+            ["--mode", "dispatch", "--moe_experts", str(E_), "--ffn_num",
+             str(b_), "--batch_size", "32"] + flags)
+        # every parameter comes from the state dict: the init draws skipped
+        with contextlib.redirect_stdout(io.StringIO()), mock.patch.object(
+                torch.nn.init, "trunc_normal_", lambda t, *a, **k: t):
+            ips = speed.main(args, state_dict=sd)["throughput_img_s"]
+        key = f"speed moe 4 x 192{' int8' if flags else ''} img/s"
+        out[key] = ips
+        print(f"speed --mode dispatch --moe_experts 4 --ffn_num 192 "
+              f"{' '.join(flags)} (batch 32): {ips} img/s", flush=True)
+        torch.cuda.empty_cache()
+    return out
+
+
 def entry_host_us(q, k, v, calls: int = 200) -> float:
     """Host microseconds a call of ``dyt_mha_core`` (K1 mode) on strided
     bf16 q, k, v, from an idle card."""
@@ -677,7 +865,7 @@ def get_args_parser() -> argparse.ArgumentParser:
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--part", default="all",
                    choices=("all", "serving", "cores", "past256",
-                            "exact"))
+                            "exact", "q8ring", "moetail"))
     return p
 
 

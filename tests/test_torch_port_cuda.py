@@ -427,11 +427,12 @@ def test_moe_model_launches_only_moe_prologue(quant):
     assert qt.q8_patch_embed.launches == (1 if q8 else 0)
 
 
-@pytest.mark.parametrize("E,b", [(3, 8), (2, 4), (4, 132)])
+@pytest.mark.parametrize("E,b", [(3, 8), (2, 4), (4, 260)])
 def test_moe_wrappers_raise_on_unsupported_width(E, b):
     """Stacks whose rows are not E experts of one width raise; an E * b
-    that the wgmma tail does not take (not a multiple of 16, or past 512)
-    runs on the SIMT tail, bf16 in and out, held to K7's bound."""
+    that the wgmma tail does not take (not a multiple of 16, or past
+    ``ms.MOE_MAX_W`` = 1024) runs on the SIMT tail, bf16 in and out, held to
+    K7's bound."""
     x, sub, ad = make_inputs(2, 19, 128, 16)
     moe = moe_inputs(128, E, b, pad=False)
     ragged = (moe[0], moe[1][:-1], moe[2][:-1], moe[3][:, :-1], *moe[4:])
@@ -464,11 +465,14 @@ def test_moe_wrappers_raise_on_unsupported_width(E, b):
         logits_close(got[2], want[2])
 
 
-# the MoE tail alone at every form it takes: 2, 4 and 8 experts, W = E*b
-# from 32 to 512 (128-row tiles up to 256, 64-row tiles in two passes
-# past it), ragged rows, C of one chunk and of ViT-B
+# the MoE tail alone at every form it takes: 2 to 16 experts, W = E*b from
+# 32 to 512 (one down pass of up to 256 columns, two past it) and past 512
+# up to 1024 (the 256-column pass where it fits a block, else the
+# 128-column one; 3 x 250 padded to 3 x 256), ragged rows, C of one chunk and of ViT-B
 MOE_TAIL_WIDTHS = [(2, 16), (4, 8), (2, 48), (4, 16), (8, 16), (4, 64),
-                   (8, 32), (4, 80), (2, 256), (8, 64), (4, 128)]
+                   (8, 32), (4, 80), (2, 256), (8, 64), (4, 128),
+                   (2, 264), (4, 192), (3, 256), (2, 384), (8, 128),
+                   (16, 64), (4, 256), (3, 250)]
 
 
 @pytest.mark.parametrize("C", [64, 768])
@@ -484,18 +488,41 @@ def test_moe_tail_kernel(E, b, M, C):
     sel = (torch.randn((1, C), generator=g, device="cuda") * 25 / C ** 0.5,
            torch.randn((1,), generator=g, device="cuda") * 0.1)
     lib = _build.library()
+    bp = ms.moe_kernel_bneck(E, b, BF)
     for with_select in (True, False):
-        ms.check_moe_adapter_router(lib, x_mid, *moe, *sel, with_select)
+        assert ms.check_moe_adapter_router(lib, x_mid, *moe, *sel,
+                                           with_select) == "wgmma"
         got = ms.launch_moe_adapter_router(lib, x_mid, xm, *moe, *sel, 0.7,
                                            with_select)
         torch.cuda.synchronize()
         want = ms.moe_adapter_router_plain(xm, BF, *moe, *sel, experts=E,
-                                           bneck=b, tau=0.7,
+                                           bneck=bp, tau=0.7,
                                            with_select=with_select)
         assert got[1].shape == (1, M, C) and got[1].dtype == BF
         bf16_close(got[1], want[1], f"adapt E={E} b={b}")
         if with_select:
             logits_close(got[2], want[2])
+
+
+@pytest.mark.parametrize("q8", [False, True], ids=["K7", "K8"])
+def test_moe_wide_tail_forms(q8):
+    """K7 and K8 at 4 experts of 192 (E * b = 768) run the wgmma tail (the
+    form "bf16"; "bf16+simt_tail" on the SIMT tail) and agree with their
+    plain versions."""
+    x, sub, ad = make_inputs(4, 197, 768, 16, seed=12)
+    moe = moe_inputs(768, 4, 192, seed=13)
+    fn = qt.dyt_prologue_serving_q8_moe if q8 else ms.dyt_prologue_serving_moe
+    s_ = q8_sub(sub) if q8 else sub
+    plain = qt.dyt_prologue_q8_moe_plain if q8 else ms.dyt_prologue_moe_plain
+    before = _form_count(fn, "bf16"), _form_count(fn, "bf16+simt_tail")
+    got = fn(x, *s_, *moe, *ad[5:], heads=12, tau=0.7)
+    torch.cuda.synchronize()
+    assert (_form_count(fn, "bf16"),
+            _form_count(fn, "bf16+simt_tail")) == (before[0] + 1, before[1])
+    want = plain(x, *s_, *moe, *ad[5:], heads=12, tau=0.7)
+    bf16_close(got[0], want[0], "x_mid")
+    bf16_close(got[1], want[1], "adapt")
+    logits_close(got[2], want[2])
 
 
 def test_wrappers_raise_on_unsupported_input():
@@ -1950,19 +1977,19 @@ def test_wide_windowed_kernel(B, N, H, hd):
     (2, 65, 2, 192),                      # one key past a 64-key chunk
     (3, 33, 2, 256),                      # one key past a 32-key chunk
     (2, 1, 2, 256),
-    (2, 400, 2, 192)])                    # past the layout: the SIMT form
+    (2, 400, 2, 192)])                    # past the layout: the key ring
 def test_wide_attn_core_q8(B, N, H, hd):
     """K10 at head dims 192 and 256 on the int8-score wgmma core (an
     adversarial head pair, as ``kd.core_q8_qkv(pair=True)``: keys with a
     lane offset, one head's keys 20x the other's) against its plain
-    version: two bf16 ulps, ``ulp_share``; past its layout's N the SIMT
-    form."""
+    version: two bf16 ulps, ``ulp_share``; past its layout's N the
+    int8-score key ring."""
     qkv = core_qkv(B, N, H, hd, seed=33)
     k = qkv[..., H * hd:2 * H * hd].view(B, N, H // 2, 2, hd)
     k[..., 1, :] *= 20.0
     qkv[..., H * hd:2 * H * hd] += 1.0
     core = qt._core_q8_route(kd_lib(), N, H * hd, H, BF)
-    assert core == ("simt_q8" if N == 400 else "q8")
+    assert core == ("q8_ring" if N == 400 else "q8")
     form = ms.form_of(BF, hd, core=core)
     before = _form_count(qt.attn_core_pairs_q8, form)
     got = qt.attn_core_pairs_q8(qkv, heads=H)
@@ -1973,6 +2000,106 @@ def test_wide_attn_core_q8(B, N, H, hd):
     contract_close(got, want, "K10")
 
 
+# the int8-score key ring (K10; K5, K6, K8 with attn_q8): every head dim it
+# serves (64 to 768) at ragged N from 19 to 600, through its C entry (at
+# head dims 64 to 256 the wrappers route it only past the staged core's N)
+Q8_RING_HD = (64, 128, 192, 256, 320, 384, 448, 512, 640, 768)
+Q8_RING_N = (19, 197, 333, 600)
+
+
+@pytest.mark.parametrize("N", Q8_RING_N)
+@pytest.mark.parametrize("hd", Q8_RING_HD)
+def test_q8_ring_kernel(hd, N):
+    """The key ring alone (``dyt_attn_core_q8_ring``) on 2 samples in 2
+    heads, a head pair whose keys differ 20x in range with a lane offset,
+    against K10's plain version: two bf16 ulps of the largest output and
+    ``ulp_share``."""
+    from dynamic_tuning_tpu_torch.ops import _build
+
+    B, H = 2, 2
+    qkv = core_qkv(B, N, H, hd, seed=hd + N)
+    k = qkv[..., H * hd:2 * H * hd].view(B, N, H // 2, 2, hd)
+    k[..., 1, :] *= 20.0
+    qkv[..., H * hd:2 * H * hd] += 1.0
+    lib = _build.library()
+    C = H * hd
+    out = torch.empty((B, N, C), dtype=BF, device="cuda")
+    scratch = qt._core_scratch(lib, B, N, C, H, qkv.device)
+    err = lib.dyt_attn_core_q8_ring(
+        qkv.data_ptr(), out.data_ptr(), scratch.data_ptr(), B, N, C, H,
+        hd ** -0.5, torch.cuda.current_stream().cuda_stream)
+    assert err == 0, lib.dyt_error_string(err)
+    torch.cuda.synchronize()
+    want = qt.attn_core_pairs_q8_plain(qkv, heads=H)
+    bf16_close(out, want, f"ring hd {hd} N {N}")
+    contract_close(out, want, f"ring hd {hd} N {N}")
+
+
+@pytest.mark.parametrize("B,N,H,hd", [
+    (32, 197, 2, 384),                    # ViT-B/16 in 2 heads of 384
+    (2, 320, 2, 192),                     # past the staged layout's N
+    (2, 300, 2, 256),
+    (1, 600, 2, 128),
+    (1, 900, 4, 64),
+    (1, 197, 2, 768),                     # few query tiles: six groups
+    (3, 65, 4, 320)])
+def test_q8_ring_routes(B, N, H, hd):
+    """K10 through its wrapper where ``ms.core_of`` routes it to the key
+    ring: counted under "bf16+q8_ring", within two bf16 ulps and
+    ``ulp_share`` of its plain version."""
+    qkv = core_qkv(B, N, H, hd, seed=37)
+    qkv[..., H * hd:2 * H * hd] += 1.0
+    assert qt._core_q8_route(kd_lib(), N, H * hd, H, BF) == "q8_ring"
+    before = _form_count(qt.attn_core_pairs_q8, "bf16+q8_ring")
+    got = qt.attn_core_pairs_q8(qkv, heads=H)
+    torch.cuda.synchronize()
+    assert _form_count(qt.attn_core_pairs_q8, "bf16+q8_ring") == before + 1
+    want = qt.attn_core_pairs_q8_plain(qkv, heads=H)
+    bf16_close(got, want, "K10")
+    contract_close(got, want, "K10")
+
+
+@pytest.mark.parametrize("B,N,C,H", [(4, 197, 768, 2), (2, 320, 384, 2),
+                                     (2, 19, 640, 2)])
+def test_q8_ring_chains(B, N, C, H):
+    """K5, K6 and K8 with int8 scores where their core is the key ring (2
+    heads of 384 and 320; 2 heads of 192 at N = 320), each counted under
+    "bf16+q8_ring" with one K10 launch, against their plain versions."""
+    x, sub, ad = make_inputs(B, N, C, 16, seed=C + N)
+    qs = q8_sub(sub)
+    moe = moe_inputs(C, 4, 16, seed=14)
+    assert qt._core_q8_route(kd_lib(), N, C, H, BF, "K6") == "q8_ring"
+    for name, fn, call, plain in (
+            ("K5", qt.attention_sublayer_serving_q8,
+             lambda: qt.attention_sublayer_serving_q8(x, *qs, heads=H,
+                                                      attn_q8=True),
+             lambda: (qt.attention_sublayer_q8_plain(x, *qs, heads=H,
+                                                     attn_q8=True),)),
+            ("K6", qt.dyt_prologue_serving_q8,
+             lambda: qt.dyt_prologue_serving_q8(x, *qs, *ad, heads=H,
+                                                attn_q8=True),
+             lambda: qt.dyt_prologue_q8_plain(x, *qs, *ad, heads=H,
+                                              attn_q8=True)),
+            ("K8", qt.dyt_prologue_serving_q8_moe,
+             lambda: qt.dyt_prologue_serving_q8_moe(
+                 x, *qs, *moe, *ad[5:], heads=H, tau=0.7, attn_q8=True),
+             lambda: qt.dyt_prologue_q8_moe_plain(
+                 x, *qs, *moe, *ad[5:], heads=H, tau=0.7, attn_q8=True))):
+        before = (_form_count(fn, "bf16+q8_ring"),
+                  _form_count(qt.attn_core_pairs_q8, "bf16+q8_ring"))
+        got = call()
+        torch.cuda.synchronize()
+        assert (_form_count(fn, "bf16+q8_ring"),
+                _form_count(qt.attn_core_pairs_q8, "bf16+q8_ring")) == (
+                    before[0] + 1, before[1] + 1), name
+        got = got if isinstance(got, tuple) else (got,)
+        want = plain()
+        bf16_close(got[0], want[0], f"{name} x_mid")
+        if len(got) > 1:
+            bf16_close(got[1], want[1], f"{name} adapt")
+            logits_close(got[2], want[2])
+
+
 @pytest.mark.parametrize("hd", [320, 384, 512, 640, 832])
 def test_cores_past_head_dim_256(hd):
     """Every core form at 2 heads of ``hd`` past 256 against its plain
@@ -1981,15 +2108,17 @@ def test_cores_past_head_dim_256(hd):
     the exact core (float64 sums) bit for bit; each counted under its form.
     Up to ``ms.WIDE_MAX_HD`` bf16 K1, K9 and K15 run on the wgmma core past
     256 (hd a run-time count, 640 one it splits over two column groups) and
-    fp32 K1 and K9 on the fp32 core's; past it (832) the SIMT core's slices
-    take them, as they take K10 and the exact core past 256."""
+    fp32 K1 and K9 on the fp32 core's, bf16 K10 on the int8-score key ring
+    (also held to ``ulp_share``); past it (832) the SIMT core's slices take
+    them and K10, as they take fp32 K10 and the exact core past 256."""
     B, N, H = 2, 131, 2
     wide = hd <= ms.WIDE_MAX_HD
     for dtype in (BF, F32):
         qkv = core_qkv(B, N, H, hd, seed=hd).to(dtype)
         qkv[..., H * hd:2 * H * hd] += 1.0
         close = fp32_close if dtype == F32 else bf16_close
-        simt = "fp32" if dtype == F32 else "bf16+simt_core"
+        q8 = ("fp32" if dtype == F32 else
+              "bf16+q8_ring" if wide else "bf16+simt_core")
         form = ("fp32+past_256" if dtype == F32 and wide else
                 "fp32" if dtype == F32 else
                 "bf16+past_256" if wide else "bf16+simt_core")
@@ -2003,14 +2132,14 @@ def test_cores_past_head_dim_256(hd):
                  lambda: ms.attn_core_pairs(qkv, heads=H), form),
                 ("K10", qt.attn_core_pairs_q8,
                  lambda: qt.attn_core_pairs_q8(qkv, heads=H),
-                 lambda: qt.attn_core_pairs_q8_plain(qkv, heads=H), simt)):
+                 lambda: qt.attn_core_pairs_q8_plain(qkv, heads=H), q8)):
             before = _form_count(fn, f)
             got = call()
             torch.cuda.synchronize()
             assert _form_count(fn, f) == before + 1, kernel
             want = plain()
             (close if kernel == "K1" else bf16_close)(got, want, kernel)
-            if kernel == "K1" and dtype == BF:
+            if dtype == BF and (kernel == "K1" or wide):
                 contract_close(got, want, kernel)
         g = torch.Generator(device="cuda").manual_seed(5)
         bias = torch.randn((H, N, N), generator=g, device="cuda").to(BF)

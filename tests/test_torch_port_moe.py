@@ -117,7 +117,7 @@ def _weights(seed, n=N, c=C):
 # --- the MoE tail --------------------------------------------------------------
 
 @pytest.mark.parametrize("tau", TAUS)
-@pytest.mark.parametrize("E,b", WIDTHS)
+@pytest.mark.parametrize("E,b", WIDTHS + [(4, 192)])    # E * b = 768
 @pytest.mark.parametrize("dtype", list(DTYPES))
 def test_moe_tail_matches_jax_moe_adapter_rows(dtype, E, b, tau):
     jdt, tdt = DTYPES[dtype]

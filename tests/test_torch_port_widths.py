@@ -141,7 +141,14 @@ def test_kernel_widths():
     assert ms.moe_kernel_bneck(2, 4, BF) == 8
     assert ms.moe_kernel_bneck(3, 5, BF) == 16          # 48
     assert ms.moe_kernel_bneck(4, 64, BF) == 64
-    assert ms.moe_kernel_bneck(4, 192, BF) == 192       # 768: the SIMT tail
+    # up to ms.MOE_MAX_W = 1024 the wgmma tail (padded to a multiple of 16);
+    # past 1024 the SIMT tail
+    assert ms.MOE_MAX_W == 1024
+    assert ms.moe_kernel_bneck(4, 192, BF) == 192       # 768
+    assert ms.moe_kernel_bneck(3, 250, BF) == 256       # 750 -> 768
+    assert ms.moe_kernel_bneck(2, 509, BF) == 512       # 1018 -> 1024
+    assert ms.moe_kernel_bneck(5, 200, BF) == 200       # 1040: SIMT
+    assert ms.moe_kernel_bneck(4, 257, BF) == 257       # 1028: SIMT
     assert ms.moe_kernel_bneck(2, 4, torch.float32) == 4
     assert ms.form_of(torch.float32, 64) == "fp32"
     assert ms.form_of(BF, 64) == "bf16"
@@ -189,10 +196,11 @@ def test_padded_adapter_is_exact(F):
                                    atol=1e-6 * w.abs().max().item())
 
 
-@pytest.mark.parametrize("E,b", [(2, 4), (3, 5)])
+@pytest.mark.parametrize("E,b", [(2, 4), (3, 5), (3, 250), (2, 509)])
 def test_padded_moe_is_exact(E, b):
     """The padded bf16 expert stacks give the unpadded ones' outputs (the
-    plain version sums in float64: zero columns add nothing)."""
+    plain version sums in float64: zero columns add nothing), up to the
+    wgmma tail's cap (3 x 250 -> 3 x 256, 2 x 509 -> 2 x 512 = 1024)."""
     rs = np.random.RandomState(E * b)
     C = 128
     t = lambda *s, sc=1.0: torch.from_numpy(  # noqa: E731
@@ -286,20 +294,24 @@ _KERNELS_320 = [("K9", "float32"), ("K9", "bfloat16"), ("K10", "float32"),
 
 
 @pytest.mark.parametrize(
-    "kernel,dtype,hd",
-    [(k, d, 320) for k, d in _KERNELS_320]
-    + [(k, d, hd) for hd in (384, 512) for k, d in _KERNELS_320],
+    "kernel,dtype,hd,N",
+    [(k, d, 320, 13) for k, d in _KERNELS_320]
+    + [(k, d, hd, 13) for hd in (384, 512) for k, d in _KERNELS_320]
+    + [("K10", "bfloat16", 192, 320)],
     ids=[f"{k}-{d}" for k, d in _KERNELS_320]
-    + [f"{k}-{d}-hd{hd}" for hd in (384, 512) for k, d in _KERNELS_320])
-def test_head_dim_320_kernels_match_jax(kernel, dtype, hd):
+    + [f"{k}-{d}-hd{hd}" for hd in (384, 512) for k, d in _KERNELS_320]
+    + ["K10-bfloat16-hd192-N320"])
+def test_head_dim_320_kernels_match_jax(kernel, dtype, hd, N):
     """K9 (with a bias), K10 and K15 at 2 heads of 320, 384 and 512 against
     the JAX kernels in interpret mode (K15 takes bf16 only), each routed to
     its core past 256: K9 and K15 to the wgmma core's and the fp32 core's,
-    K10 to the SIMT core's int8-score form."""
+    K10 in bf16 to the int8-score key ring (in fp32 to the SIMT core's
+    int8-score form); and K10 at head dim 192 with N = 320, past the N of the
+    staged int8-score core's layout (304), on the ring."""
     from dynamic_tuning_tpu.ops import mha_serving as jms
     from dynamic_tuning_tpu.ops import quant as jq
     from dynamic_tuning_tpu_torch.ops import quant as tq
-    H, N, B = 2, 13, 2
+    H, B = 2, 2
     C = H * hd
     rs = np.random.RandomState(32)
     qkv = rs.randn(B, N, 3 * C).astype(np.float32)
@@ -323,7 +335,8 @@ def test_head_dim_320_kernels_match_jax(kernel, dtype, hd):
             outs.append(out.astype(np.float32))
         want = np.stack(outs)
         got = tq.attn_core_pairs_q8(torch.from_numpy(qkv).to(tdt), heads=H)
-        assert ms.core_of("K10", tdt, hd, heads=H) == "simt_q8"
+        assert ms.core_of("K10", tdt, hd, heads=H, q8_fits=False) == (
+            "simt_q8" if dtype == "float32" else "q8_ring")
     else:
         q, k, v = (a.astype(np.float32) for a in np.asarray(
             jnp.asarray(qkv, jnp.bfloat16)).reshape(B, N, 3, H, hd)
@@ -361,28 +374,31 @@ ROUTES = {
     "K7": {(BF, 64, 0, 1): "wgmma", (BF, 192, 0, 1): "wgmma",
            (F32, 128, 0, 1): "f32"},
     "K5": {(BF, 64, 0, 1): "wgmma", (BF, 192, 0, 1): "wgmma",
-           (BF, 64, 1, 1): "q8", (BF, 64, 1, 0): "simt_q8",
-           (BF, 192, 1, 1): "q8", (BF, 256, 1, 0): "simt_q8"},
+           (BF, 64, 1, 1): "q8", (BF, 64, 1, 0): "q8_ring",
+           (BF, 192, 1, 1): "q8", (BF, 256, 1, 0): "q8_ring"},
     "K6": {(BF, 256, 0, 1): "wgmma", (BF, 128, 1, 1): "q8",
            (BF, 256, 1, 1): "q8", (F32, 64, 0, 1): "f32_exact",
            (F32, 64, 1, 1): "simt_q8", (F32, 192, 0, 1): "f32_exact"},
     "K8": {(BF, 192, 0, 1): "wgmma", (BF, 64, 1, 1): "q8",
+           (BF, 128, 1, 0): "q8_ring",
            (F32, 64, 0, 1): "f32_exact", (F32, 64, 1, 1): "simt_q8"},
     "K9": {(BF, 64, 0, 1): "windowed", (BF, 128, 0, 1): "windowed",
            (BF, 192, 0, 1): "windowed", (BF, 256, 0, 1): "windowed",
            (F32, 64, 0, 1): "f32", (F32, 256, 0, 1): "f32"},
     "K10": {(BF, 64, 0, 1): "q8", (BF, 128, 0, 1): "q8",
-            (BF, 128, 0, 0): "simt_q8", (BF, 192, 0, 1): "q8",
-            (BF, 256, 0, 1): "q8", (BF, 192, 0, 0): "simt_q8",
-            (F32, 64, 0, 1): "simt_q8"},
+            (BF, 128, 0, 0): "q8_ring", (BF, 192, 0, 1): "q8",
+            (BF, 256, 0, 1): "q8", (BF, 192, 0, 0): "q8_ring",
+            (BF, 64, 0, 0): "q8_ring", (F32, 64, 0, 1): "simt_q8",
+            (F32, 192, 0, 0): "simt_q8"},
 }
 # past head dim 256, up to WIDE_MAX_HD: bf16 K1, K15, K9 and the cores
 # without int8 scores on the wgmma core past 256, fp32 K1, K9 and the cores
-# of K2, K3, K7 on the fp32 core's; past WIDE_MAX_HD (the ceiling: the q
-# tile and two stages of K no longer fit a block) the SIMT core's slices;
-# past 256 K10 and the int8-score cores on the SIMT int8-score form, fp32
-# K6 and K8 on the slices kernel's exact form (the DMMA exact core stops at
-# ms.EXACT_MAX_HD)
+# of K2, K3, K7 on the fp32 core's, bf16 K10 and the int8-score cores on
+# the int8-score key ring (whatever the staged core's layout); past
+# WIDE_MAX_HD (the ceiling: the q tile and two stages of K no longer fit a
+# block) the SIMT core's slices and the SIMT int8-score form; fp32 K10 and
+# int8-score cores on the SIMT int8-score form, fp32 K6 and K8 on the
+# slices kernel's exact form (the DMMA exact core stops at ms.EXACT_MAX_HD)
 for _hd in WIDE + PAST:
     _past = _hd in PAST
     for _k in ("K1", "K2", "K3", "K7"):
@@ -391,13 +407,14 @@ for _hd in WIDE + PAST:
     ROUTES["K9"].update({(BF, _hd, 0, 1): "simt" if _past else "windowed",
                          (F32, _hd, 0, 1): "simt" if _past else "f32"})
     ROUTES["K15"][(BF, _hd, 0, 1)] = "simt" if _past else "wgmma"
+    _q8 = "simt_q8" if _past else "q8_ring"
     for _k in ("K5", "K6", "K8"):
         ROUTES[_k].update({(BF, _hd, 0, 1): "simt" if _past else "wgmma",
-                           (BF, _hd, 1, 1): "simt_q8"})
+                           (BF, _hd, 1, 1): _q8, (BF, _hd, 1, 0): _q8})
     for _k in ("K6", "K8"):
         ROUTES[_k].update({(F32, _hd, 0, 1): "simt_exact",
                            (F32, _hd, 1, 1): "simt_q8"})
-    ROUTES["K10"].update({(BF, _hd, 0, 1): "simt_q8",
+    ROUTES["K10"].update({(BF, _hd, 0, 1): _q8, (BF, _hd, 0, 0): _q8,
                           (F32, _hd, 0, 1): "simt_q8"})
 
 
@@ -407,13 +424,15 @@ def test_core_routes(kernel):
     the wrappers route by): up to head dim 768 (``ms.WIDE_MAX_HD``), bf16
     K1, K15 and the cores of K2, K3, K7 and of K5, K6, K8 without int8
     scores on the wgmma core, K9 on its wgmma kernels, fp32 K1, K2, K3, K7,
-    K9 on the fp32 core; K10 on its wgmma kernel up to 256 (on the SIMT
-    core's int8-score form where its layout does not fit, and past 256);
-    fp32 K6, K8 on the exact core up to 256 and on the SIMT core's exact
-    form past it; past 768 every core on the SIMT core; K5
-    and K15 in fp32 on none (K5's scratch is bf16); and the forms the
-    counts are kept under (past 256 "+past_256" on the wgmma and fp32
-    cores, "+simt_core" on the SIMT core's).  Head dims JAX does not fuse,
+    K9 on the fp32 core; bf16 K10 (and K5, K6, K8 with int8 scores) on the
+    staged int8-score core up to 256 where its layout fits, on the
+    int8-score key ring where it does not and past 256 up to 768, fp32 K10
+    on the SIMT core's int8-score form; fp32 K6, K8 on the exact core up to
+    256 and on the SIMT core's exact form past it; past 768 every core on
+    the SIMT core; K5 and K15 in fp32 on none (K5's scratch is bf16); and
+    the forms the counts are kept under (past 256 "+past_256" on the wgmma
+    and fp32 cores, "+q8_ring" on the key ring at any head dim,
+    "+simt_core" on the SIMT core's).  Head dims JAX does not fuse,
     and odd head counts (but for K15, which pairs no heads), raise here
     alone."""
     for (dtype, hd, q8, fits), core in ROUTES[kernel].items():
@@ -423,6 +442,7 @@ def test_core_routes(kernel):
         want = ("fp32+past_256" if dtype == F32 and core == "f32"
                 and hd > 256 else
                 "fp32" if dtype == F32 else
+                "bf16+q8_ring" if core == "q8_ring" else
                 "bf16" if hd in (64, 128) else
                 "bf16+simt_core" if core.startswith("simt") else
                 "bf16+past_256" if hd > 256 else
