@@ -780,20 +780,24 @@ def windowed_launch(torch, ms, qkv, bias, heads=H):
     return launch
 
 
-def simt_q8_launch(torch, qt, qkv, heads):
-    """K10 on the SIMT core's int8-score form through its C entry: the
-    route earlier trees took at head dims 192 to 768, timed beside the
-    wgmma kernels that replace it."""
+def exact_q8_launch(torch, qt, qkv, heads):
+    """fp32 K10 on the exact core's int8-score mode through its C entry
+    (the code kernels and the kernel; what the wrapper launches after its
+    checks)."""
     from dynamic_tuning_tpu_torch.ops import _build
     lib = _build.library()
     batch, n, c3 = qkv.shape
     C_ = c3 // 3
-    out = torch.empty((batch, n, C_), dtype=torch.bfloat16, device="cuda")
+    out = torch.empty((batch, n, C_), device="cuda")
     scratch = qt._core_scratch(lib, batch, n, C_, heads, qkv.device)
     stream = torch.cuda.current_stream().cuda_stream
-    return lambda: _build.check(lib, lib.dyt_simt_core_q8(
-        qkv.data_ptr(), out.data_ptr(), scratch.data_ptr(), batch, n, C_,
-        heads, (C_ // heads) ** -0.5, 0, stream), "SIMT int8-score core")
+
+    def launch():
+        _build.check(lib, lib.dyt_exact_core_q8(
+            qkv.data_ptr(), out.data_ptr(), scratch.data_ptr(), batch, n, C_,
+            heads, (C_ // heads) ** -0.5, stream), "exact int8-score core")
+        return out
+    return launch
 
 
 def core_launch(torch, q, k, v, *, k15=False, bias=None):
@@ -3620,7 +3624,9 @@ F32_REL = 1e-5                  # an fp32 form against its plain version
 # step where an activation sits on a rounding boundary)
 F32_MODEL_REL = 1e-3
 F32_GATE_AGREE = 0.9995
-WIDE_F = 256                    # an adapter past the wgmma tail's 128
+WIDE_F = 256                    # an adapter past the wgmma tail's 128:
+#                                 the MoE tail's wgmma kernel, gate-free
+SIMT_F = 1040                   # past its 1024: the SIMT tail
 WIDE_MOE = (4, 192)             # E * b = 768: the wgmma tail past 512
 SIMT_MOE = (4, 260)             # E * b = 1040, past the wgmma tail's 1024
 HD192_HEADS = 4                 # C = 768 in 4 heads of 192
@@ -3647,6 +3653,15 @@ FORMS = {
     "dyt_prologue_serving_q8_moe:fp32": ("qt", dict(
         route="cuda", source=f"{SRC}/f64_tail.cu",
         replaces=f"{JAX_OPS}/quant.py:674")),
+    # K10 on fp32 qkv (and K6 with fp32 adapters and int8 scores): up to
+    # head dim 256 the exact core's int8-score mode (IMMA scores, DMMA
+    # P V), past it the SIMT int8-score form (2 heads of 384)
+    "attn_core_pairs_q8:fp32+q8_exact": ("qt", dict(
+        route="cuda", source=f"{SRC}/exact_core.cu",
+        replaces=f"{JAX_OPS}/quant.py:309")),
+    "dyt_prologue_serving_q8:fp32+q8_exact": ("qt", dict(
+        route="cuda", source=f"{SRC}/exact_core.cu",
+        replaces=f"{JAX_OPS}/quant.py:531")),
     "attn_core_pairs_q8:fp32": ("qt", dict(
         route="cuda", source=f"{SRC}/simt_core_q8.cu",
         replaces=f"{JAX_OPS}/quant.py:309")),
@@ -3702,6 +3717,14 @@ FORMS = {
     "attn_core_pairs_q8:bf16+q8_ring": ("qt", dict(
         route="cuda", source=f"{SRC}/q8_ring.cu",
         replaces=f"{JAX_OPS}/quant.py:309")),
+    # the bf16 adapter tail past width 128: up to 1024 the MoE tail's
+    # wgmma kernel gate-free (F = 256), past it the SIMT tail (F = 1040)
+    "dyt_prologue_serving:bf16+wide_tail": ("ms", dict(
+        route="cuda", source=f"{SRC}/moe_adapter.cu",
+        replaces=f"{JAX_OPS}/mha_serving.py:581")),
+    "dyt_prologue_serving_q8:bf16+wide_tail": ("qt", dict(
+        route="cuda", source=f"{SRC}/moe_adapter.cu",
+        replaces=f"{JAX_OPS}/quant.py:531")),
     "dyt_prologue_serving:bf16+simt_tail": ("ms", dict(
         route="cuda", source=f"{SRC}/simt_chain.cu",
         replaces=f"{JAX_OPS}/mha_serving.py:581")),
@@ -3730,6 +3753,10 @@ FORM_RUNS = [
     (F32 + ["--mode", "dispatch", "--quant", "int8"], B, 0,
      ("dyt_prologue_serving_q8:fp32", "q8_ln_mlp"), "fp32"),
     (F32 + ["--mode", "dispatch", "--quant", "int8_attn"], B, 0,
+     ("dyt_prologue_serving_q8:fp32+q8_exact", "q8_ln_mlp",
+      "attn_core_pairs_q8:fp32+q8_exact"), "fp32"),
+    (F32 + ["--mode", "dispatch", "--quant", "int8_attn", "--num_heads",
+            str(HD384_HEADS)], F32_B, 0,
      ("dyt_prologue_serving_q8:fp32", "q8_ln_mlp", "attn_core_pairs_q8:fp32"),
      "fp32"),
     (F32 + ["--mode", "dense"], B, 0, ("dyt_prologue_serving:fp32",), None),
@@ -3745,8 +3772,13 @@ FORM_RUNS = [
     (F32 + ["--mode", "dispatch", "--num_heads", str(HD384_HEADS)], F32_B,
      0, ("dyt_prologue_serving:fp32+past_256",), "fp32"),
     (["--mode", "dispatch", "--ffn_num", str(WIDE_F)], F32_B, None,
-     ("dyt_prologue_serving:bf16+simt_tail",), None),
+     ("dyt_prologue_serving:bf16+wide_tail",), "bf16"),
     (["--mode", "dispatch", "--ffn_num", str(WIDE_F), "--quant", "int8"],
+     F32_B, None, ("dyt_prologue_serving_q8:bf16+wide_tail", "q8_ln_mlp"),
+     "int8"),
+    (["--mode", "dispatch", "--ffn_num", str(SIMT_F)], F32_B, None,
+     ("dyt_prologue_serving:bf16+simt_tail",), None),
+    (["--mode", "dispatch", "--ffn_num", str(SIMT_F), "--quant", "int8"],
      F32_B, None, ("dyt_prologue_serving_q8:bf16+simt_tail", "q8_ln_mlp"),
      None),
     (["--mode", "dispatch", "--moe_experts", str(WIDE_MOE[0]), "--ffn_num",
@@ -3840,6 +3872,15 @@ def forms_kernels(torch, ms, qt, _build) -> dict:
              lambda: qt.dyt_prologue_q8_plain(x, *qsub, *ad, heads=H),
              (x, *qsub, *ad),
              {"int8": gemm, "fp64": 2 * attn + adapter + 2 * M * C}),
+            ("dyt_prologue_serving_q8:fp32+q8_exact",
+             "K6 fp32 with int8 scores (the exact core's int8-score mode)",
+             lambda: qt.dyt_prologue_serving_q8(x, *qsub, *ad, heads=H,
+                                                attn_q8=True),
+             lambda: qt.dyt_prologue_q8_plain(x, *qsub, *ad, heads=H,
+                                              attn_q8=True),
+             (x, *qsub, *ad),
+             {"int8": gemm + attn,
+              "fp64": attn + adapter + 2 * M * C}),
             ("dyt_prologue_serving_q8_moe:fp32", "K8 fp32 (4 x 64)",
              lambda: qt.dyt_prologue_serving_q8_moe(
                  x, *qsub, *moe, *ad[5:], heads=H, tau=TAU),
@@ -3860,10 +3901,41 @@ def forms_kernels(torch, ms, qt, _build) -> dict:
     g = torch.Generator(device="cuda").manual_seed(20)
     qkv = torch.randn((F32_B, N, 3 * C), generator=g, device="cuda")
     qkv[..., C:2 * C] += 1.0
-    out["attn_core_pairs_q8:fp32"] = measure(
-        "K10 fp32", lambda: qt.attn_core_pairs_q8(qkv, heads=H),
-        lambda: qt.attn_core_pairs_q8_plain(qkv, heads=H), ("core",), (qkv,),
-        {"int8": attn, "fp32": attn}, **fp32)
+    # K10 on fp32 qkv: the exact core's int8-score mode at head dims 64 to
+    # 256 (timed through its C entry), the SIMT int8-score form at 2 heads
+    # of 384.  Both sum P V and l
+    # in float64 and round once, as the plain version does, so they land on
+    # its bits but where a float64 sum of another order straddles an fp32
+    # rounding boundary (an output near 0 after cancellation): 12 heads of
+    # 64 (the main path's) held bit for bit, the others to F32_REL, the
+    # share of bit-identical outputs printed for both forms
+    exact = dict(rel=0.0, plain_iters=5)
+    for width, heads in ((C, H), (C, 6), (C, HD192_HEADS), (1024, 4),
+                         (C, HD384_HEADS)):
+        hd = width // heads
+        qkv_ = torch.randn((F32_B, N, 3 * width), generator=g, device="cuda")
+        qkv_[..., width:2 * width] += 1.0
+        ops = {"int8": attn_ops(F32_B) * width // C,
+               "fp64": attn_ops(F32_B) * width // C}
+        route = qt._core_q8_route(_build.library(), N, width, heads, f32)
+        res = measure(
+            f"K10 fp32 head_dim {hd} (route {route}"
+            + ("; bit for bit)" if hd == C // H else ")"),
+            lambda: qt.attn_core_pairs_q8(qkv_, heads=heads),
+            lambda: qt.attn_core_pairs_q8_plain(qkv_, heads=heads),
+            ("core",), (qkv_,), ops,
+            timed=(exact_q8_launch(torch, qt, qkv_, heads)
+                   if route == "q8_exact" else None),
+            **(exact if hd == C // H else fp32))
+        same = share_within(qt.attn_core_pairs_q8(qkv_, heads=heads),
+                            qt.attn_core_pairs_q8_plain(qkv_, heads=heads),
+                            0.0)
+        print(f"  K10 fp32 head_dim {hd}: bit-identical share {same:.8f}")
+        if hd == C // H:
+            out["attn_core_pairs_q8:fp32+q8_exact"] = res
+        elif hd > 256:
+            out["attn_core_pairs_q8:fp32"] = res
+        del qkv_
     q, k, v = (t.contiguous() for t in qkv.view(F32_B, N, 3, H, C // H)
                .permute(2, 0, 3, 1, 4))
     out["mha_serving_fused:fp32"] = measure(
@@ -3915,28 +3987,32 @@ def forms_kernels(torch, ms, qt, _build) -> dict:
 
     # bf16 at other widths and head dims, against the plain versions
     bfq = dict(plain_iters=5)
-    for F_ in (8, WIDE_F):
+    for F_ in (8, WIDE_F, SIMT_F):
         x_, s_, qs_, ad_, _ = forms_inputs(torch, ms, qt, dtype=bf, F=F_)
         pad = (*ms.pad_adapter_weights(*ad_[:3],
                                        ms.adapter_kernel_width(F_, bf)),
                *ad_[3:])
+        tail = "wide_tail" if F_ == WIDE_F else "simt_tail"
         for key, name, call, plain, ops in (
-                ("dyt_prologue_serving:bf16+simt_tail", "K3",
+                (f"dyt_prologue_serving:bf16+{tail}", "K3",
                  lambda: ms.dyt_prologue_serving(x_, *s_, *pad, heads=H),
                  lambda: ms.dyt_prologue_plain(x_, *s_, *ad_, heads=H),
                  {"bf16": gemm + 2 * attn + 4 * M * C * F_,
                   "fp32": 2 * M * C}),
-                ("dyt_prologue_serving_q8:bf16+simt_tail", "K6",
+                (f"dyt_prologue_serving_q8:bf16+{tail}", "K6",
                  lambda: qt.dyt_prologue_serving_q8(x_, *qs_, *pad, heads=H),
                  lambda: qt.dyt_prologue_q8_plain(x_, *qs_, *ad_, heads=H),
                  {"int8": gemm, "bf16": 2 * attn + 4 * M * C * F_,
                   "fp32": 2 * M * C})):
             res = measure(f"{name} bf16 F={F_}" + (
                 " (padded to the wgmma tail's 16)" if F_ == 8 else
-                " (the SIMT tail)"), call, plain,
+                " (the MoE tail's wgmma kernel, gate-free)" if F_ == WIDE_F
+                else " (the SIMT tail)"), call, plain,
                 ("x_mid", "adapt", "logits"), (x_, *s_, *ad_), ops, **bfq)
-            if F_ == WIDE_F:
+            if F_ != 8:
                 out[key] = res
+        if F_ == WIDE_F:
+            wide_tail_alone(torch, ms, _build, x_, pad, ad_)
     for (E_, b_), tag in (((2, 4), "padded to 2 x 8"),
                           (WIDE_MOE, "the wgmma tail past 512"),
                           (SIMT_MOE, "the SIMT tail")):
@@ -4022,9 +4098,6 @@ def forms_kernels(torch, ms, qt, _build) -> dict:
         check_ulp_share(f"K10 bf16 head_dim {hd}",
                         qt.attn_core_pairs_q8(qkv_, heads=heads),
                         qt.attn_core_pairs_q8_plain(qkv_, heads=heads))
-        print(f"  K10 bf16 head_dim {hd} on the SIMT int8-score form "
-              f"(an earlier tree's route): "
-              f"{time_ms(simt_q8_launch(torch, qt, qkv_, heads)):.4f} ms")
         # K9 at the seg crop (B=1, N=SEG_N) with the layer's padded bias
         sq = torch.randn((1, SEG_N, 3 * C_), generator=g,
                          device="cuda").to(bf)
@@ -4124,6 +4197,32 @@ def forms_kernels(torch, ms, qt, _build) -> dict:
     torch.cuda.empty_cache()
     forms_past_256(torch, ms, qt, _build)
     return out
+
+
+def wide_tail_alone(torch, ms, _build, x_, pad, ad_) -> None:
+    """The adapter/router tail at WIDE_F alone on ViT-B/16 rows (B=32): the
+    MoE tail's wgmma kernel gate-free through its C entry, against the plain
+    tail on the unpadded weights, beside its bound."""
+    lib = _build.library()
+    xm = x_.float()
+    adapt = torch.empty_like(x_)
+    lw = torch.empty((F32_B, N, 1), device="cuda")
+    stream = torch.cuda.current_stream().cuda_stream
+    M, F_ = F32_B * N, pad[0].shape[0]
+    if ms._adapter_tail(pad[0]) != "wide":
+        fail(f"the adapter tail at F={F_} is not on the wide tail")
+
+    def entry():
+        _build.check(lib, lib.dyt_moe_adapter_router(
+            xm.data_ptr(), M, C, None, *(t.data_ptr() for t in pad),
+            adapt.data_ptr(), 0, lw.data_ptr(), 1, F_, 1.0, stream),
+            "wide adapter tail")
+        return adapt, lw
+    measure(f"adapter tail bf16 F={F_} alone (gate-free wgmma; C entry)",
+            entry, lambda: ms.adapter_router_plain(
+                xm, torch.bfloat16, *ad_, with_select=True)[1:],
+            ("adapt", "logits"), (xm, *pad),
+            {"bf16": 4 * M * C * F_, "fp32": 2 * M * C}, plain_iters=5)
 
 
 def forms_exact(torch, ms, _build, x, ad, moe) -> None:

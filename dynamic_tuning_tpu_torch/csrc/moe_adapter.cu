@@ -13,6 +13,21 @@
 // dynamic_tuning_tpu/ops/mha_serving.py::dyt_prologue_serving_moe and
 // dynamic_tuning_tpu/ops/quant.py::dyt_prologue_serving_q8_moe.
 //
+// Its gate-free mode (wr == NULL: one "expert" of width F, gate 1, bu one
+// row) is the dense adapter/router tail at bf16 widths 128 < F <= 1024,
+// padded to a multiple of 16 (ops/mha_serving.py::adapter_kernel_width):
+//     adapt = (relu(bf16(xm) . Wd^T + bd) . Wu^T + bu) * scale,
+//     logits = xm . wsel + bsel,  the bottleneck stored in bf16;
+// with the sublayer chains it replaces the tail of the TPU kernels
+// dynamic_tuning_tpu/ops/mha_serving.py::dyt_prologue_serving
+// (_dyt_prologue_kernel) and quant.py::dyt_prologue_serving_q8 past the
+// widths dyt_prologue.cu's kernel is built for (up to 128), its k16 steps
+// chained in the tensor core as that kernel's (CHAIN).  There too the
+// bytes bound it (at B = 32, F = 256: 29 MB of fp32 x_mid and bf16 adapt,
+// 0.009 ms, against 5 GFLOP of bf16 products, 0.005 ms); the down pass of
+// up to 256 columns and the H tile up to 1024 are the layouts below, and
+// the router dots shrink to the token router's one.
+//
 // What bounds it on an H100.  At ViT-B serving shapes (M = 128*197 rows,
 // C = 768, E = 4, b = 64) the two expert products are 4*M*C*W = 19.8 GFLOP of
 // bf16 tensor work (~20 us at peak) while the kernel reads the fp32 x_mid
@@ -148,8 +163,11 @@ __device__ __forceinline__ void add_rn(float (&acc)[N], const float (&p)[N]) {
 }
 
 // PW: the 64-column pieces of W a consumer warpgroup takes a down pass (2:
-// the 256-column pass, 1: the 128-column one)
-template <typename TO, int PW>
+// the 256-column pass, 1: the 128-column one).  CHAIN (the gate-free mode):
+// the k16 steps of a stage chained in the tensor core, one wait a stage,
+// as dyt_prologue.cu's adapter kernel sums, instead of each step's
+// partial added round-to-nearest.
+template <typename TO, int PW, bool CHAIN>
 __global__ void __launch_bounds__(MOE_THREADS, 1)
 moe_adapter_router_kernel(const __grid_constant__ CUtensorMap map_x,
                           const __grid_constant__ CUtensorMap map_wd,
@@ -236,6 +254,7 @@ moe_adapter_router_kernel(const __grid_constant__ CUtensorMap map_x,
   const int lane = ctid & 31, g = lane >> 2, t2 = (lane & 3) * 2;
   const int r0 = warp * 16 + g;             // this thread's rows r0, r0 + 8
   const int NR = E + (wsel != nullptr);     // router dots a row
+  const int R0 = wr != nullptr ? 0 : E;     // its first (gate-free: wsel)
   const int dr = ctid >> 2, dpart = ctid & 3;   // router: row, 16 columns
   const float s_ad = ascale[0];
   // Weights converted to float64 once a block: rows e0 .. e0 + n - 1
@@ -319,7 +338,7 @@ moe_adapter_router_kernel(const __grid_constant__ CUtensorMap map_x,
         // ahead), up to 8 dots interleaved; the four lanes of the row add
         // up pairwise, then to the row's sum
         auto dots = [&] {
-          if (k == 0) load_w(0, 0, min(MOE_CVT, NR), wpre);
+          if (k == 0) load_w(0, R0, min(MOE_CVT, NR - R0), wpre);
           double xd[16];
 #pragma unroll
           for (int f = 0; f < 4; ++f) {
@@ -331,9 +350,9 @@ moe_adapter_router_kernel(const __grid_constant__ CUtensorMap map_x,
             xd[4 * f + 2] = v.z;
             xd[4 * f + 3] = v.w;
           }
-          for (int e0 = 0; e0 < NR; e0 += MOE_CVT) {
+          for (int e0 = R0; e0 < NR; e0 += MOE_CVT) {
             const int n = min(MOE_CVT, NR - e0);
-            if (e0 > 0) load_w(k, e0, n, wpre);
+            if (e0 > R0) load_w(k, e0, n, wpre);
             const double* w = store_cv(wpre, n) + dpart * 18;
             double sd[MOE_CVT];
 #pragma unroll
@@ -357,9 +376,9 @@ moe_adapter_router_kernel(const __grid_constant__ CUtensorMap map_x,
               }
             }
           }
-          if (k + 1 < nk) load_w(k + 1, 0, min(MOE_CVT, NR), wpre);
+          if (k + 1 < nk) load_w(k + 1, R0, min(MOE_CVT, NR - R0), wpre);
         };
-        if (p == 0) dots();
+        if (p == 0 && NR > R0) dots();
         // bf16(x) of this thread's rows as wgmma A fragments, one per k16
         // step of the chunk
         unsigned af[4][4];
@@ -373,10 +392,27 @@ moe_adapter_router_kernel(const __grid_constant__ CUtensorMap map_x,
             af[kk][e] = pack_bf16x2(v.x, v.y);
           }
         // per k16 step, both pieces' products into zeroed partials, then
-        // each added to its sum once they are done
+        // each added to its sum once they are done (CHAIN: the chunk's four
+        // steps chained into the sums)
         float pd[PW][32];
+        if constexpr (CHAIN) {
 #pragma unroll
-        for (int kk = 0; kk < 4; ++kk) {
+          for (int q = 0; q < PW; ++q) fence_regs(acc[q]);
+          wgmma_fence();
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+            for (int q = 0; q < PW; ++q)
+              wgmma_rs<64, false>(
+                  acc[q], af[kk],
+                  desc_sw128(wd + wd_row[q] * 64 * 128 + kk * 32), 1);
+          wgmma_commit();
+          wgmma_wait<0>();
+#pragma unroll
+          for (int q = 0; q < PW; ++q) fence_regs(acc[q]);
+        }
+#pragma unroll
+        for (int kk = 0; kk < (CHAIN ? 0 : 4); ++kk) {
 #pragma unroll
           for (int q = 0; q < PW; ++q) fence_regs(pd[q]);
           wgmma_fence();
@@ -398,11 +434,15 @@ moe_adapter_router_kernel(const __grid_constant__ CUtensorMap map_x,
       if (p == 0) {
         // expert softmax per row (max-subtracted, IEEE exp and division)
         // by the lane that summed the row's dots; the fp32 steps kept in
-        // the row's float64 slots, the gates left there
+        // the row's float64 slots, the gates left there (gate-free: one
+        // gate of 1)
         if (dpart == 0) {
           if (wsel != nullptr && m0 + dr < M)
             logits[m0 + dr] =
                 __fadd_rn((float)Rd[E * MOE_ROWS + dr], bsel[0]);
+          if (wr == nullptr) Rd[dr] = 1.0;
+        }
+        if (dpart == 0 && wr != nullptr) {
           float mx = -INFINITY;
           for (int e = 0; e < E; ++e) {
             const float v = __fmul_rn((float)Rd[e * MOE_ROWS + dr], inv_tau);
@@ -467,7 +507,22 @@ moe_adapter_router_kernel(const __grid_constant__ CUtensorMap map_x,
         // H tile's unwritten columns against zero rows of Wu, and is not
         // added)
         float pu[4][16];
-        for (int s0 = 0; s0 < cnt; s0 += 4) {
+        if constexpr (CHAIN) {        // the item's steps chained into u
+          fence_regs(u);
+          wgmma_fence();
+          for (int s = 0; s < cnt; ++s) {
+            const int ks = ks0 + s;
+            wgmma_ss<32>(
+                u, desc_sw128(Hs + (ks >> 2) * MOE_ROWS * 128 + (ks & 3) * 32),
+                desc_sw128(wu + (s >> 2) * 64 * 128 + cg * 32 * 128 +
+                           (s & 3) * 32),
+                1);
+          }
+          wgmma_commit();
+          wgmma_wait<0>();
+          fence_regs(u);
+        }
+        for (int s0 = 0; s0 < (CHAIN ? 0 : cnt); s0 += 4) {
 #pragma unroll
           for (int i = 0; i < 4; ++i) fence_regs(pu[i]);
           wgmma_fence();
@@ -597,8 +652,12 @@ static cudaError_t moe(const float* xm, int M, int C, const float* wr,
   if (err != cudaSuccess) return err;
   err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return err;
-  auto kernel = plan.pass == MOE_PASS ? moe_adapter_router_kernel<TO, 2>
-                                      : moe_adapter_router_kernel<TO, 1>;
+  auto kernel =
+      wr == nullptr
+          ? (plan.pass == MOE_PASS ? moe_adapter_router_kernel<TO, 2, true>
+                                   : moe_adapter_router_kernel<TO, 1, true>)
+          : (plan.pass == MOE_PASS ? moe_adapter_router_kernel<TO, 2, false>
+                                   : moe_adapter_router_kernel<TO, 1, false>);
   err = cudaFuncSetAttribute(kernel,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              L.bytes);
@@ -639,7 +698,10 @@ int dyt_moe_smem_bytes(int E, int b) {
 // bsel [1] fp32, or wsel == NULL to skip the router head; adapt [M, C] in the
 // residual dtype (adapt_f32 selects fp32 over bf16); logits fp32 [M];
 // inv_tau the fp32 value of 1/tau.  xm, wd, wu, wr, wsel and bu on 16 bytes.
-// Returns a cudaError_t value.
+// wr == NULL is the gate-free mode, the dense adapter's tail past the
+// widths of dyt_prologue.cu's kernel: E == 1, b = F a multiple of 16 up to
+// 1024, bu [C], every row's one gate 1 (inv_tau unused), the k16 steps
+// chained in the tensor core.  Returns a cudaError_t value.
 int dyt_moe_adapter_router(const float* xm, int M, int C, const float* wr,
                            const void* wd, const float* bd, const void* wu,
                            const float* bu, const float* ascale,
@@ -647,7 +709,10 @@ int dyt_moe_adapter_router(const float* xm, int M, int C, const float* wr,
                            int adapt_f32, float* logits, int E, int b,
                            float inv_tau, void* stream) {
   using dyt::bf16;
-  if (!dyt_moe_width_supported(E, b) || C % 64) return cudaErrorInvalidValue;
+  const bool ok = wr != nullptr ? dyt_moe_width_supported(E, b)
+                                : E == 1 && b > 0 && b % 16 == 0 &&
+                                      b <= dyt::MOE_MAX_W;
+  if (!ok || C % 64) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   auto* d = static_cast<const bf16*>(wd);
   auto* u = static_cast<const bf16*>(wu);

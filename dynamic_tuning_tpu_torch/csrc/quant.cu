@@ -59,7 +59,9 @@
 //                     that N, and at head dims 320 to 768, K10 runs on
 //                     q8_ring.cu's wgmma key ring (the codes from
 //                     q8_codes.cuh, keys in 32-row tiles by TMA); on fp32
-//                     qkv and past 768 on simt_core_q8.cu's SIMT form.
+//                     qkv at head dims 64 to 256 on exact_core.cu's
+//                     int8-score mode (IMMA scores, DMMA P V), past that
+//                     and past 768 on simt_core_q8.cu's SIMT form.
 // Every rounding step uses the _rn intrinsics (mul/add/sub of common.cuh):
 // nvcc would otherwise contract a * b + c into one FMA, which rounds once
 // where the TPU kernel rounds twice.
@@ -71,6 +73,9 @@ extern "C" int dyt_attn_core(const void* qkv, void* out, int B, int N, int C,
                              int H, float scale, void* stream);
 extern "C" int dyt_exact_core(const float* qkv, float* out, int B, int N,
                               int C, int H, float scale, void* stream);
+extern "C" int dyt_exact_core_q8(const float* qkv, float* out, void* scratch,
+                                 int B, int N, int C, int H, float scale,
+                                 void* stream);
 extern "C" int dyt_simt_core_exact(const float* qkv, float* out, int B,
                                    int N, int C, int H, float scale,
                                    void* stream);
@@ -771,14 +776,17 @@ constexpr int CORE_TENSOR = 0, CORE_SIMT = 1, CORE_Q8_RING = 2;
 // output is row-quantized for proj into the plain version's codes).
 // ``core`` selects the core's form: CORE_TENSOR (0) the tensor-core one,
 // CORE_SIMT (1) the SIMT core's, CORE_Q8_RING (2) the int8-score wgmma key
-// ring.  With int8 scores (attn_q8): K10's staged wgmma form, the SIMT
-// int8-score form (an fp32 scratch takes it only) or the ring (bf16); on an
+// ring.  With int8 scores (attn_q8) on a bf16 scratch: K10's staged wgmma
+// form, the SIMT int8-score form or the ring; on an fp32 scratch the exact
+// core's int8-score mode (exact_core.cu, IMMA scores and DMMA P V, head
+// dims 64 to 256) or the SIMT int8-score form (past 256); on an
 // fp32 scratch without them the exact SIMT slices kernel (simt_core.cu, past
 // head dim 256) over the DMMA exact core (exact_core.cu, head dims 64 to
 // 256); on a bf16 scratch without them the SIMT core over
 // attention_sublayer.cu's wgmma core.  The caller decides.
-// ``core_scratch`` holds the codes of the int8-score SIMT form and of the
-// ring (attn_q8 with CORE_SIMT or CORE_Q8_RING).
+// ``core_scratch`` holds the codes of every int8-score form but K10's
+// staged one (attn_q8 with CORE_SIMT or CORE_Q8_RING, or on an fp32
+// scratch).
 template <typename TX, typename TS>
 static cudaError_t sublayer_q8(const TX* x, const float* gamma,
                                const float* beta, const int8_t* wqkv,
@@ -791,8 +799,7 @@ static cudaError_t sublayer_q8(const TX* x, const float* gamma,
                                int core, cudaStream_t s) {
   constexpr bool F32 = std::is_same<TS, float>::value;
   if (core < CORE_TENSOR || core > CORE_Q8_RING ||
-      (core == CORE_Q8_RING && (F32 || !attn_q8)) ||
-      (F32 && attn_q8 && core != CORE_SIMT))
+      (core == CORE_Q8_RING && (F32 || !attn_q8)))
     return cudaErrorInvalidValue;
   const bool simt_core = core == CORE_SIMT;
   const int M = B * N;
@@ -805,10 +812,15 @@ static cudaError_t sublayer_q8(const TX* x, const float* gamma,
                                    qkv_buf, nullptr, nullptr, nullptr, s);
   if (err != cudaSuccess) return err;
   if constexpr (F32) {
-    err = static_cast<cudaError_t>(
-        attn_q8     ? dyt_simt_core_q8(qkv_buf, attn_buf, core_scratch, B, N,
+    if (attn_q8)
+      err = static_cast<cudaError_t>(
+          simt_core ? dyt_simt_core_q8(qkv_buf, attn_buf, core_scratch, B, N,
                                        C, H, scale, 1, s)
-        : simt_core ? dyt_simt_core_exact(qkv_buf, attn_buf, B, N, C, H,
+                    : dyt_exact_core_q8(qkv_buf, attn_buf, core_scratch, B,
+                                        N, C, H, scale, s));
+    else
+      err = static_cast<cudaError_t>(
+          simt_core ? dyt_simt_core_exact(qkv_buf, attn_buf, B, N, C, H,
                                           scale, s)
                     : dyt_exact_core(qkv_buf, attn_buf, B, N, C, H, scale,
                                      s));
@@ -962,10 +974,11 @@ int dyt_attn_core_q8(const void* qkv, void* out, int B, int N, int C, int H,
 // fp32; wqkv [3C, C], wproj [C, C] int8; xm32 an optional fp32 copy of out;
 // a8 [B*N, C] int8, rs [B*N] fp32, qkv_buf [B*N, 3C] and attn_buf [B*N, C]
 // scratch in bf16, or fp32 with scratch_f32; attn_q8 selects the K10 core;
-// core its form (0 the tensor-core one, 1 the SIMT core's, which fp32
-// scratch takes with attn_q8, 2 the int8-score key ring, bf16 with attn_q8
-// only); core_scratch dyt_simt_core_q8_scratch_bytes on 16 bytes with
-// attn_q8 and core 1 or 2, else unused.  Returns a cudaError_t value.
+// core its form (0 the tensor-core one, 1 the SIMT core's, 2 the
+// int8-score key ring, bf16 with attn_q8 only); core_scratch
+// dyt_simt_core_q8_scratch_bytes on 16 bytes with attn_q8 and core 1 or 2,
+// or with attn_q8 on an fp32 scratch, else unused.  Returns a cudaError_t
+// value.
 int dyt_attention_sublayer_q8(const void* x, int x_f32, const float* gamma,
                               const float* beta, const void* wqkv,
                               const float* sqkv, const float* bqkv,

@@ -11,7 +11,8 @@
 //     bd) . Wu^T + bu) * s and x . wsel + bsel, and the MoE tail
 //     (dyt_prologue_serving_moe's moe_adapter_rows: gates = softmax((x .
 //     Wr) * (1 / tau)), the gated bottleneck, the gated up bias) at any F
-//     and any E * b (past 128 and past 512, where the wgmma tails stop): a
+//     and any E * b (past 1024, where the wgmma tails stop, and at C % 64
+//     != 0; moe_adapter.cu takes F from 129 to 1024 gate-free): a
 //     router kernel (one warp a row: the router dots in float64, the expert
 //     softmax, the token-router logit) and two fp32 GEMMs with the mixture
 //     in their epilogues; the bottleneck is stored in bf16 (MoE: bf16(h *

@@ -2,15 +2,18 @@
 // cores do not take (its entries: simt_core.cu, and simt_core_q8.cu for the
 // int8-score form):
 //   * the int8-score form of K10 (dynamic_tuning_tpu/ops/quant.py::
-//     attn_core_pairs_q8) on fp32 qkv, and on bf16 qkv past the N whose
-//     layout fits quant.cu's wgmma form: the k lane means, the k codes of
-//     each head pair's 2 hd lanes and the per-head q codes come from two
-//     small kernels (k_lane_mean_kernel, q8_codes_kernel), the exact int32
-//     Q K^T from dp4a;
-//   * past head dim 256 the int8-score form and the exact fp32 route (the
-//     core of K6 and K8 with fp32 adapters, whose output is requantized, so
-//     its sums are float64 as the plain version's; up to 256 it is
-//     exact_core.cu's DMMA kernel), and past 768 every core (below).
+//     attn_core_pairs_q8) on fp32 qkv past head dim 256 (up to it
+//     exact_core.cu's int8-score mode) and on bf16 qkv past head dim 768
+//     (up to it quant.cu's and q8_ring.cu's wgmma forms): the k lane means,
+//     the k codes of each head pair's 2 hd lanes and the per-head q codes
+//     come from two small kernels (k_lane_mean_kernel, q8_codes_kernel),
+//     the exact int32 Q K^T from dp4a;
+//   * the exact fp32 route past head dim 256 (the core of K6 and K8 with
+//     fp32 adapters, whose output is requantized, so its sums are float64
+//     as the plain version's; up to 256 it is exact_core.cu's DMMA kernel);
+//   * past head dim 768 every core: bf16 and fp32, K1's and K15's rounding,
+//     K9's bias (where the wgmma and fp32 cores' q tile and two stages of K
+//     no longer fit a block).
 // Up to head dim 768 the fp32 cores of K1, K2, K3, K7 and K9 are
 // f32_core.cu's register-tiled kernels, and bf16 K1, K15, K9 and the cores
 // of K2, K3, K5-K8 without int8 scores attention_sublayer.cu's and
@@ -21,7 +24,7 @@
 // and head dims those are generic in.
 //
 // Per query row of each head (K1's rounding; T the operands' type; K15's is
-// the slices kernel's note):
+// the kernel's note below):
 //   q' = T(q * scale);  s = q' . k (fp32) [+ fp32(bias)]
 //   e = exp(clip(s, -60, 80) - 20);  l = sum(e) in fp32 (the unrounded e)
 //   o = (T(e) @ v in fp32) * (1 / l) -> T
@@ -29,49 +32,28 @@
 // The serving softmax has no row max, so each key tile's e is final when
 // computed: the walk over keys carries only l and o, never rescales.
 //
-// What bounds it on an H100.  K10's fp32 form at ViT-B/16 (B = 32, N = 197,
-// 12 heads of 64) sums its P V in float64: 0.95 G multiply-adds, 0.057 ms at
-// the FP64 rate (half the FFMA rate); the bf16 forms at head dim 192 do 7.6
-// GFLOP that the tensor cores would take in 0.008 ms, against 0.012 ms of
-// bytes.
+// What bounds it on an H100.  The fp32 int8-score form at 2 heads of 384
+// (B = 32, N = 197) sums its P V in float64: 0.95 G multiply-adds, 0.057 ms
+// at the FP64 rate (half the FFMA rate); its scores are recomputed for
+// every 64-column slice of o (below).
 //
 // What the design does about it (a simple form: exactness first, and the
-// shapes it serves are off the main paths' hot loop).  A block of 256
-// threads owns 64 query rows of one (sample, head): the scaled q' rows sit
-// in shared memory as fp32 (or int8 codes, four to a word), and the block
-// walks the keys in tiles of KT (64 at hd <= 128, 32 past it):
-//   * the tile's K (or codes) and V come into shared memory as fp32 rows
-//     padded by four words, so float4 reads of eight consecutive threads
-//     fall on distinct banks;
-//   * thread (ty, tx) computes the scores of rows ty + 16 i and keys
-//     tx + 16 j from float4 (or int4 of codes, dp4a) reads along hd, adds the
-//     bias, takes the clamped expf, adds e to its rows' l and writes T(e) to
-//     a score tile in shared memory;
-//   * then it accumulates o for rows ty + 16 i and columns 4 tx + 64 c ..
-//     + 3 from the score tile (a broadcast) and V (float4 reads): the output
-//     row is split over the sixteen threads of a half warp, so at hd 256 a
-//     thread holds 64 sums, not 256;
-//   * l is summed over the half warp at the end, o * (1 / l) stored in T.
-// Acc is float64 in the int8-score form on fp32 qkv and on the exact route
-// past 256 (the kernel then gives the plain version's bits, at the FP64
-// rate and twice the registers), fp32 elsewhere.
-//
-// Head dims past 256 (the JAX package fuses every hd with (2 hd) % 128 ==
-// 0: 320, 384, 512 and on) take simt_core_slices_kernel in the int8-score
-// and exact forms, and past 768 (where the wgmma and fp32 cores' q tile
-// and two stages of K no longer fit a block) in every form (bf16 and fp32,
-// K1's and K15's rounding, the bias), with hd given at run time: a list of
-// template instances would stop at its last entry.  The rows of Q, K and V
-// above would not fit a block past hd ~ 400, nor o a thread's registers, so
-// the kernel walks hd in 64-column slices:
+// shapes it serves are off the main paths: no model the repository ships
+// has a head dim past 256).  simt_core_slices_kernel takes hd at run time
+// (every hd with (2 hd) % 128 == 0 that the JAX package fuses: a list of
+// template instances would stop at its last entry).  A block of 256
+// threads owns 64 query rows of one (sample, head); Q, K and V rows would
+// not fit a block past hd ~ 400, nor o a thread's registers, so it walks
+// hd in 64-column slices:
 //   * o is built one 64-column slice at a time (four sums a row a thread);
 //   * for each slice the block walks the key tiles (32 keys) and sums each
 //     tile's q . k over the 64-column slices of q and k (or of their codes)
 //     brought into shared memory in turn, then V's slice;
 //   * so each output slice recomputes the scores.  The serving softmax has
 //     no row max, so the recomputed e and l are the same bits each time.
-// The scores cost hd / 64 times their products: a simple form, right
-// first, for head dims no model the repo ships uses.
+// Acc is float64 in the int8-score form on fp32 qkv and on the exact route
+// (the kernel then gives the plain version's bits, at the FP64 rate and
+// twice the registers), fp32 elsewhere.
 #pragma once
 
 #include <type_traits>
@@ -82,27 +64,6 @@ namespace dyt {
 
 constexpr int SC_THREADS = 256;
 constexpr int SC_QT = 64;                  // query rows a block
-
-__host__ __device__ constexpr int sc_kt(int hd) { return hd <= 128 ? 64 : 32; }
-
-// Shared memory of the SIMT core (fp32 words): Q [QT][QW], K [KT][QW],
-// V [KT][HD + 4], scores [QT][KT + 4], then (int8 scores) the q scales [QT]
-// and k scales [KT].  QW is HD + 4 words, or HD / 4 + 4 for packed codes.
-template <int HD, bool Q8>
-struct ScLayout {
-  static constexpr int KT = sc_kt(HD);
-  static constexpr int QW = Q8 ? HD / 4 + 4 : HD + 4;
-  static constexpr int VW = HD + 4;
-  static constexpr int SW = KT + 4;
-  static constexpr int Q_OFF = 0;
-  static constexpr int K_OFF = Q_OFF + SC_QT * QW;
-  static constexpr int V_OFF = K_OFF + KT * QW;
-  static constexpr int S_OFF = V_OFF + KT * VW;
-  static constexpr int QS_OFF = S_OFF + SC_QT * SW;
-  static constexpr int KS_OFF = QS_OFF + (Q8 ? SC_QT : 0);
-  static constexpr int WORDS = KS_OFF + (Q8 ? KT : 0);
-  static constexpr int BYTES = WORDS * 4;
-};
 
 // Element strides (batch, head, row) of q, k, v and out, unit stride along
 // hd.  In the int8-score form q and k are the codes ([B, N, C] int8, head h
@@ -139,40 +100,6 @@ __device__ __forceinline__ double sc_fma(float a, float b, double c) {
 __device__ __forceinline__ float sc_f32(float v) { return v; }
 __device__ __forceinline__ float sc_f32(double v) {
   return __double2float_rn(v);
-}
-
-// fp32 sums: two blocks an SM (at most 128 registers a thread; left to
-// itself ptxas took 138 for the bf16 int8-score form at hd 256: one block
-// an SM, a third slower)
-template <typename T, int HD, bool Q8, typename Acc>
-__global__ void __launch_bounds__(SC_THREADS, 2)
-simt_core_kernel(const ScArgs<T> a) {
-#include "simt_core_body.cuh"
-}
-
-// float64 sums: one block an SM whatever ptxas picks (141-254 registers);
-// the body stays in the kernel itself, where ptxas's register choice for
-// it is the one measured
-template <typename T, int HD, bool Q8, typename Acc>
-__global__ void __launch_bounds__(SC_THREADS)
-simt_core_kernel_f64(const ScArgs<T> a) {
-#include "simt_core_body.cuh"
-}
-
-template <typename T, int HD, bool Q8, typename Acc>
-static cudaError_t launch_sc(const ScArgs<T>& a, int B, cudaStream_t s) {
-  using L = ScLayout<HD, Q8>;
-  void (*kernel)(const ScArgs<T>);
-  if constexpr (std::is_same<Acc, double>::value)
-    kernel = simt_core_kernel_f64<T, HD, Q8, Acc>;
-  else
-    kernel = simt_core_kernel<T, HD, Q8, Acc>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L::BYTES);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((a.N + SC_QT - 1) / SC_QT, a.H, B);
-  kernel<<<grid, SC_THREADS, L::BYTES, s>>>(a);
-  return cudaGetLastError();
 }
 
 // --- any head dim that is a multiple of 64, in 64-column slices -------------
@@ -446,27 +373,14 @@ static cudaError_t launch_ss(const ScArgs<T>& a, int B, int hd,
   return cudaGetLastError();
 }
 
-// The int8-score forms at head dims 64 .. 256 on their template instances;
-// past 256, and every form without int8 scores (the exact route, which
-// the fp32 int8 chain runs here past 256 only; K1's and K15's rounding and
-// K9's bias, which no route sends here below 769), on the slices kernel.
+// Every form on the slices kernel, hd a multiple of 64 given at run time.
 template <typename T, bool Q8, typename Acc = float>
 static cudaError_t simt_core(const ScArgs<T>& a, int B, int hd,
                              cudaStream_t s) {
   if (a.N <= 0 || B <= 0 || a.H <= 0 || B > 65535 || a.H > 65535 || hd <= 0 ||
       hd % SS_W)
     return cudaErrorInvalidValue;
-  if constexpr (!Q8) {
-    return launch_ss<T, Q8, Acc>(a, B, hd, s);
-  } else {
-    switch (hd) {
-      case 64: return launch_sc<T, 64, Q8, Acc>(a, B, s);
-      case 128: return launch_sc<T, 128, Q8, Acc>(a, B, s);
-      case 192: return launch_sc<T, 192, Q8, Acc>(a, B, s);
-      case 256: return launch_sc<T, 256, Q8, Acc>(a, B, s);
-      default: return launch_ss<T, Q8, Acc>(a, B, hd, s);
-    }
-  }
+  return launch_ss<T, Q8, Acc>(a, B, hd, s);
 }
 
 }  // namespace dyt

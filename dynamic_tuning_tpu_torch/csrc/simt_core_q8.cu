@@ -1,6 +1,7 @@
 // The SIMT attention core's int8-score form (K10's function,
 // dynamic_tuning_tpu/ops/quant.py::attn_core_pairs_q8): what it still
-// serves is fp32 qkv (K10 and K6/K8 with fp32 adapters, float64 sums) and
+// serves is fp32 qkv past head dim 256 (K10 and K6/K8 with fp32 adapters,
+// float64 sums; up to 256 exact_core.cu's int8-score mode takes them) and
 // bf16 past head dim 768 (ops/mha_serving.py::WIDE_MAX_HD), where the wgmma
 // key ring of q8_ring.cu stops.  The k lane means and the q and k codes come
 // from q8_codes.cuh's two kernels (the ring reads the same codes), then

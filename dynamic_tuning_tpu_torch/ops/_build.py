@@ -72,6 +72,7 @@ _SIGNATURES = {
     "dyt_f32_core": [_P] * 5 + [_I, _I, _I, _I, _F, _P, _LL, _LL, _P],
     "dyt_simt_core_q8": [_P, _P, _P, _I, _I, _I, _I, _F, _I, _P],
     "dyt_exact_core": [_P, _P, _I, _I, _I, _I, _F, _P],
+    "dyt_exact_core_q8": [_P, _P, _P, _I, _I, _I, _I, _F, _P],
     "dyt_simt_core_exact": [_P, _P, _I, _I, _I, _I, _F, _P],
     "dyt_simt_core_q8_scratch_bytes": [_I, _I, _I, _I],
 }

@@ -31,6 +31,8 @@ or launch.  There is no other path.  Each launch adds one to the wrapper's
 ``csrc/gemm_f32.cuh``, the register-tiled fp32 core of
 ``csrc/f32_core.cu``, the float64 DMMA tail of ``csrc/f64_tail.cu``; in
 K6 and K8 the exact core of ``csrc/exact_core.cu``),
+"fp32+q8_exact" (fp32 K10, and K6/K8 with fp32 adapters and int8 scores,
+on the exact core's int8-score mode: IMMA scores, DMMA P V),
 "bf16+wide_heads" (bf16 at head dims 192 and 256 on the wgmma kernels),
 "bf16+past_256" and "fp32+past_256" (past head dim 256, up to 768, on the
 wgmma core and the fp32 core that take hd at run time), "bf16+q8_ring"
@@ -38,8 +40,9 @@ wgmma core and the fp32 core that take hd at run time), "bf16+q8_ring"
 key ring: past head dim 256 up to 768, and at head dims 64 to 256 past the
 N whose codes and V fit the staged int8-score core), "bf16+simt_core"
 (bf16 past head dim 768: the SIMT core, which walks any head dim in
-64-column slices) and "+simt_tail" (a bf16 adapter or MoE tail at a width
-the wgmma tails do not take, on the SIMT tail).
+64-column slices), "+wide_tail" (a bf16 adapter past width 128 on the
+MoE tail's wgmma kernel, gate-free) and "+simt_tail" (a bf16 adapter or MoE
+tail at a width the wgmma tails do not take, on the SIMT tail).
 ``core_of`` is the one table of which attention core each wrapper runs;
 each wrapper calls the entry of that core, and the one C entry with a
 choice of cores (the int8 chain's) follows the route the wrapper passes
@@ -90,7 +93,9 @@ WIDE_MAX_HD = 768                # the wgmma and fp32 cores' largest head
 #                                  every core is the SIMT core's
 AR_WIDTHS = (16, 32, 48, 64, 96, 128)    # the wgmma adapter/router kernel's F
 #                                  (csrc's dyt_adapter_width_supported)
-MOE_MAX_W = 1024                 # the wgmma MoE tail's largest E * b
+MOE_MAX_W = 1024                 # the wgmma MoE tail's largest E * b, and
+#                                  the largest bf16 adapter width it takes
+#                                  gate-free
 EXACT_MAX_HD = 256               # the DMMA exact core's largest head dim
 #                                  (exact_core.cu); past it the SIMT slices
 #                                  kernel's exact form
@@ -209,10 +214,14 @@ def adapter_router_plain(xm, out_dtype, wdown, bdown, wup, bup, adapter_scale,
 def adapter_kernel_width(F: int, dtype) -> int:
     """The width the kernels take a bf16 adapter of bottleneck ``F`` at: up
     to 128, the next width the wgmma adapter/router kernel is built for
-    (``AR_WIDTHS``); past it, and in fp32, ``F`` itself (the SIMT tail, and
-    with fp32 weights the float64 tail, take any width)."""
+    (``AR_WIDTHS``); past it up to ``MOE_MAX_W``, the next multiple of 16
+    (the MoE tail's wgmma kernel, gate-free); past that, and in fp32, ``F``
+    itself (the SIMT tail, and with fp32 weights the float64 tail, take any
+    width)."""
     if dtype == BF and F <= AR_WIDTHS[-1]:
         return next(w for w in AR_WIDTHS if w >= F)
+    if dtype == BF and F <= MOE_MAX_W:
+        return -(-F // 16) * 16
     return F
 
 
@@ -370,8 +379,12 @@ def core_of(kernel: str, dtype, hd: int, *, heads: int,
     * "q8_ring": ``q8_ring.cu``'s int8-score wgmma key ring -- bf16 K10
       (and K5, K6, K8 with ``attn_q8``) past the staged core's N at head dims
       64 to ``Q8_MAX_HD`` and past it up to ``WIDE_MAX_HD``;
+    * "q8_exact": the exact core's int8-score mode (``exact_core.cu``: the
+      codes' int32 scores on IMMA, P V in float64 on DMMA) -- fp32 K10
+      (and K6, K8 with an fp32 qkv scratch and ``attn_q8``) up to
+      ``EXACT_MAX_HD``;
     * "simt_q8": the SIMT core's int8-score form -- the rest of K10's: fp32
-      qkv, and bf16 past ``WIDE_MAX_HD``;
+      qkv past ``EXACT_MAX_HD``, and bf16 past ``WIDE_MAX_HD``;
     * "f32": ``f32_core.cu``'s register-tiled fp32 cores -- fp32 K1, K9 and
       the cores of K2, K3, K7 up to ``WIDE_MAX_HD``;
     * "f32_exact": the exact core with float64 sums on DMMA
@@ -398,7 +411,9 @@ def core_of(kernel: str, dtype, hd: int, *, heads: int,
     if dtype not in (BF, F32) or (kernel in ("K5", "K15") and dtype != BF):
         raise TypeError(f"{kernel} takes no {dtype} on the card")
     if kernel == "K10" or (attn_q8 and kernel in ("K5", "K6", "K8")):
-        if dtype != BF or hd > WIDE_MAX_HD:
+        if dtype == F32:
+            return "q8_exact" if hd <= EXACT_MAX_HD else "simt_q8"
+        if hd > WIDE_MAX_HD:
             return "simt_q8"
         return "q8" if hd <= Q8_MAX_HD and q8_fits else "q8_ring"
     if dtype == F32 and kernel in ("K6", "K8"):
@@ -410,16 +425,20 @@ def core_of(kernel: str, dtype, hd: int, *, heads: int,
     return "f32" if dtype == F32 else "wgmma"
 
 
-def form_of(dtype, hd: int | None = None, simt_tail: bool = False,
+def form_of(dtype, hd: int | None = None, tail: str = "",
             core: str = "wgmma") -> str:
     """The form a wrapper takes (its ``forms`` key): "fp32" ("fp32+past_256"
-    on the fp32 core past head dim 256), or "bf16" with "+wide_heads" at
-    head dims 192 and 256 and "+past_256" past them on the wgmma cores
-    ("+simt_core" where ``core`` is the SIMT core's past head dim 128, past
-    ``WIDE_MAX_HD``; "+q8_ring" at any head dim where ``core`` is the
-    int8-score key ring) and "+simt_tail" for a tail on the SIMT form."""
+    on the fp32 core past head dim 256, "fp32+q8_exact" on the exact core's
+    int8-score mode), or "bf16" with "+wide_heads" at head dims 192 and 256
+    and "+past_256" past them on the wgmma cores ("+simt_core" where
+    ``core`` is the SIMT core's past head dim 128, past ``WIDE_MAX_HD``;
+    "+q8_ring" at any head dim where ``core`` is the int8-score key ring),
+    then "+simt_tail" for a ``tail`` on the SIMT form ("simt") and
+    "+wide_tail" for an adapter on the MoE tail's kernel ("wide")."""
     past = hd is not None and hd > 256
     if dtype == F32:
+        if core == "q8_exact":
+            return "fp32+q8_exact"
         return "fp32+past_256" if past and core == "f32" else "fp32"
     form = "bf16"
     if core == "q8_ring":
@@ -430,7 +449,7 @@ def form_of(dtype, hd: int | None = None, simt_tail: bool = False,
         form += "+past_256"
     elif hd is not None and hd > 128:
         form += "+wide_heads"
-    return form + "+simt_tail" if simt_tail else form
+    return form + {"simt": "+simt_tail", "wide": "+wide_tail"}.get(tail, "")
 
 
 def counted(fn, form: str) -> None:
@@ -525,8 +544,10 @@ def dyt_prologue_serving(x, gamma, beta, wqkv, bqkv, wproj, bproj, wdown,
     wdown [F, C] and wup [C, F] in the compute dtype (that of wqkv); bdown
     [F], bup [C], adapter_scale [1], wsel [1, C] and bsel [1] fp32.  A bf16
     F of ``AR_WIDTHS`` takes the wgmma tail (``adapter_kernel_width`` pads
-    the others up to one), any other bf16 F the SIMT tail, fp32 weights
-    the float64 tail on DMMA."""
+    the others up to one), a bf16 F past 128 up to ``MOE_MAX_W`` that is a
+    multiple of 16 the MoE tail's wgmma kernel gate-free (padded likewise),
+    any other bf16 F the SIMT tail, fp32 weights the float64 tail on
+    DMMA."""
     if x.device.type == "cpu":
         return dyt_prologue_plain(x, gamma, beta, wqkv, bqkv, wproj, bproj,
                                   wdown, bdown, wup, bup, adapter_scale, wsel,
@@ -545,17 +566,24 @@ def dyt_prologue_serving(x, gamma, beta, wqkv, bqkv, wproj, bproj, wdown,
                                      bdown, wup, bup, adapter_scale, wsel,
                                      bsel, with_select)
     counted(dyt_prologue_serving,
-            form_of(wqkv.dtype, x.shape[-1] // heads,
-                    _adapter_tail(wdown) == "simt", core))
+            form_of(wqkv.dtype, x.shape[-1] // heads, _adapter_tail(wdown),
+                    core))
     return outs
 
 
 def _adapter_tail(wdown) -> str:
     """"f64" for fp32 weights (the float64 tail on DMMA), "wgmma" for a bf16
-    adapter width the wgmma kernel is built for, else "simt"."""
+    adapter width the wgmma kernel is built for, "wide" for a bf16 width
+    past it up to ``MOE_MAX_W``, a multiple of 16, at C % 64 == 0 (the MoE
+    tail's wgmma kernel, gate-free), else "simt"."""
     if wdown.dtype == F32:
         return "f64"
-    return "wgmma" if wdown.shape[0] in AR_WIDTHS else "simt"
+    F, C = wdown.shape
+    if F in AR_WIDTHS:
+        return "wgmma"
+    if AR_WIDTHS[-1] < F <= MOE_MAX_W and F % 16 == 0 and C % 64 == 0:
+        return "wide"
+    return "simt"
 
 
 def check_adapter_router(lib, x, wdown, bdown, wup, bup, adapter_scale, wsel,
@@ -573,14 +601,21 @@ def check_adapter_router(lib, x, wdown, bdown, wup, bup, adapter_scale, wsel,
     if with_select:
         _require(wsel, "wsel", (1, C), f32, dev)
         _require(bsel, "bsel", (1,), f32, dev)
-    if _adapter_tail(wdown) == "wgmma" and C % 64:
+    tail = _adapter_tail(wdown)
+    if tail == "wgmma" and C % 64:
         raise ValueError(f"C={C} must be a multiple of 64")
+    if tail == "wide":
+        for name, t in (("wdown", wdown), ("wup", wup), ("bup", bup),
+                        ("wsel", wsel if with_select else None)):
+            if t is not None and t.data_ptr() % 16:
+                raise ValueError(f"{name} must start on 16 bytes")
 
 
 def launch_adapter_router(lib, x_mid, xm32, wdown, bdown, wup, bup,
                           adapter_scale, wsel, bsel, with_select: bool):
     """The adapter/router tail on the fp32 copy ``xm32`` of ``x_mid`` (the
-    wgmma kernel for a bf16 width of ``AR_WIDTHS``, the SIMT tail for other
+    wgmma kernel for a bf16 width of ``AR_WIDTHS``, the MoE tail's wgmma
+    kernel gate-free past it up to ``MOE_MAX_W``, the SIMT tail for other
     bf16 widths, the float64 DMMA tail for fp32 weights): (x_mid, adapt[,
     logits])."""
     B, N, C = x_mid.shape
@@ -600,6 +635,11 @@ def launch_adapter_router(lib, x_mid, xm32, wdown, bdown, wup, bup,
             _ptr(xm32), B * N, C, _ptr(wdown), _ptr(bdown), _ptr(wup),
             _ptr(bup), _ptr(adapter_scale), *sel, _ptr(adapt),
             int(x_mid.dtype == F32), _ptr(logits), F, stream)
+    elif tail == "wide":
+        err = lib.dyt_moe_adapter_router(
+            _ptr(xm32), B * N, C, None, _ptr(wdown), _ptr(bdown), _ptr(wup),
+            _ptr(bup), _ptr(adapter_scale), *sel, _ptr(adapt),
+            int(x_mid.dtype == F32), _ptr(logits), 1, F, 1.0, stream)
     else:
         fn = lib.dyt_tail_f64 if tail == "f64" else lib.dyt_tail_simt
         h = torch.empty((B * N, F), dtype=F32 if tail == "f64" else BF,
@@ -642,7 +682,7 @@ def dyt_prologue_serving_moe(x, gamma, beta, wqkv, bqkv, wproj, bproj,
             lib, x_mid, x_mid if xm32 is None else xm32, wrouter, wdown2d,
             bdown2d, wup2d, bup, adapter_scale, wsel, bsel, tau, with_select)
     counted(dyt_prologue_serving_moe,
-            form_of(wqkv.dtype, x.shape[-1] // heads, tail == "simt", core))
+            form_of(wqkv.dtype, x.shape[-1] // heads, tail, core))
     return outs
 
 

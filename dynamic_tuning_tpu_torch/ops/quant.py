@@ -49,8 +49,10 @@ are those of the TPU kernels:
   scratch dtype (bf16 e and v, or fp32).  bf16 at head dims up to 256 on
   the staged wgmma core where its layout fits a block, past that N and
   past head dim 256 (up to 768) on the wgmma key ring of
-  ``csrc/q8_ring.cu``; fp32 and head dims past 768 on the SIMT core's
-  int8-score form (``mha_serving.core_of``).
+  ``csrc/q8_ring.cu``; fp32 up to head dim 256 on the exact core's
+  int8-score mode (``csrc/exact_core.cu``: IMMA scores, P.V in float64 on
+  DMMA), past it and bf16 past 768 on the SIMT core's int8-score form
+  (``mha_serving.core_of``).
 
 Each launch also adds one to the wrapper's ``forms[form]``
 (``mha_serving.form_of``).
@@ -448,7 +450,8 @@ def _core_q8_route(lib, N, C, heads, dtype, kernel="K10") -> str:
     """K10's core (``ms.core_of``, which refuses what it does not take):
     "q8" for bf16 at head dims up to 256 where the staged core's layout
     fits a block, "q8_ring" (the wgmma key ring) for the rest of bf16 up to
-    head dim 768, else "simt_q8" (the SIMT core's int8-score form)."""
+    head dim 768, "q8_exact" (the exact core's int8-score mode) for fp32 up
+    to head dim 256, else "simt_q8" (the SIMT core's int8-score form)."""
     hd = C // heads
     fits = (hd > 0 and hd <= ms.Q8_MAX_HD
             and 0 < lib.dyt_attn_core_q8_smem_bytes(N, hd)
@@ -458,7 +461,8 @@ def _core_q8_route(lib, N, C, heads, dtype, kernel="K10") -> str:
 
 
 def _core_scratch(lib, B, N, C, heads, dev):
-    """The codes' scratch of the ring and the SIMT int8-score form."""
+    """The codes' scratch of the ring, the exact core's int8-score mode and
+    the SIMT int8-score form."""
     return torch.empty((lib.dyt_simt_core_q8_scratch_bytes(B, N, C, heads),),
                        dtype=torch.uint8, device=dev)
 
@@ -483,6 +487,11 @@ def attn_core_pairs_q8(qkv: torch.Tensor, *, heads: int) -> torch.Tensor:
                                        (C // heads) ** -0.5, _stream(dev))
         elif core == "q8_ring":
             err = lib.dyt_attn_core_q8_ring(
+                _ptr(qkv), _ptr(out),
+                _ptr(_core_scratch(lib, B, N, C, heads, dev)), B, N, C,
+                heads, (C // heads) ** -0.5, _stream(dev))
+        elif core == "q8_exact":
+            err = lib.dyt_exact_core_q8(
                 _ptr(qkv), _ptr(out),
                 _ptr(_core_scratch(lib, B, N, C, heads, dev)), B, N, C,
                 heads, (C // heads) ** -0.5, _stream(dev))
@@ -530,13 +539,13 @@ def _launch_sublayer_q8(lib, x, gamma, beta, wqkv_q, sqkv, bqkv, wproj_q,
     # core flag: 1 a SIMT core (the int8-score form, the exact fp32 form
     # past ms.EXACT_MAX_HD, or the bf16 core past ms.WIDE_MAX_HD), 2 the
     # int8-score key ring, 0 a tensor-core one (wgmma, the staged int8-score
-    # core, or the exact fp32 core on DMMA)
+    # core, or the exact fp32 core on DMMA, with int8 scores its IMMA mode)
     core = (_core_q8_route(lib, N, C, heads, scratch, kernel) if attn_q8
             else ms.core_of(kernel, scratch, C // heads, heads=heads))
     flag = (2 if core == "q8_ring" else
             1 if core in ("simt_q8", "simt_exact", "simt") else 0)
     core_scratch = (_core_scratch(lib, B, N, C, heads, dev)
-                    if core in ("simt_q8", "q8_ring") else None)
+                    if core in ("simt_q8", "q8_ring", "q8_exact") else None)
     err = lib.dyt_attention_sublayer_q8(
         _ptr(x), int(x.dtype == F32), _ptr(gamma), _ptr(beta), _ptr(wqkv_q),
         _ptr(sqkv), _ptr(bqkv), _ptr(wproj_q), _ptr(sproj), _ptr(bproj),
@@ -599,7 +608,7 @@ def dyt_prologue_serving_q8(x, gamma, beta, wqkv_q, sqkv, bqkv, wproj_q,
             bup, adapter_scale, wsel, bsel, with_select)
     ms.counted(dyt_prologue_serving_q8,
                ms.form_of(wdown.dtype, x.shape[-1] // heads,
-                          ms._adapter_tail(wdown) == "simt", core))
+                          ms._adapter_tail(wdown), core))
     return outs
 
 
@@ -632,8 +641,8 @@ def dyt_prologue_serving_q8_moe(x, gamma, beta, wqkv_q, sqkv, bqkv, wproj_q,
             lib, x_mid, x_mid if xm32 is None else xm32, wrouter, wdown2d,
             bdown2d, wup2d, bup, adapter_scale, wsel, bsel, tau, with_select)
     ms.counted(dyt_prologue_serving_q8_moe,
-               ms.form_of(wdown2d.dtype, x.shape[-1] // heads,
-                          tail == "simt", core))
+               ms.form_of(wdown2d.dtype, x.shape[-1] // heads, tail,
+                          core))
     return outs
 
 

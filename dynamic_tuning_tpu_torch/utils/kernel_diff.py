@@ -17,13 +17,16 @@ versions -- the core in both modes at every shape of ``CORE`` (the staged
 kernel whole-row and in 64-key chunks, the ring past the staged N; at head
 dims 192 and 256 the wide kernel and its ring), K9 at every shape of
 ``WINDOWED`` with a padded bf16 bias, the fp32 core (``dyt_f32_core``) at
-every shape of ``F32_CORE`` with and without K9's bias, K10 at
+every shape of ``F32_CORE`` with and without K9's bias, the exact fp32
+core (``dyt_exact_core``, on trees that have it) at every shape of
+``EXACT_CORE``, K10 at
 every N of ``CORE_Q8_N`` at head dims 64 and 128
 and on the adversarial head pair, the adapter/router at every M x C x F of
 ``AR_M``, ``AR_C``, ``AR_F`` in bf16 and fp32 out, with and without the
 router, the bf16 MoE tail at every E x b, M x C of ``MOE_TAIL`` (E * b up to
-512, the widths every tree since the tail's takes), bf16 out, with and
-without the router -- it prints, per kernel, how many output elements
+512, the widths every tree since the tail's takes; those of ``MOE_WIDE``,
+up to 1024, where the other tree's tail takes them too), bf16 out, with
+and without the router -- it prints, per kernel, how many output elements
 differ and by how many ulps of their type at most, and the largest
 |difference| of the router logits.  Then it times both trees' kernels through their C entries
 at the main path's shapes (``TIMED``: K10 at B=128, N=197, 12 heads of 64
@@ -52,6 +55,8 @@ WINDOWED = ((1, 1025, 12, 64), (2, 197, 4, 128), (3, 19, 2, 64),
 F32_CORE = ((32, 197, 12, 64), (3, 19, 2, 64), (2, 129, 2, 64),
             (2, 50, 2, 128), (2, 97, 2, 192), (2, 33, 2, 256),
             (1, 1025, 2, 64))
+EXACT_CORE = ((32, 197, 12, 64), (3, 19, 2, 64), (2, 65, 6, 128),
+              (3, 197, 4, 192), (2, 197, 4, 256))
 CORE_Q8_N = (1, 17, 64, 65, 197, 256, 257, 442, 511, 512)
 AR_M = (1, 63, 64, 129, 25216)
 AR_C = (64, 128, 768, 1024)
@@ -60,6 +65,8 @@ AR_F = (16, 32, 48, 64, 96, 128)
 MOE_TAIL = ((4, 64, 6304, 768), (4, 64, 25216, 768), (2, 16, 129, 64),
             (4, 8, 1, 768), (8, 64, 1000, 768), (2, 256, 63, 768),
             (4, 128, 6304, 768), (4, 80, 200, 128))
+MOE_WIDE = ((4, 192, 6304, 768), (3, 256, 129, 768), (4, 256, 63, 768),
+            (16, 64, 200, 768))
 # (kernel, B, N, heads) for K10, (kernel, M, C, F) for the adapter/router
 TIMED = (("K10", 128, 197, 12), ("K10", 32, 512, 12), ("K10", 32, 512, 6),
          ("adapter/router", 128 * 197, 768, 64))
@@ -251,6 +258,21 @@ def main(argv) -> None:
         print(f32_core.line("fp32 core" + (", K9's bias" if with_bias
                                            else "")), flush=True)
 
+    if "dyt_exact_core" in sigs:
+        exact = Tally()
+        for B, N, H, hd in EXACT_CORE:
+            qkv = core_q8_qkv(B, N, H * hd, H, seed=N + 3).float()
+            outs = []
+            for which in (lib, other):
+                o = torch.empty((B, N, H * hd), device="cuda")
+                _build.check(which, which.dyt_exact_core(
+                    p(qkv), p(o), B, N, H * hd, H, hd ** -0.5, stream),
+                    "exact core")
+                outs.append(o)
+            torch.cuda.synchronize()
+            exact.add(*outs)
+        print(exact.line("exact fp32 core"), flush=True)
+
     core = Tally()
     for _, qkv, H in core_q8_cases():
         got = qt.attn_core_pairs_q8(qkv, heads=H)
@@ -286,7 +308,9 @@ def main(argv) -> None:
     print(adapter.line("adapter/router"), flush=True)
 
     tail = Tally()
-    for E, b, M, C in MOE_TAIL:
+    wide = tuple(c for c in MOE_WIDE
+                 if other.dyt_moe_width_supported(c[0], c[1]))
+    for E, b, M, C in MOE_TAIL + wide:
         g = torch.Generator(device="cuda").manual_seed(E * b + M)
         r = lambda *s, sc=1.0: torch.randn(s, generator=g,  # noqa: E731
                                            device="cuda") * sc
@@ -311,7 +335,8 @@ def main(argv) -> None:
             torch.cuda.synchronize()
             tail.add(outs[0][0], outs[1][0],
                      (outs[0][1], outs[1][1]) if router else None)
-    print(tail.line("MoE tail (E * b <= 512)"), flush=True)
+    print(tail.line(f"MoE tail (E * b <= {512 if not wide else 1024})"),
+          flush=True)
 
     from dynamic_tuning_tpu_torch.utils.profiling import (bound_ms,
                                                           card_line, time_ms)

@@ -4,7 +4,7 @@ scripts/profile_attention.py), and the cores at head dims 192 and 256 and
 in fp32.
 
     python -m dynamic_tuning_tpu_torch.utils.profile_attention \
-        [--part all|serving|cores|past256|exact|q8ring|moetail]
+        [--part all|serving|cores|past256|exact|q8ring|moetail|q8tail]
 
 At ViT-B/16 serving shape (B=128, N=197, 12 heads of 64, bf16 raw qkv
 ``[B, N, 3C]`` from a seed) it times, with CUDA events over 20 calls after
@@ -89,6 +89,17 @@ each beside its bound; the tail alone at 3 x 256, 4 x 256, 8 x 128 and
 16 x 64 where the tree's wgmma tail takes them; then ``speed.main --mode
 dispatch --moe_experts 4 --ffn_num 192`` at batch 32, bf16 and ``--quant int8`` (img/s; ViT-B/16 weights from a seed).
 
+With ``--part q8tail`` (alone) it times K10's int8 scores on fp32 qkv
+and the bf16 adapter tail past width 128, each by kernel beside its
+bound: K10 on fp32 qkv at B=32, N=197, C=768 in 12, 6 and 4 heads and
+C=1024 in 4 (head dims 64 to 256); K6 with fp32 adapters and int8 scores
+(12 heads of 64, F=64); K3 and K6 (int8) in bf16 at F=256 and the
+adapter/router tail alone there (bf16 out, with the router) and at
+F=1024; then ``speed.main --compute_dtype float32 --residual_dtype
+float32 --mode dispatch --quant int8_attn`` and ``speed.main --mode
+dispatch --ffn_num 256`` in bf16 and ``--quant int8``, at batch 128
+(img/s; ViT-B/16 weights from a seed).
+
 Every case touches only the wrappers and C entries that every tree of the
 port since its fp32 forms has, so this script can time an older tree
 (``PYTHONPATH=<tree> python <this file>``; run the two in turns, other,
@@ -139,9 +150,9 @@ def main(args) -> dict:
         out = cores(g, past_only=args.part == "past256")
         print(json.dumps(out))
         times.update(out)
-    if args.part in ("exact", "q8ring", "moetail"):
-        out = {"exact": exact, "q8ring": q8ring, "moetail": moetail}[
-            args.part](g)
+    if args.part in ("exact", "q8ring", "moetail", "q8tail"):
+        out = {"exact": exact, "q8ring": q8ring, "moetail": moetail,
+               "q8tail": q8tail}[args.part](g)
         print(json.dumps(out))
         times.update(out)
     return times
@@ -841,6 +852,109 @@ def moetail(g) -> dict:
     return out
 
 
+def q8tail(g) -> dict:
+    """The ``--part q8tail`` list of the module docstring, TF32 off."""
+    tf32 = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        return _q8tail(g)
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = tf32
+
+
+def _q8tail(g) -> dict:
+    from unittest import mock
+
+    import numpy as np
+
+    from dynamic_tuning_tpu_torch import speed
+    from dynamic_tuning_tpu_torch.checkpoint import make_vit_state_dict
+    f64 = "fp64" if "fp64" in PEAK else "fp32"
+    out = {}
+    lib = _build.library()
+    M = CORES_B * N
+    for width, heads in ((768, 12), (768, 6), (768, 4), (1024, 4)):
+        hd = width // heads
+        qkv = _qkv(g, CORES_B, N, width, F32)
+        name = f"K10 fp32 hd {hd}"
+
+        def call(qkv=qkv, heads=heads):
+            return qt.attn_core_pairs_q8(qkv, heads=heads)
+        # the int8 scores at the int8 peak, the float64 P V at the FP64
+        # tensor peak
+        _line(out, name, call, (qkv,),
+              {"int8": 2 * CORES_B * heads * N * N * hd,
+               f64: 2 * CORES_B * heads * N * N * hd})
+        _split_line(out, name, call)
+    gemm = 8 * M * C * C
+    attn = 2 * CORES_B * H * N * N * HD
+    x = torch.randn((CORES_B, N, C), generator=g, device="cuda")
+    sub, ad, _ = _weights(g, C, F32)
+    qsub = (*sub[:2], *qt.quantize_weight(sub[2]), sub[3],
+            *qt.quantize_weight(sub[4]), sub[5])
+
+    def k6():
+        return qt.dyt_prologue_serving_q8(x, *qsub, *ad, heads=H,
+                                          attn_q8=True)
+    _line(out, "K6 fp32 int8 scores", k6, (x, *qsub, *ad),
+          {"int8": gemm + attn,
+           f64: attn + 4 * M * C * F_ADAPT + 2 * M * C})
+    _split_line(out, "K6 fp32 int8 scores", k6)
+    # bf16 at F = 256 (the weights at their kernel width: 256 is one)
+    wide = 256
+    r = lambda *s_, sc=1.0: torch.randn(  # noqa: E731
+        s_, generator=g, device="cuda") * sc
+    xb = x.to(BF)
+    sub_b, _, _ = _weights(g, C, BF)
+    qsub_b = (*sub_b[:2], *qt.quantize_weight(sub_b[2].float()), sub_b[3],
+              *qt.quantize_weight(sub_b[4].float()), sub_b[5])
+    x_mid = torch.randn((CORES_B, N, C), generator=g, device="cuda")
+    x_mid_bf = x_mid.to(BF)
+    for F in (wide, 1024):
+        ad_b = (r(F, C, sc=0.03).to(BF), r(F, sc=0.02),
+                r(C, F, sc=0.02).to(BF), r(C, sc=0.01), ad[4], ad[5], ad[6])
+        tail = 4 * M * C * F
+        _line(out, f"adapter tail bf16 F={F} (router)",
+              lambda ad_b=ad_b: ms.launch_adapter_router(
+                  lib, x_mid_bf, x_mid, *ad_b, True)[1:],
+              (x_mid, *ad_b), {"bf16": tail, "fp32": 2 * M * C})
+        if F != wide:
+            continue
+        for name, call, ins, ops in (
+                (f"K3 bf16 F={F}", lambda: ms.dyt_prologue_serving(
+                    xb, *sub_b, *ad_b, heads=H), (xb, *sub_b, *ad_b),
+                 {"bf16": gemm + 2 * attn + tail, "fp32": 2 * M * C}),
+                (f"K6 bf16 F={F}", lambda: qt.dyt_prologue_serving_q8(
+                    xb, *qsub_b, *ad_b, heads=H), (xb, *qsub_b, *ad_b),
+                 {"int8": gemm, "bf16": 2 * attn + tail,
+                  "fp32": 2 * M * C})):
+            _line(out, name, call, ins, ops)
+            _split_line(out, name, call)
+    for ffn, flags in (
+            (F_ADAPT, ["--compute_dtype", "float32", "--residual_dtype",
+                       "float32", "--quant", "int8_attn"]),
+            (wide, ["--ffn_num", str(wide)]),
+            (wide, ["--ffn_num", str(wide), "--quant", "int8"])):
+        sd = {k: torch.from_numpy(v) for k, v in make_vit_state_dict(
+            np.random.RandomState(0), depth=12, dim=C, ffn=ffn, classes=100,
+            img=224, patch=16, router_scale=25.0).items()}
+        args = speed.get_args_parser().parse_args(["--mode", "dispatch"]
+                                                  + flags)
+        with contextlib.redirect_stdout(io.StringIO()), mock.patch.object(
+                torch.nn.init, "trunc_normal_", lambda t, *a, **k: t):
+            ips = speed.main(args, state_dict=sd)["throughput_img_s"]
+        key = f"speed {' '.join(flags)} img/s"
+        out[key] = ips
+        print(f"speed --mode dispatch {' '.join(flags)} (batch 128): {ips} "
+              "img/s", flush=True)
+        del sd
+        torch.cuda.empty_cache()
+    return out
+
+
 def entry_host_us(q, k, v, calls: int = 200) -> float:
     """Host microseconds a call of ``dyt_mha_core`` (K1 mode) on strided
     bf16 q, k, v, from an idle card."""
@@ -865,7 +979,7 @@ def get_args_parser() -> argparse.ArgumentParser:
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--part", default="all",
                    choices=("all", "serving", "cores", "past256",
-                            "exact", "q8ring", "moetail"))
+                            "exact", "q8ring", "moetail", "q8tail"))
     return p
 
 

@@ -1830,6 +1830,129 @@ def test_exact_core_bits(B, N, H, hd):
     assert torch.equal(out, want), (out != want).float().mean().item()
 
 
+# K10 on fp32 qkv at head dims 64 to 256: the exact core's int8-score mode
+# (IMMA scores over q8_codes.cuh's codes, P V in float64 on DMMA); the
+# codes and the int32 scores are exact, l and P V float64 sums rounded
+# once, so it lands on the plain version's bits (as the SIMT form did).
+# (B, N, H, hd, adversarial head pair)
+Q8_EXACT_SHAPES = [(32, 197, 12, 64, False),  # ViT-B/16 rows (fp32 serving)
+                   (3, 19, 2, 64, False),     # ragged tokens, one key chunk
+                   (2, 65, 6, 128, False),    # a partial query tile
+                   (2, 197, 2, 128, True),
+                   (2, 197, 4, 192, False),
+                   (3, 19, 4, 192, True),
+                   (2, 197, 4, 256, False),
+                   (2, 600, 2, 64, False),    # past N = 512
+                   (1, 600, 2, 256, True)]
+
+
+def fp32_q8_qkv(B, N, H, hd, *, pair, seed):
+    """fp32 raw qkv: keys with a common lane offset; with ``pair`` the
+    adversarial head pair (head 0's keys at half range, head 1's at 10x)."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    C = H * hd
+    qkv = torch.randn((B, N, 3 * C), generator=g, device="cuda")
+    k = qkv[..., C:2 * C].view(B, N, H // 2, 2, hd)
+    if pair:
+        k[..., 0, :] *= 0.5
+        k[..., 1, :] *= 10.0
+    qkv[..., C:2 * C] += 1.0
+    return qkv
+
+
+@pytest.mark.parametrize("B,N,H,hd,pair", Q8_EXACT_SHAPES)
+def test_exact_core_q8_bits(B, N, H, hd, pair):
+    """fp32 K10 on the exact core's int8-score mode bit-identical to
+    ``attn_core_pairs_q8_plain``: through its C entry and through the
+    wrapper, which routes it there ("q8_exact") and counts the form
+    "fp32+q8_exact"."""
+    qkv = fp32_q8_qkv(B, N, H, hd, pair=pair, seed=hd + N)
+    C = H * hd
+    lib = kd_lib()
+    assert qt._core_q8_route(lib, N, C, H, F32) == "q8_exact"
+    out = torch.full((B, N, C), float("nan"), device="cuda")
+    scratch = qt._core_scratch(lib, B, N, C, H, qkv.device)
+    err = lib.dyt_exact_core_q8(qkv.data_ptr(), out.data_ptr(),
+                                scratch.data_ptr(), B, N, C, H, hd ** -0.5,
+                                torch.cuda.current_stream().cuda_stream)
+    assert err == 0, lib.dyt_error_string(err)
+    torch.cuda.synchronize()
+    want = qt.attn_core_pairs_q8_plain(qkv, heads=H)
+    assert torch.equal(out, want), (out != want).float().mean().item()
+    before = _form_count(qt.attn_core_pairs_q8, "fp32+q8_exact")
+    got = qt.attn_core_pairs_q8(qkv, heads=H)
+    torch.cuda.synchronize()
+    assert _form_count(qt.attn_core_pairs_q8, "fp32+q8_exact") == before + 1
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("B,N,C,H,F", [(32, 197, 768, 12, 64),
+                                       (2, 65, 768, 6, 16),
+                                       (2, 33, 1024, 4, 8)])
+def test_q8_exact_chains(B, N, C, H, F):
+    """K6 and K8 with fp32 adapters and int8 scores take the exact core's
+    int8-score mode in their chain (forms "fp32+q8_exact") and give the
+    plain versions' bits: the core lands on them, and every other step of
+    the chains is exact (the int8 GEMMs) or float64 (the tails)."""
+    x, sub, ad = fp32_inputs(B, N, C, F, seed=17)
+    qs = q8_sub(sub)
+    moe = moe_inputs_f32(C, 4, F, seed=18)
+    for fn, args, plain in (
+            (qt.dyt_prologue_serving_q8, (x, *qs, *ad),
+             qt.dyt_prologue_q8_plain),
+            (qt.dyt_prologue_serving_q8_moe, (x, *qs, *moe, *ad[5:]),
+             qt.dyt_prologue_q8_moe_plain)):
+        kw = dict(heads=H, attn_q8=True)
+        if fn is qt.dyt_prologue_serving_q8_moe:
+            kw["tau"] = 0.7
+        before = (_form_count(fn, "fp32+q8_exact"),
+                  _form_count(qt.attn_core_pairs_q8, "fp32+q8_exact"))
+        got = fn(*args, **kw)
+        torch.cuda.synchronize()
+        assert (_form_count(fn, "fp32+q8_exact"),
+                _form_count(qt.attn_core_pairs_q8, "fp32+q8_exact")) == (
+                    before[0] + 1, before[1] + 1)
+        want = plain(*args, **kw)
+        for name, a, b in zip(("x_mid", "adapt", "logits"), got, want):
+            assert torch.equal(a, b.reshape(a.shape)), (
+                fn.__name__, name, (a != b.reshape(a.shape)).float().mean()
+                .item())
+
+
+# the dense adapter/router tail on the MoE tail's kernel gate-free: bf16
+# widths past 128 (multiples of 16 up to 1024), C of ViT-B and ViT-L
+WIDE_TAIL = [(M, C, F) for F in (136, 256, 512, 1024) for C in (768, 1024)
+             for M in (63, 6304)]
+
+
+@pytest.mark.parametrize("M,C,F", WIDE_TAIL)
+def test_wide_adapter_tail(M, C, F):
+    """The adapter/router tail past width 128 (F = 136 padded to 144, 256,
+    512, 1024) on the MoE tail's wgmma kernel, gate-free, against its plain
+    version: adapt in bf16 and fp32 within two bf16 ulps of its largest
+    magnitude, router logits within 2e-3, with and without the router."""
+    from dynamic_tuning_tpu_torch.ops import _build
+    lib = _build.library()
+    g = torch.Generator(device="cuda").manual_seed(F + C + M)
+    xm = torch.randn((1, M, C), generator=g, device="cuda")
+    _, _, ad = make_inputs(1, 1, C, F, seed=F + M)
+    width = ms.adapter_kernel_width(F, BF)
+    pad = (*ms.pad_adapter_weights(*ad[:3], width), *ad[3:])
+    assert ms._adapter_tail(pad[0]) == "wide" and width % 16 == 0
+    for dtype in (BF, F32):
+        x_mid = xm.to(dtype)
+        for router in (True, False):
+            ms.check_adapter_router(lib, x_mid, *pad, router)
+            got = ms.launch_adapter_router(lib, x_mid, xm, *pad, router)
+            torch.cuda.synchronize()
+            want = ms.adapter_router_plain(xm, dtype, *ad,
+                                           with_select=router)
+            assert got[1].dtype == dtype and got[1].shape == (1, M, C)
+            bf16_close(got[1], want[1], f"adapt F={F} {dtype}")
+            if router:
+                logits_close(got[2], want[2])
+
+
 @pytest.mark.parametrize("with_select", [True, False],
                          ids=["router", "no_router"])
 @pytest.mark.parametrize("E,b,M,C", [
@@ -1888,8 +2011,8 @@ def test_simt_core_forms(B, N, H, hd, dtype):
     """K1 (fp32 on the fp32 core at every head dim, bf16 at 192 and 256 on
     the wgmma core), K9 with its bf16 bias (fp32 on the fp32 core, bf16 at
     192 and 256 on the wgmma core's ring with the bias blocks), K15 at 192
-    and 256 (the wgmma core), and K10 on fp32 qkv (the SIMT core's
-    int8-score form) or at head dims 192 and 256 (the int8-score wgmma
+    and 256 (the wgmma core), and K10 on fp32 qkv (the exact core's
+    int8-score mode) or at head dims 192 and 256 (the int8-score wgmma
     core), each against its plain version, each counted under its form."""
     qkv = core_qkv(B, N, H, hd).to(dtype)
     qkv[..., H * hd:2 * H * hd] += 1.0             # keys with a lane offset
@@ -1926,7 +2049,7 @@ def test_simt_core_forms(B, N, H, hd, dtype):
         contract_close(got, want, "K15")
     if dtype == F32 or wide:
         core10 = qt._core_q8_route(kd_lib(), N, H * hd, H, dtype)
-        assert core10 == ("simt_q8" if dtype == F32 else "q8")
+        assert core10 == ("q8_exact" if dtype == F32 else "q8")
         form10 = ms.form_of(dtype, hd, core=core10)
         before = _form_count(qt.attn_core_pairs_q8, form10)
         got = qt.attn_core_pairs_q8(qkv, heads=H)
@@ -2333,16 +2456,20 @@ def test_f32_core(B, N, H, hd, mode):
                f"fp32 core ({mode})")
 
 
-@pytest.mark.parametrize("F", [8, 24, 100, 256])
+@pytest.mark.parametrize("F", [8, 24, 100, 256, 200, 1040])
 def test_bf16_adapter_widths(F):
-    """K3 and K6 at a bf16 width the wgmma tail is not built for: padded
-    (F <= 128, as Adapter.kernel_weights does) onto the wgmma tail, or on
-    the SIMT tail (256); against the plain version on the unpadded
-    weights."""
+    """K3 and K6 at a bf16 width the wgmma adapter tail is not built for:
+    padded (as Adapter.kernel_weights does) onto the wgmma tail (F <= 128)
+    or onto the MoE tail's wgmma kernel gate-free (200 -> 208, 256), or on
+    the SIMT tail (1040, past 1024); against the plain version on the
+    unpadded weights."""
     x, sub, ad = make_inputs(4, 197, 768, F, seed=9)
     width = ms.adapter_kernel_width(F, BF)
     pad = (*ms.pad_adapter_weights(*ad[:3], width), *ad[3:])
-    form = "bf16" if width != F else "bf16+simt_tail"
+    form = {"wgmma": "bf16", "wide": "bf16+wide_tail",
+            "simt": "bf16+simt_tail"}[ms._adapter_tail(pad[0])]
+    assert form == ("bf16" if F <= 128 else "bf16+simt_tail" if F > 1024
+                    else "bf16+wide_tail")
     before = ms.dyt_prologue_serving.forms.get(form, 0)
     got = ms.dyt_prologue_serving(x, *sub, *pad, heads=12)
     torch.cuda.synchronize()
@@ -2351,8 +2478,10 @@ def test_bf16_adapter_widths(F):
     bf16_close(got[0], want[0], "K3 x_mid")
     bf16_close(got[1], want[1], "K3 adapt")
     logits_close(got[2], want[2])
+    before = qt.dyt_prologue_serving_q8.forms.get(form, 0)
     got = qt.dyt_prologue_serving_q8(x, *q8_sub(sub), *pad, heads=12)
     torch.cuda.synchronize()
+    assert qt.dyt_prologue_serving_q8.forms[form] == before + 1
     want = qt.dyt_prologue_q8_plain(x, *q8_sub(sub), *ad, heads=12)
     bf16_close(got[1], want[1], "K6 adapt")
     logits_close(got[2], want[2])
@@ -2360,11 +2489,29 @@ def test_bf16_adapter_widths(F):
 
 def test_adapter_widths_are_the_kernels():
     """The wrappers route a bf16 adapter to the wgmma tail at the widths of
-    ms.AR_WIDTHS: the widths the kernel is instantiated for."""
+    ms.AR_WIDTHS, the widths the kernel is instantiated for, and past them
+    to the MoE tail's kernel gate-free at every multiple of 16 up to
+    ms.MOE_MAX_W, the widths its C entry takes (each within a block's
+    shared memory); it refuses the rest, which the SIMT tail takes."""
     from dynamic_tuning_tpu_torch.ops import _build
     lib = _build.library()
     assert tuple(F for F in range(1, 1025)
                  if lib.dyt_adapter_width_supported(F)) == ms.AR_WIDTHS
+    stream = torch.cuda.current_stream().cuda_stream
+    wide = []
+    for F in range(ms.AR_WIDTHS[-1] + 1, ms.MOE_MAX_W + 33):
+        # M = 0: the entry checks the width and the layout, launches nothing
+        err = lib.dyt_moe_adapter_router(None, 0, 768, None, None, None,
+                                         None, None, None, None, None, None,
+                                         0, None, 1, F, 1.0, stream)
+        if err == 0:
+            wide.append(F)
+            assert lib.dyt_moe_smem_bytes(1, F) <= ms.SMEM_PER_BLOCK
+        assert ms._adapter_tail(torch.empty((F, 768), dtype=BF)) == (
+            "wide" if err == 0 else "simt"), F
+    assert wide == list(range(144, ms.MOE_MAX_W + 1, 16))
+    assert [ms.adapter_kernel_width(F, BF) for F in (129, 1000, 1025)] == [
+        144, 1008, 1025]
 
 
 def test_core_routes_follow_the_flag():
@@ -2435,7 +2582,8 @@ def test_bf16_head_dims_192_and_256(C, H):
 
 def test_fp32_model_launches_only_fp32_forms():
     """An fp32 DyT ViT on the card: every fused block takes K3's fp32 form
-    (dispatch), K6's and K10's with int8_attn, and nothing else."""
+    (dispatch), K6's and K10's on the exact core's int8-score mode with
+    int8_attn, and nothing else."""
     from dynamic_tuning_tpu_torch.config import (ModelConfig, SelectConfig,
                                                  TuningConfig)
     from dynamic_tuning_tpu_torch.models.vit import VisionTransformer
@@ -2456,6 +2604,6 @@ def test_fp32_model_launches_only_fp32_forms():
         if quant == "none":
             assert ms.dyt_prologue_serving.forms == {"fp32": 2}
         else:
-            assert qt.dyt_prologue_serving_q8.forms == {"fp32": 2}
-            assert qt.attn_core_pairs_q8.forms == {"fp32": 2}
+            assert qt.dyt_prologue_serving_q8.forms == {"fp32+q8_exact": 2}
+            assert qt.attn_core_pairs_q8.forms == {"fp32+q8_exact": 2}
             assert ms.dyt_prologue_serving.launches == 0

@@ -184,7 +184,11 @@ Q8_PROLOGUE_CASES = (
     + [pytest.param("float32", s, False, dims,
                     id=f"float32-{'router' if s else 'no_router'}-core"
                        f"-N{dims[0]}-hd{dims[1] // dims[2]}-F{dims[3]}")
-       for dims in Q8_FP32_DIMS for s in (True, False)])
+       for dims in Q8_FP32_DIMS for s in (True, False)]
+    # int8 scores with fp32 adapters at head dim 128 (the exact core's
+    # int8-score mode on the card)
+    + [pytest.param("float32", True, True, (65, 256, 2, 64),
+                    id="float32-router-int8_attn-N65-hd128-F64")])
 
 
 @pytest.mark.parametrize("dtype,with_select,attn_q8,dims", Q8_PROLOGUE_CASES)

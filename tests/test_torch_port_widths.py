@@ -134,10 +134,22 @@ def _check(jm, params, tm, x, kwargs, dtype, *, rel=None):
 # --- padding ------------------------------------------------------------------
 
 def test_kernel_widths():
+    # up to 128 the wgmma adapter/router kernel's widths; past it up to
+    # ms.MOE_MAX_W = 1024 the next multiple of 16 (the MoE tail's wgmma
+    # kernel, gate-free); past 1024 the SIMT tail at F itself
     assert [ms.adapter_kernel_width(f, BF) for f in (1, 8, 16, 24, 33, 100,
-                                                     128, 129, 256)] == [
-        16, 16, 16, 32, 48, 128, 128, 129, 256]
+                                                     128, 129, 200, 256,
+                                                     1024, 1025)] == [
+        16, 16, 16, 32, 48, 128, 128, 144, 208, 256, 1024, 1025]
     assert ms.adapter_kernel_width(8, torch.float32) == 8
+    assert ms.adapter_kernel_width(200, torch.float32) == 200
+    tail = lambda F, C=768, dt=BF: ms._adapter_tail(  # noqa: E731
+        torch.empty((F, C), dtype=dt))
+    assert [tail(F) for F in (16, 128, 144, 208, 256, 1024, 1025)] == [
+        "wgmma", "wgmma", "wide", "wide", "wide", "wide", "simt"]
+    assert tail(200) == "simt"            # unpadded: not a multiple of 16
+    assert tail(256, C=96) == "simt"      # C % 64 != 0
+    assert tail(256, dt=torch.float32) == "f64"
     assert ms.moe_kernel_bneck(2, 4, BF) == 8
     assert ms.moe_kernel_bneck(3, 5, BF) == 16          # 48
     assert ms.moe_kernel_bneck(4, 64, BF) == 64
@@ -152,7 +164,11 @@ def test_kernel_widths():
     assert ms.moe_kernel_bneck(2, 4, torch.float32) == 4
     assert ms.form_of(torch.float32, 64) == "fp32"
     assert ms.form_of(BF, 64) == "bf16"
-    assert ms.form_of(BF, 192, True) == "bf16+wide_heads+simt_tail"
+    assert ms.form_of(BF, 192, "simt") == "bf16+wide_heads+simt_tail"
+    # a tail that is not SIMT is not reported as one
+    assert ms.form_of(BF, 64, "wide") == "bf16+wide_tail"
+    assert ms.form_of(BF, 64, "wgmma") == "bf16"
+    assert ms.form_of(torch.float32, 64, "f64") == "fp32"
 
 
 def _adapter(rs, F, C=128):
@@ -162,7 +178,7 @@ def _adapter(rs, F, C=128):
             torch.full((1,), 0.1), t(1, C, sc=0.3), t(1, sc=0.1))
 
 
-@pytest.mark.parametrize("F", [8, 24, 100])
+@pytest.mark.parametrize("F", [8, 24, 100, 200])
 def test_padded_adapter_is_exact(F):
     rs = np.random.RandomState(F)
     wd, bd, wu, bu, sc, ws, bs = _adapter(rs, F)
@@ -230,11 +246,12 @@ MODES = {"dispatch": {"dispatch": True}, "dense": {"complete_model": True}}
 
 
 @pytest.mark.parametrize("ffn,mode", [(8, "dense"), (24, "dispatch"),
-                                      (256, "dense")])
+                                      (256, "dense"), (200, "dispatch")])
 def test_bf16_adapter_widths_match_jax(monkeypatch, ffn, mode):
     """bf16 at adapter widths padded to the wgmma tail's (8 -> 16, 24 ->
-    32) and past it (256, the SIMT tail); each width in one mode (the fp32
-    file takes the other pairings; the plain ViT, which has no adapter, is
+    32) and past it (256, and 200 padded to 208: the MoE tail's wgmma
+    kernel, gate-free); each width in one mode (the fp32 file takes the
+    other pairings; the plain ViT, which has no adapter, is
     tests/test_torch_port_model.py::test_model_matches_jax_bf16[plain])."""
     jm, params, tm, x = _pair(monkeypatch, dtype="bfloat16", ffn=ffn)
     wd = tm.blocks[0].adaptmlp.kernel_weights()[0]
@@ -378,18 +395,21 @@ ROUTES = {
            (BF, 192, 1, 1): "q8", (BF, 256, 1, 0): "q8_ring"},
     "K6": {(BF, 256, 0, 1): "wgmma", (BF, 128, 1, 1): "q8",
            (BF, 256, 1, 1): "q8", (F32, 64, 0, 1): "f32_exact",
-           (F32, 64, 1, 1): "simt_q8", (F32, 192, 0, 1): "f32_exact"},
+           (F32, 64, 1, 1): "q8_exact", (F32, 128, 1, 1): "q8_exact",
+           (F32, 256, 1, 0): "q8_exact", (F32, 192, 0, 1): "f32_exact"},
     "K8": {(BF, 192, 0, 1): "wgmma", (BF, 64, 1, 1): "q8",
            (BF, 128, 1, 0): "q8_ring",
-           (F32, 64, 0, 1): "f32_exact", (F32, 64, 1, 1): "simt_q8"},
+           (F32, 64, 0, 1): "f32_exact", (F32, 64, 1, 1): "q8_exact",
+           (F32, 192, 1, 1): "q8_exact"},
     "K9": {(BF, 64, 0, 1): "windowed", (BF, 128, 0, 1): "windowed",
            (BF, 192, 0, 1): "windowed", (BF, 256, 0, 1): "windowed",
            (F32, 64, 0, 1): "f32", (F32, 256, 0, 1): "f32"},
     "K10": {(BF, 64, 0, 1): "q8", (BF, 128, 0, 1): "q8",
             (BF, 128, 0, 0): "q8_ring", (BF, 192, 0, 1): "q8",
             (BF, 256, 0, 1): "q8", (BF, 192, 0, 0): "q8_ring",
-            (BF, 64, 0, 0): "q8_ring", (F32, 64, 0, 1): "simt_q8",
-            (F32, 192, 0, 0): "simt_q8"},
+            (BF, 64, 0, 0): "q8_ring", (F32, 64, 0, 1): "q8_exact",
+            (F32, 128, 0, 1): "q8_exact", (F32, 192, 0, 0): "q8_exact",
+            (F32, 256, 0, 1): "q8_exact"},
 }
 # past head dim 256, up to WIDE_MAX_HD: bf16 K1, K15, K9 and the cores
 # without int8 scores on the wgmma core past 256, fp32 K1, K9 and the cores
@@ -398,7 +418,8 @@ ROUTES = {
 # WIDE_MAX_HD (the ceiling: the q tile and two stages of K no longer fit a
 # block) the SIMT core's slices and the SIMT int8-score form; fp32 K10 and
 # int8-score cores on the SIMT int8-score form, fp32 K6 and K8 on the
-# slices kernel's exact form (the DMMA exact core stops at ms.EXACT_MAX_HD)
+# slices kernel's exact form (the DMMA exact core and its int8-score mode
+# stop at ms.EXACT_MAX_HD)
 for _hd in WIDE + PAST:
     _past = _hd in PAST
     for _k in ("K1", "K2", "K3", "K7"):
@@ -427,12 +448,15 @@ def test_core_routes(kernel):
     K9 on the fp32 core; bf16 K10 (and K5, K6, K8 with int8 scores) on the
     staged int8-score core up to 256 where its layout fits, on the
     int8-score key ring where it does not and past 256 up to 768, fp32 K10
-    on the SIMT core's int8-score form; fp32 K6, K8 on the exact core up to
-    256 and on the SIMT core's exact form past it; past 768 every core on
+    (and K6, K8 with int8 scores) on the exact core's int8-score mode up to
+    256 and on the SIMT core's int8-score form past it; fp32 K6, K8 on the
+    exact core up to 256 and on the SIMT core's exact form past it; past
+    768 every core on
     the SIMT core; K5 and K15 in fp32 on none (K5's scratch is bf16); and
     the forms the counts are kept under (past 256 "+past_256" on the wgmma
     and fp32 cores, "+q8_ring" on the key ring at any head dim,
-    "+simt_core" on the SIMT core's).  Head dims JAX does not fuse,
+    "fp32+q8_exact" on the exact core's int8-score mode, "+simt_core" on
+    the SIMT core's).  Head dims JAX does not fuse,
     and odd head counts (but for K15, which pairs no heads), raise here
     alone."""
     for (dtype, hd, q8, fits), core in ROUTES[kernel].items():
@@ -441,6 +465,7 @@ def test_core_routes(kernel):
         assert got == core, (kernel, dtype, hd, q8, fits, got)
         want = ("fp32+past_256" if dtype == F32 and core == "f32"
                 and hd > 256 else
+                "fp32+q8_exact" if core == "q8_exact" else
                 "fp32" if dtype == F32 else
                 "bf16+q8_ring" if core == "q8_ring" else
                 "bf16" if hd in (64, 128) else
